@@ -1,0 +1,17 @@
+"""pathtracer_tpu_torch: the Monte-Carlo path tracer of pathtracer_tpu, ported
+to PyTorch and CUDA for an NVIDIA H100 (Hopper, sm_90a).
+
+The JAX package beside it stays the reference. This package imports torch
+and never jax. Ported so far: the primitive, untextured forward path.
+
+- ``geometry``  numpy tuples, 4x4 matrices and transforms (host)
+- ``scene``     shapes, materials and packing to device tensors
+- ``render``    the camera, the tile layout and tables, and the forward
+                megakernel (``csrc/megakernel.cu``) with its plain PyTorch
+                version
+- ``driver``    segmented rendering, checkpoint/resume, metrics
+- ``io``        PNG (standard library) and big-endian .raw writers
+- ``scenes``    the registered scenes this package can render
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,457 @@
+// Forward path-tracing megakernel for primitive scenes, for Hopper (sm_90a).
+//
+// Replaces pathtracer_tpu/render/pallas_kernel.py::_make_kernel, launched by
+// trace_tiles (the primitive, untextured branch without NEE): per tile slot,
+// `spp` samples of a jittered camera ray (sunflower depth of field when the
+// aperture is set), each bounced up to `max_bounces` times through the
+// plane/sphere/cylinder/box tests, the material roulette (reflect, thin
+// shell, Schlick refraction, diffuse), the cosine hemisphere and the
+// forward-folded resolve. Output: the f32 RGB radiance sum per slot.
+//
+// Design. One thread owns one tile slot (one path at a time): the thread
+// derives (tile = row / S, r0 = row % S, r1 = lane) from its global index,
+// so the JAX package's (S, L) tile survives only as a numbering of the
+// random stream. The object table (<= 64 rows of 45 floats) and the camera
+// vector are staged in shared memory once per block, and the type codes ride
+// in the launch parameters; the TPU kernel's static unroll over objects
+// becomes a loop with a switch on the type. Its per-tile early exit becomes
+// a per-ray break, which is equivalent because dead rays are inert. Random numbers come from the stateless murmur3 counter hash of
+// pallas_kernel._prng_seed/_uniform, keyed on (seed, tile, draw id, sample,
+// bounce, slot), so the kernel traces the same paths as the interpret-mode
+// JAX kernel and the plain PyTorch version. Compiled with -fmad=false and
+// IEEE sqrt/division so each operation rounds as theirs do.
+//
+// What bounds it: arithmetic and divergence, not bytes. Each slot reads two
+// ints and writes three floats; everything else lives in registers and
+// shared memory. Paths end at different bounces, so warps diverge. The
+// kernel allocates nothing and does not synchronise; it runs on the stream
+// it is given.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kObjCols = 45;
+constexpr int kCamCols = 17;
+constexpr int kThreads = 128;
+constexpr int kMaxObjects = 64;  // type codes travel in the launch params
+constexpr float kBig = 1e30f;
+constexpr float kTwoPi = 6.283185307179586f;
+constexpr float kInv24 = 5.9604644775390625e-08f;  // 2^-24
+
+enum { PLANE = 0, SPHERE = 1, CYLINDER = 2, BOX = 3 };
+
+// ---- counter-hash PRNG (pallas_kernel.py:660-731) -------------------------
+
+__device__ __forceinline__ uint32_t tile_key(uint32_t seed, uint32_t tile) {
+  return (seed * 0x9E3779B1u) ^ (tile * 0x85EBCA77u);
+}
+
+// A draw without a bounce index (the jitter) is the b == 0 case: the hash
+// adds b * 0x165667B1.
+__device__ __forceinline__ float hash_uniform(uint32_t key, uint32_t elem,
+                                              uint32_t did, uint32_t n,
+                                              uint32_t b) {
+  uint32_t h = key ^ (did * 0xC2B2AE3Du);
+  h += n * 0x27D4EB2Fu;
+  h += b * 0x165667B1u;
+  uint32_t x = h + elem;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return (float)(x >> 8) * kInv24;
+}
+
+// ---- ray-primitive functions (pallas_kernel.py:761-878) -------------------
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
+                                     float by, float bz) {
+  return ax * bx + ay * by + az * bz;
+}
+
+__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
+  const float inv = 1.0f / sqrtf(x * x + y * y + z * z);
+  x = x * inv;
+  y = y * inv;
+  z = z * inv;
+}
+
+__device__ __forceinline__ void axis_slab(float o, float d, float mn, float mx,
+                                          float eps, float& lo, float& hi) {
+  float t1, t2;
+  if (fabsf(d) >= eps) {
+    t1 = (mn - o) / d;
+    t2 = (mx - o) / d;
+  } else {
+    t1 = (mn - o) * kBig;
+    t2 = (mx - o) * kBig;
+  }
+  lo = fminf(t1, t2);
+  hi = fmaxf(t1, t2);
+}
+
+__device__ __forceinline__ float plane_t(float oy, float dy, float eps) {
+  if (!(fabsf(dy) > eps)) return kBig;
+  const float t = -oy / dy;
+  return t > eps ? t : kBig;
+}
+
+__device__ __forceinline__ float sphere_t(float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float eps) {
+  const float a = dx * dx + dy * dy + dz * dz;
+  const float t_mid = -(ox * dx + oy * dy + oz * dz) / a;
+  const float mx = ox + dx * t_mid;
+  const float my = oy + dy * t_mid;
+  const float mz = oz + dz * t_mid;
+  const float perp2 = mx * mx + my * my + mz * mz;
+  if (!(perp2 < 1.0f)) return kBig;
+  const float dt = sqrtf((1.0f - perp2) / a);
+  const float t1 = t_mid - dt;
+  const float t2 = t_mid + dt;
+  return fminf(t1 > eps ? t1 : kBig, t2 > eps ? t2 : kBig);
+}
+
+__device__ __forceinline__ float cylinder_t(float ox, float oy, float oz,
+                                            float dx, float dy, float dz,
+                                            float min_y, float max_y,
+                                            float eps) {
+  const float a = dx * dx + dz * dz;
+  if (!(fabsf(a) >= eps)) return kBig;
+  const float t_mid = -(ox * dx + oz * dz) / a;
+  const float mx = ox + dx * t_mid;
+  const float mz = oz + dz * t_mid;
+  const float perp2 = mx * mx + mz * mz;
+  if (!(perp2 <= 1.0f)) return kBig;
+  const float dt = sqrtf((1.0f - perp2) / a);
+  const float t0 = t_mid - dt;
+  const float t1 = t_mid + dt;
+  const float y0 = oy + t0 * dy;
+  const float y1 = oy + t1 * dy;
+  const bool v0 = (y0 > min_y) && (y0 < max_y) && (t0 > eps);
+  const bool v1 = (y1 > min_y) && (y1 < max_y) && (t1 > eps);
+  return fminf(v0 ? t0 : kBig, v1 ? t1 : kBig);
+}
+
+__device__ __forceinline__ float box_t(float ox, float oy, float oz, float dx,
+                                       float dy, float dz, float eps) {
+  float x1, x2, y1, y2, z1, z2;
+  axis_slab(ox, dx, -1.0f, 1.0f, eps, x1, x2);
+  axis_slab(oy, dy, -1.0f, 1.0f, eps, y1, y2);
+  axis_slab(oz, dz, -1.0f, 1.0f, eps, z1, z2);
+  const float tmin = fmaxf(fmaxf(x1, y1), z1);
+  const float tmax = fminf(fminf(x2, y2), z2);
+  if (!(tmin <= tmax)) return kBig;
+  return fminf(tmin > eps ? tmin : kBig, tmax > eps ? tmax : kBig);
+}
+
+// tracer.cl:485-505
+__device__ __forceinline__ float schlick(float cx, float cy, float cz,
+                                         float nx, float ny, float nz,
+                                         float n1, float n2) {
+  const float cos = dot3(cx, cy, cz, nx, ny, nz);
+  const float n = n1 / n2;
+  const float sin2t = (n * n) * (1.0f - cos * cos);
+  if ((n1 > n2) && (sin2t > 1.0f)) return 1.0f;
+  const float cos_t = sqrtf(fmaxf(1.0f - sin2t, 0.0f));
+  const float cos_eff = n1 > n2 ? cos_t : cos;
+  const float temp = (n1 - n2) / (n1 + n2);
+  const float r0 = temp * temp;
+  const float m = 1.0f - cos_eff;
+  const float m2 = m * m;
+  return r0 + (1.0f - r0) * (m2 * m2 * m);
+}
+
+__device__ __forceinline__ void refract(float cx, float cy, float cz,
+                                        float nx, float ny, float nz,
+                                        float n1, float n2, float& rx,
+                                        float& ry, float& rz) {
+  const float cos_i = dot3(cx, cy, cz, nx, ny, nz);
+  const float ratio = n1 / n2;
+  const float sin2t = (ratio * ratio) * (1.0f - cos_i * cos_i);
+  const float cos_t = sqrtf(fmaxf(1.0f - sin2t, 0.0f));
+  const float k = ratio * cos_i - cos_t;
+  if (sin2t <= 1.0f) {
+    rx = nx * k - cx * ratio;
+    ry = ny * k - cy * ratio;
+    rz = nz * k - cz * ratio;
+  } else {
+    rx = 0.0f;
+    ry = 0.0f;
+    rz = 0.0f;
+  }
+}
+
+struct Params {
+  float* out_r;
+  float* out_g;
+  float* out_b;
+  const int* px;
+  const int* py;
+  const float* obj;
+  const float* cam;
+  int n_obj, n_slots, S, L, spp;
+  uint32_t seed;
+  int sample_base, max_bounces, max_eff;
+  float eps, t_max, sun_cut, sun_den, golden2;
+  int coherent;
+  int obj_types[kMaxObjects];
+};
+
+__global__ void __launch_bounds__(kThreads) megakernel(Params p) {
+  extern __shared__ float smem[];
+  float* s_obj = smem;
+  float* s_cam = s_obj + p.n_obj * kObjCols;
+  for (int i = threadIdx.x; i < p.n_obj * kObjCols; i += blockDim.x)
+    s_obj[i] = p.obj[i];
+  for (int i = threadIdx.x; i < kCamCols; i += blockDim.x) s_cam[i] = p.cam[i];
+  __syncthreads();
+
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= p.n_slots) return;
+  const int row = idx / p.L;
+  const int lane = idx - row * p.L;
+  const uint32_t key = tile_key(p.seed, (uint32_t)(row / p.S));
+  const uint32_t elem = (uint32_t)((row % p.S) * p.L + lane);
+  // coherent sampling (PT_COHERENT=1): roulette and hemisphere draws are
+  // shared by a tile row, i.e. taken at lane 0 of the row
+  const uint32_t u_elem = p.coherent ? (uint32_t)((row % p.S) * p.L) : elem;
+  const float eps = p.eps;
+
+  const float fx = (float)p.px[idx];
+  const float fy = (float)p.py[idx];
+  const float pixel_size = s_cam[12], half_w = s_cam[13], half_h = s_cam[14];
+  const float aperture = s_cam[15], focal = s_cam[16];
+  const float oxw = s_cam[3], oyw = s_cam[7], ozw = s_cam[11];
+
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  for (int n = 0; n < p.spp; ++n) {
+    // ---- rayForPixel (tracer.cl:745-779) ----------------------------------
+    const float jx = hash_uniform(key, elem, 0u, (uint32_t)n, 0u);
+    const float jy = hash_uniform(key, elem, 1u, (uint32_t)n, 0u);
+    const float vx = half_w - pixel_size * (fx + jx);
+    const float vy = half_h - pixel_size * (fy + jy);
+    const float vz = -1.0f;
+    float dx = (s_cam[0] * vx + s_cam[1] * vy + s_cam[2] * vz + s_cam[3]) - oxw;
+    float dy = (s_cam[4] * vx + s_cam[5] * vy + s_cam[6] * vz + s_cam[7]) - oyw;
+    float dz = (s_cam[8] * vx + s_cam[9] * vy + s_cam[10] * vz + s_cam[11]) - ozw;
+    normalize3(dx, dy, dz);
+    float ox = oxw, oy = oyw, oz = ozw;
+    if (aperture != 0.0f) {
+      // DoF via sunflower(totalSamples, alpha=2, n + sample base)
+      const float nf = (float)(n + p.sample_base);
+      const float r_sun =
+          nf <= p.sun_cut ? sqrtf(fmaxf(nf - 0.5f, 0.0f)) / p.sun_den : 1.0f;
+      const float theta = (kTwoPi * nf) / p.golden2;
+      const float sun_x = r_sun * cosf(theta);
+      const float sun_y = r_sun * sinf(theta);
+      const float fpx = oxw + dx * focal;
+      const float fpy = oyw + dy * focal;
+      const float fpz = ozw + dz * focal;
+      ox = oxw + sun_y * aperture;  // the reference swaps x/y
+      oy = oyw + sun_x * aperture;
+      dx = fpx - ox;
+      dy = fpy - oy;
+      dz = fpz - oz;
+    }
+
+    float mask_r = 1.0f, mask_g = 1.0f, mask_b = 1.0f;
+    float sr = 0.0f, sg = 0.0f, sb = 0.0f;
+    bool inside = false;
+    int n_hits = 0, eff = 0;
+    for (int b = 0; b < p.max_bounces; ++b) {
+      // ---- intersect: nearest object -------------------------------------
+      float best_t = kBig;
+      int w = -1;
+      float lox = 0.f, loy = 0.f, loz = 0.f, ldx = 0.f, ldy = 0.f, ldz = 0.f;
+      for (int j = 0; j < p.n_obj; ++j) {
+        const float* m = s_obj + j * kObjCols;
+        const float tox = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
+        const float toy = m[4] * ox + m[5] * oy + m[6] * oz + m[7];
+        const float toz = m[8] * ox + m[9] * oy + m[10] * oz + m[11];
+        const float tdx = m[0] * dx + m[1] * dy + m[2] * dz;
+        const float tdy = m[4] * dx + m[5] * dy + m[6] * dz;
+        const float tdz = m[8] * dx + m[9] * dy + m[10] * dz;
+        float t;
+        switch (p.obj_types[j]) {
+          case PLANE: t = plane_t(toy, tdy, eps); break;
+          case SPHERE: t = sphere_t(tox, toy, toz, tdx, tdy, tdz, eps); break;
+          case CYLINDER:
+            t = cylinder_t(tox, toy, toz, tdx, tdy, tdz, m[32], m[33], eps);
+            break;
+          default: t = box_t(tox, toy, toz, tdx, tdy, tdz, eps); break;
+        }
+        if (t < best_t) {
+          best_t = t;
+          w = j;
+          lox = tox; loy = toy; loz = toz;
+          ldx = tdx; ldy = tdy; ldz = tdz;
+        }
+      }
+      // a miss ends the path with nothing added (every update is gated on
+      // alive & hit_ok in the TPU kernel)
+      if (!(best_t < p.t_max)) break;
+      const float t = best_t;
+      const float* wm = s_obj + w * kObjCols;
+      const int w_type = p.obj_types[w];
+
+      // ---- surface normal by type (tracer.cl:903-950) ---------------------
+      const float lx = lox + ldx * t;
+      const float ly = loy + ldy * t;
+      const float lz = loz + ldz * t;
+      float nlx, nly, nlz;
+      if (w_type == PLANE) {
+        nlx = 0.0f; nly = 1.0f; nlz = 0.0f;
+      } else if (w_type == CYLINDER) {
+        const float dist = lx * lx + lz * lz;
+        const bool top = (dist < 1.0f) && (ly >= wm[33] - eps);
+        const bool bot = (dist < 1.0f) && (ly <= wm[32] + eps);
+        nlx = (top || bot) ? 0.0f : lx;
+        nly = top ? 1.0f : (bot ? -1.0f : 0.0f);
+        nlz = (top || bot) ? 0.0f : lz;
+      } else if (w_type == BOX) {
+        const float ax = fabsf(lx), ay = fabsf(ly), az = fabsf(lz);
+        const float maxc = fmaxf(fmaxf(ax, ay), az);
+        const bool sel_x = maxc == ax;
+        const bool sel_y = !sel_x && (maxc == ay);
+        nlx = sel_x ? lx : 0.0f;
+        nly = sel_y ? ly : 0.0f;
+        nlz = (sel_x || sel_y) ? 0.0f : lz;
+      } else {
+        nlx = lx; nly = ly; nlz = lz;
+      }
+      float nx = wm[12] * nlx + wm[13] * nly + wm[14] * nlz;
+      float ny = wm[16] * nlx + wm[17] * nly + wm[18] * nlz;
+      float nz = wm[20] * nlx + wm[21] * nly + wm[22] * nlz;
+      normalize3(nx, ny, nz);
+      const float ex = -dx, ey = -dy, ez = -dz;
+      if (dot3(ex, ey, ez, nx, ny, nz) < 0.0f) {
+        nx = -nx; ny = -ny; nz = -nz;
+      }
+
+      // ---- material roulette (tracer.cl:982-1061) -------------------------
+      const uint32_t un = (uint32_t)n, ub = (uint32_t)b;
+      const float u_refl = hash_uniform(key, u_elem, 2u, un, ub);
+      const float u_schl = hash_uniform(key, u_elem, 3u, un, ub);
+      const float u1 = hash_uniform(key, u_elem, 4u, un, ub);
+      const float u2 = hash_uniform(key, u_elem, 5u, un, ub);
+      const float refr = wm[30], refl = wm[31];
+      const float wx = ox + dx * t, wy = oy + dy * t, wz = oz + dz * t;
+
+      const bool do_reflect = (refl != 0.0f) && (u_refl < refl);
+      const bool thin = !do_reflect && (refr == -1.0f);
+      bool thin_pass = false, thin_reflect = false;
+      if (thin) {
+        thin_pass = schlick(ex, ey, ez, nx, ny, nz, 1.0f, 1.5f) < u_schl;
+        thin_reflect = !thin_pass;
+      }
+      const bool solid = !do_reflect && !thin && (refr != 1.0f);
+      const bool outside = !inside;
+      bool do_refract = false, solid_reflect = false;
+      float rfx = 0.f, rfy = 0.f, rfz = 0.f;
+      if (solid) {
+        const float n1 = outside ? 1.0f : refr;
+        const float n2 = outside ? refr : 1.0f;
+        do_refract = schlick(ex, ey, ez, nx, ny, nz, n1, n2) < u_schl;
+        solid_reflect = !do_refract;
+        if (do_refract) refract(ex, ey, ez, nx, ny, nz, n1, n2, rfx, rfy, rfz);
+      }
+      const bool diffuse = !do_reflect && !thin && !solid;
+      const bool any_reflect = do_reflect || thin_reflect || solid_reflect;
+
+      float ndx, ndy, ndz, cosw = 1.0f;
+      if (any_reflect) {
+        const float ddn = 2.0f * dot3(dx, dy, dz, nx, ny, nz);
+        ndx = dx - nx * ddn;
+        ndy = dy - ny * ddn;
+        ndz = dz - nz * ddn;
+      } else if (thin_pass) {
+        ndx = dx; ndy = dy; ndz = dz;
+      } else if (do_refract) {
+        ndx = rfx; ndy = rfy; ndz = rfz;
+      } else {
+        // cosine-weighted hemisphere (tracer.cl:348-366)
+        const float rand1 = kTwoPi * u1;
+        const float rand2s = sqrtf(u2);
+        const bool pick = fabsf(nx) > 0.1f;
+        const float axx = pick ? 0.0f : 1.0f;
+        const float axy = pick ? 1.0f : 0.0f;
+        float ux = axy * nz, uy = -(axx * nz), uz = axx * ny - axy * nx;
+        normalize3(ux, uy, uz);
+        const float vx2 = ny * uz - nz * uy;
+        const float vy2 = nz * ux - nx * uz;
+        const float vz2 = nx * uy - ny * ux;
+        const float cu = cosf(rand1) * rand2s;
+        const float cv = sinf(rand1) * rand2s;
+        const float cn = sqrtf(1.0f - u2);
+        ndx = ux * cu + vx2 * cv + nx * cn;
+        ndy = uy * cu + vy2 * cv + ny * cn;
+        ndz = uz * cu + vz2 * cv + nz * cn;
+        cosw = dot3(ndx, ndy, ndz, nx, ny, nz);
+      }
+      const bool go_under = thin_pass || do_refract;
+
+      // ---- fold resolve forward (tracer.cl:1116-1176) ---------------------
+      const float emi_r = wm[27];
+      const bool is_light = emi_r > 0.0f;
+      if (!do_refract) {
+        sr = sr + mask_r * emi_r;
+        sg = sg + mask_g * wm[28];
+        sb = sb + mask_b * wm[29];
+        if (is_light && n_hits == 0) {
+          sr = wm[24]; sg = wm[25]; sb = wm[26];
+        }
+        if (!is_light) {
+          mask_r = mask_r * wm[24] * cosw;
+          mask_g = mask_g * wm[25] * cosw;
+          mask_b = mask_b * wm[26] * cosw;
+        }
+      }
+      if (!do_refract && !any_reflect) eff += 1;
+      n_hits += 1;
+      if (go_under) {
+        ox = wx - nx * eps; oy = wy - ny * eps; oz = wz - nz * eps;
+      } else {
+        ox = wx + nx * eps; oy = wy + ny * eps; oz = wz + nz * eps;
+      }
+      dx = ndx; dy = ndy; dz = ndz;
+      if (do_refract) inside = outside;
+      if (is_light || eff >= p.max_eff) break;
+    }
+    acc_r = acc_r + sr;
+    acc_g = acc_g + sg;
+    acc_b = acc_b + sb;
+  }
+  p.out_r[idx] = acc_r;
+  p.out_g[idx] = acc_g;
+  p.out_b[idx] = acc_b;
+}
+
+}  // namespace
+
+// Launch the megakernel over n_slots = T*S*L slots on `stream`. obj_types is
+// a HOST array of n_obj <= kMaxObjects type codes, copied into the launch
+// parameters (no device copy, so no synchronisation). Returns the
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue when n_obj is out of range.
+extern "C" int pt_megakernel_launch(
+    float* out_r, float* out_g, float* out_b, const int* px, const int* py,
+    const float* obj, const int* obj_types, const float* cam, int n_obj,
+    int n_slots, int S, int L, int spp, uint32_t seed, int sample_base,
+    int max_bounces, int max_eff, float eps, float t_max, float sun_cut,
+    float sun_den, float golden2, int coherent, void* stream) {
+  if (n_obj < 1 || n_obj > kMaxObjects) return (int)cudaErrorInvalidValue;
+  Params p{out_r, out_g, out_b, px, py, obj, cam,
+           n_obj, n_slots, S, L, spp, seed, sample_base, max_bounces,
+           max_eff, eps, t_max, sun_cut, sun_den, golden2, coherent, {}};
+  for (int i = 0; i < n_obj; ++i) p.obj_types[i] = obj_types[i];
+  const size_t smem = sizeof(float) * (size_t)(n_obj * kObjCols + kCamCols);
+  const int blocks = (n_slots + kThreads - 1) / kThreads;
+  if (blocks > 0) {
+    megakernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,805 @@
+"""Forward megakernel for primitive scenes: tables, tile layout, the
+counter-hash PRNG, and the CUDA kernel with its plain PyTorch version.
+
+Counterpart of pathtracer_tpu.render.pallas_kernel for the primitive,
+untextured branch: the host table builders and the pixel-to-tile layout
+keep their names and outputs (numpy, bit-identical), `trace_tiles` runs
+the whole sample loop x bounce loop per tile slot, and `render_megakernel`
+is the one-call render (the counterpart of `render_pallas`).
+
+`trace_tiles` launches `csrc/megakernel.cu` for CUDA tensors and runs
+`trace_tiles_reference`, the plain vectorised version, for CPU tensors.
+Both draw from the murmur3 counter hash that the JAX kernel uses in
+interpret mode (`pallas_kernel._prng_seed/_uniform`), keyed on (seed,
+tile, draw id, sample, bounce, slot), so with the same seed vector, tile
+and layout all three trace the same paths.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import os
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..config import RenderConfig
+from ..scene.pack import SceneArrays, SceneMeta
+from ..scene.shapes import BOX, CYLINDER, PLANE, SPHERE
+from . import _build
+
+# Object-table column layout (per object row), as in the JAX package:
+#   0-11  inverse (3x4 row-major)
+#   12-23 inverse-transpose (3x4 row-major)
+#   24-26 color rgb
+#   27-29 emission rgb
+#   30    refractive index
+#   31    reflectivity
+#   32    min_y
+#   33    max_y
+#   34-36 group bbox min (local space; GROUP objects only)
+#   37-39 group bbox max
+#   40-42 forward-transform translation (world light origin; NEE)
+#   43    light scale = max diagonal of the forward transform
+#   44    forward transform [0,0] (NEE attenuation heuristic)
+_OBJ_COLS = 45
+
+# Camera vector layout:
+#   0-11 inverse (3x4 row-major), 12 pixel_size, 13 half_width,
+#   14 half_height, 15 aperture, 16 focal_length
+_CAM_COLS = 17
+
+# Mesh tables (dummy until the mesh slice): one BVH node per row, and
+# triangle rows of 4 slots with a 24-column stride per slot.
+_NODE_COLS = 16
+_TRI_SLOTS_PER_ROW = 4
+_TRI_STRIDE = 24
+
+_BIG = 1e30
+_INV24 = float(2.0 ** -24)
+_M32 = 0xFFFFFFFF
+
+_MESH_ITEM = "ROADMAP queue 1, item 6 (BVH mesh scenes)"
+_TEXTURE_ITEM = "ROADMAP queue 1, item 9 (textures)"
+_NEE_ITEM = "ROADMAP queue 1, item 11 (in-kernel NEE)"
+
+
+# --- host tables and layout ------------------------------------------------
+
+def _np(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def build_scene_table(scn: SceneArrays, meta: SceneMeta) -> np.ndarray:
+    """[No, _OBJ_COLS] float32 host-side object table."""
+    n = meta.n_objects
+    out = np.zeros((n, _OBJ_COLS), dtype=np.float32)
+    inv = _np(scn.inverse).astype(np.float32)
+    invt = _np(scn.inverse_transpose).astype(np.float32)
+    out[:, 0:12] = inv[:n, :3, :].reshape(n, 12)
+    out[:, 12:24] = invt[:n, :3, :].reshape(n, 12)
+    out[:, 24:27] = _np(scn.color)[:n]
+    out[:, 27:30] = _np(scn.emission)[:n]
+    out[:, 30] = _np(scn.refractive_index)[:n]
+    out[:, 31] = _np(scn.reflectivity)[:n]
+    out[:, 32] = _np(scn.min_y)[:n]
+    out[:, 33] = _np(scn.max_y)[:n]
+    out[:, 34:37] = _np(scn.bb_min)[:n]
+    out[:, 37:40] = _np(scn.bb_max)[:n]
+    tr = _np(scn.transform).astype(np.float32)
+    out[:, 40:43] = tr[:n, :3, 3]
+    out[:, 43] = np.maximum(np.maximum(tr[:n, 0, 0], tr[:n, 1, 1]),
+                            tr[:n, 2, 2])
+    out[:, 44] = tr[:n, 0, 0]
+    return out
+
+
+def build_mesh_tables(scn: SceneArrays, meta: SceneMeta,
+                      traversal: str = None) -> Tuple[np.ndarray, np.ndarray]:
+    """The mesh pools, in their no-group form: the dummy zero tables the
+    kernel is handed when the scene has no triangles."""
+    if meta.has_groups:
+        raise NotImplementedError(
+            f"mesh tables are not ported yet: {_MESH_ITEM}")
+    return (np.zeros((1, _NODE_COLS), dtype=np.float32),
+            np.zeros((1, _TRI_SLOTS_PER_ROW * _TRI_STRIDE),
+                     dtype=np.float32))
+
+
+def default_tile(meta: SceneMeta) -> Tuple[int, int]:
+    """Tile shape (S, L) that numbers the slots, as in the JAX package:
+    (64, 256) for primitive scenes, (8, 512) for mesh scenes. On the card
+    the tile is only a numbering (one thread per slot); keeping it makes
+    the random stream and the checkpoint layout match the JAX package."""
+    if meta.has_groups:
+        return (8, 512)
+    return (64, 256)
+
+
+def default_order(meta: SceneMeta) -> str:
+    """Pixel->tile order: scanline for primitive scenes, compact blocks for
+    mesh scenes; PT_TILE_ORDER overrides."""
+    return os.environ.get(
+        "PT_TILE_ORDER", "block" if meta.has_groups else "linear")
+
+
+def default_pack_axis(meta: SceneMeta) -> str:
+    """Tile axis carrying sample replicas ("row" | "chunk"); PT_PACK_AXIS
+    overrides. Packing serves the mesh walk only."""
+    v = os.environ.get("PT_PACK_AXIS")
+    if v:
+        return v
+    return "chunk" if meta.has_groups else "row"
+
+
+def clamp_pack(pack: int, S: int, L: int, pack_axis: str) -> int:
+    """Largest packing factor <= pack the tile supports on the axis."""
+    if pack_axis == "chunk":
+        while pack > 1 and (L % pack or (L // pack) % 128):
+            pack //= 2
+    else:
+        while pack > 1 and S % pack:
+            pack //= 2
+    return max(1, pack)
+
+
+def default_pack(meta: SceneMeta, spp: int = None) -> int:
+    """Sample packing factor: 1 for primitive scenes, 8 for mesh scenes;
+    PT_SPP_PACK overrides, clamped to divide spp when given."""
+    pack = int(os.environ.get("PT_SPP_PACK",
+                              "8" if meta.has_groups else "1"))
+    if spp is not None:
+        while pack > 1 and spp % pack:
+            pack //= 2
+    return max(1, pack)
+
+
+def tile_pixel_layout(W: int, H: int, S: int, L: int,
+                      shard_granule: int = 1, order: str = None,
+                      spp_pack: int = 1):
+    """Assign pixels to tile slots.
+
+    Returns (px [rows, L] i32, py [rows, L] i32, pid [rows*L] i64) where
+    pid maps each slot to its flat pixel index (-1 = padding slot, which
+    renders a duplicate pixel and is dropped by untile_image). Orders
+    "linear" (scanline) and "block" (square blocks of S*L pixels); rows
+    are padded to a multiple of S*shard_granule. Sample packing and the
+    "subblock"/"rowblock" orders serve the mesh walk and are not ported
+    yet."""
+    if order is None:
+        order = os.environ.get("PT_TILE_ORDER", "block")
+    if spp_pack > 1:
+        raise NotImplementedError(
+            f"sample packing (spp_pack={spp_pack}) is not ported yet: "
+            f"{_MESH_ITEM}")
+    tile_sz = S * L
+    n_pix = W * H
+    if order == "block":
+        side = int(math.isqrt(tile_sz))
+        while tile_sz % side:
+            side -= 1
+        bw, bh = tile_sz // side, side    # e.g. 4096 -> 64x64
+        nbx = -(-W // bw)
+        nby = -(-H // bh)
+        k = np.arange(nbx * nby * tile_sz)
+        b = k // tile_sz                  # block id
+        i = k % tile_sz                   # slot within block
+        x = (b % nbx) * bw + i % bw
+        y = (b // nbx) * bh + i // bw
+        valid = (x < W) & (y < H)
+        pid = np.where(valid, y * W + x, -1)
+        xs = np.minimum(x, W - 1).astype(np.int32)
+        ys = np.minimum(y, H - 1).astype(np.int32)
+    elif order == "linear":
+        pad = (-n_pix) % tile_sz
+        ids = np.arange(n_pix + pad)
+        pid = np.where(ids < n_pix, ids, -1)
+        xs = (ids % W).astype(np.int32)
+        ys = np.minimum(ids // W, H - 1).astype(np.int32)
+    else:
+        raise NotImplementedError(
+            f"tile order {order!r} is not ported yet: {_MESH_ITEM}")
+
+    rows = xs.shape[0] // L
+    extra = (-rows) % (S * shard_granule)
+    if extra:
+        xs = np.concatenate([xs, np.full(extra * L, W - 1, np.int32)])
+        ys = np.concatenate([ys, np.full(extra * L, H - 1, np.int32)])
+        pid = np.concatenate([pid, np.full(extra * L, -1, pid.dtype)])
+        rows += extra
+    return xs.reshape(rows, L), ys.reshape(rows, L), pid
+
+
+def untile_image(flat: np.ndarray, pid: np.ndarray, W: int, H: int
+                 ) -> np.ndarray:
+    """Scatter tiled per-slot values [rows*L, C] back to [H*W, C]; padding
+    slots (pid -1) are dropped, duplicate pids add."""
+    out = np.zeros((W * H, flat.shape[-1]), dtype=flat.dtype)
+    valid = pid >= 0
+    np.add.at(out, pid[valid], flat[valid])
+    return out
+
+
+def build_camera_vec(cam) -> np.ndarray:
+    """Build the [_CAM_COLS] float32 camera vector from the host Camera."""
+    out = np.zeros((_CAM_COLS,), dtype=np.float32)
+    inv = np.asarray(cam.inverse, dtype=np.float32)
+    out[0:12] = inv[:3, :].reshape(12)
+    out[12] = float(cam.pixel_size)
+    out[13] = float(cam.half_width)
+    out[14] = float(cam.half_height)
+    out[15] = float(cam.aperture)
+    out[16] = float(cam.focal_length)
+    return out
+
+
+# --- kernel PRNG (plain version) --------------------------------------------
+#
+# The murmur3 counter hash of pallas_kernel._prng_seed/_uniform, on int64
+# tensors: torch on the CPU has no >> for uint32, so every multiply and add
+# is masked back to 32 bits (the low 32 bits survive int64 wraparound).
+# csrc/megakernel.cu computes the same hash in uint32.
+
+def _prng_key(seed: int, tile):
+    """Per-tile key: seed*0x9E3779B1 ^ tile*0x85EBCA77 (mod 2^32)."""
+    tile = torch.as_tensor(tile, dtype=torch.int64)
+    return ((((int(seed) & _M32) * 0x9E3779B1) & _M32)
+            ^ ((tile * 0x85EBCA77) & _M32))
+
+
+def _hash_uniform(key, elem, did: int, n: int = None, b: int = None):
+    """f32 uniforms in [0,1) for int64 `key` and element index `elem`
+    (broadcastable): the top 24 bits of the murmur3 finalizer over
+    key ^ did*C1 + n*C2 + b*C3 + elem."""
+    h = key ^ ((did * 0xC2B2AE3D) & _M32)
+    if n is not None:
+        h = (h + ((int(n) * 0x27D4EB2F) & _M32)) & _M32
+    if b is not None:
+        h = (h + ((int(b) * 0x165667B1) & _M32)) & _M32
+    x = (h + elem) & _M32
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & _M32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & _M32
+    x = x ^ (x >> 16)
+    return (x >> 8).to(torch.float32) * _INV24
+
+
+def _uniform(key, shape, did=0, n=None, b=None):
+    """One tile of uniforms for tile key `key`: the element index is
+    r0*L + r1 (pallas_kernel._uniform in interpret mode)."""
+    S, L = shape
+    elem = torch.arange(S * L, dtype=torch.int64).reshape(S, L)
+    return _hash_uniform(key, elem, did, n, b)
+
+
+def _uniform_row(key, shape, did=0, n=None, b=None):
+    """One shared uniform per tile row: the draw at (r0, lane 0)
+    broadcast over the row (pallas_kernel._uniform_row)."""
+    S, L = shape
+    elem = (torch.arange(S, dtype=torch.int64) * L).reshape(S, 1)
+    return _hash_uniform(key, elem, did, n, b).expand(S, L)
+
+
+def _coherent_sampling() -> bool:
+    """Row-shared roulette and hemisphere draws (PT_COHERENT=1, the
+    default), as pallas_kernel._coherent_sampling."""
+    return os.environ.get("PT_COHERENT", "1") != "0"
+
+
+# --- ray-primitive functions (plain version) -------------------------------
+#
+# Same f32 formulas, in the same order, as pallas_kernel (:761-878); their
+# CUDA twins are the __device__ functions of csrc/megakernel.cu.
+
+def _mat12_point(m, x, y, z):
+    return (
+        m[0] * x + m[1] * y + m[2] * z + m[3],
+        m[4] * x + m[5] * y + m[6] * z + m[7],
+        m[8] * x + m[9] * y + m[10] * z + m[11],
+    )
+
+
+def _mat12_vec(m, x, y, z):
+    return (
+        m[0] * x + m[1] * y + m[2] * z,
+        m[4] * x + m[5] * y + m[6] * z,
+        m[8] * x + m[9] * y + m[10] * z,
+    )
+
+
+def _dot(ax, ay, az, bx, by, bz):
+    return ax * bx + ay * by + az * bz
+
+
+def _normalize(x, y, z):
+    # 1/sqrt with IEEE sqrt and division: what the CUDA twin computes
+    inv = 1.0 / torch.sqrt(x * x + y * y + z * z)
+    return x * inv, y * inv, z * inv
+
+
+def _axis_slab(o, d, mn, mx, eps):
+    use = torch.abs(d) >= eps
+    d_safe = torch.where(use, d, 1.0)
+    t1 = torch.where(use, (mn - o) / d_safe, (mn - o) * _BIG)
+    t2 = torch.where(use, (mx - o) / d_safe, (mx - o) * _BIG)
+    return torch.minimum(t1, t2), torch.maximum(t1, t2)
+
+
+def _plane_t(oy, dy, eps):
+    ok = torch.abs(dy) > eps
+    t = -oy / torch.where(ok, dy, 1.0)
+    return torch.where(ok & (t > eps), t, _BIG)
+
+
+def _sphere_t(ox, oy, oz, dx, dy, dz, eps):
+    a = dx * dx + dy * dy + dz * dz
+    t_mid = -(ox * dx + oy * dy + oz * dz) / a
+    mx = ox + dx * t_mid
+    my = oy + dy * t_mid
+    mz = oz + dz * t_mid
+    perp2 = mx * mx + my * my + mz * mz
+    ok = perp2 < 1.0
+    dt = torch.sqrt(torch.where(ok, (1.0 - perp2) / a, 0.0))
+    t1 = t_mid - dt
+    t2 = t_mid + dt
+    return torch.minimum(
+        torch.where(ok & (t1 > eps), t1, _BIG),
+        torch.where(ok & (t2 > eps), t2, _BIG),
+    )
+
+
+def _cylinder_t(ox, oy, oz, dx, dy, dz, min_y, max_y, eps):
+    a = dx * dx + dz * dz
+    ok_a = torch.abs(a) >= eps
+    a_safe = torch.where(ok_a, a, 1.0)
+    t_mid = -(ox * dx + oz * dz) / a_safe
+    mx = ox + dx * t_mid
+    mz = oz + dz * t_mid
+    perp2 = mx * mx + mz * mz
+    ok = ok_a & (perp2 <= 1.0)
+    dt = torch.sqrt(torch.where(ok, (1.0 - perp2) / a_safe, 0.0))
+    t0 = t_mid - dt
+    t1 = t_mid + dt
+    y0 = oy + t0 * dy
+    y1 = oy + t1 * dy
+    v0 = ok & (y0 > min_y) & (y0 < max_y) & (t0 > eps)
+    v1 = ok & (y1 > min_y) & (y1 < max_y) & (t1 > eps)
+    return torch.minimum(torch.where(v0, t0, _BIG),
+                         torch.where(v1, t1, _BIG))
+
+
+def _box_t(ox, oy, oz, dx, dy, dz, eps):
+    x1, x2 = _axis_slab(ox, dx, -1.0, 1.0, eps)
+    y1, y2 = _axis_slab(oy, dy, -1.0, 1.0, eps)
+    z1, z2 = _axis_slab(oz, dz, -1.0, 1.0, eps)
+    tmin = torch.maximum(torch.maximum(x1, y1), z1)
+    tmax = torch.minimum(torch.minimum(x2, y2), z2)
+    ok = tmin <= tmax
+    return torch.minimum(
+        torch.where(ok & (tmin > eps), tmin, _BIG),
+        torch.where(ok & (tmax > eps), tmax, _BIG),
+    )
+
+
+def _schlick(cx, cy, cz, nx, ny, nz, n1, n2):
+    """tracer.cl:485-505; n1/n2 are tensors (a Python scalar divided by a
+    tensor would round twice, through torch's reciprocal)."""
+    cos = _dot(cx, cy, cz, nx, ny, nz)
+    n = n1 / n2
+    sin2t = (n * n) * (1.0 - cos * cos)
+    tir = (n1 > n2) & (sin2t > 1.0)
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2t, min=0.0))
+    cos_eff = torch.where(n1 > n2, cos_t, cos)
+    temp = (n1 - n2) / (n1 + n2)
+    r0 = temp * temp
+    m = 1.0 - cos_eff
+    m2 = m * m
+    res = r0 + (1.0 - r0) * (m2 * m2 * m)
+    return torch.where(tir, 1.0, res)
+
+
+def _refract(cx, cy, cz, nx, ny, nz, n1, n2):
+    cos_i = _dot(cx, cy, cz, nx, ny, nz)
+    ratio = n1 / n2
+    sin2t = (ratio * ratio) * (1.0 - cos_i * cos_i)
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2t, min=0.0))
+    k = ratio * cos_i - cos_t
+    ok = sin2t <= 1.0
+    return (
+        torch.where(ok, nx * k - cx * ratio, 0.0),
+        torch.where(ok, ny * k - cy * ratio, 0.0),
+        torch.where(ok, nz * k - cz * ratio, 0.0),
+    )
+
+
+def _sun_constants(total_samples: int):
+    """Sunflower DoF constants (pallas_kernel._make_kernel :1930-1932,
+    :2049-2055): the cut-off index, the radius divisor and golden^2,
+    as the f32 values the kernel compares and divides with."""
+    sun_n = float(total_samples)
+    sun_b = round(2.0 * math.sqrt(sun_n))
+    golden2 = ((math.sqrt(5.0) + 1.0) / 2.0) ** 2
+    return (sun_n - sun_b,
+            math.sqrt(max(sun_n - (sun_b + 1.0) / 2.0, 1e-9)),
+            golden2)
+
+
+def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
+                meta, cfg, spp, tile, spp_pack):
+    """Validate what trace_tiles is handed; raise on anything the kernel
+    does not take. Returns the (seed, sample_base) ints."""
+    if meta.has_groups:
+        raise NotImplementedError(
+            f"the BVH walk is not ported yet: {_MESH_ITEM}")
+    if (meta.textured_types or meta.has_normal_maps or meta.obj_tex
+            or meta.obj_tex_nm):
+        raise NotImplementedError(
+            f"in-kernel textures are not ported yet: {_TEXTURE_ITEM}")
+    if cfg.nee:
+        raise NotImplementedError(f"NEE is not ported yet: {_NEE_ITEM}")
+    if spp_pack != 1:
+        raise NotImplementedError(
+            f"sample packing (spp_pack={spp_pack}) serves the mesh walk "
+            f"and is not ported yet: {_MESH_ITEM}")
+    bad = [t for t in meta.obj_types if t not in (PLANE, SPHERE, CYLINDER,
+                                                   BOX)]
+    if bad:
+        raise ValueError(f"object types {bad} are not primitives")
+    if spp < 1:
+        raise ValueError(f"spp={spp} must be >= 1")
+    if isinstance(seed, torch.Tensor):
+        seed = seed.tolist()
+    seed = [int(v) for v in seed]
+    if len(seed) != 2:
+        raise ValueError("seed must be (prng seed, global sample base)")
+    S, L = tile
+    dev = px.device
+    want = (("cam_vec", cam_vec, torch.float32, (_CAM_COLS,)),
+            ("obj_table", obj_table, torch.float32,
+             (len(meta.obj_types), _OBJ_COLS)),
+            ("px", px, torch.int32, None),
+            ("py", py, torch.int32, tuple(px.shape)))
+    for name, t, dtype, shape in want:
+        if not isinstance(t, torch.Tensor) or t.device != dev:
+            raise ValueError(f"{name} must be a tensor on {dev}")
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype}, got "
+                             f"{t.dtype} contiguous={t.is_contiguous()}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+    if px.dim() != 2 or px.shape[1] != L or px.shape[0] % S:
+        raise ValueError(f"px shape {tuple(px.shape)} is not whole "
+                         f"({S}, {L}) tiles")
+    if node_table.shape[-1] != _NODE_COLS or \
+            tri_table.shape[-1] != _TRI_SLOTS_PER_ROW * _TRI_STRIDE:
+        raise ValueError("node/tri tables do not have the mesh layout")
+    return seed
+
+
+def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
+                          px, py, meta: SceneMeta = None,
+                          cfg: RenderConfig = None, spp: int = 1,
+                          total_samples: int = 1,
+                          tile: Tuple[int, int] = (64, 256),
+                          spp_pack: int = 1):
+    """Plain PyTorch version of the megakernel: the same arguments and
+    result as trace_tiles, vectorised over all T*S*L slots, with a Python
+    loop over samples and bounces that stops once every ray is dead (dead
+    rays are inert, so this equals the JAX kernel's per-tile exit).
+    Returns (r, g, b) float32 [T*S, L] radiance sums on px's device."""
+    seed0, sample_base = _check_args(
+        seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
+        spp, tile, spp_pack)
+    S, L = tile
+    dev = px.device
+    f32 = torch.float32
+    rows = px.shape[0]
+    idx = torch.arange(rows * L, device=dev, dtype=torch.int64)
+    row = idx // L
+    key = _prng_key(seed0, row // S)
+    elem = (row % S) * L + idx % L
+    u_elem = (row % S) * L if _coherent_sampling() else elem
+    fx = px.reshape(-1).to(f32)
+    fy = py.reshape(-1).to(f32)
+
+    cam = cam_vec.detach().cpu().tolist()
+    obj = obj_table.detach().cpu().tolist()
+    types = torch.tensor(meta.obj_types, dtype=torch.int64, device=dev)
+    pixel_size, half_w, half_h, aperture, focal = cam[12:17]
+    oxw, oyw, ozw = cam[3], cam[7], cam[11]
+    eps, t_max = cfg.epsilon, cfg.t_max
+    sun_cut, sun_den, golden2 = _sun_constants(total_samples)
+    # divisors as device tensors: torch divides by a CPU scalar on the
+    # card through its reciprocal, which rounds twice
+    sun_den = torch.tensor(sun_den, dtype=f32, device=dev)
+    golden2 = torch.tensor(golden2, dtype=f32, device=dev)
+    one = torch.ones_like(fx)
+    glass = torch.full_like(fx, 1.5)
+
+    acc_r = torch.zeros_like(fx)
+    acc_g = torch.zeros_like(fx)
+    acc_b = torch.zeros_like(fx)
+    for n in range(spp):
+        # --- rayForPixel (tracer.cl:745-779) ---------------------------
+        jx = _hash_uniform(key, elem, 0, n)
+        jy = _hash_uniform(key, elem, 1, n)
+        x_off = pixel_size * (fx + jx)
+        y_off = pixel_size * (fy + jy)
+        pxw, pyw, pzw = _mat12_point(cam, half_w - x_off, half_h - y_off,
+                                     -1.0)
+        dx, dy, dz = _normalize(pxw - oxw, pyw - oyw, pzw - ozw)
+        ox = torch.full_like(fx, oxw)
+        oy = torch.full_like(fx, oyw)
+        oz = torch.full_like(fx, ozw)
+        if aperture != 0.0:
+            # DoF via sunflower(totalSamples, alpha=2, n + sample base)
+            nf = torch.full((1,), float(n + sample_base), dtype=f32,
+                            device=dev)
+            r_sun = torch.where(
+                nf <= sun_cut,
+                torch.sqrt(torch.clamp(nf - 0.5, min=0.0)) / sun_den, 1.0)
+            theta = 2.0 * math.pi * nf / golden2
+            sun_x = r_sun * torch.cos(theta)
+            sun_y = r_sun * torch.sin(theta)
+            fpx = oxw + dx * focal
+            fpy = oyw + dy * focal
+            fpz = ozw + dz * focal
+            ox = (oxw + sun_y * aperture).expand_as(fx)  # reference swaps x/y
+            oy = (oyw + sun_x * aperture).expand_as(fx)
+            dx, dy, dz = fpx - ox, fpy - oy, fpz - oz
+
+        mask_r, mask_g, mask_b = one, one, one
+        srr = torch.zeros_like(fx)
+        srg = torch.zeros_like(fx)
+        srb = torch.zeros_like(fx)
+        alive = torch.ones_like(fx, dtype=torch.bool)
+        inside = torch.zeros_like(alive)
+        n_hits = torch.zeros_like(fx, dtype=torch.int32)
+        eff = torch.zeros_like(n_hits)
+        for b in range(cfg.max_bounces):
+            if not bool(alive.any()):
+                break
+            # ---- intersect: loop over objects ---------------------------
+            best_t = torch.full_like(fx, _BIG)
+            w = torch.zeros_like(fx, dtype=torch.int64)
+            l_ox, l_oy, l_oz, l_dx, l_dy, l_dz = ox, oy, oz, dx, dy, dz
+            for j, code in enumerate(meta.obj_types):
+                m = obj[j]
+                tox, toy, toz = _mat12_point(m, ox, oy, oz)
+                tdx, tdy, tdz = _mat12_vec(m, dx, dy, dz)
+                if code == PLANE:
+                    t_j = _plane_t(toy, tdy, eps)
+                elif code == SPHERE:
+                    t_j = _sphere_t(tox, toy, toz, tdx, tdy, tdz, eps)
+                elif code == CYLINDER:
+                    t_j = _cylinder_t(tox, toy, toz, tdx, tdy, tdz,
+                                      m[32], m[33], eps)
+                else:
+                    t_j = _box_t(tox, toy, toz, tdx, tdy, tdz, eps)
+                closer = t_j < best_t
+                best_t = torch.where(closer, t_j, best_t)
+                w = torch.where(closer, j, w)
+                l_ox = torch.where(closer, tox, l_ox)
+                l_oy = torch.where(closer, toy, l_oy)
+                l_oz = torch.where(closer, toz, l_oz)
+                l_dx = torch.where(closer, tdx, l_dx)
+                l_dy = torch.where(closer, tdy, l_dy)
+                l_dz = torch.where(closer, tdz, l_dz)
+            hit_ok = best_t < t_max
+            t = torch.clamp(best_t, max=t_max)
+            wrow = obj_table[w]
+            col_r, col_g, col_b = wrow[:, 24], wrow[:, 25], wrow[:, 26]
+            emi_r, emi_g, emi_b = wrow[:, 27], wrow[:, 28], wrow[:, 29]
+            refr, refl = wrow[:, 30], wrow[:, 31]
+            w_type = types[w]
+
+            # ---- surface normal by type (tracer.cl:903-950) -------------
+            lx = l_ox + l_dx * t
+            ly = l_oy + l_dy * t
+            lz = l_oz + l_dz * t
+            dist = lx * lx + lz * lz
+            top = (dist < 1.0) & (ly >= wrow[:, 33] - eps)
+            bot = (dist < 1.0) & (ly <= wrow[:, 32] + eps)
+            cyl_nx = torch.where(top | bot, 0.0, lx)
+            cyl_ny = torch.where(top, 1.0, torch.where(bot, -1.0, 0.0))
+            cyl_nz = torch.where(top | bot, 0.0, lz)
+            ax, ay, az = torch.abs(lx), torch.abs(ly), torch.abs(lz)
+            maxc = torch.maximum(torch.maximum(ax, ay), az)
+            sel_x = maxc == ax
+            sel_y = (~sel_x) & (maxc == ay)
+            box_nx = torch.where(sel_x, lx, 0.0)
+            box_ny = torch.where(sel_y, ly, 0.0)
+            box_nz = torch.where(sel_x | sel_y, 0.0, lz)
+            is_plane = w_type == PLANE
+            is_cyl = w_type == CYLINDER
+            is_box = w_type == BOX
+            nlx = torch.where(is_plane, 0.0, torch.where(
+                is_cyl, cyl_nx, torch.where(is_box, box_nx, lx)))
+            nly = torch.where(is_plane, 1.0, torch.where(
+                is_cyl, cyl_ny, torch.where(is_box, box_ny, ly)))
+            nlz = torch.where(is_plane, 0.0, torch.where(
+                is_cyl, cyl_nz, torch.where(is_box, box_nz, lz)))
+            invt = [wrow[:, 12 + k] for k in range(12)]
+            nx, ny, nz = _normalize(*_mat12_vec(invt, nlx, nly, nlz))
+            ex, ey, ez = -dx, -dy, -dz
+            flip = _dot(ex, ey, ez, nx, ny, nz) < 0.0
+            nx = torch.where(flip, -nx, nx)
+            ny = torch.where(flip, -ny, ny)
+            nz = torch.where(flip, -nz, nz)
+
+            # ---- material roulette (tracer.cl:982-1061) -----------------
+            u_refl = _hash_uniform(key, u_elem, 2, n, b)
+            u_schl = _hash_uniform(key, u_elem, 3, n, b)
+            u1 = _hash_uniform(key, u_elem, 4, n, b)
+            u2 = _hash_uniform(key, u_elem, 5, n, b)
+            wx = ox + dx * t
+            wy = oy + dy * t
+            wz = oz + dz * t
+            do_reflect = (refl != 0.0) & (u_refl < refl)
+            thin = (~do_reflect) & (refr == -1.0)
+            sch_thin = _schlick(ex, ey, ez, nx, ny, nz, one, glass)
+            thin_pass = thin & (sch_thin < u_schl)
+            thin_reflect = thin & ~(sch_thin < u_schl)
+            solid = (~do_reflect) & (~thin) & (refr != 1.0)
+            outside = ~inside
+            sch = torch.where(outside,
+                              _schlick(ex, ey, ez, nx, ny, nz, one, refr),
+                              _schlick(ex, ey, ez, nx, ny, nz, refr, one))
+            do_refract = solid & (sch < u_schl)
+            rf_o = _refract(ex, ey, ez, nx, ny, nz, one, refr)
+            rf_i = _refract(ex, ey, ez, nx, ny, nz, refr, one)
+            rfx = torch.where(outside, rf_o[0], rf_i[0])
+            rfy = torch.where(outside, rf_o[1], rf_i[1])
+            rfz = torch.where(outside, rf_o[2], rf_i[2])
+            solid_reflect = solid & ~do_refract
+            diffuse = (~do_reflect) & (~thin) & (~solid)
+
+            # cosine-weighted hemisphere (tracer.cl:348-366)
+            rand1 = 2.0 * math.pi * u1
+            rand2s = torch.sqrt(u2)
+            pick = torch.abs(nx) > 0.1
+            axx = torch.where(pick, 0.0, one)
+            axy = torch.where(pick, one, 0.0)
+            ux, uy, uz = _normalize(axy * nz, -(axx * nz),
+                                    axx * ny - axy * nx)
+            vx2 = ny * uz - nz * uy
+            vy2 = nz * ux - nx * uz
+            vz2 = nx * uy - ny * ux
+            cu = torch.cos(rand1) * rand2s
+            cv = torch.sin(rand1) * rand2s
+            cn = torch.sqrt(1.0 - u2)
+            hx = ux * cu + vx2 * cv + nx * cn
+            hy = uy * cu + vy2 * cv + ny * cn
+            hz = uz * cu + vz2 * cv + nz * cn
+
+            ddn = 2.0 * _dot(dx, dy, dz, nx, ny, nz)
+            any_reflect = do_reflect | thin_reflect | solid_reflect
+
+            def pick_dir(r, d, rf, h):
+                return torch.where(any_reflect, r, torch.where(
+                    thin_pass, d, torch.where(do_refract, rf, h)))
+
+            ndx = pick_dir(dx - nx * ddn, dx, rfx, hx)
+            ndy = pick_dir(dy - ny * ddn, dy, rfy, hy)
+            ndz = pick_dir(dz - nz * ddn, dz, rfz, hz)
+            cos = torch.where(diffuse, _dot(hx, hy, hz, nx, ny, nz), 1.0)
+            go_under = thin_pass | do_refract
+            nox = torch.where(go_under, wx - nx * eps, wx + nx * eps)
+            noy = torch.where(go_under, wy - ny * eps, wy + ny * eps)
+            noz = torch.where(go_under, wz - nz * eps, wz + nz * eps)
+
+            # ---- fold resolve forward (tracer.cl:1116-1176) -------------
+            rec = alive & hit_ok
+            no_refr = rec & ~do_refract
+            is_light = emi_r > 0.0
+            srr = srr + torch.where(no_refr, mask_r * emi_r, 0.0)
+            srg = srg + torch.where(no_refr, mask_g * emi_g, 0.0)
+            srb = srb + torch.where(no_refr, mask_b * emi_b, 0.0)
+            direct = no_refr & is_light & (n_hits == 0)
+            srr = torch.where(direct, col_r, srr)
+            srg = torch.where(direct, col_g, srg)
+            srb = torch.where(direct, col_b, srb)
+            upd = no_refr & ~is_light
+            mask_r = torch.where(upd, mask_r * col_r * cos, mask_r)
+            mask_g = torch.where(upd, mask_g * col_g * cos, mask_g)
+            mask_b = torch.where(upd, mask_b * col_b * cos, mask_b)
+            eff = eff + (rec & ~do_refract & ~any_reflect).to(torch.int32)
+            n_hits = n_hits + rec.to(torch.int32)
+            alive = (alive & hit_ok & ~(rec & is_light)
+                     & (eff < cfg.max_effective_bounces))
+            ox = torch.where(rec, nox, ox)
+            oy = torch.where(rec, noy, oy)
+            oz = torch.where(rec, noz, oz)
+            dx = torch.where(rec, ndx, dx)
+            dy = torch.where(rec, ndy, dy)
+            dz = torch.where(rec, ndz, dz)
+            inside = torch.where(rec & do_refract, outside, inside)
+        acc_r = acc_r + srr
+        acc_g = acc_g + srg
+        acc_b = acc_b + srb
+    return (acc_r.reshape(rows, L), acc_g.reshape(rows, L),
+            acc_b.reshape(rows, L))
+
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "pt_megakernel_launch": (
+        [_P] * 8 + [ctypes.c_int] * 5
+        + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_float] * 5 + [ctypes.c_int, _P],
+        ctypes.c_int),
+}
+_MAX_OBJECTS = 64   # kMaxObjects of csrc/megakernel.cu
+
+
+def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
+                meta: SceneMeta = None, cfg: RenderConfig = None,
+                spp: int = 1, total_samples: int = 1,
+                tile: Tuple[int, int] = (64, 256), spp_pack: int = 1):
+    """Run the megakernel over all tiles; returns (r, g, b) float32
+    radiance sums [T*S, L] on px's device.
+
+    seed = (prng seed, global sample base). CUDA tensors launch
+    csrc/megakernel.cu on the current stream (and count the launch in
+    trace_tiles.launches); CPU tensors run trace_tiles_reference. Raises
+    for meshes, textures, NEE and sample packing, which are not ported."""
+    if px.device.type != "cuda":
+        return trace_tiles_reference(
+            seed, cam_vec, obj_table, node_table, tri_table, px, py,
+            meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
+            tile=tile, spp_pack=spp_pack)
+    seed0, sample_base = _check_args(
+        seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
+        spp, tile, spp_pack)
+    n_obj = len(meta.obj_types)
+    if not 0 < n_obj <= _MAX_OBJECTS:
+        raise ValueError(f"{n_obj} objects; the kernel takes 1..{_MAX_OBJECTS}")
+    lib = _build.load("megakernel", _SIGNATURES)
+    S, L = tile
+    dev = px.device
+    rows = px.shape[0]
+    out = torch.empty((3, rows, L), dtype=torch.float32, device=dev)
+    types = (ctypes.c_int * n_obj)(*meta.obj_types)   # host array, by value
+    sun_cut, sun_den, golden2 = _sun_constants(total_samples)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pt_megakernel_launch(
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            px.data_ptr(), py.data_ptr(), obj_table.data_ptr(),
+            types, cam_vec.data_ptr(),
+            n_obj, rows * L, S, L, int(spp),
+            seed0 & _M32, sample_base, cfg.max_bounces,
+            cfg.max_effective_bounces, cfg.epsilon, cfg.t_max,
+            sun_cut, sun_den, golden2, int(_coherent_sampling()), stream)
+    if err != 0:
+        raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
+    trace_tiles.launches += 1
+    return out[0], out[1], out[2]
+
+
+trace_tiles.launches = 0
+
+
+def render_megakernel(scn: SceneArrays, meta: SceneMeta, camera,
+                      cfg: RenderConfig, seed: int = None,
+                      tile: Tuple[int, int] = None) -> np.ndarray:
+    """Full-image render in one launch on the scene's device (counterpart
+    of pallas_kernel.render_pallas). Returns [H, W, 3] float32."""
+    W, H = camera.width, camera.height
+    S, L = tile if tile is not None else default_tile(meta)
+    dev = scn.color.device
+    xs, ys, pid = tile_pixel_layout(W, H, S, L, order=default_order(meta))
+    r, g, b = trace_tiles(
+        (seed if seed is not None else cfg.seed, 0),
+        torch.from_numpy(build_camera_vec(camera)).to(dev),
+        torch.from_numpy(build_scene_table(scn, meta)).to(dev),
+        *(torch.from_numpy(t).to(dev) for t in build_mesh_tables(scn, meta)),
+        torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev),
+        meta=meta, cfg=cfg, spp=cfg.samples, total_samples=cfg.samples,
+        tile=(S, L))
+    img = torch.stack([r, g, b], dim=-1).reshape(-1, 3).cpu().numpy()
+    img = untile_image(img, pid, W, H).reshape(H, W, 3)
+    return img / float(cfg.samples)

@@ -1,0 +1,68 @@
+"""Scenes and tolerances shared by the pathtracer_tpu_torch tests. Imports
+no jax, so the tests that need a CUDA card can run where jax is absent."""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from pathtracer_tpu_torch.render import megakernel as mk
+
+# the primitive, untextured scenes of the slice
+SLICE_SCENES = ("reference", "reflection", "transparency",
+                "transparency_quad_lights", "transparency_f_light")
+
+# per-slot rule: f32 round-off, with room for a few paths that diverge on
+# a one-ulp difference in cos/sin at a roulette threshold
+ATOL, RTOL = 1e-4, 1e-3
+SLOT_FRAC = 0.99
+MEAN_REL = 0.01
+
+
+def cylinder_scene(cfg, gx, mat, shapes, pack, cornell):
+    left, right, floor, ceil, back, _front = cornell.cornell_walls()
+    cyl = shapes.Cylinder(min_y=0.0, max_y=0.4, closed=True)
+    cyl.set_transform(gx.translate(0.2, -0.4, -0.1))
+    cyl.set_transform(gx.scale(0.12, 1, 0.12))
+    cyl.set_material(mat.Material.diffuse(0.92, 0.4, 0.8))
+    cube = shapes.Cube()
+    cube.set_transform(gx.translate(-0.25, -0.3, -0.2))
+    cube.set_transform(gx.scale(0.1, 0.1, 0.1))
+    cube.set_transform(gx.rotate_y(math.pi / 5))
+    cube.set_material(mat.Material.glass())
+    light = shapes.Sphere()
+    light.set_transform(gx.translate(0, 0.399, 0))
+    light.set_transform(gx.scale(0.283, 0.01, 0.283))
+    m = mat.Material.light_bulb()
+    m.emission = (9.0, 9.0, 9.0)
+    light.set_material(m)
+    return pack.Scene(camera=cornell.default_camera(cfg),
+                      objects=[light, floor, ceil, left, right, back, cyl,
+                               cube])
+
+
+
+def assert_slot_rule(port: np.ndarray, ref: np.ndarray) -> None:
+    """>= SLOT_FRAC of values within ATOL/RTOL, each channel mean within
+    MEAN_REL. Arrays are [3, ...]."""
+    assert port.shape == ref.shape
+    assert np.isfinite(port).all()
+    frac = np.isclose(port, ref, atol=ATOL, rtol=RTOL).mean()
+    assert frac >= SLOT_FRAC, frac
+    pm = port.reshape(3, -1).mean(1)
+    rm = ref.reshape(3, -1).mean(1)
+    np.testing.assert_array_less(np.abs(pm - rm) / np.abs(rm), MEAN_REL)
+
+
+def port_inputs(sc, cfg, tile, device):
+    """The megakernel's inputs for scene `sc` on `device`, built as the
+    driver builds them (scanline order): ([cam, obj, nodes, tris, px, py],
+    meta, pid)."""
+    arrays, meta = sc.pack(device=device)
+    xs, ys, pid = mk.tile_pixel_layout(cfg.width, cfg.height, *tile,
+                                       order="linear")
+    tabs = [torch.from_numpy(t).to(device) for t in (
+        mk.build_camera_vec(sc.camera), mk.build_scene_table(arrays, meta),
+        *mk.build_mesh_tables(arrays, meta), xs, ys)]
+    return tabs, meta, pid

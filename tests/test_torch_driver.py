@@ -1,0 +1,190 @@
+"""pathtracer_tpu_torch end to end on the CPU: render_driver against the
+same segments composed from the JAX megakernel (interpret mode), checkpoint
+and resume, fault recovery, the .raw/.png writers and the CLI's refusals."""
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from _torch_parity import scene_pair
+from _torch_scenes import assert_slot_rule
+from pathtracer_tpu.io.png import write_png as jax_write_png
+from pathtracer_tpu.io.raw import write_raw as jax_write_raw
+from pathtracer_tpu.render import pallas_kernel as pk
+from pathtracer_tpu_torch import cli
+from pathtracer_tpu_torch.driver import DeviceFailure, render_driver
+from pathtracer_tpu_torch.io.png import write_png
+from pathtracer_tpu_torch.io.raw import read_raw, write_raw
+
+torch.set_num_threads(2)
+
+CPU = torch.device("cpu")
+CFG = dict(width=32, height=24, samples=8, samples_per_pass=2)
+
+
+def _render(monkeypatch, name="reference", **driver_kw):
+    monkeypatch.setenv("PT_SEG_SPP", "4")     # 2 segments of 2 chunks
+    _, _, ts, tc = scene_pair(name, **CFG)
+    arrays, meta = ts.pack(device=CPU)
+    return render_driver(arrays, meta, ts.camera, tc, **driver_kw)
+
+
+def _jax_segments(order):
+    """reference at CFG as two 4-spp segments of the JAX megakernel
+    (interpret mode), seeded as pathtracer_tpu.driver seeds them
+    (driver.py:256-270), on tile order `order`: [H, W, 3]."""
+    js, jc, _, _ = scene_pair("reference", **CFG)
+    ja, jm = js.pack()
+    S, L = pk.default_tile(jm)
+    xs, ys, pid = pk.tile_pixel_layout(32, 24, S, L, order=order)
+    tabs = [jnp.asarray(t) for t in (
+        pk.build_camera_vec(js.camera), pk.build_scene_table(ja, jm),
+        *pk.build_mesh_tables(ja, jm), xs, ys)]
+    acc = 0.0
+    for c0 in (0, 2):
+        seed = jnp.asarray([jc.seed * 7919 + c0 + 1, c0 * 2], jnp.int32)
+        r, g, b = pk.trace_tiles(seed, *tabs, meta=jm, cfg=jc, spp=4,
+                                 total_samples=8, tile=(S, L),
+                                 interpret=True)
+        acc = acc + jnp.stack([r.reshape(-1), g.reshape(-1),
+                               b.reshape(-1)], axis=-1)
+    acc = np.asarray(acc).astype(np.float64)
+    want = (pk.untile_image(acc, pid, 32, 24) / 8.0).astype(np.float32)
+    return want.reshape(24, 32, 3)
+
+
+def test_driver_matches_jax_segments(monkeypatch):
+    img, stats = _render(monkeypatch)
+    assert stats.segments == 2 and stats.samples == 32 * 24 * 8
+    assert stats.backend == "megakernel"
+    want = _jax_segments("linear")
+    assert_slot_rule(np.moveaxis(img, -1, 0), np.moveaxis(want, -1, 0))
+    # Cornell walls: red left, blue right
+    left, right = img[:, :3].mean((0, 1)), img[:, -3:].mean((0, 1))
+    assert left[0] > left[2] and right[2] > right[0]
+
+
+def test_driver_block_order_matches_jax_segments(monkeypatch):
+    # PT_TILE_ORDER=block renders pixels in square blocks: other slots,
+    # so another random stream per pixel, and a checkpoint layout of its own
+    monkeypatch.setenv("PT_TILE_ORDER", "block")
+    img, _ = _render(monkeypatch)
+    want = _jax_segments("block")
+    assert_slot_rule(np.moveaxis(img, -1, 0), np.moveaxis(want, -1, 0))
+    monkeypatch.delenv("PT_TILE_ORDER")
+    assert not np.array_equal(img, _render(monkeypatch)[0])
+
+
+@pytest.mark.parametrize("env", [{"PT_SPP_PACK": "2"},
+                                 {"PT_TILE_ORDER": "subblock"}])
+def test_driver_refuses_unported_layouts(monkeypatch, env):
+    # sample packing and the mesh tile orders serve the BVH walk
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        _render(monkeypatch)
+
+
+def test_torch_checkpoint_resume_bit_identical(monkeypatch, tmp_path):
+    # the checkpoint interval sets the segments (the random stream) and
+    # the host flushes (the f64 summation order)
+    full, _ = _render(monkeypatch, "transparency", checkpoint_every=1,
+                      checkpoint_path=str(tmp_path / "full.npz"))
+    ck = str(tmp_path / "ck.npz")
+    # a persistent outage after chunk 2 kills the first run ...
+    monkeypatch.setenv("PT_FAULT_INJECT", "2")
+    monkeypatch.setenv("PT_FAULT_COUNT", "9")
+    with pytest.raises(DeviceFailure):
+        _render(monkeypatch, "transparency", checkpoint_path=ck,
+                checkpoint_every=1)
+    with np.load(ck) as z:
+        assert int(z["chunks_done"]) == 2
+    # ... and the resumed run finishes it bit for bit
+    monkeypatch.delenv("PT_FAULT_INJECT")
+    img, _ = _render(monkeypatch, "transparency", checkpoint_path=ck,
+                     checkpoint_every=1, resume=True)
+    assert np.array_equal(img, full)
+    # a checkpoint written for another config is refused
+    with pytest.raises(ValueError, match="checkpoint_every"):
+        _render(monkeypatch, "transparency", checkpoint_path=ck,
+                checkpoint_every=2, resume=True)
+
+
+def test_torch_fault_recovery_identical_output(monkeypatch):
+    full, _ = _render(monkeypatch)
+    monkeypatch.setenv("PT_FAULT_INJECT", "2")
+    img, stats = _render(monkeypatch)
+    assert stats.recoveries == 1
+    assert np.array_equal(img, full)
+
+
+@pytest.mark.parametrize("bad,item", [
+    (dict(backend="wavefront"), "item 12"),
+    (dict(dtype="float64"), "item 12"),
+    (dict(nee=True), "item 11"),
+])
+def test_driver_refuses_unported_configs(bad, item):
+    _, _, ts, tc = scene_pair("reference", **CFG)
+    arrays, meta = ts.pack(device=CPU)
+    with pytest.raises(NotImplementedError, match=item):
+        render_driver(arrays, meta, ts.camera, tc.replace(**bad))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        render_driver(arrays, meta, ts.camera, tc, mesh=object())
+
+
+def test_raw_and_png_match_jax_writers(tmp_path):
+    img = np.random.default_rng(0).uniform(
+        -0.2, 1.3, (7, 11, 3)).astype(np.float32)
+    write_raw(str(tmp_path / "t.raw"), img)
+    jax_write_raw(str(tmp_path / "j.raw"), img)
+    assert (tmp_path / "t.raw").read_bytes() == \
+        (tmp_path / "j.raw").read_bytes()
+    assert np.array_equal(read_raw(str(tmp_path / "t.raw")), img)
+    write_png(str(tmp_path / "t.png"), img)
+    jax_write_png(str(tmp_path / "j.png"), img)
+    with Image.open(tmp_path / "t.png") as a, \
+            Image.open(tmp_path / "j.png") as b:
+        assert a.mode == "RGB" and a.size == (11, 7)
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--backend", "wavefront"], "item 12"),
+    (["--dtype", "float64"], "item 12"),
+    (["--distributed"], "item 13"),
+    (["--mesh", "1x1"], "item 13"),
+    (["--nee"], "item 11"),
+    (["--debug-ray", "3"], "item 12"),
+    (["--profile", "trace"], "item 15"),
+])
+def test_cli_refuses_unported_flags(flags, item, capsys):
+    assert cli.main(flags) == 2
+    assert item in capsys.readouterr().err
+
+
+def test_cli_lists_scenes_and_needs_a_card(monkeypatch, tmp_path, capsys):
+    assert cli.main(["--list-scenes"]) == 0
+    out = capsys.readouterr().out
+    assert "reference" in out and "transparency_f_light" in out
+    # no fallback to the CPU: without a card the CLI renders nothing
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    raw = tmp_path / "x.raw"
+    rc = cli.main(["--width", "8", "--height", "6", "--raw-output",
+                   str(raw), "--output", str(tmp_path / "x.png")])
+    assert rc == 1 and not raw.exists()
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_metrics_json_fields():
+    from pathtracer_tpu_torch.driver import RenderStats
+
+    s = RenderStats(wall_s=2.0, samples=4_000_000, backend="megakernel",
+                    segments=3)
+    rec = json.loads(s.to_json(scene="reference"))
+    assert rec["msamples_per_sec"] == 2.0 and rec["segments"] == 3
+    assert rec["scene"] == "reference"
+    assert not os.environ.get("PT_FAULT_INJECT")
