@@ -2,20 +2,29 @@
 """Smoke test of pathtracer_tpu_torch on one CUDA card.
 
 Run from the root of the checkout: `python3 chip_smoke.py`. It builds the
-CUDA megakernel from the sources in the checkout, holds it against its
-plain PyTorch version on the card at 160x120, renders the `reference`
-scene at 1280x960x2048 spp through the CLI (the reference renderer's
-benchmark) and checks the image, requires the kernel to be bit-equal to
-the plain version on the driver's last 128-spp segment at that size, times
-the kernel against the plain version, and prints
-one JSON line of kernel results and, last, one JSON line naming the
+CUDA megakernel from the sources in the checkout and prints the ptxas
+register and spill counts of both its instantiations (primitive scenes,
+and scenes with meshes, which add the BVH walk). It holds the kernel
+against its plain PyTorch version on the card at 160x120 (primitive scenes
+by the per-slot rule, mesh scenes bit for bit), renders the `reference`
+scene and then the `teapot` scene at 1280x960x2048 spp through the CLI
+(the reference renderer's two benchmarks) and checks each image, requires
+the kernel to be bit-equal to the plain version on each driver's last
+segment at that size, times the kernel against the plain version, and
+prints one JSON line of kernel results and, last, one JSON line naming the
 device. Every failure raises; without a card it exits non-zero before
 printing any result. It imports nothing of JAX.
+
+`teapot` and the mesh scenes load procedural stand-ins (a 1472-triangle UV
+sphere, a 576-triangle goblet) because the repository ships no .obj files;
+the size-check mesh is a 16640-triangle UV sphere, as many triangles as
+the reference's gopher model.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -33,27 +42,36 @@ from pathtracer_tpu_torch.render import megakernel as mk
 from pathtracer_tpu_torch.scene import material, pack, shapes
 from pathtracer_tpu_torch.scenes import cornell, get_scene
 
-# the test suite's synthetic scene and per-slot rule (jax-free helpers)
+# the test suite's synthetic scenes and per-slot rule (jax-free helpers)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from _torch_scenes import (ATOL, MEAN_REL, RTOL, SLOT_FRAC,  # noqa: E402
-                           cylinder_scene, port_inputs)
+                           cylinder_scene, port_inputs, size_check_scene)
 
-MAIN_MEAN_REL = 0.02         # 2048-spp image vs 8-spp plain render
+MAIN_MEAN_REL = 0.02         # 2048-spp image vs an 8-spp plain render
 TILE = (64, 256)             # the driver's tile for primitive scenes
+MESH_TILE = (8, 512)         # the driver's tile for mesh scenes
+W, H, SPP = 1280, 960, 2048  # the reference renderer's benchmark size
+PLAIN_BUDGET_S = 150.0       # a full-size plain run beyond this is skipped
 
 
 def phase(msg: str) -> None:
     print(msg, flush=True)
 
 
-def compare(name, sc, cfg, tile, sample_base, dev):
-    """Kernel vs plain version on the card, same inputs. Returns the max
-    abs error."""
-    tabs, meta, _ = port_inputs(sc, cfg, tile, dev)
+def n_triangles(sc) -> int:
+    return sum(len(o.all_triangles()) for o in sc.objects
+               if isinstance(o, shapes.Group))
+
+
+def compare(name, sc, cfg, tile, sample_base, dev, exact=False):
+    """Kernel vs plain version on the card, same inputs: the per-slot rule,
+    or bit-equality when `exact`. Returns (max abs err, bit-equal
+    fraction)."""
+    tabs, meta, _, layout = port_inputs(sc, cfg, tile, dev)
     seed = (cfg.seed * 7919 + 1, sample_base)
     kw = dict(meta=meta, cfg=cfg, spp=cfg.samples,
-              total_samples=cfg.samples + sample_base, tile=tile)
+              total_samples=cfg.samples + sample_base, tile=tile, **layout)
     k = torch.stack(mk.trace_tiles(seed, *tabs, **kw))
     p = torch.stack(mk.trace_tiles_reference(seed, *tabs, **kw))
     torch.cuda.synchronize()
@@ -61,15 +79,20 @@ def compare(name, sc, cfg, tile, sample_base, dev):
     if not np.isfinite(k).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     frac = float(np.isclose(k, p, atol=ATOL, rtol=RTOL).mean())
+    bit_eq = float((k == p).mean())
     km, pm = k.mean(axis=(1, 2)), p.mean(axis=(1, 2))
     mean_rel = float(np.max(np.abs(km - pm) / np.abs(pm)))
     max_err = float(np.abs(k - p).max())
-    phase(f"phase 3: {name}: {frac:.6f} of slot values within atol={ATOL} "
-          f"rtol={RTOL} (need {SLOT_FRAC}); mean rel diff {mean_rel:.2e} "
+    tris = f", {n_triangles(sc)} triangles" if meta.has_groups else ""
+    phase(f"phase 3: {name}{tris}: bit-equal on {bit_eq:.6f} of {k.size} "
+          f"slot values; {frac:.6f} within atol={ATOL} rtol={RTOL} "
+          f"(need {SLOT_FRAC}); mean rel diff {mean_rel:.2e} "
           f"(need <{MEAN_REL}); max abs err {max_err:.3e}")
+    if exact and bit_eq != 1.0:
+        raise AssertionError(f"{name}: kernel differs from plain version")
     if frac < SLOT_FRAC or mean_rel >= MEAN_REL:
         raise AssertionError(f"{name}: kernel disagrees with plain version")
-    return max_err
+    return max_err, bit_eq
 
 
 def timed(fn):
@@ -99,6 +122,80 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def ptxas_lines(log_text: str):
+    """ptxas register/spill lines of each kernel instantiation, named."""
+    names = {"ILb0E": "primitive", "ILb1E": "mesh"}
+    out, current = [], "?"
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = next((v for k, v in names.items() if k in m.group(1)),
+                           m.group(1))
+        elif "registers" in line or "spill" in line:
+            out.append(f"{current}: {line.strip()}")
+    return out
+
+
+def cli_render(scene: str, tmp: str):
+    """Render `scene` at W x H x SPP through cli.main with the launch
+    counts set to 0 just before. Returns (image, metrics, launches,
+    mesh launches)."""
+    raw = os.path.join(tmp, f"{scene}.raw")
+    metrics = os.path.join(tmp, f"{scene}.json")
+    mk.trace_tiles.launches = 0
+    mk.trace_tiles.mesh_launches = 0
+    rc = cli.main([
+        "--scene", scene, "--width", str(W), "--height", str(H),
+        "--samples", str(SPP), "--raw-output", raw,
+        "--output", os.path.join(tmp, f"{scene}.png"),
+        "--metrics-json", metrics])
+    launches, mesh_launches = (mk.trace_tiles.launches,
+                               mk.trace_tiles.mesh_launches)
+    if rc != 0:
+        raise AssertionError(f"cli.main --scene {scene} returned {rc}")
+    with open(metrics) as f:
+        m = json.load(f)
+    return read_raw(raw), m, launches, mesh_launches
+
+
+def check_image(tag: str, img) -> None:
+    if img.shape != (H, W, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"{tag}: image is not finite [H, W, 3]")
+    left, right = img[H // 2, 5], img[H // 2, W - 6]
+    if not (left[0] > left[2] and right[2] > right[0]):
+        raise AssertionError(f"{tag}: Cornell walls wrong: {left} {right}")
+
+
+def last_segment(scene: str, metrics: dict, tile, dev):
+    """The driver's last segment of a W x H x SPP render of `scene`: its
+    inputs and trace_tiles keywords, and its seed vector."""
+    cfg = RenderConfig(width=W, height=H, samples=SPP)
+    chunk = cfg.samples_per_pass
+    seg_spp = metrics["samples"] // (W * H) // metrics["segments"]
+    c0 = (SPP - seg_spp) // chunk
+    seed = (cfg.seed * 7919 + c0 + 1, c0 * chunk)
+    tabs, meta, pid, layout = port_inputs(get_scene(scene, cfg), cfg, tile,
+                                          dev)
+    kw = dict(meta=meta, cfg=cfg, spp=seg_spp, total_samples=SPP, tile=tile,
+              **layout)
+    return tabs, kw, seed, pid
+
+
+def plain_affordable(tag, seed, tabs, kw, n_tiles: int, probe_tiles: int):
+    """Time the plain version on the first `probe_tiles` tiles (the tile
+    numbering, so the random stream, is that of the full run) and decide
+    whether the full run fits PLAIN_BUDGET_S. Returns (probe output,
+    probe ms, whether the full run fits)."""
+    rows = probe_tiles * kw["tile"][0]
+    sub = tabs[:4] + [tabs[4][:rows].contiguous(), tabs[5][:rows].contiguous()]
+    out, ms = timed(lambda: mk.trace_tiles_reference(seed, *sub, **kw))
+    est_s = ms / 1e3 * n_tiles / probe_tiles
+    phase(f"{tag}: plain version on the first {probe_tiles} of {n_tiles} "
+          f"tiles: {ms:.1f} ms; full run estimated at {est_s:.1f} s "
+          f"(budget {PLAIN_BUDGET_S:.0f} s)")
+    return out, ms, est_s < PLAIN_BUDGET_S
+
+
 def main() -> int:
     # ---- phase 1: the card ----------------------------------------------
     smi = subprocess.run(
@@ -117,9 +214,9 @@ def main() -> int:
     lib = _build.build("megakernel")
     phase(f"phase 2: built {lib.name} in {time.perf_counter() - t0:.1f} s")
     log = lib.with_suffix(".log")
-    for line in (log.read_text().splitlines() if log.exists() else []):
-        if "registers" in line or "spill" in line:
-            phase(f"phase 2: ptxas: {line.strip()}")
+    ptxas = ptxas_lines(log.read_text() if log.exists() else "")
+    for line in ptxas:
+        phase(f"phase 2: ptxas: {line}")
 
     # ---- phase 3: kernel vs plain version on the card -------------------
     small = RenderConfig(width=160, height=120, samples=16,
@@ -135,95 +232,219 @@ def main() -> int:
     ]
     errs = []
     for name, sc, cfg, base in cases:
-        errs.append(compare(name, sc, cfg, TILE, base, dev))
+        errs.append(compare(name, sc, cfg, TILE, base, dev)[0])
 
-    # ---- phase 4: the main path at the benchmark size -------------------
-    W, H, SPP = 1280, 960, 2048
+    # mesh scenes with the driver's mesh layout: tile (8, 512), block
+    # order, 4 sample replicas on the lane chunks; bit for bit
+    msmall = small.replace(samples=8, samples_per_pass=8)
+    mdof = msmall.replace(aperture=0.1, focal_length=1.6)
+    mesh_cases = [(n, get_scene(n, msmall), msmall, 0) for n in (
+        "teapot", "default", "glass", "transparent_teapot", "gopher-window")]
+    mesh_cases += [
+        ("teapot dof", get_scene("teapot", mdof), mdof, 16),
+        ("size-check mesh", size_check_scene(msmall, get_scene), msmall, 0),
+    ]
+    mesh_errs, mesh_tris = [], {}
+    for name, sc, cfg, base in mesh_cases:
+        mesh_errs.append(compare(name, sc, cfg, MESH_TILE, base, dev,
+                                 exact=True)[0])
+        mesh_tris[name] = n_triangles(sc)
+
     with tempfile.TemporaryDirectory() as tmp:
-        raw = os.path.join(tmp, "experiment.raw")
-        metrics = os.path.join(tmp, "metrics.json")
-        mk.trace_tiles.launches = 0
-        rc = cli.main([
-            "--scene", "reference", "--width", str(W), "--height", str(H),
-            "--samples", str(SPP), "--raw-output", raw,
-            "--output", os.path.join(tmp, "out.png"),
-            "--metrics-json", metrics])
-        launches = mk.trace_tiles.launches
-        if rc != 0:
-            raise AssertionError(f"phase 4: cli.main returned {rc}")
-        img = read_raw(raw)
-        with open(metrics) as f:
-            m = json.load(f)
-    want = m["segments"]
-    phase(f"phase 4: reference {W}x{H}x{SPP}: {m['msamples_per_sec']} "
-          f"Msamples/s, render wall {m['wall_s']} s (driver), "
-          f"{m['total_wall_s']} s incl. scene setup; {launches} kernel "
-          f"launches for {want} segments; card {card}")
-    if launches != want or want != 16:
-        raise AssertionError("phase 4: the main path did not launch the "
-                             "kernel once per segment (16 expected)")
-    if img.shape != (H, W, 3) or not np.isfinite(img).all():
-        raise AssertionError("phase 4: image is not finite [H, W, 3]")
-    left, right = img[H // 2, 5], img[H // 2, W - 6]
-    if not (left[0] > left[2] and right[2] > right[0]):
-        raise AssertionError(f"phase 4: Cornell walls wrong: {left} {right}")
-    cfg8 = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
-    sc8 = get_scene("reference", cfg8)
-    tabs8, meta8, pid = port_inputs(sc8, cfg8, TILE, dev)
-    kw8 = dict(meta=meta8, cfg=cfg8, spp=8, total_samples=8, tile=TILE)
-    ref = torch.stack(mk.trace_tiles_reference((1, 0), *tabs8, **kw8), -1)
-    ref = mk.untile_image(ref.reshape(-1, 3).cpu().numpy(), pid, W, H) / 8.0
-    rel = np.abs(img.reshape(-1, 3).mean(0) - ref.mean(0)) / ref.mean(0)
-    phase(f"phase 4: image mean {img.reshape(-1, 3).mean(0)} vs plain "
-          f"8-spp {ref.mean(0)}: rel diff {rel.max():.4f} "
-          f"(need <{MAIN_MEAN_REL}); walls {left} {right}")
-    if rel.max() >= MAIN_MEAN_REL:
-        raise AssertionError("phase 4: image mean off the plain render")
+        # ---- phase 4: the main path, reference --------------------------
+        img, m, launches, _ = cli_render("reference", tmp)
+        want = m["segments"]
+        phase(f"phase 4: reference {W}x{H}x{SPP}: {m['msamples_per_sec']} "
+              f"Msamples/s, render wall {m['wall_s']} s (driver), "
+              f"{m['total_wall_s']} s incl. scene setup; {launches} kernel "
+              f"launches for {want} segments; card {card}")
+        if launches != want or want != 16:
+            raise AssertionError("phase 4: the main path did not launch the "
+                                 "kernel once per segment (16 expected)")
+        check_image("phase 4", img)
+        cfg8 = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
+        sc8 = get_scene("reference", cfg8)
+        tabs8, meta8, pid, lay8 = port_inputs(sc8, cfg8, TILE, dev)
+        kw8 = dict(meta=meta8, cfg=cfg8, spp=8, total_samples=8, tile=TILE,
+                   **lay8)
+        ref = torch.stack(mk.trace_tiles_reference((1, 0), *tabs8, **kw8), -1)
+        ref = mk.untile_image(ref.reshape(-1, 3).cpu().numpy(), pid, W,
+                              H) / 8.0
+        rel = np.abs(img.reshape(-1, 3).mean(0) - ref.mean(0)) / ref.mean(0)
+        phase(f"phase 4: image mean {img.reshape(-1, 3).mean(0)} vs plain "
+              f"8-spp {ref.mean(0)}: rel diff {rel.max():.4f} "
+              f"(need <{MAIN_MEAN_REL})")
+        if rel.max() >= MAIN_MEAN_REL:
+            raise AssertionError("phase 4: image mean off the plain render")
 
-    # the driver's last segment again, kernel vs plain version slot by
-    # slot: the shapes, seed vector and sample base the main path used
-    cfg = RenderConfig(width=W, height=H, samples=SPP)
-    chunk = cfg.samples_per_pass
-    seg_spp = m["samples"] // (W * H) // want          # 128 (PT_SEG_SPP)
-    c0 = (SPP - seg_spp) // chunk
-    seed = (cfg.seed * 7919 + c0 + 1, c0 * chunk)
-    tabs, meta, _ = port_inputs(get_scene("reference", cfg), cfg, TILE, dev)
-    kw = dict(meta=meta, cfg=cfg, spp=seg_spp, total_samples=SPP, tile=TILE)
-    k = torch.stack(mk.trace_tiles(seed, *tabs, **kw)).cpu().numpy()
-    p, p_ms = timed(lambda: mk.trace_tiles_reference(seed, *tabs, **kw))
-    p = p.cpu().numpy()
-    frac = float(np.isclose(k, p, atol=ATOL, rtol=RTOL).mean())
-    bit_eq = float((k == p).mean())
-    seg_err = float(np.abs(k - p).max())
-    phase(f"phase 4: segment seed {seed} x {seg_spp} spp of {SPP} at "
-          f"{W}x{H}: kernel vs plain bit-equal on {bit_eq:.6f} of "
-          f"{k.size} slot values, {frac:.6f} within atol={ATOL} "
-          f"rtol={RTOL}; max abs err {seg_err:.3e}")
-    if not np.isfinite(k).all() or bit_eq != 1.0:
-        raise AssertionError("phase 4: kernel differs from the plain "
+        # the driver's last segment again, kernel vs plain version slot by
+        # slot: the shapes, seed vector and sample base the main path used
+        tabs, kw, seed, _ = last_segment("reference", m, TILE, dev)
+        seg_spp = kw["spp"]                             # 128 (PT_SEG_SPP)
+        k = torch.stack(mk.trace_tiles(seed, *tabs, **kw)).cpu().numpy()
+        p, p_ms = timed(lambda: mk.trace_tiles_reference(seed, *tabs, **kw))
+        p = p.cpu().numpy()
+        frac = float(np.isclose(k, p, atol=ATOL, rtol=RTOL).mean())
+        bit_eq = float((k == p).mean())
+        seg_err = float(np.abs(k - p).max())
+        phase(f"phase 4: segment seed {seed} x {seg_spp} spp of {SPP} at "
+              f"{W}x{H}: kernel vs plain bit-equal on {bit_eq:.6f} of "
+              f"{k.size} slot values, {frac:.6f} within atol={ATOL} "
+              f"rtol={RTOL}; max abs err {seg_err:.3e}")
+        if not np.isfinite(k).all() or bit_eq != 1.0:
+            raise AssertionError("phase 4: kernel differs from the plain "
+                                 "version on the main path's segment")
+        errs.append(seg_err)
+
+        # ---- phase 4 (mesh): the main path, teapot ----------------------
+        timg, tm, t_launches, t_mesh = cli_render("teapot", tmp)
+        t_want = tm["segments"]
+        phase(f"phase 4 mesh: teapot ({mesh_tris['teapot']} triangles) "
+              f"{W}x{H}x{SPP}: {tm['msamples_per_sec']} Msamples/s, render "
+              f"wall {tm['wall_s']} s (driver), {tm['total_wall_s']} s incl. "
+              f"scene setup; {t_launches} kernel launches ({t_mesh} of the "
+              f"mesh instantiation) for {t_want} segments; card {card}")
+        if not t_launches == t_mesh == t_want == SPP // 8:
+            raise AssertionError("phase 4 mesh: the main path did not "
+                                 "launch the mesh kernel once per segment "
+                                 f"({SPP // 8} expected)")
+        check_image("phase 4 mesh", timg)
+
+    # its last segment, kernel vs plain version: the first 64 tiles, or
+    # every slot when the plain version fits its time budget
+    mtabs, mkw, mseed, _ = last_segment("teapot", tm, MESH_TILE, dev)
+    n_tiles = mtabs[4].shape[0] // MESH_TILE[0]
+    k = torch.stack(mk.trace_tiles(mseed, *mtabs, **mkw))
+    torch.cuda.synchronize()
+    p64, p64_ms, full = plain_affordable("phase 4 mesh", mseed, mtabs, mkw,
+                                         n_tiles, 64)
+    rows64 = 64 * MESH_TILE[0]
+    if full:
+        p, tp_ms = timed(lambda: mk.trace_tiles_reference(mseed, *mtabs,
+                                                          **mkw))
+        checked = "every slot"
+    else:
+        p, tp_ms = p64, None
+        k = k[:, :rows64]
+        checked = "the slots of the first 64 tiles"
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    if not np.array_equal(k[:, :rows64], p64.cpu().numpy()):
+        raise AssertionError("phase 4 mesh: plain version on the first 64 "
+                             "tiles differs from its full run")
+    t_bit_eq = float((k == p).mean())
+    mesh_errs.append(float(np.abs(k - p).max()))
+    phase(f"phase 4 mesh: segment seed {mseed} x {mkw['spp']} spp of {SPP} "
+          f"at {W}x{H}: checked {checked} ({k.size} slot values): "
+          f"bit-equal on {t_bit_eq:.6f}; max abs err {mesh_errs[-1]:.3e}")
+    if not np.isfinite(k).all() or t_bit_eq != 1.0:
+        raise AssertionError("phase 4 mesh: kernel differs from the plain "
                              "version on the main path's segment")
-    errs.append(seg_err)
+    # the mean check's plain render: 8 spp with per-slot draws
+    # (PT_COHERENT=0, the same estimator). The coherent draws of a mesh
+    # tile are shared by a whole 32x32-pixel block, so the mean of one
+    # coherent 8-spp render carries several percent of noise. At a quarter
+    # of the size when the full-size plain run does not fit its budget (the
+    # mean over the image plane does not depend on the resolution).
+    qw, qh = (W, H) if full else (W // 4, H // 4)
+    qcfg = RenderConfig(width=qw, height=qh, samples=8, samples_per_pass=8)
+    coherent = os.environ.get("PT_COHERENT")
+    os.environ["PT_COHERENT"] = "0"
+    try:
+        qtabs, qmeta, qpid, qlay = port_inputs(get_scene("teapot", qcfg),
+                                               qcfg, MESH_TILE, dev)
+        q = torch.stack(mk.trace_tiles_reference(
+            (1, 0), *qtabs, meta=qmeta, cfg=qcfg, spp=8, total_samples=8,
+            tile=MESH_TILE, **qlay), -1).reshape(-1, 3).cpu().numpy()
+    finally:
+        if coherent is None:
+            del os.environ["PT_COHERENT"]
+        else:
+            os.environ["PT_COHERENT"] = coherent
+    plain_img = mk.untile_image(q.astype(np.float64), qpid, qw, qh) / 8.0
+    plain_tag = f"plain 8-spp per-slot-draw {qw}x{qh}"
+    pmean = plain_img.reshape(-1, 3).mean(0)
+    trel = np.abs(timg.reshape(-1, 3).mean(0) - pmean) / pmean
+    phase(f"phase 4 mesh: image mean {timg.reshape(-1, 3).mean(0)} vs "
+          f"{plain_tag} {pmean}: rel diff {trel.max():.4f} "
+          f"(need <{MAIN_MEAN_REL})")
+    if trel.max() >= MAIN_MEAN_REL:
+        raise AssertionError("phase 4 mesh: image mean off the plain render")
 
     # ---- phase 5: kernel vs plain time ----------------------------------
     k_ms = cuda_ms(lambda: mk.trace_tiles(seed, *tabs, **kw), 5)
     k8_ms = cuda_ms(lambda: mk.trace_tiles((1, 0), *tabs8, **kw8), 10)
     p8_ms = cuda_ms(lambda: mk.trace_tiles_reference((1, 0), *tabs8, **kw8),
                     2)
-    phase(f"phase 5: {W}x{H}x{seg_spp} spp (one segment): kernel "
+    phase(f"phase 5: reference {W}x{H}x{seg_spp} spp (one segment): kernel "
           f"{k_ms:.3f} ms ({W * H * seg_spp / k_ms / 1e3:.1f} Msamples/s), "
           f"plain {p_ms:.3f} ms; card {card}")
-    phase(f"phase 5: {W}x{H}x8 spp: kernel {k8_ms:.3f} ms "
+    phase(f"phase 5: reference {W}x{H}x8 spp: kernel {k8_ms:.4f} ms "
           f"({W * H * 8 / k8_ms / 1e3:.1f} Msamples/s), plain {p8_ms:.3f} "
           f"ms; card {card}")
+    tk_ms = cuda_ms(lambda: mk.trace_tiles(mseed, *mtabs, **mkw), 10)
+    tp_txt = (f"plain {tp_ms:.1f} ms" if tp_ms is not None else
+              f"plain not run at full size (first 64 tiles {p64_ms:.1f} ms)")
+    phase(f"phase 5: teapot ({mesh_tris['teapot']} triangles) {W}x{H}x8 "
+          f"spp: kernel {tk_ms:.4f} ms ({W * H * 8 / tk_ms / 1e3:.1f} "
+          f"Msamples/s), {tp_txt}; card {card}")
 
-    print(json.dumps({"kernels": [{
-        "name": "megakernel", "route": "cuda",
-        "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
-        "replaces": "pathtracer_tpu/render/pallas_kernel.py:1903",
-        "launches": launches, "max_abs_err": max(errs),
-        "bit_equal_frac": bit_eq, "slot_frac_within_tol": frac,
-        "shape": f"{W}x{H}x{seg_spp}spp", "ms": k_ms, "plain_ms": p_ms,
-        "ms_8spp": k8_ms, "plain_ms_8spp": p8_ms}]}))
+    # the size-check mesh at the benchmark size: 16640 triangles, leaf 16
+    scfg = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
+    stabs, smeta, _, slay = port_inputs(size_check_scene(scfg, get_scene),
+                                        scfg, MESH_TILE, dev)
+    skw = dict(meta=smeta, cfg=scfg, spp=8, total_samples=8,
+               tile=MESH_TILE, **slay)
+    sk_ms = cuda_ms(lambda: mk.trace_tiles((1, 0), *stabs, **skw), 5)
+    s_tiles = stabs[4].shape[0] // MESH_TILE[0]
+    sp64, sp64_ms, sfull = plain_affordable("phase 5", (1, 0), stabs, skw,
+                                            s_tiles, 64)
+    sk = torch.stack(mk.trace_tiles((1, 0), *stabs, **skw))
+    if sfull:
+        sp, sp_ms = timed(lambda: mk.trace_tiles_reference((1, 0), *stabs,
+                                                           **skw))
+        s_checked = "every slot"
+    else:
+        sp, sp_ms = sp64, None
+        sk = sk[:, :64 * MESH_TILE[0]]
+        s_checked = "the first 64 tiles"
+    torch.cuda.synchronize()
+    s_bit_eq = float((sk == sp).float().mean())
+    mesh_errs.append(float((sk - sp).abs().max()))
+    sp_txt = (f"plain {sp_ms:.1f} ms" if sp_ms is not None else
+              f"plain not run at full size (first 64 tiles {sp64_ms:.1f} ms)")
+    phase(f"phase 5: size-check mesh ({mesh_tris['size-check mesh']} "
+          f"triangles, leaf {smeta.leaf_size}, {smeta.n_nodes} nodes) "
+          f"{W}x{H}x8 spp: kernel {sk_ms:.4f} ms "
+          f"({W * H * 8 / sk_ms / 1e3:.1f} Msamples/s), {sp_txt}; "
+          f"bit-equal on {s_bit_eq:.6f} of {s_checked}; card {card}")
+    if s_bit_eq != 1.0:
+        raise AssertionError("phase 5: kernel differs from the plain "
+                             "version on the size-check mesh")
+
+    print(json.dumps({"kernels": [
+        {"name": "megakernel", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pathtracer_tpu/render/pallas_kernel.py:1903",
+         "launches": launches, "max_abs_err": max(errs),
+         "bit_equal_frac": bit_eq, "slot_frac_within_tol": frac,
+         "shape": f"{W}x{H}x{seg_spp}spp", "ms": k_ms, "plain_ms": p_ms,
+         "ms_8spp": k8_ms, "plain_ms_8spp": p8_ms},
+        {"name": "megakernel-mesh", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pathtracer_tpu/render/pallas_kernel.py:1334,1256,1231",
+         "launches": t_mesh, "max_abs_err": max(mesh_errs),
+         "bit_equal_frac": t_bit_eq, "checked": checked,
+         "shape": f"teapot {W}x{H}x8spp", "ms": tk_ms,
+         "plain_ms": tp_ms if full else p64_ms,
+         "plain_shape": (f"teapot {W}x{H}x8spp" if full
+                         else "teapot first 64 tiles x8spp"),
+         "plain_ms_first_64_tiles": p64_ms,
+         "size_check_ms": sk_ms,
+         "size_check_plain_ms": sp_ms if sfull else sp64_ms,
+         "size_check_plain_shape": (f"{W}x{H}x8spp" if sfull
+                                    else "first 64 tiles x8spp"),
+         "size_check_bit_equal_frac": s_bit_eq,
+         "triangles": mesh_tris, "ptxas": ptxas}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

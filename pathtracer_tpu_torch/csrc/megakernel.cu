@@ -1,31 +1,51 @@
-// Forward path-tracing megakernel for primitive scenes, for Hopper (sm_90a).
+// Forward path-tracing megakernel for untextured scenes of primitives and
+// triangle meshes, for Hopper (sm_90a).
 //
 // Replaces pathtracer_tpu/render/pallas_kernel.py::_make_kernel, launched by
-// trace_tiles (the primitive, untextured branch without NEE): per tile slot,
-// `spp` samples of a jittered camera ray (sunflower depth of field when the
-// aperture is set), each bounced up to `max_bounces` times through the
-// plane/sphere/cylinder/box tests, the material roulette (reflect, thin
-// shell, Schlick refraction, diffuse), the cosine hemisphere and the
-// forward-folded resolve. Output: the f32 RGB radiance sum per slot.
+// trace_tiles (the untextured branch without NEE): per tile slot,
+// `spp / spp_pack` samples of a jittered camera ray (sunflower depth of field
+// when the aperture is set), each bounced up to `max_bounces` times through
+// the plane/sphere/cylinder/box tests and the BVH walk of triangle groups
+// (K1-mesh: _packet_traverse :1334, _leaf_tests :1256, _group_octant_base
+// :1231), the material roulette (reflect, thin shell, Schlick refraction,
+// diffuse), the cosine hemisphere and the forward-folded resolve. Output: the
+// f32 RGB radiance sum per slot.
 //
 // Design. One thread owns one tile slot (one path at a time): the thread
 // derives (tile = row / S, r0 = row % S, r1 = lane) from its global index,
 // so the JAX package's (S, L) tile survives only as a numbering of the
-// random stream. The object table (<= 64 rows of 45 floats) and the camera
-// vector are staged in shared memory once per block, and the type codes ride
-// in the launch parameters; the TPU kernel's static unroll over objects
-// becomes a loop with a switch on the type. Its per-tile early exit becomes
-// a per-ray break, which is equivalent because dead rays are inert. Random numbers come from the stateless murmur3 counter hash of
+// random stream, of the sample replicas (spp_pack copies of a pixel block
+// along the rows or the 128-lane chunks of a tile) and of the coherent draws
+// they share. The object table (<= 64 rows of 45 floats) and the camera
+// vector are staged in shared memory once per block, and the type codes and
+// group node ranges ride in the launch parameters; the TPU kernel's static
+// unroll over objects becomes a loop with a switch on the type. Its per-tile
+// early exit becomes a per-ray break, which is equivalent because dead rays
+// are inert. Random numbers come from the stateless murmur3 counter hash of
 // pallas_kernel._prng_seed/_uniform, keyed on (seed, tile, draw id, sample,
 // bounce, slot), so the kernel traces the same paths as the interpret-mode
 // JAX kernel and the plain PyTorch version. Compiled with -fmad=false and
 // IEEE sqrt/division so each operation rounds as theirs do.
 //
+// The BVH walk. The TPU kernel walks the skip-link BVH with one scalar node
+// pointer for a whole (8, 512) packet, because its vector unit has no
+// per-lane control flow. Here each thread walks alone: on the node copy of
+// its own object-space direction octant, a slab hit steps to idx + 1 and a
+// miss to the node's exit; a hit leaf tests its leaf_size slots one after
+// the other with a strict `<` (the JAX min-tree's winner: the lowest slot on
+// ties). A child box lies inside its parent's, so a ray visits every leaf
+// the packet walk lets it test; only the order differs, which matters only
+// on exact-t ties. The node table [9 Nn, 16] and the triangle table
+// [rows, 96] stay in global memory and are read through the read-only
+// cache: even a 16640-triangle mesh's tables (~3 MB) sit in the 50 MB L2.
+// The walk is compiled only into the kMesh instantiation, so primitive
+// scenes run the code (and registers) they ran before.
+//
 // What bounds it: arithmetic and divergence, not bytes. Each slot reads two
-// ints and writes three floats; everything else lives in registers and
-// shared memory. Paths end at different bounces, so warps diverge. The
-// kernel allocates nothing and does not synchronise; it runs on the stream
-// it is given.
+// ints and writes three floats; the rest lives in registers, shared memory
+// and the L2-resident mesh tables. Paths end at different bounces and walks
+// visit different nodes, so warps diverge. The kernel allocates nothing and
+// does not synchronise; it runs on the stream it is given.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,13 +54,15 @@ namespace {
 
 constexpr int kObjCols = 45;
 constexpr int kCamCols = 17;
+constexpr int kNodeCols = 16;  // 0-2 bbmin, 3-5 bbmax, 6 tri_start, 7 leaf, 8 exit
+constexpr int kTriStride = 24;  // p1, Ng, U, V, n1, n2-n1, n3-n1, color
 constexpr int kThreads = 128;
 constexpr int kMaxObjects = 64;  // type codes travel in the launch params
 constexpr float kBig = 1e30f;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInv24 = 5.9604644775390625e-08f;  // 2^-24
 
-enum { PLANE = 0, SPHERE = 1, CYLINDER = 2, BOX = 3 };
+enum { PLANE = 0, SPHERE = 1, CYLINDER = 2, BOX = 3, GROUP = 4 };
 
 // ---- counter-hash PRNG (pallas_kernel.py:660-731) -------------------------
 
@@ -193,14 +215,96 @@ struct Params {
   const int* py;
   const float* obj;
   const float* cam;
-  int n_obj, n_slots, S, L, spp;
+  const float* __restrict__ nodes;
+  const float* __restrict__ tris;
+  int n_obj, n_slots, S, L, waves, spp_pack, chunk_axis;  // waves = spp/pack
   uint32_t seed;
-  int sample_base, max_bounces, max_eff;
+  int sample_base, max_bounces, max_eff, leaf_size, oct_nodes;
   float eps, t_max, sun_cut, sun_den, golden2;
   int coherent;
   int obj_types[kMaxObjects];
+  int group_root[kMaxObjects];  // node range [root, end) of each GROUP
+  int group_end[kMaxObjects];
 };
 
+// ---- BVH walk (pallas_kernel.py:1231-1540, one ray) -------------------------
+
+// 1/d for the slab tests, hoisted out of the walk (pallas_kernel.py:1428)
+__device__ __forceinline__ float inv_safe(float d, float eps) {
+  return fabsf(d) >= eps ? 1.0f / d : kBig;
+}
+
+// Skip-link walk of one group's nodes [root, end) in object space. `bt` is
+// the closest hit among the objects before this one; returns the closest
+// triangle hit below it (and below t_max), or `bt` unchanged. On a hit,
+// `slot` is the winning triangle slot and (u, v) its barycentrics.
+__device__ __forceinline__ float walk_group(const Params& p, int root, int end,
+                                         float ox, float oy, float oz,
+                                         float dx, float dy, float dz,
+                                         float bt, int& slot, float& wu,
+                                         float& wv) {
+  const float eps = p.eps;
+  const float ivx = inv_safe(dx, eps);
+  const float ivy = inv_safe(dy, eps);
+  const float ivz = inv_safe(dz, eps);
+  int base = 0;
+  if (p.oct_nodes) {
+    // the node copy of this ray's direction octant (bvh.octant_node_orders)
+    const int oct = (dx < 0.0f) + 2 * (dy < 0.0f) + 4 * (dz < 0.0f);
+    base = (1 + oct) * p.oct_nodes;
+  }
+  int idx = root + base;
+  const int stop = end + base;
+  while (idx < stop) {
+    const float* nd = p.nodes + (size_t)idx * kNodeCols;
+    const float ax1 = (__ldg(nd + 0) - ox) * ivx;
+    const float ax2 = (__ldg(nd + 3) - ox) * ivx;
+    const float ay1 = (__ldg(nd + 1) - oy) * ivy;
+    const float ay2 = (__ldg(nd + 4) - oy) * ivy;
+    const float az1 = (__ldg(nd + 2) - oz) * ivz;
+    const float az2 = (__ldg(nd + 5) - oz) * ivz;
+    const float tmin = fmaxf(fmaxf(fminf(ax1, ax2), fminf(ay1, ay2)),
+                             fminf(az1, az2));
+    const float tmax = fminf(fminf(fmaxf(ax1, ax2), fmaxf(ay1, ay2)),
+                             fmaxf(az1, az2));
+    const bool hit = (tmin <= tmax) && (tmax > eps) && (tmin < bt);
+    if (hit && __ldg(nd + 7) > 0.5f) {
+      // leaf: dual-basis tests of its slots (pallas_kernel.py:1256-1331)
+      const int s0 = (int)__ldg(nd + 6);
+      for (int k = 0; k < p.leaf_size; ++k) {
+        const float* tr = p.tris + (size_t)(s0 + k) * kTriStride;
+        const float pxx = ox - __ldg(tr + 0);
+        const float pyy = oy - __ldg(tr + 1);
+        const float pzz = oz - __ldg(tr + 2);
+        const float ngx = __ldg(tr + 3), ngy = __ldg(tr + 4),
+                    ngz = __ldg(tr + 5);
+        const float den = dx * ngx + dy * ngy + dz * ngz;
+        const float num_t = -(pxx * ngx + pyy * ngy + pzz * ngz);
+        const bool den_ok = fabsf(den) >= eps;
+        const float f = 1.0f / (den_ok ? den : 1.0f);
+        const float t = num_t * f;
+        const float hx = pxx + t * dx;
+        const float hy = pyy + t * dy;
+        const float hz = pzz + t * dz;
+        const float u = hx * __ldg(tr + 6) + hy * __ldg(tr + 7) +
+                        hz * __ldg(tr + 8);
+        const float v = hx * __ldg(tr + 9) + hy * __ldg(tr + 10) +
+                        hz * __ldg(tr + 11);
+        if (den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > eps &&
+            t < bt && t < p.t_max) {
+          bt = t;
+          slot = s0 + k;
+          wu = u;
+          wv = v;
+        }
+      }
+    }
+    idx = hit ? idx + 1 : (int)__ldg(nd + 8);
+  }
+  return bt;
+}
+
+template <bool kMesh>
 __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   extern __shared__ float smem[];
   float* s_obj = smem;
@@ -212,13 +316,22 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= p.n_slots) return;
-  const int row = idx / p.L;
-  const int lane = idx - row * p.L;
-  const uint32_t key = tile_key(p.seed, (uint32_t)(row / p.S));
-  const uint32_t elem = (uint32_t)((row % p.S) * p.L + lane);
-  // coherent sampling (PT_COHERENT=1): roulette and hemisphere draws are
-  // shared by a tile row, i.e. taken at lane 0 of the row
-  const uint32_t u_elem = p.coherent ? (uint32_t)((row % p.S) * p.L) : elem;
+  uint32_t key, elem, u_elem;
+  {
+    // (row, lane) are recomputed from idx where needed, not kept live
+    const int row = idx / p.L;
+    const int lane = idx - row * p.L;
+    const int r0 = row % p.S;
+    key = tile_key(p.seed, (uint32_t)(row / p.S));
+    elem = (uint32_t)(r0 * p.L + lane);
+    // coherent sampling (PT_COHERENT=1): roulette and hemisphere draws are
+    // shared by a tile row (lane 0 of the row), or, when the sample
+    // replicas run along the lane chunks, by a 128-lane chunk (lane c*128
+    // of row 0)
+    u_elem = !p.coherent ? elem
+             : (p.chunk_axis && p.L >= 128) ? (uint32_t)((lane / 128) * 128)
+                                            : (uint32_t)(r0 * p.L);
+  }
   const float eps = p.eps;
 
   const float fx = (float)p.px[idx];
@@ -228,7 +341,7 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   const float oxw = s_cam[3], oyw = s_cam[7], ozw = s_cam[11];
 
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  for (int n = 0; n < p.spp; ++n) {
+  for (int n = 0; n < p.waves; ++n) {
     // ---- rayForPixel (tracer.cl:745-779) ----------------------------------
     const float jx = hash_uniform(key, elem, 0u, (uint32_t)n, 0u);
     const float jy = hash_uniform(key, elem, 1u, (uint32_t)n, 0u);
@@ -241,8 +354,12 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
     normalize3(dx, dy, dz);
     float ox = oxw, oy = oyw, oz = ozw;
     if (aperture != 0.0f) {
-      // DoF via sunflower(totalSamples, alpha=2, n + sample base)
-      const float nf = (float)(n + p.sample_base);
+      // DoF via sunflower(totalSamples, alpha=2, global sample index): the
+      // slot's sample replica rep counts n*spp_pack + rep + sample base
+      const int row = idx / p.L;
+      const int rep = p.chunk_axis ? (idx - row * p.L) / (p.L / p.spp_pack)
+                                   : (row % p.S) / (p.S / p.spp_pack);
+      const float nf = (float)(n * p.spp_pack + rep + p.sample_base);
       const float r_sun =
           nf <= p.sun_cut ? sqrtf(fmaxf(nf - 0.5f, 0.0f)) / p.sun_den : 1.0f;
       const float theta = (kTwoPi * nf) / p.golden2;
@@ -267,6 +384,8 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
       float best_t = kBig;
       int w = -1;
       float lox = 0.f, loy = 0.f, loz = 0.f, ldx = 0.f, ldy = 0.f, ldz = 0.f;
+      int tri = -1;       // winning triangle slot when a group wins
+      float tu = 0.f, tv = 0.f;
       for (int j = 0; j < p.n_obj; ++j) {
         const float* m = s_obj + j * kObjCols;
         const float tox = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
@@ -276,19 +395,46 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
         const float tdy = m[4] * dx + m[5] * dy + m[6] * dz;
         const float tdz = m[8] * dx + m[9] * dy + m[10] * dz;
         float t;
+        int g_slot = -1;
+        float g_u = 0.f, g_v = 0.f;
         switch (p.obj_types[j]) {
           case PLANE: t = plane_t(toy, tdy, eps); break;
           case SPHERE: t = sphere_t(tox, toy, toz, tdx, tdy, tdz, eps); break;
           case CYLINDER:
             t = cylinder_t(tox, toy, toz, tdx, tdy, tdz, m[32], m[33], eps);
             break;
-          default: t = box_t(tox, toy, toz, tdx, tdy, tdz, eps); break;
+          default:
+            if constexpr (kMesh) {
+              if (p.obj_types[j] == BOX) {
+                t = box_t(tox, toy, toz, tdx, tdy, tdz, eps);
+                break;
+              }
+              // GROUP: object-space bbox pretest, then the walk
+              t = kBig;
+              float x1, x2, y1, y2, z1, z2;
+              axis_slab(tox, tdx, m[34], m[37], eps, x1, x2);
+              axis_slab(toy, tdy, m[35], m[38], eps, y1, y2);
+              axis_slab(toz, tdz, m[36], m[39], eps, z1, z2);
+              const float gtmin = fmaxf(fmaxf(x1, y1), z1);
+              const float gtmax = fminf(fminf(x2, y2), z2);
+              if (gtmin <= gtmax && gtmax > eps && gtmin < best_t) {
+                t = walk_group(p, p.group_root[j], p.group_end[j], tox, toy,
+                               toz, tdx, tdy, tdz, best_t, g_slot, g_u, g_v);
+              }
+            } else {
+              // BOX, the last type a scene without groups has
+              t = box_t(tox, toy, toz, tdx, tdy, tdz, eps);
+            }
+            break;
         }
         if (t < best_t) {
           best_t = t;
           w = j;
           lox = tox; loy = toy; loz = toz;
           ldx = tdx; ldy = tdy; ldz = tdz;
+          tri = g_slot;
+          tu = g_u;
+          tv = g_v;
         }
       }
       // a miss ends the path with nothing added (every update is gated on
@@ -297,13 +443,25 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
       const float t = best_t;
       const float* wm = s_obj + w * kObjCols;
       const int w_type = p.obj_types[w];
+      const bool on_tri = kMesh && tri >= 0;
 
       // ---- surface normal by type (tracer.cl:903-950) ---------------------
       const float lx = lox + ldx * t;
       const float ly = loy + ldy * t;
       const float lz = loz + ldz * t;
       float nlx, nly, nlz;
-      if (w_type == PLANE) {
+      float tcr = 0.f, tcg = 0.f, tcb = 0.f;
+      if (on_tri) {
+        // smooth normal n1 + u*(n2-n1) + v*(n3-n1) (tracer.cl:669) and the
+        // triangle's color
+        const float* tr = p.tris + (size_t)tri * kTriStride;
+        nlx = __ldg(tr + 12) + __ldg(tr + 15) * tu + __ldg(tr + 18) * tv;
+        nly = __ldg(tr + 13) + __ldg(tr + 16) * tu + __ldg(tr + 19) * tv;
+        nlz = __ldg(tr + 14) + __ldg(tr + 17) * tu + __ldg(tr + 20) * tv;
+        tcr = __ldg(tr + 21);
+        tcg = __ldg(tr + 22);
+        tcb = __ldg(tr + 23);
+      } else if (w_type == PLANE) {
         nlx = 0.0f; nly = 1.0f; nlz = 0.0f;
       } else if (w_type == CYLINDER) {
         const float dist = lx * lx + lz * lz;
@@ -395,19 +553,22 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
       const bool go_under = thin_pass || do_refract;
 
       // ---- fold resolve forward (tracer.cl:1116-1176) ---------------------
-      const float emi_r = wm[27];
+      // mesh hits emit nothing (tracer.cl:672-673) and take the triangle's
+      // color; the object row is read here, where it is used, so the
+      // primitive instantiation keeps no more values live than before
+      const float emi_r = on_tri ? 0.0f : wm[27];
       const bool is_light = emi_r > 0.0f;
       if (!do_refract) {
         sr = sr + mask_r * emi_r;
-        sg = sg + mask_g * wm[28];
-        sb = sb + mask_b * wm[29];
+        sg = sg + mask_g * (on_tri ? 0.0f : wm[28]);
+        sb = sb + mask_b * (on_tri ? 0.0f : wm[29]);
         if (is_light && n_hits == 0) {
           sr = wm[24]; sg = wm[25]; sb = wm[26];
         }
         if (!is_light) {
-          mask_r = mask_r * wm[24] * cosw;
-          mask_g = mask_g * wm[25] * cosw;
-          mask_b = mask_b * wm[26] * cosw;
+          mask_r = mask_r * (on_tri ? tcr : wm[24]) * cosw;
+          mask_g = mask_g * (on_tri ? tcg : wm[25]) * cosw;
+          mask_b = mask_b * (on_tri ? tcb : wm[26]) * cosw;
         }
       }
       if (!do_refract && !any_reflect) eff += 1;
@@ -432,26 +593,44 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
 
 }  // namespace
 
-// Launch the megakernel over n_slots = T*S*L slots on `stream`. obj_types is
-// a HOST array of n_obj <= kMaxObjects type codes, copied into the launch
-// parameters (no device copy, so no synchronisation). Returns the
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue when n_obj is out of range.
+// Launch the megakernel over n_slots = T*S*L slots on `stream`. obj_types,
+// group_root and group_end are HOST arrays of n_obj <= kMaxObjects entries,
+// copied into the launch parameters (no device copy, so no synchronisation).
+// nodes [*, 16] and tris [*, 96] are the mesh tables (one zero row each for
+// a scene without groups); oct_nodes is the node count of one octant copy,
+// or 0 when the table has no copies. Scenes with a GROUP run the kMesh
+// instantiation. Returns the cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for arguments out of range.
 extern "C" int pt_megakernel_launch(
     float* out_r, float* out_g, float* out_b, const int* px, const int* py,
-    const float* obj, const int* obj_types, const float* cam, int n_obj,
-    int n_slots, int S, int L, int spp, uint32_t seed, int sample_base,
-    int max_bounces, int max_eff, float eps, float t_max, float sun_cut,
-    float sun_den, float golden2, int coherent, void* stream) {
-  if (n_obj < 1 || n_obj > kMaxObjects) return (int)cudaErrorInvalidValue;
-  Params p{out_r, out_g, out_b, px, py, obj, cam,
-           n_obj, n_slots, S, L, spp, seed, sample_base, max_bounces,
-           max_eff, eps, t_max, sun_cut, sun_den, golden2, coherent, {}};
-  for (int i = 0; i < n_obj; ++i) p.obj_types[i] = obj_types[i];
+    const float* obj, const int* obj_types, const float* cam,
+    const float* nodes, const float* tris, const int* group_root,
+    const int* group_end, int n_obj, int n_slots, int S, int L, int spp,
+    int spp_pack, int chunk_axis, uint32_t seed, int sample_base,
+    int max_bounces, int max_eff, int leaf_size, int oct_nodes, float eps,
+    float t_max, float sun_cut, float sun_den, float golden2, int coherent,
+    void* stream) {
+  if (n_obj < 1 || n_obj > kMaxObjects || spp_pack < 1 || leaf_size < 1 ||
+      spp % spp_pack != 0 || (chunk_axis ? L % spp_pack : S % spp_pack) != 0)
+    return (int)cudaErrorInvalidValue;
+  Params p{out_r, out_g, out_b, px, py, obj, cam, nodes, tris,
+           n_obj, n_slots, S, L, spp / spp_pack, spp_pack, chunk_axis, seed,
+           sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
+           eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {}};
+  bool mesh = false;
+  for (int i = 0; i < n_obj; ++i) {
+    p.obj_types[i] = obj_types[i];
+    p.group_root[i] = group_root[i];
+    p.group_end[i] = group_end[i];
+    mesh = mesh || obj_types[i] == GROUP;
+  }
   const size_t smem = sizeof(float) * (size_t)(n_obj * kObjCols + kCamCols);
   const int blocks = (n_slots + kThreads - 1) / kThreads;
   if (blocks > 0) {
-    megakernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+    if (mesh)
+      megakernel<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+    else
+      megakernel<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
 }

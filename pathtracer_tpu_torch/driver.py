@@ -138,7 +138,7 @@ def render_driver(
     log.info("backend: %s on %s", backend_name, dev)
 
     xs, ys, pid = mk.tile_pixel_layout(W, H, S, L, order=order,
-                                       spp_pack=pack)
+                                       spp_pack=pack, pack_axis=axis)
     px = torch.from_numpy(xs).to(dev)
     py = torch.from_numpy(ys).to(dev)
     cam_vec = torch.from_numpy(mk.build_camera_vec(camera)).to(dev)
@@ -154,7 +154,8 @@ def render_driver(
         r, g, b = mk.trace_tiles(
             seed, cam_vec, obj_table, nodes, tris, px, py,
             meta=meta, cfg=cfg, spp=int(n) * spp_chunk,
-            total_samples=cfg.samples, tile=(S, L), spp_pack=pack)
+            total_samples=cfg.samples, tile=(S, L), spp_pack=pack,
+            pack_axis=axis)
         return torch.stack([r.reshape(-1), g.reshape(-1), b.reshape(-1)],
                            dim=-1)
 
@@ -175,7 +176,9 @@ def render_driver(
         seg_len = checkpoint_every
     else:
         # cap the work of one launch (PT_SEG_SPP); the partial sums stay
-        # on the device between segments
+        # on the device between segments. The mesh default of 8 spp is the
+        # JAX driver's (set there for the TPU's watchdog), kept so both
+        # drivers seed the same segments
         default_spp = "128" if not meta.has_groups else "8"
         seg_spp = int(os.environ.get("PT_SEG_SPP", default_spp))
         seg_len = max(1, min(n_chunks, max(1, seg_spp // spp_chunk)))

@@ -1,11 +1,20 @@
-"""Forward megakernel for primitive scenes: tables, tile layout, the
-counter-hash PRNG, and the CUDA kernel with its plain PyTorch version.
+"""Forward megakernel for untextured scenes of primitives and triangle
+meshes: tables, tile layout, the counter-hash PRNG, the BVH walk, and the
+CUDA kernel with its plain PyTorch version.
 
-Counterpart of pathtracer_tpu.render.pallas_kernel for the primitive,
-untextured branch: the host table builders and the pixel-to-tile layout
+Counterpart of pathtracer_tpu.render.pallas_kernel for the untextured
+branch without NEE: the host table builders and the pixel-to-tile layout
 keep their names and outputs (numpy, bit-identical), `trace_tiles` runs
 the whole sample loop x bounce loop per tile slot, and `render_megakernel`
 is the one-call render (the counterpart of `render_pallas`).
+
+Meshes: the JAX kernel walks the skip-link BVH with one node pointer per
+(8, 512) packet (`_packet_traverse`). Here every ray walks it alone
+(`traverse_reference`, and the GROUP case of csrc/megakernel.cu), on the
+node copy of its own direction octant. A child box lies inside its
+parent's, so the per-ray walk tests exactly the leaves the packet walk
+tests for that ray; only the order differs, which changes the result only
+on exact-t ties between two triangles.
 
 `trace_tiles` launches `csrc/megakernel.cu` for CUDA tensors and runs
 `trace_tiles_reference`, the plain vectorised version, for CPU tensors.
@@ -26,7 +35,7 @@ import torch
 
 from ..config import RenderConfig
 from ..scene.pack import SceneArrays, SceneMeta
-from ..scene.shapes import BOX, CYLINDER, PLANE, SPHERE
+from ..scene.shapes import BOX, CYLINDER, GROUP, PLANE, SPHERE
 from . import _build
 
 # Object-table column layout (per object row), as in the JAX package:
@@ -50,9 +59,13 @@ _OBJ_COLS = 45
 #   14 half_height, 15 aperture, 16 focal_length
 _CAM_COLS = 17
 
-# Mesh tables (dummy until the mesh slice): one BVH node per row, and
-# triangle rows of 4 slots with a 24-column stride per slot.
+# Mesh node rows (one skip-link BVH node per row):
+#   0-2 bbmin, 3-5 bbmax, 6 tri_start (exact f32 int), 7 is_leaf, 8 exit
 _NODE_COLS = 16
+# Triangle rows: 4 slots per row, 24-column stride per slot (dual basis):
+#   +0-2 p1, +3-5 Ng (= e1 x e2, unnormalized), +6-8 U, +9-11 V
+#   (U.e1 = 1, U.e2 = 0; V.e1 = 0, V.e2 = 1; both in-plane),
+#   +12-14 n1, +15-17 d21 (= n2-n1), +18-20 d31 (= n3-n1), +21-23 color
 _TRI_SLOTS_PER_ROW = 4
 _TRI_STRIDE = 24
 
@@ -60,7 +73,8 @@ _BIG = 1e30
 _INV24 = float(2.0 ** -24)
 _M32 = 0xFFFFFFFF
 
-_MESH_ITEM = "ROADMAP queue 1, item 6 (BVH mesh scenes)"
+_MESH_VARIANT_ITEM = ("ROADMAP queue 2, row K1-mesh variants (the TPU "
+                      "sub-packet gating and MXU leaf machine)")
 _TEXTURE_ITEM = "ROADMAP queue 1, item 9 (textures)"
 _NEE_ITEM = "ROADMAP queue 1, item 11 (in-kernel NEE)"
 
@@ -96,16 +110,68 @@ def build_scene_table(scn: SceneArrays, meta: SceneMeta) -> np.ndarray:
     return out
 
 
+def _check_mesh_knobs() -> None:
+    """The JAX package's TPU-only mesh-walk variants are not ported; each
+    raises rather than being ignored."""
+    for var, bad in (("PT_SUBPACKET", ("1", "2", "3")),
+                     ("PT_TRAVERSAL", ("mxu",)),
+                     ("PT_ABLATE_LEAF", ("1",))):
+        v = os.environ.get(var, "")
+        if v in bad:
+            raise NotImplementedError(
+                f"{var}={v} is not ported yet: {_MESH_VARIANT_ITEM}")
+
+
 def build_mesh_tables(scn: SceneArrays, meta: SceneMeta,
                       traversal: str = None) -> Tuple[np.ndarray, np.ndarray]:
-    """The mesh pools, in their no-group form: the dummy zero tables the
-    kernel is handed when the scene has no triangles."""
-    if meta.has_groups:
+    """The mesh pools for the walk.
+
+    nodes: [Nn, _NODE_COLS] f32, one skip-link BVH node per row (all nine
+    copies when the scene has octant orders). tris: [ceil(Ns/4), 96] f32,
+    4 triangle slots per row. Indices are stored as f32 (pool sizes
+    < 2^24, exact). Scenes without meshes get one zero row of each.
+    traversal="mxu" (or PT_TRAVERSAL=mxu) raises: the MXU leaf layout is
+    a TPU variant that is not ported."""
+    if not meta.has_groups:
+        return (np.zeros((1, _NODE_COLS), dtype=np.float32),
+                np.zeros((1, _TRI_SLOTS_PER_ROW * _TRI_STRIDE),
+                         dtype=np.float32))
+    if traversal is None:
+        traversal = ("mxu" if os.environ.get("PT_TRAVERSAL") == "mxu"
+                     else "classic")
+    if traversal != "classic":
         raise NotImplementedError(
-            f"mesh tables are not ported yet: {_MESH_ITEM}")
-    return (np.zeros((1, _NODE_COLS), dtype=np.float32),
-            np.zeros((1, _TRI_SLOTS_PER_ROW * _TRI_STRIDE),
-                     dtype=np.float32))
+            f"traversal={traversal!r} is not ported yet: {_MESH_VARIANT_ITEM}")
+    nn = int(_np(scn.node_bb_min).shape[0])
+    nodes = np.zeros((nn, _NODE_COLS), dtype=np.float32)
+    nodes[:, 0:3] = _np(scn.node_bb_min)
+    nodes[:, 3:6] = _np(scn.node_bb_max)
+    nodes[:, 6] = _np(scn.node_tri_start)
+    nodes[:, 7] = _np(scn.node_is_leaf)
+    nodes[:, 8] = _np(scn.node_exit)
+
+    ns = int(_np(scn.tri_p1).shape[0])
+    rows = (ns + _TRI_SLOTS_PER_ROW - 1) // _TRI_SLOTS_PER_ROW
+    # dual-basis precompute, in f32 exactly as the JAX package: Ng = e1 x e2
+    # and the in-plane reciprocal basis U = e2 x Ng / |Ng|^2, V = Ng x e1 /
+    # |Ng|^2, so the barycentrics are two affine dot products. Degenerate
+    # (padding) slots have Ng = 0, fail the kernel's |d.Ng| >= eps test, and
+    # get zero U/V here.
+    e1 = _np(scn.tri_e1).astype(np.float32)
+    e2 = _np(scn.tri_e2).astype(np.float32)
+    ng = np.cross(e1, e2)
+    l2 = (ng * ng).sum(axis=1, keepdims=True)
+    safe = np.where(l2 > 0.0, l2, 1.0)
+    uu = np.where(l2 > 0.0, np.cross(e2, ng) / safe, 0.0)
+    vv = np.where(l2 > 0.0, np.cross(ng, e1) / safe, 0.0)
+    n1 = _np(scn.tri_n1)
+    fields = [_np(scn.tri_p1), ng, uu, vv, n1, _np(scn.tri_n2) - n1,
+              _np(scn.tri_n3) - n1, _np(scn.tri_color)]
+    flat = np.zeros((rows * _TRI_SLOTS_PER_ROW, _TRI_STRIDE),
+                    dtype=np.float32)
+    flat[:ns] = np.concatenate(
+        [np.asarray(f, dtype=np.float32) for f in fields], axis=1)
+    return nodes, flat.reshape(rows, _TRI_SLOTS_PER_ROW * _TRI_STRIDE)
 
 
 def default_tile(meta: SceneMeta) -> Tuple[int, int]:
@@ -158,22 +224,67 @@ def default_pack(meta: SceneMeta, spp: int = None) -> int:
 
 def tile_pixel_layout(W: int, H: int, S: int, L: int,
                       shard_granule: int = 1, order: str = None,
-                      spp_pack: int = 1):
+                      spp_pack: int = 1, pack_axis: str = "row"):
     """Assign pixels to tile slots.
 
     Returns (px [rows, L] i32, py [rows, L] i32, pid [rows*L] i64) where
     pid maps each slot to its flat pixel index (-1 = padding slot, which
     renders a duplicate pixel and is dropped by untile_image). Orders
     "linear" (scanline) and "block" (square blocks of S*L pixels); rows
-    are padded to a multiple of S*shard_granule. Sample packing and the
-    "subblock"/"rowblock" orders serve the mesh walk and are not ported
-    yet."""
+    are padded to a multiple of S*shard_granule.
+
+    spp_pack=s > 1 packs sample replicas into each tile: one compact block
+    of S*L/s pixels, repeated across s sublane-row groups
+    (pack_axis="row") or across s lane-chunk groups of L/s lanes, a
+    multiple of 128 (pack_axis="chunk"). Replicated slots share the pixel
+    id, so untile_image sums them. The "subblock"/"rowblock" orders serve
+    the TPU's sub-packet gating and MXU leaf machine and raise."""
     if order is None:
         order = os.environ.get("PT_TILE_ORDER", "block")
-    if spp_pack > 1:
+    if order not in ("linear", "block"):
         raise NotImplementedError(
-            f"sample packing (spp_pack={spp_pack}) is not ported yet: "
-            f"{_MESH_ITEM}")
+            f"tile order {order!r} is not ported yet: {_MESH_VARIANT_ITEM}")
+    if spp_pack > 1 and pack_axis == "chunk":
+        if L % spp_pack or (L // spp_pack) % 128:
+            raise ValueError(
+                f"chunk pack={spp_pack} needs L={L} to split into "
+                f"128-lane-aligned replica groups")
+        cw = L // spp_pack
+        xs, ys, pid = tile_pixel_layout(
+            W, H, S, cw, shard_granule=shard_granule, order=order)
+        xs = np.ascontiguousarray(np.tile(xs, (1, spp_pack)))
+        ys = np.ascontiguousarray(np.tile(ys, (1, spp_pack)))
+        pid = np.ascontiguousarray(
+            np.tile(pid.reshape(-1, cw), (1, spp_pack))).reshape(-1)
+        return xs, ys, pid
+    if spp_pack > 1:
+        if pack_axis != "row":
+            raise ValueError(f"pack_axis {pack_axis!r} is not row or chunk")
+        if S % spp_pack:
+            raise ValueError(f"spp_pack={spp_pack} must divide S={S}")
+        Ss = S // spp_pack
+        xs, ys, pid = tile_pixel_layout(W, H, Ss, L, order=order)
+        n_tiles = xs.shape[0] // Ss
+
+        def rep(a):
+            return np.ascontiguousarray(np.broadcast_to(
+                a.reshape(n_tiles, 1, Ss, L),
+                (n_tiles, spp_pack, Ss, L)).reshape(-1, L))
+
+        xs = rep(xs)
+        ys = rep(ys)
+        pid = np.ascontiguousarray(
+            np.broadcast_to(pid.reshape(n_tiles, 1, Ss * L),
+                            (n_tiles, spp_pack, Ss * L))).reshape(-1)
+        extra_t = (-n_tiles) % shard_granule
+        if extra_t:   # pad with whole dummy tiles for even sharding
+            xs = np.concatenate(
+                [xs, np.full((extra_t * S, L), W - 1, np.int32)])
+            ys = np.concatenate(
+                [ys, np.full((extra_t * S, L), H - 1, np.int32)])
+            pid = np.concatenate(
+                [pid, np.full(extra_t * S * L, -1, pid.dtype)])
+        return xs, ys, pid
     tile_sz = S * L
     n_pix = W * H
     if order == "block":
@@ -192,15 +303,12 @@ def tile_pixel_layout(W: int, H: int, S: int, L: int,
         pid = np.where(valid, y * W + x, -1)
         xs = np.minimum(x, W - 1).astype(np.int32)
         ys = np.minimum(y, H - 1).astype(np.int32)
-    elif order == "linear":
+    else:
         pad = (-n_pix) % tile_sz
         ids = np.arange(n_pix + pad)
         pid = np.where(ids < n_pix, ids, -1)
         xs = (ids % W).astype(np.int32)
         ys = np.minimum(ids // W, H - 1).astype(np.int32)
-    else:
-        raise NotImplementedError(
-            f"tile order {order!r} is not ported yet: {_MESH_ITEM}")
 
     rows = xs.shape[0] // L
     extra = (-rows) % (S * shard_granule)
@@ -215,7 +323,7 @@ def tile_pixel_layout(W: int, H: int, S: int, L: int,
 def untile_image(flat: np.ndarray, pid: np.ndarray, W: int, H: int
                  ) -> np.ndarray:
     """Scatter tiled per-slot values [rows*L, C] back to [H*W, C]; padding
-    slots (pid -1) are dropped, duplicate pids add."""
+    slots (pid -1) are dropped, duplicate pids (sample replicas) add."""
     out = np.zeros((W * H, flat.shape[-1]), dtype=flat.dtype)
     valid = pid >= 0
     np.add.at(out, pid[valid], flat[valid])
@@ -281,6 +389,26 @@ def _uniform_row(key, shape, did=0, n=None, b=None):
     S, L = shape
     elem = (torch.arange(S, dtype=torch.int64) * L).reshape(S, 1)
     return _hash_uniform(key, elem, did, n, b).expand(S, L)
+
+
+def _uniform_chunk(key, shape, cw, did=0, n=None, b=None):
+    """One shared uniform per cw-lane chunk of the tile: the draw at
+    (row 0, lane c*cw) broadcast over chunk c (pallas_kernel._uniform_chunk;
+    the coherent-sampling unit of chunk-packed tiles)."""
+    S, L = shape
+    elem = ((torch.arange(L, dtype=torch.int64) // cw) * cw).reshape(1, L)
+    return _hash_uniform(key, elem, did, n, b).expand(S, L)
+
+
+def _coherent_elem(row_in_tile, lane, L: int, pack_axis: str):
+    """Element index of the coherent (shared) roulette and hemisphere draws
+    of each slot: lane 0 of its tile row (_uniform_row), or lane c*128 of
+    row 0 for its 128-lane chunk c when the replicas run along the chunks
+    (_uniform_chunk). The JAX kernel picks the chunk unit when
+    pack_axis == "chunk" and L >= 128."""
+    if pack_axis == "chunk" and L >= 128:
+        return (lane // 128) * 128
+    return row_in_tile * L
 
 
 def _coherent_sampling() -> bool:
@@ -427,39 +555,197 @@ def _sun_constants(total_samples: int):
             golden2)
 
 
+# --- BVH walk (plain version) ----------------------------------------------
+#
+# The per-ray counterpart of pallas_kernel._packet_traverse, _leaf_tests and
+# _group_octant_base, with every f32 operation in their order. The CUDA
+# kernel walks each ray in the same order, so the two agree bit for bit.
+
+# (ray, slot) pairs of one batched leaf test: bounds the [rays, leaf, 24]
+# gather to 192 MB however many rays reach a leaf at once
+_LEAF_PAIRS = 1 << 21
+
+
+def _inv_safe(td, eps):
+    """1/d for the slab tests, hoisted out of the walk; near-zero
+    components take the BIG branch (pallas_kernel.py:1428-1434)."""
+    ok = torch.abs(td) >= eps
+    return torch.where(ok, 1.0 / torch.where(ok, td, 1.0), _BIG)
+
+
+def _leaf_tests(tri, start, leaf_size, eps, ox, oy, oz, dx, dy, dz):
+    """Dual-basis tests of the leaf_size slots from `start` for each ray
+    (pallas_kernel._leaf_tests). Returns (tw, slot, u, v): the closest
+    valid t per ray (_BIG when none), its slot (the lowest on ties, as
+    the JAX min-tree keeps) and the barycentrics there."""
+    ar = torch.arange(leaf_size, device=start.device)
+    slots = start[:, None] + ar                      # [B, K]
+    rows = tri[slots]                                # [B, K, 24]
+
+    def c(i):
+        return rows[..., i]
+
+    ox, oy, oz, dx, dy, dz = (a[:, None] for a in (ox, oy, oz, dx, dy, dz))
+    pxx = ox - c(0)
+    pyy = oy - c(1)
+    pzz = oz - c(2)
+    den = dx * c(3) + dy * c(4) + dz * c(5)
+    num_t = -(pxx * c(3) + pyy * c(4) + pzz * c(5))
+    den_ok = torch.abs(den) >= eps
+    f = 1.0 / torch.where(den_ok, den, 1.0)
+    t = num_t * f
+    hx = pxx + t * dx
+    hy = pyy + t * dy
+    hz = pzz + t * dz
+    u = hx * c(6) + hy * c(7) + hz * c(8)
+    v = hx * c(9) + hy * c(10) + hz * c(11)
+    valid = (den_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+             & (t > eps))
+    tv = torch.where(valid, t, _BIG)
+    tw = tv.min(dim=1).values
+    k = torch.where(tv == tw[:, None], ar, leaf_size).min(dim=1).values
+    pick = k[:, None]
+    return (tw, start + k, u.gather(1, pick).squeeze(1),
+            v.gather(1, pick).squeeze(1))
+
+
+def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
+                       t_max: float, root: int, end: int, tox, toy, toz,
+                       tdx, tdy, tdz, active, bt0, n_nodes: int = 0):
+    """Plain per-ray skip-link BVH walk of one group's nodes [root, end).
+
+    Counterpart of pallas_kernel._packet_traverse for a packet of one
+    ray. Each active ray carries its own node pointer: the slab test
+    against its running best t (`tmin < bt`) sends it to idx + 1 on a hit
+    and to the node's exit otherwise; at a hit leaf the leaf_size slots
+    are tested (_leaf_tests) and the winner is merged when
+    `tw < bt & tw < t_max`. With n_nodes > 0 the table holds octant
+    copies and each ray walks copy 1 + octant of its own direction,
+    octant = (tdx<0) + 2(tdy<0) + 4(tdz<0) (_group_octant_base); with 0 it
+    walks copy 0. Rays still walking are compacted every step.
+
+    Returns (t, nx, ny, nz, cr, cg, cb) shaped like tox: t starts at bt0
+    and keeps it where no triangle won; the interpolated smooth normal
+    n1 + u*d21 + v*d31 and the triangle color are 0 there."""
+    shape = tox.shape
+    dev = tox.device
+    tri = tri_table.reshape(-1, _TRI_STRIDE)
+    bt = bt0.reshape(-1).clone()
+    win = torch.full(bt.shape, -1, dtype=torch.int64, device=dev)
+    wu = torch.zeros_like(bt)
+    wv = torch.zeros_like(bt)
+    rid = torch.nonzero(active.reshape(-1)).squeeze(1)
+    ray = [a.reshape(-1)[rid] for a in (tox, toy, toz, tdx, tdy, tdz)]
+    ray += [_inv_safe(d, eps) for d in ray[3:]]
+    idx = torch.full_like(rid, root)
+    if n_nodes:
+        dx, dy, dz = ray[3:6]
+        octant = ((dx < 0.0).long() + 2 * (dy < 0.0).long()
+                  + 4 * (dz < 0.0).long())
+        idx = idx + (1 + octant) * n_nodes
+    stop = idx + (end - root)
+    chunk = max(1, _LEAF_PAIRS // leaf_size)
+    while rid.numel():
+        ox, oy, oz, dx, dy, dz, ivx, ivy, ivz = ray
+        nd = node_table[idx]
+        ax1 = (nd[:, 0] - ox) * ivx
+        ax2 = (nd[:, 3] - ox) * ivx
+        ay1 = (nd[:, 1] - oy) * ivy
+        ay2 = (nd[:, 4] - oy) * ivy
+        az1 = (nd[:, 2] - oz) * ivz
+        az2 = (nd[:, 5] - oz) * ivz
+        tmin = torch.maximum(
+            torch.maximum(torch.minimum(ax1, ax2), torch.minimum(ay1, ay2)),
+            torch.minimum(az1, az2))
+        tmax = torch.minimum(
+            torch.minimum(torch.maximum(ax1, ax2), torch.maximum(ay1, ay2)),
+            torch.maximum(az1, az2))
+        hit = (tmin <= tmax) & (tmax > eps) & (tmin < bt[rid])
+        at_leaf = torch.nonzero(hit & (nd[:, 7] > 0.5)).squeeze(1)
+        for i in range(0, at_leaf.numel(), chunk):
+            li = at_leaf[i:i + chunk]
+            r = rid[li]
+            tw, slot, u, v = _leaf_tests(
+                tri, nd[li, 6].long(), leaf_size, eps,
+                *(a[li] for a in ray[:6]))
+            won = (tw < bt[r]) & (tw < t_max)
+            r = r[won]
+            bt[r] = tw[won]
+            win[r] = slot[won]
+            wu[r] = u[won]
+            wv[r] = v[won]
+        idx = torch.where(hit, idx + 1, nd[:, 8].long())
+        keep = torch.nonzero(idx < stop).squeeze(1)
+        if keep.numel() < rid.numel():
+            rid, idx, stop = rid[keep], idx[keep], stop[keep]
+            ray = [a[keep] for a in ray]
+
+    out = [bt] + [torch.zeros_like(bt) for _ in range(6)]
+    r = torch.nonzero(win >= 0).squeeze(1)
+    if r.numel():
+        row = tri[win[r]]
+        u, v = wu[r], wv[r]
+        for k in range(3):
+            # smooth normal n2*u + n3*v + n1*(1-u-v) (tracer.cl:669)
+            out[1 + k][r] = row[:, 12 + k] + row[:, 15 + k] * u \
+                + row[:, 18 + k] * v
+            out[4 + k][r] = row[:, 21 + k]
+    return tuple(o.reshape(shape) for o in out)
+
+
 def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
-                meta, cfg, spp, tile, spp_pack):
+                meta, cfg, spp, tile, spp_pack, pack_axis):
     """Validate what trace_tiles is handed; raise on anything the kernel
     does not take. Returns the (seed, sample_base) ints."""
-    if meta.has_groups:
-        raise NotImplementedError(
-            f"the BVH walk is not ported yet: {_MESH_ITEM}")
     if (meta.textured_types or meta.has_normal_maps or meta.obj_tex
             or meta.obj_tex_nm):
         raise NotImplementedError(
             f"in-kernel textures are not ported yet: {_TEXTURE_ITEM}")
     if cfg.nee:
         raise NotImplementedError(f"NEE is not ported yet: {_NEE_ITEM}")
-    if spp_pack != 1:
-        raise NotImplementedError(
-            f"sample packing (spp_pack={spp_pack}) serves the mesh walk "
-            f"and is not ported yet: {_MESH_ITEM}")
-    bad = [t for t in meta.obj_types if t not in (PLANE, SPHERE, CYLINDER,
-                                                   BOX)]
+    if meta.has_groups:
+        _check_mesh_knobs()
+        if meta.leaf_size % _TRI_SLOTS_PER_ROW:
+            raise ValueError(f"leaf size {meta.leaf_size} is not a "
+                             f"multiple of {_TRI_SLOTS_PER_ROW}")
+    bad = [t for t in meta.obj_types
+           if t not in (PLANE, SPHERE, CYLINDER, BOX, GROUP)]
     if bad:
-        raise ValueError(f"object types {bad} are not primitives")
+        raise ValueError(f"object types {bad} are not primitives or groups")
+    if set(meta.group_indices) != {j for j, t in enumerate(meta.obj_types)
+                                   if t == GROUP}:
+        raise ValueError("group_indices do not match the GROUP objects")
     if spp < 1:
         raise ValueError(f"spp={spp} must be >= 1")
+    S, L = tile
+    if spp % spp_pack:
+        raise ValueError(f"spp_pack={spp_pack} must divide spp={spp}")
+    if pack_axis == "chunk":
+        if L % spp_pack or (L // spp_pack) % 128:
+            raise ValueError(
+                f"chunk pack={spp_pack} needs L={L} to split into "
+                f"128-lane-aligned replica groups")
+    elif pack_axis != "row":
+        raise ValueError(f"pack_axis {pack_axis!r} is not row or chunk")
+    elif S % spp_pack:
+        raise ValueError(
+            f"spp_pack={spp_pack} must divide the sublane count S={S}")
     if isinstance(seed, torch.Tensor):
         seed = seed.tolist()
     seed = [int(v) for v in seed]
     if len(seed) != 2:
         raise ValueError("seed must be (prng seed, global sample base)")
-    S, L = tile
     dev = px.device
+    n_nodes = meta.n_nodes * (9 if meta.octant_orders else 1)
+    rows_t = -(-meta.n_tri_slots // _TRI_SLOTS_PER_ROW)
     want = (("cam_vec", cam_vec, torch.float32, (_CAM_COLS,)),
             ("obj_table", obj_table, torch.float32,
              (len(meta.obj_types), _OBJ_COLS)),
+            ("node_table", node_table, torch.float32,
+             (max(1, n_nodes), _NODE_COLS)),
+            ("tri_table", tri_table, torch.float32,
+             (max(1, rows_t) if meta.has_groups else 1,
+              _TRI_SLOTS_PER_ROW * _TRI_STRIDE)),
             ("px", px, torch.int32, None),
             ("py", py, torch.int32, tuple(px.shape)))
     for name, t, dtype, shape in want:
@@ -473,9 +759,10 @@ def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     if px.dim() != 2 or px.shape[1] != L or px.shape[0] % S:
         raise ValueError(f"px shape {tuple(px.shape)} is not whole "
                          f"({S}, {L}) tiles")
-    if node_table.shape[-1] != _NODE_COLS or \
-            tri_table.shape[-1] != _TRI_SLOTS_PER_ROW * _TRI_STRIDE:
-        raise ValueError("node/tri tables do not have the mesh layout")
+    for _, root, end in meta.group_bvh:
+        if not 0 <= root < end <= meta.n_nodes:
+            raise ValueError(f"group nodes [{root}, {end}) outside the "
+                             f"pool of {meta.n_nodes}")
     return seed
 
 
@@ -484,30 +771,41 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                           cfg: RenderConfig = None, spp: int = 1,
                           total_samples: int = 1,
                           tile: Tuple[int, int] = (64, 256),
-                          spp_pack: int = 1):
+                          spp_pack: int = 1, pack_axis: str = "row"):
     """Plain PyTorch version of the megakernel: the same arguments and
     result as trace_tiles, vectorised over all T*S*L slots, with a Python
     loop over samples and bounces that stops once every ray is dead (dead
-    rays are inert, so this equals the JAX kernel's per-tile exit).
+    rays are inert, so this equals the JAX kernel's per-tile exit), and
+    the per-ray BVH walk (traverse_reference) for GROUP objects.
     Returns (r, g, b) float32 [T*S, L] radiance sums on px's device."""
     seed0, sample_base = _check_args(
         seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
-        spp, tile, spp_pack)
+        spp, tile, spp_pack, pack_axis)
     S, L = tile
     dev = px.device
     f32 = torch.float32
     rows = px.shape[0]
     idx = torch.arange(rows * L, device=dev, dtype=torch.int64)
     row = idx // L
+    lane = idx % L
     key = _prng_key(seed0, row // S)
-    elem = (row % S) * L + idx % L
-    u_elem = (row % S) * L if _coherent_sampling() else elem
+    elem = (row % S) * L + lane
+    u_elem = (_coherent_elem(row % S, lane, L, pack_axis)
+              if _coherent_sampling() else elem)
+    # sample replica of each slot (tile_pixel_layout's packing): the
+    # sunflower DoF index is wave * spp_pack + replica + sample base
+    if pack_axis == "chunk":
+        rep = lane // (L // spp_pack)
+    else:
+        rep = (row % S) // (S // spp_pack)
     fx = px.reshape(-1).to(f32)
     fy = py.reshape(-1).to(f32)
 
     cam = cam_vec.detach().cpu().tolist()
     obj = obj_table.detach().cpu().tolist()
     types = torch.tensor(meta.obj_types, dtype=torch.int64, device=dev)
+    group_bvh = {g: (r, e) for g, r, e in meta.group_bvh}
+    oct_nodes = meta.n_nodes if meta.octant_orders else 0
     pixel_size, half_w, half_h, aperture, focal = cam[12:17]
     oxw, oyw, ozw = cam[3], cam[7], cam[11]
     eps, t_max = cfg.epsilon, cfg.t_max
@@ -522,7 +820,7 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     acc_r = torch.zeros_like(fx)
     acc_g = torch.zeros_like(fx)
     acc_b = torch.zeros_like(fx)
-    for n in range(spp):
+    for n in range(spp // spp_pack):
         # --- rayForPixel (tracer.cl:745-779) ---------------------------
         jx = _hash_uniform(key, elem, 0, n)
         jy = _hash_uniform(key, elem, 1, n)
@@ -536,8 +834,7 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
         oz = torch.full_like(fx, ozw)
         if aperture != 0.0:
             # DoF via sunflower(totalSamples, alpha=2, n + sample base)
-            nf = torch.full((1,), float(n + sample_base), dtype=f32,
-                            device=dev)
+            nf = (n * spp_pack + rep + sample_base).to(f32)
             r_sun = torch.where(
                 nf <= sun_cut,
                 torch.sqrt(torch.clamp(nf - 0.5, min=0.0)) / sun_den, 1.0)
@@ -547,8 +844,8 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
             fpx = oxw + dx * focal
             fpy = oyw + dy * focal
             fpz = ozw + dz * focal
-            ox = (oxw + sun_y * aperture).expand_as(fx)  # reference swaps x/y
-            oy = (oyw + sun_x * aperture).expand_as(fx)
+            ox = oxw + sun_y * aperture  # the reference swaps x/y
+            oy = oyw + sun_x * aperture
             dx, dy, dz = fpx - ox, fpy - oy, fpz - oz
 
         mask_r, mask_g, mask_b = one, one, one
@@ -566,10 +863,14 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
             best_t = torch.full_like(fx, _BIG)
             w = torch.zeros_like(fx, dtype=torch.int64)
             l_ox, l_oy, l_oz, l_dx, l_dy, l_dz = ox, oy, oz, dx, dy, dz
+            on_tri = torch.zeros_like(alive)
+            tri_nrm = [torch.zeros_like(fx) for _ in range(3)]
+            tri_col = [torch.zeros_like(fx) for _ in range(3)]
             for j, code in enumerate(meta.obj_types):
                 m = obj[j]
                 tox, toy, toz = _mat12_point(m, ox, oy, oz)
                 tdx, tdy, tdz = _mat12_vec(m, dx, dy, dz)
+                g_tri = None
                 if code == PLANE:
                     t_j = _plane_t(toy, tdy, eps)
                 elif code == SPHERE:
@@ -577,8 +878,22 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                 elif code == CYLINDER:
                     t_j = _cylinder_t(tox, toy, toz, tdx, tdy, tdz,
                                       m[32], m[33], eps)
-                else:
+                elif code == BOX:
                     t_j = _box_t(tox, toy, toz, tdx, tdy, tdz, eps)
+                else:
+                    # GROUP: object-space bbox pretest, then the walk
+                    x1, x2 = _axis_slab(tox, tdx, m[34], m[37], eps)
+                    y1, y2 = _axis_slab(toy, tdy, m[35], m[38], eps)
+                    z1, z2 = _axis_slab(toz, tdz, m[36], m[39], eps)
+                    gtmin = torch.maximum(torch.maximum(x1, y1), z1)
+                    gtmax = torch.minimum(torch.minimum(x2, y2), z2)
+                    pre = (alive & (gtmin <= gtmax) & (gtmax > eps)
+                           & (gtmin < best_t))
+                    root, end = group_bvh[j]
+                    t_j, *g_tri = traverse_reference(
+                        node_table, tri_table, meta.leaf_size, eps, t_max,
+                        root, end, tox, toy, toz, tdx, tdy, tdz, pre,
+                        best_t, n_nodes=oct_nodes)
                 closer = t_j < best_t
                 best_t = torch.where(closer, t_j, best_t)
                 w = torch.where(closer, j, w)
@@ -588,14 +903,26 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                 l_dx = torch.where(closer, tdx, l_dx)
                 l_dy = torch.where(closer, tdy, l_dy)
                 l_dz = torch.where(closer, tdz, l_dz)
+                on_tri = torch.where(closer, g_tri is not None, on_tri)
+                if g_tri is not None:
+                    for k in range(3):
+                        tri_nrm[k] = torch.where(closer, g_tri[k],
+                                                 tri_nrm[k])
+                        tri_col[k] = torch.where(closer, g_tri[3 + k],
+                                                 tri_col[k])
             hit_ok = best_t < t_max
             t = torch.clamp(best_t, max=t_max)
             wrow = obj_table[w]
-            col_r, col_g, col_b = wrow[:, 24], wrow[:, 25], wrow[:, 26]
-            emi_r, emi_g, emi_b = wrow[:, 27], wrow[:, 28], wrow[:, 29]
+            # a mesh hit takes the triangle's color and no emission
+            # (tracer.cl:672-673, 1071-1073)
+            col_r = torch.where(on_tri, tri_col[0], wrow[:, 24])
+            col_g = torch.where(on_tri, tri_col[1], wrow[:, 25])
+            col_b = torch.where(on_tri, tri_col[2], wrow[:, 26])
+            emi_r = torch.where(on_tri, 0.0, wrow[:, 27])
+            emi_g = torch.where(on_tri, 0.0, wrow[:, 28])
+            emi_b = torch.where(on_tri, 0.0, wrow[:, 29])
             refr, refl = wrow[:, 30], wrow[:, 31]
             w_type = types[w]
-
             # ---- surface normal by type (tracer.cl:903-950) -------------
             lx = l_ox + l_dx * t
             ly = l_oy + l_dy * t
@@ -616,12 +943,15 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
             is_plane = w_type == PLANE
             is_cyl = w_type == CYLINDER
             is_box = w_type == BOX
-            nlx = torch.where(is_plane, 0.0, torch.where(
-                is_cyl, cyl_nx, torch.where(is_box, box_nx, lx)))
-            nly = torch.where(is_plane, 1.0, torch.where(
-                is_cyl, cyl_ny, torch.where(is_box, box_ny, ly)))
-            nlz = torch.where(is_plane, 0.0, torch.where(
-                is_cyl, cyl_nz, torch.where(is_box, box_nz, lz)))
+            nlx = torch.where(on_tri, tri_nrm[0], torch.where(
+                is_plane, 0.0, torch.where(
+                    is_cyl, cyl_nx, torch.where(is_box, box_nx, lx))))
+            nly = torch.where(on_tri, tri_nrm[1], torch.where(
+                is_plane, 1.0, torch.where(
+                    is_cyl, cyl_ny, torch.where(is_box, box_ny, ly))))
+            nlz = torch.where(on_tri, tri_nrm[2], torch.where(
+                is_plane, 0.0, torch.where(
+                    is_cyl, cyl_nz, torch.where(is_box, box_nz, lz))))
             invt = [wrow[:, 12 + k] for k in range(12)]
             nx, ny, nz = _normalize(*_mat12_vec(invt, nlx, nly, nlz))
             ex, ey, ez = -dx, -dy, -dz
@@ -725,12 +1055,13 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
 
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "pt_megakernel_launch": (
-        [_P] * 8 + [ctypes.c_int] * 5
-        + [ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_float] * 5 + [ctypes.c_int, _P],
-        ctypes.c_int),
+        [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        + [_I, _P],
+        _I),
 }
 _MAX_OBJECTS = 64   # kMaxObjects of csrc/megakernel.cu
 
@@ -738,22 +1069,26 @@ _MAX_OBJECTS = 64   # kMaxObjects of csrc/megakernel.cu
 def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
                 meta: SceneMeta = None, cfg: RenderConfig = None,
                 spp: int = 1, total_samples: int = 1,
-                tile: Tuple[int, int] = (64, 256), spp_pack: int = 1):
+                tile: Tuple[int, int] = (64, 256), spp_pack: int = 1,
+                pack_axis: str = "row"):
     """Run the megakernel over all tiles; returns (r, g, b) float32
     radiance sums [T*S, L] on px's device.
 
-    seed = (prng seed, global sample base). CUDA tensors launch
-    csrc/megakernel.cu on the current stream (and count the launch in
-    trace_tiles.launches); CPU tensors run trace_tiles_reference. Raises
-    for meshes, textures, NEE and sample packing, which are not ported."""
+    seed = (prng seed, global sample base). spp_pack/pack_axis must match
+    the layout (tile_pixel_layout); each slot then sums spp/spp_pack
+    samples. CUDA tensors launch csrc/megakernel.cu on the current stream
+    (and count the launch in trace_tiles.launches, and a launch for a
+    scene with meshes also in trace_tiles.mesh_launches); CPU tensors run
+    trace_tiles_reference. Raises for textures, NEE and the unported mesh
+    walk variants."""
     if px.device.type != "cuda":
         return trace_tiles_reference(
             seed, cam_vec, obj_table, node_table, tri_table, px, py,
             meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
-            tile=tile, spp_pack=spp_pack)
+            tile=tile, spp_pack=spp_pack, pack_axis=pack_axis)
     seed0, sample_base = _check_args(
         seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
-        spp, tile, spp_pack)
+        spp, tile, spp_pack, pack_axis)
     n_obj = len(meta.obj_types)
     if not 0 < n_obj <= _MAX_OBJECTS:
         raise ValueError(f"{n_obj} objects; the kernel takes 1..{_MAX_OBJECTS}")
@@ -762,36 +1097,51 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     dev = px.device
     rows = px.shape[0]
     out = torch.empty((3, rows, L), dtype=torch.float32, device=dev)
-    types = (ctypes.c_int * n_obj)(*meta.obj_types)   # host array, by value
+    # host arrays, copied by value into the launch parameters
+    types = (_I * n_obj)(*meta.obj_types)
+    roots = (_I * n_obj)(*([-1] * n_obj))
+    ends = (_I * n_obj)(*([-1] * n_obj))
+    for g, r, e in meta.group_bvh:
+        roots[g], ends[g] = r, e
     sun_cut, sun_den, golden2 = _sun_constants(total_samples)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pt_megakernel_launch(
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             px.data_ptr(), py.data_ptr(), obj_table.data_ptr(),
-            types, cam_vec.data_ptr(),
-            n_obj, rows * L, S, L, int(spp),
-            seed0 & _M32, sample_base, cfg.max_bounces,
-            cfg.max_effective_bounces, cfg.epsilon, cfg.t_max,
-            sun_cut, sun_den, golden2, int(_coherent_sampling()), stream)
+            types, cam_vec.data_ptr(), node_table.data_ptr(),
+            tri_table.data_ptr(), roots, ends,
+            n_obj, rows * L, S, L, int(spp), spp_pack,
+            int(pack_axis == "chunk"), seed0 & _M32, sample_base,
+            cfg.max_bounces, cfg.max_effective_bounces, meta.leaf_size,
+            meta.n_nodes if meta.octant_orders else 0,
+            cfg.epsilon, cfg.t_max, sun_cut, sun_den, golden2,
+            int(_coherent_sampling()), stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     trace_tiles.launches += 1
+    if meta.has_groups:
+        trace_tiles.mesh_launches += 1   # the kernel's BVH-walk instantiation
     return out[0], out[1], out[2]
 
 
 trace_tiles.launches = 0
+trace_tiles.mesh_launches = 0
 
 
 def render_megakernel(scn: SceneArrays, meta: SceneMeta, camera,
                       cfg: RenderConfig, seed: int = None,
                       tile: Tuple[int, int] = None) -> np.ndarray:
     """Full-image render in one launch on the scene's device (counterpart
-    of pallas_kernel.render_pallas). Returns [H, W, 3] float32."""
+    of pallas_kernel.render_pallas), with the scene's default order and
+    packing. Returns [H, W, 3] float32."""
     W, H = camera.width, camera.height
     S, L = tile if tile is not None else default_tile(meta)
     dev = scn.color.device
-    xs, ys, pid = tile_pixel_layout(W, H, S, L, order=default_order(meta))
+    axis = default_pack_axis(meta)
+    pack = clamp_pack(default_pack(meta, cfg.samples), S, L, axis)
+    xs, ys, pid = tile_pixel_layout(W, H, S, L, order=default_order(meta),
+                                    spp_pack=pack, pack_axis=axis)
     r, g, b = trace_tiles(
         (seed if seed is not None else cfg.seed, 0),
         torch.from_numpy(build_camera_vec(camera)).to(dev),
@@ -799,7 +1149,7 @@ def render_megakernel(scn: SceneArrays, meta: SceneMeta, camera,
         *(torch.from_numpy(t).to(dev) for t in build_mesh_tables(scn, meta)),
         torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev),
         meta=meta, cfg=cfg, spp=cfg.samples, total_samples=cfg.samples,
-        tile=(S, L))
+        tile=(S, L), spp_pack=pack, pack_axis=axis)
     img = torch.stack([r, g, b], dim=-1).reshape(-1, 3).cpu().numpy()
     img = untile_image(img, pid, W, H).reshape(H, W, 3)
     return img / float(cfg.samples)

@@ -1,9 +1,11 @@
 """Flatten the host scene graph into a static struct-of-arrays device scene.
 
-Counterpart of pathtracer_tpu.scene.pack for primitive, untextured scenes:
-the same SceneArrays fields, shapes and values (built in float64 numpy and
-cast at the end), as torch tensors on an explicit device. Meshes and
-textures are not ported yet and raise instead of being dropped.
+Counterpart of pathtracer_tpu.scene.pack for untextured scenes of
+primitives and triangle meshes: the same SceneArrays fields, shapes and
+values (built in float64 numpy and cast at the end), as torch tensors on an
+explicit device. Each Group's triangles go into one global skip-link BVH
+pool (scene/bvh.py), with eight octant-ordered copies of its nodes.
+Textures are not ported yet and raise instead of being dropped.
 """
 from __future__ import annotations
 
@@ -14,11 +16,11 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .shapes import Cylinder, Group, Shape
+from .bvh import FlatBVH, build_bvh, empty_bvh, octant_node_orders
+from .shapes import Cylinder, Group, Shape, Triangle
 
 NONE_TYPE = -1
 
-_MESH_ITEM = "ROADMAP queue 1, item 6 (BVH mesh scenes)"
 _TEXTURE_ITEM = "ROADMAP queue 1, item 9 (textures)"
 
 
@@ -47,13 +49,13 @@ class SceneArrays(NamedTuple):
     is_textured_nm: torch.Tensor    # [No] i32
     texture_index_nm: torch.Tensor  # [No] i32
     texture_scale_nm: torch.Tensor  # [No,2]
-    # BVH node pool (one dummy leaf until the mesh slice lands)
+    # BVH node pool (skip links; [9*Nn] with the octant copies)
     node_bb_min: torch.Tensor       # [Nn,3]
     node_bb_max: torch.Tensor       # [Nn,3]
     node_tri_start: torch.Tensor    # [Nn] i32
     node_is_leaf: torch.Tensor      # [Nn] i32
     node_exit: torch.Tensor         # [Nn] i32
-    # triangle pool (one leaf of degenerate slots until the mesh slice)
+    # triangle pool (LEAF_SIZE-aligned, degenerate-padded slots)
     tri_p1: torch.Tensor            # [Nt,3]
     tri_e1: torch.Tensor
     tri_e2: torch.Tensor
@@ -123,9 +125,6 @@ class Scene:
 
 
 def _check_supported(meta: SceneMeta) -> None:
-    if meta.has_groups:
-        raise NotImplementedError(
-            f"triangle meshes are not ported yet: {_MESH_ITEM}")
     if meta.textured_types or meta.has_normal_maps or meta.obj_tex \
             or meta.obj_tex_nm:
         raise NotImplementedError(
@@ -141,17 +140,17 @@ def pack_scene(
     sphere_textures: Sequence[np.ndarray] = (),
     cube_textures: Sequence[np.ndarray] = (),
 ) -> Tuple[SceneArrays, SceneMeta]:
-    """Pack a primitive, untextured scene onto `device` (float32).
+    """Pack an untextured scene onto `device` (float32).
 
-    Raises NotImplementedError for groups (meshes) and textures."""
+    The BVH leaf size is PT_BVH_LEAF when set, else 32 for meshes of up to
+    8000 triangles in all and 16 above (the JAX package's rule). Octant
+    node copies are built unless PT_OCTANT=0. Raises NotImplementedError
+    for textures."""
     n = len(objects)
     no = max_objects or max(16, n)
     if n > no:
         raise ValueError(f"{n} objects > padded capacity {no}")
     for s in objects:
-        if isinstance(s, Group):
-            raise NotImplementedError(
-                f"triangle meshes (Group) are not ported yet: {_MESH_ITEM}")
         if s.material.textured or s.material.textured_nm:
             raise NotImplementedError(
                 f"textured materials are not ported yet: {_TEXTURE_ITEM}")
@@ -159,9 +158,12 @@ def pack_scene(
         raise NotImplementedError(
             f"texture images are not ported yet: {_TEXTURE_ITEM}")
 
+    if leaf_size is None and os.environ.get("PT_BVH_LEAF"):
+        leaf_size = int(os.environ["PT_BVH_LEAF"])
     if leaf_size is None:
-        # the JAX package's rule with no triangles in the scene
-        leaf_size = int(os.environ.get("PT_BVH_LEAF", "16"))
+        total_tris = sum(len(s.all_triangles()) for s in objects
+                         if isinstance(s, Group))
+        leaf_size = 32 if 0 < total_tris <= 8000 else 16
 
     obj_type = np.full(no, NONE_TYPE, dtype=np.int32)
     inverse = np.tile(np.eye(4), (no, 1, 1))
@@ -173,6 +175,14 @@ def pack_scene(
     refl = np.zeros(no)
     min_y = np.zeros(no)
     max_y = np.zeros(no)
+    bb_min = np.zeros((no, 3))
+    bb_max = np.zeros((no, 3))
+    bvh_root = np.full(no, -1, dtype=np.int32)
+    bvh_end = np.full(no, -1, dtype=np.int32)
+
+    pool: FlatBVH = empty_bvh(leaf_size)
+    group_indices: List[int] = []
+    group_bvh: List[Tuple[int, int, int]] = []
     for i, s in enumerate(objects):
         m = s.material
         obj_type[i] = s.type_code
@@ -186,13 +196,37 @@ def pack_scene(
         if isinstance(s, Cylinder):
             min_y[i] = s.min_y
             max_y[i] = s.max_y
+        elif isinstance(s, Group):
+            tris = s.all_triangles()
+            if not tris:
+                # a group with no triangles contributes nothing (the
+                # reference skips childCount==0 groups, tracer.cl:617)
+                obj_type[i] = NONE_TYPE
+                continue
+            s.bounds()
+            bb_min[i] = s.bounding_box.min[:3]
+            bb_max[i] = s.bounding_box.max[:3]
+            pool, root, end = build_bvh(tris, leaf_size=leaf_size, into=pool)
+            bvh_root[i] = root
+            bvh_end[i] = end
+            group_indices.append(i)
+            group_bvh.append((i, root, end))
 
-    # The JAX package pads an empty triangle pool with one BVH leaf holding
-    # a single all-zero triangle (default white material), its box inflated
-    # by the builder's 1e-4 pad; reproduce that pool field for field.
-    tri_zero = np.zeros((leaf_size, 3))
-    tri_color = np.zeros((leaf_size, 3))
-    tri_color[0] = 1.0
+    # a scene without triangles still gets a pool of one leaf holding one
+    # degenerate triangle, so every table has at least one row
+    dummy = pool.n_nodes == 0
+    if dummy:
+        pool, _, _ = build_bvh(
+            [Triangle(np.zeros(4), np.zeros(4), np.zeros(4))],
+            leaf_size=leaf_size, into=pool)
+
+    # octant-ordered node copies for the walk's front-to-back pruning
+    # (PT_OCTANT=0 disables; copy 0 stays the original order)
+    n_pool_nodes = pool.n_nodes
+    octant = (not dummy and bool(group_bvh)
+              and os.environ.get("PT_OCTANT", "1") != "0")
+    if octant:
+        pool = octant_node_orders(pool, [(r, e) for (_, r, e) in group_bvh])
 
     def f(a):
         return torch.from_numpy(
@@ -219,28 +253,28 @@ def pack_scene(
         reflectivity=f(refl),
         min_y=f(min_y),
         max_y=f(max_y),
-        bb_min=f(np.zeros((no, 3))),
-        bb_max=f(np.zeros((no, 3))),
-        bvh_root=i32(np.full(no, -1)),
-        bvh_end=i32(np.full(no, -1)),
+        bb_min=f(bb_min),
+        bb_max=f(bb_max),
+        bvh_root=i32(bvh_root),
+        bvh_end=i32(bvh_end),
         is_textured=i32(np.zeros(no)),
         texture_index=i32(np.zeros(no)),
         texture_scale=f(np.ones((no, 2))),
         is_textured_nm=i32(np.zeros(no)),
         texture_index_nm=i32(np.zeros(no)),
         texture_scale_nm=f(np.ones((no, 2))),
-        node_bb_min=f(np.full((1, 3), -1e-4)),
-        node_bb_max=f(np.full((1, 3), 1e-4)),
-        node_tri_start=i32([0]),
-        node_is_leaf=i32([1]),
-        node_exit=i32([1]),
-        tri_p1=f(tri_zero),
-        tri_e1=f(tri_zero),
-        tri_e2=f(tri_zero),
-        tri_n1=f(tri_zero),
-        tri_n2=f(tri_zero),
-        tri_n3=f(tri_zero),
-        tri_color=f(tri_color),
+        node_bb_min=f(pool.node_bb_min),
+        node_bb_max=f(pool.node_bb_max),
+        node_tri_start=i32(pool.node_tri_start),
+        node_is_leaf=i32(pool.node_is_leaf),
+        node_exit=i32(pool.node_exit),
+        tri_p1=f(pool.tri_p1),
+        tri_e1=f(pool.tri_e1),
+        tri_e2=f(pool.tri_e2),
+        tri_n1=f(pool.tri_n1),
+        tri_n2=f(pool.tri_n2),
+        tri_n3=f(pool.tri_n3),
+        tri_color=f(pool.tri_color),
         tex_planar=f(np.ones((3, 1, 1, 1))),
         tex_sphere=f(np.ones((3, 1, 1, 1))),
         tex_cube=f(np.ones((3, 1, 1, 1))),
@@ -258,16 +292,27 @@ def pack_scene(
         i for i, s in enumerate(objects)
         if s.material.emission[0] > 0.0 and obj_type[i] != NONE_TYPE
     )
+    # uniform triangle color: real (non-padding) slots have a nonzero
+    # geometric normal; padding slots never hit, so only real slots count
+    uni_color = None
+    if not dummy:
+        ng = np.cross(pool.tri_e1, pool.tri_e2)
+        cols = np.asarray(pool.tri_color, dtype=np.float32)[
+            (ng * ng).sum(axis=1) > 0.0]
+        if len(cols) and bool(np.all(cols == cols[0])):
+            uni_color = tuple(float(c) for c in cols[0])
     meta = SceneMeta(
         n_objects=n,
         max_objects=no,
         obj_types=tuple(int(t) for t in obj_type[:n]),
-        group_indices=(),
-        group_bvh=(),
-        n_nodes=0,
-        n_tri_slots=leaf_size,
+        group_indices=tuple(group_indices),
+        group_bvh=tuple(group_bvh),
+        n_nodes=int(n_pool_nodes) if not dummy else 0,
+        n_tri_slots=int(pool.n_tri_slots),
         leaf_size=leaf_size,
         light_indices=lights,
+        octant_orders=bool(octant),
+        tri_uniform_color=uni_color,
     )
     return arrays, meta
 
@@ -278,13 +323,20 @@ def from_jax_scene(arrays, meta, device) -> Tuple[SceneArrays, SceneMeta]:
     `arrays` is the JAX package's SceneArrays with every field converted
     to numpy by the caller (a NamedTuple or a mapping of field name to
     array); `meta` is its SceneMeta. Returns this package's SceneArrays on
-    `device` and SceneMeta. Raises for meshes and textures, which are not
-    ported yet."""
+    `device` and SceneMeta. Mesh pools, group BVH ranges and octant copies
+    carry over as they are; textures, which are not ported yet, raise, and
+    so do non-finite group bounds."""
     fields = arrays._asdict() if hasattr(arrays, "_asdict") else dict(arrays)
     out_meta = SceneMeta(**{
         fd.name: getattr(meta, fd.name)
         for fd in dataclasses.fields(SceneMeta)})
     _check_supported(out_meta)
+    groups = list(out_meta.group_indices)
+    for name in ("bb_min", "bb_max"):
+        if not np.isfinite(np.asarray(fields[name])[groups]).all():
+            raise ValueError(
+                "the JAX scene has non-finite group bounds (its Python .obj "
+                "path packs NaN, ROADMAP queue 3); they would hide the mesh")
     out = {}
     for name in SceneArrays._fields:
         a = np.ascontiguousarray(np.asarray(fields[name]))

@@ -9,9 +9,10 @@ shape in object space.
 Type codes match the reference's CL layout (internal/ocl/scene.go:45-76):
 0 plane, 1 sphere, 2 cylinder, 3 box, 4 group.
 
-Plane, Sphere, Cube and Cylinder are complete. Triangle and Group exist as
-types so scene code reads the same in both packages, but meshes are not
-ported yet: pack_scene raises for a Group (ROADMAP queue 1, item 6).
+Groups of triangles (meshes) carry their cached bounds as in the JAX
+package. The JAX Group's native triangle-soup backing (`Group.soup`) is not
+carried over: this package parses .obj files in Python, so a Group always
+holds Triangle children.
 """
 from __future__ import annotations
 
@@ -110,18 +111,49 @@ class Triangle(Shape):
 
 
 class Group(Shape):
-    """Scene-graph node with children (shapes/group.go). Bounds and the BVH
-    build arrive with the mesh slice; packing a Group raises until then."""
+    """Scene-graph node with children and a cached AABB updated on add_child
+    (shapes/group.go:123-134)."""
     type_code = GROUP
 
     def __init__(self, **kw):
         super().__init__(**kw)
         self.children: List[Shape] = []
+        from .bounds import BoundingBox
+        self.bounding_box = BoundingBox.empty()
 
     def add_child(self, s: Shape) -> None:
+        from .bounds import bounds_of
         self.children.append(s)
         s.parent = self
+        self.bounding_box.merge_with(bounds_of(s))
 
     def add_children(self, *shapes: Shape) -> None:
         for s in shapes:
             self.add_child(s)
+
+    def bounds(self) -> None:
+        """Recompute the cached AABB (group.go:134)."""
+        from .bounds import bounds_of
+        self.bounding_box = bounds_of(self)
+
+    def all_triangles(self) -> List[Triangle]:
+        """All descendant triangles in depth-first order."""
+        out: List[Triangle] = []
+        for c in self.children:
+            if isinstance(c, Triangle):
+                out.append(c)
+            elif isinstance(c, Group):
+                out.extend(c.all_triangles())
+        return out
+
+
+def flatten(group: Group) -> List[Shape]:
+    """Flatten a group hierarchy into a list of non-group shapes
+    (shapes/flatten.go — vestigial in the reference, kept for parity)."""
+    out: List[Shape] = []
+    for c in group.children:
+        if isinstance(c, Group):
+            out.extend(flatten(c))
+        else:
+            out.append(c)
+    return out

@@ -1,9 +1,9 @@
 """Named scene registry (reference: cmd/pt/main.go:27-43 `sc` table).
 
 Each factory takes a RenderConfig and returns a scene.Scene. Only the
-scenes this package can render are registered: the primitive, untextured
-ones. The mesh and texture scenes of the JAX package arrive with their
-slices (ROADMAP queue 1, items 6 and 9).
+scenes this package can render are registered: the untextured ones, of
+primitives and triangle meshes. The textured scenes of the JAX package
+arrive with their slice (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -36,5 +36,7 @@ def list_scenes():
 
 # import for registration side effects
 from . import cornell  # noqa: E402,F401
+from . import gopher  # noqa: E402,F401
+from . import models  # noqa: E402,F401
 from . import transparency  # noqa: E402,F401
 from . import textured  # noqa: E402,F401

@@ -3,15 +3,25 @@ no jax, so the tests that need a CUDA card can run where jax is absent."""
 from __future__ import annotations
 
 import math
+import os
+import tempfile
 
 import numpy as np
 import torch
 
+from pathtracer_tpu_torch.assets import uv_sphere_obj
 from pathtracer_tpu_torch.render import megakernel as mk
 
-# the primitive, untextured scenes of the slice
+# the primitive, untextured scenes of the port
 SLICE_SCENES = ("reference", "reflection", "transparency",
                 "transparency_quad_lights", "transparency_f_light")
+# the untextured mesh scenes (teapot and gopher load a 1472-triangle UV
+# sphere in place of their .obj, glass a 576-triangle goblet)
+MESH_SCENES = ("default", "teapot", "christian", "transparent_teapot",
+               "glass", "gopher", "gopher-window")
+# the size-check mesh: a UV sphere of exactly as many triangles as the
+# reference's gopher.obj (16640; BVH leaf 16, 2079 nodes)
+SIZE_CHECK_LAT_LON = (66, 128)
 
 # per-slot rule: f32 round-off, with room for a few paths that diverge on
 # a one-ulp difference in cos/sin at a roulette threshold
@@ -43,6 +53,25 @@ def cylinder_scene(cfg, gx, mat, shapes, pack, cornell):
 
 
 
+def size_check_scene(cfg, get_scene):
+    """The `teapot` scene with its model replaced by the 16640-triangle
+    size-check UV sphere, loaded through the scene's own model loader
+    (`get_scene` is either package's): the .obj is written to a temporary
+    asset directory named by PT_ASSETS for the duration of the call."""
+    old = os.environ.get("PT_ASSETS")
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "teapot.obj"), "w") as f:
+            f.write(uv_sphere_obj(*SIZE_CHECK_LAT_LON, name="teapot"))
+        os.environ["PT_ASSETS"] = d
+        try:
+            return get_scene("teapot", cfg)
+        finally:
+            if old is None:
+                del os.environ["PT_ASSETS"]
+            else:
+                os.environ["PT_ASSETS"] = old
+
+
 def assert_slot_rule(port: np.ndarray, ref: np.ndarray) -> None:
     """>= SLOT_FRAC of values within ATOL/RTOL, each channel mean within
     MEAN_REL. Arrays are [3, ...]."""
@@ -57,12 +86,16 @@ def assert_slot_rule(port: np.ndarray, ref: np.ndarray) -> None:
 
 def port_inputs(sc, cfg, tile, device):
     """The megakernel's inputs for scene `sc` on `device`, built as the
-    driver builds them (scanline order): ([cam, obj, nodes, tris, px, py],
-    meta, pid)."""
+    driver builds them: the scene's default tile order and sample packing
+    for cfg.samples. Returns ([cam, obj, nodes, tris, px, py], meta, pid,
+    {"spp_pack": ..., "pack_axis": ...})."""
     arrays, meta = sc.pack(device=device)
+    axis = mk.default_pack_axis(meta)
+    pack = mk.clamp_pack(mk.default_pack(meta, cfg.samples), *tile, axis)
     xs, ys, pid = mk.tile_pixel_layout(cfg.width, cfg.height, *tile,
-                                       order="linear")
+                                       order=mk.default_order(meta),
+                                       spp_pack=pack, pack_axis=axis)
     tabs = [torch.from_numpy(t).to(device) for t in (
         mk.build_camera_vec(sc.camera), mk.build_scene_table(arrays, meta),
         *mk.build_mesh_tables(arrays, meta), xs, ys)]
-    return tabs, meta, pid
+    return tabs, meta, pid, {"spp_pack": pack, "pack_axis": axis}

@@ -10,8 +10,9 @@ import pytest
 import torch
 from PIL import Image
 
-from _torch_parity import scene_pair
+from _torch_parity import jax_fields_np, scene_pair
 from _torch_scenes import assert_slot_rule
+import pathtracer_tpu.native as jnative
 from pathtracer_tpu.io.png import write_png as jax_write_png
 from pathtracer_tpu.io.raw import write_raw as jax_write_raw
 from pathtracer_tpu.render import pallas_kernel as pk
@@ -24,6 +25,8 @@ torch.set_num_threads(2)
 
 CPU = torch.device("cpu")
 CFG = dict(width=32, height=24, samples=8, samples_per_pass=2)
+# teapot: two 8-spp segments (the mesh default of PT_SEG_SPP)
+MESH_CFG = dict(width=32, height=24, samples=16, samples_per_pass=8)
 
 
 def _render(monkeypatch, name="reference", **driver_kw):
@@ -79,13 +82,13 @@ def test_driver_block_order_matches_jax_segments(monkeypatch):
     assert not np.array_equal(img, _render(monkeypatch)[0])
 
 
-@pytest.mark.parametrize("env", [{"PT_SPP_PACK": "2"},
-                                 {"PT_TILE_ORDER": "subblock"}])
+@pytest.mark.parametrize("env", [{"PT_TILE_ORDER": "subblock"},
+                                 {"PT_TILE_ORDER": "rowblock"}])
 def test_driver_refuses_unported_layouts(monkeypatch, env):
-    # sample packing and the mesh tile orders serve the BVH walk
+    # the tile orders of the TPU's sub-packet gating and MXU leaf machine
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="K1-mesh variants"):
         _render(monkeypatch)
 
 
@@ -112,6 +115,72 @@ def test_torch_checkpoint_resume_bit_identical(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="checkpoint_every"):
         _render(monkeypatch, "transparency", checkpoint_path=ck,
                 checkpoint_every=2, resume=True)
+
+
+def test_driver_teapot_matches_jax_segments(monkeypatch):
+    # the mesh layout of both drivers: tile (8, 512), block order, 4 sample
+    # replicas on the lane chunks, segments of 8 spp
+    monkeypatch.setattr(jnative, "available", lambda: False)
+    js, jc, ts, tc = scene_pair("teapot", **MESH_CFG)
+    arrays, meta = ts.pack(device=CPU)
+    img, stats = render_driver(arrays, meta, ts.camera, tc)
+    assert stats.segments == 2 and stats.samples == 32 * 24 * 16
+    ja, jm = js.pack()
+    # the JAX NumPy path packs NaN group bounds for a parsed model (ROADMAP
+    # queue 3): hand its kernel the port's, the model's vertex bounds
+    fields = dict(jax_fields_np(ja), bb_min=arrays.bb_min.numpy(),
+                  bb_max=arrays.bb_max.numpy())
+    ja = ja._replace(**{k: jnp.asarray(v) for k, v in fields.items()})
+    S, L = pk.default_tile(jm)
+    axis = pk.default_pack_axis(jm)
+    pack = pk.clamp_pack(pk.default_pack(jm, 8), S, L, axis)
+    assert (S, L, pack, axis) == (8, 512, 4, "chunk")
+    xs, ys, pid = pk.tile_pixel_layout(32, 24, S, L,
+                                       order=pk.default_order(jm),
+                                       spp_pack=pack, pack_axis=axis)
+    tabs = [jnp.asarray(t) for t in (
+        pk.build_camera_vec(js.camera), pk.build_scene_table(ja, jm),
+        *pk.build_mesh_tables(ja, jm), xs, ys)]
+    acc = 0.0
+    for c0 in (0, 1):
+        seed = jnp.asarray([jc.seed * 7919 + c0 + 1, c0 * 8], jnp.int32)
+        r, g, b = pk.trace_tiles(seed, *tabs, meta=jm, cfg=jc, spp=8,
+                                 total_samples=16, tile=(S, L),
+                                 spp_pack=pack, pack_axis=axis,
+                                 interpret=True)
+        acc = acc + jnp.stack([r.reshape(-1), g.reshape(-1),
+                               b.reshape(-1)], axis=-1)
+    acc = np.asarray(acc).astype(np.float64)
+    want = (pk.untile_image(acc, pid, 32, 24) / 16.0).astype(np.float32)
+    assert_slot_rule(np.moveaxis(img, -1, 0),
+                     np.moveaxis(want.reshape(24, 32, 3), -1, 0))
+    left, right = img[:, :3].mean((0, 1)), img[:, -3:].mean((0, 1))
+    assert left[0] > left[2] and right[2] > right[0]
+
+
+def test_torch_checkpoint_resume_teapot_bit_identical(monkeypatch,
+                                                      tmp_path):
+    _, _, ts, tc = scene_pair("teapot", **MESH_CFG)
+    arrays, meta = ts.pack(device=CPU)
+
+    def render(**kw):
+        return render_driver(arrays, meta, ts.camera, tc,
+                             checkpoint_every=1, **kw)[0]
+
+    full = render(checkpoint_path=str(tmp_path / "full.npz"))
+    ck = str(tmp_path / "ck.npz")
+    # a persistent outage after chunk 1 kills the first run ...
+    monkeypatch.setenv("PT_FAULT_INJECT", "1")
+    monkeypatch.setenv("PT_FAULT_COUNT", "9")
+    with pytest.raises(DeviceFailure):
+        render(checkpoint_path=ck)
+    monkeypatch.delenv("PT_FAULT_INJECT")
+    with np.load(ck) as z:
+        assert int(z["chunks_done"]) == 1
+        assert json.loads(str(z["meta"]))["layout"] == \
+            "tile8x512:block:pack4chunk"
+    # ... and the resumed run finishes it bit for bit
+    assert np.array_equal(render(checkpoint_path=ck, resume=True), full)
 
 
 def test_torch_fault_recovery_identical_output(monkeypatch):
@@ -170,6 +239,7 @@ def test_cli_lists_scenes_and_needs_a_card(monkeypatch, tmp_path, capsys):
     assert cli.main(["--list-scenes"]) == 0
     out = capsys.readouterr().out
     assert "reference" in out and "transparency_f_light" in out
+    assert "teapot" in out and "gopher-window" in out
     # no fallback to the CPU: without a card the CLI renders nothing
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     raw = tmp_path / "x.raw"

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_fields_np, scene_pair
-from _torch_scenes import SLICE_SCENES
+from _torch_scenes import MESH_SCENES, SLICE_SCENES
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu.scenes import get_scene as jax_get_scene
 from pathtracer_tpu_torch.config import RenderConfig
@@ -102,27 +102,28 @@ def test_tile_layout_and_untile_equal_jax(order, W, H, S, L, granule):
 
 
 def test_registry_holds_the_slice_scenes():
-    assert list_scenes() == sorted(SLICE_SCENES)
+    assert list_scenes() == sorted(SLICE_SCENES + MESH_SCENES)
 
 
 def test_unported_scene_parts_raise():
     cpu = torch.device("cpu")
-    g = Group()
-    g.add_child(Triangle(np.zeros(4), np.ones(4), np.eye(4)[0]))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        pack_scene([Sphere(), g], device=cpu)
     tex = Sphere(material=Material(textured=True))
     with pytest.raises(NotImplementedError, match="item 9"):
         pack_scene([tex], device=cpu)
+    g = Group()
+    g.add_child(Triangle(np.zeros(4), np.ones(4), np.eye(4)[0]))
+    g.set_material(Material(textured=True))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        pack_scene([Sphere(), g], device=cpu)
     with pytest.raises(NotImplementedError, match="item 9"):
         pack_scene([Sphere()], device=cpu,
                    sphere_textures=[np.zeros((2, 2, 3))])
-    # a mesh scene carried over from the JAX package raises, not drops
+    # a textured scene carried over from the JAX package raises, not drops
     cfg = RenderConfig(width=16, height=12)
-    ja, jm = jax_get_scene("default", cfg).pack(dtype=jnp.float32)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    ja, jm = jax_get_scene("textures", cfg).pack(dtype=jnp.float32)
+    with pytest.raises(NotImplementedError, match="item 9"):
         from_jax_scene(jax_fields_np(ja), jm, cpu)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        mk.tile_pixel_layout(16, 12, 8, 128, order="linear", spp_pack=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        mk.tile_pixel_layout(16, 12, 8, 128, order="subblock")
+    # the tile orders of the TPU's sub-packet gating and MXU leaf machine
+    for order in ("subblock", "rowblock"):
+        with pytest.raises(NotImplementedError, match="K1-mesh variants"):
+            mk.tile_pixel_layout(16, 12, 8, 128, order=order, spp_pack=2)

@@ -30,7 +30,7 @@ def _inputs(name, device="cpu", **cfg_kw):
     kw.update(cfg_kw)
     js, jc, ts, tc = scene_pair(name, **kw)
     ja, jm = js.pack()
-    ttabs, tm, _ = port_inputs(ts, tc, TILE, torch.device(device))
+    ttabs, tm, _, _ = port_inputs(ts, tc, TILE, torch.device(device))
     xs, ys, _ = pk.tile_pixel_layout(W, H, *TILE, order="linear")
     jtabs = (pk.build_camera_vec(js.camera), pk.build_scene_table(ja, jm),
              *pk.build_mesh_tables(ja, jm), xs, ys)
@@ -91,8 +91,10 @@ def test_trace_tiles_refuses_unported_inputs():
     kw = dict(meta=tm, spp=SPP, total_samples=SPP, tile=TILE)
     with pytest.raises(NotImplementedError, match="item 11"):
         mk.trace_tiles((0, 0), *ttabs, cfg=tc.replace(nee=True), **kw)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        mk.trace_tiles((0, 0), *ttabs, cfg=tc, spp_pack=2, **kw)
+    with pytest.raises(ValueError, match="spp_pack=3"):   # must divide spp
+        mk.trace_tiles((0, 0), *ttabs, cfg=tc, spp_pack=3, **kw)
+    with pytest.raises(ValueError, match="pack_axis"):
+        mk.trace_tiles((0, 0), *ttabs, cfg=tc, pack_axis="lane", **kw)
     bad = list(ttabs)
     bad[4] = bad[4].to(torch.int64)              # px must be int32
     with pytest.raises(ValueError, match="px"):

@@ -5,18 +5,22 @@ Run from the root of the checkout on a machine with a CUDA card:
 
     python3 tools/cuda_megakernel_probe.py
 
-It imports no jax. On the `reference` scene it prints, one result a line:
+It imports no jax. It prints, one result a line:
 
 1. the card's name, power limit, SM clock and temperature (nvidia-smi);
 2. an A/B of the shipped build (-fmad=false) against -fmad=true: the
-   kernel at 1280x960x8 spp, 20 launches a timing by CUDA events, in the
+   kernel on `reference` at 1280x960x8 spp, 20 launches a timing by CUDA events, in the
    order default, fmad, fmad, default, three times over; then each
    build's agreement with the plain PyTorch version on the same inputs;
 3. one 128-spp launch (the driver's segment), timed three times;
 4. three driver runs at 1280x960x2048 spp (wall, Msamples/s);
 5. one more driver run under torch.profiler: device time by kernel, the
    kernel's share of it, and the device's idle share inside the segment
-   loop, all read from the device timeline of that one trace.
+   loop and against the driver wall, all read from the device timeline of
+   that one trace.
+
+Steps 4 and 5 run for `reference` and then for `teapot` (the 1472-triangle
+stand-in; 256 segments of 8 spp, the mesh instantiation of the kernel).
 """
 from __future__ import annotations
 
@@ -140,17 +144,24 @@ def main():
     print("128 spp launch ms", t128, "= per 8 spp",
           [t / 16 for t in t128], flush=True)
 
-    # ---- 4: driver runs ------------------------------------------------
+    # ---- 4 and 5: driver runs, one traced, for each scene ---------------
+    for scene in ("reference", "teapot"):
+        if driver_runs(scene, dev):
+            return 0
+    return 0
+
+
+def driver_runs(scene, dev):
+    """Three driver runs of `scene` at W x H x 2048 spp and one more under
+    torch.profiler. Returns True when the trace shows no device events."""
     cfg = RenderConfig(width=W, height=H, samples=2048)
-    sc = get_scene("reference", cfg)
+    sc = get_scene(scene, cfg)
     arrays, meta = sc.pack(device=dev)
     for i in range(3):
         _, st = render_driver(arrays, meta, sc.camera, cfg)
-        print(f"driver run {i}: wall {st.wall_s:.4f} s "
+        print(f"{scene} driver run {i}: wall {st.wall_s:.4f} s "
               f"{st.msamples_per_sec:.1f} Msamples/s, {st.segments} "
               f"segments", flush=True)
-
-    # ---- 5: one traced driver run --------------------------------------
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -161,7 +172,7 @@ def main():
     if not events:
         print("traced run: no device events in the trace; idle share not "
               "measured", flush=True)
-        return 0
+        return True
     by_name = {}
     for name, s, e in events:
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + (e - s)
@@ -170,19 +181,20 @@ def main():
     hi = max(e for _, s, e in events)
     inside = [(max(s, lo), min(e, hi)) for _, s, e in events if e > lo]
     busy = union_us(inside)
-    print("traced run: host wall of render_driver", f"{host:.4f} s,",
-          "driver wall", f"{st.wall_s:.4f} s", flush=True)
-    print("traced run: device us by kernel", json.dumps(by_name),
+    print(f"{scene} traced run: host wall of render_driver {host:.4f} s, "
+          f"driver wall {st.wall_s:.4f} s", flush=True)
+    print(f"{scene} traced run: device us by kernel", json.dumps(by_name),
           flush=True)
-    print(f"traced run: {len(k1)} megakernel launches, "
+    print(f"{scene} traced run: {len(k1)} megakernel launches, "
           f"{sum(e - s for s, e in k1) / 1e3:.3f} ms, "
           f"{sum(e - s for s, e in k1) / sum(by_name.values()):.4f} of "
           f"device time", flush=True)
-    print(f"traced run: segment loop on the device (first megakernel "
-          f"start to last device op end) {(hi - lo) / 1e3:.3f} ms, busy "
-          f"{busy / 1e3:.3f} ms, idle share {1.0 - busy / (hi - lo):.4f}",
-          flush=True)
-    return 0
+    print(f"{scene} traced run: segment loop on the device (first "
+          f"megakernel start to last device op end) {(hi - lo) / 1e3:.3f} "
+          f"ms, busy {busy / 1e3:.3f} ms, idle share "
+          f"{1.0 - busy / (hi - lo):.4f}; against the driver wall "
+          f"{1.0 - busy / 1e6 / st.wall_s:.4f}", flush=True)
+    return False
 
 
 if __name__ == "__main__":
