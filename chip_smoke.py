@@ -10,9 +10,16 @@ by the per-slot rule, mesh scenes bit for bit), renders the `reference`
 scene and then the `teapot` scene at 1280x960x2048 spp through the CLI
 (the reference renderer's two benchmarks) and checks each image, requires
 the kernel to be bit-equal to the plain version on each driver's last
-segment at that size, times the kernel against the plain version, and
-prints one JSON line of kernel results and, last, one JSON line naming the
-device. Every failure raises; without a card it exits non-zero before
+segment at that size, and times the kernel against the plain version.
+Then the gradient kernel (K6, the same source's kGrad instantiations):
+phase 6 holds it against its plain version at 1280x960x4 spp in object mode
+on `reference` and in triangle mode on `teapot` and the size-check mesh,
+and times both; phase 7 drives training through the training steps at
+1280x960, object colors on `reference` (32 spp a step, the fwd+bwd rate as
+bench.py measures it) and triangle colors on `teapot` (8 spp a step),
+each loss falling over 5 steps, and a short `train_demo --tri` run. It
+prints one JSON line of kernel results and, last, one JSON line naming
+the device. Every failure raises; without a card it exits non-zero before
 printing any result. It imports nothing of JAX.
 
 `teapot` and the mesh scenes load procedural stand-ins (a 1472-triangle UV
@@ -22,6 +29,8 @@ the reference's gopher model.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -33,11 +42,14 @@ import time
 import numpy as np
 import torch
 
-from pathtracer_tpu_torch import cli
+from pathtracer_tpu_torch import cli, train_demo
 from pathtracer_tpu_torch.config import RenderConfig
+from pathtracer_tpu_torch.diff import (make_megakernel_step,
+                                       make_megakernel_step_tri)
 from pathtracer_tpu_torch.geometry import transforms as gx
 from pathtracer_tpu_torch.io.raw import read_raw
 from pathtracer_tpu_torch.render import _build
+from pathtracer_tpu_torch.render import grad as tg
 from pathtracer_tpu_torch.render import megakernel as mk
 from pathtracer_tpu_torch.scene import material, pack, shapes
 from pathtracer_tpu_torch.scenes import cornell, get_scene
@@ -46,13 +58,19 @@ from pathtracer_tpu_torch.scenes import cornell, get_scene
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from _torch_scenes import (ATOL, MEAN_REL, RTOL, SLOT_FRAC,  # noqa: E402
-                           cylinder_scene, port_inputs, size_check_scene)
+                           cylinder_scene, grad_inputs, grad_rule,
+                           port_inputs, size_check_scene)
 
 MAIN_MEAN_REL = 0.02         # 2048-spp image vs an 8-spp plain render
 TILE = (64, 256)             # the driver's tile for primitive scenes
 MESH_TILE = (8, 512)         # the driver's tile for mesh scenes
 W, H, SPP = 1280, 960, 2048  # the reference renderer's benchmark size
 PLAIN_BUDGET_S = 150.0       # a full-size plain run beyond this is skipped
+GRAD_TILE = (8, 512)         # the training steps' tile (no sample packing)
+GRAD_SPP = 4                 # phase 6: K6 against its plain version
+STEP_SPP = 32                # bench.py's fwd+bwd samples a step
+TRI_STEP_SPP = 8
+LOSS_FALL = 0.9              # 5 steps must bring the loss below this share
 
 
 def phase(msg: str) -> None:
@@ -95,13 +113,16 @@ def compare(name, sc, cfg, tile, sample_base, dev, exact=False):
     return max_err, bit_eq
 
 
-def timed(fn):
-    """(torch.stack(fn()), ms) of one call, by CUDA events."""
+def timed(fn, stack=True):
+    """(torch.stack(fn()), ms) of one call, by CUDA events (fn()'s result
+    itself when not `stack`)."""
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    out = torch.stack(fn())
+    out = fn()
+    if stack:
+        out = torch.stack(out)
     stop.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(stop)
@@ -124,7 +145,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 def ptxas_lines(log_text: str):
     """ptxas register/spill lines of each kernel instantiation, named."""
-    names = {"ILb0E": "primitive", "ILb1E": "mesh"}
+    names = {"ILb0ELb0E": "primitive", "ILb1ELb0E": "mesh",
+             "ILb0ELb1E": "grad primitive", "ILb1ELb1E": "grad mesh"}
     out, current = [], "?"
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -194,6 +216,188 @@ def plain_affordable(tag, seed, tabs, kw, n_tiles: int, probe_tiles: int):
           f"tiles: {ms:.1f} ms; full run estimated at {est_s:.1f} s "
           f"(budget {PLAIN_BUDGET_S:.0f} s)")
     return out, ms, est_s < PLAIN_BUDGET_S
+
+
+def grad_case(tag, sc, cfg, tri, dev, card):
+    """K6 against its plain version on the card, the same inputs and
+    per-slot cotangents: the gradient rule, both times by CUDA events, and
+    whether two launches give the same bits. Returns the numbers."""
+    tabs, meta, _, _ = grad_inputs(sc, cfg, GRAD_TILE, dev)
+    rng = np.random.default_rng(0)
+    cots = [torch.from_numpy(rng.random(tuple(tabs[4].shape),
+                                        dtype=np.float32)).to(dev)
+            for _ in range(3)]
+    kw = dict(meta=meta, cfg=cfg, spp=cfg.samples,
+              total_samples=cfg.samples, tile=GRAD_TILE, tri_grads=tri)
+
+    def run():
+        return tg.grad_tiles((3, 0), *tabs, *cots, **kw)
+
+    k, k2 = run(), run()
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(k, k2))
+    p, p_ms = timed(lambda: tg.grad_tiles_reference((3, 0), *tabs, *cots,
+                                                    **kw), stack=False)
+    err = grad_rule(k, p, meta.has_groups)
+    k_ms = cuda_ms(run, 5)
+    tri_txt = (f"; gtri {err['gtri_frac']:.6f} of {meta.n_tri_slots} slots "
+               f"within the rule ({err['gtri_slots_hit']} hit)" if tri
+               else "")
+    phase(f"phase 6: {tag}, {'triangle' if tri else 'object'} mode, "
+          f"{cfg.width}x{cfg.height}x{cfg.samples} spp: kernel {k_ms:.4f} "
+          f"ms, plain {p_ms:.1f} ms; max rel err gcol {err['gcol']:.2e} "
+          f"gemi {err['gemi']:.2e}{tri_txt}; two launches bit-identical: "
+          f"{same_bits}; card {card}")
+    return dict(err, ms=k_ms, plain_ms=p_ms, same_bits=same_bits)
+
+
+def crn_target(tabs, meta, cfg, pid, seed, spp):
+    """The true-color image the training steps render with `seed` (common
+    random numbers: the loss then sees no Monte-Carlo noise at the truth),
+    through the forward kernel on the steps' layout."""
+    rgb = mk.trace_tiles(seed, *tabs, meta=meta, cfg=cfg, spp=spp,
+                         total_samples=cfg.samples, tile=GRAD_TILE)
+    flat = torch.stack(rgb, -1).reshape(-1, 3).cpu().numpy() / spp
+    return mk.untile_image(flat, pid, cfg.width, cfg.height).reshape(
+        cfg.height, cfg.width, 3)
+
+
+def check_falls(tag, losses):
+    phase(f"{tag}: losses {[float(f'{x:.6g}') for x in losses]}")
+    if not (np.isfinite(losses).all() and losses[-1] < LOSS_FALL
+            * losses[0]):
+        raise AssertionError(f"{tag}: the loss did not fall below "
+                             f"{LOSS_FALL} of its first value")
+
+
+def step_rate(step, params, target, spp, n=3):
+    """fwd+bwd Msamples/s of a training step as bench.py:160-173 measures
+    it: one warm-up step, then n steps with new seeds, the loss read once
+    at the end."""
+    *params, loss = step(*params, (1, 0), target)
+    float(loss)
+    t0 = time.perf_counter()
+    for i in range(n):
+        *params, loss = step(*params, (i + 2, 0), target)
+    float(loss)
+    dt = time.perf_counter() - t0
+    return W * H * spp * n / dt / 1e6, dt
+
+
+def grad_phase(dev, card, mesh_tris):
+    """Phase 6: K6 against its plain version at W x H x GRAD_SPP, object
+    mode on `reference`, triangle mode on `teapot` and the size-check
+    mesh."""
+    gcfg = RenderConfig(width=W, height=H, samples=GRAD_SPP,
+                        samples_per_pass=GRAD_SPP)
+    g_ref = grad_case("reference", get_scene("reference", gcfg), gcfg,
+                      False, dev, card)
+    g_tea = grad_case(f"teapot ({mesh_tris['teapot']} triangles)",
+                      get_scene("teapot", gcfg), gcfg, True, dev, card)
+    g_big = grad_case(f"size-check mesh ({mesh_tris['size-check mesh']} "
+                      "triangles)", size_check_scene(gcfg, get_scene), gcfg,
+                      True, dev, card)
+    return g_ref, g_tea, g_big
+
+
+def training_phase(dev, card, mesh_tris):
+    """Phase 7, the main path of training, with every launch count set to 0
+    just before: make_megakernel_step on `reference` and
+    make_megakernel_step_tri on `teapot` at W x H (each loss must fall over
+    5 steps, and the fwd+bwd rate is measured as bench.py measures it),
+    then a short `train_demo --tri`. Returns (reference rate, teapot rate,
+    object-mode launches, triangle-mode launches)."""
+    tg.grad_tiles.launches = 0
+    tg.grad_tiles.tri_launches = 0
+    mk.trace_tiles.launches = 0
+    mk.trace_tiles.mesh_launches = 0
+    crn = (1, 0)
+    # object colors on `reference`: two sphere colors perturbed
+    rcfg = RenderConfig(width=W, height=H, samples=SPP)
+    rsc = get_scene("reference", rcfg)
+    rtabs, rmeta, rarr, rpid = grad_inputs(rsc, rcfg, GRAD_TILE, dev)
+    step, target_of = make_megakernel_step(rarr, rmeta, rcfg, rsc.camera,
+                                           spp=STEP_SPP, lr=3.0)
+    target = target_of(crn_target(rtabs, rmeta, rcfg, rpid, crn, STEP_SPP))
+    spheres = [j for j, code in enumerate(rmeta.obj_types) if code == 1
+               and not rarr.emission[j].any()]
+    c = rarr.color.clone()
+    c[spheres[0], 0] += 0.3
+    c[spheres[1], 2] -= 0.2
+    e, losses = rarr.emission, []
+    for _ in range(5):
+        c, e, loss = step(c, e, crn, target)
+        losses.append(float(loss))
+    check_falls(f"phase 7: reference {W}x{H}, {STEP_SPP} spp a step, "
+                f"sphere colors {spheres[:2]} perturbed", losses)
+    # the rates: bench.py's steps (the default step size, a zero target)
+    zero = target_of(np.zeros((H, W, 3), np.float32))
+    rate, dt = step_rate(
+        make_megakernel_step(rarr, rmeta, rcfg, rsc.camera, spp=STEP_SPP)[0],
+        (rarr.color, rarr.emission), zero, STEP_SPP)
+    phase(f"phase 7: reference fwd+bwd {rate:.1f} Msamples/s ({W}x{H}x"
+          f"{STEP_SPP} spp x 3 steps in {dt:.4f} s, bench.py's "
+          f"measurement); card {card}")
+
+    # triangle colors on `teapot`: every triangle's red lowered by 0.3
+    tcfg = RenderConfig(width=W, height=H, samples=TRI_STEP_SPP,
+                        samples_per_pass=TRI_STEP_SPP)
+    tsc = get_scene("teapot", tcfg)
+    ttabs, tmeta, tarr, tpid = grad_inputs(tsc, tcfg, GRAD_TILE, dev)
+    tstep, ttarget_of = make_megakernel_step_tri(
+        tarr, tmeta, tcfg, tsc.camera, n_passes=1, tile=GRAD_TILE, lr=1000.0,
+        spp=TRI_STEP_SPP)
+    ttarget = ttarget_of(crn_target(ttabs, tmeta, tcfg, tpid, crn,
+                                    TRI_STEP_SPP))
+    # the object colors stay at their true values: the triangles' step
+    # size would throw the walls' colors off
+    tri = tarr.tri_color.clone()
+    tri[:, 0] -= 0.3
+    losses = []
+    for _ in range(5):
+        _, _, tri, loss = tstep(tarr.color, tarr.emission, tri, crn, ttarget)
+        losses.append(float(loss))
+    check_falls(f"phase 7: teapot ({mesh_tris['teapot']} triangles) "
+                f"{W}x{H}, {TRI_STEP_SPP} spp a step, triangle colors",
+                losses)
+    tzero = ttarget_of(np.zeros((H, W, 3), np.float32))
+    trate, tdt = step_rate(
+        make_megakernel_step_tri(tarr, tmeta, tcfg, tsc.camera, n_passes=1,
+                                 tile=GRAD_TILE, spp=TRI_STEP_SPP)[0],
+        (tarr.color, tarr.emission, tarr.tri_color), tzero, TRI_STEP_SPP)
+    phase(f"phase 7: teapot triangle-mode fwd+bwd {trate:.1f} Msamples/s "
+          f"({W}x{H}x{TRI_STEP_SPP} spp x 3 steps in {tdt:.4f} s); card "
+          f"{card}")
+
+    # the inverse-rendering demo, short
+    with tempfile.TemporaryDirectory() as tmp:
+        strip = os.path.join(tmp, "demo.png")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_demo.main(["--tri", "--scene", "teapot", "--width",
+                                  "160", "--height", "120", "--spp", "8",
+                                  "--steps", "5", "--out", strip])
+        out = buf.getvalue()
+        m = re.search(r"loss ([0-9.]+) -> ([0-9.]+); tri-color MAD "
+                      r"([0-9.]+) -> ([0-9.]+)", out)
+        if rc != 0 or m is None or not os.path.getsize(strip):
+            raise AssertionError(f"phase 7: train_demo --tri failed (rc "
+                                 f"{rc}):\n{out[-2000:]}")
+        phase(f"phase 7: train_demo --tri: {out.strip().splitlines()[-2]}")
+        if not float(m.group(2)) < float(m.group(1)):
+            raise AssertionError("phase 7: train_demo's loss did not fall")
+    k6_obj = tg.grad_tiles.launches - tg.grad_tiles.tri_launches
+    k6_tri = tg.grad_tiles.tri_launches
+    phase(f"phase 7: {k6_obj} object-mode and {k6_tri} triangle-mode "
+          f"gradient-kernel launches, {mk.trace_tiles.launches} forward "
+          f"launches ({mk.trace_tiles.mesh_launches} of the mesh "
+          "instantiation)")
+    if not (k6_obj and k6_tri and mk.trace_tiles.mesh_launches
+            and mk.trace_tiles.launches > mk.trace_tiles.mesh_launches):
+        raise AssertionError("phase 7: training did not launch every "
+                             "kernel of its path")
+
+    return rate, trate, k6_obj, k6_tri
 
 
 def main() -> int:
@@ -421,6 +625,9 @@ def main() -> int:
         raise AssertionError("phase 5: kernel differs from the plain "
                              "version on the size-check mesh")
 
+    g_ref, g_tea, g_big = grad_phase(dev, card, mesh_tris)
+    rate, trate, k6_obj, k6_tri = training_phase(dev, card, mesh_tris)
+
     print(json.dumps({"kernels": [
         {"name": "megakernel", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
@@ -444,7 +651,31 @@ def main() -> int:
          "size_check_plain_shape": (f"{W}x{H}x8spp" if sfull
                                     else "first 64 tiles x8spp"),
          "size_check_bit_equal_frac": s_bit_eq,
-         "triangles": mesh_tris, "ptxas": ptxas}]}))
+         "triangles": mesh_tris, "ptxas": ptxas},
+        {"name": "grad-megakernel", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pathtracer_tpu/render/pallas_grad.py:267",
+         "launches": k6_obj, "max_abs_err": g_ref["max_abs_err"],
+         "gcol_rel_err": g_ref["gcol"], "gemi_rel_err": g_ref["gemi"],
+         "shape": f"reference {W}x{H}x{GRAD_SPP}spp", "ms": g_ref["ms"],
+         "plain_ms": g_ref["plain_ms"],
+         "relaunch_bit_identical": g_ref["same_bits"],
+         "fwd_bwd_msamples_per_s": rate,
+         "fwd_bwd_shape": f"reference {W}x{H}x{STEP_SPP}spp x 3 steps"},
+        {"name": "grad-megakernel-tri", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pathtracer_tpu/render/pallas_grad.py:267,221",
+         "launches": k6_tri,
+         "max_abs_err": max(g_tea["max_abs_err"], g_big["max_abs_err"]),
+         "gtri_slot_frac": g_tea["gtri_frac"],
+         "shape": f"teapot {W}x{H}x{GRAD_SPP}spp", "ms": g_tea["ms"],
+         "plain_ms": g_tea["plain_ms"],
+         "relaunch_bit_identical": g_tea["same_bits"],
+         "size_check_ms": g_big["ms"],
+         "size_check_plain_ms": g_big["plain_ms"],
+         "size_check_gtri_slot_frac": g_big["gtri_frac"],
+         "fwd_bwd_msamples_per_s": trate,
+         "fwd_bwd_shape": f"teapot {W}x{H}x{TRI_STEP_SPP}spp x 3 steps"}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

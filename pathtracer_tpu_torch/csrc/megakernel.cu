@@ -46,6 +46,28 @@
 // and the L2-resident mesh tables. Paths end at different bounces and walks
 // visit different nodes, so warps diverge. The kernel allocates nothing and
 // does not synchronise; it runs on the stream it is given.
+//
+// The gradient kernel (K6). Replaces pathtracer_tpu/render/pallas_grad.py::
+// _make_grad_kernel, launched by grad_tiles: the same template instantiated
+// with kGrad replays each slot's forward paths operation for operation (the
+// replay cannot drift from the forward, because it is the forward's code),
+// records a tape of the bounces that add to the sum (winner, cos, mask
+// before the update, color, and whether the mask was updated), and after
+// each sample walks the tape backwards:
+//     T_b = e_{b+1} + (upd_{b+1} ? c_{b+1} cos_{b+1} : 1) T_{b+1}
+//     dS/dc_b = upd_b ? cot cos_b m_b T_b : 0,   dS/de_b = cot m_b,
+// except that a direct light hit (which overwrote the sum with the light's
+// color) gives that color `cot` and nothing else a gradient. A refraction
+// bounce adds nothing and leaves T unchanged, so it takes no tape entry,
+// and entries past a path's end do not exist. The tape is a per-thread
+// array of at most kMaxTape entries (local memory). Per-object sums go to
+// n_obj*6 floats of shared memory by shared atomics and then one global
+// atomic add per nonzero entry per block; per-triangle sums (gtri) go
+// straight to global memory by atomic add, where the TPU needed a one-hot
+// MXU scatter or an HBM tape. Float atomics add in any order, so the
+// gradient sums are not bit-reproducible; the forward instantiations
+// (kGrad = false) compile to the code they had before: every grad-only
+// variable is dead there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,6 +80,8 @@ constexpr int kNodeCols = 16;  // 0-2 bbmin, 3-5 bbmax, 6 tri_start, 7 leaf, 8 e
 constexpr int kTriStride = 24;  // p1, Ng, U, V, n1, n2-n1, n3-n1, color
 constexpr int kThreads = 128;
 constexpr int kMaxObjects = 64;  // type codes travel in the launch params
+constexpr int kMaxTape = 16;     // grad kernel: tape entries >= max_bounces
+constexpr int kGradCols = 6;     // grad kernel: color rgb | emission rgb
 constexpr float kBig = 1e30f;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInv24 = 5.9604644775390625e-08f;  // 2^-24
@@ -225,7 +249,19 @@ struct Params {
   int obj_types[kMaxObjects];
   int group_root[kMaxObjects];  // node range [root, end) of each GROUP
   int group_end[kMaxObjects];
+  // grad kernel only: the per-slot cotangents of the r/g/b sums, the
+  // [n_obj, 6] color | emission gradient sums and the [n_tri_slots, 3]
+  // triangle color gradient sums (null: object gradients only)
+  const float* cot_r;
+  const float* cot_g;
+  const float* cot_b;
+  float* gobj;
+  float* gtri;
 };
+
+__device__ __forceinline__ void add_nonzero(float* a, float v) {
+  if (v != 0.0f) atomicAdd(a, v);
+}
 
 // ---- BVH walk (pallas_kernel.py:1231-1540, one ray) -------------------------
 
@@ -304,18 +340,31 @@ __device__ __forceinline__ float walk_group(const Params& p, int root, int end,
   return bt;
 }
 
-template <bool kMesh>
+template <bool kMesh, bool kGrad>
 __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   extern __shared__ float smem[];
   float* s_obj = smem;
   float* s_cam = s_obj + p.n_obj * kObjCols;
+  float* s_g = s_cam + kCamCols;  // kGrad: the block's [n_obj, 6] sums
   for (int i = threadIdx.x; i < p.n_obj * kObjCols; i += blockDim.x)
     s_obj[i] = p.obj[i];
   for (int i = threadIdx.x; i < kCamCols; i += blockDim.x) s_cam[i] = p.cam[i];
+  if constexpr (kGrad) {
+    for (int i = threadIdx.x; i < p.n_obj * kGradCols; i += blockDim.x)
+      s_g[i] = 0.0f;
+  }
   __syncthreads();
 
+  // kGrad launches whole blocks only, so no thread of it returns here and
+  // every one reaches the barrier before the block's gradient flush
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= p.n_slots) return;
+  float cot_r = 0.f, cot_g = 0.f, cot_b = 0.f;
+  if constexpr (kGrad) {
+    cot_r = p.cot_r[idx];
+    cot_g = p.cot_g[idx];
+    cot_b = p.cot_b[idx];
+  }
   uint32_t key, elem, u_elem;
   {
     // (row, lane) are recomputed from idx where needed, not kept live
@@ -379,6 +428,14 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
     float sr = 0.0f, sg = 0.0f, sb = 0.0f;
     bool inside = false;
     int n_hits = 0, eff = 0;
+    // kGrad: this sample's tape of contributing bounces. t_id is the
+    // winning object, or -1 - slot for a mesh hit; bit k of upd_bits says
+    // that entry k updated the mask
+    int t_id[kMaxTape];
+    float t_cos[kMaxTape], t_m[3 * kMaxTape], t_c[3 * kMaxTape];
+    int nb = 0;
+    uint32_t upd_bits = 0u;
+    bool direct = false;
     for (int b = 0; b < p.max_bounces; ++b) {
       // ---- intersect: nearest object -------------------------------------
       float best_t = kBig;
@@ -558,6 +615,23 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
       // primitive instantiation keeps no more values live than before
       const float emi_r = on_tri ? 0.0f : wm[27];
       const bool is_light = emi_r > 0.0f;
+      if constexpr (kGrad) {
+        if (!do_refract) {
+          // tape entry (pallas_grad.py:755-778): the winner, cos, the mask
+          // before this bounce's update and the color that updates it
+          t_id[nb] = on_tri ? -1 - tri : w;
+          t_cos[nb] = cosw;
+          t_m[3 * nb] = mask_r;
+          t_m[3 * nb + 1] = mask_g;
+          t_m[3 * nb + 2] = mask_b;
+          t_c[3 * nb] = on_tri ? tcr : wm[24];
+          t_c[3 * nb + 1] = on_tri ? tcg : wm[25];
+          t_c[3 * nb + 2] = on_tri ? tcb : wm[26];
+          if (!is_light) upd_bits |= 1u << nb;
+          direct = is_light && n_hits == 0;
+          ++nb;
+        }
+      }
       if (!do_refract) {
         sr = sr + mask_r * emi_r;
         sg = sg + mask_g * (on_tri ? 0.0f : wm[28]);
@@ -582,13 +656,96 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
       if (do_refract) inside = outside;
       if (is_light || eff >= p.max_eff) break;
     }
+    if constexpr (kGrad) {
+      // ---- this sample's backward pass (pallas_grad.py:806-939) --------
+      if (direct) {
+        // a direct light hit overwrote the sum with the light's color:
+        // that color alone has a gradient
+        float* g = s_g + t_id[0] * kGradCols;
+        add_nonzero(g, cot_r);
+        add_nonzero(g + 1, cot_g);
+        add_nonzero(g + 2, cot_b);
+      } else {
+        float T_r = 0.0f, T_g = 0.0f, T_b = 0.0f;
+        for (int k = nb - 1; k >= 0; --k) {
+          const int id = t_id[k];
+          const bool upd = (upd_bits >> k) & 1u;
+          const float cosb = t_cos[k];
+          const float mr = t_m[3 * k], mg = t_m[3 * k + 1],
+                      mb = t_m[3 * k + 2];
+          if (upd) {
+            const float gr = cot_r * cosb * mr * T_r;
+            const float gg = cot_g * cosb * mg * T_g;
+            const float gb = cot_b * cosb * mb * T_b;
+            float* g = id >= 0 ? s_g + id * kGradCols
+                     : p.gtri != nullptr ? p.gtri + (size_t)(-1 - id) * 3
+                                         : nullptr;
+            if (g != nullptr) {
+              add_nonzero(g, gr);
+              add_nonzero(g + 1, gg);
+              add_nonzero(g + 2, gb);
+            }
+          }
+          float er = 0.0f, eg = 0.0f, eb = 0.0f;
+          if (id >= 0) {
+            float* g = s_g + id * kGradCols + 3;
+            add_nonzero(g, cot_r * mr);
+            add_nonzero(g + 1, cot_g * mg);
+            add_nonzero(g + 2, cot_b * mb);
+            er = s_obj[id * kObjCols + 27];
+            eg = s_obj[id * kObjCols + 28];
+            eb = s_obj[id * kObjCols + 29];
+          }
+          const float sc_r = upd ? t_c[3 * k] * cosb : 1.0f;
+          const float sc_g = upd ? t_c[3 * k + 1] * cosb : 1.0f;
+          const float sc_b = upd ? t_c[3 * k + 2] * cosb : 1.0f;
+          T_r = er + sc_r * T_r;
+          T_g = eg + sc_g * T_g;
+          T_b = eb + sc_b * T_b;
+        }
+      }
+    }
     acc_r = acc_r + sr;
     acc_g = acc_g + sg;
     acc_b = acc_b + sb;
   }
-  p.out_r[idx] = acc_r;
-  p.out_g[idx] = acc_g;
-  p.out_b[idx] = acc_b;
+  if constexpr (kGrad) {
+    // the block's per-object sums: one global add per nonzero entry
+    __syncthreads();
+    for (int i = threadIdx.x; i < p.n_obj * kGradCols; i += blockDim.x)
+      add_nonzero(p.gobj + i, s_g[i]);
+  } else {
+    p.out_r[idx] = acc_r;
+    p.out_g[idx] = acc_g;
+    p.out_b[idx] = acc_b;
+  }
+}
+
+// Copy the host type codes and group ranges into the launch parameters
+// and launch the instantiation the scene needs (kMesh when it has a GROUP).
+template <bool kGrad>
+int launch(Params& p, const int* obj_types, const int* group_root,
+           const int* group_end, void* stream) {
+  bool mesh = false;
+  for (int i = 0; i < p.n_obj; ++i) {
+    p.obj_types[i] = obj_types[i];
+    p.group_root[i] = group_root[i];
+    p.group_end[i] = group_end[i];
+    mesh = mesh || obj_types[i] == GROUP;
+  }
+  const size_t smem =
+      sizeof(float) * (size_t)(p.n_obj * (kObjCols + (kGrad ? kGradCols : 0)) +
+                               kCamCols);
+  const int blocks = (p.n_slots + kThreads - 1) / kThreads;
+  if (blocks > 0) {
+    if (mesh)
+      megakernel<true, kGrad>
+          <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+    else
+      megakernel<false, kGrad>
+          <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -616,21 +773,35 @@ extern "C" int pt_megakernel_launch(
   Params p{out_r, out_g, out_b, px, py, obj, cam, nodes, tris,
            n_obj, n_slots, S, L, spp / spp_pack, spp_pack, chunk_axis, seed,
            sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
-           eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {}};
-  bool mesh = false;
-  for (int i = 0; i < n_obj; ++i) {
-    p.obj_types[i] = obj_types[i];
-    p.group_root[i] = group_root[i];
-    p.group_end[i] = group_end[i];
-    mesh = mesh || obj_types[i] == GROUP;
-  }
-  const size_t smem = sizeof(float) * (size_t)(n_obj * kObjCols + kCamCols);
-  const int blocks = (n_slots + kThreads - 1) / kThreads;
-  if (blocks > 0) {
-    if (mesh)
-      megakernel<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
-    else
-      megakernel<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
-  }
-  return (int)cudaGetLastError();
+           eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
+           nullptr, nullptr, nullptr, nullptr, nullptr};
+  return launch<false>(p, obj_types, group_root, group_end, stream);
+}
+
+// Launch the gradient kernel: the replay of pt_megakernel_launch's paths
+// with spp samples per slot and no sample packing (the layout of the
+// differentiable render's primal), and the backward pass against the
+// per-slot cotangents cot_* [n_slots]. gobj [n_obj, 6] (color rgb,
+// emission rgb) and gtri [n_tri_slots, 3] (null for object gradients
+// only) must be zeroed by the caller; the kernel adds into them. n_slots
+// must be a multiple of the block size (128) and max_bounces at most
+// kMaxTape (16). Returns as pt_megakernel_launch does.
+extern "C" int pt_grad_launch(
+    const float* cot_r, const float* cot_g, const float* cot_b, float* gobj,
+    float* gtri, const int* px, const int* py, const float* obj,
+    const int* obj_types, const float* cam, const float* nodes,
+    const float* tris, const int* group_root, const int* group_end,
+    int n_obj, int n_slots, int S, int L, int spp, uint32_t seed,
+    int sample_base, int max_bounces, int max_eff, int leaf_size,
+    int oct_nodes, float eps, float t_max, float sun_cut, float sun_den,
+    float golden2, int coherent, void* stream) {
+  if (n_obj < 1 || n_obj > kMaxObjects || leaf_size < 1 ||
+      n_slots % kThreads != 0 || max_bounces > kMaxTape)
+    return (int)cudaErrorInvalidValue;
+  Params p{nullptr, nullptr, nullptr, px, py, obj, cam, nodes, tris,
+           n_obj, n_slots, S, L, spp, 1, 0, seed,
+           sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
+           eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
+           cot_r, cot_g, cot_b, gobj, gtri};
+  return launch<true>(p, obj_types, group_root, group_end, stream);
 }

@@ -1,0 +1,375 @@
+"""Differentiable megakernel: fused forward replay and backward pass.
+
+Counterpart of pathtracer_tpu.render.pallas_grad for untextured scenes
+without NEE. The estimator per sample is S = sum_b contrib_b m_b e_b, with
+m_{b+1} = m_b c_b cos_b on bounces that update the mask and a direct light
+hit overwriting S with the light's color (tracer.cl:1116-1176). Color and
+emission enter linearly given the sampled trajectory, so the pathwise
+gradient needs the trajectory replayed, not differentiated: the backward
+pass replays each slot's paths with the same counter-hash draws, records a
+tape per bounce and runs the reverse recurrence
+
+    T_b = e_{b+1} + (upd_{b+1} ? c_{b+1} cos_{b+1} : 1) T_{b+1}
+    dS/dc_b = upd_b ? cot cos_b m_b T_b : 0      (direct hit: cot, rest 0)
+    dS/de_b = contrib_b ? cot m_b : 0            (none after a direct hit)
+
+summed per object (`gcol`, `gemi`) and, with `tri_grads`, per triangle
+slot (`gtri`; mesh hits carry no object color gradient).
+
+`grad_tiles` launches the gradient instantiation of csrc/megakernel.cu for
+CUDA tensors (the forward's own code, so the replay cannot drift) and runs
+`grad_tiles_reference`, the plain vectorised version, for CPU tensors.
+`make_diff_render` and `make_diff_render_tri` wrap the forward megakernel
+(`trace_tiles`) and one `grad_tiles` launch in a torch.autograd.Function.
+
+On the TPU the per-triangle scatter was a one-hot MXU matmul
+(`_scatter_slots`) or an HBM tape and `segment_sum`; here both
+PT_TRI_GRAD modes ("onehot", "tape") run the same atomic add.
+"""
+from __future__ import annotations
+
+import functools
+import os
+from typing import Tuple
+
+import torch
+
+from ..config import RenderConfig
+from ..scene.pack import SceneMeta
+from . import _build
+from . import megakernel as mk
+
+_NEE_ITEM = "ROADMAP queue 1, item 11 (in-kernel NEE)"
+_TEXTURE_ITEMS = ("ROADMAP queue 1, items 9-10 (textures and texel "
+                  "gradients)")
+_TEXEL_ITEM = "ROADMAP queue 1, item 10 (texel gradients)"
+_TRI_MODES = ("onehot", "tape")
+
+_MAX_TAPE = 16      # kMaxTape of csrc/megakernel.cu
+_BLOCK = 128        # kThreads of csrc/megakernel.cu
+_GRAD_COLS = 6      # color rgb | emission rgb per object
+
+
+def _assemble_obj(obj_table: torch.Tensor, color: torch.Tensor,
+                  emission: torch.Tensor, n: int) -> torch.Tensor:
+    """Overwrite the object table's color/emission columns (24:30) from
+    the [>= n, 3] parameters. All 45 columns are kept: the JAX version
+    returns 40 (pallas_grad.py:1200-1209), dropping the NEE light columns
+    40:45, which its grad path never reads."""
+    return torch.cat([obj_table[:, 0:24],
+                      color[:n].to(torch.float32),
+                      emission[:n].to(torch.float32),
+                      obj_table[:, 30:]], dim=1).contiguous()
+
+
+def _assemble_tri(tri_table: torch.Tensor,
+                  tri_color: torch.Tensor) -> torch.Tensor:
+    """Overwrite the color (offsets 21:24) of each 24-float triangle slot
+    of the [rows, 96] table from the [rows*4, 3] parameter."""
+    rows = tri_table.shape[0]
+    k, stride = mk._TRI_SLOTS_PER_ROW, mk._TRI_STRIDE
+    if tri_color.shape[0] != rows * k:
+        raise ValueError(f"tri_color has {tri_color.shape[0]} slots; the "
+                         f"triangle table holds {rows * k}")
+    t3 = tri_table.reshape(rows, k, stride)
+    col = tri_color.to(torch.float32).reshape(rows, k, 3)
+    return torch.cat([t3[:, :, :21], col], dim=2).reshape(
+        rows, k * stride).contiguous()
+
+
+def _check_diff_scene(meta: SceneMeta, cfg: RenderConfig) -> None:
+    """What the differentiable render refuses, as the JAX asserts do
+    (pallas_grad.py:1151-1159)."""
+    if cfg.nee:
+        raise NotImplementedError(
+            f"the differentiable megakernel does not replay NEE shadow "
+            f"draws (train with nee=False); NEE is not ported yet: "
+            f"{_NEE_ITEM}")
+    if (meta.textured_types or meta.has_normal_maps or meta.obj_tex
+            or meta.obj_tex_nm):
+        raise NotImplementedError(
+            f"textured scenes are not differentiable here yet: "
+            f"{_TEXTURE_ITEMS}")
+    if meta.has_groups:
+        mk._check_mesh_knobs()   # non-classic walks: K1-mesh variants row
+
+
+def _check_grad_args(seed, cam_vec, obj_table, node_table, tri_table, px,
+                     py, cots, meta, cfg, spp, tile, tri_grads, tex_grads,
+                     tri_mode):
+    """Validate grad_tiles' arguments (the forward's checks plus the
+    cotangents); returns the (seed, sample_base) ints."""
+    if tex_grads:
+        raise NotImplementedError(
+            f"tex_grads is not ported yet: {_TEXEL_ITEM}")
+    if tri_mode not in _TRI_MODES:
+        raise ValueError(f"tri_mode {tri_mode!r} is not one of {_TRI_MODES}")
+    _check_diff_scene(meta, cfg)
+    seed = mk._check_args(seed, cam_vec, obj_table, node_table, tri_table,
+                          px, py, meta, cfg, spp, tile, 1, "row")
+    for name, c in zip(("cot_r", "cot_g", "cot_b"), cots):
+        if not isinstance(c, torch.Tensor) or c.device != px.device:
+            raise ValueError(f"{name} must be a tensor on {px.device}")
+        if (c.dtype != torch.float32 or not c.is_contiguous()
+                or tuple(c.shape) != tuple(px.shape)):
+            raise ValueError(
+                f"{name} must be contiguous float32 {tuple(px.shape)}, got "
+                f"{c.dtype} {tuple(c.shape)} contiguous={c.is_contiguous()}")
+    return seed
+
+
+def _split(gobj: torch.Tensor):
+    return gobj[:, 0:3].contiguous(), gobj[:, 3:6].contiguous()
+
+
+def grad_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
+                         px, py, cot_r, cot_g, cot_b,
+                         meta: SceneMeta = None, cfg: RenderConfig = None,
+                         spp: int = 1, total_samples: int = 1,
+                         tile: Tuple[int, int] = (8, 512),
+                         tri_grads: bool = False, tex_grads: bool = False,
+                         tri_mode: str = "onehot"):
+    """Plain PyTorch version of the gradient kernel: the same arguments and
+    results as grad_tiles. The forward replay is trace_tiles_reference
+    itself (spp_pack 1, row axis), which hands over each sample's tape
+    ([bounces] of [T*S*L] tensors); the reverse recurrence runs over it
+    vectorised in f32 and index_add_ sums the per-object and per-slot
+    gradients in f64 (millions of terms go into one object's sum; the
+    result is rounded to f32 once)."""
+    cots = (cot_r, cot_g, cot_b)
+    _check_grad_args(seed, cam_vec, obj_table, node_table, tri_table, px,
+                     py, cots, meta, cfg, spp, tile, tri_grads, tex_grads,
+                     tri_mode)
+    dev = px.device
+    n_obj = len(meta.obj_types)
+    gobj = torch.zeros((n_obj, _GRAD_COLS), dtype=torch.float64, device=dev)
+    gtri = (torch.zeros((meta.n_tri_slots, 3), dtype=torch.float64,
+                        device=dev) if tri_grads else None)
+    cot = [c.reshape(-1) for c in cots]
+
+    def backward(tape):
+        if not tape:
+            return
+        direct_any = torch.stack([e.flags >= 4 for e in tape]).any(dim=0)
+        T = [torch.zeros_like(cot[0]) for _ in range(3)]
+        for e in reversed(tape):
+            contrib = e.flags >= 1
+            updf = e.flags == 3
+            directf = e.flags >= 4
+            g_c = [torch.where(direct_any,
+                               torch.where(directf, cot[ch], 0.0),
+                               torch.where(updf,
+                                           cot[ch] * e.cos * e.mask[ch]
+                                           * T[ch], 0.0))
+                   for ch in range(3)]
+            g_e = [torch.where(~direct_any & contrib, cot[ch] * e.mask[ch],
+                               0.0) for ch in range(3)]
+            on_obj = torch.nonzero(contrib & (e.who >= 0)).squeeze(1)
+            if on_obj.numel():
+                gobj.index_add_(0, e.who[on_obj],
+                                torch.stack(g_c + g_e, dim=1)[on_obj]
+                                .to(torch.float64))
+            if tri_grads:
+                on_tri = torch.nonzero(
+                    updf & (e.who < 0) & ~direct_any).squeeze(1)
+                if on_tri.numel():
+                    gtri.index_add_(0, -1 - e.who[on_tri],
+                                    torch.stack(g_c, dim=1)[on_tri]
+                                    .to(torch.float64))
+            T = [torch.where(contrib, e.emi[ch], 0.0)
+                 + torch.where(updf, e.col[ch] * e.cos, 1.0) * T[ch]
+                 for ch in range(3)]
+
+    mk.trace_tiles_reference(
+        seed, cam_vec, obj_table, node_table, tri_table, px, py, meta=meta,
+        cfg=cfg, spp=spp, total_samples=total_samples, tile=tile,
+        spp_pack=1, pack_axis="row", sample_tape=backward)
+    gcol, gemi = _split(gobj.to(torch.float32))
+    if not tri_grads:
+        return gcol, gemi
+    return gcol, gemi, gtri.to(torch.float32)
+
+
+def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
+               cot_r, cot_g, cot_b, meta: SceneMeta = None,
+               cfg: RenderConfig = None, spp: int = 1,
+               total_samples: int = 1, tile: Tuple[int, int] = (8, 512),
+               tri_grads: bool = False, tex_grads: bool = False,
+               tri_mode: str = "onehot"):
+    """Backward pass of trace_tiles (spp_pack 1, row axis) with respect to
+    the object table's color and emission columns, for the per-slot
+    cotangents cot_* [T*S, L] of its (r, g, b) sums. Returns (gcol [No, 3],
+    gemi [No, 3]) summed over all slots and samples, and with `tri_grads`
+    also gtri [n_tri_slots, 3], the per-triangle color gradients (both
+    PT_TRI_GRAD modes: an atomic add).
+
+    CUDA tensors launch the gradient instantiation of csrc/megakernel.cu on
+    the current stream (counted in grad_tiles.launches, and in
+    .tri_launches with tri_grads); CPU tensors run grad_tiles_reference.
+    The kernel takes whole blocks of 128 slots and at most 16 bounces.
+    Raises for textures, NEE, tex_grads and the unported mesh walks."""
+    if px.device.type != "cuda":
+        return grad_tiles_reference(
+            seed, cam_vec, obj_table, node_table, tri_table, px, py,
+            cot_r, cot_g, cot_b, meta=meta, cfg=cfg, spp=spp,
+            total_samples=total_samples, tile=tile, tri_grads=tri_grads,
+            tex_grads=tex_grads, tri_mode=tri_mode)
+    seed0, sample_base = _check_grad_args(
+        seed, cam_vec, obj_table, node_table, tri_table, px, py,
+        (cot_r, cot_g, cot_b), meta, cfg, spp, tile, tri_grads, tex_grads,
+        tri_mode)
+    n_obj = len(meta.obj_types)
+    if not 0 < n_obj <= mk._MAX_OBJECTS:
+        raise ValueError(
+            f"{n_obj} objects; the kernel takes 1..{mk._MAX_OBJECTS}")
+    n_slots = px.numel()
+    if n_slots % _BLOCK:
+        raise ValueError(f"{n_slots} slots; the gradient kernel takes whole "
+                         f"blocks of {_BLOCK}")
+    if cfg.max_bounces > _MAX_TAPE:
+        raise ValueError(f"max_bounces={cfg.max_bounces}; the gradient "
+                         f"kernel's tape holds {_MAX_TAPE}")
+    lib = _build.load("megakernel", mk._SIGNATURES)
+    S, L = tile
+    dev = px.device
+    gobj = torch.zeros((n_obj, _GRAD_COLS), dtype=torch.float32, device=dev)
+    gtri = (torch.zeros((meta.n_tri_slots, 3), dtype=torch.float32,
+                        device=dev) if tri_grads else None)
+    types = (mk._I * n_obj)(*meta.obj_types)
+    roots = (mk._I * n_obj)(*([-1] * n_obj))
+    ends = (mk._I * n_obj)(*([-1] * n_obj))
+    for g, r, e in meta.group_bvh:
+        roots[g], ends[g] = r, e
+    sun_cut, sun_den, golden2 = mk._sun_constants(total_samples)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pt_grad_launch(
+            cot_r.data_ptr(), cot_g.data_ptr(), cot_b.data_ptr(),
+            gobj.data_ptr(), gtri.data_ptr() if tri_grads else None,
+            px.data_ptr(), py.data_ptr(), obj_table.data_ptr(), types,
+            cam_vec.data_ptr(), node_table.data_ptr(), tri_table.data_ptr(),
+            roots, ends, n_obj, n_slots, S, L, int(spp), seed0 & mk._M32,
+            sample_base, cfg.max_bounces, cfg.max_effective_bounces,
+            meta.leaf_size, meta.n_nodes if meta.octant_orders else 0,
+            cfg.epsilon, cfg.t_max, sun_cut, sun_den, golden2,
+            int(mk._coherent_sampling()), stream)
+    if err != 0:
+        raise RuntimeError(f"gradient kernel launch failed: CUDA error {err}")
+    grad_tiles.launches += 1
+    if tri_grads:
+        grad_tiles.tri_launches += 1
+    gcol, gemi = _split(gobj)
+    return (gcol, gemi, gtri) if tri_grads else (gcol, gemi)
+
+
+grad_tiles.launches = 0
+grad_tiles.tri_launches = 0
+
+
+def _cotangents(grads, px: torch.Tensor):
+    """autograd's output gradients as grad_tiles takes them: zeros shaped
+    like px for an output that had none, then contiguous float32."""
+    return [(torch.zeros(px.shape, dtype=torch.float32, device=px.device)
+             if g is None else g.to(torch.float32)).contiguous()
+            for g in grads]
+
+
+def _pad_to(g: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """The [n, 3] gradient placed into the (possibly padded) parameter's
+    shape and type."""
+    out = torch.zeros_like(param)
+    out[:g.shape[0]] = g.to(param.dtype)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def make_diff_render(meta: SceneMeta, cfg: RenderConfig, spp: int,
+                     total_samples: int, tile: Tuple[int, int]):
+    """The megakernel render, differentiable in (color, emission).
+
+    Returns a torch.autograd.Function; its apply(color [>= No, 3],
+    emission [>= No, 3], seed (prng seed, sample base), cam_vec, obj_table,
+    nodes, tris, px, py) gives the (r, g, b) per-slot radiance sums of
+    trace_tiles (the caller divides by spp). The object table carries the
+    geometry; its color and emission columns are overwritten from the
+    differentiable inputs. The backward pass is one grad_tiles launch."""
+    _check_diff_scene(meta, cfg)
+    n = meta.n_objects
+
+    class DiffRender(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, color, emission, seed, cam_vec, obj_table, nodes,
+                    tris, px, py):
+            obj = _assemble_obj(obj_table, color, emission, n)
+            ctx.save_for_backward(color, emission, cam_vec, obj_table,
+                                  nodes, tris, px, py)
+            ctx.seed = seed
+            return mk.trace_tiles(
+                seed, cam_vec, obj, nodes, tris, px, py, meta=meta, cfg=cfg,
+                spp=spp, total_samples=total_samples, tile=tile, spp_pack=1,
+                pack_axis="row")
+
+        @staticmethod
+        def backward(ctx, g_r, g_g, g_b):
+            color, emission, cam_vec, obj_table, nodes, tris, px, py = \
+                ctx.saved_tensors
+            obj = _assemble_obj(obj_table, color, emission, n)
+            gcol, gemi = grad_tiles(
+                ctx.seed, cam_vec, obj, nodes, tris, px, py,
+                *_cotangents((g_r, g_g, g_b), px),
+                meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
+                tile=tile)
+            return (_pad_to(gcol, color), _pad_to(gemi, emission),
+                    None, None, None, None, None, None, None)
+
+    return DiffRender
+
+
+@functools.lru_cache(maxsize=None)
+def make_diff_render_tri(meta: SceneMeta, cfg: RenderConfig,
+                         total_samples: int, tile: Tuple[int, int],
+                         spp: int = 1):
+    """The megakernel render, differentiable in (object color, object
+    emission, per-triangle color).
+
+    Returns a torch.autograd.Function; its apply(color, emission,
+    tri_color [n_slots, 3], seed, cam_vec, obj_table, nodes, tris, px, py)
+    gives the (r, g, b) per-slot sums of `spp` samples. tri_color is
+    SceneArrays.tri_color (padding slots never win a hit, so their
+    gradients are exactly zero); it overwrites the triangle table's
+    colors. Accumulate more samples by calling it with other seeds; the
+    gradients add through autograd."""
+    _check_diff_scene(meta, cfg)
+    n = meta.n_objects
+
+    class DiffRenderTri(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, color, emission, tri_color, seed, cam_vec,
+                    obj_table, nodes, tris, px, py):
+            obj = _assemble_obj(obj_table, color, emission, n)
+            tri = _assemble_tri(tris, tri_color)
+            ctx.save_for_backward(color, emission, tri_color, cam_vec,
+                                  obj_table, nodes, tris, px, py)
+            ctx.seed = seed
+            return mk.trace_tiles(
+                seed, cam_vec, obj, nodes, tri, px, py, meta=meta, cfg=cfg,
+                spp=spp, total_samples=total_samples, tile=tile, spp_pack=1,
+                pack_axis="row")
+
+        @staticmethod
+        def backward(ctx, g_r, g_g, g_b):
+            (color, emission, tri_color, cam_vec, obj_table, nodes, tris,
+             px, py) = ctx.saved_tensors
+            obj = _assemble_obj(obj_table, color, emission, n)
+            tri = _assemble_tri(tris, tri_color)
+            gcol, gemi, gtri = grad_tiles(
+                ctx.seed, cam_vec, obj, nodes, tri, px, py,
+                *_cotangents((g_r, g_g, g_b), px),
+                meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
+                tile=tile, tri_grads=True,
+                tri_mode=os.environ.get("PT_TRI_GRAD", "onehot"))
+            return (_pad_to(gcol, color), _pad_to(gemi, emission),
+                    _pad_to(gtri[:tri_color.shape[0]], tri_color),
+                    None, None, None, None, None, None, None)
+
+    return DiffRenderTri

@@ -28,7 +28,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -611,7 +611,8 @@ def _leaf_tests(tri, start, leaf_size, eps, ox, oy, oz, dx, dy, dz):
 
 def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
                        t_max: float, root: int, end: int, tox, toy, toz,
-                       tdx, tdy, tdz, active, bt0, n_nodes: int = 0):
+                       tdx, tdy, tdz, active, bt0, n_nodes: int = 0,
+                       return_slot: bool = False):
     """Plain per-ray skip-link BVH walk of one group's nodes [root, end).
 
     Counterpart of pallas_kernel._packet_traverse for a packet of one
@@ -626,7 +627,9 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
 
     Returns (t, nx, ny, nz, cr, cg, cb) shaped like tox: t starts at bt0
     and keeps it where no triangle won; the interpolated smooth normal
-    n1 + u*d21 + v*d31 and the triangle color are 0 there."""
+    n1 + u*d21 + v*d31 and the triangle color are 0 there. With
+    return_slot, an eighth int64 tensor holds the winning triangle slot
+    (-1 where no triangle won)."""
     shape = tox.shape
     dev = tox.device
     tri = tri_table.reshape(-1, _TRI_STRIDE)
@@ -690,6 +693,8 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
             out[1 + k][r] = row[:, 12 + k] + row[:, 15 + k] * u \
                 + row[:, 18 + k] * v
             out[4 + k][r] = row[:, 21 + k]
+    if return_slot:
+        out.append(win)
     return tuple(o.reshape(shape) for o in out)
 
 
@@ -766,18 +771,37 @@ def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     return seed
 
 
+class TapeEntry(NamedTuple):
+    """One bounce of a sample's tape, per slot [T*S*L]: flags (1 = the
+    bounce adds to the sum, 2 = it updates the mask, 4 = a direct light
+    hit; 0 past the path's end and on refraction), the winner (object
+    index, or -1 - slot for a mesh hit), cos, and the color, emission and
+    mask (before this bounce's update) per channel."""
+    flags: torch.Tensor
+    who: torch.Tensor
+    cos: torch.Tensor
+    col: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    emi: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    mask: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
 def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                           px, py, meta: SceneMeta = None,
                           cfg: RenderConfig = None, spp: int = 1,
                           total_samples: int = 1,
                           tile: Tuple[int, int] = (64, 256),
-                          spp_pack: int = 1, pack_axis: str = "row"):
+                          spp_pack: int = 1, pack_axis: str = "row",
+                          sample_tape=None):
     """Plain PyTorch version of the megakernel: the same arguments and
     result as trace_tiles, vectorised over all T*S*L slots, with a Python
     loop over samples and bounces that stops once every ray is dead (dead
     rays are inert, so this equals the JAX kernel's per-tile exit), and
     the per-ray BVH walk (traverse_reference) for GROUP objects.
-    Returns (r, g, b) float32 [T*S, L] radiance sums on px's device."""
+    Returns (r, g, b) float32 [T*S, L] radiance sums on px's device.
+
+    sample_tape: the gradient's plain version (render/grad.py) passes a
+    callable, called after each sample with that sample's bounce tape, a
+    list of one TapeEntry per bounce reached (pallas_grad.py:755-778)."""
     seed0, sample_base = _check_args(
         seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
         spp, tile, spp_pack, pack_axis)
@@ -856,6 +880,7 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
         inside = torch.zeros_like(alive)
         n_hits = torch.zeros_like(fx, dtype=torch.int32)
         eff = torch.zeros_like(n_hits)
+        tape = []
         for b in range(cfg.max_bounces):
             if not bool(alive.any()):
                 break
@@ -864,6 +889,7 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
             w = torch.zeros_like(fx, dtype=torch.int64)
             l_ox, l_oy, l_oz, l_dx, l_dy, l_dz = ox, oy, oz, dx, dy, dz
             on_tri = torch.zeros_like(alive)
+            tri_slot = torch.full_like(w, -1)
             tri_nrm = [torch.zeros_like(fx) for _ in range(3)]
             tri_col = [torch.zeros_like(fx) for _ in range(3)]
             for j, code in enumerate(meta.obj_types):
@@ -890,10 +916,10 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                     pre = (alive & (gtmin <= gtmax) & (gtmax > eps)
                            & (gtmin < best_t))
                     root, end = group_bvh[j]
-                    t_j, *g_tri = traverse_reference(
+                    t_j, *g_tri, g_slot = traverse_reference(
                         node_table, tri_table, meta.leaf_size, eps, t_max,
                         root, end, tox, toy, toz, tdx, tdy, tdz, pre,
-                        best_t, n_nodes=oct_nodes)
+                        best_t, n_nodes=oct_nodes, return_slot=True)
                 closer = t_j < best_t
                 best_t = torch.where(closer, t_j, best_t)
                 w = torch.where(closer, j, w)
@@ -905,6 +931,7 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                 l_dz = torch.where(closer, tdz, l_dz)
                 on_tri = torch.where(closer, g_tri is not None, on_tri)
                 if g_tri is not None:
+                    tri_slot = torch.where(closer, g_slot, tri_slot)
                     for k in range(3):
                         tri_nrm[k] = torch.where(closer, g_tri[k],
                                                  tri_nrm[k])
@@ -1033,6 +1060,13 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
             srg = torch.where(direct, col_g, srg)
             srb = torch.where(direct, col_b, srb)
             upd = no_refr & ~is_light
+            if sample_tape is not None:
+                tape.append(TapeEntry(
+                    flags=(no_refr.to(torch.int32) + 2 * upd.to(torch.int32)
+                           + 4 * direct.to(torch.int32)),
+                    who=torch.where(on_tri, -1 - tri_slot, w),
+                    cos=cos, col=(col_r, col_g, col_b),
+                    emi=(emi_r, emi_g, emi_b), mask=(mask_r, mask_g, mask_b)))
             mask_r = torch.where(upd, mask_r * col_r * cos, mask_r)
             mask_g = torch.where(upd, mask_g * col_g * cos, mask_g)
             mask_b = torch.where(upd, mask_b * col_b * cos, mask_b)
@@ -1047,6 +1081,8 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
             dy = torch.where(rec, ndy, dy)
             dz = torch.where(rec, ndz, dz)
             inside = torch.where(rec & do_refract, outside, inside)
+        if sample_tape is not None:
+            sample_tape(tape)
         acc_r = acc_r + srr
         acc_g = acc_g + srg
         acc_b = acc_b + srb
@@ -1060,6 +1096,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "pt_megakernel_launch": (
         [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        + [_I, _P],
+        _I),
+    # the gradient kernel's entry, launched by render/grad.py
+    "pt_grad_launch": (
+        [_P] * 14 + [_I] * 5 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P],
         _I),
 }

@@ -29,6 +29,11 @@ ATOL, RTOL = 1e-4, 1e-3
 SLOT_FRAC = 0.99
 MEAN_REL = 0.01
 
+# gradient rule: gcol and gemi within GRAD_REL * max|g| on primitive scenes
+# and GRAD_REL_MESH * max|g| on mesh scenes (exact-t ties may differ);
+# >= SLOT_FRAC of the triangle slots within GRAD_REL_MESH * max|gtri|
+GRAD_REL, GRAD_REL_MESH = 1e-4, 1e-3
+
 
 def cylinder_scene(cfg, gx, mat, shapes, pack, cornell):
     left, right, floor, ceil, back, _front = cornell.cornell_walls()
@@ -99,3 +104,52 @@ def port_inputs(sc, cfg, tile, device):
         mk.build_camera_vec(sc.camera), mk.build_scene_table(arrays, meta),
         *mk.build_mesh_tables(arrays, meta), xs, ys)]
     return tabs, meta, pid, {"spp_pack": pack, "pack_axis": axis}
+
+
+def grad_inputs(sc, cfg, tile, device):
+    """The gradient kernel's inputs for scene `sc` on `device`, laid out as
+    the training steps lay them out: the scene's default tile order, no
+    sample packing. Returns ([cam, obj, nodes, tris, px, py], meta,
+    arrays, pid)."""
+    arrays, meta = sc.pack(device=device)
+    xs, ys, pid = mk.tile_pixel_layout(cfg.width, cfg.height, *tile,
+                                       order=mk.default_order(meta))
+    tabs = [torch.from_numpy(t).to(device) for t in (
+        mk.build_camera_vec(sc.camera), mk.build_scene_table(arrays, meta),
+        *mk.build_mesh_tables(arrays, meta), xs, ys)]
+    return tabs, meta, arrays, pid
+
+
+def grad_rule(got, want, mesh: bool) -> dict:
+    """Hold grad_tiles' results (gcol, gemi[, gtri]) against another run's
+    by the gradient rule; raises AssertionError. Returns the relative
+    errors {"gcol", "gemi"} and, with gtri, the fraction of triangle slots
+    within the rule ("gtri_frac") and the max abs error over them."""
+    rel = GRAD_REL_MESH if mesh else GRAD_REL
+    got = [g.detach().cpu().numpy() for g in got]
+    want = [w.detach().cpu().numpy() for w in want]
+    out = {}
+    for what, g, w in zip(("gcol", "gemi"), got, want):
+        if g.shape != w.shape or not np.isfinite(g).all():
+            raise AssertionError(f"{what}: shape {g.shape} vs {w.shape}, "
+                                 "or not finite")
+        out[what] = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+        if out[what] >= rel:
+            raise AssertionError(f"{what}: max rel err {out[what]:.2e} "
+                                 f"(need < {rel})")
+    out["max_abs_err"] = float(max(np.abs(g - w).max()
+                                   for g, w in zip(got, want)))
+    if len(got) == 3:
+        g, w = got[2], want[2]
+        if g.shape != w.shape or not np.isfinite(g).all():
+            raise AssertionError("gtri: shape or finiteness")
+        close = (np.abs(g - w) <= rel * np.abs(w).max()).all(axis=1)
+        out["gtri_frac"] = float(close.mean())
+        out["gtri_slots_hit"] = int((np.abs(w) > 0).any(axis=1).sum())
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float(np.abs(g - w).max()))
+        if out["gtri_frac"] < SLOT_FRAC or out["gtri_slots_hit"] == 0:
+            raise AssertionError(f"gtri: {out['gtri_frac']:.4f} of slots "
+                                 f"within the rule (need {SLOT_FRAC}), "
+                                 f"{out['gtri_slots_hit']} slots hit")
+    return out

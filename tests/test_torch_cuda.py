@@ -8,17 +8,27 @@ Every test skips without a CUDA device. Rule for the primitive scenes:
 >= 99% of slot values within atol=1e-4, rtol=1e-3, each image-mean channel
 within 1%. The mesh scenes must be bit-equal: the kernel and the plain
 version walk each ray's BVH in the same order with the same f32 operations.
+
+The gradient kernel (render/grad.py's grad_tiles) is held against
+grad_tiles_reference by the gradient rule of tests/_torch_scenes.py: gcol
+and gemi within 1e-4 * max|g| (1e-3 on mesh scenes), >= 99% of the
+triangle slots within 1e-3 * max|gtri|. Its forward replay is the forward
+kernel's code, and the differentiable render's primal stays bit-equal to
+the plain render.
 """
 import numpy as np
 import pytest
 import torch
 
 from _torch_scenes import (MESH_SCENES, SLICE_SCENES, assert_slot_rule,
-                           cylinder_scene, port_inputs, size_check_scene)
+                           cylinder_scene, grad_inputs, grad_rule,
+                           port_inputs, size_check_scene)
 from pathtracer_tpu_torch import cli
 from pathtracer_tpu_torch.config import RenderConfig
+from pathtracer_tpu_torch.diff import make_megakernel_step
 from pathtracer_tpu_torch.geometry import transforms as gx
 from pathtracer_tpu_torch.io.raw import read_raw
+from pathtracer_tpu_torch.render import grad as tg
 from pathtracer_tpu_torch.render import megakernel as mk
 from pathtracer_tpu_torch.scene import material, pack, shapes
 from pathtracer_tpu_torch.scenes import cornell, get_scene
@@ -146,3 +156,93 @@ def test_cli_renders_teapot_through_the_kernel(dev, tmp_path):
     assert img.shape == (48, 64, 3) and np.isfinite(img).all()
     left, right = img[:, :3].mean((0, 1)), img[:, -3:].mean((0, 1))
     assert left[0] > left[2] and right[2] > right[0]
+
+
+def _grad_case(name, dev, **cfg_kw):
+    cfg = RenderConfig(**cfg_kw)
+    sc = (size_check_scene(cfg, get_scene) if name == "size-check"
+          else get_scene(name, cfg))
+    tabs, meta, arrays, pid = grad_inputs(sc, cfg, (8, 512), dev)
+    rng = np.random.default_rng(0)
+    cots = [torch.from_numpy(rng.random(tuple(tabs[4].shape),
+                                        dtype=np.float32)).to(dev)
+            for _ in range(3)]
+    return tabs, meta, arrays, pid, cfg, cots
+
+
+@pytest.mark.parametrize("name,aperture,base,tri", [
+    ("reference", 0.0, 0, False),
+    ("reference", 0.1, 16, False),            # DoF
+    ("transparency", 0.0, 0, False),          # glass and mirror spheres
+    ("teapot", 0.0, 0, False),                # mesh, object gradients only
+    ("teapot", 0.0, 0, True),
+    ("teapot", 0.1, 16, True),
+    ("size-check", 0.0, 0, True),             # 16640 triangles, leaf 16
+])
+def test_grad_kernel_matches_plain(dev, name, aperture, base, tri):
+    tabs, meta, _, _, cfg, cots = _grad_case(
+        name, dev, width=160, height=120, samples=4, aperture=aperture,
+        focal_length=1.6 if aperture else 0.0)
+    kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4 + base,
+              tile=(8, 512), tri_grads=tri)
+    before = (tg.grad_tiles.launches, tg.grad_tiles.tri_launches)
+    got = tg.grad_tiles((5, base), *tabs, *cots, **kw)
+    assert (tg.grad_tiles.launches, tg.grad_tiles.tri_launches) == (
+        before[0] + 1, before[1] + int(tri))
+    want = tg.grad_tiles_reference((5, base), *tabs, *cots, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == (3 if tri else 2)
+    grad_rule(got, want, meta.has_groups)
+
+
+@pytest.mark.parametrize("name", ["reference", "teapot"])
+def test_diff_render_primal_is_bit_equal(dev, name):
+    # the autograd Function's forward is the forward kernel on the
+    # assembled tables: bit-equal to the plain render; its backward is one
+    # gradient-kernel launch
+    tabs, meta, arrays, _, cfg, _ = _grad_case(name, dev, width=160,
+                                               height=120, samples=4)
+    kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4, tile=(8, 512))
+    color = arrays.color.clone().requires_grad_(True)
+    if meta.has_groups:
+        render = tg.make_diff_render_tri(meta, cfg, 4, (8, 512), spp=4)
+        params = (color, arrays.emission, arrays.tri_color)
+    else:
+        render = tg.make_diff_render(meta, cfg, 4, 4, (8, 512))
+        params = (color, arrays.emission)
+    rgb = render.apply(*params, (2, 0), *tabs)
+    want = mk.trace_tiles_reference((2, 0), *tabs, **kw)
+    for x, y in zip(rgb, want):
+        assert torch.equal(x.detach(), y)
+    before = tg.grad_tiles.launches
+    (gc,) = torch.autograd.grad(rgb[0].sum(), (color,))
+    assert tg.grad_tiles.launches == before + 1
+    zero = torch.zeros_like(tabs[4], dtype=torch.float32)
+    want_gc = tg.grad_tiles_reference((2, 0), *tabs, torch.ones_like(zero),
+                                      zero, zero, **kw)[0]
+    n = meta.n_objects
+    assert not gc[n:].any() and not gc[:, 1:].any()
+    rel = (gc[:n] - want_gc).abs().max() / want_gc.abs().max()
+    assert rel < (1e-3 if meta.has_groups else 1e-4), float(rel)
+
+
+def test_megakernel_step_descends_on_the_card(dev):
+    cfg = RenderConfig(width=64, height=48, samples=8, samples_per_pass=8)
+    sc = get_scene("reference", cfg)
+    tabs, meta, arrays, pid = grad_inputs(sc, cfg, (8, 512), dev)
+    step, target_of = make_megakernel_step(arrays, meta, cfg, sc.camera,
+                                           spp=8, lr=0.2)
+    seed = (7, 0)
+    rgb = mk.trace_tiles(seed, *tabs, meta=meta, cfg=cfg, spp=8,
+                         total_samples=8, tile=(8, 512))
+    flat = torch.stack(rgb, -1).reshape(-1, 3).cpu().numpy() / 8
+    target = target_of(mk.untile_image(flat, pid, 64, 48).reshape(48, 64, 3))
+    c = arrays.color.clone()
+    c[1, 0] += 0.3
+    c[6, 2] -= 0.2
+    e = arrays.emission
+    losses = []
+    for _ in range(3):
+        c, e, loss = step(c, e, seed, target)
+        losses.append(float(loss))
+    assert np.isfinite(losses).all() and losses[-1] < 0.9 * losses[0], losses

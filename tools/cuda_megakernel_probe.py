@@ -21,11 +21,19 @@ It imports no jax. It prints, one result a line:
 
 Steps 4 and 5 run for `reference` and then for `teapot` (the 1472-triangle
 stand-in; 256 segments of 8 spp, the mesh instantiation of the kernel).
+
+With `--train` it runs only this: three training steps under
+torch.profiler after one warm-up step, `make_megakernel_step` on
+`reference` (32 spp a step) and `make_megakernel_step_tri` on `teapot` (8
+spp a step) at 1280x960, with bench.py's zero target: device time by
+kernel, the forward and gradient kernels' shares of it, and the device's
+idle share of the steps' wall.
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -38,6 +46,8 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 from pathtracer_tpu_torch.config import RenderConfig  # noqa: E402
+from pathtracer_tpu_torch.diff import (make_megakernel_step,  # noqa: E402
+                                       make_megakernel_step_tri)
 from pathtracer_tpu_torch.driver import render_driver  # noqa: E402
 from pathtracer_tpu_torch.render import _build  # noqa: E402
 from pathtracer_tpu_torch.render import megakernel as mk  # noqa: E402
@@ -116,6 +126,10 @@ def main():
     print("card:", smi, "| torch", torch.__version__, "cuda",
           torch.version.cuda, flush=True)
     dev = torch.device("cuda:0")
+    if "--train" in sys.argv[1:]:
+        for scene in ("reference", "teapot"):
+            train_trace(scene, dev)
+        return 0
 
     # ---- 2: -fmad A/B at 8 spp -----------------------------------------
     tabs, kw = inputs(8, dev)
@@ -195,6 +209,59 @@ def driver_runs(scene, dev):
           f"{1.0 - busy / (hi - lo):.4f}; against the driver wall "
           f"{1.0 - busy / 1e6 / st.wall_s:.4f}", flush=True)
     return False
+
+
+def train_trace(scene, dev):
+    """Three training steps of `scene` at W x H under torch.profiler, after
+    one warm-up step: device time by kernel, the forward (kGrad = false)
+    and gradient (kGrad = true) kernels' time, and the device's idle share
+    of the steps' wall."""
+    tri = scene == "teapot"
+    spp = 8 if tri else 32
+    cfg = RenderConfig(width=W, height=H, samples=spp, samples_per_pass=spp)
+    sc = get_scene(scene, cfg)
+    arrays, meta = sc.pack(device=dev)
+    if tri:
+        step, target_of = make_megakernel_step_tri(
+            arrays, meta, cfg, sc.camera, n_passes=1, spp=spp)
+        params = (arrays.color, arrays.emission, arrays.tri_color)
+    else:
+        step, target_of = make_megakernel_step(arrays, meta, cfg,
+                                               sc.camera, spp=spp)
+        params = (arrays.color, arrays.emission)
+    target = target_of(np.zeros((H, W, 3), np.float32))
+    *params, loss = step(*params, (1, 0), target)
+    float(loss)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3):
+            *params, loss = step(*params, (i + 2, 0), target)
+        float(loss)
+        wall = time.perf_counter() - t0
+    events = device_timeline(prof)
+    if not events:
+        print(f"{scene} training trace: no device events", flush=True)
+        return
+    by_name, kern = {}, {"forward": 0.0, "gradient": 0.0}
+    for name, s, e in events:
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (e - s)
+        m = re.search(r"megakernel<\w+, (\w+)>", name)
+        if m:
+            kern["gradient" if m.group(1) == "true" else "forward"] += e - s
+    total = sum(by_name.values())
+    busy = union_us([(s, e) for _, s, e in events])
+    print(f"{scene} training trace: 3 steps of {W}x{H}x{spp} spp in "
+          f"{wall:.4f} s under the profiler "
+          f"({W * H * spp * 3 / wall / 1e6:.1f} Msamples/s)", flush=True)
+    print(f"{scene} training trace: device us by kernel",
+          json.dumps(by_name), flush=True)
+    print(f"{scene} training trace: forward kernel {kern['forward'] / 1e3:.3f}"
+          f" ms ({kern['forward'] / total:.4f} of device time), gradient "
+          f"kernel {kern['gradient'] / 1e3:.3f} ms "
+          f"({kern['gradient'] / total:.4f}); device busy {busy / 1e3:.3f} "
+          f"ms, idle share of the steps' wall {1.0 - busy / 1e6 / wall:.4f}",
+          flush=True)
 
 
 if __name__ == "__main__":
