@@ -11,6 +11,18 @@ scene and then the `teapot` scene at 1280x960x2048 spp through the CLI
 (the reference renderer's two benchmarks) and checks each image, requires
 the kernel to be bit-equal to the plain version on each driver's last
 segment at that size, and times the kernel against the plain version.
+The textured instantiations (K1-tex, kTex) are held bit for bit against
+the plain version on `textures`, `envmap`, `cubemap` and `textures-file`
+(the first 64 tiles of 1280x960, phase 3); `textures` renders at
+1280x960x2048 spp through the CLI (phase 4); phase 5 times K1-tex on
+`textures`, `cubemap` and `envmap-file`, runs the texel-fetch probe (the
+kernel's own fetch function at random UVs over a 2048x1024 texture, the
+counterpart of the JAX package's tools/tex_vmem_probe.py) and measures
+what the JAX package's 128x128-area mip costs `envmap-file` (per-pixel
+mean abs difference of two renders, full pool against the mip). With
+`--ab-parent DIR` (DIR holding another checkout's pathtracer_tpu_torch),
+phase 5 also times K1 and K1-mesh built from that tree against this one,
+in turns, and requires bit-equal outputs.
 Then the gradient kernel (K6, the same source's kGrad instantiations):
 phase 6 holds it against its plain version at 1280x960x4 spp in object mode
 on `reference` and in triangle mode on `teapot` and the size-check mesh,
@@ -18,8 +30,9 @@ and times both; phase 7 drives training through the training steps at
 1280x960, object colors on `reference` (32 spp a step, the fwd+bwd rate as
 bench.py measures it) and triangle colors on `teapot` (8 spp a step),
 each loss falling over 5 steps, and a short `train_demo --tri` run. It
-prints one JSON line of kernel results and, last, one JSON line naming
-the device. Every failure raises; without a card it exits non-zero before
+prints one JSON line of kernel results, each with its bound (the least
+time the card could take for the same work, from the work the plain
+version counts in this run), and, last, one JSON line naming the device. Every failure raises; without a card it exits non-zero before
 printing any result. It imports nothing of JAX.
 
 `teapot` and the mesh scenes load procedural stand-ins (a 1472-triangle UV
@@ -29,7 +42,9 @@ the reference's gopher model.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -38,6 +53,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -52,6 +68,8 @@ from pathtracer_tpu_torch.render import _build
 from pathtracer_tpu_torch.render import grad as tg
 from pathtracer_tpu_torch.render import megakernel as mk
 from pathtracer_tpu_torch.scene import material, pack, shapes
+from pathtracer_tpu_torch.scene.shapes import (BOX, CYLINDER, GROUP, PLANE,
+                                               SPHERE)
 from pathtracer_tpu_torch.scenes import cornell, get_scene
 
 # the test suite's synthetic scenes and per-slot rule (jax-free helpers)
@@ -71,6 +89,35 @@ GRAD_SPP = 4                 # phase 6: K6 against its plain version
 STEP_SPP = 32                # bench.py's fwd+bwd samples a step
 TRI_STEP_SPP = 8
 LOSS_FALL = 0.9              # 5 steps must bring the loss below this share
+TEX_SCENES = ("textures", "envmap", "cubemap", "textures-file")
+TEX_TIMED = ("textures", "cubemap", "envmap-file")
+FETCHES = 1 << 24            # texel-fetch probe: UVs per launch
+MIP_AREA = 128 * 128         # the JAX package's PT_TEX_MIP_AREA default
+MIP_SPP = 16
+
+# The bound: the least time the card could take for a kernel's work, the
+# larger of its f32 operations over the H100's 67 TFLOP/s (SXM, outside the
+# tensor cores) and its bytes (each input read once, each output written
+# once) over 3.35 TB/s (the H100 SXM's published rates; the card may be set
+# below 700 W, whose limit is printed beside every number). Operations per
+# unit of work, counted from csrc/megakernel.cu: adds, subtracts,
+# multiplies, divides, square roots, min/max/abs/floor/trunc, cos/sin and
+# int-to-float conversions count one each; the integer hash, comparisons
+# and selects are not counted. The units are what the plain version counts
+# in the same run (trace_tiles_reference's `counts`).
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+OPS_SAMPLE = 44          # jittered camera ray, normalize, the sums' adds
+OPS_OBJECT = {           # one object's transform and test, per live ray
+    PLANE: 33 + 3, SPHERE: 33 + 29, CYLINDER: 33 + 26, BOX: 33 + 26,
+    GROUP: 33 + 25,      # the group's box pretest; the walk counts below
+}
+OPS_HIT = 125            # a diffuse hit: normal, roulette, bounce, resolve
+OPS_NODE = 22            # one node's slab test
+OPS_LEAF_SLOT = 34       # one triangle's test
+OPS_FETCH = 80           # bilinear fetch: wrap, 4 taps decoded, blend
+OPS_UV = {"plane": 2, "sphere": 60, "cube": 21}
+OPS_GRAD_HIT = 21        # K6: one tape entry's reverse step
 
 
 def phase(msg: str) -> None:
@@ -82,11 +129,54 @@ def n_triangles(sc) -> int:
                if isinstance(o, shapes.Group))
 
 
-def compare(name, sc, cfg, tile, sample_base, dev, exact=False):
+def work_bound(counts, meta, in_bytes, out_bytes, grad=False):
+    """(bound ms, "operations" or "bytes", ops) of a kernel run whose work
+    the plain version counted in `counts` (see OPS_*)."""
+    plain_uv = (counts["texel_fetches"] - counts["uv_sphere"]
+                - counts["uv_cube"])
+    ops = (OPS_SAMPLE * counts["samples"]
+           + counts["bounces"] * sum(OPS_OBJECT[t] for t in meta.obj_types)
+           + (OPS_HIT + (OPS_GRAD_HIT if grad else 0)) * counts["hits"]
+           + OPS_NODE * counts["node_visits"]
+           + OPS_LEAF_SLOT * counts["leaf_slots"]
+           + OPS_FETCH * counts["texel_fetches"]
+           + OPS_UV["plane"] * plain_uv + OPS_UV["sphere"] * counts["uv_sphere"]
+           + OPS_UV["cube"] * counts["uv_cube"])
+    t_ops = ops / PEAK_F32 * 1e3
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", ops)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def fwd_bound(counts, tabs, kw):
+    """work_bound of a forward launch on `tabs` with trace_tiles keywords
+    `kw`: its tables, texel pool and pixel maps in, three f32 sums out."""
+    ins = nbytes(*tabs, kw.get("tex_pool"), kw.get("tex_table"))
+    return work_bound(counts, kw["meta"], ins, 3 * nbytes(tabs[4]))
+
+
+def first_tiles(tabs, tile, n):
+    """The inputs of the first `n` tiles (their slots keep their tile
+    numbers, so their random streams)."""
+    rows = n * tile[0]
+    return tabs[:4] + [tabs[4][:rows].contiguous(),
+                       tabs[5][:rows].contiguous()]
+
+
+def compare(name, sc, cfg, tile, sample_base, dev, exact=False,
+            tiles=None):
     """Kernel vs plain version on the card, same inputs: the per-slot rule,
-    or bit-equality when `exact`. Returns (max abs err, bit-equal
-    fraction)."""
+    or bit-equality when `exact`; on the first `tiles` tiles only when
+    given. Returns (max abs err, bit-equal fraction)."""
     tabs, meta, _, layout = port_inputs(sc, cfg, tile, dev)
+    tile = tile or mk.default_tile(meta)
+    if tiles is not None:
+        tabs = first_tiles(tabs, tile, tiles)
     seed = (cfg.seed * 7919 + 1, sample_base)
     kw = dict(meta=meta, cfg=cfg, spp=cfg.samples,
               total_samples=cfg.samples + sample_base, tile=tile, **layout)
@@ -102,6 +192,9 @@ def compare(name, sc, cfg, tile, sample_base, dev, exact=False):
     mean_rel = float(np.max(np.abs(km - pm) / np.abs(pm)))
     max_err = float(np.abs(k - p).max())
     tris = f", {n_triangles(sc)} triangles" if meta.has_groups else ""
+    if tiles is not None:
+        tris += (f", {cfg.width}x{cfg.height}x{cfg.samples} spp, first "
+                 f"{tiles} tiles of {tile}")
     phase(f"phase 3: {name}{tris}: bit-equal on {bit_eq:.6f} of {k.size} "
           f"slot values; {frac:.6f} within atol={ATOL} rtol={RTOL} "
           f"(need {SLOT_FRAC}); mean rel diff {mean_rel:.2e} "
@@ -145,8 +238,10 @@ def cuda_ms(fn, reps: int) -> float:
 
 def ptxas_lines(log_text: str):
     """ptxas register/spill lines of each kernel instantiation, named."""
-    names = {"ILb0ELb0E": "primitive", "ILb1ELb0E": "mesh",
-             "ILb0ELb1E": "grad primitive", "ILb1ELb1E": "grad mesh"}
+    names = {"ILb0ELb0ELb0E": "primitive", "ILb1ELb0ELb0E": "mesh",
+             "ILb0ELb1ELb0E": "grad primitive", "ILb1ELb1ELb0E": "grad mesh",
+             "ILb0ELb0ELb1E": "textured primitive",
+             "ILb1ELb0ELb1E": "textured mesh", "tex_fetch": "fetch probe"}
     out, current = [], "?"
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -161,23 +256,25 @@ def ptxas_lines(log_text: str):
 def cli_render(scene: str, tmp: str):
     """Render `scene` at W x H x SPP through cli.main with the launch
     counts set to 0 just before. Returns (image, metrics, launches,
-    mesh launches)."""
+    mesh launches, textured launches)."""
     raw = os.path.join(tmp, f"{scene}.raw")
     metrics = os.path.join(tmp, f"{scene}.json")
     mk.trace_tiles.launches = 0
     mk.trace_tiles.mesh_launches = 0
+    mk.trace_tiles.tex_launches = 0
     rc = cli.main([
         "--scene", scene, "--width", str(W), "--height", str(H),
         "--samples", str(SPP), "--raw-output", raw,
         "--output", os.path.join(tmp, f"{scene}.png"),
         "--metrics-json", metrics])
-    launches, mesh_launches = (mk.trace_tiles.launches,
-                               mk.trace_tiles.mesh_launches)
+    launches, mesh_launches, tex_launches = (mk.trace_tiles.launches,
+                                             mk.trace_tiles.mesh_launches,
+                                             mk.trace_tiles.tex_launches)
     if rc != 0:
         raise AssertionError(f"cli.main --scene {scene} returned {rc}")
     with open(metrics) as f:
         m = json.load(f)
-    return read_raw(raw), m, launches, mesh_launches
+    return read_raw(raw), m, launches, mesh_launches, tex_launches
 
 
 def check_image(tag: str, img) -> None:
@@ -203,19 +300,225 @@ def last_segment(scene: str, metrics: dict, tile, dev):
     return tabs, kw, seed, pid
 
 
-def plain_affordable(tag, seed, tabs, kw, n_tiles: int, probe_tiles: int):
+def plain_affordable(tag, seed, tabs, kw, n_tiles: int, probe_tiles: int,
+                     counts=None):
     """Time the plain version on the first `probe_tiles` tiles (the tile
     numbering, so the random stream, is that of the full run) and decide
-    whether the full run fits PLAIN_BUDGET_S. Returns (probe output,
-    probe ms, whether the full run fits)."""
-    rows = probe_tiles * kw["tile"][0]
-    sub = tabs[:4] + [tabs[4][:rows].contiguous(), tabs[5][:rows].contiguous()]
-    out, ms = timed(lambda: mk.trace_tiles_reference(seed, *sub, **kw))
+    whether the full run fits PLAIN_BUDGET_S; `counts` gains the probe's
+    work. Returns (probe output, probe ms, whether the full run fits)."""
+    sub = first_tiles(tabs, kw["tile"], probe_tiles)
+    out, ms = timed(lambda: mk.trace_tiles_reference(seed, *sub, **kw,
+                                                     counts=counts))
     est_s = ms / 1e3 * n_tiles / probe_tiles
     phase(f"{tag}: plain version on the first {probe_tiles} of {n_tiles} "
           f"tiles: {ms:.1f} ms; full run estimated at {est_s:.1f} s "
           f"(budget {PLAIN_BUDGET_S:.0f} s)")
     return out, ms, est_s < PLAIN_BUDGET_S
+
+
+def tex_main_path(tmp, dev, card):
+    """Phase 4 (textures): `textures` at W x H x SPP through cli.main, with
+    the launch counts set to 0 just before; then the first 8 samples of the
+    driver's last segment through the kernel and the plain version, bit
+    for bit, and the image mean against that plain render's. Returns the
+    numbers, with the 8-spp inputs for phase 5."""
+    img, m, launches, _, tex_launches = cli_render("textures", tmp)
+    segs = m["segments"]
+    phase(f"phase 4 textures: textures {W}x{H}x{SPP}: "
+          f"{m['msamples_per_sec']} Msamples/s, render wall {m['wall_s']} s "
+          f"(driver), {m['total_wall_s']} s incl. scene setup; {launches} "
+          f"kernel launches ({tex_launches} of the textured instantiation) "
+          f"for {segs} segments; card {card}")
+    if not launches == tex_launches == segs == 16:
+        raise AssertionError("phase 4 textures: the main path did not launch "
+                             "the textured kernel once per segment (16 "
+                             "expected)")
+    if img.shape != (H, W, 3) or not np.isfinite(img).all() \
+            or img.min() < 0.0 or not img.mean() > 0.0:
+        raise AssertionError("phase 4 textures: image is not a finite, "
+                             "non-negative [H, W, 3] render")
+    tabs, kw, seed, pid = last_segment("textures", m, TILE, dev)
+    kw["spp"] = 8
+    k = torch.stack(mk.trace_tiles(seed, *tabs, **kw))
+    counts = {}
+    p, p_ms = timed(lambda: mk.trace_tiles_reference(seed, *tabs, **kw,
+                                                     counts=counts))
+    k, pn = k.cpu().numpy(), p.cpu().numpy()
+    bit_eq = float((k == pn).mean())
+    err = float(np.abs(k - pn).max())
+    plain = mk.untile_image(np.moveaxis(pn, 0, -1).reshape(-1, 3)
+                            .astype(np.float64), pid, W, H) / 8.0
+    pm, im = plain.reshape(-1, 3).mean(0), img.reshape(-1, 3).mean(0)
+    rel = np.abs(im - pm) / pm
+    phase(f"phase 4 textures: segment seed {seed}, its first 8 spp at "
+          f"{W}x{H}: kernel vs plain bit-equal on {bit_eq:.6f} of {k.size} "
+          f"slot values, max abs err {err:.3e}; image mean {im} vs plain "
+          f"{pm}: rel diff {rel.max():.4f} (need <{MAIN_MEAN_REL})")
+    if bit_eq != 1.0:
+        raise AssertionError("phase 4 textures: kernel differs from the "
+                             "plain version on the main path's segment")
+    if rel.max() >= MAIN_MEAN_REL:
+        raise AssertionError("phase 4 textures: image mean off the plain "
+                             "render")
+    return dict(launches=tex_launches, err=err, bit_eq=bit_eq, p_ms=p_ms,
+                counts=counts, seed=seed, tabs=tabs, kw=kw)
+
+
+def tex_timing(main, dev, card):
+    """Phase 5 (textures): K1-tex against its plain version at W x H x 8
+    spp on TEX_TIMED (`textures` on phase 4's inputs), each with its bound
+    from the plain run's work. Returns {scene: numbers}."""
+    out = {}
+    for name in TEX_TIMED:
+        if name == "textures":
+            seed, tabs, kw = main["seed"], main["tabs"], main["kw"]
+            p_ms, counts = main["p_ms"], main["counts"]
+        else:
+            cfg = RenderConfig(width=W, height=H, samples=8,
+                               samples_per_pass=8)
+            tabs, meta, _, lay = port_inputs(get_scene(name, cfg), cfg, None,
+                                             dev)
+            seed = (1, 0)
+            kw = dict(meta=meta, cfg=cfg, spp=8, total_samples=8,
+                      tile=mk.default_tile(meta), **lay)
+            counts = {}
+            p, p_ms = timed(lambda: mk.trace_tiles_reference(
+                seed, *tabs, **kw, counts=counts))
+            k = torch.stack(mk.trace_tiles(seed, *tabs, **kw))
+            if not torch.equal(k, p):
+                raise AssertionError(f"phase 5: {name}: kernel differs from "
+                                     "the plain version")
+        k_ms = cuda_ms(lambda: mk.trace_tiles(seed, *tabs, **kw), 10)
+        b_ms, b_by, ops = fwd_bound(counts, tabs, kw)
+        pool = kw["tex_pool"].numel()
+        phase(f"phase 5: {name} {W}x{H}x8 spp (tile {kw['tile']}, texel pool "
+              f"{pool} texels, {counts['texel_fetches']} fetches): kernel "
+              f"{k_ms:.4f} ms ({W * H * 8 / k_ms / 1e3:.1f} Msamples/s), "
+              f"plain {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; {ops:.4g} "
+              f"f32 ops); card {card}")
+        out[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         fetches=counts["texel_fetches"])
+    return out
+
+
+def fetch_probe(dev, card):
+    """The texel-fetch probe (the Hopper counterpart of the JAX package's
+    tools/tex_vmem_probe.py): the kernel's own bilinear fetch at FETCHES
+    random UVs in [-2, 3] over the 2048x1024 sky of `envmap`, bit for bit
+    against sample_pool. Returns the numbers."""
+    arrays, _ = get_scene("envmap", RenderConfig(width=8, height=6)).pack(
+        device=dev)
+    pool = arrays.tex_pool_u32.view(torch.int32)
+    w, h = 2048, 1024
+    if pool.numel() != w * h:
+        raise AssertionError("phase 5: envmap's pool is not one 2048x1024 "
+                             "texture")
+    rng = np.random.default_rng(0)
+    u, v = (torch.from_numpy(rng.uniform(-2.0, 3.0, FETCHES).astype(
+        np.float32)).to(dev) for _ in range(2))
+    k = torch.stack(mk.fetch_texels(pool, 0, w, h, u, v))
+    f = lambda x: torch.full_like(u, float(x))
+    p, p_ms = timed(lambda: mk.sample_pool(pool, f(0), f(w), f(h), u, v))
+    if not torch.equal(k, p):
+        raise AssertionError("phase 5: the fetch probe differs from "
+                             "sample_pool")
+    k_ms = cuda_ms(lambda: mk.fetch_texels(pool, 0, w, h, u, v), 10)
+    ops = FETCHES * OPS_FETCH
+    t_ops = ops / PEAK_F32 * 1e3
+    t_bytes = (nbytes(pool, u, v) + 3 * nbytes(u)) / PEAK_BYTES * 1e3
+    bound = max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    phase(f"phase 5: texel-fetch probe, {FETCHES} random bilinear fetches "
+          f"over a {w}x{h} rgb8 texture: kernel {k_ms:.4f} ms = "
+          f"{FETCHES / k_ms / 1e6:.2f} Gfetch/s, plain (sample_pool) "
+          f"{p_ms:.2f} ms, bit-equal; bound {bound:.4f} ms ({by}); card "
+          f"{card}")
+    return dict(ms=k_ms, plain_ms=p_ms, gfetch_s=FETCHES / k_ms / 1e6,
+                bound_ms=bound, bound_by=by)
+
+
+def _mip2(im: np.ndarray) -> np.ndarray:
+    """One box-filtered mip level, as the JAX package stages a large file
+    texture (its scene/pack.py `_mip2`): 2x2 average, an odd tail row or
+    column edge-replicated first."""
+    if im.shape[0] % 2:
+        im = np.concatenate([im, im[-1:]], axis=0)
+    if im.shape[1] % 2:
+        im = np.concatenate([im, im[:, -1:]], axis=1)
+    h2, w2 = im.shape[0] // 2, im.shape[1] // 2
+    return im.reshape(h2, 2, w2, 2, *im.shape[2:]).mean(axis=(1, 3))
+
+
+def mip_blur(dev, card):
+    """What the JAX package's staged mip costs `envmap-file`: the scene at
+    W x H x MIP_SPP through the kernel, once from its full-resolution sky
+    and once from the mip the JAX package stages (area <= MIP_AREA), with
+    the same seed and so the same paths. Returns the numbers."""
+    cfg = RenderConfig(width=W, height=H, samples=MIP_SPP,
+                       samples_per_pass=MIP_SPP)
+    sc = get_scene("envmap-file", cfg)
+    full = np.asarray(sc.sphere_textures[0])
+    mip = np.asarray(full, np.float64)
+    while mip.shape[0] * mip.shape[1] > MIP_AREA and min(mip.shape[:2]) > 1:
+        mip = _mip2(mip)
+    imgs = []
+    for tex in (full, mip):
+        sc.sphere_textures = [tex]
+        arrays, meta = sc.pack(device=dev)
+        imgs.append(mk.render_megakernel(arrays, meta, sc.camera, cfg))
+    d = np.abs(imgs[0] - imgs[1])
+    mad, mean = float(d.mean()), float(imgs[0].mean())
+    phase(f"phase 5: envmap-file {W}x{H}x{MIP_SPP} spp, full {full.shape[1]}x"
+          f"{full.shape[0]} sky vs the JAX package's {mip.shape[1]}x"
+          f"{mip.shape[0]} mip, same seed: per-pixel mean abs diff {mad:.6f} "
+          f"(image mean {mean:.6f}; {mad / mean:.4%}), max {d.max():.4f}, "
+          f"{(d.max(axis=-1) > 0.05).mean():.4%} of pixels off by > 0.05; "
+          f"card {card}")
+    return dict(mad=mad, image_mean=mean, max=float(d.max()),
+                mip=f"{mip.shape[1]}x{mip.shape[0]}")
+
+
+def ab_parent(parent: str, cases, card):
+    """Phase 5 A/B: K1 and K1-mesh built from another checkout's csrc
+    (`parent`) against this one, on the same inputs and this tree's
+    launcher, 20 launches a timing in the order parent, this, this,
+    parent, three times over; outputs bit-equal. Returns {case: (parent
+    median ms, this median ms)}."""
+    key = ("megakernel", _build.NVCC_FLAGS)
+    mine = _build.load("megakernel", mk._SIGNATURES)
+    src = _build.CSRC
+    _build.CSRC = Path(parent) / "pathtracer_tpu_torch" / "csrc"
+    try:
+        lib_path = _build.build("megakernel")
+    finally:
+        _build.CSRC = src
+    old = ctypes.CDLL(str(lib_path))
+    old.pt_megakernel_launch.argtypes, old.pt_megakernel_launch.restype = \
+        mk._SIGNATURES["pt_megakernel_launch"]
+    for line in ptxas_lines(lib_path.with_suffix(".log").read_text()):
+        phase(f"phase 5 A/B: parent ptxas: {line}")
+    out = {}
+    try:
+        for tag, (seed, tabs, kw) in cases.items():
+            runs = {"parent": [], "this": []}
+            res = {}
+            for who in ["parent", "this", "this", "parent"] * 3:
+                _build._loaded[key] = old if who == "parent" else mine
+                res[who] = torch.stack(mk.trace_tiles(seed, *tabs, **kw))
+                runs[who].append(cuda_ms(
+                    lambda: mk.trace_tiles(seed, *tabs, **kw), 20))
+            if not torch.equal(res["parent"], res["this"]):
+                raise AssertionError(f"phase 5 A/B: {tag}: outputs differ")
+            pm, tm = (float(np.median(runs[w])) for w in ("parent", "this"))
+            phase(f"phase 5 A/B: {tag}: parent {pm:.4f} ms, this {tm:.4f} ms "
+                  f"({(tm - pm) / pm:+.2%}; within 1%: {abs(tm - pm) < 0.01 * pm}"
+                  f"), outputs bit-equal; timings parent "
+                  f"{[round(x, 4) for x in runs['parent']]}, this "
+                  f"{[round(x, 4) for x in runs['this']]}; card {card}")
+            out[tag] = (pm, tm)
+    finally:
+        _build._loaded[key] = mine
+    return out
 
 
 def grad_case(tag, sc, cfg, tri, dev, card):
@@ -236,10 +539,14 @@ def grad_case(tag, sc, cfg, tri, dev, card):
     k, k2 = run(), run()
     torch.cuda.synchronize()
     same_bits = all(torch.equal(a, b) for a, b in zip(k, k2))
-    p, p_ms = timed(lambda: tg.grad_tiles_reference((3, 0), *tabs, *cots,
-                                                    **kw), stack=False)
+    counts = {}
+    p, p_ms = timed(lambda: tg.grad_tiles_reference(
+        (3, 0), *tabs, *cots, counts=counts, **kw), stack=False)
     err = grad_rule(k, p, meta.has_groups)
     k_ms = cuda_ms(run, 5)
+    # in: the tables, pixel maps and cotangents; out: the gradient sums
+    bound = work_bound(counts, meta, nbytes(*tabs, *cots), nbytes(*k),
+                       grad=True)
     tri_txt = (f"; gtri {err['gtri_frac']:.6f} of {meta.n_tri_slots} slots "
                f"within the rule ({err['gtri_slots_hit']} hit)" if tri
                else "")
@@ -247,8 +554,9 @@ def grad_case(tag, sc, cfg, tri, dev, card):
           f"{cfg.width}x{cfg.height}x{cfg.samples} spp: kernel {k_ms:.4f} "
           f"ms, plain {p_ms:.1f} ms; max rel err gcol {err['gcol']:.2e} "
           f"gemi {err['gemi']:.2e}{tri_txt}; two launches bit-identical: "
-          f"{same_bits}; card {card}")
-    return dict(err, ms=k_ms, plain_ms=p_ms, same_bits=same_bits)
+          f"{same_bits}; bound {bound[0]:.4f} ms ({bound[1]}); card {card}")
+    return dict(err, ms=k_ms, plain_ms=p_ms, same_bits=same_bits,
+                bound_ms=bound[0], bound_by=bound[1])
 
 
 def crn_target(tabs, meta, cfg, pid, seed, spp):
@@ -400,7 +708,12 @@ def training_phase(dev, card, mesh_tris):
     return rate, trate, k6_obj, k6_tri
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ab-parent", metavar="DIR",
+                    help="A/B K1 and K1-mesh against the csrc of the "
+                         "pathtracer_tpu_torch under DIR (phase 5)")
+    args = ap.parse_args(argv)
     # ---- phase 1: the card ----------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -454,9 +767,15 @@ def main() -> int:
                                  exact=True)[0])
         mesh_tris[name] = n_triangles(sc)
 
+    # textured scenes on the scene's own tile, the first 64 tiles of the
+    # full size; bit for bit
+    tcfg = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
+    tex_errs = [compare(name, get_scene(name, tcfg), tcfg, None, 0, dev,
+                        exact=True, tiles=64)[0] for name in TEX_SCENES]
+
     with tempfile.TemporaryDirectory() as tmp:
         # ---- phase 4: the main path, reference --------------------------
-        img, m, launches, _ = cli_render("reference", tmp)
+        img, m, launches, _, _ = cli_render("reference", tmp)
         want = m["segments"]
         phase(f"phase 4: reference {W}x{H}x{SPP}: {m['msamples_per_sec']} "
               f"Msamples/s, render wall {m['wall_s']} s (driver), "
@@ -471,7 +790,9 @@ def main() -> int:
         tabs8, meta8, pid, lay8 = port_inputs(sc8, cfg8, TILE, dev)
         kw8 = dict(meta=meta8, cfg=cfg8, spp=8, total_samples=8, tile=TILE,
                    **lay8)
-        ref = torch.stack(mk.trace_tiles_reference((1, 0), *tabs8, **kw8), -1)
+        c8 = {}
+        ref = torch.stack(mk.trace_tiles_reference((1, 0), *tabs8, **kw8,
+                                                   counts=c8), -1)
         ref = mk.untile_image(ref.reshape(-1, 3).cpu().numpy(), pid, W,
                               H) / 8.0
         rel = np.abs(img.reshape(-1, 3).mean(0) - ref.mean(0)) / ref.mean(0)
@@ -486,7 +807,9 @@ def main() -> int:
         tabs, kw, seed, _ = last_segment("reference", m, TILE, dev)
         seg_spp = kw["spp"]                             # 128 (PT_SEG_SPP)
         k = torch.stack(mk.trace_tiles(seed, *tabs, **kw)).cpu().numpy()
-        p, p_ms = timed(lambda: mk.trace_tiles_reference(seed, *tabs, **kw))
+        seg_counts = {}
+        p, p_ms = timed(lambda: mk.trace_tiles_reference(
+            seed, *tabs, **kw, counts=seg_counts))
         p = p.cpu().numpy()
         frac = float(np.isclose(k, p, atol=ATOL, rtol=RTOL).mean())
         bit_eq = float((k == p).mean())
@@ -501,7 +824,7 @@ def main() -> int:
         errs.append(seg_err)
 
         # ---- phase 4 (mesh): the main path, teapot ----------------------
-        timg, tm, t_launches, t_mesh = cli_render("teapot", tmp)
+        timg, tm, t_launches, t_mesh, _ = cli_render("teapot", tmp)
         t_want = tm["segments"]
         phase(f"phase 4 mesh: teapot ({mesh_tris['teapot']} triangles) "
               f"{W}x{H}x{SPP}: {tm['msamples_per_sec']} Msamples/s, render "
@@ -514,23 +837,31 @@ def main() -> int:
                                  f"({SPP // 8} expected)")
         check_image("phase 4 mesh", timg)
 
+        # ---- phase 4 (textures): the main path, textures ----------------
+        tex_main = tex_main_path(tmp, dev, card)
+        tex_errs.append(tex_main["err"])
+
     # its last segment, kernel vs plain version: the first 64 tiles, or
     # every slot when the plain version fits its time budget
     mtabs, mkw, mseed, _ = last_segment("teapot", tm, MESH_TILE, dev)
     n_tiles = mtabs[4].shape[0] // MESH_TILE[0]
     k = torch.stack(mk.trace_tiles(mseed, *mtabs, **mkw))
     torch.cuda.synchronize()
+    c64 = {}
     p64, p64_ms, full = plain_affordable("phase 4 mesh", mseed, mtabs, mkw,
-                                         n_tiles, 64)
+                                         n_tiles, 64, c64)
     rows64 = 64 * MESH_TILE[0]
     if full:
-        p, tp_ms = timed(lambda: mk.trace_tiles_reference(mseed, *mtabs,
-                                                          **mkw))
+        mcounts = {}
+        p, tp_ms = timed(lambda: mk.trace_tiles_reference(
+            mseed, *mtabs, **mkw, counts=mcounts))
         checked = "every slot"
     else:
         p, tp_ms = p64, None
         k = k[:, :rows64]
         checked = "the slots of the first 64 tiles"
+        # the full run's work, estimated from the first 64 tiles'
+        mcounts = {key: v * n_tiles // 64 for key, v in c64.items()}
     k, p = k.cpu().numpy(), p.cpu().numpy()
     if not np.array_equal(k[:, :rows64], p64.cpu().numpy()):
         raise AssertionError("phase 4 mesh: plain version on the first 64 "
@@ -624,6 +955,22 @@ def main() -> int:
     if s_bit_eq != 1.0:
         raise AssertionError("phase 5: kernel differs from the plain "
                              "version on the size-check mesh")
+    k1_bound = fwd_bound(seg_counts, tabs, kw)
+    mesh_bound = fwd_bound(mcounts, mtabs, mkw)
+    phase(f"phase 5: bounds: reference {W}x{H}x{seg_spp} spp "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}; {k1_bound[2]:.4g} f32 ops), "
+          f"teapot {W}x{H}x8 spp {mesh_bound[0]:.4f} ms ({mesh_bound[1]}; "
+          f"{mesh_bound[2]:.4g} f32 ops"
+          f"{'' if full else ', from the first 64 tiles scaled'}); card {card}")
+
+    # textured timings, the fetch probe, the JAX package's mip
+    tex_times = tex_timing(tex_main, dev, card)
+    probe = fetch_probe(dev, card)
+    mip_blur(dev, card)
+    if args.ab_parent:
+        ab_parent(args.ab_parent, {
+            f"reference {W}x{H}x8 spp": ((1, 0), tabs8, kw8),
+            f"teapot {W}x{H}x8 spp": (mseed, mtabs, mkw)}, card)
 
     g_ref, g_tea, g_big = grad_phase(dev, card, mesh_tris)
     rate, trate, k6_obj, k6_tri = training_phase(dev, card, mesh_tris)
@@ -635,6 +982,8 @@ def main() -> int:
          "launches": launches, "max_abs_err": max(errs),
          "bit_equal_frac": bit_eq, "slot_frac_within_tol": frac,
          "shape": f"{W}x{H}x{seg_spp}spp", "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "library_ms": None,
          "ms_8spp": k8_ms, "plain_ms_8spp": p8_ms},
         {"name": "megakernel-mesh", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
@@ -643,6 +992,8 @@ def main() -> int:
          "bit_equal_frac": t_bit_eq, "checked": checked,
          "shape": f"teapot {W}x{H}x8spp", "ms": tk_ms,
          "plain_ms": tp_ms if full else p64_ms,
+         "bound_ms": mesh_bound[0], "bound_by": mesh_bound[1],
+         "library_ms": None,
          "plain_shape": (f"teapot {W}x{H}x8spp" if full
                          else "teapot first 64 tiles x8spp"),
          "plain_ms_first_64_tiles": p64_ms,
@@ -658,7 +1009,8 @@ def main() -> int:
          "launches": k6_obj, "max_abs_err": g_ref["max_abs_err"],
          "gcol_rel_err": g_ref["gcol"], "gemi_rel_err": g_ref["gemi"],
          "shape": f"reference {W}x{H}x{GRAD_SPP}spp", "ms": g_ref["ms"],
-         "plain_ms": g_ref["plain_ms"],
+         "plain_ms": g_ref["plain_ms"], "bound_ms": g_ref["bound_ms"],
+         "bound_by": g_ref["bound_by"], "library_ms": None,
          "relaunch_bit_identical": g_ref["same_bits"],
          "fwd_bwd_msamples_per_s": rate,
          "fwd_bwd_shape": f"reference {W}x{H}x{STEP_SPP}spp x 3 steps"},
@@ -669,13 +1021,25 @@ def main() -> int:
          "max_abs_err": max(g_tea["max_abs_err"], g_big["max_abs_err"]),
          "gtri_slot_frac": g_tea["gtri_frac"],
          "shape": f"teapot {W}x{H}x{GRAD_SPP}spp", "ms": g_tea["ms"],
-         "plain_ms": g_tea["plain_ms"],
+         "plain_ms": g_tea["plain_ms"], "bound_ms": g_tea["bound_ms"],
+         "bound_by": g_tea["bound_by"], "library_ms": None,
          "relaunch_bit_identical": g_tea["same_bits"],
          "size_check_ms": g_big["ms"],
          "size_check_plain_ms": g_big["plain_ms"],
          "size_check_gtri_slot_frac": g_big["gtri_frac"],
          "fwd_bwd_msamples_per_s": trate,
-         "fwd_bwd_shape": f"teapot {W}x{H}x{TRI_STEP_SPP}spp x 3 steps"}]}))
+         "fwd_bwd_shape": f"teapot {W}x{H}x{TRI_STEP_SPP}spp x 3 steps"},
+        {"name": "megakernel-tex", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pathtracer_tpu/render/pallas_kernel.py:968,999,1130",
+         "launches": tex_main["launches"], "max_abs_err": max(tex_errs),
+         "bit_equal_frac": tex_main["bit_eq"],
+         "shape": f"textures {W}x{H}x8spp",
+         "ms": tex_times["textures"]["ms"],
+         "plain_ms": tex_times["textures"]["plain_ms"],
+         "bound_ms": tex_times["textures"]["bound_ms"],
+         "bound_by": tex_times["textures"]["bound_by"], "library_ms": None,
+         "by_scene": tex_times, "fetch_probe": probe}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

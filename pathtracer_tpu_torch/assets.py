@@ -1,23 +1,26 @@
-"""Asset resolution and procedural mesh substitutes (counterpart of the
-mesh half of pathtracer_tpu.assets).
+"""Asset resolution and procedural substitutes (counterpart of
+pathtracer_tpu.assets).
 
-The reference loads models from an `assets/` directory relative to the
-working directory (e.g. teapot.go:80 reads "assets/teapot.obj"). glass.obj
-is missing from the reference repository itself, and this repository ships
-no .obj assets, so this module provides:
+The reference loads models and textures from an `assets/` directory
+relative to the working directory (e.g. teapot.go:80 reads
+"assets/teapot.obj", texturedplanets.go:124-129 loads six texture images).
+glass.obj and several texture images are missing from the reference
+repository itself, and this repository ships no assets, so this module
+provides:
 
 - a search path for real assets: $PT_ASSETS, ./assets, <repo>/assets
-- deterministic procedural substitutes for any model not found, so every
-  registered mesh scene renders out of the box
-
-The texture generators of the JAX module wait for the texture slice
-(ROADMAP queue 1, item 9).
+- deterministic procedural substitutes for any model or texture not found,
+  so every registered scene renders out of the box
 """
 from __future__ import annotations
 
 import math
 import os
 from typing import List, Optional
+
+import numpy as np
+
+from .render import proctex
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -119,3 +122,81 @@ def load_obj_source(name: str) -> str:
     if name == "glass.obj":
         return goblet_obj()
     return uv_sphere_obj(name=os.path.splitext(name)[0])
+
+
+# ---------------------------------------------------------------------------
+# Procedural textures ([H, W, 3] float32 in [0, 1]).
+#
+# Every generator wraps a render/proctex.py program. The returned arrays are
+# ProcImage (an ndarray subclass) carrying the program's descriptor, which
+# the packer records in SceneMeta as the JAX package does; file-loaded
+# images stay plain ndarrays.
+# ---------------------------------------------------------------------------
+
+def checker_texture(h: int = 512, w: int = 512, n: int = 8,
+                    c1=(0.9, 0.9, 0.9), c2=(0.2, 0.2, 0.2)) -> np.ndarray:
+    return proctex.make(("checker", (n, tuple(c1), tuple(c2))), h, w)
+
+
+def squares_texture(h: int = 512, w: int = 512) -> np.ndarray:
+    """Stand-in for concrete_squares.png: grout lines over noisy concrete."""
+    return proctex.make(("squares", (7,)), h, w)
+
+
+def squares_normal_map(h: int = 512, w: int = 512) -> np.ndarray:
+    """Normal-map stand-in for concrete_squares_nm2.png: beveled edges at
+    the grout lines, encoded as small x/z excursions on a dominant y
+    component (the kernel uses the texel as the object-space normal and
+    normalizes it after the inverse-transpose, tracer.cl:907-911)."""
+    return proctex.make(("squares_nm", ()), h, w)
+
+
+def cobblestone_texture(h: int = 512, w: int = 512) -> np.ndarray:
+    return proctex.make(("cobblestone", (11, 13)), h, w)
+
+
+def floorboards_texture(h: int = 512, w: int = 512) -> np.ndarray:
+    return proctex.make(("floorboards", (17,)), h, w)
+
+
+def planet_texture(h: int = 512, w: int = 1024, seed: int = 23) -> np.ndarray:
+    """2:1 equirectangular planet: continents over ocean."""
+    return proctex.make(("planet", (seed,)), h, w)
+
+
+def jupiter_texture(h: int = 512, w: int = 1024) -> np.ndarray:
+    return proctex.make(("jupiter", (31,)), h, w)
+
+
+def sky_sphere_texture(h: int = 1024, w: int = 2048) -> np.ndarray:
+    """Stand-in for alps_field_8k.png: 2:1 sky gradient + ground + sun."""
+    return proctex.make(("sky", ()), h, w)
+
+
+def cubemap_cross_texture(face: int = 256) -> np.ndarray:
+    """Stand-in for shrine_cubemap.jpeg in the 4x3 cross layout the kernel
+    samples (tracer.cl:113-147): +X right, -X left, +Y top, -Y bottom,
+    +Z front, -Z back."""
+    return proctex.make(("cube_cross", (face,)), 3 * face, 4 * face)
+
+
+def load_texture(name: str) -> np.ndarray:
+    """Real image if present in the asset path (decoded with Pillow),
+    procedural otherwise."""
+    p = find_asset(name)
+    if p is not None:
+        from .io.png import load_image
+        return load_image(p)
+    gen = {
+        "concrete_squares.png": squares_texture,
+        "concrete_squares_nm2.png": squares_normal_map,
+        "seamless-cobblestone-texture.jpg": cobblestone_texture,
+        "floor_boards.png": floorboards_texture,
+        "planet.png": planet_texture,
+        "jupiter2_6k_contrast.png": jupiter_texture,
+        "alps_field_8k.png": sky_sphere_texture,
+        "shrine_cubemap.jpeg": cubemap_cross_texture,
+    }
+    if name in gen:
+        return gen[name]()
+    return checker_texture()

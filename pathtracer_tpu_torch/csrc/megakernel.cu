@@ -1,8 +1,8 @@
-// Forward path-tracing megakernel for untextured scenes of primitives and
-// triangle meshes, for Hopper (sm_90a).
+// Forward path-tracing megakernel for scenes of primitives, triangle meshes
+// and textures, for Hopper (sm_90a).
 //
 // Replaces pathtracer_tpu/render/pallas_kernel.py::_make_kernel, launched by
-// trace_tiles (the untextured branch without NEE): per tile slot,
+// trace_tiles (without NEE): per tile slot,
 // `spp / spp_pack` samples of a jittered camera ray (sunflower depth of field
 // when the aperture is set), each bounced up to `max_bounces` times through
 // the plane/sphere/cylinder/box tests and the BVH walk of triangle groups
@@ -47,6 +47,26 @@
 // visit different nodes, so warps diverge. The kernel allocates nothing and
 // does not synchronise; it runs on the stream it is given.
 //
+// Textures (K1-tex). Replaces the texture block of _make_kernel
+// (pallas_kernel.py:1933-1942, :2230-2302), which computes procedural
+// texels in the kernel (_sample_proc :968) and fetches small file images by
+// one-hot matmuls from a staged atlas (_sample_staged :999,
+// _sample_staged_unified :1130), because a TPU lane cannot gather. Here
+// every texture is one bilinear fetch from the full-resolution rgb8 texel
+// pool (sample_pool): four point loads through the read-only cache, decoded
+// as q * f32(1/255) and blended in f32 in the JAX order (x first), so the
+// result is the plain version's bit for bit. No texture object: hardware
+// filtering blends with 9-bit fixed-point weights. The per-object texture
+// table ([n_obj, 12]: color flag, base, w, h, sx, sy, normal-map flag,
+// base, w, h, sxn, syn) is staged in shared memory beside the object table.
+// A plane's normal map replaces the object-space normal before the
+// inverse-transpose; a textured plane, sphere or box takes the texel as its
+// color after face-forward, by the UV map of its type (the JAX kernel's
+// polynomial atan2/acos and truncating fmod, pallas_kernel.py:881-965).
+// Triangle and cylinder hits ignore textures, as there. The code is
+// compiled only into the kTex instantiations; the pools of the repository's
+// scenes (<= 8 MiB) sit in the 50 MB L2.
+//
 // The gradient kernel (K6). Replaces pathtracer_tpu/render/pallas_grad.py::
 // _make_grad_kernel, launched by grad_tiles: the same template instantiated
 // with kGrad replays each slot's forward paths operation for operation (the
@@ -82,9 +102,17 @@ constexpr int kThreads = 128;
 constexpr int kMaxObjects = 64;  // type codes travel in the launch params
 constexpr int kMaxTape = 16;     // grad kernel: tape entries >= max_bounces
 constexpr int kGradCols = 6;     // grad kernel: color rgb | emission rgb
+constexpr int kTexCols = 12;     // texture table columns (see above)
 constexpr float kBig = 1e30f;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInv24 = 5.9604644775390625e-08f;  // 2^-24
+// f32 roundings of the double constants of the JAX UV maps and the pool's
+// rgb8 decode: pi/2, pi, 1/(2 pi), 1/pi, 1/255
+constexpr float kHalfPi = 0x1.921fb6p+0f;
+constexpr float kPi = 0x1.921fb6p+1f;
+constexpr float kInvTwoPi = 0x1.45f306p-3f;
+constexpr float kInvPi = 0x1.45f306p-2f;
+constexpr float kInv255 = 0x1.010102p-8f;
 
 enum { PLANE = 0, SPHERE = 1, CYLINDER = 2, BOX = 3, GROUP = 4 };
 
@@ -231,6 +259,120 @@ __device__ __forceinline__ void refract(float cx, float cy, float cz,
   }
 }
 
+// ---- UV maps and texel fetch (pallas_kernel.py:881-995) --------------------
+
+// atan(z) for z in [0, 1]: the JAX kernel's odd degree-13 fit
+__device__ __forceinline__ float atan_poly(float z) {
+  const float z2 = z * z;
+  return z * (0.99999659f + z2 * (-0.33319012f + z2 * (0.19823318f +
+         z2 * (-0.13294270f + z2 * (0.08076473f + z2 * (-0.03461463f +
+         z2 * 0.00715190f))))));
+}
+
+// four-quadrant atan2 by octant reduction to atan_poly
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ay = fabsf(y), ax = fabsf(x);
+  const bool swap = ay > ax;
+  const float num = swap ? ax : ay;
+  const float den = swap ? ay : ax;
+  float r = atan_poly(num / fmaxf(den, 1e-30f));
+  if (swap) r = kHalfPi - r;
+  if (x < 0.0f) r = kPi - r;
+  return y < 0.0f ? -r : r;
+}
+
+// unit-sphere local point -> (u, v), the v flip folded in (tracer.cl:178-213)
+__device__ __forceinline__ void spherical_uv(float lx, float ly, float lz,
+                                             float& u, float& v) {
+  const float theta = atan2_poly(lx, lz);
+  const float radius = sqrtf(lx * lx + ly * ly + lz * lz);
+  const float c = fminf(fmaxf(ly / radius, -1.0f), 1.0f);
+  // acos(c) = atan2(sqrt(1 - c^2), c)
+  const float phi =
+      atan2_poly(sqrtf(fmaxf((1.0f - c) * (1.0f + c), 0.0f)), c);
+  u = 1.0f - (theta * kInvTwoPi + 0.5f);
+  v = phi * kInvPi;
+}
+
+// C fmod by 2 as the JAX kernel computes it: a - 2 * trunc(a * (1/2))
+__device__ __forceinline__ float cfmod2(float a) {
+  return a - 2.0f * truncf(a * 0.5f);
+}
+
+// cube-cross UV of a unit-cube local point (tracer.cl:113-175)
+__device__ __forceinline__ void cube_uv(float x, float y, float z, float& u,
+                                        float& v) {
+  const float coord = fmaxf(fmaxf(fabsf(x), fabsf(y)), fabsf(z));
+  const float third = 0.333333f;
+  if (coord == x) {
+    u = 0.5f + (cfmod2(1.0f - z) * 0.5f) * 0.25f;
+  } else if (coord == -x) {
+    u = (cfmod2(z + 1.0f) * 0.5f) * 0.25f;
+  } else if (coord == y || coord == -y || coord == z) {
+    u = 0.25f + (cfmod2(x + 1.0f) * 0.5f) * 0.25f;
+  } else {
+    u = 0.75f + (cfmod2(1.0f - x) * 0.5f) * 0.25f;
+  }
+  if (coord != x && coord != -x && coord == y) {
+    v = 1.0f - (cfmod2(1.0f - z) * 0.5f) * third;
+  } else if (coord != x && coord != -x && coord == -y) {
+    v = (cfmod2(z + 1.0f) * 0.5f) * third;
+  } else {
+    v = 0.6666666f - (cfmod2(y + 1.0f) * 0.5f) * third;
+  }
+}
+
+// floor-mod wrap of a float-held integer coordinate to [0, m)
+__device__ __forceinline__ float wrap_tex(float a, float m) {
+  return a - m * floorf(a / m);
+}
+
+__device__ __forceinline__ void decode_rgb8(int q, float& r, float& g,
+                                            float& b) {
+  r = (float)(q & 255) * kInv255;
+  g = (float)((q >> 8) & 255) * kInv255;
+  b = (float)((q >> 16) & 255) * kInv255;
+}
+
+// Bilinear REPEAT sample of the texture at (base, w, h) of the rgb8 pool at
+// (u, v) (tracer.cl:829: normalized coords, REPEAT, LINEAR): four point
+// loads, each index clamped into [base, base + w*h) as jnp.take(mode="clip")
+// does, blended in f32 in the JAX order (x first).
+__device__ __forceinline__ void sample_pool(const int* __restrict__ pool,
+                                            float base, float w, float h,
+                                            float u, float v, float& r,
+                                            float& g, float& b) {
+  const float fx = u * w - 0.5f;
+  const float fy = v * h - 0.5f;
+  const float x0 = floorf(fx);
+  const float y0 = floorf(fy);
+  const float tx = fx - x0;
+  const float ty = fy - y0;
+  const int bi = (int)base, wi = (int)w;
+  const int last = bi + wi * (int)h - 1;
+  const int c0 = (int)wrap_tex(x0, w), c1 = (int)wrap_tex(x0 + 1.0f, w);
+  const int r0 = (int)wrap_tex(y0, h), r1 = (int)wrap_tex(y0 + 1.0f, h);
+  float c00[3], c01[3], c10[3], c11[3];
+  decode_rgb8(__ldg(pool + min(max(bi + r0 * wi + c0, bi), last)), c00[0],
+              c00[1], c00[2]);
+  decode_rgb8(__ldg(pool + min(max(bi + r0 * wi + c1, bi), last)), c01[0],
+              c01[1], c01[2]);
+  decode_rgb8(__ldg(pool + min(max(bi + r1 * wi + c0, bi), last)), c10[0],
+              c10[1], c10[2]);
+  decode_rgb8(__ldg(pool + min(max(bi + r1 * wi + c1, bi), last)), c11[0],
+              c11[1], c11[2]);
+  float out[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float top = c00[k] * (1.0f - tx) + c01[k] * tx;
+    const float bot = c10[k] * (1.0f - tx) + c11[k] * tx;
+    out[k] = top * (1.0f - ty) + bot * ty;
+  }
+  r = out[0];
+  g = out[1];
+  b = out[2];
+}
+
 struct Params {
   float* out_r;
   float* out_g;
@@ -257,6 +399,10 @@ struct Params {
   const float* cot_b;
   float* gobj;
   float* gtri;
+  // textured scenes only: the rgb8 texel pool and the [n_obj, 12] texture
+  // table
+  const int* __restrict__ tex_pool;
+  const float* tex_table;
 };
 
 __device__ __forceinline__ void add_nonzero(float* a, float v) {
@@ -340,18 +486,23 @@ __device__ __forceinline__ float walk_group(const Params& p, int root, int end,
   return bt;
 }
 
-template <bool kMesh, bool kGrad>
+template <bool kMesh, bool kGrad, bool kTex>
 __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   extern __shared__ float smem[];
   float* s_obj = smem;
   float* s_cam = s_obj + p.n_obj * kObjCols;
   float* s_g = s_cam + kCamCols;  // kGrad: the block's [n_obj, 6] sums
+  float* s_tex = s_cam + kCamCols;  // kTex: the texture table
   for (int i = threadIdx.x; i < p.n_obj * kObjCols; i += blockDim.x)
     s_obj[i] = p.obj[i];
   for (int i = threadIdx.x; i < kCamCols; i += blockDim.x) s_cam[i] = p.cam[i];
   if constexpr (kGrad) {
     for (int i = threadIdx.x; i < p.n_obj * kGradCols; i += blockDim.x)
       s_g[i] = 0.0f;
+  }
+  if constexpr (kTex) {
+    for (int i = threadIdx.x; i < p.n_obj * kTexCols; i += blockDim.x)
+      s_tex[i] = p.tex_table[i];
   }
   __syncthreads();
 
@@ -538,6 +689,17 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
       } else {
         nlx = lx; nly = ly; nlz = lz;
       }
+      // kTex: the winner's texture row, null for a triangle hit
+      const float* tt = nullptr;
+      if constexpr (kTex) {
+        if (!on_tri) tt = s_tex + w * kTexCols;
+        if (tt != nullptr && tt[6] > 0.5f) {
+          // plane normal map: the texel is the object-space normal,
+          // normalized after the inverse-transpose (tracer.cl:907-911)
+          sample_pool(p.tex_pool, tt[7], tt[8], tt[9], fabsf(lx) * tt[10],
+                      fabsf(lz) * tt[11], nlx, nly, nlz);
+        }
+      }
       float nx = wm[12] * nlx + wm[13] * nly + wm[14] * nlz;
       float ny = wm[16] * nlx + wm[17] * nly + wm[18] * nlz;
       float nz = wm[20] * nlx + wm[21] * nly + wm[22] * nlz;
@@ -545,6 +707,25 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
       const float ex = -dx, ey = -dy, ez = -dz;
       if (dot3(ex, ey, ez, nx, ny, nz) < 0.0f) {
         nx = -nx; ny = -ny; nz = -nz;
+      }
+      // the color: the triangle's, the texel's, or the object row's (read
+      // where it is used, below)
+      bool own_col = on_tri;
+      if constexpr (kTex) {
+        if (tt != nullptr && tt[0] > 0.5f) {
+          // texture color (tracer.cl:1075-1093) by the UV map of the type
+          float su, sv;
+          if (w_type == PLANE) {
+            su = lx * tt[4];
+            sv = lz * tt[5];
+          } else if (w_type == SPHERE) {
+            spherical_uv(lx, ly, lz, su, sv);
+          } else {
+            cube_uv(lx, ly, lz, su, sv);
+          }
+          sample_pool(p.tex_pool, tt[1], tt[2], tt[3], su, sv, tcr, tcg, tcb);
+          own_col = true;
+        }
       }
 
       // ---- material roulette (tracer.cl:982-1061) -------------------------
@@ -624,9 +805,9 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
           t_m[3 * nb] = mask_r;
           t_m[3 * nb + 1] = mask_g;
           t_m[3 * nb + 2] = mask_b;
-          t_c[3 * nb] = on_tri ? tcr : wm[24];
-          t_c[3 * nb + 1] = on_tri ? tcg : wm[25];
-          t_c[3 * nb + 2] = on_tri ? tcb : wm[26];
+          t_c[3 * nb] = own_col ? tcr : wm[24];
+          t_c[3 * nb + 1] = own_col ? tcg : wm[25];
+          t_c[3 * nb + 2] = own_col ? tcb : wm[26];
           if (!is_light) upd_bits |= 1u << nb;
           direct = is_light && n_hits == 0;
           ++nb;
@@ -637,12 +818,20 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
         sg = sg + mask_g * (on_tri ? 0.0f : wm[28]);
         sb = sb + mask_b * (on_tri ? 0.0f : wm[29]);
         if (is_light && n_hits == 0) {
-          sr = wm[24]; sg = wm[25]; sb = wm[26];
+          // a direct light hit returns the light's color (a textured
+          // emitter's texel: the env-map sky sphere and cube)
+          if constexpr (kTex) {
+            sr = own_col ? tcr : wm[24];
+            sg = own_col ? tcg : wm[25];
+            sb = own_col ? tcb : wm[26];
+          } else {
+            sr = wm[24]; sg = wm[25]; sb = wm[26];
+          }
         }
         if (!is_light) {
-          mask_r = mask_r * (on_tri ? tcr : wm[24]) * cosw;
-          mask_g = mask_g * (on_tri ? tcg : wm[25]) * cosw;
-          mask_b = mask_b * (on_tri ? tcb : wm[26]) * cosw;
+          mask_r = mask_r * (own_col ? tcr : wm[24]) * cosw;
+          mask_g = mask_g * (own_col ? tcg : wm[25]) * cosw;
+          mask_b = mask_b * (own_col ? tcb : wm[26]) * cosw;
         }
       }
       if (!do_refract && !any_reflect) eff += 1;
@@ -722,8 +911,9 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
 }
 
 // Copy the host type codes and group ranges into the launch parameters
-// and launch the instantiation the scene needs (kMesh when it has a GROUP).
-template <bool kGrad>
+// and launch the instantiation the scene needs (kMesh when it has a GROUP,
+// kTex when the caller passed a texel pool).
+template <bool kGrad, bool kTex>
 int launch(Params& p, const int* obj_types, const int* group_root,
            const int* group_end, void* stream) {
   bool mesh = false;
@@ -734,18 +924,30 @@ int launch(Params& p, const int* obj_types, const int* group_root,
     mesh = mesh || obj_types[i] == GROUP;
   }
   const size_t smem =
-      sizeof(float) * (size_t)(p.n_obj * (kObjCols + (kGrad ? kGradCols : 0)) +
+      sizeof(float) * (size_t)(p.n_obj * (kObjCols + (kGrad ? kGradCols : 0) +
+                                          (kTex ? kTexCols : 0)) +
                                kCamCols);
   const int blocks = (p.n_slots + kThreads - 1) / kThreads;
   if (blocks > 0) {
     if (mesh)
-      megakernel<true, kGrad>
+      megakernel<true, kGrad, kTex>
           <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
     else
-      megakernel<false, kGrad>
+      megakernel<false, kGrad, kTex>
           <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
+}
+
+// The texel-fetch probe: one thread per (u, v) calls the kernel's own
+// sample_pool on one texture of the pool.
+__global__ void __launch_bounds__(kThreads)
+    tex_fetch(float* out_r, float* out_g, float* out_b,
+              const int* __restrict__ pool, const float* u, const float* v,
+              int n, float base, float w, float h) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  sample_pool(pool, base, w, h, u[i], v[i], out_r[i], out_g[i], out_b[i]);
 }
 
 }  // namespace
@@ -774,8 +976,47 @@ extern "C" int pt_megakernel_launch(
            n_obj, n_slots, S, L, spp / spp_pack, spp_pack, chunk_axis, seed,
            sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
            eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
-           nullptr, nullptr, nullptr, nullptr, nullptr};
-  return launch<false>(p, obj_types, group_root, group_end, stream);
+           nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  return launch<false, false>(p, obj_types, group_root, group_end, stream);
+}
+
+// Launch the textured instantiations: pt_megakernel_launch's arguments,
+// then the rgb8 texel pool (int32 [T], each texel r | g << 8 | b << 16)
+// and the texture table [n_obj, 12] (f32), both on the device.
+extern "C" int pt_megakernel_tex_launch(
+    float* out_r, float* out_g, float* out_b, const int* px, const int* py,
+    const float* obj, const int* obj_types, const float* cam,
+    const float* nodes, const float* tris, const int* group_root,
+    const int* group_end, int n_obj, int n_slots, int S, int L, int spp,
+    int spp_pack, int chunk_axis, uint32_t seed, int sample_base,
+    int max_bounces, int max_eff, int leaf_size, int oct_nodes, float eps,
+    float t_max, float sun_cut, float sun_den, float golden2, int coherent,
+    void* stream, const int* tex_pool, const float* tex_table) {
+  if (n_obj < 1 || n_obj > kMaxObjects || spp_pack < 1 || leaf_size < 1 ||
+      spp % spp_pack != 0 || (chunk_axis ? L % spp_pack : S % spp_pack) != 0 ||
+      tex_pool == nullptr || tex_table == nullptr)
+    return (int)cudaErrorInvalidValue;
+  Params p{out_r, out_g, out_b, px, py, obj, cam, nodes, tris,
+           n_obj, n_slots, S, L, spp / spp_pack, spp_pack, chunk_axis, seed,
+           sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
+           eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
+           nullptr, nullptr, nullptr, nullptr, nullptr, tex_pool, tex_table};
+  return launch<false, true>(p, obj_types, group_root, group_end, stream);
+}
+
+// Launch the texel-fetch probe over n (u, v) pairs of one texture at (base,
+// w, h) of the pool; out_* [n]. Returns as pt_megakernel_launch does.
+extern "C" int pt_tex_fetch_launch(float* out_r, float* out_g, float* out_b,
+                                   const int* pool, const float* u,
+                                   const float* v, int n, int base, int w,
+                                   int h, void* stream) {
+  if (n < 0 || base < 0 || w < 1 || h < 1 || pool == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0)
+    tex_fetch<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        out_r, out_g, out_b, pool, u, v, n, (float)base, (float)w, (float)h);
+  return (int)cudaGetLastError();
 }
 
 // Launch the gradient kernel: the replay of pt_megakernel_launch's paths
@@ -802,6 +1043,6 @@ extern "C" int pt_grad_launch(
            n_obj, n_slots, S, L, spp, 1, 0, seed,
            sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
            eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
-           cot_r, cot_g, cot_b, gobj, gtri};
-  return launch<true>(p, obj_types, group_root, group_end, stream);
+           cot_r, cot_g, cot_b, gobj, gtri, nullptr, nullptr};
+  return launch<true, false>(p, obj_types, group_root, group_end, stream);
 }

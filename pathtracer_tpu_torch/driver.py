@@ -145,6 +145,7 @@ def render_driver(
     obj_table = torch.from_numpy(mk.build_scene_table(scn, meta)).to(dev)
     nodes, tris = (torch.from_numpy(t).to(dev)
                    for t in mk.build_mesh_tables(scn, meta))
+    tex = mk.texture_inputs(scn, meta, dev)
 
     def segment(c0: int, n: int) -> torch.Tensor:
         # independent random stream per segment, derived from (seed, c0);
@@ -155,7 +156,7 @@ def render_driver(
             seed, cam_vec, obj_table, nodes, tris, px, py,
             meta=meta, cfg=cfg, spp=int(n) * spp_chunk,
             total_samples=cfg.samples, tile=(S, L), spp_pack=pack,
-            pack_axis=axis)
+            pack_axis=axis, **tex)
         return torch.stack([r.reshape(-1), g.reshape(-1), b.reshape(-1)],
                            dim=-1)
 

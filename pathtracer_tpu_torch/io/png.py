@@ -1,8 +1,11 @@
-"""PNG output with the standard library only (zlib + struct).
+"""PNG output with the standard library only (zlib + struct), and texture
+image loading.
 
-Counterpart of pathtracer_tpu.io.png.write_png (reference writeImagePNG +
-clamp, internal/app/tracer/pathtracer.go:32-59). It writes an 8-bit RGB PNG
-without Pillow, which the machine with the card does not have.
+Counterpart of pathtracer_tpu.io.png (reference writeImagePNG + clamp,
+internal/app/tracer/pathtracer.go:32-59, and scenes.LoadImage,
+internal/app/scenes/scene.go:30-56). The writer needs no Pillow; the
+loader imports Pillow when it is called, for real image files found under
+the asset path.
 """
 from __future__ import annotations
 
@@ -36,3 +39,13 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(_chunk(b"IHDR", ihdr))
         f.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
         f.write(_chunk(b"IEND", b""))
+
+
+def load_image(path: str) -> np.ndarray:
+    """Decode PNG/JPEG to [H, W, 3] float32 in [0,1] (scene.go LoadImage
+    converts to NRGBA; this normalizes to float)."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        arr = np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
+    return arr

@@ -40,8 +40,6 @@ from . import _build
 from . import megakernel as mk
 
 _NEE_ITEM = "ROADMAP queue 1, item 11 (in-kernel NEE)"
-_TEXTURE_ITEMS = ("ROADMAP queue 1, items 9-10 (textures and texel "
-                  "gradients)")
 _TEXEL_ITEM = "ROADMAP queue 1, item 10 (texel gradients)"
 _TRI_MODES = ("onehot", "tape")
 
@@ -87,9 +85,11 @@ def _check_diff_scene(meta: SceneMeta, cfg: RenderConfig) -> None:
             f"{_NEE_ITEM}")
     if (meta.textured_types or meta.has_normal_maps or meta.obj_tex
             or meta.obj_tex_nm):
+        # the JAX grad kernel replays texture colors and scatters texel
+        # gradients (pallas_grad.py:297-306, :601-646, :879-910): K6-tex
         raise NotImplementedError(
             f"textured scenes are not differentiable here yet: "
-            f"{_TEXTURE_ITEMS}")
+            f"{_TEXEL_ITEM}")
     if meta.has_groups:
         mk._check_mesh_knobs()   # non-classic walks: K1-mesh variants row
 
@@ -128,14 +128,15 @@ def grad_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                          spp: int = 1, total_samples: int = 1,
                          tile: Tuple[int, int] = (8, 512),
                          tri_grads: bool = False, tex_grads: bool = False,
-                         tri_mode: str = "onehot"):
+                         tri_mode: str = "onehot", counts: dict = None):
     """Plain PyTorch version of the gradient kernel: the same arguments and
     results as grad_tiles. The forward replay is trace_tiles_reference
     itself (spp_pack 1, row axis), which hands over each sample's tape
     ([bounces] of [T*S*L] tensors); the reverse recurrence runs over it
     vectorised in f32 and index_add_ sums the per-object and per-slot
     gradients in f64 (millions of terms go into one object's sum; the
-    result is rounded to f32 once)."""
+    result is rounded to f32 once). `counts` gains the forward replay's
+    work, as trace_tiles_reference counts it."""
     cots = (cot_r, cot_g, cot_b)
     _check_grad_args(seed, cam_vec, obj_table, node_table, tri_table, px,
                      py, cots, meta, cfg, spp, tile, tri_grads, tex_grads,
@@ -183,7 +184,7 @@ def grad_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     mk.trace_tiles_reference(
         seed, cam_vec, obj_table, node_table, tri_table, px, py, meta=meta,
         cfg=cfg, spp=spp, total_samples=total_samples, tile=tile,
-        spp_pack=1, pack_axis="row", sample_tape=backward)
+        spp_pack=1, pack_axis="row", sample_tape=backward, counts=counts)
     gcol, gemi = _split(gobj.to(torch.float32))
     if not tri_grads:
         return gcol, gemi

@@ -1,12 +1,20 @@
-"""Forward megakernel for untextured scenes of primitives and triangle
-meshes: tables, tile layout, the counter-hash PRNG, the BVH walk, and the
-CUDA kernel with its plain PyTorch version.
+"""Forward megakernel for scenes of primitives, triangle meshes and
+textures: tables, tile layout, the counter-hash PRNG, the BVH walk, the UV
+maps and texel fetch, and the CUDA kernel with its plain PyTorch version.
 
-Counterpart of pathtracer_tpu.render.pallas_kernel for the untextured
-branch without NEE: the host table builders and the pixel-to-tile layout
-keep their names and outputs (numpy, bit-identical), `trace_tiles` runs
-the whole sample loop x bounce loop per tile slot, and `render_megakernel`
-is the one-call render (the counterpart of `render_pallas`).
+Counterpart of pathtracer_tpu.render.pallas_kernel without NEE: the host
+table builders and the pixel-to-tile layout keep their names and outputs
+(numpy, bit-identical), `trace_tiles` runs the whole sample loop x bounce
+loop per tile slot, and `render_megakernel` is the one-call render (the
+counterpart of `render_pallas`).
+
+Textures: the JAX kernel computes procedural texels in the kernel and
+fetches small file images by one-hot matmuls from a staged atlas, because
+a TPU lane cannot gather. Here every texture, procedural or file, small or
+large, is one 4-tap bilinear fetch from the full-resolution rgb8 texel
+pool (`sample_pool`), with the object's (base, w, h) from the texture
+table (`build_tex_table`). The UV maps are the JAX kernel's, operation for
+operation (`_spherical_uv`, `_cube_uv`).
 
 Meshes: the JAX kernel walks the skip-link BVH with one node pointer per
 (8, 512) packet (`_packet_traverse`). Here every ray walks it alone
@@ -75,8 +83,19 @@ _M32 = 0xFFFFFFFF
 
 _MESH_VARIANT_ITEM = ("ROADMAP queue 2, row K1-mesh variants (the TPU "
                       "sub-packet gating and MXU leaf machine)")
-_TEXTURE_ITEM = "ROADMAP queue 1, item 9 (textures)"
 _NEE_ITEM = "ROADMAP queue 1, item 11 (in-kernel NEE)"
+
+
+# Texture-table column layout (per object row), [No, _TEX_COLS] f32:
+#   0     color texture flag (1 = textured; the object's type picks the UV
+#         map: plane (lx*sx, lz*sy), sphere spherical, box cube cross)
+#   1-3   base, w, h of the color texture in the texel pool
+#   4-5   sx, sy (plane UV scale)
+#   6     normal-map flag (planes only)
+#   7-9   base, w, h of the normal map in the pool
+#   10-11 sxn, syn
+_TEX_COLS = 12
+_INV255 = float(np.float32(1.0 / 255.0))
 
 
 # --- host tables and layout ------------------------------------------------
@@ -174,12 +193,88 @@ def build_mesh_tables(scn: SceneArrays, meta: SceneMeta,
     return nodes, flat.reshape(rows, _TRI_SLOTS_PER_ROW * _TRI_STRIDE)
 
 
+def _is_staged(desc) -> bool:
+    return isinstance(desc, tuple) and bool(desc) and desc[0] == "__staged__"
+
+
+def textures_computable(meta: SceneMeta) -> bool:
+    """Whether the JAX package's TPU kernel can sample every texture of the
+    scene (pallas_kernel.textures_computable): each carries a procedural
+    program or a staging marker. This package's kernel fetches every
+    texture from the pool, so supports_scene does not ask."""
+    return all(desc is not None
+               for (_slot, desc, _w, _h, _sx, _sy)
+               in meta.obj_tex + meta.obj_tex_nm)
+
+
+def staged_lanes(meta: SceneMeta) -> int:
+    """Lane width of the JAX package's staged file-texture atlas
+    (pallas_kernel.staged_lanes; 0 when nothing is staged): each staged
+    texture spans ceil(h/128)*w lanes from its base, the plane pads to a
+    128-lane multiple, and the atlas is three planes wide."""
+    m = 0
+    for (_slot, desc, _w, _h, _sx, _sy) in meta.obj_tex + meta.obj_tex_nm:
+        if _is_staged(desc):
+            _, b, w, h = desc
+            m = max(m, b + (-(-h // 128)) * w)
+    return 3 * max(128, -(-m // 128) * 128) if m else 0
+
+
+def supports_scene(meta: SceneMeta, scn: SceneArrays = None) -> bool:
+    """Megakernel coverage: the four primitives and BVH triangle meshes
+    whose leaf size is a multiple of the 4 slots of a triangle row, with
+    any texture (every one is fetched from the pool)."""
+    prim = all(t in (PLANE, SPHERE, CYLINDER, BOX, GROUP)
+               for t in meta.obj_types)
+    return prim and not (meta.has_groups
+                         and meta.leaf_size % _TRI_SLOTS_PER_ROW)
+
+
+def has_textures(meta: SceneMeta) -> bool:
+    """Whether any object samples a color texture or a normal map (a
+    textured cylinder or mesh samples none, as in the JAX kernel)."""
+    return bool(meta.obj_tex or meta.obj_tex_nm)
+
+
+def build_tex_table(scn: SceneArrays, meta: SceneMeta) -> np.ndarray:
+    """[No, _TEX_COLS] float32 per-object texture table: the flags and UV
+    scales of meta.obj_tex / obj_tex_nm and the (base, w, h) of each
+    texture in the full-resolution pool (not the staged or mip sizes that
+    the JAX kernel samples). Bases are f32-exact: the pool stays below
+    2^24 texels."""
+    out = np.zeros((meta.n_objects, _TEX_COLS), dtype=np.float32)
+    out[:, [2, 3, 8, 9]] = 1.0
+    base, w, h = (_np(a) for a in (scn.tex_base, scn.tex_w, scn.tex_h))
+    nbase, nw, nh = (_np(a) for a in (scn.tex_nm_base, scn.tex_nm_w,
+                                      scn.tex_nm_h))
+    for col, entries, (b, tw, th) in ((0, meta.obj_tex, (base, w, h)),
+                                      (6, meta.obj_tex_nm, (nbase, nw, nh))):
+        for (slot, _desc, _w, _h, sx, sy) in entries:
+            out[slot, col:col + 6] = (1.0, b[slot], tw[slot], th[slot],
+                                      sx, sy)
+    return out
+
+
+def texture_inputs(scn: SceneArrays, meta: SceneMeta, device) -> dict:
+    """trace_tiles' texture keywords for a scene on `device`: {} for a
+    scene without textures, else the pool as int32 (rgb8 texels stay below
+    2^24, so the view keeps their values) and the texture table."""
+    if not has_textures(meta):
+        return {}
+    return {"tex_pool": scn.tex_pool_u32.view(torch.int32).to(device)
+            .contiguous(),
+            "tex_table": torch.from_numpy(build_tex_table(scn, meta))
+            .to(device)}
+
+
 def default_tile(meta: SceneMeta) -> Tuple[int, int]:
     """Tile shape (S, L) that numbers the slots, as in the JAX package:
-    (64, 256) for primitive scenes, (8, 512) for mesh scenes. On the card
-    the tile is only a numbering (one thread per slot); keeping it makes
-    the random stream and the checkpoint layout match the JAX package."""
-    if meta.has_groups:
+    (64, 256) for primitive scenes, (8, 512) for mesh scenes and for
+    scenes with staged file textures (whose one-hot fetch the TPU unrolls
+    per tile row). On the card the tile is only a numbering (one thread
+    per slot); keeping it makes the random stream and the checkpoint
+    layout match the JAX package."""
+    if meta.has_groups or staged_lanes(meta):
         return (8, 512)
     return (64, 256)
 
@@ -555,6 +650,120 @@ def _sun_constants(total_samples: int):
             golden2)
 
 
+# --- UV maps and texel fetch (plain version) ------------------------------
+#
+# The megakernel's UV maps (pallas_kernel.py:881-965), operation for
+# operation: atan2 and acos from a degree-13 odd polynomial with octant
+# reduction (the TPU has neither), the cube cross with a truncating fmod
+# that multiplies by 1/b. Their CUDA twins are in csrc/megakernel.cu.
+
+def _atan_poly(z):
+    """atan(z) for z in [0, 1]: odd degree-13 least-squares fit."""
+    z2 = z * z
+    return z * (0.99999659 + z2 * (-0.33319012 + z2 * (0.19823318
+        + z2 * (-0.13294270 + z2 * (0.08076473 + z2 * (-0.03461463
+        + z2 * 0.00715190))))))
+
+
+def _atan2(y, x):
+    """Four-quadrant atan2 by octant reduction to _atan_poly."""
+    ay = torch.abs(y)
+    ax = torch.abs(x)
+    swap = ay > ax
+    num = torch.where(swap, ax, ay)
+    den = torch.where(swap, ay, ax)
+    r = _atan_poly(num / torch.clamp(den, min=1e-30))
+    r = torch.where(swap, math.pi / 2 - r, r)
+    r = torch.where(x < 0.0, math.pi - r, r)
+    return torch.where(y < 0.0, -r, r)
+
+
+def _acos(x):
+    """acos(x) = atan2(sqrt(1 - x^2), x) for x in [-1, 1]."""
+    return _atan2(torch.sqrt(torch.clamp((1.0 - x) * (1.0 + x), min=0.0)), x)
+
+
+def _spherical_uv(lx, ly, lz):
+    """Unit-sphere local point -> (u, v): uv.spherical_map with the
+    integrator's v flip folded in (tracer.cl:178-213)."""
+    theta = _atan2(lx, lz)
+    radius = torch.sqrt(lx * lx + ly * ly + lz * lz)
+    phi = _acos(torch.clamp(ly / radius, -1.0, 1.0))
+    raw_u = theta * float(np.float32(1.0 / (2.0 * math.pi)))
+    return 1.0 - (raw_u + 0.5), phi * float(np.float32(1.0 / math.pi))
+
+
+def _cfmod(a, b: float):
+    """C fmod (truncated, the dividend's sign) as the JAX kernel computes
+    it: a - b * trunc(a * (1/b))."""
+    return a - b * torch.trunc(a * (1.0 / b))
+
+
+def _cube_uv(x, y, z):
+    """Cube-cross UV of a unit-cube local point (uv.cube_uv,
+    tracer.cl:113-175)."""
+    coord = torch.maximum(torch.maximum(torch.abs(x), torch.abs(y)),
+                          torch.abs(z))
+    third = 0.333333
+    v_mid = 0.6666666 - (_cfmod(y + 1.0, 2.0) * 0.5) * third
+    u_right = 0.5 + (_cfmod(1.0 - z, 2.0) * 0.5) * 0.25
+    u_left = (_cfmod(z + 1.0, 2.0) * 0.5) * 0.25
+    u_top = 0.25 + (_cfmod(x + 1.0, 2.0) * 0.5) * 0.25
+    v_top = 1.0 - (_cfmod(1.0 - z, 2.0) * 0.5) * third
+    v_bottom = (_cfmod(z + 1.0, 2.0) * 0.5) * third
+    u_back = 0.75 + (_cfmod(1.0 - x, 2.0) * 0.5) * 0.25
+    sel_right = coord == x
+    sel_left = ~sel_right & (coord == -x)
+    sel_top = ~sel_right & ~sel_left & (coord == y)
+    sel_bottom = ~sel_right & ~sel_left & ~sel_top & (coord == -y)
+    sel_front = (~sel_right & ~sel_left & ~sel_top & ~sel_bottom
+                 & (coord == z))
+    u = torch.where(sel_right, u_right, torch.where(
+        sel_left, u_left, torch.where(
+            sel_top | sel_bottom | sel_front, u_top, u_back)))
+    v = torch.where(sel_top, v_top, torch.where(sel_bottom, v_bottom, v_mid))
+    return u, v
+
+
+def _wrap_tex(a, m):
+    """Floor-mod wrap of a float-held integer coordinate to [0, m)."""
+    return a - m * torch.floor(a / m)
+
+
+def sample_pool(pool, base, w, h, u, v):
+    """Bilinear REPEAT sample of the rgb8 texel pool (int32 [T]) at (u, v)
+    for textures at (base, w, h) (f32 tensors broadcastable with u): four
+    point taps, each index clamped into [base, base + w*h) as
+    jnp.take(mode="clip") does, decoded as q * f32(1/255), blended in f32
+    in the JAX order (x first). Semantics of tracer.cl:829 (normalized
+    coords, REPEAT, LINEAR). Returns (r, g, b)."""
+    fx = u * w - 0.5
+    fy = v * h - 0.5
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    tx = fx - x0
+    ty = fy - y0
+    bi = base.long()
+    wi = w.long()
+    top_i = bi + wi * h.long() - 1
+    cols = (_wrap_tex(x0, w).long(), _wrap_tex(x0 + 1.0, w).long())
+    rows = (_wrap_tex(y0, h).long(), _wrap_tex(y0 + 1.0, h).long())
+
+    def tap(yi, xi):
+        q = pool[torch.minimum(torch.maximum(bi + yi * wi + xi, bi), top_i)]
+        return [((q >> s) & 255).to(torch.float32) * _INV255
+                for s in (0, 8, 16)]
+
+    c00, c01 = tap(rows[0], cols[0]), tap(rows[0], cols[1])
+    c10, c11 = tap(rows[1], cols[0]), tap(rows[1], cols[1])
+    out = []
+    for k in range(3):
+        top = c00[k] * (1.0 - tx) + c01[k] * tx
+        bot = c10[k] * (1.0 - tx) + c11[k] * tx
+        out.append(top * (1.0 - ty) + bot * ty)
+    return tuple(out)
+
+
 # --- BVH walk (plain version) ----------------------------------------------
 #
 # The per-ray counterpart of pallas_kernel._packet_traverse, _leaf_tests and
@@ -612,7 +821,7 @@ def _leaf_tests(tri, start, leaf_size, eps, ox, oy, oz, dx, dy, dz):
 def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
                        t_max: float, root: int, end: int, tox, toy, toz,
                        tdx, tdy, tdz, active, bt0, n_nodes: int = 0,
-                       return_slot: bool = False):
+                       return_slot: bool = False, counts: dict = None):
     """Plain per-ray skip-link BVH walk of one group's nodes [root, end).
 
     Counterpart of pallas_kernel._packet_traverse for a packet of one
@@ -629,7 +838,8 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
     and keeps it where no triangle won; the interpolated smooth normal
     n1 + u*d21 + v*d31 and the triangle color are 0 there. With
     return_slot, an eighth int64 tensor holds the winning triangle slot
-    (-1 where no triangle won)."""
+    (-1 where no triangle won). `counts`, when given, gains the node
+    visits ("node_visits") and the leaf slots tested ("leaf_slots")."""
     shape = tox.shape
     dev = tox.device
     tri = tri_table.reshape(-1, _TRI_STRIDE)
@@ -665,6 +875,9 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
             torch.maximum(az1, az2))
         hit = (tmin <= tmax) & (tmax > eps) & (tmin < bt[rid])
         at_leaf = torch.nonzero(hit & (nd[:, 7] > 0.5)).squeeze(1)
+        if counts is not None:
+            counts["node_visits"] += rid.numel()
+            counts["leaf_slots"] += at_leaf.numel() * leaf_size
         for i in range(0, at_leaf.numel(), chunk):
             li = at_leaf[i:i + chunk]
             r = rid[li]
@@ -699,13 +912,10 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
 
 
 def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
-                meta, cfg, spp, tile, spp_pack, pack_axis):
+                meta, cfg, spp, tile, spp_pack, pack_axis, tex_pool=None,
+                tex_table=None):
     """Validate what trace_tiles is handed; raise on anything the kernel
     does not take. Returns the (seed, sample_base) ints."""
-    if (meta.textured_types or meta.has_normal_maps or meta.obj_tex
-            or meta.obj_tex_nm):
-        raise NotImplementedError(
-            f"in-kernel textures are not ported yet: {_TEXTURE_ITEM}")
     if cfg.nee:
         raise NotImplementedError(f"NEE is not ported yet: {_NEE_ITEM}")
     if meta.has_groups:
@@ -753,6 +963,16 @@ def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
               _TRI_SLOTS_PER_ROW * _TRI_STRIDE)),
             ("px", px, torch.int32, None),
             ("py", py, torch.int32, tuple(px.shape)))
+    if has_textures(meta):
+        if tex_pool is None or tex_table is None:
+            raise ValueError("a textured scene needs tex_pool and tex_table "
+                             "(texture_inputs)")
+        want += (("tex_pool", tex_pool, torch.int32, (tex_pool.numel(),)),
+                 ("tex_table", tex_table, torch.float32,
+                  (len(meta.obj_types), _TEX_COLS)))
+    elif tex_pool is not None or tex_table is not None:
+        raise ValueError("tex_pool/tex_table given for a scene without "
+                         "textures")
     for name, t, dtype, shape in want:
         if not isinstance(t, torch.Tensor) or t.device != dev:
             raise ValueError(f"{name} must be a tensor on {dev}")
@@ -791,20 +1011,32 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                           total_samples: int = 1,
                           tile: Tuple[int, int] = (64, 256),
                           spp_pack: int = 1, pack_axis: str = "row",
-                          sample_tape=None):
+                          tex_pool=None, tex_table=None, sample_tape=None,
+                          counts: dict = None):
     """Plain PyTorch version of the megakernel: the same arguments and
     result as trace_tiles, vectorised over all T*S*L slots, with a Python
     loop over samples and bounces that stops once every ray is dead (dead
-    rays are inert, so this equals the JAX kernel's per-tile exit), and
-    the per-ray BVH walk (traverse_reference) for GROUP objects.
+    rays are inert, so this equals the JAX kernel's per-tile exit), the
+    per-ray BVH walk (traverse_reference) for GROUP objects and the
+    texel fetch (sample_pool) for textured ones.
     Returns (r, g, b) float32 [T*S, L] radiance sums on px's device.
 
     sample_tape: the gradient's plain version (render/grad.py) passes a
     callable, called after each sample with that sample's bounce tape, a
-    list of one TapeEntry per bounce reached (pallas_grad.py:755-778)."""
+    list of one TapeEntry per bounce reached (pallas_grad.py:755-778).
+    counts: a dict that gains the work this run does, the numbers behind
+    the kernel's bound: "samples" (slot samples), "bounces" (rays alive
+    at a bounce's intersection), "hits" (bounces that hit something),
+    "node_visits" and "leaf_slots" (the walk), "texel_fetches" (bilinear
+    samples: color textures and normal maps) and, of the color fetches,
+    "uv_sphere" and "uv_cube" (by the sphere and cube-cross UV maps)."""
     seed0, sample_base = _check_args(
         seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
-        spp, tile, spp_pack, pack_axis)
+        spp, tile, spp_pack, pack_axis, tex_pool, tex_table)
+    if counts is not None:
+        for k in ("samples", "bounces", "hits", "node_visits", "leaf_slots",
+                  "texel_fetches", "uv_sphere", "uv_cube"):
+            counts.setdefault(k, 0)
     S, L = tile
     dev = px.device
     f32 = torch.float32
@@ -840,6 +1072,7 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     golden2 = torch.tensor(golden2, dtype=f32, device=dev)
     one = torch.ones_like(fx)
     glass = torch.full_like(fx, 1.5)
+    textured = has_textures(meta)
 
     acc_r = torch.zeros_like(fx)
     acc_g = torch.zeros_like(fx)
@@ -881,9 +1114,14 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
         n_hits = torch.zeros_like(fx, dtype=torch.int32)
         eff = torch.zeros_like(n_hits)
         tape = []
+        if counts is not None:
+            counts["samples"] += fx.numel()
         for b in range(cfg.max_bounces):
-            if not bool(alive.any()):
+            n_alive = int(alive.sum())
+            if not n_alive:
                 break
+            if counts is not None:
+                counts["bounces"] += n_alive
             # ---- intersect: loop over objects ---------------------------
             best_t = torch.full_like(fx, _BIG)
             w = torch.zeros_like(fx, dtype=torch.int64)
@@ -919,7 +1157,8 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                     t_j, *g_tri, g_slot = traverse_reference(
                         node_table, tri_table, meta.leaf_size, eps, t_max,
                         root, end, tox, toy, toz, tdx, tdy, tdz, pre,
-                        best_t, n_nodes=oct_nodes, return_slot=True)
+                        best_t, n_nodes=oct_nodes, return_slot=True,
+                        counts=counts)
                 closer = t_j < best_t
                 best_t = torch.where(closer, t_j, best_t)
                 w = torch.where(closer, j, w)
@@ -979,6 +1218,26 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
             nlz = torch.where(on_tri, tri_nrm[2], torch.where(
                 is_plane, 0.0, torch.where(
                     is_cyl, cyl_nz, torch.where(is_box, box_nz, lz))))
+            if textured:
+                trow = tex_table[w]
+                tex_col = (trow[:, 0] > 0.5) & ~on_tri & hit_ok & alive
+                tex_nm = (trow[:, 6] > 0.5) & ~on_tri & hit_ok & alive
+                if counts is not None:
+                    counts["texel_fetches"] += int(tex_col.sum()
+                                                   + tex_nm.sum())
+                    counts["uv_sphere"] += int((tex_col
+                                                & (w_type == SPHERE)).sum())
+                    counts["uv_cube"] += int((tex_col & is_box).sum())
+                # plane normal maps: the texel is the object-space normal,
+                # normalized after the inverse-transpose below
+                # (tracer.cl:907-911)
+                if bool(tex_nm.any()):
+                    nm = sample_pool(tex_pool, trow[:, 7], trow[:, 8],
+                                     trow[:, 9], torch.abs(lx) * trow[:, 10],
+                                     torch.abs(lz) * trow[:, 11])
+                    nlx = torch.where(tex_nm, nm[0], nlx)
+                    nly = torch.where(tex_nm, nm[1], nly)
+                    nlz = torch.where(tex_nm, nm[2], nlz)
             invt = [wrow[:, 12 + k] for k in range(12)]
             nx, ny, nz = _normalize(*_mat12_vec(invt, nlx, nly, nlz))
             ex, ey, ez = -dx, -dy, -dz
@@ -986,6 +1245,20 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
             nx = torch.where(flip, -nx, nx)
             ny = torch.where(flip, -ny, ny)
             nz = torch.where(flip, -nz, nz)
+            if textured and bool(tex_col.any()):
+                # texture color (tracer.cl:1075-1093), by the UV map of
+                # the winner's type
+                su, sv = _spherical_uv(lx, ly, lz)
+                cu, cv = _cube_uv(lx, ly, lz)
+                tu = torch.where(is_plane, lx * trow[:, 4],
+                                 torch.where(w_type == SPHERE, su, cu))
+                tv = torch.where(is_plane, lz * trow[:, 5],
+                                 torch.where(w_type == SPHERE, sv, cv))
+                tcol = sample_pool(tex_pool, trow[:, 1], trow[:, 2],
+                                   trow[:, 3], tu, tv)
+                col_r = torch.where(tex_col, tcol[0], col_r)
+                col_g = torch.where(tex_col, tcol[1], col_g)
+                col_b = torch.where(tex_col, tcol[2], col_b)
 
             # ---- material roulette (tracer.cl:982-1061) -----------------
             u_refl = _hash_uniform(key, u_elem, 2, n, b)
@@ -1050,6 +1323,8 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
 
             # ---- fold resolve forward (tracer.cl:1116-1176) -------------
             rec = alive & hit_ok
+            if counts is not None:
+                counts["hits"] += int(rec.sum())
             no_refr = rec & ~do_refract
             is_light = emi_r > 0.0
             srr = srr + torch.where(no_refr, mask_r * emi_r, 0.0)
@@ -1098,6 +1373,15 @@ _SIGNATURES = {
         [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P],
         _I),
+    # the textured scenes' entry: the same arguments, then the texel pool
+    # and the texture table
+    "pt_megakernel_tex_launch": (
+        [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        + [_I, _P, _P, _P],
+        _I),
+    # the texel-fetch probe (P1's counterpart), launched by fetch_texels
+    "pt_tex_fetch_launch": (
+        [_P] * 6 + [_I] * 4 + [_P], _I),
     # the gradient kernel's entry, launched by render/grad.py
     "pt_grad_launch": (
         [_P] * 14 + [_I] * 5 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
@@ -1111,25 +1395,28 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
                 meta: SceneMeta = None, cfg: RenderConfig = None,
                 spp: int = 1, total_samples: int = 1,
                 tile: Tuple[int, int] = (64, 256), spp_pack: int = 1,
-                pack_axis: str = "row"):
+                pack_axis: str = "row", tex_pool=None, tex_table=None):
     """Run the megakernel over all tiles; returns (r, g, b) float32
     radiance sums [T*S, L] on px's device.
 
     seed = (prng seed, global sample base). spp_pack/pack_axis must match
     the layout (tile_pixel_layout); each slot then sums spp/spp_pack
-    samples. CUDA tensors launch csrc/megakernel.cu on the current stream
-    (and count the launch in trace_tiles.launches, and a launch for a
-    scene with meshes also in trace_tiles.mesh_launches); CPU tensors run
-    trace_tiles_reference. Raises for textures, NEE and the unported mesh
-    walk variants."""
+    samples. A scene with textures takes the int32 texel pool and the
+    texture table (texture_inputs); one without takes neither. CUDA
+    tensors launch csrc/megakernel.cu on the current stream and count the
+    launch in trace_tiles.launches, a scene with meshes also in
+    .mesh_launches and one with textures in .tex_launches; CPU tensors
+    run trace_tiles_reference. Raises for NEE and the unported mesh walk
+    variants."""
     if px.device.type != "cuda":
         return trace_tiles_reference(
             seed, cam_vec, obj_table, node_table, tri_table, px, py,
             meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
-            tile=tile, spp_pack=spp_pack, pack_axis=pack_axis)
+            tile=tile, spp_pack=spp_pack, pack_axis=pack_axis,
+            tex_pool=tex_pool, tex_table=tex_table)
     seed0, sample_base = _check_args(
         seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
-        spp, tile, spp_pack, pack_axis)
+        spp, tile, spp_pack, pack_axis, tex_pool, tex_table)
     n_obj = len(meta.obj_types)
     if not 0 < n_obj <= _MAX_OBJECTS:
         raise ValueError(f"{n_obj} objects; the kernel takes 1..{_MAX_OBJECTS}")
@@ -1145,29 +1432,74 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     for g, r, e in meta.group_bvh:
         roots[g], ends[g] = r, e
     sun_cut, sun_den, golden2 = _sun_constants(total_samples)
+    textured = has_textures(meta)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pt_megakernel_launch(
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            px.data_ptr(), py.data_ptr(), obj_table.data_ptr(),
-            types, cam_vec.data_ptr(), node_table.data_ptr(),
-            tri_table.data_ptr(), roots, ends,
-            n_obj, rows * L, S, L, int(spp), spp_pack,
-            int(pack_axis == "chunk"), seed0 & _M32, sample_base,
-            cfg.max_bounces, cfg.max_effective_bounces, meta.leaf_size,
-            meta.n_nodes if meta.octant_orders else 0,
-            cfg.epsilon, cfg.t_max, sun_cut, sun_den, golden2,
-            int(_coherent_sampling()), stream)
+        args = (out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                px.data_ptr(), py.data_ptr(), obj_table.data_ptr(),
+                types, cam_vec.data_ptr(), node_table.data_ptr(),
+                tri_table.data_ptr(), roots, ends,
+                n_obj, rows * L, S, L, int(spp), spp_pack,
+                int(pack_axis == "chunk"), seed0 & _M32, sample_base,
+                cfg.max_bounces, cfg.max_effective_bounces, meta.leaf_size,
+                meta.n_nodes if meta.octant_orders else 0,
+                cfg.epsilon, cfg.t_max, sun_cut, sun_den, golden2,
+                int(_coherent_sampling()), stream)
+        if textured:
+            err = lib.pt_megakernel_tex_launch(
+                *args, tex_pool.data_ptr(), tex_table.data_ptr())
+        else:
+            err = lib.pt_megakernel_launch(*args)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     trace_tiles.launches += 1
     if meta.has_groups:
         trace_tiles.mesh_launches += 1   # the kernel's BVH-walk instantiation
+    if textured:
+        trace_tiles.tex_launches += 1    # the texel-fetch instantiation
     return out[0], out[1], out[2]
 
 
 trace_tiles.launches = 0
 trace_tiles.mesh_launches = 0
+trace_tiles.tex_launches = 0
+
+
+def fetch_texels(pool, base: int, w: int, h: int, u, v):
+    """Bilinear REPEAT samples of one texture at (base, w, h) in the rgb8
+    pool (int32 [T]) at the UVs u, v (f32 [N]): the kernel's own device
+    fetch function, launched alone (the Hopper counterpart of the JAX
+    package's texel-fetch probe, tools/tex_vmem_probe.py). Returns (r, g,
+    b) f32 [N]. CUDA tensors launch it and count fetch_texels.launches;
+    CPU tensors run sample_pool."""
+    if not (0 <= base and base + w * h <= pool.numel() and w > 0 and h > 0):
+        raise ValueError(f"texture ({base}, {w}, {h}) is not inside the "
+                         f"pool of {pool.numel()} texels")
+    for name, t, dtype in (("pool", pool, torch.int32), ("u", u, torch.float32),
+                           ("v", v, torch.float32)):
+        if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous() \
+                or t.device != pool.device:
+            raise ValueError(f"{name} must be a contiguous 1-D {dtype} "
+                             f"tensor on {pool.device}")
+    if u.shape != v.shape:
+        raise ValueError("u and v differ in shape")
+    if pool.device.type != "cuda":
+        f = lambda x: torch.full_like(u, float(x))
+        return sample_pool(pool, f(base), f(w), f(h), u, v)
+    lib = _build.load("megakernel", _SIGNATURES)
+    out = torch.empty((3, u.numel()), dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):
+        err = lib.pt_tex_fetch_launch(
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            pool.data_ptr(), u.data_ptr(), v.data_ptr(), u.numel(), base, w,
+            h, torch.cuda.current_stream(u.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"texel fetch launch failed: CUDA error {err}")
+    fetch_texels.launches += 1
+    return out[0], out[1], out[2]
+
+
+fetch_texels.launches = 0
 
 
 def render_megakernel(scn: SceneArrays, meta: SceneMeta, camera,
@@ -1190,7 +1522,8 @@ def render_megakernel(scn: SceneArrays, meta: SceneMeta, camera,
         *(torch.from_numpy(t).to(dev) for t in build_mesh_tables(scn, meta)),
         torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev),
         meta=meta, cfg=cfg, spp=cfg.samples, total_samples=cfg.samples,
-        tile=(S, L), spp_pack=pack, pack_axis=axis)
+        tile=(S, L), spp_pack=pack, pack_axis=axis,
+        **texture_inputs(scn, meta, dev))
     img = torch.stack([r, g, b], dim=-1).reshape(-1, 3).cpu().numpy()
     img = untile_image(img, pid, W, H).reshape(H, W, 3)
     return img / float(cfg.samples)

@@ -1,11 +1,13 @@
 """Flatten the host scene graph into a static struct-of-arrays device scene.
 
-Counterpart of pathtracer_tpu.scene.pack for untextured scenes of
-primitives and triangle meshes: the same SceneArrays fields, shapes and
-values (built in float64 numpy and cast at the end), as torch tensors on an
-explicit device. Each Group's triangles go into one global skip-link BVH
-pool (scene/bvh.py), with eight octant-ordered copies of its nodes.
-Textures are not ported yet and raise instead of being dropped.
+Counterpart of pathtracer_tpu.scene.pack: the same SceneArrays fields,
+shapes and values (built in float64 numpy and cast at the end), as torch
+tensors on an explicit device. Each Group's triangles go into one global
+skip-link BVH pool (scene/bvh.py), with eight octant-ordered copies of its
+nodes. Every texture of every kind goes at full resolution into one flat
+rgb8 texel pool with a per-object (base, w, h), from which the CUDA kernel
+fetches texels; SceneMeta records the same per-object texture programs and
+staging markers as the JAX package's, whose TPU kernel needs them.
 """
 from __future__ import annotations
 
@@ -17,11 +19,12 @@ import numpy as np
 import torch
 
 from .bvh import FlatBVH, build_bvh, empty_bvh, octant_node_orders
-from .shapes import Cylinder, Group, Shape, Triangle
+from .shapes import BOX, PLANE, SPHERE, Cylinder, Group, Shape, Triangle
 
 NONE_TYPE = -1
 
-_TEXTURE_ITEM = "ROADMAP queue 1, item 9 (textures)"
+_QUAD_ITEM = ("ROADMAP queue 1, item 12 (the wavefront integrator's "
+              "texel fetch variants)")
 
 
 class SceneArrays(NamedTuple):
@@ -63,20 +66,27 @@ class SceneArrays(NamedTuple):
     tri_n2: torch.Tensor
     tri_n3: torch.Tensor
     tri_color: torch.Tensor         # [Nt,3]
-    # texture atlases and pools: the JAX package's empty placeholders
-    # until the texture slice lands
-    tex_planar: torch.Tensor        # [3, n, H, W]
+    # texture atlases, channel-leading [3, n, H, W] (reference
+    # image2d_array_t x3, ocltracer.go:228-254)
+    tex_planar: torch.Tensor
     tex_sphere: torch.Tensor
     tex_cube: torch.Tensor
+    # flat texel pool: every texture of every kind at full resolution,
+    # rgb8 packed r | g << 8 | b << 16, with per-object (base, w, h);
+    # bases are f32-exact (the pool stays below 2^24 texels)
     tex_pool_u32: torch.Tensor      # [T] u32
-    tex_pool_quad_u32: torch.Tensor # [T, 4] u32
-    tex_base: torch.Tensor          # [No]
+    tex_pool_quad_u32: torch.Tensor # [1, 4] u32 placeholder (PT_TEX_FETCH=quad)
+    tex_base: torch.Tensor          # [No] texel offset (color)
     tex_w: torch.Tensor             # [No]
     tex_h: torch.Tensor             # [No]
-    tex_nm_base: torch.Tensor       # [No]
+    tex_nm_base: torch.Tensor       # [No] (normal map; planes only)
     tex_nm_w: torch.Tensor          # [No]
     tex_nm_h: torch.Tensor          # [No]
-    tex_staged: torch.Tensor = None # [8, 128] zeros
+    # the JAX package's staged atlas of small file textures, which its TPU
+    # kernel fetches by one-hot matmuls because a TPU lane cannot gather.
+    # Here the kernel loads from tex_pool_u32, so this stays an [8, 128]
+    # zero placeholder
+    tex_staged: torch.Tensor = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,11 +134,103 @@ class Scene:
         )
 
 
-def _check_supported(meta: SceneMeta) -> None:
-    if meta.textured_types or meta.has_normal_maps or meta.obj_tex \
-            or meta.obj_tex_nm:
+def _pack_texture_atlas(images: Sequence[np.ndarray]) -> np.ndarray:
+    """Stack images into channel-leading [3, n, H, W], padding to the max
+    H/W by nearest resize (the reference requires same-size layers in
+    image2d_array_t)."""
+    if not images:
+        return np.ones((3, 1, 1, 1))
+    h = max(im.shape[0] for im in images)
+    w = max(im.shape[1] for im in images)
+    out = np.zeros((3, len(images), h, w))
+    for i, im in enumerate(images):
+        if im.shape[0] != h or im.shape[1] != w:
+            # nearest-neighbor resize to the common size
+            yi = (np.arange(h) * im.shape[0] // h).clip(0, im.shape[0] - 1)
+            xi = (np.arange(w) * im.shape[1] // w).clip(0, im.shape[1] - 1)
+            im = im[yi][:, xi]
+        out[:, i] = np.moveaxis(im[..., :3], -1, 0)
+    return out
+
+
+def _build_texel_pool(kind_images):
+    """Concatenate every texture of every kind into one flat rgb8-u32 pool
+    at full resolution. Returns (pool [T] u32, {kind: [(base, w, h),
+    ...]}). PT_TEX_FETCH=quad (the JAX wavefront path's quad-row pool)
+    raises."""
+    if os.environ.get("PT_TEX_FETCH", "take4") == "quad":
         raise NotImplementedError(
-            f"textured scenes are not ported yet: {_TEXTURE_ITEM}")
+            f"PT_TEX_FETCH=quad is not ported yet: {_QUAD_ITEM}")
+    chunks = []
+    tables = {}
+    off = 0
+    for kind, images in kind_images.items():
+        entries = []
+        for im in images:
+            h, w = im.shape[0], im.shape[1]
+            q = np.clip(np.round(im[..., :3] * 255.0), 0,
+                        255).astype(np.uint32)
+            chunks.append((q[..., 0] | (q[..., 1] << 8)
+                           | (q[..., 2] << 16)).reshape(-1))
+            entries.append((off, w, h))
+            off += h * w
+        tables[kind] = entries
+    pool = np.concatenate(chunks) if chunks else np.zeros(1, np.uint32)
+    if pool.size >= 2 ** 24:
+        raise ValueError(f"texel pool has {pool.size} texels; f32-exact "
+                         "base offsets cap it at 2^24")
+    return pool, tables
+
+
+_STAGE_HB = 128  # rows of one lane window of the JAX package's staged atlas
+
+
+def _stage_file_textures(obj_tex, obj_tex_nm, tex_ims, nm_ims):
+    """The JAX package's staging markers for file-backed textures
+    (pathtracer_tpu.scene.pack._stage_file_textures): an entry whose desc
+    is None and whose image fits the caps becomes ("__staged__",
+    base_lane, w, h), w and h those of the image or of its mip. The TPU
+    kernel fetches such a texture from a VMEM atlas; this package's
+    kernel does not read the markers and samples the full-resolution pool.
+    They are kept because they decide default_tile, and with it the
+    random stream and the checkpoint layout. Same knobs: PT_TEX_STAGE=0
+    disables, PT_TEX_STAGE_AREA and PT_TEX_STAGE_LANES cap, images over
+    the area cap take the mip size below PT_TEX_MIP_AREA unless
+    PT_TEX_MIP=0. Only the sizes are computed; no atlas is built."""
+    if os.environ.get("PT_TEX_STAGE", "1") == "0":
+        return obj_tex, obj_tex_nm
+    max_area = int(os.environ.get("PT_TEX_STAGE_AREA", str(256 * 256)))
+    max_lanes = int(os.environ.get("PT_TEX_STAGE_LANES", "4096"))
+    mip_enabled = os.environ.get("PT_TEX_MIP", "1") != "0"
+    mip_area = int(os.environ.get("PT_TEX_MIP_AREA", str(128 * 128)))
+    # unique file-backed images, in first-use order
+    order = {}
+    for entries, ims in ((obj_tex, tex_ims), (obj_tex_nm, nm_ims)):
+        for (_slot, desc, _w, _h, _sx, _sy), im in zip(entries, ims):
+            if desc is None and im is not None:
+                order.setdefault(id(im), (int(im.shape[0]),
+                                          int(im.shape[1])))
+    staged = {}
+    off = 0                       # within-color-plane lane offset
+    for key, (h, w) in order.items():
+        if h * w > max_area and mip_enabled:
+            # the shape of each box-filtered 2x2 level (pack._mip2: an odd
+            # row or column is edge-replicated first)
+            while h * w > mip_area and h > 1 and w > 1:
+                h, w = -(-h // 2), -(-w // 2)
+        hb = -(-h // _STAGE_HB)
+        if h * w > max_area or 3 * (off + hb * w) > max_lanes:
+            continue
+        staged[key] = ("__staged__", off, w, h)
+        off += hb * w
+
+    def upgrade(entries, ims):
+        return [(slot, staged[id(im)]
+                 if desc is None and im is not None and id(im) in staged
+                 else desc, w, h, sx, sy)
+                for (slot, desc, w, h, sx, sy), im in zip(entries, ims)]
+
+    return upgrade(obj_tex, tex_ims), upgrade(obj_tex_nm, nm_ims)
 
 
 def pack_scene(
@@ -140,23 +242,18 @@ def pack_scene(
     sphere_textures: Sequence[np.ndarray] = (),
     cube_textures: Sequence[np.ndarray] = (),
 ) -> Tuple[SceneArrays, SceneMeta]:
-    """Pack an untextured scene onto `device` (float32).
+    """Pack a scene onto `device` (float32).
 
     The BVH leaf size is PT_BVH_LEAF when set, else 32 for meshes of up to
     8000 triangles in all and 16 above (the JAX package's rule). Octant
-    node copies are built unless PT_OCTANT=0. Raises NotImplementedError
-    for textures."""
+    node copies are built unless PT_OCTANT=0. A textured object's
+    primitive type selects its image list (plane: `textures`, sphere:
+    `sphere_textures`, box: `cube_textures`; tracer.cl:1077-1093); normal
+    maps are planar only (tracer.cl:907-911)."""
     n = len(objects)
     no = max_objects or max(16, n)
     if n > no:
         raise ValueError(f"{n} objects > padded capacity {no}")
-    for s in objects:
-        if s.material.textured or s.material.textured_nm:
-            raise NotImplementedError(
-                f"textured materials are not ported yet: {_TEXTURE_ITEM}")
-    if len(textures) or len(sphere_textures) or len(cube_textures):
-        raise NotImplementedError(
-            f"texture images are not ported yet: {_TEXTURE_ITEM}")
 
     if leaf_size is None and os.environ.get("PT_BVH_LEAF"):
         leaf_size = int(os.environ["PT_BVH_LEAF"])
@@ -179,6 +276,12 @@ def pack_scene(
     bb_max = np.zeros((no, 3))
     bvh_root = np.full(no, -1, dtype=np.int32)
     bvh_end = np.full(no, -1, dtype=np.int32)
+    is_tex = np.zeros(no, dtype=np.int32)
+    tex_idx = np.zeros(no, dtype=np.int32)
+    tex_scale = np.ones((no, 2))
+    is_tex_nm = np.zeros(no, dtype=np.int32)
+    tex_idx_nm = np.zeros(no, dtype=np.int32)
+    tex_scale_nm = np.ones((no, 2))
 
     pool: FlatBVH = empty_bvh(leaf_size)
     group_indices: List[int] = []
@@ -193,6 +296,14 @@ def pack_scene(
         emission[i] = np.asarray(m.emission)[:3]
         refr_idx[i] = m.refractive_index
         refl[i] = m.reflectivity
+        if m.textured:
+            is_tex[i] = 1
+            tex_idx[i] = m.texture_id
+            tex_scale[i] = (m.texture_scale_x, m.texture_scale_y)
+        if m.textured_nm:
+            is_tex_nm[i] = 1
+            tex_idx_nm[i] = m.texture_id_nm
+            tex_scale_nm[i] = (m.texture_scale_x_nm, m.texture_scale_y_nm)
         if isinstance(s, Cylinder):
             min_y[i] = s.min_y
             max_y[i] = s.max_y
@@ -228,6 +339,49 @@ def pack_scene(
     if octant:
         pool = octant_node_orders(pool, [(r, e) for (_, r, e) in group_bvh])
 
+    # the texel pool and each textured object's (base, w, h) in it, and the
+    # per-object texture records of SceneMeta (the JAX package's obj_tex:
+    # (slot, procedural descriptor or None, w, h, sx, sy))
+    kind_images = {"planar": list(textures), "sphere": list(sphere_textures),
+                   "cube": list(cube_textures)}
+    tex_pool, pool_tables = _build_texel_pool(kind_images)
+    kind_of_type = {PLANE: "planar", SPHERE: "sphere", BOX: "cube"}
+    pool_base = np.zeros(no)
+    pool_w = np.ones(no)
+    pool_h = np.ones(no)
+    pool_nm_base = np.zeros(no)
+    pool_nm_w = np.ones(no)
+    pool_nm_h = np.ones(no)
+    obj_tex, obj_tex_nm, obj_tex_im, obj_tex_nm_im = [], [], [], []
+
+    def tex_record(i, ims, idx, scale):
+        im = ims[idx] if idx < len(ims) else None
+        return ((i, getattr(im, "proc", None) if im is not None else None,
+                 int(im.shape[1]) if im is not None else 1,
+                 int(im.shape[0]) if im is not None else 1,
+                 float(scale[0]), float(scale[1])), im)
+
+    for i in range(n):
+        kind = kind_of_type.get(int(obj_type[i]))
+        entries = pool_tables.get(kind, [])
+        if is_tex[i] and tex_idx[i] < len(entries):
+            pool_base[i], pool_w[i], pool_h[i] = entries[tex_idx[i]]
+        if is_tex_nm[i] and tex_idx_nm[i] < len(pool_tables["planar"]):
+            (pool_nm_base[i], pool_nm_w[i],
+             pool_nm_h[i]) = pool_tables["planar"][tex_idx_nm[i]]
+        if is_tex[i] and kind is not None:
+            rec, im = tex_record(i, kind_images[kind], tex_idx[i],
+                                 tex_scale[i])
+            obj_tex.append(rec)
+            obj_tex_im.append(im)
+        if is_tex_nm[i] and int(obj_type[i]) == PLANE:
+            rec, im = tex_record(i, kind_images["planar"], tex_idx_nm[i],
+                                 tex_scale_nm[i])
+            obj_tex_nm.append(rec)
+            obj_tex_nm_im.append(im)
+    obj_tex, obj_tex_nm = _stage_file_textures(
+        obj_tex, obj_tex_nm, obj_tex_im, obj_tex_nm_im)
+
     def f(a):
         return torch.from_numpy(
             np.ascontiguousarray(a, dtype=np.float32)).to(device)
@@ -257,12 +411,12 @@ def pack_scene(
         bb_max=f(bb_max),
         bvh_root=i32(bvh_root),
         bvh_end=i32(bvh_end),
-        is_textured=i32(np.zeros(no)),
-        texture_index=i32(np.zeros(no)),
-        texture_scale=f(np.ones((no, 2))),
-        is_textured_nm=i32(np.zeros(no)),
-        texture_index_nm=i32(np.zeros(no)),
-        texture_scale_nm=f(np.ones((no, 2))),
+        is_textured=i32(is_tex),
+        texture_index=i32(tex_idx),
+        texture_scale=f(tex_scale),
+        is_textured_nm=i32(is_tex_nm),
+        texture_index_nm=i32(tex_idx_nm),
+        texture_scale_nm=f(tex_scale_nm),
         node_bb_min=f(pool.node_bb_min),
         node_bb_max=f(pool.node_bb_max),
         node_tri_start=i32(pool.node_tri_start),
@@ -275,19 +429,22 @@ def pack_scene(
         tri_n2=f(pool.tri_n2),
         tri_n3=f(pool.tri_n3),
         tri_color=f(pool.tri_color),
-        tex_planar=f(np.ones((3, 1, 1, 1))),
-        tex_sphere=f(np.ones((3, 1, 1, 1))),
-        tex_cube=f(np.ones((3, 1, 1, 1))),
-        tex_pool_u32=u32(np.zeros(1)),
+        tex_planar=f(_pack_texture_atlas(textures)),
+        tex_sphere=f(_pack_texture_atlas(sphere_textures)),
+        tex_cube=f(_pack_texture_atlas(cube_textures)),
+        tex_pool_u32=u32(tex_pool),
         tex_pool_quad_u32=u32(np.zeros((1, 4))),
-        tex_base=f(np.zeros(no)),
-        tex_w=f(np.ones(no)),
-        tex_h=f(np.ones(no)),
-        tex_nm_base=f(np.zeros(no)),
-        tex_nm_w=f(np.ones(no)),
-        tex_nm_h=f(np.ones(no)),
+        tex_base=f(pool_base),
+        tex_w=f(pool_w),
+        tex_h=f(pool_h),
+        tex_nm_base=f(pool_nm_base),
+        tex_nm_w=f(pool_nm_w),
+        tex_nm_h=f(pool_nm_h),
         tex_staged=f(np.zeros((8, 128))),
     )
+    textured_types = sorted(
+        {int(obj_type[i]) for i, s in enumerate(objects)
+         if s.material.textured and obj_type[i] != NONE_TYPE})
     lights = tuple(
         i for i, s in enumerate(objects)
         if s.material.emission[0] > 0.0 and obj_type[i] != NONE_TYPE
@@ -310,9 +467,13 @@ def pack_scene(
         n_nodes=int(n_pool_nodes) if not dummy else 0,
         n_tri_slots=int(pool.n_tri_slots),
         leaf_size=leaf_size,
+        textured_types=tuple(textured_types),
+        has_normal_maps=any(s.material.textured_nm for s in objects),
         light_indices=lights,
         octant_orders=bool(octant),
         tri_uniform_color=uni_color,
+        obj_tex=tuple(obj_tex),
+        obj_tex_nm=tuple(obj_tex_nm),
     )
     return arrays, meta
 
@@ -323,14 +484,15 @@ def from_jax_scene(arrays, meta, device) -> Tuple[SceneArrays, SceneMeta]:
     `arrays` is the JAX package's SceneArrays with every field converted
     to numpy by the caller (a NamedTuple or a mapping of field name to
     array); `meta` is its SceneMeta. Returns this package's SceneArrays on
-    `device` and SceneMeta. Mesh pools, group BVH ranges and octant copies
-    carry over as they are; textures, which are not ported yet, raise, and
-    so do non-finite group bounds."""
+    `device` and SceneMeta. Mesh pools, group BVH ranges, octant copies,
+    the texel pool and the texture fields carry over as they are, except
+    the staged atlas, which this package does not read: it becomes the
+    [8, 128] placeholder. Non-finite group bounds raise."""
     fields = arrays._asdict() if hasattr(arrays, "_asdict") else dict(arrays)
+    fields["tex_staged"] = np.zeros((8, 128), np.float32)
     out_meta = SceneMeta(**{
         fd.name: getattr(meta, fd.name)
         for fd in dataclasses.fields(SceneMeta)})
-    _check_supported(out_meta)
     groups = list(out_meta.group_indices)
     for name in ("bb_min", "bb_max"):
         if not np.isfinite(np.asarray(fields[name])[groups]).all():

@@ -1,9 +1,8 @@
 """Named scene registry (reference: cmd/pt/main.go:27-43 `sc` table).
 
-Each factory takes a RenderConfig and returns a scene.Scene. Only the
-scenes this package can render are registered: the untextured ones, of
-primitives and triangle meshes. The textured scenes of the JAX package
-arrive with their slice (ROADMAP queue 1, item 9).
+Each factory takes a RenderConfig and returns a scene.Scene: the 15
+reference scenes and the three file-texture extensions, as in the JAX
+package.
 """
 from __future__ import annotations
 

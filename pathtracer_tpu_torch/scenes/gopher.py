@@ -1,9 +1,8 @@
-"""Gopher scenes: `gopher` and `gopher-window` (counterpart of
-pathtracer_tpu.scenes.gopher; its `cubemap` scene waits for the texture
-slice, ROADMAP queue 1, item 9).
+"""Gopher scenes: `gopher`, `gopher-window`, `cubemap` (counterpart of
+pathtracer_tpu.scenes.gopher).
 
 Constants ported verbatim from internal/app/scenes/{gopher.go:14,
-gopher-with-window.go:14}. The gopher model carries .mtl
+gopher-with-window.go:14, cubemap.go:15}. The gopher model carries .mtl
 materials per named group — per-triangle colors flow through the packer's
 triangle color array (scene/pack.py), matching the reference's CLTriangle
 marshaling (internal/ocl/scene.go:116-127).
@@ -12,14 +11,16 @@ from __future__ import annotations
 
 import math
 
+from ..assets import load_texture
 from ..config import RenderConfig
 from ..geometry import transforms as gx
+from ..render.camera import Camera
 from ..scene.material import Material
 from ..scene.pack import Scene
 from ..scene.shapes import Cube, Plane, Sphere
 from . import register
 from ._models import load_model, silver
-from .cornell import cornell_walls, default_camera
+from .cornell import cornell_walls, default_camera, _p
 
 
 def _gopher_group(scale: float, translate=(-0.4, -0.15, 0.2),
@@ -128,3 +129,43 @@ def gopher_window_scene(cfg: RenderConfig) -> Scene:
                _ceiling_light()]
     return Scene(camera=default_camera(cfg), objects=objects)
 
+
+@register("cubemap")
+def cubemap_scene(cfg: RenderConfig) -> Scene:
+    """EnvironmentCubeMap (cubemap.go:15): cross-layout emissive cube map
+    env + gopher + mirror sphere + big sphere light."""
+    cam = Camera(
+        cfg.width, cfg.height, math.pi / 3,
+        _p(0, 0.3, -2.7), _p(0, 0.45, 0),
+        aperture=cfg.aperture, focal_length=cfg.focal_length,
+    )
+
+    right_sphere = Sphere()
+    right_sphere.set_transform(gx.translate(0.2, 1.0, 2.0))
+    right_sphere.set_transform(gx.scale(0.26, 0.26, 0.26))
+    right_sphere.set_material(Material.mirror())
+
+    lightsource = Sphere()
+    lightsource.set_transform(gx.translate(1.1, 1.0, -4.0))
+    lightsource.set_transform(gx.scale(0.7, 0.7, 0.7))
+    light = Material.light_bulb()
+    light.emission = (19.5, 19.5, 19.5)
+    lightsource.set_material(light)
+
+    sky = Cube()
+    sky.set_transform(gx.translate(0, 0, 0))
+    sky.set_transform(gx.scale(5, 5, 5))
+    sky.material = Material.default()
+    sky.material.textured = True
+    sky.material.texture_id = 0
+    sky.material.texture_scale_x = 1.0
+    sky.material.texture_scale_y = 1.0
+    sky.material.emission = (1.0, 1.0, 1.0)
+    sky.material.is_env_map = True
+
+    group = _gopher_group(0.4, translate=(-0.7, -0.15, 0.2),
+                          reflectivity=0.0)
+
+    objects = [lightsource, right_sphere, sky, group]
+    return Scene(camera=cam, objects=objects,
+                 cube_textures=[load_texture("shrine_cubemap.jpeg")])

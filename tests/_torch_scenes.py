@@ -19,6 +19,12 @@ SLICE_SCENES = ("reference", "reflection", "transparency",
 # sphere in place of their .obj, glass a 576-triangle goblet)
 MESH_SCENES = ("default", "teapot", "christian", "transparent_teapot",
                "glass", "gopher", "gopher-window")
+# the textured scenes: procedural textures (`textures` with normal maps,
+# the `envmap` sky sphere, the `cubemap` sky cube around the gopher
+# stand-in) and the file-texture extensions (plain arrays: the JAX package
+# stages them, `envmap-file` as a 128x128 mip)
+TEX_SCENES = ("textures", "envmap", "cubemap", "textures-file",
+              "textures-train", "envmap-file")
 # the size-check mesh: a UV sphere of exactly as many triangles as the
 # reference's gopher.obj (16640; BVH leaf 16, 2079 nodes)
 SIZE_CHECK_LAT_LON = (66, 128)
@@ -92,9 +98,12 @@ def assert_slot_rule(port: np.ndarray, ref: np.ndarray) -> None:
 def port_inputs(sc, cfg, tile, device):
     """The megakernel's inputs for scene `sc` on `device`, built as the
     driver builds them: the scene's default tile order and sample packing
-    for cfg.samples. Returns ([cam, obj, nodes, tris, px, py], meta, pid,
-    {"spp_pack": ..., "pack_axis": ...})."""
+    for cfg.samples, on `tile` (None: the scene's default tile). Returns
+    ([cam, obj, nodes, tris, px, py], meta, pid, {"spp_pack": ...,
+    "pack_axis": ...}), the dict with the texel pool and texture table too
+    (tex_pool, tex_table) for a textured scene."""
     arrays, meta = sc.pack(device=device)
+    tile = tile or mk.default_tile(meta)
     axis = mk.default_pack_axis(meta)
     pack = mk.clamp_pack(mk.default_pack(meta, cfg.samples), *tile, axis)
     xs, ys, pid = mk.tile_pixel_layout(cfg.width, cfg.height, *tile,
@@ -103,7 +112,8 @@ def port_inputs(sc, cfg, tile, device):
     tabs = [torch.from_numpy(t).to(device) for t in (
         mk.build_camera_vec(sc.camera), mk.build_scene_table(arrays, meta),
         *mk.build_mesh_tables(arrays, meta), xs, ys)]
-    return tabs, meta, pid, {"spp_pack": pack, "pack_axis": axis}
+    return tabs, meta, pid, {"spp_pack": pack, "pack_axis": axis,
+                             **mk.texture_inputs(arrays, meta, device)}
 
 
 def grad_inputs(sc, cfg, tile, device):

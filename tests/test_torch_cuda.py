@@ -9,6 +9,11 @@ Every test skips without a CUDA device. Rule for the primitive scenes:
 within 1%. The mesh scenes must be bit-equal: the kernel and the plain
 version walk each ray's BVH in the same order with the same f32 operations.
 
+The textured instantiations (K1-tex) must be bit-equal to the plain
+version on every textured scene: both fetch the same rgb8 texels and blend
+them with the same f32 operations, and the texel-fetch probe
+(fetch_texels) is bit-equal to sample_pool.
+
 The gradient kernel (render/grad.py's grad_tiles) is held against
 grad_tiles_reference by the gradient rule of tests/_torch_scenes.py: gcol
 and gemi within 1e-4 * max|g| (1e-3 on mesh scenes), >= 99% of the
@@ -20,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_scenes import (MESH_SCENES, SLICE_SCENES, assert_slot_rule,
+from _torch_scenes import (MESH_SCENES, SLICE_SCENES, TEX_SCENES,
+                           assert_slot_rule,
                            cylinder_scene, grad_inputs, grad_rule,
                            port_inputs, size_check_scene)
 from pathtracer_tpu_torch import cli
@@ -121,6 +127,42 @@ def test_mesh_kernel_bit_equal_plain(dev, monkeypatch, name, aperture, base,
     assert torch.equal(got, want), (got != want).float().mean().item()
 
 
+@pytest.mark.parametrize("name,aperture,base", [
+    (n, 0.0, 0) for n in TEX_SCENES] + [("textures", 0.1, 16)])
+def test_tex_kernel_bit_equal_plain(dev, name, aperture, base):
+    cfg = RenderConfig(width=160, height=120, samples=8, aperture=aperture,
+                       focal_length=1.6 if aperture else 0.0)
+    tabs, meta, _, kw = port_inputs(get_scene(name, cfg), cfg, None, dev)
+    tile = mk.default_tile(meta)
+    assert mk.has_textures(meta) and "tex_pool" in kw
+    kw.update(meta=meta, cfg=cfg, spp=8, total_samples=8 + base, tile=tile)
+    before = mk.trace_tiles.tex_launches
+    got = torch.stack(mk.trace_tiles((5, base), *tabs, **kw))
+    assert mk.trace_tiles.tex_launches == before + 1
+    want = torch.stack(mk.trace_tiles_reference((5, base), *tabs, **kw))
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want), (got != want).float().mean().item()
+
+
+def test_tex_fetch_bit_equal_sample_pool(dev):
+    # the kernel's device fetch function alone, at random UVs in [-2, 3]
+    # (the REPEAT wrap) over the 2048x1024 sky of `envmap`
+    sc = get_scene("envmap", RenderConfig(width=8, height=6))
+    arrays, _ = sc.pack(device=dev)
+    pool = arrays.tex_pool_u32.view(torch.int32)
+    rng = np.random.default_rng(0)
+    u, v = (torch.from_numpy(rng.uniform(-2, 3, 1 << 16).astype(np.float32))
+            .to(dev) for _ in range(2))
+    before = mk.fetch_texels.launches
+    got = torch.stack(mk.fetch_texels(pool, 0, 2048, 1024, u, v))
+    assert mk.fetch_texels.launches == before + 1
+    f = lambda x: torch.full_like(u, float(x))
+    want = torch.stack(mk.sample_pool(pool, f(0), f(2048), f(1024), u, v))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_kernel_refuses_tables_off_the_card(dev):
     tabs, meta, cfg, _ = _inputs("reference", dev, (8, 128), width=32,
                                  height=24)
@@ -156,6 +198,19 @@ def test_cli_renders_teapot_through_the_kernel(dev, tmp_path):
     assert img.shape == (48, 64, 3) and np.isfinite(img).all()
     left, right = img[:, :3].mean((0, 1)), img[:, -3:].mean((0, 1))
     assert left[0] > left[2] and right[2] > right[0]
+
+
+def test_cli_renders_textures_through_the_kernel(dev, tmp_path):
+    raw = tmp_path / "x.raw"
+    before = mk.trace_tiles.tex_launches
+    rc = cli.main(["--scene", "textures", "--width", "64", "--height", "48",
+                   "--samples", "32", "--raw-output", str(raw),
+                   "--output", str(tmp_path / "x.png")])
+    assert rc == 0
+    assert mk.trace_tiles.tex_launches == before + 1   # 1 segment
+    img = read_raw(str(raw))
+    assert img.shape == (48, 64, 3) and np.isfinite(img).all()
+    assert img.min() >= 0.0 and img.mean() > 0.1
 
 
 def _grad_case(name, dev, **cfg_kw):

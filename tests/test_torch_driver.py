@@ -11,7 +11,8 @@ import torch
 from PIL import Image
 
 from _torch_parity import jax_fields_np, scene_pair
-from _torch_scenes import assert_slot_rule
+from _torch_scenes import (ATOL, MEAN_REL, RTOL, SLOT_FRAC,
+                           assert_slot_rule)
 import pathtracer_tpu.native as jnative
 from pathtracer_tpu.io.png import write_png as jax_write_png
 from pathtracer_tpu.io.raw import write_raw as jax_write_raw
@@ -36,11 +37,11 @@ def _render(monkeypatch, name="reference", **driver_kw):
     return render_driver(arrays, meta, ts.camera, tc, **driver_kw)
 
 
-def _jax_segments(order):
-    """reference at CFG as two 4-spp segments of the JAX megakernel
+def _jax_segments(order, name="reference"):
+    """`name` at CFG as two 4-spp segments of the JAX megakernel
     (interpret mode), seeded as pathtracer_tpu.driver seeds them
     (driver.py:256-270), on tile order `order`: [H, W, 3]."""
-    js, jc, _, _ = scene_pair("reference", **CFG)
+    js, jc, _, _ = scene_pair(name, **CFG)
     ja, jm = js.pack()
     S, L = pk.default_tile(jm)
     xs, ys, pid = pk.tile_pixel_layout(32, 24, S, L, order=order)
@@ -69,6 +70,22 @@ def test_driver_matches_jax_segments(monkeypatch):
     # Cornell walls: red left, blue right
     left, right = img[:, :3].mean((0, 1)), img[:, -3:].mean((0, 1))
     assert left[0] > left[2] and right[2] > right[0]
+
+
+def test_driver_textures_matches_jax_segments(monkeypatch):
+    # the textured path end to end: the texel pool and texture table go
+    # through the driver to the kernel's plain version. The JAX segments
+    # are held by the textured kernel rule (tests/test_torch_tex_kernel.py):
+    # XLA:CPU's fused multiply-adds move a computed texel across an rgb8
+    # rounding edge now and then
+    img, stats = _render(monkeypatch, "textures")
+    assert stats.segments == 2 and stats.samples == 32 * 24 * 8
+    want = _jax_segments("linear", "textures")
+    d = np.abs(img - want)
+    near = np.isclose(img, want, atol=ATOL, rtol=RTOL) | (d <= 2.5 / 255)
+    assert np.isfinite(img).all() and near.mean() >= SLOT_FRAC
+    rel = np.abs(img.mean((0, 1)) - want.mean((0, 1))) / want.mean((0, 1))
+    assert rel.max() < MEAN_REL
 
 
 def test_driver_block_order_matches_jax_segments(monkeypatch):
@@ -240,6 +257,7 @@ def test_cli_lists_scenes_and_needs_a_card(monkeypatch, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "reference" in out and "transparency_f_light" in out
     assert "teapot" in out and "gopher-window" in out
+    assert "textures" in out and "cubemap" in out and "envmap-file" in out
     # no fallback to the CPU: without a card the CLI renders nothing
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     raw = tmp_path / "x.raw"

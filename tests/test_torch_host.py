@@ -9,13 +9,13 @@ import pytest
 import torch
 
 from _torch_parity import jax_fields_np, scene_pair
-from _torch_scenes import MESH_SCENES, SLICE_SCENES
+from _torch_scenes import MESH_SCENES, SLICE_SCENES, TEX_SCENES
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu.scenes import get_scene as jax_get_scene
+from pathtracer_tpu.scenes import list_scenes as jax_list_scenes
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.render import megakernel as mk
-from pathtracer_tpu_torch.scene import (Group, Material, Sphere, Triangle,
-                                        from_jax_scene, pack_scene)
+from pathtracer_tpu_torch.scene import Sphere, from_jax_scene, pack_scene
 from pathtracer_tpu_torch.scenes import list_scenes
 
 torch.set_num_threads(2)
@@ -102,27 +102,24 @@ def test_tile_layout_and_untile_equal_jax(order, W, H, S, L, granule):
 
 
 def test_registry_holds_the_slice_scenes():
-    assert list_scenes() == sorted(SLICE_SCENES + MESH_SCENES)
+    # every scene of the JAX package, textured ones included
+    assert list_scenes() == jax_list_scenes()
+    assert list_scenes() == sorted(SLICE_SCENES + MESH_SCENES + TEX_SCENES)
 
 
-def test_unported_scene_parts_raise():
+def test_unported_scene_parts_raise(monkeypatch):
     cpu = torch.device("cpu")
-    tex = Sphere(material=Material(textured=True))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pack_scene([tex], device=cpu)
-    g = Group()
-    g.add_child(Triangle(np.zeros(4), np.ones(4), np.eye(4)[0]))
-    g.set_material(Material(textured=True))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pack_scene([Sphere(), g], device=cpu)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # the JAX wavefront path's quad-row texel pool
+    monkeypatch.setenv("PT_TEX_FETCH", "quad")
+    with pytest.raises(NotImplementedError, match="item 12"):
         pack_scene([Sphere()], device=cpu,
                    sphere_textures=[np.zeros((2, 2, 3))])
-    # a textured scene carried over from the JAX package raises, not drops
+    monkeypatch.delenv("PT_TEX_FETCH")
+    # a textured scene carried over from the JAX package keeps its textures
     cfg = RenderConfig(width=16, height=12)
     ja, jm = jax_get_scene("textures", cfg).pack(dtype=jnp.float32)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        from_jax_scene(jax_fields_np(ja), jm, cpu)
+    ta, tm = from_jax_scene(jax_fields_np(ja), jm, cpu)
+    assert tm.obj_tex == jm.obj_tex and ta.tex_pool_u32.numel() > 1
     # the tile orders of the TPU's sub-packet gating and MXU leaf machine
     for order in ("subblock", "rowblock"):
         with pytest.raises(NotImplementedError, match="K1-mesh variants"):
