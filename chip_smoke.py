@@ -21,19 +21,30 @@ counterpart of the JAX package's tools/tex_vmem_probe.py) and measures
 what the JAX package's 128x128-area mip costs `envmap-file` (per-pixel
 mean abs difference of two renders, full pool against the mip). With
 `--ab-parent DIR` (DIR holding another checkout's pathtracer_tpu_torch),
-phase 5 also times K1 and K1-mesh built from that tree against this one,
-in turns, and requires bit-equal outputs.
+phase 5 also times K1, K1-mesh and K1-tex (`textures`) built from that
+tree against this one, in turns, and requires bit-equal outputs, then K6
+(`reference`) under the gradient rule, and requires the instantiations
+both trees have to keep their ptxas register, stack and spill counts.
 Then the gradient kernel (K6, the same source's kGrad instantiations):
 phase 6 holds it against its plain version at 1280x960x4 spp in object mode
 on `reference` and in triangle mode on `teapot` and the size-check mesh,
 and times both; phase 7 drives training through the training steps at
 1280x960, object colors on `reference` (32 spp a step, the fwd+bwd rate as
 bench.py measures it) and triangle colors on `teapot` (8 spp a step),
-each loss falling over 5 steps, and a short `train_demo --tri` run. It
-prints one JSON line of kernel results, each with its bound (the least
-time the card could take for the same work, from the work the plain
-version counts in this run), and, last, one JSON line naming the device. Every failure raises; without a card it exits non-zero before
-printing any result. It imports nothing of JAX.
+each loss falling over 5 steps, and a short `train_demo --tri` run.
+Phase 8 is the texel path on `textures-train` (K6-tex and the f32-texel
+forward, the kF32 instantiations): the f32-texel forward bit-equal to rgb8
+K1-tex at 1280x960x8 spp, K6-tex against its plain version at 1280x960x4
+spp, then the main path: texels perturbed and recovered toward a
+common-random-number target at 1280x960 (32 spp a step, Adam through
+make_diff_render_tex, the loss falling over 5 steps), the fwd+bwd rate of
+make_megakernel_step_tex as bench.py measures `fwd_bwd_textures-train`,
+and a short `train_demo --tex`. It prints one JSON line of kernel
+results, each with its bound (the least time the card could take for the
+same work, from the work the plain version counts in this run), and,
+last, one JSON line naming the device. Every failure raises; without a
+card it exits non-zero before printing any result. It imports nothing of
+JAX.
 
 `teapot` and the mesh scenes load procedural stand-ins (a 1472-triangle UV
 sphere, a 576-triangle goblet) because the repository ships no .obj files;
@@ -61,6 +72,7 @@ import torch
 from pathtracer_tpu_torch import cli, train_demo
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.diff import (make_megakernel_step,
+                                       make_megakernel_step_tex,
                                        make_megakernel_step_tri)
 from pathtracer_tpu_torch.geometry import transforms as gx
 from pathtracer_tpu_torch.io.raw import read_raw
@@ -68,6 +80,7 @@ from pathtracer_tpu_torch.render import _build
 from pathtracer_tpu_torch.render import grad as tg
 from pathtracer_tpu_torch.render import megakernel as mk
 from pathtracer_tpu_torch.scene import material, pack, shapes
+from pathtracer_tpu_torch.scene.pack import texel_params, trainable_texels
 from pathtracer_tpu_torch.scene.shapes import (BOX, CYLINDER, GROUP, PLANE,
                                                SPHERE)
 from pathtracer_tpu_torch.scenes import cornell, get_scene
@@ -77,7 +90,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from _torch_scenes import (ATOL, MEAN_REL, RTOL, SLOT_FRAC,  # noqa: E402
                            cylinder_scene, grad_inputs, grad_rule,
-                           port_inputs, size_check_scene)
+                           port_inputs, size_check_scene, tex_grad_rule)
 
 MAIN_MEAN_REL = 0.02         # 2048-spp image vs an 8-spp plain render
 TILE = (64, 256)             # the driver's tile for primitive scenes
@@ -94,6 +107,8 @@ TEX_TIMED = ("textures", "cubemap", "envmap-file")
 FETCHES = 1 << 24            # texel-fetch probe: UVs per launch
 MIP_AREA = 128 * 128         # the JAX package's PT_TEX_MIP_AREA default
 MIP_SPP = 16
+TEX_TRAIN = "textures-train"  # phase 8: bench.py's fwd_bwd_textures-train
+TEX_LR = 0.05                # phase 8: Adam's step on the texels
 
 # The bound: the least time the card could take for a kernel's work, the
 # larger of its f32 operations over the H100's 67 TFLOP/s (SXM, outside the
@@ -116,8 +131,10 @@ OPS_HIT = 125            # a diffuse hit: normal, roulette, bounce, resolve
 OPS_NODE = 22            # one node's slab test
 OPS_LEAF_SLOT = 34       # one triangle's test
 OPS_FETCH = 80           # bilinear fetch: wrap, 4 taps decoded, blend
+OPS_DECODE = 24          # of which the rgb8 decode (4 taps x 3 x 2)
 OPS_UV = {"plane": 2, "sphere": 60, "cube": 21}
 OPS_GRAD_HIT = 21        # K6: one tape entry's reverse step
+OPS_SCATTER = 56         # K6-tex: taps, 4 weights, 12 products, 12 adds
 
 
 def phase(msg: str) -> None:
@@ -129,17 +146,20 @@ def n_triangles(sc) -> int:
                if isinstance(o, shapes.Group))
 
 
-def work_bound(counts, meta, in_bytes, out_bytes, grad=False):
+def work_bound(counts, meta, in_bytes, out_bytes, grad=False, f32=False):
     """(bound ms, "operations" or "bytes", ops) of a kernel run whose work
-    the plain version counted in `counts` (see OPS_*)."""
+    the plain version counted in `counts` (see OPS_*); `f32`: the fetches
+    load f32 texels, with no decode."""
     plain_uv = (counts["texel_fetches"] - counts["uv_sphere"]
                 - counts["uv_cube"])
+    fetch = OPS_FETCH - (OPS_DECODE if f32 else 0)
     ops = (OPS_SAMPLE * counts["samples"]
            + counts["bounces"] * sum(OPS_OBJECT[t] for t in meta.obj_types)
            + (OPS_HIT + (OPS_GRAD_HIT if grad else 0)) * counts["hits"]
            + OPS_NODE * counts["node_visits"]
            + OPS_LEAF_SLOT * counts["leaf_slots"]
-           + OPS_FETCH * counts["texel_fetches"]
+           + fetch * counts["texel_fetches"]
+           + OPS_SCATTER * counts.get("texel_scatters", 0)
            + OPS_UV["plane"] * plain_uv + OPS_UV["sphere"] * counts["uv_sphere"]
            + OPS_UV["cube"] * counts["uv_cube"])
     t_ops = ops / PEAK_F32 * 1e3
@@ -155,9 +175,13 @@ def nbytes(*tensors) -> int:
 
 def fwd_bound(counts, tabs, kw):
     """work_bound of a forward launch on `tabs` with trace_tiles keywords
-    `kw`: its tables, texel pool and pixel maps in, three f32 sums out."""
-    ins = nbytes(*tabs, kw.get("tex_pool"), kw.get("tex_table"))
-    return work_bound(counts, kw["meta"], ins, 3 * nbytes(tabs[4]))
+    `kw`: its tables, texel pool (or f32 texels, read as [T, 4]) and pixel
+    maps in, three f32 sums out."""
+    texels = kw.get("tex_texels")
+    ins = nbytes(*tabs, kw.get("tex_pool"), kw.get("tex_table")) + (
+        0 if texels is None else texels.shape[0] * 16)
+    return work_bound(counts, kw["meta"], ins, 3 * nbytes(tabs[4]),
+                      f32=texels is not None)
 
 
 def first_tiles(tabs, tile, n):
@@ -236,21 +260,49 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def kernel_name(mangled: str) -> str:
+    """The instantiation of megakernel<kMesh, kGrad, kTex, kF32> (three
+    flags in builds before kF32) or the probe, by name."""
+    if "tex_fetch" in mangled:
+        return "fetch probe"
+    m = re.search(r"megakernelI((?:Lb[01]E)+)E", mangled)
+    if not m:
+        return mangled
+    mesh, grad, tex, f32 = (re.findall(r"Lb([01])E", m.group(1))
+                            + ["0"])[:4]
+    words = (["grad"] * (grad == "1") + ["textured"] * (tex == "1")
+             + ["f32-texel"] * (f32 == "1"))
+    return " ".join(words + ["mesh" if mesh == "1" else "primitive"])
+
+
 def ptxas_lines(log_text: str):
     """ptxas register/spill lines of each kernel instantiation, named."""
-    names = {"ILb0ELb0ELb0E": "primitive", "ILb1ELb0ELb0E": "mesh",
-             "ILb0ELb1ELb0E": "grad primitive", "ILb1ELb1ELb0E": "grad mesh",
-             "ILb0ELb0ELb1E": "textured primitive",
-             "ILb1ELb0ELb1E": "textured mesh", "tex_fetch": "fetch probe"}
     out, current = [], "?"
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            current = next((v for k, v in names.items() if k in m.group(1)),
-                           m.group(1))
+            current = kernel_name(m.group(1))
         elif "registers" in line or "spill" in line:
             out.append(f"{current}: {line.strip()}")
     return out
+
+
+def ptxas_counts(lines):
+    """{instantiation: (registers, stack frame, spill stores, spill loads)}
+    from ptxas_lines (the constant-bank size, which grows with the launch
+    parameters, is left out)."""
+    out = {}
+    for line in lines:
+        name, text = line.split(": ", 1)
+        nums = out.setdefault(name, [None] * 4)
+        for i, pat in enumerate((r"Used (\d+) registers",
+                                 r"(\d+) bytes stack frame",
+                                 r"(\d+) bytes spill stores",
+                                 r"(\d+) bytes spill loads")):
+            m = re.search(pat, text)
+            if m:
+                nums[i] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def cli_render(scene: str, tmp: str):
@@ -478,12 +530,15 @@ def mip_blur(dev, card):
                 mip=f"{mip.shape[1]}x{mip.shape[0]}")
 
 
-def ab_parent(parent: str, cases, card):
-    """Phase 5 A/B: K1 and K1-mesh built from another checkout's csrc
-    (`parent`) against this one, on the same inputs and this tree's
-    launcher, 20 launches a timing in the order parent, this, this,
-    parent, three times over; outputs bit-equal. Returns {case: (parent
-    median ms, this median ms)}."""
+def ab_parent(parent: str, cases, card, ptxas):
+    """Phase 5 A/B: kernels built from another checkout's csrc (`parent`)
+    against this one, on the same inputs and this tree's launchers, 20
+    launches a timing in the order parent, this, this, parent, three times
+    over. `cases` maps a tag to (fn, exact): fn() launches and returns the
+    outputs, which must be bit-equal when `exact` (forward kernels) and
+    agree by the gradient rule otherwise. The instantiations both builds
+    have must keep their ptxas counts (`ptxas`: this build's lines).
+    Returns {case: (parent median ms, this median ms)}."""
     key = ("megakernel", _build.NVCC_FLAGS)
     mine = _build.load("megakernel", mk._SIGNATURES)
     src = _build.CSRC
@@ -493,26 +548,40 @@ def ab_parent(parent: str, cases, card):
     finally:
         _build.CSRC = src
     old = ctypes.CDLL(str(lib_path))
-    old.pt_megakernel_launch.argtypes, old.pt_megakernel_launch.restype = \
-        mk._SIGNATURES["pt_megakernel_launch"]
-    for line in ptxas_lines(lib_path.with_suffix(".log").read_text()):
+    for fn, (argtypes, restype) in mk._SIGNATURES.items():
+        if hasattr(old, fn):
+            getattr(old, fn).argtypes = argtypes
+            getattr(old, fn).restype = restype
+    parent_lines = ptxas_lines(lib_path.with_suffix(".log").read_text())
+    for line in parent_lines:
         phase(f"phase 5 A/B: parent ptxas: {line}")
+    theirs, ours = ptxas_counts(parent_lines), ptxas_counts(ptxas)
+    moved = {k: (v, ours.get(k)) for k, v in theirs.items()
+             if ours.get(k) != v}
+    phase(f"phase 5 A/B: ptxas (registers, stack, spill stores, spill "
+          f"loads) of the {len(theirs)} instantiations both builds have: "
+          f"{'unchanged' if not moved else moved}")
+    if moved:
+        raise AssertionError(f"phase 5 A/B: ptxas counts moved: {moved}")
     out = {}
     try:
-        for tag, (seed, tabs, kw) in cases.items():
+        for tag, (fn, exact) in cases.items():
             runs = {"parent": [], "this": []}
             res = {}
             for who in ["parent", "this", "this", "parent"] * 3:
                 _build._loaded[key] = old if who == "parent" else mine
-                res[who] = torch.stack(mk.trace_tiles(seed, *tabs, **kw))
-                runs[who].append(cuda_ms(
-                    lambda: mk.trace_tiles(seed, *tabs, **kw), 20))
-            if not torch.equal(res["parent"], res["this"]):
+                res[who] = fn()
+                runs[who].append(cuda_ms(fn, 20))
+            if exact and not all(torch.equal(a, b) for a, b in
+                                 zip(res["parent"], res["this"])):
                 raise AssertionError(f"phase 5 A/B: {tag}: outputs differ")
+            if not exact:
+                grad_rule(res["this"], res["parent"], False)
             pm, tm = (float(np.median(runs[w])) for w in ("parent", "this"))
             phase(f"phase 5 A/B: {tag}: parent {pm:.4f} ms, this {tm:.4f} ms "
                   f"({(tm - pm) / pm:+.2%}; within 1%: {abs(tm - pm) < 0.01 * pm}"
-                  f"), outputs bit-equal; timings parent "
+                  f"), outputs {'bit-equal' if exact else 'by the gradient rule'}"
+                  f"; timings parent "
                   f"{[round(x, 4) for x in runs['parent']]}, this "
                   f"{[round(x, 4) for x in runs['this']]}; card {card}")
             out[tag] = (pm, tm)
@@ -521,17 +590,33 @@ def ab_parent(parent: str, cases, card):
     return out
 
 
-def grad_case(tag, sc, cfg, tri, dev, card):
-    """K6 against its plain version on the card, the same inputs and
-    per-slot cotangents: the gradient rule, both times by CUDA events, and
-    whether two launches give the same bits. Returns the numbers."""
-    tabs, meta, _, _ = grad_inputs(sc, cfg, GRAD_TILE, dev)
+def grad_setup(sc, cfg, dev):
+    """The gradient kernel's inputs for `sc` on the steps' layout and random
+    per-slot cotangents: (tabs, meta, arrays, cots)."""
+    tabs, meta, arrays, _ = grad_inputs(sc, cfg, GRAD_TILE, dev)
     rng = np.random.default_rng(0)
     cots = [torch.from_numpy(rng.random(tuple(tabs[4].shape),
                                         dtype=np.float32)).to(dev)
             for _ in range(3)]
+    return tabs, meta, arrays, cots
+
+
+def grad_case(tag, sc, cfg, mode, dev, card):
+    """K6 in `mode` ("object", "triangle" or "texel": K6-tex, the texels the
+    decoded pool) against its plain version on the card, the same inputs
+    and per-slot cotangents: the gradient rule (the texel rule in texel
+    mode), both times by CUDA events, and whether two launches give the
+    same bits. Returns the numbers."""
+    tabs, meta, arrays, cots = grad_setup(sc, cfg, dev)
     kw = dict(meta=meta, cfg=cfg, spp=cfg.samples,
-              total_samples=cfg.samples, tile=GRAD_TILE, tri_grads=tri)
+              total_samples=cfg.samples, tile=GRAD_TILE,
+              tri_grads=mode == "triangle")
+    tex_bytes = 0
+    if mode == "texel":
+        tex = texel_params(arrays)
+        kw.update(tex_grads=True, tex=tex, tex_table=torch.from_numpy(
+            mk.build_tex_table(arrays, meta)).to(dev))
+        tex_bytes = tex.shape[0] * 16 + nbytes(kw["tex_table"])
 
     def run():
         return tg.grad_tiles((3, 0), *tabs, *cots, **kw)
@@ -542,21 +627,31 @@ def grad_case(tag, sc, cfg, tri, dev, card):
     counts = {}
     p, p_ms = timed(lambda: tg.grad_tiles_reference(
         (3, 0), *tabs, *cots, counts=counts, **kw), stack=False)
-    err = grad_rule(k, p, meta.has_groups)
+    err = (tex_grad_rule(k, p) if mode == "texel"
+           else grad_rule(k, p, meta.has_groups))
     k_ms = cuda_ms(run, 5)
-    # in: the tables, pixel maps and cotangents; out: the gradient sums
-    bound = work_bound(counts, meta, nbytes(*tabs, *cots), nbytes(*k),
-                       grad=True)
-    tri_txt = (f"; gtri {err['gtri_frac']:.6f} of {meta.n_tri_slots} slots "
-               f"within the rule ({err['gtri_slots_hit']} hit)" if tri
-               else "")
-    phase(f"phase 6: {tag}, {'triangle' if tri else 'object'} mode, "
+    # in: the tables, pixel maps, cotangents (and texels, texture table);
+    # out: the gradient sums
+    bound = work_bound(counts, meta, nbytes(*tabs, *cots) + tex_bytes,
+                       nbytes(*k), grad=True, f32=mode == "texel")
+    extra = ""
+    if mode == "triangle":
+        extra = (f"; gtri {err['gtri_frac']:.6f} of {meta.n_tri_slots} slots "
+                 f"within the rule ({err['gtri_slots_hit']} hit)")
+    elif mode == "texel":
+        extra = (f"; gtex {err['gtex_frac']:.6f} of {err['gtex_touched']} "
+                 f"touched texels within the rule, channel sums within "
+                 f"{err['gtex_sum_rel']:.2e}; {counts['texel_scatters']} "
+                 f"texel scatters")
+    phase(f"phase {8 if mode == 'texel' else 6}: {tag}, {mode} mode, "
           f"{cfg.width}x{cfg.height}x{cfg.samples} spp: kernel {k_ms:.4f} "
           f"ms, plain {p_ms:.1f} ms; max rel err gcol {err['gcol']:.2e} "
-          f"gemi {err['gemi']:.2e}{tri_txt}; two launches bit-identical: "
-          f"{same_bits}; bound {bound[0]:.4f} ms ({bound[1]}); card {card}")
+          f"gemi {err['gemi']:.2e}{extra}; two launches bit-identical: "
+          f"{same_bits}; bound {bound[0]:.4f} ms ({bound[1]}; "
+          f"{bound[2]:.4g} f32 ops); card {card}")
     return dict(err, ms=k_ms, plain_ms=p_ms, same_bits=same_bits,
-                bound_ms=bound[0], bound_by=bound[1])
+                bound_ms=bound[0], bound_by=bound[1],
+                scatters=counts.get("texel_scatters", 0))
 
 
 def crn_target(tabs, meta, cfg, pid, seed, spp):
@@ -599,12 +694,12 @@ def grad_phase(dev, card, mesh_tris):
     gcfg = RenderConfig(width=W, height=H, samples=GRAD_SPP,
                         samples_per_pass=GRAD_SPP)
     g_ref = grad_case("reference", get_scene("reference", gcfg), gcfg,
-                      False, dev, card)
+                      "object", dev, card)
     g_tea = grad_case(f"teapot ({mesh_tris['teapot']} triangles)",
-                      get_scene("teapot", gcfg), gcfg, True, dev, card)
+                      get_scene("teapot", gcfg), gcfg, "triangle", dev, card)
     g_big = grad_case(f"size-check mesh ({mesh_tris['size-check mesh']} "
                       "triangles)", size_check_scene(gcfg, get_scene), gcfg,
-                      True, dev, card)
+                      "triangle", dev, card)
     return g_ref, g_tea, g_big
 
 
@@ -708,11 +803,138 @@ def training_phase(dev, card, mesh_tris):
     return rate, trate, k6_obj, k6_tri
 
 
+def tex_forward(dev, card):
+    """Phase 8 (f32 texels): `textures-train` at W x H x 8 spp on its own
+    tile through the f32-texel instantiation fetching the decoded pool,
+    bit-equal to rgb8 K1-tex and to the plain version; both kernels timed
+    in one call, the f32 one with its bound. Returns the numbers."""
+    cfg = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
+    sc = get_scene(TEX_TRAIN, cfg)
+    tabs, meta, _, lay = port_inputs(sc, cfg, None, dev)
+    arrays, _ = sc.pack(device=dev)
+    kw = dict(meta=meta, cfg=cfg, spp=8, total_samples=8,
+              tile=mk.default_tile(meta), **lay)
+    fkw = {k: v for k, v in kw.items() if k != "tex_pool"}
+    fkw["tex_texels"] = texel_params(arrays)
+    rgb8 = torch.stack(mk.trace_tiles((1, 0), *tabs, **kw))
+    f32 = torch.stack(mk.trace_tiles((1, 0), *tabs, **fkw))
+    counts = {}
+    p, p_ms = timed(lambda: mk.trace_tiles_reference((1, 0), *tabs, **fkw,
+                                                     counts=counts))
+    if not (torch.equal(f32, rgb8) and torch.equal(f32, p)):
+        raise AssertionError("phase 8: the f32-texel forward differs from "
+                             "rgb8 K1-tex or from its plain version")
+    f_ms = cuda_ms(lambda: mk.trace_tiles((1, 0), *tabs, **fkw), 10)
+    r_ms = cuda_ms(lambda: mk.trace_tiles((1, 0), *tabs, **kw), 10)
+    b_ms, b_by, ops = fwd_bound(counts, tabs, fkw)
+    phase(f"phase 8: {TEX_TRAIN} {W}x{H}x8 spp (tile {kw['tile']}, "
+          f"{fkw['tex_texels'].shape[0]} texels, {counts['texel_fetches']} "
+          f"fetches): f32-texel kernel {f_ms:.4f} ms, rgb8 K1-tex {r_ms:.4f} "
+          f"ms ({(f_ms - r_ms) / r_ms:+.2%}), bit-equal to each other and to "
+          f"the plain version ({p_ms:.1f} ms); bound {b_ms:.4f} ms ({b_by}; "
+          f"{ops:.4g} f32 ops); card {card}")
+    return dict(ms=f_ms, rgb8_ms=r_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, err=float((f32 - p).abs().max()))
+
+
+def tex_training(dev, card):
+    """Phase 8, the main path of texel training, with its launch counts set
+    to 0 just before: `textures-train` at W x H, the staged textures'
+    texels perturbed by U(-0.3, 0.3) and recovered toward a
+    common-random-number target through make_diff_render_tex (STEP_SPP a
+    step, Adam, clipped to [0, 1]; the loss must fall over 5 steps); the
+    fwd+bwd rate of make_megakernel_step_tex as bench.py measures
+    `fwd_bwd_textures-train`; a short `train_demo --tex`. Returns the
+    numbers."""
+    tg.grad_tiles.launches = 0
+    tg.grad_tiles.tex_launches = 0
+    mk.trace_tiles.launches = 0
+    mk.trace_tiles.texel_launches = 0
+    cfg = RenderConfig(width=W, height=H, samples=SPP)
+    sc = get_scene(TEX_TRAIN, cfg)
+    tabs, meta, arrays, pid = grad_inputs(sc, cfg, GRAD_TILE, dev)
+    table = torch.from_numpy(mk.build_tex_table(arrays, meta)).to(dev)
+    render = tg.make_diff_render_tex(meta, cfg, STEP_SPP, cfg.samples,
+                                     GRAD_TILE)
+    tex_true = texel_params(arrays)
+    train = trainable_texels(arrays, meta)
+    rng = np.random.default_rng(7)
+    tex0 = tex_true.clone()
+    tex0[train] = torch.clamp(tex0[train] + torch.from_numpy(rng.uniform(
+        -0.3, 0.3, (int(train.sum()), 3)).astype(np.float32)).to(dev),
+        0.0, 1.0)
+    crn = (1, 0)
+    valid = torch.from_numpy((pid >= 0).reshape(tabs[4].shape)
+                             .astype(np.float32)).to(dev)
+    n_valid = float((pid >= 0).sum())
+
+    def forward(t):
+        return render.apply(arrays.color, arrays.emission, t, crn, *tabs,
+                            table)
+
+    with torch.no_grad():
+        target = forward(tex_true)
+    tex = tex0.clone().requires_grad_(True)
+    opt = torch.optim.Adam([tex], lr=TEX_LR)
+    losses = []
+    for _ in range(5):
+        opt.zero_grad()
+        loss = sum(torch.sum(((x - t) * valid) ** 2) for x, t in
+                   zip(forward(tex), target)) / (3.0 * n_valid * STEP_SPP ** 2)
+        loss.backward()
+        opt.step()
+        with torch.no_grad():
+            tex.clamp_(0.0, 1.0)
+        losses.append(float(loss.detach()))
+    mad0 = float((tex0[train] - tex_true[train]).abs().mean())
+    mad1 = float((tex.detach()[train] - tex_true[train]).abs().mean())
+    check_falls(f"phase 8: {TEX_TRAIN} {W}x{H}, {STEP_SPP} spp a step, "
+                f"{int(train.sum())} texels x 3 perturbed (texel MAD {mad0:.5f}"
+                f" -> {mad1:.5f})", losses)
+    step, target_of = make_megakernel_step_tex(arrays, meta, cfg, sc.camera,
+                                               spp=STEP_SPP)
+    zero = target_of(np.zeros((H, W, 3), np.float32))
+    rate, dt = step_rate(step, (arrays.color, arrays.emission, tex_true),
+                         zero, STEP_SPP)
+    phase(f"phase 8: {TEX_TRAIN} fwd+bwd {rate:.1f} Msamples/s ({W}x{H}x"
+          f"{STEP_SPP} spp x 3 steps in {dt:.4f} s, bench.py's "
+          f"fwd_bwd_{TEX_TRAIN} measurement); card {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        strip = os.path.join(tmp, "demo.png")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_demo.main(["--tex", "--width", "160", "--height",
+                                  "120", "--spp", "8", "--steps", "5",
+                                  "--out", strip])
+        out = buf.getvalue()
+        m = re.search(r"loss ([0-9.]+) -> ([0-9.]+); texel MAD "
+                      r"([0-9.]+) -> ([0-9.]+)", out)
+        if rc != 0 or m is None or not os.path.getsize(strip):
+            raise AssertionError(f"phase 8: train_demo --tex failed (rc "
+                                 f"{rc}):\n{out[-2000:]}")
+        phase(f"phase 8: train_demo --tex: {out.strip().splitlines()[-2]}")
+        if not float(m.group(2)) < float(m.group(1)):
+            raise AssertionError("phase 8: train_demo --tex's loss did not "
+                                 "fall")
+    launches = dict(grad=tg.grad_tiles.launches,
+                    tex=tg.grad_tiles.tex_launches,
+                    fwd=mk.trace_tiles.launches,
+                    texel=mk.trace_tiles.texel_launches)
+    phase(f"phase 8: {launches['tex']} texel-mode gradient-kernel launches "
+          f"(of {launches['grad']}), {launches['texel']} f32-texel forward "
+          f"launches (of {launches['fwd']})")
+    if not (launches["tex"] == launches["grad"] > 0
+            and launches["texel"] == launches["fwd"] > 0):
+        raise AssertionError("phase 8: texel training did not launch the "
+                             "kernels of its path")
+    return dict(rate=rate, losses=losses, mad=(mad0, mad1), **launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab-parent", metavar="DIR",
-                    help="A/B K1 and K1-mesh against the csrc of the "
-                         "pathtracer_tpu_torch under DIR (phase 5)")
+                    help="A/B K1, K1-mesh, K1-tex and K6 against the csrc "
+                         "of the pathtracer_tpu_torch under DIR (phase 5)")
     args = ap.parse_args(argv)
     # ---- phase 1: the card ----------------------------------------------
     smi = subprocess.run(
@@ -968,12 +1190,37 @@ def main(argv=None) -> int:
     probe = fetch_probe(dev, card)
     mip_blur(dev, card)
     if args.ab_parent:
+        gcfg = RenderConfig(width=W, height=H, samples=GRAD_SPP,
+                            samples_per_pass=GRAD_SPP)
+        gtabs, gmeta, _, gcots = grad_setup(get_scene("reference", gcfg),
+                                            gcfg, dev)
         ab_parent(args.ab_parent, {
-            f"reference {W}x{H}x8 spp": ((1, 0), tabs8, kw8),
-            f"teapot {W}x{H}x8 spp": (mseed, mtabs, mkw)}, card)
+            f"reference {W}x{H}x8 spp": (
+                lambda: mk.trace_tiles((1, 0), *tabs8, **kw8), True),
+            f"teapot {W}x{H}x8 spp": (
+                lambda: mk.trace_tiles(mseed, *mtabs, **mkw), True),
+            f"textures {W}x{H}x8 spp (K1-tex)": (
+                lambda: mk.trace_tiles(tex_main["seed"], *tex_main["tabs"],
+                                       **tex_main["kw"]), True),
+            f"K6 reference {W}x{H}x{GRAD_SPP} spp": (
+                lambda: tg.grad_tiles(
+                    (3, 0), *gtabs, *gcots, meta=gmeta, cfg=gcfg,
+                    spp=GRAD_SPP, total_samples=GRAD_SPP, tile=GRAD_TILE),
+                False)}, card, ptxas)
 
     g_ref, g_tea, g_big = grad_phase(dev, card, mesh_tris)
     rate, trate, k6_obj, k6_tri = training_phase(dev, card, mesh_tris)
+
+    # ---- phase 8: the texel path (K6-tex, f32 texels) -------------------
+    f32_fwd = tex_forward(dev, card)
+    tcfg4 = RenderConfig(width=W, height=H, samples=GRAD_SPP,
+                         samples_per_pass=GRAD_SPP)
+    g_tex = grad_case(TEX_TRAIN, get_scene(TEX_TRAIN, tcfg4), tcfg4, "texel",
+                      dev, card)
+    phase(f"phase 8: K6-tex {g_tex['ms']:.4f} ms vs K6 on reference "
+          f"{g_ref['ms']:.4f} ms for the same {W}x{H}x{GRAD_SPP} samples "
+          f"({g_tex['ms'] / g_ref['ms']:.2f}x); card {card}")
+    tex_train = tex_training(dev, card)
 
     print(json.dumps({"kernels": [
         {"name": "megakernel", "route": "cuda",
@@ -1039,7 +1286,33 @@ def main(argv=None) -> int:
          "plain_ms": tex_times["textures"]["plain_ms"],
          "bound_ms": tex_times["textures"]["bound_ms"],
          "bound_by": tex_times["textures"]["bound_by"], "library_ms": None,
-         "by_scene": tex_times, "fetch_probe": probe}]}))
+         "by_scene": tex_times, "fetch_probe": probe},
+        {"name": "megakernel-tex-f32", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pathtracer_tpu/render/pallas_kernel.py:999,1130",
+         "launches": tex_train["texel"], "max_abs_err": f32_fwd["err"],
+         "bit_equal_to_rgb8": True, "shape": f"{TEX_TRAIN} {W}x{H}x8spp",
+         "ms": f32_fwd["ms"], "rgb8_ms": f32_fwd["rgb8_ms"],
+         "plain_ms": f32_fwd["plain_ms"], "bound_ms": f32_fwd["bound_ms"],
+         "bound_by": f32_fwd["bound_by"], "library_ms": None},
+        {"name": "grad-megakernel-tex", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pathtracer_tpu/render/pallas_grad.py:267,65,148",
+         "launches": tex_train["tex"], "max_abs_err": g_tex["max_abs_err"],
+         "gcol_rel_err": g_tex["gcol"], "gemi_rel_err": g_tex["gemi"],
+         "gtex_touched_frac": g_tex["gtex_frac"],
+         "gtex_touched": g_tex["gtex_touched"],
+         "gtex_sum_rel_err": g_tex["gtex_sum_rel"],
+         "texel_scatters": g_tex["scatters"],
+         "shape": f"{TEX_TRAIN} {W}x{H}x{GRAD_SPP}spp", "ms": g_tex["ms"],
+         "plain_ms": g_tex["plain_ms"], "bound_ms": g_tex["bound_ms"],
+         "bound_by": g_tex["bound_by"], "library_ms": None,
+         "relaunch_bit_identical": g_tex["same_bits"],
+         "vs_k6_reference": g_tex["ms"] / g_ref["ms"],
+         "fwd_bwd_msamples_per_s": tex_train["rate"],
+         "fwd_bwd_shape": f"{TEX_TRAIN} {W}x{H}x{STEP_SPP}spp x 3 steps",
+         "train_losses": tex_train["losses"],
+         "train_texel_mad": tex_train["mad"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

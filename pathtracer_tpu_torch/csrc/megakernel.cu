@@ -88,6 +88,21 @@
 // gradient sums are not bit-reproducible; the forward instantiations
 // (kGrad = false) compile to the code they had before: every grad-only
 // variable is dead there.
+//
+// Texel gradients (K6-tex). Replaces the tex_grads mode of _make_grad_kernel
+// (pallas_grad.py:601-653, :877-925) and its transposed one-hot scatters
+// (_scatter_staged :65, _scatter_staged_unified :148), which the TPU needed
+// because a lane cannot scatter. The trainable texels are an f32 copy of
+// the pool, laid out [T, 4] (rgb and one pad float, so a tap is one 16-byte
+// load); the kF32 instantiations fetch from it (sample_texels: the same
+// wrap, clamp and x-first blend as sample_pool, so with the pool's decoded
+// values they render the rgb8 image bit for bit). The kGrad + kTex + kF32
+// instantiation tapes the (u, v) of each bounce's color fetch and, in the
+// reverse walk, adds the bounce's dS/dc times the four bilinear weights
+// into gtex [T, 3] by global atomic adds (scatter_texels), for winners whose
+// texture is trainable (bit j of tex_train: a texture the JAX package
+// stages). A textured winner's object color gets no gradient (the texel
+// overwrote it); its emission still does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -373,6 +388,49 @@ __device__ __forceinline__ void sample_pool(const int* __restrict__ pool,
   b = out[2];
 }
 
+// The four texel indices of a bilinear REPEAT fetch at (u, v) and its x/y
+// weights, computed as sample_pool computes them; the indices also stay
+// below n, the texel count (a table that reaches past the texels reads and
+// writes the last one instead of other memory).
+__device__ __forceinline__ void texel_taps(float base, float w, float h,
+                                           float u, float v, int n,
+                                           int (&idx)[4], float& tx,
+                                           float& ty) {
+  const float fx = u * w - 0.5f;
+  const float fy = v * h - 0.5f;
+  const float x0 = floorf(fx);
+  const float y0 = floorf(fy);
+  tx = fx - x0;
+  ty = fy - y0;
+  const int bi = (int)base, wi = (int)w;
+  const int last = min(bi + wi * (int)h, n) - 1;
+  const int c0 = (int)wrap_tex(x0, w), c1 = (int)wrap_tex(x0 + 1.0f, w);
+  const int r0 = (int)wrap_tex(y0, h), r1 = (int)wrap_tex(y0 + 1.0f, h);
+  idx[0] = min(max(bi + r0 * wi + c0, bi), last);
+  idx[1] = min(max(bi + r0 * wi + c1, bi), last);
+  idx[2] = min(max(bi + r1 * wi + c0, bi), last);
+  idx[3] = min(max(bi + r1 * wi + c1, bi), last);
+}
+
+// sample_pool on the n f32 texels [n, 4]: one 16-byte load a tap, the same
+// blend
+__device__ __forceinline__ void sample_texels(const float4* __restrict__ tex,
+                                              int n, float base, float w,
+                                              float h, float u, float v,
+                                              float& r, float& g, float& b) {
+  int idx[4];
+  float tx, ty;
+  texel_taps(base, w, h, u, v, n, idx, tx, ty);
+  const float4 c00 = __ldg(tex + idx[0]), c01 = __ldg(tex + idx[1]);
+  const float4 c10 = __ldg(tex + idx[2]), c11 = __ldg(tex + idx[3]);
+  r = (c00.x * (1.0f - tx) + c01.x * tx) * (1.0f - ty) +
+      (c10.x * (1.0f - tx) + c11.x * tx) * ty;
+  g = (c00.y * (1.0f - tx) + c01.y * tx) * (1.0f - ty) +
+      (c10.y * (1.0f - tx) + c11.y * tx) * ty;
+  b = (c00.z * (1.0f - tx) + c01.z * tx) * (1.0f - ty) +
+      (c10.z * (1.0f - tx) + c11.z * tx) * ty;
+}
+
 struct Params {
   float* out_r;
   float* out_g;
@@ -403,10 +461,37 @@ struct Params {
   // table
   const int* __restrict__ tex_pool;
   const float* tex_table;
+  // kF32 only: the f32 texels [T, 4] fetched in place of the pool; with
+  // kGrad the [T, 3] texel gradient sums and the objects whose texture
+  // takes them (bit j for object j)
+  const float4* __restrict__ tex_texels;
+  float* gtex;
+  unsigned long long tex_train;
+  int n_texels;
 };
 
 __device__ __forceinline__ void add_nonzero(float* a, float v) {
   if (v != 0.0f) atomicAdd(a, v);
+}
+
+// Transpose of sample_texels: the bounce's dS/dc (gr, gg, gb) times each
+// tap's bilinear weight, added into gtex [n, 3] at the fetch's indices.
+__device__ __forceinline__ void scatter_texels(float* gtex, int n,
+                                               const float* tt, float u,
+                                               float v, float gr, float gg,
+                                               float gb) {
+  int idx[4];
+  float tx, ty;
+  texel_taps(tt[1], tt[2], tt[3], u, v, n, idx, tx, ty);
+  const float wt[4] = {(1.0f - tx) * (1.0f - ty), tx * (1.0f - ty),
+                       (1.0f - tx) * ty, tx * ty};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float* g = gtex + (size_t)idx[k] * 3;
+    add_nonzero(g, gr * wt[k]);
+    add_nonzero(g + 1, gg * wt[k]);
+    add_nonzero(g + 2, gb * wt[k]);
+  }
 }
 
 // ---- BVH walk (pallas_kernel.py:1231-1540, one ray) -------------------------
@@ -486,13 +571,15 @@ __device__ __forceinline__ float walk_group(const Params& p, int root, int end,
   return bt;
 }
 
-template <bool kMesh, bool kGrad, bool kTex>
+// kF32 (with kTex): fetch from the f32 texels, not the rgb8 pool
+template <bool kMesh, bool kGrad, bool kTex, bool kF32 = false>
 __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   extern __shared__ float smem[];
   float* s_obj = smem;
   float* s_cam = s_obj + p.n_obj * kObjCols;
   float* s_g = s_cam + kCamCols;  // kGrad: the block's [n_obj, 6] sums
-  float* s_tex = s_cam + kCamCols;  // kTex: the texture table
+  // kTex: the texture table, after the sums when both are there
+  float* s_tex = s_g + (kGrad ? p.n_obj * kGradCols : 0);
   for (int i = threadIdx.x; i < p.n_obj * kObjCols; i += blockDim.x)
     s_obj[i] = p.obj[i];
   for (int i = threadIdx.x; i < kCamCols; i += blockDim.x) s_cam[i] = p.cam[i];
@@ -584,6 +671,7 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
     // that entry k updated the mask
     int t_id[kMaxTape];
     float t_cos[kMaxTape], t_m[3 * kMaxTape], t_c[3 * kMaxTape];
+    float t_u[kMaxTape], t_v[kMaxTape];  // kTex: the color fetch's (u, v)
     int nb = 0;
     uint32_t upd_bits = 0u;
     bool direct = false;
@@ -696,8 +784,14 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
         if (tt != nullptr && tt[6] > 0.5f) {
           // plane normal map: the texel is the object-space normal,
           // normalized after the inverse-transpose (tracer.cl:907-911)
-          sample_pool(p.tex_pool, tt[7], tt[8], tt[9], fabsf(lx) * tt[10],
-                      fabsf(lz) * tt[11], nlx, nly, nlz);
+          if constexpr (kF32) {
+            sample_texels(p.tex_texels, p.n_texels, tt[7], tt[8], tt[9],
+                          fabsf(lx) * tt[10], fabsf(lz) * tt[11], nlx, nly,
+                          nlz);
+          } else {
+            sample_pool(p.tex_pool, tt[7], tt[8], tt[9], fabsf(lx) * tt[10],
+                        fabsf(lz) * tt[11], nlx, nly, nlz);
+          }
         }
       }
       float nx = wm[12] * nlx + wm[13] * nly + wm[14] * nlz;
@@ -711,6 +805,7 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
       // the color: the triangle's, the texel's, or the object row's (read
       // where it is used, below)
       bool own_col = on_tri;
+      float tex_u = 0.f, tex_v = 0.f;  // kGrad: the color fetch's (u, v)
       if constexpr (kTex) {
         if (tt != nullptr && tt[0] > 0.5f) {
           // texture color (tracer.cl:1075-1093) by the UV map of the type
@@ -723,7 +818,17 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
           } else {
             cube_uv(lx, ly, lz, su, sv);
           }
-          sample_pool(p.tex_pool, tt[1], tt[2], tt[3], su, sv, tcr, tcg, tcb);
+          if constexpr (kF32) {
+            sample_texels(p.tex_texels, p.n_texels, tt[1], tt[2], tt[3], su,
+                          sv, tcr, tcg, tcb);
+          } else {
+            sample_pool(p.tex_pool, tt[1], tt[2], tt[3], su, sv, tcr, tcg,
+                        tcb);
+          }
+          if constexpr (kGrad) {
+            tex_u = su;
+            tex_v = sv;
+          }
           own_col = true;
         }
       }
@@ -808,6 +913,10 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
           t_c[3 * nb] = own_col ? tcr : wm[24];
           t_c[3 * nb + 1] = own_col ? tcg : wm[25];
           t_c[3 * nb + 2] = own_col ? tcb : wm[26];
+          if constexpr (kTex) {
+            t_u[nb] = tex_u;
+            t_v[nb] = tex_v;
+          }
           if (!is_light) upd_bits |= 1u << nb;
           direct = is_light && n_hits == 0;
           ++nb;
@@ -849,11 +958,21 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
       // ---- this sample's backward pass (pallas_grad.py:806-939) --------
       if (direct) {
         // a direct light hit overwrote the sum with the light's color:
-        // that color alone has a gradient
-        float* g = s_g + t_id[0] * kGradCols;
-        add_nonzero(g, cot_r);
-        add_nonzero(g + 1, cot_g);
-        add_nonzero(g + 2, cot_b);
+        // that color alone has a gradient (a textured light's: its texels)
+        bool own = true;
+        if constexpr (kTex) {
+          const float* tt = s_tex + t_id[0] * kTexCols;
+          if ((p.tex_train >> t_id[0]) & 1ull)
+            scatter_texels(p.gtex, p.n_texels, tt, t_u[0], t_v[0], cot_r,
+                           cot_g, cot_b);
+          own = !(tt[0] > 0.5f);
+        }
+        if (own) {
+          float* g = s_g + t_id[0] * kGradCols;
+          add_nonzero(g, cot_r);
+          add_nonzero(g + 1, cot_g);
+          add_nonzero(g + 2, cot_b);
+        }
       } else {
         float T_r = 0.0f, T_g = 0.0f, T_b = 0.0f;
         for (int k = nb - 1; k >= 0; --k) {
@@ -869,6 +988,17 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
             float* g = id >= 0 ? s_g + id * kGradCols
                      : p.gtri != nullptr ? p.gtri + (size_t)(-1 - id) * 3
                                          : nullptr;
+            if constexpr (kTex) {
+              if (id >= 0) {
+                // a textured winner's color is its texel: the gradient
+                // goes to the texels when they train, else nowhere
+                const float* tt = s_tex + id * kTexCols;
+                if ((p.tex_train >> id) & 1ull)
+                  scatter_texels(p.gtex, p.n_texels, tt, t_u[k], t_v[k], gr,
+                                 gg, gb);
+                if (tt[0] > 0.5f) g = nullptr;
+              }
+            }
             if (g != nullptr) {
               add_nonzero(g, gr);
               add_nonzero(g + 1, gg);
@@ -912,8 +1042,9 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
 
 // Copy the host type codes and group ranges into the launch parameters
 // and launch the instantiation the scene needs (kMesh when it has a GROUP,
-// kTex when the caller passed a texel pool).
-template <bool kGrad, bool kTex>
+// kTex when the caller passed a texel pool or f32 texels, kF32 for the
+// latter).
+template <bool kGrad, bool kTex, bool kF32 = false>
 int launch(Params& p, const int* obj_types, const int* group_root,
            const int* group_end, void* stream) {
   bool mesh = false;
@@ -930,10 +1061,10 @@ int launch(Params& p, const int* obj_types, const int* group_root,
   const int blocks = (p.n_slots + kThreads - 1) / kThreads;
   if (blocks > 0) {
     if (mesh)
-      megakernel<true, kGrad, kTex>
+      megakernel<true, kGrad, kTex, kF32>
           <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
     else
-      megakernel<false, kGrad, kTex>
+      megakernel<false, kGrad, kTex, kF32>
           <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
@@ -1004,6 +1135,36 @@ extern "C" int pt_megakernel_tex_launch(
   return launch<false, true>(p, obj_types, group_root, group_end, stream);
 }
 
+// Launch the f32-texel instantiations: pt_megakernel_tex_launch with the
+// n_texels f32 texels [n_texels, 4] (rgb and a pad float, 16-byte aligned)
+// in place of the rgb8 pool. With texels q * f32(1/255) of the pool's bytes
+// the result is pt_megakernel_tex_launch's bit for bit.
+extern "C" int pt_megakernel_texels_launch(
+    float* out_r, float* out_g, float* out_b, const int* px, const int* py,
+    const float* obj, const int* obj_types, const float* cam,
+    const float* nodes, const float* tris, const int* group_root,
+    const int* group_end, int n_obj, int n_slots, int S, int L, int spp,
+    int spp_pack, int chunk_axis, uint32_t seed, int sample_base,
+    int max_bounces, int max_eff, int leaf_size, int oct_nodes, float eps,
+    float t_max, float sun_cut, float sun_den, float golden2, int coherent,
+    void* stream, const float* texels, int n_texels,
+    const float* tex_table) {
+  if (n_obj < 1 || n_obj > kMaxObjects || spp_pack < 1 || leaf_size < 1 ||
+      spp % spp_pack != 0 || (chunk_axis ? L % spp_pack : S % spp_pack) != 0 ||
+      texels == nullptr || n_texels < 1 || tex_table == nullptr ||
+      reinterpret_cast<uintptr_t>(texels) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  Params p{out_r, out_g, out_b, px, py, obj, cam, nodes, tris,
+           n_obj, n_slots, S, L, spp / spp_pack, spp_pack, chunk_axis, seed,
+           sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
+           eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
+           nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, tex_table,
+           reinterpret_cast<const float4*>(texels), nullptr, 0ull,
+           n_texels};
+  return launch<false, true, true>(p, obj_types, group_root, group_end,
+                                   stream);
+}
+
 // Launch the texel-fetch probe over n (u, v) pairs of one texture at (base,
 // w, h) of the pool; out_* [n]. Returns as pt_megakernel_launch does.
 extern "C" int pt_tex_fetch_launch(float* out_r, float* out_g, float* out_b,
@@ -1045,4 +1206,37 @@ extern "C" int pt_grad_launch(
            eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
            cot_r, cot_g, cot_b, gobj, gtri, nullptr, nullptr};
   return launch<true, false>(p, obj_types, group_root, group_end, stream);
+}
+
+// Launch the texel-gradient instantiation (K6-tex): pt_grad_launch's
+// arguments, then the n_texels f32 texels [n_texels, 4] the replay fetches
+// from, the texture table [n_obj, 12], the texel gradient sums gtex
+// [n_texels, 3] (zeroed by the caller; the kernel adds into them) and
+// tex_train, whose bit j says that object j's texture takes texel
+// gradients. Returns as pt_megakernel_launch does.
+extern "C" int pt_grad_tex_launch(
+    const float* cot_r, const float* cot_g, const float* cot_b, float* gobj,
+    const int* px, const int* py, const float* obj, const int* obj_types,
+    const float* cam, const float* nodes, const float* tris,
+    const int* group_root, const int* group_end, int n_obj, int n_slots,
+    int S, int L, int spp, uint32_t seed, int sample_base, int max_bounces,
+    int max_eff, int leaf_size, int oct_nodes, float eps, float t_max,
+    float sun_cut, float sun_den, float golden2, int coherent, void* stream,
+    const float* texels, int n_texels, const float* tex_table, float* gtex,
+    unsigned long long tex_train) {
+  if (n_obj < 1 || n_obj > kMaxObjects || leaf_size < 1 ||
+      n_slots % kThreads != 0 || max_bounces > kMaxTape ||
+      texels == nullptr || n_texels < 1 || tex_table == nullptr ||
+      gtex == nullptr ||
+      reinterpret_cast<uintptr_t>(texels) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  Params p{nullptr, nullptr, nullptr, px, py, obj, cam, nodes, tris,
+           n_obj, n_slots, S, L, spp, 1, 0, seed,
+           sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
+           eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
+           cot_r, cot_g, cot_b, gobj, nullptr, nullptr, tex_table,
+           reinterpret_cast<const float4*>(texels), gtex, tex_train,
+           n_texels};
+  return launch<true, true, true>(p, obj_types, group_root, group_end,
+                                  stream);
 }

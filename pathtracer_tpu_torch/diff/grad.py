@@ -7,42 +7,66 @@ gradient through the autograd Functions of render/grad.py (forward = the
 megakernel, backward = one gradient-kernel launch), the update under
 torch.no_grad().
 
-Not ported yet: `make_megakernel_step_tex` (ROADMAP queue 1, item 10), the
-sharded steps (item 13) and the wavefront `render_image_diff`/`train_step`
-(item 12).
+Not ported yet: the sharded steps (ROADMAP queue 1, item 13) and the
+wavefront `render_image_diff`/`train_step` (item 12).
 """
 from __future__ import annotations
 
+import types
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..render import megakernel as mk
-from ..render.grad import make_diff_render, make_diff_render_tri
+from ..render.grad import (make_diff_render, make_diff_render_tex,
+                           make_diff_render_tri)
+from ..scene.pack import atlas_to_texels, texel_params
 
 
 class SceneParams(NamedTuple):
-    """The trainable subset of SceneArrays that this package differentiates
-    (the JAX package's SceneParams also carries the texture atlases)."""
+    """The trainable subset of SceneArrays that this package differentiates.
+    The JAX package trains its staged texture atlas; this one trains an f32
+    copy of the texel pool (scene.pack.texel_params), `tex`."""
     color: torch.Tensor      # [No, 3]
     emission: torch.Tensor   # [No, 3]
     tri_color: torch.Tensor  # [Nt, 3]
+    tex: torch.Tensor = None  # [T, 3]
 
 
-def from_jax_params(params, device) -> SceneParams:
+def from_jax_params(params, device, meta=None) -> SceneParams:
     """Carry the JAX package's trainable parameters over to this one (the
     companion of scene.pack.from_jax_scene, which carries the geometry).
 
     `params` holds numpy arrays `color`, `emission` and `tri_color` (the
     JAX SceneArrays or SceneParams with each field converted by the
     caller, or a mapping of those names); returns float32 tensors on
-    `device`."""
+    `device`. When it also holds the texel pool (`tex_pool_u32`, `tex_base`,
+    `tex_w`, `tex_h`: the JAX SceneArrays), `tex` is the decoded pool, and
+    with the scene's `meta` and its staged atlas (`tex_staged`) each texel
+    of a texture staged at full size takes the atlas's value
+    (scene.pack.atlas_to_texels): the carried-over values, not the bytes
+    decoded again, so both packages train the same numbers. Else `tex` is
+    None."""
     get = (params.__getitem__ if isinstance(params, dict)
            else lambda k: getattr(params, k))
-    return SceneParams(*(
-        torch.from_numpy(np.array(get(k), dtype=np.float32)).to(device)
-        for k in SceneParams._fields))
+
+    def has(k):
+        return k in params if isinstance(params, dict) else hasattr(params, k)
+
+    out = [torch.from_numpy(np.array(get(k), dtype=np.float32)).to(device)
+           for k in ("color", "emission", "tri_color")]
+    tex = None
+    if all(has(k) for k in ("tex_pool_u32", "tex_base", "tex_w", "tex_h")):
+        pool = types.SimpleNamespace(
+            tex_pool_u32=torch.from_numpy(np.array(
+                get("tex_pool_u32"), np.uint32)).to(device),
+            **{k: np.asarray(get(k)) for k in ("tex_base", "tex_w",
+                                               "tex_h")})
+        tex = texel_params(pool)
+        if meta is not None and has("tex_staged"):
+            tex = atlas_to_texels(get("tex_staged"), pool, meta, tex)
+    return SceneParams(*out, tex)
 
 
 def _make_target_of(pid: np.ndarray, tile_shape, device):
@@ -116,6 +140,44 @@ def make_megakernel_step(scn, meta, cfg, camera, spp, tile=(8, 512),
             gc, ge = torch.autograd.grad(loss, (c, e))
         with torch.no_grad():
             return color - lr * gc, emission - lr * ge, loss.detach()
+
+    return step, target_of
+
+
+def make_megakernel_step_tex(scn, meta, cfg, camera, spp, tile=(8, 512),
+                             lr=0.05):
+    """SGD step on (color, emission, texels) through the differentiable
+    megakernel's texel mode (render/grad.make_diff_render_tex): forward =
+    the megakernel fetching the f32 texels, backward = one launch of the
+    texel-gradient kernel.
+
+    Returns (step, target_of): step(color, emission, tex [T, 3], seed
+    (prng seed, sample base), target) -> (new_color, new_emission,
+    new_tex, loss), and target_of(img [H, W, 3]) -> the step's tiled
+    (r, g, b) target. tex starts as scene.pack.texel_params(scn) (or the
+    JAX atlas carried over by from_jax_params); texels outside the staged
+    textures get exactly-zero gradients."""
+    inp = _step_inputs(scn, meta, camera, tile)
+    tex_table = torch.from_numpy(mk.build_tex_table(scn, meta)).to(
+        scn.color.device)
+    render = make_diff_render_tex(meta, cfg, spp, cfg.samples, tuple(tile))
+    inv_spp = 1.0 / float(spp)
+    target_of = _make_target_of(inp["pid"], inp["px"].shape,
+                                scn.color.device)
+
+    def step(color, emission, tex, seed, target):
+        with torch.enable_grad():
+            params = [p.detach().requires_grad_(True)
+                      for p in (color, emission, tex)]
+            rgb = render.apply(*params, seed, inp["cam_vec"], inp["obj"],
+                               inp["nodes"], inp["tris"], inp["px"],
+                               inp["py"], tex_table)
+            loss = _masked_mse(rgb, target, inp["valid"], inv_spp,
+                               inp["n_valid"])
+            grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            return (*(p - lr * g for p, g in
+                      zip((color, emission, tex), grads)), loss.detach())
 
     return step, target_of
 

@@ -14,7 +14,10 @@ a TPU lane cannot gather. Here every texture, procedural or file, small or
 large, is one 4-tap bilinear fetch from the full-resolution rgb8 texel
 pool (`sample_pool`), with the object's (base, w, h) from the texture
 table (`build_tex_table`). The UV maps are the JAX kernel's, operation for
-operation (`_spherical_uv`, `_cube_uv`).
+operation (`_spherical_uv`, `_cube_uv`). The differentiable render fetches
+from f32 texels instead (`tex_texels`, `sample_texels`: the pool decoded,
+then trained), which with the decoded pool give the rgb8 render bit for
+bit.
 
 Meshes: the JAX kernel walks the skip-link BVH with one node pointer per
 (8, 512) packet (`_packet_traverse`). Here every ray walks it alone
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..scene.pack import SceneArrays, SceneMeta
+from ..scene.pack import SceneArrays, SceneMeta, _np, decode_rgb8, is_staged
 from ..scene.shapes import BOX, CYLINDER, GROUP, PLANE, SPHERE
 from . import _build
 
@@ -95,15 +98,9 @@ _NEE_ITEM = "ROADMAP queue 1, item 11 (in-kernel NEE)"
 #   7-9   base, w, h of the normal map in the pool
 #   10-11 sxn, syn
 _TEX_COLS = 12
-_INV255 = float(np.float32(1.0 / 255.0))
 
 
 # --- host tables and layout ------------------------------------------------
-
-def _np(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
-        else np.asarray(a)
-
 
 def build_scene_table(scn: SceneArrays, meta: SceneMeta) -> np.ndarray:
     """[No, _OBJ_COLS] float32 host-side object table."""
@@ -193,10 +190,6 @@ def build_mesh_tables(scn: SceneArrays, meta: SceneMeta,
     return nodes, flat.reshape(rows, _TRI_SLOTS_PER_ROW * _TRI_STRIDE)
 
 
-def _is_staged(desc) -> bool:
-    return isinstance(desc, tuple) and bool(desc) and desc[0] == "__staged__"
-
-
 def textures_computable(meta: SceneMeta) -> bool:
     """Whether the JAX package's TPU kernel can sample every texture of the
     scene (pallas_kernel.textures_computable): each carries a procedural
@@ -214,7 +207,7 @@ def staged_lanes(meta: SceneMeta) -> int:
     128-lane multiple, and the atlas is three planes wide."""
     m = 0
     for (_slot, desc, _w, _h, _sx, _sy) in meta.obj_tex + meta.obj_tex_nm:
-        if _is_staged(desc):
+        if is_staged(desc):
             _, b, w, h = desc
             m = max(m, b + (-(-h // 128)) * w)
     return 3 * max(128, -(-m // 128) * 128) if m else 0
@@ -730,13 +723,12 @@ def _wrap_tex(a, m):
     return a - m * torch.floor(a / m)
 
 
-def sample_pool(pool, base, w, h, u, v):
-    """Bilinear REPEAT sample of the rgb8 texel pool (int32 [T]) at (u, v)
-    for textures at (base, w, h) (f32 tensors broadcastable with u): four
-    point taps, each index clamped into [base, base + w*h) as
-    jnp.take(mode="clip") does, decoded as q * f32(1/255), blended in f32
-    in the JAX order (x first). Semantics of tracer.cl:829 (normalized
-    coords, REPEAT, LINEAR). Returns (r, g, b)."""
+def texel_taps(base, w, h, u, v):
+    """The four texel indices of a bilinear REPEAT fetch at (u, v) for
+    textures at (base, w, h) (f32 tensors broadcastable with u), each
+    clamped into [base, base + w*h) as jnp.take(mode="clip") does, in the
+    order (y0, x0), (y0, x1), (y1, x0), (y1, x1), and the x/y weights (tx,
+    ty). csrc/megakernel.cu's texel_taps computes the same."""
     fx = u * w - 0.5
     fy = v * h - 0.5
     x0 = torch.floor(fx)
@@ -748,20 +740,40 @@ def sample_pool(pool, base, w, h, u, v):
     top_i = bi + wi * h.long() - 1
     cols = (_wrap_tex(x0, w).long(), _wrap_tex(x0 + 1.0, w).long())
     rows = (_wrap_tex(y0, h).long(), _wrap_tex(y0 + 1.0, h).long())
+    idx = [torch.minimum(torch.maximum(bi + yi * wi + xi, bi), top_i)
+           for yi in rows for xi in cols]
+    return idx, tx, ty
 
-    def tap(yi, xi):
-        q = pool[torch.minimum(torch.maximum(bi + yi * wi + xi, bi), top_i)]
-        return [((q >> s) & 255).to(torch.float32) * _INV255
-                for s in (0, 8, 16)]
 
-    c00, c01 = tap(rows[0], cols[0]), tap(rows[0], cols[1])
-    c10, c11 = tap(rows[1], cols[0]), tap(rows[1], cols[1])
+def _blend(c, tx, ty):
+    """The x-first bilinear blend of the four taps' channel lists."""
     out = []
     for k in range(3):
-        top = c00[k] * (1.0 - tx) + c01[k] * tx
-        bot = c10[k] * (1.0 - tx) + c11[k] * tx
+        top = c[0][k] * (1.0 - tx) + c[1][k] * tx
+        bot = c[2][k] * (1.0 - tx) + c[3][k] * tx
         out.append(top * (1.0 - ty) + bot * ty)
     return tuple(out)
+
+
+def sample_pool(pool, base, w, h, u, v):
+    """Bilinear REPEAT sample of the rgb8 texel pool (int32 [T]) at (u, v)
+    for textures at (base, w, h) (f32 tensors broadcastable with u): the
+    four taps of texel_taps, decoded as q * f32(1/255), blended in f32 in
+    the JAX order (x first). Semantics of tracer.cl:829 (normalized
+    coords, REPEAT, LINEAR). Returns (r, g, b)."""
+    idx, tx, ty = texel_taps(base, w, h, u, v)
+    c = [decode_rgb8(pool[i]) for i in idx]
+    return _blend(c, tx, ty)
+
+
+def sample_texels(texels, base, w, h, u, v):
+    """sample_pool on f32 texels ([T, 3], or [T, 4] whose last column is
+    not read): the same taps and blend, the texel loaded instead of
+    decoded. With texels = scene.pack.texel_params (the pool decoded) it
+    returns sample_pool's values bit for bit. Returns (r, g, b)."""
+    idx, tx, ty = texel_taps(base, w, h, u, v)
+    c = [[texels[i, k] for k in range(3)] for i in idx]
+    return _blend(c, tx, ty)
 
 
 # --- BVH walk (plain version) ----------------------------------------------
@@ -913,7 +925,7 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
 
 def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
                 meta, cfg, spp, tile, spp_pack, pack_axis, tex_pool=None,
-                tex_table=None):
+                tex_table=None, tex_texels=None):
     """Validate what trace_tiles is handed; raise on anything the kernel
     does not take. Returns the (seed, sample_base) ints."""
     if cfg.nee:
@@ -964,15 +976,22 @@ def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
             ("px", px, torch.int32, None),
             ("py", py, torch.int32, tuple(px.shape)))
     if has_textures(meta):
-        if tex_pool is None or tex_table is None:
-            raise ValueError("a textured scene needs tex_pool and tex_table "
-                             "(texture_inputs)")
-        want += (("tex_pool", tex_pool, torch.int32, (tex_pool.numel(),)),
-                 ("tex_table", tex_table, torch.float32,
-                  (len(meta.obj_types), _TEX_COLS)))
-    elif tex_pool is not None or tex_table is not None:
-        raise ValueError("tex_pool/tex_table given for a scene without "
-                         "textures")
+        if tex_table is None or (tex_pool is None) == (tex_texels is None):
+            raise ValueError("a textured scene needs tex_table and either "
+                             "tex_pool (texture_inputs) or tex_texels")
+        want += (("tex_table", tex_table, torch.float32,
+                  (len(meta.obj_types), _TEX_COLS)),)
+        if tex_pool is not None:
+            want += (("tex_pool", tex_pool, torch.int32,
+                      (tex_pool.numel(),)),)
+        else:
+            n_tex = tex_texels.shape[0] if isinstance(
+                tex_texels, torch.Tensor) else 0
+            want += (("tex_texels", tex_texels, torch.float32, (n_tex, 3)),)
+    elif (tex_pool is not None or tex_table is not None
+          or tex_texels is not None):
+        raise ValueError("tex_pool/tex_table/tex_texels given for a scene "
+                         "without textures")
     for name, t, dtype, shape in want:
         if not isinstance(t, torch.Tensor) or t.device != dev:
             raise ValueError(f"{name} must be a tensor on {dev}")
@@ -996,13 +1015,16 @@ class TapeEntry(NamedTuple):
     bounce adds to the sum, 2 = it updates the mask, 4 = a direct light
     hit; 0 past the path's end and on refraction), the winner (object
     index, or -1 - slot for a mesh hit), cos, and the color, emission and
-    mask (before this bounce's update) per channel."""
+    mask (before this bounce's update) per channel. In a textured scene,
+    uv holds the (u, v) of the winner's color fetch (0 where it has no
+    color texture)."""
     flags: torch.Tensor
     who: torch.Tensor
     cos: torch.Tensor
     col: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
     emi: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
     mask: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    uv: Tuple[torch.Tensor, torch.Tensor] = None
 
 
 def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
@@ -1012,13 +1034,14 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                           tile: Tuple[int, int] = (64, 256),
                           spp_pack: int = 1, pack_axis: str = "row",
                           tex_pool=None, tex_table=None, sample_tape=None,
-                          counts: dict = None):
+                          counts: dict = None, tex_texels=None):
     """Plain PyTorch version of the megakernel: the same arguments and
     result as trace_tiles, vectorised over all T*S*L slots, with a Python
     loop over samples and bounces that stops once every ray is dead (dead
     rays are inert, so this equals the JAX kernel's per-tile exit), the
     per-ray BVH walk (traverse_reference) for GROUP objects and the
-    texel fetch (sample_pool) for textured ones.
+    texel fetch (sample_pool, or sample_texels from tex_texels) for
+    textured ones.
     Returns (r, g, b) float32 [T*S, L] radiance sums on px's device.
 
     sample_tape: the gradient's plain version (render/grad.py) passes a
@@ -1032,7 +1055,7 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     "uv_sphere" and "uv_cube" (by the sphere and cube-cross UV maps)."""
     seed0, sample_base = _check_args(
         seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
-        spp, tile, spp_pack, pack_axis, tex_pool, tex_table)
+        spp, tile, spp_pack, pack_axis, tex_pool, tex_table, tex_texels)
     if counts is not None:
         for k in ("samples", "bounces", "hits", "node_visits", "leaf_slots",
                   "texel_fetches", "uv_sphere", "uv_cube"):
@@ -1071,8 +1094,15 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     sun_den = torch.tensor(sun_den, dtype=f32, device=dev)
     golden2 = torch.tensor(golden2, dtype=f32, device=dev)
     one = torch.ones_like(fx)
+    zero = torch.zeros_like(fx)
     glass = torch.full_like(fx, 1.5)
     textured = has_textures(meta)
+    if tex_texels is not None:
+        def fetch(*a):
+            return sample_texels(tex_texels, *a)
+    else:
+        def fetch(*a):
+            return sample_pool(tex_pool, *a)
 
     acc_r = torch.zeros_like(fx)
     acc_g = torch.zeros_like(fx)
@@ -1232,9 +1262,9 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                 # normalized after the inverse-transpose below
                 # (tracer.cl:907-911)
                 if bool(tex_nm.any()):
-                    nm = sample_pool(tex_pool, trow[:, 7], trow[:, 8],
-                                     trow[:, 9], torch.abs(lx) * trow[:, 10],
-                                     torch.abs(lz) * trow[:, 11])
+                    nm = fetch(trow[:, 7], trow[:, 8], trow[:, 9],
+                               torch.abs(lx) * trow[:, 10],
+                               torch.abs(lz) * trow[:, 11])
                     nlx = torch.where(tex_nm, nm[0], nlx)
                     nly = torch.where(tex_nm, nm[1], nly)
                     nlz = torch.where(tex_nm, nm[2], nlz)
@@ -1245,6 +1275,7 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
             nx = torch.where(flip, -nx, nx)
             ny = torch.where(flip, -ny, ny)
             nz = torch.where(flip, -nz, nz)
+            uv = (zero, zero) if textured else None
             if textured and bool(tex_col.any()):
                 # texture color (tracer.cl:1075-1093), by the UV map of
                 # the winner's type
@@ -1254,8 +1285,9 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                                  torch.where(w_type == SPHERE, su, cu))
                 tv = torch.where(is_plane, lz * trow[:, 5],
                                  torch.where(w_type == SPHERE, sv, cv))
-                tcol = sample_pool(tex_pool, trow[:, 1], trow[:, 2],
-                                   trow[:, 3], tu, tv)
+                tcol = fetch(trow[:, 1], trow[:, 2], trow[:, 3], tu, tv)
+                uv = (torch.where(tex_col, tu, 0.0),
+                      torch.where(tex_col, tv, 0.0))
                 col_r = torch.where(tex_col, tcol[0], col_r)
                 col_g = torch.where(tex_col, tcol[1], col_g)
                 col_b = torch.where(tex_col, tcol[2], col_b)
@@ -1341,7 +1373,8 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                            + 4 * direct.to(torch.int32)),
                     who=torch.where(on_tri, -1 - tri_slot, w),
                     cos=cos, col=(col_r, col_g, col_b),
-                    emi=(emi_r, emi_g, emi_b), mask=(mask_r, mask_g, mask_b)))
+                    emi=(emi_r, emi_g, emi_b), mask=(mask_r, mask_g, mask_b),
+                    uv=uv))
             mask_r = torch.where(upd, mask_r * col_r * cos, mask_r)
             mask_g = torch.where(upd, mask_g * col_g * cos, mask_g)
             mask_b = torch.where(upd, mask_b * col_b * cos, mask_b)
@@ -1379,13 +1412,25 @@ _SIGNATURES = {
         [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P, _P, _P],
         _I),
+    # the same arguments, then the f32 texels [T, 4], T and the texture
+    # table
+    "pt_megakernel_texels_launch": (
+        [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        + [_I, _P, _P, _I, _P],
+        _I),
     # the texel-fetch probe (P1's counterpart), launched by fetch_texels
     "pt_tex_fetch_launch": (
         [_P] * 6 + [_I] * 4 + [_P], _I),
-    # the gradient kernel's entry, launched by render/grad.py
+    # the gradient kernel's entries, launched by render/grad.py: object and
+    # triangle mode, and texel mode (the texels [T, 4], T, the texture
+    # table, gtex [T, 3] and the trainable objects' bit mask)
     "pt_grad_launch": (
         [_P] * 14 + [_I] * 5 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P],
+        _I),
+    "pt_grad_tex_launch": (
+        [_P] * 13 + [_I] * 5 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        + [_I, _P, _P, _I, _P, _P, ctypes.c_uint64],
         _I),
 }
 _MAX_OBJECTS = 64   # kMaxObjects of csrc/megakernel.cu
@@ -1395,28 +1440,33 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
                 meta: SceneMeta = None, cfg: RenderConfig = None,
                 spp: int = 1, total_samples: int = 1,
                 tile: Tuple[int, int] = (64, 256), spp_pack: int = 1,
-                pack_axis: str = "row", tex_pool=None, tex_table=None):
+                pack_axis: str = "row", tex_pool=None, tex_table=None,
+                tex_texels=None):
     """Run the megakernel over all tiles; returns (r, g, b) float32
     radiance sums [T*S, L] on px's device.
 
     seed = (prng seed, global sample base). spp_pack/pack_axis must match
     the layout (tile_pixel_layout); each slot then sums spp/spp_pack
-    samples. A scene with textures takes the int32 texel pool and the
-    texture table (texture_inputs); one without takes neither. CUDA
-    tensors launch csrc/megakernel.cu on the current stream and count the
-    launch in trace_tiles.launches, a scene with meshes also in
-    .mesh_launches and one with textures in .tex_launches; CPU tensors
+    samples. A scene with textures takes the texture table and either the
+    int32 texel pool (texture_inputs) or f32 texels [T, 3] (tex_texels,
+    e.g. scene.pack.texel_params: the differentiable render's texels); one
+    without takes none of them. CUDA tensors launch csrc/megakernel.cu on
+    the current stream and count the launch in trace_tiles.launches, a
+    scene with meshes also in .mesh_launches, one with the pool in
+    .tex_launches and one with f32 texels in .texel_launches; CPU tensors
     run trace_tiles_reference. Raises for NEE and the unported mesh walk
-    variants."""
+    variants. The kernel keeps every texel index below T (the plain
+    version raises IndexError instead), so a table that reaches past the
+    texels cannot touch other memory."""
     if px.device.type != "cuda":
         return trace_tiles_reference(
             seed, cam_vec, obj_table, node_table, tri_table, px, py,
             meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
             tile=tile, spp_pack=spp_pack, pack_axis=pack_axis,
-            tex_pool=tex_pool, tex_table=tex_table)
+            tex_pool=tex_pool, tex_table=tex_table, tex_texels=tex_texels)
     seed0, sample_base = _check_args(
         seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
-        spp, tile, spp_pack, pack_axis, tex_pool, tex_table)
+        spp, tile, spp_pack, pack_axis, tex_pool, tex_table, tex_texels)
     n_obj = len(meta.obj_types)
     if not 0 < n_obj <= _MAX_OBJECTS:
         raise ValueError(f"{n_obj} objects; the kernel takes 1..{_MAX_OBJECTS}")
@@ -1445,7 +1495,12 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
                 meta.n_nodes if meta.octant_orders else 0,
                 cfg.epsilon, cfg.t_max, sun_cut, sun_den, golden2,
                 int(_coherent_sampling()), stream)
-        if textured:
+        if textured and tex_texels is not None:
+            texels4 = texels_padded(tex_texels)
+            err = lib.pt_megakernel_texels_launch(
+                *args, texels4.data_ptr(), texels4.shape[0],
+                tex_table.data_ptr())
+        elif textured:
             err = lib.pt_megakernel_tex_launch(
                 *args, tex_pool.data_ptr(), tex_table.data_ptr())
         else:
@@ -1455,7 +1510,9 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     trace_tiles.launches += 1
     if meta.has_groups:
         trace_tiles.mesh_launches += 1   # the kernel's BVH-walk instantiation
-    if textured:
+    if textured and tex_texels is not None:
+        trace_tiles.texel_launches += 1  # the f32-texel instantiation
+    elif textured:
         trace_tiles.tex_launches += 1    # the texel-fetch instantiation
     return out[0], out[1], out[2]
 
@@ -1463,6 +1520,14 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
 trace_tiles.launches = 0
 trace_tiles.mesh_launches = 0
 trace_tiles.tex_launches = 0
+trace_tiles.texel_launches = 0
+
+
+def texels_padded(texels: torch.Tensor) -> torch.Tensor:
+    """The kernel's layout of f32 texels [T, 3]: [T, 4], rgb and a zero pad
+    float, so that a tap is one aligned 16-byte load (a fresh allocation,
+    aligned to 256 bytes)."""
+    return torch.nn.functional.pad(texels.detach(), (0, 1)).contiguous()
 
 
 def fetch_texels(pool, base: int, w: int, h: int, u, v):

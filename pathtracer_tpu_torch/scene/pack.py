@@ -7,7 +7,10 @@ skip-link BVH pool (scene/bvh.py), with eight octant-ordered copies of its
 nodes. Every texture of every kind goes at full resolution into one flat
 rgb8 texel pool with a per-object (base, w, h), from which the CUDA kernel
 fetches texels; SceneMeta records the same per-object texture programs and
-staging markers as the JAX package's, whose TPU kernel needs them.
+staging markers as the JAX package's, whose TPU kernel needs them. The
+differentiable render trains an f32 copy of the pool (`texel_params`), and
+`atlas_to_texels`/`texels_to_atlas` map it to and from the JAX package's
+staged atlas.
 """
 from __future__ import annotations
 
@@ -504,3 +507,120 @@ def from_jax_scene(arrays, meta, device) -> Tuple[SceneArrays, SceneMeta]:
         a = np.ascontiguousarray(np.asarray(fields[name]))
         out[name] = torch.from_numpy(a.copy()).to(device)
     return SceneArrays(**out), out_meta
+
+
+# --- trainable texels ---------------------------------------------------------
+#
+# The differentiable render trains an f32 copy of the texel pool, [T, 3].
+# Texels of the textures that the JAX package stages (the "__staged__"
+# markers of SceneMeta.obj_tex) take gradients; the JAX package trains the
+# same texels in its staged atlas [128, Ltot], where texel (y, x), color c
+# of a texture staged at lane `base` with width w sits at row y % 128, lane
+# c*P + base + (y // 128)*w + x, P = Ltot / 3 (its scene/pack.py
+# _stage_file_textures, "global color-outer" layout).
+
+_INV255 = float(np.float32(1.0 / 255.0))
+
+
+def _np(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def is_staged(desc) -> bool:
+    """Whether a texture record's descriptor is a staging marker."""
+    return isinstance(desc, tuple) and bool(desc) and desc[0] == "__staged__"
+
+
+def decode_rgb8(q: torch.Tensor):
+    """The pool's int32 texels q (r | g << 8 | b << 16) decoded to f32
+    (r, g, b) as q * f32(1/255), the kernel's decode."""
+    return [((q >> s) & 255).to(torch.float32) * _INV255 for s in (0, 8, 16)]
+
+
+def staged_objects(meta: SceneMeta) -> Tuple[int, ...]:
+    """The objects whose color texture takes texel gradients: those whose
+    obj_tex record carries a staging marker."""
+    return tuple(sorted({slot for (slot, desc, *_r) in meta.obj_tex
+                         if is_staged(desc)}))
+
+
+def texel_params(scn: SceneArrays) -> torch.Tensor:
+    """The trainable texels: the rgb8 pool decoded to f32 [T, 3] on the
+    pool's device, q * f32(1/255) as the kernel's fetch decodes a byte, so
+    a render from these texels is the rgb8 render bit for bit."""
+    return torch.stack(decode_rgb8(scn.tex_pool_u32.view(torch.int32)),
+                       dim=1).contiguous()
+
+
+def trainable_texels(scn: SceneArrays, meta: SceneMeta) -> torch.Tensor:
+    """bool [T] on the pool's device: the texels of staged_objects'
+    textures, the only ones with nonzero gradients. A texture the JAX
+    package stages as a mip (an over-cap image) trains here at full
+    resolution; it has no texel-for-texel counterpart in the atlas."""
+    base, w, h = (_np(a) for a in (scn.tex_base, scn.tex_w, scn.tex_h))
+    mask = np.zeros(scn.tex_pool_u32.shape[0], bool)
+    for slot in staged_objects(meta):
+        b = int(base[slot])
+        mask[b:b + int(w[slot]) * int(h[slot])] = True
+    return torch.from_numpy(mask).to(scn.tex_pool_u32.device)
+
+
+def _atlas_map(meta: SceneMeta, base, w, h):
+    """(pool index, atlas row, lane within a color plane), int64 [N] each,
+    of every texel of the textures staged at their full size (a mip-staged
+    texture's atlas holds other texels, so it has no entry). base, w, h:
+    the per-object pool coordinates (SceneArrays.tex_base/_w/_h)."""
+    seen, parts = set(), []
+    for (slot, desc, *_r) in meta.obj_tex:
+        if not is_staged(desc):
+            continue
+        _, lane, aw, ah = desc
+        b, tw, th = int(base[slot]), int(w[slot]), int(h[slot])
+        if (aw, ah) != (tw, th) or (b, lane) in seen:
+            continue
+        seen.add((b, lane))
+        i = np.arange(tw * th, dtype=np.int64)
+        y, x = np.divmod(i, tw)
+        parts.append((b + i, y % _STAGE_HB,
+                      lane + (y // _STAGE_HB) * tw + x))
+    if not parts:
+        return tuple(np.zeros(0, np.int64) for _ in range(3))
+    return tuple(np.concatenate(c) for c in zip(*parts))
+
+
+def atlas_to_texels(atlas, scn: SceneArrays, meta: SceneMeta,
+                    texels: torch.Tensor = None) -> torch.Tensor:
+    """The JAX package's staged atlas [128, Ltot] (numpy or a tensor) as
+    this package's texels [T, 3]: each full-size staged texel takes the
+    atlas's value; every other texel keeps `texels`' value (default:
+    texel_params, the decoded pool). The atlas decodes a byte as
+    f32(q) / f32(255), one ulp off the pool's decode on 126 of 256 values,
+    so carried-over texels make both packages compute the same thing."""
+    out = (texel_params(scn) if texels is None else texels).detach().clone()
+    atlas = _np(atlas)
+    plane = atlas.shape[1] // 3
+    pi, row, lane = _atlas_map(meta, *(_np(a) for a in (
+        scn.tex_base, scn.tex_w, scn.tex_h)))
+    vals = np.stack([atlas[row, c * plane + lane] for c in range(3)], axis=1)
+    out[torch.from_numpy(pi).to(out.device)] = torch.from_numpy(
+        np.ascontiguousarray(vals, np.float32)).to(out.device)
+    return out
+
+
+def texels_to_atlas(texels: torch.Tensor, scn: SceneArrays, meta: SceneMeta,
+                    lanes: int) -> np.ndarray:
+    """The transpose of atlas_to_texels' gather: the full-size staged
+    texels of [T, 3] (values or gradients) summed into an [128, lanes]
+    float64 atlas in the JAX package's layout (lanes = its Ltot; zero
+    elsewhere). Each atlas texel has one pool texel in the repository's
+    scenes, so for values this is the inverse map."""
+    t = _np(texels).astype(np.float64)
+    plane = lanes // 3
+    pi, row, lane = _atlas_map(meta, *(_np(a) for a in (
+        scn.tex_base, scn.tex_w, scn.tex_h)))
+    out = np.zeros((_STAGE_HB, lanes), np.float64)
+    for c in range(3):
+        np.add.at(out, (row, c * plane + lane), t[pi, c])
+    return out
+

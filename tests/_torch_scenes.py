@@ -163,3 +163,35 @@ def grad_rule(got, want, mesh: bool) -> dict:
                                  f"within the rule (need {SLOT_FRAC}), "
                                  f"{out['gtri_slots_hit']} slots hit")
     return out
+
+
+# texel gradient rule: >= SLOT_FRAC of the texels that either side touches
+# within GRAD_REL_MESH * max|gtex|, each channel's sum within TEX_SUM_REL
+TEX_SUM_REL = 0.01
+
+
+def tex_grad_rule(got, want) -> dict:
+    """Hold grad_tiles(tex_grads=True)'s (gcol, gemi, gtex) against another
+    run's: gcol and gemi within GRAD_REL_MESH * max|g|, gtex [T, 3] by the
+    texel rule; raises AssertionError. Returns the relative errors, the
+    share of touched texels within the rule ("gtex_frac"), the touched
+    count, the largest channel-sum error and the max abs error."""
+    out = grad_rule(got[:2], want[:2], mesh=True)
+    g, w = (a.detach().cpu().double().numpy() for a in (got[2], want[2]))
+    if g.shape != w.shape or not np.isfinite(g).all():
+        raise AssertionError("gtex: shape or finiteness")
+    touched = (g != 0) | (w != 0)
+    close = np.abs(g - w) <= GRAD_REL_MESH * np.abs(w).max()
+    out["gtex_touched"] = int(touched.any(axis=1).sum())
+    out["gtex_frac"] = float(close[touched].mean()) if touched.any() else 0.0
+    out["gtex_sum_rel"] = float(np.max(np.abs(g.sum(0) - w.sum(0))
+                                       / np.abs(w.sum(0))))
+    out["max_abs_err"] = max(out["max_abs_err"], float(np.abs(g - w).max()))
+    if (out["gtex_frac"] < SLOT_FRAC or out["gtex_sum_rel"] >= TEX_SUM_REL
+            or not out["gtex_touched"]):
+        raise AssertionError(
+            f"gtex: {out['gtex_frac']:.4f} of {out['gtex_touched']} touched "
+            f"texels within the rule (need {SLOT_FRAC}), channel sums off by "
+            f"{out['gtex_sum_rel']:.2e} (need < {TEX_SUM_REL})")
+    return out
+

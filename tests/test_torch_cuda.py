@@ -20,6 +20,11 @@ and gemi within 1e-4 * max|g| (1e-3 on mesh scenes), >= 99% of the
 triangle slots within 1e-3 * max|gtri|. Its forward replay is the forward
 kernel's code, and the differentiable render's primal stays bit-equal to
 the plain render.
+
+The texel mode (K6-tex, grad_tiles(tex_grads=True)) is held against its
+plain version by the texel rule of tests/_torch_scenes.py (tex_grad_rule),
+and the f32-texel forward instantiations (trace_tiles(tex_texels=...)) are
+bit-equal to the rgb8 ones when the texels are the decoded pool.
 """
 import numpy as np
 import pytest
@@ -28,7 +33,7 @@ import torch
 from _torch_scenes import (MESH_SCENES, SLICE_SCENES, TEX_SCENES,
                            assert_slot_rule,
                            cylinder_scene, grad_inputs, grad_rule,
-                           port_inputs, size_check_scene)
+                           port_inputs, size_check_scene, tex_grad_rule)
 from pathtracer_tpu_torch import cli
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.diff import make_megakernel_step
@@ -37,6 +42,7 @@ from pathtracer_tpu_torch.io.raw import read_raw
 from pathtracer_tpu_torch.render import grad as tg
 from pathtracer_tpu_torch.render import megakernel as mk
 from pathtracer_tpu_torch.scene import material, pack, shapes
+from pathtracer_tpu_torch.scene.pack import texel_params
 from pathtracer_tpu_torch.scenes import cornell, get_scene
 
 pytestmark = pytest.mark.cuda
@@ -301,3 +307,71 @@ def test_megakernel_step_descends_on_the_card(dev):
         c, e, loss = step(c, e, seed, target)
         losses.append(float(loss))
     assert np.isfinite(losses).all() and losses[-1] < 0.9 * losses[0], losses
+
+
+@pytest.mark.parametrize("name", ["textures-train", "textures", "cubemap"])
+def test_f32_texel_kernel_bit_equal_rgb8(dev, name):
+    # the f32-texel instantiations (`cubemap`: the mesh one) fetching the
+    # decoded pool render the rgb8 instantiations' sums bit for bit
+    cfg = RenderConfig(width=160, height=120, samples=8)
+    sc = get_scene(name, cfg)
+    tabs, meta, _, kw = port_inputs(sc, cfg, None, dev)
+    arrays, _ = sc.pack(device=dev)
+    kw.update(meta=meta, cfg=cfg, spp=8, total_samples=8,
+              tile=mk.default_tile(meta))
+    want = torch.stack(mk.trace_tiles((5, 0), *tabs, **kw))
+    kw.pop("tex_pool")
+    before = mk.trace_tiles.texel_launches
+    got = torch.stack(mk.trace_tiles((5, 0), *tabs, **kw,
+                                     tex_texels=texel_params(arrays)))
+    assert mk.trace_tiles.texel_launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want), (got != want).float().mean().item()
+
+
+@pytest.mark.parametrize("name,aperture,base", [
+    ("textures-train", 0.0, 0), ("textures-train", 0.1, 16)])
+def test_tex_grad_kernel_matches_plain(dev, name, aperture, base):
+    tabs, meta, arrays, _, cfg, cots = _grad_case(
+        name, dev, width=160, height=120, samples=4, aperture=aperture,
+        focal_length=1.6 if aperture else 0.0)
+    rng = np.random.default_rng(1)
+    tex = texel_params(arrays)
+    tex = (tex + torch.from_numpy(rng.uniform(
+        -0.1, 0.1, tuple(tex.shape)).astype(np.float32)).to(dev)).clamp(0, 1)
+    kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4 + base,
+              tile=(8, 512), tex_grads=True, tex=tex,
+              tex_table=torch.from_numpy(mk.build_tex_table(arrays, meta))
+              .to(dev))
+    before = (tg.grad_tiles.launches, tg.grad_tiles.tex_launches)
+    got = tg.grad_tiles((5, base), *tabs, *cots, **kw)
+    assert (tg.grad_tiles.launches, tg.grad_tiles.tex_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tg.grad_tiles_reference((5, base), *tabs, *cots, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == 3
+    tex_grad_rule(got, want)
+    # no gradient outside the staged textures' texels
+    assert not got[2][~pack.trainable_texels(arrays, meta)].any()
+
+
+def test_diff_render_tex_primal_is_bit_equal(dev):
+    tabs, meta, arrays, _, cfg, _ = _grad_case("textures-train", dev,
+                                               width=160, height=120,
+                                               samples=4)
+    table = torch.from_numpy(mk.build_tex_table(arrays, meta)).to(dev)
+    render = tg.make_diff_render_tex(meta, cfg, 4, 4, (8, 512))
+    tex = texel_params(arrays).requires_grad_(True)
+    rgb = render.apply(arrays.color, arrays.emission, tex, (2, 0), *tabs,
+                       table)
+    want = mk.trace_tiles_reference(
+        (2, 0), *tabs, meta=meta, cfg=cfg, spp=4, total_samples=4,
+        tile=(8, 512), tex_table=table, tex_texels=tex.detach())
+    for x, y in zip(rgb, want):
+        assert torch.equal(x.detach(), y)
+    before = tg.grad_tiles.tex_launches
+    (gt,) = torch.autograd.grad(sum(x.sum() for x in rgb), (tex,))
+    assert tg.grad_tiles.tex_launches == before + 1
+    assert torch.isfinite(gt).all() and gt.abs().max() > 0
+

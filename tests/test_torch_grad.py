@@ -34,6 +34,7 @@ from pathtracer_tpu_torch.diff import (SceneParams, from_jax_params,
                                        make_megakernel_step)
 from pathtracer_tpu_torch.render import grad as tg
 from pathtracer_tpu_torch.render import megakernel as mk
+from pathtracer_tpu_torch.scene.pack import texel_params
 
 torch.set_num_threads(2)
 
@@ -140,8 +141,10 @@ def test_params_carry_over_from_jax(parity):
     _, tm, _, ta, ja, _ = parity
     p = from_jax_params(jax_fields_np(ja), "cpu")
     assert isinstance(p, SceneParams)
-    for k in SceneParams._fields:
+    for k in ("color", "emission", "tri_color"):
         assert torch.equal(getattr(p, k), getattr(ta, k))
+    # the texels: the pool decoded (an untextured scene's one-texel pool)
+    assert torch.equal(p.tex, texel_params(ta))
 
 
 @pytest.fixture(scope="module")
@@ -246,10 +249,12 @@ def test_refusals(parity):
     seed, t, cots, _ = cases["reference"]
     with pytest.raises(NotImplementedError, match="item 11"):
         tg.make_diff_render(tm, tc.replace(nee=True), SPP, SPP, TILE)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a textured scene is differentiated in texel mode
+    with pytest.raises(NotImplementedError, match="make_diff_render_tex"):
         tg.make_diff_render(dataclasses.replace(tm, textured_types=(1,)),
                             tc, SPP, SPP, TILE)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # which needs a staged texture
+    with pytest.raises(ValueError, match="staged texture"):
         tg.grad_tiles(seed, *map(torch.from_numpy, t),
                       *map(torch.from_numpy, cots), meta=tm, cfg=tc,
                       spp=SPP, total_samples=SPP, tile=TILE, tex_grads=True)
