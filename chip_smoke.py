@@ -39,12 +39,25 @@ spp, then the main path: texels perturbed and recovered toward a
 common-random-number target at 1280x960 (32 spp a step, Adam through
 make_diff_render_tex, the loss falling over 5 steps), the fwd+bwd rate of
 make_megakernel_step_tex as bench.py measures `fwd_bwd_textures-train`,
-and a short `train_demo --tex`. It prints one JSON line of kernel
-results, each with its bound (the least time the card could take for the
-same work, from the work the plain version counts in this run), and,
-last, one JSON line naming the device. Every failure raises; without a
-card it exits non-zero before printing any result. It imports nothing of
-JAX.
+and a short `train_demo --tex`. Next-event estimation (K1-nee, the kNee
+instantiations): phase 3 holds it bit for bit against its plain version on
+`reference`, `transparency_quad_lights`, `transparency_f_light`, `teapot`,
+`textures`, `cubemap`, with depth of field and with PT_COHERENT=0 at
+160x120; phase 4 renders `reference --nee` and `teapot --nee` at
+1280x960x2048 spp through the CLI, checks the launch counts and each image,
+and requires the last segment bit-equal to the plain version; phase 5 times
+K1-nee at 1280x960x8 spp beside K1 on the same samples, and measures what
+a runtime branch in place of the kNee flag would cost the renders without
+NEE (the NEE instantiation with no light against the one without NEE code,
+and their ptxas counts). Phase 9 runs the intersect-only kernel (K5) on
+9,830,400 rays a batch (1280x960x8 jittered camera rays, then one bounce of
+random rays from their hits, on the incoming side) on `reference`, `teapot`
+and the size-check mesh, bit for bit against its plain version, and times
+it. It prints one JSON line of kernel results, each with its bound (the
+least time the card could take for the same work, from the work the plain
+version counts in this run), and, last, one JSON line naming the device.
+Every failure raises; without a card it exits non-zero before printing any
+result. It imports nothing of JAX.
 
 `teapot` and the mesh scenes load procedural stand-ins (a 1472-triangle UV
 sphere, a 576-triangle goblet) because the repository ships no .obj files;
@@ -56,6 +69,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import os
@@ -89,8 +103,9 @@ from pathtracer_tpu_torch.scenes import cornell, get_scene
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from _torch_scenes import (ATOL, MEAN_REL, RTOL, SLOT_FRAC,  # noqa: E402
-                           cylinder_scene, grad_inputs, grad_rule,
-                           port_inputs, size_check_scene, tex_grad_rule)
+                           bounce_rays, camera_rays, cylinder_scene,
+                           grad_inputs, grad_rule, port_inputs,
+                           size_check_scene, tex_grad_rule)
 
 MAIN_MEAN_REL = 0.02         # 2048-spp image vs an 8-spp plain render
 TILE = (64, 256)             # the driver's tile for primitive scenes
@@ -111,16 +126,23 @@ TEX_TRAIN = "textures-train"  # phase 8: bench.py's fwd_bwd_textures-train
 TEX_LR = 0.05                # phase 8: Adam's step on the texels
 
 # The bound: the least time the card could take for a kernel's work, the
-# larger of its f32 operations over the H100's 67 TFLOP/s (SXM, outside the
-# tensor cores) and its bytes (each input read once, each output written
-# once) over 3.35 TB/s (the H100 SXM's published rates; the card may be set
-# below 700 W, whose limit is printed beside every number). Operations per
+# larger of its f32 operations over the rate the card can issue them and its
+# bytes (each input read once, each output written once) over 3.35 TB/s (the
+# H100 SXM's published rate; the card may be set below 700 W, whose limit is
+# printed beside every number). The H100 SXM has 132 SMs of 128 FP32 lanes,
+# 16896 lanes at a 1.98 GHz boost clock; its published 67 TFLOP/s counts a
+# fused multiply-add as two operations. The kernels are built with
+# -fmad=false, so that no multiply and add fuse (each rounds as in the plain
+# version): every counted operation issues alone, at most 16896 x 1.98e9 =
+# 33.45e12 a second, and IEEE division, square root and sin/cos take
+# several instructions each, so this bound is still low. Operations per
 # unit of work, counted from csrc/megakernel.cu: adds, subtracts,
 # multiplies, divides, square roots, min/max/abs/floor/trunc, cos/sin and
 # int-to-float conversions count one each; the integer hash, comparisons
 # and selects are not counted. The units are what the plain version counts
-# in the same run (trace_tiles_reference's `counts`).
-PEAK_F32 = 67e12
+# in the same run (trace_tiles_reference's and intersect_batch_reference's
+# `counts`).
+F32_OPS_PER_S = 16896 * 1.98e9
 PEAK_BYTES = 3.35e12
 OPS_SAMPLE = 44          # jittered camera ray, normalize, the sums' adds
 OPS_OBJECT = {           # one object's transform and test, per live ray
@@ -135,10 +157,37 @@ OPS_DECODE = 24          # of which the rgb8 decode (4 taps x 3 x 2)
 OPS_UV = {"plane": 2, "sphere": 60, "cube": 21}
 OPS_GRAD_HIT = 21        # K6: one tape entry's reverse step
 OPS_SCATTER = 56         # K6-tex: taps, 4 weights, 12 products, 12 adds
+# K1-nee, per light point: two draws (4), 2u-1 (2), the acos polynomial
+# (25), the latitude offset and longitude (2), four sin/cos, the point (9),
+# its direction normalized (13), ldn (5), the shadow origin (6). A cast
+# shadow ray adds one OPS_OBJECT per object (and its walk's nodes and
+# slots); a lit one the attenuation (6), its weight (1) and the three
+# channels' products and adds (12)
+OPS_SHADOW = 70
+OPS_SHADOW_LIT = 19
+# K5, per ray: t at most t_max (1), and a winning triangle's smooth normal
+# (12); the objects' tests as OPS_OBJECT, the walk as OPS_NODE/LEAF_SLOT
+OPS_ISECT_RAY = 1
+OPS_ISECT_TRI = 12
+ISECT_SCENES = ("reference", "teapot", "size-check mesh")
 
 
 def phase(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def env_var(name: str, value: str):
+    """Set environment variable `name` to `value` for a block."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
 
 
 def n_triangles(sc) -> int:
@@ -153,17 +202,27 @@ def work_bound(counts, meta, in_bytes, out_bytes, grad=False, f32=False):
     plain_uv = (counts["texel_fetches"] - counts["uv_sphere"]
                 - counts["uv_cube"])
     fetch = OPS_FETCH - (OPS_DECODE if f32 else 0)
+    per_ray = sum(OPS_OBJECT[t] for t in meta.obj_types)
     ops = (OPS_SAMPLE * counts["samples"]
-           + counts["bounces"] * sum(OPS_OBJECT[t] for t in meta.obj_types)
+           + counts["bounces"] * per_ray
            + (OPS_HIT + (OPS_GRAD_HIT if grad else 0)) * counts["hits"]
            + OPS_NODE * counts["node_visits"]
            + OPS_LEAF_SLOT * counts["leaf_slots"]
            + fetch * counts["texel_fetches"]
            + OPS_SCATTER * counts.get("texel_scatters", 0)
            + OPS_UV["plane"] * plain_uv + OPS_UV["sphere"] * counts["uv_sphere"]
-           + OPS_UV["cube"] * counts["uv_cube"])
-    t_ops = ops / PEAK_F32 * 1e3
-    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
+           + OPS_UV["cube"] * counts["uv_cube"]
+           + OPS_SHADOW * counts.get("shadow_rays", 0)
+           + per_ray * counts.get("shadow_tests", 0)
+           + OPS_SHADOW_LIT * counts.get("shadow_lit", 0))
+    return bound_of(ops, in_bytes + out_bytes)
+
+
+def bound_of(ops, n_bytes):
+    """(bound ms, "operations" or "bytes", ops) of `ops` f32 operations
+    and `n_bytes` bytes moved."""
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", ops)
 
@@ -261,17 +320,21 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def kernel_name(mangled: str) -> str:
-    """The instantiation of megakernel<kMesh, kGrad, kTex, kF32> (three
-    flags in builds before kF32) or the probe, by name."""
+    """The instantiation of megakernel<kMesh, kGrad, kTex, kF32, kNee>
+    (fewer flags in older builds), of intersect<kMesh>, or the probe, by
+    name."""
     if "tex_fetch" in mangled:
         return "fetch probe"
+    m = re.search(r"intersectILb([01])E", mangled)
+    if m:
+        return "intersect " + ("mesh" if m.group(1) == "1" else "primitive")
     m = re.search(r"megakernelI((?:Lb[01]E)+)E", mangled)
     if not m:
         return mangled
-    mesh, grad, tex, f32 = (re.findall(r"Lb([01])E", m.group(1))
-                            + ["0"])[:4]
+    mesh, grad, tex, f32, nee = (re.findall(r"Lb([01])E", m.group(1))
+                                 + ["0", "0"])[:5]
     words = (["grad"] * (grad == "1") + ["textured"] * (tex == "1")
-             + ["f32-texel"] * (f32 == "1"))
+             + ["f32-texel"] * (f32 == "1") + ["nee"] * (nee == "1"))
     return " ".join(words + ["mesh" if mesh == "1" else "primitive"])
 
 
@@ -305,28 +368,30 @@ def ptxas_counts(lines):
     return {k: tuple(v) for k, v in out.items()}
 
 
-def cli_render(scene: str, tmp: str):
-    """Render `scene` at W x H x SPP through cli.main with the launch
-    counts set to 0 just before. Returns (image, metrics, launches,
-    mesh launches, textured launches)."""
+def cli_render(scene: str, tmp: str, nee: bool = False):
+    """Render `scene` at W x H x SPP through cli.main (with --nee when
+    `nee`) with the launch counts set to 0 just before. Returns (image,
+    metrics, {"launches", "mesh", "tex", "nee"}: the launches of the kernel
+    and of its mesh, textured and NEE instantiations)."""
     raw = os.path.join(tmp, f"{scene}.raw")
     metrics = os.path.join(tmp, f"{scene}.json")
     mk.trace_tiles.launches = 0
     mk.trace_tiles.mesh_launches = 0
     mk.trace_tiles.tex_launches = 0
+    mk.trace_tiles.nee_launches = 0
     rc = cli.main([
         "--scene", scene, "--width", str(W), "--height", str(H),
         "--samples", str(SPP), "--raw-output", raw,
         "--output", os.path.join(tmp, f"{scene}.png"),
-        "--metrics-json", metrics])
-    launches, mesh_launches, tex_launches = (mk.trace_tiles.launches,
-                                             mk.trace_tiles.mesh_launches,
-                                             mk.trace_tiles.tex_launches)
+        "--metrics-json", metrics] + ["--nee"] * nee)
+    n = dict(launches=mk.trace_tiles.launches,
+             mesh=mk.trace_tiles.mesh_launches,
+             tex=mk.trace_tiles.tex_launches, nee=mk.trace_tiles.nee_launches)
     if rc != 0:
         raise AssertionError(f"cli.main --scene {scene} returned {rc}")
     with open(metrics) as f:
         m = json.load(f)
-    return read_raw(raw), m, launches, mesh_launches, tex_launches
+    return read_raw(raw), m, n
 
 
 def check_image(tag: str, img) -> None:
@@ -337,10 +402,11 @@ def check_image(tag: str, img) -> None:
         raise AssertionError(f"{tag}: Cornell walls wrong: {left} {right}")
 
 
-def last_segment(scene: str, metrics: dict, tile, dev):
-    """The driver's last segment of a W x H x SPP render of `scene`: its
-    inputs and trace_tiles keywords, and its seed vector."""
-    cfg = RenderConfig(width=W, height=H, samples=SPP)
+def last_segment(scene: str, metrics: dict, tile, dev, nee: bool = False):
+    """The driver's last segment of a W x H x SPP render of `scene` (with
+    NEE when `nee`): its inputs and trace_tiles keywords, and its seed
+    vector."""
+    cfg = RenderConfig(width=W, height=H, samples=SPP, nee=nee)
     chunk = cfg.samples_per_pass
     seg_spp = metrics["samples"] // (W * H) // metrics["segments"]
     c0 = (SPP - seg_spp) // chunk
@@ -368,13 +434,157 @@ def plain_affordable(tag, seed, tabs, kw, n_tiles: int, probe_tiles: int,
     return out, ms, est_s < PLAIN_BUDGET_S
 
 
+def reference_main_path(tmp, dev, card, nee=False):
+    """Phase 4: `reference` at W x H x SPP through cli.main (with --nee: the
+    NEE instantiation), its launch counts set to 0 just before; the image
+    checked (Cornell walls, the mean against a plain 8-spp render), and the
+    driver's last segment through the kernel and the plain version, bit
+    for bit. Returns the numbers and the inputs phase 5 times."""
+    tag = "phase 4 nee" if nee else "phase 4"
+    img, m, n = cli_render("reference", tmp, nee)
+    want = m["segments"]
+    phase(f"{tag}: reference{' --nee' if nee else ''} {W}x{H}x{SPP}: "
+          f"{m['msamples_per_sec']} Msamples/s, render wall {m['wall_s']} s "
+          f"(driver), {m['total_wall_s']} s incl. scene setup; "
+          f"{n['launches']} kernel launches ({n['nee']} of the NEE "
+          f"instantiation) for {want} segments; card {card}")
+    if (n["launches"] != want or want != 16
+            or n["nee"] != (want if nee else 0)):
+        raise AssertionError(f"{tag}: the main path did not launch the "
+                             "kernel once per segment (16 expected)")
+    check_image(tag, img)
+    cfg8 = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8,
+                        nee=nee)
+    tabs8, meta8, pid, lay8 = port_inputs(get_scene("reference", cfg8), cfg8,
+                                          TILE, dev)
+    kw8 = dict(meta=meta8, cfg=cfg8, spp=8, total_samples=8, tile=TILE,
+               **lay8)
+    c8 = {}
+    ref, p8_ms = timed(lambda: mk.trace_tiles_reference(
+        (1, 0), *tabs8, **kw8, counts=c8))
+    ref = mk.untile_image(ref.permute(1, 2, 0).reshape(-1, 3).cpu().numpy(),
+                          pid, W, H) / 8.0
+    rel = np.abs(img.reshape(-1, 3).mean(0) - ref.mean(0)) / ref.mean(0)
+    phase(f"{tag}: image mean {img.reshape(-1, 3).mean(0)} vs plain "
+          f"8-spp {ref.mean(0)}: rel diff {rel.max():.4f} "
+          f"(need <{MAIN_MEAN_REL})")
+    if rel.max() >= MAIN_MEAN_REL:
+        raise AssertionError(f"{tag}: image mean off the plain render")
+
+    # the driver's last segment again, kernel vs plain version slot by
+    # slot: the shapes, seed vector and sample base the main path used
+    tabs, kw, seed, _ = last_segment("reference", m, TILE, dev, nee)
+    k = torch.stack(mk.trace_tiles(seed, *tabs, **kw)).cpu().numpy()
+    counts = {}
+    p, p_ms = timed(lambda: mk.trace_tiles_reference(seed, *tabs, **kw,
+                                                     counts=counts))
+    p = p.cpu().numpy()
+    frac = float(np.isclose(k, p, atol=ATOL, rtol=RTOL).mean())
+    bit_eq = float((k == p).mean())
+    err = float(np.abs(k - p).max())
+    phase(f"{tag}: segment seed {seed} x {kw['spp']} spp of {SPP} at "
+          f"{W}x{H}: kernel vs plain bit-equal on {bit_eq:.6f} of "
+          f"{k.size} slot values, {frac:.6f} within atol={ATOL} "
+          f"rtol={RTOL}; max abs err {err:.3e}")
+    if not np.isfinite(k).all() or bit_eq != 1.0:
+        raise AssertionError(f"{tag}: kernel differs from the plain version "
+                             "on the main path's segment")
+    return dict(launches=n["launches"], nee=n["nee"], seed=seed, tabs=tabs,
+                kw=kw, p_ms=p_ms, counts=counts, bit_eq=bit_eq, frac=frac,
+                err=err, tabs8=tabs8, kw8=kw8, p8_ms=p8_ms, c8=c8,
+                metrics=m)
+
+
+def teapot_main_path(tmp, dev, card, mesh_tris, nee=False):
+    """Phase 4 (mesh): `teapot` at W x H x SPP through cli.main (with
+    --nee: the NEE instantiation, whose shadow rays walk the mesh), its
+    launch counts set to 0 just before; the image checked, and the
+    driver's last segment through the kernel and the plain version, bit for
+    bit: the first 64 tiles, or every slot when the plain version fits its
+    time budget. Returns the numbers and the inputs phase 5 times."""
+    tag = "phase 4 mesh nee" if nee else "phase 4 mesh"
+    timg, tm, n = cli_render("teapot", tmp, nee)
+    t_want = tm["segments"]
+    phase(f"{tag}: teapot{' --nee' if nee else ''} ({mesh_tris['teapot']} "
+          f"triangles) {W}x{H}x{SPP}: {tm['msamples_per_sec']} Msamples/s, "
+          f"render wall {tm['wall_s']} s (driver), {tm['total_wall_s']} s "
+          f"incl. scene setup; {n['launches']} kernel launches ({n['mesh']} "
+          f"of the mesh instantiation, {n['nee']} of the NEE one) for "
+          f"{t_want} segments; card {card}")
+    if not (n["launches"] == n["mesh"] == t_want == SPP // 8
+            and n["nee"] == (t_want if nee else 0)):
+        raise AssertionError(f"{tag}: the main path did not launch the mesh "
+                             f"kernel once per segment ({SPP // 8} expected)")
+    check_image(tag, timg)
+
+    mtabs, mkw, mseed, _ = last_segment("teapot", tm, MESH_TILE, dev, nee)
+    n_tiles = mtabs[4].shape[0] // MESH_TILE[0]
+    k = torch.stack(mk.trace_tiles(mseed, *mtabs, **mkw))
+    torch.cuda.synchronize()
+    c64 = {}
+    p64, p64_ms, full = plain_affordable(tag, mseed, mtabs, mkw, n_tiles, 64,
+                                         c64)
+    rows64 = 64 * MESH_TILE[0]
+    if full:
+        counts = {}
+        p, tp_ms = timed(lambda: mk.trace_tiles_reference(
+            mseed, *mtabs, **mkw, counts=counts))
+        checked = "every slot"
+    else:
+        p, tp_ms = p64, None
+        k = k[:, :rows64]
+        checked = "the slots of the first 64 tiles"
+        # the full run's work, estimated from the first 64 tiles'
+        counts = {key: v * n_tiles // 64 for key, v in c64.items()}
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    if not np.array_equal(k[:, :rows64], p64.cpu().numpy()):
+        raise AssertionError(f"{tag}: plain version on the first 64 tiles "
+                             "differs from its full run")
+    bit_eq = float((k == p).mean())
+    err = float(np.abs(k - p).max())
+    phase(f"{tag}: segment seed {mseed} x {mkw['spp']} spp of {SPP} at "
+          f"{W}x{H}: checked {checked} ({k.size} slot values): bit-equal on "
+          f"{bit_eq:.6f}; max abs err {err:.3e}")
+    if not np.isfinite(k).all() or bit_eq != 1.0:
+        raise AssertionError(f"{tag}: kernel differs from the plain version "
+                             "on the main path's segment")
+    # the mean check's plain render: 8 spp with per-slot draws
+    # (PT_COHERENT=0, the same estimator). The coherent draws of a mesh
+    # tile are shared by a whole 32x32-pixel block, so the mean of one
+    # coherent 8-spp render carries several percent of noise. At a quarter
+    # of the size when the full-size plain run does not fit its budget (the
+    # mean over the image plane does not depend on the resolution).
+    qw, qh = (W, H) if full else (W // 4, H // 4)
+    qcfg = RenderConfig(width=qw, height=qh, samples=8, samples_per_pass=8,
+                        nee=nee)
+    with env_var("PT_COHERENT", "0"):
+        qtabs, qmeta, qpid, qlay = port_inputs(get_scene("teapot", qcfg),
+                                               qcfg, MESH_TILE, dev)
+        q = torch.stack(mk.trace_tiles_reference(
+            (1, 0), *qtabs, meta=qmeta, cfg=qcfg, spp=8, total_samples=8,
+            tile=MESH_TILE, **qlay), -1).reshape(-1, 3).cpu().numpy()
+    plain_img = mk.untile_image(q.astype(np.float64), qpid, qw, qh) / 8.0
+    pmean = plain_img.reshape(-1, 3).mean(0)
+    trel = np.abs(timg.reshape(-1, 3).mean(0) - pmean) / pmean
+    phase(f"{tag}: image mean {timg.reshape(-1, 3).mean(0)} vs plain 8-spp "
+          f"per-slot-draw {qw}x{qh} {pmean}: rel diff {trel.max():.4f} "
+          f"(need <{MAIN_MEAN_REL})")
+    if trel.max() >= MAIN_MEAN_REL:
+        raise AssertionError(f"{tag}: image mean off the plain render")
+    return dict(launches=n["launches"], mesh=n["mesh"], nee=n["nee"],
+                seed=mseed, tabs=mtabs, kw=mkw, full=full, p_ms=tp_ms,
+                p64_ms=p64_ms, counts=counts, bit_eq=bit_eq, err=err,
+                checked=checked, metrics=tm)
+
+
 def tex_main_path(tmp, dev, card):
     """Phase 4 (textures): `textures` at W x H x SPP through cli.main, with
     the launch counts set to 0 just before; then the first 8 samples of the
     driver's last segment through the kernel and the plain version, bit
     for bit, and the image mean against that plain render's. Returns the
     numbers, with the 8-spp inputs for phase 5."""
-    img, m, launches, _, tex_launches = cli_render("textures", tmp)
+    img, m, n = cli_render("textures", tmp)
+    launches, tex_launches = n["launches"], n["tex"]
     segs = m["segments"]
     phase(f"phase 4 textures: textures {W}x{H}x{SPP}: "
           f"{m['msamples_per_sec']} Msamples/s, render wall {m['wall_s']} s "
@@ -475,11 +685,8 @@ def fetch_probe(dev, card):
         raise AssertionError("phase 5: the fetch probe differs from "
                              "sample_pool")
     k_ms = cuda_ms(lambda: mk.fetch_texels(pool, 0, w, h, u, v), 10)
-    ops = FETCHES * OPS_FETCH
-    t_ops = ops / PEAK_F32 * 1e3
-    t_bytes = (nbytes(pool, u, v) + 3 * nbytes(u)) / PEAK_BYTES * 1e3
-    bound = max(t_ops, t_bytes)
-    by = "operations" if t_ops >= t_bytes else "bytes"
+    bound, by, _ = bound_of(FETCHES * OPS_FETCH,
+                            nbytes(pool, u, v) + 3 * nbytes(u))
     phase(f"phase 5: texel-fetch probe, {FETCHES} random bilinear fetches "
           f"over a {w}x{h} rgb8 texture: kernel {k_ms:.4f} ms = "
           f"{FETCHES / k_ms / 1e6:.2f} Gfetch/s, plain (sample_pool) "
@@ -588,6 +795,149 @@ def ab_parent(parent: str, cases, card, ptxas):
     finally:
         _build._loaded[key] = mine
     return out
+
+
+def nee_timing(ref_nee, tea_nee, card):
+    """Phase 5 (NEE): K1-nee at W x H x 8 spp on `reference` (phase 4's
+    8-spp inputs) and on teapot's last 8-spp segment, each timed in turns
+    with K1 on the same samples (cfg.nee off: K1, NEE, NEE, K1, 10 launches
+    a timing), with the plain time and the bound from the plain run's
+    work. Returns {scene: numbers}."""
+    out = {}
+    for name, d, seed, tabs, kw, p_ms, counts in (
+            ("reference", ref_nee, (1, 0), ref_nee["tabs8"], ref_nee["kw8"],
+             ref_nee["p8_ms"], ref_nee["c8"]),
+            ("teapot", tea_nee, tea_nee["seed"], tea_nee["tabs"],
+             tea_nee["kw"], tea_nee["p_ms"] or tea_nee["p64_ms"],
+             tea_nee["counts"])):
+        k1kw = dict(kw, cfg=kw["cfg"].replace(nee=False))
+        runs = {"k1": [], "nee": []}
+        for who in ("k1", "nee", "nee", "k1"):
+            runs[who].append(cuda_ms(lambda: mk.trace_tiles(
+                seed, *tabs, **(kw if who == "nee" else k1kw)), 10))
+        n_ms, k_ms = min(runs["nee"]), min(runs["k1"])
+        b_ms, b_by, ops = fwd_bound(counts, tabs, kw)
+        plain = ("plain" if name == "reference" or d["full"] else
+                 "plain on the first 64 tiles")
+        phase(f"phase 5 nee: {name} {W}x{H}x{kw['spp']} spp: K1-nee "
+              f"{n_ms:.4f} ms, K1 on the same samples {k_ms:.4f} ms "
+              f"({n_ms / k_ms:.2f}x); {plain} {p_ms:.1f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}; {ops:.4g} f32 ops; "
+              f"{counts['shadow_rays']} light points, "
+              f"{counts['shadow_tests']} shadow rays cast, "
+              f"{counts['shadow_lit']} lit); timings K1-nee {runs['nee']}, "
+              f"K1 {runs['k1']}; card {card}")
+        out[name] = dict(ms=n_ms, k1_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by, shadow_rays=counts["shadow_rays"])
+    return out
+
+
+def branch_cost(cases, ptxas, card):
+    """Phase 5 (NEE): what a runtime branch in place of the kNee template
+    flag would cost the renders without NEE. Each case (seed, inputs,
+    keywords of a render without NEE) runs on the instantiation without
+    NEE (the flag's) and on the NEE instantiation with no light (the code a
+    runtime branch would run for it: cfg.nee with the lights taken away),
+    bit for bit, 20 launches a timing in the order flag, branch, branch,
+    flag, three times over; and each NEE instantiation's ptxas counts
+    stand beside its twin's. Returns {case: (flag ms, branch ms)} and
+    {instantiation: (NEE counts, twin counts)}."""
+    counts = ptxas_counts(ptxas)
+    pairs = {k: (v, counts.get(k.replace("nee ", "")))
+             for k, v in counts.items() if "nee " in k}
+    phase(f"phase 5 nee: ptxas (registers, stack, spill stores, spill "
+          f"loads) of the NEE instantiations beside their twins: {pairs}")
+    out = {}
+    for tag, (seed, tabs, kw) in cases.items():
+        bkw = dict(kw, cfg=kw["cfg"].replace(nee=True),
+                   meta=dataclasses.replace(kw["meta"], light_indices=()))
+        res, runs = {}, {"flag": [], "branch": []}
+        for who in ["flag", "branch", "branch", "flag"] * 3:
+            fkw = bkw if who == "branch" else kw
+            res[who] = torch.stack(mk.trace_tiles(seed, *tabs, **fkw))
+            runs[who].append(cuda_ms(lambda: mk.trace_tiles(seed, *tabs,
+                                                            **fkw), 20))
+        if not torch.equal(res["flag"], res["branch"]):
+            raise AssertionError(f"phase 5 nee: {tag}: the NEE instantiation "
+                                 "without a light differs from the render "
+                                 "without NEE")
+        fm, bm = (float(np.median(runs[w])) for w in ("flag", "branch"))
+        phase(f"phase 5 nee: runtime branch, {tag}: flag (no NEE code) "
+              f"{fm:.4f} ms, branch (NEE code, no light) {bm:.4f} ms "
+              f"({(bm - fm) / fm:+.2%}; within 1%: {abs(bm - fm) < 0.01 * fm}"
+              f"), bit-equal; timings flag "
+              f"{[round(x, 4) for x in runs['flag']]}, branch "
+              f"{[round(x, 4) for x in runs['branch']]}; card {card}")
+        out[tag] = (fm, bm)
+    return out, pairs
+
+
+def flat_outputs(res):
+    """intersect_batch's result as a list of its 15 [R] tensors."""
+    return [x for r in res for x in (r if isinstance(r, tuple) else (r,))]
+
+
+def intersect_phase(dev, card):
+    """Phase 9: the intersect-only kernel (K5) on W x H x 8 = 9,830,400
+    rays a batch: jittered camera rays, then one bounce of random rays from
+    their hits (_torch_scenes.bounce_rays), on ISECT_SCENES. Its launch count is set to 0 before the
+    six batches' first calls (the wavefront's calls) and read after; then
+    each batch is held bit for bit against intersect_batch_reference and
+    timed (10 launches, tables built once), with its bound: 84 bytes a ray
+    against the operations the plain run counts. Returns the numbers."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cfg = RenderConfig(width=W, height=H, samples=8)
+    mk.intersect_batch.launches = 0
+    batches = []
+    for name in ISECT_SCENES:
+        sc = (size_check_scene(cfg, get_scene) if name == "size-check mesh"
+              else get_scene(name, cfg))
+        arrays, meta = sc.pack(device=dev)
+        tables = mk.intersect_tables(arrays, meta, dev)
+        o, d = camera_rays(sc.camera, W, H, 8, gen)
+        first = mk.intersect_batch(arrays, meta, cfg, o, d, tables=tables)
+        o2, d2 = bounce_rays(o, d, first[0], cfg.t_max, gen)
+        second = mk.intersect_batch(arrays, meta, cfg, o2, d2, tables=tables)
+        batches += [(f"{name} primary", arrays, meta, tables, o, d, first),
+                    (f"{name} bounce", arrays, meta, tables, o2, d2, second)]
+    launches = mk.intersect_batch.launches
+    if launches != len(batches):
+        raise AssertionError(f"phase 9: {launches} intersect launches for "
+                             f"{len(batches)} batches")
+    out = {}
+    for tag, arrays, meta, tables, o, d, got in batches:
+        counts = {}
+        want, p_ms = timed(lambda: mk.intersect_batch_reference(
+            arrays, meta, cfg, o, d, tables, counts), stack=False)
+        got, want = flat_outputs(got), flat_outputs(want)
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            bad = [i for i, (a, b) in enumerate(zip(got, want))
+                   if not torch.equal(a, b)]
+            raise AssertionError(f"phase 9: {tag}: the kernel differs from "
+                                 f"the plain version in outputs {bad}")
+        k_ms = cuda_ms(lambda: mk.intersect_batch(arrays, meta, cfg, o, d,
+                                                  tables=tables), 10)
+        R = counts["rays"]
+        ops = (R * (sum(OPS_OBJECT[t] for t in meta.obj_types)
+                    + OPS_ISECT_RAY)
+               + OPS_NODE * counts["node_visits"]
+               + OPS_LEAF_SLOT * counts["leaf_slots"]
+               + OPS_ISECT_TRI * counts["tri_hits"])
+        b_ms, b_by, _ = bound_of(ops, nbytes(*o, *d, *got)
+                                 + nbytes(*tables))
+        misses = int((got[0] == cfg.t_max).sum())
+        phase(f"phase 9: {tag}: {R} rays ({misses} misses, "
+              f"{counts['tri_hits']} triangle hits, {counts['node_visits']} "
+              f"node visits): kernel {k_ms:.4f} ms ({R / k_ms / 1e6:.2f} "
+              f"Grays/s), bit-equal to the plain version ({p_ms:.1f} ms); "
+              f"bound {b_ms:.4f} ms ({b_by}; {ops:.4g} f32 ops); card "
+              f"{card}")
+        out[tag] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                        rays=R, misses=misses, err=err)
+    return launches, out
 
 
 def grad_setup(sc, cfg, dev):
@@ -933,8 +1283,9 @@ def tex_training(dev, card):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab-parent", metavar="DIR",
-                    help="A/B K1, K1-mesh, K1-tex and K6 against the csrc "
-                         "of the pathtracer_tpu_torch under DIR (phase 5)")
+                    help="A/B K1, K1-mesh, K1-tex and K6 (the instantiations "
+                         "without NEE) against the csrc of the "
+                         "pathtracer_tpu_torch under DIR (phase 5)")
     args = ap.parse_args(argv)
     # ---- phase 1: the card ----------------------------------------------
     smi = subprocess.run(
@@ -995,137 +1346,48 @@ def main(argv=None) -> int:
     tex_errs = [compare(name, get_scene(name, tcfg), tcfg, None, 0, dev,
                         exact=True, tiles=64)[0] for name in TEX_SCENES]
 
+    # NEE (the kNee instantiations) bit for bit: 1, 4 and 3 lights, the
+    # mesh shadow walk on the driver's mesh layout, the textured
+    # instantiations (`cubemap`: textured and mesh), depth of field and
+    # per-slot draws (PT_COHERENT=0)
+    nsmall = small.replace(nee=True)
+    nmesh = msmall.replace(nee=True)
+    nee_cases = [(n, get_scene(n, nsmall), nsmall, TILE, 0) for n in (
+        "reference", "transparency_quad_lights", "transparency_f_light")]
+    nee_cases += [
+        ("teapot", get_scene("teapot", nmesh), nmesh, MESH_TILE, 0),
+        ("textures", get_scene("textures", nmesh), nmesh, None, 0),
+        ("cubemap", get_scene("cubemap", nmesh), nmesh, None, 0),
+        ("reference dof", get_scene("reference", dof.replace(nee=True)),
+         dof.replace(nee=True), TILE, 16)]
+    nee_errs = [compare(f"nee {name}", sc, cfg, tile, base, dev,
+                        exact=True)[0]
+                for name, sc, cfg, tile, base in nee_cases]
+    with env_var("PT_COHERENT", "0"):
+        nee_errs.append(compare("nee reference, PT_COHERENT=0",
+                                get_scene("reference", nsmall), nsmall, TILE,
+                                0, dev, exact=True)[0])
+
     with tempfile.TemporaryDirectory() as tmp:
-        # ---- phase 4: the main path, reference --------------------------
-        img, m, launches, _, _ = cli_render("reference", tmp)
-        want = m["segments"]
-        phase(f"phase 4: reference {W}x{H}x{SPP}: {m['msamples_per_sec']} "
-              f"Msamples/s, render wall {m['wall_s']} s (driver), "
-              f"{m['total_wall_s']} s incl. scene setup; {launches} kernel "
-              f"launches for {want} segments; card {card}")
-        if launches != want or want != 16:
-            raise AssertionError("phase 4: the main path did not launch the "
-                                 "kernel once per segment (16 expected)")
-        check_image("phase 4", img)
-        cfg8 = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
-        sc8 = get_scene("reference", cfg8)
-        tabs8, meta8, pid, lay8 = port_inputs(sc8, cfg8, TILE, dev)
-        kw8 = dict(meta=meta8, cfg=cfg8, spp=8, total_samples=8, tile=TILE,
-                   **lay8)
-        c8 = {}
-        ref = torch.stack(mk.trace_tiles_reference((1, 0), *tabs8, **kw8,
-                                                   counts=c8), -1)
-        ref = mk.untile_image(ref.reshape(-1, 3).cpu().numpy(), pid, W,
-                              H) / 8.0
-        rel = np.abs(img.reshape(-1, 3).mean(0) - ref.mean(0)) / ref.mean(0)
-        phase(f"phase 4: image mean {img.reshape(-1, 3).mean(0)} vs plain "
-              f"8-spp {ref.mean(0)}: rel diff {rel.max():.4f} "
-              f"(need <{MAIN_MEAN_REL})")
-        if rel.max() >= MAIN_MEAN_REL:
-            raise AssertionError("phase 4: image mean off the plain render")
-
-        # the driver's last segment again, kernel vs plain version slot by
-        # slot: the shapes, seed vector and sample base the main path used
-        tabs, kw, seed, _ = last_segment("reference", m, TILE, dev)
-        seg_spp = kw["spp"]                             # 128 (PT_SEG_SPP)
-        k = torch.stack(mk.trace_tiles(seed, *tabs, **kw)).cpu().numpy()
-        seg_counts = {}
-        p, p_ms = timed(lambda: mk.trace_tiles_reference(
-            seed, *tabs, **kw, counts=seg_counts))
-        p = p.cpu().numpy()
-        frac = float(np.isclose(k, p, atol=ATOL, rtol=RTOL).mean())
-        bit_eq = float((k == p).mean())
-        seg_err = float(np.abs(k - p).max())
-        phase(f"phase 4: segment seed {seed} x {seg_spp} spp of {SPP} at "
-              f"{W}x{H}: kernel vs plain bit-equal on {bit_eq:.6f} of "
-              f"{k.size} slot values, {frac:.6f} within atol={ATOL} "
-              f"rtol={RTOL}; max abs err {seg_err:.3e}")
-        if not np.isfinite(k).all() or bit_eq != 1.0:
-            raise AssertionError("phase 4: kernel differs from the plain "
-                                 "version on the main path's segment")
-        errs.append(seg_err)
-
-        # ---- phase 4 (mesh): the main path, teapot ----------------------
-        timg, tm, t_launches, t_mesh, _ = cli_render("teapot", tmp)
-        t_want = tm["segments"]
-        phase(f"phase 4 mesh: teapot ({mesh_tris['teapot']} triangles) "
-              f"{W}x{H}x{SPP}: {tm['msamples_per_sec']} Msamples/s, render "
-              f"wall {tm['wall_s']} s (driver), {tm['total_wall_s']} s incl. "
-              f"scene setup; {t_launches} kernel launches ({t_mesh} of the "
-              f"mesh instantiation) for {t_want} segments; card {card}")
-        if not t_launches == t_mesh == t_want == SPP // 8:
-            raise AssertionError("phase 4 mesh: the main path did not "
-                                 "launch the mesh kernel once per segment "
-                                 f"({SPP // 8} expected)")
-        check_image("phase 4 mesh", timg)
-
-        # ---- phase 4 (textures): the main path, textures ----------------
+        # ---- phase 4: the main paths: reference, teapot, textures -------
+        ref = reference_main_path(tmp, dev, card)
+        tea = teapot_main_path(tmp, dev, card, mesh_tris)
         tex_main = tex_main_path(tmp, dev, card)
-        tex_errs.append(tex_main["err"])
-
-    # its last segment, kernel vs plain version: the first 64 tiles, or
-    # every slot when the plain version fits its time budget
-    mtabs, mkw, mseed, _ = last_segment("teapot", tm, MESH_TILE, dev)
-    n_tiles = mtabs[4].shape[0] // MESH_TILE[0]
-    k = torch.stack(mk.trace_tiles(mseed, *mtabs, **mkw))
-    torch.cuda.synchronize()
-    c64 = {}
-    p64, p64_ms, full = plain_affordable("phase 4 mesh", mseed, mtabs, mkw,
-                                         n_tiles, 64, c64)
-    rows64 = 64 * MESH_TILE[0]
-    if full:
-        mcounts = {}
-        p, tp_ms = timed(lambda: mk.trace_tiles_reference(
-            mseed, *mtabs, **mkw, counts=mcounts))
-        checked = "every slot"
-    else:
-        p, tp_ms = p64, None
-        k = k[:, :rows64]
-        checked = "the slots of the first 64 tiles"
-        # the full run's work, estimated from the first 64 tiles'
-        mcounts = {key: v * n_tiles // 64 for key, v in c64.items()}
-    k, p = k.cpu().numpy(), p.cpu().numpy()
-    if not np.array_equal(k[:, :rows64], p64.cpu().numpy()):
-        raise AssertionError("phase 4 mesh: plain version on the first 64 "
-                             "tiles differs from its full run")
-    t_bit_eq = float((k == p).mean())
-    mesh_errs.append(float(np.abs(k - p).max()))
-    phase(f"phase 4 mesh: segment seed {mseed} x {mkw['spp']} spp of {SPP} "
-          f"at {W}x{H}: checked {checked} ({k.size} slot values): "
-          f"bit-equal on {t_bit_eq:.6f}; max abs err {mesh_errs[-1]:.3e}")
-    if not np.isfinite(k).all() or t_bit_eq != 1.0:
-        raise AssertionError("phase 4 mesh: kernel differs from the plain "
-                             "version on the main path's segment")
-    # the mean check's plain render: 8 spp with per-slot draws
-    # (PT_COHERENT=0, the same estimator). The coherent draws of a mesh
-    # tile are shared by a whole 32x32-pixel block, so the mean of one
-    # coherent 8-spp render carries several percent of noise. At a quarter
-    # of the size when the full-size plain run does not fit its budget (the
-    # mean over the image plane does not depend on the resolution).
-    qw, qh = (W, H) if full else (W // 4, H // 4)
-    qcfg = RenderConfig(width=qw, height=qh, samples=8, samples_per_pass=8)
-    coherent = os.environ.get("PT_COHERENT")
-    os.environ["PT_COHERENT"] = "0"
-    try:
-        qtabs, qmeta, qpid, qlay = port_inputs(get_scene("teapot", qcfg),
-                                               qcfg, MESH_TILE, dev)
-        q = torch.stack(mk.trace_tiles_reference(
-            (1, 0), *qtabs, meta=qmeta, cfg=qcfg, spp=8, total_samples=8,
-            tile=MESH_TILE, **qlay), -1).reshape(-1, 3).cpu().numpy()
-    finally:
-        if coherent is None:
-            del os.environ["PT_COHERENT"]
-        else:
-            os.environ["PT_COHERENT"] = coherent
-    plain_img = mk.untile_image(q.astype(np.float64), qpid, qw, qh) / 8.0
-    plain_tag = f"plain 8-spp per-slot-draw {qw}x{qh}"
-    pmean = plain_img.reshape(-1, 3).mean(0)
-    trel = np.abs(timg.reshape(-1, 3).mean(0) - pmean) / pmean
-    phase(f"phase 4 mesh: image mean {timg.reshape(-1, 3).mean(0)} vs "
-          f"{plain_tag} {pmean}: rel diff {trel.max():.4f} "
-          f"(need <{MAIN_MEAN_REL})")
-    if trel.max() >= MAIN_MEAN_REL:
-        raise AssertionError("phase 4 mesh: image mean off the plain render")
+        # ---- phase 4 (NEE): reference --nee and teapot --nee ------------
+        ref_nee = reference_main_path(tmp, dev, card, nee=True)
+        tea_nee = teapot_main_path(tmp, dev, card, mesh_tris, nee=True)
+    errs.append(ref["err"])
+    mesh_errs.append(tea["err"])
+    tex_errs.append(tex_main["err"])
+    nee_errs += [ref_nee["err"], tea_nee["err"]]
+    launches, bit_eq, frac = ref["launches"], ref["bit_eq"], ref["frac"]
+    seed, tabs, kw, p_ms = ref["seed"], ref["tabs"], ref["kw"], ref["p_ms"]
+    seg_spp, seg_counts = kw["spp"], ref["counts"]
+    tabs8, kw8 = ref["tabs8"], ref["kw8"]
+    mseed, mtabs, mkw = tea["seed"], tea["tabs"], tea["kw"]
+    t_mesh, t_bit_eq, checked = tea["mesh"], tea["bit_eq"], tea["checked"]
+    full, tp_ms, p64_ms, mcounts = (tea["full"], tea["p_ms"], tea["p64_ms"],
+                                    tea["counts"])
 
     # ---- phase 5: kernel vs plain time ----------------------------------
     k_ms = cuda_ms(lambda: mk.trace_tiles(seed, *tabs, **kw), 5)
@@ -1189,6 +1451,14 @@ def main(argv=None) -> int:
     tex_times = tex_timing(tex_main, dev, card)
     probe = fetch_probe(dev, card)
     mip_blur(dev, card)
+    # NEE: K1-nee beside K1 on the same samples, and what a runtime branch
+    # would cost the renders without NEE
+    nee_times = nee_timing(ref_nee, tea_nee, card)
+    branch = branch_cost({
+        f"reference {W}x{H}x8 spp": ((1, 0), tabs8, kw8),
+        f"teapot {W}x{H}x8 spp": (mseed, mtabs, mkw),
+        f"textures {W}x{H}x8 spp": (tex_main["seed"], tex_main["tabs"],
+                                    tex_main["kw"])}, ptxas, card)
     if args.ab_parent:
         gcfg = RenderConfig(width=W, height=H, samples=GRAD_SPP,
                             samples_per_pass=GRAD_SPP)
@@ -1221,6 +1491,9 @@ def main(argv=None) -> int:
           f"{g_ref['ms']:.4f} ms for the same {W}x{H}x{GRAD_SPP} samples "
           f"({g_tex['ms'] / g_ref['ms']:.2f}x); card {card}")
     tex_train = tex_training(dev, card)
+
+    # ---- phase 9: the intersect-only kernel (K5) --------------------------
+    isect = intersect_phase(dev, card)
 
     print(json.dumps({"kernels": [
         {"name": "megakernel", "route": "cuda",
@@ -1312,7 +1585,37 @@ def main(argv=None) -> int:
          "fwd_bwd_msamples_per_s": tex_train["rate"],
          "fwd_bwd_shape": f"{TEX_TRAIN} {W}x{H}x{STEP_SPP}spp x 3 steps",
          "train_losses": tex_train["losses"],
-         "train_texel_mad": tex_train["mad"]}]}))
+         "train_texel_mad": tex_train["mad"]},
+        {"name": "megakernel-nee", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pathtracer_tpu/render/pallas_kernel.py:2421",
+         "launches": ref_nee["nee"] + tea_nee["nee"],
+         "launches_by_scene": {"reference": ref_nee["nee"],
+                               "teapot": tea_nee["nee"]},
+         "max_abs_err": max(nee_errs), "bit_equal_frac": ref_nee["bit_eq"],
+         "shape": f"reference {W}x{H}x8spp", "ms": nee_times["reference"]["ms"],
+         "plain_ms": nee_times["reference"]["plain_ms"],
+         "bound_ms": nee_times["reference"]["bound_ms"],
+         "bound_by": nee_times["reference"]["bound_by"], "library_ms": None,
+         "by_scene": nee_times,
+         "msamples_per_s": {"reference": ref_nee["metrics"]["msamples_per_sec"],
+                            "teapot": tea_nee["metrics"]["msamples_per_sec"]},
+         "runtime_branch_ms": {k: {"flag": v[0], "branch": v[1]}
+                               for k, v in branch[0].items()},
+         "ptxas_nee_vs_twin": {k: [list(a), list(b) if b else None]
+                               for k, (a, b) in branch[1].items()}},
+        {"name": "intersect", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pathtracer_tpu/render/pallas_kernel.py:2690",
+         "launches": isect[0],
+         "max_abs_err": max(v["err"] for v in isect[1].values()),
+         "bit_equal_frac": 1.0,
+         "shape": f"reference primary {W * H * 8} rays",
+         "ms": isect[1]["reference primary"]["ms"],
+         "plain_ms": isect[1]["reference primary"]["plain_ms"],
+         "bound_ms": isect[1]["reference primary"]["bound_ms"],
+         "bound_by": isect[1]["reference primary"]["bound_by"],
+         "library_ms": None, "by_batch": isect[1]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

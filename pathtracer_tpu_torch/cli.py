@@ -57,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "ignores it)")
     p.add_argument("--seed", type=int, default=_env("seed", 0, int))
     p.add_argument("--nee", action="store_true",
-                   help="next-event estimation (not ported yet)")
+                   help="next-event estimation: one shadow ray per light "
+                        "at each bounce")
     p.add_argument("--debug-ray", type=int, default=-1,
                    help="per-bounce probe of one ray (not ported yet)")
     p.add_argument("--distributed", action="store_true",
@@ -99,7 +100,6 @@ def _unported(args) -> str:
          "item 12 (wavefront integrator)"),
         (args.distributed or args.mesh, "--distributed/--mesh",
          "item 13 (multi-GPU)"),
-        (args.nee, "--nee", "item 11 (in-kernel NEE)"),
         (args.debug_ray >= 0, "--debug-ray",
          "item 12 (wavefront integrator)"),
         (args.profile, "--profile", "item 15 (bench keys and profiling)"),

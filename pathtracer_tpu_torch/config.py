@@ -16,8 +16,8 @@ class RenderConfig:
     Mirrors the reference CLI flags --width --height --samples --aperture
     --focal-length (cmd/pt/main.go:48-56) plus the JAX package's knobs.
     Fields that select parts this package has not ported yet (dtype
-    float64, the wavefront backend, nee, debug_ray) are kept so configs
-    stay interchangeable; the driver refuses them with a message.
+    float64, the wavefront backend, debug_ray) are kept so configs stay
+    interchangeable; the driver refuses them with a message.
     """
 
     width: int = 640
@@ -50,7 +50,9 @@ class RenderConfig:
     backend: str = "auto"
     # Differentiable texture sampling (not ported yet).
     trainable_textures: bool = False
-    # Next-event estimation (ROADMAP queue 1, item 11; not ported yet).
+    # Next-event estimation in the megakernel: one shadow ray per light at
+    # each bounce that hits a surface neither refracting nor a light (the
+    # reference's experimental estimator, tracer.cl:786-829).
     nee: bool = False
     # Per-ray debug probe of the wavefront path (not ported yet).
     debug_ray: int = -1

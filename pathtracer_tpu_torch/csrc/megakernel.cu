@@ -2,7 +2,7 @@
 // and textures, for Hopper (sm_90a).
 //
 // Replaces pathtracer_tpu/render/pallas_kernel.py::_make_kernel, launched by
-// trace_tiles (without NEE): per tile slot,
+// trace_tiles: per tile slot,
 // `spp / spp_pack` samples of a jittered camera ray (sunflower depth of field
 // when the aperture is set), each bounced up to `max_bounces` times through
 // the plane/sphere/cylinder/box tests and the BVH walk of triangle groups
@@ -103,6 +103,33 @@
 // texture is trainable (bit j of tex_train: a texture the JAX package
 // stages). A textured winner's object color gets no gradient (the texel
 // overwrote it); its emission still does.
+//
+// Next-event estimation (K1-nee). Replaces the NEE block of _make_kernel
+// (pallas_kernel.py:2421-2513): at every bounce that hits a surface that is
+// neither refracting nor a light, one shadow ray per light toward a random
+// point on the light's sphere (the reference's randomPointOnSphere, its
+// latitude offset kept); when the light is the shadow ray's nearest hit,
+// the sum gains mask * color * emission * ldn * attenuation, with the mask
+// before this bounce's update and the color after the texel fetch. The
+// shadow ray's nearest hit is nearest_hit, the function the bounce's own
+// intersection calls, so the mesh shadow walk is walk_group. Its two draws
+// (ids 6 + 2 li, 7 + 2 li) are coherent draws, like the roulette's. A fifth
+// template flag, kNee, compiles the block into four forward instantiations
+// (kMesh x kTex) only: the light indices ride in the launch parameters,
+// and the instantiations without NEE keep the code (and the registers)
+// they had. The gradient and f32-texel instantiations have no NEE: the
+// differentiable render refuses it, as the JAX package's does.
+//
+// The intersect-only kernel (K5). Replaces _make_intersect_kernel
+// (pallas_kernel.py:2690, launched by intersect_tiles :2814 for
+// intersect_batch :2916): the nearest hit over the whole scene for a flat
+// batch of rays, one thread a ray, with no shading. It writes t (at most
+// t_max), the winner (0 on a miss), the winner's object-space ray (the
+// world ray on a miss), whether a triangle won, and that triangle's smooth
+// normal and color. The TPU's (8, 512) tiling and padding rays are not
+// carried over. Its bound: 84 bytes a ray in and out against one
+// transform and test an object (and the walk's nodes and slots), so bytes
+// on primitive scenes and operations on meshes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -128,6 +155,7 @@ constexpr float kPi = 0x1.921fb6p+1f;
 constexpr float kInvTwoPi = 0x1.45f306p-3f;
 constexpr float kInvPi = 0x1.45f306p-2f;
 constexpr float kInv255 = 0x1.010102p-8f;
+constexpr float kQuarterPi = 0x1.921fb6p-1f;  // NEE: f32 of pi * 0.25
 
 enum { PLANE = 0, SPHERE = 1, CYLINDER = 2, BOX = 3, GROUP = 4 };
 
@@ -468,6 +496,9 @@ struct Params {
   float* gtex;
   unsigned long long tex_train;
   int n_texels;
+  // kNee only: the lights (meta.light_indices), in the JAX order
+  int n_lights;
+  int light_idx[kMaxObjects];
 };
 
 __device__ __forceinline__ void add_nonzero(float* a, float v) {
@@ -571,8 +602,92 @@ __device__ __forceinline__ float walk_group(const Params& p, int root, int end,
   return bt;
 }
 
-// kF32 (with kTex): fetch from the f32 texels, not the rgb8 pool
-template <bool kMesh, bool kGrad, bool kTex, bool kF32 = false>
+// The nearest hit of a ray over the whole scene.
+struct Hit {
+  float t;                             // kBig when nothing is hit
+  int w;                               // the winning object, -1 on a miss
+  float lox, loy, loz, ldx, ldy, ldz;  // its object-space ray (0 on a
+                                       // miss)
+  int tri;                             // the winning triangle slot, or -1
+  float tu, tv;                        // its barycentrics
+};
+
+// Every object's transform and test in table order, a GROUP's
+// object-space box pretest and then its walk, the winner replaced on a
+// strictly smaller t: the TPU kernels' unrolled object loop (the intersect
+// section of _make_kernel, the NEE shadow loop pallas_kernel.py:2452-2498,
+// _make_intersect_kernel :2741-2790). The bounce, the shadow rays and the
+// intersect-only kernel all call it; `s_obj` is the object table.
+template <bool kMesh>
+__device__ __forceinline__ Hit nearest_hit(const Params& p,
+                                           const float* s_obj, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz) {
+  const float eps = p.eps;
+  Hit h{kBig, -1, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1, 0.f, 0.f};
+  for (int j = 0; j < p.n_obj; ++j) {
+    const float* m = s_obj + j * kObjCols;
+    const float tox = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
+    const float toy = m[4] * ox + m[5] * oy + m[6] * oz + m[7];
+    const float toz = m[8] * ox + m[9] * oy + m[10] * oz + m[11];
+    const float tdx = m[0] * dx + m[1] * dy + m[2] * dz;
+    const float tdy = m[4] * dx + m[5] * dy + m[6] * dz;
+    const float tdz = m[8] * dx + m[9] * dy + m[10] * dz;
+    float t;
+    int g_slot = -1;
+    float g_u = 0.f, g_v = 0.f;
+    switch (p.obj_types[j]) {
+      case PLANE: t = plane_t(toy, tdy, eps); break;
+      case SPHERE: t = sphere_t(tox, toy, toz, tdx, tdy, tdz, eps); break;
+      case CYLINDER:
+        t = cylinder_t(tox, toy, toz, tdx, tdy, tdz, m[32], m[33], eps);
+        break;
+      default:
+        if constexpr (kMesh) {
+          if (p.obj_types[j] == BOX) {
+            t = box_t(tox, toy, toz, tdx, tdy, tdz, eps);
+            break;
+          }
+          // GROUP: object-space bbox pretest, then the walk
+          t = kBig;
+          float x1, x2, y1, y2, z1, z2;
+          axis_slab(tox, tdx, m[34], m[37], eps, x1, x2);
+          axis_slab(toy, tdy, m[35], m[38], eps, y1, y2);
+          axis_slab(toz, tdz, m[36], m[39], eps, z1, z2);
+          const float gtmin = fmaxf(fmaxf(x1, y1), z1);
+          const float gtmax = fminf(fminf(x2, y2), z2);
+          if (gtmin <= gtmax && gtmax > eps && gtmin < h.t) {
+            t = walk_group(p, p.group_root[j], p.group_end[j], tox, toy,
+                           toz, tdx, tdy, tdz, h.t, g_slot, g_u, g_v);
+          }
+        } else {
+          // BOX, the last type a scene without groups has
+          t = box_t(tox, toy, toz, tdx, tdy, tdz, eps);
+        }
+        break;
+    }
+    if (t < h.t) {
+      h.t = t;
+      h.w = j;
+      h.lox = tox; h.loy = toy; h.loz = toz;
+      h.ldx = tdx; h.ldy = tdy; h.ldz = tdz;
+      h.tri = g_slot;
+      h.tu = g_u;
+      h.tv = g_v;
+    }
+  }
+  return h;
+}
+
+// acos(x) = atan2(sqrt(1 - x^2), x) for x in [-1, 1], by the polynomial
+__device__ __forceinline__ float acos_poly(float x) {
+  return atan2_poly(sqrtf(fmaxf((1.0f - x) * (1.0f + x), 0.0f)), x);
+}
+
+// kF32 (with kTex): fetch from the f32 texels, not the rgb8 pool.
+// kNee (forward only, not kF32): next-event estimation toward p.light_idx
+template <bool kMesh, bool kGrad, bool kTex, bool kF32 = false,
+          bool kNee = false>
 __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   extern __shared__ float smem[];
   float* s_obj = smem;
@@ -677,74 +792,22 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
     bool direct = false;
     for (int b = 0; b < p.max_bounces; ++b) {
       // ---- intersect: nearest object -------------------------------------
-      float best_t = kBig;
-      int w = -1;
-      float lox = 0.f, loy = 0.f, loz = 0.f, ldx = 0.f, ldy = 0.f, ldz = 0.f;
-      int tri = -1;       // winning triangle slot when a group wins
-      float tu = 0.f, tv = 0.f;
-      for (int j = 0; j < p.n_obj; ++j) {
-        const float* m = s_obj + j * kObjCols;
-        const float tox = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
-        const float toy = m[4] * ox + m[5] * oy + m[6] * oz + m[7];
-        const float toz = m[8] * ox + m[9] * oy + m[10] * oz + m[11];
-        const float tdx = m[0] * dx + m[1] * dy + m[2] * dz;
-        const float tdy = m[4] * dx + m[5] * dy + m[6] * dz;
-        const float tdz = m[8] * dx + m[9] * dy + m[10] * dz;
-        float t;
-        int g_slot = -1;
-        float g_u = 0.f, g_v = 0.f;
-        switch (p.obj_types[j]) {
-          case PLANE: t = plane_t(toy, tdy, eps); break;
-          case SPHERE: t = sphere_t(tox, toy, toz, tdx, tdy, tdz, eps); break;
-          case CYLINDER:
-            t = cylinder_t(tox, toy, toz, tdx, tdy, tdz, m[32], m[33], eps);
-            break;
-          default:
-            if constexpr (kMesh) {
-              if (p.obj_types[j] == BOX) {
-                t = box_t(tox, toy, toz, tdx, tdy, tdz, eps);
-                break;
-              }
-              // GROUP: object-space bbox pretest, then the walk
-              t = kBig;
-              float x1, x2, y1, y2, z1, z2;
-              axis_slab(tox, tdx, m[34], m[37], eps, x1, x2);
-              axis_slab(toy, tdy, m[35], m[38], eps, y1, y2);
-              axis_slab(toz, tdz, m[36], m[39], eps, z1, z2);
-              const float gtmin = fmaxf(fmaxf(x1, y1), z1);
-              const float gtmax = fminf(fminf(x2, y2), z2);
-              if (gtmin <= gtmax && gtmax > eps && gtmin < best_t) {
-                t = walk_group(p, p.group_root[j], p.group_end[j], tox, toy,
-                               toz, tdx, tdy, tdz, best_t, g_slot, g_u, g_v);
-              }
-            } else {
-              // BOX, the last type a scene without groups has
-              t = box_t(tox, toy, toz, tdx, tdy, tdz, eps);
-            }
-            break;
-        }
-        if (t < best_t) {
-          best_t = t;
-          w = j;
-          lox = tox; loy = toy; loz = toz;
-          ldx = tdx; ldy = tdy; ldz = tdz;
-          tri = g_slot;
-          tu = g_u;
-          tv = g_v;
-        }
-      }
+      const Hit hit = nearest_hit<kMesh>(p, s_obj, ox, oy, oz, dx, dy, dz);
       // a miss ends the path with nothing added (every update is gated on
       // alive & hit_ok in the TPU kernel)
-      if (!(best_t < p.t_max)) break;
-      const float t = best_t;
+      if (!(hit.t < p.t_max)) break;
+      const float t = hit.t;
+      const int w = hit.w;
+      const int tri = hit.tri;  // winning triangle slot when a group wins
+      const float tu = hit.tu, tv = hit.tv;
       const float* wm = s_obj + w * kObjCols;
       const int w_type = p.obj_types[w];
       const bool on_tri = kMesh && tri >= 0;
 
       // ---- surface normal by type (tracer.cl:903-950) ---------------------
-      const float lx = lox + ldx * t;
-      const float ly = loy + ldy * t;
-      const float lz = loz + ldz * t;
+      const float lx = hit.lox + hit.ldx * t;
+      const float ly = hit.loy + hit.ldy * t;
+      const float lz = hit.loz + hit.ldz * t;
       float nlx, nly, nlz;
       float tcr = 0.f, tcg = 0.f, tcb = 0.f;
       if (on_tri) {
@@ -926,6 +989,48 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
         sr = sr + mask_r * emi_r;
         sg = sg + mask_g * (on_tri ? 0.0f : wm[28]);
         sb = sb + mask_b * (on_tri ? 0.0f : wm[29]);
+        if constexpr (kNee) {
+          // ---- next-event estimation (pallas_kernel.py:2421-2513) -------
+          // nee_cond: a surface hit that neither refracts nor is a light.
+          // The estimator is the reference's: biased, since a BSDF ray
+          // that hits a light is not discounted by the shadow test
+          if (!is_light) {
+            const float cr = own_col ? tcr : wm[24];
+            const float cg = own_col ? tcg : wm[25];
+            const float cb = own_col ? tcb : wm[26];
+            for (int li = 0; li < p.n_lights; ++li) {
+              const int l = p.light_idx[li];
+              const float* lm = s_obj + l * kObjCols;
+              const float nu1 = hash_uniform(key, u_elem, 6u + 2u * li, un, ub);
+              const float nu2 = hash_uniform(key, u_elem, 7u + 2u * li, un, ub);
+              // randomPointOnSphere (tracer.cl:321-336) kept verbatim,
+              // its latitude offset and y term included
+              const float lat = acos_poly(2.0f * nu1 - 1.0f) - kTwoPi;
+              const float lon = kTwoPi * nu2;
+              const float cl = cosf(lat);
+              const float lpx = lm[40] + cl * cosf(lon) * lm[43];
+              const float lpy = lm[41] + (sinf(lat) - kQuarterPi) * lm[43];
+              const float lpz = lm[42] + cl * sinf(lon) * lm[43];
+              float sdx = lpx - wx, sdy = lpy - wy, sdz = lpz - wz;
+              normalize3(sdx, sdy, sdz);
+              const float ldn = dot3(sdx, sdy, sdz, nx, ny, nz);
+              // a light behind the surface adds nothing whatever the
+              // shadow ray hits: it is not cast
+              if (!(ldn > 0.0f)) continue;
+              const Hit s = nearest_hit<kMesh>(
+                  p, s_obj, wx + sdx * eps, wy + sdy * eps, wz + sdz * eps,
+                  sdx, sdy, sdz);
+              if (s.w == l && s.t > eps && s.t < p.t_max) {
+                const float sxl = lm[44];
+                const float atten = 1.0f - s.t / sqrtf(s.t * s.t + sxl * sxl);
+                const float w_nee = ldn * atten;
+                sr = sr + mask_r * cr * lm[27] * w_nee;
+                sg = sg + mask_g * cg * lm[28] * w_nee;
+                sb = sb + mask_b * cb * lm[29] * w_nee;
+              }
+            }
+          }
+        }
         if (is_light && n_hits == 0) {
           // a direct light hit returns the light's color (a textured
           // emitter's texel: the env-map sky sphere and cube)
@@ -1043,8 +1148,8 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
 // Copy the host type codes and group ranges into the launch parameters
 // and launch the instantiation the scene needs (kMesh when it has a GROUP,
 // kTex when the caller passed a texel pool or f32 texels, kF32 for the
-// latter).
-template <bool kGrad, bool kTex, bool kF32 = false>
+// latter, kNee for next-event estimation).
+template <bool kGrad, bool kTex, bool kF32 = false, bool kNee = false>
 int launch(Params& p, const int* obj_types, const int* group_root,
            const int* group_end, void* stream) {
   bool mesh = false;
@@ -1061,13 +1166,73 @@ int launch(Params& p, const int* obj_types, const int* group_root,
   const int blocks = (p.n_slots + kThreads - 1) / kThreads;
   if (blocks > 0) {
     if (mesh)
-      megakernel<true, kGrad, kTex, kF32>
+      megakernel<true, kGrad, kTex, kF32, kNee>
           <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
     else
-      megakernel<false, kGrad, kTex, kF32>
+      megakernel<false, kGrad, kTex, kF32, kNee>
           <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
+}
+
+// The intersect-only kernel's rays: six f32 [n] inputs, the f32 outputs
+// [14, n] (t, object-space origin xyz and direction xyz, the triangle flag,
+// the triangle normal xyz and color rgb) and the winners, i32 [n].
+struct Rays {
+  const float* ox;
+  const float* oy;
+  const float* oz;
+  const float* dx;
+  const float* dy;
+  const float* dz;
+  float* out;
+  int* idx;
+  int n;
+};
+
+// One thread a ray: nearest_hit, then the outputs of
+// _make_intersect_kernel (pallas_kernel.py:2792-2806).
+template <bool kMesh>
+__global__ void __launch_bounds__(kThreads) intersect(Params p, Rays r) {
+  extern __shared__ float smem[];
+  for (int i = threadIdx.x; i < p.n_obj * kObjCols; i += blockDim.x)
+    smem[i] = p.obj[i];
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= r.n) return;
+  const float ray[6] = {r.ox[i], r.oy[i], r.oz[i], r.dx[i], r.dy[i], r.dz[i]};
+  const Hit h = nearest_hit<kMesh>(p, smem, ray[0], ray[1], ray[2], ray[3],
+                                   ray[4], ray[5]);
+  const bool miss = h.w < 0;
+  float nrm[3] = {0.f, 0.f, 0.f}, col[3] = {0.f, 0.f, 0.f};
+  const bool on_tri = kMesh && h.tri >= 0;
+  if (on_tri) {
+    // the smooth normal n1 + u*(n2-n1) + v*(n3-n1) and the color
+    const float* tr = p.tris + (size_t)h.tri * kTriStride;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      nrm[k] = __ldg(tr + 12 + k) + __ldg(tr + 15 + k) * h.tu +
+               __ldg(tr + 18 + k) * h.tv;
+      col[k] = __ldg(tr + 21 + k);
+    }
+  }
+  const size_t n = (size_t)r.n;
+  float* o = r.out + i;
+  o[0] = fminf(h.t, p.t_max);
+  // the winner's object-space ray, or the world ray on a miss
+  o[n] = miss ? ray[0] : h.lox;
+  o[2 * n] = miss ? ray[1] : h.loy;
+  o[3 * n] = miss ? ray[2] : h.loz;
+  o[4 * n] = miss ? ray[3] : h.ldx;
+  o[5 * n] = miss ? ray[4] : h.ldy;
+  o[6 * n] = miss ? ray[5] : h.ldz;
+  o[7 * n] = on_tri ? 1.0f : 0.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o[(8 + k) * n] = nrm[k];
+    o[(11 + k) * n] = col[k];
+  }
+  r.idx[i] = miss ? 0 : h.w;
 }
 
 // The texel-fetch probe: one thread per (u, v) calls the kernel's own
@@ -1163,6 +1328,86 @@ extern "C" int pt_megakernel_texels_launch(
            n_texels};
   return launch<false, true, true>(p, obj_types, group_root, group_end,
                                    stream);
+}
+
+// Launch the next-event-estimation instantiations (kNee):
+// pt_megakernel_launch's arguments, then the rgb8 texel pool and texture
+// table of a textured scene (both null for a scene without textures) and
+// the n_lights light indices light_idx (a HOST array, copied into the
+// launch parameters). n_lights = 0 runs the NEE code with no light: the
+// render of pt_megakernel_launch (or _tex_launch), which measures what a
+// runtime branch would cost the renders without NEE.
+extern "C" int pt_megakernel_nee_launch(
+    float* out_r, float* out_g, float* out_b, const int* px, const int* py,
+    const float* obj, const int* obj_types, const float* cam,
+    const float* nodes, const float* tris, const int* group_root,
+    const int* group_end, int n_obj, int n_slots, int S, int L, int spp,
+    int spp_pack, int chunk_axis, uint32_t seed, int sample_base,
+    int max_bounces, int max_eff, int leaf_size, int oct_nodes, float eps,
+    float t_max, float sun_cut, float sun_den, float golden2, int coherent,
+    void* stream, const int* tex_pool, const float* tex_table, int n_lights,
+    const int* light_idx) {
+  if (n_obj < 1 || n_obj > kMaxObjects || spp_pack < 1 || leaf_size < 1 ||
+      spp % spp_pack != 0 || (chunk_axis ? L % spp_pack : S % spp_pack) != 0 ||
+      (tex_pool == nullptr) != (tex_table == nullptr) || n_lights < 0 ||
+      n_lights > kMaxObjects || (n_lights > 0 && light_idx == nullptr))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_lights; ++i)
+    if (light_idx[i] < 0 || light_idx[i] >= n_obj)
+      return (int)cudaErrorInvalidValue;
+  Params p{out_r, out_g, out_b, px, py, obj, cam, nodes, tris,
+           n_obj, n_slots, S, L, spp / spp_pack, spp_pack, chunk_axis, seed,
+           sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
+           eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
+           nullptr, nullptr, nullptr, nullptr, nullptr, tex_pool, tex_table};
+  p.n_lights = n_lights;
+  for (int i = 0; i < n_lights; ++i) p.light_idx[i] = light_idx[i];
+  if (tex_pool != nullptr)
+    return launch<false, true, false, true>(p, obj_types, group_root,
+                                            group_end, stream);
+  return launch<false, false, false, true>(p, obj_types, group_root,
+                                           group_end, stream);
+}
+
+// Launch the intersect-only kernel over n rays (ox..dz, f32 [n] each, on
+// the device): out f32 [14, n] and idx i32 [n] as struct Rays says. obj,
+// the mesh tables, obj_types, group_root and group_end as for
+// pt_megakernel_launch. Returns as pt_megakernel_launch does.
+extern "C" int pt_intersect_launch(
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, float* out, int* idx, int n,
+    const float* obj, const int* obj_types, const float* nodes,
+    const float* tris, const int* group_root, const int* group_end,
+    int n_obj, int leaf_size, int oct_nodes, float eps, float t_max,
+    void* stream) {
+  if (n_obj < 1 || n_obj > kMaxObjects || leaf_size < 1 || n < 0)
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.obj = obj;
+  p.nodes = nodes;
+  p.tris = tris;
+  p.n_obj = n_obj;
+  p.leaf_size = leaf_size;
+  p.oct_nodes = oct_nodes;
+  p.eps = eps;
+  p.t_max = t_max;
+  bool mesh = false;
+  for (int i = 0; i < n_obj; ++i) {
+    p.obj_types[i] = obj_types[i];
+    p.group_root[i] = group_root[i];
+    p.group_end[i] = group_end[i];
+    mesh = mesh || obj_types[i] == GROUP;
+  }
+  const Rays r{ox, oy, oz, dx, dy, dz, out, idx, n};
+  const size_t smem = sizeof(float) * (size_t)(n_obj * kObjCols);
+  const int blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0) {
+    if (mesh)
+      intersect<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p, r);
+    else
+      intersect<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p, r);
+  }
+  return (int)cudaGetLastError();
 }
 
 // Launch the texel-fetch probe over n (u, v) pairs of one texture at (base,

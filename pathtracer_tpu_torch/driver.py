@@ -119,9 +119,6 @@ def render_driver(
         raise NotImplementedError(
             f"dtype {cfg.dtype} runs the wavefront path, not ported yet: "
             "ROADMAP queue 1, item 12 (wavefront integrator)")
-    if cfg.nee:
-        raise NotImplementedError(
-            "NEE is not ported yet: ROADMAP queue 1, item 11 (in-kernel NEE)")
 
     W, H = camera.width, camera.height
     dev = scn.color.device

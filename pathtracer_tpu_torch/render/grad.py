@@ -47,7 +47,6 @@ from ..scene.pack import SceneMeta, staged_objects
 from . import _build
 from . import megakernel as mk
 
-_NEE_ITEM = "ROADMAP queue 1, item 11 (in-kernel NEE)"
 _TRI_MODES = ("onehot", "tape")
 
 _MAX_TAPE = 16      # kMaxTape of csrc/megakernel.cu
@@ -90,9 +89,8 @@ def _check_diff_scene(meta: SceneMeta, cfg: RenderConfig,
     scene with no staged texture."""
     if cfg.nee:
         raise NotImplementedError(
-            f"the differentiable megakernel does not replay NEE shadow "
-            f"draws (train with nee=False); NEE is not ported yet: "
-            f"{_NEE_ITEM}")
+            "the differentiable megakernel does not replay NEE shadow "
+            "draws, as the JAX package's does not (train with nee=False)")
     textured = bool(meta.textured_types or meta.has_normal_maps
                     or meta.obj_tex or meta.obj_tex_nm)
     if textured and not tex:

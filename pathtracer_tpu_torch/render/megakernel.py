@@ -1,12 +1,18 @@
 """Forward megakernel for scenes of primitives, triangle meshes and
 textures: tables, tile layout, the counter-hash PRNG, the BVH walk, the UV
-maps and texel fetch, and the CUDA kernel with its plain PyTorch version.
+maps and texel fetch, next-event estimation, and the CUDA kernel with its
+plain PyTorch version; and the intersect-only kernel.
 
-Counterpart of pathtracer_tpu.render.pallas_kernel without NEE: the host
-table builders and the pixel-to-tile layout keep their names and outputs
-(numpy, bit-identical), `trace_tiles` runs the whole sample loop x bounce
-loop per tile slot, and `render_megakernel` is the one-call render (the
-counterpart of `render_pallas`).
+Counterpart of pathtracer_tpu.render.pallas_kernel: the host table
+builders and the pixel-to-tile layout keep their names and outputs (numpy,
+bit-identical), `trace_tiles` runs the whole sample loop x bounce loop per
+tile slot (with one shadow ray per light at each bounce under cfg.nee),
+`render_megakernel` is the one-call render (the counterpart of
+`render_pallas`), and `intersect_batch` finds the nearest hit of a flat
+batch of rays over the whole scene (the counterpart of the JAX package's
+intersect-only kernel). `_nearest_hit` (and csrc/megakernel.cu's
+nearest_hit) is the one whole-scene query behind the bounce, the shadow
+rays and intersect_batch.
 
 Textures: the JAX kernel computes procedural texels in the kernel and
 fetches small file images by one-hot matmuls from a staged atlas, because
@@ -86,7 +92,6 @@ _M32 = 0xFFFFFFFF
 
 _MESH_VARIANT_ITEM = ("ROADMAP queue 2, row K1-mesh variants (the TPU "
                       "sub-packet gating and MXU leaf machine)")
-_NEE_ITEM = "ROADMAP queue 1, item 11 (in-kernel NEE)"
 
 
 # Texture-table column layout (per object row), [No, _TEX_COLS] f32:
@@ -923,13 +928,98 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
     return tuple(o.reshape(shape) for o in out)
 
 
+def nee_lights(meta: SceneMeta, cfg: RenderConfig) -> Tuple[int, ...]:
+    """The lights the shadow rays aim at: meta.light_indices under cfg.nee,
+    else none. A scene without a light renders as without NEE, as in the
+    JAX kernel (pallas_kernel.py:2430)."""
+    return tuple(meta.light_indices) if cfg.nee else ()
+
+
+def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, eps: float,
+                 t_max: float, ox, oy, oz, dx, dy, dz, active, w0: int,
+                 counts: dict = None):
+    """Plain whole-scene nearest hit (the TPU kernels' unrolled object loop;
+    csrc/megakernel.cu's nearest_hit): each object's transform and test in
+    table order, a GROUP's object-space box pretest (gated on `active`)
+    and then its walk, the winner replaced on a strictly smaller t.
+    `obj` is the object table as nested lists. Returns (t, w, local ray
+    (lox, loy, loz, ldx, ldy, ldz), on_tri, tri_slot, tri_nrm, tri_col):
+    t is _BIG and w is w0 where nothing is hit, the local ray the world
+    ray there; tri_slot is -1 and the smooth normal and color are 0 unless
+    a triangle won."""
+    group_bvh = {g: (r, e) for g, r, e in meta.group_bvh}
+    oct_nodes = meta.n_nodes if meta.octant_orders else 0
+    best_t = torch.full_like(ox, _BIG)
+    w = torch.full(ox.shape, w0, dtype=torch.int64, device=ox.device)
+    loc = [ox, oy, oz, dx, dy, dz]
+    on_tri = torch.zeros_like(ox, dtype=torch.bool)
+    tri_slot = torch.full_like(w, -1)
+    tri_nrm = [torch.zeros_like(ox) for _ in range(3)]
+    tri_col = [torch.zeros_like(ox) for _ in range(3)]
+    for j, code in enumerate(meta.obj_types):
+        m = obj[j]
+        tox, toy, toz = _mat12_point(m, ox, oy, oz)
+        tdx, tdy, tdz = _mat12_vec(m, dx, dy, dz)
+        g_tri = None
+        if code == PLANE:
+            t_j = _plane_t(toy, tdy, eps)
+        elif code == SPHERE:
+            t_j = _sphere_t(tox, toy, toz, tdx, tdy, tdz, eps)
+        elif code == CYLINDER:
+            t_j = _cylinder_t(tox, toy, toz, tdx, tdy, tdz, m[32], m[33], eps)
+        elif code == BOX:
+            t_j = _box_t(tox, toy, toz, tdx, tdy, tdz, eps)
+        else:
+            # GROUP: object-space bbox pretest, then the walk
+            x1, x2 = _axis_slab(tox, tdx, m[34], m[37], eps)
+            y1, y2 = _axis_slab(toy, tdy, m[35], m[38], eps)
+            z1, z2 = _axis_slab(toz, tdz, m[36], m[39], eps)
+            gtmin = torch.maximum(torch.maximum(x1, y1), z1)
+            gtmax = torch.minimum(torch.minimum(x2, y2), z2)
+            pre = (active & (gtmin <= gtmax) & (gtmax > eps)
+                   & (gtmin < best_t))
+            root, end = group_bvh[j]
+            t_j, *g_tri, g_slot = traverse_reference(
+                node_table, tri_table, meta.leaf_size, eps, t_max, root, end,
+                tox, toy, toz, tdx, tdy, tdz, pre, best_t,
+                n_nodes=oct_nodes, return_slot=True, counts=counts)
+        closer = t_j < best_t
+        best_t = torch.where(closer, t_j, best_t)
+        w = torch.where(closer, j, w)
+        loc = [torch.where(closer, a, b) for a, b in
+               zip((tox, toy, toz, tdx, tdy, tdz), loc)]
+        on_tri = torch.where(closer, g_tri is not None, on_tri)
+        if g_tri is not None:
+            tri_slot = torch.where(closer, g_slot, tri_slot)
+            tri_nrm = [torch.where(closer, a, b)
+                       for a, b in zip(g_tri[:3], tri_nrm)]
+            tri_col = [torch.where(closer, a, b)
+                       for a, b in zip(g_tri[3:], tri_col)]
+    return best_t, w, loc, on_tri, tri_slot, tri_nrm, tri_col
+
+
+def _table_shapes(meta: SceneMeta):
+    """The shapes of the object, node and triangle tables of a scene
+    (build_scene_table, build_mesh_tables)."""
+    n_nodes = meta.n_nodes * (9 if meta.octant_orders else 1)
+    rows_t = -(-meta.n_tri_slots // _TRI_SLOTS_PER_ROW)
+    return ((len(meta.obj_types), _OBJ_COLS), (max(1, n_nodes), _NODE_COLS),
+            (max(1, rows_t) if meta.has_groups else 1,
+             _TRI_SLOTS_PER_ROW * _TRI_STRIDE))
+
+
 def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
                 meta, cfg, spp, tile, spp_pack, pack_axis, tex_pool=None,
                 tex_table=None, tex_texels=None):
     """Validate what trace_tiles is handed; raise on anything the kernel
     does not take. Returns the (seed, sample_base) ints."""
-    if cfg.nee:
-        raise NotImplementedError(f"NEE is not ported yet: {_NEE_ITEM}")
+    if cfg.nee and tex_texels is not None:
+        # the f32-texel forward serves the differentiable render, which
+        # refuses NEE as the JAX package's does
+        raise NotImplementedError(
+            "NEE with f32 texels (tex_texels): the differentiable "
+            "megakernel does not replay NEE shadow draws; render with "
+            "tex_pool")
     if meta.has_groups:
         _check_mesh_knobs()
         if meta.leaf_size % _TRI_SLOTS_PER_ROW:
@@ -963,16 +1053,11 @@ def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     if len(seed) != 2:
         raise ValueError("seed must be (prng seed, global sample base)")
     dev = px.device
-    n_nodes = meta.n_nodes * (9 if meta.octant_orders else 1)
-    rows_t = -(-meta.n_tri_slots // _TRI_SLOTS_PER_ROW)
+    obj_shape, node_shape, tri_shape = _table_shapes(meta)
     want = (("cam_vec", cam_vec, torch.float32, (_CAM_COLS,)),
-            ("obj_table", obj_table, torch.float32,
-             (len(meta.obj_types), _OBJ_COLS)),
-            ("node_table", node_table, torch.float32,
-             (max(1, n_nodes), _NODE_COLS)),
-            ("tri_table", tri_table, torch.float32,
-             (max(1, rows_t) if meta.has_groups else 1,
-              _TRI_SLOTS_PER_ROW * _TRI_STRIDE)),
+            ("obj_table", obj_table, torch.float32, obj_shape),
+            ("node_table", node_table, torch.float32, node_shape),
+            ("tri_table", tri_table, torch.float32, tri_shape),
             ("px", px, torch.int32, None),
             ("py", py, torch.int32, tuple(px.shape)))
     if has_textures(meta):
@@ -1051,15 +1136,22 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     the kernel's bound: "samples" (slot samples), "bounces" (rays alive
     at a bounce's intersection), "hits" (bounces that hit something),
     "node_visits" and "leaf_slots" (the walk), "texel_fetches" (bilinear
-    samples: color textures and normal maps) and, of the color fetches,
-    "uv_sphere" and "uv_cube" (by the sphere and cube-cross UV maps)."""
+    samples: color textures and normal maps), of the color fetches,
+    "uv_sphere" and "uv_cube" (by the sphere and cube-cross UV maps), and,
+    under cfg.nee, "shadow_rays" (light points sampled: a surface hit that
+    neither refracts nor is a light, times the lights), "shadow_tests"
+    (those facing the surface, whose ray is cast) and "shadow_lit" (those
+    that reach their light and add); the shadow walks add to "node_visits"
+    and "leaf_slots"."""
     seed0, sample_base = _check_args(
         seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
         spp, tile, spp_pack, pack_axis, tex_pool, tex_table, tex_texels)
     if counts is not None:
         for k in ("samples", "bounces", "hits", "node_visits", "leaf_slots",
-                  "texel_fetches", "uv_sphere", "uv_cube"):
+                  "texel_fetches", "uv_sphere", "uv_cube", "shadow_rays",
+                  "shadow_tests", "shadow_lit"):
             counts.setdefault(k, 0)
+    lights = nee_lights(meta, cfg)
     S, L = tile
     dev = px.device
     f32 = torch.float32
@@ -1083,8 +1175,6 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     cam = cam_vec.detach().cpu().tolist()
     obj = obj_table.detach().cpu().tolist()
     types = torch.tensor(meta.obj_types, dtype=torch.int64, device=dev)
-    group_bvh = {g: (r, e) for g, r, e in meta.group_bvh}
-    oct_nodes = meta.n_nodes if meta.octant_orders else 0
     pixel_size, half_w, half_h, aperture, focal = cam[12:17]
     oxw, oyw, ozw = cam[3], cam[7], cam[11]
     eps, t_max = cfg.epsilon, cfg.t_max
@@ -1153,59 +1243,10 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
             if counts is not None:
                 counts["bounces"] += n_alive
             # ---- intersect: loop over objects ---------------------------
-            best_t = torch.full_like(fx, _BIG)
-            w = torch.zeros_like(fx, dtype=torch.int64)
-            l_ox, l_oy, l_oz, l_dx, l_dy, l_dz = ox, oy, oz, dx, dy, dz
-            on_tri = torch.zeros_like(alive)
-            tri_slot = torch.full_like(w, -1)
-            tri_nrm = [torch.zeros_like(fx) for _ in range(3)]
-            tri_col = [torch.zeros_like(fx) for _ in range(3)]
-            for j, code in enumerate(meta.obj_types):
-                m = obj[j]
-                tox, toy, toz = _mat12_point(m, ox, oy, oz)
-                tdx, tdy, tdz = _mat12_vec(m, dx, dy, dz)
-                g_tri = None
-                if code == PLANE:
-                    t_j = _plane_t(toy, tdy, eps)
-                elif code == SPHERE:
-                    t_j = _sphere_t(tox, toy, toz, tdx, tdy, tdz, eps)
-                elif code == CYLINDER:
-                    t_j = _cylinder_t(tox, toy, toz, tdx, tdy, tdz,
-                                      m[32], m[33], eps)
-                elif code == BOX:
-                    t_j = _box_t(tox, toy, toz, tdx, tdy, tdz, eps)
-                else:
-                    # GROUP: object-space bbox pretest, then the walk
-                    x1, x2 = _axis_slab(tox, tdx, m[34], m[37], eps)
-                    y1, y2 = _axis_slab(toy, tdy, m[35], m[38], eps)
-                    z1, z2 = _axis_slab(toz, tdz, m[36], m[39], eps)
-                    gtmin = torch.maximum(torch.maximum(x1, y1), z1)
-                    gtmax = torch.minimum(torch.minimum(x2, y2), z2)
-                    pre = (alive & (gtmin <= gtmax) & (gtmax > eps)
-                           & (gtmin < best_t))
-                    root, end = group_bvh[j]
-                    t_j, *g_tri, g_slot = traverse_reference(
-                        node_table, tri_table, meta.leaf_size, eps, t_max,
-                        root, end, tox, toy, toz, tdx, tdy, tdz, pre,
-                        best_t, n_nodes=oct_nodes, return_slot=True,
-                        counts=counts)
-                closer = t_j < best_t
-                best_t = torch.where(closer, t_j, best_t)
-                w = torch.where(closer, j, w)
-                l_ox = torch.where(closer, tox, l_ox)
-                l_oy = torch.where(closer, toy, l_oy)
-                l_oz = torch.where(closer, toz, l_oz)
-                l_dx = torch.where(closer, tdx, l_dx)
-                l_dy = torch.where(closer, tdy, l_dy)
-                l_dz = torch.where(closer, tdz, l_dz)
-                on_tri = torch.where(closer, g_tri is not None, on_tri)
-                if g_tri is not None:
-                    tri_slot = torch.where(closer, g_slot, tri_slot)
-                    for k in range(3):
-                        tri_nrm[k] = torch.where(closer, g_tri[k],
-                                                 tri_nrm[k])
-                        tri_col[k] = torch.where(closer, g_tri[3 + k],
-                                                 tri_col[k])
+            (best_t, w, (l_ox, l_oy, l_oz, l_dx, l_dy, l_dz), on_tri,
+             tri_slot, tri_nrm, tri_col) = _nearest_hit(
+                obj, meta, node_table, tri_table, eps, t_max, ox, oy, oz,
+                dx, dy, dz, alive, 0, counts)
             hit_ok = best_t < t_max
             t = torch.clamp(best_t, max=t_max)
             wrow = obj_table[w]
@@ -1362,6 +1403,46 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
             srr = srr + torch.where(no_refr, mask_r * emi_r, 0.0)
             srg = srg + torch.where(no_refr, mask_g * emi_g, 0.0)
             srb = srb + torch.where(no_refr, mask_b * emi_b, 0.0)
+            # ---- next-event estimation (pallas_kernel.py:2421-2513): one
+            # shadow ray per light toward a random point on its sphere,
+            # with the pre-update mask and the post-texture color; the
+            # reference's biased estimator (a BSDF hit on a light is not
+            # discounted)
+            nee_cond = no_refr & ~is_light
+            for li, l in enumerate(lights):
+                lm = obj[l]
+                nu1 = _hash_uniform(key, u_elem, 6 + 2 * li, n, b)
+                nu2 = _hash_uniform(key, u_elem, 7 + 2 * li, n, b)
+                # randomPointOnSphere (tracer.cl:321-336) kept verbatim,
+                # its latitude offset and y term included
+                lat = _acos(2.0 * nu1 - 1.0) - 2.0 * math.pi
+                lon = 2.0 * math.pi * nu2
+                cl = torch.cos(lat)
+                lpx = lm[40] + cl * torch.cos(lon) * lm[43]
+                lpy = lm[41] + (torch.sin(lat) - math.pi * 0.25) * lm[43]
+                lpz = lm[42] + cl * torch.sin(lon) * lm[43]
+                sdx, sdy, sdz = _normalize(lpx - wx, lpy - wy, lpz - wz)
+                ldn = _dot(sdx, sdy, sdz, nx, ny, nz)
+                # a light behind the surface adds nothing whatever the
+                # shadow ray hits: only the others walk (as in the kernel)
+                cast = nee_cond & (ldn > 0.0)
+                s_t, s_w, *_ = _nearest_hit(
+                    obj, meta, node_table, tri_table, eps, t_max,
+                    wx + sdx * eps, wy + sdy * eps, wz + sdz * eps,
+                    sdx, sdy, sdz, cast, -1, counts)
+                visible = cast & (s_w == l) & (s_t > eps) & (s_t < t_max)
+                atten = 1.0 - s_t / torch.sqrt(s_t * s_t + lm[44] * lm[44])
+                w_nee = ldn * atten
+                srr = srr + torch.where(visible,
+                                        mask_r * col_r * lm[27] * w_nee, 0.0)
+                srg = srg + torch.where(visible,
+                                        mask_g * col_g * lm[28] * w_nee, 0.0)
+                srb = srb + torch.where(visible,
+                                        mask_b * col_b * lm[29] * w_nee, 0.0)
+                if counts is not None:
+                    counts["shadow_rays"] += int(nee_cond.sum())
+                    counts["shadow_tests"] += int(cast.sum())
+                    counts["shadow_lit"] += int(visible.sum())
             direct = no_refr & is_light & (n_hits == 0)
             srr = torch.where(direct, col_r, srr)
             srg = torch.where(direct, col_g, srg)
@@ -1418,6 +1499,18 @@ _SIGNATURES = {
         [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P, _P, _I, _P],
         _I),
+    # NEE: the same arguments, then the texel pool and texture table (null
+    # without textures) and the light count and indices
+    "pt_megakernel_nee_launch": (
+        [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        + [_I, _P, _P, _P, _I, _P],
+        _I),
+    # the intersect-only kernel, launched by intersect_batch: six ray
+    # arrays, the outputs, the ray count, the object and mesh tables, the
+    # type codes and group ranges, then n_obj, leaf size, octant node
+    # count, eps, t_max and the stream
+    "pt_intersect_launch": (
+        [_P] * 8 + [_I] + [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P], _I),
     # the texel-fetch probe (P1's counterpart), launched by fetch_texels
     "pt_tex_fetch_launch": (
         [_P] * 6 + [_I] * 4 + [_P], _I),
@@ -1453,11 +1546,12 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     without takes none of them. CUDA tensors launch csrc/megakernel.cu on
     the current stream and count the launch in trace_tiles.launches, a
     scene with meshes also in .mesh_launches, one with the pool in
-    .tex_launches and one with f32 texels in .texel_launches; CPU tensors
-    run trace_tiles_reference. Raises for NEE and the unported mesh walk
-    variants. The kernel keeps every texel index below T (the plain
-    version raises IndexError instead), so a table that reaches past the
-    texels cannot touch other memory."""
+    .tex_launches, one with f32 texels in .texel_launches and one under
+    cfg.nee (the shadow-ray instantiation) in .nee_launches; CPU tensors run
+    trace_tiles_reference. Raises for the unported mesh walk variants and
+    for NEE with f32 texels. The kernel keeps every texel index below T
+    (the plain version raises IndexError instead), so a table that reaches
+    past the texels cannot touch other memory."""
     if px.device.type != "cuda":
         return trace_tiles_reference(
             seed, cam_vec, obj_table, node_table, tri_table, px, py,
@@ -1483,6 +1577,7 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
         roots[g], ends[g] = r, e
     sun_cut, sun_den, golden2 = _sun_constants(total_samples)
     textured = has_textures(meta)
+    lights = nee_lights(meta, cfg)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         args = (out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
@@ -1495,7 +1590,14 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
                 meta.n_nodes if meta.octant_orders else 0,
                 cfg.epsilon, cfg.t_max, sun_cut, sun_den, golden2,
                 int(_coherent_sampling()), stream)
-        if textured and tex_texels is not None:
+        if cfg.nee:
+            # the shadow-ray instantiation, also for a scene without a light
+            # (no shadow ray then: the render without NEE)
+            err = lib.pt_megakernel_nee_launch(
+                *args, tex_pool.data_ptr() if textured else None,
+                tex_table.data_ptr() if textured else None, len(lights),
+                (_I * len(lights))(*lights))
+        elif textured and tex_texels is not None:
             texels4 = texels_padded(tex_texels)
             err = lib.pt_megakernel_texels_launch(
                 *args, texels4.data_ptr(), texels4.shape[0],
@@ -1514,6 +1616,8 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
         trace_tiles.texel_launches += 1  # the f32-texel instantiation
     elif textured:
         trace_tiles.tex_launches += 1    # the texel-fetch instantiation
+    if cfg.nee:
+        trace_tiles.nee_launches += 1    # the shadow-ray instantiation
     return out[0], out[1], out[2]
 
 
@@ -1521,6 +1625,7 @@ trace_tiles.launches = 0
 trace_tiles.mesh_launches = 0
 trace_tiles.tex_launches = 0
 trace_tiles.texel_launches = 0
+trace_tiles.nee_launches = 0
 
 
 def texels_padded(texels: torch.Tensor) -> torch.Tensor:
@@ -1592,3 +1697,128 @@ def render_megakernel(scn: SceneArrays, meta: SceneMeta, camera,
     img = torch.stack([r, g, b], dim=-1).reshape(-1, 3).cpu().numpy()
     img = untile_image(img, pid, W, H).reshape(H, W, 3)
     return img / float(cfg.samples)
+
+
+# --- intersect-only kernel (K5) ---------------------------------------------
+
+def supports_intersect(meta: SceneMeta) -> bool:
+    """Whether intersect_batch takes the scene (pallas_kernel.
+    supports_intersect): the four primitives and groups whose leaf size is
+    a multiple of the 4 slots of a triangle row; textures do not matter."""
+    prim = all(t in (PLANE, SPHERE, CYLINDER, BOX, GROUP)
+               for t in meta.obj_types)
+    return prim and meta.leaf_size % _TRI_SLOTS_PER_ROW == 0
+
+
+def intersect_tables(scn: SceneArrays, meta: SceneMeta, device):
+    """The object table and the mesh tables (build_scene_table,
+    build_mesh_tables) as tensors on `device`: build them once and hand
+    them to every intersect_batch call of a render."""
+    return tuple(torch.from_numpy(t).to(device) for t in (
+        build_scene_table(scn, meta), *build_mesh_tables(scn, meta)))
+
+
+def _intersect_args(meta: SceneMeta, origin, direction, tables):
+    """Validate intersect_batch's arguments; returns the six ray tensors."""
+    if not supports_intersect(meta):
+        raise ValueError("intersect_batch takes primitives and groups whose "
+                         f"leaf size is a multiple of {_TRI_SLOTS_PER_ROW}")
+    if meta.has_groups:
+        _check_mesh_knobs()
+    if len(origin) != 3 or len(direction) != 3:
+        raise ValueError("origin and direction must be 3-tuples")
+    rays = [*origin, *direction]
+    dev = rays[0].device
+    for t in rays:
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
+                or t.dim() != 1 or not t.is_contiguous() or t.device != dev
+                or t.shape != rays[0].shape):
+            raise ValueError("the rays must be contiguous f32 [R] tensors "
+                             "of one length on one device")
+    for name, t, shape in zip(("obj_table", "node_table", "tri_table"),
+                              tables, _table_shapes(meta)):
+        if (t.device != dev or t.dtype != torch.float32
+                or not t.is_contiguous() or tuple(t.shape) != shape):
+            raise ValueError(f"{name} must be a contiguous f32 {shape} "
+                             f"tensor on {dev}")
+    return rays
+
+
+def intersect_batch_reference(scn: SceneArrays, meta: SceneMeta,
+                              cfg: RenderConfig, origin, direction,
+                              tables=None, counts: dict = None):
+    """Plain PyTorch version of intersect_batch: the same arguments and
+    result, through _nearest_hit. `counts`, when given, gains "rays",
+    "node_visits", "leaf_slots" and "tri_hits" (rays a triangle won)."""
+    dev = origin[0].device
+    if tables is None:
+        tables = intersect_tables(scn, meta, dev)
+    ox, oy, oz, dx, dy, dz = _intersect_args(meta, origin, direction, tables)
+    obj = tables[0].detach().cpu().tolist()
+    if counts is not None:
+        for k in ("rays", "node_visits", "leaf_slots", "tri_hits"):
+            counts.setdefault(k, 0)
+        counts["rays"] += ox.numel()
+    t, w, loc, on_tri, _, nrm, col = _nearest_hit(
+        obj, meta, tables[1], tables[2], cfg.epsilon, cfg.t_max, ox, oy, oz,
+        dx, dy, dz, torch.ones_like(ox, dtype=torch.bool), 0, counts)
+    if counts is not None:
+        counts["tri_hits"] += int(on_tri.sum())
+    zero = torch.zeros_like(ox)
+    nrm = tuple(torch.where(on_tri, a, zero) for a in nrm)
+    col = tuple(torch.where(on_tri, a, zero) for a in col)
+    return (torch.clamp(t, max=cfg.t_max), w.to(torch.int32), tuple(loc[:3]),
+            tuple(loc[3:]), on_tri, nrm, col)
+
+
+def intersect_batch(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
+                    origin, direction, tables=None):
+    """Nearest hit over the whole scene of a flat batch of R rays, with no
+    shading (the counterpart of pallas_kernel.intersect_batch, for the
+    wavefront integrator). origin and direction are 3-tuples of
+    contiguous f32 [R] tensors on one device; `tables` (intersect_tables,
+    on that device) are built from `scn` when not given. Returns (t,
+    obj_idx, local_origin, local_dir, is_tri, tri_normal, tri_color): t
+    f32 [R] (at most cfg.t_max), obj_idx i32 [R] (0 on a miss), the
+    winner's object-space ray (the world ray on a miss), is_tri bool [R],
+    and the winning triangle's smooth normal and color (0 unless a
+    triangle won), each Vec3 a 3-tuple of [R] tensors. CUDA tensors launch
+    csrc/megakernel.cu's intersect kernel on the current stream, one
+    thread a ray, and count the launch in intersect_batch.launches; CPU
+    tensors run intersect_batch_reference."""
+    dev = origin[0].device
+    if tables is None:
+        tables = intersect_tables(scn, meta, dev)
+    if dev.type != "cuda":
+        return intersect_batch_reference(scn, meta, cfg, origin, direction,
+                                         tables)
+    rays = _intersect_args(meta, origin, direction, tables)
+    n_obj = len(meta.obj_types)
+    if not 0 < n_obj <= _MAX_OBJECTS:
+        raise ValueError(f"{n_obj} objects; the kernel takes 1..{_MAX_OBJECTS}")
+    n = rays[0].numel()
+    if n > 2 ** 31 - 128:
+        raise ValueError(f"{n} rays; the kernel takes at most 2^31 - 128")
+    lib = _build.load("megakernel", _SIGNATURES)
+    out = torch.empty((14, n), dtype=torch.float32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    types = (_I * n_obj)(*meta.obj_types)
+    roots = (_I * n_obj)(*([-1] * n_obj))
+    ends = (_I * n_obj)(*([-1] * n_obj))
+    for g, r, e in meta.group_bvh:
+        roots[g], ends[g] = r, e
+    with torch.cuda.device(dev):
+        err = lib.pt_intersect_launch(
+            *(t.data_ptr() for t in rays), out.data_ptr(), idx.data_ptr(), n,
+            tables[0].data_ptr(), types, tables[1].data_ptr(),
+            tables[2].data_ptr(), roots, ends, n_obj, meta.leaf_size,
+            meta.n_nodes if meta.octant_orders else 0, cfg.epsilon,
+            cfg.t_max, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"intersect launch failed: CUDA error {err}")
+    intersect_batch.launches += 1
+    return (out[0], idx, (out[1], out[2], out[3]), (out[4], out[5], out[6]),
+            out[7] > 0.5, (out[8], out[9], out[10]), (out[11], out[12], out[13]))
+
+
+intersect_batch.launches = 0

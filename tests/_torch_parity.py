@@ -45,24 +45,25 @@ def jax_fields_np(arrays) -> dict:
     return {k: np.asarray(v) for k, v in arrays._asdict().items()}
 
 
-def mesh_kernel_parity(name: str, aperture: float = 0.0, base: int = 0,
-                       W: int = 32, H: int = 24, spp: int = 8):
-    """Render mesh scene `name` through the port's trace_tiles (plain
-    version, CPU) and the JAX kernel in interpret mode with the same seed
-    vector, layout (the driver's: tile (8, 512), the default order and
-    packing) and total_samples; hold them to the per-slot rule. The JAX
-    scene is packed on its NumPy path (native scene-core off) and handed
-    the port's group bounds: that path packs NaN bounds for a parsed model,
-    which would hide it (ROADMAP queue 3). Returns the bit-equal fraction."""
+def kernel_pair(name: str, tile=None, spp: int = 8, base: int = 0,
+                W: int = 32, H: int = 24, **cfg_kw):
+    """Render scene `name` through the port's trace_tiles (plain version,
+    CPU) and the JAX kernel in interpret mode with the same seed vector
+    (3, base), total_samples spp + base and layout: the driver's on `tile`
+    (None: the scene's default tile), i.e. the scene's default order and
+    sample packing. cfg_kw go to both configs (aperture, nee, ...). A mesh
+    scene is packed on the JAX NumPy path (native scene-core off) and
+    handed the port's group bounds: that path packs NaN bounds for a
+    parsed model, which would hide it (ROADMAP queue 3). Returns (port,
+    JAX) slot sums [3, T*S, L] and the port's meta."""
     kw = dict(width=W, height=H, samples=spp, samples_per_pass=spp,
-              aperture=aperture, focal_length=1.6 if aperture else 0.0)
+              **cfg_kw)
     with mock.patch.object(jnative, "available", lambda: False):
         js, jc, ts, tc = scene_pair(name, **kw)
         ja, jm = js.pack()
-    tile = (8, 512)
+    tile = tile or pk.default_tile(jm)
     ttabs, tm, _, layout = port_inputs(ts, tc, tile, torch.device("cpu"))
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
-    assert tm.has_groups
     fixed_min = np.asarray(ja.bb_min).copy()
     fixed_max = np.asarray(ja.bb_max).copy()
     for j in tm.group_indices:
@@ -72,7 +73,7 @@ def mesh_kernel_parity(name: str, aperture: float = 0.0, base: int = 0,
                      bb_max=jnp.asarray(fixed_max))
     axis = pk.default_pack_axis(jm)
     pack = pk.clamp_pack(pk.default_pack(jm, spp), *tile, axis)
-    assert layout == {"spp_pack": pack, "pack_axis": axis}
+    assert (layout["spp_pack"], layout["pack_axis"]) == (pack, axis)
     xs, ys, _ = pk.tile_pixel_layout(W, H, *tile, order=pk.default_order(jm),
                                      spp_pack=pack, pack_axis=axis)
     jtabs = (pk.build_camera_vec(js.camera), pk.build_scene_table(ja, jm),
@@ -80,15 +81,43 @@ def mesh_kernel_parity(name: str, aperture: float = 0.0, base: int = 0,
     for a, b in zip(jtabs, ttabs):
         assert np.array_equal(a, b.numpy())
     seed = (3, base)
+    staged = {"tex": ja.tex_staged} if pk.staged_lanes(jm) else {}
     want = pk.trace_tiles(
         jnp.asarray(seed, jnp.int32), *map(jnp.asarray, jtabs), meta=jm,
         cfg=jc, spp=spp, total_samples=spp + base, tile=tile, spp_pack=pack,
-        pack_axis=axis, interpret=True)
+        pack_axis=axis, interpret=True, **staged)
     want = np.stack([np.asarray(v) for v in want])
-    before = mk.trace_tiles.launches
+    before = (mk.trace_tiles.launches, mk.trace_tiles.nee_launches)
     got = torch.stack(mk.trace_tiles(
         seed, *ttabs, meta=tm, cfg=tc, spp=spp, total_samples=spp + base,
         tile=tile, **layout)).numpy()
-    assert mk.trace_tiles.launches == before      # CPU tensors never launch
+    # CPU tensors never launch
+    assert (mk.trace_tiles.launches, mk.trace_tiles.nee_launches) == before
+    return got, want, tm
+
+
+def mesh_kernel_parity(name: str, aperture: float = 0.0, base: int = 0,
+                       W: int = 32, H: int = 24, spp: int = 8):
+    """kernel_pair on mesh scene `name` with the driver's mesh tile (8,
+    512), held to the per-slot rule. Returns the bit-equal fraction."""
+    got, want, tm = kernel_pair(name, (8, 512), spp, base, W, H,
+                                aperture=aperture,
+                                focal_length=1.6 if aperture else 0.0)
+    assert tm.has_groups
     assert_slot_rule(got, want)
     return float((got == want).mean())
+
+
+def nee_case(name: str, tile=(8, 128), spp: int = 4, base: int = 0,
+             **cfg_kw):
+    """kernel_pair with cfg.nee on both sides (W x H = 32 x 24), and the
+    port's render of the same slots without NEE. Returns (port, JAX, port
+    without NEE) slot sums [3, T*S, L]."""
+    got, want, _ = kernel_pair(name, tile, spp, base, nee=True, **cfg_kw)
+    _, _, ts, tc = scene_pair(name, width=32, height=24, samples=spp,
+                              samples_per_pass=spp, **cfg_kw)
+    tabs, meta, _, layout = port_inputs(ts, tc, tile, torch.device("cpu"))
+    off = torch.stack(mk.trace_tiles((3, base), *tabs, meta=meta, cfg=tc,
+                                     spp=spp, total_samples=spp + base,
+                                     tile=tile, **layout)).numpy()
+    return got, want, off

@@ -23,8 +23,15 @@ the plain render.
 
 The texel mode (K6-tex, grad_tiles(tex_grads=True)) is held against its
 plain version by the texel rule of tests/_torch_scenes.py (tex_grad_rule),
-and the f32-texel forward instantiations (trace_tiles(tex_texels=...)) are
-bit-equal to the rgb8 ones when the texels are the decoded pool.
+on `textures-train` and on a mesh scene with staged textures (the mesh
+instantiation), and the f32-texel forward instantiations
+(trace_tiles(tex_texels=...)) are bit-equal to the rgb8 ones when the
+texels are the decoded pool.
+
+Next-event estimation (the kNee instantiations, trace_tiles under cfg.nee)
+and the intersect-only kernel (intersect_batch) must be bit-equal to their
+plain versions: the same f32 operations in the same order, and the card's
+sin/cos on both sides.
 """
 import numpy as np
 import pytest
@@ -33,7 +40,8 @@ import torch
 from _torch_scenes import (MESH_SCENES, SLICE_SCENES, TEX_SCENES,
                            assert_slot_rule,
                            cylinder_scene, grad_inputs, grad_rule,
-                           port_inputs, size_check_scene, tex_grad_rule)
+                           port_inputs, size_check_scene, tex_grad_rule,
+                           textured_teapot)
 from pathtracer_tpu_torch import cli
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.diff import make_megakernel_step
@@ -41,6 +49,7 @@ from pathtracer_tpu_torch.geometry import transforms as gx
 from pathtracer_tpu_torch.io.raw import read_raw
 from pathtracer_tpu_torch.render import grad as tg
 from pathtracer_tpu_torch.render import megakernel as mk
+from pathtracer_tpu_torch.render import proctex
 from pathtracer_tpu_torch.scene import material, pack, shapes
 from pathtracer_tpu_torch.scene.pack import texel_params
 from pathtracer_tpu_torch.scenes import cornell, get_scene
@@ -375,3 +384,108 @@ def test_diff_render_tex_primal_is_bit_equal(dev):
     assert tg.grad_tiles.tex_launches == before + 1
     assert torch.isfinite(gt).all() and gt.abs().max() > 0
 
+
+
+def test_tex_grad_kernel_matches_plain_on_a_mesh(dev):
+    # the `teapot` stand-in with staged file textures on its floor and
+    # sphere launches the mesh texel-gradient instantiation <true, true,
+    # true, true>
+    cfg = RenderConfig(width=160, height=120, samples=4)
+    sc = textured_teapot(get_scene("teapot", cfg), proctex.make)
+    tabs, meta, arrays, _ = grad_inputs(sc, cfg, (8, 512), dev)
+    assert meta.has_groups and pack.staged_objects(meta)
+    rng = np.random.default_rng(0)
+    cots = [torch.from_numpy(rng.random(tuple(tabs[4].shape),
+                                        dtype=np.float32)).to(dev)
+            for _ in range(3)]
+    kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4, tile=(8, 512),
+              tex_grads=True, tex=texel_params(arrays),
+              tex_table=torch.from_numpy(mk.build_tex_table(arrays, meta))
+              .to(dev))
+    before = tg.grad_tiles.tex_launches
+    got = tg.grad_tiles((5, 0), *tabs, *cots, **kw)
+    assert tg.grad_tiles.tex_launches == before + 1
+    want = tg.grad_tiles_reference((5, 0), *tabs, *cots, **kw)
+    torch.cuda.synchronize()
+    tex_grad_rule(got, want)
+
+
+NEE_CASES = [("reference", (64, 256), 0.0, {}),
+             ("transparency_quad_lights", (64, 256), 0.0, {}),
+             ("transparency_f_light", (64, 256), 0.0, {}),
+             ("teapot", (8, 512), 0.0, {}),         # the mesh shadow walk
+             ("textures", None, 0.0, {}),
+             ("cubemap", None, 0.0, {}),            # textured mesh
+             ("reference", (64, 256), 0.1, {}),     # DoF
+             ("reference", (64, 256), 0.0, {"PT_COHERENT": "0"})]
+
+
+@pytest.mark.parametrize("name,tile,aperture,env", NEE_CASES)
+def test_nee_kernel_bit_equal_plain(dev, monkeypatch, name, tile, aperture,
+                                    env):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = RenderConfig(width=160, height=120, samples=8, nee=True,
+                       aperture=aperture,
+                       focal_length=1.6 if aperture else 0.0)
+    tabs, meta, _, kw = port_inputs(get_scene(name, cfg), cfg, tile, dev)
+    assert meta.light_indices
+    base = 16 if aperture else 0
+    kw.update(meta=meta, cfg=cfg, spp=8, total_samples=8 + base,
+              tile=tile or mk.default_tile(meta))
+    before = (mk.trace_tiles.launches, mk.trace_tiles.nee_launches)
+    got = torch.stack(mk.trace_tiles((5, base), *tabs, **kw))
+    assert (mk.trace_tiles.launches, mk.trace_tiles.nee_launches) == (
+        before[0] + 1, before[1] + 1)
+    counts = {}
+    want = torch.stack(mk.trace_tiles_reference((5, base), *tabs, **kw,
+                                                counts=counts))
+    torch.cuda.synchronize()
+    assert counts["shadow_lit"] > 0
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want), (got != want).float().mean().item()
+
+
+def test_cli_renders_nee_through_the_kernel(dev, tmp_path):
+    raw = tmp_path / "n.raw"
+    before = mk.trace_tiles.nee_launches
+    rc = cli.main(["--scene", "reference", "--nee", "--width", "64",
+                   "--height", "48", "--samples", "32", "--raw-output",
+                   str(raw), "--output", str(tmp_path / "n.png")])
+    assert rc == 0
+    assert mk.trace_tiles.nee_launches == before + 1
+    img = read_raw(str(raw))
+    assert img.shape == (48, 64, 3) and np.isfinite(img).all()
+
+
+@pytest.mark.parametrize("name", ["reference", "teapot", "size-check",
+                                  "cylinder", "cubemap"])
+def test_intersect_kernel_bit_equal_plain(dev, name):
+    cfg = RenderConfig(width=160, height=120, samples=1)
+    if name == "cylinder":
+        sc = cylinder_scene(cfg, gx, material, shapes, pack, cornell)
+    elif name == "size-check":
+        sc = size_check_scene(cfg, get_scene)
+    else:
+        sc = get_scene(name, cfg)
+    arrays, meta = sc.pack(device=dev)
+    tables = mk.intersect_tables(arrays, meta, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    R = 1 << 16
+    o = tuple((torch.rand(R, generator=gen, device=dev) - 0.5).contiguous()
+              for _ in range(3))
+    d = torch.randn((3, R), generator=gen, device=dev)
+    d = tuple((d / torch.linalg.vector_norm(d, dim=0)).contiguous())
+    before = mk.intersect_batch.launches
+    got = mk.intersect_batch(arrays, meta, cfg, o, d, tables=tables)
+    assert mk.intersect_batch.launches == before + 1
+    want = mk.intersect_batch_reference(arrays, meta, cfg, o, d, tables)
+    torch.cuda.synchronize()
+    flat = [x for r in (got, want) for x in
+            [y for z in r for y in (z if isinstance(z, tuple) else (z,))]]
+    for a, b in zip(flat[:15], flat[15:]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[1].dtype == torch.int32 and got[4].dtype == torch.bool
+    if meta.has_groups:
+        assert got[4].any()

@@ -1,6 +1,7 @@
 """pathtracer_tpu_torch end to end on the CPU: render_driver against the
 same segments composed from the JAX megakernel (interpret mode), checkpoint
-and resume, fault recovery, the .raw/.png writers and the CLI's refusals."""
+and resume, fault recovery, NEE, the .raw/.png writers and the CLI's
+refusals."""
 import json
 import os
 
@@ -30,9 +31,9 @@ CFG = dict(width=32, height=24, samples=8, samples_per_pass=2)
 MESH_CFG = dict(width=32, height=24, samples=16, samples_per_pass=8)
 
 
-def _render(monkeypatch, name="reference", **driver_kw):
+def _render(monkeypatch, name="reference", nee=False, **driver_kw):
     monkeypatch.setenv("PT_SEG_SPP", "4")     # 2 segments of 2 chunks
-    _, _, ts, tc = scene_pair(name, **CFG)
+    _, _, ts, tc = scene_pair(name, nee=nee, **CFG)
     arrays, meta = ts.pack(device=CPU)
     return render_driver(arrays, meta, ts.camera, tc, **driver_kw)
 
@@ -134,14 +135,16 @@ def test_torch_checkpoint_resume_bit_identical(monkeypatch, tmp_path):
                 checkpoint_every=2, resume=True)
 
 
-def test_driver_teapot_matches_jax_segments(monkeypatch):
-    # the mesh layout of both drivers: tile (8, 512), block order, 4 sample
-    # replicas on the lane chunks, segments of 8 spp
+def _teapot_segments(monkeypatch, nee: bool):
+    """`teapot` at MESH_CFG through render_driver and as the same segments
+    of the JAX megakernel (interpret mode): the mesh layout of both
+    drivers, tile (8, 512), block order, 4 sample replicas on the lane
+    chunks, segments of 8 spp. Returns (port image, its stats, JAX
+    image)."""
     monkeypatch.setattr(jnative, "available", lambda: False)
-    js, jc, ts, tc = scene_pair("teapot", **MESH_CFG)
+    js, jc, ts, tc = scene_pair("teapot", nee=nee, **MESH_CFG)
     arrays, meta = ts.pack(device=CPU)
     img, stats = render_driver(arrays, meta, ts.camera, tc)
-    assert stats.segments == 2 and stats.samples == 32 * 24 * 16
     ja, jm = js.pack()
     # the JAX NumPy path packs NaN group bounds for a parsed model (ROADMAP
     # queue 3): hand its kernel the port's, the model's vertex bounds
@@ -169,10 +172,34 @@ def test_driver_teapot_matches_jax_segments(monkeypatch):
                                b.reshape(-1)], axis=-1)
     acc = np.asarray(acc).astype(np.float64)
     want = (pk.untile_image(acc, pid, 32, 24) / 16.0).astype(np.float32)
-    assert_slot_rule(np.moveaxis(img, -1, 0),
-                     np.moveaxis(want.reshape(24, 32, 3), -1, 0))
+    return img, stats, want.reshape(24, 32, 3)
+
+
+def test_driver_teapot_matches_jax_segments(monkeypatch):
+    img, stats, want = _teapot_segments(monkeypatch, nee=False)
+    assert stats.segments == 2 and stats.samples == 32 * 24 * 16
+    assert_slot_rule(np.moveaxis(img, -1, 0), np.moveaxis(want, -1, 0))
     left, right = img[:, :3].mean((0, 1)), img[:, -3:].mean((0, 1))
     assert left[0] > left[2] and right[2] > right[0]
+
+
+def test_driver_teapot_nee_matches_jax_segments(monkeypatch):
+    # `teapot --nee`: the driver hands cfg.nee to every segment, whose
+    # shadow rays walk the mesh
+    img, stats, want = _teapot_segments(monkeypatch, nee=True)
+    assert stats.segments == 2 and stats.samples == 32 * 24 * 16
+    assert_slot_rule(np.moveaxis(img, -1, 0), np.moveaxis(want, -1, 0))
+    left, right = img[:, :3].mean((0, 1)), img[:, -3:].mean((0, 1))
+    assert left[0] > left[2] and right[2] > right[0]
+
+
+def test_driver_renders_nee(monkeypatch):
+    # cfg.nee through render_driver: the same segments, brighter by the
+    # shadow rays' direct light
+    img, stats = _render(monkeypatch, nee=True)
+    off, _ = _render(monkeypatch)
+    assert stats.segments == 2 and np.isfinite(img).all()
+    assert img.mean() > 1.2 * off.mean()
 
 
 def test_torch_checkpoint_resume_teapot_bit_identical(monkeypatch,
@@ -211,7 +238,6 @@ def test_torch_fault_recovery_identical_output(monkeypatch):
 @pytest.mark.parametrize("bad,item", [
     (dict(backend="wavefront"), "item 12"),
     (dict(dtype="float64"), "item 12"),
-    (dict(nee=True), "item 11"),
 ])
 def test_driver_refuses_unported_configs(bad, item):
     _, _, ts, tc = scene_pair("reference", **CFG)
@@ -243,13 +269,22 @@ def test_raw_and_png_match_jax_writers(tmp_path):
     (["--dtype", "float64"], "item 12"),
     (["--distributed"], "item 13"),
     (["--mesh", "1x1"], "item 13"),
-    (["--nee"], "item 11"),
     (["--debug-ray", "3"], "item 12"),
     (["--profile", "trace"], "item 15"),
 ])
 def test_cli_refuses_unported_flags(flags, item, capsys):
     assert cli.main(flags) == 2
     assert item in capsys.readouterr().err
+
+
+def test_cli_takes_nee(monkeypatch, tmp_path, capsys):
+    # --nee is no longer refused: without a card the CLI stops at the
+    # device check (1), not at the unported-flag check (2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = cli.main(["--nee", "--width", "8", "--height", "6", "--raw-output",
+                   str(tmp_path / "x.raw"), "--output",
+                   str(tmp_path / "x.png")])
+    assert rc == 1 and "no CUDA device" in capsys.readouterr().err
 
 
 def test_cli_lists_scenes_and_needs_a_card(monkeypatch, tmp_path, capsys):

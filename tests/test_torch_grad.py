@@ -247,7 +247,7 @@ def test_step_descends(parity):
 def test_refusals(parity):
     cases, tm, tc, *_ = parity
     seed, t, cots, _ = cases["reference"]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="does not replay NEE"):
         tg.make_diff_render(tm, tc.replace(nee=True), SPP, SPP, TILE)
     # a textured scene is differentiated in texel mode
     with pytest.raises(NotImplementedError, match="make_diff_render_tex"):

@@ -89,8 +89,6 @@ def test_trace_tiles_matches_jax_interpret_incoherent(monkeypatch):
 def test_trace_tiles_refuses_unported_inputs():
     _, _, _, ttabs, tm, tc = _inputs("reference")
     kw = dict(meta=tm, spp=SPP, total_samples=SPP, tile=TILE)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mk.trace_tiles((0, 0), *ttabs, cfg=tc.replace(nee=True), **kw)
     with pytest.raises(ValueError, match="spp_pack=3"):   # must divide spp
         mk.trace_tiles((0, 0), *ttabs, cfg=tc, spp_pack=3, **kw)
     with pytest.raises(ValueError, match="pack_axis"):

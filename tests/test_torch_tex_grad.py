@@ -378,7 +378,7 @@ def _refusal_scene(case, cfg):
 
 
 @pytest.mark.parametrize("case,err,match", [
-    ("nee", NotImplementedError, "item 11"),
+    ("nee", NotImplementedError, "does not replay NEE"),
     ("normal maps", NotImplementedError, "normal maps"),
     ("no staged texture", ValueError, "staged texture"),
     ("with tri_grads", ValueError, "tri_grads")])

@@ -32,14 +32,13 @@ import pytest
 import torch
 
 from _torch_parity import scene_pair
-from _torch_scenes import ATOL, MEAN_REL, RTOL, SLOT_FRAC, port_inputs
+from _torch_scenes import assert_tex_slot_rule, port_inputs
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu_torch.render import megakernel as mk
 
 torch.set_num_threads(2)
 
 W, H, SPP = 32, 24, 8
-TEXEL_STEPS = 2.5 / 255
 
 
 def tex_kernel_parity(name, aperture=0.0, base=0):
@@ -88,11 +87,6 @@ def test_tex_kernel_matches_jax_interpret(record_property, name, aperture,
     got, want = tex_kernel_parity(name, aperture, base)
     share = float((got == want).mean())
     record_property("bit_equal_share", share)
-    assert np.isfinite(got).all()
-    d = np.abs(got - want)
-    near = np.isclose(got, want, atol=ATOL, rtol=RTOL) | (d <= TEXEL_STEPS)
-    assert near.mean() >= SLOT_FRAC, near.mean()
-    pm, rm = got.reshape(3, -1).mean(1), want.reshape(3, -1).mean(1)
-    np.testing.assert_array_less(np.abs(pm - rm) / np.abs(rm), MEAN_REL)
+    assert_tex_slot_rule(got, want)
     # the textured paths are the same paths: most values agree to the bit
     assert share > 0.25, share
