@@ -53,7 +53,25 @@ and their ptxas counts). Phase 9 runs the intersect-only kernel (K5) on
 9,830,400 rays a batch (1280x960x8 jittered camera rays, then one bounce of
 random rays from their hits, on the incoming side) on `reference`, `teapot`
 and the size-check mesh, bit for bit against its plain version, and times
-it. It prints one JSON line of kernel results, each with its bound (the
+it. The mesh walks of the JAX package's knobs (Kernel A, the warp-packet
+walk: PT_SUBPACKET 1/2/3; Kernel B, its tensor-core leaves:
+PT_TRAVERSAL=mxu; the node walk alone: PT_ABLATE_LEAF=1) and the probes
+(P2, probes/op_rate.py; P3, probes/leaf_bench.py): phase 2 builds the
+probes' library beside the megakernel's (two nvcc at once) and runs P2,
+whose fastest non-FMA rate replaces the spec rate in every bound if it is
+higher; phase 3 holds Kernel A bit for bit (modes 2 and 3) and Kernel B by
+the per-slot rule on `teapot`, the size-check mesh, `cubemap` and `teapot
+--nee` at 160x120, and Kernel B's leaf test per ray x triangle pair;
+phase 4 renders `teapot` at 1280x960x2048 through the CLI three more times
+(PT_SUBPACKET=2 with the subblock order, PT_SUBPACKET=3, PT_TRAVERSAL=mxu
+with the rowblock order: this slice's main path), checks the launch
+counts and each image's mean against the default render's, and holds the
+last segment against the plain version; phase 5 times every walk on
+`teapot` and the size-check mesh at 1280x960x8 with K1-mesh's bound and
+each walk's node and leaf tests a sample; phase 9 runs K5 on teapot's two
+batches under modes 2, 3 and mxu; phase 10 runs P3 (each leaf-body
+variant's marginal cost) and the cross-check of the leaf rate against
+K1-mesh's. It prints one JSON line of kernel results, each with its bound (the
 least time the card could take for the same work, from the work the plain
 version counts in this run), and, last, one JSON line naming the device.
 Every failure raises; without a card it exits non-zero before printing any
@@ -90,6 +108,7 @@ from pathtracer_tpu_torch.diff import (make_megakernel_step,
                                        make_megakernel_step_tri)
 from pathtracer_tpu_torch.geometry import transforms as gx
 from pathtracer_tpu_torch.io.raw import read_raw
+from pathtracer_tpu_torch.probes import leaf_bench, op_rate
 from pathtracer_tpu_torch.render import _build
 from pathtracer_tpu_torch.render import grad as tg
 from pathtracer_tpu_torch.render import megakernel as mk
@@ -144,6 +163,10 @@ TEX_LR = 0.05                # phase 8: Adam's step on the texels
 # `counts`).
 F32_OPS_PER_S = 16896 * 1.98e9
 PEAK_BYTES = 3.35e12
+# the rate every bound divides by: F32_OPS_PER_S, unless the op-rate probe
+# (P2, phase 2) measures a faster non-FMA rate (mul_par8, add_par8) in
+# this run, which then shows the spec rate wrong
+bound_rate = {"ops_per_s": F32_OPS_PER_S, "from": "spec"}
 OPS_SAMPLE = 44          # jittered camera ray, normalize, the sums' adds
 OPS_OBJECT = {           # one object's transform and test, per live ray
     PLANE: 33 + 3, SPHERE: 33 + 29, CYLINDER: 33 + 26, BOX: 33 + 26,
@@ -170,6 +193,27 @@ OPS_SHADOW_LIT = 19
 OPS_ISECT_RAY = 1
 OPS_ISECT_TRI = 12
 ISECT_SCENES = ("reference", "teapot", "size-check mesh")
+# the mesh walks of the JAX package's knobs (render/megakernel.py
+# mesh_walk): Kernel A (the warp-packet walk on the block's or the warp's
+# majority octant), Kernel B (its tensor-core leaves), the node walk alone
+WALKS = {
+    "per-thread": {},
+    "packet mode 2": {"PT_SUBPACKET": "2"},
+    "packet mode 3": {"PT_SUBPACKET": "3"},
+    "tensor core": {"PT_TRAVERSAL": "mxu"},
+    "leaf-ablated": {"PT_ABLATE_LEAF": "1"},
+    "packet leaf-ablated": {"PT_SUBPACKET": "2", "PT_ABLATE_LEAF": "1"},
+}
+WALK_KNOBS = ("PT_SUBPACKET", "PT_TRAVERSAL", "PT_ABLATE_LEAF",
+              "PT_TILE_ORDER")
+# phase 4: the slice's main path, `teapot` through the CLI under the knobs
+MAIN_WALKS = (
+    ("packet mode 2, subblock", {"PT_SUBPACKET": "2",
+                                 "PT_TILE_ORDER": "subblock"}),
+    ("packet mode 3", {"PT_SUBPACKET": "3"}),
+    ("tensor core, rowblock", {"PT_TRAVERSAL": "mxu",
+                               "PT_TILE_ORDER": "rowblock"}),
+)
 
 
 def phase(msg: str) -> None:
@@ -179,15 +223,30 @@ def phase(msg: str) -> None:
 @contextlib.contextmanager
 def env_var(name: str, value: str):
     """Set environment variable `name` to `value` for a block."""
-    old = os.environ.get(name)
-    os.environ[name] = value
+    with env_vars({name: value}):
+        yield
+
+
+@contextlib.contextmanager
+def env_vars(env: dict, unset=()):
+    """Set the variables of `env` and unset those of `unset` for a block."""
+    old = {k: os.environ.get(k) for k in (*env, *unset)}
+    for k in unset:
+        os.environ.pop(k, None)
+    os.environ.update(env)
     try:
         yield
     finally:
-        if old is None:
-            del os.environ[name]
-        else:
-            os.environ[name] = old
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def walk_env(env: dict):
+    """The knobs of one mesh walk (WALKS, MAIN_WALKS), the others unset."""
+    return env_vars(env, unset=WALK_KNOBS)
 
 
 def n_triangles(sc) -> int:
@@ -221,7 +280,7 @@ def work_bound(counts, meta, in_bytes, out_bytes, grad=False, f32=False):
 def bound_of(ops, n_bytes):
     """(bound ms, "operations" or "bytes", ops) of `ops` f32 operations
     and `n_bytes` bytes moved."""
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / bound_rate["ops_per_s"] * 1e3
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", ops)
@@ -241,6 +300,17 @@ def fwd_bound(counts, tabs, kw):
         0 if texels is None else texels.shape[0] * 16)
     return work_bound(counts, kw["meta"], ins, 3 * nbytes(tabs[4]),
                       f32=texels is not None)
+
+
+def spread_tiles(tabs, tile, n):
+    """The inputs of n tiles spread evenly over the image (every
+    (T // n)-th tile; renumbered 0..n-1, so their random streams are those
+    of the first n): a sample of the whole frame's work."""
+    S = tile[0]
+    step = max(1, tabs[4].shape[0] // S // n)
+    rows = (torch.arange(n, device=tabs[4].device)[:, None] * step * S
+            + torch.arange(S, device=tabs[4].device)).reshape(-1)
+    return tabs[:4] + [tabs[4][rows].contiguous(), tabs[5][rows].contiguous()]
 
 
 def first_tiles(tabs, tile, n):
@@ -319,23 +389,47 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+WALK_WORDS = {"0": "", "1": "block-packet ", "2": "warp-packet "}
+LEAF_WORDS = {"0": "", "1": "mma ", "2": "ablated "}
+BENCH_WORDS = ("prod", "mma", "base", "hitpoint", "tree", "synth")
+OP_RATE_WORDS = ("fma_dep", "fma_par8", "mul_par8", "add_par8", "cmp_sel",
+                 "leafmix", "div_par8", "sqrt_par8", "sincos")
+
+
+def _walk_words(ints: str) -> str:
+    """The walk and leaf words of the kWalk, kLeaf arguments (Li..E), none
+    for the per-thread walk with SIMT leaves (the names of older builds)."""
+    w, lf = (re.findall(r"Li(\d+)E", ints) + ["0", "0"])[:2]
+    return WALK_WORDS[w] + LEAF_WORDS[lf]
+
+
 def kernel_name(mangled: str) -> str:
-    """The instantiation of megakernel<kMesh, kGrad, kTex, kF32, kNee>
-    (fewer flags in older builds), of intersect<kMesh>, or the probe, by
-    name."""
+    """The instantiation of megakernel<kMesh, kGrad, kTex, kF32, kNee,
+    kWalk, kLeaf> (fewer arguments in older builds), of intersect<kMesh,
+    kWalk, kLeaf>, or the probe, by name."""
     if "tex_fetch" in mangled:
         return "fetch probe"
-    m = re.search(r"intersectILb([01])E", mangled)
+    if "mma_pairs" in mangled:
+        return "mma pairs probe"
+    m = re.search(r"leaf_benchILi(\d+)E", mangled)
     if m:
-        return "intersect " + ("mesh" if m.group(1) == "1" else "primitive")
-    m = re.search(r"megakernelI((?:Lb[01]E)+)E", mangled)
+        return f"leaf bench {BENCH_WORDS[int(m.group(1))]}"
+    m = re.search(r"op_rateILi(\d+)E", mangled)
+    if m:
+        return f"op rate {OP_RATE_WORDS[int(m.group(1))]}"
+    m = re.search(r"intersectILb([01])E((?:Li\d+E)*)E", mangled)
+    if m:
+        return ("intersect " + _walk_words(m.group(2))
+                + ("mesh" if m.group(1) == "1" else "primitive"))
+    m = re.search(r"megakernelI((?:Lb[01]E)+)((?:Li\d+E)*)E", mangled)
     if not m:
         return mangled
     mesh, grad, tex, f32, nee = (re.findall(r"Lb([01])E", m.group(1))
                                  + ["0", "0"])[:5]
     words = (["grad"] * (grad == "1") + ["textured"] * (tex == "1")
              + ["f32-texel"] * (f32 == "1") + ["nee"] * (nee == "1"))
-    return " ".join(words + ["mesh" if mesh == "1" else "primitive"])
+    return (" ".join(words + [_walk_words(m.group(2))
+                              + ("mesh" if mesh == "1" else "primitive")]))
 
 
 def ptxas_lines(log_text: str):
@@ -379,6 +473,9 @@ def cli_render(scene: str, tmp: str, nee: bool = False):
     mk.trace_tiles.mesh_launches = 0
     mk.trace_tiles.tex_launches = 0
     mk.trace_tiles.nee_launches = 0
+    mk.trace_tiles.packet_launches = 0
+    mk.trace_tiles.mma_launches = 0
+    mk.trace_tiles.ablate_launches = 0
     rc = cli.main([
         "--scene", scene, "--width", str(W), "--height", str(H),
         "--samples", str(SPP), "--raw-output", raw,
@@ -386,7 +483,9 @@ def cli_render(scene: str, tmp: str, nee: bool = False):
         "--metrics-json", metrics] + ["--nee"] * nee)
     n = dict(launches=mk.trace_tiles.launches,
              mesh=mk.trace_tiles.mesh_launches,
-             tex=mk.trace_tiles.tex_launches, nee=mk.trace_tiles.nee_launches)
+             tex=mk.trace_tiles.tex_launches, nee=mk.trace_tiles.nee_launches,
+             packet=mk.trace_tiles.packet_launches,
+             mma=mk.trace_tiles.mma_launches)
     if rc != 0:
         raise AssertionError(f"cli.main --scene {scene} returned {rc}")
     with open(metrics) as f:
@@ -574,7 +673,7 @@ def teapot_main_path(tmp, dev, card, mesh_tris, nee=False):
     return dict(launches=n["launches"], mesh=n["mesh"], nee=n["nee"],
                 seed=mseed, tabs=mtabs, kw=mkw, full=full, p_ms=tp_ms,
                 p64_ms=p64_ms, counts=counts, bit_eq=bit_eq, err=err,
-                checked=checked, metrics=tm)
+                checked=checked, metrics=tm, img=timg)
 
 
 def tex_main_path(tmp, dev, card):
@@ -747,7 +846,7 @@ def ab_parent(parent: str, cases, card, ptxas):
     have must keep their ptxas counts (`ptxas`: this build's lines).
     Returns {case: (parent median ms, this median ms)}."""
     key = ("megakernel", _build.NVCC_FLAGS)
-    mine = _build.load("megakernel", mk._SIGNATURES)
+    mine = mk.library()
     src = _build.CSRC
     _build.CSRC = Path(parent) / "pathtracer_tpu_torch" / "csrc"
     try:
@@ -755,7 +854,7 @@ def ab_parent(parent: str, cases, card, ptxas):
     finally:
         _build.CSRC = src
     old = ctypes.CDLL(str(lib_path))
-    for fn, (argtypes, restype) in mk._SIGNATURES.items():
+    for fn, (argtypes, restype) in mk.SIGNATURES.items():
         if hasattr(old, fn):
             getattr(old, fn).argtypes = argtypes
             getattr(old, fn).restype = restype
@@ -938,6 +1037,344 @@ def intersect_phase(dev, card):
         out[tag] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                         rays=R, misses=misses, err=err)
     return launches, out
+
+
+def op_rate_phase(dev, card):
+    """P2, the op-rate probe (probes/op_rate.py): every variant's marginal
+    rate at its default size, each kernel first held against its plain
+    version at 4096 threads x 2 iterations by op_rate.compare (bit-equal
+    but for sincos and leafmix, relative 1e-5). Sets bound_rate to the
+    fastest non-FMA rate when that beats F32_OPS_PER_S. The JSON row is
+    mul_par8 at THREADS x 100 iterations; it and add_par8, the two rates
+    that can replace the spec's, are held bit for bit at that shape too.
+    Returns {variant: rate dict} and the JSON row's numbers."""
+    def check(v, xs, iters, plain=None):
+        k = op_rate.run(v, xs, iters)
+        if plain is None:
+            plain = op_rate.run_plain(v, xs, iters)
+        c = op_rate.compare(v, k, plain)
+        if not c["ok"]:
+            raise AssertionError(
+                f"P2: {v} at {xs.numel()} threads x {iters} iterations "
+                f"differs from its plain version (max rel {c['max_rel']:.2e}"
+                f", need {c['rule']})")
+        return c
+
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        1.0, 2.0, 4096).astype(np.float32)).to(dev)
+    op_rate.run.launches = 0
+    rates = {}
+    for v in op_rate.VARIANTS:
+        c = check(v, x, 2)
+        r = op_rate.measure(v, dev)
+        rates[v] = dict(r, max_rel_err=c["max_rel"], max_abs_err=c["max_abs"])
+        phase(f"phase 2 P2: {v}: {r['ops_per_s']:.4e} ops/s ({r['threads']} "
+              f"threads x {r['iters']} iterations x "
+              f"{op_rate.OPS_PER_ITER[v]} ops: {r['ms']:.4f} ms, 2x "
+              f"{r['ms_2x']:.4f} ms); vs its plain version ({c['rule']}) "
+              f"max rel {c['max_rel']:.1e}; card {card}")
+    fastest = max(rates["mul_par8"]["ops_per_s"],
+                  rates["add_par8"]["ops_per_s"])
+    if fastest > F32_OPS_PER_S:
+        bound_rate.update(ops_per_s=fastest, **{"from": "P2"})
+    phase(f"phase 2 P2: fastest non-FMA rate {fastest:.4e} ops/s against "
+          f"the spec's {F32_OPS_PER_S:.4e} (16896 lanes x 1.98 GHz): every "
+          f"bound divides by {bound_rate['ops_per_s']:.4e} "
+          f"({bound_rate['from']})")
+    # the JSON row: mul_par8 at the default threads x 100 iterations,
+    # kernel and plain version on the card, bit-equal, with its bound
+    n, iters = op_rate.THREADS, 100
+    xs = torch.from_numpy(np.random.default_rng(2).uniform(
+        1.0, 2.0, n).astype(np.float32)).to(dev)
+    k_ms = cuda_ms(lambda: op_rate.run("mul_par8", xs, iters), 5)
+    p, p_ms = timed(lambda: op_rate.run_plain("mul_par8", xs, iters),
+                    stack=False)
+    c = check("mul_par8", xs, iters, p)
+    check("add_par8", xs, iters)
+    phase(f"phase 2 P2: mul_par8 and add_par8 at {n} threads x {iters} "
+          f"iterations bit-equal to their plain versions")
+    bound = bound_of(n * iters * op_rate.OPS_PER_ITER["mul_par8"],
+                     2 * nbytes(xs))
+    return rates, dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound[0],
+                       bound_by=bound[1], launches=op_rate.run.launches,
+                       fastest=fastest, max_abs_err=c["max_abs"])
+
+
+def walk_compare(dev, msmall, nmesh):
+    """Phase 3 (the mesh walks): Kernel A (packet modes 2 and 3) bit for
+    bit against its plain version on `teapot`, the size-check mesh,
+    `cubemap` and `teapot --nee` at 160x120; the node walk alone (thread
+    and packet) on `teapot`; Kernel B (tensor-core leaves) on the same
+    scenes by the per-slot rule, with its bit-equal share, and its leaf
+    test per ray x triangle pair (leaf_bench.check: t within one ulp,
+    winners differing only at ties). Returns (max abs errs, Kernel B's
+    leaf check)."""
+    scenes = [("teapot", get_scene("teapot", msmall), msmall, MESH_TILE),
+              ("size-check mesh", size_check_scene(msmall, get_scene),
+               msmall, MESH_TILE),
+              ("cubemap", get_scene("cubemap", msmall), msmall, None),
+              ("teapot --nee", get_scene("teapot", nmesh), nmesh, MESH_TILE)]
+    errs = {"A": [], "B": []}
+    for walk in ("packet mode 2", "packet mode 3", "tensor core"):
+        exact = walk != "tensor core"
+        with walk_env(WALKS[walk]):
+            for name, sc, cfg, tile in scenes:
+                err, bit = compare(f"{walk}: {name}", sc, cfg, tile, 0, dev,
+                                   exact=exact)
+                errs["A" if exact else "B"].append(err)
+    for walk in ("leaf-ablated", "packet leaf-ablated"):
+        with walk_env(WALKS[walk]):
+            compare(f"{walk}: teapot", get_scene("teapot", msmall), msmall,
+                    MESH_TILE, 0, dev, exact=True)
+    tris, meta, arrays = leaf_bench.teapot_leaves(dev)
+    check = leaf_bench.check(leaf_bench.mesh_rays(arrays, 1 << 16, dev),
+                             tris, meta)
+    pr, mm = check["pairs"], check["mma"]
+    phase(f"phase 3: Kernel B's leaf test on teapot's leaves: "
+          f"{pr['within_1ulp']} of {pr['pairs']} ray x triangle pairs with "
+          f"t within 1 ulp of the plain version ({pr['hit_within_1ulp']} of "
+          f"{pr['hit_pairs']} hit pairs; bit-equal {pr['bit_equal']}); "
+          f"over 3 leaf visits of {mm['rays']} rays: t within 1 ulp on "
+          f"{mm['t_within_1ulp']}, winner equal on {mm['winner_equal']}, "
+          f"ties where it differs {mm['winner_differs_at_tie']}")
+    if (pr["within_1ulp"] < 0.999 * pr["pairs"]
+            or mm["winner_equal"] + mm["winner_differs_at_tie"]
+            != mm["rays"]):
+        raise AssertionError("phase 3: Kernel B's leaf test is off its "
+                             "plain version")
+    return errs, check
+
+
+def variant_main_path(tmp, dev, card, tag, env, tea):
+    """Phase 4 (this slice's main path): `teapot` at W x H x SPP through
+    cli.main under one of MAIN_WALKS, its launch counts set to 0 just
+    before (every launch the mesh instantiation's and the packet walk's,
+    the tensor-core one's under mxu); the image checked and its mean within
+    MAIN_MEAN_REL of the default `teapot` render (`tea`, phase 4); the
+    driver's last segment through the kernel and the plain version on
+    every slot: bit-equal (Kernel A) or by the per-slot rule (Kernel B).
+    Returns the numbers."""
+    with walk_env(env):
+        walk = mk.mesh_walk()
+        img, m, n = cli_render("teapot", tmp)
+        segs = m["segments"]
+        phase(f"phase 4 walks: teapot {tag} {W}x{H}x{SPP}: "
+              f"{m['msamples_per_sec']} Msamples/s, render wall {m['wall_s']} "
+              f"s (driver), {m['total_wall_s']} s incl. scene setup; "
+              f"{n['launches']} kernel launches ({n['packet']} of the packet "
+              f"walk, {n['mma']} with tensor-core leaves) for {segs} "
+              f"segments; card {card}")
+        want_mma = segs if walk.leaf == "mma" else 0
+        if not (n["launches"] == n["mesh"] == n["packet"] == segs
+                == SPP // 8 and n["mma"] == want_mma):
+            raise AssertionError(f"phase 4 walks: {tag}: the main path did "
+                                 "not launch the packet walk once per "
+                                 "segment")
+        check_image(f"phase 4 walks {tag}", img)
+        im, dm = img.reshape(-1, 3).mean(0), tea["img"].reshape(-1, 3).mean(0)
+        rel = np.abs(im - dm) / dm
+        tabs, kw, seed, _ = last_segment("teapot", m, MESH_TILE, dev)
+        k = torch.stack(mk.trace_tiles(seed, *tabs, **kw))
+        counts = {}
+        p, p_ms = timed(lambda: mk.trace_tiles_reference(
+            seed, *tabs, **kw, counts=counts))
+    k, p = k.cpu().numpy(), p.cpu().numpy()
+    bit_eq = float((k == p).mean())
+    frac = float(np.isclose(k, p, atol=ATOL, rtol=RTOL).mean())
+    prel = float(np.max(np.abs(k.mean((1, 2)) - p.mean((1, 2)))
+                        / np.abs(p.mean((1, 2)))))
+    err = float(np.abs(k - p).max())
+    phase(f"phase 4 walks: {tag}: image mean {im} vs the default teapot "
+          f"render {dm}: rel diff {rel.max():.4f} (need <{MAIN_MEAN_REL}); "
+          f"segment seed {seed} x {kw['spp']} spp: kernel vs plain "
+          f"({p_ms:.1f} ms) bit-equal on {bit_eq:.6f} of {k.size} slot "
+          f"values, {frac:.6f} within atol={ATOL} rtol={RTOL}, mean rel "
+          f"{prel:.2e}; max abs err {err:.3e}")
+    if rel.max() >= MAIN_MEAN_REL:
+        raise AssertionError(f"phase 4 walks: {tag}: image mean off the "
+                             "default render")
+    if not np.isfinite(k).all() or (walk.leaf != "mma" and bit_eq != 1.0):
+        raise AssertionError(f"phase 4 walks: {tag}: the kernel differs "
+                             "from the plain version")
+    if frac < SLOT_FRAC or prel >= MEAN_REL:
+        raise AssertionError(f"phase 4 walks: {tag}: kernel off the plain "
+                             "version by the per-slot rule")
+    return dict(launches=n["launches"], packet=n["packet"], mma=n["mma"],
+                bit_eq=bit_eq, frac=frac, err=err, p_ms=p_ms, counts=counts,
+                msamples=m["msamples_per_sec"], wall=m["wall_s"],
+                mean_rel=float(rel.max()))
+
+
+def walk_timing(dev, card):
+    """Phase 5 (the mesh walks): each walk of WALKS on `teapot` and the
+    size-check mesh at W x H x 8 spp (seed (1, 0)), timed in turns (two
+    rounds, 5 launches a timing, the best), with K1-mesh's bound (the same
+    function on the same inputs, from the per-thread plain run's work) and
+    each walk's work from its plain version on 64 tiles spread over the
+    frame (spread_tiles): node tests and leaf-slot tests a sample (a packet
+    walk counts what its warps issue, 32 lanes a node and 32 x leaf a
+    leaf). Returns {scene: {walk: numbers}}."""
+    cfg = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
+    out = {}
+    for scene in ("teapot", "size-check mesh"):
+        sc = (size_check_scene(cfg, get_scene) if scene != "teapot"
+              else get_scene("teapot", cfg))
+        ins = {}
+        for walk, env in WALKS.items():
+            with walk_env(env):
+                tabs, meta, _, lay = port_inputs(sc, cfg, MESH_TILE, dev)
+                kw = dict(meta=meta, cfg=cfg, spp=8, total_samples=8,
+                          tile=MESH_TILE, **lay)
+                counts = {}
+                sub = spread_tiles(tabs, MESH_TILE, 64)
+                _, p64 = timed(lambda: mk.trace_tiles_reference(
+                    (1, 0), *sub, **kw, counts=counts))
+            ins[walk] = (tabs, kw, counts, p64)
+        runs = {w: [] for w in WALKS}
+        for _ in range(2):
+            for walk, env in WALKS.items():
+                tabs, kw = ins[walk][:2]
+                with walk_env(env):
+                    runs[walk].append(cuda_ms(
+                        lambda: mk.trace_tiles((1, 0), *tabs, **kw), 5))
+        n_tiles = ins["per-thread"][0][4].shape[0] // MESH_TILE[0]
+        full = {k: v * n_tiles // 64
+                for k, v in ins["per-thread"][2].items()}
+        b_ms, b_by, ops = fwd_bound(full, ins["per-thread"][0],
+                                    ins["per-thread"][1])
+        base = ins["per-thread"][2]
+        res = {}
+        for walk in WALKS:
+            c = ins[walk][2]
+            ms = min(runs[walk])
+            res[walk] = dict(ms=ms, runs=runs[walk], bound_ms=b_ms,
+                             bound_by=b_by, plain_ms_64_tiles=ins[walk][3],
+                             node_tests_per_sample=c["node_visits"]
+                             / c["samples"],
+                             leaf_tests_per_sample=c["leaf_slots"]
+                             / c["samples"])
+            phase(f"phase 5 walks: {scene} {W}x{H}x8 spp, {walk}: "
+                  f"{ms:.4f} ms (timings {[round(x, 4) for x in runs[walk]]}"
+                  f"; {W * H * 8 / ms / 1e3:.1f} Msamples/s), K1-mesh's bound "
+                  f"{b_ms:.4f} ms ({b_by}; {ops:.4g} f32 ops; {ms / b_ms:.2f}x)"
+                  f"; a sample: {res[walk]['node_tests_per_sample']:.2f} node "
+                  f"tests, {res[walk]['leaf_tests_per_sample']:.2f} leaf-slot "
+                  f"tests ({c['leaf_slots'] / max(base['leaf_slots'], 1):.2f}x "
+                  f"the per-thread walk's); plain on 64 spread tiles "
+                  f"{ins[walk][3]:.1f} ms; card {card}")
+        out[scene] = res
+    return out
+
+
+def intersect_walks(dev, card):
+    """Phase 9 (the mesh walks): K5 on `teapot`'s two 9,830,400-ray batches
+    (phase 9's rays) under packet modes 2 and 3 and tensor-core leaves, the
+    launch counts set to 0 before the batches' first calls and read after;
+    then each batch against intersect_batch_reference: bit for bit (Kernel
+    A), t within one ulp and the winner equal except at ties (Kernel B);
+    and timed (10 launches). Returns the numbers and the counts."""
+    cfg = RenderConfig(width=W, height=H, samples=8)
+    sc = get_scene("teapot", cfg)
+    mk.intersect_batch.launches = 0
+    mk.intersect_batch.packet_launches = 0
+    mk.intersect_batch.mma_launches = 0
+    batches = []
+    for walk in ("packet mode 2", "packet mode 3", "tensor core"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        with walk_env(WALKS[walk]):
+            arrays, meta = sc.pack(device=dev)
+            tables = mk.intersect_tables(arrays, meta, dev)
+            o, d = camera_rays(sc.camera, W, H, 8, gen)
+            first = mk.intersect_batch(arrays, meta, cfg, o, d, tables=tables)
+            o2, d2 = bounce_rays(o, d, first[0], cfg.t_max, gen)
+            second = mk.intersect_batch(arrays, meta, cfg, o2, d2,
+                                        tables=tables)
+        batches += [(walk, "primary", arrays, meta, tables, o, d, first),
+                    (walk, "bounce", arrays, meta, tables, o2, d2, second)]
+    n = (mk.intersect_batch.launches, mk.intersect_batch.packet_launches,
+         mk.intersect_batch.mma_launches)
+    phase(f"phase 9 walks: {n[0]} intersect launches, {n[1]} on the packet "
+          f"walk, {n[2]} with tensor-core leaves")
+    if n != (6, 6, 2):
+        raise AssertionError("phase 9 walks: the walks were not launched")
+    out = {}
+    for walk, tag, arrays, meta, tables, o, d, got in batches:
+        with walk_env(WALKS[walk]):
+            counts = {}
+            want, p_ms = timed(lambda: mk.intersect_batch_reference(
+                arrays, meta, cfg, o, d, tables, counts), stack=False)
+            k_ms = cuda_ms(lambda: mk.intersect_batch(
+                arrays, meta, cfg, o, d, tables=tables), 10)
+        got, want = flat_outputs(got), flat_outputs(want)
+        t_ulp = (got[0].view(torch.int32).long()
+                 - want[0].view(torch.int32).long()).abs()
+        same_w = got[1] == want[1]
+        ties = int((~same_w & (t_ulp == 0)).sum())
+        bit = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+        phase(f"phase 9 walks: teapot {tag}, {walk}: {counts['rays']} rays: "
+              f"kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, bit-equal {bit} "
+              f"(t within 1 ulp on {int((t_ulp <= 1).sum())}, winners "
+              f"differing at ties {ties}); {counts['node_visits']} node tests "
+              f"issued; card {card}")
+        if walk != "tensor core" and not bit:
+            raise AssertionError(f"phase 9 walks: {walk} {tag}: the kernel "
+                                 "differs from its plain version")
+        if walk == "tensor core" and not (
+                int((t_ulp <= 1).sum()) == t_ulp.numel()
+                and int(same_w.sum()) + ties == same_w.numel()):
+            raise AssertionError(f"phase 9 walks: {walk} {tag}: off the rule")
+        out[f"teapot {tag}, {walk}"] = dict(ms=k_ms, plain_ms=p_ms,
+                                            bit_equal=bit, err=err, ties=ties)
+    return out, n
+
+
+def leaf_phase(dev, card, teapot_walks):
+    """Phase 10: P3, the leaf microbenchmark (probes/leaf_bench.py) on
+    teapot's leaves: each variant's marginal ns a visit and G triangle
+    tests a second, `prod` and `mma` held against their plain versions
+    first; then the JAX harness's cross-check on the port: the per-thread
+    K1-mesh rate (phase 5) against the leaf rate over the leaf-slot tests a
+    sample. Returns the numbers."""
+    leaf_bench.run.launches = 0
+    tris, meta, arrays = leaf_bench.teapot_leaves(dev)
+    rays = leaf_bench.mesh_rays(arrays, leaf_bench.RAYS, dev)
+    res = {}
+    for v in leaf_bench.VARIANTS:
+        r = leaf_bench.measure(v, rays, tris, meta)
+        res[v] = r
+        phase(f"phase 10 P3: {v}: {r['ns_per_visit']:.1f} ns a visit of "
+              f"{r['rays']} rays (leaf {r['leaf']}; {r['visits']} and "
+              f"{5 * r['visits']} visits: {r['ms']:.4f} / {r['ms_5x']:.4f} "
+              f"ms) = {r['gtests_per_s']:.1f} G triangle tests/s; card {card}")
+    pw = teapot_walks["per-thread"]
+    k1_rate = W * H * 8 / (pw["ms"] / 1e3)
+    tests = pw["leaf_tests_per_sample"]
+    predicted = res["prod"]["gtests_per_s"] * 1e9 / tests
+    phase(f"phase 10 P3: cross-check: teapot K1-mesh {k1_rate / 1e6:.1f} "
+          f"Msamples/s (phase 5, per-thread) against the leaf rate / leaf "
+          f"tests a sample = {res['prod']['gtests_per_s']:.1f}e9 / "
+          f"{tests:.2f} = {predicted / 1e6:.1f} Msamples/s "
+          f"({k1_rate / predicted:.3f} of it)")
+    # the JSON row: `prod` at RAYS x VISITS, kernel and plain version
+    visits = leaf_bench.VISITS
+    k_ms = cuda_ms(lambda: leaf_bench.run("prod", rays, tris, meta, visits), 5)
+    k = leaf_bench.run("prod", rays, tris, meta, visits)
+    p, p_ms = timed(lambda: leaf_bench.plain("prod", rays, tris, meta,
+                                             visits), stack=False)
+    if not (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])):
+        raise AssertionError("phase 10 P3: prod differs from its plain "
+                             "version")
+    n = rays[0].numel()
+    bound = bound_of(n * meta.leaf_size * visits * OPS_LEAF_SLOT,
+                     nbytes(*rays) + 8 * n)
+    return res, dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound[0],
+                     bound_by=bound[1], launches=leaf_bench.run.launches,
+                     k1_msamples=k1_rate / 1e6,
+                     predicted_msamples=predicted / 1e6,
+                     max_abs_err=float((k[0] - p[0]).abs().max()))
 
 
 def grad_setup(sc, cfg, dev):
@@ -1301,12 +1738,15 @@ def main(argv=None) -> int:
 
     # ---- phase 2: build the kernel library ------------------------------
     t0 = time.perf_counter()
-    lib = _build.build("megakernel")
-    phase(f"phase 2: built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    lib, plib = _build.build_all(["megakernel", "probes"])
+    phase(f"phase 2: built {lib.name} and {plib.name} (two nvcc at once) in "
+          f"{time.perf_counter() - t0:.1f} s")
     log = lib.with_suffix(".log")
     ptxas = ptxas_lines(log.read_text() if log.exists() else "")
-    for line in ptxas:
+    for line in ptxas + ptxas_lines(plib.with_suffix(".log").read_text()):
         phase(f"phase 2: ptxas: {line}")
+    # P2 first: the bounds of every later phase divide by its rate
+    p2_rates, p2_row = op_rate_phase(dev, card)
 
     # ---- phase 3: kernel vs plain version on the card -------------------
     small = RenderConfig(width=160, height=120, samples=16,
@@ -1367,6 +1807,8 @@ def main(argv=None) -> int:
         nee_errs.append(compare("nee reference, PT_COHERENT=0",
                                 get_scene("reference", nsmall), nsmall, TILE,
                                 0, dev, exact=True)[0])
+    # the mesh walks of the JAX package's knobs (Kernels A and B)
+    walk_errs, leaf_check = walk_compare(dev, msmall, nmesh)
 
     with tempfile.TemporaryDirectory() as tmp:
         # ---- phase 4: the main paths: reference, teapot, textures -------
@@ -1376,6 +1818,9 @@ def main(argv=None) -> int:
         # ---- phase 4 (NEE): reference --nee and teapot --nee ------------
         ref_nee = reference_main_path(tmp, dev, card, nee=True)
         tea_nee = teapot_main_path(tmp, dev, card, mesh_tris, nee=True)
+        # ---- phase 4 (the walks): teapot under the knobs, this slice's --
+        walk_main = {tag: variant_main_path(tmp, dev, card, tag, env, tea)
+                     for tag, env in MAIN_WALKS}
     errs.append(ref["err"])
     mesh_errs.append(tea["err"])
     tex_errs.append(tex_main["err"])
@@ -1478,6 +1923,9 @@ def main(argv=None) -> int:
                     spp=GRAD_SPP, total_samples=GRAD_SPP, tile=GRAD_TILE),
                 False)}, card, ptxas)
 
+    # the mesh walks, each on the same samples, with K1-mesh's bound
+    walk_times = walk_timing(dev, card)
+
     g_ref, g_tea, g_big = grad_phase(dev, card, mesh_tris)
     rate, trate, k6_obj, k6_tri = training_phase(dev, card, mesh_tris)
 
@@ -1494,6 +1942,15 @@ def main(argv=None) -> int:
 
     # ---- phase 9: the intersect-only kernel (K5) --------------------------
     isect = intersect_phase(dev, card)
+    isect_walks, isect_walk_n = intersect_walks(dev, card)
+
+    # ---- phase 10: the probes (P3; P2 ran in phase 2) --------------------
+    leaf_rates, p3_row = leaf_phase(dev, card, walk_times["teapot"])
+    for v, r in p2_rates.items():
+        phase(f"phase 10 P2: {v}: {r['ops_per_s']:.4e} ops/s; card {card}")
+    a_main = [walk_main[t] for t, _ in MAIN_WALKS[:2]]
+    b_main = walk_main[MAIN_WALKS[2][0]]
+    tw = walk_times["teapot"]
 
     print(json.dumps({"kernels": [
         {"name": "megakernel", "route": "cuda",
@@ -1615,7 +2072,60 @@ def main(argv=None) -> int:
          "plain_ms": isect[1]["reference primary"]["plain_ms"],
          "bound_ms": isect[1]["reference primary"]["bound_ms"],
          "bound_by": isect[1]["reference primary"]["bound_by"],
-         "library_ms": None, "by_batch": isect[1]}]}))
+         "library_ms": None, "by_batch": isect[1],
+         "by_walk": isect_walks, "walk_launches": list(isect_walk_n)},
+        {"name": "megakernel-mesh-packet", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pathtracer_tpu/render/pallas_kernel.py:1543,1403,1984",
+         "launches": sum(m["packet"] for m in a_main),
+         "max_abs_err": max(walk_errs["A"] + [m["err"] for m in a_main]),
+         "bit_equal_frac": min(m["bit_eq"] for m in a_main),
+         "shape": f"teapot {W}x{H}x8spp (packet mode 2)",
+         "ms": tw["packet mode 2"]["ms"],
+         "plain_ms": a_main[0]["p_ms"],
+         "bound_ms": tw["packet mode 2"]["bound_ms"],
+         "bound_by": tw["packet mode 2"]["bound_by"], "library_ms": None,
+         "main_path": {t: {k: walk_main[t][k] for k in (
+             "launches", "msamples", "wall", "mean_rel", "bit_eq", "p_ms")}
+             for t, _ in MAIN_WALKS},
+         "by_walk": walk_times},
+        {"name": "megakernel-mesh-mma", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pathtracer_tpu/render/pallas_kernel.py:1678,347",
+         "launches": b_main["mma"],
+         "max_abs_err": max(walk_errs["B"] + [b_main["err"]]),
+         "bit_equal_frac": b_main["bit_eq"],
+         "slot_frac_within_tol": b_main["frac"],
+         "shape": f"teapot {W}x{H}x8spp", "ms": tw["tensor core"]["ms"],
+         "plain_ms": b_main["p_ms"], "bound_ms": tw["tensor core"]["bound_ms"],
+         "bound_by": tw["tensor core"]["bound_by"], "library_ms": None,
+         "leaf_check": leaf_check},
+        {"name": "op-rate-probe", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/probes.cu",
+         "replaces": "tools/vpu_peak_probe.py:37",
+         "launches": p2_row["launches"],
+         "max_abs_err": max([p2_row["max_abs_err"]] + [
+             r["max_abs_err"] for r in p2_rates.values()]),
+         "shape": f"mul_par8 {op_rate.THREADS} threads x 100 iterations",
+         "ms": p2_row["ms"], "plain_ms": p2_row["plain_ms"],
+         "bound_ms": p2_row["bound_ms"], "bound_by": p2_row["bound_by"],
+         "library_ms": None,
+         "ops_per_s": {v: r["ops_per_s"] for v, r in p2_rates.items()},
+         "bound_rate": bound_rate},
+        {"name": "leaf-bench", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "tools/leaf_microbench.py:59",
+         "launches": p3_row["launches"], "max_abs_err": p3_row["max_abs_err"],
+         "shape": (f"prod {leaf_bench.RAYS} rays x {leaf_bench.VISITS} "
+                   "visits, leaf 32"),
+         "ms": p3_row["ms"], "plain_ms": p3_row["plain_ms"],
+         "bound_ms": p3_row["bound_ms"], "bound_by": p3_row["bound_by"],
+         "library_ms": None,
+         "gtests_per_s": {v: r["gtests_per_s"] for v, r in leaf_rates.items()},
+         "ns_per_visit": {v: r["ns_per_visit"] for v, r in leaf_rates.items()},
+         "cross_check_msamples": {"k1_mesh": p3_row["k1_msamples"],
+                                  "leaf_rate_over_tests":
+                                      p3_row["predicted_msamples"]}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -130,6 +130,16 @@
 // carried over. Its bound: 84 bytes a ray in and out against one
 // transform and test an object (and the walk's nodes and slots), so bytes
 // on primitive scenes and operations on meshes.
+//
+// The mesh walks of the JAX package's knobs (template arguments kWalk,
+// kLeaf of the forward mesh and intersect instantiations; the section
+// "the warp-packet walks" below): Kernel A, the warp-packet walk, counts
+// of _packet_traverse_gated (PT_SUBPACKET=2), its cond gating (=1) and
+// the per-chunk walks (=3); Kernel B, the tensor-core leaf test of the
+// MXU leaf machine (_packet_traverse_mxu, PT_TRAVERSAL=mxu) as FP64 DMMA;
+// and the node walk alone (PT_ABLATE_LEAF=1). Each gives the per-thread
+// walk's hits. The leaf microbenchmark (leaf_bench, the counterpart of
+// tools/leaf_microbench.py) times the leaf bodies alone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -158,6 +168,12 @@ constexpr float kInv255 = 0x1.010102p-8f;
 constexpr float kQuarterPi = 0x1.921fb6p-1f;  // NEE: f32 of pi * 0.25
 
 enum { PLANE = 0, SPHERE = 1, CYLINDER = 2, BOX = 3, GROUP = 4 };
+// The mesh walks (render/megakernel.py WALK_CODES, LEAF_CODES): each
+// thread alone, or the warp-packet walks on the block's or the warp's
+// majority octant; the leaf tests on the SIMT cores, on the tensor cores,
+// or none
+enum { WALK_THREAD = 0, WALK_BLOCK = 1, WALK_WARP = 2 };
+enum { LEAF_SIMT = 0, LEAF_MMA = 1, LEAF_NONE = 2 };
 
 // ---- counter-hash PRNG (pallas_kernel.py:660-731) -------------------------
 
@@ -499,6 +515,9 @@ struct Params {
   // kNee only: the lights (meta.light_indices), in the JAX order
   int n_lights;
   int light_idx[kMaxObjects];
+  // LEAF_MMA only: the leaves' A fragments (render/megakernel.py
+  // mxu_fragments: [n_leaves, 6, ceil(K/8), 32] f32)
+  const float* __restrict__ mxu;
 };
 
 __device__ __forceinline__ void add_nonzero(float* a, float v) {
@@ -532,10 +551,51 @@ __device__ __forceinline__ float inv_safe(float d, float eps) {
   return fabsf(d) >= eps ? 1.0f / d : kBig;
 }
 
+// The dual-basis tests of one leaf's leaf_size triangle slots from s0
+// (pallas_kernel.py:1256-1331), one after the other with a strict `<`: a
+// slot hit below bt and t_max becomes the winner (its slot and
+// barycentrics) and the new bt, which is returned. The per-thread walk, the
+// warp-packet walk and the leaf microbenchmark (P3) share it.
+__device__ __forceinline__ float leaf_simt(const Params& p, int s0, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz, float bt,
+                                           int& slot, float& wu, float& wv) {
+  const float eps = p.eps;
+  for (int k = 0; k < p.leaf_size; ++k) {
+    const float* tr = p.tris + (size_t)(s0 + k) * kTriStride;
+    const float pxx = ox - __ldg(tr + 0);
+    const float pyy = oy - __ldg(tr + 1);
+    const float pzz = oz - __ldg(tr + 2);
+    const float ngx = __ldg(tr + 3), ngy = __ldg(tr + 4), ngz = __ldg(tr + 5);
+    const float den = dx * ngx + dy * ngy + dz * ngz;
+    const float num_t = -(pxx * ngx + pyy * ngy + pzz * ngz);
+    const bool den_ok = fabsf(den) >= eps;
+    const float f = 1.0f / (den_ok ? den : 1.0f);
+    const float t = num_t * f;
+    const float hx = pxx + t * dx;
+    const float hy = pyy + t * dy;
+    const float hz = pzz + t * dz;
+    const float u = hx * __ldg(tr + 6) + hy * __ldg(tr + 7) +
+                    hz * __ldg(tr + 8);
+    const float v = hx * __ldg(tr + 9) + hy * __ldg(tr + 10) +
+                    hz * __ldg(tr + 11);
+    if (den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > eps &&
+        t < bt && t < p.t_max) {
+      bt = t;
+      slot = s0 + k;
+      wu = u;
+      wv = v;
+    }
+  }
+  return bt;
+}
+
 // Skip-link walk of one group's nodes [root, end) in object space. `bt` is
 // the closest hit among the objects before this one; returns the closest
 // triangle hit below it (and below t_max), or `bt` unchanged. On a hit,
-// `slot` is the winning triangle slot and (u, v) its barycentrics.
+// `slot` is the winning triangle slot and (u, v) its barycentrics. kLeaf
+// LEAF_NONE walks the nodes alone (PT_ABLATE_LEAF=1: no triangle is hit).
+template <int kLeaf = LEAF_SIMT>
 __device__ __forceinline__ float walk_group(const Params& p, int root, int end,
                                          float ox, float oy, float oz,
                                          float dx, float dy, float dz,
@@ -567,39 +627,263 @@ __device__ __forceinline__ float walk_group(const Params& p, int root, int end,
                              fmaxf(az1, az2));
     const bool hit = (tmin <= tmax) && (tmax > eps) && (tmin < bt);
     if (hit && __ldg(nd + 7) > 0.5f) {
-      // leaf: dual-basis tests of its slots (pallas_kernel.py:1256-1331)
-      const int s0 = (int)__ldg(nd + 6);
-      for (int k = 0; k < p.leaf_size; ++k) {
-        const float* tr = p.tris + (size_t)(s0 + k) * kTriStride;
-        const float pxx = ox - __ldg(tr + 0);
-        const float pyy = oy - __ldg(tr + 1);
-        const float pzz = oz - __ldg(tr + 2);
-        const float ngx = __ldg(tr + 3), ngy = __ldg(tr + 4),
-                    ngz = __ldg(tr + 5);
-        const float den = dx * ngx + dy * ngy + dz * ngz;
-        const float num_t = -(pxx * ngx + pyy * ngy + pzz * ngz);
-        const bool den_ok = fabsf(den) >= eps;
-        const float f = 1.0f / (den_ok ? den : 1.0f);
-        const float t = num_t * f;
-        const float hx = pxx + t * dx;
-        const float hy = pyy + t * dy;
-        const float hz = pzz + t * dz;
-        const float u = hx * __ldg(tr + 6) + hy * __ldg(tr + 7) +
-                        hz * __ldg(tr + 8);
-        const float v = hx * __ldg(tr + 9) + hy * __ldg(tr + 10) +
-                        hz * __ldg(tr + 11);
-        if (den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > eps &&
-            t < bt && t < p.t_max) {
-          bt = t;
-          slot = s0 + k;
-          wu = u;
-          wv = v;
-        }
-      }
+      if constexpr (kLeaf == LEAF_SIMT)
+        bt = leaf_simt(p, (int)__ldg(nd + 6), ox, oy, oz, dx, dy, dz, bt,
+                       slot, wu, wv);
     }
     idx = hit ? idx + 1 : (int)__ldg(nd + 8);
   }
   return bt;
+}
+
+// ---- the warp-packet walks (pallas_kernel.py:1334-1900) --------------------
+//
+// The TPU walks one node pointer per (8, 512) tile, or per 128-lane chunk
+// (PT_SUBPACKET=3), because its vector unit has no per-lane control flow.
+// Here the 32 lanes of a warp share one: each lane runs the slab test
+// against its own running best t, the warp enters the node when any lane
+// hits it (__any_sync) and skips to its exit otherwise, and a leaf's tests
+// run only when some lane's slab hit it; a lane merges a leaf's winner
+// only where its own slab test hit the leaf (the `hb` mask of
+// _packet_traverse :1500). Inactive lanes carry best t = -kBig, which fails
+// every slab test and merge (_packet_traverse_gated :1596). A child box
+// lies inside its parent's, so each lane tests exactly the leaves its
+// per-thread walk would test, in the same order of the same octant copy:
+// with the same copy, the same hit bit for bit. The copy is the majority
+// octant of the group's active lanes (_group_octant_base :1238-1245):
+// WALK_BLOCK votes over the thread block (the TPU tile's counterpart;
+// PT_SUBPACKET=1 and 2, PT_TRAVERSAL=mxu), WALK_WARP over the warp (the
+// 128-lane chunk's; PT_SUBPACKET=3). Every lane of the group must call the
+// walk together: the megakernel keeps the lanes whose paths ended in its
+// bounce loop, inactive, until the group's last path ends.
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// Whether any thread of the group holds v.
+template <int kWalk>
+__device__ __forceinline__ bool group_any(bool v) {
+  if constexpr (kWalk == WALK_BLOCK) return __syncthreads_or(v);
+  return __any_sync(kFull, v);
+}
+
+// The group's octant: per axis, strictly more than half of the active
+// lanes negative.
+template <int kWalk>
+__device__ __forceinline__ int group_octant(bool act, float dx, float dy,
+                                            float dz) {
+  int n, cx, cy, cz;
+  if constexpr (kWalk == WALK_BLOCK) {
+    n = __syncthreads_count(act);
+    cx = __syncthreads_count(act && dx < 0.0f);
+    cy = __syncthreads_count(act && dy < 0.0f);
+    cz = __syncthreads_count(act && dz < 0.0f);
+  } else {
+    n = __popc(__ballot_sync(kFull, act));
+    cx = __popc(__ballot_sync(kFull, act && dx < 0.0f));
+    cy = __popc(__ballot_sync(kFull, act && dy < 0.0f));
+    cz = __popc(__ballot_sync(kFull, act && dz < 0.0f));
+  }
+  return (2 * cx > n) + 2 * (2 * cy > n) + 4 * (2 * cz > n);
+}
+
+// One m8n8k4 FP64 tensor-core product D = A B of one warp: A [8, 4] row
+// major with a0 = A[lane / 4][lane % 4], B [4, 8] column major with b0 =
+// B[lane % 4][lane / 4], D [8, 8] with d_i = D[lane / 4][2 (lane % 4) + i].
+__device__ __forceinline__ void dmma(double& d0, double& d1, double a,
+                                     double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%4, %5};\n"
+      : "=d"(d0), "=d"(d1)
+      : "d"(a), "d"(b), "d"(0.0), "d"(0.0));
+}
+
+// The warp's rays as B fragments, one per 8-ray column tile ct: this lane
+// holds component lane % 4 of ray ct * 8 + lane / 4 of q = [o, 1] (bo) and
+// of q = [d, 0] (bd).
+struct RayFrags {
+  double o[4], d[4];
+};
+
+__device__ __forceinline__ RayFrags ray_frags(float ox, float oy, float oz,
+                                              float dx, float dy, float dz) {
+  RayFrags q;
+  const int lane = threadIdx.x & 31, c = lane & 3;
+#pragma unroll
+  for (int ct = 0; ct < 4; ++ct) {
+    const int src = ct * 8 + (lane >> 2);
+    const float x = __shfl_sync(kFull, ox, src);
+    const float y = __shfl_sync(kFull, oy, src);
+    const float z = __shfl_sync(kFull, oz, src);
+    const float u = __shfl_sync(kFull, dx, src);
+    const float v = __shfl_sync(kFull, dy, src);
+    const float w = __shfl_sync(kFull, dz, src);
+    q.o[ct] = c == 0 ? x : c == 1 ? y : c == 2 ? z : 1.0f;
+    q.d[ct] = c == 0 ? u : c == 1 ? v : c == 2 ? w : 0.0f;
+  }
+  return q;
+}
+
+// The plane groups of an MXU block (den, num_t, ou, du, ov, dv) that read
+// the direction half of q; the others read the origin half.
+__device__ __forceinline__ bool d_half(int g) {
+  return g == 0 || g == 3 || g == 5;
+}
+
+// The six plane dots of the 8 triangles of tile kt of the leaf whose
+// fragments start at `a` (mxu_fragments' layout) against the 8 rays of
+// column tile ct: d[g][i] for the triangle kt * 8 + lane / 4 and the ray
+// ct * 8 + 2 (lane % 4) + i. Every product of two f32 is exact in f64; each
+// dot is rounded once, to f32, by the caller.
+__device__ __forceinline__ void plane_dots(const float* a, int nkt, int kt,
+                                           const RayFrags& q, int ct,
+                                           double (&d)[6][2]) {
+#pragma unroll
+  for (int g = 0; g < 6; ++g)
+    dmma(d[g][0], d[g][1], (double)__ldg(a + (g * nkt + kt) * 32),
+         d_half(g) ? q.d[ct] : q.o[ct]);
+}
+
+// The triangle test from a pair's six plane dots (_packet_traverse_mxu
+// :1799-1810): t = num_t / den as num_t * (1 / den), u = ou + t du,
+// v = ov + t dv; returns t, or kBig when the pair does not hit.
+__device__ __forceinline__ float pair_test(const double (&d)[6][2], int i,
+                                           float eps, float& u, float& v) {
+  const float den = (float)d[0][i], num_t = (float)d[1][i];
+  const bool den_ok = fabsf(den) >= eps;
+  const float f = 1.0f / (den_ok ? den : 1.0f);
+  const float t = num_t * f;
+  u = (float)d[2][i] + t * (float)d[3][i];
+  v = (float)d[4][i] + t * (float)d[5][i];
+  return (den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > eps)
+             ? t : kBig;
+}
+
+// The tensor-core leaf test (Kernel B, the counterpart of
+// _packet_traverse_mxu's leaf machine): one leaf's K triangles against the
+// warp's 32 rays, the plane dots by DMMA (plane_dots), then t, the
+// barycentrics and validity on the SIMT cores, the closest hit of each ray
+// (the lowest slot on ties) reduced over the lanes that hold its
+// triangles and handed to the ray's lane, which merges it where its own
+// slab test hit the leaf (`hit`). The whole warp calls it.
+__device__ __forceinline__ float leaf_mma(const Params& p, int s0,
+                                          const RayFrags& q, bool hit,
+                                          float bt, int& slot, float& wu,
+                                          float& wv) {
+  const int K = p.leaf_size, nkt = (K + 7) >> 3;
+  const int lane = threadIdx.x & 31;
+  const float* a = p.mxu + (size_t)(s0 / K) * 6 * nkt * 32 + lane;
+  float mt = kBig, mu = 0.0f, mv = 0.0f;
+  int mk = 0;
+  for (int ct = 0; ct < 4; ++ct) {
+    float bt2[2] = {kBig, kBig}, bu[2] = {0.f, 0.f}, bv[2] = {0.f, 0.f};
+    int bk[2] = {K, K};
+    for (int kt = 0; kt < nkt; ++kt) {
+      double d[6][2];
+      plane_dots(a, nkt, kt, q, ct, d);
+      const int k = kt * 8 + (lane >> 2);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float u, v;
+        const float t = pair_test(d, i, p.eps, u, v);
+        if (t < bt2[i]) {  // k grows with kt: the lowest slot on ties
+          bt2[i] = t;
+          bk[i] = k;
+          bu[i] = u;
+          bv[i] = v;
+        }
+      }
+    }
+    // (t, k)-lexicographic minimum over the 8 lanes of a column pair
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float ot = __shfl_xor_sync(kFull, bt2[i], off);
+        const int ok = __shfl_xor_sync(kFull, bk[i], off);
+        const float ou = __shfl_xor_sync(kFull, bu[i], off);
+        const float ov = __shfl_xor_sync(kFull, bv[i], off);
+        if (ot < bt2[i] || (ot == bt2[i] && ok < bk[i])) {
+          bt2[i] = ot;
+          bk[i] = ok;
+          bu[i] = ou;
+          bv[i] = ov;
+        }
+      }
+    }
+    // ray ct * 8 + 2 (lane % 4) + i: to its own lane
+    const int src = (lane & 7) >> 1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float t = __shfl_sync(kFull, bt2[i], src);
+      const int k = __shfl_sync(kFull, bk[i], src);
+      const float u = __shfl_sync(kFull, bu[i], src);
+      const float v = __shfl_sync(kFull, bv[i], src);
+      if ((lane >> 3) == ct && (lane & 1) == i) {
+        mt = t;
+        mk = k;
+        mu = u;
+        mv = v;
+      }
+    }
+  }
+  if (hit && mt < bt && mt < p.t_max) {
+    bt = mt;
+    slot = s0 + mk;
+    wu = mu;
+    wv = mv;
+  }
+  return bt;
+}
+
+// The warp-packet walk (Kernel A; with LEAF_MMA Kernel B's, with LEAF_NONE
+// the node walk alone) of one group's nodes [root, end): walk_group's
+// arguments and result, `active` false for a lane with no ray in it.
+template <int kWalk, int kLeaf>
+__device__ __forceinline__ float walk_packet(const Params& p, int root,
+                                             int end, bool active, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float bt,
+                                             int& slot, float& wu,
+                                             float& wv) {
+  const float eps = p.eps;
+  const float ivx = inv_safe(dx, eps);
+  const float ivy = inv_safe(dy, eps);
+  const float ivz = inv_safe(dz, eps);
+  int base = 0;
+  if (p.oct_nodes)
+    base = (1 + group_octant<kWalk>(active, dx, dy, dz)) * p.oct_nodes;
+  float lbt = active ? bt : -kBig;
+  int idx = (__any_sync(kFull, active) ? root : end) + base;
+  const int stop = end + base;
+  RayFrags q;
+  if constexpr (kLeaf == LEAF_MMA) q = ray_frags(ox, oy, oz, dx, dy, dz);
+  while (idx < stop) {  // idx is the warp's
+    const float* nd = p.nodes + (size_t)idx * kNodeCols;
+    const float ax1 = (__ldg(nd + 0) - ox) * ivx;
+    const float ax2 = (__ldg(nd + 3) - ox) * ivx;
+    const float ay1 = (__ldg(nd + 1) - oy) * ivy;
+    const float ay2 = (__ldg(nd + 4) - oy) * ivy;
+    const float az1 = (__ldg(nd + 2) - oz) * ivz;
+    const float az2 = (__ldg(nd + 5) - oz) * ivz;
+    const float tmin = fmaxf(fmaxf(fminf(ax1, ax2), fminf(ay1, ay2)),
+                             fminf(az1, az2));
+    const float tmax = fminf(fminf(fmaxf(ax1, ax2), fmaxf(ay1, ay2)),
+                             fmaxf(az1, az2));
+    const bool hit = (tmin <= tmax) && (tmax > eps) && (tmin < lbt);
+    const bool any = __any_sync(kFull, hit);
+    if (any && __ldg(nd + 7) > 0.5f) {
+      const int s0 = (int)__ldg(nd + 6);
+      if constexpr (kLeaf == LEAF_SIMT) {
+        if (hit)
+          lbt = leaf_simt(p, s0, ox, oy, oz, dx, dy, dz, lbt, slot, wu, wv);
+      } else if constexpr (kLeaf == LEAF_MMA) {
+        lbt = leaf_mma(p, s0, q, hit, lbt, slot, wu, wv);
+      }
+    }
+    idx = any ? idx + 1 : (int)__ldg(nd + 8);
+  }
+  return active ? lbt : bt;
 }
 
 // The nearest hit of a ray over the whole scene.
@@ -617,12 +901,15 @@ struct Hit {
 // strictly smaller t: the TPU kernels' unrolled object loop (the intersect
 // section of _make_kernel, the NEE shadow loop pallas_kernel.py:2452-2498,
 // _make_intersect_kernel :2741-2790). The bounce, the shadow rays and the
-// intersect-only kernel all call it; `s_obj` is the object table.
-template <bool kMesh>
+// intersect-only kernel all call it; `s_obj` is the object table. Under a
+// packet walk (kWalk) every lane of the group calls it together, `active`
+// false for a lane without a ray, which no walk then counts.
+template <bool kMesh, int kWalk = WALK_THREAD, int kLeaf = LEAF_SIMT>
 __device__ __forceinline__ Hit nearest_hit(const Params& p,
                                            const float* s_obj, float ox,
                                            float oy, float oz, float dx,
-                                           float dy, float dz) {
+                                           float dy, float dz,
+                                           bool active = true) {
   const float eps = p.eps;
   Hit h{kBig, -1, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1, 0.f, 0.f};
   for (int j = 0; j < p.n_obj; ++j) {
@@ -656,9 +943,20 @@ __device__ __forceinline__ Hit nearest_hit(const Params& p,
           axis_slab(toz, tdz, m[36], m[39], eps, z1, z2);
           const float gtmin = fmaxf(fmaxf(x1, y1), z1);
           const float gtmax = fminf(fminf(x2, y2), z2);
-          if (gtmin <= gtmax && gtmax > eps && gtmin < h.t) {
-            t = walk_group(p, p.group_root[j], p.group_end[j], tox, toy,
-                           toz, tdx, tdy, tdz, h.t, g_slot, g_u, g_v);
+          if constexpr (kWalk == WALK_THREAD) {
+            if (gtmin <= gtmax && gtmax > eps && gtmin < h.t) {
+              t = walk_group<kLeaf>(p, p.group_root[j], p.group_end[j], tox,
+                                    toy, toz, tdx, tdy, tdz, h.t, g_slot,
+                                    g_u, g_v);
+            }
+          } else {
+            // the whole group walks (its votes), each lane active where
+            // its pretest passes; an inactive lane gets h.t back
+            const bool pre = active && gtmin <= gtmax && gtmax > eps &&
+                             gtmin < h.t;
+            t = walk_packet<kWalk, kLeaf>(p, p.group_root[j], p.group_end[j],
+                                          pre, tox, toy, toz, tdx, tdy, tdz,
+                                          h.t, g_slot, g_u, g_v);
           }
         } else {
           // BOX, the last type a scene without groups has
@@ -685,10 +983,17 @@ __device__ __forceinline__ float acos_poly(float x) {
 }
 
 // kF32 (with kTex): fetch from the f32 texels, not the rgb8 pool.
-// kNee (forward only, not kF32): next-event estimation toward p.light_idx
+// kNee (forward only, not kF32): next-event estimation toward p.light_idx.
+// kWalk, kLeaf (forward and kMesh only): the mesh walk. Under a packet walk
+// (WALK_BLOCK, WALK_WARP) the group's lanes call nearest_hit together, so
+// the bounce loop runs until the group's last path ends (the TPU tile's
+// per-tile exit), a lane whose path ended riding along inactive (`live`
+// false: its sums no longer change), and every light's shadow walk is
+// called by every lane, active where the lane casts that shadow ray.
 template <bool kMesh, bool kGrad, bool kTex, bool kF32 = false,
-          bool kNee = false>
+          bool kNee = false, int kWalk = WALK_THREAD, int kLeaf = LEAF_SIMT>
 __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
+  constexpr bool kPacket = kWalk != WALK_THREAD;
   extern __shared__ float smem[];
   float* s_obj = smem;
   float* s_cam = s_obj + p.n_obj * kObjCols;
@@ -711,7 +1016,13 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   // kGrad launches whole blocks only, so no thread of it returns here and
   // every one reaches the barrier before the block's gradient flush
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= p.n_slots) return;
+  if constexpr (!kPacket) {
+    if (idx >= p.n_slots) return;
+  }
+  // kPacket: every thread stays for the group's votes; one past the last
+  // slot (its reads clamped to it) never goes live and writes nothing
+  const bool in_range = idx < p.n_slots;
+  const int sidx = kPacket ? min(idx, p.n_slots - 1) : idx;
   float cot_r = 0.f, cot_g = 0.f, cot_b = 0.f;
   if constexpr (kGrad) {
     cot_r = p.cot_r[idx];
@@ -736,8 +1047,8 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   }
   const float eps = p.eps;
 
-  const float fx = (float)p.px[idx];
-  const float fy = (float)p.py[idx];
+  const float fx = (float)p.px[sidx];
+  const float fy = (float)p.py[sidx];
   const float pixel_size = s_cam[12], half_w = s_cam[13], half_h = s_cam[14];
   const float aperture = s_cam[15], focal = s_cam[16];
   const float oxw = s_cam[3], oyw = s_cam[7], ozw = s_cam[11];
@@ -790,14 +1101,23 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
     int nb = 0;
     uint32_t upd_bits = 0u;
     bool direct = false;
+    bool live = in_range;  // kPacket: the path has not ended
     for (int b = 0; b < p.max_bounces; ++b) {
+      if constexpr (kPacket) {
+        if (!group_any<kWalk>(live)) break;
+      }
       // ---- intersect: nearest object -------------------------------------
-      const Hit hit = nearest_hit<kMesh>(p, s_obj, ox, oy, oz, dx, dy, dz);
+      const Hit hit = nearest_hit<kMesh, kWalk, kLeaf>(p, s_obj, ox, oy, oz,
+                                                       dx, dy, dz, live);
       // a miss ends the path with nothing added (every update is gated on
       // alive & hit_ok in the TPU kernel)
-      if (!(hit.t < p.t_max)) break;
+      if constexpr (kPacket) {
+        live = live && hit.t < p.t_max;
+      } else {
+        if (!(hit.t < p.t_max)) break;
+      }
       const float t = hit.t;
-      const int w = hit.w;
+      const int w = kPacket ? max(hit.w, 0) : hit.w;
       const int tri = hit.tri;  // winning triangle slot when a group wins
       const float tu = hit.tu, tv = hit.tv;
       const float* wm = s_obj + w * kObjCols;
@@ -985,16 +1305,21 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
           ++nb;
         }
       }
-      if (!do_refract) {
-        sr = sr + mask_r * emi_r;
-        sg = sg + mask_g * (on_tri ? 0.0f : wm[28]);
-        sb = sb + mask_b * (on_tri ? 0.0f : wm[29]);
+      // kPacket: every lane enters (the shadow walks' votes); `res` says
+      // whether this bounce resolves into the sums
+      if (kPacket || !do_refract) {
+        const bool res = !kPacket || (live && !do_refract);
+        if (res) {
+          sr = sr + mask_r * emi_r;
+          sg = sg + mask_g * (on_tri ? 0.0f : wm[28]);
+          sb = sb + mask_b * (on_tri ? 0.0f : wm[29]);
+        }
         if constexpr (kNee) {
           // ---- next-event estimation (pallas_kernel.py:2421-2513) -------
           // nee_cond: a surface hit that neither refracts nor is a light.
           // The estimator is the reference's: biased, since a BSDF ray
           // that hits a light is not discounted by the shadow test
-          if (!is_light) {
+          if (kPacket || !is_light) {
             const float cr = own_col ? tcr : wm[24];
             const float cg = own_col ? tcg : wm[25];
             const float cb = own_col ? tcb : wm[26];
@@ -1016,11 +1341,14 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
               const float ldn = dot3(sdx, sdy, sdz, nx, ny, nz);
               // a light behind the surface adds nothing whatever the
               // shadow ray hits: it is not cast
-              if (!(ldn > 0.0f)) continue;
-              const Hit s = nearest_hit<kMesh>(
+              if constexpr (!kPacket) {
+                if (!(ldn > 0.0f)) continue;
+              }
+              const bool cast = !kPacket || (res && !is_light && ldn > 0.0f);
+              const Hit s = nearest_hit<kMesh, kWalk, kLeaf>(
                   p, s_obj, wx + sdx * eps, wy + sdy * eps, wz + sdz * eps,
-                  sdx, sdy, sdz);
-              if (s.w == l && s.t > eps && s.t < p.t_max) {
+                  sdx, sdy, sdz, cast);
+              if (cast && s.w == l && s.t > eps && s.t < p.t_max) {
                 const float sxl = lm[44];
                 const float atten = 1.0f - s.t / sqrtf(s.t * s.t + sxl * sxl);
                 const float w_nee = ldn * atten;
@@ -1031,7 +1359,7 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
             }
           }
         }
-        if (is_light && n_hits == 0) {
+        if (res && is_light && n_hits == 0) {
           // a direct light hit returns the light's color (a textured
           // emitter's texel: the env-map sky sphere and cube)
           if constexpr (kTex) {
@@ -1042,7 +1370,7 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
             sr = wm[24]; sg = wm[25]; sb = wm[26];
           }
         }
-        if (!is_light) {
+        if (res && !is_light) {
           mask_r = mask_r * (own_col ? tcr : wm[24]) * cosw;
           mask_g = mask_g * (own_col ? tcg : wm[25]) * cosw;
           mask_b = mask_b * (own_col ? tcb : wm[26]) * cosw;
@@ -1057,7 +1385,11 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
       }
       dx = ndx; dy = ndy; dz = ndz;
       if (do_refract) inside = outside;
-      if (is_light || eff >= p.max_eff) break;
+      if constexpr (kPacket) {
+        live = live && !(is_light || eff >= p.max_eff);
+      } else {
+        if (is_light || eff >= p.max_eff) break;
+      }
     }
     if constexpr (kGrad) {
       // ---- this sample's backward pass (pallas_grad.py:806-939) --------
@@ -1139,6 +1471,9 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
     for (int i = threadIdx.x; i < p.n_obj * kGradCols; i += blockDim.x)
       add_nonzero(p.gobj + i, s_g[i]);
   } else {
+    if constexpr (kPacket) {
+      if (!in_range) return;
+    }
     p.out_r[idx] = acc_r;
     p.out_g[idx] = acc_g;
     p.out_b[idx] = acc_b;
@@ -1149,9 +1484,8 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
 // and launch the instantiation the scene needs (kMesh when it has a GROUP,
 // kTex when the caller passed a texel pool or f32 texels, kF32 for the
 // latter, kNee for next-event estimation).
-template <bool kGrad, bool kTex, bool kF32 = false, bool kNee = false>
-int launch(Params& p, const int* obj_types, const int* group_root,
-           const int* group_end, void* stream) {
+bool copy_objects(Params& p, const int* obj_types, const int* group_root,
+                  const int* group_end) {
   bool mesh = false;
   for (int i = 0; i < p.n_obj; ++i) {
     p.obj_types[i] = obj_types[i];
@@ -1159,6 +1493,13 @@ int launch(Params& p, const int* obj_types, const int* group_root,
     p.group_end[i] = group_end[i];
     mesh = mesh || obj_types[i] == GROUP;
   }
+  return mesh;
+}
+
+template <bool kGrad, bool kTex, bool kF32 = false, bool kNee = false>
+int launch(Params& p, const int* obj_types, const int* group_root,
+           const int* group_end, void* stream) {
+  const bool mesh = copy_objects(p, obj_types, group_root, group_end);
   const size_t smem =
       sizeof(float) * (size_t)(p.n_obj * (kObjCols + (kGrad ? kGradCols : 0) +
                                           (kTex ? kTexCols : 0)) +
@@ -1174,6 +1515,45 @@ int launch(Params& p, const int* obj_types, const int* group_root,
   }
   return (int)cudaGetLastError();
 }
+
+// Run f.run<kWalk, kLeaf>() for a mesh walk other than the per-thread walk
+// with SIMT leaves, by (walk, leaf) code: the ones the JAX package's knobs
+// select (render/megakernel.py mesh_walk).
+template <class F>
+int launch_walk(int walk, int leaf, const F& f) {
+  switch (walk * 3 + leaf) {
+    case WALK_THREAD * 3 + LEAF_NONE:
+      return f.template run<WALK_THREAD, LEAF_NONE>();
+    case WALK_BLOCK * 3 + LEAF_SIMT:
+      return f.template run<WALK_BLOCK, LEAF_SIMT>();
+    case WALK_BLOCK * 3 + LEAF_MMA:
+      return f.template run<WALK_BLOCK, LEAF_MMA>();
+    case WALK_BLOCK * 3 + LEAF_NONE:
+      return f.template run<WALK_BLOCK, LEAF_NONE>();
+    case WALK_WARP * 3 + LEAF_SIMT:
+      return f.template run<WALK_WARP, LEAF_SIMT>();
+    case WALK_WARP * 3 + LEAF_NONE:
+      return f.template run<WALK_WARP, LEAF_NONE>();
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The forward megakernel of a mesh scene on a walk of launch_walk.
+template <bool kTex, bool kNee>
+struct PacketLaunch {
+  const Params& p;
+  size_t smem;
+  cudaStream_t stream;
+  template <int kWalk, int kLeaf>
+  int run() const {
+    const int blocks = (p.n_slots + kThreads - 1) / kThreads;
+    if (blocks > 0)
+      megakernel<true, false, kTex, false, kNee, kWalk, kLeaf>
+          <<<blocks, kThreads, smem, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
+};
 
 // The intersect-only kernel's rays: six f32 [n] inputs, the f32 outputs
 // [14, n] (t, object-space origin xyz and direction xyz, the triangle flag,
@@ -1191,18 +1571,28 @@ struct Rays {
 };
 
 // One thread a ray: nearest_hit, then the outputs of
-// _make_intersect_kernel (pallas_kernel.py:2792-2806).
-template <bool kMesh>
+// _make_intersect_kernel (pallas_kernel.py:2792-2806). Under a packet walk
+// every thread of the block calls nearest_hit, one past the last ray
+// inactive.
+template <bool kMesh, int kWalk = WALK_THREAD, int kLeaf = LEAF_SIMT>
 __global__ void __launch_bounds__(kThreads) intersect(Params p, Rays r) {
+  constexpr bool kPacket = kWalk != WALK_THREAD;
   extern __shared__ float smem[];
   for (int i = threadIdx.x; i < p.n_obj * kObjCols; i += blockDim.x)
     smem[i] = p.obj[i];
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= r.n) return;
-  const float ray[6] = {r.ox[i], r.oy[i], r.oz[i], r.dx[i], r.dy[i], r.dz[i]};
-  const Hit h = nearest_hit<kMesh>(p, smem, ray[0], ray[1], ray[2], ray[3],
-                                   ray[4], ray[5]);
+  if constexpr (!kPacket) {
+    if (i >= r.n) return;
+  }
+  const int si = kPacket ? min(i, r.n - 1) : i;
+  const float ray[6] = {r.ox[si], r.oy[si], r.oz[si],
+                        r.dx[si], r.dy[si], r.dz[si]};
+  const Hit h = nearest_hit<kMesh, kWalk, kLeaf>(
+      p, smem, ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], i < r.n);
+  if constexpr (kPacket) {
+    if (i >= r.n) return;
+  }
   const bool miss = h.w < 0;
   float nrm[3] = {0.f, 0.f, 0.f}, col[3] = {0.f, 0.f, 0.f};
   const bool on_tri = kMesh && h.tri >= 0;
@@ -1233,6 +1623,184 @@ __global__ void __launch_bounds__(kThreads) intersect(Params p, Rays r) {
     o[(11 + k) * n] = col[k];
   }
   r.idx[i] = miss ? 0 : h.w;
+}
+
+// The intersect-only kernel on a walk of launch_walk.
+struct IntersectLaunch {
+  const Params& p;
+  const Rays& r;
+  size_t smem;
+  cudaStream_t stream;
+  template <int kWalk, int kLeaf>
+  int run() const {
+    const int blocks = (r.n + kThreads - 1) / kThreads;
+    if (blocks > 0)
+      intersect<true, kWalk, kLeaf><<<blocks, kThreads, smem, stream>>>(p, r);
+    return (int)cudaGetLastError();
+  }
+};
+
+// ---- the leaf microbenchmark (P3; tools/leaf_microbench.py) ----------------
+//
+// Each warp's 32 rays visit `visits` leaves back to back (visit v of warp w
+// tests leaf (v + w) % n_leaves), with no walk and every lane taking the
+// leaf as hit, through the leaf body of one variant; each ray's closest
+// hit over its visits is written (t, and an int that keeps the variant's
+// payload alive), so no visit can be optimised away. Variants, the JAX
+// harness's where their arithmetic differs on Hopper:
+//   BENCH_PROD      leaf_simt, the production body: the hit point form
+//                   (h = p + t d, u = h.U), (t, slot, u, v) selected in
+//                   order; JAX `nonormal` is this body (the normal is
+//                   interpolated once, after the walk, from the slot)
+//   BENCH_MMA       leaf_mma, the tensor-core body
+//   BENCH_BASE      u = p.U + t (d.U), the smooth normal selected in order
+//   BENCH_HITPOINT  the production arithmetic, the smooth normal selected
+//   BENCH_TREE      independent per-slot validity and normals, a pairwise
+//                   min-tree over each 8 slots, the 8-slot winners folded
+//                   in order; JAX `treec` is this (the color comes from
+//                   the slot after the walk on Hopper)
+//   BENCH_SYNTH     BENCH_BASE with the 24 coefficients synthesized from
+//                   the visit and slot numbers instead of loaded
+enum {
+  BENCH_PROD = 0, BENCH_MMA = 1, BENCH_BASE = 2, BENCH_HITPOINT = 3,
+  BENCH_TREE = 4, BENCH_SYNTH = 5
+};
+
+// One slot's test with the normal, for BENCH_BASE/HITPOINT/SYNTH/TREE:
+// returns t (kBig unless valid, and below bt when kChain) and the normal.
+template <bool kHitpoint, bool kChain>
+__device__ __forceinline__ float bench_slot(const float (&co)[24], float ox,
+                                            float oy, float oz, float dx,
+                                            float dy, float dz, float eps,
+                                            float bt, float& nx, float& ny,
+                                            float& nz) {
+  const float pxx = ox - co[0], pyy = oy - co[1], pzz = oz - co[2];
+  const float den = dx * co[3] + dy * co[4] + dz * co[5];
+  const float num_t = -(pxx * co[3] + pyy * co[4] + pzz * co[5]);
+  const bool den_ok = fabsf(den) >= eps;
+  const float f = 1.0f / (den_ok ? den : 1.0f);
+  const float t = num_t * f;
+  float u, v;
+  if constexpr (kHitpoint) {
+    const float hx = pxx + t * dx, hy = pyy + t * dy, hz = pzz + t * dz;
+    u = hx * co[6] + hy * co[7] + hz * co[8];
+    v = hx * co[9] + hy * co[10] + hz * co[11];
+  } else {
+    u = (pxx * co[6] + pyy * co[7] + pzz * co[8]) +
+        t * (dx * co[6] + dy * co[7] + dz * co[8]);
+    v = (pxx * co[9] + pyy * co[10] + pzz * co[11]) +
+        t * (dx * co[9] + dy * co[10] + dz * co[11]);
+  }
+  nx = co[12] + co[15] * u + co[18] * v;
+  ny = co[13] + co[16] * u + co[19] * v;
+  nz = co[14] + co[17] * u + co[20] * v;
+  const bool ok = den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+                  t > eps && (!kChain || t < bt);
+  return ok ? t : kBig;
+}
+
+template <int kVar>
+__global__ void __launch_bounds__(kThreads)
+    leaf_bench(Params p, Rays r, int visits, int n_leaves) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int si = min(i, r.n - 1);  // a warp's lanes stay to its end (mma)
+  const float ox = r.ox[si], oy = r.oy[si], oz = r.oz[si];
+  const float dx = r.dx[si], dy = r.dy[si], dz = r.dz[si];
+  const int warp = i >> 5, K = p.leaf_size;
+  float bt = kBig, wu = 0.0f, wv = 0.0f, nx = 0.0f, ny = 0.0f, nz = 0.0f;
+  int slot = -1;
+  RayFrags q;
+  if constexpr (kVar == BENCH_MMA) q = ray_frags(ox, oy, oz, dx, dy, dz);
+  for (int v = 0; v < visits; ++v) {
+    const int s0 = ((v + warp) % n_leaves) * K;
+    if constexpr (kVar == BENCH_PROD) {
+      bt = leaf_simt(p, s0, ox, oy, oz, dx, dy, dz, bt, slot, wu, wv);
+    } else if constexpr (kVar == BENCH_MMA) {
+      bt = leaf_mma(p, s0, q, true, bt, slot, wu, wv);
+    } else if constexpr (kVar == BENCH_TREE) {
+      for (int k0 = 0; k0 < K; k0 += 8) {
+        float ct[8], cx[8], cy[8], cz[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          float co[24];
+          const float* tr = p.tris + (size_t)(s0 + k0 + k) * kTriStride;
+#pragma unroll
+          for (int j = 0; j < 24; ++j) co[j] = __ldg(tr + j);
+          ct[k] = bench_slot<true, false>(co, ox, oy, oz, dx, dy, dz, p.eps,
+                                          bt, cx[k], cy[k], cz[k]);
+        }
+#pragma unroll
+        for (int w = 1; w < 8; w <<= 1) {
+#pragma unroll
+          for (int k = 0; k < 8; k += 2 * w) {
+            const bool take = ct[k + w] < ct[k];
+            ct[k] = fminf(ct[k], ct[k + w]);
+            cx[k] = take ? cx[k + w] : cx[k];
+            cy[k] = take ? cy[k + w] : cy[k];
+            cz[k] = take ? cz[k + w] : cz[k];
+          }
+        }
+        if (ct[0] < bt) {
+          bt = ct[0];
+          nx = cx[0];
+          ny = cy[0];
+          nz = cz[0];
+        }
+      }
+    } else {
+      const float fi = (float)(v % 7 + 1) * 0.1f;
+      for (int k = 0; k < K; ++k) {
+        float co[24];
+        const float* tr = p.tris + (size_t)(s0 + k) * kTriStride;
+#pragma unroll
+        for (int j = 0; j < 24; ++j)
+          co[j] = kVar == BENCH_SYNTH
+                      ? fi * (float)(((k & 3) * 24 + j + (k >> 2)) % 7 + 1)
+                      : __ldg(tr + j);
+        float cx, cy, cz;
+        const float t = bench_slot<kVar == BENCH_HITPOINT, true>(
+            co, ox, oy, oz, dx, dy, dz, p.eps, bt, cx, cy, cz);
+        if (t < bt) {
+          bt = t;
+          nx = cx;
+          ny = cy;
+          nz = cz;
+        }
+      }
+    }
+  }
+  if (i >= r.n) return;
+  r.out[i] = bt;
+  r.idx[i] = (kVar == BENCH_PROD || kVar == BENCH_MMA)
+                 ? slot : __float_as_int(nx + ny + nz);
+}
+
+// The pairs of the tensor-core leaf test: each warp's 32 rays against leaf
+// warp % n_leaves; out [n, K] gets every pair's t (kBig where the pair
+// does not hit), as leaf_mma computes it.
+__global__ void __launch_bounds__(kThreads)
+    mma_pairs(Params p, Rays r, int n_leaves) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int si = min(i, r.n - 1);
+  const RayFrags q = ray_frags(r.ox[si], r.oy[si], r.oz[si], r.dx[si],
+                               r.dy[si], r.dz[si]);
+  const int lane = threadIdx.x & 31, warp = i >> 5;
+  const int K = p.leaf_size, nkt = (K + 7) >> 3;
+  const float* a = p.mxu + (size_t)(warp % n_leaves) * 6 * nkt * 32 + lane;
+  for (int ct = 0; ct < 4; ++ct) {
+    for (int kt = 0; kt < nkt; ++kt) {
+      double d[6][2];
+      plane_dots(a, nkt, kt, q, ct, d);
+      const int k = kt * 8 + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float u, v;
+        const float t = pair_test(d, j, p.eps, u, v);
+        const int ray = warp * 32 + ct * 8 + 2 * (lane & 3) + j;
+        if (ray < r.n && k < K) r.out[(size_t)ray * K + k] = t;
+      }
+    }
+  }
 }
 
 // The texel-fetch probe: one thread per (u, v) calls the kernel's own
@@ -1484,4 +2052,144 @@ extern "C" int pt_grad_tex_launch(
            n_texels};
   return launch<true, true, true>(p, obj_types, group_root, group_end,
                                   stream);
+}
+
+// Launch the megakernel of a mesh scene on a packet walk, or on the
+// per-thread walk without leaf tests (walk, leaf: launch_walk's codes):
+// pt_megakernel_launch's arguments, then the rgb8 texel pool and texture
+// table of a textured scene (both null for a scene without textures), nee
+// (1: the kNee instantiation, with n_lights light indices light_idx, a
+// HOST array) and the MXU fragments (mxu_fragments' layout, on the device;
+// null unless leaf is LEAF_MMA). Returns as pt_megakernel_launch does.
+extern "C" int pt_megakernel_packet_launch(
+    float* out_r, float* out_g, float* out_b, const int* px, const int* py,
+    const float* obj, const int* obj_types, const float* cam,
+    const float* nodes, const float* tris, const int* group_root,
+    const int* group_end, int n_obj, int n_slots, int S, int L, int spp,
+    int spp_pack, int chunk_axis, uint32_t seed, int sample_base,
+    int max_bounces, int max_eff, int leaf_size, int oct_nodes, float eps,
+    float t_max, float sun_cut, float sun_den, float golden2, int coherent,
+    void* stream, const int* tex_pool, const float* tex_table, int nee,
+    int n_lights, const int* light_idx, const float* mxu, int walk,
+    int leaf) {
+  if (n_obj < 1 || n_obj > kMaxObjects || spp_pack < 1 || leaf_size < 1 ||
+      spp % spp_pack != 0 || (chunk_axis ? L % spp_pack : S % spp_pack) != 0 ||
+      (tex_pool == nullptr) != (tex_table == nullptr) || n_lights < 0 ||
+      n_lights > kMaxObjects || (n_lights > 0 && light_idx == nullptr) ||
+      (nee != 0 && nee != 1) || (nee == 0 && n_lights != 0) ||
+      (leaf == LEAF_MMA) != (mxu != nullptr))
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_lights; ++i)
+    if (light_idx[i] < 0 || light_idx[i] >= n_obj)
+      return (int)cudaErrorInvalidValue;
+  Params p{out_r, out_g, out_b, px, py, obj, cam, nodes, tris,
+           n_obj, n_slots, S, L, spp / spp_pack, spp_pack, chunk_axis, seed,
+           sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
+           eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
+           nullptr, nullptr, nullptr, nullptr, nullptr, tex_pool, tex_table};
+  p.n_lights = n_lights;
+  for (int i = 0; i < n_lights; ++i) p.light_idx[i] = light_idx[i];
+  p.mxu = mxu;
+  if (!copy_objects(p, obj_types, group_root, group_end))
+    return (int)cudaErrorInvalidValue;  // the walks are for meshes
+  const bool tex = tex_pool != nullptr;
+  const size_t smem = sizeof(float) *
+      (size_t)(n_obj * (kObjCols + (tex ? kTexCols : 0)) + kCamCols);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tex && nee)
+    return launch_walk(walk, leaf, PacketLaunch<true, true>{p, smem, s});
+  if (tex)
+    return launch_walk(walk, leaf, PacketLaunch<true, false>{p, smem, s});
+  if (nee)
+    return launch_walk(walk, leaf, PacketLaunch<false, true>{p, smem, s});
+  return launch_walk(walk, leaf, PacketLaunch<false, false>{p, smem, s});
+}
+
+// Launch the intersect-only kernel of a mesh scene on a walk of
+// launch_walk: pt_intersect_launch's arguments, then the MXU fragments
+// (null unless leaf is LEAF_MMA) and the walk and leaf codes.
+extern "C" int pt_intersect_packet_launch(
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, float* out, int* idx, int n,
+    const float* obj, const int* obj_types, const float* nodes,
+    const float* tris, const int* group_root, const int* group_end,
+    int n_obj, int leaf_size, int oct_nodes, float eps, float t_max,
+    void* stream, const float* mxu, int walk, int leaf) {
+  if (n_obj < 1 || n_obj > kMaxObjects || leaf_size < 1 || n < 0 ||
+      (leaf == LEAF_MMA) != (mxu != nullptr))
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.obj = obj;
+  p.nodes = nodes;
+  p.tris = tris;
+  p.n_obj = n_obj;
+  p.leaf_size = leaf_size;
+  p.oct_nodes = oct_nodes;
+  p.eps = eps;
+  p.t_max = t_max;
+  p.mxu = mxu;
+  if (!copy_objects(p, obj_types, group_root, group_end))
+    return (int)cudaErrorInvalidValue;
+  const Rays r{ox, oy, oz, dx, dy, dz, out, idx, n};
+  return launch_walk(walk, leaf,
+                     IntersectLaunch{p, r, sizeof(float) * (size_t)(n_obj *
+                                                                kObjCols),
+                                     (cudaStream_t)stream});
+}
+
+// Launch the leaf microbenchmark (variant < 6: leaf_bench's BENCH_*) or
+// the tensor-core pairs (variant 6: mma_pairs, out [n, leaf_size]) on n
+// rays (ox..dz, f32 [n]), over the n_leaves leaves of leaf_size slots of
+// the triangle table tris (and their MXU fragments mxu, for the
+// tensor-core variants): out f32 [n] the closest t over the visits, idx
+// i32 [n] the winning slot (-1 for none; the payload's bits for the
+// normal-tracking variants). Returns as pt_megakernel_launch does.
+extern "C" int pt_leaf_bench_launch(
+    const float* ox, const float* oy, const float* oz, const float* dx,
+    const float* dy, const float* dz, float* out, int* idx, int n,
+    int visits, const float* tris, const float* mxu, int leaf_size,
+    int n_leaves, float eps, float t_max, int variant, void* stream) {
+  if (n < 1 || visits < 1 || leaf_size < 1 || n_leaves < 1 ||
+      tris == nullptr || variant < 0 || variant > 6 ||
+      ((variant == BENCH_MMA || variant == 6) && mxu == nullptr) ||
+      (variant == BENCH_TREE && leaf_size % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.tris = tris;
+  p.mxu = mxu;
+  p.leaf_size = leaf_size;
+  p.eps = eps;
+  p.t_max = t_max;
+  const Rays r{ox, oy, oz, dx, dy, dz, out, idx, n};
+  const int blocks = (n + kThreads - 1) / kThreads;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (variant) {
+    case BENCH_PROD:
+      leaf_bench<BENCH_PROD><<<blocks, kThreads, 0, s>>>(p, r, visits,
+                                                          n_leaves);
+      break;
+    case BENCH_MMA:
+      leaf_bench<BENCH_MMA><<<blocks, kThreads, 0, s>>>(p, r, visits,
+                                                         n_leaves);
+      break;
+    case BENCH_BASE:
+      leaf_bench<BENCH_BASE><<<blocks, kThreads, 0, s>>>(p, r, visits,
+                                                          n_leaves);
+      break;
+    case BENCH_HITPOINT:
+      leaf_bench<BENCH_HITPOINT><<<blocks, kThreads, 0, s>>>(p, r, visits,
+                                                              n_leaves);
+      break;
+    case BENCH_TREE:
+      leaf_bench<BENCH_TREE><<<blocks, kThreads, 0, s>>>(p, r, visits,
+                                                          n_leaves);
+      break;
+    case BENCH_SYNTH:
+      leaf_bench<BENCH_SYNTH><<<blocks, kThreads, 0, s>>>(p, r, visits,
+                                                           n_leaves);
+      break;
+    default:
+      mma_pairs<<<blocks, kThreads, 0, s>>>(p, r, n_leaves);
+  }
+  return (int)cudaGetLastError();
 }

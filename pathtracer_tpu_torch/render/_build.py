@@ -42,28 +42,48 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library for this source and these
-    flags exists. Returns the library path; the compiler's output (with
-    ptxas register and spill counts) is kept beside it as <lib>.log."""
+def _target(name: str) -> Path:
+    """The library path of csrc/<name>.cu for its source and the flags."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {src} (rc={proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names) -> list:
+    """Compile csrc/<name>.cu for each name whose library for this source
+    and these flags does not exist yet, one nvcc each, all started
+    together. Returns the library paths; the compiler's output (with ptxas
+    register and spill counts) is kept beside each as <lib>.log."""
+    libs = [_target(n) for n in names]
+    jobs = []
+    for name, lib in zip(names, libs):
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
+        src = CSRC / f"{name}.cu"
+        jobs.append((src, lib, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for src, lib, tmp, proc in jobs:
+        out, err = proc.communicate()
+        lib.with_suffix(".log").write_text(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src} (rc={proc.returncode}):\n"
+                          f"{out}{err}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless a library for this source and these
+    flags exists (build_all of one). Returns the library path."""
+    return build_all([name])[0]
 
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:

@@ -44,7 +44,6 @@ import torch
 
 from ..config import RenderConfig
 from ..scene.pack import SceneMeta, staged_objects
-from . import _build
 from . import megakernel as mk
 
 _TRI_MODES = ("onehot", "tape")
@@ -108,7 +107,7 @@ def _check_diff_scene(meta: SceneMeta, cfg: RenderConfig,
             "the JAX package stages, e.g. textures-train); procedural "
             "textures are programs, not parameters")
     if meta.has_groups:
-        mk._check_mesh_knobs()   # non-classic walks: K1-mesh variants row
+        mk._check_mesh_knobs()   # the per-thread walk only
 
 
 def _check_grad_args(seed, cam_vec, obj_table, node_table, tri_table, px,
@@ -302,7 +301,7 @@ def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     if cfg.max_bounces > _MAX_TAPE:
         raise ValueError(f"max_bounces={cfg.max_bounces}; the gradient "
                          f"kernel's tape holds {_MAX_TAPE}")
-    lib = _build.load("megakernel", mk._SIGNATURES)
+    lib = mk.library()
     S, L = tile
     dev = px.device
     gobj = torch.zeros((n_obj, _GRAD_COLS), dtype=torch.float32, device=dev)

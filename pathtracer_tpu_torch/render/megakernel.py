@@ -31,7 +31,12 @@ Meshes: the JAX kernel walks the skip-link BVH with one node pointer per
 node copy of its own direction octant. A child box lies inside its
 parent's, so the per-ray walk tests exactly the leaves the packet walk
 tests for that ray; only the order differs, which changes the result only
-on exact-t ties between two triangles.
+on exact-t ties between two triangles. The JAX package's walk knobs select
+the kernel's warp-packet walks instead (`mesh_walk`: the 32 lanes of a
+warp share one node pointer, on the octant copy of the block's or the
+warp's majority), with the dual-basis leaf tests, the six plane dots on
+the tensor cores (PT_TRAVERSAL=mxu, `mxu_plane_arrays`) or no leaf tests
+(PT_ABLATE_LEAF=1).
 
 `trace_tiles` launches `csrc/megakernel.cu` for CUDA tensors and runs
 `trace_tiles_reference`, the plain vectorised version, for CPU tensors.
@@ -85,13 +90,19 @@ _NODE_COLS = 16
 #   +12-14 n1, +15-17 d21 (= n2-n1), +18-20 d31 (= n3-n1), +21-23 color
 _TRI_SLOTS_PER_ROW = 4
 _TRI_STRIDE = 24
+# Under MXU leaves (PT_TRAVERSAL=mxu) the triangle table carries, after its
+# ceil(Ns/4) rows, the leaves' A blocks in the layout of mxu_fragments
+# ([n_leaves, 6, ceil(K/8), 32] f32: one m8n8k4 DMMA A fragment per plane
+# group and 8-triangle tile, only the half of q = [o, 1, d, 0] that the
+# group reads), flat and zero-padded to whole rows (_mxu_rows); the
+# payload (normals, color) stays in the slots above.
 
 _BIG = 1e30
 _INV24 = float(2.0 ** -24)
 _M32 = 0xFFFFFFFF
 
-_MESH_VARIANT_ITEM = ("ROADMAP queue 2, row K1-mesh variants (the TPU "
-                      "sub-packet gating and MXU leaf machine)")
+_MESH_VARIANT_ITEM = ("ROADMAP queue 1, item 17 (the packet walks in the "
+                      "gradient kernel)")
 
 
 # Texture-table column layout (per object row), [No, _TEX_COLS] f32:
@@ -131,16 +142,151 @@ def build_scene_table(scn: SceneArrays, meta: SceneMeta) -> np.ndarray:
     return out
 
 
+class Walk(NamedTuple):
+    """A mesh walk of the kernel: `walk` is "thread" (each thread walks
+    its own ray on its own octant copy), "block" (the 32 lanes of a warp
+    share one node pointer, on the octant copy of the thread block's
+    majority) or "warp" (the same, on the warp's majority); `leaf` is
+    "simt" (the dual-basis tests, a lane per ray), "mma" (the six plane
+    dots of a leaf's triangles against the warp's 32 rays on the tensor
+    cores) or "none" (the node walk alone: no triangle is ever hit)."""
+    walk: str = "thread"
+    leaf: str = "simt"
+
+
+WALK_CODES = {"thread": 0, "block": 1, "warp": 2}
+LEAF_CODES = {"simt": 0, "mma": 1, "none": 2}
+
+
+def mesh_walk() -> Walk:
+    """The walk the JAX package's knobs select (its _packet_traverse
+    :1395-1406, the per-chunk walks :1992-2008 and traversal_mode :227):
+    PT_SUBPACKET=1 or 2 (one gated walk over the tile there) -> "block";
+    =3 (an independent walk per 128-lane chunk) -> "warp";
+    PT_TRAVERSAL=mxu -> "block" with "mma" leaves, whatever PT_SUBPACKET
+    says (as there); PT_ABLATE_LEAF=1 -> "none" leaves on the walk the
+    others select (the MXU walk has no ablation, as there). Unset: the
+    per-thread walk. PT_SUBPACKET=1 and =2 are aliases here: the JAX
+    package's two gatings (lax.cond, scratch) are one per-warp gate on the
+    card.
+
+    The packet walks and the tensor-core leaves measured slower than the
+    per-thread walk on every workload timed so far (PERF.md §6); they are
+    kept as the ported counterparts of the JAX package's walks and as
+    measurement tools (ROADMAP queue 1, R2)."""
+    if os.environ.get("PT_TRAVERSAL") == "mxu":
+        return Walk("block", "mma")
+    sp = os.environ.get("PT_SUBPACKET", "")
+    walk = {"1": "block", "2": "block", "3": "warp"}.get(sp, "thread")
+    leaf = "none" if os.environ.get("PT_ABLATE_LEAF") == "1" else "simt"
+    return Walk(walk, leaf)
+
+
+def scene_walk(meta: SceneMeta) -> Walk:
+    """The walk a launch on the scene takes: mesh_walk() for a scene with
+    meshes, the per-thread walk (the primitives' kernel) otherwise. Read
+    once a call, and handed to the table check and the launch."""
+    return mesh_walk() if meta.has_groups else Walk()
+
+
+_WARP = 32       # lanes of a warp: the packet of the "block"/"warp" walks
+_BLOCK = 128     # threads of a block (kThreads of csrc/megakernel.cu)
+
+
+def walk_groups(n: int, walk: Walk, device=None):
+    """(octant group, packet) ids of n consecutive slots or rays under
+    `walk`, as the kernel forms them: the thread block's 128 slots, or
+    the warp's 32, share an octant copy; a warp's 32 share a node pointer.
+    (None, None) for the per-thread walk."""
+    if walk.walk == "thread":
+        return None, None
+    i = torch.arange(n, device=device)
+    return i // (_BLOCK if walk.walk == "block" else _WARP), i // _WARP
+
+
 def _check_mesh_knobs() -> None:
-    """The JAX package's TPU-only mesh-walk variants are not ported; each
-    raises rather than being ignored."""
+    """The gradient kernel's check: it replays the per-thread walk only, so
+    the knobs of the other walks raise there rather than being ignored
+    (MXU leaves as the JAX package's differentiable kernel refuses them,
+    pallas_grad.py:1151)."""
+    if os.environ.get("PT_TRAVERSAL") == "mxu":
+        raise NotImplementedError(
+            "differentiable megakernel replay is classic-traversal only "
+            "(tables are classic layout); unset PT_TRAVERSAL")
     for var, bad in (("PT_SUBPACKET", ("1", "2", "3")),
-                     ("PT_TRAVERSAL", ("mxu",)),
                      ("PT_ABLATE_LEAF", ("1",))):
         v = os.environ.get(var, "")
         if v in bad:
             raise NotImplementedError(
-                f"{var}={v} is not ported yet: {_MESH_VARIANT_ITEM}")
+                f"{var}={v} in the gradient kernel is not ported yet: "
+                f"{_MESH_VARIANT_ITEM}")
+
+
+def mxu_plane_arrays(scn: SceneArrays, meta: SceneMeta
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """The per-leaf blocks of the JAX package's MXU leaf machine
+    (pallas_kernel._mxu_plane_arrays :247, in numpy f32 with its
+    operations): a [n_leaves, 6K, 8] f32, the six plane rows of each of a
+    leaf's K triangles against q = [o, 1, d, 0] (groups den, num_t, ou,
+    du, ov, dv of K rows each), and pay [n_leaves, 16, K] f32 (n1, n2-n1,
+    n3-n1, color, 4 zero rows). The kernel reads `a` in the layout of
+    mxu_fragments; pay holds the classic table's payload columns."""
+    K = meta.leaf_size
+    f = lambda a: np.asarray(_np(a), dtype=np.float32)  # noqa: E731
+    p1, e1, e2 = f(scn.tri_p1), f(scn.tri_e1), f(scn.tri_e2)
+    n1, n2, n3, color = (f(scn.tri_n1), f(scn.tri_n2), f(scn.tri_n3),
+                         f(scn.tri_color))
+    ns = p1.shape[0]
+    if ns % K:
+        raise ValueError(f"{ns} triangle slots are not whole leaves of {K}")
+    nl = ns // K
+    ng = np.cross(e1, e2)
+    l2 = (ng * ng).sum(axis=1, keepdims=True)
+    safe = np.where(l2 > 0.0, l2, 1.0)
+    uu = np.where(l2 > 0.0, np.cross(e2, ng) / safe, np.zeros_like(ng))
+    vv = np.where(l2 > 0.0, np.cross(ng, e1) / safe, np.zeros_like(ng))
+    z1 = np.zeros((ns, 1), dtype=np.float32)
+    z4 = np.zeros((ns, 4), dtype=np.float32)
+
+    def odot(vec):  # -(o-P1).vec as [vec, +P1.vec] on q[0:4]
+        return np.concatenate(
+            [vec, -(p1 * vec).sum(axis=1, keepdims=True), z4], axis=1)
+
+    def ddot(vec):  # d.vec on q[4:7]
+        return np.concatenate([z4, vec, z1], axis=1)
+
+    groups = [ddot(ng),
+              np.concatenate([-ng, (p1 * ng).sum(axis=1, keepdims=True), z4],
+                             axis=1),
+              odot(uu), ddot(uu), odot(vv), ddot(vv)]
+    a = np.stack(groups, axis=1)                              # [Ns, 6, 8]
+    a = a.reshape(nl, K, 6, 8).transpose(0, 2, 1, 3).reshape(nl, 6 * K, 8)
+    pay = np.concatenate([n1, n2 - n1, n3 - n1, color], axis=1)
+    pay = pay.reshape(nl, K, 12).transpose(0, 2, 1)
+    pay = np.concatenate([pay, np.zeros((nl, 4, K), dtype=np.float32)],
+                         axis=1)
+    return a, pay
+
+
+# The six plane groups of an MXU block, in order: which half of q = [o, 1,
+# d, 0] each one reads (1: the direction half, 0: the origin half)
+_MXU_D_HALF = (1, 0, 0, 1, 0, 1)
+
+
+def mxu_fragments(a: np.ndarray) -> np.ndarray:
+    """The kernel's layout of the MXU blocks `a` [n_leaves, 6K, 8]: [n_leaves,
+    6, ceil(K/8), 32] f32, entry [b, g, kt, lane] = a[b, g*K + 8*kt +
+    lane//4, 4*h + lane%4] with h the half of q that group g reads (its
+    other half is zero), 0 past the K rows. Each [g, kt] run of 32 floats is
+    the A fragment of one m8n8k4 DMMA (row lane//4, column lane%4), so a
+    warp loads it in one 128-byte transaction and skips the zero half."""
+    nl, six_k, _ = a.shape
+    K = six_k // 6
+    kt = -(-K // 8)
+    rows = np.zeros((nl, 6, kt * 8, 4), dtype=np.float32)
+    for g, h in enumerate(_MXU_D_HALF):
+        rows[:, g, :K] = a[:, g * K:(g + 1) * K, 4 * h:4 * h + 4]
+    return np.ascontiguousarray(rows.reshape(nl, 6, kt, 32))
 
 
 def build_mesh_tables(scn: SceneArrays, meta: SceneMeta,
@@ -151,18 +297,17 @@ def build_mesh_tables(scn: SceneArrays, meta: SceneMeta,
     copies when the scene has octant orders). tris: [ceil(Ns/4), 96] f32,
     4 triangle slots per row. Indices are stored as f32 (pool sizes
     < 2^24, exact). Scenes without meshes get one zero row of each.
-    traversal="mxu" (or PT_TRAVERSAL=mxu) raises: the MXU leaf layout is
-    a TPU variant that is not ported."""
+    Every walk reads these; the MXU leaves read mxu_fragments beside them
+    (traversal is accepted for the JAX package's signature: "classic" or
+    "mxu" build the same tables)."""
     if not meta.has_groups:
         return (np.zeros((1, _NODE_COLS), dtype=np.float32),
                 np.zeros((1, _TRI_SLOTS_PER_ROW * _TRI_STRIDE),
                          dtype=np.float32))
+    if traversal not in (None, "classic", "mxu"):
+        raise ValueError(f"traversal {traversal!r} is not classic or mxu")
     if traversal is None:
-        traversal = ("mxu" if os.environ.get("PT_TRAVERSAL") == "mxu"
-                     else "classic")
-    if traversal != "classic":
-        raise NotImplementedError(
-            f"traversal={traversal!r} is not ported yet: {_MESH_VARIANT_ITEM}")
+        traversal = "mxu" if mesh_walk().leaf == "mma" else "classic"
     nn = int(_np(scn.node_bb_min).shape[0])
     nodes = np.zeros((nn, _NODE_COLS), dtype=np.float32)
     nodes[:, 0:3] = _np(scn.node_bb_min)
@@ -192,7 +337,12 @@ def build_mesh_tables(scn: SceneArrays, meta: SceneMeta,
                     dtype=np.float32)
     flat[:ns] = np.concatenate(
         [np.asarray(f, dtype=np.float32) for f in fields], axis=1)
-    return nodes, flat.reshape(rows, _TRI_SLOTS_PER_ROW * _TRI_STRIDE)
+    tris = flat.reshape(rows, _TRI_SLOTS_PER_ROW * _TRI_STRIDE)
+    if traversal == "mxu":
+        frag = mxu_fragments(mxu_plane_arrays(scn, meta)[0]).reshape(-1)
+        frag = np.pad(frag, (0, _mxu_rows(meta) * tris.shape[1] - frag.size))
+        tris = np.concatenate([tris, frag.reshape(-1, tris.shape[1])])
+    return nodes, tris
 
 
 def textures_computable(meta: SceneMeta) -> bool:
@@ -315,6 +465,39 @@ def default_pack(meta: SceneMeta, spp: int = None) -> int:
     return max(1, pack)
 
 
+_ORDERS = ("linear", "block", "subblock", "rowblock")
+
+
+def _grid(n: int) -> Tuple[int, int]:
+    """(gx, gy) with gx * gy = n and gx the largest divisor <= sqrt(n)."""
+    gx = int(math.isqrt(n))
+    while n % gx:
+        gx -= 1
+    return gx, n // gx
+
+
+def _block_slot_xy(order: str, i, S: int, L: int, bw: int, bh: int):
+    """The (x, y) inside its bw x bh block of slot i of an (S, L) tile
+    (pallas_kernel.tile_pixel_layout :548-584): scanline in the block for
+    "block"; under "rowblock" tile row s is one compact (bw/gx) x (bh/gy)
+    rect of a gx x gy grid; under "subblock" the 128-lane chunk j of the
+    tile (its S rows) is one compact sub-block of a grid over the L/128
+    chunks. A tile of one row, or of one chunk, keeps the block order."""
+    nc = L // 128 if (L % 128 == 0 and L > 128) else 1
+    s, l = i // L, i % L
+    if order == "rowblock" and S > 1:
+        gx, gy = _grid(S)
+        rw, rh = bw // gx, bh // gy       # rw * rh == L
+        return (s % gx) * rw + l % rw, (s // gx) * rh + l // rw
+    if order == "subblock" and nc > 1:
+        j, m = l // 128, l % 128
+        p = s * 128 + m                   # [0, S*128): the sub-block
+        gx, gy = _grid(nc)
+        sbw = bw // gx                    # sbw * (bh / gy) == S * 128
+        return (j % gx) * sbw + p % sbw, (j // gx) * (bh // gy) + p // sbw
+    return i % bw, i // bw
+
+
 def tile_pixel_layout(W: int, H: int, S: int, L: int,
                       shard_granule: int = 1, order: str = None,
                       spp_pack: int = 1, pack_axis: str = "row"):
@@ -330,13 +513,16 @@ def tile_pixel_layout(W: int, H: int, S: int, L: int,
     of S*L/s pixels, repeated across s sublane-row groups
     (pack_axis="row") or across s lane-chunk groups of L/s lanes, a
     multiple of 128 (pack_axis="chunk"). Replicated slots share the pixel
-    id, so untile_image sums them. The "subblock"/"rowblock" orders serve
-    the TPU's sub-packet gating and MXU leaf machine and raise."""
+    id, so untile_image sums them. "subblock" permutes a block's slots so
+    that each 128-lane chunk of a tile row set is a compact sub-block, and
+    "rowblock" so that each tile row is a compact sub-rectangle (the orders
+    of the JAX package's sub-packet gating and MXU leaf machine); on the
+    card they only number the slots, which fixes the random stream and the
+    checkpoint layout."""
     if order is None:
         order = os.environ.get("PT_TILE_ORDER", "block")
-    if order not in ("linear", "block"):
-        raise NotImplementedError(
-            f"tile order {order!r} is not ported yet: {_MESH_VARIANT_ITEM}")
+    if order not in _ORDERS:
+        raise ValueError(f"tile order {order!r} is not one of {_ORDERS}")
     if spp_pack > 1 and pack_axis == "chunk":
         if L % spp_pack or (L // spp_pack) % 128:
             raise ValueError(
@@ -380,7 +566,7 @@ def tile_pixel_layout(W: int, H: int, S: int, L: int,
         return xs, ys, pid
     tile_sz = S * L
     n_pix = W * H
-    if order == "block":
+    if order != "linear":
         side = int(math.isqrt(tile_sz))
         while tile_sz % side:
             side -= 1
@@ -390,8 +576,9 @@ def tile_pixel_layout(W: int, H: int, S: int, L: int,
         k = np.arange(nbx * nby * tile_sz)
         b = k // tile_sz                  # block id
         i = k % tile_sz                   # slot within block
-        x = (b % nbx) * bw + i % bw
-        y = (b // nbx) * bh + i // bw
+        ix, iy = _block_slot_xy(order, i, S, L, bw, bh)
+        x = (b % nbx) * bw + ix
+        y = (b // nbx) * bh + iy
         valid = (x < W) & (y < H)
         pid = np.where(valid, y * W + x, -1)
         xs = np.minimum(x, W - 1).astype(np.int32)
@@ -799,7 +986,7 @@ def _inv_safe(td, eps):
     return torch.where(ok, 1.0 / torch.where(ok, td, 1.0), _BIG)
 
 
-def _leaf_tests(tri, start, leaf_size, eps, ox, oy, oz, dx, dy, dz):
+def leaf_tests(tri, start, leaf_size, eps, ox, oy, oz, dx, dy, dz):
     """Dual-basis tests of the leaf_size slots from `start` for each ray
     (pallas_kernel._leaf_tests). Returns (tw, slot, u, v): the closest
     valid t per ray (_BIG when none), its slot (the lowest on ties, as
@@ -835,28 +1022,118 @@ def _leaf_tests(tri, start, leaf_size, eps, ox, oy, oz, dx, dy, dz):
             v.gather(1, pick).squeeze(1))
 
 
+def leaf_tests_mma(frag, start, leaf_size, eps, ox, oy, oz, dx, dy, dz,
+                    pairs: bool = False):
+    """The tensor-core leaf test of the kernel (leaf_mma), plain: the six
+    plane dots of each of the leaf's K triangles (its MXU blocks `frag`,
+    mxu_view) against q = [o, 1, d, 0], products and sums in f64 and each
+    dot rounded once to f32 (the DMMA's exact products); then, in f32, t =
+    num_t * (1 / den), u = ou + t du, v = ov + t dv (the JAX package's
+    _packet_traverse_mxu :1799-1803) and leaf_tests' validity and winner
+    (the lowest slot on ties). Returns (tw, slot, u, v) as leaf_tests;
+    with `pairs`, every ray x triangle t instead ([B, K], _BIG where the
+    pair does not hit)."""
+    K = leaf_size
+    blk = frag[start // K][:, :, :K].double()         # [B, 6, K, 4]
+    o = torch.stack([ox, oy, oz, torch.ones_like(ox)], 1).double()
+    d = torch.stack([dx, dy, dz, torch.zeros_like(dx)], 1).double()
+
+    def dot(g, q):
+        c = blk[:, g]
+        return (((c[..., 0] * q[:, None, 0] + c[..., 1] * q[:, None, 1])
+                 + c[..., 2] * q[:, None, 2]) + c[..., 3] * q[:, None, 3]
+                ).float()
+
+    den, num_t, ou, du, ov, dv = (dot(g, d if h else o)
+                                  for g, h in enumerate(_MXU_D_HALF))
+    den_ok = torch.abs(den) >= eps
+    t = num_t * (1.0 / torch.where(den_ok, den, 1.0))
+    u = ou + t * du
+    v = ov + t * dv
+    valid = den_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > eps)
+    tv = torch.where(valid, t, _BIG)
+    if pairs:
+        return tv
+    tw = tv.min(dim=1).values
+    ar = torch.arange(K, device=start.device)
+    k = torch.where(tv == tw[:, None], ar, K).min(dim=1).values
+    pick = k[:, None]
+    return (tw, start + k, u.gather(1, pick).squeeze(1),
+            v.gather(1, pick).squeeze(1))
+
+
+def _slab_hit(nd, ray, bt, eps):
+    """The slab test of each ray against its node row nd (the kernel's,
+    pallas_kernel.py:1460-1473) with its running best t."""
+    ox, oy, oz, _, _, _, ivx, ivy, ivz = ray
+    ax1 = (nd[:, 0] - ox) * ivx
+    ax2 = (nd[:, 3] - ox) * ivx
+    ay1 = (nd[:, 1] - oy) * ivy
+    ay2 = (nd[:, 4] - oy) * ivy
+    az1 = (nd[:, 2] - oz) * ivz
+    az2 = (nd[:, 5] - oz) * ivz
+    tmin = torch.maximum(
+        torch.maximum(torch.minimum(ax1, ax2), torch.minimum(ay1, ay2)),
+        torch.minimum(az1, az2))
+    tmax = torch.minimum(
+        torch.minimum(torch.maximum(ax1, ax2), torch.maximum(ay1, ay2)),
+        torch.maximum(az1, az2))
+    return (tmin <= tmax) & (tmax > eps) & (tmin < bt)
+
+
+def _octant(dx, dy, dz):
+    return (dx < 0.0).long() + 2 * (dy < 0.0).long() + 4 * (dz < 0.0).long()
+
+
+def _group_octant(group, dx, dy, dz):
+    """Each ray's octant copy under its group's majority: per axis,
+    strictly more than half of the group's (active) rays negative
+    (pallas_kernel._group_octant_base :1238-1245; the kernel's votes)."""
+    _, inv = torch.unique(group, return_inverse=True)
+    n = torch.bincount(inv)
+
+    def bit(neg):
+        return 2 * torch.bincount(inv, weights=neg.double(),
+                                  minlength=n.numel()) > n
+
+    return (bit(dx < 0.0).long() + 2 * bit(dy < 0.0).long()
+            + 4 * bit(dz < 0.0).long())[inv]
+
+
 def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
                        t_max: float, root: int, end: int, tox, toy, toz,
                        tdx, tdy, tdz, active, bt0, n_nodes: int = 0,
-                       return_slot: bool = False, counts: dict = None):
-    """Plain per-ray skip-link BVH walk of one group's nodes [root, end).
+                       return_slot: bool = False, counts: dict = None,
+                       walk: Walk = Walk(), groups=(None, None),
+                       mxu=None):
+    """Plain skip-link BVH walk of one group's nodes [root, end).
 
-    Counterpart of pallas_kernel._packet_traverse for a packet of one
-    ray. Each active ray carries its own node pointer: the slab test
-    against its running best t (`tmin < bt`) sends it to idx + 1 on a hit
-    and to the node's exit otherwise; at a hit leaf the leaf_size slots
-    are tested (_leaf_tests) and the winner is merged when
+    Counterpart of pallas_kernel._packet_traverse. Per-thread walk
+    (groups (None, None)): each active ray carries its own node pointer:
+    the slab test against its running best t (`tmin < bt`) sends it to
+    idx + 1 on a hit and to the node's exit otherwise; at a hit leaf the
+    leaf_size slots are tested (leaf_tests) and the winner is merged when
     `tw < bt & tw < t_max`. With n_nodes > 0 the table holds octant
     copies and each ray walks copy 1 + octant of its own direction,
     octant = (tdx<0) + 2(tdy<0) + 4(tdz<0) (_group_octant_base); with 0 it
     walks copy 0. Rays still walking are compacted every step.
+
+    groups = (octant group, packet), int64 ids per ray (walk_groups): a
+    ray walks the copy of its octant group's majority among the active
+    rays, and the rays of a packet share one node pointer, which steps to
+    idx + 1 when any of them hits the node; a ray tests a leaf only where
+    its own slab test hits it (the kernel's warp-packet walk). A packet
+    lies inside one octant group. walk.leaf "mma" tests the leaves by
+    leaf_tests_mma on `mxu` (mxu_view), "none" not at all.
 
     Returns (t, nx, ny, nz, cr, cg, cb) shaped like tox: t starts at bt0
     and keeps it where no triangle won; the interpolated smooth normal
     n1 + u*d21 + v*d31 and the triangle color are 0 there. With
     return_slot, an eighth int64 tensor holds the winning triangle slot
     (-1 where no triangle won). `counts`, when given, gains the node
-    visits ("node_visits") and the leaf slots tested ("leaf_slots")."""
+    visits ("node_visits") and the leaf slots tested ("leaf_slots"); a
+    packet walk counts what its warp issues, 32 lanes a node and 32 x
+    leaf_size a leaf, whatever its lanes' masks."""
     shape = tox.shape
     dev = tox.device
     tri = tri_table.reshape(-1, _TRI_STRIDE)
@@ -868,45 +1145,80 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
     ray = [a.reshape(-1)[rid] for a in (tox, toy, toz, tdx, tdy, tdz)]
     ray += [_inv_safe(d, eps) for d in ray[3:]]
     idx = torch.full_like(rid, root)
+    octant_group, packet = (None if g is None else g.reshape(-1)[rid]
+                            for g in groups)
     if n_nodes:
-        dx, dy, dz = ray[3:6]
-        octant = ((dx < 0.0).long() + 2 * (dy < 0.0).long()
-                  + 4 * (dz < 0.0).long())
+        octant = (_octant(*ray[3:6]) if octant_group is None
+                  else _group_octant(octant_group, *ray[3:6]))
         idx = idx + (1 + octant) * n_nodes
     stop = idx + (end - root)
     chunk = max(1, _LEAF_PAIRS // leaf_size)
-    while rid.numel():
-        ox, oy, oz, dx, dy, dz, ivx, ivy, ivz = ray
-        nd = node_table[idx]
-        ax1 = (nd[:, 0] - ox) * ivx
-        ax2 = (nd[:, 3] - ox) * ivx
-        ay1 = (nd[:, 1] - oy) * ivy
-        ay2 = (nd[:, 4] - oy) * ivy
-        az1 = (nd[:, 2] - oz) * ivz
-        az2 = (nd[:, 5] - oz) * ivz
-        tmin = torch.maximum(
-            torch.maximum(torch.minimum(ax1, ax2), torch.minimum(ay1, ay2)),
-            torch.minimum(az1, az2))
-        tmax = torch.minimum(
-            torch.minimum(torch.maximum(ax1, ax2), torch.maximum(ay1, ay2)),
-            torch.maximum(az1, az2))
-        hit = (tmin <= tmax) & (tmax > eps) & (tmin < bt[rid])
-        at_leaf = torch.nonzero(hit & (nd[:, 7] > 0.5)).squeeze(1)
-        if counts is not None:
-            counts["node_visits"] += rid.numel()
-            counts["leaf_slots"] += at_leaf.numel() * leaf_size
+    if walk.leaf == "mma":
+        def leaf_fn(start, *r):
+            return leaf_tests_mma(mxu, start, leaf_size, eps, *r)
+    else:
+        def leaf_fn(start, *r):
+            return leaf_tests(tri, start, leaf_size, eps, *r)
+
+    def leaves(at_leaf, nd_leaf):
+        # the leaf tests of rays rid[at_leaf] at their nodes nd_leaf, the
+        # winners merged
+        if walk.leaf == "none":
+            return
         for i in range(0, at_leaf.numel(), chunk):
             li = at_leaf[i:i + chunk]
             r = rid[li]
-            tw, slot, u, v = _leaf_tests(
-                tri, nd[li, 6].long(), leaf_size, eps,
-                *(a[li] for a in ray[:6]))
+            tw, slot, u, v = leaf_fn(nd_leaf[i:i + chunk, 6].long(),
+                                     *(a[li] for a in ray[:6]))
             won = (tw < bt[r]) & (tw < t_max)
             r = r[won]
             bt[r] = tw[won]
             win[r] = slot[won]
             wu[r] = u[won]
             wv[r] = v[won]
+
+    if packet is not None:
+        # one node pointer per packet: pidx[p], rays -> packet p = pinv
+        _, pinv = torch.unique(packet, return_inverse=True)
+        n_p = int(pinv.max()) + 1 if pinv.numel() else 0
+        pidx = torch.zeros(n_p, dtype=idx.dtype, device=dev).scatter_(
+            0, pinv, idx)
+        pstop = pidx + (end - root)
+        if not torch.equal(pidx[pinv], idx):
+            raise ValueError("a packet spans two octant groups")
+        while n_p:
+            nd_p = node_table[pidx]
+            nd = nd_p[pinv]
+            hit = _slab_hit(nd, ray, bt[rid], eps)
+            anyp = torch.zeros(n_p, dtype=torch.long, device=dev).index_add_(
+                0, pinv, hit.long()) > 0
+            leafp = anyp & (nd_p[:, 7] > 0.5)
+            at_leaf = torch.nonzero(hit & leafp[pinv]).squeeze(1)
+            if counts is not None:
+                counts["node_visits"] += _WARP * n_p
+                if walk.leaf != "none":
+                    counts["leaf_slots"] += (_WARP * leaf_size
+                                             * int(leafp.sum()))
+            leaves(at_leaf, nd[at_leaf])
+            pidx = torch.where(anyp, pidx + 1, nd_p[:, 8].long())
+            keep_p = pidx < pstop
+            if not bool(keep_p.all()):
+                remap = torch.cumsum(keep_p.long(), 0) - 1
+                keep = torch.nonzero(keep_p[pinv]).squeeze(1)
+                rid, pinv = rid[keep], remap[pinv[keep]]
+                ray = [a[keep] for a in ray]
+                pidx, pstop = pidx[keep_p], pstop[keep_p]
+                n_p = pidx.numel()
+        rid = rid[:0]
+    while rid.numel():
+        nd = node_table[idx]
+        hit = _slab_hit(nd, ray, bt[rid], eps)
+        at_leaf = torch.nonzero(hit & (nd[:, 7] > 0.5)).squeeze(1)
+        if counts is not None:
+            counts["node_visits"] += rid.numel()
+            if walk.leaf != "none":
+                counts["leaf_slots"] += at_leaf.numel() * leaf_size
+        leaves(at_leaf, nd[at_leaf])
         idx = torch.where(hit, idx + 1, nd[:, 8].long())
         keep = torch.nonzero(idx < stop).squeeze(1)
         if keep.numel() < rid.numel():
@@ -937,11 +1249,13 @@ def nee_lights(meta: SceneMeta, cfg: RenderConfig) -> Tuple[int, ...]:
 
 def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, eps: float,
                  t_max: float, ox, oy, oz, dx, dy, dz, active, w0: int,
-                 counts: dict = None):
+                 counts: dict = None, walk: Walk = Walk(),
+                 groups=(None, None)):
     """Plain whole-scene nearest hit (the TPU kernels' unrolled object loop;
     csrc/megakernel.cu's nearest_hit): each object's transform and test in
     table order, a GROUP's object-space box pretest (gated on `active`)
-    and then its walk, the winner replaced on a strictly smaller t.
+    and then its walk (traverse_reference under `walk` and `groups`, per
+    ray of ox's flat order), the winner replaced on a strictly smaller t.
     `obj` is the object table as nested lists. Returns (t, w, local ray
     (lox, loy, loz, ldx, ldy, ldz), on_tri, tri_slot, tri_nrm, tri_col):
     t is _BIG and w is w0 where nothing is hit, the local ray the world
@@ -949,6 +1263,8 @@ def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, eps: float,
     a triangle won."""
     group_bvh = {g: (r, e) for g, r, e in meta.group_bvh}
     oct_nodes = meta.n_nodes if meta.octant_orders else 0
+    mxu = (mxu_view(tri_table, meta)
+           if meta.has_groups and walk.leaf == "mma" else None)
     best_t = torch.full_like(ox, _BIG)
     w = torch.full(ox.shape, w0, dtype=torch.int64, device=ox.device)
     loc = [ox, oy, oz, dx, dy, dz]
@@ -982,7 +1298,8 @@ def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, eps: float,
             t_j, *g_tri, g_slot = traverse_reference(
                 node_table, tri_table, meta.leaf_size, eps, t_max, root, end,
                 tox, toy, toz, tdx, tdy, tdz, pre, best_t,
-                n_nodes=oct_nodes, return_slot=True, counts=counts)
+                n_nodes=oct_nodes, return_slot=True, counts=counts,
+                walk=walk, groups=groups, mxu=mxu)
         closer = t_j < best_t
         best_t = torch.where(closer, t_j, best_t)
         w = torch.where(closer, j, w)
@@ -998,11 +1315,34 @@ def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, eps: float,
     return best_t, w, loc, on_tri, tri_slot, tri_nrm, tri_col
 
 
-def _table_shapes(meta: SceneMeta):
+def _mxu_rows(meta: SceneMeta) -> int:
+    """Rows of the triangle table that hold the MXU fragments."""
+    K = meta.leaf_size
+    n = (meta.n_tri_slots // K) * 6 * (-(-K // 8)) * 32
+    return -(-n // (_TRI_SLOTS_PER_ROW * _TRI_STRIDE))
+
+
+def mxu_view(tri_table, meta: SceneMeta):
+    """The MXU A blocks inside a triangle table built for MXU leaves, as
+    [n_leaves, 6, 8*ceil(K/8), 4] (group, triangle row, the four
+    coefficients of the half of q the group reads)."""
+    K = meta.leaf_size
+    kt = -(-K // 8)
+    nl = meta.n_tri_slots // K
+    off = -(-meta.n_tri_slots // _TRI_SLOTS_PER_ROW) * _TRI_SLOTS_PER_ROW \
+        * _TRI_STRIDE
+    return tri_table.reshape(-1)[off:off + nl * 6 * kt * 32].reshape(
+        nl, 6, kt * 8, 4)
+
+
+def _table_shapes(meta: SceneMeta, walk: Walk):
     """The shapes of the object, node and triangle tables of a scene
-    (build_scene_table, build_mesh_tables)."""
+    (build_scene_table, build_mesh_tables), the triangle table's for
+    `walk` (scene_walk: MXU leaves read fragments after its rows)."""
     n_nodes = meta.n_nodes * (9 if meta.octant_orders else 1)
     rows_t = -(-meta.n_tri_slots // _TRI_SLOTS_PER_ROW)
+    if meta.has_groups and walk.leaf == "mma":
+        rows_t += _mxu_rows(meta)
     return ((len(meta.obj_types), _OBJ_COLS), (max(1, n_nodes), _NODE_COLS),
             (max(1, rows_t) if meta.has_groups else 1,
              _TRI_SLOTS_PER_ROW * _TRI_STRIDE))
@@ -1010,9 +1350,10 @@ def _table_shapes(meta: SceneMeta):
 
 def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
                 meta, cfg, spp, tile, spp_pack, pack_axis, tex_pool=None,
-                tex_table=None, tex_texels=None):
-    """Validate what trace_tiles is handed; raise on anything the kernel
-    does not take. Returns the (seed, sample_base) ints."""
+                tex_table=None, tex_texels=None, walk: Walk = Walk()):
+    """Validate what trace_tiles is handed for a launch on `walk`; raise on
+    anything the kernel does not take. Returns the (seed, sample_base)
+    ints."""
     if cfg.nee and tex_texels is not None:
         # the f32-texel forward serves the differentiable render, which
         # refuses NEE as the JAX package's does
@@ -1021,7 +1362,6 @@ def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
             "megakernel does not replay NEE shadow draws; render with "
             "tex_pool")
     if meta.has_groups:
-        _check_mesh_knobs()
         if meta.leaf_size % _TRI_SLOTS_PER_ROW:
             raise ValueError(f"leaf size {meta.leaf_size} is not a "
                              f"multiple of {_TRI_SLOTS_PER_ROW}")
@@ -1053,7 +1393,7 @@ def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     if len(seed) != 2:
         raise ValueError("seed must be (prng seed, global sample base)")
     dev = px.device
-    obj_shape, node_shape, tri_shape = _table_shapes(meta)
+    obj_shape, node_shape, tri_shape = _table_shapes(meta, walk)
     want = (("cam_vec", cam_vec, torch.float32, (_CAM_COLS,)),
             ("obj_table", obj_table, torch.float32, obj_shape),
             ("node_table", node_table, torch.float32, node_shape),
@@ -1124,7 +1464,7 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     result as trace_tiles, vectorised over all T*S*L slots, with a Python
     loop over samples and bounces that stops once every ray is dead (dead
     rays are inert, so this equals the JAX kernel's per-tile exit), the
-    per-ray BVH walk (traverse_reference) for GROUP objects and the
+    BVH walk (traverse_reference) for GROUP objects and the
     texel fetch (sample_pool, or sample_texels from tex_texels) for
     textured ones.
     Returns (r, g, b) float32 [T*S, L] radiance sums on px's device.
@@ -1142,10 +1482,14 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     neither refracts nor is a light, times the lights), "shadow_tests"
     (those facing the surface, whose ray is cast) and "shadow_lit" (those
     that reach their light and add); the shadow walks add to "node_visits"
-    and "leaf_slots"."""
+    and "leaf_slots".
+
+    A mesh scene walks as mesh_walk() says, each slot in the octant group
+    and packet of the kernel (walk_groups over the T*S*L slots)."""
+    walk = scene_walk(meta)
     seed0, sample_base = _check_args(
         seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
-        spp, tile, spp_pack, pack_axis, tex_pool, tex_table, tex_texels)
+        spp, tile, spp_pack, pack_axis, tex_pool, tex_table, tex_texels, walk)
     if counts is not None:
         for k in ("samples", "bounces", "hits", "node_visits", "leaf_slots",
                   "texel_fetches", "uv_sphere", "uv_cube", "shadow_rays",
@@ -1156,6 +1500,7 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     dev = px.device
     f32 = torch.float32
     rows = px.shape[0]
+    groups = walk_groups(rows * L, walk, dev)
     idx = torch.arange(rows * L, device=dev, dtype=torch.int64)
     row = idx // L
     lane = idx % L
@@ -1246,7 +1591,7 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
             (best_t, w, (l_ox, l_oy, l_oz, l_dx, l_dy, l_dz), on_tri,
              tri_slot, tri_nrm, tri_col) = _nearest_hit(
                 obj, meta, node_table, tri_table, eps, t_max, ox, oy, oz,
-                dx, dy, dz, alive, 0, counts)
+                dx, dy, dz, alive, 0, counts, walk, groups)
             hit_ok = best_t < t_max
             t = torch.clamp(best_t, max=t_max)
             wrow = obj_table[w]
@@ -1429,7 +1774,7 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                 s_t, s_w, *_ = _nearest_hit(
                     obj, meta, node_table, tri_table, eps, t_max,
                     wx + sdx * eps, wy + sdy * eps, wz + sdz * eps,
-                    sdx, sdy, sdz, cast, -1, counts)
+                    sdx, sdy, sdz, cast, -1, counts, walk, groups)
                 visible = cast & (s_w == l) & (s_t > eps) & (s_t < t_max)
                 atten = 1.0 - s_t / torch.sqrt(s_t * s_t + lm[44] * lm[44])
                 w_nee = ldn * atten
@@ -1482,7 +1827,7 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SIGNATURES = {
+SIGNATURES = {
     "pt_megakernel_launch": (
         [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P],
@@ -1511,6 +1856,25 @@ _SIGNATURES = {
     # count, eps, t_max and the stream
     "pt_intersect_launch": (
         [_P] * 8 + [_I] + [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P], _I),
+    # the packet walks (Kernels A and B): pt_megakernel_launch's arguments,
+    # then the texel pool and texture table (null without textures), the
+    # NEE flag, the light count and indices, the MXU fragments (null unless
+    # MXU leaves) and the walk and leaf codes (WALK_CODES, LEAF_CODES)
+    "pt_megakernel_packet_launch": (
+        [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        + [_I, _P, _P, _P, _I, _I, _P, _P, _I, _I],
+        _I),
+    # the intersect kernel on the packet walks: pt_intersect_launch's
+    # arguments, then the MXU fragments and the walk and leaf codes
+    "pt_intersect_packet_launch": (
+        [_P] * 8 + [_I] + [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P, _P, _I, _I],
+        _I),
+    # the leaf microbenchmark (P3's counterpart), launched by
+    # probes/leaf_bench.py: the rays, their outputs, the visit count, the
+    # triangle table, MXU fragments, leaf size, leaf count, eps, t_max, the
+    # variant code and the stream
+    "pt_leaf_bench_launch": (
+        [_P] * 6 + [_P, _P, _I, _I] + [_P, _P, _I, _I, _F, _F, _I, _P], _I),
     # the texel-fetch probe (P1's counterpart), launched by fetch_texels
     "pt_tex_fetch_launch": (
         [_P] * 6 + [_I] * 4 + [_P], _I),
@@ -1527,6 +1891,12 @@ _SIGNATURES = {
         _I),
 }
 _MAX_OBJECTS = 64   # kMaxObjects of csrc/megakernel.cu
+
+
+def library():
+    """csrc/megakernel.cu's library, built at first use, with SIGNATURES
+    bound (render/_build.py)."""
+    return _build.load("megakernel", SIGNATURES)
 
 
 def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
@@ -1547,9 +1917,11 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     the current stream and count the launch in trace_tiles.launches, a
     scene with meshes also in .mesh_launches, one with the pool in
     .tex_launches, one with f32 texels in .texel_launches and one under
-    cfg.nee (the shadow-ray instantiation) in .nee_launches; CPU tensors run
-    trace_tiles_reference. Raises for the unported mesh walk variants and
-    for NEE with f32 texels. The kernel keeps every texel index below T
+    cfg.nee (the shadow-ray instantiation) in .nee_launches; a mesh scene
+    under the knobs of mesh_walk also in .packet_launches (the warp-packet
+    walk), .mma_launches (its tensor-core leaves) or .ablate_launches (no
+    leaf tests). CPU tensors run trace_tiles_reference. Raises for NEE
+    with f32 texels, and for f32 texels on a packet walk. The kernel keeps every texel index below T
     (the plain version raises IndexError instead), so a table that reaches
     past the texels cannot touch other memory."""
     if px.device.type != "cuda":
@@ -1558,16 +1930,21 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
             meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
             tile=tile, spp_pack=spp_pack, pack_axis=pack_axis,
             tex_pool=tex_pool, tex_table=tex_table, tex_texels=tex_texels)
+    walk = scene_walk(meta)
     seed0, sample_base = _check_args(
         seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
-        spp, tile, spp_pack, pack_axis, tex_pool, tex_table, tex_texels)
+        spp, tile, spp_pack, pack_axis, tex_pool, tex_table, tex_texels, walk)
     n_obj = len(meta.obj_types)
     if not 0 < n_obj <= _MAX_OBJECTS:
         raise ValueError(f"{n_obj} objects; the kernel takes 1..{_MAX_OBJECTS}")
-    lib = _build.load("megakernel", _SIGNATURES)
+    lib = library()
     S, L = tile
     dev = px.device
     rows = px.shape[0]
+    if tex_texels is not None and walk != Walk():
+        raise NotImplementedError(
+            "the f32-texel forward serves the differentiable render, which "
+            f"walks per thread: {_MESH_VARIANT_ITEM}")
     out = torch.empty((3, rows, L), dtype=torch.float32, device=dev)
     # host arrays, copied by value into the launch parameters
     types = (_I * n_obj)(*meta.obj_types)
@@ -1590,7 +1967,16 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
                 meta.n_nodes if meta.octant_orders else 0,
                 cfg.epsilon, cfg.t_max, sun_cut, sun_den, golden2,
                 int(_coherent_sampling()), stream)
-        if cfg.nee:
+        if walk != Walk():
+            # the packet walks (Kernel A; Kernel B with MXU leaves), with
+            # or without textures and NEE
+            err = lib.pt_megakernel_packet_launch(
+                *args, tex_pool.data_ptr() if textured else None,
+                tex_table.data_ptr() if textured else None, int(cfg.nee),
+                len(lights), (_I * len(lights))(*lights),
+                mxu_ptr(tri_table, meta, walk), WALK_CODES[walk.walk],
+                LEAF_CODES[walk.leaf])
+        elif cfg.nee:
             # the shadow-ray instantiation, also for a scene without a light
             # (no shadow ray then: the render without NEE)
             err = lib.pt_megakernel_nee_launch(
@@ -1618,10 +2004,28 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
         trace_tiles.tex_launches += 1    # the texel-fetch instantiation
     if cfg.nee:
         trace_tiles.nee_launches += 1    # the shadow-ray instantiation
+    if walk.walk != "thread":
+        trace_tiles.packet_launches += 1  # the warp-packet walk (Kernel A)
+    if walk.leaf == "mma":
+        trace_tiles.mma_launches += 1    # the tensor-core leaves (Kernel B)
+    elif walk.leaf == "none":
+        trace_tiles.ablate_launches += 1  # the node walk alone
     return out[0], out[1], out[2]
 
 
+def mxu_ptr(tri_table, meta: SceneMeta, walk: Walk):
+    """Device address of the MXU fragments in tri_table (None unless MXU
+    leaves)."""
+    if walk.leaf != "mma":
+        return None
+    rows = -(-meta.n_tri_slots // _TRI_SLOTS_PER_ROW)
+    return tri_table.data_ptr() + rows * tri_table.shape[1] * 4
+
+
 trace_tiles.launches = 0
+trace_tiles.packet_launches = 0
+trace_tiles.mma_launches = 0
+trace_tiles.ablate_launches = 0
 trace_tiles.mesh_launches = 0
 trace_tiles.tex_launches = 0
 trace_tiles.texel_launches = 0
@@ -1656,7 +2060,7 @@ def fetch_texels(pool, base: int, w: int, h: int, u, v):
     if pool.device.type != "cuda":
         f = lambda x: torch.full_like(u, float(x))
         return sample_pool(pool, f(base), f(w), f(h), u, v)
-    lib = _build.load("megakernel", _SIGNATURES)
+    lib = library()
     out = torch.empty((3, u.numel()), dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         err = lib.pt_tex_fetch_launch(
@@ -1718,13 +2122,12 @@ def intersect_tables(scn: SceneArrays, meta: SceneMeta, device):
         build_scene_table(scn, meta), *build_mesh_tables(scn, meta)))
 
 
-def _intersect_args(meta: SceneMeta, origin, direction, tables):
-    """Validate intersect_batch's arguments; returns the six ray tensors."""
+def _intersect_args(meta: SceneMeta, origin, direction, tables, walk: Walk):
+    """Validate intersect_batch's arguments for a launch on `walk`; returns
+    the six ray tensors."""
     if not supports_intersect(meta):
         raise ValueError("intersect_batch takes primitives and groups whose "
                          f"leaf size is a multiple of {_TRI_SLOTS_PER_ROW}")
-    if meta.has_groups:
-        _check_mesh_knobs()
     if len(origin) != 3 or len(direction) != 3:
         raise ValueError("origin and direction must be 3-tuples")
     rays = [*origin, *direction]
@@ -1736,7 +2139,7 @@ def _intersect_args(meta: SceneMeta, origin, direction, tables):
             raise ValueError("the rays must be contiguous f32 [R] tensors "
                              "of one length on one device")
     for name, t, shape in zip(("obj_table", "node_table", "tri_table"),
-                              tables, _table_shapes(meta)):
+                              tables, _table_shapes(meta, walk)):
         if (t.device != dev or t.dtype != torch.float32
                 or not t.is_contiguous() or tuple(t.shape) != shape):
             raise ValueError(f"{name} must be a contiguous f32 {shape} "
@@ -1753,7 +2156,9 @@ def intersect_batch_reference(scn: SceneArrays, meta: SceneMeta,
     dev = origin[0].device
     if tables is None:
         tables = intersect_tables(scn, meta, dev)
-    ox, oy, oz, dx, dy, dz = _intersect_args(meta, origin, direction, tables)
+    walk = scene_walk(meta)
+    ox, oy, oz, dx, dy, dz = _intersect_args(meta, origin, direction, tables,
+                                             walk)
     obj = tables[0].detach().cpu().tolist()
     if counts is not None:
         for k in ("rays", "node_visits", "leaf_slots", "tri_hits"):
@@ -1761,7 +2166,8 @@ def intersect_batch_reference(scn: SceneArrays, meta: SceneMeta,
         counts["rays"] += ox.numel()
     t, w, loc, on_tri, _, nrm, col = _nearest_hit(
         obj, meta, tables[1], tables[2], cfg.epsilon, cfg.t_max, ox, oy, oz,
-        dx, dy, dz, torch.ones_like(ox, dtype=torch.bool), 0, counts)
+        dx, dy, dz, torch.ones_like(ox, dtype=torch.bool), 0, counts, walk,
+        walk_groups(ox.numel(), walk, dev))
     if counts is not None:
         counts["tri_hits"] += int(on_tri.sum())
     zero = torch.zeros_like(ox)
@@ -1784,22 +2190,25 @@ def intersect_batch(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
     and the winning triangle's smooth normal and color (0 unless a
     triangle won), each Vec3 a 3-tuple of [R] tensors. CUDA tensors launch
     csrc/megakernel.cu's intersect kernel on the current stream, one
-    thread a ray, and count the launch in intersect_batch.launches; CPU
-    tensors run intersect_batch_reference."""
+    thread a ray, and count the launch in intersect_batch.launches (a mesh
+    scene under the knobs of mesh_walk: the packet walks, also in
+    .packet_launches and, with MXU leaves, .mma_launches); CPU tensors run
+    intersect_batch_reference."""
     dev = origin[0].device
     if tables is None:
         tables = intersect_tables(scn, meta, dev)
     if dev.type != "cuda":
         return intersect_batch_reference(scn, meta, cfg, origin, direction,
                                          tables)
-    rays = _intersect_args(meta, origin, direction, tables)
+    walk = scene_walk(meta)
+    rays = _intersect_args(meta, origin, direction, tables, walk)
     n_obj = len(meta.obj_types)
     if not 0 < n_obj <= _MAX_OBJECTS:
         raise ValueError(f"{n_obj} objects; the kernel takes 1..{_MAX_OBJECTS}")
     n = rays[0].numel()
     if n > 2 ** 31 - 128:
         raise ValueError(f"{n} rays; the kernel takes at most 2^31 - 128")
-    lib = _build.load("megakernel", _SIGNATURES)
+    lib = library()
     out = torch.empty((14, n), dtype=torch.float32, device=dev)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
     types = (_I * n_obj)(*meta.obj_types)
@@ -1808,17 +2217,28 @@ def intersect_batch(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
     for g, r, e in meta.group_bvh:
         roots[g], ends[g] = r, e
     with torch.cuda.device(dev):
-        err = lib.pt_intersect_launch(
-            *(t.data_ptr() for t in rays), out.data_ptr(), idx.data_ptr(), n,
-            tables[0].data_ptr(), types, tables[1].data_ptr(),
-            tables[2].data_ptr(), roots, ends, n_obj, meta.leaf_size,
-            meta.n_nodes if meta.octant_orders else 0, cfg.epsilon,
-            cfg.t_max, torch.cuda.current_stream(dev).cuda_stream)
+        args = (*(t.data_ptr() for t in rays), out.data_ptr(), idx.data_ptr(),
+                n, tables[0].data_ptr(), types, tables[1].data_ptr(),
+                tables[2].data_ptr(), roots, ends, n_obj, meta.leaf_size,
+                meta.n_nodes if meta.octant_orders else 0, cfg.epsilon,
+                cfg.t_max, torch.cuda.current_stream(dev).cuda_stream)
+        if walk != Walk():
+            err = lib.pt_intersect_packet_launch(
+                *args, mxu_ptr(tables[2], meta, walk), WALK_CODES[walk.walk],
+                LEAF_CODES[walk.leaf])
+        else:
+            err = lib.pt_intersect_launch(*args)
     if err != 0:
         raise RuntimeError(f"intersect launch failed: CUDA error {err}")
     intersect_batch.launches += 1
+    if walk.walk != "thread":
+        intersect_batch.packet_launches += 1
+    if walk.leaf == "mma":
+        intersect_batch.mma_launches += 1
     return (out[0], idx, (out[1], out[2], out[3]), (out[4], out[5], out[6]),
             out[7] > 0.5, (out[8], out[9], out[10]), (out[11], out[12], out[13]))
 
 
 intersect_batch.launches = 0
+intersect_batch.packet_launches = 0
+intersect_batch.mma_launches = 0

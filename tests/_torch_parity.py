@@ -5,6 +5,7 @@ from __future__ import annotations
 import dataclasses
 from unittest import mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -45,8 +46,22 @@ def jax_fields_np(arrays) -> dict:
     return {k: np.asarray(v) for k, v in arrays._asdict().items()}
 
 
+def fresh_trace_tiles():
+    """The JAX trace_tiles under a jit of its own, traced anew on its first
+    call: the kernel reads its knobs (PT_SUBPACKET, PT_TRAVERSAL, ...) when
+    it is traced, and a new function object keeps this trace out of the
+    process-wide jit cache that the other tests share (jax.clear_caches()
+    would drop their compiled kernels too)."""
+    def trace_tiles(*args, **kw):
+        return pk.trace_tiles.__wrapped__(*args, **kw)
+    return jax.jit(trace_tiles, static_argnames=(
+        "meta", "cfg", "spp", "total_samples", "tile", "spp_pack",
+        "pack_axis", "interpret"))
+
+
 def kernel_pair(name: str, tile=None, spp: int = 8, base: int = 0,
-                W: int = 32, H: int = 24, **cfg_kw):
+                W: int = 32, H: int = 24, fresh_jit: bool = False,
+                **cfg_kw):
     """Render scene `name` through the port's trace_tiles (plain version,
     CPU) and the JAX kernel in interpret mode with the same seed vector
     (3, base), total_samples spp + base and layout: the driver's on `tile`
@@ -54,8 +69,10 @@ def kernel_pair(name: str, tile=None, spp: int = 8, base: int = 0,
     sample packing. cfg_kw go to both configs (aperture, nee, ...). A mesh
     scene is packed on the JAX NumPy path (native scene-core off) and
     handed the port's group bounds: that path packs NaN bounds for a
-    parsed model, which would hide it (ROADMAP queue 3). Returns (port,
-    JAX) slot sums [3, T*S, L] and the port's meta."""
+    parsed model, which would hide it (ROADMAP queue 3). fresh_jit traces
+    the JAX kernel anew (fresh_trace_tiles), as a knob set in the
+    environment needs. Returns (port, JAX) slot sums [3, T*S, L] and the
+    port's meta."""
     kw = dict(width=W, height=H, samples=spp, samples_per_pass=spp,
               **cfg_kw)
     with mock.patch.object(jnative, "available", lambda: False):
@@ -78,11 +95,16 @@ def kernel_pair(name: str, tile=None, spp: int = 8, base: int = 0,
                                      spp_pack=pack, pack_axis=axis)
     jtabs = (pk.build_camera_vec(js.camera), pk.build_scene_table(ja, jm),
              *pk.build_mesh_tables(ja, jm), xs, ys)
-    for a, b in zip(jtabs, ttabs):
-        assert np.array_equal(a, b.numpy())
+    for i, (a, b) in enumerate(zip(jtabs, ttabs)):
+        # under MXU leaves the JAX package lane-packs its own table
+        # (tests/test_torch_walk_host.py holds the blocks)
+        if not (i == 3 and jm.has_groups
+                and pk.traversal_mode(jm) == "mxu"):
+            assert np.array_equal(a, b.numpy())
     seed = (3, base)
     staged = {"tex": ja.tex_staged} if pk.staged_lanes(jm) else {}
-    want = pk.trace_tiles(
+    jax_trace_tiles = fresh_trace_tiles() if fresh_jit else pk.trace_tiles
+    want = jax_trace_tiles(
         jnp.asarray(seed, jnp.int32), *map(jnp.asarray, jtabs), meta=jm,
         cfg=jc, spp=spp, total_samples=spp + base, tile=tile, spp_pack=pack,
         pack_axis=axis, interpret=True, **staged)

@@ -32,6 +32,12 @@ Next-event estimation (the kNee instantiations, trace_tiles under cfg.nee)
 and the intersect-only kernel (intersect_batch) must be bit-equal to their
 plain versions: the same f32 operations in the same order, and the card's
 sin/cos on both sides.
+
+The mesh walks of the JAX package's knobs (PT_SUBPACKET, PT_ABLATE_LEAF:
+the warp-packet walk and the node walk alone) must be bit-equal to their
+plain versions too; the tensor-core leaves (PT_TRAVERSAL=mxu) hold by the
+per-slot rule, and the leaf microbenchmark's tensor-core test holds every
+ray x triangle t within one ulp (probes/leaf_bench.py check).
 """
 import numpy as np
 import pytest
@@ -489,3 +495,93 @@ def test_intersect_kernel_bit_equal_plain(dev, name):
     assert got[1].dtype == torch.int32 and got[4].dtype == torch.bool
     if meta.has_groups:
         assert got[4].any()
+
+
+# ---- the mesh walks of the JAX package's knobs (Kernels A and B) --------
+
+WALK_ENVS = {"mode1": {"PT_SUBPACKET": "1"}, "mode2": {"PT_SUBPACKET": "2"},
+             "mode3": {"PT_SUBPACKET": "3"}, "mxu": {"PT_TRAVERSAL": "mxu"},
+             "ablate": {"PT_ABLATE_LEAF": "1"},
+             "ablate2": {"PT_SUBPACKET": "2", "PT_ABLATE_LEAF": "1"}}
+
+
+@pytest.mark.parametrize("walk", list(WALK_ENVS))
+@pytest.mark.parametrize("name,nee", [("teapot", False), ("teapot", True),
+                                      ("size-check", False),
+                                      ("cubemap", False)])
+def test_packet_walks_match_plain(dev, monkeypatch, walk, name, nee):
+    # Kernel A (the warp-packet walk) and the node walk alone bit for bit;
+    # Kernel B (tensor-core leaves) by the per-slot rule (its plain dots
+    # are f64 rounded once, as the DMMA's)
+    for k, v in WALK_ENVS[walk].items():
+        monkeypatch.setenv(k, v)
+    tabs, meta, cfg, layout = _inputs(name, dev, None, width=64, height=48,
+                                      samples=4, samples_per_pass=4, nee=nee)
+    kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4,
+              tile=mk.default_tile(meta), **layout)
+    before = (mk.trace_tiles.packet_launches, mk.trace_tiles.mma_launches)
+    got = torch.stack(mk.trace_tiles((3, 0), *tabs, **kw))
+    want = torch.stack(mk.trace_tiles_reference((3, 0), *tabs, **kw))
+    torch.cuda.synchronize()
+    packet = mk.mesh_walk().walk != "thread"
+    assert mk.trace_tiles.packet_launches == before[0] + packet
+    assert mk.trace_tiles.mma_launches == before[1] + (walk == "mxu")
+    if walk == "mxu":
+        assert_slot_rule(got.cpu().numpy(), want.cpu().numpy())
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("walk", ["mode2", "mode3", "mxu", "ablate2"])
+def test_packet_intersect_matches_plain(dev, monkeypatch, walk):
+    for k, v in WALK_ENVS[walk].items():
+        monkeypatch.setenv(k, v)
+    cfg = RenderConfig(width=160, height=120, samples=1)
+    sc = get_scene("teapot", cfg)
+    arrays, meta = sc.pack(device=dev)
+    tables = mk.intersect_tables(arrays, meta, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    R = (1 << 15) + 77          # a partial block: lanes without a ray
+    o = tuple((torch.rand(R, generator=gen, device=dev) - 0.5).contiguous()
+              for _ in range(3))
+    d = torch.randn((3, R), generator=gen, device=dev)
+    d = tuple((d / torch.linalg.vector_norm(d, dim=0)).contiguous())
+    before = mk.intersect_batch.packet_launches
+    got = mk.intersect_batch(arrays, meta, cfg, o, d, tables=tables)
+    assert mk.intersect_batch.packet_launches == before + 1
+    want = mk.intersect_batch_reference(arrays, meta, cfg, o, d, tables)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0]) or walk == "mxu"
+    assert torch.allclose(got[0], want[0], rtol=1e-6)
+
+
+def test_leaf_bench_and_op_rate_match_plain(dev):
+    from pathtracer_tpu_torch.probes import leaf_bench, op_rate
+
+    tris, meta, arrays = leaf_bench.teapot_leaves(dev)
+    res = leaf_bench.check(leaf_bench.mesh_rays(arrays, 4096, dev), tris,
+                           meta)
+    assert res["prod"]["bit_equal_t"] == res["prod"]["rays"]
+    assert res["prod"]["winner_equal"] == res["prod"]["rays"]
+    m = res["mma"]
+    assert m["t_within_1ulp"] == m["rays"]
+    assert m["winner_equal"] + m["winner_differs_at_tie"] == m["rays"]
+    assert res["pairs"]["within_1ulp"] >= 0.999 * res["pairs"]["pairs"]
+    x = torch.rand(1000, device=dev) + 1.0
+    for v in op_rate.VARIANTS:
+        k, p = op_rate.run(v, x, 2), op_rate.run_plain(v, x, 2)
+        assert op_rate.compare(v, k, p)["ok"], v
+
+
+def test_cli_renders_teapot_on_the_packet_walk(dev, monkeypatch, tmp_path):
+    monkeypatch.setenv("PT_SUBPACKET", "3")
+    monkeypatch.setenv("PT_TILE_ORDER", "subblock")
+    raw = tmp_path / "t.raw"
+    before = mk.trace_tiles.packet_launches
+    rc = cli.main(["--scene", "teapot", "--width", "64", "--height", "48",
+                   "--samples", "16", "--raw-output", str(raw),
+                   "--output", str(tmp_path / "t.png")])
+    assert rc == 0 and mk.trace_tiles.packet_launches == before + 2
+    img = read_raw(str(raw))
+    assert img.shape == (48, 64, 3) and np.isfinite(img).all()

@@ -104,10 +104,13 @@ def test_driver_block_order_matches_jax_segments(monkeypatch):
                                  {"PT_TILE_ORDER": "rowblock"}])
 def test_driver_refuses_unported_layouts(monkeypatch, env):
     # the tile orders of the TPU's sub-packet gating and MXU leaf machine
+    # are ported: their slots, so their random streams, are the JAX
+    # package's
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="K1-mesh variants"):
-        _render(monkeypatch)
+    img, _ = _render(monkeypatch)
+    want = _jax_segments(env["PT_TILE_ORDER"])
+    assert_slot_rule(np.moveaxis(img, -1, 0), np.moveaxis(want, -1, 0))
 
 
 def test_torch_checkpoint_resume_bit_identical(monkeypatch, tmp_path):

@@ -81,7 +81,7 @@ def test_from_jax_scene_round_trip(name):
         assert torch.equal(getattr(fa, field), getattr(ta, field)), field
 
 
-@pytest.mark.parametrize("order", ("linear", "block"))
+@pytest.mark.parametrize("order", ("linear", "block", "subblock", "rowblock"))
 @pytest.mark.parametrize("W,H,S,L,granule", [
     (32, 24, 8, 128, 1),      # one tile, padded
     (100, 37, 8, 128, 2),     # ragged width, padded rows for sharding
@@ -121,6 +121,10 @@ def test_unported_scene_parts_raise(monkeypatch):
     ta, tm = from_jax_scene(jax_fields_np(ja), jm, cpu)
     assert tm.obj_tex == jm.obj_tex and ta.tex_pool_u32.numel() > 1
     # the tile orders of the TPU's sub-packet gating and MXU leaf machine
+    # are ported: the JAX package's slots, row-packed too
     for order in ("subblock", "rowblock"):
-        with pytest.raises(NotImplementedError, match="K1-mesh variants"):
-            mk.tile_pixel_layout(16, 12, 8, 128, order=order, spp_pack=2)
+        got = mk.tile_pixel_layout(16, 12, 8, 128, order=order, spp_pack=2)
+        want = pk.tile_pixel_layout(16, 12, 8, 128, order=order, spp_pack=2)
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="tile order"):
+        mk.tile_pixel_layout(16, 12, 8, 128, order="spiral")

@@ -34,6 +34,8 @@ def test_package_imports_without_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "pathtracer_tpu_torch.render.proctex" in res["modules"]
+    assert {"pathtracer_tpu_torch.probes.op_rate",
+            "pathtracer_tpu_torch.probes.leaf_bench"} <= set(res["modules"])
     assert len(res["modules"]) >= 25
     assert res["foreign"] == []
 

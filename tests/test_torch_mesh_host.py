@@ -237,7 +237,7 @@ def test_mesh_layout_knobs_equal_jax(monkeypatch, env):
         assert (pack, axis, mk.default_order(tm)) == (4, "chunk", "block")
 
 
-@pytest.mark.parametrize("order", ("linear", "block"))
+@pytest.mark.parametrize("order", ("linear", "block", "subblock", "rowblock"))
 @pytest.mark.parametrize("W,H,S,L,pack,axis,granule", [
     (32, 24, 8, 512, 4, "chunk", 1),      # the mesh default
     (100, 37, 8, 512, 2, "chunk", 2),
@@ -314,26 +314,46 @@ def test_from_jax_scene_carries_teapot():
     assert_slot_rule(np.moveaxis(got, -1, 0), np.moveaxis(want, -1, 0))
 
 
-@pytest.mark.parametrize("env", [
-    {"PT_TRAVERSAL": "mxu"}, {"PT_SUBPACKET": "1"}, {"PT_SUBPACKET": "2"},
-    {"PT_SUBPACKET": "3"}, {"PT_ABLATE_LEAF": "1"}])
-def test_unported_mesh_knobs_raise(monkeypatch, env):
+@pytest.mark.parametrize("env,walk", [
+    ({"PT_TRAVERSAL": "mxu"}, ("block", "mma")),
+    ({"PT_SUBPACKET": "1"}, ("block", "simt")),
+    ({"PT_SUBPACKET": "2"}, ("block", "simt")),
+    ({"PT_SUBPACKET": "3"}, ("warp", "simt")),
+    ({"PT_ABLATE_LEAF": "1"}, ("thread", "none"))])
+def test_unported_mesh_knobs_raise(monkeypatch, env, walk):
+    # the knobs of the TPU's sub-packet gating, per-chunk walks, MXU leaf
+    # machine and leaf ablation no longer raise: each selects the
+    # kernel's walk of its counterpart, whose plain version renders the
+    # teapot as the per-thread walk does (the node walk alone sees through
+    # it)
     _, _, _, ts, ta, tm = _packed("teapot")
     cfg = RenderConfig(**CFG)
     xs, ys, _ = mk.tile_pixel_layout(32, 24, 8, 512, order="block",
                                      spp_pack=4, pack_axis="chunk")
-    tabs = [torch.from_numpy(t) for t in (
-        mk.build_camera_vec(ts.camera), mk.build_scene_table(ta, tm),
-        *mk.build_mesh_tables(ta, tm), xs, ys)]
+
+    def render():
+        tabs = [torch.from_numpy(t) for t in (
+            mk.build_camera_vec(ts.camera), mk.build_scene_table(ta, tm),
+            *mk.build_mesh_tables(ta, tm), xs, ys)]
+        return torch.stack(mk.trace_tiles(
+            (0, 0), *tabs, meta=tm, cfg=cfg, spp=8, total_samples=8,
+            tile=(8, 512), spp_pack=4, pack_axis="chunk")).numpy()
+
+    classic = render()
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="K1-mesh variants"):
-        mk.trace_tiles((0, 0), *tabs, meta=tm, cfg=cfg, spp=8,
-                       total_samples=8, tile=(8, 512), spp_pack=4,
-                       pack_axis="chunk")
+    assert mk.mesh_walk() == mk.Walk(*walk)
+    got = render()
+    assert np.isfinite(got).all()
+    if walk[1] == "none":
+        assert np.abs(got - classic).mean() > 1e-3
+    else:
+        assert np.abs(got - classic).mean() < 1e-4
     if "PT_TRAVERSAL" in env:
-        with pytest.raises(NotImplementedError, match="K1-mesh variants"):
-            mk.build_mesh_tables(ta, tm)
+        # the MXU blocks ride after the classic rows of the triangle table
+        tris = mk.build_mesh_tables(ta, tm)[1]
+        classic_rows = -(-tm.n_tri_slots // 4)
+        assert tris.shape[0] == classic_rows + mk._mxu_rows(tm)
     # primitive scenes do not read the mesh knobs, as in the JAX package
     ra, rm = get_scene("reference", cfg).pack(device=CPU)
     assert mk.build_mesh_tables(ra, rm)[0].shape == (1, 16)
