@@ -20,11 +20,14 @@ kernel's own fetch function at random UVs over a 2048x1024 texture, the
 counterpart of the JAX package's tools/tex_vmem_probe.py) and measures
 what the JAX package's 128x128-area mip costs `envmap-file` (per-pixel
 mean abs difference of two renders, full pool against the mip). With
-`--ab-parent DIR` (DIR holding another checkout's pathtracer_tpu_torch),
-phase 5 also times K1, K1-mesh and K1-tex (`textures`) built from that
-tree against this one, in turns, and requires bit-equal outputs, then K6
-(`reference`) under the gradient rule, and requires the instantiations
-both trees have to keep their ptxas register, stack and spill counts.
+`--ab-parent DIR` (DIR holding another checkout's pathtracer_tpu_torch;
+the option may be given more than once, each tree in turn), phase 5 also
+times K1, K1-mesh, K1-tex (`textures`) and K1-nee (`reference`,
+`teapot`) built from that tree against this one, in turns,
+and requires bit-equal outputs, then K6 (`reference`) under the gradient
+rule, and requires the instantiations without NEE that both trees have to
+keep their ptxas register, stack and spill counts (the NEE ones' are
+printed before and after).
 Then the gradient kernel (K6, the same source's kGrad instantiations):
 phase 6 holds it against its plain version at 1280x960x4 spp in object mode
 on `reference` and in triangle mode on `teapot` and the size-check mesh,
@@ -42,18 +45,26 @@ make_megakernel_step_tex as bench.py measures `fwd_bwd_textures-train`,
 and a short `train_demo --tex`. Next-event estimation (K1-nee, the kNee
 instantiations): phase 3 holds it bit for bit against its plain version on
 `reference`, `transparency_quad_lights`, `transparency_f_light`, `teapot`,
-`textures`, `cubemap`, with depth of field and with PT_COHERENT=0 at
-160x120; phase 4 renders `reference --nee` and `teapot --nee` at
-1280x960x2048 spp through the CLI, checks the launch counts and each image,
-and requires the last segment bit-equal to the plain version; phase 5 times
-K1-nee at 1280x960x8 spp beside K1 on the same samples, and measures what
-a runtime branch in place of the kNee flag would cost the renders without
-NEE (the NEE instantiation with no light against the one without NEE code,
-and their ptxas counts). Phase 9 runs the intersect-only kernel (K5) on
-9,830,400 rays a batch (1280x960x8 jittered camera rays, then one bounce of
-random rays from their hits, on the incoming side) on `reference`, `teapot`
-and the size-check mesh, bit for bit against its plain version, and times
-it. The mesh walks of the JAX package's knobs (Kernel A, the warp-packet
+`textures`, `cubemap`, with depth of field, with PT_COHERENT=0 and on the
+tie scenes (each light with a copy of itself after and before it, on the
+primitive and the mesh instantiation) at 160x120, and the light point's
+sincosf against torch.sin and torch.cos on every f32 angle of its ranges
+(bit for bit); phase 4 renders
+`reference --nee` and `teapot --nee` at 1280x960x2048 spp through the
+CLI, checks the launch counts and each image, requires the last segment
+bit-equal to the plain version (whose counts hold the kernel's shadow
+query, light_visible, to the nearest-hit rule on every cast shadow ray)
+and prints the shares of the shadow rays that miss their light, stop at
+an occluder and are lit; phase 5 times K1-nee at 1280x960x8 spp beside
+K1 and K1-mesh on the same samples, with the bound of the query's own
+work and, beside it, that of the JAX kernel's nearest-hit work, prints the ptxas counts of the per-thread NEE
+instantiations, and measures what a runtime branch in place of the kNee
+flag would cost the renders without NEE (the NEE instantiation with no
+light against the one without NEE code, and their ptxas counts). Phase 9
+runs the intersect-only kernel (K5) on 9,830,400 rays a batch (1280x960x8
+jittered camera rays, then one bounce of random rays from their hits, on
+the incoming side) on `reference`, `teapot` and the size-check mesh, bit
+for bit against its plain version, and times it. The mesh walks of the JAX package's knobs (Kernel A, the warp-packet
 walk: PT_SUBPACKET 1/2/3; Kernel B, its tensor-core leaves:
 PT_TRAVERSAL=mxu; the node walk alone: PT_ABLATE_LEAF=1) and the probes
 (P2, probes/op_rate.py; P3, probes/leaf_bench.py): phase 2 builds the
@@ -124,7 +135,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from _torch_scenes import (ATOL, MEAN_REL, RTOL, SLOT_FRAC,  # noqa: E402
                            bounce_rays, camera_rays, cylinder_scene,
                            grad_inputs, grad_rule, port_inputs,
-                           size_check_scene, tex_grad_rule)
+                           sincos_mismatches, size_check_scene,
+                           tex_grad_rule, tie_scene)
 
 MAIN_MEAN_REL = 0.02         # 2048-spp image vs an 8-spp plain render
 TILE = (64, 256)             # the driver's tile for primitive scenes
@@ -254,10 +266,15 @@ def n_triangles(sc) -> int:
                if isinstance(o, shapes.Group))
 
 
-def work_bound(counts, meta, in_bytes, out_bytes, grad=False, f32=False):
+def work_bound(counts, meta, in_bytes, out_bytes, grad=False, f32=False,
+               query=False):
     """(bound ms, "operations" or "bytes", ops) of a kernel run whose work
     the plain version counted in `counts` (see OPS_*); `f32`: the fetches
-    load f32 texels, with no decode."""
+    load f32 texels, with no decode. The cast shadow rays count the JAX
+    kernel's work, a nearest hit over every object and the walks it
+    makes; with `query` the occlusion query's own (K1-nee's light_visible:
+    the object tests, nodes and leaf slots of _light_visible's counts)."""
+    c = lambda k: counts.get(k, 0)  # noqa: E731
     plain_uv = (counts["texel_fetches"] - counts["uv_sphere"]
                 - counts["uv_cube"])
     fetch = OPS_FETCH - (OPS_DECODE if f32 else 0)
@@ -265,15 +282,22 @@ def work_bound(counts, meta, in_bytes, out_bytes, grad=False, f32=False):
     ops = (OPS_SAMPLE * counts["samples"]
            + counts["bounces"] * per_ray
            + (OPS_HIT + (OPS_GRAD_HIT if grad else 0)) * counts["hits"]
-           + OPS_NODE * counts["node_visits"]
-           + OPS_LEAF_SLOT * counts["leaf_slots"]
+           + OPS_NODE * (counts["node_visits"] - c("shadow_nodes"))
+           + OPS_LEAF_SLOT * (counts["leaf_slots"] - c("shadow_slots"))
            + fetch * counts["texel_fetches"]
-           + OPS_SCATTER * counts.get("texel_scatters", 0)
+           + OPS_SCATTER * c("texel_scatters")
            + OPS_UV["plane"] * plain_uv + OPS_UV["sphere"] * counts["uv_sphere"]
            + OPS_UV["cube"] * counts["uv_cube"]
-           + OPS_SHADOW * counts.get("shadow_rays", 0)
-           + per_ray * counts.get("shadow_tests", 0)
-           + OPS_SHADOW_LIT * counts.get("shadow_lit", 0))
+           + OPS_SHADOW * c("shadow_rays")
+           + OPS_SHADOW_LIT * c("shadow_lit"))
+    if query:
+        ops += (sum(OPS_OBJECT[code] * c(f"query_{name}")
+                    for code, name in mk.TYPE_NAMES.items())
+                + OPS_NODE * c("query_nodes")
+                + OPS_LEAF_SLOT * c("query_slots"))
+    else:
+        ops += (per_ray * c("shadow_tests") + OPS_NODE * c("shadow_nodes")
+                + OPS_LEAF_SLOT * c("shadow_slots"))
     return bound_of(ops, in_bytes + out_bytes)
 
 
@@ -291,7 +315,7 @@ def nbytes(*tensors) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def fwd_bound(counts, tabs, kw):
+def fwd_bound(counts, tabs, kw, query=False):
     """work_bound of a forward launch on `tabs` with trace_tiles keywords
     `kw`: its tables, texel pool (or f32 texels, read as [T, 4]) and pixel
     maps in, three f32 sums out."""
@@ -299,7 +323,29 @@ def fwd_bound(counts, tabs, kw):
     ins = nbytes(*tabs, kw.get("tex_pool"), kw.get("tex_table")) + (
         0 if texels is None else texels.shape[0] * 16)
     return work_bound(counts, kw["meta"], ins, 3 * nbytes(tabs[4]),
-                      f32=texels is not None)
+                      f32=texels is not None, query=query)
+
+
+def shadow_shares(counts) -> dict:
+    """The shares of the cast shadow rays that miss their light, stop at an
+    occluder and are lit (_light_visible's counts)."""
+    n = max(counts["shadow_tests"], 1)
+    return {k: counts[c] / n for k, c in (
+        ("missed", "shadow_light_missed"), ("occluded", "shadow_occluded"),
+        ("lit", "shadow_lit"))}
+
+
+def shadow_text(counts) -> str:
+    """The shadow rays' counts and the query's, for a phase line."""
+    sh = shadow_shares(counts)
+    return (f"{counts['shadow_rays']} light points, {counts['shadow_tests']} "
+            f"shadow rays cast: {sh['missed']:.4f} miss the light, "
+            f"{sh['occluded']:.4f} stop at an occluder, {sh['lit']:.4f} lit; "
+            f"nearest-hit walks {counts['shadow_nodes']} nodes "
+            f"{counts['shadow_slots']} slots, the query's "
+            f"{counts['query_nodes']} nodes {counts['query_slots']} slots; "
+            f"query object tests " + ", ".join(
+                f"{n} {counts['query_' + n]}" for n in mk.TYPE_NAMES.values()))
 
 
 def spread_tiles(tabs, tile, n):
@@ -411,6 +457,8 @@ def kernel_name(mangled: str) -> str:
         return "fetch probe"
     if "mma_pairs" in mangled:
         return "mma pairs probe"
+    if "sincos_check" in mangled:
+        return "sincos check"
     m = re.search(r"leaf_benchILi(\d+)E", mangled)
     if m:
         return f"leaf bench {BENCH_WORDS[int(m.group(1))]}"
@@ -588,6 +636,9 @@ def reference_main_path(tmp, dev, card, nee=False):
     if not np.isfinite(k).all() or bit_eq != 1.0:
         raise AssertionError(f"{tag}: kernel differs from the plain version "
                              "on the main path's segment")
+    if nee:
+        phase(f"{tag}: the segment's shadow rays (the query held to the "
+              f"nearest-hit rule on each): {shadow_text(counts)}")
     return dict(launches=n["launches"], nee=n["nee"], seed=seed, tabs=tabs,
                 kw=kw, p_ms=p_ms, counts=counts, bit_eq=bit_eq, frac=frac,
                 err=err, tabs8=tabs8, kw8=kw8, p8_ms=p8_ms, c8=c8,
@@ -647,6 +698,11 @@ def teapot_main_path(tmp, dev, card, mesh_tris, nee=False):
     if not np.isfinite(k).all() or bit_eq != 1.0:
         raise AssertionError(f"{tag}: kernel differs from the plain version "
                              "on the main path's segment")
+    if nee:
+        phase(f"{tag}: the segment's shadow rays (the query held to the "
+              f"nearest-hit rule on each; "
+              f"{'all tiles' if full else 'the first 64 tiles, scaled'}): "
+              f"{shadow_text(counts)}")
     # the mean check's plain render: 8 spp with per-slot draws
     # (PT_COHERENT=0, the same estimator). The coherent draws of a mesh
     # tile are shared by a whole 32x32-pixel block, so the mean of one
@@ -843,8 +899,11 @@ def ab_parent(parent: str, cases, card, ptxas):
     over. `cases` maps a tag to (fn, exact): fn() launches and returns the
     outputs, which must be bit-equal when `exact` (forward kernels) and
     agree by the gradient rule otherwise. The instantiations both builds
-    have must keep their ptxas counts (`ptxas`: this build's lines).
-    Returns {case: (parent median ms, this median ms)}."""
+    have must keep their ptxas counts (`ptxas`: this build's lines), but
+    for the NEE instantiations, whose shadow rays and light point the
+    other tree may compute otherwise: their counts are printed before and
+    after. Returns ({case: (parent median ms, this median ms)}, {NEE
+    instantiation: (parent counts, this build's)})."""
     key = ("megakernel", _build.NVCC_FLAGS)
     mine = mk.library()
     src = _build.CSRC
@@ -862,11 +921,15 @@ def ab_parent(parent: str, cases, card, ptxas):
     for line in parent_lines:
         phase(f"phase 5 A/B: parent ptxas: {line}")
     theirs, ours = ptxas_counts(parent_lines), ptxas_counts(ptxas)
+    nee = {k: (v, ours.get(k)) for k, v in theirs.items()
+           if "nee" in k.split()}
     moved = {k: (v, ours.get(k)) for k, v in theirs.items()
-             if ours.get(k) != v}
+             if ours.get(k) != v and k not in nee}
     phase(f"phase 5 A/B: ptxas (registers, stack, spill stores, spill "
-          f"loads) of the {len(theirs)} instantiations both builds have: "
-          f"{'unchanged' if not moved else moved}")
+          f"loads) of the {len(theirs) - len(nee)} instantiations without "
+          f"NEE both builds have: {'unchanged' if not moved else moved}")
+    phase(f"phase 5 A/B: ptxas of the NEE instantiations, parent then "
+          f"this: {nee}")
     if moved:
         raise AssertionError(f"phase 5 A/B: ptxas counts moved: {moved}")
     out = {}
@@ -893,7 +956,7 @@ def ab_parent(parent: str, cases, card, ptxas):
             out[tag] = (pm, tm)
     finally:
         _build._loaded[key] = mine
-    return out
+    return out, nee
 
 
 def nee_timing(ref_nee, tea_nee, card):
@@ -915,19 +978,26 @@ def nee_timing(ref_nee, tea_nee, card):
             runs[who].append(cuda_ms(lambda: mk.trace_tiles(
                 seed, *tabs, **(kw if who == "nee" else k1kw)), 10))
         n_ms, k_ms = min(runs["nee"]), min(runs["k1"])
-        b_ms, b_by, ops = fwd_bound(counts, tabs, kw)
+        b_ms, b_by, ops = fwd_bound(counts, tabs, kw, query=True)
+        j_ms, j_by, j_ops = fwd_bound(counts, tabs, kw)
         plain = ("plain" if name == "reference" or d["full"] else
                  "plain on the first 64 tiles")
+        k1_name = "K1-mesh" if kw["meta"].has_groups else "K1"
         phase(f"phase 5 nee: {name} {W}x{H}x{kw['spp']} spp: K1-nee "
-              f"{n_ms:.4f} ms, K1 on the same samples {k_ms:.4f} ms "
+              f"{n_ms:.4f} ms, {k1_name} on the same samples {k_ms:.4f} ms "
               f"({n_ms / k_ms:.2f}x); {plain} {p_ms:.1f} ms; bound "
-              f"{b_ms:.4f} ms ({b_by}; {ops:.4g} f32 ops; "
-              f"{counts['shadow_rays']} light points, "
-              f"{counts['shadow_tests']} shadow rays cast, "
-              f"{counts['shadow_lit']} lit); timings K1-nee {runs['nee']}, "
-              f"K1 {runs['k1']}; card {card}")
+              f"{b_ms:.4f} ms ({b_by}; {ops:.4g} f32 ops: the query's own "
+              f"work), the JAX kernel's work (a nearest hit a shadow ray) "
+              f"{j_ms:.4f} ms ({j_by}; {j_ops:.4g} f32 ops); "
+              f"{shadow_text(counts)}; "
+              f"timings K1-nee {runs['nee']}, {k1_name} {runs['k1']}; card "
+              f"{card}")
         out[name] = dict(ms=n_ms, k1_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                         bound_by=b_by, shadow_rays=counts["shadow_rays"])
+                         bound_by=b_by, jax_work_bound_ms=j_ms,
+                         jax_work_bound_by=j_by,
+                         shadow_rays=counts["shadow_rays"],
+                         shadow_tests=counts["shadow_tests"],
+                         shares=shadow_shares(counts))
     return out
 
 
@@ -1719,10 +1789,11 @@ def tex_training(dev, card):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ab-parent", metavar="DIR",
-                    help="A/B K1, K1-mesh, K1-tex and K6 (the instantiations "
-                         "without NEE) against the csrc of the "
-                         "pathtracer_tpu_torch under DIR (phase 5)")
+    ap.add_argument("--ab-parent", metavar="DIR", action="append",
+                    default=[],
+                    help="A/B K1, K1-mesh, K1-tex, K6 and K1-nee against "
+                         "the csrc of the pathtracer_tpu_torch under DIR "
+                         "(phase 5); may be given more than once")
     args = ap.parse_args(argv)
     # ---- phase 1: the card ----------------------------------------------
     smi = subprocess.run(
@@ -1789,7 +1860,9 @@ def main(argv=None) -> int:
     # NEE (the kNee instantiations) bit for bit: 1, 4 and 3 lights, the
     # mesh shadow walk on the driver's mesh layout, the textured
     # instantiations (`cubemap`: textured and mesh), depth of field and
-    # per-slot draws (PT_COHERENT=0)
+    # per-slot draws (PT_COHERENT=0), and the shadow query's ties: each
+    # light with a copy of itself after it and before it (tie_scene), on
+    # the primitive and the mesh instantiation
     nsmall = small.replace(nee=True)
     nmesh = msmall.replace(nee=True)
     nee_cases = [(n, get_scene(n, nsmall), nsmall, TILE, 0) for n in (
@@ -1799,7 +1872,10 @@ def main(argv=None) -> int:
         ("textures", get_scene("textures", nmesh), nmesh, None, 0),
         ("cubemap", get_scene("cubemap", nmesh), nmesh, None, 0),
         ("reference dof", get_scene("reference", dof.replace(nee=True)),
-         dof.replace(nee=True), TILE, 16)]
+         dof.replace(nee=True), TILE, 16),
+        ("tie", tie_scene(nsmall, get_scene), nsmall, TILE, 0),
+        ("tie mesh", tie_scene(nmesh, get_scene, "teapot"), nmesh,
+         MESH_TILE, 0)]
     nee_errs = [compare(f"nee {name}", sc, cfg, tile, base, dev,
                         exact=True)[0]
                 for name, sc, cfg, tile, base in nee_cases]
@@ -1807,6 +1883,18 @@ def main(argv=None) -> int:
         nee_errs.append(compare("nee reference, PT_COHERENT=0",
                                 get_scene("reference", nsmall), nsmall, TILE,
                                 0, dev, exact=True)[0])
+    # the light point's sin/cos: one sincosf an angle in the kernel,
+    # torch.sin and torch.cos in the plain version, on every f32 angle
+    t0 = time.perf_counter()
+    n_ang, bad = sincos_mismatches(mk.light_sincos, dev)
+    sincos = dict(angles=n_ang, differing=bad,
+                  seconds=time.perf_counter() - t0)
+    phase(f"phase 3 nee: light_sincos (sincosf) against torch.sin and "
+          f"torch.cos on {n_ang} f32 angles (latitudes -3 .. -2 pi, "
+          f"longitudes 0 .. 2 pi): {bad} differ; {sincos['seconds']:.2f} s")
+    if bad:
+        raise AssertionError("phase 3: the light point's sincosf differs "
+                             "from torch.sin / torch.cos")
     # the mesh walks of the JAX package's knobs (Kernels A and B)
     walk_errs, leaf_check = walk_compare(dev, msmall, nmesh)
 
@@ -1899,17 +1987,24 @@ def main(argv=None) -> int:
     # NEE: K1-nee beside K1 on the same samples, and what a runtime branch
     # would cost the renders without NEE
     nee_times = nee_timing(ref_nee, tea_nee, card)
+    # the per-thread NEE instantiations, whose shadow rays ask light_visible
+    query_ptxas = {k: v for k, v in ptxas_counts(ptxas).items()
+                   if "nee" in k.split() and "packet" not in k}
+    phase(f"phase 5 nee: ptxas (registers, stack, spill stores, spill "
+          f"loads) of the per-thread NEE instantiations (light_visible): "
+          f"{query_ptxas}")
     branch = branch_cost({
         f"reference {W}x{H}x8 spp": ((1, 0), tabs8, kw8),
         f"teapot {W}x{H}x8 spp": (mseed, mtabs, mkw),
         f"textures {W}x{H}x8 spp": (tex_main["seed"], tex_main["tabs"],
                                     tex_main["kw"])}, ptxas, card)
+    ab = {}
     if args.ab_parent:
         gcfg = RenderConfig(width=W, height=H, samples=GRAD_SPP,
                             samples_per_pass=GRAD_SPP)
         gtabs, gmeta, _, gcots = grad_setup(get_scene("reference", gcfg),
                                             gcfg, dev)
-        ab_parent(args.ab_parent, {
+        ab_cases = {
             f"reference {W}x{H}x8 spp": (
                 lambda: mk.trace_tiles((1, 0), *tabs8, **kw8), True),
             f"teapot {W}x{H}x8 spp": (
@@ -1921,7 +2016,21 @@ def main(argv=None) -> int:
                 lambda: tg.grad_tiles(
                     (3, 0), *gtabs, *gcots, meta=gmeta, cfg=gcfg,
                     spp=GRAD_SPP, total_samples=GRAD_SPP, tile=GRAD_TILE),
-                False)}, card, ptxas)
+                False),
+            f"K1-nee reference {W}x{H}x8 spp": (
+                lambda: mk.trace_tiles((1, 0), *ref_nee["tabs8"],
+                                       **ref_nee["kw8"]), True),
+            f"K1-nee teapot {W}x{H}x8 spp": (
+                lambda: mk.trace_tiles(tea_nee["seed"], *tea_nee["tabs"],
+                                       **tea_nee["kw"]), True)}
+        for d in args.ab_parent:
+            phase(f"phase 5 A/B: against {d}")
+            ab[d] = ab_parent(d, ab_cases, card, ptxas)
+            for name in ("reference", "teapot"):
+                pm, tm = ab[d][0][f"K1-nee {name} {W}x{H}x8 spp"]
+                phase(f"phase 5 nee: {name}: K1-nee {tm:.4f} ms against "
+                      f"{d}'s {pm:.4f} ms ({tm / pm:.3f}x), in turns; card "
+                      f"{card}")
 
     # the mesh walks, each on the same samples, with K1-mesh's bound
     walk_times = walk_timing(dev, card)
@@ -2060,7 +2169,15 @@ def main(argv=None) -> int:
          "runtime_branch_ms": {k: {"flag": v[0], "branch": v[1]}
                                for k, v in branch[0].items()},
          "ptxas_nee_vs_twin": {k: [list(a), list(b) if b else None]
-                               for k, (a, b) in branch[1].items()}},
+                               for k, (a, b) in branch[1].items()},
+         "jax_work_bound_ms": nee_times["reference"]["jax_work_bound_ms"],
+         "sincos_check": sincos,
+         "shadow_shares": {n: nee_times[n]["shares"] for n in nee_times},
+         "ptxas_query": {k: list(v) for k, v in query_ptxas.items()},
+         "ptxas_nee_parent": {d: {k: list(v[0]) for k, v in a[1].items()}
+                              for d, a in ab.items()},
+         "parent_ms": {d: {k: v[0] for k, v in a[0].items() if "K1-nee" in k}
+                       for d, a in ab.items()}},
         {"name": "intersect", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
          "replaces": "pathtracer_tpu/render/pallas_kernel.py:2690",

@@ -110,15 +110,25 @@
 // point on the light's sphere (the reference's randomPointOnSphere, its
 // latitude offset kept); when the light is the shadow ray's nearest hit,
 // the sum gains mask * color * emission * ldn * attenuation, with the mask
-// before this bounce's update and the color after the texel fetch. The
-// shadow ray's nearest hit is nearest_hit, the function the bounce's own
-// intersection calls, so the mesh shadow walk is walk_group. Its two draws
-// (ids 6 + 2 li, 7 + 2 li) are coherent draws, like the roulette's. A fifth
-// template flag, kNee, compiles the block into four forward instantiations
-// (kMesh x kTex) only: the light indices ride in the launch parameters,
-// and the instantiations without NEE keep the code (and the registers)
-// they had. The gradient and f32-texel instantiations have no NEE: the
-// differentiable render refuses it, as the JAX package's does.
+// before this bounce's update and the color after the texel fetch. Its two
+// draws (ids 6 + 2 li, 7 + 2 li) are coherent draws, like the roulette's.
+// The JAX block finds the shadow ray's nearest hit over every object and
+// compares the winner with the light; the estimator needs one bit and the
+// light's t. So on the per-thread walk the shadow ray asks light_visible,
+// an occlusion query: the light is tested first, a missed light ends it,
+// and the first occluder ends it (a GROUP's walk stops at its first
+// occluding triangle), with no hit record kept. It decides by nearest_hit's
+// rule on nearest_hit's values of t, so the sums are the plain version's
+// (which keeps the nearest hit) bit for bit; light_visible says why, and
+// where a GROUP before the light must keep nearest_hit's running bt. The
+// packet walks (kWalk) keep nearest_hit for their shadow rays: every lane
+// must reach the group's votes, which a per-lane early exit would break. A
+// fifth template flag, kNee, compiles the block into four forward
+// instantiations (kMesh x kTex) and the walk variants only: the light
+// indices ride in the launch parameters, and the instantiations without
+// NEE keep the code (and the registers) they had. The gradient and
+// f32-texel instantiations have no NEE: the differentiable render refuses
+// it, as the JAX package's does.
 //
 // The intersect-only kernel (K5). Replaces _make_intersect_kernel
 // (pallas_kernel.py:2690, launched by intersect_tiles :2814 for
@@ -555,11 +565,14 @@ __device__ __forceinline__ float inv_safe(float d, float eps) {
 // (pallas_kernel.py:1256-1331), one after the other with a strict `<`: a
 // slot hit below bt and t_max becomes the winner (its slot and
 // barycentrics) and the new bt, which is returned. The per-thread walk, the
-// warp-packet walk and the leaf microbenchmark (P3) share it.
+// warp-packet walk and the leaf microbenchmark (P3) share it. kAny (the
+// shadow query, light_visible): return at the first winner below `cut`.
+template <bool kAny = false>
 __device__ __forceinline__ float leaf_simt(const Params& p, int s0, float ox,
                                            float oy, float oz, float dx,
                                            float dy, float dz, float bt,
-                                           int& slot, float& wu, float& wv) {
+                                           int& slot, float& wu, float& wv,
+                                           float cut = 0.0f) {
   const float eps = p.eps;
   for (int k = 0; k < p.leaf_size; ++k) {
     const float* tr = p.tris + (size_t)(s0 + k) * kTriStride;
@@ -585,6 +598,9 @@ __device__ __forceinline__ float leaf_simt(const Params& p, int s0, float ox,
       slot = s0 + k;
       wu = u;
       wv = v;
+      if constexpr (kAny) {
+        if (bt < cut) return bt;
+      }
     }
   }
   return bt;
@@ -595,12 +611,15 @@ __device__ __forceinline__ float leaf_simt(const Params& p, int s0, float ox,
 // triangle hit below it (and below t_max), or `bt` unchanged. On a hit,
 // `slot` is the winning triangle slot and (u, v) its barycentrics. kLeaf
 // LEAF_NONE walks the nodes alone (PT_ABLATE_LEAF=1: no triangle is hit).
-template <int kLeaf = LEAF_SIMT>
+// kAny, the shadow query's any-hit walk: it returns as soon as a winner
+// lies below `cut` (cut <= bt on entry), which decides the query; until
+// then it walks, prunes and tests exactly as the nearest-hit walk does.
+template <int kLeaf = LEAF_SIMT, bool kAny = false>
 __device__ __forceinline__ float walk_group(const Params& p, int root, int end,
                                          float ox, float oy, float oz,
                                          float dx, float dy, float dz,
                                          float bt, int& slot, float& wu,
-                                         float& wv) {
+                                         float& wv, float cut = 0.0f) {
   const float eps = p.eps;
   const float ivx = inv_safe(dx, eps);
   const float ivy = inv_safe(dy, eps);
@@ -627,9 +646,13 @@ __device__ __forceinline__ float walk_group(const Params& p, int root, int end,
                              fmaxf(az1, az2));
     const bool hit = (tmin <= tmax) && (tmax > eps) && (tmin < bt);
     if (hit && __ldg(nd + 7) > 0.5f) {
-      if constexpr (kLeaf == LEAF_SIMT)
-        bt = leaf_simt(p, (int)__ldg(nd + 6), ox, oy, oz, dx, dy, dz, bt,
-                       slot, wu, wv);
+      if constexpr (kLeaf == LEAF_SIMT) {
+        bt = leaf_simt<kAny>(p, (int)__ldg(nd + 6), ox, oy, oz, dx, dy, dz,
+                             bt, slot, wu, wv, cut);
+        if constexpr (kAny) {
+          if (bt < cut) return bt;
+        }
+      }
     }
     idx = hit ? idx + 1 : (int)__ldg(nd + 8);
   }
@@ -896,14 +919,31 @@ struct Hit {
   float tu, tv;                        // its barycentrics
 };
 
+// Object row m's transform of the ray into object space (nearest_hit's and
+// object_t's).
+__device__ __forceinline__ void object_ray(const float* m, float ox, float oy,
+                                           float oz, float dx, float dy,
+                                           float dz, float& tox, float& toy,
+                                           float& toz, float& tdx, float& tdy,
+                                           float& tdz) {
+  tox = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
+  toy = m[4] * ox + m[5] * oy + m[6] * oz + m[7];
+  toz = m[8] * ox + m[9] * oy + m[10] * oz + m[11];
+  tdx = m[0] * dx + m[1] * dy + m[2] * dz;
+  tdy = m[4] * dx + m[5] * dy + m[6] * dz;
+  tdz = m[8] * dx + m[9] * dy + m[10] * dz;
+}
+
 // Every object's transform and test in table order, a GROUP's
 // object-space box pretest and then its walk, the winner replaced on a
 // strictly smaller t: the TPU kernels' unrolled object loop (the intersect
 // section of _make_kernel, the NEE shadow loop pallas_kernel.py:2452-2498,
-// _make_intersect_kernel :2741-2790). The bounce, the shadow rays and the
-// intersect-only kernel all call it; `s_obj` is the object table. Under a
-// packet walk (kWalk) every lane of the group calls it together, `active`
-// false for a lane without a ray, which no walk then counts.
+// _make_intersect_kernel :2741-2790). The bounce and the intersect-only
+// kernel call it, and the shadow rays of the packet walks; the per-thread
+// shadow rays ask light_visible, which answers by this rule. `s_obj` is the
+// object table. Under a packet walk (kWalk) every lane of the group calls
+// it together, `active` false for a lane without a ray, which no walk then
+// counts.
 template <bool kMesh, int kWalk = WALK_THREAD, int kLeaf = LEAF_SIMT>
 __device__ __forceinline__ Hit nearest_hit(const Params& p,
                                            const float* s_obj, float ox,
@@ -914,15 +954,11 @@ __device__ __forceinline__ Hit nearest_hit(const Params& p,
   Hit h{kBig, -1, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1, 0.f, 0.f};
   for (int j = 0; j < p.n_obj; ++j) {
     const float* m = s_obj + j * kObjCols;
-    const float tox = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
-    const float toy = m[4] * ox + m[5] * oy + m[6] * oz + m[7];
-    const float toz = m[8] * ox + m[9] * oy + m[10] * oz + m[11];
-    const float tdx = m[0] * dx + m[1] * dy + m[2] * dz;
-    const float tdy = m[4] * dx + m[5] * dy + m[6] * dz;
-    const float tdz = m[8] * dx + m[9] * dy + m[10] * dz;
-    float t;
+    float tox, toy, toz, tdx, tdy, tdz;
+    object_ray(m, ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy, tdz);
     int g_slot = -1;
     float g_u = 0.f, g_v = 0.f;
+    float t;
     switch (p.obj_types[j]) {
       case PLANE: t = plane_t(toy, tdy, eps); break;
       case SPHERE: t = sphere_t(tox, toy, toz, tdx, tdy, tdz, eps); break;
@@ -975,6 +1011,108 @@ __device__ __forceinline__ Hit nearest_hit(const Params& p,
     }
   }
   return h;
+}
+
+// Object j's t for the ray, by nearest_hit's object_ray and its tests: a
+// GROUP's box pretest against bt and then walk_group from bt with the
+// any-hit exit below `cut` (kBig when the pretest fails, bt when no
+// triangle wins). The type switch is nearest_hit's, kept apart: one
+// function for both moved the register count of the intersect kernel's
+// mesh instantiation, which has no NEE and keeps its code.
+template <bool kMesh, int kLeaf>
+__device__ __forceinline__ float object_t(const Params& p, const float* s_obj,
+                                          int j, float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float bt, float cut) {
+  const float eps = p.eps;
+  const float* m = s_obj + j * kObjCols;
+  float tox, toy, toz, tdx, tdy, tdz;
+  object_ray(m, ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy, tdz);
+  switch (p.obj_types[j]) {
+    case PLANE: return plane_t(toy, tdy, eps);
+    case SPHERE: return sphere_t(tox, toy, toz, tdx, tdy, tdz, eps);
+    case CYLINDER:
+      return cylinder_t(tox, toy, toz, tdx, tdy, tdz, m[32], m[33], eps);
+    default:
+      if constexpr (kMesh) {
+        if (p.obj_types[j] != BOX) {
+          float x1, x2, y1, y2, z1, z2;
+          axis_slab(tox, tdx, m[34], m[37], eps, x1, x2);
+          axis_slab(toy, tdy, m[35], m[38], eps, y1, y2);
+          axis_slab(toz, tdz, m[36], m[39], eps, z1, z2);
+          const float gtmin = fmaxf(fmaxf(x1, y1), z1);
+          const float gtmax = fminf(fminf(x2, y2), z2);
+          if (!(gtmin <= gtmax && gtmax > eps && gtmin < bt)) return kBig;
+          int slot;
+          float u, v;
+          return walk_group<kLeaf, true>(p, p.group_root[j], p.group_end[j],
+                                         tox, toy, toz, tdx, tdy, tdz, bt,
+                                         slot, u, v, cut);
+        }
+      }
+      return box_t(tox, toy, toz, tdx, tdy, tdz, eps);
+  }
+}
+
+// The shadow ray's query on the per-thread walk: whether light l is the
+// ray's nearest hit, with eps < t < t_max, and at what t (t_l, for the
+// attenuation). nearest_hit replaces its winner on a strictly smaller t in
+// table order, so l wins exactly when eps < t_l < t_max, t_l < kBig, no
+// object j < l has t_j <= t_l and no object j > l has t_j < t_l; every t_j
+// is nearest_hit's value, so the answer is its answer bit for bit. A
+// primitive light is tested first and a missed light ends the query; then
+// the others in table order, the first occluder ending it (t_j < cut, with
+// cut = the float after t_l before l, t_l after it). A GROUP before l
+// pretests and walks from the running minimum of the objects before it, as
+// in nearest_hit, not from t_l: the walk's node pruning (tmin < bt) must
+// see nearest_hit's bt; its any-hit exit below cut decides the query
+// without changing what the walk tests before it. A GROUP light (none of
+// the repository's scenes has one) is walked in its place in the table.
+// The light's own test is the loop's iteration -1, so object_t has one
+// call site and one walk is inlined.
+template <bool kMesh, int kLeaf>
+__device__ __forceinline__ bool light_visible(const Params& p,
+                                              const float* s_obj, int l,
+                                              float ox, float oy, float oz,
+                                              float dx, float dy, float dz,
+                                              float& t_l) {
+  const float eps = p.eps;
+  const bool group_light = kMesh && p.obj_types[l] == GROUP;
+  float tl = kBig, cut = -kBig;
+  float bt = kBig;  // the running minimum before l; tl from l on
+  for (int k = group_light ? 0 : -1; k < p.n_obj; ++k) {
+    if (k == l && !group_light) {
+      bt = tl;
+      cut = tl;
+      continue;
+    }
+    const float t = object_t<kMesh, kLeaf>(p, s_obj, k < 0 ? l : k, ox, oy,
+                                           oz, dx, dy, dz, bt,
+                                           k == l ? -kBig : cut);
+    if (k < 0) {
+      if (!(t > eps && t < p.t_max && t < kBig)) return false;
+      tl = t;
+      cut = nextafterf(t, kBig);  // t_j <= tl exactly when t_j < cut
+    } else if (k == l) {  // the GROUP light
+      if (!(t < bt && t > eps && t < p.t_max)) return false;
+      tl = t;
+      bt = t;
+      cut = t;
+    } else {
+      if (t < cut) return false;
+      if (t < bt) bt = t;
+    }
+  }
+  t_l = tl;
+  return true;
+}
+
+// The sine and cosine of one of the light point's angles, by one sincosf.
+// The plain version takes torch.sin and torch.cos (sinf and cosf on the
+// card); sincos_check holds this to them on every f32 of the angles'
+// ranges, latitude [-2 pi, -pi] and longitude [0, 2 pi).
+__device__ __forceinline__ void light_sincos(float a, float& s, float& c) {
+  sincosf(a, &s, &c);
 }
 
 // acos(x) = atan2(sqrt(1 - x^2), x) for x in [-1, 1], by the polynomial
@@ -1332,10 +1470,12 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
               // its latitude offset and y term included
               const float lat = acos_poly(2.0f * nu1 - 1.0f) - kTwoPi;
               const float lon = kTwoPi * nu2;
-              const float cl = cosf(lat);
-              const float lpx = lm[40] + cl * cosf(lon) * lm[43];
-              const float lpy = lm[41] + (sinf(lat) - kQuarterPi) * lm[43];
-              const float lpz = lm[42] + cl * sinf(lon) * lm[43];
+              float sla, cl, slo, clo;
+              light_sincos(lat, sla, cl);
+              light_sincos(lon, slo, clo);
+              const float lpx = lm[40] + cl * clo * lm[43];
+              const float lpy = lm[41] + (sla - kQuarterPi) * lm[43];
+              const float lpz = lm[42] + cl * slo * lm[43];
               float sdx = lpx - wx, sdy = lpy - wy, sdz = lpz - wz;
               normalize3(sdx, sdy, sdz);
               const float ldn = dot3(sdx, sdy, sdz, nx, ny, nz);
@@ -1344,13 +1484,25 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
               if constexpr (!kPacket) {
                 if (!(ldn > 0.0f)) continue;
               }
-              const bool cast = !kPacket || (res && !is_light && ldn > 0.0f);
-              const Hit s = nearest_hit<kMesh, kWalk, kLeaf>(
-                  p, s_obj, wx + sdx * eps, wy + sdy * eps, wz + sdz * eps,
-                  sdx, sdy, sdz, cast);
-              if (cast && s.w == l && s.t > eps && s.t < p.t_max) {
+              bool lit;
+              float st = 0.0f;
+              if constexpr (kPacket) {
+                // every lane walks (the votes); a per-lane early exit
+                // would leave the group's collectives
+                const bool cast = res && !is_light && ldn > 0.0f;
+                const Hit s = nearest_hit<kMesh, kWalk, kLeaf>(
+                    p, s_obj, wx + sdx * eps, wy + sdy * eps, wz + sdz * eps,
+                    sdx, sdy, sdz, cast);
+                lit = cast && s.w == l && s.t > eps && s.t < p.t_max;
+                st = s.t;
+              } else {
+                lit = light_visible<kMesh, kLeaf>(
+                    p, s_obj, l, wx + sdx * eps, wy + sdy * eps,
+                    wz + sdz * eps, sdx, sdy, sdz, st);
+              }
+              if (lit) {
                 const float sxl = lm[44];
-                const float atten = 1.0f - s.t / sqrtf(s.t * s.t + sxl * sxl);
+                const float atten = 1.0f - st / sqrtf(st * st + sxl * sxl);
                 const float w_nee = ldn * atten;
                 sr = sr + mask_r * cr * lm[27] * w_nee;
                 sg = sg + mask_g * cg * lm[28] * w_nee;
@@ -1814,6 +1966,15 @@ __global__ void __launch_bounds__(kThreads)
   sample_pool(pool, base, w, h, u[i], v[i], out_r[i], out_g[i], out_b[i]);
 }
 
+// light_sincos of n angles x, one thread each (the check of the light
+// point's sin/cos).
+__global__ void __launch_bounds__(kThreads)
+    sincos_check(const float* x, float* s, float* c, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  light_sincos(x[i], s[i], c[i]);
+}
+
 }  // namespace
 
 // Launch the megakernel over n_slots = T*S*L slots on `stream`. obj_types,
@@ -1990,6 +2151,17 @@ extern "C" int pt_tex_fetch_launch(float* out_r, float* out_g, float* out_b,
   if (blocks > 0)
     tex_fetch<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         out_r, out_g, out_b, pool, u, v, n, (float)base, (float)w, (float)h);
+  return (int)cudaGetLastError();
+}
+
+// Launch sincos_check over n angles: s [n], c [n]. Returns as
+// pt_megakernel_launch does.
+extern "C" int pt_sincos_launch(const float* x, float* s, float* c, int n,
+                                void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0)
+    sincos_check<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(x, s, c, n);
   return (int)cudaGetLastError();
 }
 

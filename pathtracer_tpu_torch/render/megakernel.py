@@ -101,6 +101,13 @@ _BIG = 1e30
 _INV24 = float(2.0 ** -24)
 _M32 = 0xFFFFFFFF
 
+# the counts' names of the object types, and the counts of the shadow
+# query (_light_visible)
+TYPE_NAMES = {PLANE: "plane", SPHERE: "sphere", CYLINDER: "cylinder",
+               BOX: "box", GROUP: "group"}
+QUERY_COUNTS = ("shadow_light_missed", "shadow_occluded", "query_nodes",
+                "query_slots", *(f"query_{n}" for n in TYPE_NAMES.values()))
+
 _MESH_VARIANT_ITEM = ("ROADMAP queue 1, item 17 (the packet walks in the "
                       "gradient kernel)")
 
@@ -986,11 +993,15 @@ def _inv_safe(td, eps):
     return torch.where(ok, 1.0 / torch.where(ok, td, 1.0), _BIG)
 
 
-def leaf_tests(tri, start, leaf_size, eps, ox, oy, oz, dx, dy, dz):
+def leaf_tests(tri, start, leaf_size, eps, ox, oy, oz, dx, dy, dz,
+               cut=None):
     """Dual-basis tests of the leaf_size slots from `start` for each ray
     (pallas_kernel._leaf_tests). Returns (tw, slot, u, v): the closest
     valid t per ray (_BIG when none), its slot (the lowest on ties, as
-    the JAX min-tree keeps) and the barycentrics there."""
+    the JAX min-tree keeps) and the barycentrics there. With `cut` (per
+    ray, at most the ray's best t and t_max: the shadow query's any-hit
+    walk), a fifth tensor holds the slots the kernel's leaf_simt<true>
+    tests: up to the first valid t below the cut, where it returns."""
     ar = torch.arange(leaf_size, device=start.device)
     slots = start[:, None] + ar                      # [B, K]
     rows = tri[slots]                                # [B, K, 24]
@@ -1018,8 +1029,12 @@ def leaf_tests(tri, start, leaf_size, eps, ox, oy, oz, dx, dy, dz):
     tw = tv.min(dim=1).values
     k = torch.where(tv == tw[:, None], ar, leaf_size).min(dim=1).values
     pick = k[:, None]
-    return (tw, start + k, u.gather(1, pick).squeeze(1),
-            v.gather(1, pick).squeeze(1))
+    out = (tw, start + k, u.gather(1, pick).squeeze(1),
+           v.gather(1, pick).squeeze(1))
+    if cut is None:
+        return out
+    first = torch.where(tv < cut[:, None], ar, leaf_size).min(dim=1).values
+    return out + (torch.clamp(first + 1, max=leaf_size),)
 
 
 def leaf_tests_mma(frag, start, leaf_size, eps, ox, oy, oz, dx, dy, dz,
@@ -1105,7 +1120,7 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
                        tdx, tdy, tdz, active, bt0, n_nodes: int = 0,
                        return_slot: bool = False, counts: dict = None,
                        walk: Walk = Walk(), groups=(None, None),
-                       mxu=None):
+                       mxu=None, cut=None):
     """Plain skip-link BVH walk of one group's nodes [root, end).
 
     Counterpart of pallas_kernel._packet_traverse. Per-thread walk
@@ -1133,7 +1148,14 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
     (-1 where no triangle won). `counts`, when given, gains the node
     visits ("node_visits") and the leaf slots tested ("leaf_slots"); a
     packet walk counts what its warp issues, 32 lanes a node and 32 x
-    leaf_size a leaf, whatever its lanes' masks."""
+    leaf_size a leaf, whatever its lanes' masks.
+
+    cut (per ray, shaped like tox; per-thread walk only): the shadow
+    query's any-hit walk (csrc/megakernel.cu walk_group<kLeaf, true>): a
+    ray stops walking once its best t drops below its cut (cut <= bt0),
+    and its leaf slots count up to the slot where it stopped."""
+    if cut is not None and groups[1] is not None:
+        raise ValueError("the any-hit walk is the per-thread walk's")
     shape = tox.shape
     dev = tox.device
     tri = tri_table.reshape(-1, _TRI_STRIDE)
@@ -1142,6 +1164,7 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
     wu = torch.zeros_like(bt)
     wv = torch.zeros_like(bt)
     rid = torch.nonzero(active.reshape(-1)).squeeze(1)
+    cut = None if cut is None else cut.reshape(-1)
     ray = [a.reshape(-1)[rid] for a in (tox, toy, toz, tdx, tdy, tdz)]
     ray += [_inv_safe(d, eps) for d in ray[3:]]
     idx = torch.full_like(rid, root)
@@ -1157,25 +1180,31 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
         def leaf_fn(start, *r):
             return leaf_tests_mma(mxu, start, leaf_size, eps, *r)
     else:
-        def leaf_fn(start, *r):
-            return leaf_tests(tri, start, leaf_size, eps, *r)
+        def leaf_fn(start, *r, **kw):
+            return leaf_tests(tri, start, leaf_size, eps, *r, **kw)
 
     def leaves(at_leaf, nd_leaf):
         # the leaf tests of rays rid[at_leaf] at their nodes nd_leaf, the
         # winners merged
         if walk.leaf == "none":
-            return
+            return 0
+        tested = 0
         for i in range(0, at_leaf.numel(), chunk):
             li = at_leaf[i:i + chunk]
             r = rid[li]
-            tw, slot, u, v = leaf_fn(nd_leaf[i:i + chunk, 6].long(),
-                                     *(a[li] for a in ray[:6]))
+            res = leaf_fn(nd_leaf[i:i + chunk, 6].long(),
+                          *(a[li] for a in ray[:6]),
+                          **({} if cut is None else {"cut": cut[r]}))
+            tw, slot, u, v = res[:4]
+            tested += (li.numel() * leaf_size if cut is None
+                       else int(res[4].sum()))
             won = (tw < bt[r]) & (tw < t_max)
             r = r[won]
             bt[r] = tw[won]
             win[r] = slot[won]
             wu[r] = u[won]
             wv[r] = v[won]
+        return tested
 
     if packet is not None:
         # one node pointer per packet: pidx[p], rays -> packet p = pinv
@@ -1214,13 +1243,15 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
         nd = node_table[idx]
         hit = _slab_hit(nd, ray, bt[rid], eps)
         at_leaf = torch.nonzero(hit & (nd[:, 7] > 0.5)).squeeze(1)
+        tested = leaves(at_leaf, nd[at_leaf])
         if counts is not None:
             counts["node_visits"] += rid.numel()
-            if walk.leaf != "none":
-                counts["leaf_slots"] += at_leaf.numel() * leaf_size
-        leaves(at_leaf, nd[at_leaf])
+            counts["leaf_slots"] += tested
         idx = torch.where(hit, idx + 1, nd[:, 8].long())
-        keep = torch.nonzero(idx < stop).squeeze(1)
+        walking = idx < stop
+        if cut is not None:
+            walking &= ~(bt[rid] < cut[rid])    # the any-hit exit
+        keep = torch.nonzero(walking).squeeze(1)
         if keep.numel() < rid.numel():
             rid, idx, stop = rid[keep], idx[keep], stop[keep]
             ray = [a[keep] for a in ray]
@@ -1245,6 +1276,29 @@ def nee_lights(meta: SceneMeta, cfg: RenderConfig) -> Tuple[int, ...]:
     else none. A scene without a light renders as without NEE, as in the
     JAX kernel (pallas_kernel.py:2430)."""
     return tuple(meta.light_indices) if cfg.nee else ()
+
+
+def _primitive_t(code: int, m, eps: float, tox, toy, toz, tdx, tdy, tdz):
+    """t of a non-GROUP object of type `code` (row m) for the object-space
+    rays."""
+    if code == PLANE:
+        return _plane_t(toy, tdy, eps)
+    if code == SPHERE:
+        return _sphere_t(tox, toy, toz, tdx, tdy, tdz, eps)
+    if code == CYLINDER:
+        return _cylinder_t(tox, toy, toz, tdx, tdy, tdz, m[32], m[33], eps)
+    return _box_t(tox, toy, toz, tdx, tdy, tdz, eps)
+
+
+def _group_pretest(m, eps: float, tox, toy, toz, tdx, tdy, tdz, bt):
+    """A GROUP's object-space bbox pretest (row m) against the running best
+    t: the rays that walk it."""
+    x1, x2 = _axis_slab(tox, tdx, m[34], m[37], eps)
+    y1, y2 = _axis_slab(toy, tdy, m[35], m[38], eps)
+    z1, z2 = _axis_slab(toz, tdz, m[36], m[39], eps)
+    gtmin = torch.maximum(torch.maximum(x1, y1), z1)
+    gtmax = torch.minimum(torch.minimum(x2, y2), z2)
+    return (gtmin <= gtmax) & (gtmax > eps) & (gtmin < bt)
 
 
 def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, eps: float,
@@ -1277,23 +1331,12 @@ def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, eps: float,
         tox, toy, toz = _mat12_point(m, ox, oy, oz)
         tdx, tdy, tdz = _mat12_vec(m, dx, dy, dz)
         g_tri = None
-        if code == PLANE:
-            t_j = _plane_t(toy, tdy, eps)
-        elif code == SPHERE:
-            t_j = _sphere_t(tox, toy, toz, tdx, tdy, tdz, eps)
-        elif code == CYLINDER:
-            t_j = _cylinder_t(tox, toy, toz, tdx, tdy, tdz, m[32], m[33], eps)
-        elif code == BOX:
-            t_j = _box_t(tox, toy, toz, tdx, tdy, tdz, eps)
+        if code != GROUP:
+            t_j = _primitive_t(code, m, eps, tox, toy, toz, tdx, tdy, tdz)
         else:
             # GROUP: object-space bbox pretest, then the walk
-            x1, x2 = _axis_slab(tox, tdx, m[34], m[37], eps)
-            y1, y2 = _axis_slab(toy, tdy, m[35], m[38], eps)
-            z1, z2 = _axis_slab(toz, tdz, m[36], m[39], eps)
-            gtmin = torch.maximum(torch.maximum(x1, y1), z1)
-            gtmax = torch.minimum(torch.minimum(x2, y2), z2)
-            pre = (active & (gtmin <= gtmax) & (gtmax > eps)
-                   & (gtmin < best_t))
+            pre = active & _group_pretest(m, eps, tox, toy, toz, tdx, tdy,
+                                          tdz, best_t)
             root, end = group_bvh[j]
             t_j, *g_tri, g_slot = traverse_reference(
                 node_table, tri_table, meta.leaf_size, eps, t_max, root, end,
@@ -1313,6 +1356,85 @@ def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, eps: float,
             tri_col = [torch.where(closer, a, b)
                        for a, b in zip(g_tri[3:], tri_col)]
     return best_t, w, loc, on_tri, tri_slot, tri_nrm, tri_col
+
+
+def _light_visible(obj, meta: SceneMeta, node_table, tri_table, eps: float,
+                   t_max: float, ox, oy, oz, dx, dy, dz, active, l: int,
+                   counts: dict = None, walk: Walk = Walk()):
+    """Plain version of csrc/megakernel.cu's light_visible, the shadow
+    query of the per-thread walk: whether light `l` is the nearest hit of
+    each `active` ray with eps < t < t_max (_nearest_hit's rule), and the
+    light's t there. Light l wins exactly when eps < t_l < t_max, no object
+    j < l has t_j <= t_l and no object j > l has t_j < t_l, with every t_j
+    _nearest_hit's value; so the answer is _nearest_hit's, bit for bit. It
+    takes the kernel's exits, vectorised by masks: a primitive light is
+    tested first and the rays that miss it stop; then the other objects
+    in table order for the rays still undecided, each stopping at its first
+    occluder (t_j < cut: the float after t_l before l, t_l after it). A
+    GROUP pretests and walks from the running minimum of the objects before
+    it (t_l after l), with the any-hit exit below the cut
+    (traverse_reference's `cut`); a GROUP light is walked in its place.
+    The render decides by _nearest_hit, as the JAX kernel does; this serves
+    the counts and the equivalence test. Returns (visible, t_l), t_l
+    meaningful where visible. `counts`, when given, gains the rays that
+    miss the light ("shadow_light_missed") and stop at an occluder
+    ("shadow_occluded"), the object tests by type ("query_plane",
+    "query_sphere", "query_cylinder", "query_box", "query_group": a GROUP's
+    pretest) and the walks' nodes and leaf slots ("query_nodes",
+    "query_slots")."""
+    group_bvh = {g: (r, e) for g, r, e in meta.group_bvh}
+    oct_nodes = meta.n_nodes if meta.octant_orders else 0
+    big = torch.full_like(ox, _BIG)
+
+    def test(j, live, bt, cut):
+        m, code = obj[j], meta.obj_types[j]
+        if counts is not None:
+            counts[f"query_{TYPE_NAMES[code]}"] += int(live.sum())
+        loc = (*_mat12_point(m, ox, oy, oz), *_mat12_vec(m, dx, dy, dz))
+        if code != GROUP:
+            return _primitive_t(code, m, eps, *loc)
+        pre = live & _group_pretest(m, eps, *loc, bt)
+        walked = {"node_visits": 0, "leaf_slots": 0}
+        t = traverse_reference(
+            node_table, tri_table, meta.leaf_size, eps, t_max,
+            *group_bvh[j], *loc, pre, bt, n_nodes=oct_nodes, counts=walked,
+            walk=walk, cut=cut)[0]
+        if counts is not None:
+            counts["query_nodes"] += walked["node_visits"]
+            counts["query_slots"] += walked["leaf_slots"]
+        return torch.where(pre, t, big)
+
+    live = active.clone()
+    missed = torch.zeros_like(live)
+    occluded = torch.zeros_like(live)
+    group_light = meta.obj_types[l] == GROUP
+    t_l, cut = big, torch.full_like(ox, -_BIG)
+    if not group_light:
+        t_l = test(l, live, big, cut)
+        hit = (t_l > eps) & (t_l < t_max) & (t_l < _BIG)
+        missed = live & ~hit
+        live = live & hit
+        cut = torch.nextafter(t_l, big)     # t_j <= t_l exactly when < cut
+    bt = big                                # the running minimum before l
+    for j in range(len(meta.obj_types)):
+        if j == l:
+            if group_light:
+                t = test(j, live, bt, cut)
+                ok = (t < bt) & (t > eps) & (t < t_max)
+                missed = live & ~ok
+                live = live & ok
+                t_l = t
+            bt = cut = t_l
+            continue
+        t = test(j, live, bt, cut)
+        occ = live & (t < cut)
+        occluded |= occ
+        live = live & ~occ
+        bt = torch.where(t < bt, t, bt)
+    if counts is not None:
+        counts["shadow_light_missed"] += int(missed.sum())
+        counts["shadow_occluded"] += int(occluded.sum())
+    return live, t_l
 
 
 def _mxu_rows(meta: SceneMeta) -> int:
@@ -1481,8 +1603,12 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     under cfg.nee, "shadow_rays" (light points sampled: a surface hit that
     neither refracts nor is a light, times the lights), "shadow_tests"
     (those facing the surface, whose ray is cast) and "shadow_lit" (those
-    that reach their light and add); the shadow walks add to "node_visits"
-    and "leaf_slots".
+    that reach their light and add); the shadow rays' nearest-hit walks
+    add to "node_visits" and "leaf_slots" and, apart, to "shadow_nodes"
+    and "shadow_slots". On the per-thread walk the cast shadow rays also
+    go through _light_visible, the kernel's occlusion query, for its
+    counts (its "shadow_light_missed", "shadow_occluded", "query_*"); a
+    ray where it differs from the nearest-hit rule raises RuntimeError.
 
     A mesh scene walks as mesh_walk() says, each slot in the octant group
     and packet of the kernel (walk_groups over the T*S*L slots)."""
@@ -1493,7 +1619,8 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     if counts is not None:
         for k in ("samples", "bounces", "hits", "node_visits", "leaf_slots",
                   "texel_fetches", "uv_sphere", "uv_cube", "shadow_rays",
-                  "shadow_tests", "shadow_lit"):
+                  "shadow_tests", "shadow_lit", "shadow_nodes",
+                  "shadow_slots", *QUERY_COUNTS):
             counts.setdefault(k, 0)
     lights = nee_lights(meta, cfg)
     S, L = tile
@@ -1771,11 +1898,28 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                 # a light behind the surface adds nothing whatever the
                 # shadow ray hits: only the others walk (as in the kernel)
                 cast = nee_cond & (ldn > 0.0)
+                shadow = (wx + sdx * eps, wy + sdy * eps, wz + sdz * eps,
+                          sdx, sdy, sdz)
+                walked = None if counts is None else {"node_visits": 0,
+                                                      "leaf_slots": 0}
                 s_t, s_w, *_ = _nearest_hit(
-                    obj, meta, node_table, tri_table, eps, t_max,
-                    wx + sdx * eps, wy + sdy * eps, wz + sdz * eps,
-                    sdx, sdy, sdz, cast, -1, counts, walk, groups)
+                    obj, meta, node_table, tri_table, eps, t_max, *shadow,
+                    cast, -1, walked, walk, groups)
                 visible = cast & (s_w == l) & (s_t > eps) & (s_t < t_max)
+                if counts is not None:
+                    counts["node_visits"] += walked["node_visits"]
+                    counts["leaf_slots"] += walked["leaf_slots"]
+                    counts["shadow_nodes"] += walked["node_visits"]
+                    counts["shadow_slots"] += walked["leaf_slots"]
+                    if walk.walk == "thread":
+                        q_vis, q_t = _light_visible(
+                            obj, meta, node_table, tri_table, eps, t_max,
+                            *shadow, cast, l, counts, walk)
+                        if not (torch.equal(q_vis, visible) and torch.equal(
+                                q_t[visible], s_t[visible])):
+                            raise RuntimeError(
+                                "the shadow query differs from the "
+                                f"nearest-hit rule for light {l}")
                 atten = 1.0 - s_t / torch.sqrt(s_t * s_t + lm[44] * lm[44])
                 w_nee = ldn * atten
                 srr = srr + torch.where(visible,
@@ -1878,6 +2022,9 @@ SIGNATURES = {
     # the texel-fetch probe (P1's counterpart), launched by fetch_texels
     "pt_tex_fetch_launch": (
         [_P] * 6 + [_I] * 4 + [_P], _I),
+    # the light point's sin/cos check, launched by light_sincos: the
+    # angles, sin, cos, their count and the stream
+    "pt_sincos_launch": ([_P] * 3 + [_I, _P], _I),
     # the gradient kernel's entries, launched by render/grad.py: object and
     # triangle mode, and texel mode (the texels [T, 4], T, the texture
     # table, gtex [T, 3] and the trainable objects' bit mask)
@@ -2074,6 +2221,30 @@ def fetch_texels(pool, base: int, w: int, h: int, u, v):
 
 
 fetch_texels.launches = 0
+
+
+def light_sincos(x):
+    """(sin x, cos x) of the f32 angles x [N] as K1-nee's light point takes
+    them: the kernel's light_sincos (one sincosf) launched alone, to hold it
+    to torch.sin and torch.cos, the plain version's, over the angles' whole
+    range. CUDA tensors launch it and count light_sincos.launches; CPU
+    tensors run torch.sin and torch.cos."""
+    if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous 1-D float32 tensor")
+    if x.device.type != "cuda":
+        return torch.sin(x), torch.cos(x)
+    out = torch.empty((2, x.numel()), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = library().pt_sincos_launch(
+            x.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sin/cos check launch failed: CUDA error {err}")
+    light_sincos.launches += 1
+    return out[0], out[1]
+
+
+light_sincos.launches = 0
 
 
 def render_megakernel(scn: SceneArrays, meta: SceneMeta, camera,

@@ -70,6 +70,67 @@ def cylinder_scene(cfg, gx, mat, shapes, pack, cornell):
 
 
 
+def tie_scene(cfg, get_scene, base: str = "reference"):
+    """Scene `base` (the port's; `get_scene` its registry) with its light
+    replaced by two flattened sphere lights under the ceiling, each with a
+    non-emissive copy of itself: A's copy just after A in the object
+    table, B's just before B, both at the end of the table (after the
+    walls, spheres and, for `teapot`, the model group). A copy's t equals
+    its light's bit for bit, so every shadow ray toward A ties with A's
+    copy after it (`<`: A stays the winner) and every one toward B ties
+    with B's copy before it (`<=`: B never wins): the nearest-hit rule's
+    two tie cases."""
+    from pathtracer_tpu_torch.geometry import transforms as gx
+    from pathtracer_tpu_torch.scene.material import Material
+    from pathtracer_tpu_torch.scene.shapes import Sphere
+
+    sc = get_scene(base, cfg)
+
+    def flat_sphere(x, material):
+        s = Sphere()
+        s.set_transform(gx.translate(x, 0.399, 0.0))
+        s.set_transform(gx.scale(0.2, 0.01, 0.2))
+        s.set_material(material)
+        return s
+
+    light = Material.light_bulb()
+    light.emission = (9.0, 9.0, 9.0)
+    cover = Material.diffuse(0.9, 0.8, 0.7)
+    sc.objects = sc.objects[1:] + [
+        flat_sphere(-0.25, light), flat_sphere(-0.25, cover),
+        flat_sphere(0.25, cover), flat_sphere(0.25, light)]
+    return sc
+
+
+# K1-nee's light point takes the sin and cos of its latitude acos(2u - 1) -
+# 2 pi, in [-2 pi, -pi], and its longitude 2 pi u, in [0, 2 pi). As f32 bit
+# patterns read as int32 (both ends included), a little more: the
+# latitudes -3 .. -2 pi (sign bit set, so negative and rising with the
+# magnitude) and the longitudes 0 .. 2 pi.
+TWO_PI_BITS = 0x40C90FDB      # f32 of 2 pi
+LIGHT_ANGLE_BITS = ((0xC0400000 - (1 << 32), (0x80000000 | TWO_PI_BITS)
+                     - (1 << 32)),
+                    (0, TWO_PI_BITS))
+
+
+def sincos_mismatches(sincos, device, ranges=LIGHT_ANGLE_BITS,
+                      chunk: int = 1 << 26) -> tuple:
+    """(angles checked, angles whose sin or cos differ in any bit) of
+    `sincos` (megakernel.light_sincos) against torch.sin and torch.cos on
+    every f32 of the bit ranges `ranges`, `chunk` angles a call."""
+    n = bad = 0
+    for lo, hi in ranges:
+        for a in range(lo, hi + 1, chunk):
+            x = torch.arange(a, min(a + chunk, hi + 1), dtype=torch.int32,
+                             device=device).view(torch.float32)
+            s, c = sincos(x)
+            bad += int(((s.view(torch.int32) != torch.sin(x).view(torch.int32))
+                        | (c.view(torch.int32)
+                           != torch.cos(x).view(torch.int32))).sum())
+            n += x.numel()
+    return n, bad
+
+
 def textured_teapot(sc, make):
     """The `teapot` scene `sc` (either package's) cut to its light, floor,
     model and sphere, the floor and the sphere textured by small file

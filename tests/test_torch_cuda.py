@@ -31,7 +31,9 @@ texels are the decoded pool.
 Next-event estimation (the kNee instantiations, trace_tiles under cfg.nee)
 and the intersect-only kernel (intersect_batch) must be bit-equal to their
 plain versions: the same f32 operations in the same order, and the card's
-sin/cos on both sides.
+sin/cos on both sides (the light point's sincosf equals torch.sin and
+torch.cos on every f32 angle it can take); the kernel's shadow query
+(light_visible) at exact ties too (tie_scene).
 
 The mesh walks of the JAX package's knobs (PT_SUBPACKET, PT_ABLATE_LEAF:
 the warp-packet walk and the node walk alone) must be bit-equal to their
@@ -46,8 +48,8 @@ import torch
 from _torch_scenes import (MESH_SCENES, SLICE_SCENES, TEX_SCENES,
                            assert_slot_rule,
                            cylinder_scene, grad_inputs, grad_rule,
-                           port_inputs, size_check_scene, tex_grad_rule,
-                           textured_teapot)
+                           port_inputs, sincos_mismatches, size_check_scene,
+                           tex_grad_rule, textured_teapot, tie_scene)
 from pathtracer_tpu_torch import cli
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.diff import make_megakernel_step
@@ -450,6 +452,33 @@ def test_nee_kernel_bit_equal_plain(dev, monkeypatch, name, tile, aperture,
     assert counts["shadow_lit"] > 0
     assert torch.isfinite(got).all()
     assert torch.equal(got, want), (got != want).float().mean().item()
+
+
+@pytest.mark.parametrize("base,tile", [("reference", (64, 256)),
+                                       ("teapot", (8, 512))])
+def test_nee_query_ties_bit_equal_plain(dev, base, tile):
+    # the shadow query at exact ties: each light with a copy of itself
+    # after it (stays lit) and before it (never lit)
+    cfg = RenderConfig(width=160, height=120, samples=8, nee=True)
+    tabs, meta, _, kw = port_inputs(tie_scene(cfg, get_scene, base), cfg,
+                                    tile, dev)
+    kw.update(meta=meta, cfg=cfg, spp=8, total_samples=8, tile=tile)
+    got = torch.stack(mk.trace_tiles((5, 0), *tabs, **kw))
+    counts = {}
+    want = torch.stack(mk.trace_tiles_reference((5, 0), *tabs, **kw,
+                                                counts=counts))
+    torch.cuda.synchronize()
+    assert counts["shadow_lit"] > 0 and counts["shadow_occluded"] > 0
+    assert torch.equal(got, want), (got != want).float().mean().item()
+
+
+def test_light_sincos_bit_equal_torch(dev):
+    # the light point's sincosf against torch.sin and torch.cos on every
+    # f32 of its latitudes and longitudes
+    before = mk.light_sincos.launches
+    n, bad = sincos_mismatches(mk.light_sincos, dev)
+    assert mk.light_sincos.launches > before
+    assert n > 1_000_000_000 and bad == 0, (n, bad)
 
 
 def test_cli_renders_nee_through_the_kernel(dev, tmp_path):
