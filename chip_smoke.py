@@ -19,15 +19,23 @@ the plain version on `textures`, `envmap`, `cubemap` and `textures-file`
 kernel's own fetch function at random UVs over a 2048x1024 texture, the
 counterpart of the JAX package's tools/tex_vmem_probe.py) and measures
 what the JAX package's 128x128-area mip costs `envmap-file` (per-pixel
-mean abs difference of two renders, full pool against the mip). With
-`--ab-parent DIR` (DIR holding another checkout's pathtracer_tpu_torch;
-the option may be given more than once, each tree in turn), phase 5 also
-times K1, K1-mesh, K1-tex (`textures`) and K1-nee (`reference`,
-`teapot`) built from that tree against this one, in turns,
-and requires bit-equal outputs, then K6 (`reference`) under the gradient
-rule, and requires the instantiations without NEE that both trees have to
-keep their ptxas register, stack and spill counts (the NEE ones' are
-printed before and after).
+mean abs difference of two renders, full pool against the mip). Phase 5
+also splits K1-mesh's time on `teapot` and the size-check mesh (the node
+walk alone, the leaf tests, K1 on `reference` as the bounce without a
+walk, the node and leaf-slot tests a sample, the object loop's operations
+a bounce) and times K1-mesh at the BVH leaf sizes of LEAF_SWEEP
+(PT_BVH_LEAF); phase 4 counts the slots of the last `teapot` segment that
+differ when the mesh is packed at the JAX package's leaf size instead of
+the port's. With `--ab-parent DIR` (DIR holding another checkout's
+pathtracer_tpu_torch, or a copy with one edit; the option may be given
+more than once, each tree in turn), phase 5 also runs the K1 family of
+AB_CASES (K1, K1-mesh and its walks, K1-tex, K1-nee, K5, K6) on that
+tree's own code and tables (its package imported under another name, its
+kernels built from its own csrc) against this one, in turns, and requires
+bit-equal outputs (the gradient rule for K6) at the leaf sizes both trees'
+JAX-package rule picks; the kernels outside the K1 family must keep their
+ptxas register, stack and spill counts (the K1 family's are printed
+before and after).
 Then the gradient kernel (K6, the same source's kGrad instantiations):
 phase 6 holds it against its plain version at 1280x960x4 spp in object mode
 on `reference` and in triangle mode on `teapot` and the size-check mesh,
@@ -97,8 +105,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import dataclasses
+import importlib
+import importlib.util
 import io
 import json
 import os
@@ -107,6 +116,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -184,6 +194,11 @@ OPS_OBJECT = {           # one object's transform and test, per live ray
     PLANE: 33 + 3, SPHERE: 33 + 29, CYLINDER: 33 + 26, BOX: 33 + 26,
     GROUP: 33 + 25,      # the group's box pretest; the walk counts below
 }
+# the narrowed object loop (nearest_hit, object_t): a plane transforms its
+# y row alone (toy: 3 multiplies, 3 adds; tdy: 3 multiplies, 2 adds) before
+# its test; the winner's full transform runs once a hit, after the loop
+OPS_OBJECT_NARROW = {**OPS_OBJECT, PLANE: 11 + 3}
+OPS_WINNER = 33
 OPS_HIT = 125            # a diffuse hit: normal, roulette, bounce, resolve
 OPS_NODE = 22            # one node's slab test
 OPS_LEAF_SLOT = 34       # one triangle's test
@@ -218,6 +233,8 @@ WALKS = {
 }
 WALK_KNOBS = ("PT_SUBPACKET", "PT_TRAVERSAL", "PT_ABLATE_LEAF",
               "PT_TILE_ORDER")
+# phase 5: the BVH leaf sizes K1-mesh is timed at (PT_BVH_LEAF)
+LEAF_SWEEP = (4, 8, 16, 32)
 # phase 4: the slice's main path, `teapot` through the CLI under the knobs
 MAIN_WALKS = (
     ("packet mode 2, subblock", {"PT_SUBPACKET": "2",
@@ -226,6 +243,38 @@ MAIN_WALKS = (
     ("tensor core, rowblock", {"PT_TRAVERSAL": "mxu",
                                "PT_TILE_ORDER": "rowblock"}),
 )
+
+
+# phase 5 A/B (--ab-parent): the K1 family on the main paths' scenes at
+# W x H, each tree on its own code (tree_case); the meshes at the leaf size
+# both trees' JAX-package rule picks (32 for `teapot`, 16 for the
+# size-check mesh), so that the outputs must be bit-equal
+AB_CASES = {
+    f"K1 reference {W}x{H}x8 spp": dict(kind="fwd", scene="reference",
+                                        tile=TILE),
+    f"K1-mesh teapot {W}x{H}x8 spp": dict(kind="fwd", scene="teapot",
+                                          tile=MESH_TILE, leaf=32),
+    f"K1-mesh size-check mesh {W}x{H}x8 spp": dict(
+        kind="fwd", scene="size-check mesh", tile=MESH_TILE, leaf=16),
+    **{f"{walk} teapot {W}x{H}x8 spp": dict(
+        kind="fwd", scene="teapot", tile=MESH_TILE, leaf=32, env=WALKS[walk])
+       for walk in ("packet mode 2", "packet mode 3", "tensor core",
+                    "leaf-ablated")},
+    f"K1-tex textures {W}x{H}x8 spp": dict(kind="fwd", scene="textures"),
+    f"K1-nee reference {W}x{H}x8 spp": dict(kind="fwd", scene="reference",
+                                            tile=TILE, cfg={"nee": True}),
+    f"K1-nee teapot {W}x{H}x8 spp": dict(kind="fwd", scene="teapot",
+                                         tile=MESH_TILE, leaf=32,
+                                         cfg={"nee": True}),
+    f"K5 reference {W * H * 8} rays": dict(kind="isect", scene="reference"),
+    f"K5 teapot {W * H * 8} rays": dict(kind="isect", scene="teapot",
+                                        leaf=32),
+    f"K6 reference {W}x{H}x{GRAD_SPP} spp": dict(kind="grad",
+                                                 scene="reference",
+                                                 spp=GRAD_SPP),
+    f"K6 teapot triangles {W}x{H}x{GRAD_SPP} spp": dict(
+        kind="tri", scene="teapot", spp=GRAD_SPP, leaf=32),
+}
 
 
 def phase(msg: str) -> None:
@@ -267,20 +316,25 @@ def n_triangles(sc) -> int:
 
 
 def work_bound(counts, meta, in_bytes, out_bytes, grad=False, f32=False,
-               query=False):
+               query=False, jax=False):
     """(bound ms, "operations" or "bytes", ops) of a kernel run whose work
     the plain version counted in `counts` (see OPS_*); `f32`: the fetches
-    load f32 texels, with no decode. The cast shadow rays count the JAX
-    kernel's work, a nearest hit over every object and the walks it
-    makes; with `query` the occlusion query's own (K1-nee's light_visible:
-    the object tests, nodes and leaf slots of _light_visible's counts)."""
+    load f32 texels, with no decode. The object loop counts the kernel's
+    own work (a plane's y row, the winner's transform once a hit:
+    OPS_OBJECT_NARROW, OPS_WINNER), or with `jax` the JAX kernel's (every
+    object's full transform). The cast shadow rays count a nearest hit
+    over every object and the walks it makes (the JAX kernel's work);
+    with `query` the occlusion query's own (K1-nee's light_visible: the
+    object tests, nodes and leaf slots of _light_visible's counts)."""
     c = lambda k: counts.get(k, 0)  # noqa: E731
     plain_uv = (counts["texel_fetches"] - counts["uv_sphere"]
                 - counts["uv_cube"])
     fetch = OPS_FETCH - (OPS_DECODE if f32 else 0)
-    per_ray = sum(OPS_OBJECT[t] for t in meta.obj_types)
+    objects = OPS_OBJECT if jax else OPS_OBJECT_NARROW
+    per_ray = sum(objects[t] for t in meta.obj_types)
     ops = (OPS_SAMPLE * counts["samples"]
            + counts["bounces"] * per_ray
+           + (0 if jax else OPS_WINNER * counts["hits"])
            + (OPS_HIT + (OPS_GRAD_HIT if grad else 0)) * counts["hits"]
            + OPS_NODE * (counts["node_visits"] - c("shadow_nodes"))
            + OPS_LEAF_SLOT * (counts["leaf_slots"] - c("shadow_slots"))
@@ -291,7 +345,7 @@ def work_bound(counts, meta, in_bytes, out_bytes, grad=False, f32=False,
            + OPS_SHADOW * c("shadow_rays")
            + OPS_SHADOW_LIT * c("shadow_lit"))
     if query:
-        ops += (sum(OPS_OBJECT[code] * c(f"query_{name}")
+        ops += (sum(objects[code] * c(f"query_{name}")
                     for code, name in mk.TYPE_NAMES.items())
                 + OPS_NODE * c("query_nodes")
                 + OPS_LEAF_SLOT * c("query_slots"))
@@ -315,15 +369,15 @@ def nbytes(*tensors) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def fwd_bound(counts, tabs, kw, query=False):
+def fwd_bound(counts, tabs, kw, query=False, jax=False):
     """work_bound of a forward launch on `tabs` with trace_tiles keywords
     `kw`: its tables, texel pool (or f32 texels, read as [T, 4]) and pixel
     maps in, three f32 sums out."""
     texels = kw.get("tex_texels")
     ins = nbytes(*tabs, kw.get("tex_pool"), kw.get("tex_table")) + (
         0 if texels is None else texels.shape[0] * 16)
-    return work_bound(counts, kw["meta"], ins, 3 * nbytes(tabs[4]),
-                      f32=texels is not None, query=query)
+    return work_bound(counts, kw["meta"], ins, 3 * nbytes(tabs[-2]),
+                      f32=texels is not None, query=query, jax=jax)
 
 
 def shadow_shares(counts) -> dict:
@@ -353,18 +407,19 @@ def spread_tiles(tabs, tile, n):
     (T // n)-th tile; renumbered 0..n-1, so their random streams are those
     of the first n): a sample of the whole frame's work."""
     S = tile[0]
-    step = max(1, tabs[4].shape[0] // S // n)
-    rows = (torch.arange(n, device=tabs[4].device)[:, None] * step * S
-            + torch.arange(S, device=tabs[4].device)).reshape(-1)
-    return tabs[:4] + [tabs[4][rows].contiguous(), tabs[5][rows].contiguous()]
+    px, py = tabs[-2:]
+    step = max(1, px.shape[0] // S // n)
+    rows = (torch.arange(n, device=px.device)[:, None] * step * S
+            + torch.arange(S, device=px.device)).reshape(-1)
+    return tabs[:-2] + [px[rows].contiguous(), py[rows].contiguous()]
 
 
 def first_tiles(tabs, tile, n):
     """The inputs of the first `n` tiles (their slots keep their tile
     numbers, so their random streams)."""
     rows = n * tile[0]
-    return tabs[:4] + [tabs[4][:rows].contiguous(),
-                       tabs[5][:rows].contiguous()]
+    return tabs[:-2] + [tabs[-2][:rows].contiguous(),
+                        tabs[-1][:rows].contiguous()]
 
 
 def compare(name, sc, cfg, tile, sample_base, dev, exact=False,
@@ -451,8 +506,10 @@ def _walk_words(ints: str) -> str:
 
 def kernel_name(mangled: str) -> str:
     """The instantiation of megakernel<kMesh, kGrad, kTex, kF32, kNee,
-    kWalk, kLeaf> (fewer arguments in older builds), of intersect<kMesh,
-    kWalk, kLeaf>, or the probe, by name."""
+    kWalk, kLeaf> (fewer arguments in older builds), of
+    grad_megakernel<kMesh, kTex, kF32> (named as the kGrad megakernel of
+    older builds), of intersect<kMesh, kWalk, kLeaf>, or the probe, by
+    name."""
     if "tex_fetch" in mangled:
         return "fetch probe"
     if "mma_pairs" in mangled:
@@ -469,6 +526,12 @@ def kernel_name(mangled: str) -> str:
     if m:
         return ("intersect " + _walk_words(m.group(2))
                 + ("mesh" if m.group(1) == "1" else "primitive"))
+    m = re.search(r"grad_megakernelI((?:Lb[01]E)+)E", mangled)
+    if m:     # grad_megakernel<kMesh, kTex, kF32>
+        mesh, tex, f32 = re.findall(r"Lb([01])E", m.group(1))
+        return " ".join(["grad"] + ["textured"] * (tex == "1")
+                        + ["f32-texel"] * (f32 == "1")
+                        + ["mesh" if mesh == "1" else "primitive"])
     m = re.search(r"megakernelI((?:Lb[01]E)+)((?:Li\d+E)*)E", mangled)
     if not m:
         return mangled
@@ -668,7 +731,7 @@ def teapot_main_path(tmp, dev, card, mesh_tris, nee=False):
     check_image(tag, timg)
 
     mtabs, mkw, mseed, _ = last_segment("teapot", tm, MESH_TILE, dev, nee)
-    n_tiles = mtabs[4].shape[0] // MESH_TILE[0]
+    n_tiles = mtabs[-2].shape[0] // MESH_TILE[0]
     k = torch.stack(mk.trace_tiles(mseed, *mtabs, **mkw))
     torch.cuda.synchronize()
     c64 = {}
@@ -703,6 +766,23 @@ def teapot_main_path(tmp, dev, card, mesh_tris, nee=False):
               f"nearest-hit rule on each; "
               f"{'all tiles' if full else 'the first 64 tiles, scaled'}): "
               f"{shadow_text(counts)}")
+    # the same segment packed at the JAX package's leaf size: the slots
+    # whose sums differ (another leaf size renumbers the slots, so the walk
+    # may pick another triangle at an exact-t tie, or where a box's tmin
+    # and a triangle's t round apart)
+    leaf_diff = None
+    jax_leaf = 32 if mesh_tris["teapot"] <= 8000 else 16
+    if mkw["meta"].leaf_size != jax_leaf:
+        with env_var("PT_BVH_LEAF", str(jax_leaf)):
+            jtabs, jkw, _, _ = last_segment("teapot", tm, MESH_TILE, dev,
+                                            nee)
+        kj = torch.stack(mk.trace_tiles(mseed, *jtabs, **jkw)).cpu().numpy()
+        full_k = torch.stack(mk.trace_tiles(mseed, *mtabs, **mkw)).cpu()
+        leaf_diff = int((full_k.numpy() != kj).any(axis=0).sum())
+        phase(f"{tag}: the segment at leaf {jax_leaf} (the JAX package's "
+              f"rule) against leaf {mkw['meta'].leaf_size}: {leaf_diff} of "
+              f"{kj[0].size} slots differ (image-mean rel diff "
+              f"{np.abs(kj.mean((1, 2)) - full_k.numpy().mean((1, 2))).max() / kj.mean():.2e})")
     # the mean check's plain render: 8 spp with per-slot draws
     # (PT_COHERENT=0, the same estimator). The coherent draws of a mesh
     # tile are shared by a whole 32x32-pixel block, so the mean of one
@@ -729,7 +809,7 @@ def teapot_main_path(tmp, dev, card, mesh_tris, nee=False):
     return dict(launches=n["launches"], mesh=n["mesh"], nee=n["nee"],
                 seed=mseed, tabs=mtabs, kw=mkw, full=full, p_ms=tp_ms,
                 p64_ms=p64_ms, counts=counts, bit_eq=bit_eq, err=err,
-                checked=checked, metrics=tm, img=timg)
+                checked=checked, metrics=tm, img=timg, leaf_diff=leaf_diff)
 
 
 def tex_main_path(tmp, dev, card):
@@ -892,71 +972,160 @@ def mip_blur(dev, card):
                 mip=f"{mip.shape[1]}x{mip.shape[0]}")
 
 
-def ab_parent(parent: str, cases, card, ptxas):
-    """Phase 5 A/B: kernels built from another checkout's csrc (`parent`)
-    against this one, on the same inputs and this tree's launchers, 20
-    launches a timing in the order parent, this, this, parent, three times
-    over. `cases` maps a tag to (fn, exact): fn() launches and returns the
-    outputs, which must be bit-equal when `exact` (forward kernels) and
-    agree by the gradient rule otherwise. The instantiations both builds
-    have must keep their ptxas counts (`ptxas`: this build's lines), but
-    for the NEE instantiations, whose shadow rays and light point the
-    other tree may compute otherwise: their counts are printed before and
-    after. Returns ({case: (parent median ms, this median ms)}, {NEE
+def load_tree(root: str, tag: str):
+    """The pathtracer_tpu_torch under `root` (another checkout, or a copy
+    with one edit) imported as a package of its own named `tag`: its
+    megakernel module builds the kernels from its own csrc into its own
+    build directory and makes its own tables, so a tree with another table
+    layout runs as that tree runs. Returns its modules."""
+    pkg = Path(root).resolve() / "pathtracer_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        tag, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[tag] = module
+    spec.loader.exec_module(module)
+
+    def sub(name):
+        return importlib.import_module(f"{tag}.{name}")
+
+    return types.SimpleNamespace(
+        mk=sub("render.megakernel"), tg=sub("render.grad"),
+        build=sub("render._build"), get_scene=sub("scenes").get_scene,
+        RenderConfig=sub("config").RenderConfig, root=root)
+
+
+THIS_TREE = types.SimpleNamespace(mk=mk, tg=tg, build=_build,
+                                  get_scene=get_scene,
+                                  RenderConfig=RenderConfig, root=".")
+
+
+def tree_case(T, spec: dict, dev):
+    """The launch of one A/B case on tree T's own code: spec's scene
+    ("size-check mesh" for the 16640-triangle sphere) at W x H with spec's
+    config keywords, packed at spec's leaf size (PT_BVH_LEAF) and walked
+    under spec's walk knobs, as the forward kernel ("fwd": trace_tiles on
+    the render driver's layout and tile), the gradient kernel ("grad":
+    grad_tiles on the steps' layout, random cotangents; "tri": in
+    triangle mode) or
+    the intersect-only kernel ("isect": camera rays, 8 a pixel). Returns a
+    function that launches it and returns its outputs, flat."""
+    env = dict(spec.get("env", {}))
+    if "leaf" in spec:
+        env["PT_BVH_LEAF"] = str(spec["leaf"])
+    kind, spp = spec["kind"], spec.get("spp", 8)
+    with walk_env(env):
+        cfg = T.RenderConfig(width=W, height=H, samples=spp,
+                             samples_per_pass=spp, **spec.get("cfg", {}))
+        sc = (size_check_scene(cfg, T.get_scene)
+              if spec["scene"] == "size-check mesh"
+              else T.get_scene(spec["scene"], cfg))
+        arrays, meta = sc.pack(device=dev)
+        tables = [torch.from_numpy(t).to(dev) for t in (
+            T.mk.build_scene_table(arrays, meta),
+            *T.mk.build_mesh_tables(arrays, meta))]
+        cam = torch.from_numpy(T.mk.build_camera_vec(sc.camera)).to(dev)
+        if kind == "isect":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            o, d = camera_rays(sc.camera, W, H, 8, gen)
+
+            def launch():
+                return flat_outputs(T.mk.intersect_batch(
+                    arrays, meta, cfg, o, d, tables=tuple(tables)))
+        elif kind in ("grad", "tri"):
+            xs, ys, _ = T.mk.tile_pixel_layout(
+                W, H, *GRAD_TILE, order=T.mk.default_order(meta))
+            px, py = (torch.from_numpy(v).to(dev) for v in (xs, ys))
+            rng = np.random.default_rng(0)
+            cots = [torch.from_numpy(rng.random(xs.shape, dtype=np.float32))
+                    .to(dev) for _ in range(3)]
+
+            def launch():
+                return T.tg.grad_tiles(
+                    (3, 0), cam, *tables, px, py, *cots, meta=meta, cfg=cfg,
+                    spp=spp, total_samples=spp, tile=GRAD_TILE,
+                    tri_grads=kind == "tri")
+        else:
+            tile = spec.get("tile") or T.mk.default_tile(meta)
+            axis = T.mk.default_pack_axis(meta)
+            pack = T.mk.clamp_pack(T.mk.default_pack(meta, spp), *tile, axis)
+            xs, ys, _ = T.mk.tile_pixel_layout(
+                W, H, *tile, order=T.mk.default_order(meta), spp_pack=pack,
+                pack_axis=axis)
+            px, py = (torch.from_numpy(v).to(dev) for v in (xs, ys))
+            kw = dict(meta=meta, cfg=cfg, spp=spp, total_samples=spp,
+                      tile=tile, spp_pack=pack, pack_axis=axis,
+                      **T.mk.texture_inputs(arrays, meta, dev))
+
+            def launch():
+                return T.mk.trace_tiles((1, 0), cam, *tables, px, py, **kw)
+
+    def run():
+        with walk_env(env):
+            return list(launch())
+
+    return run
+
+
+def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas):
+    """Phase 5 A/B: another tree (`parent`: a checkout, or a copy of the
+    package with one edit) against this one, each on its own code
+    (load_tree, tree_case) and the same inputs: 20 launches a timing in the
+    order parent, this, this, parent, three times over. Each case of
+    `specs` must give bit-equal outputs (the gradient rule for "grad" and
+    "tri" cases). The ptxas counts of the kernels this PR does not touch
+    (the fetch probe, the sincos check, the tensor-core pairs probe) must
+    not move; those of the K1 family (the megakernel, intersect and leaf
+    microbenchmark instantiations) are printed before and after. Returns
+    ({case: (parent median ms, this median ms)}, {K1-family
     instantiation: (parent counts, this build's)})."""
-    key = ("megakernel", _build.NVCC_FLAGS)
-    mine = mk.library()
-    src = _build.CSRC
-    _build.CSRC = Path(parent) / "pathtracer_tpu_torch" / "csrc"
-    try:
-        lib_path = _build.build("megakernel")
-    finally:
-        _build.CSRC = src
-    old = ctypes.CDLL(str(lib_path))
-    for fn, (argtypes, restype) in mk.SIGNATURES.items():
-        if hasattr(old, fn):
-            getattr(old, fn).argtypes = argtypes
-            getattr(old, fn).restype = restype
-    parent_lines = ptxas_lines(lib_path.with_suffix(".log").read_text())
+    T = load_tree(parent, tag)
+    T.mk.library()                       # its build, from its own csrc
+    log = T.build._target("megakernel").with_suffix(".log")
+    parent_lines = ptxas_lines(log.read_text())
     for line in parent_lines:
-        phase(f"phase 5 A/B: parent ptxas: {line}")
+        phase(f"phase 5 A/B: {parent} ptxas: {line}")
     theirs, ours = ptxas_counts(parent_lines), ptxas_counts(ptxas)
-    nee = {k: (v, ours.get(k)) for k, v in theirs.items()
-           if "nee" in k.split()}
+
+    def k1_family(name):
+        return ("primitive" in name.split() or "mesh" in name.split()
+                or name.startswith("leaf bench"))
+
+    family = {k: (v, ours.get(k)) for k, v in theirs.items() if k1_family(k)}
     moved = {k: (v, ours.get(k)) for k, v in theirs.items()
-             if ours.get(k) != v and k not in nee}
+             if not k1_family(k) and ours.get(k) != v}
     phase(f"phase 5 A/B: ptxas (registers, stack, spill stores, spill "
-          f"loads) of the {len(theirs) - len(nee)} instantiations without "
-          f"NEE both builds have: {'unchanged' if not moved else moved}")
-    phase(f"phase 5 A/B: ptxas of the NEE instantiations, parent then "
-          f"this: {nee}")
+          f"loads) of the {len(theirs) - len(family)} kernels outside the "
+          f"K1 family: {'unchanged' if not moved else moved}")
+    phase(f"phase 5 A/B: ptxas of the K1 family, {parent} then this: "
+          f"{family}")
     if moved:
         raise AssertionError(f"phase 5 A/B: ptxas counts moved: {moved}")
     out = {}
-    try:
-        for tag, (fn, exact) in cases.items():
-            runs = {"parent": [], "this": []}
-            res = {}
-            for who in ["parent", "this", "this", "parent"] * 3:
-                _build._loaded[key] = old if who == "parent" else mine
-                res[who] = fn()
-                runs[who].append(cuda_ms(fn, 20))
-            if exact and not all(torch.equal(a, b) for a, b in
-                                 zip(res["parent"], res["this"])):
-                raise AssertionError(f"phase 5 A/B: {tag}: outputs differ")
-            if not exact:
-                grad_rule(res["this"], res["parent"], False)
-            pm, tm = (float(np.median(runs[w])) for w in ("parent", "this"))
-            phase(f"phase 5 A/B: {tag}: parent {pm:.4f} ms, this {tm:.4f} ms "
-                  f"({(tm - pm) / pm:+.2%}; within 1%: {abs(tm - pm) < 0.01 * pm}"
-                  f"), outputs {'bit-equal' if exact else 'by the gradient rule'}"
-                  f"; timings parent "
-                  f"{[round(x, 4) for x in runs['parent']]}, this "
-                  f"{[round(x, 4) for x in runs['this']]}; card {card}")
-            out[tag] = (pm, tm)
-    finally:
-        _build._loaded[key] = mine
-    return out, nee
+    for name, spec in specs.items():
+        fns = {"parent": tree_case(T, spec, dev),
+               "this": tree_case(THIS_TREE, spec, dev)}
+        runs = {"parent": [], "this": []}
+        res = {}
+        for who in ["parent", "this", "this", "parent"] * 3:
+            res[who] = fns[who]()
+            runs[who].append(cuda_ms(fns[who], 20))
+        exact = spec["kind"] not in ("grad", "tri")
+        if exact and not all(torch.equal(a, b) for a, b in
+                             zip(res["parent"], res["this"])):
+            raise AssertionError(f"phase 5 A/B: {name}: outputs differ from "
+                                 f"{parent}'s")
+        if not exact:
+            grad_rule(res["this"], res["parent"], spec["kind"] == "tri")
+        pm, tm = (float(np.median(runs[w])) for w in ("parent", "this"))
+        phase(f"phase 5 A/B: {name}: {parent} {pm:.4f} ms, this {tm:.4f} ms "
+              f"({(tm - pm) / pm:+.2%}; within 1%: {abs(tm - pm) < 0.01 * pm}"
+              f"), outputs {'bit-equal' if exact else 'by the gradient rule'}"
+              f"; timings {parent} "
+              f"{[round(x, 4) for x in runs['parent']]}, this "
+              f"{[round(x, 4) for x in runs['this']]}; card {card}")
+        out[name] = (pm, tm)
+    return out, family
 
 
 def nee_timing(ref_nee, tea_nee, card):
@@ -979,7 +1148,7 @@ def nee_timing(ref_nee, tea_nee, card):
                 seed, *tabs, **(kw if who == "nee" else k1kw)), 10))
         n_ms, k_ms = min(runs["nee"]), min(runs["k1"])
         b_ms, b_by, ops = fwd_bound(counts, tabs, kw, query=True)
-        j_ms, j_by, j_ops = fwd_bound(counts, tabs, kw)
+        j_ms, j_by, j_ops = fwd_bound(counts, tabs, kw, jax=True)
         plain = ("plain" if name == "reference" or d["full"] else
                  "plain on the first 64 tiles")
         k1_name = "K1-mesh" if kw["meta"].has_groups else "K1"
@@ -1090,14 +1259,14 @@ def intersect_phase(dev, card):
         k_ms = cuda_ms(lambda: mk.intersect_batch(arrays, meta, cfg, o, d,
                                                   tables=tables), 10)
         R = counts["rays"]
-        ops = (R * (sum(OPS_OBJECT[t] for t in meta.obj_types)
-                    + OPS_ISECT_RAY)
+        misses = int((got[0] == cfg.t_max).sum())
+        ops = (R * (sum(OPS_OBJECT_NARROW[t] for t in meta.obj_types)
+                    + OPS_ISECT_RAY) + OPS_WINNER * (R - misses)
                + OPS_NODE * counts["node_visits"]
                + OPS_LEAF_SLOT * counts["leaf_slots"]
                + OPS_ISECT_TRI * counts["tri_hits"])
         b_ms, b_by, _ = bound_of(ops, nbytes(*o, *d, *got)
                                  + nbytes(*tables))
-        misses = int((got[0] == cfg.t_max).sum())
         phase(f"phase 9: {tag}: {R} rays ({misses} misses, "
               f"{counts['tri_hits']} triangle hits, {counts['node_visits']} "
               f"node visits): kernel {k_ms:.4f} ms ({R / k_ms / 1e6:.2f} "
@@ -1307,7 +1476,7 @@ def walk_timing(dev, card):
                 with walk_env(env):
                     runs[walk].append(cuda_ms(
                         lambda: mk.trace_tiles((1, 0), *tabs, **kw), 5))
-        n_tiles = ins["per-thread"][0][4].shape[0] // MESH_TILE[0]
+        n_tiles = ins["per-thread"][0][-2].shape[0] // MESH_TILE[0]
         full = {k: v * n_tiles // 64
                 for k, v in ins["per-thread"][2].items()}
         b_ms, b_by, ops = fwd_bound(full, ins["per-thread"][0],
@@ -1332,6 +1501,111 @@ def walk_timing(dev, card):
                   f"tests ({c['leaf_slots'] / max(base['leaf_slots'], 1):.2f}x "
                   f"the per-thread walk's); plain on 64 spread tiles "
                   f"{ins[walk][3]:.1f} ms; card {card}")
+        out[scene] = res
+    return out
+
+
+def object_ops(meta) -> dict:
+    """The object loop's f32 operations a bounce of a scene: every object's
+    full transform and test (OPS_OBJECT), and the narrowed loop (a plane's
+    y row only, then the winner's full transform once: OPS_OBJECT_NARROW,
+    OPS_WINNER)."""
+    return {"full": sum(OPS_OBJECT[t] for t in meta.obj_types),
+            "narrowed": sum(OPS_OBJECT_NARROW[t] for t in meta.obj_types)
+            + OPS_WINNER}
+
+
+def split_phase(walk_times, k1_ms, metas, card):
+    """Phase 5 (the split): on `teapot` and the size-check mesh at W x H x 8
+    spp, K1-mesh (the per-thread walk), the node walk alone
+    (PT_ABLATE_LEAF=1) and what the leaf tests add (the difference), beside
+    K1 on `reference` at the same size (the bounce without any walk), the
+    node and leaf-slot tests a sample (phase 5's walk timings), and the
+    object loop's operations a bounce of `reference` and `teapot`
+    (object_ops). Returns the numbers."""
+    out = {"k1_reference_ms": k1_ms,
+           "object_ops": {n: object_ops(m) for n, m in metas.items()}}
+    for scene, res in walk_times.items():
+        pt, nw = res["per-thread"], res["leaf-ablated"]
+        out[scene] = dict(
+            k1_mesh_ms=pt["ms"], node_walk_ms=nw["ms"],
+            leaf_ms=pt["ms"] - nw["ms"],
+            node_tests_per_sample=pt["node_tests_per_sample"],
+            leaf_tests_per_sample=pt["leaf_tests_per_sample"])
+        phase(f"phase 5 split: {scene} {W}x{H}x8 spp: K1-mesh {pt['ms']:.4f} "
+              f"ms, the node walk alone {nw['ms']:.4f} ms, the leaf tests "
+              f"{pt['ms'] - nw['ms']:.4f} ms; K1 on reference (no walk) "
+              f"{k1_ms:.4f} ms; a sample: {pt['node_tests_per_sample']:.2f} "
+              f"node tests, {pt['leaf_tests_per_sample']:.2f} leaf-slot tests;"
+              f" card {card}")
+    phase(f"phase 5 split: object-loop f32 operations a bounce (every "
+          f"object's full transform, or a plane's y row and the winner's "
+          f"transform after the loop): {out['object_ops']}")
+    return out
+
+
+def leaf_sweep(dev, card):
+    """Phase 5 (the leaf size): K1-mesh at W x H x 8 spp on `teapot` and the
+    size-check mesh packed at each PT_BVH_LEAF of LEAF_SWEEP, each held bit
+    for bit against its plain version on 64 tiles spread over the frame
+    (whose counts give the node and leaf-slot tests a sample), and on
+    `teapot` the other kernels of its main paths at each leaf size (K1-nee
+    at 8 spp, K6 in triangle mode at GRAD_SPP: tree_case); then each kernel
+    timed in turns: the sizes in order and reversed, three times over, 10
+    launches a timing. Returns {scene: {kernel: {leaf: numbers}}}: the
+    median and every timing."""
+    cfg = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
+    out = {}
+    for scene in ("teapot", "size-check mesh"):
+        ins, fns = {}, {"K1-mesh": {}}
+        if scene == "teapot":
+            fns.update({"K1-nee": {}, "K6 triangles": {}})
+        for leaf in LEAF_SWEEP:
+            with env_var("PT_BVH_LEAF", str(leaf)):
+                sc = (size_check_scene(cfg, get_scene) if scene != "teapot"
+                      else get_scene("teapot", cfg))
+                tabs, meta, _, lay = port_inputs(sc, cfg, MESH_TILE, dev)
+            kw = dict(meta=meta, cfg=cfg, spp=8, total_samples=8,
+                      tile=MESH_TILE, **lay)
+            sub = spread_tiles(tabs, MESH_TILE, 64)
+            counts = {}
+            p = torch.stack(mk.trace_tiles_reference((1, 0), *sub, **kw,
+                                                     counts=counts))
+            if not torch.equal(torch.stack(mk.trace_tiles((1, 0), *sub,
+                                                          **kw)), p):
+                raise AssertionError(f"phase 5 leaf: {scene} leaf {leaf}: "
+                                     "kernel differs from the plain version")
+            ins[leaf] = (counts, meta.n_nodes)
+            fns["K1-mesh"][leaf] = (
+                lambda tabs=tabs, kw=kw: mk.trace_tiles((1, 0), *tabs, **kw))
+            if scene == "teapot":
+                fns["K1-nee"][leaf] = tree_case(THIS_TREE, dict(
+                    kind="fwd", scene="teapot", tile=MESH_TILE, leaf=leaf,
+                    cfg={"nee": True}), dev)
+                fns["K6 triangles"][leaf] = tree_case(THIS_TREE, dict(
+                    kind="tri", scene="teapot", spp=GRAD_SPP, leaf=leaf), dev)
+        res = {}
+        for kernel, by_leaf in fns.items():
+            runs = {leaf: [] for leaf in LEAF_SWEEP}
+            for order in (LEAF_SWEEP, LEAF_SWEEP[::-1]) * 3:
+                for leaf in order:
+                    runs[leaf].append(cuda_ms(by_leaf[leaf], 10))
+            res[kernel] = {}
+            for leaf in LEAF_SWEEP:
+                c = ins[leaf][0]
+                r = res[kernel][leaf] = dict(
+                    ms=float(np.median(runs[leaf])), runs=runs[leaf],
+                    nodes=ins[leaf][1],
+                    node_tests_per_sample=c["node_visits"] / c["samples"],
+                    leaf_tests_per_sample=c["leaf_slots"] / c["samples"])
+                phase(f"phase 5 leaf: {scene} {W}x{H}, {kernel}, "
+                      f"PT_BVH_LEAF={leaf} ({r['nodes']} nodes): median "
+                      f"{r['ms']:.4f} ms (timings "
+                      f"{[round(x, 4) for x in runs[leaf]]}); K1-mesh's "
+                      f"sample: {r['node_tests_per_sample']:.2f} node "
+                      f"tests, {r['leaf_tests_per_sample']:.2f} leaf-slot "
+                      f"tests, bit-equal to the plain version on 64 spread "
+                      f"tiles; card {card}")
         out[scene] = res
     return out
 
@@ -1452,7 +1726,7 @@ def grad_setup(sc, cfg, dev):
     per-slot cotangents: (tabs, meta, arrays, cots)."""
     tabs, meta, arrays, _ = grad_inputs(sc, cfg, GRAD_TILE, dev)
     rng = np.random.default_rng(0)
-    cots = [torch.from_numpy(rng.random(tuple(tabs[4].shape),
+    cots = [torch.from_numpy(rng.random(tuple(tabs[-2].shape),
                                         dtype=np.float32)).to(dev)
             for _ in range(3)]
     return tabs, meta, arrays, cots
@@ -1721,7 +1995,7 @@ def tex_training(dev, card):
         -0.3, 0.3, (int(train.sum()), 3)).astype(np.float32)).to(dev),
         0.0, 1.0)
     crn = (1, 0)
-    valid = torch.from_numpy((pid >= 0).reshape(tabs[4].shape)
+    valid = torch.from_numpy((pid >= 0).reshape(tabs[-2].shape)
                              .astype(np.float32)).to(dev)
     n_valid = float((pid >= 0).sum())
 
@@ -1791,8 +2065,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab-parent", metavar="DIR", action="append",
                     default=[],
-                    help="A/B K1, K1-mesh, K1-tex, K6 and K1-nee against "
-                         "the csrc of the pathtracer_tpu_torch under DIR "
+                    help="A/B the K1 family (AB_CASES) against the "
+                         "pathtracer_tpu_torch under DIR, on its own code "
                          "(phase 5); may be given more than once")
     args = ap.parse_args(argv)
     # ---- phase 1: the card ----------------------------------------------
@@ -1947,7 +2221,7 @@ def main(argv=None) -> int:
     skw = dict(meta=smeta, cfg=scfg, spp=8, total_samples=8,
                tile=MESH_TILE, **slay)
     sk_ms = cuda_ms(lambda: mk.trace_tiles((1, 0), *stabs, **skw), 5)
-    s_tiles = stabs[4].shape[0] // MESH_TILE[0]
+    s_tiles = stabs[-2].shape[0] // MESH_TILE[0]
     sp64, sp64_ms, sfull = plain_affordable("phase 5", (1, 0), stabs, skw,
                                             s_tiles, 64)
     sk = torch.stack(mk.trace_tiles((1, 0), *stabs, **skw))
@@ -1974,10 +2248,12 @@ def main(argv=None) -> int:
                              "version on the size-check mesh")
     k1_bound = fwd_bound(seg_counts, tabs, kw)
     mesh_bound = fwd_bound(mcounts, mtabs, mkw)
+    mesh_jax_bound = fwd_bound(mcounts, mtabs, mkw, jax=True)
     phase(f"phase 5: bounds: reference {W}x{H}x{seg_spp} spp "
           f"{k1_bound[0]:.4f} ms ({k1_bound[1]}; {k1_bound[2]:.4g} f32 ops), "
           f"teapot {W}x{H}x8 spp {mesh_bound[0]:.4f} ms ({mesh_bound[1]}; "
-          f"{mesh_bound[2]:.4g} f32 ops"
+          f"{mesh_bound[2]:.4g} f32 ops; the JAX kernel's object loop "
+          f"{mesh_jax_bound[0]:.4f} ms, {mesh_jax_bound[2]:.4g} ops"
           f"{'' if full else ', from the first 64 tiles scaled'}); card {card}")
 
     # textured timings, the fetch probe, the JAX package's mip
@@ -1999,41 +2275,20 @@ def main(argv=None) -> int:
         f"textures {W}x{H}x8 spp": (tex_main["seed"], tex_main["tabs"],
                                     tex_main["kw"])}, ptxas, card)
     ab = {}
-    if args.ab_parent:
-        gcfg = RenderConfig(width=W, height=H, samples=GRAD_SPP,
-                            samples_per_pass=GRAD_SPP)
-        gtabs, gmeta, _, gcots = grad_setup(get_scene("reference", gcfg),
-                                            gcfg, dev)
-        ab_cases = {
-            f"reference {W}x{H}x8 spp": (
-                lambda: mk.trace_tiles((1, 0), *tabs8, **kw8), True),
-            f"teapot {W}x{H}x8 spp": (
-                lambda: mk.trace_tiles(mseed, *mtabs, **mkw), True),
-            f"textures {W}x{H}x8 spp (K1-tex)": (
-                lambda: mk.trace_tiles(tex_main["seed"], *tex_main["tabs"],
-                                       **tex_main["kw"]), True),
-            f"K6 reference {W}x{H}x{GRAD_SPP} spp": (
-                lambda: tg.grad_tiles(
-                    (3, 0), *gtabs, *gcots, meta=gmeta, cfg=gcfg,
-                    spp=GRAD_SPP, total_samples=GRAD_SPP, tile=GRAD_TILE),
-                False),
-            f"K1-nee reference {W}x{H}x8 spp": (
-                lambda: mk.trace_tiles((1, 0), *ref_nee["tabs8"],
-                                       **ref_nee["kw8"]), True),
-            f"K1-nee teapot {W}x{H}x8 spp": (
-                lambda: mk.trace_tiles(tea_nee["seed"], *tea_nee["tabs"],
-                                       **tea_nee["kw"]), True)}
-        for d in args.ab_parent:
-            phase(f"phase 5 A/B: against {d}")
-            ab[d] = ab_parent(d, ab_cases, card, ptxas)
-            for name in ("reference", "teapot"):
-                pm, tm = ab[d][0][f"K1-nee {name} {W}x{H}x8 spp"]
-                phase(f"phase 5 nee: {name}: K1-nee {tm:.4f} ms against "
-                      f"{d}'s {pm:.4f} ms ({tm / pm:.3f}x), in turns; card "
-                      f"{card}")
+    for i, d in enumerate(args.ab_parent):
+        phase(f"phase 5 A/B: against {d}")
+        ab[d] = ab_parent(d, f"ab_tree_{i}", AB_CASES, dev, card, ptxas)
+        for name in ("reference", "teapot"):
+            pm, tm = ab[d][0][f"K1-nee {name} {W}x{H}x8 spp"]
+            phase(f"phase 5 nee: {name}: K1-nee {tm:.4f} ms against "
+                  f"{d}'s {pm:.4f} ms ({tm / pm:.3f}x), in turns; card "
+                  f"{card}")
 
     # the mesh walks, each on the same samples, with K1-mesh's bound
     walk_times = walk_timing(dev, card)
+    split = split_phase(walk_times, k8_ms, {"reference": kw8["meta"],
+                                            "teapot": mkw["meta"]}, card)
+    sweep = leaf_sweep(dev, card)
 
     g_ref, g_tea, g_big = grad_phase(dev, card, mesh_tris)
     rate, trate, k6_obj, k6_tri = training_phase(dev, card, mesh_tris)
@@ -2079,7 +2334,7 @@ def main(argv=None) -> int:
          "shape": f"teapot {W}x{H}x8spp", "ms": tk_ms,
          "plain_ms": tp_ms if full else p64_ms,
          "bound_ms": mesh_bound[0], "bound_by": mesh_bound[1],
-         "library_ms": None,
+         "library_ms": None, "jax_work_bound_ms": mesh_jax_bound[0],
          "plain_shape": (f"teapot {W}x{H}x8spp" if full
                          else "teapot first 64 tiles x8spp"),
          "plain_ms_first_64_tiles": p64_ms,
@@ -2088,7 +2343,14 @@ def main(argv=None) -> int:
          "size_check_plain_shape": (f"{W}x{H}x8spp" if sfull
                                     else "first 64 tiles x8spp"),
          "size_check_bit_equal_frac": s_bit_eq,
-         "triangles": mesh_tris, "ptxas": ptxas},
+         "triangles": mesh_tris, "ptxas": ptxas, "split": split,
+         "leaf_sweep": sweep, "leaf": mkw["meta"].leaf_size,
+         "slots_differing_at_jax_leaf": {"teapot": tea["leaf_diff"],
+                                         "teapot --nee": tea_nee["leaf_diff"]},
+         "ab_parent": {d: {"ms": {k: list(v) for k, v in a[0].items()},
+                           "ptxas": {k: [list(x) if x else None for x in v]
+                                     for k, v in a[1].items()}}
+                       for d, a in ab.items()}},
         {"name": "grad-megakernel", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
          "replaces": "pathtracer_tpu/render/pallas_grad.py:267",
@@ -2174,7 +2436,8 @@ def main(argv=None) -> int:
          "sincos_check": sincos,
          "shadow_shares": {n: nee_times[n]["shares"] for n in nee_times},
          "ptxas_query": {k: list(v) for k, v in query_ptxas.items()},
-         "ptxas_nee_parent": {d: {k: list(v[0]) for k, v in a[1].items()}
+         "ptxas_nee_parent": {d: {k: list(v[0]) for k, v in a[1].items()
+                                  if "nee" in k.split()}
                               for d, a in ab.items()},
          "parent_ms": {d: {k: v[0] for k, v in a[0].items() if "K1-nee" in k}
                        for d, a in ab.items()}},

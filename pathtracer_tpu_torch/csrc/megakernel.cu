@@ -35,9 +35,14 @@
 // the other with a strict `<` (the JAX min-tree's winner: the lowest slot on
 // ties). A child box lies inside its parent's, so a ray visits every leaf
 // the packet walk lets it test; only the order differs, which matters only
-// on exact-t ties. The node table [9 Nn, 16] and the triangle table
-// [rows, 96] stay in global memory and are read through the read-only
-// cache: even a 16640-triangle mesh's tables (~3 MB) sit in the 50 MB L2.
+// on exact-t ties. The tables stay in global memory and are read through
+// the read-only cache in 16-byte records: a node is two float4 [9 Nn, 8]
+// (its leaf flag the sign of its first slot), a triangle's test record
+// three float4 (p1, Ng, U, V) [Ns, 12], and its shading record (normals,
+// color) three more in an array of its own [Ns, 12], read for the winner
+// alone. The TPU layout's 96-byte slot and 64-byte node put shading data
+// and padding into every cache line the walk pulled in. Even a
+// 16640-triangle mesh's tables (~2 MB) sit in the 50 MB L2.
 // The walk is compiled only into the kMesh instantiation, so primitive
 // scenes run the code (and registers) they ran before.
 //
@@ -158,8 +163,14 @@ namespace {
 
 constexpr int kObjCols = 45;
 constexpr int kCamCols = 17;
-constexpr int kNodeCols = 16;  // 0-2 bbmin, 3-5 bbmax, 6 tri_start, 7 leaf, 8 exit
-constexpr int kTriStride = 24;  // p1, Ng, U, V, n1, n2-n1, n3-n1, color
+// The mesh tables (render/megakernel.py build_mesh_tables), 16-byte records
+// read by __ldg of float4 from 16-byte-aligned bases:
+//   node [2 float4]: (bbmin xyz, tri_start, or -1 for an inner node),
+//                    (bbmax xyz, exit)
+//   triangle test [3 float4]: p1 xyz, Ng xyz, U xyz, V xyz
+//   triangle shading [3 float4]: n1 xyz, n2-n1 xyz, n3-n1 xyz, color rgb
+constexpr int kNodeVecs = 2;
+constexpr int kTriVecs = 3;
 constexpr int kThreads = 128;
 constexpr int kMaxObjects = 64;  // type codes travel in the launch params
 constexpr int kMaxTape = 16;     // grad kernel: tape entries >= max_bounces
@@ -493,8 +504,8 @@ struct Params {
   const int* py;
   const float* obj;
   const float* cam;
-  const float* __restrict__ nodes;
-  const float* __restrict__ tris;
+  const float4* __restrict__ nodes;
+  const float4* __restrict__ tris;
   int n_obj, n_slots, S, L, waves, spp_pack, chunk_axis;  // waves = spp/pack
   uint32_t seed;
   int sample_base, max_bounces, max_eff, leaf_size, oct_nodes;
@@ -528,6 +539,8 @@ struct Params {
   // LEAF_MMA only: the leaves' A fragments (render/megakernel.py
   // mxu_fragments: [n_leaves, 6, ceil(K/8), 32] f32)
   const float* __restrict__ mxu;
+  // the triangles' shading records, read for the winner alone
+  const float4* __restrict__ shade;
 };
 
 __device__ __forceinline__ void add_nonzero(float* a, float v) {
@@ -575,23 +588,22 @@ __device__ __forceinline__ float leaf_simt(const Params& p, int s0, float ox,
                                            float cut = 0.0f) {
   const float eps = p.eps;
   for (int k = 0; k < p.leaf_size; ++k) {
-    const float* tr = p.tris + (size_t)(s0 + k) * kTriStride;
-    const float pxx = ox - __ldg(tr + 0);
-    const float pyy = oy - __ldg(tr + 1);
-    const float pzz = oz - __ldg(tr + 2);
-    const float ngx = __ldg(tr + 3), ngy = __ldg(tr + 4), ngz = __ldg(tr + 5);
-    const float den = dx * ngx + dy * ngy + dz * ngz;
-    const float num_t = -(pxx * ngx + pyy * ngy + pzz * ngz);
+    // (p1 xyz, Ng x), (Ng yz, U xy), (U z, V xyz)
+    const float4* tr = p.tris + (size_t)(s0 + k) * kTriVecs;
+    const float4 a = __ldg(tr), b = __ldg(tr + 1), c = __ldg(tr + 2);
+    const float pxx = ox - a.x;
+    const float pyy = oy - a.y;
+    const float pzz = oz - a.z;
+    const float den = dx * a.w + dy * b.x + dz * b.y;
+    const float num_t = -(pxx * a.w + pyy * b.x + pzz * b.y);
     const bool den_ok = fabsf(den) >= eps;
     const float f = 1.0f / (den_ok ? den : 1.0f);
     const float t = num_t * f;
     const float hx = pxx + t * dx;
     const float hy = pyy + t * dy;
     const float hz = pzz + t * dz;
-    const float u = hx * __ldg(tr + 6) + hy * __ldg(tr + 7) +
-                    hz * __ldg(tr + 8);
-    const float v = hx * __ldg(tr + 9) + hy * __ldg(tr + 10) +
-                    hz * __ldg(tr + 11);
+    const float u = hx * b.z + hy * b.w + hz * c.x;
+    const float v = hx * c.y + hy * c.z + hz * c.w;
     if (den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > eps &&
         t < bt && t < p.t_max) {
       bt = t;
@@ -633,30 +645,48 @@ __device__ __forceinline__ float walk_group(const Params& p, int root, int end,
   int idx = root + base;
   const int stop = end + base;
   while (idx < stop) {
-    const float* nd = p.nodes + (size_t)idx * kNodeCols;
-    const float ax1 = (__ldg(nd + 0) - ox) * ivx;
-    const float ax2 = (__ldg(nd + 3) - ox) * ivx;
-    const float ay1 = (__ldg(nd + 1) - oy) * ivy;
-    const float ay2 = (__ldg(nd + 4) - oy) * ivy;
-    const float az1 = (__ldg(nd + 2) - oz) * ivz;
-    const float az2 = (__ldg(nd + 5) - oz) * ivz;
+    const float4* nd = p.nodes + (size_t)idx * kNodeVecs;
+    const float4 lo = __ldg(nd), hi = __ldg(nd + 1);
+    const float ax1 = (lo.x - ox) * ivx;
+    const float ax2 = (hi.x - ox) * ivx;
+    const float ay1 = (lo.y - oy) * ivy;
+    const float ay2 = (hi.y - oy) * ivy;
+    const float az1 = (lo.z - oz) * ivz;
+    const float az2 = (hi.z - oz) * ivz;
     const float tmin = fmaxf(fmaxf(fminf(ax1, ax2), fminf(ay1, ay2)),
                              fminf(az1, az2));
     const float tmax = fminf(fminf(fmaxf(ax1, ax2), fmaxf(ay1, ay2)),
                              fmaxf(az1, az2));
     const bool hit = (tmin <= tmax) && (tmax > eps) && (tmin < bt);
-    if (hit && __ldg(nd + 7) > 0.5f) {
+    if (hit && lo.w >= 0.0f) {  // a leaf: its first slot
       if constexpr (kLeaf == LEAF_SIMT) {
-        bt = leaf_simt<kAny>(p, (int)__ldg(nd + 6), ox, oy, oz, dx, dy, dz,
-                             bt, slot, wu, wv, cut);
+        bt = leaf_simt<kAny>(p, (int)lo.w, ox, oy, oz, dx, dy, dz, bt, slot,
+                             wu, wv, cut);
         if constexpr (kAny) {
           if (bt < cut) return bt;
         }
       }
     }
-    idx = hit ? idx + 1 : (int)__ldg(nd + 8);
+    idx = hit ? idx + 1 : (int)hi.w;
   }
   return bt;
+}
+
+// The winning triangle's smooth normal n1 + u*(n2-n1) + v*(n3-n1)
+// (tracer.cl:669) and its color, from its shading record: (n1 xyz,
+// (n2-n1) x), ((n2-n1) yz, (n3-n1) xy), ((n3-n1) z, color rgb).
+__device__ __forceinline__ void tri_shading(const Params& p, int tri, float u,
+                                            float v, float& nx, float& ny,
+                                            float& nz, float& r, float& g,
+                                            float& b) {
+  const float4* sh = p.shade + (size_t)tri * kTriVecs;
+  const float4 s0 = __ldg(sh), s1 = __ldg(sh + 1), s2 = __ldg(sh + 2);
+  nx = s0.x + s0.w * u + s1.z * v;
+  ny = s0.y + s1.x * u + s1.w * v;
+  nz = s0.z + s1.y * u + s2.x * v;
+  r = s2.y;
+  g = s2.z;
+  b = s2.w;
 }
 
 // ---- the warp-packet walks (pallas_kernel.py:1334-1900) --------------------
@@ -882,21 +912,22 @@ __device__ __forceinline__ float walk_packet(const Params& p, int root,
   RayFrags q;
   if constexpr (kLeaf == LEAF_MMA) q = ray_frags(ox, oy, oz, dx, dy, dz);
   while (idx < stop) {  // idx is the warp's
-    const float* nd = p.nodes + (size_t)idx * kNodeCols;
-    const float ax1 = (__ldg(nd + 0) - ox) * ivx;
-    const float ax2 = (__ldg(nd + 3) - ox) * ivx;
-    const float ay1 = (__ldg(nd + 1) - oy) * ivy;
-    const float ay2 = (__ldg(nd + 4) - oy) * ivy;
-    const float az1 = (__ldg(nd + 2) - oz) * ivz;
-    const float az2 = (__ldg(nd + 5) - oz) * ivz;
+    const float4* nd = p.nodes + (size_t)idx * kNodeVecs;
+    const float4 lo = __ldg(nd), hi = __ldg(nd + 1);
+    const float ax1 = (lo.x - ox) * ivx;
+    const float ax2 = (hi.x - ox) * ivx;
+    const float ay1 = (lo.y - oy) * ivy;
+    const float ay2 = (hi.y - oy) * ivy;
+    const float az1 = (lo.z - oz) * ivz;
+    const float az2 = (hi.z - oz) * ivz;
     const float tmin = fmaxf(fmaxf(fminf(ax1, ax2), fminf(ay1, ay2)),
                              fminf(az1, az2));
     const float tmax = fminf(fminf(fmaxf(ax1, ax2), fmaxf(ay1, ay2)),
                              fmaxf(az1, az2));
     const bool hit = (tmin <= tmax) && (tmax > eps) && (tmin < lbt);
     const bool any = __any_sync(kFull, hit);
-    if (any && __ldg(nd + 7) > 0.5f) {
-      const int s0 = (int)__ldg(nd + 6);
+    if (any && lo.w >= 0.0f) {
+      const int s0 = (int)lo.w;
       if constexpr (kLeaf == LEAF_SIMT) {
         if (hit)
           lbt = leaf_simt(p, s0, ox, oy, oz, dx, dy, dz, lbt, slot, wu, wv);
@@ -904,7 +935,7 @@ __device__ __forceinline__ float walk_packet(const Params& p, int root,
         lbt = leaf_mma(p, s0, q, hit, lbt, slot, wu, wv);
       }
     }
-    idx = any ? idx + 1 : (int)__ldg(nd + 8);
+    idx = any ? idx + 1 : (int)hi.w;
   }
   return active ? lbt : bt;
 }
@@ -919,28 +950,44 @@ struct Hit {
   float tu, tv;                        // its barycentrics
 };
 
-// Object row m's transform of the ray into object space (nearest_hit's and
-// object_t's).
+// Row r of object row m's inverse (3x4) applied to a point and to a vector.
+__device__ __forceinline__ float row_point(const float* m, int r, float x,
+                                           float y, float z) {
+  return m[4 * r] * x + m[4 * r + 1] * y + m[4 * r + 2] * z + m[4 * r + 3];
+}
+
+__device__ __forceinline__ float row_vec(const float* m, int r, float x,
+                                         float y, float z) {
+  return m[4 * r] * x + m[4 * r + 1] * y + m[4 * r + 2] * z;
+}
+
+// Object row m's transform of the ray into object space (the winner's,
+// after nearest_hit's loop, and object_t's for the types that read it all).
 __device__ __forceinline__ void object_ray(const float* m, float ox, float oy,
                                            float oz, float dx, float dy,
                                            float dz, float& tox, float& toy,
                                            float& toz, float& tdx, float& tdy,
                                            float& tdz) {
-  tox = m[0] * ox + m[1] * oy + m[2] * oz + m[3];
-  toy = m[4] * ox + m[5] * oy + m[6] * oz + m[7];
-  toz = m[8] * ox + m[9] * oy + m[10] * oz + m[11];
-  tdx = m[0] * dx + m[1] * dy + m[2] * dz;
-  tdy = m[4] * dx + m[5] * dy + m[6] * dz;
-  tdz = m[8] * dx + m[9] * dy + m[10] * dz;
+  tox = row_point(m, 0, ox, oy, oz);
+  toy = row_point(m, 1, ox, oy, oz);
+  toz = row_point(m, 2, ox, oy, oz);
+  tdx = row_vec(m, 0, dx, dy, dz);
+  tdy = row_vec(m, 1, dx, dy, dz);
+  tdz = row_vec(m, 2, dx, dy, dz);
 }
 
-// Every object's transform and test in table order, a GROUP's
-// object-space box pretest and then its walk, the winner replaced on a
-// strictly smaller t: the TPU kernels' unrolled object loop (the intersect
-// section of _make_kernel, the NEE shadow loop pallas_kernel.py:2452-2498,
-// _make_intersect_kernel :2741-2790). The bounce and the intersect-only
-// kernel call it, and the shadow rays of the packet walks; the per-thread
-// shadow rays ask light_visible, which answers by this rule. `s_obj` is the
+// Every object's test in table order, a GROUP's object-space box pretest
+// and then its walk, the winner replaced on a strictly smaller t: the TPU
+// kernels' unrolled object loop (the intersect section of _make_kernel,
+// the NEE shadow loop pallas_kernel.py:2452-2498, _make_intersect_kernel
+// :2741-2790). Each test transforms only what it reads: a plane its y row
+// (object_ray's own operations for toy and tdy), the other types the whole
+// ray. The loop keeps the winner's (t, object, slot, u, v), and the
+// winner's object-space ray is computed once, after it, by object_ray: the
+// same operations on the same inputs, so the same bits as a loop that
+// carries every object's ray. The bounce and the intersect-only kernel
+// call it, and the shadow rays of the packet walks; the per-thread shadow
+// rays ask light_visible, which answers by this rule. `s_obj` is the
 // object table. Under a packet walk (kWalk) every lane of the group calls
 // it together, `active` false for a lane without a ray, which no walk then
 // counts.
@@ -954,71 +1001,69 @@ __device__ __forceinline__ Hit nearest_hit(const Params& p,
   Hit h{kBig, -1, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1, 0.f, 0.f};
   for (int j = 0; j < p.n_obj; ++j) {
     const float* m = s_obj + j * kObjCols;
-    float tox, toy, toz, tdx, tdy, tdz;
-    object_ray(m, ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy, tdz);
+    const int type = p.obj_types[j];
     int g_slot = -1;
     float g_u = 0.f, g_v = 0.f;
     float t;
-    switch (p.obj_types[j]) {
-      case PLANE: t = plane_t(toy, tdy, eps); break;
-      case SPHERE: t = sphere_t(tox, toy, toz, tdx, tdy, tdz, eps); break;
-      case CYLINDER:
+    if (type == PLANE) {
+      t = plane_t(row_point(m, 1, ox, oy, oz), row_vec(m, 1, dx, dy, dz),
+                  eps);
+    } else {
+      float tox, toy, toz, tdx, tdy, tdz;
+      object_ray(m, ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy, tdz);
+      if (type == SPHERE) {
+        t = sphere_t(tox, toy, toz, tdx, tdy, tdz, eps);
+      } else if (type == CYLINDER) {
         t = cylinder_t(tox, toy, toz, tdx, tdy, tdz, m[32], m[33], eps);
-        break;
-      default:
-        if constexpr (kMesh) {
-          if (p.obj_types[j] == BOX) {
-            t = box_t(tox, toy, toz, tdx, tdy, tdz, eps);
-            break;
-          }
-          // GROUP: object-space bbox pretest, then the walk
-          t = kBig;
-          float x1, x2, y1, y2, z1, z2;
-          axis_slab(tox, tdx, m[34], m[37], eps, x1, x2);
-          axis_slab(toy, tdy, m[35], m[38], eps, y1, y2);
-          axis_slab(toz, tdz, m[36], m[39], eps, z1, z2);
-          const float gtmin = fmaxf(fmaxf(x1, y1), z1);
-          const float gtmax = fminf(fminf(x2, y2), z2);
-          if constexpr (kWalk == WALK_THREAD) {
-            if (gtmin <= gtmax && gtmax > eps && gtmin < h.t) {
-              t = walk_group<kLeaf>(p, p.group_root[j], p.group_end[j], tox,
-                                    toy, toz, tdx, tdy, tdz, h.t, g_slot,
-                                    g_u, g_v);
-            }
-          } else {
-            // the whole group walks (its votes), each lane active where
-            // its pretest passes; an inactive lane gets h.t back
-            const bool pre = active && gtmin <= gtmax && gtmax > eps &&
-                             gtmin < h.t;
-            t = walk_packet<kWalk, kLeaf>(p, p.group_root[j], p.group_end[j],
-                                          pre, tox, toy, toz, tdx, tdy, tdz,
-                                          h.t, g_slot, g_u, g_v);
+      } else if (!kMesh || type == BOX) {
+        // BOX, the last type a scene without groups has
+        t = box_t(tox, toy, toz, tdx, tdy, tdz, eps);
+      } else {
+        // GROUP: object-space bbox pretest, then the walk
+        t = kBig;
+        float x1, x2, y1, y2, z1, z2;
+        axis_slab(tox, tdx, m[34], m[37], eps, x1, x2);
+        axis_slab(toy, tdy, m[35], m[38], eps, y1, y2);
+        axis_slab(toz, tdz, m[36], m[39], eps, z1, z2);
+        const float gtmin = fmaxf(fmaxf(x1, y1), z1);
+        const float gtmax = fminf(fminf(x2, y2), z2);
+        if constexpr (kWalk == WALK_THREAD) {
+          if (gtmin <= gtmax && gtmax > eps && gtmin < h.t) {
+            t = walk_group<kLeaf>(p, p.group_root[j], p.group_end[j], tox,
+                                  toy, toz, tdx, tdy, tdz, h.t, g_slot, g_u,
+                                  g_v);
           }
         } else {
-          // BOX, the last type a scene without groups has
-          t = box_t(tox, toy, toz, tdx, tdy, tdz, eps);
+          // the whole group walks (its votes), each lane active where its
+          // pretest passes; an inactive lane gets h.t back
+          const bool pre = active && gtmin <= gtmax && gtmax > eps &&
+                           gtmin < h.t;
+          t = walk_packet<kWalk, kLeaf>(p, p.group_root[j], p.group_end[j],
+                                        pre, tox, toy, toz, tdx, tdy, tdz,
+                                        h.t, g_slot, g_u, g_v);
         }
-        break;
+      }
     }
     if (t < h.t) {
       h.t = t;
       h.w = j;
-      h.lox = tox; h.loy = toy; h.loz = toz;
-      h.ldx = tdx; h.ldy = tdy; h.ldz = tdz;
       h.tri = g_slot;
       h.tu = g_u;
       h.tv = g_v;
     }
   }
+  if (h.w >= 0)
+    object_ray(s_obj + h.w * kObjCols, ox, oy, oz, dx, dy, dz, h.lox, h.loy,
+               h.loz, h.ldx, h.ldy, h.ldz);
   return h;
 }
 
-// Object j's t for the ray, by nearest_hit's object_ray and its tests: a
+// Object j's t for the ray, by nearest_hit's transforms and tests: a
 // GROUP's box pretest against bt and then walk_group from bt with the
 // any-hit exit below `cut` (kBig when the pretest fails, bt when no
 // triangle wins). The type switch is nearest_hit's, kept apart: one
 // function for both moved the register count of the intersect kernel's
-// mesh instantiation, which has no NEE and keeps its code.
+// mesh instantiation.
 template <bool kMesh, int kLeaf>
 __device__ __forceinline__ float object_t(const Params& p, const float* s_obj,
                                           int j, float ox, float oy, float oz,
@@ -1026,16 +1071,19 @@ __device__ __forceinline__ float object_t(const Params& p, const float* s_obj,
                                           float bt, float cut) {
   const float eps = p.eps;
   const float* m = s_obj + j * kObjCols;
+  const int type = p.obj_types[j];
+  if (type == PLANE)
+    return plane_t(row_point(m, 1, ox, oy, oz), row_vec(m, 1, dx, dy, dz),
+                   eps);
   float tox, toy, toz, tdx, tdy, tdz;
   object_ray(m, ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy, tdz);
-  switch (p.obj_types[j]) {
-    case PLANE: return plane_t(toy, tdy, eps);
+  switch (type) {
     case SPHERE: return sphere_t(tox, toy, toz, tdx, tdy, tdz, eps);
     case CYLINDER:
       return cylinder_t(tox, toy, toz, tdx, tdy, tdz, m[32], m[33], eps);
     default:
       if constexpr (kMesh) {
-        if (p.obj_types[j] != BOX) {
+        if (type != BOX) {
           float x1, x2, y1, y2, z1, z2;
           axis_slab(tox, tdx, m[34], m[37], eps, x1, x2);
           axis_slab(toy, tdy, m[35], m[38], eps, y1, y2);
@@ -1128,9 +1176,11 @@ __device__ __forceinline__ float acos_poly(float x) {
 // per-tile exit), a lane whose path ended riding along inactive (`live`
 // false: its sums no longer change), and every light's shadow walk is
 // called by every lane, active where the lane casts that shadow ray.
+// The forward kernels (megakernel) and the gradient kernels
+// (grad_megakernel) run this body.
 template <bool kMesh, bool kGrad, bool kTex, bool kF32 = false,
           bool kNee = false, int kWalk = WALK_THREAD, int kLeaf = LEAF_SIMT>
-__global__ void __launch_bounds__(kThreads) megakernel(Params p) {
+__device__ __forceinline__ void megakernel_body(const Params& p) {
   constexpr bool kPacket = kWalk != WALK_THREAD;
   extern __shared__ float smem[];
   float* s_obj = smem;
@@ -1269,15 +1319,8 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
       float nlx, nly, nlz;
       float tcr = 0.f, tcg = 0.f, tcb = 0.f;
       if (on_tri) {
-        // smooth normal n1 + u*(n2-n1) + v*(n3-n1) (tracer.cl:669) and the
-        // triangle's color
-        const float* tr = p.tris + (size_t)tri * kTriStride;
-        nlx = __ldg(tr + 12) + __ldg(tr + 15) * tu + __ldg(tr + 18) * tv;
-        nly = __ldg(tr + 13) + __ldg(tr + 16) * tu + __ldg(tr + 19) * tv;
-        nlz = __ldg(tr + 14) + __ldg(tr + 17) * tu + __ldg(tr + 20) * tv;
-        tcr = __ldg(tr + 21);
-        tcg = __ldg(tr + 22);
-        tcb = __ldg(tr + 23);
+        // the smooth normal and the triangle's color
+        tri_shading(p, tri, tu, tv, nlx, nly, nlz, tcr, tcg, tcb);
       } else if (w_type == PLANE) {
         nlx = 0.0f; nly = 1.0f; nlz = 0.0f;
       } else if (w_type == CYLINDER) {
@@ -1632,6 +1675,41 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
   }
 }
 
+template <bool kMesh, bool kGrad, bool kTex, bool kF32 = false,
+          bool kNee = false, int kWalk = WALK_THREAD, int kLeaf = LEAF_SIMT>
+__global__ void __launch_bounds__(kThreads) megakernel(Params p) {
+  megakernel_body<kMesh, kGrad, kTex, kF32, kNee, kWalk, kLeaf>(p);
+}
+
+// The gradient kernels: at least kGradBlocks blocks an SM, so at most 64
+// registers a thread. The replay's tape and atomics want the warps more
+// than the registers: with the 16-byte records ptxas chose 80 and K6 in
+// triangle mode ran 13% slower. (A minimum of 1 for the forward kernels
+// is not the default: ptxas then takes 90-110 registers and they run
+// 5-10% slower.)
+constexpr int kGradBlocks = 8;
+template <bool kMesh, bool kTex, bool kF32>
+__global__ void __launch_bounds__(kThreads, kGradBlocks)
+    grad_megakernel(Params p) {
+  megakernel_body<kMesh, true, kTex, kF32>(p);
+}
+
+// Point the launch parameters at the mesh tables (node, triangle test and
+// shading records); false unless each base is 16-byte aligned, as the
+// float4 loads need.
+bool set_tables(Params& p, const float* nodes, const float* tris,
+                const float* shade) {
+  const auto misaligned = [](const float* a) {
+    return reinterpret_cast<uintptr_t>(a) % 16 != 0;
+  };
+  if (misaligned(nodes) || misaligned(tris) || misaligned(shade))
+    return false;
+  p.nodes = reinterpret_cast<const float4*>(nodes);
+  p.tris = reinterpret_cast<const float4*>(tris);
+  p.shade = reinterpret_cast<const float4*>(shade);
+  return true;
+}
+
 // Copy the host type codes and group ranges into the launch parameters
 // and launch the instantiation the scene needs (kMesh when it has a GROUP,
 // kTex when the caller passed a texel pool or f32 texels, kF32 for the
@@ -1657,13 +1735,21 @@ int launch(Params& p, const int* obj_types, const int* group_root,
                                           (kTex ? kTexCols : 0)) +
                                kCamCols);
   const int blocks = (p.n_slots + kThreads - 1) / kThreads;
+  const cudaStream_t s = (cudaStream_t)stream;
   if (blocks > 0) {
-    if (mesh)
-      megakernel<true, kGrad, kTex, kF32, kNee>
-          <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
-    else
-      megakernel<false, kGrad, kTex, kF32, kNee>
-          <<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+    if constexpr (kGrad) {
+      if (mesh)
+        grad_megakernel<true, kTex, kF32><<<blocks, kThreads, smem, s>>>(p);
+      else
+        grad_megakernel<false, kTex, kF32><<<blocks, kThreads, smem, s>>>(p);
+    } else {
+      if (mesh)
+        megakernel<true, false, kTex, kF32, kNee>
+            <<<blocks, kThreads, smem, s>>>(p);
+      else
+        megakernel<false, false, kTex, kF32, kNee>
+            <<<blocks, kThreads, smem, s>>>(p);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -1748,16 +1834,9 @@ __global__ void __launch_bounds__(kThreads) intersect(Params p, Rays r) {
   const bool miss = h.w < 0;
   float nrm[3] = {0.f, 0.f, 0.f}, col[3] = {0.f, 0.f, 0.f};
   const bool on_tri = kMesh && h.tri >= 0;
-  if (on_tri) {
-    // the smooth normal n1 + u*(n2-n1) + v*(n3-n1) and the color
-    const float* tr = p.tris + (size_t)h.tri * kTriStride;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      nrm[k] = __ldg(tr + 12 + k) + __ldg(tr + 15 + k) * h.tu +
-               __ldg(tr + 18 + k) * h.tv;
-      col[k] = __ldg(tr + 21 + k);
-    }
-  }
+  if (on_tri)
+    tri_shading(p, h.tri, h.tu, h.tv, nrm[0], nrm[1], nrm[2], col[0], col[1],
+                col[2]);
   const size_t n = (size_t)r.n;
   float* o = r.out + i;
   o[0] = fminf(h.t, p.t_max);
@@ -1818,6 +1897,26 @@ enum {
   BENCH_TREE = 4, BENCH_SYNTH = 5
 };
 
+// Slot s's 24 coefficients: its test record (p1, Ng, U, V) then its
+// shading record (n1, n2-n1, n3-n1, color).
+__device__ __forceinline__ void slot_coeffs(const Params& p, int s,
+                                            float (&co)[24]) {
+  const float4* t = p.tris + (size_t)s * kTriVecs;
+  const float4* h = p.shade + (size_t)s * kTriVecs;
+#pragma unroll
+  for (int j = 0; j < kTriVecs; ++j) {
+    const float4 a = __ldg(t + j), b = __ldg(h + j);
+    co[4 * j] = a.x;
+    co[4 * j + 1] = a.y;
+    co[4 * j + 2] = a.z;
+    co[4 * j + 3] = a.w;
+    co[12 + 4 * j] = b.x;
+    co[12 + 4 * j + 1] = b.y;
+    co[12 + 4 * j + 2] = b.z;
+    co[12 + 4 * j + 3] = b.w;
+  }
+}
+
 // One slot's test with the normal, for BENCH_BASE/HITPOINT/SYNTH/TREE:
 // returns t (kBig unless valid, and below bt when kChain) and the normal.
 template <bool kHitpoint, bool kChain>
@@ -1875,9 +1974,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int k = 0; k < 8; ++k) {
           float co[24];
-          const float* tr = p.tris + (size_t)(s0 + k0 + k) * kTriStride;
-#pragma unroll
-          for (int j = 0; j < 24; ++j) co[j] = __ldg(tr + j);
+          slot_coeffs(p, s0 + k0 + k, co);
           ct[k] = bench_slot<true, false>(co, ox, oy, oz, dx, dy, dz, p.eps,
                                           bt, cx[k], cy[k], cz[k]);
         }
@@ -1903,12 +2000,13 @@ __global__ void __launch_bounds__(kThreads)
       const float fi = (float)(v % 7 + 1) * 0.1f;
       for (int k = 0; k < K; ++k) {
         float co[24];
-        const float* tr = p.tris + (size_t)(s0 + k) * kTriStride;
+        if constexpr (kVar == BENCH_SYNTH) {
 #pragma unroll
-        for (int j = 0; j < 24; ++j)
-          co[j] = kVar == BENCH_SYNTH
-                      ? fi * (float)(((k & 3) * 24 + j + (k >> 2)) % 7 + 1)
-                      : __ldg(tr + j);
+          for (int j = 0; j < 24; ++j)
+            co[j] = fi * (float)(((k & 3) * 24 + j + (k >> 2)) % 7 + 1);
+        } else {
+          slot_coeffs(p, s0 + k, co);
+        }
         float cx, cy, cz;
         const float t = bench_slot<kVar == BENCH_HITPOINT, true>(
             co, ox, oy, oz, dx, dy, dz, p.eps, bt, cx, cy, cz);
@@ -1980,16 +2078,19 @@ __global__ void __launch_bounds__(kThreads)
 // Launch the megakernel over n_slots = T*S*L slots on `stream`. obj_types,
 // group_root and group_end are HOST arrays of n_obj <= kMaxObjects entries,
 // copied into the launch parameters (no device copy, so no synchronisation).
-// nodes [*, 16] and tris [*, 96] are the mesh tables (one zero row each for
-// a scene without groups); oct_nodes is the node count of one octant copy,
+// nodes [*, 8], tris [*, 12] and shade [*, 12] are the mesh tables
+// (render/megakernel.py build_mesh_tables: node, triangle test and
+// triangle shading records, 16-byte aligned; one zero row each for a scene
+// without groups); oct_nodes is the node count of one octant copy,
 // or 0 when the table has no copies. Scenes with a GROUP run the kMesh
 // instantiation. Returns the cudaGetLastError() after the launch (0 on
 // success), or cudaErrorInvalidValue for arguments out of range.
 extern "C" int pt_megakernel_launch(
     float* out_r, float* out_g, float* out_b, const int* px, const int* py,
     const float* obj, const int* obj_types, const float* cam,
-    const float* nodes, const float* tris, const int* group_root,
-    const int* group_end, int n_obj, int n_slots, int S, int L, int spp,
+    const float* nodes, const float* tris, const float* shade,
+    const int* group_root, const int* group_end, int n_obj, int n_slots,
+    int S, int L, int spp,
     int spp_pack, int chunk_axis, uint32_t seed, int sample_base,
     int max_bounces, int max_eff, int leaf_size, int oct_nodes, float eps,
     float t_max, float sun_cut, float sun_den, float golden2, int coherent,
@@ -1997,11 +2098,13 @@ extern "C" int pt_megakernel_launch(
   if (n_obj < 1 || n_obj > kMaxObjects || spp_pack < 1 || leaf_size < 1 ||
       spp % spp_pack != 0 || (chunk_axis ? L % spp_pack : S % spp_pack) != 0)
     return (int)cudaErrorInvalidValue;
-  Params p{out_r, out_g, out_b, px, py, obj, cam, nodes, tris,
+  Params p{out_r, out_g, out_b, px, py, obj, cam, nullptr, nullptr,
            n_obj, n_slots, S, L, spp / spp_pack, spp_pack, chunk_axis, seed,
            sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
            eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
            nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  if (!set_tables(p, nodes, tris, shade))
+    return (int)cudaErrorInvalidValue;
   return launch<false, false>(p, obj_types, group_root, group_end, stream);
 }
 
@@ -2011,8 +2114,9 @@ extern "C" int pt_megakernel_launch(
 extern "C" int pt_megakernel_tex_launch(
     float* out_r, float* out_g, float* out_b, const int* px, const int* py,
     const float* obj, const int* obj_types, const float* cam,
-    const float* nodes, const float* tris, const int* group_root,
-    const int* group_end, int n_obj, int n_slots, int S, int L, int spp,
+    const float* nodes, const float* tris, const float* shade,
+    const int* group_root, const int* group_end, int n_obj, int n_slots,
+    int S, int L, int spp,
     int spp_pack, int chunk_axis, uint32_t seed, int sample_base,
     int max_bounces, int max_eff, int leaf_size, int oct_nodes, float eps,
     float t_max, float sun_cut, float sun_den, float golden2, int coherent,
@@ -2021,11 +2125,13 @@ extern "C" int pt_megakernel_tex_launch(
       spp % spp_pack != 0 || (chunk_axis ? L % spp_pack : S % spp_pack) != 0 ||
       tex_pool == nullptr || tex_table == nullptr)
     return (int)cudaErrorInvalidValue;
-  Params p{out_r, out_g, out_b, px, py, obj, cam, nodes, tris,
+  Params p{out_r, out_g, out_b, px, py, obj, cam, nullptr, nullptr,
            n_obj, n_slots, S, L, spp / spp_pack, spp_pack, chunk_axis, seed,
            sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
            eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
            nullptr, nullptr, nullptr, nullptr, nullptr, tex_pool, tex_table};
+  if (!set_tables(p, nodes, tris, shade))
+    return (int)cudaErrorInvalidValue;
   return launch<false, true>(p, obj_types, group_root, group_end, stream);
 }
 
@@ -2036,8 +2142,9 @@ extern "C" int pt_megakernel_tex_launch(
 extern "C" int pt_megakernel_texels_launch(
     float* out_r, float* out_g, float* out_b, const int* px, const int* py,
     const float* obj, const int* obj_types, const float* cam,
-    const float* nodes, const float* tris, const int* group_root,
-    const int* group_end, int n_obj, int n_slots, int S, int L, int spp,
+    const float* nodes, const float* tris, const float* shade,
+    const int* group_root, const int* group_end, int n_obj, int n_slots,
+    int S, int L, int spp,
     int spp_pack, int chunk_axis, uint32_t seed, int sample_base,
     int max_bounces, int max_eff, int leaf_size, int oct_nodes, float eps,
     float t_max, float sun_cut, float sun_den, float golden2, int coherent,
@@ -2048,13 +2155,15 @@ extern "C" int pt_megakernel_texels_launch(
       texels == nullptr || n_texels < 1 || tex_table == nullptr ||
       reinterpret_cast<uintptr_t>(texels) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  Params p{out_r, out_g, out_b, px, py, obj, cam, nodes, tris,
+  Params p{out_r, out_g, out_b, px, py, obj, cam, nullptr, nullptr,
            n_obj, n_slots, S, L, spp / spp_pack, spp_pack, chunk_axis, seed,
            sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
            eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
            nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, tex_table,
            reinterpret_cast<const float4*>(texels), nullptr, 0ull,
            n_texels};
+  if (!set_tables(p, nodes, tris, shade))
+    return (int)cudaErrorInvalidValue;
   return launch<false, true, true>(p, obj_types, group_root, group_end,
                                    stream);
 }
@@ -2069,8 +2178,9 @@ extern "C" int pt_megakernel_texels_launch(
 extern "C" int pt_megakernel_nee_launch(
     float* out_r, float* out_g, float* out_b, const int* px, const int* py,
     const float* obj, const int* obj_types, const float* cam,
-    const float* nodes, const float* tris, const int* group_root,
-    const int* group_end, int n_obj, int n_slots, int S, int L, int spp,
+    const float* nodes, const float* tris, const float* shade,
+    const int* group_root, const int* group_end, int n_obj, int n_slots,
+    int S, int L, int spp,
     int spp_pack, int chunk_axis, uint32_t seed, int sample_base,
     int max_bounces, int max_eff, int leaf_size, int oct_nodes, float eps,
     float t_max, float sun_cut, float sun_den, float golden2, int coherent,
@@ -2084,11 +2194,13 @@ extern "C" int pt_megakernel_nee_launch(
   for (int i = 0; i < n_lights; ++i)
     if (light_idx[i] < 0 || light_idx[i] >= n_obj)
       return (int)cudaErrorInvalidValue;
-  Params p{out_r, out_g, out_b, px, py, obj, cam, nodes, tris,
+  Params p{out_r, out_g, out_b, px, py, obj, cam, nullptr, nullptr,
            n_obj, n_slots, S, L, spp / spp_pack, spp_pack, chunk_axis, seed,
            sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
            eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
            nullptr, nullptr, nullptr, nullptr, nullptr, tex_pool, tex_table};
+  if (!set_tables(p, nodes, tris, shade))
+    return (int)cudaErrorInvalidValue;
   p.n_lights = n_lights;
   for (int i = 0; i < n_lights; ++i) p.light_idx[i] = light_idx[i];
   if (tex_pool != nullptr)
@@ -2106,15 +2218,16 @@ extern "C" int pt_intersect_launch(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, float* out, int* idx, int n,
     const float* obj, const int* obj_types, const float* nodes,
-    const float* tris, const int* group_root, const int* group_end,
-    int n_obj, int leaf_size, int oct_nodes, float eps, float t_max,
+    const float* tris, const float* shade, const int* group_root,
+    const int* group_end, int n_obj, int leaf_size, int oct_nodes,
+    float eps, float t_max,
     void* stream) {
   if (n_obj < 1 || n_obj > kMaxObjects || leaf_size < 1 || n < 0)
     return (int)cudaErrorInvalidValue;
   Params p{};
   p.obj = obj;
-  p.nodes = nodes;
-  p.tris = tris;
+  if (!set_tables(p, nodes, tris, shade))
+    return (int)cudaErrorInvalidValue;
   p.n_obj = n_obj;
   p.leaf_size = leaf_size;
   p.oct_nodes = oct_nodes;
@@ -2177,19 +2290,22 @@ extern "C" int pt_grad_launch(
     const float* cot_r, const float* cot_g, const float* cot_b, float* gobj,
     float* gtri, const int* px, const int* py, const float* obj,
     const int* obj_types, const float* cam, const float* nodes,
-    const float* tris, const int* group_root, const int* group_end,
-    int n_obj, int n_slots, int S, int L, int spp, uint32_t seed,
+    const float* tris, const float* shade, const int* group_root,
+    const int* group_end, int n_obj, int n_slots, int S, int L, int spp,
+    uint32_t seed,
     int sample_base, int max_bounces, int max_eff, int leaf_size,
     int oct_nodes, float eps, float t_max, float sun_cut, float sun_den,
     float golden2, int coherent, void* stream) {
   if (n_obj < 1 || n_obj > kMaxObjects || leaf_size < 1 ||
       n_slots % kThreads != 0 || max_bounces > kMaxTape)
     return (int)cudaErrorInvalidValue;
-  Params p{nullptr, nullptr, nullptr, px, py, obj, cam, nodes, tris,
+  Params p{nullptr, nullptr, nullptr, px, py, obj, cam, nullptr, nullptr,
            n_obj, n_slots, S, L, spp, 1, 0, seed,
            sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
            eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
            cot_r, cot_g, cot_b, gobj, gtri, nullptr, nullptr};
+  if (!set_tables(p, nodes, tris, shade))
+    return (int)cudaErrorInvalidValue;
   return launch<true, false>(p, obj_types, group_root, group_end, stream);
 }
 
@@ -2203,7 +2319,8 @@ extern "C" int pt_grad_tex_launch(
     const float* cot_r, const float* cot_g, const float* cot_b, float* gobj,
     const int* px, const int* py, const float* obj, const int* obj_types,
     const float* cam, const float* nodes, const float* tris,
-    const int* group_root, const int* group_end, int n_obj, int n_slots,
+    const float* shade, const int* group_root, const int* group_end,
+    int n_obj, int n_slots,
     int S, int L, int spp, uint32_t seed, int sample_base, int max_bounces,
     int max_eff, int leaf_size, int oct_nodes, float eps, float t_max,
     float sun_cut, float sun_den, float golden2, int coherent, void* stream,
@@ -2215,13 +2332,15 @@ extern "C" int pt_grad_tex_launch(
       gtex == nullptr ||
       reinterpret_cast<uintptr_t>(texels) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  Params p{nullptr, nullptr, nullptr, px, py, obj, cam, nodes, tris,
+  Params p{nullptr, nullptr, nullptr, px, py, obj, cam, nullptr, nullptr,
            n_obj, n_slots, S, L, spp, 1, 0, seed,
            sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
            eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
            cot_r, cot_g, cot_b, gobj, nullptr, nullptr, tex_table,
            reinterpret_cast<const float4*>(texels), gtex, tex_train,
            n_texels};
+  if (!set_tables(p, nodes, tris, shade))
+    return (int)cudaErrorInvalidValue;
   return launch<true, true, true>(p, obj_types, group_root, group_end,
                                   stream);
 }
@@ -2236,8 +2355,9 @@ extern "C" int pt_grad_tex_launch(
 extern "C" int pt_megakernel_packet_launch(
     float* out_r, float* out_g, float* out_b, const int* px, const int* py,
     const float* obj, const int* obj_types, const float* cam,
-    const float* nodes, const float* tris, const int* group_root,
-    const int* group_end, int n_obj, int n_slots, int S, int L, int spp,
+    const float* nodes, const float* tris, const float* shade,
+    const int* group_root, const int* group_end, int n_obj, int n_slots,
+    int S, int L, int spp,
     int spp_pack, int chunk_axis, uint32_t seed, int sample_base,
     int max_bounces, int max_eff, int leaf_size, int oct_nodes, float eps,
     float t_max, float sun_cut, float sun_den, float golden2, int coherent,
@@ -2254,11 +2374,13 @@ extern "C" int pt_megakernel_packet_launch(
   for (int i = 0; i < n_lights; ++i)
     if (light_idx[i] < 0 || light_idx[i] >= n_obj)
       return (int)cudaErrorInvalidValue;
-  Params p{out_r, out_g, out_b, px, py, obj, cam, nodes, tris,
+  Params p{out_r, out_g, out_b, px, py, obj, cam, nullptr, nullptr,
            n_obj, n_slots, S, L, spp / spp_pack, spp_pack, chunk_axis, seed,
            sample_base, max_bounces, max_eff, leaf_size, oct_nodes,
            eps, t_max, sun_cut, sun_den, golden2, coherent, {}, {}, {},
            nullptr, nullptr, nullptr, nullptr, nullptr, tex_pool, tex_table};
+  if (!set_tables(p, nodes, tris, shade))
+    return (int)cudaErrorInvalidValue;
   p.n_lights = n_lights;
   for (int i = 0; i < n_lights; ++i) p.light_idx[i] = light_idx[i];
   p.mxu = mxu;
@@ -2284,16 +2406,17 @@ extern "C" int pt_intersect_packet_launch(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, float* out, int* idx, int n,
     const float* obj, const int* obj_types, const float* nodes,
-    const float* tris, const int* group_root, const int* group_end,
-    int n_obj, int leaf_size, int oct_nodes, float eps, float t_max,
+    const float* tris, const float* shade, const int* group_root,
+    const int* group_end, int n_obj, int leaf_size, int oct_nodes,
+    float eps, float t_max,
     void* stream, const float* mxu, int walk, int leaf) {
   if (n_obj < 1 || n_obj > kMaxObjects || leaf_size < 1 || n < 0 ||
       (leaf == LEAF_MMA) != (mxu != nullptr))
     return (int)cudaErrorInvalidValue;
   Params p{};
   p.obj = obj;
-  p.nodes = nodes;
-  p.tris = tris;
+  if (!set_tables(p, nodes, tris, shade))
+    return (int)cudaErrorInvalidValue;
   p.n_obj = n_obj;
   p.leaf_size = leaf_size;
   p.oct_nodes = oct_nodes;
@@ -2319,15 +2442,17 @@ extern "C" int pt_intersect_packet_launch(
 extern "C" int pt_leaf_bench_launch(
     const float* ox, const float* oy, const float* oz, const float* dx,
     const float* dy, const float* dz, float* out, int* idx, int n,
-    int visits, const float* tris, const float* mxu, int leaf_size,
+    int visits, const float* tris, const float* shade, const float* mxu,
+    int leaf_size,
     int n_leaves, float eps, float t_max, int variant, void* stream) {
   if (n < 1 || visits < 1 || leaf_size < 1 || n_leaves < 1 ||
-      tris == nullptr || variant < 0 || variant > 6 ||
+      tris == nullptr || shade == nullptr || variant < 0 || variant > 6 ||
       ((variant == BENCH_MMA || variant == 6) && mxu == nullptr) ||
       (variant == BENCH_TREE && leaf_size % 8 != 0))
     return (int)cudaErrorInvalidValue;
   Params p{};
-  p.tris = tris;
+  if (!set_tables(p, nullptr, tris, shade))
+    return (int)cudaErrorInvalidValue;
   p.mxu = mxu;
   p.leaf_size = leaf_size;
   p.eps = eps;

@@ -95,12 +95,13 @@ def _step_inputs(scn, meta, camera, tile):
     py = torch.from_numpy(ys).to(dev)
     cam_vec = torch.from_numpy(mk.build_camera_vec(camera)).to(dev)
     obj = torch.from_numpy(mk.build_scene_table(scn, meta)).to(dev)
-    nodes, tris = (torch.from_numpy(t).to(dev) for t in
-                   mk.build_mesh_tables(scn, meta, traversal="classic"))
+    nodes, tris, shade = (torch.from_numpy(t).to(dev) for t in
+                          mk.build_mesh_tables(scn, meta,
+                                               traversal="classic"))
     valid = torch.from_numpy((pid >= 0).reshape(xs.shape)
                              .astype(np.float32)).to(dev)
     return dict(px=px, py=py, cam_vec=cam_vec, obj=obj, nodes=nodes,
-                tris=tris, valid=valid, n_valid=float((pid >= 0).sum()),
+                tris=tris, shade=shade, valid=valid, n_valid=float((pid >= 0).sum()),
                 pid=pid)
 
 
@@ -133,8 +134,8 @@ def make_megakernel_step(scn, meta, cfg, camera, spp, tile=(8, 512),
             c = color.detach().requires_grad_(True)
             e = emission.detach().requires_grad_(True)
             rgb = render.apply(c, e, seed, inp["cam_vec"], inp["obj"],
-                               inp["nodes"], inp["tris"], inp["px"],
-                               inp["py"])
+                               inp["nodes"], inp["tris"], inp["shade"],
+                               inp["px"], inp["py"])
             loss = _masked_mse(rgb, target, inp["valid"], inv_spp,
                                inp["n_valid"])
             gc, ge = torch.autograd.grad(loss, (c, e))
@@ -170,8 +171,8 @@ def make_megakernel_step_tex(scn, meta, cfg, camera, spp, tile=(8, 512),
             params = [p.detach().requires_grad_(True)
                       for p in (color, emission, tex)]
             rgb = render.apply(*params, seed, inp["cam_vec"], inp["obj"],
-                               inp["nodes"], inp["tris"], inp["px"],
-                               inp["py"], tex_table)
+                               inp["nodes"], inp["tris"], inp["shade"],
+                               inp["px"], inp["py"], tex_table)
             loss = _masked_mse(rgb, target, inp["valid"], inv_spp,
                                inp["n_valid"])
             grads = torch.autograd.grad(loss, params)
@@ -213,7 +214,8 @@ def make_megakernel_step_tri(scn, meta, cfg, camera, n_passes=2,
             for i in range(n_passes):
                 rgb = render.apply(*params, (s0 + i * 7919, s1 + i * spp),
                                    inp["cam_vec"], inp["obj"], inp["nodes"],
-                                   inp["tris"], inp["px"], inp["py"])
+                                   inp["tris"], inp["shade"], inp["px"],
+                                   inp["py"])
                 acc = rgb if acc is None else [a + x for a, x in
                                                zip(acc, rgb)]
             loss = _masked_mse(acc, target, inp["valid"], inv,

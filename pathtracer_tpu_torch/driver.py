@@ -140,8 +140,8 @@ def render_driver(
     py = torch.from_numpy(ys).to(dev)
     cam_vec = torch.from_numpy(mk.build_camera_vec(camera)).to(dev)
     obj_table = torch.from_numpy(mk.build_scene_table(scn, meta)).to(dev)
-    nodes, tris = (torch.from_numpy(t).to(dev)
-                   for t in mk.build_mesh_tables(scn, meta))
+    nodes, tris, shade = (torch.from_numpy(t).to(dev)
+                          for t in mk.build_mesh_tables(scn, meta))
     tex = mk.texture_inputs(scn, meta, dev)
 
     def segment(c0: int, n: int) -> torch.Tensor:
@@ -150,7 +150,7 @@ def render_driver(
         # covers the whole sunflower spiral
         seed = (cfg.seed * 7919 + int(c0) + 1, int(c0) * spp_chunk)
         r, g, b = mk.trace_tiles(
-            seed, cam_vec, obj_table, nodes, tris, px, py,
+            seed, cam_vec, obj_table, nodes, tris, shade, px, py,
             meta=meta, cfg=cfg, spp=int(n) * spp_chunk,
             total_samples=cfg.samples, tile=(S, L), spp_pack=pack,
             pack_axis=axis, **tex)

@@ -40,13 +40,20 @@ VISITS = 100        # leaf visits of the short run (the long run: 5x)
 _WARP = 32
 
 
+LEAF = 32           # the leaf size timed: tools/leaf_microbench.py's
+
+
 def teapot_leaves(device):
-    """`teapot`'s triangle table with its MXU fragments (build_mesh_tables
-    for MXU leaves) on `device`, its meta and its arrays."""
+    """`teapot`'s triangle tables on `device`, packed at LEAF slots a leaf
+    (build_mesh_tables for MXU leaves: the test records with the MXU
+    fragments after them, and the shading records), its meta and its
+    arrays."""
     cfg = RenderConfig(width=16, height=12, samples=1, samples_per_pass=1)
-    arrays, meta = get_scene("teapot", cfg).pack(device=device)
-    _, tris = mk.build_mesh_tables(arrays, meta, traversal="mxu")
-    return torch.from_numpy(tris).to(device), meta, arrays
+    arrays, meta = get_scene("teapot", cfg).pack(device=device,
+                                                 leaf_size=LEAF)
+    _, tris, shade = mk.build_mesh_tables(arrays, meta, traversal="mxu")
+    return ((torch.from_numpy(tris).to(device),
+             torch.from_numpy(shade).to(device)), meta, arrays)
 
 
 def mesh_rays(arrays, n: int, device, seed: int = 0):
@@ -66,11 +73,14 @@ def mesh_rays(arrays, n: int, device, seed: int = 0):
             .to(device) for a in (*o.T, *d.T)]
 
 
-def run(variant: str, rays, tris, meta, visits: int, eps: float = 1e-4,
+def run(variant: str, rays, tables, meta, visits: int, eps: float = 1e-4,
         t_max: float = 1e30):
-    """One launch of `variant` (or _PAIRS) on the rays: (t f32 [n], idx i32
-    [n]) as pt_leaf_bench_launch writes them ([n, K] t for _PAIRS). CUDA
-    tensors only; counted in run.launches."""
+    """One launch of `variant` (or _PAIRS) on the rays over the triangle
+    tables (teapot_leaves): (t f32 [n], idx i32 [n]) as
+    pt_leaf_bench_launch writes them ([n, K] t for _PAIRS). CUDA tensors
+    only; counted in run.launches."""
+    tris, shade = tables
+    mk._check_aligned(tri_table=tris, shade_table=shade)
     n = rays[0].numel()
     K = meta.leaf_size
     code = _PAIRS if variant == "pairs" else VARIANTS.index(variant)
@@ -82,7 +92,8 @@ def run(variant: str, rays, tris, meta, visits: int, eps: float = 1e-4,
     with torch.cuda.device(rays[0].device):
         err = lib.pt_leaf_bench_launch(
             *(r.data_ptr() for r in rays), out.data_ptr(), idx.data_ptr(), n,
-            visits, tris.data_ptr(), mxu, K, meta.n_tri_slots // K, eps,
+            visits, tris.data_ptr(), shade.data_ptr(), mxu, K,
+            meta.n_tri_slots // K, eps,
             t_max, code, torch.cuda.current_stream(rays[0].device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"leaf bench launch failed: CUDA error {err}")
@@ -93,7 +104,7 @@ def run(variant: str, rays, tris, meta, visits: int, eps: float = 1e-4,
 run.launches = 0
 
 
-def plain(variant: str, rays, tris, meta, visits: int, eps: float = 1e-4,
+def plain(variant: str, rays, tables, meta, visits: int, eps: float = 1e-4,
           t_max: float = 1e30):
     """The plain version of `prod` or `mma` (the leaf tests of
     megakernel.leaf_tests or leaf_tests_mma, merged in visit order), or
@@ -103,6 +114,7 @@ def plain(variant: str, rays, tris, meta, visits: int, eps: float = 1e-4,
     K = meta.leaf_size
     n_leaves = meta.n_tri_slots // K
     warp = torch.arange(n, device=rays[0].device) // _WARP
+    tris = tables[0]
     frag = mk.mxu_view(tris, meta)
     if variant == "pairs":
         start = (warp % n_leaves) * K
@@ -110,13 +122,12 @@ def plain(variant: str, rays, tris, meta, visits: int, eps: float = 1e-4,
                                   pairs=True).reshape(-1), None
     bt = torch.full((n,), mk._BIG, device=rays[0].device)
     slot = torch.full((n,), -1, dtype=torch.int64, device=rays[0].device)
-    tri = tris.reshape(-1, mk._TRI_STRIDE)
     for v in range(visits):
         start = ((v + warp) % n_leaves) * K
         if variant == "mma":
             tw, s, _, _ = mk.leaf_tests_mma(frag, start, K, eps, *rays)
         elif variant == "prod":
-            tw, s, _, _ = mk.leaf_tests(tri, start, K, eps, *rays)
+            tw, s, _, _ = mk.leaf_tests(tris, start, K, eps, *rays)
         else:
             raise ValueError(f"no plain version of {variant!r}")
         won = (tw < bt) & (tw < t_max)
@@ -125,23 +136,23 @@ def plain(variant: str, rays, tris, meta, visits: int, eps: float = 1e-4,
     return bt, slot.to(torch.int32)
 
 
-def check(rays, tris, meta, visits: int = 3) -> dict:
+def check(rays, tables, meta, visits: int = 3) -> dict:
     """`prod` and `mma` against their plain versions on the rays (CUDA):
     `prod` bit for bit; `mma`'s t within one ulp on every ray and its
     winner equal except where another slot has the same t; `pairs` every
     ray x triangle t within one ulp. Returns the counts."""
     out = {}
     for v in ("prod", "mma"):
-        kt, ks = run(v, rays, tris, meta, visits)
-        pt, ps = plain(v, rays, tris, meta, visits)
+        kt, ks = run(v, rays, tables, meta, visits)
+        pt, ps = plain(v, rays, tables, meta, visits)
         ulp = _ulps(kt, pt)
         same = ks.long() == ps.long()
         out[v] = {"rays": kt.numel(), "bit_equal_t": int((kt == pt).sum()),
                   "t_within_1ulp": int((ulp <= 1).sum()),
                   "winner_equal": int(same.sum()),
                   "winner_differs_at_tie": int((~same & (kt == pt)).sum())}
-    kt, _ = run("pairs", rays, tris, meta, 1)
-    pt, _ = plain("pairs", rays, tris, meta, 1)
+    kt, _ = run("pairs", rays, tables, meta, 1)
+    pt, _ = plain("pairs", rays, tables, meta, 1)
     hit = (kt < mk._BIG) | (pt < mk._BIG)
     ulp = _ulps(kt, pt)
     out["pairs"] = {"pairs": kt.numel(), "hit_pairs": int(hit.sum()),
@@ -159,7 +170,7 @@ def _ulps(a, b):
     return (ai - bi).abs()
 
 
-def measure(variant: str, rays, tris, meta, visits: int = VISITS) -> dict:
+def measure(variant: str, rays, tables, meta, visits: int = VISITS) -> dict:
     """The marginal cost of a leaf visit of `variant`: the launch at
     `visits` and at 5 x `visits`. Returns {"ns_per_visit" (the batch's
     rays, one leaf each), "gtests_per_s", "ms", "ms_5x", "rays", "visits",
@@ -167,10 +178,10 @@ def measure(variant: str, rays, tris, meta, visits: int = VISITS) -> dict:
     dev = rays[0].device
     if dev.type == "cuda":
         def fn(v):
-            return run(variant, rays, tris, meta, v)
+            return run(variant, rays, tables, meta, v)
     else:
         def fn(v):
-            return plain(variant, rays, tris, meta, v)
+            return plain(variant, rays, tables, meta, v)
     fn(visits)  # build, and warm up
     t1 = best_seconds(lambda: fn(visits), dev)
     t5 = best_seconds(lambda: fn(5 * visits), dev)
@@ -195,12 +206,12 @@ def main(argv=None) -> int:
         ap.error("no CUDA device (run the plain versions with --device cpu)")
     cuda = dev.type == "cuda"
     variants = args.variants or (list(VARIANTS) if cuda else ["prod", "mma"])
-    tris, meta, arrays = teapot_leaves(dev)
+    tables, meta, arrays = teapot_leaves(dev)
     rays = mesh_rays(arrays, args.rays or (RAYS if cuda else 1024), dev)
     if cuda:
-        print(json.dumps({"check": check(rays, tris, meta)}), flush=True)
+        print(json.dumps({"check": check(rays, tables, meta)}), flush=True)
     for v in variants:
-        r = measure(v, rays, tris, meta, args.visits or (VISITS if cuda
+        r = measure(v, rays, tables, meta, args.visits or (VISITS if cuda
                                                          else 2))
         print(json.dumps({"variant": v, "device": str(dev), **r}),
               flush=True)

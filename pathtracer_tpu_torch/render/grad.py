@@ -65,19 +65,16 @@ def _assemble_obj(obj_table: torch.Tensor, color: torch.Tensor,
                       obj_table[:, 30:]], dim=1).contiguous()
 
 
-def _assemble_tri(tri_table: torch.Tensor,
+def _assemble_tri(shade_table: torch.Tensor,
                   tri_color: torch.Tensor) -> torch.Tensor:
-    """Overwrite the color (offsets 21:24) of each 24-float triangle slot
-    of the [rows, 96] table from the [rows*4, 3] parameter."""
-    rows = tri_table.shape[0]
-    k, stride = mk._TRI_SLOTS_PER_ROW, mk._TRI_STRIDE
-    if tri_color.shape[0] != rows * k:
+    """The shading table [Ns, 12] with its color columns (9:12) overwritten
+    from the [Ns, 3] parameter; the node and test tables stay as they
+    are."""
+    if tri_color.shape[0] != shade_table.shape[0]:
         raise ValueError(f"tri_color has {tri_color.shape[0]} slots; the "
-                         f"triangle table holds {rows * k}")
-    t3 = tri_table.reshape(rows, k, stride)
-    col = tri_color.to(torch.float32).reshape(rows, k, 3)
-    return torch.cat([t3[:, :, :21], col], dim=2).reshape(
-        rows, k * stride).contiguous()
+                         f"shading table holds {shade_table.shape[0]}")
+    return torch.cat([shade_table[:, :9], tri_color.to(torch.float32)],
+                     dim=1).contiguous()
 
 
 def _check_diff_scene(meta: SceneMeta, cfg: RenderConfig,
@@ -110,8 +107,8 @@ def _check_diff_scene(meta: SceneMeta, cfg: RenderConfig,
         mk._check_mesh_knobs()   # the per-thread walk only
 
 
-def _check_grad_args(seed, cam_vec, obj_table, node_table, tri_table, px,
-                     py, cots, meta, cfg, spp, tile, tri_grads, tex_grads,
+def _check_grad_args(seed, cam_vec, obj_table, node_table, tri_table,
+                     shade_table, px, py, cots, meta, cfg, spp, tile, tri_grads, tex_grads,
                      tri_mode, tex=None, tex_table=None):
     """Validate grad_tiles' arguments (the forward's checks plus the
     cotangents); returns the (seed, sample_base) ints."""
@@ -125,7 +122,7 @@ def _check_grad_args(seed, cam_vec, obj_table, node_table, tri_table, px,
         raise ValueError("tex/tex_table are the texel mode's inputs "
                          "(tex_grads=True)")
     seed = mk._check_args(seed, cam_vec, obj_table, node_table, tri_table,
-                          px, py, meta, cfg, spp, tile, 1, "row",
+                          shade_table, px, py, meta, cfg, spp, tile, 1, "row",
                           tex_table=tex_table, tex_texels=tex)
     for name, c in zip(("cot_r", "cot_g", "cot_b"), cots):
         if not isinstance(c, torch.Tensor) or c.device != px.device:
@@ -143,7 +140,7 @@ def _split(gobj: torch.Tensor):
 
 
 def grad_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
-                         px, py, cot_r, cot_g, cot_b,
+                         shade_table, px, py, cot_r, cot_g, cot_b,
                          meta: SceneMeta = None, cfg: RenderConfig = None,
                          spp: int = 1, total_samples: int = 1,
                          tile: Tuple[int, int] = (8, 512),
@@ -160,9 +157,9 @@ def grad_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     replay's work, as trace_tiles_reference counts it, and with tex_grads
     the texel scatters ("texel_scatters")."""
     cots = (cot_r, cot_g, cot_b)
-    _check_grad_args(seed, cam_vec, obj_table, node_table, tri_table, px,
-                     py, cots, meta, cfg, spp, tile, tri_grads, tex_grads,
-                     tri_mode, tex, tex_table)
+    _check_grad_args(seed, cam_vec, obj_table, node_table, tri_table,
+                     shade_table, px, py, cots, meta, cfg, spp, tile,
+                     tri_grads, tex_grads, tri_mode, tex, tex_table)
     dev = px.device
     n_obj = len(meta.obj_types)
     gobj = torch.zeros((n_obj, _GRAD_COLS), dtype=torch.float64, device=dev)
@@ -228,7 +225,8 @@ def grad_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                  for ch in range(3)]
 
     mk.trace_tiles_reference(
-        seed, cam_vec, obj_table, node_table, tri_table, px, py, meta=meta,
+        seed, cam_vec, obj_table, node_table, tri_table, shade_table, px, py,
+        meta=meta,
         cfg=cfg, spp=spp, total_samples=total_samples, tile=tile,
         spp_pack=1, pack_axis="row", sample_tape=backward, counts=counts,
         tex_table=tex_table, tex_texels=tex)
@@ -256,8 +254,8 @@ def scatter_texels(gtex, tex_table, entry, rows, g_c):
         gtex.index_add_(0, i, (g * wt[:, None]).to(torch.float64))
 
 
-def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
-               cot_r, cot_g, cot_b, meta: SceneMeta = None,
+def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
+               px, py, cot_r, cot_g, cot_b, meta: SceneMeta = None,
                cfg: RenderConfig = None, spp: int = 1,
                total_samples: int = 1, tile: Tuple[int, int] = (8, 512),
                tri_grads: bool = False, tex_grads: bool = False,
@@ -281,15 +279,17 @@ def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     with tex_grads and for the unported mesh walks."""
     if px.device.type != "cuda":
         return grad_tiles_reference(
-            seed, cam_vec, obj_table, node_table, tri_table, px, py,
-            cot_r, cot_g, cot_b, meta=meta, cfg=cfg, spp=spp,
+            seed, cam_vec, obj_table, node_table, tri_table, shade_table, px,
+            py, cot_r, cot_g, cot_b, meta=meta, cfg=cfg, spp=spp,
             total_samples=total_samples, tile=tile, tri_grads=tri_grads,
             tex_grads=tex_grads, tri_mode=tri_mode, tex=tex,
             tex_table=tex_table)
     seed0, sample_base = _check_grad_args(
-        seed, cam_vec, obj_table, node_table, tri_table, px, py,
+        seed, cam_vec, obj_table, node_table, tri_table, shade_table, px, py,
         (cot_r, cot_g, cot_b), meta, cfg, spp, tile, tri_grads, tex_grads,
         tri_mode, tex, tex_table)
+    mk._check_aligned(node_table=node_table, tri_table=tri_table,
+                      shade_table=shade_table)
     n_obj = len(meta.obj_types)
     if not 0 < n_obj <= mk._MAX_OBJECTS:
         raise ValueError(
@@ -315,7 +315,7 @@ def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     sun_cut, sun_den, golden2 = mk._sun_constants(total_samples)
     scene = (px.data_ptr(), py.data_ptr(), obj_table.data_ptr(), types,
              cam_vec.data_ptr(), node_table.data_ptr(), tri_table.data_ptr(),
-             roots, ends, n_obj, n_slots, S, L, int(spp), seed0 & mk._M32,
+             shade_table.data_ptr(), roots, ends, n_obj, n_slots, S, L, int(spp), seed0 & mk._M32,
              sample_base, cfg.max_bounces, cfg.max_effective_bounces,
              meta.leaf_size, meta.n_nodes if meta.octant_orders else 0,
              cfg.epsilon, cfg.t_max, sun_cut, sun_den, golden2,
@@ -377,7 +377,7 @@ def make_diff_render(meta: SceneMeta, cfg: RenderConfig, spp: int,
 
     Returns a torch.autograd.Function; its apply(color [>= No, 3],
     emission [>= No, 3], seed (prng seed, sample base), cam_vec, obj_table,
-    nodes, tris, px, py) gives the (r, g, b) per-slot radiance sums of
+    nodes, tris, shade, px, py) gives the (r, g, b) per-slot radiance sums of
     trace_tiles (the caller divides by spp). The object table carries the
     geometry; its color and emission columns are overwritten from the
     differentiable inputs. The backward pass is one grad_tiles launch."""
@@ -387,28 +387,29 @@ def make_diff_render(meta: SceneMeta, cfg: RenderConfig, spp: int,
     class DiffRender(torch.autograd.Function):
         @staticmethod
         def forward(ctx, color, emission, seed, cam_vec, obj_table, nodes,
-                    tris, px, py):
+                    tris, shade, px, py):
             obj = _assemble_obj(obj_table, color, emission, n)
             ctx.save_for_backward(color, emission, cam_vec, obj_table,
-                                  nodes, tris, px, py)
+                                  nodes, tris, shade, px, py)
             ctx.seed = seed
             return mk.trace_tiles(
-                seed, cam_vec, obj, nodes, tris, px, py, meta=meta, cfg=cfg,
+                seed, cam_vec, obj, nodes, tris, shade, px, py, meta=meta,
+                cfg=cfg,
                 spp=spp, total_samples=total_samples, tile=tile, spp_pack=1,
                 pack_axis="row")
 
         @staticmethod
         def backward(ctx, g_r, g_g, g_b):
-            color, emission, cam_vec, obj_table, nodes, tris, px, py = \
-                ctx.saved_tensors
+            (color, emission, cam_vec, obj_table, nodes, tris, shade, px,
+             py) = ctx.saved_tensors
             obj = _assemble_obj(obj_table, color, emission, n)
             gcol, gemi = grad_tiles(
-                ctx.seed, cam_vec, obj, nodes, tris, px, py,
+                ctx.seed, cam_vec, obj, nodes, tris, shade, px, py,
                 *_cotangents((g_r, g_g, g_b), px),
                 meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
                 tile=tile)
             return (_pad_to(gcol, color), _pad_to(gemi, emission),
-                    None, None, None, None, None, None, None)
+                    *([None] * 8))
 
     return DiffRender
 
@@ -421,11 +422,11 @@ def make_diff_render_tri(meta: SceneMeta, cfg: RenderConfig,
     emission, per-triangle color).
 
     Returns a torch.autograd.Function; its apply(color, emission,
-    tri_color [n_slots, 3], seed, cam_vec, obj_table, nodes, tris, px, py)
-    gives the (r, g, b) per-slot sums of `spp` samples. tri_color is
-    SceneArrays.tri_color (padding slots never win a hit, so their
-    gradients are exactly zero); it overwrites the triangle table's
-    colors. Accumulate more samples by calling it with other seeds; the
+    tri_color [n_slots, 3], seed, cam_vec, obj_table, nodes, tris, shade,
+    px, py) gives the (r, g, b) per-slot sums of `spp` samples. tri_color
+    is SceneArrays.tri_color (padding slots never win a hit, so their
+    gradients are exactly zero); it overwrites the colors of the shading
+    table, the only table it rebuilds. Accumulate more samples by calling it with other seeds; the
     gradients add through autograd."""
     _check_diff_scene(meta, cfg)
     n = meta.n_objects
@@ -433,32 +434,33 @@ def make_diff_render_tri(meta: SceneMeta, cfg: RenderConfig,
     class DiffRenderTri(torch.autograd.Function):
         @staticmethod
         def forward(ctx, color, emission, tri_color, seed, cam_vec,
-                    obj_table, nodes, tris, px, py):
+                    obj_table, nodes, tris, shade, px, py):
             obj = _assemble_obj(obj_table, color, emission, n)
-            tri = _assemble_tri(tris, tri_color)
+            shd = _assemble_tri(shade, tri_color)
             ctx.save_for_backward(color, emission, tri_color, cam_vec,
-                                  obj_table, nodes, tris, px, py)
+                                  obj_table, nodes, tris, shade, px, py)
             ctx.seed = seed
             return mk.trace_tiles(
-                seed, cam_vec, obj, nodes, tri, px, py, meta=meta, cfg=cfg,
+                seed, cam_vec, obj, nodes, tris, shd, px, py, meta=meta,
+                cfg=cfg,
                 spp=spp, total_samples=total_samples, tile=tile, spp_pack=1,
                 pack_axis="row")
 
         @staticmethod
         def backward(ctx, g_r, g_g, g_b):
             (color, emission, tri_color, cam_vec, obj_table, nodes, tris,
-             px, py) = ctx.saved_tensors
+             shade, px, py) = ctx.saved_tensors
             obj = _assemble_obj(obj_table, color, emission, n)
-            tri = _assemble_tri(tris, tri_color)
+            shd = _assemble_tri(shade, tri_color)
             gcol, gemi, gtri = grad_tiles(
-                ctx.seed, cam_vec, obj, nodes, tri, px, py,
+                ctx.seed, cam_vec, obj, nodes, tris, shd, px, py,
                 *_cotangents((g_r, g_g, g_b), px),
                 meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
                 tile=tile, tri_grads=True,
                 tri_mode=os.environ.get("PT_TRI_GRAD", "onehot"))
             return (_pad_to(gcol, color), _pad_to(gemi, emission),
                     _pad_to(gtri[:tri_color.shape[0]], tri_color),
-                    None, None, None, None, None, None, None)
+                    *([None] * 8))
 
     return DiffRenderTri
 
@@ -470,7 +472,8 @@ def make_diff_render_tex(meta: SceneMeta, cfg: RenderConfig, spp: int,
     emission, texels).
 
     Returns a torch.autograd.Function; its apply(color, emission, tex
-    [T, 3], seed, cam_vec, obj_table, nodes, tris, px, py, tex_table) gives
+    [T, 3], seed, cam_vec, obj_table, nodes, tris, shade, px, py,
+    tex_table) gives
     the (r, g, b) per-slot sums of `spp` samples. tex is the f32 copy of
     the scene's texel pool (scene.pack.texel_params; the JAX package's
     staged atlas, carried over by scene.pack.atlas_to_texels); the forward
@@ -488,30 +491,31 @@ def make_diff_render_tex(meta: SceneMeta, cfg: RenderConfig, spp: int,
     class DiffRenderTex(torch.autograd.Function):
         @staticmethod
         def forward(ctx, color, emission, tex, seed, cam_vec, obj_table,
-                    nodes, tris, px, py, tex_table):
+                    nodes, tris, shade, px, py, tex_table):
             obj = _assemble_obj(obj_table, color, emission, n)
             ctx.save_for_backward(color, emission, tex, cam_vec, obj_table,
-                                  nodes, tris, px, py, tex_table)
+                                  nodes, tris, shade, px, py, tex_table)
             ctx.seed = seed
             return mk.trace_tiles(
-                seed, cam_vec, obj, nodes, tris, px, py, meta=meta, cfg=cfg,
+                seed, cam_vec, obj, nodes, tris, shade, px, py, meta=meta,
+                cfg=cfg,
                 spp=spp, total_samples=total_samples, tile=tile, spp_pack=1,
                 pack_axis="row", tex_table=tex_table,
                 tex_texels=_texels(tex))
 
         @staticmethod
         def backward(ctx, g_r, g_g, g_b):
-            (color, emission, tex, cam_vec, obj_table, nodes, tris, px, py,
-             tex_table) = ctx.saved_tensors
+            (color, emission, tex, cam_vec, obj_table, nodes, tris, shade,
+             px, py, tex_table) = ctx.saved_tensors
             obj = _assemble_obj(obj_table, color, emission, n)
             gcol, gemi, gtex = grad_tiles(
-                ctx.seed, cam_vec, obj, nodes, tris, px, py,
+                ctx.seed, cam_vec, obj, nodes, tris, shade, px, py,
                 *_cotangents((g_r, g_g, g_b), px),
                 meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
                 tile=tile, tex_grads=True, tex=_texels(tex),
                 tex_table=tex_table)
             return (_pad_to(gcol, color), _pad_to(gemi, emission),
-                    gtex.to(tex.dtype), *([None] * 8))
+                    gtex.to(tex.dtype), *([None] * 9))
 
     return DiffRenderTex
 

@@ -81,21 +81,27 @@ _OBJ_COLS = 45
 #   14 half_height, 15 aperture, 16 focal_length
 _CAM_COLS = 17
 
-# Mesh node rows (one skip-link BVH node per row):
-#   0-2 bbmin, 3-5 bbmax, 6 tri_start (exact f32 int), 7 is_leaf, 8 exit
-_NODE_COLS = 16
-# Triangle rows: 4 slots per row, 24-column stride per slot (dual basis):
-#   +0-2 p1, +3-5 Ng (= e1 x e2, unnormalized), +6-8 U, +9-11 V
-#   (U.e1 = 1, U.e2 = 0; V.e1 = 0, V.e2 = 1; both in-plane),
-#   +12-14 n1, +15-17 d21 (= n2-n1), +18-20 d31 (= n3-n1), +21-23 color
-_TRI_SLOTS_PER_ROW = 4
-_TRI_STRIDE = 24
-# Under MXU leaves (PT_TRAVERSAL=mxu) the triangle table carries, after its
-# ceil(Ns/4) rows, the leaves' A blocks in the layout of mxu_fragments
-# ([n_leaves, 6, ceil(K/8), 32] f32: one m8n8k4 DMMA A fragment per plane
-# group and 8-triangle tile, only the half of q = [o, 1, d, 0] that the
-# group reads), flat and zero-padded to whole rows (_mxu_rows); the
-# payload (normals, color) stays in the slots above.
+# The mesh tables are 16-byte records, which the kernel reads as float4
+# (the TPU layout's 64-byte node and 96-byte slot, four slots a row, put
+# padding and shading data into every cache line the walk pulled in).
+# Node rows (one skip-link BVH node per row, two float4):
+#   0-2 bbmin, 3 tri_start of a leaf (exact f32 int) or -1 for an inner
+#   node (the leaf flag), 4-6 bbmax, 7 exit
+_NODE_COLS = 8
+# Triangle test rows, one slot per row (three float4, dual basis):
+#   0-2 p1, 3-5 Ng (= e1 x e2, unnormalized), 6-8 U, 9-11 V
+#   (U.e1 = 1, U.e2 = 0; V.e1 = 0, V.e2 = 1; both in-plane)
+_TRI_COLS = 12
+# Triangle shading rows, one slot per row in a table of their own (three
+# float4), read for the winning slot alone:
+#   0-2 n1, 3-5 d21 (= n2-n1), 6-8 d31 (= n3-n1), 9-11 color
+_SHADE_COLS = 12
+# Under MXU leaves (PT_TRAVERSAL=mxu) the test table carries, after its Ns
+# rows, the leaves' A blocks in the layout of mxu_fragments ([n_leaves, 6,
+# ceil(K/8), 32] f32: one m8n8k4 DMMA A fragment per plane group and
+# 8-triangle tile, only the half of q = [o, 1, d, 0] that the group reads),
+# flat and zero-padded to whole rows (_mxu_rows); the payload (normals,
+# color) is the shading table's.
 
 _BIG = 1e30
 _INV24 = float(2.0 ** -24)
@@ -297,20 +303,23 @@ def mxu_fragments(a: np.ndarray) -> np.ndarray:
 
 
 def build_mesh_tables(scn: SceneArrays, meta: SceneMeta,
-                      traversal: str = None) -> Tuple[np.ndarray, np.ndarray]:
-    """The mesh pools for the walk.
+                      traversal: str = None
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The mesh pools for the walk: (nodes, tris, shade), f32.
 
-    nodes: [Nn, _NODE_COLS] f32, one skip-link BVH node per row (all nine
-    copies when the scene has octant orders). tris: [ceil(Ns/4), 96] f32,
-    4 triangle slots per row. Indices are stored as f32 (pool sizes
-    < 2^24, exact). Scenes without meshes get one zero row of each.
-    Every walk reads these; the MXU leaves read mxu_fragments beside them
-    (traversal is accepted for the JAX package's signature: "classic" or
-    "mxu" build the same tables)."""
+    nodes: [Nn, _NODE_COLS], one skip-link BVH node per row (all nine
+    copies when the scene has octant orders). tris: [Ns, _TRI_COLS], each
+    triangle slot's test record (with the MXU fragments after its rows
+    under MXU leaves). shade: [Ns, _SHADE_COLS], each slot's shading record.
+    Indices are stored as f32 (pool sizes < 2^24, exact). Scenes without
+    meshes get one zero row of each. Every walk reads these; the MXU
+    leaves read mxu_fragments beside them (traversal is accepted for the
+    JAX package's signature: "classic" or "mxu"; None follows
+    PT_TRAVERSAL)."""
     if not meta.has_groups:
         return (np.zeros((1, _NODE_COLS), dtype=np.float32),
-                np.zeros((1, _TRI_SLOTS_PER_ROW * _TRI_STRIDE),
-                         dtype=np.float32))
+                np.zeros((1, _TRI_COLS), dtype=np.float32),
+                np.zeros((1, _SHADE_COLS), dtype=np.float32))
     if traversal not in (None, "classic", "mxu"):
         raise ValueError(f"traversal {traversal!r} is not classic or mxu")
     if traversal is None:
@@ -318,13 +327,11 @@ def build_mesh_tables(scn: SceneArrays, meta: SceneMeta,
     nn = int(_np(scn.node_bb_min).shape[0])
     nodes = np.zeros((nn, _NODE_COLS), dtype=np.float32)
     nodes[:, 0:3] = _np(scn.node_bb_min)
-    nodes[:, 3:6] = _np(scn.node_bb_max)
-    nodes[:, 6] = _np(scn.node_tri_start)
-    nodes[:, 7] = _np(scn.node_is_leaf)
-    nodes[:, 8] = _np(scn.node_exit)
+    nodes[:, 3] = np.where(_np(scn.node_is_leaf) > 0.5,
+                           _np(scn.node_tri_start), -1.0)
+    nodes[:, 4:7] = _np(scn.node_bb_max)
+    nodes[:, 7] = _np(scn.node_exit)
 
-    ns = int(_np(scn.tri_p1).shape[0])
-    rows = (ns + _TRI_SLOTS_PER_ROW - 1) // _TRI_SLOTS_PER_ROW
     # dual-basis precompute, in f32 exactly as the JAX package: Ng = e1 x e2
     # and the in-plane reciprocal basis U = e2 x Ng / |Ng|^2, V = Ng x e1 /
     # |Ng|^2, so the barycentrics are two affine dot products. Degenerate
@@ -338,18 +345,19 @@ def build_mesh_tables(scn: SceneArrays, meta: SceneMeta,
     uu = np.where(l2 > 0.0, np.cross(e2, ng) / safe, 0.0)
     vv = np.where(l2 > 0.0, np.cross(ng, e1) / safe, 0.0)
     n1 = _np(scn.tri_n1)
-    fields = [_np(scn.tri_p1), ng, uu, vv, n1, _np(scn.tri_n2) - n1,
-              _np(scn.tri_n3) - n1, _np(scn.tri_color)]
-    flat = np.zeros((rows * _TRI_SLOTS_PER_ROW, _TRI_STRIDE),
-                    dtype=np.float32)
-    flat[:ns] = np.concatenate(
-        [np.asarray(f, dtype=np.float32) for f in fields], axis=1)
-    tris = flat.reshape(rows, _TRI_SLOTS_PER_ROW * _TRI_STRIDE)
+
+    def table(*fields):
+        return np.concatenate([np.asarray(f, dtype=np.float32)
+                               for f in fields], axis=1)
+
+    tris = table(_np(scn.tri_p1), ng, uu, vv)
+    shade = table(n1, _np(scn.tri_n2) - n1, _np(scn.tri_n3) - n1,
+                  _np(scn.tri_color))
     if traversal == "mxu":
         frag = mxu_fragments(mxu_plane_arrays(scn, meta)[0]).reshape(-1)
-        frag = np.pad(frag, (0, _mxu_rows(meta) * tris.shape[1] - frag.size))
-        tris = np.concatenate([tris, frag.reshape(-1, tris.shape[1])])
-    return nodes, tris
+        frag = np.pad(frag, (0, _mxu_rows(meta) * _TRI_COLS - frag.size))
+        tris = np.concatenate([tris, frag.reshape(-1, _TRI_COLS)])
+    return nodes, tris, shade
 
 
 def textures_computable(meta: SceneMeta) -> bool:
@@ -376,13 +384,12 @@ def staged_lanes(meta: SceneMeta) -> int:
 
 
 def supports_scene(meta: SceneMeta, scn: SceneArrays = None) -> bool:
-    """Megakernel coverage: the four primitives and BVH triangle meshes
-    whose leaf size is a multiple of the 4 slots of a triangle row, with
-    any texture (every one is fetched from the pool)."""
-    prim = all(t in (PLANE, SPHERE, CYLINDER, BOX, GROUP)
+    """Megakernel coverage: the four primitives and BVH triangle meshes of
+    any leaf size (the JAX package's needs a multiple of the four slots of
+    its triangle row; one slot a row here), with any texture (every one is
+    fetched from the pool)."""
+    return all(t in (PLANE, SPHERE, CYLINDER, BOX, GROUP)
                for t in meta.obj_types)
-    return prim and not (meta.has_groups
-                         and meta.leaf_size % _TRI_SLOTS_PER_ROW)
 
 
 def has_textures(meta: SceneMeta) -> bool:
@@ -981,8 +988,8 @@ def sample_texels(texels, base, w, h, u, v):
 # _group_octant_base, with every f32 operation in their order. The CUDA
 # kernel walks each ray in the same order, so the two agree bit for bit.
 
-# (ray, slot) pairs of one batched leaf test: bounds the [rays, leaf, 24]
-# gather to 192 MB however many rays reach a leaf at once
+# (ray, slot) pairs of one batched leaf test: bounds the [rays, leaf, 12]
+# gather to 96 MB however many rays reach a leaf at once
 _LEAF_PAIRS = 1 << 21
 
 
@@ -996,7 +1003,8 @@ def _inv_safe(td, eps):
 def leaf_tests(tri, start, leaf_size, eps, ox, oy, oz, dx, dy, dz,
                cut=None):
     """Dual-basis tests of the leaf_size slots from `start` for each ray
-    (pallas_kernel._leaf_tests). Returns (tw, slot, u, v): the closest
+    (pallas_kernel._leaf_tests), on the test records `tri` [Ns, 12]
+    (build_mesh_tables). Returns (tw, slot, u, v): the closest
     valid t per ray (_BIG when none), its slot (the lowest on ties, as
     the JAX min-tree keeps) and the barycentrics there. With `cut` (per
     ray, at most the ray's best t and t_max: the shadow query's any-hit
@@ -1004,7 +1012,7 @@ def leaf_tests(tri, start, leaf_size, eps, ox, oy, oz, dx, dy, dz,
     tests: up to the first valid t below the cut, where it returns."""
     ar = torch.arange(leaf_size, device=start.device)
     slots = start[:, None] + ar                      # [B, K]
-    rows = tri[slots]                                # [B, K, 24]
+    rows = tri[slots]                                # [B, K, 12]
 
     def c(i):
         return rows[..., i]
@@ -1082,11 +1090,11 @@ def _slab_hit(nd, ray, bt, eps):
     pallas_kernel.py:1460-1473) with its running best t."""
     ox, oy, oz, _, _, _, ivx, ivy, ivz = ray
     ax1 = (nd[:, 0] - ox) * ivx
-    ax2 = (nd[:, 3] - ox) * ivx
+    ax2 = (nd[:, 4] - ox) * ivx
     ay1 = (nd[:, 1] - oy) * ivy
-    ay2 = (nd[:, 4] - oy) * ivy
+    ay2 = (nd[:, 5] - oy) * ivy
     az1 = (nd[:, 2] - oz) * ivz
-    az2 = (nd[:, 5] - oz) * ivz
+    az2 = (nd[:, 6] - oz) * ivz
     tmin = torch.maximum(
         torch.maximum(torch.minimum(ax1, ax2), torch.minimum(ay1, ay2)),
         torch.minimum(az1, az2))
@@ -1115,23 +1123,26 @@ def _group_octant(group, dx, dy, dz):
             + 4 * bit(dz < 0.0).long())[inv]
 
 
-def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
-                       t_max: float, root: int, end: int, tox, toy, toz,
-                       tdx, tdy, tdz, active, bt0, n_nodes: int = 0,
+def traverse_reference(node_table, tri_table, shade_table, leaf_size: int,
+                       eps: float, t_max: float, root: int, end: int,
+                       tox, toy, toz, tdx, tdy, tdz, active, bt0,
+                       n_nodes: int = 0,
                        return_slot: bool = False, counts: dict = None,
                        walk: Walk = Walk(), groups=(None, None),
                        mxu=None, cut=None):
     """Plain skip-link BVH walk of one group's nodes [root, end).
 
-    Counterpart of pallas_kernel._packet_traverse. Per-thread walk
-    (groups (None, None)): each active ray carries its own node pointer:
-    the slab test against its running best t (`tmin < bt`) sends it to
-    idx + 1 on a hit and to the node's exit otherwise; at a hit leaf the
-    leaf_size slots are tested (leaf_tests) and the winner is merged when
-    `tw < bt & tw < t_max`. With n_nodes > 0 the table holds octant
-    copies and each ray walks copy 1 + octant of its own direction,
-    octant = (tdx<0) + 2(tdy<0) + 4(tdz<0) (_group_octant_base); with 0 it
-    walks copy 0. Rays still walking are compacted every step.
+    Counterpart of pallas_kernel._packet_traverse, on the tables of
+    build_mesh_tables (nodes, triangle test and shading records).
+    Per-thread walk (groups (None, None)): each active ray carries its own
+    node pointer: the slab test against its running best t (`tmin < bt`)
+    sends it to idx + 1 on a hit and to the node's exit otherwise; at a
+    hit leaf the leaf_size slots are tested (leaf_tests) and the winner is
+    merged when `tw < bt & tw < t_max`. With n_nodes > 0 the table holds
+    octant copies and each ray walks copy 1 + octant of its own
+    direction, octant = (tdx<0) + 2(tdy<0) + 4(tdz<0)
+    (_group_octant_base); with 0 it walks copy 0. Rays still walking are
+    compacted every step.
 
     groups = (octant group, packet), int64 ids per ray (walk_groups): a
     ray walks the copy of its octant group's majority among the active
@@ -1158,7 +1169,6 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
         raise ValueError("the any-hit walk is the per-thread walk's")
     shape = tox.shape
     dev = tox.device
-    tri = tri_table.reshape(-1, _TRI_STRIDE)
     bt = bt0.reshape(-1).clone()
     win = torch.full(bt.shape, -1, dtype=torch.int64, device=dev)
     wu = torch.zeros_like(bt)
@@ -1181,7 +1191,7 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
             return leaf_tests_mma(mxu, start, leaf_size, eps, *r)
     else:
         def leaf_fn(start, *r, **kw):
-            return leaf_tests(tri, start, leaf_size, eps, *r, **kw)
+            return leaf_tests(tri_table, start, leaf_size, eps, *r, **kw)
 
     def leaves(at_leaf, nd_leaf):
         # the leaf tests of rays rid[at_leaf] at their nodes nd_leaf, the
@@ -1192,7 +1202,7 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
         for i in range(0, at_leaf.numel(), chunk):
             li = at_leaf[i:i + chunk]
             r = rid[li]
-            res = leaf_fn(nd_leaf[i:i + chunk, 6].long(),
+            res = leaf_fn(nd_leaf[i:i + chunk, 3].long(),
                           *(a[li] for a in ray[:6]),
                           **({} if cut is None else {"cut": cut[r]}))
             tw, slot, u, v = res[:4]
@@ -1221,7 +1231,7 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
             hit = _slab_hit(nd, ray, bt[rid], eps)
             anyp = torch.zeros(n_p, dtype=torch.long, device=dev).index_add_(
                 0, pinv, hit.long()) > 0
-            leafp = anyp & (nd_p[:, 7] > 0.5)
+            leafp = anyp & (nd_p[:, 3] >= 0.0)
             at_leaf = torch.nonzero(hit & leafp[pinv]).squeeze(1)
             if counts is not None:
                 counts["node_visits"] += _WARP * n_p
@@ -1229,7 +1239,7 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
                     counts["leaf_slots"] += (_WARP * leaf_size
                                              * int(leafp.sum()))
             leaves(at_leaf, nd[at_leaf])
-            pidx = torch.where(anyp, pidx + 1, nd_p[:, 8].long())
+            pidx = torch.where(anyp, pidx + 1, nd_p[:, 7].long())
             keep_p = pidx < pstop
             if not bool(keep_p.all()):
                 remap = torch.cumsum(keep_p.long(), 0) - 1
@@ -1242,12 +1252,12 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
     while rid.numel():
         nd = node_table[idx]
         hit = _slab_hit(nd, ray, bt[rid], eps)
-        at_leaf = torch.nonzero(hit & (nd[:, 7] > 0.5)).squeeze(1)
+        at_leaf = torch.nonzero(hit & (nd[:, 3] >= 0.0)).squeeze(1)
         tested = leaves(at_leaf, nd[at_leaf])
         if counts is not None:
             counts["node_visits"] += rid.numel()
             counts["leaf_slots"] += tested
-        idx = torch.where(hit, idx + 1, nd[:, 8].long())
+        idx = torch.where(hit, idx + 1, nd[:, 7].long())
         walking = idx < stop
         if cut is not None:
             walking &= ~(bt[rid] < cut[rid])    # the any-hit exit
@@ -1259,13 +1269,12 @@ def traverse_reference(node_table, tri_table, leaf_size: int, eps: float,
     out = [bt] + [torch.zeros_like(bt) for _ in range(6)]
     r = torch.nonzero(win >= 0).squeeze(1)
     if r.numel():
-        row = tri[win[r]]
+        row = shade_table[win[r]]
         u, v = wu[r], wv[r]
         for k in range(3):
             # smooth normal n2*u + n3*v + n1*(1-u-v) (tracer.cl:669)
-            out[1 + k][r] = row[:, 12 + k] + row[:, 15 + k] * u \
-                + row[:, 18 + k] * v
-            out[4 + k][r] = row[:, 21 + k]
+            out[1 + k][r] = row[:, k] + row[:, 3 + k] * u + row[:, 6 + k] * v
+            out[4 + k][r] = row[:, 9 + k]
     if return_slot:
         out.append(win)
     return tuple(o.reshape(shape) for o in out)
@@ -1301,15 +1310,35 @@ def _group_pretest(m, eps: float, tox, toy, toz, tdx, tdy, tdz, bt):
     return (gtmin <= gtmax) & (gtmax > eps) & (gtmin < bt)
 
 
-def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, eps: float,
-                 t_max: float, ox, oy, oz, dx, dy, dz, active, w0: int,
-                 counts: dict = None, walk: Walk = Walk(),
+def _object_y(m, x, y, z, dx, dy, dz):
+    """Row 1 of object row m's inverse applied to the point and the vector
+    (the plane test's toy, tdy): _mat12_point's and _mat12_vec's own
+    operations for y."""
+    return (m[4] * x + m[5] * y + m[6] * z + m[7],
+            m[4] * dx + m[5] * dy + m[6] * dz)
+
+
+def _object_t(code: int, m, eps: float, ox, oy, oz, dx, dy, dz):
+    """t of a non-GROUP object of type `code` (row m) for the world rays,
+    transforming only what its test reads: a plane its y row, the others
+    the whole ray."""
+    if code == PLANE:
+        return _plane_t(*_object_y(m, ox, oy, oz, dx, dy, dz), eps)
+    return _primitive_t(code, m, eps, *_mat12_point(m, ox, oy, oz),
+                        *_mat12_vec(m, dx, dy, dz))
+
+
+def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, shade_table,
+                 eps: float, t_max: float, ox, oy, oz, dx, dy, dz, active,
+                 w0: int, counts: dict = None, walk: Walk = Walk(),
                  groups=(None, None)):
     """Plain whole-scene nearest hit (the TPU kernels' unrolled object loop;
-    csrc/megakernel.cu's nearest_hit): each object's transform and test in
-    table order, a GROUP's object-space box pretest (gated on `active`)
-    and then its walk (traverse_reference under `walk` and `groups`, per
-    ray of ox's flat order), the winner replaced on a strictly smaller t.
+    csrc/megakernel.cu's nearest_hit): each object's test in table order,
+    transforming only what it reads (_object_t; a GROUP the whole ray for
+    its object-space box pretest, gated on `active`, and then its walk,
+    traverse_reference under `walk` and `groups`, per ray of ox's flat
+    order), the winner replaced on a strictly smaller t; then the winner's
+    object-space ray, by the same operations as its test's transform.
     `obj` is the object table as nested lists. Returns (t, w, local ray
     (lox, loy, loz, ldx, ldy, ldz), on_tri, tri_slot, tri_nrm, tri_col):
     t is _BIG and w is w0 where nothing is hit, the local ray the world
@@ -1321,33 +1350,28 @@ def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, eps: float,
            if meta.has_groups and walk.leaf == "mma" else None)
     best_t = torch.full_like(ox, _BIG)
     w = torch.full(ox.shape, w0, dtype=torch.int64, device=ox.device)
-    loc = [ox, oy, oz, dx, dy, dz]
     on_tri = torch.zeros_like(ox, dtype=torch.bool)
     tri_slot = torch.full_like(w, -1)
     tri_nrm = [torch.zeros_like(ox) for _ in range(3)]
     tri_col = [torch.zeros_like(ox) for _ in range(3)]
     for j, code in enumerate(meta.obj_types):
         m = obj[j]
-        tox, toy, toz = _mat12_point(m, ox, oy, oz)
-        tdx, tdy, tdz = _mat12_vec(m, dx, dy, dz)
         g_tri = None
         if code != GROUP:
-            t_j = _primitive_t(code, m, eps, tox, toy, toz, tdx, tdy, tdz)
+            t_j = _object_t(code, m, eps, ox, oy, oz, dx, dy, dz)
         else:
             # GROUP: object-space bbox pretest, then the walk
-            pre = active & _group_pretest(m, eps, tox, toy, toz, tdx, tdy,
-                                          tdz, best_t)
+            loc = (*_mat12_point(m, ox, oy, oz), *_mat12_vec(m, dx, dy, dz))
+            pre = active & _group_pretest(m, eps, *loc, best_t)
             root, end = group_bvh[j]
             t_j, *g_tri, g_slot = traverse_reference(
-                node_table, tri_table, meta.leaf_size, eps, t_max, root, end,
-                tox, toy, toz, tdx, tdy, tdz, pre, best_t,
-                n_nodes=oct_nodes, return_slot=True, counts=counts,
-                walk=walk, groups=groups, mxu=mxu)
+                node_table, tri_table, shade_table, meta.leaf_size, eps,
+                t_max, root, end, *loc, pre, best_t, n_nodes=oct_nodes,
+                return_slot=True, counts=counts, walk=walk, groups=groups,
+                mxu=mxu)
         closer = t_j < best_t
         best_t = torch.where(closer, t_j, best_t)
         w = torch.where(closer, j, w)
-        loc = [torch.where(closer, a, b) for a, b in
-               zip((tox, toy, toz, tdx, tdy, tdz), loc)]
         on_tri = torch.where(closer, g_tri is not None, on_tri)
         if g_tri is not None:
             tri_slot = torch.where(closer, g_slot, tri_slot)
@@ -1355,12 +1379,19 @@ def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, eps: float,
                        for a, b in zip(g_tri[:3], tri_nrm)]
             tri_col = [torch.where(closer, a, b)
                        for a, b in zip(g_tri[3:], tri_col)]
+    # the winner's object-space ray: its row's f32 values, by tensor
+    won = best_t < _BIG
+    rows = torch.tensor(obj, dtype=torch.float32, device=ox.device)[
+        torch.where(won, w, 0)].unbind(-1)
+    loc = [torch.where(won, a, b) for a, b in zip(
+        (*_mat12_point(rows, ox, oy, oz), *_mat12_vec(rows, dx, dy, dz)),
+        (ox, oy, oz, dx, dy, dz))]
     return best_t, w, loc, on_tri, tri_slot, tri_nrm, tri_col
 
 
-def _light_visible(obj, meta: SceneMeta, node_table, tri_table, eps: float,
-                   t_max: float, ox, oy, oz, dx, dy, dz, active, l: int,
-                   counts: dict = None, walk: Walk = Walk()):
+def _light_visible(obj, meta: SceneMeta, node_table, tri_table, shade_table,
+                   eps: float, t_max: float, ox, oy, oz, dx, dy, dz, active,
+                   l: int, counts: dict = None, walk: Walk = Walk()):
     """Plain version of csrc/megakernel.cu's light_visible, the shadow
     query of the per-thread walk: whether light `l` is the nearest hit of
     each `active` ray with eps < t < t_max (_nearest_hit's rule), and the
@@ -1390,13 +1421,13 @@ def _light_visible(obj, meta: SceneMeta, node_table, tri_table, eps: float,
         m, code = obj[j], meta.obj_types[j]
         if counts is not None:
             counts[f"query_{TYPE_NAMES[code]}"] += int(live.sum())
-        loc = (*_mat12_point(m, ox, oy, oz), *_mat12_vec(m, dx, dy, dz))
         if code != GROUP:
-            return _primitive_t(code, m, eps, *loc)
+            return _object_t(code, m, eps, ox, oy, oz, dx, dy, dz)
+        loc = (*_mat12_point(m, ox, oy, oz), *_mat12_vec(m, dx, dy, dz))
         pre = live & _group_pretest(m, eps, *loc, bt)
         walked = {"node_visits": 0, "leaf_slots": 0}
         t = traverse_reference(
-            node_table, tri_table, meta.leaf_size, eps, t_max,
+            node_table, tri_table, shade_table, meta.leaf_size, eps, t_max,
             *group_bvh[j], *loc, pre, bt, n_nodes=oct_nodes, counts=walked,
             walk=walk, cut=cut)[0]
         if counts is not None:
@@ -1438,41 +1469,51 @@ def _light_visible(obj, meta: SceneMeta, node_table, tri_table, eps: float,
 
 
 def _mxu_rows(meta: SceneMeta) -> int:
-    """Rows of the triangle table that hold the MXU fragments."""
+    """Rows of the triangle test table that hold the MXU fragments."""
     K = meta.leaf_size
     n = (meta.n_tri_slots // K) * 6 * (-(-K // 8)) * 32
-    return -(-n // (_TRI_SLOTS_PER_ROW * _TRI_STRIDE))
+    return -(-n // _TRI_COLS)
 
 
 def mxu_view(tri_table, meta: SceneMeta):
-    """The MXU A blocks inside a triangle table built for MXU leaves, as
-    [n_leaves, 6, 8*ceil(K/8), 4] (group, triangle row, the four
+    """The MXU A blocks inside a triangle test table built for MXU leaves,
+    as [n_leaves, 6, 8*ceil(K/8), 4] (group, triangle row, the four
     coefficients of the half of q the group reads)."""
     K = meta.leaf_size
     kt = -(-K // 8)
     nl = meta.n_tri_slots // K
-    off = -(-meta.n_tri_slots // _TRI_SLOTS_PER_ROW) * _TRI_SLOTS_PER_ROW \
-        * _TRI_STRIDE
+    off = meta.n_tri_slots * _TRI_COLS
     return tri_table.reshape(-1)[off:off + nl * 6 * kt * 32].reshape(
         nl, 6, kt * 8, 4)
 
 
 def _table_shapes(meta: SceneMeta, walk: Walk):
-    """The shapes of the object, node and triangle tables of a scene
-    (build_scene_table, build_mesh_tables), the triangle table's for
+    """The shapes of the object, node, triangle test and shading tables of
+    a scene (build_scene_table, build_mesh_tables), the test table's for
     `walk` (scene_walk: MXU leaves read fragments after its rows)."""
     n_nodes = meta.n_nodes * (9 if meta.octant_orders else 1)
-    rows_t = -(-meta.n_tri_slots // _TRI_SLOTS_PER_ROW)
+    rows_t = meta.n_tri_slots
     if meta.has_groups and walk.leaf == "mma":
         rows_t += _mxu_rows(meta)
     return ((len(meta.obj_types), _OBJ_COLS), (max(1, n_nodes), _NODE_COLS),
-            (max(1, rows_t) if meta.has_groups else 1,
-             _TRI_SLOTS_PER_ROW * _TRI_STRIDE))
+            (max(1, rows_t) if meta.has_groups else 1, _TRI_COLS),
+            (max(1, meta.n_tri_slots) if meta.has_groups else 1,
+             _SHADE_COLS))
 
 
-def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
-                meta, cfg, spp, tile, spp_pack, pack_axis, tex_pool=None,
-                tex_table=None, tex_texels=None, walk: Walk = Walk()):
+def _check_aligned(**tables) -> None:
+    """The kernel reads the mesh tables as float4: raise unless each
+    tensor's data starts on a 16-byte boundary."""
+    for name, t in tables.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             "(the kernel's float4 loads)")
+
+
+def _check_args(seed, cam_vec, obj_table, node_table, tri_table,
+                shade_table, px, py, meta, cfg, spp, tile, spp_pack,
+                pack_axis, tex_pool=None, tex_table=None, tex_texels=None,
+                walk: Walk = Walk()):
     """Validate what trace_tiles is handed for a launch on `walk`; raise on
     anything the kernel does not take. Returns the (seed, sample_base)
     ints."""
@@ -1483,10 +1524,6 @@ def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
             "NEE with f32 texels (tex_texels): the differentiable "
             "megakernel does not replay NEE shadow draws; render with "
             "tex_pool")
-    if meta.has_groups:
-        if meta.leaf_size % _TRI_SLOTS_PER_ROW:
-            raise ValueError(f"leaf size {meta.leaf_size} is not a "
-                             f"multiple of {_TRI_SLOTS_PER_ROW}")
     bad = [t for t in meta.obj_types
            if t not in (PLANE, SPHERE, CYLINDER, BOX, GROUP)]
     if bad:
@@ -1515,11 +1552,12 @@ def _check_args(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     if len(seed) != 2:
         raise ValueError("seed must be (prng seed, global sample base)")
     dev = px.device
-    obj_shape, node_shape, tri_shape = _table_shapes(meta, walk)
+    obj_shape, node_shape, tri_shape, shade_shape = _table_shapes(meta, walk)
     want = (("cam_vec", cam_vec, torch.float32, (_CAM_COLS,)),
             ("obj_table", obj_table, torch.float32, obj_shape),
             ("node_table", node_table, torch.float32, node_shape),
             ("tri_table", tri_table, torch.float32, tri_shape),
+            ("shade_table", shade_table, torch.float32, shade_shape),
             ("px", px, torch.int32, None),
             ("py", py, torch.int32, tuple(px.shape)))
     if has_textures(meta):
@@ -1575,7 +1613,7 @@ class TapeEntry(NamedTuple):
 
 
 def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
-                          px, py, meta: SceneMeta = None,
+                          shade_table, px, py, meta: SceneMeta = None,
                           cfg: RenderConfig = None, spp: int = 1,
                           total_samples: int = 1,
                           tile: Tuple[int, int] = (64, 256),
@@ -1614,8 +1652,9 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     and packet of the kernel (walk_groups over the T*S*L slots)."""
     walk = scene_walk(meta)
     seed0, sample_base = _check_args(
-        seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
-        spp, tile, spp_pack, pack_axis, tex_pool, tex_table, tex_texels, walk)
+        seed, cam_vec, obj_table, node_table, tri_table, shade_table, px, py,
+        meta, cfg, spp, tile, spp_pack, pack_axis, tex_pool, tex_table,
+        tex_texels, walk)
     if counts is not None:
         for k in ("samples", "bounces", "hits", "node_visits", "leaf_slots",
                   "texel_fetches", "uv_sphere", "uv_cube", "shadow_rays",
@@ -1717,8 +1756,8 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
             # ---- intersect: loop over objects ---------------------------
             (best_t, w, (l_ox, l_oy, l_oz, l_dx, l_dy, l_dz), on_tri,
              tri_slot, tri_nrm, tri_col) = _nearest_hit(
-                obj, meta, node_table, tri_table, eps, t_max, ox, oy, oz,
-                dx, dy, dz, alive, 0, counts, walk, groups)
+                obj, meta, node_table, tri_table, shade_table, eps, t_max,
+                ox, oy, oz, dx, dy, dz, alive, 0, counts, walk, groups)
             hit_ok = best_t < t_max
             t = torch.clamp(best_t, max=t_max)
             wrow = obj_table[w]
@@ -1903,8 +1942,8 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                 walked = None if counts is None else {"node_visits": 0,
                                                       "leaf_slots": 0}
                 s_t, s_w, *_ = _nearest_hit(
-                    obj, meta, node_table, tri_table, eps, t_max, *shadow,
-                    cast, -1, walked, walk, groups)
+                    obj, meta, node_table, tri_table, shade_table, eps,
+                    t_max, *shadow, cast, -1, walked, walk, groups)
                 visible = cast & (s_w == l) & (s_t > eps) & (s_t < t_max)
                 if counts is not None:
                     counts["node_visits"] += walked["node_visits"]
@@ -1913,8 +1952,8 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                     counts["shadow_slots"] += walked["leaf_slots"]
                     if walk.walk == "thread":
                         q_vis, q_t = _light_visible(
-                            obj, meta, node_table, tri_table, eps, t_max,
-                            *shadow, cast, l, counts, walk)
+                            obj, meta, node_table, tri_table, shade_table,
+                            eps, t_max, *shadow, cast, l, counts, walk)
                         if not (torch.equal(q_vis, visible) and torch.equal(
                                 q_t[visible], s_t[visible])):
                             raise RuntimeError(
@@ -1973,25 +2012,25 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     "pt_megakernel_launch": (
-        [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        [_P] * 13 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P],
         _I),
     # the textured scenes' entry: the same arguments, then the texel pool
     # and the texture table
     "pt_megakernel_tex_launch": (
-        [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        [_P] * 13 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P, _P, _P],
         _I),
     # the same arguments, then the f32 texels [T, 4], T and the texture
     # table
     "pt_megakernel_texels_launch": (
-        [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        [_P] * 13 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P, _P, _I, _P],
         _I),
     # NEE: the same arguments, then the texel pool and texture table (null
     # without textures) and the light count and indices
     "pt_megakernel_nee_launch": (
-        [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        [_P] * 13 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P, _P, _P, _I, _P],
         _I),
     # the intersect-only kernel, launched by intersect_batch: six ray
@@ -1999,26 +2038,27 @@ SIGNATURES = {
     # type codes and group ranges, then n_obj, leaf size, octant node
     # count, eps, t_max and the stream
     "pt_intersect_launch": (
-        [_P] * 8 + [_I] + [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P], _I),
+        [_P] * 8 + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P], _I),
     # the packet walks (Kernels A and B): pt_megakernel_launch's arguments,
     # then the texel pool and texture table (null without textures), the
     # NEE flag, the light count and indices, the MXU fragments (null unless
     # MXU leaves) and the walk and leaf codes (WALK_CODES, LEAF_CODES)
     "pt_megakernel_packet_launch": (
-        [_P] * 12 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        [_P] * 13 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P, _P, _P, _I, _I, _P, _P, _I, _I],
         _I),
     # the intersect kernel on the packet walks: pt_intersect_launch's
     # arguments, then the MXU fragments and the walk and leaf codes
     "pt_intersect_packet_launch": (
-        [_P] * 8 + [_I] + [_P] * 6 + [_I] * 3 + [_F] * 2 + [_P, _P, _I, _I],
+        [_P] * 8 + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P, _P, _I, _I],
         _I),
     # the leaf microbenchmark (P3's counterpart), launched by
     # probes/leaf_bench.py: the rays, their outputs, the visit count, the
-    # triangle table, MXU fragments, leaf size, leaf count, eps, t_max, the
-    # variant code and the stream
+    # triangle test and shading tables, MXU fragments, leaf size, leaf
+    # count, eps, t_max, the variant code and the stream
     "pt_leaf_bench_launch": (
-        [_P] * 6 + [_P, _P, _I, _I] + [_P, _P, _I, _I, _F, _F, _I, _P], _I),
+        [_P] * 6 + [_P, _P, _I, _I] + [_P, _P, _P, _I, _I, _F, _F, _I, _P],
+        _I),
     # the texel-fetch probe (P1's counterpart), launched by fetch_texels
     "pt_tex_fetch_launch": (
         [_P] * 6 + [_I] * 4 + [_P], _I),
@@ -2029,11 +2069,11 @@ SIGNATURES = {
     # triangle mode, and texel mode (the texels [T, 4], T, the texture
     # table, gtex [T, 3] and the trainable objects' bit mask)
     "pt_grad_launch": (
-        [_P] * 14 + [_I] * 5 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        [_P] * 15 + [_I] * 5 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P],
         _I),
     "pt_grad_tex_launch": (
-        [_P] * 13 + [_I] * 5 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
+        [_P] * 14 + [_I] * 5 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P, _P, _I, _P, _P, ctypes.c_uint64],
         _I),
 }
@@ -2046,8 +2086,8 @@ def library():
     return _build.load("megakernel", SIGNATURES)
 
 
-def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
-                meta: SceneMeta = None, cfg: RenderConfig = None,
+def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
+                px, py, meta: SceneMeta = None, cfg: RenderConfig = None,
                 spp: int = 1, total_samples: int = 1,
                 tile: Tuple[int, int] = (64, 256), spp_pack: int = 1,
                 pack_axis: str = "row", tex_pool=None, tex_table=None,
@@ -2073,17 +2113,20 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
     past the texels cannot touch other memory."""
     if px.device.type != "cuda":
         return trace_tiles_reference(
-            seed, cam_vec, obj_table, node_table, tri_table, px, py,
-            meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
+            seed, cam_vec, obj_table, node_table, tri_table, shade_table, px,
+            py, meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
             tile=tile, spp_pack=spp_pack, pack_axis=pack_axis,
             tex_pool=tex_pool, tex_table=tex_table, tex_texels=tex_texels)
     walk = scene_walk(meta)
     seed0, sample_base = _check_args(
-        seed, cam_vec, obj_table, node_table, tri_table, px, py, meta, cfg,
-        spp, tile, spp_pack, pack_axis, tex_pool, tex_table, tex_texels, walk)
+        seed, cam_vec, obj_table, node_table, tri_table, shade_table, px, py,
+        meta, cfg, spp, tile, spp_pack, pack_axis, tex_pool, tex_table,
+        tex_texels, walk)
     n_obj = len(meta.obj_types)
     if not 0 < n_obj <= _MAX_OBJECTS:
         raise ValueError(f"{n_obj} objects; the kernel takes 1..{_MAX_OBJECTS}")
+    _check_aligned(node_table=node_table, tri_table=tri_table,
+                   shade_table=shade_table)
     lib = library()
     S, L = tile
     dev = px.device
@@ -2107,7 +2150,7 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, px, py,
         args = (out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
                 px.data_ptr(), py.data_ptr(), obj_table.data_ptr(),
                 types, cam_vec.data_ptr(), node_table.data_ptr(),
-                tri_table.data_ptr(), roots, ends,
+                tri_table.data_ptr(), shade_table.data_ptr(), roots, ends,
                 n_obj, rows * L, S, L, int(spp), spp_pack,
                 int(pack_axis == "chunk"), seed0 & _M32, sample_base,
                 cfg.max_bounces, cfg.max_effective_bounces, meta.leaf_size,
@@ -2165,8 +2208,7 @@ def mxu_ptr(tri_table, meta: SceneMeta, walk: Walk):
     leaves)."""
     if walk.leaf != "mma":
         return None
-    rows = -(-meta.n_tri_slots // _TRI_SLOTS_PER_ROW)
-    return tri_table.data_ptr() + rows * tri_table.shape[1] * 4
+    return tri_table.data_ptr() + meta.n_tri_slots * _TRI_COLS * 4
 
 
 trace_tiles.launches = 0
@@ -2278,17 +2320,16 @@ def render_megakernel(scn: SceneArrays, meta: SceneMeta, camera,
 
 def supports_intersect(meta: SceneMeta) -> bool:
     """Whether intersect_batch takes the scene (pallas_kernel.
-    supports_intersect): the four primitives and groups whose leaf size is
-    a multiple of the 4 slots of a triangle row; textures do not matter."""
-    prim = all(t in (PLANE, SPHERE, CYLINDER, BOX, GROUP)
-               for t in meta.obj_types)
-    return prim and meta.leaf_size % _TRI_SLOTS_PER_ROW == 0
+    supports_intersect): the four primitives and groups, of any leaf size
+    (supports_scene); textures do not matter."""
+    return supports_scene(meta)
 
 
 def intersect_tables(scn: SceneArrays, meta: SceneMeta, device):
     """The object table and the mesh tables (build_scene_table,
-    build_mesh_tables) as tensors on `device`: build them once and hand
-    them to every intersect_batch call of a render."""
+    build_mesh_tables: nodes, triangle test and shading records) as
+    tensors on `device`: build them once and hand them to every
+    intersect_batch call of a render."""
     return tuple(torch.from_numpy(t).to(device) for t in (
         build_scene_table(scn, meta), *build_mesh_tables(scn, meta)))
 
@@ -2297,8 +2338,7 @@ def _intersect_args(meta: SceneMeta, origin, direction, tables, walk: Walk):
     """Validate intersect_batch's arguments for a launch on `walk`; returns
     the six ray tensors."""
     if not supports_intersect(meta):
-        raise ValueError("intersect_batch takes primitives and groups whose "
-                         f"leaf size is a multiple of {_TRI_SLOTS_PER_ROW}")
+        raise ValueError("intersect_batch takes primitives and groups")
     if len(origin) != 3 or len(direction) != 3:
         raise ValueError("origin and direction must be 3-tuples")
     rays = [*origin, *direction]
@@ -2309,8 +2349,10 @@ def _intersect_args(meta: SceneMeta, origin, direction, tables, walk: Walk):
                 or t.shape != rays[0].shape):
             raise ValueError("the rays must be contiguous f32 [R] tensors "
                              "of one length on one device")
-    for name, t, shape in zip(("obj_table", "node_table", "tri_table"),
-                              tables, _table_shapes(meta, walk)):
+    names = ("obj_table", "node_table", "tri_table", "shade_table")
+    if len(tables) != len(names):
+        raise ValueError(f"tables must be {names} (intersect_tables)")
+    for name, t, shape in zip(names, tables, _table_shapes(meta, walk)):
         if (t.device != dev or t.dtype != torch.float32
                 or not t.is_contiguous() or tuple(t.shape) != shape):
             raise ValueError(f"{name} must be a contiguous f32 {shape} "
@@ -2336,8 +2378,8 @@ def intersect_batch_reference(scn: SceneArrays, meta: SceneMeta,
             counts.setdefault(k, 0)
         counts["rays"] += ox.numel()
     t, w, loc, on_tri, _, nrm, col = _nearest_hit(
-        obj, meta, tables[1], tables[2], cfg.epsilon, cfg.t_max, ox, oy, oz,
-        dx, dy, dz, torch.ones_like(ox, dtype=torch.bool), 0, counts, walk,
+        obj, meta, *tables[1:], cfg.epsilon, cfg.t_max, ox, oy, oz, dx, dy,
+        dz, torch.ones_like(ox, dtype=torch.bool), 0, counts, walk,
         walk_groups(ox.numel(), walk, dev))
     if counts is not None:
         counts["tri_hits"] += int(on_tri.sum())
@@ -2373,6 +2415,8 @@ def intersect_batch(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
                                          tables)
     walk = scene_walk(meta)
     rays = _intersect_args(meta, origin, direction, tables, walk)
+    _check_aligned(node_table=tables[1], tri_table=tables[2],
+                   shade_table=tables[3])
     n_obj = len(meta.obj_types)
     if not 0 < n_obj <= _MAX_OBJECTS:
         raise ValueError(f"{n_obj} objects; the kernel takes 1..{_MAX_OBJECTS}")
@@ -2390,7 +2434,8 @@ def intersect_batch(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
     with torch.cuda.device(dev):
         args = (*(t.data_ptr() for t in rays), out.data_ptr(), idx.data_ptr(),
                 n, tables[0].data_ptr(), types, tables[1].data_ptr(),
-                tables[2].data_ptr(), roots, ends, n_obj, meta.leaf_size,
+                tables[2].data_ptr(), tables[3].data_ptr(), roots, ends,
+                n_obj, meta.leaf_size,
                 meta.n_nodes if meta.octant_orders else 0, cfg.epsilon,
                 cfg.t_max, torch.cuda.current_stream(dev).cuda_stream)
         if walk != Walk():

@@ -236,6 +236,27 @@ def _stage_file_textures(obj_tex, obj_tex_nm, tex_ims, nm_ims):
     return upgrade(obj_tex, tex_ims), upgrade(obj_tex_nm, nm_ims)
 
 
+def leaf_size_for(objects: Sequence[Shape]) -> int:
+    """The BVH leaf size pack_scene packs `objects` at: PT_BVH_LEAF when
+    set, else 4 for a scene with meshes, whatever their size, and 16 for
+    one without (no walk reads it there).
+
+    The JAX package's rule, 32 for meshes of up to 8000 triangles in all
+    and 16 above, was swept on the TPU's packet walk, where a leaf is one
+    vector operation over the lanes. On the card each thread walks its
+    own ray and tests a leaf's slots one after the other, so a small leaf
+    tests fewer triangles that a nearer one in the same leaf hides, for a
+    few more node tests. Measured on the H100 at 1280x960x8 spp (PERF.md
+    §6), leaf 4 beat leaf 32 on `teapot` (1472 triangles) and leaf 16 on
+    the 16640-triangle size-check mesh by 8-11%, and 8 and 16 lay in
+    between."""
+    if os.environ.get("PT_BVH_LEAF"):
+        return int(os.environ["PT_BVH_LEAF"])
+    has_mesh = any(isinstance(s, Group) and s.all_triangles()
+                   for s in objects)
+    return 4 if has_mesh else 16
+
+
 def pack_scene(
     objects: Sequence[Shape],
     device,
@@ -247,8 +268,7 @@ def pack_scene(
 ) -> Tuple[SceneArrays, SceneMeta]:
     """Pack a scene onto `device` (float32).
 
-    The BVH leaf size is PT_BVH_LEAF when set, else 32 for meshes of up to
-    8000 triangles in all and 16 above (the JAX package's rule). Octant
+    The BVH leaf size is `leaf_size`, else leaf_size_for(objects). Octant
     node copies are built unless PT_OCTANT=0. A textured object's
     primitive type selects its image list (plane: `textures`, sphere:
     `sphere_textures`, box: `cube_textures`; tracer.cl:1077-1093); normal
@@ -258,12 +278,8 @@ def pack_scene(
     if n > no:
         raise ValueError(f"{n} objects > padded capacity {no}")
 
-    if leaf_size is None and os.environ.get("PT_BVH_LEAF"):
-        leaf_size = int(os.environ["PT_BVH_LEAF"])
     if leaf_size is None:
-        total_tris = sum(len(s.all_triangles()) for s in objects
-                         if isinstance(s, Group))
-        leaf_size = 32 if 0 < total_tris <= 8000 else 16
+        leaf_size = leaf_size_for(objects)
 
     obj_type = np.full(no, NONE_TYPE, dtype=np.int32)
     inverse = np.tile(np.eye(4), (no, 1, 1))

@@ -104,8 +104,9 @@ def main_tri(args, device):
     py = torch.from_numpy(ys).to(device)
     cam_vec = torch.from_numpy(mk.build_camera_vec(sc.camera)).to(device)
     obj = torch.from_numpy(mk.build_scene_table(arrays, meta)).to(device)
-    nodes, tris = (torch.from_numpy(t).to(device) for t in
-                   mk.build_mesh_tables(arrays, meta, traversal="classic"))
+    nodes, tris, shade = (torch.from_numpy(t).to(device) for t in
+                          mk.build_mesh_tables(arrays, meta,
+                                               traversal="classic"))
     # one launch carries the whole budget: the atomic scatter has no
     # per-launch sample cap
     spp = args.spp
@@ -120,7 +121,7 @@ def main_tri(args, device):
 
     def forward(tc):
         r, g, b = render.apply(color, emission, tc, seed, cam_vec, obj,
-                               nodes, tris, px, py)
+                               nodes, tris, shade, px, py)
         return r * inv, g * inv, b * inv
 
     tc_true = arrays.tri_color.clone()
@@ -213,8 +214,9 @@ def main_tex(args, device):
     py = torch.from_numpy(ys).to(device)
     cam_vec = torch.from_numpy(mk.build_camera_vec(sc.camera)).to(device)
     obj = torch.from_numpy(mk.build_scene_table(arrays, meta)).to(device)
-    nodes, tris = (torch.from_numpy(t).to(device) for t in
-                   mk.build_mesh_tables(arrays, meta, traversal="classic"))
+    nodes, tris, shade = (torch.from_numpy(t).to(device) for t in
+                          mk.build_mesh_tables(arrays, meta,
+                                               traversal="classic"))
     tex_table = torch.from_numpy(mk.build_tex_table(arrays, meta)).to(device)
     spp = args.spp
     render = make_diff_render_tex(meta, cfg, spp, spp, (S, L))
@@ -228,7 +230,7 @@ def main_tex(args, device):
 
     def forward(tex):
         r, g, b = render.apply(color, emission, tex, seed, cam_vec, obj,
-                               nodes, tris, px, py, tex_table)
+                               nodes, tris, shade, px, py, tex_table)
         return r * inv, g * inv, b * inv
 
     tex_true = texel_params(arrays)

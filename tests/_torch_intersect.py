@@ -13,7 +13,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 import pathtracer_tpu.native as jnative
-from _torch_parity import scene_pair
+from _torch_parity import jax_pack, scene_pair
 from _torch_scenes import bounce_rays, camera_rays
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu_torch.render import megakernel as mk
@@ -82,7 +82,7 @@ def intersect_parity(name):
     agree, per batch."""
     with mock.patch.object(jnative, "available", lambda: False):
         js, jc, ts, tc = scene_pair(name, width=16, height=12, samples=1)
-        ja, jm = js.pack()
+        ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device="cpu")
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
     assert mk.supports_intersect(tm) and pk.supports_intersect(jm)
@@ -136,7 +136,7 @@ def _tie_mask(tm, tc, tables, rays):
             tm, obj_types=(tm.obj_types[j],),
             group_indices=(0,) if j in tm.group_indices else (),
             group_bvh=tuple((0, r, e) for g, r, e in tm.group_bvh if g == j))
-        t, *_ = mk._nearest_hit([obj[j]], meta, tables[1], tables[2],
+        t, *_ = mk._nearest_hit([obj[j]], meta, *tables[1:],
                                 tc.epsilon, tc.t_max, *rays,
                                 torch.ones_like(rays[0], dtype=torch.bool),
                                 0)

@@ -41,6 +41,57 @@ def scene_pair(name: str, **cfg_kw):
     return (jscenes.get_scene(name, jc), jc, tscenes.get_scene(name, tc), tc)
 
 
+def jax_pack(js, ts, **kw):
+    """The JAX package's pack of scene js at the BVH leaf size the port
+    packs its twin ts at (scene.pack.leaf_size_for: PT_BVH_LEAF, else the
+    port's rule), on its NumPy path (native scene-core off: the port
+    builds its BVH as that path does), so both walk the same slots."""
+    with mock.patch.object(jnative, "available", lambda: False):
+        return js.pack(leaf_size=tpack.leaf_size_for(ts.objects), **kw)
+
+
+def assert_mesh_tables_match(got, want, meta) -> None:
+    """The port's mesh tables (build_mesh_tables: nodes [Nn, 8], triangle
+    test [Ns, 12] and shading [Ns, 12] records) hold the JAX package's
+    (nodes [Nn, 16]: bbmin, bbmax, tri_start, is_leaf, exit; triangles
+    [ceil(Ns/4), 96]: four 24-float slots a row, test then shading data)
+    exactly, with a leaf's first slot in node column 3 and -1 there for an
+    inner node."""
+    nodes, tris, shade = (np.asarray(t) for t in got)
+    jn, jt = (np.asarray(t) for t in want)
+    assert nodes.dtype == tris.dtype == shade.dtype == np.float32
+    if not meta.has_groups:     # no mesh: one zero row each
+        assert not (jn.any() or jt.any() or nodes.any() or tris.any()
+                    or shade.any())
+        assert (nodes.shape, tris.shape, shade.shape) == ((1, 8), (1, 12),
+                                                          (1, 12))
+        return
+    assert nodes.shape == (jn.shape[0], 8) and nodes.flags.c_contiguous
+    assert np.array_equal(nodes[:, 0:3], jn[:, 0:3])
+    assert np.array_equal(nodes[:, 4:7], jn[:, 3:6])
+    assert np.array_equal(nodes[:, 7], jn[:, 8])
+    assert np.array_equal(nodes[:, 3], np.where(jn[:, 7] > 0.5, jn[:, 6],
+                                                -1.0))
+    slots = jt.reshape(-1, 24)
+    n = meta.n_tri_slots
+    # (under MXU leaves the test table carries the fragments after its rows)
+    assert shade.shape == (n, 12) and tris.shape[0] >= n
+    assert np.array_equal(tris[:n], slots[:n, :12])
+    assert np.array_equal(shade, slots[:n, 12:])
+    assert not slots[n:].any()
+
+
+def assert_inputs_match(jtabs, ttabs, meta) -> None:
+    """The JAX kernel's inputs [cam, obj, nodes, tris, px, py] and the
+    port's [cam, obj, nodes, tris, shade, px, py] (numpy or CPU tensors)
+    agree: the camera, object table and pixel maps exactly, the mesh tables
+    by assert_mesh_tables_match."""
+    assert len(jtabs) == 6 and len(ttabs) == 7
+    for a, b in zip(jtabs[:2] + jtabs[4:], ttabs[:2] + ttabs[5:]):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    assert_mesh_tables_match(ttabs[2:5], jtabs[2:4], meta)
+
+
 def jax_fields_np(arrays) -> dict:
     """The JAX SceneArrays as a dict of numpy arrays."""
     return {k: np.asarray(v) for k, v in arrays._asdict().items()}
@@ -77,7 +128,7 @@ def kernel_pair(name: str, tile=None, spp: int = 8, base: int = 0,
               **cfg_kw)
     with mock.patch.object(jnative, "available", lambda: False):
         js, jc, ts, tc = scene_pair(name, **kw)
-        ja, jm = js.pack()
+        ja, jm = jax_pack(js, ts)
     tile = tile or pk.default_tile(jm)
     ttabs, tm, _, layout = port_inputs(ts, tc, tile, torch.device("cpu"))
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
@@ -95,12 +146,12 @@ def kernel_pair(name: str, tile=None, spp: int = 8, base: int = 0,
                                      spp_pack=pack, pack_axis=axis)
     jtabs = (pk.build_camera_vec(js.camera), pk.build_scene_table(ja, jm),
              *pk.build_mesh_tables(ja, jm), xs, ys)
-    for i, (a, b) in enumerate(zip(jtabs, ttabs)):
-        # under MXU leaves the JAX package lane-packs its own table
-        # (tests/test_torch_walk_host.py holds the blocks)
-        if not (i == 3 and jm.has_groups
-                and pk.traversal_mode(jm) == "mxu"):
-            assert np.array_equal(a, b.numpy())
+    # under MXU leaves the JAX package lane-packs its own triangle table
+    # (tests/test_torch_walk_host.py holds the blocks); the classic one
+    # holds the port's records
+    assert_inputs_match(
+        (*jtabs[:2], *pk.build_mesh_tables(ja, jm, traversal="classic"),
+         *jtabs[4:]), ttabs, tm)
     seed = (3, base)
     staged = {"tex": ja.tex_staged} if pk.staged_lanes(jm) else {}
     jax_trace_tiles = fresh_trace_tiles() if fresh_jit else pk.trace_tiles

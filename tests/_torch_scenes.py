@@ -26,7 +26,8 @@ MESH_SCENES = ("default", "teapot", "christian", "transparent_teapot",
 TEX_SCENES = ("textures", "envmap", "cubemap", "textures-file",
               "textures-train", "envmap-file")
 # the size-check mesh: a UV sphere of exactly as many triangles as the
-# reference's gopher.obj (16640; BVH leaf 16, 2079 nodes)
+# reference's gopher.obj (16640; 8319 nodes at the port's BVH leaf 4, 2079
+# at the JAX package's 16)
 SIZE_CHECK_LAT_LON = (66, 128)
 
 # per-slot rule: f32 round-off, with room for a few paths that diverge on

@@ -127,7 +127,10 @@ def test_kernel_matches_plain_incoherent(dev, monkeypatch):
     ("teapot", 0.1, 16, {"PT_PACK_AXIS": "row"}),
     ("teapot", 0.0, 0, {"PT_OCTANT": "0"}),
     ("teapot", 0.0, 0, {"PT_COHERENT": "0"}),
-    ("size-check", 0.0, 0, {}),                  # 16640 triangles, leaf 16
+    ("size-check", 0.0, 0, {}),                  # 16640 triangles, leaf 4
+    ("teapot", 0.0, 0, {"PT_BVH_LEAF": "32"}),   # the other leaf sizes
+    ("teapot", 0.0, 0, {"PT_BVH_LEAF": "8"}),    # timed
+    ("size-check", 0.0, 0, {"PT_BVH_LEAF": "16"}),
 ])
 def test_mesh_kernel_bit_equal_plain(dev, monkeypatch, name, aperture, base,
                                      env):
@@ -195,6 +198,22 @@ def test_kernel_refuses_tables_off_the_card(dev):
                        total_samples=1, tile=(8, 128))
 
 
+def test_kernel_refuses_unaligned_mesh_tables(dev):
+    # the kernel reads the mesh records as float4: a table that does not
+    # start on a 16-byte boundary is refused, not read
+    tabs, meta, cfg, layout = _inputs("teapot", dev, (8, 512), width=32,
+                                      height=24, samples=4)
+    kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4, tile=(8, 512),
+              **layout)
+    for i in (2, 3, 4):
+        bad = list(tabs)
+        t = tabs[i]
+        bad[i] = torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape)
+        bad[i].copy_(t)
+        with pytest.raises(ValueError, match="16-byte"):
+            mk.trace_tiles((5, 0), *bad, **kw)
+
+
 def test_cli_renders_through_the_kernel(dev, tmp_path):
     raw = tmp_path / "r.raw"
     before = mk.trace_tiles.launches
@@ -242,7 +261,7 @@ def _grad_case(name, dev, **cfg_kw):
           else get_scene(name, cfg))
     tabs, meta, arrays, pid = grad_inputs(sc, cfg, (8, 512), dev)
     rng = np.random.default_rng(0)
-    cots = [torch.from_numpy(rng.random(tuple(tabs[4].shape),
+    cots = [torch.from_numpy(rng.random(tuple(tabs[-2].shape),
                                         dtype=np.float32)).to(dev)
             for _ in range(3)]
     return tabs, meta, arrays, pid, cfg, cots
@@ -255,7 +274,7 @@ def _grad_case(name, dev, **cfg_kw):
     ("teapot", 0.0, 0, False),                # mesh, object gradients only
     ("teapot", 0.0, 0, True),
     ("teapot", 0.1, 16, True),
-    ("size-check", 0.0, 0, True),             # 16640 triangles, leaf 16
+    ("size-check", 0.0, 0, True),             # 16640 triangles, leaf 4
 ])
 def test_grad_kernel_matches_plain(dev, name, aperture, base, tri):
     tabs, meta, _, _, cfg, cots = _grad_case(
@@ -295,7 +314,7 @@ def test_diff_render_primal_is_bit_equal(dev, name):
     before = tg.grad_tiles.launches
     (gc,) = torch.autograd.grad(rgb[0].sum(), (color,))
     assert tg.grad_tiles.launches == before + 1
-    zero = torch.zeros_like(tabs[4], dtype=torch.float32)
+    zero = torch.zeros_like(tabs[-2], dtype=torch.float32)
     want_gc = tg.grad_tiles_reference((2, 0), *tabs, torch.ones_like(zero),
                                       zero, zero, **kw)[0]
     n = meta.n_objects
@@ -403,7 +422,7 @@ def test_tex_grad_kernel_matches_plain_on_a_mesh(dev):
     tabs, meta, arrays, _ = grad_inputs(sc, cfg, (8, 512), dev)
     assert meta.has_groups and pack.staged_objects(meta)
     rng = np.random.default_rng(0)
-    cots = [torch.from_numpy(rng.random(tuple(tabs[4].shape),
+    cots = [torch.from_numpy(rng.random(tuple(tabs[-2].shape),
                                         dtype=np.float32)).to(dev)
             for _ in range(3)]
     kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4, tile=(8, 512),
@@ -535,15 +554,18 @@ WALK_ENVS = {"mode1": {"PT_SUBPACKET": "1"}, "mode2": {"PT_SUBPACKET": "2"},
 
 
 @pytest.mark.parametrize("walk", list(WALK_ENVS))
-@pytest.mark.parametrize("name,nee", [("teapot", False), ("teapot", True),
-                                      ("size-check", False),
-                                      ("cubemap", False)])
-def test_packet_walks_match_plain(dev, monkeypatch, walk, name, nee):
+@pytest.mark.parametrize("name,nee,leaf", [
+    ("teapot", False, None), ("teapot", True, None),
+    ("size-check", False, None), ("cubemap", False, None),
+    ("teapot", False, 32), ("teapot", False, 8)])  # other leaf sizes
+def test_packet_walks_match_plain(dev, monkeypatch, walk, name, nee, leaf):
     # Kernel A (the warp-packet walk) and the node walk alone bit for bit;
     # Kernel B (tensor-core leaves) by the per-slot rule (its plain dots
     # are f64 rounded once, as the DMMA's)
     for k, v in WALK_ENVS[walk].items():
         monkeypatch.setenv(k, v)
+    if leaf is not None:
+        monkeypatch.setenv("PT_BVH_LEAF", str(leaf))
     tabs, meta, cfg, layout = _inputs(name, dev, None, width=64, height=48,
                                       samples=4, samples_per_pass=4, nee=nee)
     kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4,
@@ -588,8 +610,8 @@ def test_packet_intersect_matches_plain(dev, monkeypatch, walk):
 def test_leaf_bench_and_op_rate_match_plain(dev):
     from pathtracer_tpu_torch.probes import leaf_bench, op_rate
 
-    tris, meta, arrays = leaf_bench.teapot_leaves(dev)
-    res = leaf_bench.check(leaf_bench.mesh_rays(arrays, 4096, dev), tris,
+    tables, meta, arrays = leaf_bench.teapot_leaves(dev)
+    res = leaf_bench.check(leaf_bench.mesh_rays(arrays, 4096, dev), tables,
                            meta)
     assert res["prod"]["bit_equal_t"] == res["prod"]["rays"]
     assert res["prod"]["winner_equal"] == res["prod"]["rays"]

@@ -11,7 +11,7 @@ import pytest
 import torch
 from PIL import Image
 
-from _torch_parity import jax_fields_np, scene_pair
+from _torch_parity import jax_fields_np, jax_pack, scene_pair
 from _torch_scenes import (ATOL, MEAN_REL, RTOL, SLOT_FRAC,
                            assert_slot_rule)
 import pathtracer_tpu.native as jnative
@@ -42,8 +42,8 @@ def _jax_segments(order, name="reference"):
     """`name` at CFG as two 4-spp segments of the JAX megakernel
     (interpret mode), seeded as pathtracer_tpu.driver seeds them
     (driver.py:256-270), on tile order `order`: [H, W, 3]."""
-    js, jc, _, _ = scene_pair(name, **CFG)
-    ja, jm = js.pack()
+    js, jc, ts, _ = scene_pair(name, **CFG)
+    ja, jm = jax_pack(js, ts)
     S, L = pk.default_tile(jm)
     xs, ys, pid = pk.tile_pixel_layout(32, 24, S, L, order=order)
     tabs = [jnp.asarray(t) for t in (
@@ -148,7 +148,7 @@ def _teapot_segments(monkeypatch, nee: bool):
     js, jc, ts, tc = scene_pair("teapot", nee=nee, **MESH_CFG)
     arrays, meta = ts.pack(device=CPU)
     img, stats = render_driver(arrays, meta, ts.camera, tc)
-    ja, jm = js.pack()
+    ja, jm = jax_pack(js, ts)
     # the JAX NumPy path packs NaN group bounds for a parsed model (ROADMAP
     # queue 3): hand its kernel the port's, the model's vertex bounds
     fields = dict(jax_fields_np(ja), bb_min=arrays.bb_min.numpy(),

@@ -26,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jax_fields_np, scene_pair
+from _torch_parity import (assert_inputs_match, jax_fields_np, jax_pack,
+                           scene_pair)
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu.render.pallas_grad import _assemble_obj as jax_assemble
 from pathtracer_tpu.render.pallas_grad import grad_tiles as jax_grad_tiles
@@ -51,9 +52,8 @@ def _tables(js, ts, jm, tm, ja, ta):
           *pk.build_mesh_tables(ja, jm), xs, ys]
     tt = [mk.build_camera_vec(ts.camera), mk.build_scene_table(ta, tm),
           *mk.build_mesh_tables(ta, tm), xs, ys]
-    for a, b in zip(jt, tt):
-        assert np.array_equal(a, b)
-    return tt, pid
+    assert_inputs_match(jt, tt, tm)
+    return jt, tt, pid
 
 
 @pytest.fixture(scope="module")
@@ -62,10 +62,10 @@ def parity():
     interpret-mode (gcol, gemi)."""
     js, jc, ts, tc = scene_pair("reference", width=W, height=H, samples=SPP,
                                 samples_per_pass=SPP)
-    ja, jm = js.pack()
+    ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device="cpu")
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
-    tabs, pid = _tables(js, ts, jm, tm, ja, ta)
+    jtabs, tabs, pid = _tables(js, ts, jm, tm, ja, ta)
     dof_js, _, dof_ts, _ = scene_pair("reference", width=W, height=H,
                                       samples=SPP, aperture=0.1,
                                       focal_length=1.6)
@@ -77,15 +77,17 @@ def parity():
     assert len(spheres) >= 2
     glass[spheres[0], 30] = 1.5          # solid glass: Schlick refraction
     glass[spheres[1], 31] = 0.9          # mirror
-    cases = {"reference": ((3, 0), tabs),
-             "dof": ((3, 16), [dof_cam] + tabs[1:]),
-             "glass": ((5, 0), [tabs[0], glass] + tabs[2:])}
+    # (seed, the JAX kernel's tables, the port's)
+    cases = {"reference": ((3, 0), jtabs, tabs),
+             "dof": ((3, 16), [dof_cam] + jtabs[1:], [dof_cam] + tabs[1:]),
+             "glass": ((5, 0), [jtabs[0], glass] + jtabs[2:],
+                       [tabs[0], glass] + tabs[2:])}
     rng = np.random.default_rng(0)
     out = {}
-    for name, (seed, t) in cases.items():
-        cots = [rng.random(t[4].shape).astype(np.float32) for _ in range(3)]
+    for name, (seed, jt, t) in cases.items():
+        cots = [rng.random(t[-2].shape).astype(np.float32) for _ in range(3)]
         want = jax_grad_tiles(
-            jnp.asarray(seed, jnp.int32), *map(jnp.asarray, t),
+            jnp.asarray(seed, jnp.int32), *map(jnp.asarray, jt),
             *map(jnp.asarray, cots), meta=jm, cfg=jc, spp=SPP,
             total_samples=TOTAL, tile=TILE, interpret=True)
         out[name] = (seed, t, cots, [np.asarray(w) for w in want])
@@ -155,7 +157,7 @@ def fd_setup(parity):
     t = [torch.from_numpy(a) for a in cases["reference"][1]]
     render = tg.make_diff_render(tm, tc, SPP, SPP, TILE)
     rng = np.random.default_rng(0)
-    wts = [torch.from_numpy(rng.random(t[4].shape).astype(np.float32))
+    wts = [torch.from_numpy(rng.random(t[-2].shape).astype(np.float32))
            for _ in range(3)]
     seed = (3, 0)
 
@@ -207,7 +209,7 @@ def test_forward_is_the_megakernel(fd_setup, parity):
     for x, y in zip((r, g, b), want):
         assert torch.equal(x.detach(), y)
     (gc,) = torch.autograd.grad(r.sum(), (color,))
-    zero = torch.zeros_like(t[4], dtype=torch.float32)
+    zero = torch.zeros_like(t[-2], dtype=torch.float32)
     want_gc, _ = tg.grad_tiles_reference(
         (3, 0), *t, torch.ones_like(zero), zero, zero, meta=tm, cfg=tc,
         spp=SPP, total_samples=SPP, tile=TILE)

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 import pathtracer_tpu.native as jnative
-from _torch_parity import scene_pair
+from _torch_parity import assert_inputs_match, jax_pack, scene_pair
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu.render.pallas_grad import grad_tiles as jax_grad_tiles
 from pathtracer_tpu_torch import train_demo
@@ -50,7 +50,7 @@ def _mesh_pair(W, H, spp):
     with mock.patch.object(jnative, "available", lambda: False):
         js, jc, ts, tc = scene_pair("teapot", width=W, height=H,
                                     samples=spp, samples_per_pass=spp)
-        ja, jm = js.pack()
+        ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device="cpu")
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
     assert tm.has_groups
@@ -68,8 +68,7 @@ def _mesh_pair(W, H, spp):
           *pk.build_mesh_tables(ja, jm), xs, ys]
     tt = [mk.build_camera_vec(ts.camera), tobj,
           *mk.build_mesh_tables(ta, tm), xs, ys]
-    for a, b in zip(jt, tt):
-        assert np.array_equal(a, b)
+    assert_inputs_match(jt, tt, tm)
     return jt, tt, jm, tm, ta, jc, tc, pid, ts
 
 
@@ -78,7 +77,7 @@ def parity():
     W, H, spp = 128, 96, 2
     jt, tt, jm, tm, ta, jc, tc, _, _ = _mesh_pair(W, H, spp)
     rng = np.random.default_rng(1)
-    cots = [rng.random(tt[4].shape).astype(np.float32) for _ in range(3)]
+    cots = [rng.random(tt[-2].shape).astype(np.float32) for _ in range(3)]
     seed = (9, 0)
     want = jax_grad_tiles(
         jnp.asarray(seed, jnp.int32), *map(jnp.asarray, jt),
@@ -130,7 +129,7 @@ def fd_setup():
     t = [torch.from_numpy(a) for a in tt]
     render = tg.make_diff_render_tri(tm, tc, spp, TILE, spp=spp)
     rng = np.random.default_rng(2)
-    wts = [torch.from_numpy(rng.random(t[4].shape).astype(np.float32))
+    wts = [torch.from_numpy(rng.random(t[-2].shape).astype(np.float32))
            for _ in range(3)]
     seeds = [(40 + i, i) for i in range(2)]
 

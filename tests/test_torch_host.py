@@ -8,7 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jax_fields_np, scene_pair
+from _torch_parity import (assert_mesh_tables_match, jax_fields_np, jax_pack,
+                           scene_pair)
 from _torch_scenes import MESH_SCENES, SLICE_SCENES, TEX_SCENES
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu.scenes import get_scene as jax_get_scene
@@ -26,7 +27,7 @@ ALL = SLICE_SCENES + ("cylinder",)
 @pytest.mark.parametrize("name", ALL)
 def test_pack_and_tables_equal_jax(name):
     js, _, ts, _ = scene_pair(name, width=48, height=36, samples=4)
-    ja, jm = js.pack()
+    ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device=torch.device("cpu"))
     for field, want in jax_fields_np(ja).items():
         got = getattr(ta, field).numpy()
@@ -35,9 +36,8 @@ def test_pack_and_tables_equal_jax(name):
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
     assert np.array_equal(mk.build_scene_table(ta, tm),
                           pk.build_scene_table(ja, jm))
-    for got, want in zip(mk.build_mesh_tables(ta, tm),
-                         pk.build_mesh_tables(ja, jm)):
-        assert np.array_equal(got, want)
+    assert_mesh_tables_match(mk.build_mesh_tables(ta, tm),
+                             pk.build_mesh_tables(ja, jm), tm)
     assert np.array_equal(mk.build_camera_vec(ts.camera),
                           pk.build_camera_vec(js.camera))
     # defaults that pick the tile, order and packing
@@ -73,7 +73,7 @@ def test_layout_knobs_equal_jax(monkeypatch, env):
 @pytest.mark.parametrize("name", ("reference", "transparency_f_light"))
 def test_from_jax_scene_round_trip(name):
     js, _, ts, _ = scene_pair(name, width=32, height=24, samples=1)
-    ja, jm = js.pack()
+    ja, jm = jax_pack(js, ts)
     fa, fm = from_jax_scene(jax_fields_np(ja), jm, torch.device("cpu"))
     ta, tm = ts.pack(device=torch.device("cpu"))
     assert fm == tm

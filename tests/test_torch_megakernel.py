@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import scene_pair
+from _torch_parity import jax_pack, scene_pair
 from _torch_scenes import SLICE_SCENES, assert_slot_rule, port_inputs
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu_torch.render import megakernel as mk
@@ -29,7 +29,7 @@ def _inputs(name, device="cpu", **cfg_kw):
     kw = dict(width=W, height=H, samples=SPP, samples_per_pass=SPP)
     kw.update(cfg_kw)
     js, jc, ts, tc = scene_pair(name, **kw)
-    ja, jm = js.pack()
+    ja, jm = jax_pack(js, ts)
     ttabs, tm, _, _ = port_inputs(ts, tc, TILE, torch.device(device))
     xs, ys, _ = pk.tile_pixel_layout(W, H, *TILE, order="linear")
     jtabs = (pk.build_camera_vec(js.camera), pk.build_scene_table(ja, jm),
@@ -94,7 +94,7 @@ def test_trace_tiles_refuses_unported_inputs():
     with pytest.raises(ValueError, match="pack_axis"):
         mk.trace_tiles((0, 0), *ttabs, cfg=tc, pack_axis="lane", **kw)
     bad = list(ttabs)
-    bad[4] = bad[4].to(torch.int64)              # px must be int32
+    bad[-2] = bad[-2].to(torch.int64)            # px must be int32
     with pytest.raises(ValueError, match="px"):
         mk.trace_tiles((0, 0), *bad, cfg=tc, **kw)
     bad = list(ttabs)
@@ -106,7 +106,7 @@ def test_trace_tiles_refuses_unported_inputs():
 def test_render_megakernel_matches_render_pallas():
     js, jc, ts, tc = scene_pair("reflection", width=W, height=H, samples=SPP,
                                 samples_per_pass=SPP, seed=7)
-    ja, jm = js.pack()
+    ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device=torch.device("cpu"))
     want = pk.render_pallas(ja, jm, js.camera, jc, interpret=True, tile=TILE)
     got = mk.render_megakernel(ta, tm, ts.camera, tc, tile=TILE)

@@ -27,7 +27,8 @@ import torch
 
 import pathtracer_tpu.native as jnative
 import pathtracer_tpu.scenes as jscenes
-from _torch_parity import jax_fields_np, scene_pair
+from _torch_parity import (assert_mesh_tables_match, jax_fields_np, jax_pack,
+                           scene_pair)
 from _torch_scenes import MESH_SCENES, assert_slot_rule, size_check_scene
 from pathtracer_tpu import assets as jassets
 from pathtracer_tpu.config import RenderConfig as JaxConfig
@@ -62,7 +63,7 @@ def _packed(name):
             ts = size_check_scene(RenderConfig(**CFG), get_scene)
         else:
             js, _, ts, _ = scene_pair(name, **CFG)
-        ja, jm = js.pack()
+        ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device=CPU)
     return js, jax_fields_np(ja), jm, ts, ta, tm
 
@@ -118,18 +119,17 @@ def test_bvh_pool_and_mesh_tables_equal_jax(name):
     assert (starts % tm.leaf_size == 0).all()
     assert (starts + tm.leaf_size <= tm.n_tri_slots).all()
     ja = pk.SceneArrays(**{k: jnp.asarray(v) for k, v in jf.items()})
-    for got, want in zip(mk.build_mesh_tables(ta, tm),
-                         pk.build_mesh_tables(ja, jm)):
-        assert got.dtype == want.dtype == np.float32
-        assert np.array_equal(got, want)
+    assert_mesh_tables_match(mk.build_mesh_tables(ta, tm),
+                             pk.build_mesh_tables(ja, jm), tm)
 
 
 def test_size_check_mesh_shape():
     _, _, _, ts, ta, tm = _packed("size-check")
     (j,) = tm.group_indices
     assert len(ts.objects[j].all_triangles()) == 16640
-    assert (tm.leaf_size, tm.n_nodes, tm.n_tri_slots) == (16, 2079, 16640)
-    assert ta.node_bb_min.shape == (9 * 2079, 3)
+    # the port's leaf size for a mesh (pack.leaf_size_for): 4
+    assert (tm.leaf_size, tm.n_nodes, tm.n_tri_slots) == (4, 8319, 16640)
+    assert ta.node_bb_min.shape == (9 * 8319, 3)
 
 
 def test_model_bounds_are_finite_vertex_bounds():
@@ -203,10 +203,11 @@ def test_pack_knobs_equal_jax(monkeypatch, env):
         monkeypatch.setenv(k, v)
     with _jax_numpy():
         js, _, ts, _ = scene_pair("teapot", **CFG)
-        ja, jm = js.pack()
+        ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device=CPU)
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
-    assert tm.leaf_size == int(env.get("PT_BVH_LEAF", 32))
+    # the port's rule: 4 for any mesh (pack.leaf_size_for)
+    assert tm.leaf_size == int(env.get("PT_BVH_LEAF", 4))
     assert tm.octant_orders == ("PT_OCTANT" not in env)
     for field, want in jax_fields_np(ja).items():
         if field not in ("bb_min", "bb_max"):
@@ -352,8 +353,8 @@ def test_unported_mesh_knobs_raise(monkeypatch, env, walk):
     if "PT_TRAVERSAL" in env:
         # the MXU blocks ride after the classic rows of the triangle table
         tris = mk.build_mesh_tables(ta, tm)[1]
-        classic_rows = -(-tm.n_tri_slots // 4)
-        assert tris.shape[0] == classic_rows + mk._mxu_rows(tm)
+        assert tris.shape[0] == tm.n_tri_slots + mk._mxu_rows(tm)
     # primitive scenes do not read the mesh knobs, as in the JAX package
     ra, rm = get_scene("reference", cfg).pack(device=CPU)
-    assert mk.build_mesh_tables(ra, rm)[0].shape == (1, 16)
+    assert [t.shape for t in mk.build_mesh_tables(ra, rm)] == [
+        (1, 8), (1, 12), (1, 12)]

@@ -37,13 +37,14 @@ def _mesh(name):
     sc = (size_check_scene(cfg, get_scene) if name == "size-check"
           else get_scene(name, cfg))
     arrays, meta = sc.pack(device=torch.device("cpu"))
-    nodes, tris = mk.build_mesh_tables(arrays, meta)
-    return cfg, arrays, meta, nodes, tris
+    return cfg, arrays, meta, mk.build_mesh_tables(arrays, meta)
 
 
-def _packet_interpret(meta, cfg, nodes, tris, rays):
+def _packet_interpret(meta, cfg, arrays, rays):
     """One interpret-mode pallas_call around pk._packet_traverse, walking
-    node copy 0 of the single group (tests/test_packet_traverse.py)."""
+    node copy 0 of the single group (tests/test_packet_traverse.py), on
+    the JAX package's own tables of the port's packed scene."""
+    nodes, tris = pk.build_mesh_tables(arrays, meta, traversal="classic")
     S, L = TILE
     leaf_rows = meta.leaf_size // pk._TRI_SLOTS_PER_ROW
     (_, root, end), = meta.group_bvh
@@ -114,7 +115,7 @@ def _brute_force(arrays, eps, o, d):
     return best_t, best_i, best_u, best_v
 
 
-def _port_walk(meta, cfg, nodes, tris, o, d, octant, active=None, bt0=None):
+def _port_walk(meta, cfg, tables, o, d, octant, active=None, bt0=None):
     n = o.shape[0]
     (_, root, end), = meta.group_bvh
     rays = [torch.from_numpy(np.ascontiguousarray(a)) for a in
@@ -123,7 +124,7 @@ def _port_walk(meta, cfg, nodes, tris, o, d, octant, active=None, bt0=None):
            else torch.from_numpy(active))
     bt = (torch.full((n,), BIG) if bt0 is None else torch.from_numpy(bt0))
     out = mk.traverse_reference(
-        torch.from_numpy(nodes), torch.from_numpy(tris), meta.leaf_size,
+        *map(torch.from_numpy, tables), meta.leaf_size,
         cfg.epsilon, cfg.t_max, root, end, *rays, act, bt,
         n_nodes=meta.n_nodes if octant else 0)
     return [x.numpy() for x in out]
@@ -131,12 +132,12 @@ def _port_walk(meta, cfg, nodes, tris, o, d, octant, active=None, bt0=None):
 
 @pytest.mark.parametrize("octant", [False, True])
 def test_walk_matches_packet_walk(octant):
-    cfg, arrays, meta, nodes, tris = _mesh("teapot")
+    cfg, arrays, meta, tables = _mesh("teapot")
     o, d = _rays_toward_mesh(arrays, TILE[0] * TILE[1], seed=512)
-    want = _packet_interpret(meta, cfg, nodes, tris,
+    want = _packet_interpret(meta, cfg, arrays,
                              [o[:, 0], o[:, 1], o[:, 2],
                               d[:, 0], d[:, 1], d[:, 2]])
-    got = _port_walk(meta, cfg, nodes, tris, o, d, octant)
+    got = _port_walk(meta, cfg, tables, o, d, octant)
     whit, ghit = want[0] < BIG, got[0] < BIG
     assert (whit == ghit).mean() >= 0.999
     assert whit.sum() > o.shape[0] // 4            # the aimed rays hit
@@ -154,10 +155,10 @@ def test_walk_matches_packet_walk(octant):
                                          ("default", False),
                                          ("size-check", True)])
 def test_walk_matches_brute_force(name, octant):
-    cfg, arrays, meta, nodes, tris = _mesh(name)
+    cfg, arrays, meta, tables = _mesh(name)
     n = 2048
     o, d = _rays_toward_mesh(arrays, n, seed=7)
-    got = _port_walk(meta, cfg, nodes, tris, o, d, octant)
+    got = _port_walk(meta, cfg, tables, o, d, octant)
     bt, bi, bu, bv = _brute_force(arrays, cfg.epsilon, o, d)
     hit = bi >= 0
     assert ((got[0] < BIG) == hit).mean() >= 0.999
@@ -177,14 +178,14 @@ def test_walk_matches_brute_force(name, octant):
 def test_walk_respects_active_and_prior_best():
     # inactive rays keep bt0; a closer hit among earlier objects (bt0)
     # prunes the walk and is kept
-    cfg, arrays, meta, nodes, tris = _mesh("teapot")
+    cfg, arrays, meta, tables = _mesh("teapot")
     n = 1024
     o, d = _rays_toward_mesh(arrays, n, seed=3)
-    free = _port_walk(meta, cfg, nodes, tris, o, d, True)
+    free = _port_walk(meta, cfg, tables, o, d, True)
     active = np.arange(n) % 3 != 0
     bt0 = np.where(np.arange(n) % 2 == 0, free[0] * 0.5, BIG)
     bt0 = bt0.astype(np.float32)
-    got = _port_walk(meta, cfg, nodes, tris, o, d, True, active, bt0)
+    got = _port_walk(meta, cfg, tables, o, d, True, active, bt0)
     assert np.array_equal(got[0][~active], bt0[~active])
     keep = active & (np.arange(n) % 2 == 0)
     assert np.array_equal(got[0][keep], bt0[keep])

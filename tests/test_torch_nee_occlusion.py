@@ -48,21 +48,20 @@ EPS, T_MAX = 1e-4, 1024.0
 def _tables(sc):
     arrays, meta = sc.pack(device="cpu")
     obj = torch.from_numpy(mk.build_scene_table(arrays, meta))
-    nodes, tris = (torch.from_numpy(t)
-                   for t in mk.build_mesh_tables(arrays, meta))
-    return obj.tolist(), meta, nodes, tris
+    mesh = (torch.from_numpy(t) for t in mk.build_mesh_tables(arrays, meta))
+    return (obj.tolist(), meta, *mesh)
 
 
 def _points(sc, tabs, seed):
     """Surface points of camera rays and of one random bounce from them:
     (px, py, pz) and the mask of rays that hit."""
-    obj, meta, nodes, tris = tabs
+    obj, meta, *mesh = tabs
     gen = torch.Generator().manual_seed(seed)
     o, d = camera_rays(sc.camera, W, H, N, gen)
-    t = mk._nearest_hit(obj, meta, nodes, tris, EPS, T_MAX, *o, *d,
+    t = mk._nearest_hit(obj, meta, *mesh, EPS, T_MAX, *o, *d,
                         torch.ones_like(o[0], dtype=torch.bool), 0)[0]
     o2, d2 = bounce_rays(o, d, t, T_MAX, gen)
-    t2 = mk._nearest_hit(obj, meta, nodes, tris, EPS, T_MAX, *o2, *d2,
+    t2 = mk._nearest_hit(obj, meta, *mesh, EPS, T_MAX, *o2, *d2,
                          torch.ones_like(o[0], dtype=torch.bool), 0)[0]
     p = [torch.cat([a + b * torch.clamp(tt, max=T_MAX) for a, b, tt in
                     ((a, b, t), (a2, b2, t2))])
@@ -100,13 +99,13 @@ def _random_dirs(p, seed):
 def _compare(tabs, ray, cast, l, eps=EPS, t_max=T_MAX):
     """The query against the nearest-hit rule on every ray: (lit, t_l,
     the nearest hit's t, counts)."""
-    obj, meta, nodes, tris = tabs
-    s_t, s_w, *_ = mk._nearest_hit(obj, meta, nodes, tris, eps, t_max, *ray,
-                                   cast, -1)
+    obj, meta, *mesh = tabs
+    s_t, s_w, *_ = mk._nearest_hit(obj, meta, *mesh, eps, t_max, *ray, cast,
+                                   -1)
     want = cast & (s_w == l) & (s_t > eps) & (s_t < t_max)
     counts = {k: 0 for k in mk.QUERY_COUNTS}
-    got, t_l = mk._light_visible(obj, meta, nodes, tris, eps, t_max, *ray,
-                                 cast, l, counts)
+    got, t_l = mk._light_visible(obj, meta, *mesh, eps, t_max, *ray, cast,
+                                 l, counts)
     assert torch.equal(got, want)
     assert torch.equal(t_l[want], s_t[want])
     # every cast ray is lit, occluded or misses its light

@@ -31,7 +31,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jax_fields_np, scene_pair
+from _torch_parity import (assert_inputs_match, jax_fields_np, jax_pack,
+                           scene_pair)
 from _torch_scenes import GRAD_REL_MESH, SLOT_FRAC, grad_inputs, port_inputs
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu.render import proctex as jproctex
@@ -80,7 +81,7 @@ def _pair(name, W, H, spp):
                                 **kw)
     if name == "checkers":
         js, ts = _checkers(js, jproctex.make), _checkers(ts, proctex.make)
-    ja, jm = js.pack()
+    ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device="cpu")
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
     xs, ys, pid = mk.tile_pixel_layout(W, H, *TILE,
@@ -89,8 +90,7 @@ def _pair(name, W, H, spp):
           *pk.build_mesh_tables(ja, jm), xs, ys]
     tt = [mk.build_camera_vec(ts.camera), mk.build_scene_table(ta, tm),
           *mk.build_mesh_tables(ta, tm), xs, ys]
-    for a, b in zip(jt, tt):
-        assert np.array_equal(a, b)
+    assert_inputs_match(jt, tt, tm)
     return jt, tt, ja, jm, jc, ta, tm, tc, pid, ts
 
 
@@ -101,7 +101,7 @@ def parity(request):
     name = request.param
     jt, tt, ja, jm, jc, ta, tm, tc, pid, ts = _pair(name, 24, 16, 2)
     rng = np.random.default_rng(3)
-    cots = [rng.random(tt[4].shape).astype(np.float32) for _ in range(3)]
+    cots = [rng.random(tt[-2].shape).astype(np.float32) for _ in range(3)]
     seed = (3, 0)
     want = jax_grad_tiles(
         jnp.asarray(seed, jnp.int32), *map(jnp.asarray, jt),
@@ -167,7 +167,7 @@ def fd_setup():
     table = torch.from_numpy(mk.build_tex_table(ta, tm))
     render = tg.make_diff_render_tex(tm, tc, 2, 2, TILE)
     rng = np.random.default_rng(5)
-    wts = [torch.from_numpy(rng.random(t[4].shape).astype(np.float32))
+    wts = [torch.from_numpy(rng.random(t[-2].shape).astype(np.float32))
            for _ in range(3)]
     seed = (11, 0)
 
@@ -236,7 +236,7 @@ def test_procedural_texels_get_exact_zeros():
     train = pack.trainable_texels(arrays, meta)
     assert 0 < int(train.sum()) < train.numel()
     rng = np.random.default_rng(6)
-    cots = [torch.from_numpy(rng.random(tuple(tabs[4].shape))
+    cots = [torch.from_numpy(rng.random(tuple(tabs[-2].shape))
                              .astype(np.float32)) for _ in range(3)]
     gcol, gemi, gtex = tg.grad_tiles(
         (2, 0), *tabs, *cots, meta=meta, cfg=cfg, spp=1, total_samples=1,
@@ -253,7 +253,7 @@ def test_atlas_maps_round_trip():
     # textures-train: every staged texel crosses from the atlas to the
     # texels and back; the cobblestone (96x256) spans two lane windows
     js, _, ts, _ = scene_pair("textures-train", width=8, height=6)
-    ja, jm = js.pack()
+    ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device="cpu")
     atlas = np.asarray(ja.tex_staged)
     tall = [d for (_s, d, *_r) in tm.obj_tex if d[3] > 128]
@@ -284,7 +284,7 @@ def test_atlas_maps_round_trip():
 
 def test_params_carry_the_atlas_values():
     js, _, ts, _ = scene_pair("textures-train", width=8, height=6)
-    ja, jm = js.pack()
+    ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device="cpu")
     p = from_jax_params(jax_fields_np(ja), "cpu", meta=tm)
     assert isinstance(p, SceneParams) and p.tex.dtype == torch.float32
@@ -390,7 +390,7 @@ def test_tex_refusals(case, err, match):
     if case != "with tri_grads":
         with pytest.raises(err, match=match):
             tg.make_diff_render_tex(meta, cfg, 1, 1, TILE)
-    zero = torch.zeros(tuple(tabs[4].shape), dtype=torch.float32)
+    zero = torch.zeros(tuple(tabs[-2].shape), dtype=torch.float32)
     with pytest.raises(err, match=match):
         tg.grad_tiles((1, 0), *tabs, zero, zero, zero, meta=meta, cfg=cfg,
                       spp=1, total_samples=1, tile=TILE, tex_grads=True,

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 import pathtracer_tpu.native as jnative
-from _torch_parity import jax_fields_np, scene_pair
+from _torch_parity import (assert_inputs_match, jax_fields_np, jax_pack,
+                           scene_pair)
 from _torch_scenes import tex_grad_rule, textured_teapot
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu.render import proctex as jproctex
@@ -49,7 +50,7 @@ def test_tex_grad_mesh_matches_jax_interpret(record_property):
                                     samples=spp, samples_per_pass=spp)
         js, ts = textured_teapot(js, jproctex.make), textured_teapot(
             ts, proctex.make)
-        ja, jm = js.pack()
+        ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device="cpu")
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
     assert tm.has_groups and pack.staged_objects(tm)
@@ -60,10 +61,9 @@ def test_tex_grad_mesh_matches_jax_interpret(record_property):
           *pk.build_mesh_tables(ja, jm), xs, ys]
     tt = [mk.build_camera_vec(ts.camera), mk.build_scene_table(ta, tm),
           *mk.build_mesh_tables(ta, tm), xs, ys]
-    for a, b in zip(jt, tt):
-        assert np.array_equal(a, b)
+    assert_inputs_match(jt, tt, tm)
     rng = np.random.default_rng(3)
-    cots = [rng.random(tt[4].shape).astype(np.float32) for _ in range(3)]
+    cots = [rng.random(tt[-2].shape).astype(np.float32) for _ in range(3)]
     seed = (3, 0)
     want = jax_grad_tiles(
         jnp.asarray(seed, jnp.int32), *map(jnp.asarray, jt),

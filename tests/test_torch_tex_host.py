@@ -10,7 +10,7 @@ import pytest
 import torch
 from PIL import Image
 
-from _torch_parity import jax_fields_np, scene_pair
+from _torch_parity import jax_fields_np, jax_pack, scene_pair
 from _torch_scenes import TEX_SCENES
 from pathtracer_tpu import assets as jassets
 from pathtracer_tpu.render import pallas_kernel as pk
@@ -86,7 +86,7 @@ def test_load_texture_reads_a_real_file(monkeypatch, tmp_path):
 
 def _check_pack(name):
     js, _, ts, _ = scene_pair(name, width=32, height=24, samples=4)
-    ja, jm = js.pack()
+    ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device=CPU)
     jf = jax_fields_np(ja)
     for k, v in ta._asdict().items():

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import scene_pair
+from _torch_parity import assert_inputs_match, jax_pack, scene_pair
 from _torch_scenes import assert_tex_slot_rule, port_inputs
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu_torch.render import megakernel as mk
@@ -48,7 +48,7 @@ def tex_kernel_parity(name, aperture=0.0, base=0):
     kw = dict(width=W, height=H, samples=SPP, samples_per_pass=SPP,
               aperture=aperture, focal_length=1.6 if aperture else 0.0)
     js, jc, ts, tc = scene_pair(name, **kw)
-    ja, jm = js.pack()
+    ja, jm = jax_pack(js, ts)
     tile = pk.default_tile(jm)
     ttabs, tm, _, layout = port_inputs(ts, tc, tile, torch.device("cpu"))
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
@@ -59,8 +59,7 @@ def tex_kernel_parity(name, aperture=0.0, base=0):
                                      spp_pack=pack, pack_axis=axis)
     jtabs = (pk.build_camera_vec(js.camera), pk.build_scene_table(ja, jm),
              *pk.build_mesh_tables(ja, jm), xs, ys)
-    for a, b in zip(jtabs, ttabs):
-        assert np.array_equal(a, b.numpy())
+    assert_inputs_match(jtabs, ttabs, tm)
     seed = (3, base)
     staged = {"tex": ja.tex_staged} if pk.staged_lanes(jm) else {}
     want = pk.trace_tiles(

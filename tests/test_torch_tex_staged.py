@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import scene_pair
+from _torch_parity import jax_pack, scene_pair
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu.render.integrator import render
 from pathtracer_tpu_torch.render import megakernel as mk
@@ -36,7 +36,7 @@ torch.set_num_threads(2)
 def test_file_texture_scene_within_bounds(record_property, name, spp, ref):
     js, jc, ts, tc = scene_pair(name, width=32, height=24, samples=spp,
                                 samples_per_pass=spp)
-    ja, jm = js.pack()
+    ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device=torch.device("cpu"))
     assert pk.staged_lanes(jm) and mk.default_tile(tm) == (8, 512)
     got = mk.render_megakernel(ta, tm, ts.camera, tc)

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import pathtracer_tpu.native as jnative
-from _torch_parity import scene_pair
+from _torch_parity import jax_pack, scene_pair
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu_torch.probes import leaf_bench, op_rate
 from pathtracer_tpu_torch.render import megakernel as mk
@@ -31,7 +31,7 @@ def _pair(name, monkeypatch, leaf=None):
         monkeypatch.setenv("PT_BVH_LEAF", str(leaf))
     with mock.patch.object(jnative, "available", lambda: False):
         js, _, ts, _ = scene_pair(name, **CFG)
-        ja, jm = js.pack()
+        ja, jm = jax_pack(js, ts)
     ta, tm = ts.pack(device=CPU)
     return ja, jm, ta, tm
 
@@ -56,11 +56,10 @@ def test_mxu_blocks_bit_equal_jax(monkeypatch, name, leaf):
     # lane-packed by the JAX package's own packing: its MXU table
     assert np.array_equal(pk._mxu_pack(np, a, pay, K),
                           pk.build_mxu_tri_table(ja, jm))
-    # the payload is the classic table's (n1, n2-n1, n3-n1, color)
-    slots = mk.build_mesh_tables(ta, tm, "classic")[1].reshape(
-        -1, mk._TRI_STRIDE)[:tm.n_tri_slots]
+    # the payload is the shading table's (n1, n2-n1, n3-n1, color)
+    shade = mk.build_mesh_tables(ta, tm, "classic")[2]
     got = pay[:, :12].transpose(0, 2, 1).reshape(-1, 12)
-    assert np.array_equal(got, slots[:, 12:24])
+    assert np.array_equal(got, shade)
 
 
 @pytest.mark.parametrize("leaf", [None, 12])
@@ -83,7 +82,7 @@ def test_mxu_fragments_in_the_triangle_table(monkeypatch, leaf):
                 assert (frag[:, g, kt, lane] == want).all()
     classic = mk.build_mesh_tables(ta, tm, "classic")[1]
     monkeypatch.setenv("PT_TRAVERSAL", "mxu")
-    nodes, tris = mk.build_mesh_tables(ta, tm)
+    nodes, tris, shade = mk.build_mesh_tables(ta, tm)
     assert tris.shape == mk._table_shapes(tm, mk.scene_walk(tm))[2]
     assert np.array_equal(tris[:classic.shape[0]], classic)
     view = mk.mxu_view(torch.from_numpy(tris), tm).numpy()
@@ -188,14 +187,14 @@ def test_leaf_bench_plain_runs(capsys):
     assert [r["variant"] for r in rows] == ["prod", "mma"]
     assert all(r["leaf"] == 32 and r["gtests_per_s"] > 0 for r in rows)
     # the plain tensor-core leaf finds the production body's winners
-    tris, meta, arrays = leaf_bench.teapot_leaves(CPU)
+    tables, meta, arrays = leaf_bench.teapot_leaves(CPU)
     rays = leaf_bench.mesh_rays(arrays, 512, CPU, seed=3)
-    pt, ps = leaf_bench.plain("prod", rays, tris, meta, 4)
-    mt, ms = leaf_bench.plain("mma", rays, tris, meta, 4)
+    pt, ps = leaf_bench.plain("prod", rays, tables, meta, 4)
+    mt, ms = leaf_bench.plain("mma", rays, tables, meta, 4)
     hit = pt < mk._BIG
     assert hit.sum() > 20 and torch.equal(hit, mt < mk._BIG)
     assert torch.allclose(mt[hit], pt[hit], rtol=1e-5)
     assert (ms == ps).float().mean() > 0.99
-    pairs, _ = leaf_bench.plain("pairs", rays, tris, meta, 1)
+    pairs, _ = leaf_bench.plain("pairs", rays, tables, meta, 1)
     assert pairs.shape == (512 * meta.leaf_size,)
     assert (pairs.reshape(512, -1).min(1).values < mk._BIG).sum() > 0

@@ -40,10 +40,11 @@ BIG = mk._BIG
 def _mesh():
     cfg = RenderConfig(width=16, height=12, samples=1, samples_per_pass=1)
     arrays, meta = get_scene("teapot", cfg).pack(device=torch.device("cpu"))
-    nodes, tris = mk.build_mesh_tables(arrays, meta, traversal="classic")
+    # the JAX walks read the JAX package's tables of the port's scene
+    jtabs = pk.build_mesh_tables(arrays, meta, traversal="classic")
     mxu = pk._mxu_pack(np, *mk.mxu_plane_arrays(arrays, meta),
                        meta.leaf_size)
-    return cfg, arrays, meta, nodes, tris, mxu
+    return cfg, arrays, meta, jtabs, mxu
 
 
 def _rays(arrays, seed):
@@ -98,22 +99,24 @@ def _jax_walk(meta, cfg, nodes, tris, rays, mode):
     return [np.asarray(o).reshape(-1) for o in outs]
 
 
-def _port_walk(meta, cfg, nodes, tris, rays, mode):
-    """traverse_reference on the same rays, grouped as the JAX walk of
-    `mode` groups them, a warp's 32 slots a packet."""
+def _port_walk(meta, cfg, arrays, rays, mode):
+    """traverse_reference on the same rays, on the port's tables (for
+    MXU leaves under mode "mxu"), grouped as the JAX walk of `mode` groups
+    them, a warp's 32 slots a packet."""
+    nodes, tris, shade = (torch.from_numpy(t) for t in mk.build_mesh_tables(
+        arrays, meta, traversal="mxu" if mode == "mxu" else "classic"))
     (_, root, end), = meta.group_bvh
     n = S * L
     i = torch.arange(n)
     octant_group = (i % L) // 128 if mode == 3 else torch.zeros_like(i)
     walk = mk.Walk("warp" if mode == 3 else "block",
                    "mma" if mode == "mxu" else "simt")
-    tri_t = torch.from_numpy(tris)
     out = mk.traverse_reference(
-        torch.from_numpy(nodes), tri_t, meta.leaf_size, cfg.epsilon,
+        nodes, tris, shade, meta.leaf_size, cfg.epsilon,
         cfg.t_max, root, end, *(torch.from_numpy(r) for r in rays),
         torch.ones(n, dtype=torch.bool), torch.full((n,), BIG),
         n_nodes=meta.n_nodes, walk=walk, groups=(octant_group, i // 32),
-        mxu=mk.mxu_view(tri_t, meta) if mode == "mxu" else None)
+        mxu=mk.mxu_view(tris, meta) if mode == "mxu" else None)
     return [x.numpy() for x in out]
 
 
@@ -136,14 +139,15 @@ def _rule(got, want, colors_exact=True):
 def test_packet_walk_matches_jax(monkeypatch, mode, seed):
     # PT_SUBPACKET=2 sends _packet_traverse to the scratch-gated walk
     monkeypatch.setenv("PT_SUBPACKET", str(mode))
-    cfg, arrays, meta, nodes, tris, _ = _mesh()
+    cfg, arrays, meta, (nodes, tris), _ = _mesh()
     rays = _rays(arrays, seed)
     want = _jax_walk(meta, cfg, nodes, tris, rays, mode)
-    got = _port_walk(meta, cfg, nodes, tris, rays, mode)
+    got = _port_walk(meta, cfg, arrays, rays, mode)
     _rule(got, want)
     # the same hits as the per-thread walk (its own octant copy each)
     free = mk.traverse_reference(
-        torch.from_numpy(nodes), torch.from_numpy(tris), meta.leaf_size,
+        *(torch.from_numpy(t) for t in mk.build_mesh_tables(
+            arrays, meta, traversal="classic")), meta.leaf_size,
         cfg.epsilon, cfg.t_max, *meta.group_bvh[0][1:],
         *(torch.from_numpy(r) for r in rays),
         torch.ones(S * L, dtype=torch.bool), torch.full((S * L,), BIG),
@@ -153,11 +157,10 @@ def test_packet_walk_matches_jax(monkeypatch, mode, seed):
 
 def test_mxu_walk_matches_jax(monkeypatch):
     monkeypatch.setenv("PT_TRAVERSAL", "mxu")
-    cfg, arrays, meta, nodes, tris, mxu = _mesh()
+    cfg, arrays, meta, (nodes, _), mxu = _mesh()
     rays = _rays(arrays, 13)
     want = _jax_walk(meta, cfg, nodes, mxu, rays, "mxu")
-    tris_m = mk.build_mesh_tables(arrays, meta, traversal="mxu")[1]
-    got = _port_walk(meta, cfg, nodes, tris_m, rays, "mxu")
+    got = _port_walk(meta, cfg, arrays, rays, "mxu")
     _rule(got, want, colors_exact=False)
 
 
@@ -165,7 +168,7 @@ def test_mxu_leaf_matches_the_dual_basis_leaf():
     # every ray against every leaf: the tensor-core test's t within 1e-5
     # (1e-7 near 0) of the dual-basis test's, the winner equal except at
     # exact-t ties
-    cfg, arrays, meta, nodes, tris, _ = _mesh()
+    cfg, arrays, meta, _, _ = _mesh()
     K = meta.leaf_size
     tris_m = torch.from_numpy(
         mk.build_mesh_tables(arrays, meta, traversal="mxu")[1])
@@ -174,8 +177,8 @@ def test_mxu_leaf_matches_the_dual_basis_leaf():
     ties = hits = 0
     for leaf in range(meta.n_tri_slots // K):
         start = torch.full((S * L,), leaf * K)
-        tw, slot, u, v = mk.leaf_tests(tris_m.reshape(-1, 24), start, K,
-                                        cfg.epsilon, *rays)
+        tw, slot, u, v = mk.leaf_tests(tris_m, start, K, cfg.epsilon,
+                                        *rays)
         mt, ms, mu, mv = mk.leaf_tests_mma(frag, start, K, cfg.epsilon,
                                             *rays)
         hit = tw < BIG

@@ -38,6 +38,6 @@ def test_mxu_render_matches_classic(monkeypatch):
                              spp=2, total_samples=2, tile=(8, 128), **lay)
         flat = torch.stack(rgb, -1).reshape(-1, 3).numpy()
         imgs.append(mk.untile_image(flat, pid, 24, 16) / 2.0)
-    assert tabs[3].shape[0] > -(-meta.n_tri_slots // 4)  # the MXU rows
+    assert tabs[3].shape[0] > meta.n_tri_slots  # the MXU rows
     assert np.isfinite(imgs[1]).all() and imgs[1].min() >= 0.0
     assert np.abs(imgs[1] - imgs[0]).mean() < 1e-4
