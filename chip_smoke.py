@@ -90,9 +90,19 @@ last segment against the plain version; phase 5 times every walk on
 each walk's node and leaf tests a sample; phase 9 runs K5 on teapot's two
 batches under modes 2, 3 and mxu; phase 10 runs P3 (each leaf-body
 variant's marginal cost) and the cross-check of the leaf rate against
-K1-mesh's. It prints one JSON line of kernel results, each with its bound (the
-least time the card could take for the same work, from the work the plain
-version counts in this run), and, last, one JSON line naming the device.
+K1-mesh's. For K1-tex's redesign (R3: the fetch's wrap without a
+division) phase 3 also holds the fetches' wrap to the JAX formula on the
+card over every integer in [-2^25, 2^25] for each texture side of the
+repository's scenes; phase 5
+splits the texture path (each textured scene on its textured and its
+untextured instantiation, on this tree and on the trees of `--tex-split
+DIR`, e.g. a copy whose four loads are pinned to one address, made by
+tools/tex_variants.py), times the fetch probe with and without the wrap,
+and gives K1-tex the bound of its own work beside the JAX kernel's; the
+A/B covers every textured instantiation. It prints one JSON line of kernel
+results, each with its bound (the least time the card could take for the
+same work, from the work the plain version counts in this run), and,
+last, one JSON line naming the device.
 Every failure raises; without a card it exits non-zero before printing any
 result. It imports nothing of JAX.
 
@@ -161,6 +171,7 @@ LOSS_FALL = 0.9              # 5 steps must bring the loss below this share
 TEX_SCENES = ("textures", "envmap", "cubemap", "textures-file")
 TEX_TIMED = ("textures", "cubemap", "envmap-file")
 FETCHES = 1 << 24            # texel-fetch probe: UVs per launch
+WRAP_RANGE = 1 << 25         # phase 3: the wrap checked on [-2^25, 2^25]
 MIP_AREA = 128 * 128         # the JAX package's PT_TEX_MIP_AREA default
 MIP_SPP = 16
 TEX_TRAIN = "textures-train"  # phase 8: bench.py's fwd_bwd_textures-train
@@ -202,7 +213,12 @@ OPS_WINNER = 33
 OPS_HIT = 125            # a diffuse hit: normal, roulette, bounce, resolve
 OPS_NODE = 22            # one node's slab test
 OPS_LEAF_SLOT = 34       # one triangle's test
-OPS_FETCH = 80           # bilinear fetch: wrap, 4 taps decoded, blend
+# a bilinear fetch: the JAX kernel's four wraps (an IEEE division each), 4
+# taps decoded, the blend; this kernel's two division-free wraps (wrap_fast,
+# 6 each) and |x0|, |y0| count the same 80 (fx, fy and the weights 8, five
+# conversions, the decode 24, the blend 29): the count does not see that a
+# division costs 16.8 multiply slots (P2)
+OPS_FETCH = 80
 OPS_DECODE = 24          # of which the rgb8 decode (4 taps x 3 x 2)
 OPS_UV = {"plane": 2, "sphere": 60, "cube": 21}
 OPS_GRAD_HIT = 21        # K6: one tape entry's reverse step
@@ -260,7 +276,20 @@ AB_CASES = {
         kind="fwd", scene="teapot", tile=MESH_TILE, leaf=32, env=WALKS[walk])
        for walk in ("packet mode 2", "packet mode 3", "tensor core",
                     "leaf-ablated")},
-    f"K1-tex textures {W}x{H}x8 spp": dict(kind="fwd", scene="textures"),
+    # every textured instantiation (K1-tex R3): the primitive and the
+    # mesh one (`cubemap`), NEE, a packet walk, the f32 texels, K6-tex
+    **{f"K1-tex {name} {W}x{H}x8 spp": dict(kind="fwd", scene=name)
+       for name in ("textures", "cubemap", "envmap-file", "textures-file")},
+    f"K1-tex packet mode 2 cubemap {W}x{H}x8 spp": dict(
+        kind="fwd", scene="cubemap", env=WALKS["packet mode 2"]),
+    f"K1-nee textures {W}x{H}x8 spp": dict(kind="fwd", scene="textures",
+                                           cfg={"nee": True}),
+    f"K1-nee cubemap {W}x{H}x8 spp": dict(kind="fwd", scene="cubemap",
+                                          cfg={"nee": True}),
+    f"K1-tex f32 texels textures-train {W}x{H}x8 spp": dict(
+        kind="texel", scene="textures-train"),
+    f"K6-tex textures-train {W}x{H}x{GRAD_SPP} spp": dict(
+        kind="texgrad", scene="textures-train", spp=GRAD_SPP),
     f"K1-nee reference {W}x{H}x8 spp": dict(kind="fwd", scene="reference",
                                             tile=TILE, cfg={"nee": True}),
     f"K1-nee teapot {W}x{H}x8 spp": dict(kind="fwd", scene="teapot",
@@ -510,8 +539,13 @@ def kernel_name(mangled: str) -> str:
     grad_megakernel<kMesh, kTex, kF32> (named as the kGrad megakernel of
     older builds), of intersect<kMesh, kWalk, kLeaf>, or the probe, by
     name."""
+    m = re.search(r"tex_fetchILb([01])E", mangled)
+    if m:
+        return "fetch probe" + ("" if m.group(1) == "1" else " jax wrap")
     if "tex_fetch" in mangled:
         return "fetch probe"
+    if "wrap_check" in mangled:
+        return "wrap check"
     if "mma_pairs" in mangled:
         return "mma pairs probe"
     if "sincos_check" in mangled:
@@ -887,22 +921,29 @@ def tex_timing(main, dev, card):
                                      "the plain version")
         k_ms = cuda_ms(lambda: mk.trace_tiles(seed, *tabs, **kw), 10)
         b_ms, b_by, ops = fwd_bound(counts, tabs, kw)
-        pool = kw["tex_pool"].numel()
+        j_ms, j_by, j_ops = fwd_bound(counts, tabs, kw, jax=True)
+        pool = kw["tex_pool"].shape[0]
         phase(f"phase 5: {name} {W}x{H}x8 spp (tile {kw['tile']}, texel pool "
               f"{pool} texels, {counts['texel_fetches']} fetches): kernel "
               f"{k_ms:.4f} ms ({W * H * 8 / k_ms / 1e3:.1f} Msamples/s), "
               f"plain {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; {ops:.4g} "
-              f"f32 ops); card {card}")
+              f"f32 ops: the kernel's own work), the JAX kernel's work "
+              f"{j_ms:.4f} ms ({j_by}; {j_ops:.4g} f32 ops); card {card}")
         out[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         jax_work_bound_ms=j_ms, jax_work_bound_by=j_by,
                          fetches=counts["texel_fetches"])
     return out
 
 
 def fetch_probe(dev, card):
     """The texel-fetch probe (the Hopper counterpart of the JAX package's
-    tools/tex_vmem_probe.py): the kernel's own bilinear fetch at FETCHES
-    random UVs in [-2, 3] over the 2048x1024 sky of `envmap`, bit for bit
-    against sample_pool. Returns the numbers."""
+    tools/tex_vmem_probe.py): the kernels' own bilinear fetch at FETCHES
+    random UVs in [-2, 3] over the 2048x1024 sky of `envmap`, and the same
+    fetch with the JAX kernel's wrap alone (the kernels' before R3), each
+    bit for bit against sample_pool and timed in turns (this, JAX wrap,
+    JAX wrap, this; 10 launches a timing), with the bound of the fetch's
+    work (OPS_FETCH: the JAX kernel's and this one's count the same).
+    Returns the numbers."""
     arrays, _ = get_scene("envmap", RenderConfig(width=8, height=6)).pack(
         device=dev)
     pool = arrays.tex_pool_u32.view(torch.int32)
@@ -913,22 +954,119 @@ def fetch_probe(dev, card):
     rng = np.random.default_rng(0)
     u, v = (torch.from_numpy(rng.uniform(-2.0, 3.0, FETCHES).astype(
         np.float32)).to(dev) for _ in range(2))
-    k = torch.stack(mk.fetch_texels(pool, 0, w, h, u, v))
-    f = lambda x: torch.full_like(u, float(x))
+    f = lambda x: torch.full_like(u, float(x))  # noqa: E731
     p, p_ms = timed(lambda: mk.sample_pool(pool, f(0), f(w), f(h), u, v))
-    if not torch.equal(k, p):
-        raise AssertionError("phase 5: the fetch probe differs from "
-                             "sample_pool")
-    k_ms = cuda_ms(lambda: mk.fetch_texels(pool, 0, w, h, u, v), 10)
+    runs = {True: [], False: []}
+    for fast in (True, False, False, True):
+        if not torch.equal(torch.stack(mk.fetch_texels(pool, 0, w, h, u, v,
+                                                       fast)), p):
+            raise AssertionError("phase 5: the fetch probe differs from "
+                                 "sample_pool")
+        runs[fast].append(cuda_ms(lambda: mk.fetch_texels(pool, 0, w, h, u,
+                                                          v, fast), 10))
+    k_ms, j_ms = min(runs[True]), min(runs[False])
     bound, by, _ = bound_of(FETCHES * OPS_FETCH,
                             nbytes(pool, u, v) + 3 * nbytes(u))
     phase(f"phase 5: texel-fetch probe, {FETCHES} random bilinear fetches "
           f"over a {w}x{h} rgb8 texture: kernel {k_ms:.4f} ms = "
-          f"{FETCHES / k_ms / 1e6:.2f} Gfetch/s, plain (sample_pool) "
-          f"{p_ms:.2f} ms, bit-equal; bound {bound:.4f} ms ({by}); card "
-          f"{card}")
-    return dict(ms=k_ms, plain_ms=p_ms, gfetch_s=FETCHES / k_ms / 1e6,
-                bound_ms=bound, bound_by=by)
+          f"{FETCHES / k_ms / 1e6:.2f} Gfetch/s, with the JAX kernel's wrap "
+          f"{j_ms:.4f} ms = {FETCHES / j_ms / 1e6:.2f} Gfetch/s, plain "
+          f"(sample_pool) {p_ms:.2f} ms, all bit-equal; bound {bound:.4f} ms "
+          f"({by}); timings {runs[True]}, {runs[False]}; card {card}")
+    return dict(ms=k_ms, jax_wrap_ms=j_ms, plain_ms=p_ms,
+                gfetch_s=FETCHES / k_ms / 1e6,
+                jax_wrap_gfetch_s=FETCHES / j_ms / 1e6, bound_ms=bound,
+                bound_by=by)
+
+
+def texture_sides(dev):
+    """The widths and heights of the textures of the repository's scenes
+    (every scene that samples one)."""
+    sides = set()
+    cfg = RenderConfig(width=8, height=6)
+    for name in sorted({*TEX_SCENES, *TEX_TIMED, TEX_TRAIN}):
+        arrays, meta = get_scene(name, cfg).pack(device=dev)
+        table = mk.build_tex_table(arrays, meta)
+        for col in (0, 6):
+            rows = table[table[:, col] > 0.5]
+            sides.update(int(x) for x in rows[:, col + 2:col + 4].ravel())
+    return sorted(sides)
+
+
+def wrap_phase(dev, card):
+    """Phase 3 (the fetches' wrap): wrap_fast and its neighbour against the
+    JAX formula on the card, for each texture side of the repository's
+    scenes, on every integer in [-WRAP_RANGE, WRAP_RANGE] (as f32: every
+    integer-valued float floorf can give there); the fast branch must take
+    exactly the 2^23 - 1 integers below 2^22 in magnitude, and no pair may
+    differ (the cold branch is the formula itself). Returns the numbers."""
+    t0 = time.perf_counter()
+    want = 2 ** 23 - 1
+    out = {}
+    for m in texture_sides(dev):
+        fast, bad = mk.wrap_check(m, -WRAP_RANGE, WRAP_RANGE, dev)
+        out[m] = dict(fast=fast, differing=bad)
+        if bad or fast != want:
+            raise AssertionError(f"phase 3: the fetches' wrap by {m}: {bad} "
+                                 f"of {fast} fast-wrapped integers differ "
+                                 f"from the JAX formula ({want} expected "
+                                 "fast)")
+    secs = time.perf_counter() - t0
+    phase(f"phase 3 tex: the fetches' wrap (wrap_fast, no division) against "
+          f"the JAX formula a - m floor(a / m) on every integer in "
+          f"[-{WRAP_RANGE}, {WRAP_RANGE}] for the sides {sorted(out)}: "
+          f"{want} a side wrapped fast, 0 differ, the rest by the formula "
+          f"itself; {secs:.2f} s; card {card}")
+    return dict(sides=sorted(out), range=WRAP_RANGE, fast_per_side=want,
+                differing=0, seconds=secs)
+
+
+def tex_split(trees, tex_times, probe, ptxas_of, dev, card):
+    """Phase 5 (the texture path's split): on TEX_TIMED at W x H x 8 spp,
+    each tree's K1-tex and the same scene on its untextured instantiation
+    (the same tables, the texture records cleared): their difference is
+    the texture path's whole cost. `trees` is [(tag, tree)], this tree
+    first; a copy of a tree whose fetch loads one address for all four
+    taps (tools/tex_variants.py pinned) gives, against that tree, the
+    loads' cost. Timed in turns (20 launches, through the trees and back,
+    twice). Beside each: the plain run's fetches a launch (tex_times) and
+    the rate the texture path fetches at, beside the fetch probe's; the
+    ptxas counts of each tree's textured instantiations (`ptxas_of`: tag ->
+    counts). Returns {scene: {tag: numbers}}."""
+    out = {}
+    order = [tag for tag, _ in trees]
+    for name in TEX_TIMED:
+        fns = {tag: (tree_case(T, dict(kind="fwd", scene=name), dev),
+                     tree_case(T, dict(kind="fwd", scene=name, bare=True),
+                               dev))
+               for tag, T in trees}
+        runs = {tag: ([], []) for tag in order}
+        for tag in (order + order[::-1]) * 2:
+            for i in (0, 1):
+                runs[tag][i].append(cuda_ms(fns[tag][i], 20))
+        fetches = tex_times[name]["fetches"]
+        res = {}
+        for tag in order:
+            tex_ms, bare_ms = (float(np.median(r)) for r in runs[tag])
+            path = tex_ms - bare_ms
+            res[tag] = dict(ms=tex_ms, untextured_ms=bare_ms, path_ms=path,
+                            gfetch_s=(fetches / path / 1e6 if path > 0
+                                      else None))
+            phase(f"phase 5 tex split: {name} {W}x{H}x8 spp, {tag}: K1-tex "
+                  f"{tex_ms:.4f} ms, untextured instantiation {bare_ms:.4f} "
+                  f"ms, texture path {path:.4f} ms ({fetches} fetches: "
+                  f"{fetches / max(path, 1e-9) / 1e6:.2f} Gfetch/s of the "
+                  f"path, the fetch probe {probe['gfetch_s']:.2f}); timings "
+                  f"{runs[tag]}; card {card}")
+        out[name] = res
+    for tag in order:
+        tex_ptxas = {k: v for k, v in ptxas_of[tag].items()
+                     if "textured" in k.split()}
+        phase(f"phase 5 tex split: ptxas (registers, stack, spill stores, "
+              f"spill loads) of {tag}'s textured instantiations: {tex_ptxas}")
+        out.setdefault("ptxas", {})[tag] = {k: list(v) for k, v in
+                                            tex_ptxas.items()}
+    return out
 
 
 def _mip2(im: np.ndarray) -> np.ndarray:
@@ -991,12 +1129,14 @@ def load_tree(root: str, tag: str):
     return types.SimpleNamespace(
         mk=sub("render.megakernel"), tg=sub("render.grad"),
         build=sub("render._build"), get_scene=sub("scenes").get_scene,
-        RenderConfig=sub("config").RenderConfig, root=root)
+        RenderConfig=sub("config").RenderConfig, pack=sub("scene.pack"),
+        root=root)
 
 
 THIS_TREE = types.SimpleNamespace(mk=mk, tg=tg, build=_build,
                                   get_scene=get_scene,
-                                  RenderConfig=RenderConfig, root=".")
+                                  RenderConfig=RenderConfig, pack=pack,
+                                  root=".")
 
 
 def tree_case(T, spec: dict, dev):
@@ -1004,11 +1144,14 @@ def tree_case(T, spec: dict, dev):
     ("size-check mesh" for the 16640-triangle sphere) at W x H with spec's
     config keywords, packed at spec's leaf size (PT_BVH_LEAF) and walked
     under spec's walk knobs, as the forward kernel ("fwd": trace_tiles on
-    the render driver's layout and tile), the gradient kernel ("grad":
-    grad_tiles on the steps' layout, random cotangents; "tri": in
-    triangle mode) or
-    the intersect-only kernel ("isect": camera rays, 8 a pixel). Returns a
-    function that launches it and returns its outputs, flat."""
+    the render driver's layout and tile; with spec's "bare", the same
+    tables on the untextured instantiation, the texture records cleared;
+    "texel": the f32-texel forward on the decoded pool), the gradient
+    kernel ("grad": grad_tiles on the steps' layout, random cotangents;
+    "tri": in triangle mode; "texgrad": K6-tex, the texel gradients of the
+    decoded pool) or the intersect-only kernel ("isect": camera rays, 8 a
+    pixel). Returns a function that launches it and returns its outputs,
+    flat."""
     env = dict(spec.get("env", {}))
     if "leaf" in spec:
         env["PT_BVH_LEAF"] = str(spec["leaf"])
@@ -1032,19 +1175,24 @@ def tree_case(T, spec: dict, dev):
             def launch():
                 return flat_outputs(T.mk.intersect_batch(
                     arrays, meta, cfg, o, d, tables=tuple(tables)))
-        elif kind in ("grad", "tri"):
+        elif kind in ("grad", "tri", "texgrad"):
             xs, ys, _ = T.mk.tile_pixel_layout(
                 W, H, *GRAD_TILE, order=T.mk.default_order(meta))
             px, py = (torch.from_numpy(v).to(dev) for v in (xs, ys))
             rng = np.random.default_rng(0)
             cots = [torch.from_numpy(rng.random(xs.shape, dtype=np.float32))
                     .to(dev) for _ in range(3)]
+            gkw = {}
+            if kind == "texgrad":
+                gkw = dict(tex_grads=True, tex=T.pack.texel_params(arrays),
+                           tex_table=torch.from_numpy(
+                               T.mk.build_tex_table(arrays, meta)).to(dev))
 
             def launch():
                 return T.tg.grad_tiles(
                     (3, 0), cam, *tables, px, py, *cots, meta=meta, cfg=cfg,
                     spp=spp, total_samples=spp, tile=GRAD_TILE,
-                    tri_grads=kind == "tri")
+                    tri_grads=kind == "tri", **gkw)
         else:
             tile = spec.get("tile") or T.mk.default_tile(meta)
             axis = T.mk.default_pack_axis(meta)
@@ -1056,6 +1204,13 @@ def tree_case(T, spec: dict, dev):
             kw = dict(meta=meta, cfg=cfg, spp=spp, total_samples=spp,
                       tile=tile, spp_pack=pack, pack_axis=axis,
                       **T.mk.texture_inputs(arrays, meta, dev))
+            if kind == "texel":
+                kw["tex_texels"] = T.pack.texel_params(arrays)
+                del kw["tex_pool"]
+            if spec.get("bare"):
+                kw = {k: v for k, v in kw.items() if not k.startswith("tex")}
+                kw["meta"] = dataclasses.replace(meta, obj_tex=(),
+                                                 obj_tex_nm=())
 
             def launch():
                 return T.mk.trace_tiles((1, 0), cam, *tables, px, py, **kw)
@@ -1072,11 +1227,12 @@ def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas):
     package with one edit) against this one, each on its own code
     (load_tree, tree_case) and the same inputs: 20 launches a timing in the
     order parent, this, this, parent, three times over. Each case of
-    `specs` must give bit-equal outputs (the gradient rule for "grad" and
-    "tri" cases). The ptxas counts of the kernels this PR does not touch
-    (the fetch probe, the sincos check, the tensor-core pairs probe) must
-    not move; those of the K1 family (the megakernel, intersect and leaf
-    microbenchmark instantiations) are printed before and after. Returns
+    `specs` must give bit-equal outputs (the gradient rule for "grad",
+    "tri" and "texgrad" cases). The ptxas counts of the kernels outside the
+    K1 family (the sincos check, the tensor-core pairs probe) must not
+    move; those of the K1 family (the megakernel, intersect and leaf
+    microbenchmark instantiations, and the fetch probe, which runs
+    K1-tex's fetch) are printed before and after. Returns
     ({case: (parent median ms, this median ms)}, {K1-family
     instantiation: (parent counts, this build's)})."""
     T = load_tree(parent, tag)
@@ -1089,7 +1245,7 @@ def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas):
 
     def k1_family(name):
         return ("primitive" in name.split() or "mesh" in name.split()
-                or name.startswith("leaf bench"))
+                or name.startswith(("leaf bench", "fetch probe")))
 
     family = {k: (v, ours.get(k)) for k, v in theirs.items() if k1_family(k)}
     moved = {k: (v, ours.get(k)) for k, v in theirs.items()
@@ -1110,12 +1266,14 @@ def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas):
         for who in ["parent", "this", "this", "parent"] * 3:
             res[who] = fns[who]()
             runs[who].append(cuda_ms(fns[who], 20))
-        exact = spec["kind"] not in ("grad", "tri")
+        exact = spec["kind"] not in ("grad", "tri", "texgrad")
         if exact and not all(torch.equal(a, b) for a, b in
                              zip(res["parent"], res["this"])):
             raise AssertionError(f"phase 5 A/B: {name}: outputs differ from "
                                  f"{parent}'s")
-        if not exact:
+        if spec["kind"] == "texgrad":
+            tex_grad_rule(res["this"], res["parent"])
+        elif not exact:
             grad_rule(res["this"], res["parent"], spec["kind"] == "tri")
         pm, tm = (float(np.median(runs[w])) for w in ("parent", "this"))
         phase(f"phase 5 A/B: {name}: {parent} {pm:.4f} ms, this {tm:.4f} ms "
@@ -1958,14 +2116,17 @@ def tex_forward(dev, card):
     f_ms = cuda_ms(lambda: mk.trace_tiles((1, 0), *tabs, **fkw), 10)
     r_ms = cuda_ms(lambda: mk.trace_tiles((1, 0), *tabs, **kw), 10)
     b_ms, b_by, ops = fwd_bound(counts, tabs, fkw)
+    j_ms, j_by, j_ops = fwd_bound(counts, tabs, fkw, jax=True)
     phase(f"phase 8: {TEX_TRAIN} {W}x{H}x8 spp (tile {kw['tile']}, "
           f"{fkw['tex_texels'].shape[0]} texels, {counts['texel_fetches']} "
           f"fetches): f32-texel kernel {f_ms:.4f} ms, rgb8 K1-tex {r_ms:.4f} "
           f"ms ({(f_ms - r_ms) / r_ms:+.2%}), bit-equal to each other and to "
           f"the plain version ({p_ms:.1f} ms); bound {b_ms:.4f} ms ({b_by}; "
-          f"{ops:.4g} f32 ops); card {card}")
+          f"{ops:.4g} f32 ops: the kernel's own work), the JAX kernel's "
+          f"work {j_ms:.4f} ms ({j_by}; {j_ops:.4g} f32 ops); card {card}")
     return dict(ms=f_ms, rgb8_ms=r_ms, plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by, err=float((f32 - p).abs().max()))
+                bound_by=b_by, jax_work_bound_ms=j_ms,
+                err=float((f32 - p).abs().max()))
 
 
 def tex_training(dev, card):
@@ -2068,6 +2229,12 @@ def main(argv=None) -> int:
                     help="A/B the K1 family (AB_CASES) against the "
                          "pathtracer_tpu_torch under DIR, on its own code "
                          "(phase 5); may be given more than once")
+    ap.add_argument("--tex-split", metavar="DIR", action="append",
+                    default=[],
+                    help="time the texture path's split (phase 5) on the "
+                         "pathtracer_tpu_torch under DIR too, e.g. a copy "
+                         "made by tools/tex_variants.py; may be given more "
+                         "than once")
     args = ap.parse_args(argv)
     # ---- phase 1: the card ----------------------------------------------
     smi = subprocess.run(
@@ -2130,6 +2297,8 @@ def main(argv=None) -> int:
     tcfg = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
     tex_errs = [compare(name, get_scene(name, tcfg), tcfg, None, 0, dev,
                         exact=True, tiles=64)[0] for name in TEX_SCENES]
+    # the fetches' wrap without a division, against the JAX formula
+    wrap = wrap_phase(dev, card)
 
     # NEE (the kNee instantiations) bit for bit: 1, 4 and 3 lights, the
     # mesh shadow walk on the driver's mesh layout, the textured
@@ -2259,6 +2428,15 @@ def main(argv=None) -> int:
     # textured timings, the fetch probe, the JAX package's mip
     tex_times = tex_timing(tex_main, dev, card)
     probe = fetch_probe(dev, card)
+    split_trees, split_ptxas = [("this", THIS_TREE)], {
+        "this": ptxas_counts(ptxas)}
+    for i, d in enumerate(args.tex_split):
+        T = load_tree(d, f"split_tree_{i}")
+        T.mk.library()
+        split_trees.append((d, T))
+        split_ptxas[d] = ptxas_counts(ptxas_lines(
+            T.build._target("megakernel").with_suffix(".log").read_text()))
+    tsplit = tex_split(split_trees, tex_times, probe, split_ptxas, dev, card)
     mip_blur(dev, card)
     # NEE: K1-nee beside K1 on the same samples, and what a runtime branch
     # would cost the renders without NEE
@@ -2387,7 +2565,9 @@ def main(argv=None) -> int:
          "plain_ms": tex_times["textures"]["plain_ms"],
          "bound_ms": tex_times["textures"]["bound_ms"],
          "bound_by": tex_times["textures"]["bound_by"], "library_ms": None,
-         "by_scene": tex_times, "fetch_probe": probe},
+         "jax_work_bound_ms": tex_times["textures"]["jax_work_bound_ms"],
+         "by_scene": tex_times, "fetch_probe": probe, "split": tsplit,
+         "wrap_check": wrap},
         {"name": "megakernel-tex-f32", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
          "replaces": "pathtracer_tpu/render/pallas_kernel.py:999,1130",
@@ -2395,7 +2575,8 @@ def main(argv=None) -> int:
          "bit_equal_to_rgb8": True, "shape": f"{TEX_TRAIN} {W}x{H}x8spp",
          "ms": f32_fwd["ms"], "rgb8_ms": f32_fwd["rgb8_ms"],
          "plain_ms": f32_fwd["plain_ms"], "bound_ms": f32_fwd["bound_ms"],
-         "bound_by": f32_fwd["bound_by"], "library_ms": None},
+         "bound_by": f32_fwd["bound_by"], "library_ms": None,
+         "jax_work_bound_ms": f32_fwd["jax_work_bound_ms"]},
         {"name": "grad-megakernel-tex", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
          "replaces": "pathtracer_tpu/render/pallas_grad.py:267,65,148",

@@ -58,19 +58,26 @@
 // one-hot matmuls from a staged atlas (_sample_staged :999,
 // _sample_staged_unified :1130), because a TPU lane cannot gather. Here
 // every texture is one bilinear fetch from the full-resolution rgb8 texel
-// pool (sample_pool): four point loads through the read-only cache, decoded
-// as q * f32(1/255) and blended in f32 in the JAX order (x first), so the
-// result is the plain version's bit for bit. No texture object: hardware
-// filtering blends with 9-bit fixed-point weights. The per-object texture
-// table ([n_obj, 12]: color flag, base, w, h, sx, sy, normal-map flag,
-// base, w, h, sxn, syn) is staged in shared memory beside the object table.
-// A plane's normal map replaces the object-space normal before the
-// inverse-transpose; a textured plane, sphere or box takes the texel as its
-// color after face-forward, by the UV map of its type (the JAX kernel's
-// polynomial atan2/acos and truncating fmod, pallas_kernel.py:881-965).
-// Triangle and cylinder hits ignore textures, as there. The code is
-// compiled only into the kTex instantiations; the pools of the repository's
-// scenes (<= 8 MiB) sit in the 50 MB L2.
+// pool (sample_pool): four point loads through the read-only cache, whose
+// REPEAT wrap takes no division (wrap_fast; the JAX formula, one IEEE
+// division a wrap, stays in a cold branch where the two could differ),
+// decoded as q * f32(1/255) where the blend uses them and blended in f32
+// in the JAX order (x first), so the result is the plain version's bit for
+// bit. (Quad rows, each texel with its three REPEAT neighbours, make a
+// fetch one 16-byte load for 4x the pool's memory; on the card they did
+// not clear the margin that would pay for that, PERF.md §6.) No texture
+// object: hardware filtering blends with 9-bit fixed-point weights. The
+// per-object texture table ([n_obj, 12]: color flag, base, w, h, sx, sy,
+// normal-map flag, base, w, h, sxn, syn) is staged in shared memory beside
+// the object table, with the reciprocals of the sides. A
+// plane's normal map replaces the object-space normal before the
+// inverse-transpose; a textured plane, sphere or box takes the texel as
+// its color, by the UV map of its type (the JAX kernel's polynomial
+// atan2/acos and truncating fmod, pallas_kernel.py:881-965); both go
+// through one helper, fetch_texture. Triangle and cylinder hits ignore
+// textures, as there. The code is compiled only into the kTex
+// instantiations; the pools of the repository's scenes (<= 8 MiB) sit in
+// the 50 MB L2.
 //
 // The gradient kernel (K6). Replaces pathtracer_tpu/render/pallas_grad.py::
 // _make_grad_kernel, launched by grad_tiles: the same template instantiated
@@ -176,6 +183,11 @@ constexpr int kMaxObjects = 64;  // type codes travel in the launch params
 constexpr int kMaxTape = 16;     // grad kernel: tape entries >= max_bounces
 constexpr int kGradCols = 6;     // grad kernel: color rgb | emission rgb
 constexpr int kTexCols = 12;     // texture table columns (see above)
+// a texture row staged in shared memory: the table's 12 columns, then the
+// reciprocals 1/w, 1/h of the color texture and 1/w, 1/h of the normal map
+// (computed once a block, by IEEE division), which the fetches' wrap takes
+constexpr int kTexRecip = kTexCols;
+constexpr int kTexRow = kTexCols + 4;
 constexpr float kBig = 1e30f;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInv24 = 5.9604644775390625e-08f;  // 2^-24
@@ -402,75 +414,158 @@ __device__ __forceinline__ void cube_uv(float x, float y, float z, float& u,
   }
 }
 
-// floor-mod wrap of a float-held integer coordinate to [0, m)
+// floor-mod wrap of a float-held integer coordinate to [0, m): the JAX
+// kernel's formula, one IEEE division (the fetches' cold branch)
 __device__ __forceinline__ float wrap_tex(float a, float m) {
   return a - m * floorf(a / m);
 }
 
-__device__ __forceinline__ void decode_rgb8(int q, float& r, float& g,
-                                            float& b) {
-  r = (float)(q & 255) * kInv255;
-  g = (float)((q >> 8) & 255) * kInv255;
-  b = (float)((q >> 16) & 255) * kInv255;
+// The fetches' wrap without a division. For an integer-valued a with
+// |a| < 2^22, an integer-valued m in [1, 2^24) and im = fl(1/m):
+// fl(a * im) lies within |a/m| 2^-23 (1 + 2^-25) <= (1 + 2^-25) / (2m) of
+// a/m (exactly on it for m = 1, 2), and adding and taking off 1.5 * 2^23
+// rounds it to the nearest integer q (the sum lies in [2^23, 2^24], where
+// the ulp is 1), so |q - a/m| < 1; then m q, r = a - m q (|r| < m) and
+// r + m are integers below 2^24, exact in f32, and wrap_fast(a) is the
+// exact floor-mod. wrap_tex gives the exact floor-mod too wherever
+// |a| + m < 2^24: a/m rounded once cannot cross the integer above it (it
+// lies at least 1/m below it, more than half its ulp), and m floor(a/m)
+// and the difference are exact. The fetches take the fast wrap where
+// |x0|, |y0| < kWrapFast and w, h <= kSideFast, so that both hold for x0
+// and x0 + 1 and the two agree bit for bit (chip_smoke.py also checks it
+// on the card, over every integer in [-2^25, 2^25] for each texture side
+// of the repository's scenes: wrap_check); elsewhere, NaN and inf
+// included, they keep wrap_tex.
+constexpr float kWrapFast = 4194304.0f;   // 2^22
+constexpr float kSideFast = 8388608.0f;   // 2^23
+constexpr float kRoundInt = 12582912.0f;  // 1.5 * 2^23
+
+__device__ __forceinline__ float wrap_fast(float a, float m, float im) {
+  const float q = (a * im + kRoundInt) - kRoundInt;
+  const float r = a - m * q;
+  return r < 0.0f ? r + m : r;
 }
 
-// Bilinear REPEAT sample of the texture at (base, w, h) of the rgb8 pool at
-// (u, v) (tracer.cl:829: normalized coords, REPEAT, LINEAR): four point
-// loads, each index clamped into [base, base + w*h) as jnp.take(mode="clip")
-// does, blended in f32 in the JAX order (x first).
+__device__ __forceinline__ bool wrap_is_fast(float x0, float y0, float w,
+                                             float h) {
+  return fabsf(x0) < kWrapFast && fabsf(y0) < kWrapFast && w <= kSideFast &&
+         h <= kSideFast;
+}
+
+// Byte k (0 r, 1 g, 2 b) of an rgb8 texel as q * f32(1/255). One byte
+// permute puts the byte into the mantissa of 2^23, and taking 2^23 off
+// again leaves its exact value: the int-to-float conversion's result,
+// without the conversion unit.
+__device__ __forceinline__ float texel_channel(int q, int k) {
+  return (__int_as_float(__byte_perm(q, 0x4B000000, 0x7650 + k)) -
+          8388608.0f) *
+         kInv255;
+}
+
+// the x-first bilinear blend of one channel (the JAX order)
+__device__ __forceinline__ float blend(float c00, float c01, float c10,
+                                       float c11, float tx, float ty) {
+  const float top = c00 * (1.0f - tx) + c01 * tx;
+  const float bot = c10 * (1.0f - tx) + c11 * tx;
+  return top * (1.0f - ty) + bot * ty;
+}
+
+// the blend of four rgb8 taps, each channel decoded where it is blended
+__device__ __forceinline__ void blend_rgb8(int4 q, float tx, float ty,
+                                           float& r, float& g, float& b) {
+  r = blend(texel_channel(q.x, 0), texel_channel(q.y, 0),
+            texel_channel(q.z, 0), texel_channel(q.w, 0), tx, ty);
+  g = blend(texel_channel(q.x, 1), texel_channel(q.y, 1),
+            texel_channel(q.z, 1), texel_channel(q.w, 1), tx, ty);
+  b = blend(texel_channel(q.x, 2), texel_channel(q.y, 2),
+            texel_channel(q.z, 2), texel_channel(q.w, 2), tx, ty);
+}
+
+// The four taps (y0, x0), (y0, x1), (y1, x0), (y1, x1) of a bilinear REPEAT
+// fetch of texture (base, w, h) anchored at (x0, y0), by the JAX kernel's
+// wrap_tex, each index clamped into [base, base + w*h) as
+// jnp.take(mode="clip") does: the fetch's cold branch.
+__device__ __forceinline__ int4 taps_take4(const int* __restrict__ pool,
+                                           float base, float w, float h,
+                                           float x0, float y0) {
+  const int bi = (int)base, wi = (int)w;
+  const int last = bi + wi * (int)h - 1;
+  const int c0 = (int)wrap_tex(x0, w), c1 = (int)wrap_tex(x0 + 1.0f, w);
+  const int r0 = (int)wrap_tex(y0, h), r1 = (int)wrap_tex(y0 + 1.0f, h);
+  const auto tap = [&](int r, int c) {
+    return __ldg(pool + min(max(bi + r * wi + c, bi), last));
+  };
+  return make_int4(tap(r0, c0), tap(r0, c1), tap(r1, c0), tap(r1, c1));
+}
+
+// Bilinear REPEAT sample (tracer.cl:829: normalized coords, REPEAT, LINEAR)
+// at (u, v) of the texture tex = (base, w, h) with reciprocals iw, ih, from
+// the rgb8 pool: four 4-byte loads through the read-only cache, their
+// indices all known before the first. Where wrap_is_fast, the columns
+// c0 = wrap_fast(x0), c1 = c0 + 1 (0 at w), the rows the same, and the
+// indices base + r w + c are exact in f32 and lie in [base, base + w*h),
+// so jnp.take's clip leaves them as they are; elsewhere, and without kFast
+// (the texel-fetch probe's reference), taps_take4. Decoded as
+// q * f32(1/255) where the blend uses them and blended in f32 in the JAX
+// order (x first), so the result is the plain version's bit for bit.
+template <bool kFast = true>
 __device__ __forceinline__ void sample_pool(const int* __restrict__ pool,
-                                            float base, float w, float h,
-                                            float u, float v, float& r,
-                                            float& g, float& b) {
+                                            const float* tex, float iw,
+                                            float ih, float u, float v,
+                                            float& r, float& g, float& b) {
+  const float base = tex[0], w = tex[1], h = tex[2];
   const float fx = u * w - 0.5f;
   const float fy = v * h - 0.5f;
   const float x0 = floorf(fx);
   const float y0 = floorf(fy);
   const float tx = fx - x0;
   const float ty = fy - y0;
-  const int bi = (int)base, wi = (int)w;
-  const int last = bi + wi * (int)h - 1;
-  const int c0 = (int)wrap_tex(x0, w), c1 = (int)wrap_tex(x0 + 1.0f, w);
-  const int r0 = (int)wrap_tex(y0, h), r1 = (int)wrap_tex(y0 + 1.0f, h);
-  float c00[3], c01[3], c10[3], c11[3];
-  decode_rgb8(__ldg(pool + min(max(bi + r0 * wi + c0, bi), last)), c00[0],
-              c00[1], c00[2]);
-  decode_rgb8(__ldg(pool + min(max(bi + r0 * wi + c1, bi), last)), c01[0],
-              c01[1], c01[2]);
-  decode_rgb8(__ldg(pool + min(max(bi + r1 * wi + c0, bi), last)), c10[0],
-              c10[1], c10[2]);
-  decode_rgb8(__ldg(pool + min(max(bi + r1 * wi + c1, bi), last)), c11[0],
-              c11[1], c11[2]);
-  float out[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float top = c00[k] * (1.0f - tx) + c01[k] * tx;
-    const float bot = c10[k] * (1.0f - tx) + c11[k] * tx;
-    out[k] = top * (1.0f - ty) + bot * ty;
+  int4 q;
+  if (kFast && wrap_is_fast(x0, y0, w, h)) {
+    const float c0 = wrap_fast(x0, w, iw), r0 = wrap_fast(y0, h, ih);
+    const float c1 = c0 + 1.0f == w ? 0.0f : c0 + 1.0f;
+    const float r1 = r0 + 1.0f == h ? 0.0f : r0 + 1.0f;
+    const float row0 = base + r0 * w, row1 = base + r1 * w;
+    q = make_int4(__ldg(pool + (int)(row0 + c0)),
+                  __ldg(pool + (int)(row0 + c1)),
+                  __ldg(pool + (int)(row1 + c0)),
+                  __ldg(pool + (int)(row1 + c1)));
+  } else {
+    q = taps_take4(pool, base, w, h, x0, y0);
   }
-  r = out[0];
-  g = out[1];
-  b = out[2];
+  blend_rgb8(q, tx, ty, r, g, b);
 }
 
-// The four texel indices of a bilinear REPEAT fetch at (u, v) and its x/y
-// weights, computed as sample_pool computes them; the indices also stay
-// below n, the texel count (a table that reaches past the texels reads and
-// writes the last one instead of other memory).
-__device__ __forceinline__ void texel_taps(float base, float w, float h,
-                                           float u, float v, int n,
+// The four texel indices of a bilinear REPEAT fetch at (u, v) of texture
+// tex = (base, w, h) (reciprocals iw, ih) and its x/y weights, the taps of
+// sample_pool; the indices also stay below n, the texel count (a table
+// that reaches past the texels reads and writes the last one instead of
+// other memory). The fast wrap gives c0 and r0; c1 = c0 + 1, or 0 at w.
+__device__ __forceinline__ void texel_taps(const float* tex, float iw,
+                                           float ih, float u, float v, int n,
                                            int (&idx)[4], float& tx,
                                            float& ty) {
+  const float base = tex[0], w = tex[1], h = tex[2];
   const float fx = u * w - 0.5f;
   const float fy = v * h - 0.5f;
   const float x0 = floorf(fx);
   const float y0 = floorf(fy);
   tx = fx - x0;
   ty = fy - y0;
-  const int bi = (int)base, wi = (int)w;
-  const int last = min(bi + wi * (int)h, n) - 1;
-  const int c0 = (int)wrap_tex(x0, w), c1 = (int)wrap_tex(x0 + 1.0f, w);
-  const int r0 = (int)wrap_tex(y0, h), r1 = (int)wrap_tex(y0 + 1.0f, h);
+  const int bi = (int)base, wi = (int)w, hi = (int)h;
+  const int last = min(bi + wi * hi, n) - 1;
+  int c0, c1, r0, r1;
+  if (wrap_is_fast(x0, y0, w, h)) {
+    c0 = (int)wrap_fast(x0, w, iw);
+    r0 = (int)wrap_fast(y0, h, ih);
+    c1 = c0 + 1 == wi ? 0 : c0 + 1;
+    r1 = r0 + 1 == hi ? 0 : r0 + 1;
+  } else {
+    c0 = (int)wrap_tex(x0, w);
+    c1 = (int)wrap_tex(x0 + 1.0f, w);
+    r0 = (int)wrap_tex(y0, h);
+    r1 = (int)wrap_tex(y0 + 1.0f, h);
+  }
   idx[0] = min(max(bi + r0 * wi + c0, bi), last);
   idx[1] = min(max(bi + r0 * wi + c1, bi), last);
   idx[2] = min(max(bi + r1 * wi + c0, bi), last);
@@ -480,20 +575,18 @@ __device__ __forceinline__ void texel_taps(float base, float w, float h,
 // sample_pool on the n f32 texels [n, 4]: one 16-byte load a tap, the same
 // blend
 __device__ __forceinline__ void sample_texels(const float4* __restrict__ tex,
-                                              int n, float base, float w,
-                                              float h, float u, float v,
-                                              float& r, float& g, float& b) {
+                                              int n, const float* tt,
+                                              float iw, float ih, float u,
+                                              float v, float& r, float& g,
+                                              float& b) {
   int idx[4];
   float tx, ty;
-  texel_taps(base, w, h, u, v, n, idx, tx, ty);
+  texel_taps(tt, iw, ih, u, v, n, idx, tx, ty);
   const float4 c00 = __ldg(tex + idx[0]), c01 = __ldg(tex + idx[1]);
   const float4 c10 = __ldg(tex + idx[2]), c11 = __ldg(tex + idx[3]);
-  r = (c00.x * (1.0f - tx) + c01.x * tx) * (1.0f - ty) +
-      (c10.x * (1.0f - tx) + c11.x * tx) * ty;
-  g = (c00.y * (1.0f - tx) + c01.y * tx) * (1.0f - ty) +
-      (c10.y * (1.0f - tx) + c11.y * tx) * ty;
-  b = (c00.z * (1.0f - tx) + c01.z * tx) * (1.0f - ty) +
-      (c10.z * (1.0f - tx) + c11.z * tx) * ty;
+  r = blend(c00.x, c01.x, c10.x, c11.x, tx, ty);
+  g = blend(c00.y, c01.y, c10.y, c11.y, tx, ty);
+  b = blend(c00.z, c01.z, c10.z, c11.z, tx, ty);
 }
 
 struct Params {
@@ -543,19 +636,34 @@ struct Params {
   const float4* __restrict__ shade;
 };
 
+// The bilinear fetch of texture tex = (base, w, h) (reciprocals iw, ih) at
+// (u, v): from the rgb8 pool, or (kF32) from the f32 texels.
+template <bool kF32>
+__device__ __forceinline__ void fetch_texture(const Params& p,
+                                              const float* tex, float iw,
+                                              float ih, float u, float v,
+                                              float& r, float& g, float& b) {
+  if constexpr (kF32)
+    sample_texels(p.tex_texels, p.n_texels, tex, iw, ih, u, v, r, g, b);
+  else
+    sample_pool(p.tex_pool, tex, iw, ih, u, v, r, g, b);
+}
+
 __device__ __forceinline__ void add_nonzero(float* a, float v) {
   if (v != 0.0f) atomicAdd(a, v);
 }
 
 // Transpose of sample_texels: the bounce's dS/dc (gr, gg, gb) times each
-// tap's bilinear weight, added into gtex [n, 3] at the fetch's indices.
+// tap's bilinear weight, added into gtex [n, 3] at the fetch's indices (tt:
+// the winner's staged texture row, whose color texture was fetched).
 __device__ __forceinline__ void scatter_texels(float* gtex, int n,
                                                const float* tt, float u,
                                                float v, float gr, float gg,
                                                float gb) {
   int idx[4];
   float tx, ty;
-  texel_taps(tt[1], tt[2], tt[3], u, v, n, idx, tx, ty);
+  texel_taps(tt + 1, tt[kTexRecip], tt[kTexRecip + 1], u, v, n, idx, tx,
+             ty);
   const float wt[4] = {(1.0f - tx) * (1.0f - ty), tx * (1.0f - ty),
                        (1.0f - tx) * ty, tx * ty};
 #pragma unroll
@@ -1196,8 +1304,15 @@ __device__ __forceinline__ void megakernel_body(const Params& p) {
       s_g[i] = 0.0f;
   }
   if constexpr (kTex) {
-    for (int i = threadIdx.x; i < p.n_obj * kTexCols; i += blockDim.x)
-      s_tex[i] = p.tex_table[i];
+    for (int i = threadIdx.x; i < p.n_obj * kTexRow; i += blockDim.x) {
+      const int o = i / kTexRow, c = i - o * kTexRow;
+      const float* row = p.tex_table + o * kTexCols;
+      // columns 12-15 divide by columns 2, 3 (w, h) and 8, 9 (nm w, h)
+      s_tex[i] = c < kTexCols
+                     ? row[c]
+                     : 1.0f / row[2 + (c - kTexRecip) % 2 +
+                                  6 * ((c - kTexRecip) / 2)];
+    }
   }
   __syncthreads();
 
@@ -1341,20 +1456,39 @@ __device__ __forceinline__ void megakernel_body(const Params& p) {
       } else {
         nlx = lx; nly = ly; nlz = lz;
       }
-      // kTex: the winner's texture row, null for a triangle hit
-      const float* tt = nullptr;
+      // the color: the triangle's, the texel's, or the object row's (read
+      // where it is used, below)
+      bool own_col = on_tri;
+      float tex_u = 0.f, tex_v = 0.f;  // kGrad: the color fetch's (u, v)
       if constexpr (kTex) {
-        if (!on_tri) tt = s_tex + w * kTexCols;
-        if (tt != nullptr && tt[6] > 0.5f) {
-          // plane normal map: the texel is the object-space normal,
-          // normalized after the inverse-transpose (tracer.cl:907-911)
-          if constexpr (kF32) {
-            sample_texels(p.tex_texels, p.n_texels, tt[7], tt[8], tt[9],
-                          fabsf(lx) * tt[10], fabsf(lz) * tt[11], nlx, nly,
-                          nlz);
+        // the winner's texture row (none for a triangle hit): its normal
+        // map (a plane's: the texel is the object-space normal, normalized
+        // after the inverse-transpose, tracer.cl:907-911), then its color
+        // texture (tracer.cl:1075-1093) by the UV map of the type. Two
+        // inlined fetches: one call site for both in a loop (#pragma unroll
+        // 1) ran K1-tex 7% slower on `textures` (PERF.md §6, R3).
+        const float* tt = s_tex + w * kTexRow;
+        if (!on_tri && tt[6] > 0.5f) {
+          fetch_texture<kF32>(p, tt + 7, tt[kTexRecip + 2],
+                              tt[kTexRecip + 3], fabsf(lx) * tt[10],
+                              fabsf(lz) * tt[11], nlx, nly, nlz);
+        }
+        if (!on_tri && tt[0] > 0.5f) {
+          float su, sv;
+          if (w_type == PLANE) {
+            su = lx * tt[4];
+            sv = lz * tt[5];
+          } else if (w_type == SPHERE) {
+            spherical_uv(lx, ly, lz, su, sv);
           } else {
-            sample_pool(p.tex_pool, tt[7], tt[8], tt[9], fabsf(lx) * tt[10],
-                        fabsf(lz) * tt[11], nlx, nly, nlz);
+            cube_uv(lx, ly, lz, su, sv);
+          }
+          fetch_texture<kF32>(p, tt + 1, tt[kTexRecip], tt[kTexRecip + 1],
+                              su, sv, tcr, tcg, tcb);
+          own_col = true;
+          if constexpr (kGrad) {
+            tex_u = su;
+            tex_v = sv;
           }
         }
       }
@@ -1365,36 +1499,6 @@ __device__ __forceinline__ void megakernel_body(const Params& p) {
       const float ex = -dx, ey = -dy, ez = -dz;
       if (dot3(ex, ey, ez, nx, ny, nz) < 0.0f) {
         nx = -nx; ny = -ny; nz = -nz;
-      }
-      // the color: the triangle's, the texel's, or the object row's (read
-      // where it is used, below)
-      bool own_col = on_tri;
-      float tex_u = 0.f, tex_v = 0.f;  // kGrad: the color fetch's (u, v)
-      if constexpr (kTex) {
-        if (tt != nullptr && tt[0] > 0.5f) {
-          // texture color (tracer.cl:1075-1093) by the UV map of the type
-          float su, sv;
-          if (w_type == PLANE) {
-            su = lx * tt[4];
-            sv = lz * tt[5];
-          } else if (w_type == SPHERE) {
-            spherical_uv(lx, ly, lz, su, sv);
-          } else {
-            cube_uv(lx, ly, lz, su, sv);
-          }
-          if constexpr (kF32) {
-            sample_texels(p.tex_texels, p.n_texels, tt[1], tt[2], tt[3], su,
-                          sv, tcr, tcg, tcb);
-          } else {
-            sample_pool(p.tex_pool, tt[1], tt[2], tt[3], su, sv, tcr, tcg,
-                        tcb);
-          }
-          if constexpr (kGrad) {
-            tex_u = su;
-            tex_v = sv;
-          }
-          own_col = true;
-        }
       }
 
       // ---- material roulette (tracer.cl:982-1061) -------------------------
@@ -1593,7 +1697,7 @@ __device__ __forceinline__ void megakernel_body(const Params& p) {
         // that color alone has a gradient (a textured light's: its texels)
         bool own = true;
         if constexpr (kTex) {
-          const float* tt = s_tex + t_id[0] * kTexCols;
+          const float* tt = s_tex + t_id[0] * kTexRow;
           if ((p.tex_train >> t_id[0]) & 1ull)
             scatter_texels(p.gtex, p.n_texels, tt, t_u[0], t_v[0], cot_r,
                            cot_g, cot_b);
@@ -1624,7 +1728,7 @@ __device__ __forceinline__ void megakernel_body(const Params& p) {
               if (id >= 0) {
                 // a textured winner's color is its texel: the gradient
                 // goes to the texels when they train, else nowhere
-                const float* tt = s_tex + id * kTexCols;
+                const float* tt = s_tex + id * kTexRow;
                 if ((p.tex_train >> id) & 1ull)
                   scatter_texels(p.gtex, p.n_texels, tt, t_u[k], t_v[k], gr,
                                  gg, gb);
@@ -1732,7 +1836,7 @@ int launch(Params& p, const int* obj_types, const int* group_root,
   const bool mesh = copy_objects(p, obj_types, group_root, group_end);
   const size_t smem =
       sizeof(float) * (size_t)(p.n_obj * (kObjCols + (kGrad ? kGradCols : 0) +
-                                          (kTex ? kTexCols : 0)) +
+                                          (kTex ? kTexRow : 0)) +
                                kCamCols);
   const int blocks = (p.n_slots + kThreads - 1) / kThreads;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -2053,15 +2157,45 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The texel-fetch probe: one thread per (u, v) calls the kernel's own
-// sample_pool on one texture of the pool.
+// The texel-fetch probe: one thread per (u, v) calls the kernels' own
+// fetch, sample_pool, on one texture of the pool; with kFast false, the
+// fetch with the JAX kernel's wrap alone (the kernels' before R3).
+template <bool kFast>
 __global__ void __launch_bounds__(kThreads)
     tex_fetch(float* out_r, float* out_g, float* out_b,
               const int* __restrict__ pool, const float* u, const float* v,
-              int n, float base, float w, float h) {
+              int n, float base, float w, float h, float iw, float ih) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  sample_pool(pool, base, w, h, u[i], v[i], out_r[i], out_g[i], out_b[i]);
+  const float tex[3] = {base, w, h};
+  sample_pool<kFast>(pool, tex, iw, ih, u[i], v[i], out_r[i], out_g[i],
+                     out_b[i]);
+}
+
+// The fetches' wrap held to wrap_tex: one thread per integer a0 + i (as a
+// float, rounded to nearest) of n, by m (the side of a texture) with its
+// reciprocal; counts[0] gains the integers the fetches wrap by wrap_fast
+// (|a| < kWrapFast, m <= kSideFast) and counts[1] those where wrap_fast's
+// (c0, c0 + 1 or 0) differs from wrap_tex's pair (the cold branch is
+// wrap_tex itself). One atomic add a block and count.
+__global__ void __launch_bounds__(kThreads)
+    wrap_check(long long a0, int n, float m, float im,
+               unsigned long long* counts) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float a = (float)(a0 + i);
+  const bool fast = i < n && fabsf(a) < kWrapFast && m <= kSideFast;
+  bool bad = false;
+  if (fast) {
+    const int c0 = (int)wrap_fast(a, m, im);
+    const int c1 = c0 + 1 == (int)m ? 0 : c0 + 1;
+    bad = c0 != (int)wrap_tex(a, m) || c1 != (int)wrap_tex(a + 1.0f, m);
+  }
+  const int n_fast = __syncthreads_count(fast);
+  const int n_bad = __syncthreads_count(bad);
+  if (threadIdx.x == 0) {
+    if (n_fast) atomicAdd(counts, (unsigned long long)n_fast);
+    if (n_bad) atomicAdd(counts + 1, (unsigned long long)n_bad);
+  }
 }
 
 // light_sincos of n angles x, one thread each (the check of the light
@@ -2253,17 +2387,42 @@ extern "C" int pt_intersect_launch(
 }
 
 // Launch the texel-fetch probe over n (u, v) pairs of one texture at (base,
-// w, h) of the pool; out_* [n]. Returns as pt_megakernel_launch does.
+// w, h) of the pool: fast = 1 the kernels' fetch, 0 the fetch with the JAX
+// kernel's wrap alone; out_* [n]. Returns as pt_megakernel_launch does.
 extern "C" int pt_tex_fetch_launch(float* out_r, float* out_g, float* out_b,
                                    const int* pool, const float* u,
                                    const float* v, int n, int base, int w,
-                                   int h, void* stream) {
-  if (n < 0 || base < 0 || w < 1 || h < 1 || pool == nullptr)
+                                   int h, int fast, void* stream) {
+  if (n < 0 || base < 0 || w < 1 || h < 1 || pool == nullptr ||
+      (fast != 0 && fast != 1))
     return (int)cudaErrorInvalidValue;
   const int blocks = (n + kThreads - 1) / kThreads;
+  const float fw = (float)w, fh = (float)h;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (blocks > 0 && fast)
+    tex_fetch<true><<<blocks, kThreads, 0, s>>>(
+        out_r, out_g, out_b, pool, u, v, n, (float)base, fw, fh, 1.0f / fw,
+        1.0f / fh);
+  else if (blocks > 0)
+    tex_fetch<false><<<blocks, kThreads, 0, s>>>(
+        out_r, out_g, out_b, pool, u, v, n, (float)base, fw, fh, 1.0f / fw,
+        1.0f / fh);
+  return (int)cudaGetLastError();
+}
+
+// Launch wrap_check over the n integers from a0 by the side m; counts
+// (uint64 [2], on the device, zeroed by the caller) gains the fast-wrapped
+// integers and the differing ones. Returns as pt_megakernel_launch does.
+extern "C" int pt_wrap_check_launch(long long a0, int n, int m,
+                                    unsigned long long* counts,
+                                    void* stream) {
+  if (n < 0 || m < 1 || counts == nullptr) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  const float fm = (float)m;
   if (blocks > 0)
-    tex_fetch<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        out_r, out_g, out_b, pool, u, v, n, (float)base, (float)w, (float)h);
+    wrap_check<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a0, n, fm,
+                                                             1.0f / fm,
+                                                             counts);
   return (int)cudaGetLastError();
 }
 
@@ -2388,7 +2547,7 @@ extern "C" int pt_megakernel_packet_launch(
     return (int)cudaErrorInvalidValue;  // the walks are for meshes
   const bool tex = tex_pool != nullptr;
   const size_t smem = sizeof(float) *
-      (size_t)(n_obj * (kObjCols + (tex ? kTexCols : 0)) + kCamCols);
+      (size_t)(n_obj * (kObjCols + (tex ? kTexRow : 0)) + kCamCols);
   const cudaStream_t s = (cudaStream_t)stream;
   if (tex && nee)
     return launch_walk(walk, leaf, PacketLaunch<true, true>{p, smem, s});

@@ -19,11 +19,13 @@ fetches small file images by one-hot matmuls from a staged atlas, because
 a TPU lane cannot gather. Here every texture, procedural or file, small or
 large, is one 4-tap bilinear fetch from the full-resolution rgb8 texel
 pool (`sample_pool`), with the object's (base, w, h) from the texture
-table (`build_tex_table`). The UV maps are the JAX kernel's, operation for
-operation (`_spherical_uv`, `_cube_uv`). The differentiable render fetches
-from f32 texels instead (`tex_texels`, `sample_texels`: the pool decoded,
-then trained), which with the decoded pool give the rgb8 render bit for
-bit.
+table (`build_tex_table`); its REPEAT wrap takes no division where that
+gives the JAX kernel's wrap bit for bit (`wrap_fast`, `wrap_is_fast`),
+and the JAX formula elsewhere. The UV maps are the JAX kernel's,
+operation for operation (`_spherical_uv`, `_cube_uv`). The differentiable
+render fetches from f32 texels instead (`tex_texels`, `sample_texels`: the
+pool decoded, then trained), which with the decoded pool give the rgb8
+render bit for bit.
 
 Meshes: the JAX kernel walks the skip-link BVH with one node pointer per
 (8, 512) packet (`_packet_traverse`). Here every ray walks it alone
@@ -929,12 +931,41 @@ def _wrap_tex(a, m):
     return a - m * torch.floor(a / m)
 
 
-def texel_taps(base, w, h, u, v):
+# the fast wrap's bounds (csrc/megakernel.cu kWrapFast, kSideFast) and the
+# rounding constant 1.5 * 2^23
+_WRAP_FAST = 2.0 ** 22
+_SIDE_FAST = 2.0 ** 23
+_ROUND_INT = 1.5 * 2.0 ** 23
+
+
+def wrap_fast(a, m, im):
+    """The kernel's wrap without a division (csrc/megakernel.cu wrap_fast):
+    the floor-mod of integer-valued f32 a by integer-valued m, given im =
+    fl(1/m), by rounding a * im to the nearest integer q (adding and taking
+    off 1.5 * 2^23) and r = a - m q, plus m where negative. Exact, and
+    equal to _wrap_tex, for |a| < 2^22 and m <= 2^23 (the source's comment
+    says why); wrap_is_fast says where the fetches take it."""
+    q = (a * im + _ROUND_INT) - _ROUND_INT
+    r = a - m * q
+    return torch.where(r < 0.0, r + m, r)
+
+
+def wrap_is_fast(x0, y0, w, h):
+    """Where the fetches wrap by wrap_fast: |x0|, |y0| < 2^22 and w, h <=
+    2^23 (false for NaN and inf)."""
+    return ((torch.abs(x0) < _WRAP_FAST) & (torch.abs(y0) < _WRAP_FAST)
+            & (w <= _SIDE_FAST) & (h <= _SIDE_FAST))
+
+
+def texel_taps(base, w, h, u, v, fast: bool = True):
     """The four texel indices of a bilinear REPEAT fetch at (u, v) for
     textures at (base, w, h) (f32 tensors broadcastable with u), each
     clamped into [base, base + w*h) as jnp.take(mode="clip") does, in the
     order (y0, x0), (y0, x1), (y1, x0), (y1, x1), and the x/y weights (tx,
-    ty). csrc/megakernel.cu's texel_taps computes the same."""
+    ty). csrc/megakernel.cu's texel_taps computes the same: with `fast`,
+    where wrap_is_fast the columns wrap_fast(x0) and its neighbour (0 at
+    w; the same for the rows), elsewhere, and without `fast`, the JAX
+    kernel's _wrap_tex of x0, x0 + 1, y0 and y0 + 1."""
     fx = u * w - 0.5
     fy = v * h - 0.5
     x0 = torch.floor(fx)
@@ -944,8 +975,18 @@ def texel_taps(base, w, h, u, v):
     bi = base.long()
     wi = w.long()
     top_i = bi + wi * h.long() - 1
-    cols = (_wrap_tex(x0, w).long(), _wrap_tex(x0 + 1.0, w).long())
-    rows = (_wrap_tex(y0, h).long(), _wrap_tex(y0 + 1.0, h).long())
+    cols = [_wrap_tex(x0, w), _wrap_tex(x0 + 1.0, w)]
+    rows = [_wrap_tex(y0, h), _wrap_tex(y0 + 1.0, h)]
+    if fast:
+        ok = wrap_is_fast(x0, y0, w, h)
+        one = torch.ones_like(w)
+        for taps, a, m in ((cols, x0, w), (rows, y0, h)):
+            c0 = wrap_fast(a, m, one / m)
+            c1 = torch.where(c0 + 1.0 == m, 0.0, c0 + 1.0)
+            taps[0] = torch.where(ok, c0, taps[0])
+            taps[1] = torch.where(ok, c1, taps[1])
+    cols = [c.long() for c in cols]
+    rows = [r.long() for r in rows]
     idx = [torch.minimum(torch.maximum(bi + yi * wi + xi, bi), top_i)
            for yi in rows for xi in cols]
     return idx, tx, ty
@@ -961,13 +1002,14 @@ def _blend(c, tx, ty):
     return tuple(out)
 
 
-def sample_pool(pool, base, w, h, u, v):
+def sample_pool(pool, base, w, h, u, v, fast: bool = True):
     """Bilinear REPEAT sample of the rgb8 texel pool (int32 [T]) at (u, v)
     for textures at (base, w, h) (f32 tensors broadcastable with u): the
-    four taps of texel_taps, decoded as q * f32(1/255), blended in f32 in
-    the JAX order (x first). Semantics of tracer.cl:829 (normalized
-    coords, REPEAT, LINEAR). Returns (r, g, b)."""
-    idx, tx, ty = texel_taps(base, w, h, u, v)
+    four taps of texel_taps (with `fast`, the kernels' wrap; without, the
+    JAX kernel's alone: the same taps), decoded as q * f32(1/255), blended
+    in f32 in the JAX order (x first). Semantics of tracer.cl:829
+    (normalized coords, REPEAT, LINEAR). Returns (r, g, b)."""
+    idx, tx, ty = texel_taps(base, w, h, u, v, fast)
     c = [decode_rgb8(pool[i]) for i in idx]
     return _blend(c, tx, ty)
 
@@ -2061,7 +2103,10 @@ SIGNATURES = {
         _I),
     # the texel-fetch probe (P1's counterpart), launched by fetch_texels
     "pt_tex_fetch_launch": (
-        [_P] * 6 + [_I] * 4 + [_P], _I),
+        [_P] * 6 + [_I] * 5 + [_P], _I),
+    # the fetches' wrap against wrap_tex, launched by wrap_check: the first
+    # integer, their count, the side, the two uint64 counts and the stream
+    "pt_wrap_check_launch": ([ctypes.c_longlong, _I, _I, _P, _P], _I),
     # the light point's sin/cos check, launched by light_sincos: the
     # angles, sin, cos, their count and the stream
     "pt_sincos_launch": ([_P] * 3 + [_I, _P], _I),
@@ -2228,13 +2273,14 @@ def texels_padded(texels: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(texels.detach(), (0, 1)).contiguous()
 
 
-def fetch_texels(pool, base: int, w: int, h: int, u, v):
+def fetch_texels(pool, base: int, w: int, h: int, u, v, fast: bool = True):
     """Bilinear REPEAT samples of one texture at (base, w, h) in the rgb8
-    pool (int32 [T]) at the UVs u, v (f32 [N]): the kernel's own device
-    fetch function, launched alone (the Hopper counterpart of the JAX
-    package's texel-fetch probe, tools/tex_vmem_probe.py). Returns (r, g,
-    b) f32 [N]. CUDA tensors launch it and count fetch_texels.launches;
-    CPU tensors run sample_pool."""
+    pool (int32 [T]) at the UVs u, v (f32 [N]): the kernels' own device
+    fetch, launched alone (the Hopper counterpart of the JAX package's
+    texel-fetch probe, tools/tex_vmem_probe.py); without `fast`, the fetch
+    with the JAX kernel's wrap alone. Returns (r, g, b) f32 [N]. CUDA
+    tensors launch it and count fetch_texels.launches; CPU tensors run
+    sample_pool."""
     if not (0 <= base and base + w * h <= pool.numel() and w > 0 and h > 0):
         raise ValueError(f"texture ({base}, {w}, {h}) is not inside the "
                          f"pool of {pool.numel()} texels")
@@ -2248,14 +2294,14 @@ def fetch_texels(pool, base: int, w: int, h: int, u, v):
         raise ValueError("u and v differ in shape")
     if pool.device.type != "cuda":
         f = lambda x: torch.full_like(u, float(x))
-        return sample_pool(pool, f(base), f(w), f(h), u, v)
+        return sample_pool(pool, f(base), f(w), f(h), u, v, fast)
     lib = library()
     out = torch.empty((3, u.numel()), dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         err = lib.pt_tex_fetch_launch(
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             pool.data_ptr(), u.data_ptr(), v.data_ptr(), u.numel(), base, w,
-            h, torch.cuda.current_stream(u.device).cuda_stream)
+            h, int(fast), torch.cuda.current_stream(u.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"texel fetch launch failed: CUDA error {err}")
     fetch_texels.launches += 1
@@ -2263,6 +2309,43 @@ def fetch_texels(pool, base: int, w: int, h: int, u, v):
 
 
 fetch_texels.launches = 0
+
+
+def wrap_check(m: int, lo: int, hi: int, device):
+    """The fetches' wrap held to the JAX formula (_wrap_tex) by side m on
+    every integer a in [lo, hi] (as f32, rounded to nearest): the column
+    pair (c0, c1) that wrap_fast and c0 + 1 (0 at m) give, where the fetches
+    take it (wrap_is_fast), against _wrap_tex(a) and _wrap_tex(a + 1); the
+    cold branch is _wrap_tex itself. Returns (integers wrap_fast takes, how
+    many of them differ). On a CUDA device it launches the kernel's own
+    wrap (one thread an integer) and counts wrap_check.launches; on the
+    CPU it runs wrap_fast."""
+    n = hi - lo + 1
+    if m < 1 or n < 1 or n >= 2 ** 31:
+        raise ValueError(f"side {m} or range [{lo}, {hi}] out of range")
+    device = torch.device(device)
+    if device.type != "cuda":
+        a = (torch.arange(n, dtype=torch.float64) + lo).to(torch.float32)
+        fm = torch.full_like(a, float(m))
+        fast = wrap_is_fast(a, a, fm, fm)
+        a, fm = a[fast], fm[fast]
+        c0 = wrap_fast(a, fm, torch.ones_like(fm) / fm)
+        c1 = torch.where(c0 + 1.0 == fm, 0.0, c0 + 1.0)
+        bad = (c0 != _wrap_tex(a, fm)) | (c1 != _wrap_tex(a + 1.0, fm))
+        return int(fast.sum()), int(bad.sum())
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        err = library().pt_wrap_check_launch(
+            lo, n, m, counts.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wrap check launch failed: CUDA error {err}")
+    wrap_check.launches += 1
+    n_fast, n_bad = counts.tolist()
+    return n_fast, n_bad
+
+
+wrap_check.launches = 0
 
 
 def light_sincos(x):

@@ -12,7 +12,9 @@ version walk each ray's BVH in the same order with the same f32 operations.
 The textured instantiations (K1-tex) must be bit-equal to the plain
 version on every textured scene: both fetch the same rgb8 texels and blend
 them with the same f32 operations, and the texel-fetch probe
-(fetch_texels) is bit-equal to sample_pool.
+(fetch_texels, with the kernels' wrap and with the JAX kernel's) is
+bit-equal to sample_pool; the fetches' wrap without a division equals the
+JAX formula (wrap_check).
 
 The gradient kernel (render/grad.py's grad_tiles) is held against
 grad_tiles_reference by the gradient rule of tests/_torch_scenes.py: gcol
@@ -187,6 +189,33 @@ def test_tex_fetch_bit_equal_sample_pool(dev):
     want = torch.stack(mk.sample_pool(pool, f(0), f(2048), f(1024), u, v))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def test_tex_fetch_jax_wrap_bit_equal_sample_pool(dev):
+    # the fetch with the JAX kernel's wrap alone (the probe's reference),
+    # and the kernels' at anchors past 2^22 in magnitude (the cold branch)
+    sc = get_scene("envmap", RenderConfig(width=8, height=6))
+    arrays, _ = sc.pack(device=dev)
+    pool = arrays.tex_pool_u32.view(torch.int32)
+    rng = np.random.default_rng(1)
+    uv = np.concatenate([rng.uniform(-2, 3, 1 << 16),
+                         rng.uniform(-1e4, 1e4, 1 << 10)]).astype(np.float32)
+    u, v = (torch.from_numpy(rng.permutation(uv)).to(dev) for _ in range(2))
+    f = lambda x: torch.full_like(u, float(x))
+    want = torch.stack(mk.sample_pool(pool, f(0), f(2048), f(1024), u, v))
+    before = mk.fetch_texels.launches
+    for fast in (True, False):
+        got = torch.stack(mk.fetch_texels(pool, 0, 2048, 1024, u, v, fast))
+        assert torch.equal(got, want)
+    assert mk.fetch_texels.launches == before + 2
+
+
+def test_wrap_check_on_the_card(dev):
+    # the fetches' division-free wrap against the JAX formula
+    before = mk.wrap_check.launches
+    fast, bad = mk.wrap_check(2048, -(1 << 23), 1 << 23, dev)
+    assert mk.wrap_check.launches == before + 1
+    assert (fast, bad) == ((1 << 23) - 1, 0)
 
 
 def test_kernel_refuses_tables_off_the_card(dev):
