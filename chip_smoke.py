@@ -99,7 +99,20 @@ untextured instantiation, on this tree and on the trees of `--tex-split
 DIR`, e.g. a copy whose four loads are pinned to one address, made by
 tools/tex_variants.py), times the fetch probe with and without the wrap,
 and gives K1-tex the bound of its own work beside the JAX kernel's; the
-A/B covers every textured instantiation. It prints one JSON line of kernel
+A/B covers every textured instantiation. For the gradient kernel's
+redesign (K6, K6-tex: the adds merged per warp) phase 6 holds each
+gradient row (K6 `reference`, `teapot` triangles and the size-check mesh,
+K6-tex `textures-train`) against its plain version at 4 spp and at the
+training steps' 32, with bounds, prints the spp-per-launch curve (4, 8,
+16, 32 of GRAD_ROWS) and, with `--grad-split DIR`, times other trees'
+gradient kernels beside this one's (tools/grad_variants.py's copies: the
+split of a kernel into its replay, tape, reverse walk and adds; the tape
+in shared memory; no merge; the launch shape); `--grad-only` runs these
+and the A/B alone. The A/B also compares the forward instantiations'
+SASS (cuobjdump) and measures bench.py's three fwd+bwd rates on both
+trees in turns; phase 4 counts the slots that differ at the JAX
+package's leaf size on `gopher` and the size-check mesh as well, with
+and without NEE. It prints one JSON line of kernel
 results, each with its bound (the least time the card could take for the
 same work, from the work the plain version counts in this run), and,
 last, one JSON line naming the device.
@@ -114,6 +127,7 @@ the reference's gopher model.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import importlib
@@ -135,7 +149,6 @@ import torch
 from pathtracer_tpu_torch import cli, train_demo
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.diff import (make_megakernel_step,
-                                       make_megakernel_step_tex,
                                        make_megakernel_step_tri)
 from pathtracer_tpu_torch.geometry import transforms as gx
 from pathtracer_tpu_torch.io.raw import read_raw
@@ -176,6 +189,16 @@ MIP_AREA = 128 * 128         # the JAX package's PT_TEX_MIP_AREA default
 MIP_SPP = 16
 TEX_TRAIN = "textures-train"  # phase 8: bench.py's fwd_bwd_textures-train
 TEX_LR = 0.05                # phase 8: Adam's step on the texels
+# the gradient kernel's rows (tree_case specs): object mode, triangle mode
+# and texels, with the samples a launch of their training steps takes
+# (phases 7, 8: one launch a step), and the spp-per-launch curve
+GRAD_ROWS = {
+    "K6 reference": dict(kind="grad", scene="reference"),
+    "K6 teapot triangles": dict(kind="tri", scene="teapot"),
+    "K6-tex textures-train": dict(kind="texgrad", scene=TEX_TRAIN),
+}
+GRAD_MAIN_SPP = {"grad": STEP_SPP, "tri": TRI_STEP_SPP, "texgrad": STEP_SPP}
+GRAD_CURVE = (4, 8, 16, 32)
 
 # The bound: the least time the card could take for a kernel's work, the
 # larger of its f32 operations over the rate the card can issue them and its
@@ -303,6 +326,15 @@ AB_CASES = {
                                                  spp=GRAD_SPP),
     f"K6 teapot triangles {W}x{H}x{GRAD_SPP} spp": dict(
         kind="tri", scene="teapot", spp=GRAD_SPP, leaf=32),
+    # the gradient rows at their main paths' launch sizes, and the
+    # size-check mesh in triangle mode
+    f"K6 reference {W}x{H}x{STEP_SPP} spp": dict(kind="grad",
+                                                 scene="reference",
+                                                 spp=STEP_SPP),
+    f"K6-tex textures-train {W}x{H}x{STEP_SPP} spp": dict(
+        kind="texgrad", scene="textures-train", spp=STEP_SPP),
+    f"K6 size-check mesh triangles {W}x{H}x{GRAD_SPP} spp": dict(
+        kind="tri", scene="size-check mesh", spp=GRAD_SPP, leaf=16),
 }
 
 
@@ -1130,12 +1162,22 @@ def load_tree(root: str, tag: str):
         mk=sub("render.megakernel"), tg=sub("render.grad"),
         build=sub("render._build"), get_scene=sub("scenes").get_scene,
         RenderConfig=sub("config").RenderConfig, pack=sub("scene.pack"),
-        root=root)
+        diff=sub("diff"), root=root)
+
+
+def prebuild(dirs):
+    """Build the kernels of the trees under `dirs` all at once, one nvcc
+    each: a tree's library lands in its own build directory, named by its
+    source, so the phases that load the tree later find it built."""
+    trees = [load_tree(d, f"prebuild_{i}") for i, d in enumerate(dirs)]
+    with concurrent.futures.ThreadPoolExecutor(max(len(trees), 1)) as ex:
+        list(ex.map(lambda T: T.build.build_all(["megakernel"]), trees))
 
 
 THIS_TREE = types.SimpleNamespace(mk=mk, tg=tg, build=_build,
                                   get_scene=get_scene,
                                   RenderConfig=RenderConfig, pack=pack,
+                                  diff=sys.modules["pathtracer_tpu_torch.diff"],
                                   root=".")
 
 
@@ -1222,6 +1264,119 @@ def tree_case(T, spec: dict, dev):
     return run
 
 
+def sass_of(lib: Path) -> dict:
+    """{instantiation: its SASS lines, addresses and encodings left out and
+    its branch labels numbered within it (cuobjdump numbers them across the
+    module, so one changed kernel renumbers the others')} of a kernel
+    library, by cuobjdump (None when the toolkit has none)."""
+    try:
+        tool = Path(_build._nvcc()).with_name("cuobjdump")
+    except RuntimeError:
+        return None
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = block.split("\n", 1)
+        body = re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]{16} \*/", "", body)
+        labels = {}
+        body = re.sub(r"\.L_x_\d+", lambda m: labels.setdefault(
+            m.group(0), f".L{len(labels)}"), body)
+        out[kernel_name(name.strip())] = [x.strip() for x in body.splitlines()
+                                          if x.strip()]
+    return out
+
+
+def same_sass(T, parent: str) -> dict:
+    """Phase 5 A/B: whether each forward instantiation (the K1 family
+    without the gradient kernels) of this build is the parent tree T's
+    instruction for instruction. Returns {"same": [...], "differ":
+    [...]}, empty without cuobjdump."""
+    theirs = sass_of(T.build._target("megakernel"))
+    ours = sass_of(_build._target("megakernel"))
+    if theirs is None or ours is None:
+        phase("phase 5 A/B: no cuobjdump; the SASS is not compared")
+        return {}
+    fwd = sorted(k for k in theirs if not k.startswith(("grad", "wrap",
+                                                         "sincos", "mma")))
+    out = {"same": [k for k in fwd if ours.get(k) == theirs[k]],
+           "differ": [k for k in fwd if ours.get(k) != theirs[k]]}
+    first = ""
+    if out["differ"]:
+        k = out["differ"][0]
+        a, b = theirs[k], ours.get(k) or []
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        first = (f"; {k}: {len(a)} against {len(b)} lines, the first "
+                 f"difference at line {i}: {a[i:i + 1]} against "
+                 f"{b[i:i + 1]}")
+    phase(f"phase 5 A/B: SASS of the forward instantiations, {parent} and "
+          f"this: {len(out['same'])} of {len(fwd)} identical; differ: "
+          f"{out['differ']}{first}")
+    return out
+
+
+# bench.py's fwd+bwd training steps (phases 7, 8 and the A/B): scene and
+# samples a step, one launch a step
+STEP_CASES = {"reference": ("reference", STEP_SPP),
+              "teapot triangles": ("teapot", TRI_STEP_SPP),
+              TEX_TRAIN: (TEX_TRAIN, STEP_SPP)}
+
+
+def step_cases(T, dev, names=tuple(STEP_CASES)):
+    """The training steps of STEP_CASES named in `names` on tree T's own
+    code at W x H, with bench.py's step size and a zero target: {name:
+    (step, params, target, spp)}."""
+    out = {}
+    for name in names:
+        scene, spp = STEP_CASES[name]
+        cfg = T.RenderConfig(width=W, height=H, samples=spp,
+                             samples_per_pass=spp)
+        sc = T.get_scene(scene, cfg)
+        arrays, meta = sc.pack(device=dev)
+        if scene == "teapot":
+            step, target_of = T.diff.make_megakernel_step_tri(
+                arrays, meta, cfg, sc.camera, n_passes=1, tile=GRAD_TILE,
+                spp=spp)
+            params = (arrays.color, arrays.emission, arrays.tri_color)
+        elif scene == TEX_TRAIN:
+            step, target_of = T.diff.make_megakernel_step_tex(
+                arrays, meta, cfg, sc.camera, spp=spp)
+            params = (arrays.color, arrays.emission,
+                      T.pack.texel_params(arrays))
+        else:
+            step, target_of = T.diff.make_megakernel_step(
+                arrays, meta, cfg, sc.camera, spp=spp)
+            params = (arrays.color, arrays.emission)
+        out[name] = (step, params,
+                     target_of(np.zeros((H, W, 3), np.float32)), spp)
+    return out
+
+
+def rates_ab(T, parent: str, dev, card) -> dict:
+    """Phase 5 A/B: the fwd+bwd Msamples/s of bench.py's three training
+    steps (step_rate) on the parent tree T and on this one, in the order
+    parent, this, this, parent, twice. Returns {step: (parent median,
+    this median)}."""
+    cases = {"parent": step_cases(T, dev), "this": step_cases(THIS_TREE,
+                                                              dev)}
+    out = {}
+    for name in cases["this"]:
+        runs = {"parent": [], "this": []}
+        for who in ["parent", "this", "this", "parent"] * 2:
+            step, params, target, spp = cases[who][name]
+            runs[who].append(step_rate(step, params, target, spp)[0])
+        pm, tm = (float(np.median(runs[w])) for w in ("parent", "this"))
+        phase(f"phase 5 A/B: fwd+bwd {name} {W}x{H}: {parent} {pm:.1f} "
+              f"Msamples/s, this {tm:.1f} ({(tm - pm) / pm:+.2%}); rates "
+              f"{parent} {[round(x, 1) for x in runs['parent']]}, this "
+              f"{[round(x, 1) for x in runs['this']]}; card {card}")
+        out[name] = (pm, tm)
+    return out
+
+
 def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas):
     """Phase 5 A/B: another tree (`parent`: a checkout, or a copy of the
     package with one edit) against this one, each on its own code
@@ -1257,6 +1412,12 @@ def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas):
           f"{family}")
     if moved:
         raise AssertionError(f"phase 5 A/B: ptxas counts moved: {moved}")
+    fwd_moved = {k: v for k, v in family.items()
+                 if not k.startswith("grad") and v[0] != v[1]}
+    phase(f"phase 5 A/B: ptxas of the forward instantiations (the K1 family "
+          f"without the gradient kernels), {parent} then this: "
+          f"{'unchanged' if not fwd_moved else fwd_moved}")
+    sass = same_sass(T, parent)
     out = {}
     for name, spec in specs.items():
         fns = {"parent": tree_case(T, spec, dev),
@@ -1283,7 +1444,8 @@ def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas):
               f"{[round(x, 4) for x in runs['parent']]}, this "
               f"{[round(x, 4) for x in runs['this']]}; card {card}")
         out[name] = (pm, tm)
-    return out, family
+    rates = rates_ab(T, parent, dev, card)
+    return out, family, sass, rates
 
 
 def nee_timing(ref_nee, tea_nee, card):
@@ -1977,19 +2139,122 @@ def step_rate(step, params, target, spp, n=3):
 
 
 def grad_phase(dev, card, mesh_tris):
-    """Phase 6: K6 against its plain version at W x H x GRAD_SPP, object
-    mode on `reference`, triangle mode on `teapot` and the size-check
-    mesh."""
-    gcfg = RenderConfig(width=W, height=H, samples=GRAD_SPP,
-                        samples_per_pass=GRAD_SPP)
-    g_ref = grad_case("reference", get_scene("reference", gcfg), gcfg,
-                      "object", dev, card)
-    g_tea = grad_case(f"teapot ({mesh_tris['teapot']} triangles)",
-                      get_scene("teapot", gcfg), gcfg, "triangle", dev, card)
-    g_big = grad_case(f"size-check mesh ({mesh_tris['size-check mesh']} "
+    """Phase 6 (and phase 8's K6-tex): the gradient kernel against its plain
+    version at W x H, GRAD_SPP and STEP_SPP samples a launch: object mode
+    on `reference`, triangle mode on `teapot` and the size-check mesh, and
+    texel mode on TEX_TRAIN. Returns {spp: (reference, teapot, size-check,
+    texels)}."""
+    out = {}
+    for spp in (GRAD_SPP, STEP_SPP):
+        gcfg = RenderConfig(width=W, height=H, samples=spp,
+                            samples_per_pass=spp)
+        out[spp] = (
+            grad_case("reference", get_scene("reference", gcfg), gcfg,
+                      "object", dev, card),
+            grad_case(f"teapot ({mesh_tris['teapot']} triangles)",
+                      get_scene("teapot", gcfg), gcfg, "triangle", dev,
+                      card),
+            grad_case(f"size-check mesh ({mesh_tris['size-check mesh']} "
                       "triangles)", size_check_scene(gcfg, get_scene), gcfg,
-                      "triangle", dev, card)
-    return g_ref, g_tea, g_big
+                      "triangle", dev, card),
+            grad_case(TEX_TRAIN, get_scene(TEX_TRAIN, gcfg), gcfg, "texel",
+                      dev, card))
+    return out
+
+
+def grad_split(trees, ptxas_of, dev, card):
+    """Phase 6 (the gradient kernel's split): each row of GRAD_ROWS at
+    W x H x GRAD_SPP and at its main path's launch size, on this tree and
+    on the trees of `--grad-split DIR` (e.g. tools/grad_variants.py's
+    timing copies: the replay alone, the tape written, the reverse walk
+    with its adds to a register; their gradients are not checked), timed
+    in turns (10 launches, through the trees and back, twice). `trees` is
+    [(tag, tree)], this tree first; `ptxas_of`: tag -> ptxas counts, whose
+    gradient instantiations are printed. Returns ({row: {spp: {tag: median
+    ms}}}, {tag: gradient ptxas})."""
+    order = [tag for tag, _ in trees]
+    out = {}
+    for row, spec in GRAD_ROWS.items():
+        for spp in sorted({GRAD_SPP, GRAD_MAIN_SPP[spec["kind"]]}):
+            fns = {tag: tree_case(T, dict(spec, spp=spp), dev)
+                   for tag, T in trees}
+            runs = {tag: [] for tag in order}
+            for tag in (order + order[::-1]) * 2:
+                runs[tag].append(cuda_ms(fns[tag], 10))
+            res = {tag: float(np.median(runs[tag])) for tag in order}
+            phase(f"phase 6 grad split: {row} {W}x{H}x{spp} spp: " + ", ".join(
+                f"{tag} {ms:.4f} ms ({ms / res[order[0]]:.3f}x)"
+                for tag, ms in res.items()) + f"; timings "
+                f"{ {t: [round(x, 4) for x in r] for t, r in runs.items()} }"
+                f"; card {card}")
+            out.setdefault(row, {})[spp] = res
+    ptx = {}
+    for tag in order:
+        ptx[tag] = {k: list(v) for k, v in ptxas_of[tag].items()
+                    if k.startswith("grad")}
+        phase(f"phase 6 grad split: ptxas (registers, stack, spill stores, "
+              f"spill loads) of {tag}'s gradient instantiations: {ptx[tag]}")
+    return out, ptx
+
+
+def grad_curve(dev, card):
+    """Phase 6 (the spp-per-launch curve): each row of GRAD_ROWS at W x H
+    and GRAD_CURVE samples a launch (10 launches a timing, the sizes in
+    turns, twice), with its time a sample and a 32-spp launch against
+    eight 4-spp ones. Returns {row: {spp: median ms}}."""
+    out = {}
+    for row, spec in GRAD_ROWS.items():
+        fns = {spp: tree_case(THIS_TREE, dict(spec, spp=spp), dev)
+               for spp in GRAD_CURVE}
+        runs = {spp: [] for spp in GRAD_CURVE}
+        for spp in (GRAD_CURVE + GRAD_CURVE[::-1]) * 2:
+            runs[spp].append(cuda_ms(fns[spp], 10))
+        ms = {spp: float(np.median(r)) for spp, r in runs.items()}
+        lo, hi = GRAD_CURVE[0], GRAD_CURVE[-1]
+        phase(f"phase 6 curve: {row} {W}x{H}: " + ", ".join(
+            f"{spp} spp {m:.4f} ms ({m * 1e6 / (W * H * spp):.4f} ns a "
+            f"sample)" for spp, m in ms.items()) + f"; a {hi}-spp launch "
+            f"{ms[hi] / (ms[lo] * hi / lo):.3f}x {hi // lo} {lo}-spp ones; "
+            f"card {card}")
+        out[row] = ms
+    return out
+
+
+def leaf_counts(dev, card):
+    """Phase 4 (leaf sizes): on `gopher` and the size-check mesh, with and
+    without NEE, one W x H x 8 segment on the driver's mesh layout packed at
+    the port's leaf size and at the JAX package's (32 up to 8000
+    triangles, else 16): the slots whose sums differ (another leaf size
+    renumbers the slots, so the walk may pick another triangle at an
+    exact-t tie). Returns {"scene[ --nee]": differing slots}."""
+    out = {}
+    for name in ("gopher", "size-check mesh"):
+        for nee in (False, True):
+            cfg = RenderConfig(width=W, height=H, samples=8,
+                               samples_per_pass=8, nee=nee)
+            sums = {}
+            for leaf in (None, "jax"):
+                sc = (size_check_scene(cfg, get_scene)
+                      if name == "size-check mesh" else get_scene(name, cfg))
+                env = {}
+                if leaf == "jax":
+                    env["PT_BVH_LEAF"] = str(32 if n_triangles(sc) <= 8000
+                                             else 16)
+                with env_vars(env):
+                    tabs, meta, _, lay = port_inputs(sc, cfg, MESH_TILE,
+                                                     dev)
+                sums[leaf] = (meta.leaf_size, torch.stack(mk.trace_tiles(
+                    (1, 0), *tabs, meta=meta, cfg=cfg, spp=8,
+                    total_samples=8, tile=MESH_TILE, **lay)).cpu().numpy())
+            (pl, a), (jl, b) = sums[None], sums["jax"]
+            tag = f"{name}{' --nee' if nee else ''}"
+            out[tag] = int((a != b).any(axis=0).sum())
+            phase(f"phase 4 leaf: {tag} {W}x{H}x8 spp: the segment at leaf "
+                  f"{jl} (the JAX package's rule) against leaf {pl}: "
+                  f"{out[tag]} of {a[0].size} slots differ (image-mean rel "
+                  f"diff {np.abs(a.mean((1, 2)) - b.mean((1, 2))).max() / b.mean():.2e}"
+                  f"); card {card}")
+    return out
 
 
 def training_phase(dev, card, mesh_tris):
@@ -2023,10 +2288,8 @@ def training_phase(dev, card, mesh_tris):
     check_falls(f"phase 7: reference {W}x{H}, {STEP_SPP} spp a step, "
                 f"sphere colors {spheres[:2]} perturbed", losses)
     # the rates: bench.py's steps (the default step size, a zero target)
-    zero = target_of(np.zeros((H, W, 3), np.float32))
-    rate, dt = step_rate(
-        make_megakernel_step(rarr, rmeta, rcfg, rsc.camera, spp=STEP_SPP)[0],
-        (rarr.color, rarr.emission), zero, STEP_SPP)
+    rate, dt = step_rate(*step_cases(THIS_TREE, dev, ["reference"])[
+        "reference"])
     phase(f"phase 7: reference fwd+bwd {rate:.1f} Msamples/s ({W}x{H}x"
           f"{STEP_SPP} spp x 3 steps in {dt:.4f} s, bench.py's "
           f"measurement); card {card}")
@@ -2052,11 +2315,8 @@ def training_phase(dev, card, mesh_tris):
     check_falls(f"phase 7: teapot ({mesh_tris['teapot']} triangles) "
                 f"{W}x{H}, {TRI_STEP_SPP} spp a step, triangle colors",
                 losses)
-    tzero = ttarget_of(np.zeros((H, W, 3), np.float32))
-    trate, tdt = step_rate(
-        make_megakernel_step_tri(tarr, tmeta, tcfg, tsc.camera, n_passes=1,
-                                 tile=GRAD_TILE, spp=TRI_STEP_SPP)[0],
-        (tarr.color, tarr.emission, tarr.tri_color), tzero, TRI_STEP_SPP)
+    trate, tdt = step_rate(*step_cases(THIS_TREE, dev, [
+        "teapot triangles"])["teapot triangles"])
     phase(f"phase 7: teapot triangle-mode fwd+bwd {trate:.1f} Msamples/s "
           f"({W}x{H}x{TRI_STEP_SPP} spp x 3 steps in {tdt:.4f} s); card "
           f"{card}")
@@ -2183,11 +2443,7 @@ def tex_training(dev, card):
     check_falls(f"phase 8: {TEX_TRAIN} {W}x{H}, {STEP_SPP} spp a step, "
                 f"{int(train.sum())} texels x 3 perturbed (texel MAD {mad0:.5f}"
                 f" -> {mad1:.5f})", losses)
-    step, target_of = make_megakernel_step_tex(arrays, meta, cfg, sc.camera,
-                                               spp=STEP_SPP)
-    zero = target_of(np.zeros((H, W, 3), np.float32))
-    rate, dt = step_rate(step, (arrays.color, arrays.emission, tex_true),
-                         zero, STEP_SPP)
+    rate, dt = step_rate(*step_cases(THIS_TREE, dev, [TEX_TRAIN])[TEX_TRAIN])
     phase(f"phase 8: {TEX_TRAIN} fwd+bwd {rate:.1f} Msamples/s ({W}x{H}x"
           f"{STEP_SPP} spp x 3 steps in {dt:.4f} s, bench.py's "
           f"fwd_bwd_{TEX_TRAIN} measurement); card {card}")
@@ -2222,6 +2478,47 @@ def tex_training(dev, card):
     return dict(rate=rate, losses=losses, mad=(mad0, mad1), **launches)
 
 
+def main_size(grads, i):
+    """Row i of grad_phase's results at STEP_SPP samples a launch, for the
+    kernels line."""
+    g = grads[STEP_SPP][i]
+    return dict(spp=STEP_SPP, ms=g["ms"], plain_ms=g["plain_ms"],
+                bound_ms=g["bound_ms"], bound_by=g["bound_by"],
+                max_abs_err=g["max_abs_err"], gcol_rel_err=g["gcol"],
+                gemi_rel_err=g["gemi"])
+
+
+def grad_phases(args, dev, card, mesh_tris, ptxas):
+    """Phase 6: the split of `--grad-split`'s trees (none: this tree
+    alone), the spp-per-launch curve and the gradient kernel against its
+    plain version at both launch sizes. Returns (grad_phase's results, the
+    curve, the split)."""
+    trees, ptxas_of = [("this", THIS_TREE)], {"this": ptxas_counts(ptxas)}
+    for i, d in enumerate(args.grad_split):
+        T = load_tree(d, f"grad_tree_{i}")
+        T.mk.library()
+        trees.append((d, T))
+        ptxas_of[d] = ptxas_counts(ptxas_lines(
+            T.build._target("megakernel").with_suffix(".log").read_text()))
+    split = grad_split(trees, ptxas_of, dev, card)
+    curve = grad_curve(dev, card)
+    return grad_phase(dev, card, mesh_tris), curve, split
+
+
+def grad_only(args, dev, card, ptxas):
+    """--grad-only: phase 6 (grad_phases) and the A/B of --ab-parent, the
+    forward instantiations' ptxas counts beside each tree's."""
+    small = RenderConfig(width=160, height=120, samples=8)
+    mesh_tris = {"teapot": n_triangles(get_scene("teapot", small)),
+                 "size-check mesh": n_triangles(size_check_scene(
+                     small, get_scene))}
+    grad_phases(args, dev, card, mesh_tris, ptxas)
+    for i, d in enumerate(args.ab_parent):
+        phase(f"phase 5 A/B: against {d}")
+        ab_parent(d, f"ab_tree_{i}", AB_CASES, dev, card, ptxas)
+    phase("grad-only: done")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab-parent", metavar="DIR", action="append",
@@ -2235,6 +2532,17 @@ def main(argv=None) -> int:
                          "pathtracer_tpu_torch under DIR too, e.g. a copy "
                          "made by tools/tex_variants.py; may be given more "
                          "than once")
+    ap.add_argument("--grad-split", metavar="DIR", action="append",
+                    default=[],
+                    help="time the gradient kernel's rows (phase 6) on the "
+                         "pathtracer_tpu_torch under DIR too, e.g. a copy "
+                         "made by tools/grad_variants.py; may be given more "
+                         "than once")
+    ap.add_argument("--grad-only", action="store_true",
+                    help="after the build, run the gradient kernel's phases "
+                         "alone (the split, the curve, phase 6 against the "
+                         "plain version, the A/B of --ab-parent) and print "
+                         "no result lines")
     args = ap.parse_args(argv)
     # ---- phase 1: the card ----------------------------------------------
     smi = subprocess.run(
@@ -2257,8 +2565,19 @@ def main(argv=None) -> int:
     ptxas = ptxas_lines(log.read_text() if log.exists() else "")
     for line in ptxas + ptxas_lines(plib.with_suffix(".log").read_text()):
         phase(f"phase 2: ptxas: {line}")
+    others = list(dict.fromkeys(args.ab_parent + args.tex_split
+                                + args.grad_split))
+    if others:
+        t0 = time.perf_counter()
+        prebuild(others)
+        phase(f"phase 2: built the kernels of {len(others)} other trees "
+              f"({len(others)} nvcc at once) in "
+              f"{time.perf_counter() - t0:.1f} s")
     # P2 first: the bounds of every later phase divide by its rate
     p2_rates, p2_row = op_rate_phase(dev, card)
+    if args.grad_only:
+        grad_only(args, dev, card, ptxas)
+        return 0
 
     # ---- phase 3: kernel vs plain version on the card -------------------
     small = RenderConfig(width=160, height=120, samples=16,
@@ -2352,6 +2671,9 @@ def main(argv=None) -> int:
         # ---- phase 4 (the walks): teapot under the knobs, this slice's --
         walk_main = {tag: variant_main_path(tmp, dev, card, tag, env, tea)
                      for tag, env in MAIN_WALKS}
+    # the other meshes at the JAX package's leaf size, with and without NEE
+    leaf_diff = {"teapot": tea["leaf_diff"],
+                 "teapot --nee": tea_nee["leaf_diff"], **leaf_counts(dev, card)}
     errs.append(ref["err"])
     mesh_errs.append(tea["err"])
     tex_errs.append(tex_main["err"])
@@ -2468,15 +2790,12 @@ def main(argv=None) -> int:
                                             "teapot": mkw["meta"]}, card)
     sweep = leaf_sweep(dev, card)
 
-    g_ref, g_tea, g_big = grad_phase(dev, card, mesh_tris)
+    grads, curve, gsplit = grad_phases(args, dev, card, mesh_tris, ptxas)
+    g_ref, g_tea, g_big, g_tex = grads[GRAD_SPP]
     rate, trate, k6_obj, k6_tri = training_phase(dev, card, mesh_tris)
 
     # ---- phase 8: the texel path (K6-tex, f32 texels) -------------------
     f32_fwd = tex_forward(dev, card)
-    tcfg4 = RenderConfig(width=W, height=H, samples=GRAD_SPP,
-                         samples_per_pass=GRAD_SPP)
-    g_tex = grad_case(TEX_TRAIN, get_scene(TEX_TRAIN, tcfg4), tcfg4, "texel",
-                      dev, card)
     phase(f"phase 8: K6-tex {g_tex['ms']:.4f} ms vs K6 on reference "
           f"{g_ref['ms']:.4f} ms for the same {W}x{H}x{GRAD_SPP} samples "
           f"({g_tex['ms'] / g_ref['ms']:.2f}x); card {card}")
@@ -2523,11 +2842,13 @@ def main(argv=None) -> int:
          "size_check_bit_equal_frac": s_bit_eq,
          "triangles": mesh_tris, "ptxas": ptxas, "split": split,
          "leaf_sweep": sweep, "leaf": mkw["meta"].leaf_size,
-         "slots_differing_at_jax_leaf": {"teapot": tea["leaf_diff"],
-                                         "teapot --nee": tea_nee["leaf_diff"]},
+         "slots_differing_at_jax_leaf": leaf_diff,
          "ab_parent": {d: {"ms": {k: list(v) for k, v in a[0].items()},
                            "ptxas": {k: [list(x) if x else None for x in v]
-                                     for k, v in a[1].items()}}
+                                     for k, v in a[1].items()},
+                           "sass_differ": a[2].get("differ"),
+                           "fwd_bwd_msamples_per_s": {
+                               k: list(v) for k, v in a[3].items()}}
                        for d, a in ab.items()}},
         {"name": "grad-megakernel", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
@@ -2538,6 +2859,8 @@ def main(argv=None) -> int:
          "plain_ms": g_ref["plain_ms"], "bound_ms": g_ref["bound_ms"],
          "bound_by": g_ref["bound_by"], "library_ms": None,
          "relaunch_bit_identical": g_ref["same_bits"],
+         "at_step_spp": main_size(grads, 0), "spp_curve": curve["K6 reference"],
+         "split": gsplit,
          "fwd_bwd_msamples_per_s": rate,
          "fwd_bwd_shape": f"reference {W}x{H}x{STEP_SPP}spp x 3 steps"},
         {"name": "grad-megakernel-tri", "route": "cuda",
@@ -2550,6 +2873,9 @@ def main(argv=None) -> int:
          "plain_ms": g_tea["plain_ms"], "bound_ms": g_tea["bound_ms"],
          "bound_by": g_tea["bound_by"], "library_ms": None,
          "relaunch_bit_identical": g_tea["same_bits"],
+         "at_step_spp": main_size(grads, 1),
+         "spp_curve": curve["K6 teapot triangles"],
+         "size_check_at_step_spp": main_size(grads, 2),
          "size_check_ms": g_big["ms"],
          "size_check_plain_ms": g_big["plain_ms"],
          "size_check_gtri_slot_frac": g_big["gtri_frac"],
@@ -2590,6 +2916,8 @@ def main(argv=None) -> int:
          "plain_ms": g_tex["plain_ms"], "bound_ms": g_tex["bound_ms"],
          "bound_by": g_tex["bound_by"], "library_ms": None,
          "relaunch_bit_identical": g_tex["same_bits"],
+         "at_step_spp": main_size(grads, 3),
+         "spp_curve": curve["K6-tex textures-train"],
          "vs_k6_reference": g_tex["ms"] / g_ref["ms"],
          "fwd_bwd_msamples_per_s": tex_train["rate"],
          "fwd_bwd_shape": f"{TEX_TRAIN} {W}x{H}x{STEP_SPP}spp x 3 steps",

@@ -91,12 +91,25 @@
 // except that a direct light hit (which overwrote the sum with the light's
 // color) gives that color `cot` and nothing else a gradient. A refraction
 // bounce adds nothing and leaves T unchanged, so it takes no tape entry,
-// and entries past a path's end do not exist. The tape is a per-thread
-// array of at most kMaxTape entries (local memory). Per-object sums go to
-// n_obj*6 floats of shared memory by shared atomics and then one global
-// atomic add per nonzero entry per block; per-triangle sums (gtri) go
-// straight to global memory by atomic add, where the TPU needed a one-hot
-// MXU scatter or an HBM tape. Float atomics add in any order, so the
+// and entries past a path's end do not exist.
+//
+// The tape is a per-thread array of at most kMaxTape entries (local
+// memory).
+//
+// What bounds it: the replay is K1's work, and on the card the tape's
+// writes and the reverse walk's arithmetic add 5-20% to it; the adds cost
+// the rest, about 60% of the kernel with one lane an add (PERF.md §6).
+// Most lanes of a warp add into the same few objects' sums at each step,
+// and a shared float atomic serialises over the lanes that share an
+// address. So the warp walks its lanes' tapes backwards together, and at
+// each step the lanes with one target are merged first (warp_sum:
+// __match_any_sync, then shuffles in a fixed lane order), the lowest
+// adding once: into n_obj*6 floats of shared memory (one global add per
+// nonzero entry per block at the end), or, for per-triangle sums, into
+// gtri [n, 4] in global memory by one 16-byte atomic, where the TPU needed
+// a one-hot MXU scatter or an HBM tape. (A tape in shared memory, slimmer
+// and sized by max_bounces, was no faster for K6 and made K6-tex slower:
+// fewer blocks an SM; PERF.md §6.) Float atomics add in any order, so the
 // gradient sums are not bit-reproducible; the forward instantiations
 // (kGrad = false) compile to the code they had before: every grad-only
 // variable is dead there.
@@ -111,7 +124,8 @@
 // values they render the rgb8 image bit for bit). The kGrad + kTex + kF32
 // instantiation tapes the (u, v) of each bounce's color fetch and, in the
 // reverse walk, adds the bounce's dS/dc times the four bilinear weights
-// into gtex [T, 3] by global atomic adds (scatter_texels), for winners whose
+// into gtex [T, 4] by one 16-byte atomic a tap (scatter_texels; a lane's
+// four taps are four targets, so they are not merged), for winners whose
 // texture is trainable (bit j of tex_train: a texture the JAX package
 // stages). A textured winner's object color gets no gradient (the texel
 // overwrote it); its emission still does.
@@ -182,6 +196,7 @@ constexpr int kThreads = 128;
 constexpr int kMaxObjects = 64;  // type codes travel in the launch params
 constexpr int kMaxTape = 16;     // grad kernel: tape entries >= max_bounces
 constexpr int kGradCols = 6;     // grad kernel: color rgb | emission rgb
+constexpr int kNoTarget = -2147483647 - 1;  // grad kernel: a lane adds nothing
 constexpr int kTexCols = 12;     // texture table columns (see above)
 // a texture row staged in shared memory: the table's 12 columns, then the
 // reciprocals 1/w, 1/h of the color texture and 1/w, 1/h of the normal map
@@ -653,9 +668,18 @@ __device__ __forceinline__ void add_nonzero(float* a, float v) {
   if (v != 0.0f) atomicAdd(a, v);
 }
 
+// (r, g, b) added into a 16-byte row of a [n, 4] table in global memory by
+// one vector atomic (compute capability 9.x), skipped when all are zero
+__device__ __forceinline__ void add_rgb(float* row, float r, float g,
+                                        float b) {
+  if (r != 0.0f || g != 0.0f || b != 0.0f)
+    atomicAdd(reinterpret_cast<float4*>(row), make_float4(r, g, b, 0.0f));
+}
+
 // Transpose of sample_texels: the bounce's dS/dc (gr, gg, gb) times each
-// tap's bilinear weight, added into gtex [n, 3] at the fetch's indices (tt:
-// the winner's staged texture row, whose color texture was fetched).
+// tap's bilinear weight, added into gtex [n, 4] (rgb and a pad column that
+// stays 0) at the fetch's indices, one vector atomic a tap (tt: the
+// winner's staged texture row, whose color texture was fetched).
 __device__ __forceinline__ void scatter_texels(float* gtex, int n,
                                                const float* tt, float u,
                                                float v, float gr, float gg,
@@ -667,12 +691,37 @@ __device__ __forceinline__ void scatter_texels(float* gtex, int n,
   const float wt[4] = {(1.0f - tx) * (1.0f - ty), tx * (1.0f - ty),
                        (1.0f - tx) * ty, tx * ty};
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    float* g = gtex + (size_t)idx[k] * 3;
-    add_nonzero(g, gr * wt[k]);
-    add_nonzero(g + 1, gg * wt[k]);
-    add_nonzero(g + 2, gb * wt[k]);
+  for (int k = 0; k < 4; ++k)
+    add_rgb(gtex + (size_t)idx[k] * 4, gr * wt[k], gg * wt[k], gb * wt[k]);
+}
+
+constexpr int kGradThreads = kThreads;  // a gradient block's threads
+
+// Sum v over the lanes of `lanes` whose key is this lane's (grouped by
+// __match_any_sync), by shuffles in a fixed order: a tree over the group's
+// ranks (its lanes in increasing order), so a group's sum depends on its
+// members alone. Every lane of `lanes` must call it with the same N.
+// Returns whether this lane is its group's lowest, which then holds the
+// sums.
+template <int N>
+__device__ __forceinline__ bool warp_sum(unsigned lanes, int key,
+                                         float (&v)[N]) {
+  const unsigned peers = __match_any_sync(lanes, key);
+  const unsigned lane = threadIdx.x & 31u;
+  const int rank = __popc(peers & ((1u << lane) - 1u));
+  const int n = __popc(peers);
+  const int most = (int)__reduce_max_sync(lanes, (unsigned)n);
+  for (int off = 1; off < most; off <<= 1) {
+    // the lane of rank `rank + off` (fns: its (rank + off + 1)-th set bit)
+    const bool take = (rank & (2 * off - 1)) == 0 && rank + off < n;
+    const int src = take ? (int)__fns(peers, 0u, rank + off + 1) : (int)lane;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float x = __shfl_sync(lanes, v[i], src);
+      if (take) v[i] += x;
+    }
   }
+  return rank == 0;
 }
 
 // ---- BVH walk (pallas_kernel.py:1231-1540, one ray) -------------------------
@@ -1692,71 +1741,87 @@ __device__ __forceinline__ void megakernel_body(const Params& p) {
     }
     if constexpr (kGrad) {
       // ---- this sample's backward pass (pallas_grad.py:806-939) --------
-      if (direct) {
-        // a direct light hit overwrote the sum with the light's color:
-        // that color alone has a gradient (a textured light's: its texels)
-        bool own = true;
-        if constexpr (kTex) {
-          const float* tt = s_tex + t_id[0] * kTexRow;
-          if ((p.tex_train >> t_id[0]) & 1ull)
-            scatter_texels(p.gtex, p.n_texels, tt, t_u[0], t_v[0], cot_r,
-                           cot_g, cot_b);
-          own = !(tt[0] > 0.5f);
-        }
-        if (own) {
-          float* g = s_g + t_id[0] * kGradCols;
-          add_nonzero(g, cot_r);
-          add_nonzero(g + 1, cot_g);
-          add_nonzero(g + 2, cot_b);
-        }
-      } else {
-        float T_r = 0.0f, T_g = 0.0f, T_b = 0.0f;
-        for (int k = nb - 1; k >= 0; --k) {
+      // The warp walks its lanes' tapes backwards together, to the longest
+      // (a lane past its own end adds nothing), so that at each step the
+      // lanes that add into one target (an object's six sums, a
+      // triangle's row) are merged first and the group's lowest lane adds
+      // once: into the shared sums, or by one vector atomic into gtri. A
+      // direct light hit (the tape's one entry) overwrote the sum with the
+      // light's color: that color alone has a gradient, cot (a textured
+      // light's: its texels).
+      const unsigned lanes = __activemask();
+      const int steps = (int)__reduce_max_sync(lanes, (unsigned)nb);
+      float T_r = 0.0f, T_g = 0.0f, T_b = 0.0f;
+      for (int k = steps - 1; k >= 0; --k) {
+        int key = kNoTarget;
+        float v[kGradCols] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (k < nb) {
           const int id = t_id[k];
           const bool upd = (upd_bits >> k) & 1u;
           const float cosb = t_cos[k];
           const float mr = t_m[3 * k], mg = t_m[3 * k + 1],
                       mb = t_m[3 * k + 2];
-          if (upd) {
-            const float gr = cot_r * cosb * mr * T_r;
-            const float gg = cot_g * cosb * mg * T_g;
-            const float gb = cot_b * cosb * mb * T_b;
-            float* g = id >= 0 ? s_g + id * kGradCols
-                     : p.gtri != nullptr ? p.gtri + (size_t)(-1 - id) * 3
-                                         : nullptr;
-            if constexpr (kTex) {
-              if (id >= 0) {
-                // a textured winner's color is its texel: the gradient
-                // goes to the texels when they train, else nowhere
-                const float* tt = s_tex + id * kTexRow;
-                if ((p.tex_train >> id) & 1ull)
-                  scatter_texels(p.gtex, p.n_texels, tt, t_u[k], t_v[k], gr,
-                                 gg, gb);
-                if (tt[0] > 0.5f) g = nullptr;
-              }
-            }
-            if (g != nullptr) {
-              add_nonzero(g, gr);
-              add_nonzero(g + 1, gg);
-              add_nonzero(g + 2, gb);
+          // dS/dc of this bounce's color, where it has one
+          bool col = direct || upd;
+          float gr = cot_r, gg = cot_g, gb = cot_b;
+          if (!direct) {
+            gr = cot_r * cosb * mr * T_r;
+            gg = cot_g * cosb * mg * T_g;
+            gb = cot_b * cosb * mb * T_b;
+          }
+          if constexpr (kTex) {
+            if (id >= 0) {
+              // a textured winner's color is its texel: the gradient goes
+              // to the texels when they train, else nowhere
+              const float* tt = s_tex + id * kTexRow;
+              if (col && ((p.tex_train >> id) & 1ull))
+                scatter_texels(p.gtex, p.n_texels, tt, t_u[k], t_v[k], gr,
+                               gg, gb);
+              if (tt[0] > 0.5f) col = false;
             }
           }
-          float er = 0.0f, eg = 0.0f, eb = 0.0f;
           if (id >= 0) {
-            float* g = s_g + id * kGradCols + 3;
-            add_nonzero(g, cot_r * mr);
-            add_nonzero(g + 1, cot_g * mg);
-            add_nonzero(g + 2, cot_b * mb);
-            er = s_obj[id * kObjCols + 27];
-            eg = s_obj[id * kObjCols + 28];
-            eb = s_obj[id * kObjCols + 29];
+            key = id;
+            if (col) {
+              v[0] = gr;
+              v[1] = gg;
+              v[2] = gb;
+            }
+            if (!direct) {
+              v[3] = cot_r * mr;
+              v[4] = cot_g * mg;
+              v[5] = cot_b * mb;
+            }
+          } else if (col && p.gtri != nullptr) {
+            key = id;
+            v[0] = gr;
+            v[1] = gg;
+            v[2] = gb;
           }
-          const float sc_r = upd ? t_c[3 * k] * cosb : 1.0f;
-          const float sc_g = upd ? t_c[3 * k + 1] * cosb : 1.0f;
-          const float sc_b = upd ? t_c[3 * k + 2] * cosb : 1.0f;
-          T_r = er + sc_r * T_r;
-          T_g = eg + sc_g * T_g;
-          T_b = eb + sc_b * T_b;
+          if (!direct && k > 0) {
+            // T for the entry before (none after entry 0)
+            float er = 0.0f, eg = 0.0f, eb = 0.0f;
+            if (id >= 0) {
+              er = s_obj[id * kObjCols + 27];
+              eg = s_obj[id * kObjCols + 28];
+              eb = s_obj[id * kObjCols + 29];
+            }
+            const float sc_r = upd ? t_c[3 * k] * cosb : 1.0f;
+            const float sc_g = upd ? t_c[3 * k + 1] * cosb : 1.0f;
+            const float sc_b = upd ? t_c[3 * k + 2] * cosb : 1.0f;
+            T_r = er + sc_r * T_r;
+            T_g = eg + sc_g * T_g;
+            T_b = eb + sc_b * T_b;
+          }
+        }
+        if (warp_sum(lanes, key, v) && key != kNoTarget) {
+          if (key >= 0) {
+            float* g = s_g + key * kGradCols;
+#pragma unroll
+            for (int i = 0; i < kGradCols; ++i) add_nonzero(g + i, v[i]);
+          } else {
+            add_rgb(p.gtri + (size_t)(-1 - key) * 4, v[0], v[1], v[2]);
+          }
         }
       }
     }
@@ -1793,7 +1858,7 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
 // 5-10% slower.)
 constexpr int kGradBlocks = 8;
 template <bool kMesh, bool kTex, bool kF32>
-__global__ void __launch_bounds__(kThreads, kGradBlocks)
+__global__ void __launch_bounds__(kGradThreads, kGradBlocks)
     grad_megakernel(Params p) {
   megakernel_body<kMesh, true, kTex, kF32>(p);
 }
@@ -1838,14 +1903,15 @@ int launch(Params& p, const int* obj_types, const int* group_root,
       sizeof(float) * (size_t)(p.n_obj * (kObjCols + (kGrad ? kGradCols : 0) +
                                           (kTex ? kTexRow : 0)) +
                                kCamCols);
-  const int blocks = (p.n_slots + kThreads - 1) / kThreads;
+  const int threads = kGrad ? kGradThreads : kThreads;
+  const int blocks = (p.n_slots + threads - 1) / threads;
   const cudaStream_t s = (cudaStream_t)stream;
   if (blocks > 0) {
     if constexpr (kGrad) {
       if (mesh)
-        grad_megakernel<true, kTex, kF32><<<blocks, kThreads, smem, s>>>(p);
+        grad_megakernel<true, kTex, kF32><<<blocks, threads, smem, s>>>(p);
       else
-        grad_megakernel<false, kTex, kF32><<<blocks, kThreads, smem, s>>>(p);
+        grad_megakernel<false, kTex, kF32><<<blocks, threads, smem, s>>>(p);
     } else {
       if (mesh)
         megakernel<true, false, kTex, kF32, kNee>
@@ -2441,10 +2507,11 @@ extern "C" int pt_sincos_launch(const float* x, float* s, float* c, int n,
 // with spp samples per slot and no sample packing (the layout of the
 // differentiable render's primal), and the backward pass against the
 // per-slot cotangents cot_* [n_slots]. gobj [n_obj, 6] (color rgb,
-// emission rgb) and gtri [n_tri_slots, 3] (null for object gradients
-// only) must be zeroed by the caller; the kernel adds into them. n_slots
-// must be a multiple of the block size (128) and max_bounces at most
-// kMaxTape (16). Returns as pt_megakernel_launch does.
+// emission rgb) and gtri [n_tri_slots, 4] (rgb and a pad column; 16-byte
+// aligned; null for object gradients only) must be zeroed by the caller;
+// the kernel adds into them. n_slots must be a multiple of the block size
+// (kGradThreads, 128) and max_bounces at most kMaxTape (16). Returns as
+// pt_megakernel_launch does.
 extern "C" int pt_grad_launch(
     const float* cot_r, const float* cot_g, const float* cot_b, float* gobj,
     float* gtri, const int* px, const int* py, const float* obj,
@@ -2456,7 +2523,8 @@ extern "C" int pt_grad_launch(
     int oct_nodes, float eps, float t_max, float sun_cut, float sun_den,
     float golden2, int coherent, void* stream) {
   if (n_obj < 1 || n_obj > kMaxObjects || leaf_size < 1 ||
-      n_slots % kThreads != 0 || max_bounces > kMaxTape)
+      n_slots % kGradThreads != 0 || max_bounces > kMaxTape ||
+      reinterpret_cast<uintptr_t>(gtri) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   Params p{nullptr, nullptr, nullptr, px, py, obj, cam, nullptr, nullptr,
            n_obj, n_slots, S, L, spp, 1, 0, seed,
@@ -2471,7 +2539,8 @@ extern "C" int pt_grad_launch(
 // Launch the texel-gradient instantiation (K6-tex): pt_grad_launch's
 // arguments, then the n_texels f32 texels [n_texels, 4] the replay fetches
 // from, the texture table [n_obj, 12], the texel gradient sums gtex
-// [n_texels, 3] (zeroed by the caller; the kernel adds into them) and
+// [n_texels, 4] (rgb and a pad column; 16-byte aligned; zeroed by the
+// caller; the kernel adds into them) and
 // tex_train, whose bit j says that object j's texture takes texel
 // gradients. Returns as pt_megakernel_launch does.
 extern "C" int pt_grad_tex_launch(
@@ -2486,10 +2555,10 @@ extern "C" int pt_grad_tex_launch(
     const float* texels, int n_texels, const float* tex_table, float* gtex,
     unsigned long long tex_train) {
   if (n_obj < 1 || n_obj > kMaxObjects || leaf_size < 1 ||
-      n_slots % kThreads != 0 || max_bounces > kMaxTape ||
+      n_slots % kGradThreads != 0 || max_bounces > kMaxTape ||
       texels == nullptr || n_texels < 1 || tex_table == nullptr ||
-      gtex == nullptr ||
-      reinterpret_cast<uintptr_t>(texels) % 16 != 0)
+      gtex == nullptr || reinterpret_cast<uintptr_t>(texels) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(gtex) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   Params p{nullptr, nullptr, nullptr, px, py, obj, cam, nullptr, nullptr,
            n_obj, n_slots, S, L, spp, 1, 0, seed,

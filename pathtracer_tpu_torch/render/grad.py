@@ -31,8 +31,10 @@ a torch.autograd.Function.
 On the TPU the per-triangle scatter was a one-hot MXU matmul
 (`_scatter_slots`) or an HBM tape and `segment_sum`, and the texel scatter
 a transposed one-hot fetch into the staged atlas (`_scatter_staged`, or
-`_scatter_staged_unified` under PT_TEX_UNIFIED); here each is the same
-atomic add in every mode.
+`_scatter_staged_unified` under PT_TEX_UNIFIED); here each is an atomic
+add in every mode: a triangle's or a texel tap's three sums one 16-byte
+atomic into [n, 4] rows (`padded_sums`, returned as [n, 3]), after the
+lanes of a warp that add into the same object or triangle are merged.
 """
 from __future__ import annotations
 
@@ -49,7 +51,7 @@ from . import megakernel as mk
 _TRI_MODES = ("onehot", "tape")
 
 _MAX_TAPE = 16      # kMaxTape of csrc/megakernel.cu
-_BLOCK = 128        # kThreads of csrc/megakernel.cu
+_BLOCK = 128        # kGradThreads of csrc/megakernel.cu
 _GRAD_COLS = 6      # color rgb | emission rgb per object
 
 
@@ -137,6 +139,25 @@ def _check_grad_args(seed, cam_vec, obj_table, node_table, tri_table,
 
 def _split(gobj: torch.Tensor):
     return gobj[:, 0:3].contiguous(), gobj[:, 3:6].contiguous()
+
+
+def check_tape(max_bounces: int) -> None:
+    """Raise ValueError unless the gradient kernel's per-thread tape holds
+    max_bounces entries (kMaxTape)."""
+    if max_bounces > _MAX_TAPE:
+        raise ValueError(f"max_bounces={max_bounces}; the gradient kernel's "
+                         f"tape holds {_MAX_TAPE}")
+
+
+def padded_sums(n: int, device) -> torch.Tensor:
+    """The kernel's [n, 4] f32 sums (rgb and a pad column, so that a row is
+    one 16-byte atomic), zeroed."""
+    return torch.zeros((n, 4), dtype=torch.float32, device=device)
+
+
+def unpadded(g4: torch.Tensor) -> torch.Tensor:
+    """The [n, 3] gradients of padded_sums' [n, 4] rows."""
+    return g4[:, :3].contiguous()
 
 
 def grad_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
@@ -274,9 +295,10 @@ def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
     the current stream (counted in grad_tiles.launches, and in
     .tri_launches with tri_grads or .tex_launches with tex_grads); CPU
     tensors run grad_tiles_reference. The kernel takes whole blocks of 128
-    slots and at most 16 bounces. Raises for NEE, for textures without
-    tex_grads, for normal maps or no staged texture with it, for tri_grads
-    with tex_grads and for the unported mesh walks."""
+    slots and at most 16 bounces (check_tape); its triangle and texel sums
+    are [n, 4] rows (padded_sums), returned as [n, 3]. Raises for NEE, for
+    textures without tex_grads, for normal maps or no staged texture with
+    it, for tri_grads with tex_grads and for the unported mesh walks."""
     if px.device.type != "cuda":
         return grad_tiles_reference(
             seed, cam_vec, obj_table, node_table, tri_table, shade_table, px,
@@ -298,15 +320,12 @@ def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
     if n_slots % _BLOCK:
         raise ValueError(f"{n_slots} slots; the gradient kernel takes whole "
                          f"blocks of {_BLOCK}")
-    if cfg.max_bounces > _MAX_TAPE:
-        raise ValueError(f"max_bounces={cfg.max_bounces}; the gradient "
-                         f"kernel's tape holds {_MAX_TAPE}")
+    check_tape(cfg.max_bounces)
     lib = mk.library()
     S, L = tile
     dev = px.device
     gobj = torch.zeros((n_obj, _GRAD_COLS), dtype=torch.float32, device=dev)
-    gtri = (torch.zeros((meta.n_tri_slots, 3), dtype=torch.float32,
-                        device=dev) if tri_grads else None)
+    gtri = padded_sums(meta.n_tri_slots, dev) if tri_grads else None
     types = (mk._I * n_obj)(*meta.obj_types)
     roots = (mk._I * n_obj)(*([-1] * n_obj))
     ends = (mk._I * n_obj)(*([-1] * n_obj))
@@ -325,8 +344,7 @@ def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if tex_grads:
-            gtex = torch.zeros((tex.shape[0], 3), dtype=torch.float32,
-                               device=dev)
+            gtex = padded_sums(tex.shape[0], dev)
             texels4 = mk.texels_padded(tex)
             train = sum(1 << j for j in staged_objects(meta))
             err = lib.pt_grad_tex_launch(
@@ -342,10 +360,10 @@ def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
     gcol, gemi = _split(gobj)
     if tri_grads:
         grad_tiles.tri_launches += 1
-        return gcol, gemi, gtri
+        return gcol, gemi, unpadded(gtri)
     if tex_grads:
         grad_tiles.tex_launches += 1
-        return gcol, gemi, gtex
+        return gcol, gemi, unpadded(gtex)
     return gcol, gemi
 
 

@@ -2112,7 +2112,8 @@ SIGNATURES = {
     "pt_sincos_launch": ([_P] * 3 + [_I, _P], _I),
     # the gradient kernel's entries, launched by render/grad.py: object and
     # triangle mode, and texel mode (the texels [T, 4], T, the texture
-    # table, gtex [T, 3] and the trainable objects' bit mask)
+    # table, gtex [T, 4] and the trainable objects' bit mask; gtri and
+    # gtex are [n, 4] rows, rgb and a pad column)
     "pt_grad_launch": (
         [_P] * 15 + [_I] * 5 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P],

@@ -18,7 +18,7 @@ This is the JAX package's NumPy builder. The JAX package prefers a native
 builder when it is compiled (native/scenecore.cpp); that builder is not
 bit-identical to this one on every mesh (ROADMAP queue 3), and this
 package always builds with NumPy. The reference-parity group ``divide``
-of the JAX module is not ported (ROADMAP queue 1, item 6).
+of the JAX module is not ported (ROADMAP queue 1, item 16).
 """
 from __future__ import annotations
 

@@ -321,6 +321,87 @@ def test_grad_kernel_matches_plain(dev, name, aperture, base, tri):
     grad_rule(got, want, meta.has_groups)
 
 
+@pytest.mark.parametrize("name,mode", [
+    ("reference", "object"), ("teapot", "triangle"),
+    ("size-check", "triangle"), ("textures-train", "texel")])
+def test_grad_kernel_matches_plain_at_32_spp(dev, name, mode):
+    # the training steps' launch size: the sums of 32 samples a slot,
+    # merged per warp and added in f32, within the gradient rule
+    tabs, meta, arrays, _, cfg, cots = _grad_case(name, dev, width=160,
+                                                  height=120, samples=32)
+    kw = dict(meta=meta, cfg=cfg, spp=32, total_samples=32, tile=(8, 512),
+              tri_grads=mode == "triangle")
+    if mode == "texel":
+        kw.update(tex_grads=True, tex=texel_params(arrays),
+                  tex_table=torch.from_numpy(mk.build_tex_table(
+                      arrays, meta)).to(dev))
+    got = tg.grad_tiles((5, 0), *tabs, *cots, **kw)
+    want = tg.grad_tiles_reference((5, 0), *tabs, *cots, **kw)
+    torch.cuda.synchronize()
+    if mode == "texel":
+        tex_grad_rule(got, want)
+    else:
+        grad_rule(got, want, meta.has_groups)
+
+
+def _aimed(sc, cfg, look_at, fov):
+    """Scene `sc` seen from its camera's position toward `look_at` through
+    a field of view of `fov` radians."""
+    from pathtracer_tpu_torch.render.camera import Camera
+    c = sc.camera
+    origin = c.inverse @ np.array([0.0, 0.0, 0.0, 1.0])
+    sc.camera = Camera(cfg.width, cfg.height, fov, origin,
+                       np.append(np.asarray(look_at, np.float64), 1.0))
+    return sc
+
+
+def test_grad_kernel_every_lane_on_one_object(dev):
+    # a field of view of 1e-4 rad: every lane of every block hits the back
+    # wall first, so each warp merges all 32 lanes' first-bounce sums into
+    # one group (the widest merge) before one lane adds them
+    cfg = RenderConfig(width=160, height=120, samples=4)
+    sc = _aimed(get_scene("reference", cfg), cfg, (0.0, 0.05, 0.0), 1e-4)
+    tabs, meta, _, _ = grad_inputs(sc, cfg, (8, 512), dev)
+    rng = np.random.default_rng(0)
+    cots = [torch.from_numpy(rng.random(tuple(tabs[-2].shape),
+                                        dtype=np.float32)).to(dev)
+            for _ in range(3)]
+    kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4, tile=(8, 512))
+    counts = {}
+    want = tg.grad_tiles_reference((5, 0), *tabs, *cots, counts=counts,
+                                   **kw)
+    got = tg.grad_tiles((5, 0), *tabs, *cots, **kw)
+    torch.cuda.synchronize()
+    assert counts["hits"] >= counts["samples"]
+    grad_rule(got, want, False)
+
+
+def test_grad_kernel_each_lane_on_its_own_triangle(dev):
+    # the size-check mesh (16640 triangles, a sphere of radius 0.07 at 1.58
+    # from the camera) seen through 0.15 rad at 64x48: about 1100 pixels
+    # on its near half's 8320 triangles, so the lanes of a warp hit
+    # different triangles and the merge leaves groups of one, each adding
+    # its own 16-byte row of gtri
+    from pathtracer_tpu_torch.scene.bounds import parent_space_bounds
+    cfg = RenderConfig(width=64, height=48, samples=4)
+    sc = size_check_scene(cfg, get_scene)
+    group = next(o for o in sc.objects if isinstance(o, shapes.Group))
+    box = parent_space_bounds(group)
+    sc = _aimed(sc, cfg, (box.min[:3] + box.max[:3]) / 2, 0.15)
+    tabs, meta, _, _ = grad_inputs(sc, cfg, (8, 512), dev)
+    rng = np.random.default_rng(0)
+    cots = [torch.from_numpy(rng.random(tuple(tabs[-2].shape),
+                                        dtype=np.float32)).to(dev)
+            for _ in range(3)]
+    kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4, tile=(8, 512),
+              tri_grads=True)
+    want = tg.grad_tiles_reference((5, 0), *tabs, *cots, **kw)
+    got = tg.grad_tiles((5, 0), *tabs, *cots, **kw)
+    torch.cuda.synchronize()
+    out = grad_rule(got, want, True)
+    assert out["gtri_slots_hit"] > 100
+
+
 @pytest.mark.parametrize("name", ["reference", "teapot"])
 def test_diff_render_primal_is_bit_equal(dev, name):
     # the autograd Function's forward is the forward kernel on the
