@@ -112,7 +112,15 @@ and the A/B alone. The A/B also compares the forward instantiations'
 SASS (cuobjdump) and measures bench.py's three fwd+bwd rates on both
 trees in turns; phase 4 counts the slots that differ at the JAX
 package's leaf size on `gopher` and the size-check mesh as well, with
-and without NEE. It prints one JSON line of kernel
+and without NEE. For K1's object loop (R4: 16-byte object rows) phase 3
+holds the object loop's filter (plane_skip, round_skip: exact, but not
+taken by the loop) to the exact tests on 2^28 cases a type, phase 5
+times the forward rows of K1_ROWS on this tree and on the trees of
+`--k1-split DIR` (tools/k1_variants.py's copies: the divisions made
+approximate, the filter, the draws taken where read, one sincosf, the
+16-byte rows, the launch shape), and the A/B adds K1 at 128 spp and K5
+on the size-check mesh; `--k1-only` runs the filter check, the split and
+the A/B alone. It prints one JSON line of kernel
 results, each with its bound (the least time the card could take for the
 same work, from the work the plain version counts in this run), and,
 last, one JSON line naming the device.
@@ -167,7 +175,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from _torch_scenes import (ATOL, MEAN_REL, RTOL, SLOT_FRAC,  # noqa: E402
                            bounce_rays, camera_rays, cylinder_scene,
-                           grad_inputs, grad_rule, port_inputs,
+                           filter_cases, grad_inputs, grad_rule, port_inputs,
                            sincos_mismatches, size_check_scene,
                            tex_grad_rule, tie_scene)
 
@@ -185,6 +193,10 @@ TEX_SCENES = ("textures", "envmap", "cubemap", "textures-file")
 TEX_TIMED = ("textures", "cubemap", "envmap-file")
 FETCHES = 1 << 24            # texel-fetch probe: UVs per launch
 WRAP_RANGE = 1 << 25         # phase 3: the wrap checked on [-2^25, 2^25]
+FILTER_CHUNK = 1 << 24       # phase 3: the object loop's filter, cases a call
+FILTER_CASES = 1 << 28       # and a type (plane, sphere, cylinder)
+EPS = RenderConfig().epsilon
+FILTER_Y = (0.0, 0.4)        # the filter cases' cylinder: `default`'s range
 MIP_AREA = 128 * 128         # the JAX package's PT_TEX_MIP_AREA default
 MIP_SPP = 16
 TEX_TRAIN = "textures-train"  # phase 8: bench.py's fwd_bwd_textures-train
@@ -199,6 +211,21 @@ GRAD_ROWS = {
 }
 GRAD_MAIN_SPP = {"grad": STEP_SPP, "tri": TRI_STEP_SPP, "texgrad": STEP_SPP}
 GRAD_CURVE = (4, 8, 16, 32)
+SEG_SPP = 128                # the render driver's samples a `reference` launch
+# the forward kernel's rows (tree_case specs) of its split (--k1-split): K1
+# at the launch the `reference` main path makes and at 8 spp, and the 8-spp
+# rows of K1-mesh, K1-tex and K1-nee, each at the port's own leaf size
+K1_ROWS = {
+    f"K1 reference {SEG_SPP} spp": dict(kind="fwd", scene="reference",
+                                        tile=TILE, spp=SEG_SPP),
+    "K1 reference 8 spp": dict(kind="fwd", scene="reference", tile=TILE),
+    "K1-mesh teapot 8 spp": dict(kind="fwd", scene="teapot", tile=MESH_TILE),
+    "K1-tex textures 8 spp": dict(kind="fwd", scene="textures"),
+    "K1-nee reference 8 spp": dict(kind="fwd", scene="reference", tile=TILE,
+                                   cfg={"nee": True}),
+    "K1-nee teapot 8 spp": dict(kind="fwd", scene="teapot", tile=MESH_TILE,
+                                cfg={"nee": True}),
+}
 
 # The bound: the least time the card could take for a kernel's work, the
 # larger of its f32 operations over the rate the card can issue them and its
@@ -289,6 +316,8 @@ MAIN_WALKS = (
 # both trees' JAX-package rule picks (32 for `teapot`, 16 for the
 # size-check mesh), so that the outputs must be bit-equal
 AB_CASES = {
+    f"K1 reference {W}x{H}x{SEG_SPP} spp": dict(kind="fwd", scene="reference",
+                                                tile=TILE, spp=SEG_SPP),
     f"K1 reference {W}x{H}x8 spp": dict(kind="fwd", scene="reference",
                                         tile=TILE),
     f"K1-mesh teapot {W}x{H}x8 spp": dict(kind="fwd", scene="teapot",
@@ -321,6 +350,8 @@ AB_CASES = {
     f"K5 reference {W * H * 8} rays": dict(kind="isect", scene="reference"),
     f"K5 teapot {W * H * 8} rays": dict(kind="isect", scene="teapot",
                                         leaf=32),
+    f"K5 size-check mesh {W * H * 8} rays": dict(
+        kind="isect", scene="size-check mesh", leaf=16),
     f"K6 reference {W}x{H}x{GRAD_SPP} spp": dict(kind="grad",
                                                  scene="reference",
                                                  spp=GRAD_SPP),
@@ -582,6 +613,8 @@ def kernel_name(mangled: str) -> str:
         return "mma pairs probe"
     if "sincos_check" in mangled:
         return "sincos check"
+    if "filter_check" in mangled:
+        return "filter check"
     m = re.search(r"leaf_benchILi(\d+)E", mangled)
     if m:
         return f"leaf bench {BENCH_WORDS[int(m.group(1))]}"
@@ -1011,6 +1044,35 @@ def fetch_probe(dev, card):
                 bound_by=by)
 
 
+def filter_phase(dev, card):
+    """Phase 3: the object loop's filter (plane_skip, round_skip) held to
+    the exact tests on the card (megakernel.filter_check) over FILTER_CASES
+    seeded random and adversarial cases a type (_torch_scenes.filter_cases,
+    FILTER_CHUNK a call): the cases it skips where the exact t is below the
+    threshold must be 0. Returns {type: numbers}."""
+    out = {}
+    t0 = time.perf_counter()
+    for name, code in (("plane", PLANE), ("sphere", SPHERE),
+                       ("cylinder", CYLINDER)):
+        n = skipped = bad = 0
+        for seed in range(FILTER_CASES // FILTER_CHUNK):
+            ray, thr = filter_cases(code, FILTER_CHUNK, seed, dev, EPS,
+                                    FILTER_Y[0], FILTER_Y[1])
+            s, b = mk.filter_check(code, ray, thr, EPS, *FILTER_Y)
+            n, skipped, bad = n + thr.numel(), skipped + s, bad + b
+        out[name] = dict(cases=n, skipped=skipped, skipped_winners=bad)
+        phase(f"phase 3: the object loop's filter, {name}: {n} cases, "
+              f"{skipped} skipped, {bad} of them with an exact t below the "
+              f"threshold (a winner the loop would miss; must be 0); card "
+              f"{card}")
+        if bad or n < FILTER_CASES:
+            raise AssertionError(f"phase 3: the filter skipped {bad} "
+                                 f"winners of {name}s")
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = mk.filter_check.launches
+    return out
+
+
 def texture_sides(dev):
     """The widths and heights of the textures of the repository's scenes
     (every scene that samples one)."""
@@ -1299,8 +1361,8 @@ def same_sass(T, parent: str) -> dict:
     if theirs is None or ours is None:
         phase("phase 5 A/B: no cuobjdump; the SASS is not compared")
         return {}
-    fwd = sorted(k for k in theirs if not k.startswith(("grad", "wrap",
-                                                         "sincos", "mma")))
+    fwd = sorted(k for k in theirs if not k.startswith((
+        "grad", "wrap", "sincos", "filter", "mma")))
     out = {"same": [k for k in fwd if ours.get(k) == theirs[k]],
            "differ": [k for k in fwd if ours.get(k) != theirs[k]]}
     first = ""
@@ -2197,6 +2259,53 @@ def grad_split(trees, ptxas_of, dev, card):
     return out, ptx
 
 
+def k1_split(trees, ptxas_of, dev, card):
+    """Phase 5 (the forward kernel's split): each row of K1_ROWS at W x H on
+    this tree and on the trees of `--k1-split DIR` (e.g.
+    tools/k1_variants.py's timing copies: the object tests' divisions made
+    approximate, the roulette's draws taken where read, one sincosf for the
+    hemisphere, 16-byte object rows, the launch shape; their outputs are not
+    checked), timed in turns (10 launches a timing, through the trees and
+    back, twice: the median of 4). `trees` is [(tag, tree)], this tree
+    first; `ptxas_of`: tag -> ptxas counts, whose forward instantiations
+    are printed. Returns ({row: {tag: median ms}}, {tag: forward ptxas})."""
+    order = [tag for tag, _ in trees]
+    out = {}
+    for row, spec in K1_ROWS.items():
+        fns = {tag: tree_case(T, spec, dev) for tag, T in trees}
+        runs = {tag: [] for tag in order}
+        for tag in (order + order[::-1]) * 2:
+            runs[tag].append(cuda_ms(fns[tag], 10))
+        res = {tag: float(np.median(runs[tag])) for tag in order}
+        phase(f"phase 5 k1 split: {row} {W}x{H}: " + ", ".join(
+            f"{tag} {ms:.4f} ms ({ms / res[order[0]]:.3f}x)"
+            for tag, ms in res.items()) + f"; timings "
+            f"{ {t: [round(x, 4) for x in r] for t, r in runs.items()} }"
+            f"; card {card}")
+        out[row] = res
+    ptx = {}
+    for tag in order:
+        ptx[tag] = {k: list(v) for k, v in ptxas_of[tag].items()
+                    if ("primitive" in k.split() or "mesh" in k.split())
+                    and not k.startswith("grad")}
+        phase(f"phase 5 k1 split: ptxas (registers, stack, spill stores, "
+              f"spill loads) of {tag}'s forward instantiations: {ptx[tag]}")
+    return out, ptx
+
+
+def k1_phases(args, dev, card, ptxas):
+    """Phase 5: the forward kernel's split over this tree and the trees of
+    `--k1-split` (none: this tree alone). Returns k1_split's results."""
+    trees, ptxas_of = [("this", THIS_TREE)], {"this": ptxas_counts(ptxas)}
+    for i, d in enumerate(args.k1_split):
+        T = load_tree(d, f"k1_tree_{i}")
+        T.mk.library()
+        trees.append((d, T))
+        ptxas_of[d] = ptxas_counts(ptxas_lines(
+            T.build._target("megakernel").with_suffix(".log").read_text()))
+    return k1_split(trees, ptxas_of, dev, card)
+
+
 def grad_curve(dev, card):
     """Phase 6 (the spp-per-launch curve): each row of GRAD_ROWS at W x H
     and GRAD_CURVE samples a launch (10 launches a timing, the sizes in
@@ -2519,6 +2628,18 @@ def grad_only(args, dev, card, ptxas):
     phase("grad-only: done")
 
 
+def k1_only(args, dev, card, ptxas):
+    """--k1-only: the object loop's filter check (filter_phase), the
+    forward kernel's split (k1_phases) and the A/B of --ab-parent, the
+    forward instantiations' ptxas counts beside each tree's."""
+    filter_phase(dev, card)
+    k1_phases(args, dev, card, ptxas)
+    for i, d in enumerate(args.ab_parent):
+        phase(f"phase 5 A/B: against {d}")
+        ab_parent(d, f"ab_tree_{i}", AB_CASES, dev, card, ptxas)
+    phase("k1-only: done")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab-parent", metavar="DIR", action="append",
@@ -2538,6 +2659,16 @@ def main(argv=None) -> int:
                          "pathtracer_tpu_torch under DIR too, e.g. a copy "
                          "made by tools/grad_variants.py; may be given more "
                          "than once")
+    ap.add_argument("--k1-split", metavar="DIR", action="append",
+                    default=[],
+                    help="time the forward kernel's rows (phase 5, K1_ROWS) "
+                         "on the pathtracer_tpu_torch under DIR too, e.g. a "
+                         "copy made by tools/k1_variants.py; may be given "
+                         "more than once")
+    ap.add_argument("--k1-only", action="store_true",
+                    help="after the build, run the forward kernel's split "
+                         "and the A/B of --ab-parent alone and print no "
+                         "result lines")
     ap.add_argument("--grad-only", action="store_true",
                     help="after the build, run the gradient kernel's phases "
                          "alone (the split, the curve, phase 6 against the "
@@ -2566,7 +2697,7 @@ def main(argv=None) -> int:
     for line in ptxas + ptxas_lines(plib.with_suffix(".log").read_text()):
         phase(f"phase 2: ptxas: {line}")
     others = list(dict.fromkeys(args.ab_parent + args.tex_split
-                                + args.grad_split))
+                                + args.grad_split + args.k1_split))
     if others:
         t0 = time.perf_counter()
         prebuild(others)
@@ -2577,6 +2708,9 @@ def main(argv=None) -> int:
     p2_rates, p2_row = op_rate_phase(dev, card)
     if args.grad_only:
         grad_only(args, dev, card, ptxas)
+        return 0
+    if args.k1_only:
+        k1_only(args, dev, card, ptxas)
         return 0
 
     # ---- phase 3: kernel vs plain version on the card -------------------
@@ -2618,6 +2752,8 @@ def main(argv=None) -> int:
                         exact=True, tiles=64)[0] for name in TEX_SCENES]
     # the fetches' wrap without a division, against the JAX formula
     wrap = wrap_phase(dev, card)
+    # the object loop's filter, against the exact tests
+    filt = filter_phase(dev, card)
 
     # NEE (the kNee instantiations) bit for bit: 1, 4 and 3 lights, the
     # mesh shadow walk on the driver's mesh layout, the textured
@@ -2784,6 +2920,9 @@ def main(argv=None) -> int:
                   f"{d}'s {pm:.4f} ms ({tm / pm:.3f}x), in turns; card "
                   f"{card}")
 
+    # the forward kernel's split (this tree and --k1-split's)
+    k1split = k1_phases(args, dev, card, ptxas)
+
     # the mesh walks, each on the same samples, with K1-mesh's bound
     walk_times = walk_timing(dev, card)
     split = split_phase(walk_times, k8_ms, {"reference": kw8["meta"],
@@ -2822,7 +2961,9 @@ def main(argv=None) -> int:
          "shape": f"{W}x{H}x{seg_spp}spp", "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "library_ms": None,
-         "ms_8spp": k8_ms, "plain_ms_8spp": p8_ms},
+         "ms_8spp": k8_ms, "plain_ms_8spp": p8_ms,
+         "k1_split": {"ms": k1split[0], "ptxas": k1split[1]},
+         "filter_check": filt},
         {"name": "megakernel-mesh", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
          "replaces": "pathtracer_tpu/render/pallas_kernel.py:1334,1256,1231",

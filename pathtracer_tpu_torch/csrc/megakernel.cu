@@ -17,7 +17,10 @@
 // random stream, of the sample replicas (spp_pack copies of a pixel block
 // along the rows or the 128-lane chunks of a tile) and of the coherent draws
 // they share. The object table (<= 64 rows of 45 floats) and the camera
-// vector are staged in shared memory once per block, and the type codes and
+// vector are staged in shared memory once per block, each object row at a
+// 48-float stride, so that the object loop reads each row of an inverse
+// transform as one 16-byte load (12 scalar loads a sphere became 3; K1 6%
+// faster on an H100, PERF.md §6: R4), and the type codes and
 // group node ranges ride in the launch parameters; the TPU kernel's static
 // unroll over objects becomes a loop with a switch on the type. Its per-tile
 // early exit becomes a per-ray break, which is equivalent because dead rays
@@ -183,6 +186,11 @@
 namespace {
 
 constexpr int kObjCols = 45;
+// an object row as the megakernel stages it in shared memory: its 45
+// columns and 3 zeros, so that every row, and each row of its inverse, is
+// 16-byte aligned (the intersect-only kernel stages the 45-float rows as
+// they are: with these, its mesh batches ran 2% slower, PERF.md §6)
+constexpr int kObjStride = 48;
 constexpr int kCamCols = 17;
 // The mesh tables (render/megakernel.py build_mesh_tables), 16-byte records
 // read by __ldg of float4 from 16-byte-aligned bases:
@@ -315,6 +323,95 @@ __device__ __forceinline__ float cylinder_t(float ox, float oy, float oz,
   const bool v0 = (y0 > min_y) && (y0 < max_y) && (t0 > eps);
   const bool v1 = (y1 > min_y) && (y1 < max_y) && (t1 > eps);
   return fminf(v0 ? t0 : kBig, v1 ? t1 : kBig);
+}
+
+// ---- the object loop's filter ----------------------------------------------
+//
+// The object loop (nearest_hit, object_t) replaces its winner only on a t
+// below the running threshold T (the winner's t, kBig before one; the
+// shadow query's max(bt, cut)), and T > eps. The filter decides from
+// undivided f32 products that an object's exact test cannot give a t below
+// T; a loop that then takes kBig for it leaves the winner, and every later
+// step (a GROUP's pretest and walk from the running t included), as the
+// exact test does, and skips the IEEE division (on a hit also the square
+// root and second division). It is built from IEEE-rounded multiplies,
+// adds and comparisons alone (-fmad=false keeps each rounded), so a numpy
+// float32 copy reproduces it bit for bit (the CPU tests), and filter_check
+// holds it to the exact tests on the card. The loop does not take it: on
+// the card it made K1 3.4% slower, K1-nee 21% (the divisions are 4% of K1,
+// and a warp skips only where all its lanes do; PERF.md §6, PR 12);
+// tools/k1_variants.py `filter` puts it into the loop. The argument, with
+// u = 2^-24 and every bound for round to nearest:
+//
+// Plane (plane_t: t = -oy / dy where |dy| > eps, else kBig). Where oy and dy
+// have one sign bit, -oy / dy is <= 0 or NaN, so t is not above eps: kBig.
+// Else, where lim = fl(T |dy|) >= 2^-126 (a normal number, so each product
+// below is within a factor 1 +- u of its real value) and
+// fl(|oy| kShrink) >= lim, kShrink = 1 - 2^-21: |oy| / |dy| >=
+// T (1 - u) / (kShrink (1 + u)) >= T, and rounding is monotone, so t >= T
+// (an infinite lim needs |oy| infinite, and t is then +-inf or NaN, never
+// below T). Where |dy| <= eps the exact test gives kBig whatever the filter
+// says.
+//
+// Sphere and cylinder (round_skip: a, b, c the f32 sums |d|^2, o.d, |o|^2
+// over x, y, z, or over x, z for the cylinder, the exact test's own a and
+// b). A certain miss: fl(c a) - fl(b b) >= fl(a + kMiss fl(c a)), kMiss =
+// 2^-12, with 2^-40 <= a and fl(c a) <= 2^100 (no product then overflows,
+// and underflow errors stay below 2^-149, far inside the margins). With
+// A, B, C the real sums and D = C - B^2 / A the real squared distance of
+// the line from the axis or center: each of a, b, c is within 3.01 u of
+// its value (b within 3.01 u |o||d|), so C >= 1 - 12 u and
+// D >= 1 - 5.03 u + C (kMiss (1 - 10.2 u) - 14.2 u) >= 1 + 4075 u C. The
+// exact test's t_mid = fl(-b / a) is within 7.1 u sqrt(C / A) of -B / A,
+// its m within 9.11 u sqrt(C) of the real perpendicular (its three
+// roundings, the product's and the sum's per component), and its perp2 =
+// fl(|m|^2) >= (sqrt(D) - 9.11 u sqrt(C))^2 (1 - 3 u) >= 1 + 4050 u C - 3 u
+// > 1: both the sphere's `perp2 < 1` and the cylinder's `perp2 <= 1` fail,
+// and the test gives kBig. Not nearer: where the miss test fails, y =
+// fl(-b - fl(T fl(a kGrow))) > 0, kGrow = 1 + 2^-19, and fl(y y) >= fl(a
+// fl(1 + kFar fl(1 + c))), kFar = 2^-16: then -B - T A (1 + 2^-20) >=
+// sqrt(A) (1 + 2^-20 (sqrt(C) + 1)), so the nearer root's computed value,
+// fl(t_mid - dt) with dt = fl(sqrt(fl(fl(1 - perp2) / a))) <= (1 + 3.02 u)
+// / sqrt(A) (perp2 >= 0), is at least T (1 + 2^-20)(1 - u) >= T > eps: the
+// sphere returns it (the farther root is not below it) and the cylinder a
+// valid root or kBig, none below T (T A overflowing gives y = -inf: no
+// skip). NaN and inf fail a comparison or a bound, and take the exact
+// test.
+constexpr float kShrink = 0x1.fffff0p-1f;  // 1 - 2^-21
+constexpr float kMiss = 0x1p-12f;
+constexpr float kGrow = 0x1.00002p+0f;     // 1 + 2^-19
+constexpr float kFar = 0x1p-16f;
+constexpr float kTinyNormal = 0x1p-126f;
+
+// Whether plane_t(oy, dy, eps) is certainly not below T (T > eps).
+__device__ __forceinline__ bool plane_skip(float oy, float dy, float T) {
+  const float lim = T * fabsf(dy);
+  return ((__float_as_int(oy) ^ __float_as_int(dy)) >= 0) ||
+         (fabsf(oy) * kShrink >= lim && lim >= kTinyNormal);
+}
+
+// Whether the sphere's or the cylinder's test is certainly not below T
+// (T > eps), from its a = |d|^2, b = o.d and c = |o|^2.
+__device__ __forceinline__ bool round_skip(float a, float b, float c,
+                                           float T) {
+  const float ca = c * a;
+  if (!(a >= 0x1p-40f && ca <= 0x1p100f)) return false;
+  if (ca - b * b >= a + kMiss * ca) return true;  // the line misses
+  const float y = -b - T * (a * kGrow);           // the nearer root past T
+  return y > 0.0f && y * y >= a * (1.0f + kFar * (1.0f + c));
+}
+
+__device__ __forceinline__ bool sphere_skip(float ox, float oy, float oz,
+                                            float dx, float dy, float dz,
+                                            float T) {
+  return round_skip(dx * dx + dy * dy + dz * dz, ox * dx + oy * dy + oz * dz,
+                    ox * ox + oy * oy + oz * oz, T);
+}
+
+__device__ __forceinline__ bool cylinder_skip(float ox, float oz, float dx,
+                                              float dz, float T) {
+  return round_skip(dx * dx + dz * dz, ox * dx + oz * dz, ox * ox + oz * oz,
+                    T);
 }
 
 __device__ __forceinline__ float box_t(float ox, float oy, float oz, float dx,
@@ -1108,29 +1205,44 @@ struct Hit {
 };
 
 // Row r of object row m's inverse (3x4) applied to a point and to a vector.
+// Rows staged at kObjStride are 16-byte aligned, and each row of the
+// inverse is one float4 load; rows staged at kObjCols (the intersect-only
+// kernel's) are read a float at a time. The same products and sums in the
+// same order either way.
+template <int kStride>
 __device__ __forceinline__ float row_point(const float* m, int r, float x,
                                            float y, float z) {
+  if constexpr (kStride % 4 == 0) {
+    const float4 q = reinterpret_cast<const float4*>(m)[r];
+    return q.x * x + q.y * y + q.z * z + q.w;
+  }
   return m[4 * r] * x + m[4 * r + 1] * y + m[4 * r + 2] * z + m[4 * r + 3];
 }
 
+template <int kStride>
 __device__ __forceinline__ float row_vec(const float* m, int r, float x,
                                          float y, float z) {
+  if constexpr (kStride % 4 == 0) {
+    const float4 q = reinterpret_cast<const float4*>(m)[r];
+    return q.x * x + q.y * y + q.z * z;
+  }
   return m[4 * r] * x + m[4 * r + 1] * y + m[4 * r + 2] * z;
 }
 
 // Object row m's transform of the ray into object space (the winner's,
 // after nearest_hit's loop, and object_t's for the types that read it all).
+template <int kStride>
 __device__ __forceinline__ void object_ray(const float* m, float ox, float oy,
                                            float oz, float dx, float dy,
                                            float dz, float& tox, float& toy,
                                            float& toz, float& tdx, float& tdy,
                                            float& tdz) {
-  tox = row_point(m, 0, ox, oy, oz);
-  toy = row_point(m, 1, ox, oy, oz);
-  toz = row_point(m, 2, ox, oy, oz);
-  tdx = row_vec(m, 0, dx, dy, dz);
-  tdy = row_vec(m, 1, dx, dy, dz);
-  tdz = row_vec(m, 2, dx, dy, dz);
+  tox = row_point<kStride>(m, 0, ox, oy, oz);
+  toy = row_point<kStride>(m, 1, ox, oy, oz);
+  toz = row_point<kStride>(m, 2, ox, oy, oz);
+  tdx = row_vec<kStride>(m, 0, dx, dy, dz);
+  tdy = row_vec<kStride>(m, 1, dx, dy, dz);
+  tdz = row_vec<kStride>(m, 2, dx, dy, dz);
 }
 
 // Every object's test in table order, a GROUP's object-space box pretest
@@ -1148,7 +1260,8 @@ __device__ __forceinline__ void object_ray(const float* m, float ox, float oy,
 // object table. Under a packet walk (kWalk) every lane of the group calls
 // it together, `active` false for a lane without a ray, which no walk then
 // counts.
-template <bool kMesh, int kWalk = WALK_THREAD, int kLeaf = LEAF_SIMT>
+template <bool kMesh, int kWalk = WALK_THREAD, int kLeaf = LEAF_SIMT,
+          int kStride = kObjStride>
 __device__ __forceinline__ Hit nearest_hit(const Params& p,
                                            const float* s_obj, float ox,
                                            float oy, float oz, float dx,
@@ -1157,17 +1270,18 @@ __device__ __forceinline__ Hit nearest_hit(const Params& p,
   const float eps = p.eps;
   Hit h{kBig, -1, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1, 0.f, 0.f};
   for (int j = 0; j < p.n_obj; ++j) {
-    const float* m = s_obj + j * kObjCols;
+    const float* m = s_obj + j * kStride;
     const int type = p.obj_types[j];
     int g_slot = -1;
     float g_u = 0.f, g_v = 0.f;
     float t;
     if (type == PLANE) {
-      t = plane_t(row_point(m, 1, ox, oy, oz), row_vec(m, 1, dx, dy, dz),
-                  eps);
+      t = plane_t(row_point<kStride>(m, 1, ox, oy, oz),
+                  row_vec<kStride>(m, 1, dx, dy, dz), eps);
     } else {
       float tox, toy, toz, tdx, tdy, tdz;
-      object_ray(m, ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy, tdz);
+      object_ray<kStride>(m, ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy,
+                          tdz);
       if (type == SPHERE) {
         t = sphere_t(tox, toy, toz, tdx, tdy, tdz, eps);
       } else if (type == CYLINDER) {
@@ -1210,8 +1324,8 @@ __device__ __forceinline__ Hit nearest_hit(const Params& p,
     }
   }
   if (h.w >= 0)
-    object_ray(s_obj + h.w * kObjCols, ox, oy, oz, dx, dy, dz, h.lox, h.loy,
-               h.loz, h.ldx, h.ldy, h.ldz);
+    object_ray<kStride>(s_obj + h.w * kStride, ox, oy, oz, dx, dy, dz, h.lox,
+                        h.loy, h.loz, h.ldx, h.ldy, h.ldz);
   return h;
 }
 
@@ -1227,13 +1341,14 @@ __device__ __forceinline__ float object_t(const Params& p, const float* s_obj,
                                           float dx, float dy, float dz,
                                           float bt, float cut) {
   const float eps = p.eps;
-  const float* m = s_obj + j * kObjCols;
+  const float* m = s_obj + j * kObjStride;
   const int type = p.obj_types[j];
   if (type == PLANE)
-    return plane_t(row_point(m, 1, ox, oy, oz), row_vec(m, 1, dx, dy, dz),
-                   eps);
+    return plane_t(row_point<kObjStride>(m, 1, ox, oy, oz),
+                   row_vec<kObjStride>(m, 1, dx, dy, dz), eps);
   float tox, toy, toz, tdx, tdy, tdz;
-  object_ray(m, ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy, tdz);
+  object_ray<kObjStride>(m, ox, oy, oz, dx, dy, dz, tox, toy, toz, tdx, tdy,
+                         tdz);
   switch (type) {
     case SPHERE: return sphere_t(tox, toy, toz, tdx, tdy, tdz, eps);
     case CYLINDER:
@@ -1339,14 +1454,16 @@ template <bool kMesh, bool kGrad, bool kTex, bool kF32 = false,
           bool kNee = false, int kWalk = WALK_THREAD, int kLeaf = LEAF_SIMT>
 __device__ __forceinline__ void megakernel_body(const Params& p) {
   constexpr bool kPacket = kWalk != WALK_THREAD;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* s_obj = smem;
-  float* s_cam = s_obj + p.n_obj * kObjCols;
+  float* s_cam = s_obj + p.n_obj * kObjStride;
   float* s_g = s_cam + kCamCols;  // kGrad: the block's [n_obj, 6] sums
   // kTex: the texture table, after the sums when both are there
   float* s_tex = s_g + (kGrad ? p.n_obj * kGradCols : 0);
-  for (int i = threadIdx.x; i < p.n_obj * kObjCols; i += blockDim.x)
-    s_obj[i] = p.obj[i];
+  for (int i = threadIdx.x; i < p.n_obj * kObjStride; i += blockDim.x) {
+    const int o = i / kObjStride, c = i - o * kObjStride;
+    s_obj[i] = c < kObjCols ? p.obj[o * kObjCols + c] : 0.0f;
+  }
   for (int i = threadIdx.x; i < kCamCols; i += blockDim.x) s_cam[i] = p.cam[i];
   if constexpr (kGrad) {
     for (int i = threadIdx.x; i < p.n_obj * kGradCols; i += blockDim.x)
@@ -1472,7 +1589,7 @@ __device__ __forceinline__ void megakernel_body(const Params& p) {
       const int w = kPacket ? max(hit.w, 0) : hit.w;
       const int tri = hit.tri;  // winning triangle slot when a group wins
       const float tu = hit.tu, tv = hit.tv;
-      const float* wm = s_obj + w * kObjCols;
+      const float* wm = s_obj + w * kObjStride;
       const int w_type = p.obj_types[w];
       const bool on_tri = kMesh && tri >= 0;
 
@@ -1659,7 +1776,7 @@ __device__ __forceinline__ void megakernel_body(const Params& p) {
             const float cb = own_col ? tcb : wm[26];
             for (int li = 0; li < p.n_lights; ++li) {
               const int l = p.light_idx[li];
-              const float* lm = s_obj + l * kObjCols;
+              const float* lm = s_obj + l * kObjStride;
               const float nu1 = hash_uniform(key, u_elem, 6u + 2u * li, un, ub);
               const float nu2 = hash_uniform(key, u_elem, 7u + 2u * li, un, ub);
               // randomPointOnSphere (tracer.cl:321-336) kept verbatim,
@@ -1802,9 +1919,9 @@ __device__ __forceinline__ void megakernel_body(const Params& p) {
             // T for the entry before (none after entry 0)
             float er = 0.0f, eg = 0.0f, eb = 0.0f;
             if (id >= 0) {
-              er = s_obj[id * kObjCols + 27];
-              eg = s_obj[id * kObjCols + 28];
-              eb = s_obj[id * kObjCols + 29];
+              er = s_obj[id * kObjStride + 27];
+              eg = s_obj[id * kObjStride + 28];
+              eb = s_obj[id * kObjStride + 29];
             }
             const float sc_r = upd ? t_c[3 * k] * cosb : 1.0f;
             const float sc_g = upd ? t_c[3 * k + 1] * cosb : 1.0f;
@@ -1900,7 +2017,8 @@ int launch(Params& p, const int* obj_types, const int* group_root,
            const int* group_end, void* stream) {
   const bool mesh = copy_objects(p, obj_types, group_root, group_end);
   const size_t smem =
-      sizeof(float) * (size_t)(p.n_obj * (kObjCols + (kGrad ? kGradCols : 0) +
+      sizeof(float) * (size_t)(p.n_obj * (kObjStride +
+                                          (kGrad ? kGradCols : 0) +
                                           (kTex ? kTexRow : 0)) +
                                kCamCols);
   const int threads = kGrad ? kGradThreads : kThreads;
@@ -1985,7 +2103,7 @@ struct Rays {
 template <bool kMesh, int kWalk = WALK_THREAD, int kLeaf = LEAF_SIMT>
 __global__ void __launch_bounds__(kThreads) intersect(Params p, Rays r) {
   constexpr bool kPacket = kWalk != WALK_THREAD;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   for (int i = threadIdx.x; i < p.n_obj * kObjCols; i += blockDim.x)
     smem[i] = p.obj[i];
   __syncthreads();
@@ -1996,7 +2114,7 @@ __global__ void __launch_bounds__(kThreads) intersect(Params p, Rays r) {
   const int si = kPacket ? min(i, r.n - 1) : i;
   const float ray[6] = {r.ox[si], r.oy[si], r.oz[si],
                         r.dx[si], r.dy[si], r.dz[si]};
-  const Hit h = nearest_hit<kMesh, kWalk, kLeaf>(
+  const Hit h = nearest_hit<kMesh, kWalk, kLeaf, kObjCols>(
       p, smem, ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], i < r.n);
   if constexpr (kPacket) {
     if (i >= r.n) return;
@@ -2264,6 +2382,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The object loop's filter held to the exact tests: one thread a case of
+// object type `type` (PLANE, SPHERE or CYLINDER), an object-space ray (ray
+// [6, n]: o xyz, d xyz) and a threshold T (thr [n]); counts[0] gains the
+// cases the filter skips and counts[1] those of them whose exact t is below
+// T (a winner the loop would have missed). One atomic add a block and
+// count.
+__global__ void __launch_bounds__(kThreads)
+    filter_check(int type, const float* ray, const float* thr, int n,
+                 float eps, float min_y, float max_y,
+                 unsigned long long* counts) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool skip = false, bad = false;
+  if (i < n) {
+    const size_t m = (size_t)n;
+    const float ox = ray[i], oy = ray[m + i], oz = ray[2 * m + i];
+    const float dx = ray[3 * m + i], dy = ray[4 * m + i], dz = ray[5 * m + i];
+    const float T = thr[i];
+    float t;
+    if (type == PLANE) {
+      skip = plane_skip(oy, dy, T);
+      t = plane_t(oy, dy, eps);
+    } else if (type == SPHERE) {
+      skip = sphere_skip(ox, oy, oz, dx, dy, dz, T);
+      t = sphere_t(ox, oy, oz, dx, dy, dz, eps);
+    } else {
+      skip = cylinder_skip(ox, oz, dx, dz, T);
+      t = cylinder_t(ox, oy, oz, dx, dy, dz, min_y, max_y, eps);
+    }
+    bad = skip && t < T;
+  }
+  const int n_skip = __syncthreads_count(skip);
+  const int n_bad = __syncthreads_count(bad);
+  if (threadIdx.x == 0) {
+    if (n_skip) atomicAdd(counts, (unsigned long long)n_skip);
+    if (n_bad) atomicAdd(counts + 1, (unsigned long long)n_bad);
+  }
+}
+
 // light_sincos of n angles x, one thread each (the check of the light
 // point's sin/cos).
 __global__ void __launch_bounds__(kThreads)
@@ -2503,6 +2659,26 @@ extern "C" int pt_sincos_launch(const float* x, float* s, float* c, int n,
   return (int)cudaGetLastError();
 }
 
+// Launch filter_check over n cases of object type `type` (PLANE, SPHERE
+// or CYLINDER; min_y, max_y the cylinder's): ray [6, n] and thr [n] on the
+// device, counts (uint64 [2], zeroed by the caller) gains the skipped cases
+// and the skipped ones whose exact t is below their threshold. Returns as
+// pt_megakernel_launch does.
+extern "C" int pt_filter_check_launch(int type, const float* ray,
+                                      const float* thr, int n, float eps,
+                                      float min_y, float max_y,
+                                      unsigned long long* counts,
+                                      void* stream) {
+  if (n < 0 || counts == nullptr ||
+      (type != PLANE && type != SPHERE && type != CYLINDER))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0)
+    filter_check<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        type, ray, thr, n, eps, min_y, max_y, counts);
+  return (int)cudaGetLastError();
+}
+
 // Launch the gradient kernel: the replay of pt_megakernel_launch's paths
 // with spp samples per slot and no sample packing (the layout of the
 // differentiable render's primal), and the backward pass against the
@@ -2616,7 +2792,7 @@ extern "C" int pt_megakernel_packet_launch(
     return (int)cudaErrorInvalidValue;  // the walks are for meshes
   const bool tex = tex_pool != nullptr;
   const size_t smem = sizeof(float) *
-      (size_t)(n_obj * (kObjCols + (tex ? kTexRow : 0)) + kCamCols);
+      (size_t)(n_obj * (kObjStride + (tex ? kTexRow : 0)) + kCamCols);
   const cudaStream_t s = (cudaStream_t)stream;
   if (tex && nee)
     return launch_walk(walk, leaf, PacketLaunch<true, true>{p, smem, s});

@@ -795,6 +795,50 @@ def _cylinder_t(ox, oy, oz, dx, dy, dz, min_y, max_y, eps):
                          torch.where(v1, t1, _BIG))
 
 
+# the object loop's filter (csrc/megakernel.cu plane_skip, round_skip, and
+# the argument that it is exact there): 1 - 2^-21, 2^-12, 1 + 2^-19, 2^-16
+_K_SHRINK = 1.0 - 2.0 ** -21
+_K_MISS = 2.0 ** -12
+_K_GROW = 1.0 + 2.0 ** -19
+_K_FAR = 2.0 ** -16
+
+
+def _plane_skip(oy, dy, T):
+    """Plain version of the kernel's plane_skip: where _plane_t(oy, dy, eps)
+    is certainly not below T (T > eps), by f32 products alone."""
+    lim = T * torch.abs(dy)
+    same = (oy.view(torch.int32) ^ dy.view(torch.int32)) >= 0
+    return same | ((torch.abs(oy) * _K_SHRINK >= lim) & (lim >= 2.0 ** -126))
+
+
+def _round_skip(a, b, c, T):
+    """Plain version of the kernel's round_skip: where the sphere's or the
+    cylinder's test with a = |d|^2, b = o.d, c = |o|^2 (its own sums) is
+    certainly not below T (T > eps)."""
+    ca = c * a
+    sane = (a >= 2.0 ** -40) & (ca <= 2.0 ** 100)
+    miss = ca - b * b >= a + _K_MISS * ca
+    y = -b - T * (a * _K_GROW)
+    far = (y > 0.0) & (y * y >= a * (1.0 + _K_FAR * (1.0 + c)))
+    return sane & (miss | far)
+
+
+def object_skip(code: int, T, ox, oy, oz, dx, dy, dz):
+    """Where the filter skips the test of an object of type `code` (PLANE,
+    SPHERE or CYLINDER) for the object-space rays: its exact t
+    (_primitive_t) is certainly not below the thresholds T (> eps)."""
+    if code == PLANE:
+        return _plane_skip(oy, dy, T)
+    if code == SPHERE:
+        return _round_skip(dx * dx + dy * dy + dz * dz,
+                           ox * dx + oy * dy + oz * dz,
+                           ox * ox + oy * oy + oz * oz, T)
+    if code == CYLINDER:
+        return _round_skip(dx * dx + dz * dz, ox * dx + oz * dz,
+                           ox * ox + oz * oz, T)
+    raise ValueError(f"no filter for object type {code}")
+
+
 def _box_t(ox, oy, oz, dx, dy, dz, eps):
     x1, x2 = _axis_slab(ox, dx, -1.0, 1.0, eps)
     y1, y2 = _axis_slab(oy, dy, -1.0, 1.0, eps)
@@ -2110,6 +2154,10 @@ SIGNATURES = {
     # the light point's sin/cos check, launched by light_sincos: the
     # angles, sin, cos, their count and the stream
     "pt_sincos_launch": ([_P] * 3 + [_I, _P], _I),
+    # the object loop's filter against the exact tests, launched by
+    # filter_check: the type code, the rays [6, n], thresholds, n, eps, the
+    # cylinder's y range, the two uint64 counts and the stream
+    "pt_filter_check_launch": ([_I, _P, _P, _I, _F, _F, _F, _P, _P], _I),
     # the gradient kernel's entries, launched by render/grad.py: object and
     # triangle mode, and texel mode (the texels [T, 4], T, the texture
     # table, gtex [T, 4] and the trainable objects' bit mask; gtri and
@@ -2371,6 +2419,47 @@ def light_sincos(x):
 
 
 light_sincos.launches = 0
+
+
+def filter_check(code: int, ray, thr, eps: float, min_y: float = 0.0,
+                 max_y: float = 0.0):
+    """The object loop's filter held to the exact tests for objects of type
+    `code` (PLANE, SPHERE or CYLINDER, whose y range is min_y, max_y): ray
+    f32 [6, n] (object-space o xyz, d xyz) and thresholds thr f32 [n] (each
+    above eps). Returns (cases the filter skips, skipped cases whose exact t
+    is below the threshold: a winner the loop would miss, which must be 0).
+    On a CUDA device it launches the kernel's own filter and tests (one
+    thread a case) and counts filter_check.launches; on the CPU it runs
+    object_skip and _primitive_t."""
+    if code not in (PLANE, SPHERE, CYLINDER):
+        raise ValueError(f"no filter for object type {code}")
+    if (ray.dtype != torch.float32 or thr.dtype != torch.float32
+            or ray.dim() != 2 or ray.shape[0] != 6 or thr.dim() != 1
+            or ray.shape[1] != thr.shape[0] or not ray.is_contiguous()
+            or not thr.is_contiguous() or ray.device != thr.device):
+        raise ValueError("ray must be contiguous float32 [6, n] and thr "
+                         "float32 [n] on its device")
+    n = thr.shape[0]
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} cases; at most 2^31 - 1 a call")
+    if ray.device.type != "cuda":
+        skip = object_skip(code, thr, *ray)
+        t = _primitive_t(code, [0.0] * 32 + [min_y, max_y], eps, *ray)
+        return int(skip.sum()), int((skip & (t < thr)).sum())
+    counts = torch.zeros(2, dtype=torch.int64, device=ray.device)
+    with torch.cuda.device(ray.device):
+        err = library().pt_filter_check_launch(
+            code, ray.data_ptr(), thr.data_ptr(), n, eps, min_y, max_y,
+            counts.data_ptr(), torch.cuda.current_stream(ray.device)
+            .cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"filter check launch failed: CUDA error {err}")
+    filter_check.launches += 1
+    n_skip, n_bad = counts.tolist()
+    return n_skip, n_bad
+
+
+filter_check.launches = 0
 
 
 def render_megakernel(scn: SceneArrays, meta: SceneMeta, camera,

@@ -132,6 +132,138 @@ def sincos_mismatches(sincos, device, ranges=LIGHT_ANGLE_BITS,
     return n, bad
 
 
+# the object loop's filter check (megakernel.filter_check): the values a
+# case's components are drawn from in its special-value mode
+FILTER_SPECIALS = (0.0, -0.0, 2.0 ** -149, -(2.0 ** -149), 2.0 ** -126,
+                   1e-30, 3.4028235e38, -3.4028235e38, math.inf, -math.inf,
+                   math.nan, 1.0, -1.0)
+FILTER_MODES = 8
+
+
+def filter_cases(code: int, n: int, seed: int, device, eps: float = 1e-4,
+                 min_y: float = 0.0, max_y: float = 0.4):
+    """n seeded cases of object type `code` (PLANE, SPHERE or CYLINDER, the
+    cylinder's y range min_y, max_y) for megakernel.filter_check: (ray f32
+    [6, n], object-space o xyz and d xyz; thresholds f32 [n] in (eps,
+    1e30]). An eighth each: random rays and thresholds; grazing lines (the
+    unit sphere's or the cylinder's side at 1 +- a few ulps; a plane's dy
+    within ulps of +-eps); thresholds within 4 ulps of the exact t (half
+    of the lines through the center or the axis); a root within ulps of
+    eps; dy (a plane's) or |d_xz|^2 (a cylinder's) at eps and |d|^2 around
+    the filter's 2^-40 (a sphere's); components drawn from zeros,
+    subnormals, the extremes, inf and NaN; scales over 2^+-60; and the
+    light query's threshold, 1e30."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    f32 = torch.float32
+
+    def U(*shape):
+        return torch.rand(shape, generator=g, device=device, dtype=f32)
+
+    def N(*shape):
+        return torch.randn(shape, generator=g, device=device, dtype=f32)
+
+    def K(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g,
+                             device=device).to(f32)
+
+    def unit(x):
+        return x / torch.linalg.vector_norm(x, dim=0)
+
+    big = 1e30
+    mode = torch.randint(0, FILTER_MODES, (n,), generator=g, device=device)
+    v = unit(N(3, n))                          # unit directions
+    # points on the surface, and a unit vector across the line's direction
+    if code == mk.PLANE:
+        surf = torch.stack([N(n), torch.zeros(n, device=device), N(n)])
+    elif code == mk.SPHERE:
+        surf = unit(N(3, n))
+    else:
+        phi = U(n) * 6.2831855
+        surf = torch.stack([torch.cos(phi),
+                            min_y + (max_y - min_y) * U(n), torch.sin(phi)])
+    # mode 0: random rays, thresholds over eps .. eps 2^34
+    o0 = N(3, n) * torch.exp2(U(n) * 8 - 3)
+    d0 = v * torch.exp2(U(n) * 8 - 4)
+    T0 = eps * torch.exp2(U(n) * 34)
+    # mode 1: grazing lines
+    ulps = 1.0 + K(-64, 65, n) * 2.0 ** -23
+    s = U(n) * 8 - 4
+    if code == mk.SPHERE:
+        w = unit(torch.linalg.cross(v, N(3, n), dim=0))
+        o1 = w * ulps - v * s
+    elif code == mk.CYLINDER:
+        vxz = torch.stack([v[0], torch.zeros_like(v[0]), v[2]])
+        vxz = unit(vxz)
+        w = torch.stack([-vxz[2], torch.zeros_like(v[0]), vxz[0]])
+        o1 = w * ulps - v * s
+        o1[1] = surf[1] - v[1] * s
+    else:
+        o1 = o0.clone()
+    d1 = v * torch.exp2(U(n) * 4 - 2)
+    if code == mk.PLANE:
+        d1[1] = torch.where(U(n) < 0.5, -eps, eps) * (
+            1.0 + K(-8, 9, n) * 2.0 ** -23)
+    # mode 2: aimed rays (half of them through the center or the axis,
+    # where the nearer root is the farthest from the line's midpoint),
+    # thresholds within 4 ulps of the exact t
+    o2 = unit(N(3, n)) * (2 + U(n) * 2)
+    aim = torch.where(U(n) < 0.5, 0.5 + U(n), 2.0 ** -20 * U(n))
+    d2 = unit(surf * aim - o2) * torch.exp2(U(n) * 4 - 2)
+    # mode 3: a root within a few ulps of eps
+    d3 = v * torch.exp2(U(n) * 4 - 2)
+    o3 = surf - d3 * (eps * (1.0 + K(-16, 17, n) * 2.0 ** -22))
+    # mode 4: a plane's dy, a cylinder's |d_xz|^2 at eps; a sphere's |d|^2
+    # across 2^-40
+    o4 = o0.clone()
+    d4 = v.clone()
+    at_eps = 1.0 + K(-8, 9, n) * 2.0 ** -22
+    if code == mk.PLANE:
+        d4[1] = torch.where(v[1] < 0, -eps, eps) * at_eps
+    elif code == mk.CYLINDER:
+        r = torch.sqrt(v[0] * v[0] + v[2] * v[2])
+        d4[0] = v[0] / r * math.sqrt(eps) * torch.sqrt(at_eps)
+        d4[2] = v[2] / r * math.sqrt(eps) * torch.sqrt(at_eps)
+    else:
+        d4 = v * torch.exp2(U(n) * 30 - 35)
+    # mode 5: components from the special values
+    spec = torch.tensor(FILTER_SPECIALS, dtype=f32, device=device)
+    pick = spec[torch.randint(0, len(FILTER_SPECIALS), (6, n), generator=g,
+                              device=device)]
+    o5, d5 = (torch.where(U(3, n) < 0.3, pick[k:k + 3], x)
+              for k, x in ((0, o0), (3, d0)))
+    # mode 6: scales over 2^+-60, thresholds over 2^-13 .. 2^87
+    o6 = N(3, n) * torch.exp2(U(n) * 120 - 60)
+    d6 = v * torch.exp2(U(n) * 80 - 40)
+    T6 = torch.exp2(U(n) * 100 - 13)
+
+    def pick_mode(*xs):
+        out = xs[0]
+        for m, x in enumerate(xs[1:], 1):
+            out = torch.where(mode == m, x, out)
+        return out
+
+    o = pick_mode(o0, o1, o2, o3, o4, o5, o6, o2)
+    d = pick_mode(d0, d1, d2, d3, d4, d5, d6, d2)
+    # the exact t of each ray, for mode 2's thresholds
+    if code == mk.PLANE:
+        t = mk._plane_t(o[1], d[1], eps)
+    elif code == mk.SPHERE:
+        t = mk._sphere_t(*o, *d, eps)
+    else:
+        t = mk._cylinder_t(*o, *d, min_y, max_y, eps)
+    near = (t.view(torch.int32) + torch.randint(
+        -4, 5, (n,), generator=g, device=device, dtype=torch.int32)
+        ).view(f32)
+    T2 = torch.where((t > eps) & (t < big), near, T0)
+    T = pick_mode(T0, T0, T2, T0, T0, T0, T6, torch.full_like(T0, big))
+    T = torch.minimum(torch.where(T > eps, T, torch.nextafter(
+        torch.tensor(eps, dtype=f32, device=device),
+        torch.tensor(big, dtype=f32, device=device)).expand(n)),
+        torch.tensor(big, dtype=f32, device=device))
+    return torch.cat([o, d]).contiguous(), T.contiguous()
+
+
 def textured_teapot(sc, make):
     """The `teapot` scene `sc` (either package's) cut to its light, floor,
     model and sphere, the floor and the sphere textured by small file

@@ -49,7 +49,8 @@ import torch
 
 from _torch_scenes import (MESH_SCENES, SLICE_SCENES, TEX_SCENES,
                            assert_slot_rule,
-                           cylinder_scene, grad_inputs, grad_rule,
+                           cylinder_scene, filter_cases, grad_inputs,
+                           grad_rule,
                            port_inputs, sincos_mismatches, size_check_scene,
                            tex_grad_rule, textured_teapot, tie_scene)
 from pathtracer_tpu_torch import cli
@@ -216,6 +217,21 @@ def test_wrap_check_on_the_card(dev):
     fast, bad = mk.wrap_check(2048, -(1 << 23), 1 << 23, dev)
     assert mk.wrap_check.launches == before + 1
     assert (fast, bad) == ((1 << 23) - 1, 0)
+
+
+@pytest.mark.parametrize("code", [shapes.PLANE, shapes.SPHERE,
+                                  shapes.CYLINDER])
+def test_filter_check_on_the_card(dev, code):
+    # the object loop's filter against the exact tests on 2^22 cases (the
+    # chip_smoke phase takes 2^28 a type): no skipped winner, and the same
+    # cases skipped as by the plain filter on the CPU
+    ray, thr = filter_cases(code, 1 << 22, 5, dev, 1e-4, 0.0, 0.4)
+    before = mk.filter_check.launches
+    skipped, bad = mk.filter_check(code, ray, thr, 1e-4, 0.0, 0.4)
+    assert mk.filter_check.launches == before + 1
+    assert bad == 0 and skipped > 0
+    cpu = mk.filter_check(code, ray.cpu(), thr.cpu(), 1e-4, 0.0, 0.4)
+    assert (skipped, bad) == cpu
 
 
 def test_kernel_refuses_tables_off_the_card(dev):
