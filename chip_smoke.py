@@ -175,7 +175,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from _torch_scenes import (ATOL, MEAN_REL, RTOL, SLOT_FRAC,  # noqa: E402
                            bounce_rays, camera_rays, cylinder_scene,
-                           filter_cases, grad_inputs, grad_rule, port_inputs,
+                           filter_cases, grad_inputs, grad_rule,
+                           one_warp_live, port_inputs,
                            sincos_mismatches, size_check_scene,
                            tex_grad_rule, tie_scene)
 
@@ -296,6 +297,7 @@ WALKS = {
     "tensor core": {"PT_TRAVERSAL": "mxu"},
     "leaf-ablated": {"PT_ABLATE_LEAF": "1"},
     "packet leaf-ablated": {"PT_SUBPACKET": "2", "PT_ABLATE_LEAF": "1"},
+    "packet mode 3 leaf-ablated": {"PT_SUBPACKET": "3", "PT_ABLATE_LEAF": "1"},
 }
 WALK_KNOBS = ("PT_SUBPACKET", "PT_TRAVERSAL", "PT_ABLATE_LEAF",
               "PT_TILE_ORDER")
@@ -309,6 +311,44 @@ MAIN_WALKS = (
     ("tensor core, rowblock", {"PT_TRAVERSAL": "mxu",
                                "PT_TILE_ORDER": "rowblock"}),
 )
+
+
+# the packet walks' split (--walk-split): `teapot` and the size-check mesh
+# at W x H x 8 spp under packet modes 2 and 3, the tensor-core leaves and
+# the packet node walks alone, packed at the port's leaf size (4) and at 32
+WALK_SPLIT = ("packet mode 2", "packet mode 3", "tensor core",
+              "packet leaf-ablated", "packet mode 3 leaf-ablated")
+WALK_ROWS = {f"{walk} {scene} leaf {leaf} {W}x{H}x8 spp": dict(
+    kind="fwd", scene=scene, tile=MESH_TILE, leaf=leaf, env=WALKS[walk])
+    for scene in ("teapot", "size-check mesh") for leaf in (4, 32)
+    for walk in WALK_SPLIT}
+# the packet walks' A/B rows (the redesign's rule): Kernel A (modes 2 and
+# 3) and Kernel B (tensor core) on `teapot` at the port's leaf size; the
+# size-check mesh under each walk; `teapot` at leaf 32 under each; the
+# textured packet walk; K5 under the three walks; the per-thread walk
+WALK_AB_CASES = {
+    **{f"{walk} teapot leaf 4 {W}x{H}x8 spp": dict(
+        kind="fwd", scene="teapot", tile=MESH_TILE, leaf=4, env=WALKS[walk])
+       for walk in ("packet mode 2", "packet mode 3", "tensor core",
+                    "per-thread")},
+    **{f"{walk} size-check mesh leaf 4 {W}x{H}x8 spp": dict(
+        kind="fwd", scene="size-check mesh", tile=MESH_TILE, leaf=4,
+        env=WALKS[walk])
+       for walk in ("packet mode 2", "packet mode 3", "tensor core")},
+    **{f"{walk} teapot {W}x{H}x8 spp": dict(
+        kind="fwd", scene="teapot", tile=MESH_TILE, leaf=32, env=WALKS[walk])
+       for walk in ("packet mode 2", "packet mode 3", "tensor core")},
+    f"K1-tex packet mode 2 cubemap {W}x{H}x8 spp": dict(
+        kind="fwd", scene="cubemap", env=WALKS["packet mode 2"]),
+    **{f"K5 {walk} teapot {W * H * 8} rays": dict(
+        kind="isect", scene="teapot", leaf=4, env=WALKS[walk])
+       for walk in ("packet mode 2", "packet mode 3", "tensor core")},
+    # outside the rule's rows: the packet walks' NEE instantiations
+    **{f"K1-nee {walk} teapot leaf 4 {W}x{H}x8 spp": dict(
+        kind="fwd", scene="teapot", tile=MESH_TILE, leaf=4, env=WALKS[walk],
+        cfg={"nee": True})
+       for walk in ("packet mode 2", "tensor core")},
+}
 
 
 # phase 5 A/B (--ab-parent): the K1 family on the main paths' scenes at
@@ -599,6 +639,8 @@ def _walk_words(ints: str) -> str:
 def kernel_name(mangled: str) -> str:
     """The instantiation of megakernel<kMesh, kGrad, kTex, kF32, kNee,
     kWalk, kLeaf> (fewer arguments in older builds), of
+    packet_megakernel<kTex, kNee, kWalk, kLeaf> (named as the megakernel
+    instantiation it runs), of
     grad_megakernel<kMesh, kTex, kF32> (named as the kGrad megakernel of
     older builds), of intersect<kMesh, kWalk, kLeaf>, or the probe, by
     name."""
@@ -625,6 +667,11 @@ def kernel_name(mangled: str) -> str:
     if m:
         return ("intersect " + _walk_words(m.group(2))
                 + ("mesh" if m.group(1) == "1" else "primitive"))
+    m = re.search(r"packet_megakernelI((?:Lb[01]E)+)((?:Li\d+E)*)E", mangled)
+    if m:     # packet_megakernel<kTex, kNee, kWalk, kLeaf>: a mesh forward
+        tex, nee = re.findall(r"Lb([01])E", m.group(1))
+        return " ".join(["textured"] * (tex == "1") + ["nee"] * (nee == "1")
+                        + [_walk_words(m.group(2)) + "mesh"])
     m = re.search(r"grad_megakernelI((?:Lb[01]E)+)E", mangled)
     if m:     # grad_megakernel<kMesh, kTex, kF32>
         mesh, tex, f32 = re.findall(r"Lb([01])E", m.group(1))
@@ -1204,13 +1251,20 @@ def mip_blur(dev, card):
                 mip=f"{mip.shape[1]}x{mip.shape[0]}")
 
 
+_TREES = {}
+
+
 def load_tree(root: str, tag: str):
     """The pathtracer_tpu_torch under `root` (another checkout, or a copy
-    with one edit) imported as a package of its own named `tag`: its
-    megakernel module builds the kernels from its own csrc into its own
-    build directory and makes its own tables, so a tree with another table
+    with one edit) imported as a package of its own named `tag` (once a
+    directory: a later call returns the first import): its megakernel
+    module builds the kernels from its own csrc into its own build
+    directory and makes its own tables, so a tree with another table
     layout runs as that tree runs. Returns its modules."""
     pkg = Path(root).resolve() / "pathtracer_tpu_torch"
+    if pkg in _TREES:
+        return _TREES[pkg]
+    tag = f"{tag}_{len(_TREES)}"  # a name of its own for each directory
     spec = importlib.util.spec_from_file_location(
         tag, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     module = importlib.util.module_from_spec(spec)
@@ -1220,11 +1274,22 @@ def load_tree(root: str, tag: str):
     def sub(name):
         return importlib.import_module(f"{tag}.{name}")
 
-    return types.SimpleNamespace(
+    _TREES[pkg] = types.SimpleNamespace(
         mk=sub("render.megakernel"), tg=sub("render.grad"),
         build=sub("render._build"), get_scene=sub("scenes").get_scene,
         RenderConfig=sub("config").RenderConfig, pack=sub("scene.pack"),
         diff=sub("diff"), root=root)
+    return _TREES[pkg]
+
+
+def host_key(T) -> str:
+    """A digest of tree T's Python sources: trees with the same key pack
+    the same scenes into the same tables."""
+    import hashlib
+    h = hashlib.sha256()
+    for f in sorted((Path(T.root) / "pathtracer_tpu_torch").rglob("*.py")):
+        h.update(f.read_bytes())
+    return h.hexdigest()
 
 
 def prebuild(dirs):
@@ -1241,6 +1306,9 @@ THIS_TREE = types.SimpleNamespace(mk=mk, tg=tg, build=_build,
                                   RenderConfig=RenderConfig, pack=pack,
                                   diff=sys.modules["pathtracer_tpu_torch.diff"],
                                   root=".")
+
+
+_CASE_INPUTS = {}
 
 
 def tree_case(T, spec: dict, dev):
@@ -1263,13 +1331,19 @@ def tree_case(T, spec: dict, dev):
     with walk_env(env):
         cfg = T.RenderConfig(width=W, height=H, samples=spp,
                              samples_per_pass=spp, **spec.get("cfg", {}))
-        sc = (size_check_scene(cfg, T.get_scene)
-              if spec["scene"] == "size-check mesh"
-              else T.get_scene(spec["scene"], cfg))
-        arrays, meta = sc.pack(device=dev)
-        tables = [torch.from_numpy(t).to(dev) for t in (
-            T.mk.build_scene_table(arrays, meta),
-            *T.mk.build_mesh_tables(arrays, meta))]
+        key = (host_key(T), repr(sorted(spec.items())))
+        if key not in _CASE_INPUTS:
+            # packed once for the trees of the same host code (the walk
+            # split's copies differ in csrc alone)
+            sc = (size_check_scene(cfg, T.get_scene)
+                  if spec["scene"] == "size-check mesh"
+                  else T.get_scene(spec["scene"], cfg))
+            arrays, meta = sc.pack(device=dev)
+            _CASE_INPUTS[key] = (sc, arrays, meta, [
+                torch.from_numpy(t).to(dev) for t in (
+                    T.mk.build_scene_table(arrays, meta),
+                    *T.mk.build_mesh_tables(arrays, meta))])
+        sc, arrays, meta, tables = _CASE_INPUTS[key]
         cam = torch.from_numpy(T.mk.build_camera_vec(sc.camera)).to(dev)
         if kind == "isect":
             gen = torch.Generator(device=dev)
@@ -1351,13 +1425,14 @@ def sass_of(lib: Path) -> dict:
     return out
 
 
-def same_sass(T, parent: str) -> dict:
+def same_sass(T, parent: str, this=None) -> dict:
     """Phase 5 A/B: whether each forward instantiation (the K1 family
-    without the gradient kernels) of this build is the parent tree T's
-    instruction for instruction. Returns {"same": [...], "differ":
+    without the gradient kernels) of this build (or of tree `this`'s) is
+    the parent tree T's instruction for instruction, and so each of those
+    without a packet walk (kWalk). Returns {"same": [...], "differ":
     [...]}, empty without cuobjdump."""
     theirs = sass_of(T.build._target("megakernel"))
-    ours = sass_of(_build._target("megakernel"))
+    ours = sass_of((this or THIS_TREE).build._target("megakernel"))
     if theirs is None or ours is None:
         phase("phase 5 A/B: no cuobjdump; the SASS is not compared")
         return {}
@@ -1374,9 +1449,13 @@ def same_sass(T, parent: str) -> dict:
         first = (f"; {k}: {len(a)} against {len(b)} lines, the first "
                  f"difference at line {i}: {a[i:i + 1]} against "
                  f"{b[i:i + 1]}")
+    plain = [k for k in fwd if "packet" not in k]
+    moved = [k for k in plain if k in out["differ"]]
     phase(f"phase 5 A/B: SASS of the forward instantiations, {parent} and "
           f"this: {len(out['same'])} of {len(fwd)} identical; differ: "
-          f"{out['differ']}{first}")
+          f"{out['differ']}{first}; without a packet walk (kWalk): "
+          f"{len(plain) - len(moved)} of {len(plain)} identical"
+          f"{'' if not moved else f', differ: {moved}'}")
     return out
 
 
@@ -1439,30 +1518,43 @@ def rates_ab(T, parent: str, dev, card) -> dict:
     return out
 
 
-def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas):
+def tree_ptxas(T):
+    """The ptxas lines of tree T's megakernel build."""
+    log = T.build._target("megakernel").with_suffix(".log")
+    return ptxas_lines(log.read_text())
+
+
+def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas,
+              this=None, strict=True, rates=True):
     """Phase 5 A/B: another tree (`parent`: a checkout, or a copy of the
-    package with one edit) against this one, each on its own code
+    package with one edit) against this one (or against tree `this`,
+    load_tree's, with its ptxas lines `ptxas`), each on its own code
     (load_tree, tree_case) and the same inputs: 20 launches a timing in the
     order parent, this, this, parent, three times over. Each case of
     `specs` must give bit-equal outputs (the gradient rule for "grad",
-    "tri" and "texgrad" cases). The ptxas counts of the kernels outside the
-    K1 family (the sincos check, the tensor-core pairs probe) must not
-    move; those of the K1 family (the megakernel, intersect and leaf
-    microbenchmark instantiations, and the fetch probe, which runs
-    K1-tex's fetch) are printed before and after. Returns
-    ({case: (parent median ms, this median ms)}, {K1-family
-    instantiation: (parent counts, this build's)})."""
+    "tri" and "texgrad" cases); unless `strict`, a case whose outputs
+    differ is reported and the A/B goes on. The ptxas counts of the kernels
+    outside the K1 family (the sincos check) must not move; those of the
+    K1 family (the megakernel, intersect and leaf microbenchmark
+    instantiations, the tensor-core pairs probe, which runs Kernel B's
+    dots, and the fetch probe, which runs K1-tex's fetch) are printed
+    before and after. With `rates`, bench.py's fwd+bwd rates too (rates_ab).
+    Returns ({case: (parent median ms, this median ms)}, {K1-family
+    instantiation: (parent counts, this build's)}, same_sass's result,
+    {step: rates}, [cases whose outputs differ])."""
     T = load_tree(parent, tag)
     T.mk.library()                       # its build, from its own csrc
-    log = T.build._target("megakernel").with_suffix(".log")
-    parent_lines = ptxas_lines(log.read_text())
+    this = this or THIS_TREE
+    this.mk.library()
+    parent_lines = tree_ptxas(T)
     for line in parent_lines:
         phase(f"phase 5 A/B: {parent} ptxas: {line}")
     theirs, ours = ptxas_counts(parent_lines), ptxas_counts(ptxas)
 
     def k1_family(name):
         return ("primitive" in name.split() or "mesh" in name.split()
-                or name.startswith(("leaf bench", "fetch probe")))
+                or name.startswith(("leaf bench", "fetch probe",
+                                    "mma pairs")))
 
     family = {k: (v, ours.get(k)) for k, v in theirs.items() if k1_family(k)}
     moved = {k: (v, ours.get(k)) for k, v in theirs.items()
@@ -1479,11 +1571,11 @@ def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas):
     phase(f"phase 5 A/B: ptxas of the forward instantiations (the K1 family "
           f"without the gradient kernels), {parent} then this: "
           f"{'unchanged' if not fwd_moved else fwd_moved}")
-    sass = same_sass(T, parent)
-    out = {}
+    sass = same_sass(T, parent, this)
+    out, differ = {}, []
     for name, spec in specs.items():
         fns = {"parent": tree_case(T, spec, dev),
-               "this": tree_case(THIS_TREE, spec, dev)}
+               "this": tree_case(this, spec, dev)}
         runs = {"parent": [], "this": []}
         res = {}
         for who in ["parent", "this", "this", "parent"] * 3:
@@ -1492,8 +1584,14 @@ def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas):
         exact = spec["kind"] not in ("grad", "tri", "texgrad")
         if exact and not all(torch.equal(a, b) for a, b in
                              zip(res["parent"], res["this"])):
-            raise AssertionError(f"phase 5 A/B: {name}: outputs differ from "
-                                 f"{parent}'s")
+            if strict:
+                raise AssertionError(f"phase 5 A/B: {name}: outputs differ "
+                                     f"from {parent}'s")
+            same = float(np.mean([float((a == b).float().mean()) for a, b
+                                  in zip(res["parent"], res["this"])]))
+            phase(f"phase 5 A/B: {name}: outputs DIFFER from {parent}'s "
+                  f"(bit-equal on {same:.6f} of the values)")
+            differ.append(name)
         if spec["kind"] == "texgrad":
             tex_grad_rule(res["this"], res["parent"])
         elif not exact:
@@ -1506,8 +1604,8 @@ def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas):
               f"{[round(x, 4) for x in runs['parent']]}, this "
               f"{[round(x, 4) for x in runs['this']]}; card {card}")
         out[name] = (pm, tm)
-    rates = rates_ab(T, parent, dev, card)
-    return out, family, sass, rates
+    rates = rates_ab(T, parent, dev, card) if rates else {}
+    return out, family, sass, rates, differ
 
 
 def nee_timing(ref_nee, tea_nee, card):
@@ -1727,9 +1825,9 @@ def walk_compare(dev, msmall, nmesh):
     `cubemap` and `teapot --nee` at 160x120; the node walk alone (thread
     and packet) on `teapot`; Kernel B (tensor-core leaves) on the same
     scenes by the per-slot rule, with its bit-equal share, and its leaf
-    test per ray x triangle pair (leaf_bench.check: t within one ulp,
-    winners differing only at ties). Returns (max abs errs, Kernel B's
-    leaf check)."""
+    test per ray x triangle pair at each leaf size of LEAF_SWEEP
+    (leaf_bench.check: t within one ulp, winners differing only at ties).
+    Returns (max abs errs, {leaf: Kernel B's leaf check})."""
     scenes = [("teapot", get_scene("teapot", msmall), msmall, MESH_TILE),
               ("size-check mesh", size_check_scene(msmall, get_scene),
                msmall, MESH_TILE),
@@ -1747,23 +1845,47 @@ def walk_compare(dev, msmall, nmesh):
         with walk_env(WALKS[walk]):
             compare(f"{walk}: teapot", get_scene("teapot", msmall), msmall,
                     MESH_TILE, 0, dev, exact=True)
-    tris, meta, arrays = leaf_bench.teapot_leaves(dev)
-    check = leaf_bench.check(leaf_bench.mesh_rays(arrays, 1 << 16, dev),
-                             tris, meta)
-    pr, mm = check["pairs"], check["mma"]
-    phase(f"phase 3: Kernel B's leaf test on teapot's leaves: "
-          f"{pr['within_1ulp']} of {pr['pairs']} ray x triangle pairs with "
-          f"t within 1 ulp of the plain version ({pr['hit_within_1ulp']} of "
-          f"{pr['hit_pairs']} hit pairs; bit-equal {pr['bit_equal']}); "
-          f"over 3 leaf visits of {mm['rays']} rays: t within 1 ulp on "
-          f"{mm['t_within_1ulp']}, winner equal on {mm['winner_equal']}, "
-          f"ties where it differs {mm['winner_differs_at_tie']}")
-    if (pr["within_1ulp"] < 0.999 * pr["pairs"]
-            or mm["winner_equal"] + mm["winner_differs_at_tie"]
-            != mm["rays"]):
-        raise AssertionError("phase 3: Kernel B's leaf test is off its "
-                             "plain version")
-    return errs, check
+    # a block in which one warp stays live: the others' slots on a pixel
+    # that sees the light, so their paths end at the first hit (Kernel A
+    # under WALK_BLOCK lets such warps leave the bounce)
+    for walk in ("packet mode 2", "packet mode 3", "tensor core"):
+        with walk_env(WALKS[walk]):
+            tabs, meta, _, lay = port_inputs(get_scene("teapot", msmall),
+                                             msmall, MESH_TILE, dev)
+            kw = dict(meta=meta, cfg=msmall, spp=msmall.samples,
+                      total_samples=msmall.samples, tile=MESH_TILE, **lay)
+            tabs, pixel = one_warp_live(tabs, kw)
+            k = torch.stack(mk.trace_tiles((5, 0), *tabs, **kw))
+            p = torch.stack(mk.trace_tiles_reference((5, 0), *tabs, **kw))
+            bit = float((k == p).float().mean())
+            phase(f"phase 3: {walk}: teapot, one warp a block live (the "
+                  f"others on pixel {pixel}): bit-equal on {bit:.6f} of "
+                  f"{k.numel()} slot values")
+            if walk != "tensor core" and bit != 1.0:
+                raise AssertionError(f"phase 3: {walk} differs from its "
+                                     "plain version with one warp live")
+            errs["A" if walk != "tensor core" else "B"].append(
+                float((k - p).abs().max()))
+    checks = {}
+    for leaf in LEAF_SWEEP:
+        tris, meta, arrays = leaf_bench.teapot_leaves(dev, leaf)
+        check = checks[leaf] = leaf_bench.check(
+            leaf_bench.mesh_rays(arrays, 1 << 16, dev), tris, meta)
+        pr, mm = check["pairs"], check["mma"]
+        phase(f"phase 3: Kernel B's leaf test on teapot's leaves of {leaf}: "
+              f"{pr['within_1ulp']} of {pr['pairs']} ray x triangle pairs "
+              f"with t within 1 ulp of the plain version "
+              f"({pr['hit_within_1ulp']} of {pr['hit_pairs']} hit pairs; "
+              f"bit-equal {pr['bit_equal']}); over 3 leaf visits of "
+              f"{mm['rays']} rays: t within 1 ulp on {mm['t_within_1ulp']}, "
+              f"winner equal on {mm['winner_equal']}, ties where it differs "
+              f"{mm['winner_differs_at_tie']}")
+        if (pr["within_1ulp"] < 0.999 * pr["pairs"]
+                or mm["winner_equal"] + mm["winner_differs_at_tie"]
+                != mm["rays"]):
+            raise AssertionError(f"phase 3: Kernel B's leaf test at leaf "
+                                 f"{leaf} is off its plain version")
+    return errs, checks
 
 
 def variant_main_path(tmp, dev, card, tag, env, tea):
@@ -2293,6 +2415,70 @@ def k1_split(trees, ptxas_of, dev, card):
     return out, ptx
 
 
+def walk_split(trees, ptxas_of, dev, card):
+    """Phase 5 (the packet walks' split): each row of WALK_ROWS at W x H on
+    this tree and on the trees of `--walk-split DIR` (e.g.
+    tools/walk_variants.py's timing copies: the octant vote without
+    barriers, group_any a warp vote, dead warps skipped, one column tile,
+    no reduction, the dots on the SIMT cores; their outputs are not
+    checked), timed in turns (10 launches a timing, through the trees and
+    back, twice: the median of 4). `trees` is [(tag, tree)], this tree
+    first; `ptxas_of`: tag -> ptxas counts, whose packet instantiations
+    (and Kernel B's probes) are printed. Returns ({row: {tag: median
+    ms}}, {tag: those ptxas counts})."""
+    order = [tag for tag, _ in trees]
+    out = {}
+    for row, spec in WALK_ROWS.items():
+        fns = {tag: tree_case(T, spec, dev) for tag, T in trees}
+        runs = {tag: [] for tag in order}
+        for tag in (order + order[::-1]) * 2:
+            runs[tag].append(cuda_ms(fns[tag], 10))
+        res = {tag: float(np.median(runs[tag])) for tag in order}
+        phase(f"phase 5 walk split: {row}: " + ", ".join(
+            f"{tag} {ms:.4f} ms ({ms / res[order[0]]:.3f}x)"
+            for tag, ms in res.items()) + f"; timings "
+            f"{ {t: [round(x, 4) for x in r] for t, r in runs.items()} }"
+            f"; card {card}")
+        out[row] = res
+    ptx = {}
+    for tag in order:
+        ptx[tag] = {k: list(v) for k, v in ptxas_of[tag].items()
+                    if "packet" in k or k.startswith(("mma", "leaf bench mma"))}
+        phase(f"phase 5 walk split: ptxas (registers, stack, spill stores, "
+              f"spill loads) of {tag}'s packet instantiations and Kernel B's "
+              f"probes: {ptx[tag]}")
+    return out, ptx
+
+
+def walk_phases(args, dev, card, ptxas):
+    """Phase 5: the packet walks' split over this tree and the trees of
+    `--walk-split` (none: this tree alone). Returns walk_split's results."""
+    trees, ptxas_of = [("this", THIS_TREE)], {"this": ptxas_counts(ptxas)}
+    for i, d in enumerate(args.walk_split):
+        T = load_tree(d, f"walk_tree_{i}")
+        T.mk.library()
+        trees.append((d, T))
+        ptxas_of[d] = ptxas_counts(tree_ptxas(T))
+    return walk_split(trees, ptxas_of, dev, card)
+
+
+def ab_chain(dirs, specs, dev, card):
+    """Phase 5 A/B along a chain of trees (one --ab-chain, in order): each tree
+    against the one before it, on its own code (ab_parent with `this` the
+    later tree), outputs reported where they differ, no fwd+bwd rates.
+    Returns {(parent, this): ab_parent's results}."""
+    out = {}
+    for i in range(1, len(dirs)):
+        parent, this = dirs[i - 1], dirs[i]
+        phase(f"phase 5 A/B: {this} (this) against {parent}")
+        T = load_tree(this, f"chain_tree_{i}")
+        T.mk.library()
+        out[(parent, this)] = ab_parent(
+            parent, f"chain_tree_{i - 1}", specs, dev, card, tree_ptxas(T),
+            this=T, strict=False, rates=False)
+    return out
+
+
 def k1_phases(args, dev, card, ptxas):
     """Phase 5: the forward kernel's split over this tree and the trees of
     `--k1-split` (none: this tree alone). Returns k1_split's results."""
@@ -2628,6 +2814,38 @@ def grad_only(args, dev, card, ptxas):
     phase("grad-only: done")
 
 
+def walk_only(args, dev, card, ptxas):
+    """--walk-only: the packet walks' phases: phase 3's walks (Kernel A bit
+    for bit, Kernel B by the per-slot rule and its leaf check), phase 4's
+    main paths under the walks (after the default `teapot` render their
+    image means are held to), phase 5's walk timings, the split
+    (walk_phases), phase 9's K5 walks and phase 10 (P3); then the A/B of
+    --ab-parent and of --ab-chain on WALK_AB_CASES, without the fwd+bwd
+    rates. Prints no result lines."""
+    small = RenderConfig(width=160, height=120, samples=8,
+                         samples_per_pass=8)
+    walk_compare(dev, small, small.replace(nee=True))
+    mesh_tris = {"teapot": n_triangles(get_scene("teapot", small))}
+    with tempfile.TemporaryDirectory() as tmp:
+        tea = teapot_main_path(tmp, dev, card, mesh_tris)
+        for tag, env in MAIN_WALKS:
+            variant_main_path(tmp, dev, card, tag, env, tea)
+    walk_times = walk_timing(dev, card)
+    walk_phases(args, dev, card, ptxas)
+    intersect_walks(dev, card)
+    leaf_phase(dev, card, walk_times["teapot"])
+    differ = []
+    for i, d in enumerate(args.ab_parent):
+        phase(f"phase 5 A/B: against {d}")
+        differ += ab_parent(d, f"ab_tree_{i}", WALK_AB_CASES, dev, card,
+                            ptxas, strict=False, rates=False)[4]
+    for chain in args.ab_chain:
+        for r in ab_chain(chain.split(","), WALK_AB_CASES, dev,
+                          card).values():
+            differ += r[4]
+    phase(f"walk-only: done; A/B cases whose outputs differ: {differ}")
+
+
 def k1_only(args, dev, card, ptxas):
     """--k1-only: the object loop's filter check (filter_phase), the
     forward kernel's split (k1_phases) and the A/B of --ab-parent, the
@@ -2665,6 +2883,22 @@ def main(argv=None) -> int:
                          "on the pathtracer_tpu_torch under DIR too, e.g. a "
                          "copy made by tools/k1_variants.py; may be given "
                          "more than once")
+    ap.add_argument("--walk-split", metavar="DIR", action="append",
+                    default=[],
+                    help="time the packet walks' rows (phase 5, WALK_ROWS) "
+                         "on the pathtracer_tpu_torch under DIR too, e.g. a "
+                         "copy made by tools/walk_variants.py; may be given "
+                         "more than once")
+    ap.add_argument("--ab-chain", metavar="DIR,DIR,...", action="append",
+                    default=[],
+                    help="A/B the pathtracer_tpu_torch of each of these "
+                         "trees against the one before it in the list, on "
+                         "its own code (the packet walks' rows; phase 5); "
+                         "may be given more than once, a chain each")
+    ap.add_argument("--walk-only", action="store_true",
+                    help="after the build, run the packet walks' phases, "
+                         "their split and the A/B of --ab-parent and "
+                         "--ab-chain alone and print no result lines")
     ap.add_argument("--k1-only", action="store_true",
                     help="after the build, run the forward kernel's split "
                          "and the A/B of --ab-parent alone and print no "
@@ -2697,7 +2931,10 @@ def main(argv=None) -> int:
     for line in ptxas + ptxas_lines(plib.with_suffix(".log").read_text()):
         phase(f"phase 2: ptxas: {line}")
     others = list(dict.fromkeys(args.ab_parent + args.tex_split
-                                + args.grad_split + args.k1_split))
+                                + args.grad_split + args.k1_split
+                                + args.walk_split
+                                + [d for c in args.ab_chain
+                                   for d in c.split(",")]))
     if others:
         t0 = time.perf_counter()
         prebuild(others)
@@ -2711,6 +2948,9 @@ def main(argv=None) -> int:
         return 0
     if args.k1_only:
         k1_only(args, dev, card, ptxas)
+        return 0
+    if args.walk_only:
+        walk_only(args, dev, card, ptxas)
         return 0
 
     # ---- phase 3: kernel vs plain version on the card -------------------
@@ -2913,7 +3153,8 @@ def main(argv=None) -> int:
     ab = {}
     for i, d in enumerate(args.ab_parent):
         phase(f"phase 5 A/B: against {d}")
-        ab[d] = ab_parent(d, f"ab_tree_{i}", AB_CASES, dev, card, ptxas)
+        ab[d] = ab_parent(d, f"ab_tree_{i}", {**AB_CASES, **WALK_AB_CASES},
+                          dev, card, ptxas)
         for name in ("reference", "teapot"):
             pm, tm = ab[d][0][f"K1-nee {name} {W}x{H}x8 spp"]
             phase(f"phase 5 nee: {name}: K1-nee {tm:.4f} ms against "
@@ -2925,6 +3166,7 @@ def main(argv=None) -> int:
 
     # the mesh walks, each on the same samples, with K1-mesh's bound
     walk_times = walk_timing(dev, card)
+    wsplit = walk_phases(args, dev, card, ptxas)
     split = split_phase(walk_times, k8_ms, {"reference": kw8["meta"],
                                             "teapot": mkw["meta"]}, card)
     sweep = leaf_sweep(dev, card)
@@ -3118,7 +3360,7 @@ def main(argv=None) -> int:
          "main_path": {t: {k: walk_main[t][k] for k in (
              "launches", "msamples", "wall", "mean_rel", "bit_eq", "p_ms")}
              for t, _ in MAIN_WALKS},
-         "by_walk": walk_times},
+         "by_walk": walk_times, "walk_split": wsplit[0]},
         {"name": "megakernel-mesh-mma", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
          "replaces": "pathtracer_tpu/render/pallas_kernel.py:1678,347",

@@ -741,8 +741,8 @@ struct Params {
   // kNee only: the lights (meta.light_indices), in the JAX order
   int n_lights;
   int light_idx[kMaxObjects];
-  // LEAF_MMA only: the leaves' A fragments (render/megakernel.py
-  // mxu_fragments: [n_leaves, 6, ceil(K/8), 32] f32)
+  // LEAF_MMA only: the leaves' plane tiles (render/megakernel.py
+  // mxu_fragments: [n_leaves, leaf_tiles(K), 32] f32)
   const float* __restrict__ mxu;
   // the triangles' shading records, read for the winner alone
   const float4* __restrict__ shade;
@@ -1005,30 +1005,34 @@ __device__ __forceinline__ void dmma(double& d0, double& d1, double a,
       : "d"(a), "d"(b), "d"(0.0), "d"(0.0));
 }
 
-// The warp's rays as B fragments, one per 8-ray column tile ct: this lane
-// holds component lane % 4 of ray ct * 8 + lane / 4 of q = [o, 1] (bo) and
-// of q = [d, 0] (bd).
+// The warp's rays in shared memory, [warp][half][32 rays][4]: half 0
+// holds each ray's q = [o, 1], half 1 its q = [d, 0]. The A fragment of
+// 8-ray tile ct (component lane % 4 of ray ct * 8 + lane / 4) is float
+// ct * 32 + lane of its half, read where a product takes it (frag_o,
+// frag_d), so that no fragment stays live in registers across the walk.
+__shared__ __align__(16) float s_rays[kThreads / 32][2][128];
+
 struct RayFrags {
-  double o[4], d[4];
+  const float* s;  // the warp's rays
 };
 
 __device__ __forceinline__ RayFrags ray_frags(float ox, float oy, float oz,
                                               float dx, float dy, float dz) {
-  RayFrags q;
-  const int lane = threadIdx.x & 31, c = lane & 3;
-#pragma unroll
-  for (int ct = 0; ct < 4; ++ct) {
-    const int src = ct * 8 + (lane >> 2);
-    const float x = __shfl_sync(kFull, ox, src);
-    const float y = __shfl_sync(kFull, oy, src);
-    const float z = __shfl_sync(kFull, oz, src);
-    const float u = __shfl_sync(kFull, dx, src);
-    const float v = __shfl_sync(kFull, dy, src);
-    const float w = __shfl_sync(kFull, dz, src);
-    q.o[ct] = c == 0 ? x : c == 1 ? y : c == 2 ? z : 1.0f;
-    q.d[ct] = c == 0 ? u : c == 1 ? v : c == 2 ? w : 0.0f;
-  }
-  return q;
+  const int lane = threadIdx.x & 31;
+  float* s = s_rays[threadIdx.x >> 5][0];
+  __syncwarp();  // the warp's last walk has read its rays
+  reinterpret_cast<float4*>(s)[lane] = make_float4(ox, oy, oz, 1.0f);
+  reinterpret_cast<float4*>(s + 128)[lane] = make_float4(dx, dy, dz, 0.0f);
+  __syncwarp();
+  return RayFrags{s};
+}
+
+__device__ __forceinline__ double frag_o(const RayFrags& q, int ct) {
+  return q.s[ct * 32 + (threadIdx.x & 31)];
+}
+
+__device__ __forceinline__ double frag_d(const RayFrags& q, int ct) {
+  return q.s[128 + ct * 32 + (threadIdx.x & 31)];
 }
 
 // The plane groups of an MXU block (den, num_t, ou, du, ov, dv) that read
@@ -1037,101 +1041,131 @@ __device__ __forceinline__ bool d_half(int g) {
   return g == 0 || g == 3 || g == 5;
 }
 
-// The six plane dots of the 8 triangles of tile kt of the leaf whose
-// fragments start at `a` (mxu_fragments' layout) against the 8 rays of
-// column tile ct: d[g][i] for the triangle kt * 8 + lane / 4 and the ray
-// ct * 8 + 2 (lane % 4) + i. Every product of two f32 is exact in f64; each
-// dot is rounded once, to f32, by the caller.
-__device__ __forceinline__ void plane_dots(const float* a, int nkt, int kt,
-                                           const RayFrags& q, int ct,
-                                           double (&d)[6][2]) {
-#pragma unroll
-  for (int g = 0; g < 6; ++g)
-    dmma(d[g][0], d[g][1], (double)__ldg(a + (g * nkt + kt) * 32),
-         d_half(g) ? q.d[ct] : q.o[ct]);
+// The leaves' plane tiles (render/megakernel.py mxu_fragments), each the B
+// fragment of one DMMA whose A is a ray tile: this lane holds coefficient
+// lane % 4 (of the half of q its group reads) of column lane / 4, so the
+// DMMA's d_i are ray ct * 8 + lane / 4 against column 2 (lane % 4) + i. A
+// leaf of K > 4 triangles has 6 ceil(K/8) tiles, tile g ceil(K/8) + kt
+// holding group g of triangles 8 kt .. 8 kt + 7 in its columns. A leaf of
+// K <= 4 has four, each with two groups of one half of q, triangle c's in
+// columns 2c and 2c + 1: (den, du), (dv, none), (num_t, ou), (ov, none);
+// so each lane holds all six dots of one (ray, triangle) pair.
+constexpr int kPackLeaf = 4;
+
+__device__ __forceinline__ int leaf_tiles(int K) {
+  return K <= kPackLeaf ? 4 : 6 * ((K + 7) >> 3);
 }
 
 // The triangle test from a pair's six plane dots (_packet_traverse_mxu
-// :1799-1810): t = num_t / den as num_t * (1 / den), u = ou + t du,
-// v = ov + t dv; returns t, or kBig when the pair does not hit.
-__device__ __forceinline__ float pair_test(const double (&d)[6][2], int i,
+// :1799-1810), each rounded once to f32: t = num_t / den as num_t *
+// (1 / den), u = ou + t du, v = ov + t dv; returns t, or kBig when the
+// pair does not hit.
+__device__ __forceinline__ float pair_test(double den_d, double num_d,
+                                           double ou_d, double du_d,
+                                           double ov_d, double dv_d,
                                            float eps, float& u, float& v) {
-  const float den = (float)d[0][i], num_t = (float)d[1][i];
+  const float den = (float)den_d, num_t = (float)num_d;
   const bool den_ok = fabsf(den) >= eps;
   const float f = 1.0f / (den_ok ? den : 1.0f);
   const float t = num_t * f;
-  u = (float)d[2][i] + t * (float)d[3][i];
-  v = (float)d[4][i] + t * (float)d[5][i];
+  u = (float)ou_d + t * (float)du_d;
+  v = (float)ov_d + t * (float)dv_d;
   return (den_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > eps)
              ? t : kBig;
 }
 
+// This lane's pair tests in ray tile ct (q's fragments qo, qd) against the
+// leaf whose tiles start at `a` (this lane's float of the first): ray
+// ct * 8 + lane / 4 against triangle lane % 4 (K <= 4), or against
+// triangles 8 kt + 2 (lane % 4) + i, i = 0, 1, for each kt in turn (K > 4);
+// f(t, k, u, v) for each pair, k ascending. Every product of two f32 is
+// exact in f64.
+template <class F>
+__device__ __forceinline__ void tile_pairs(const float* a, int K, double qo,
+                                           double qd, float eps, F&& f) {
+  const int c = threadIdx.x & 3;
+  float u, v;
+  if (K <= kPackLeaf) {
+    double den, du, dv, num_t, ou, ov, none;
+    dmma(den, du, qd, (double)__ldg(a));
+    dmma(dv, none, qd, (double)__ldg(a + 32));
+    dmma(num_t, ou, qo, (double)__ldg(a + 64));
+    dmma(ov, none, qo, (double)__ldg(a + 96));
+    const float t = pair_test(den, num_t, ou, du, ov, dv, eps, u, v);
+    f(t, c, u, v);
+    return;
+  }
+  const int nkt = (K + 7) >> 3;
+  for (int kt = 0; kt < nkt; ++kt) {
+    double d[6][2];
+#pragma unroll
+    for (int g = 0; g < 6; ++g)
+      dmma(d[g][0], d[g][1], d_half(g) ? qd : qo,
+           (double)__ldg(a + (g * nkt + kt) * 32));
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float t = pair_test(d[0][i], d[1][i], d[2][i], d[3][i], d[4][i],
+                                d[5][i], eps, u, v);
+      f(t, 8 * kt + 2 * c + i, u, v);
+    }
+  }
+}
+
 // The tensor-core leaf test (Kernel B, the counterpart of
 // _packet_traverse_mxu's leaf machine): one leaf's K triangles against the
-// warp's 32 rays, the plane dots by DMMA (plane_dots), then t, the
-// barycentrics and validity on the SIMT cores, the closest hit of each ray
-// (the lowest slot on ties) reduced over the lanes that hold its
-// triangles and handed to the ray's lane, which merges it where its own
-// slab test hit the leaf (`hit`). The whole warp calls it.
+// warp's 32 rays, the plane dots by DMMA (tile_pairs), then t, the
+// barycentrics and validity on the SIMT cores, each ray's closest hit
+// (the lowest slot on ties) reduced over the 4 lanes that hold its pairs
+// and handed to the ray's lane, which merges it where its own slab test hit the leaf
+// (`hit`). A ray tile in which no slab hit the leaf is skipped. The whole
+// warp calls it.
 __device__ __forceinline__ float leaf_mma(const Params& p, int s0,
                                           const RayFrags& q, bool hit,
                                           float bt, int& slot, float& wu,
                                           float& wv) {
-  const int K = p.leaf_size, nkt = (K + 7) >> 3;
-  const int lane = threadIdx.x & 31;
-  const float* a = p.mxu + (size_t)(s0 / K) * 6 * nkt * 32 + lane;
+  const int K = p.leaf_size;
+  const int lane = threadIdx.x & 31, r = lane & 7;
+  const float* a = p.mxu + (size_t)(s0 / K) * leaf_tiles(K) * 32 + lane;
+  const unsigned hits = __ballot_sync(kFull, hit);
   float mt = kBig, mu = 0.0f, mv = 0.0f;
   int mk = 0;
   for (int ct = 0; ct < 4; ++ct) {
-    float bt2[2] = {kBig, kBig}, bu[2] = {0.f, 0.f}, bv[2] = {0.f, 0.f};
-    int bk[2] = {K, K};
-    for (int kt = 0; kt < nkt; ++kt) {
-      double d[6][2];
-      plane_dots(a, nkt, kt, q, ct, d);
-      const int k = kt * 8 + (lane >> 2);
+    if (!((hits >> (8 * ct)) & 0xffu)) continue;
+    float wt = kBig, bu = 0.0f, bv = 0.0f;
+    int wk = K;
+    tile_pairs(a, K, frag_o(q, ct), frag_d(q, ct), p.eps,
+               [&](float t, int k, float u, float v) {
+                 if (t < wt) {  // k ascending: the lowest slot on ties
+                   wt = t;
+                   wk = k;
+                   bu = u;
+                   bv = v;
+                 }
+               });
+    // (t, k)-lexicographic minimum over the 4 lanes of the ray
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float u, v;
-        const float t = pair_test(d, i, p.eps, u, v);
-        if (t < bt2[i]) {  // k grows with kt: the lowest slot on ties
-          bt2[i] = t;
-          bk[i] = k;
-          bu[i] = u;
-          bv[i] = v;
-        }
+    for (int off = 1; off < 4; off <<= 1) {
+      const float ot = __shfl_xor_sync(kFull, wt, off);
+      const int ok = __shfl_xor_sync(kFull, wk, off);
+      const float ou = __shfl_xor_sync(kFull, bu, off);
+      const float ov = __shfl_xor_sync(kFull, bv, off);
+      if (ot < wt || (ot == wt && ok < wk)) {
+        wt = ot;
+        wk = ok;
+        bu = ou;
+        bv = ov;
       }
     }
-    // (t, k)-lexicographic minimum over the 8 lanes of a column pair
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float ot = __shfl_xor_sync(kFull, bt2[i], off);
-        const int ok = __shfl_xor_sync(kFull, bk[i], off);
-        const float ou = __shfl_xor_sync(kFull, bu[i], off);
-        const float ov = __shfl_xor_sync(kFull, bv[i], off);
-        if (ot < bt2[i] || (ot == bt2[i] && ok < bk[i])) {
-          bt2[i] = ot;
-          bk[i] = ok;
-          bu[i] = ou;
-          bv[i] = ov;
-        }
-      }
-    }
-    // ray ct * 8 + 2 (lane % 4) + i: to its own lane
-    const int src = (lane & 7) >> 1;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float t = __shfl_sync(kFull, bt2[i], src);
-      const int k = __shfl_sync(kFull, bk[i], src);
-      const float u = __shfl_sync(kFull, bu[i], src);
-      const float v = __shfl_sync(kFull, bv[i], src);
-      if ((lane >> 3) == ct && (lane & 1) == i) {
-        mt = t;
-        mk = k;
-        mu = u;
-        mv = v;
-      }
+    // ray ct * 8 + r: from lane 4 r
+    const float t = __shfl_sync(kFull, wt, 4 * r);
+    const int k = __shfl_sync(kFull, wk, 4 * r);
+    const float u = __shfl_sync(kFull, bu, 4 * r);
+    const float v = __shfl_sync(kFull, bv, 4 * r);
+    if ((lane >> 3) == ct) {
+      mt = t;
+      mk = k;
+      mu = u;
+      mv = v;
     }
   }
   if (hit && mt < bt && mt < p.t_max) {
@@ -2322,22 +2356,15 @@ __global__ void __launch_bounds__(kThreads)
   const int si = min(i, r.n - 1);
   const RayFrags q = ray_frags(r.ox[si], r.oy[si], r.oz[si], r.dx[si],
                                r.dy[si], r.dz[si]);
-  const int lane = threadIdx.x & 31, warp = i >> 5;
-  const int K = p.leaf_size, nkt = (K + 7) >> 3;
-  const float* a = p.mxu + (size_t)(warp % n_leaves) * 6 * nkt * 32 + lane;
+  const int lane = threadIdx.x & 31, warp = i >> 5, K = p.leaf_size;
+  const float* a =
+      p.mxu + (size_t)(warp % n_leaves) * leaf_tiles(K) * 32 + lane;
   for (int ct = 0; ct < 4; ++ct) {
-    for (int kt = 0; kt < nkt; ++kt) {
-      double d[6][2];
-      plane_dots(a, nkt, kt, q, ct, d);
-      const int k = kt * 8 + (lane >> 2);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float u, v;
-        const float t = pair_test(d, j, p.eps, u, v);
-        const int ray = warp * 32 + ct * 8 + 2 * (lane & 3) + j;
-        if (ray < r.n && k < K) r.out[(size_t)ray * K + k] = t;
-      }
-    }
+    const int ray = warp * 32 + ct * 8 + (lane >> 2);
+    tile_pairs(a, K, frag_o(q, ct), frag_d(q, ct), p.eps,
+               [&](float t, int k, float, float) {
+                 if (ray < r.n && k < K) r.out[(size_t)ray * K + k] = t;
+               });
   }
 }
 

@@ -43,14 +43,14 @@ _WARP = 32
 LEAF = 32           # the leaf size timed: tools/leaf_microbench.py's
 
 
-def teapot_leaves(device):
-    """`teapot`'s triangle tables on `device`, packed at LEAF slots a leaf
-    (build_mesh_tables for MXU leaves: the test records with the MXU
+def teapot_leaves(device, leaf: int = LEAF):
+    """`teapot`'s triangle tables on `device`, packed at `leaf` slots a
+    leaf (build_mesh_tables for MXU leaves: the test records with the MXU
     fragments after them, and the shading records), its meta and its
     arrays."""
     cfg = RenderConfig(width=16, height=12, samples=1, samples_per_pass=1)
     arrays, meta = get_scene("teapot", cfg).pack(device=device,
-                                                 leaf_size=LEAF)
+                                                 leaf_size=leaf)
     _, tris, shade = mk.build_mesh_tables(arrays, meta, traversal="mxu")
     return ((torch.from_numpy(tris).to(device),
              torch.from_numpy(shade).to(device)), meta, arrays)

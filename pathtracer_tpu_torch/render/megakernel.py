@@ -99,11 +99,11 @@ _TRI_COLS = 12
 #   0-2 n1, 3-5 d21 (= n2-n1), 6-8 d31 (= n3-n1), 9-11 color
 _SHADE_COLS = 12
 # Under MXU leaves (PT_TRAVERSAL=mxu) the test table carries, after its Ns
-# rows, the leaves' A blocks in the layout of mxu_fragments ([n_leaves, 6,
-# ceil(K/8), 32] f32: one m8n8k4 DMMA A fragment per plane group and
-# 8-triangle tile, only the half of q = [o, 1, d, 0] that the group reads),
-# flat and zero-padded to whole rows (_mxu_rows); the payload (normals,
-# color) is the shading table's.
+# rows, the leaves' plane tiles in the layout of mxu_fragments ([n_leaves,
+# mxu_tiles(K), 32] f32: each the B fragment of one m8n8k4 DMMA, eight
+# columns of the half of q = [o, 1, d, 0] that their groups read), flat and
+# zero-padded to whole rows (_mxu_rows); the payload (normals, color) is
+# the shading table's.
 
 _BIG = 1e30
 _INV24 = float(2.0 ** -24)
@@ -186,9 +186,13 @@ def mesh_walk() -> Walk:
     card.
 
     The packet walks and the tensor-core leaves measured slower than the
-    per-thread walk on every workload timed so far (PERF.md §6); they are
-    kept as the ported counterparts of the JAX package's walks and as
-    measurement tools (ROADMAP queue 1, R2)."""
+    per-thread walk on every workload timed so far (PERF.md §6): on
+    `teapot` at 1280x960x8 spp and leaf 4, in turns on an NVIDIA H100
+    80GB HBM3 at 700 W, the per-thread walk 1.49 ms, packet mode 2 1.70
+    ms, mode 3 1.65 ms, the tensor-core leaves 1.93 ms after their
+    redesign (2.44 ms before it). They are kept as the ported
+    counterparts of the JAX package's walks and as measurement tools
+    (ROADMAP queue 1)."""
     if os.environ.get("PT_TRAVERSAL") == "mxu":
         return Walk("block", "mma")
     sp = os.environ.get("PT_SUBPACKET", "")
@@ -288,20 +292,59 @@ def mxu_plane_arrays(scn: SceneArrays, meta: SceneMeta
 _MXU_D_HALF = (1, 0, 0, 1, 0, 1)
 
 
+# A leaf of at most _MXU_PACK_LEAF triangles packs two plane groups of one
+# half of q into each tile, triangle c's in columns (2c, 2c + 1): the
+# groups of the four tiles' column pairs (None: zero columns)
+_MXU_PACK_LEAF = 4
+_MXU_PACKED = ((0, 3), (5, None), (1, 2), (4, None))
+
+
+def mxu_tiles(K: int) -> int:
+    """Plane tiles a leaf of K triangles has (mxu_fragments)."""
+    return 4 if K <= _MXU_PACK_LEAF else 6 * -(-K // 8)
+
+
 def mxu_fragments(a: np.ndarray) -> np.ndarray:
-    """The kernel's layout of the MXU blocks `a` [n_leaves, 6K, 8]: [n_leaves,
-    6, ceil(K/8), 32] f32, entry [b, g, kt, lane] = a[b, g*K + 8*kt +
-    lane//4, 4*h + lane%4] with h the half of q that group g reads (its
-    other half is zero), 0 past the K rows. Each [g, kt] run of 32 floats is
-    the A fragment of one m8n8k4 DMMA (row lane//4, column lane%4), so a
-    warp loads it in one 128-byte transaction and skips the zero half."""
+    """The kernel's layout of the MXU blocks `a` [n_leaves, 6K, 8]:
+    [n_leaves, mxu_tiles(K), 32] f32, each tile the B fragment of one
+    m8n8k4 DMMA whose A is 8 rays: lane l holds coefficient l % 4 of column
+    l // 4, of the half of q = [o, 1, d, 0] its group reads (the other half
+    is never stored), so a warp loads a tile in one 128-byte transaction.
+    K > 4: tile g * ceil(K/8) + kt holds group g of triangles 8 kt .. 8 kt
+    + 7 as its columns (0 past the K rows). K <= 4: four tiles of two
+    groups each (_MXU_PACKED), triangle c's in columns 2c and 2c + 1 (0
+    past the K triangles), so each lane's DMMAs give all six dots of one
+    (ray, triangle) pair and no column is padding but the two unpaired."""
     nl, six_k, _ = a.shape
     K = six_k // 6
+    rows = a.reshape(nl, 6, K, 8)
+    if K <= _MXU_PACK_LEAF:
+        cols = np.zeros((nl, 4, 4, 2, 4), dtype=np.float32)
+        for tile, pair in enumerate(_MXU_PACKED):
+            for j, g in enumerate(pair):
+                if g is not None:
+                    h = _MXU_D_HALF[g]
+                    cols[:, tile, :K, j] = rows[:, g, :, 4 * h:4 * h + 4]
+        return np.ascontiguousarray(cols.reshape(nl, 4, 32))
     kt = -(-K // 8)
-    rows = np.zeros((nl, 6, kt * 8, 4), dtype=np.float32)
+    cols = np.zeros((nl, 6, kt * 8, 4), dtype=np.float32)
     for g, h in enumerate(_MXU_D_HALF):
-        rows[:, g, :K] = a[:, g * K:(g + 1) * K, 4 * h:4 * h + 4]
-    return np.ascontiguousarray(rows.reshape(nl, 6, kt, 32))
+        cols[:, g, :K] = rows[:, g, :, 4 * h:4 * h + 4]
+    return np.ascontiguousarray(cols.reshape(nl, 6 * kt, 32))
+
+
+def mxu_groups(frag, K: int):
+    """The plane rows of tiles `frag` [..., mxu_tiles(K), 32] (mxu_fragments):
+    [..., 6, K, 4], group g's coefficients of each triangle on the half of
+    q the group reads."""
+    lead = frag.shape[:-2]
+    if K <= _MXU_PACK_LEAF:
+        cols = frag.reshape(*lead, 4, 4, 2, 4)
+        at = {g: (tile, j) for tile, pair in enumerate(_MXU_PACKED)
+              for j, g in enumerate(pair) if g is not None}
+        return torch.stack([cols[..., at[g][0], :K, at[g][1], :]
+                            for g in range(6)], dim=-3)
+    return frag.reshape(*lead, 6, -1, 4)[..., :K, :]
 
 
 def build_mesh_tables(scn: SceneArrays, meta: SceneMeta,
@@ -1134,8 +1177,8 @@ def leaf_tests(tri, start, leaf_size, eps, ox, oy, oz, dx, dy, dz,
 def leaf_tests_mma(frag, start, leaf_size, eps, ox, oy, oz, dx, dy, dz,
                     pairs: bool = False):
     """The tensor-core leaf test of the kernel (leaf_mma), plain: the six
-    plane dots of each of the leaf's K triangles (its MXU blocks `frag`,
-    mxu_view) against q = [o, 1, d, 0], products and sums in f64 and each
+    plane dots of each of the leaf's K triangles (its plane tiles `frag`,
+    mxu_view, decoded by mxu_groups) against q = [o, 1, d, 0], products and sums in f64 and each
     dot rounded once to f32 (the DMMA's exact products); then, in f32, t =
     num_t * (1 / den), u = ou + t du, v = ov + t dv (the JAX package's
     _packet_traverse_mxu :1799-1803) and leaf_tests' validity and winner
@@ -1143,7 +1186,7 @@ def leaf_tests_mma(frag, start, leaf_size, eps, ox, oy, oz, dx, dy, dz,
     with `pairs`, every ray x triangle t instead ([B, K], _BIG where the
     pair does not hit)."""
     K = leaf_size
-    blk = frag[start // K][:, :, :K].double()         # [B, 6, K, 4]
+    blk = mxu_groups(frag[start // K], K).double()    # [B, 6, K, 4]
     o = torch.stack([ox, oy, oz, torch.ones_like(ox)], 1).double()
     d = torch.stack([dx, dy, dz, torch.zeros_like(dx)], 1).double()
 
@@ -1557,20 +1600,18 @@ def _light_visible(obj, meta: SceneMeta, node_table, tri_table, shade_table,
 def _mxu_rows(meta: SceneMeta) -> int:
     """Rows of the triangle test table that hold the MXU fragments."""
     K = meta.leaf_size
-    n = (meta.n_tri_slots // K) * 6 * (-(-K // 8)) * 32
+    n = (meta.n_tri_slots // K) * mxu_tiles(K) * 32
     return -(-n // _TRI_COLS)
 
 
 def mxu_view(tri_table, meta: SceneMeta):
-    """The MXU A blocks inside a triangle test table built for MXU leaves,
-    as [n_leaves, 6, 8*ceil(K/8), 4] (group, triangle row, the four
-    coefficients of the half of q the group reads)."""
+    """The MXU plane tiles inside a triangle test table built for MXU
+    leaves, in mxu_fragments' layout: [n_leaves, mxu_tiles(K), 32]."""
     K = meta.leaf_size
-    kt = -(-K // 8)
     nl = meta.n_tri_slots // K
     off = meta.n_tri_slots * _TRI_COLS
-    return tri_table.reshape(-1)[off:off + nl * 6 * kt * 32].reshape(
-        nl, 6, kt * 8, 4)
+    n = nl * mxu_tiles(K) * 32
+    return tri_table.reshape(-1)[off:off + n].reshape(nl, mxu_tiles(K), 32)
 
 
 def _table_shapes(meta: SceneMeta, walk: Walk):

@@ -463,3 +463,34 @@ def tex_grad_rule(got, want) -> dict:
             f"{out['gtex_sum_rel']:.2e} (need < {TEX_SUM_REL})")
     return out
 
+
+
+def one_warp_live(tabs, kw, block: int = 128, warp: int = 32):
+    """The megakernel inputs `tabs` (port_inputs' list, px and py last) with
+    every slot past the first warp of each `block`-slot thread block moved
+    onto one pixel whose camera rays hit a light: those paths end at their
+    first hit, so in each block one warp stays live after the others
+    (the packet walks' dead warps). The pixel is the lit pixel nearest the
+    lit area's center whose 8 neighbours are lit too (a 1-bounce plain
+    render on the inputs), so that jitter keeps its rays on the light.
+    Returns (the new tabs, the pixel)."""
+    import dataclasses
+    px, py = tabs[-2], tabs[-1]
+    once = dict(kw, cfg=dataclasses.replace(kw["cfg"], max_bounces=1))
+    out = mk.trace_tiles_reference((1, 0), *tabs, **once)[0].reshape(-1)
+    lit = {(int(x), int(y)) for x, y, v in zip(px.reshape(-1).tolist(),
+                                              py.reshape(-1).tolist(),
+                                              out.tolist()) if v > 0}
+    inner = [q for q in lit if all((q[0] + i, q[1] + j) in lit
+                                   for i in (-1, 0, 1) for j in (-1, 0, 1))]
+    if not inner:
+        raise ValueError("no pixel of the inputs sees a light")
+    cx = sum(q[0] for q in inner) / len(inner)
+    cy = sum(q[1] for q in inner) / len(inner)
+    pixel = min(inner, key=lambda q: ((q[0] - cx) ** 2 + (q[1] - cy) ** 2,
+                                      q))
+    late = (torch.arange(px.numel(), device=px.device) % block
+            >= warp).reshape(px.shape)
+    qx, qy = px.clone(), py.clone()
+    qx[late], qy[late] = pixel
+    return [*tabs[:-2], qx, qy], pixel

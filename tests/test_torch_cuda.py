@@ -50,7 +50,7 @@ import torch
 from _torch_scenes import (MESH_SCENES, SLICE_SCENES, TEX_SCENES,
                            assert_slot_rule,
                            cylinder_scene, filter_cases, grad_inputs,
-                           grad_rule,
+                           grad_rule, one_warp_live,
                            port_inputs, sincos_mismatches, size_check_scene,
                            tex_grad_rule, textured_teapot, tie_scene)
 from pathtracer_tpu_torch import cli
@@ -749,6 +749,70 @@ def test_leaf_bench_and_op_rate_match_plain(dev):
     for v in op_rate.VARIANTS:
         k, p = op_rate.run(v, x, 2), op_rate.run_plain(v, x, 2)
         assert op_rate.compare(v, k, p)["ok"], v
+
+
+@pytest.mark.parametrize("walk", ["mode2", "mode3", "mxu"])
+def test_packet_walks_with_one_warp_live(dev, monkeypatch, walk):
+    # every slot but the first warp's of each 128-slot block on a pixel
+    # that sees the light: those paths end at their first hit, and the
+    # block's first warp walks on alone (under mode 2 the others only
+    # cast their false octant votes). Kernel A bit for bit, Kernel B by
+    # the per-slot rule
+    for k, v in WALK_ENVS[walk].items():
+        monkeypatch.setenv(k, v)
+    tabs, meta, cfg, layout = _inputs("teapot", dev, (8, 512), width=160,
+                                      height=120, samples=4,
+                                      samples_per_pass=4)
+    kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4, tile=(8, 512),
+              **layout)
+    tabs, _ = one_warp_live(tabs, kw)
+    got = torch.stack(mk.trace_tiles((3, 0), *tabs, **kw))
+    want = torch.stack(mk.trace_tiles_reference((3, 0), *tabs, **kw))
+    torch.cuda.synchronize()
+    late = (torch.arange(tabs[-2].numel(), device=dev) % 128 >= 32)
+    assert got.reshape(3, -1)[:, ~late].any()
+    if walk == "mxu":
+        assert_slot_rule(got.cpu().numpy(), want.cpu().numpy())
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("leaf", [4, 8, 16, 32])
+def test_tensor_core_leaf_check(dev, leaf):
+    # Kernel B's leaf against its plain version at each leaf size (the
+    # packed tiles at K <= 4, one group a tile above): t within one ulp,
+    # winners equal but at exact ties, every ray x triangle t within one
+    # ulp
+    from pathtracer_tpu_torch.probes import leaf_bench
+
+    tables, meta, arrays = leaf_bench.teapot_leaves(dev, leaf)
+    assert meta.leaf_size == leaf
+    res = leaf_bench.check(leaf_bench.mesh_rays(arrays, 4096 + 77, dev),
+                           tables, meta)
+    m = res["mma"]
+    assert m["t_within_1ulp"] == m["rays"]
+    assert m["winner_equal"] + m["winner_differs_at_tie"] == m["rays"]
+    assert res["pairs"]["within_1ulp"] >= 0.999 * res["pairs"]["pairs"]
+    assert res["pairs"]["hit_pairs"] > 0
+
+
+@pytest.mark.parametrize("leaf", [4, 32])
+def test_leaf_bench_mma_matches_plain(dev, leaf):
+    # P3's `mma` variant (leaf_mma over many visits) against its plain
+    # version: the same t within one ulp, the winners equal but at ties
+    from pathtracer_tpu_torch.probes import leaf_bench
+
+    tables, meta, arrays = leaf_bench.teapot_leaves(dev, leaf)
+    rays = leaf_bench.mesh_rays(arrays, 2048, dev, seed=3)
+    before = leaf_bench.run.launches
+    kt, ks = leaf_bench.run("mma", rays, tables, meta, 7)
+    assert leaf_bench.run.launches == before + 1
+    pt, ps = leaf_bench.plain("mma", rays, tables, meta, 7)
+    ulp = (kt.view(torch.int32).long() - pt.view(torch.int32).long()).abs()
+    assert int((ulp <= 1).sum()) == kt.numel()
+    same = ks.long() == ps.long()
+    assert bool(((ulp == 0) | same).all())
+    assert int(same.sum()) >= 0.99 * kt.numel()
 
 
 def test_cli_renders_teapot_on_the_packet_walk(dev, monkeypatch, tmp_path):

@@ -64,29 +64,40 @@ def test_mxu_blocks_bit_equal_jax(monkeypatch, name, leaf):
 
 @pytest.mark.parametrize("leaf", [None, 12])
 def test_mxu_fragments_in_the_triangle_table(monkeypatch, leaf):
-    # the kernel's A fragments: [leaf, group, 8-row tile, lane] = a[leaf,
-    # g*K + 8*kt + lane//4, 4*h + lane%4], zero past K rows and in the half
-    # of q the group does not read; after the classic rows under mxu
+    # the kernel's plane tiles, each the B fragment of a DMMA whose A is 8
+    # rays: [leaf, tile, lane] = coefficient lane%4 (of the half of q the
+    # group reads) of column lane//4. K > 4: tile g*ceil(K/8) + kt holds
+    # group g's triangles 8*kt + column, 0 past K rows; K <= 4 (the port's
+    # leaf): four tiles of two groups, (den, du), (dv, -), (num_t, ou),
+    # (ov, -), triangle c in columns 2c and 2c+1. After the classic rows
+    # under mxu
     ja, jm, ta, tm = _pair("teapot", monkeypatch, leaf)
     K = tm.leaf_size
     a, _ = mk.mxu_plane_arrays(ta, tm)
     frag = mk.mxu_fragments(a)
     nkt = -(-K // 8)
-    assert frag.shape == (tm.n_tri_slots // K, 6, nkt, 32)
+    assert frag.shape == (tm.n_tri_slots // K, 4 if K <= 4 else 6 * nkt, 32)
     for g, h in enumerate(mk._MXU_D_HALF):
         assert not a[:, g * K:(g + 1) * K, 4 * (1 - h):4 * (2 - h)].any()
-        for kt in range(nkt):
-            for lane in range(32):
-                r = 8 * kt + lane // 4
-                want = a[:, g * K + r, 4 * h + lane % 4] if r < K else 0.0
-                assert (frag[:, g, kt, lane] == want).all()
+    packed = ((0, 3), (5, None), (1, 2), (4, None))
+    for t in range(frag.shape[1]):
+        for lane in range(32):
+            n, c = divmod(lane, 4)
+            if K <= 4:
+                g, r = packed[t][n % 2], n // 2
+            else:
+                g, r = t // nkt, 8 * (t % nkt) + n
+            h = mk._MXU_D_HALF[g] if g is not None else 0
+            want = (a[:, g * K + r, 4 * h + c]
+                    if g is not None and r < K else 0.0)
+            assert (frag[:, t, lane] == want).all()
     classic = mk.build_mesh_tables(ta, tm, "classic")[1]
     monkeypatch.setenv("PT_TRAVERSAL", "mxu")
     nodes, tris, shade = mk.build_mesh_tables(ta, tm)
     assert tris.shape == mk._table_shapes(tm, mk.scene_walk(tm))[2]
     assert np.array_equal(tris[:classic.shape[0]], classic)
     view = mk.mxu_view(torch.from_numpy(tris), tm).numpy()
-    assert np.array_equal(view, frag.reshape(*frag.shape[:2], nkt * 8, 4))
+    assert np.array_equal(view, frag)
 
 
 @pytest.mark.parametrize("env,walk", [
