@@ -163,6 +163,7 @@ from pathtracer_tpu_torch.io.raw import read_raw
 from pathtracer_tpu_torch.probes import leaf_bench, op_rate
 from pathtracer_tpu_torch.render import _build
 from pathtracer_tpu_torch.render import grad as tg
+from pathtracer_tpu_torch.render import integrator, threefry
 from pathtracer_tpu_torch.render import megakernel as mk
 from pathtracer_tpu_torch.scene import material, pack, shapes
 from pathtracer_tpu_torch.scene.pack import texel_params, trainable_texels
@@ -1740,13 +1741,7 @@ def intersect_phase(dev, card):
                                                   tables=tables), 10)
         R = counts["rays"]
         misses = int((got[0] == cfg.t_max).sum())
-        ops = (R * (sum(OPS_OBJECT_NARROW[t] for t in meta.obj_types)
-                    + OPS_ISECT_RAY) + OPS_WINNER * (R - misses)
-               + OPS_NODE * counts["node_visits"]
-               + OPS_LEAF_SLOT * counts["leaf_slots"]
-               + OPS_ISECT_TRI * counts["tri_hits"])
-        b_ms, b_by, _ = bound_of(ops, nbytes(*o, *d, *got)
-                                 + nbytes(*tables))
+        b_ms, b_by, ops = k5_bound(meta, cfg, counts, got, o, d, tables)
         phase(f"phase 9: {tag}: {R} rays ({misses} misses, "
               f"{counts['tri_hits']} triangle hits, {counts['node_visits']} "
               f"node visits): kernel {k_ms:.4f} ms ({R / k_ms / 1e6:.2f} "
@@ -2858,6 +2853,353 @@ def k1_only(args, dev, card, ptxas):
     phase("k1-only: done")
 
 
+# ---- phase 11: the wavefront forward (render/integrator.py) on K5 ----------
+
+WF_SPP = 16                  # 2 passes of 8 spp: 9,830,400 rays a bounce
+WF_SCENES = ("reference", "teapot")
+WF_MK_LAUNCHES = 32          # 8-spp megakernel launches the mean rule takes
+WF_SIGMAS = 4.0              # the mean rule: within 4 standard errors
+WF_F64 = (320, 240, 8)       # the f64 render (torch walk, no kernel)
+BENCH_TIMEOUT_S = 420
+
+
+class _BounceCount:
+    """Counts integrator.bounce_step's calls while installed."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __enter__(self):
+        self.orig = integrator.bounce_step
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self.orig(*a, **kw)
+        integrator.bounce_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        integrator.bounce_step = self.orig
+        return False
+
+
+def megakernel_mean(scene: str, nee: bool, dev):
+    """The channel means of WF_MK_LAUNCHES 8-spp megakernel launches of
+    `scene` at W x H on the driver's layout, each its own seed: (mean of
+    the means, their standard error)."""
+    cfg = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8,
+                       nee=nee)
+    sc = get_scene(scene, cfg)
+    arrays, meta = sc.pack(device=dev)
+    run = mk.image_launch(arrays, meta, sc.camera, 8, dev)
+    means = []
+    for s in range(WF_MK_LAUNCHES):
+        rgb = mk.trace_tiles((1000 + s, 0), *run.tables, meta=meta, cfg=cfg,
+                             spp=8, total_samples=8, **run.kwargs)
+        flat = torch.stack(rgb, -1).reshape(-1, 3).cpu().numpy() / 8.0
+        means.append(mk.untile_image(flat, run.pid, W, H).reshape(-1, 3)
+                     .mean(0))
+    means = np.asarray(means, np.float64)
+    return means.mean(0), means.std(0, ddof=1) / np.sqrt(len(means))
+
+
+def wavefront_se(img, scene: str, nee: bool, dev):
+    """The standard error of `img`'s channel means (a W x H x WF_SPP
+    wavefront image) from its Monte-Carlo noise alone: a second image of
+    the same configuration under another seed has the same expectation
+    pixel by pixel, so half the mean square of the two images' difference
+    is the mean per-pixel variance, free of the image's structure (walls,
+    light, shadows); the pixels' noise is independent (a ray's draws come
+    from its own threefry counters)."""
+    cfg = RenderConfig(width=W, height=H, samples=WF_SPP,
+                       samples_per_pass=8, nee=nee)
+    cfg = cfg.replace(seed=cfg.seed + 1)
+    sc = get_scene(scene, cfg)
+    arrays, meta = sc.pack(device=dev)
+    other = integrator.render(arrays, meta, sc.camera, cfg)
+    d = (img.astype(np.float64) - other).reshape(-1, 3)
+    return np.sqrt((d * d).mean(0) / 2 / d.shape[0])
+
+
+def wavefront_main_path(tmp, dev, card, scene: str, nee: bool):
+    """`scene` at W x H x WF_SPP through cli.main --backend wavefront (f32),
+    with every launch count set to 0 just before: every bounce and shadow
+    ray must have launched K5 (bounces x (1 + lights with --nee)) and no
+    megakernel. The image is held to the megakernel's mean by the rule
+    stated in PERF.md: WF_SIGMAS standard errors a channel, the
+    megakernel's from the spread of WF_MK_LAUNCHES launches' means, the
+    wavefront's from its noise alone (wavefront_se). Returns the
+    numbers."""
+    tag = f"phase 11: {scene}{' --nee' if nee else ''} --backend wavefront"
+    raw = os.path.join(tmp, f"wf-{scene}.raw")
+    metrics = os.path.join(tmp, f"wf-{scene}.json")
+    mk.intersect_batch.launches = 0
+    mk.trace_tiles.launches = 0
+    with _BounceCount() as bc:
+        rc = cli.main([
+            "--scene", scene, "--backend", "wavefront", "--width", str(W),
+            "--height", str(H), "--samples", str(WF_SPP),
+            "--samples-per-pass", "8", "--raw-output", raw,
+            "--output", os.path.join(tmp, f"wf-{scene}.png"),
+            "--metrics-json", metrics] + ["--nee"] * nee)
+    launches, bounces = mk.intersect_batch.launches, bc.n
+    if rc != 0:
+        raise AssertionError(f"{tag}: cli.main returned {rc}")
+    with open(metrics) as f:
+        m = json.load(f)
+    img = read_raw(raw)
+    if img.shape != (H, W, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"{tag}: image is not finite [H, W, 3]")
+    if scene == "reference":
+        # at WF_SPP one pixel is noisy: the walls' strips, averaged
+        rows = slice(H // 2 - H // 8, H // 2 + H // 8)
+        left = img[rows, 1:W // 16].reshape(-1, 3).mean(0)
+        right = img[rows, W - W // 16:W - 1].reshape(-1, 3).mean(0)
+        if not (left[0] > left[2] and right[2] > right[0]):
+            raise AssertionError(f"{tag}: Cornell walls wrong: {left} "
+                                 f"{right}")
+    lights = len(get_scene(scene, RenderConfig()).pack(
+        device=torch.device("cpu"))[1].light_indices) if nee else 0
+    want = bounces * (1 + lights)
+    if launches != want or mk.trace_tiles.launches or not bounces:
+        raise AssertionError(
+            f"{tag}: {launches} intersect launches for {bounces} bounces "
+            f"({want} expected), {mk.trace_tiles.launches} megakernel "
+            "launches")
+    mk_mean, mk_se = megakernel_mean(scene, nee, dev)
+    wf_mean = img.reshape(-1, 3).astype(np.float64).mean(0)
+    wf_se = wavefront_se(img, scene, nee, dev)
+    z = (wf_mean - mk_mean) / np.sqrt(wf_se ** 2 + mk_se ** 2)
+    phase(f"{tag} {W}x{H}x{WF_SPP}: {m['wall_s']} s in the driver, "
+          f"{m['total_wall_s']} s in all ({m['msamples_per_sec']} "
+          f"Msamples/s); {bounces} bounces in {WF_SPP // 8} passes, "
+          f"{launches} intersect launches ({launches / (WF_SPP // 8):.1f} a "
+          f"pass), 0 megakernel launches; image mean {wf_mean} vs the "
+          f"megakernel's {mk_mean} ({WF_MK_LAUNCHES} x 8 spp), standard "
+          f"errors {wf_se} / {mk_se}: z {np.round(z, 3)}; card {card}")
+    if not (np.abs(z) <= WF_SIGMAS).all():
+        raise AssertionError(f"{tag}: image mean off the megakernel's by "
+                             f"more than {WF_SIGMAS} standard errors")
+    return dict(launches=launches, bounces=bounces, wall_s=m["wall_s"],
+                total_wall_s=m["total_wall_s"],
+                msamples_per_sec=m["msamples_per_sec"],
+                z=[float(x) for x in z], mean=[float(x) for x in wf_mean],
+                se=[float(x) for x in wf_se], mk_se=[float(x) for x in mk_se],
+                mk_mean=[float(x) for x in mk_mean])
+
+
+def k5_bound(meta, cfg, counts, got, o, d, tables):
+    """(bound ms, "operations" or "bytes", ops) of one intersect launch
+    whose work the plain version counted in `counts` (phase 9's rule)."""
+    R = counts["rays"]
+    misses = int((got[0] == cfg.t_max).sum())
+    ops = (R * (sum(OPS_OBJECT_NARROW[t] for t in meta.obj_types)
+                + OPS_ISECT_RAY) + OPS_WINNER * (R - misses)
+           + OPS_NODE * counts["node_visits"]
+           + OPS_LEAF_SLOT * counts["leaf_slots"]
+           + OPS_ISECT_TRI * counts["tri_hits"])
+    return bound_of(ops, nbytes(*o, *d, *got) + nbytes(*tables))
+
+
+def k5_on_bounces(dev, card, scene: str):
+    """One W x H x 8 pass of `scene` whose every bounce holds K5 bit for bit
+    against intersect_batch_reference on the wavefront's own rays, and the
+    pass again through the plain version alone: the two images must be
+    bit-equal. K5 is then timed on the rays of bounce 1 (the wavefront's
+    batch: every ray, live or not), with its bound. Returns the numbers."""
+    cfg = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
+    sc = get_scene(scene, cfg)
+    arrays, meta = sc.pack(device=dev)
+    tables = mk.intersect_tables(arrays, meta, dev)
+    seen = []
+
+    def checked(scn, meta_, cfg_, o, d, tables=None):
+        got = mk.intersect_batch(scn, meta_, cfg_, o, d, tables=tables)
+        want = mk.intersect_batch_reference(scn, meta_, cfg_, o, d, tables)
+        bad = [i for i, (a, b) in enumerate(zip(flat_outputs(got),
+                                                flat_outputs(want)))
+               if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"phase 11: {scene} bounce {len(seen)}: "
+                                 f"K5 differs from its plain version in "
+                                 f"outputs {bad}")
+        seen.append((o, d))
+        return got
+
+    px, py = integrator.pixel_grid(W, 0, H, dev)
+    cam = sc.camera.pack(torch.float32, dev)
+    key = threefry.fold_in(threefry.prng_key(cfg.seed), 0)
+
+    def one_pass(fn):
+        return torch.stack(integrator.render_pass(
+            arrays, meta, cfg, cam, px, py, 0, 8, key,
+            integrator.IntersectRoute(fn, tables)))
+
+    k5_img = one_pass(checked)
+    plain_img = one_pass(mk.intersect_batch_reference)
+    torch.cuda.synchronize()
+    if not torch.equal(k5_img, plain_img):
+        raise AssertionError(f"phase 11: {scene}: the pass through K5 "
+                             "differs from the pass through the plain "
+                             "intersect")
+    o, d = seen[1] if len(seen) > 1 else seen[0]
+    counts = {}
+    want, p_ms = timed(lambda: mk.intersect_batch_reference(
+        arrays, meta, cfg, o, d, tables, counts), stack=False)
+    k_ms = cuda_ms(lambda: mk.intersect_batch(arrays, meta, cfg, o, d,
+                                              tables=tables), 10)
+    b_ms, b_by, ops = k5_bound(meta, cfg, counts, flat_outputs(want), o, d,
+                               tables)
+    phase(f"phase 11: {scene} K5 on the wavefront's rays, {len(seen)} "
+          f"bounces of one {W}x{H}x8 pass ({o[0].numel()} rays each): "
+          f"bit-equal to the plain version at every bounce, the pass's "
+          f"image bit-equal to the plain intersect's; bounce 1: kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.1f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}; {ops:.4g} f32 ops); card {card}")
+    return dict(bounces=len(seen), rays=o[0].numel(), ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def wavefront_f64(tmp, card):
+    """`reference` at WF_F64 through cli.main --dtype float64 (the torch
+    walk in f64 on the card: the JAX package has no f64 kernel either)."""
+    w, h, spp = WF_F64
+    raw = os.path.join(tmp, "wf64.raw")
+    metrics = os.path.join(tmp, "wf64.json")
+    mk.intersect_batch.launches = 0
+    rc = cli.main(["--scene", "reference", "--dtype", "float64", "--width",
+                   str(w), "--height", str(h), "--samples", str(spp),
+                   "--raw-output", raw, "--output",
+                   os.path.join(tmp, "wf64.png"), "--metrics-json", metrics])
+    if rc != 0:
+        raise AssertionError(f"phase 11 f64: cli.main returned {rc}")
+    img = read_raw(raw)
+    with open(metrics) as f:
+        m = json.load(f)
+    if (img.shape != (h, w, 3) or not np.isfinite(img).all()
+            or m["backend"] != "wavefront" or mk.intersect_batch.launches):
+        raise AssertionError("phase 11 f64: not a finite wavefront image "
+                             "without kernel launches")
+    phase(f"phase 11 f64: reference --dtype float64 {w}x{h}x{spp}: "
+          f"{m['wall_s']} s in the driver, {m['total_wall_s']} s in all "
+          f"({m['msamples_per_sec']} Msamples/s), image mean "
+          f"{img.reshape(-1, 3).mean(0)}; card {card}")
+    return dict(wall_s=m["wall_s"], total_wall_s=m["total_wall_s"],
+                shape=f"{w}x{h}x{spp}")
+
+
+def bench_phase(card):
+    """python -m pathtracer_tpu_torch.bench in a process of its own (the
+    kernel library is already built); its JSON line is printed."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "pathtracer_tpu_torch.bench"],
+                         capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    line = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+    phase(f"phase 11 bench: {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"phase 11: the bench exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    rec = json.loads(line)
+    phase(f"phase 11 bench: {time.perf_counter() - t0:.1f} s; card {card}")
+    return rec
+
+
+def trace_split(path: str) -> dict:
+    """The device time of a --profile trace of the driver's segment loop:
+    its window (first to last event), the share of it some kernel ran
+    (the rest idle), each a segment ("pt.segment" spans), and the shares
+    of kernel time that the render's own kernel (the megakernel or K5)
+    and the driver's stack-and-add ("pt.accumulate" spans, a kernel
+    attributed by the time its launch call ran) took."""
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in ev if e.get("cat") == "kernel"]
+    segments = sum(1 for e in ev if e.get("cat") == "user_annotation"
+                   and e.get("name") == "pt.segment")
+    if not kernels:
+        return {"kernel_share": None, "note": "no device events in the trace"}
+    launch_ts = {e["args"].get("correlation"): e["ts"] for e in ev
+                 if e.get("cat") == "cuda_runtime"}
+    acc = [(e["ts"], e["ts"] + e["dur"]) for e in ev
+           if e.get("cat") == "user_annotation"
+           and e.get("name") == "pt.accumulate"]
+    t0 = min(e["ts"] for e in ev)
+    t1 = max(e["ts"] + e["dur"] for e in ev)
+    busy, end = 0.0, t0
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        s, f = max(e["ts"], end), e["ts"] + e["dur"]
+        if f > s:
+            busy += f - s
+            end = f
+    total = sum(e["dur"] for e in kernels)
+
+    def share(pred):
+        return sum(e["dur"] for e in kernels if pred(e)) / total
+
+    return {"segments": segments, "window_ms": (t1 - t0) / 1e3,
+            "window_ms_a_segment": (t1 - t0) / 1e3 / max(segments, 1),
+            "kernel_ms": total / 1e3, "kernels": len(kernels),
+            "kernel_share": busy / (t1 - t0),
+            "idle_share": 1 - busy / (t1 - t0),
+            "megakernel_share_of_kernel_time": share(
+                lambda e: "megakernel<" in e["name"]),
+            "k5_share_of_kernel_time": share(
+                lambda e: "intersect<" in e["name"]),
+            "stack_add_share_of_kernel_time": share(lambda e: any(
+                a <= launch_ts.get(e["args"].get("correlation"), -1) <= b
+                for a, b in acc))}
+
+
+PROFILED = (("megakernel", [], SPP), ("wavefront", ["--backend", "wavefront"],
+                                      8))
+
+
+def profile_phase(tmp, card):
+    """`teapot` at W x H through cli.main --profile on each backend (the
+    megakernel's main path, 2048 spp in 256 segments; the wavefront's one
+    8-spp segment), and the split of each trace (trace_split)."""
+    out = {}
+    for tag, flags, spp in PROFILED:
+        prof = os.path.join(tmp, f"profile-{tag}")
+        rc = cli.main(["--scene", "teapot", "--width", str(W), "--height",
+                       str(H), "--samples", str(spp), "--raw-output",
+                       os.path.join(tmp, "prof.raw"), "--output",
+                       os.path.join(tmp, "prof.png"), "--profile", prof]
+                      + flags)
+        path = os.path.join(prof, "trace.json")
+        if rc != 0 or not os.path.exists(path):
+            raise AssertionError(f"phase 11 profile: {tag}: cli.main "
+                                 "--profile wrote no trace")
+        out[tag] = trace_split(path)
+        phase(f"phase 11 profile: teapot {W}x{H}x{spp} on the {tag}: "
+              f"{json.dumps(out[tag])}; card {card}")
+    return out
+
+
+def wavefront_phases(dev, card, ptxas):
+    """Phase 11: the wavefront main paths (reference and teapot, with and
+    without --nee, through the CLI), K5 on the wavefront's bounced rays,
+    the f64 render, the port's bench and the profiled split. Returns the
+    numbers for the intersect row."""
+    with tempfile.TemporaryDirectory() as tmp:
+        main = {f"{s}{' --nee' if nee else ''}":
+                wavefront_main_path(tmp, dev, card, s, nee)
+                for s in WF_SCENES for nee in (False, True)}
+        bounces = {s: k5_on_bounces(dev, card, s) for s in WF_SCENES}
+        f64 = wavefront_f64(tmp, card)
+        split = profile_phase(tmp, card)
+    bench = bench_phase(card)
+    k5_ptxas = {k: list(v) for k, v in ptxas_counts(ptxas).items()
+                if k.startswith("intersect")}
+    phase(f"phase 11: ptxas (registers, stack, spill stores, spill loads) "
+          f"of the intersect instantiations: {k5_ptxas}")
+    return dict(main=main, bounces=bounces, f64=f64, split=split,
+                bench=bench, ptxas=k5_ptxas,
+                launches=sum(v["launches"] for v in main.values()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab-parent", metavar="DIR", action="append",
@@ -2908,6 +3250,9 @@ def main(argv=None) -> int:
                          "alone (the split, the curve, phase 6 against the "
                          "plain version, the A/B of --ab-parent) and print "
                          "no result lines")
+    ap.add_argument("--wavefront-only", action="store_true",
+                    help="after the build, run the wavefront's phase 11 "
+                         "alone and print no result lines")
     args = ap.parse_args(argv)
     # ---- phase 1: the card ----------------------------------------------
     smi = subprocess.run(
@@ -2951,6 +3296,9 @@ def main(argv=None) -> int:
         return 0
     if args.walk_only:
         walk_only(args, dev, card, ptxas)
+        return 0
+    if args.wavefront_only:
+        wavefront_phases(dev, card, ptxas)
         return 0
 
     # ---- phase 3: kernel vs plain version on the card -------------------
@@ -3194,6 +3542,9 @@ def main(argv=None) -> int:
     b_main = walk_main[MAIN_WALKS[2][0]]
     tw = walk_times["teapot"]
 
+    # ---- phase 11: the wavefront forward on K5, the bench, the profile ---
+    wf = wavefront_phases(dev, card, ptxas)
+
     print(json.dumps({"kernels": [
         {"name": "megakernel", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
@@ -3336,7 +3687,8 @@ def main(argv=None) -> int:
         {"name": "intersect", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
          "replaces": "pathtracer_tpu/render/pallas_kernel.py:2690",
-         "launches": isect[0],
+         "launches": wf["launches"],
+         "launches_by_path": {k: v["launches"] for k, v in wf["main"].items()},
          "max_abs_err": max(v["err"] for v in isect[1].values()),
          "bit_equal_frac": 1.0,
          "shape": f"reference primary {W * H * 8} rays",
@@ -3345,6 +3697,9 @@ def main(argv=None) -> int:
          "bound_ms": isect[1]["reference primary"]["bound_ms"],
          "bound_by": isect[1]["reference primary"]["bound_by"],
          "library_ms": None, "by_batch": isect[1],
+         "wavefront_bounce_1": wf["bounces"], "ptxas": wf["ptxas"],
+         "wavefront_main": wf["main"], "wavefront_f64": wf["f64"],
+         "profile_split": wf["split"], "phase9_launches": isect[0],
          "by_walk": isect_walks, "walk_launches": list(isect_walk_n)},
         {"name": "megakernel-mesh-packet", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",

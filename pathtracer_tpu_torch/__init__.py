@@ -10,8 +10,10 @@ primitives and of triangle meshes (the BVH walk).
                 packing to device tensors
 - ``render``    the camera, the tile layout and tables, and the forward
                 megakernel (``csrc/megakernel.cu``) with its plain PyTorch
-                version
-- ``driver``    segmented rendering, checkpoint/resume, metrics
+                version; the wavefront integrator (torch ops, its nearest
+                hits from the intersect kernel on the card)
+- ``driver``    segmented rendering, checkpoint/resume, metrics, profiling
+- ``bench``     the benchmark record (``python -m pathtracer_tpu_torch.bench``)
 - ``io``        PNG (standard library) and big-endian .raw writers
 - ``scenes``    the registered scenes this package can render
 - ``assets``    model lookup and procedural stand-ins for missing .obj files

@@ -3,8 +3,10 @@
 The flags of pathtracer_tpu.cli (reference CLI, cmd/pt/main.go:45-112, with
 PT_<FLAG> environment overrides). It renders on the CUDA device
 --device-index and exits with an error when there is no card; it never
-falls back to the CPU. Flags that need parts not ported yet exit with code
-2 and name the ROADMAP item.
+falls back to the CPU, which only `--device cpu` selects (the plain
+PyTorch versions of the kernels, at small sizes). Flags that need parts
+not ported yet (--distributed/--mesh) exit with code 2 and name the
+ROADMAP item.
 
 Outputs match the reference render driver: `experiment.raw` (big-endian
 float32 RGB dump) and `out-<spp>-<W>x<H>.png`.
@@ -40,6 +42,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env("scene", "reference", str))
     p.add_argument("--device-index", type=int,
                    default=_env("device_index", 0, int))
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda (the card, the default) or cpu (the plain "
+                        "versions of the kernels)")
     p.add_argument("--list-devices", action="store_true")
     p.add_argument("--list-scenes", action="store_true")
     # the JAX package's flags
@@ -47,8 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env("dtype", "float32", str))
     p.add_argument("--backend", choices=("auto", "pallas", "wavefront"),
                    default=_env("backend", "auto", str),
-                   help="auto/pallas = the CUDA megakernel; wavefront is "
-                        "not ported yet")
+                   help="pallas = the CUDA megakernel; wavefront = the "
+                        "wavefront integrator (torch ops, the intersect "
+                        "kernel in f32); auto = the megakernel unless "
+                        "--dtype float64 or --debug-ray")
     p.add_argument("--samples-per-pass", type=int,
                    default=_env("samples_per_pass", 8, int))
     p.add_argument("--rows-per-pass", type=int,
@@ -60,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="next-event estimation: one shadow ray per light "
                         "at each bounce")
     p.add_argument("--debug-ray", type=int, default=-1,
-                   help="per-bounce probe of one ray (not ported yet)")
+                   help="print per-bounce state for this ray index "
+                        "(the wavefront backend)")
     p.add_argument("--distributed", action="store_true",
                    help="multi-device rendering (not ported yet)")
     p.add_argument("--mesh", type=str, default=None,
@@ -71,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint every N sample chunks")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--profile", type=str, default=None,
-                   help="profiler trace directory (not ported yet)")
+                   help="write a torch.profiler Chrome trace of the render "
+                        "loop to this directory")
     p.add_argument("--metrics-json", type=str, default=None,
                    help="write render metrics as one JSON line to this file")
     p.add_argument("--output", type=str, default=None,
@@ -93,20 +102,9 @@ def list_devices() -> None:
 
 def _unported(args) -> str:
     """The message for the first flag that needs an unported part."""
-    checks = (
-        (args.backend == "wavefront", "--backend wavefront",
-         "item 12 (wavefront integrator)"),
-        (args.dtype == "float64", "--dtype float64",
-         "item 12 (wavefront integrator)"),
-        (args.distributed or args.mesh, "--distributed/--mesh",
-         "item 13 (multi-GPU)"),
-        (args.debug_ray >= 0, "--debug-ray",
-         "item 12 (wavefront integrator)"),
-        (args.profile, "--profile", "item 15 (bench keys and profiling)"),
-    )
-    for bad, flag, item in checks:
-        if bad:
-            return f"{flag} is not ported yet: ROADMAP queue 1, {item}"
+    if args.distributed or args.mesh:
+        return ("--distributed/--mesh is not ported yet: ROADMAP queue 1, "
+                "item 13 (multi-GPU)")
     return ""
 
 
@@ -136,16 +134,21 @@ def main(argv=None) -> int:
 
     import torch
 
-    if not torch.cuda.is_available():
-        print("error: no CUDA device; this renderer runs on the card only",
-              file=sys.stderr)
+    if args.device == "cpu":
+        device = torch.device("cpu")
+    elif not torch.cuda.is_available():
+        print("error: no CUDA device; this renderer runs on the card "
+              "(--device cpu runs the plain versions)", file=sys.stderr)
         return 1
-    if not 0 <= args.device_index < torch.cuda.device_count():
+    elif not 0 <= args.device_index < torch.cuda.device_count():
         print(f"error: --device-index {args.device_index} out of range "
               f"(found {torch.cuda.device_count()} CUDA devices)",
               file=sys.stderr)
         return 2
-    device = torch.device(f"cuda:{args.device_index}")
+    else:
+        device = torch.device(f"cuda:{args.device_index}")
+    device_name = (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu")
 
     from .config import RenderConfig
     from .driver import render_driver
@@ -178,15 +181,16 @@ def main(argv=None) -> int:
     except KeyError as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
         return 2
-    arrays, meta = sc.pack(device=device)
+    arrays, meta = sc.pack(device=device, dtype=getattr(torch, args.dtype))
     log.info("scene %s: %d objects on %s (%s)", args.scene, meta.n_objects,
-             device, torch.cuda.get_device_name(device))
+             device, device_name)
 
     img, stats = render_driver(
         arrays, meta, sc.camera, cfg,
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every,
         resume=args.resume,
+        profile_dir=args.profile,
     )
 
     dt = time.perf_counter() - t0
@@ -197,7 +201,7 @@ def main(argv=None) -> int:
             f.write(stats.to_json(
                 scene=args.scene, width=cfg.width, height=cfg.height,
                 spp=cfg.samples, total_wall_s=round(dt, 3),
-                device=torch.cuda.get_device_name(device),
+                device=device_name,
             ) + "\n")
 
     write_raw(args.raw_output, img)

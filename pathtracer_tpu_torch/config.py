@@ -15,9 +15,8 @@ class RenderConfig:
 
     Mirrors the reference CLI flags --width --height --samples --aperture
     --focal-length (cmd/pt/main.go:48-56) plus the JAX package's knobs.
-    Fields that select parts this package has not ported yet (dtype
-    float64, the wavefront backend, debug_ray) are kept so configs stay
-    interchangeable; the driver refuses them with a message.
+    Fields that select parts this package has not ported yet
+    (trainable_textures) are kept so configs stay interchangeable.
     """
 
     width: int = 640
@@ -27,7 +26,8 @@ class RenderConfig:
     focal_length: float = 0.0
 
     # The megakernel computes in float32; "float64" selects the wavefront
-    # path, which is not ported yet (ROADMAP queue 1, item 12).
+    # path (render/integrator.py) in float64, the reference kernel's
+    # precision.
     dtype: str = "float32"
     # Reference EPSILON=1e-4 (tracer.cl:4); works in f32 at unit scale.
     epsilon: float = 1e-4
@@ -43,18 +43,21 @@ class RenderConfig:
     rows_per_pass: int = 0
     # Base seed of the counter-hash random stream.
     seed: int = 0
-    # Kept for interchangeability with the JAX config (its differentiable
-    # wavefront path sets it False); the megakernel always exits early.
+    # The wavefront's bounce loop stops once every ray has ended; False
+    # runs the fixed trip of max_bounces (the JAX package's differentiable
+    # path). The megakernel always exits early.
     early_exit: bool = True
-    # "auto" and "pallas" run the megakernel; "wavefront" is not ported yet.
+    # "pallas" runs the megakernel; "wavefront" the wavefront integrator;
+    # "auto" the megakernel unless dtype is float64 or debug_ray is set.
     backend: str = "auto"
-    # Differentiable texture sampling (not ported yet).
+    # Texture sampling from the float atlases in the wavefront (the JAX
+    # package's differentiable path; its autograd is not ported yet).
     trainable_textures: bool = False
     # Next-event estimation in the megakernel: one shadow ray per light at
     # each bounce that hits a surface neither refracting nor a light (the
     # reference's experimental estimator, tracer.cl:786-829).
     nee: bool = False
-    # Per-ray debug probe of the wavefront path (not ported yet).
+    # Per-ray debug probe of the wavefront path: ray index in the batch.
     debug_ray: int = -1
 
     def replace(self, **kw) -> "RenderConfig":

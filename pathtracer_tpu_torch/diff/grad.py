@@ -8,7 +8,7 @@ megakernel, backward = one gradient-kernel launch), the update under
 torch.no_grad().
 
 Not ported yet: the sharded steps (ROADMAP queue 1, item 13) and the
-wavefront `render_image_diff`/`train_step` (item 12).
+wavefront `render_image_diff`/`train_step` (item 12(c)).
 """
 from __future__ import annotations
 

@@ -1,12 +1,22 @@
 """Render driver: segmented rendering with progress logging, throughput
-metrics, checkpoint/resume and synthetic-fault recovery.
+metrics, checkpoint/resume, synthetic-fault recovery and profiler traces.
 
-Counterpart of pathtracer_tpu.driver.render_driver for the megakernel
-backend. The sample budget runs in chunks of cfg.samples_per_pass; each
-segment of chunks is one megakernel launch seeded by (seed, first chunk),
-so a resumed render continues the same random stream bit for bit. Partial
-sums stay on the device between flushes and are accumulated on the host
-in float64.
+Counterpart of pathtracer_tpu.driver.render_driver, for both backends.
+The sample budget runs in chunks of cfg.samples_per_pass, grouped into
+segments:
+
+- megakernel: each segment is one launch seeded by (seed, first chunk);
+- wavefront (render/integrator.py): each segment sums the render passes
+  of its chunks under fold_in(key, chunk), in row blocks of
+  cfg.rows_per_pass, block b under fold_in(key, 1000003 + b), as the JAX
+  driver's segment_wavefront.
+
+Either way a resumed render continues the same random stream bit for bit.
+Partial sums stay on the device between flushes and are accumulated on
+the host in float64. `profile_dir` wraps the segment loop in
+torch.profiler (CPU and CUDA activities) and writes a Chrome trace there,
+in which "pt.segment" spans each segment's work and "pt.accumulate" the
+stacking of its sums and their add to the running sum.
 
 A real CUDA error is not retried: it poisons the CUDA context, so no
 in-process retry can recover from it. PT_FAULT_INJECT=<chunk> raises a
@@ -14,6 +24,7 @@ synthetic DeviceFailure to exercise the recovery path.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -23,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .config import RenderConfig
 from .render import megakernel as mk
@@ -30,7 +42,6 @@ from .render.camera import Camera
 from .scene.pack import SceneArrays, SceneMeta
 
 log = logging.getLogger("pathtracer_tpu_torch")
-
 
 class DeviceFailure(RuntimeError):
     """Synthetic failure raised by PT_FAULT_INJECT."""
@@ -95,6 +106,36 @@ def _checkpoint_load(path: str, want: dict):
         return z["accum"].copy(), int(z["chunks_done"])
 
 
+def use_megakernel(meta: SceneMeta, cfg: RenderConfig) -> bool:
+    """The backend a render takes: the megakernel for "pallas", and for
+    "auto" on every scene it supports in f32 without the per-ray probe;
+    else the wavefront integrator."""
+    return cfg.backend == "pallas" or (
+        cfg.backend == "auto" and cfg.dtype == "float32"
+        and cfg.debug_ray < 0 and mk.supports_scene(meta))
+
+
+@contextlib.contextmanager
+def _profiler(profile_dir: Optional[str]):
+    """torch.profiler over CPU and, where there is a card, CUDA activity,
+    writing a Chrome trace, `profile_dir`/trace.json, on exit; nothing
+    without a directory."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(profile_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    log.info("profiler trace written to %s", path)
+
+
 def render_driver(
     scn: SceneArrays,
     meta: SceneMeta,
@@ -103,22 +144,15 @@ def render_driver(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 0,       # in sample chunks; 0 = only at end
     resume: bool = False,
+    profile_dir: Optional[str] = None,
     mesh=None,
 ) -> tuple[np.ndarray, RenderStats]:
     """Render the full image on the scene's device, returning
-    ([H, W, 3] float32, stats)."""
+    ([H, W, 3] float32, stats). The scene's dtype is cfg.dtype's."""
     if mesh is not None:
         raise NotImplementedError(
             "multi-device rendering is not ported yet: ROADMAP queue 1, "
             "item 13 (multi-GPU)")
-    if cfg.backend == "wavefront":
-        raise NotImplementedError(
-            "the wavefront backend is not ported yet: ROADMAP queue 1, "
-            "item 12 (wavefront integrator)")
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype {cfg.dtype} runs the wavefront path, not ported yet: "
-            "ROADMAP queue 1, item 12 (wavefront integrator)")
 
     W, H = camera.width, camera.height
     dev = scn.color.device
@@ -126,47 +160,34 @@ def render_driver(
     cfg = cfg.replace(samples_per_pass=spp_chunk)
     n_chunks = max(1, (cfg.samples + spp_chunk - 1) // spp_chunk)
 
-    backend_name = "megakernel"
-    S, L = mk.default_tile(meta)
-    axis = mk.default_pack_axis(meta)
-    pack = mk.clamp_pack(mk.default_pack(meta, spp_chunk), S, L, axis)
-    order = mk.default_order(meta)
-    layout_tag = "tile%dx%d:%s:pack%d%s" % (S, L, order, pack, axis)
+    if use_megakernel(meta, cfg):
+        backend_name = "megakernel"
+        segment, layout_tag, pid = _megakernel_segments(scn, meta, camera,
+                                                        cfg)
+        n_slots = pid.shape[0]
+
+        def finalize(acc):
+            return mk.untile_image(acc, pid, W, H)
+    else:
+        backend_name = "wavefront"
+        segment = _wavefront_segments(scn, meta, camera, cfg)
+        layout_tag = "linear"
+        n_slots = H * W
+
+        def finalize(acc):
+            return acc
     log.info("backend: %s on %s", backend_name, dev)
-
-    xs, ys, pid = mk.tile_pixel_layout(W, H, S, L, order=order,
-                                       spp_pack=pack, pack_axis=axis)
-    px = torch.from_numpy(xs).to(dev)
-    py = torch.from_numpy(ys).to(dev)
-    cam_vec = torch.from_numpy(mk.build_camera_vec(camera)).to(dev)
-    obj_table = torch.from_numpy(mk.build_scene_table(scn, meta)).to(dev)
-    nodes, tris, shade = (torch.from_numpy(t).to(dev)
-                          for t in mk.build_mesh_tables(scn, meta))
-    tex = mk.texture_inputs(scn, meta, dev)
-
-    def segment(c0: int, n: int) -> torch.Tensor:
-        # independent random stream per segment, derived from (seed, c0);
-        # the second slot is the global sample base, so segmented DoF
-        # covers the whole sunflower spiral
-        seed = (cfg.seed * 7919 + int(c0) + 1, int(c0) * spp_chunk)
-        r, g, b = mk.trace_tiles(
-            seed, cam_vec, obj_table, nodes, tris, shade, px, py,
-            meta=meta, cfg=cfg, spp=int(n) * spp_chunk,
-            total_samples=cfg.samples, tile=(S, L), spp_pack=pack,
-            pack_axis=axis, **tex)
-        return torch.stack([r.reshape(-1), g.reshape(-1), b.reshape(-1)],
-                           dim=-1)
 
     ck_meta = _checkpoint_meta(cfg, backend_name, checkpoint_every,
                                layout_tag)
-    accum = np.zeros((pid.shape[0], 3), dtype=np.float64)
+    accum = np.zeros((n_slots, 3), dtype=np.float64)
     start_chunk = 0
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
         accum, start_chunk = _checkpoint_load(checkpoint_path, ck_meta)
-        if accum.shape[0] != pid.shape[0]:
+        if accum.shape[0] != n_slots:
             raise ValueError(
                 f"checkpoint {checkpoint_path} has {accum.shape[0]} pixel "
-                f"slots, current layout has {pid.shape[0]}")
+                f"slots, current layout has {n_slots}")
         log.info("resumed from %s at chunk %d/%d",
                  checkpoint_path, start_chunk, n_chunks)
 
@@ -210,50 +231,109 @@ def render_driver(
         if save_ck and checkpoint_path:
             _checkpoint_save(checkpoint_path, accum, c, ck_meta)
 
-    while c < n_chunks:
-        n = min(seg_len, n_chunks - c)
-        t0 = time.perf_counter()
-        try:
-            if c <= fault_at < c + n and fault_count > 0:
-                fault_count -= 1
-                if fault_count == 0:
-                    fault_at = -1
-                raise DeviceFailure(f"PT_FAULT_INJECT at chunk {c}")
-            out = segment(c, n)
-        except DeviceFailure as exc:
-            if failures >= max_retries:
-                raise
-            failures += 1
-            stats.recoveries += 1
-            log.warning(
-                "device failure at chunk %d (%s); re-rendering %d chunk(s) "
-                "from %d (retry %d/%d)", c, exc, c + n - host_base,
-                host_base, failures, max_retries)
-            # the device-resident partial is dropped with the failure
-            dev_acc = None
-            c = host_base
-            continue
-        dev_acc = out if dev_acc is None else dev_acc + out
-        if dev.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(dev))
-            if prev_done is not None:
-                prev_done.synchronize()
-            prev_done = done
-        failures = 0
-        c += n
-        stats.samples += W * H * n * spp_chunk
-        stats.segments += 1
-        log.info("%d/%d chunks queued, previous segment done, in %.3fs",
-                 c, n_chunks, time.perf_counter() - t0)
-        if checkpoint_path and checkpoint_every > 0:
-            flush(save_ck=True)
-        elif time.perf_counter() - t_flush > flush_s:
-            flush(save_ck=False)
-    flush(save_ck=checkpoint_path is not None)
+    with _profiler(profile_dir):
+        while c < n_chunks:
+            n = min(seg_len, n_chunks - c)
+            t0 = time.perf_counter()
+            try:
+                if c <= fault_at < c + n and fault_count > 0:
+                    fault_count -= 1
+                    if fault_count == 0:
+                        fault_at = -1
+                    raise DeviceFailure(f"PT_FAULT_INJECT at chunk {c}")
+                with record_function("pt.segment"):
+                    out = segment(c, n)
+            except DeviceFailure as exc:
+                if failures >= max_retries:
+                    raise
+                failures += 1
+                stats.recoveries += 1
+                log.warning(
+                    "device failure at chunk %d (%s); re-rendering %d chunk(s) "
+                    "from %d (retry %d/%d)", c, exc, c + n - host_base,
+                    host_base, failures, max_retries)
+                # the device-resident partial is dropped with the failure
+                dev_acc = None
+                c = host_base
+                continue
+            with record_function("pt.accumulate"):
+                dev_acc = out if dev_acc is None else dev_acc + out
+            if dev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+                if prev_done is not None:
+                    prev_done.synchronize()
+                prev_done = done
+            failures = 0
+            c += n
+            stats.samples += W * H * n * spp_chunk
+            stats.segments += 1
+            log.info("%d/%d chunks queued, previous segment done, in %.3fs",
+                     c, n_chunks, time.perf_counter() - t0)
+            if checkpoint_path and checkpoint_every > 0:
+                flush(save_ck=True)
+            elif time.perf_counter() - t_flush > flush_s:
+                flush(save_ck=False)
+        flush(save_ck=checkpoint_path is not None)
 
     stats.wall_s = time.perf_counter() - t_total
     total_spp = n_chunks * spp_chunk
-    accum = mk.untile_image(accum, pid, W, H)
+    accum = finalize(accum)
     img = (accum / float(total_spp)).astype(np.float32).reshape(H, W, 3)
     return img, stats
+
+
+def _megakernel_segments(scn: SceneArrays, meta: SceneMeta, camera: Camera,
+                         cfg: RenderConfig):
+    """(segment(c0, n) -> [slots, 3] radiance sums on the device, the
+    checkpoint layout tag, the slot -> pixel map) of the megakernel."""
+    spp_chunk = cfg.samples_per_pass
+    run = mk.image_launch(scn, meta, camera, spp_chunk, scn.color.device)
+
+    def segment(c0: int, n: int) -> torch.Tensor:
+        # independent random stream per segment, derived from (seed, c0);
+        # the second slot is the global sample base, so segmented DoF
+        # covers the whole sunflower spiral
+        seed = (cfg.seed * 7919 + int(c0) + 1, int(c0) * spp_chunk)
+        r, g, b = mk.trace_tiles(
+            seed, *run.tables, meta=meta, cfg=cfg, spp=int(n) * spp_chunk,
+            total_samples=cfg.samples, **run.kwargs)
+        with record_function("pt.accumulate"):
+            return torch.stack([r.reshape(-1), g.reshape(-1),
+                                b.reshape(-1)], dim=-1)
+    return segment, run.layout_tag, run.pid
+
+
+def _wavefront_segments(scn: SceneArrays, meta: SceneMeta, camera: Camera,
+                        cfg: RenderConfig):
+    """segment(c0, n) -> [H*W, 3] radiance sums on the device of the
+    wavefront integrator, in row blocks of cfg.rows_per_pass (the whole
+    image by default), as pathtracer_tpu.driver's segment_wavefront. The
+    nearest hits take the route of integrator.intersect_route, with the
+    intersect kernel's tables built here once."""
+    from .render import integrator, threefry
+
+    W, H = camera.width, camera.height
+    dev = scn.color.device
+    dtype = torch.float64 if cfg.dtype == "float64" else torch.float32
+    cam = camera.pack(dtype, dev)
+    key = threefry.prng_key(cfg.seed)
+    route = integrator.intersect_route(scn, meta, cfg)
+    log.info("wavefront nearest hits: %s",
+             "the intersect kernel" if route.fn else "the torch walk")
+
+    block = cfg.rows_per_pass or H
+    pad_rows = (-H) % block
+    pxb, pyb = (a.reshape(-1, block * W) for a in integrator.pixel_grid(
+        W, 0, H + pad_rows, dev, last_row=H - 1))
+
+    def segment(c0: int, n: int) -> torch.Tensor:
+        # one key a row block: reusing one key across blocks would repeat
+        # the random stream block to block
+        outs = [integrator.render_chunks(
+                    scn, meta, cfg, cam, pxb[b], pyb[b], c0, n,
+                    threefry.fold_in(key, 1000003 + b), route)
+                for b in range(pxb.shape[0])]
+        with record_function("pt.accumulate"):
+            return torch.cat([o.to_array() for o in outs])[:H * W]
+    return segment

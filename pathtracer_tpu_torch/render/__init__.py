@@ -1,1 +1,2 @@
-"""Rendering: the host camera and the forward megakernel."""
+"""Rendering: the camera, the forward megakernel with its gradient and
+intersect kernels, and the wavefront integrator."""

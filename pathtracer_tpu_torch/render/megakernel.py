@@ -2503,6 +2503,40 @@ def filter_check(code: int, ray, thr, eps: float, min_y: float = 0.0,
 filter_check.launches = 0
 
 
+class ImageLaunch(NamedTuple):
+    """trace_tiles' inputs for a whole image on a scene's default tile,
+    order and packing: `tables` (camera vector, object table, node,
+    triangle and shading tables, slot pixels x and y) go first, `kwargs`
+    (tile, spp_pack, pack_axis and the texture inputs) by name; `pid` maps
+    the slots back to pixels (untile_image) and `layout_tag` names the
+    layout for a checkpoint."""
+    tables: tuple
+    kwargs: dict
+    pid: np.ndarray
+    layout_tag: str
+
+
+def image_launch(scn: SceneArrays, meta: SceneMeta, camera, spp: int,
+                 device, tile: Tuple[int, int] = None) -> ImageLaunch:
+    """The launch inputs of a whole image of `camera` at `spp` samples a
+    launch, the driver's layout policy (default_tile, default_order,
+    default_pack clamped to the tile, default_pack_axis), on `device`."""
+    W, H = camera.width, camera.height
+    S, L = tile if tile is not None else default_tile(meta)
+    axis = default_pack_axis(meta)
+    pack = clamp_pack(default_pack(meta, spp), S, L, axis)
+    order = default_order(meta)
+    xs, ys, pid = tile_pixel_layout(W, H, S, L, order=order, spp_pack=pack,
+                                    pack_axis=axis)
+    tables = tuple(torch.from_numpy(t).to(device) for t in (
+        build_camera_vec(camera), build_scene_table(scn, meta),
+        *build_mesh_tables(scn, meta), xs, ys))
+    kwargs = dict(tile=(S, L), spp_pack=pack, pack_axis=axis,
+                  **texture_inputs(scn, meta, device))
+    return ImageLaunch(tables, kwargs, pid,
+                       "tile%dx%d:%s:pack%d%s" % (S, L, order, pack, axis))
+
+
 def render_megakernel(scn: SceneArrays, meta: SceneMeta, camera,
                       cfg: RenderConfig, seed: int = None,
                       tile: Tuple[int, int] = None) -> np.ndarray:
@@ -2510,23 +2544,14 @@ def render_megakernel(scn: SceneArrays, meta: SceneMeta, camera,
     of pallas_kernel.render_pallas), with the scene's default order and
     packing. Returns [H, W, 3] float32."""
     W, H = camera.width, camera.height
-    S, L = tile if tile is not None else default_tile(meta)
-    dev = scn.color.device
-    axis = default_pack_axis(meta)
-    pack = clamp_pack(default_pack(meta, cfg.samples), S, L, axis)
-    xs, ys, pid = tile_pixel_layout(W, H, S, L, order=default_order(meta),
-                                    spp_pack=pack, pack_axis=axis)
+    run = image_launch(scn, meta, camera, cfg.samples, scn.color.device,
+                       tile)
     r, g, b = trace_tiles(
-        (seed if seed is not None else cfg.seed, 0),
-        torch.from_numpy(build_camera_vec(camera)).to(dev),
-        torch.from_numpy(build_scene_table(scn, meta)).to(dev),
-        *(torch.from_numpy(t).to(dev) for t in build_mesh_tables(scn, meta)),
-        torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev),
+        (seed if seed is not None else cfg.seed, 0), *run.tables,
         meta=meta, cfg=cfg, spp=cfg.samples, total_samples=cfg.samples,
-        tile=(S, L), spp_pack=pack, pack_axis=axis,
-        **texture_inputs(scn, meta, dev))
+        **run.kwargs)
     img = torch.stack([r, g, b], dim=-1).reshape(-1, 3).cpu().numpy()
-    img = untile_image(img, pid, W, H).reshape(H, W, 3)
+    img = untile_image(img, run.pid, W, H).reshape(H, W, 3)
     return img / float(cfg.samples)
 
 

@@ -26,10 +26,6 @@ from .shapes import BOX, PLANE, SPHERE, Cylinder, Group, Shape, Triangle
 
 NONE_TYPE = -1
 
-_QUAD_ITEM = ("ROADMAP queue 1, item 12 (the wavefront integrator's "
-              "texel fetch variants)")
-
-
 class SceneArrays(NamedTuple):
     """Device-side scene. All tensors have static (padded) shapes, with the
     JAX package's field names and layouts (pathtracer_tpu.scene.pack)."""
@@ -78,7 +74,10 @@ class SceneArrays(NamedTuple):
     # rgb8 packed r | g << 8 | b << 16, with per-object (base, w, h);
     # bases are f32-exact (the pool stays below 2^24 texels)
     tex_pool_u32: torch.Tensor      # [T] u32
-    tex_pool_quad_u32: torch.Tensor # [1, 4] u32 placeholder (PT_TEX_FETCH=quad)
+    # quad pool (PT_TEX_FETCH=quad): row i holds texel i's bilinear
+    # footprint [c00, c01, c10, c11] with its texture's REPEAT wrap baked
+    # in, for the wavefront's one-row fetch; else a [1, 4] placeholder
+    tex_pool_quad_u32: torch.Tensor # [T, 4] u32
     tex_base: torch.Tensor          # [No] texel offset (color)
     tex_w: torch.Tensor             # [No]
     tex_h: torch.Tensor             # [No]
@@ -156,14 +155,16 @@ def _pack_texture_atlas(images: Sequence[np.ndarray]) -> np.ndarray:
     return out
 
 
+def _rgb8(im: np.ndarray) -> np.ndarray:
+    """An image's texels packed r | g << 8 | b << 16 (u32 [h, w])."""
+    q = np.clip(np.round(im[..., :3] * 255.0), 0, 255).astype(np.uint32)
+    return q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)
+
+
 def _build_texel_pool(kind_images):
     """Concatenate every texture of every kind into one flat rgb8-u32 pool
     at full resolution. Returns (pool [T] u32, {kind: [(base, w, h),
-    ...]}). PT_TEX_FETCH=quad (the JAX wavefront path's quad-row pool)
-    raises."""
-    if os.environ.get("PT_TEX_FETCH", "take4") == "quad":
-        raise NotImplementedError(
-            f"PT_TEX_FETCH=quad is not ported yet: {_QUAD_ITEM}")
+    ...]})."""
     chunks = []
     tables = {}
     off = 0
@@ -171,10 +172,7 @@ def _build_texel_pool(kind_images):
         entries = []
         for im in images:
             h, w = im.shape[0], im.shape[1]
-            q = np.clip(np.round(im[..., :3] * 255.0), 0,
-                        255).astype(np.uint32)
-            chunks.append((q[..., 0] | (q[..., 1] << 8)
-                           | (q[..., 2] << 16)).reshape(-1))
+            chunks.append(_rgb8(im).reshape(-1))
             entries.append((off, w, h))
             off += h * w
         tables[kind] = entries
@@ -183,6 +181,26 @@ def _build_texel_pool(kind_images):
         raise ValueError(f"texel pool has {pool.size} texels; f32-exact "
                          "base offsets cap it at 2^24")
     return pool, tables
+
+
+def _build_quad_pool(kind_images) -> np.ndarray:
+    """The quad pool of _build_texel_pool's pool under PT_TEX_FETCH=quad:
+    row i holds texel i's bilinear footprint [c00, c01, c10, c11] with its
+    texture's REPEAT wrap baked in ([T, 4] u32), read by the wavefront's
+    one-row fetch (uv.sample_texture_pool). It is 4x the pool, so under
+    any other fetch it is a [1, 4] placeholder."""
+    if os.environ.get("PT_TEX_FETCH", "take4") != "quad":
+        return np.zeros((1, 4), np.uint32)
+    quads = []
+    for images in kind_images.values():
+        for im in images:
+            packed = _rgb8(im)
+            c01 = np.roll(packed, -1, axis=1)
+            c10 = np.roll(packed, -1, axis=0)
+            c11 = np.roll(c10, -1, axis=1)
+            quads.append(np.stack([packed, c01, c10, c11],
+                                  axis=-1).reshape(-1, 4))
+    return np.concatenate(quads) if quads else np.zeros((1, 4), np.uint32)
 
 
 _STAGE_HB = 128  # rows of one lane window of the JAX package's staged atlas
@@ -265,8 +283,10 @@ def pack_scene(
     textures: Sequence[np.ndarray] = (),
     sphere_textures: Sequence[np.ndarray] = (),
     cube_textures: Sequence[np.ndarray] = (),
+    dtype=torch.float32,
 ) -> Tuple[SceneArrays, SceneMeta]:
-    """Pack a scene onto `device` (float32).
+    """Pack a scene onto `device`, its float fields in `dtype` (float32;
+    float64 for the wavefront's f64 renders).
 
     The BVH leaf size is `leaf_size`, else leaf_size_for(objects). Octant
     node copies are built unless PT_OCTANT=0. A textured object's
@@ -364,6 +384,7 @@ def pack_scene(
     kind_images = {"planar": list(textures), "sphere": list(sphere_textures),
                    "cube": list(cube_textures)}
     tex_pool, pool_tables = _build_texel_pool(kind_images)
+    tex_pool_quad = _build_quad_pool(kind_images)
     kind_of_type = {PLANE: "planar", SPHERE: "sphere", BOX: "cube"}
     pool_base = np.zeros(no)
     pool_w = np.ones(no)
@@ -401,9 +422,11 @@ def pack_scene(
     obj_tex, obj_tex_nm = _stage_file_textures(
         obj_tex, obj_tex_nm, obj_tex_im, obj_tex_nm_im)
 
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+
     def f(a):
         return torch.from_numpy(
-            np.ascontiguousarray(a, dtype=np.float32)).to(device)
+            np.ascontiguousarray(a, dtype=np_dtype)).to(device)
 
     def i32(a):
         return torch.from_numpy(
@@ -452,7 +475,7 @@ def pack_scene(
         tex_sphere=f(_pack_texture_atlas(sphere_textures)),
         tex_cube=f(_pack_texture_atlas(cube_textures)),
         tex_pool_u32=u32(tex_pool),
-        tex_pool_quad_u32=u32(np.zeros((1, 4))),
+        tex_pool_quad_u32=u32(tex_pool_quad),
         tex_base=f(pool_base),
         tex_w=f(pool_w),
         tex_h=f(pool_h),

@@ -57,7 +57,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if not (args.tri or args.tex):
         print("error: the default (wavefront) mode is not ported yet: "
-              "ROADMAP queue 1, item 12 (wavefront integrator and autograd "
+              "ROADMAP queue 1, item 12(c) (wavefront autograd "
               "path); use --tri or --tex", file=sys.stderr)
         return 2
     if args.tri and args.tex:

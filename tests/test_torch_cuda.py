@@ -42,6 +42,11 @@ the warp-packet walk and the node walk alone) must be bit-equal to their
 plain versions too; the tensor-core leaves (PT_TRAVERSAL=mxu) hold by the
 per-slot rule, and the leaf microbenchmark's tensor-core test holds every
 ray x triangle t within one ulp (probes/leaf_bench.py check).
+
+The wavefront integrator (render/integrator.py) sends its f32 bounces and
+shadow rays through the intersect kernel on the card: on its own rays the
+kernel is bit-equal to its plain version at every call of a pass, and so
+is the pass's image.
 """
 import numpy as np
 import pytest
@@ -826,3 +831,71 @@ def test_cli_renders_teapot_on_the_packet_walk(dev, monkeypatch, tmp_path):
     assert rc == 0 and mk.trace_tiles.packet_launches == before + 2
     img = read_raw(str(raw))
     assert img.shape == (48, 64, 3) and np.isfinite(img).all()
+
+
+def _flat(res):
+    return [y for z in res for y in (z if isinstance(z, tuple) else (z,))]
+
+
+@pytest.mark.parametrize("name,nee", [("reference", False),
+                                      ("teapot", False), ("teapot", True),
+                                      ("cubemap", False)])
+def test_intersect_kernel_on_wavefront_bounces(dev, name, nee):
+    # the wavefront's own bounced and shadow rays: K5 bit-equal to its
+    # plain version at every call of a pass, and the pass's image through
+    # K5 bit-equal to the pass through the plain version
+    from pathtracer_tpu_torch.render import integrator, threefry
+
+    cfg = RenderConfig(width=160, height=120, samples=8, nee=nee)
+    sc = get_scene(name, cfg)
+    arrays, meta = sc.pack(device=dev)
+    tables = mk.intersect_tables(arrays, meta, dev)
+    calls = []
+
+    def checked(scn, meta_, cfg_, o, d, tables=None):
+        got = mk.intersect_batch(scn, meta_, cfg_, o, d, tables=tables)
+        want = mk.intersect_batch_reference(scn, meta_, cfg_, o, d, tables)
+        for a, b in zip(_flat(got), _flat(want)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        calls.append(o[0].numel())
+        return got
+
+    ys, xs = np.mgrid[0:120, 0:160]
+    px = torch.from_numpy(xs.ravel().astype(np.int32)).to(dev)
+    py = torch.from_numpy(ys.ravel().astype(np.int32)).to(dev)
+    cam = sc.camera.pack(torch.float32, dev)
+    key = threefry.prng_key(3)
+
+    def one_pass(fn):
+        return torch.stack(integrator.render_pass(
+            arrays, meta, cfg, cam, px, py, 0, 8, key,
+            integrator.IntersectRoute(fn, tables)))
+
+    before = mk.intersect_batch.launches
+    k5 = one_pass(checked)
+    assert mk.intersect_batch.launches == before + len(calls) > before + 1
+    assert set(calls) == {160 * 120 * 8}
+    plain = one_pass(mk.intersect_batch_reference)
+    torch.cuda.synchronize()
+    assert torch.equal(k5, plain)
+    # the route a render takes on the card is the kernel's
+    route = integrator.intersect_route(arrays, meta, cfg)
+    assert route.fn is mk.intersect_batch
+
+
+def test_cli_renders_the_wavefront_on_the_card(dev, tmp_path):
+    raw = tmp_path / "w.raw"
+    before = (mk.intersect_batch.launches, mk.trace_tiles.launches)
+    rc = cli.main(["--scene", "teapot", "--backend", "wavefront", "--width",
+                   "64", "--height", "48", "--samples", "8", "--nee",
+                   "--raw-output", str(raw), "--output",
+                   str(tmp_path / "w.png")])
+    assert rc == 0 and mk.trace_tiles.launches == before[1]
+    assert mk.intersect_batch.launches > before[0]
+    img = read_raw(str(raw))
+    assert img.shape == (48, 64, 3) and np.isfinite(img).all()
+    rc = cli.main(["--scene", "reference", "--dtype", "float64", "--width",
+                   "32", "--height", "24", "--samples", "2",
+                   "--raw-output", str(raw), "--output",
+                   str(tmp_path / "w.png")])
+    assert rc == 0 and np.isfinite(read_raw(str(raw))).all()

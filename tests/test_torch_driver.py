@@ -239,14 +239,17 @@ def test_torch_fault_recovery_identical_output(monkeypatch):
 
 
 @pytest.mark.parametrize("bad,item", [
-    (dict(backend="wavefront"), "item 12"),
-    (dict(dtype="float64"), "item 12"),
+    (dict(backend="wavefront"), "item 13"),
+    (dict(dtype="float64"), "item 13"),
 ])
 def test_driver_refuses_unported_configs(bad, item):
+    # the wavefront backend and f64 render (tests/test_torch_wavefront_
+    # render.py); a device mesh (item 13) is still refused, for any config
     _, _, ts, tc = scene_pair("reference", **CFG)
     arrays, meta = ts.pack(device=CPU)
     with pytest.raises(NotImplementedError, match=item):
-        render_driver(arrays, meta, ts.camera, tc.replace(**bad))
+        render_driver(arrays, meta, ts.camera, tc.replace(**bad),
+                      mesh=object())
     with pytest.raises(NotImplementedError, match="item 13"):
         render_driver(arrays, meta, ts.camera, tc, mesh=object())
 
@@ -268,16 +271,43 @@ def test_raw_and_png_match_jax_writers(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--backend", "wavefront"], "item 12"),
-    (["--dtype", "float64"], "item 12"),
     (["--distributed"], "item 13"),
     (["--mesh", "1x1"], "item 13"),
-    (["--debug-ray", "3"], "item 12"),
-    (["--profile", "trace"], "item 15"),
 ])
 def test_cli_refuses_unported_flags(flags, item, capsys):
     assert cli.main(flags) == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--backend", "wavefront"], ["--dtype", "float64"],
+    ["--debug-ray", "3"], ["--profile", "PROF"],
+    ["--backend", "wavefront", "--nee", "--scene", "teapot"],
+])
+def test_cli_takes_the_wavefront_flags(flags, tmp_path, capsys, monkeypatch):
+    # lifted: each renders on --device cpu; without a card and without
+    # --device cpu the CLI stops at the device check (1)
+    flags = [str(tmp_path / "prof") if f == "PROF" else f for f in flags]
+    raw, metrics = tmp_path / "x.raw", tmp_path / "m.json"
+    rc = cli.main(flags + ["--device", "cpu", "--width", "8", "--height",
+                           "6", "--samples", "2", "--raw-output", str(raw),
+                           "--output", str(tmp_path / "x.png"),
+                           "--metrics-json", str(metrics)])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    img = read_raw(str(raw))
+    assert img.shape == (6, 8, 3) and np.isfinite(img).all()
+    rec = json.loads(metrics.read_text())
+    wavefront = "--profile" not in flags
+    assert rec["backend"] == ("wavefront" if wavefront else "megakernel")
+    assert rec["device"] == "cpu"
+    if "--debug-ray" in flags:
+        assert "bounce 0 ray 3: o=(" in out.out
+    if "--profile" in flags:
+        assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main(flags + ["--raw-output", str(raw)]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 def test_cli_takes_nee(monkeypatch, tmp_path, capsys):

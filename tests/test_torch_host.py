@@ -109,11 +109,15 @@ def test_registry_holds_the_slice_scenes():
 
 def test_unported_scene_parts_raise(monkeypatch):
     cpu = torch.device("cpu")
-    # the JAX wavefront path's quad-row texel pool
+    # the JAX wavefront path's quad-row texel pool is ported: under
+    # PT_TEX_FETCH=quad both packages pack the same [T, 4] rows
     monkeypatch.setenv("PT_TEX_FETCH", "quad")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pack_scene([Sphere()], device=cpu,
-                   sphere_textures=[np.zeros((2, 2, 3))])
+    im = np.random.default_rng(3).random((3, 5, 3))
+    ta, _ = pack_scene([Sphere()], device=cpu, sphere_textures=[im])
+    from pathtracer_tpu.scene.pack import _build_texel_pool as jax_pool
+    want = jax_pool({"planar": [], "sphere": [im], "cube": []})[1]
+    assert want.shape == (15, 4)
+    assert np.array_equal(ta.tex_pool_quad_u32.numpy(), want)
     monkeypatch.delenv("PT_TEX_FETCH")
     # a textured scene carried over from the JAX package keeps its textures
     cfg = RenderConfig(width=16, height=12)

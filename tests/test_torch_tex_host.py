@@ -143,10 +143,29 @@ def test_tex_pack_knobs_equal_jax(monkeypatch, name, env):
 
 
 def test_tex_fetch_quad_raises(monkeypatch):
+    # PT_TEX_FETCH=quad is ported (it raised before the wavefront path
+    # was): the quad pool holds each texel's footprint, and the one-row
+    # fetch equals the four taps bit for bit, in f32 and f64
+    from pathtracer_tpu_torch.render.uv import sample_texture_pool
+
     monkeypatch.setenv("PT_TEX_FETCH", "quad")
     _, _, ts, _ = scene_pair("envmap", width=8, height=6)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ts.pack(device=CPU)
+    ta, tm = ts.pack(device=CPU)
+    quad = ta.tex_pool_quad_u32
+    assert quad.shape == (ta.tex_pool_u32.shape[0], 4)
+    assert torch.equal(quad[:, 0].view(torch.int32),
+                       ta.tex_pool_u32.view(torch.int32))
+    slot = tm.obj_tex[0][0]
+    rng = np.random.default_rng(5)
+    for dt in (torch.float32, torch.float64):
+        u, v = (torch.from_numpy(rng.uniform(-3, 3, 4096)).to(dt)
+                for _ in range(2))
+        b, w, h = (getattr(ta, f)[slot].to(dt).expand(4096)
+                   for f in ("tex_base", "tex_w", "tex_h"))
+        one = sample_texture_pool(ta.tex_pool_u32, b, w, h, u, v, quad)
+        four = sample_texture_pool(ta.tex_pool_u32, b, w, h, u, v)
+        for x, y in zip(one, four):
+            assert x.dtype == dt and torch.equal(x, y)
 
 
 def test_from_jax_scene_textured_round_trip():
