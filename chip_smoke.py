@@ -120,7 +120,15 @@ times the forward rows of K1_ROWS on this tree and on the trees of
 approximate, the filter, the draws taken where read, one sincosf, the
 16-byte rows, the launch shape), and the A/B adds K1 at 128 spp and K5
 on the size-check mesh; `--k1-only` runs the filter check, the split and
-the A/B alone. It prints one JSON line of kernel
+the A/B alone. Phase 11 runs the wavefront forward on K5; phase 12
+(`--ad-only` alone) its autograd path: diff.train_step at 1280x960x1 on
+`reference`, `teapot` and `textures` through K5 on every bounce of the
+fixed trip (K5 bit-equal to its plain version, triangle slot included, on
+a step's own rays; the launch and re-attach counts, peak memory, live
+rays a bounce, the fwd+bwd rate as bench.py measures it, the loss falling
+under Adam), the kernel's route against the torch walk, the wavefront's
+gradient against the megakernel step's over 8 seeds, train_demo's default
+mode and a resumed run of it. It prints one JSON line of kernel
 results, each with its bound (the least time the card could take for the
 same work, from the work the plain version counts in this run), and,
 last, one JSON line naming the device.
@@ -154,10 +162,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pathtracer_tpu_torch import cli, train_demo
+from pathtracer_tpu_torch import bench, cli, train_demo
 from pathtracer_tpu_torch.config import RenderConfig
-from pathtracer_tpu_torch.diff import (make_megakernel_step,
-                                       make_megakernel_step_tri)
+from pathtracer_tpu_torch.diff import (extract_params, loss_and_grads,
+                                       make_megakernel_step,
+                                       make_megakernel_step_tri,
+                                       render_image_diff,
+                                       restore_train_state)
 from pathtracer_tpu_torch.geometry import transforms as gx
 from pathtracer_tpu_torch.io.raw import read_raw
 from pathtracer_tpu_torch.probes import leaf_bench, op_rate
@@ -165,6 +176,8 @@ from pathtracer_tpu_torch.render import _build
 from pathtracer_tpu_torch.render import grad as tg
 from pathtracer_tpu_torch.render import integrator, threefry
 from pathtracer_tpu_torch.render import megakernel as mk
+from pathtracer_tpu_torch.render.intersect import reattach_hit
+from pathtracer_tpu_torch.render.vec3 import Vec3
 from pathtracer_tpu_torch.scene import material, pack, shapes
 from pathtracer_tpu_torch.scene.pack import texel_params, trainable_texels
 from pathtracer_tpu_torch.scene.shapes import (BOX, CYLINDER, GROUP, PLANE,
@@ -1692,7 +1705,8 @@ def branch_cost(cases, ptxas, card):
 
 
 def flat_outputs(res):
-    """intersect_batch's result as a list of its 15 [R] tensors."""
+    """intersect_batch's result as a list of its [R] tensors (16: the
+    triangle slot last; a tree before the slot, 15)."""
     return [x for r in res for x in (r if isinstance(r, tuple) else (r,))]
 
 
@@ -3200,6 +3214,370 @@ def wavefront_phases(dev, card, ptxas):
                 launches=sum(v["launches"] for v in main.values()))
 
 
+# ---- phase 12: the wavefront autograd path (diff.grad) on K5 ---------------
+
+AD_SCENES = ("reference", "teapot", "textures")
+AD_SPP = 1                   # bench.py's bench_diff_wavefront: 1 spp a step
+AD_TIMED = 3                 # timed steps after a warm-up
+AD_FALL = 5                  # steps over which the loss must fall
+AD_LR = 0.02                 # Adam's step there
+AD_CHECKED = (1, 2)          # the bounces whose rays K5 is held on
+AD_SMALL = (160, 120)        # the route-against-walk comparison's size
+AD_REL = 1e-3                # and its rule: tests/test_torch_wavefront_grad_tex.py's
+AD_EST = (320, 240, 4)       # the two estimators' size and spp
+AD_SEEDS = 8
+AD_SIGMAS = 4.0
+AD_DEMO = ["--width", "160", "--height", "120", "--spp", "8"]
+AD_DEMO_STEPS = 50
+
+
+def ad_inputs(scene: str, dev, w=None, h=None, spp=AD_SPP):
+    """(arrays, meta, cfg, camera vector, px, py, route) of `scene` at w x h
+    (default W x H) for the wavefront autograd path on `dev`, the route
+    built once."""
+    w, h = w or W, h or H
+    cfg = RenderConfig(width=w, height=h, samples=spp, samples_per_pass=spp)
+    sc = get_scene(scene, cfg)
+    arrays, meta = sc.pack(device=dev)
+    cam = sc.camera.pack(torch.float32, dev)
+    px, py = integrator.pixel_grid(w, 0, h, dev)
+    route = integrator.intersect_route(arrays, meta,
+                                       cfg.replace(early_exit=False))
+    return arrays, meta, cfg, cam, px, py, route
+
+
+def ad_loss_grads(inp, params, key, target, route=None):
+    arrays, meta, cfg, cam, px, py, r = inp
+    return loss_and_grads(params, arrays, meta, cfg, cam, px, py, key,
+                          cfg.samples, target, route=r if route is None
+                          else route)
+
+
+def ad_checked_step(inp, card, scene):
+    """One differentiable step whose K5 launches at AD_CHECKED's bounces
+    are held bit for bit against intersect_batch_reference on the step's
+    own rays, all eight outputs (the triangle slot too); K5 is then timed
+    on bounce 1's rays, with its bound. Returns the numbers."""
+    arrays, meta, cfg, cam, px, py, route = inp
+    seen = []
+
+    def checked(scn, meta_, cfg_, o, d, tables=None):
+        got = mk.intersect_batch(scn, meta_, cfg_, o, d, tables=tables)
+        if len(seen) in AD_CHECKED:
+            want = mk.intersect_batch_reference(scn, meta_, cfg_, o, d,
+                                                tables)
+            bad = [i for i, (a, b) in enumerate(zip(flat_outputs(got),
+                                                    flat_outputs(want)))
+                   if not torch.equal(a, b)]
+            if bad or len(flat_outputs(got)) != 16:
+                raise AssertionError(f"phase 12: {scene} bounce "
+                                     f"{len(seen)}: K5 differs from its "
+                                     f"plain version in outputs {bad}")
+        seen.append((o, d))
+        return got
+
+    target = Vec3.zeros((px.shape[0],), torch.float32, px.device)
+    ad_loss_grads(inp, extract_params(arrays), threefry.prng_key(0), target,
+                  integrator.IntersectRoute(checked, route.tables))
+    o, d = seen[1]
+    counts = {}
+    want, p_ms = timed(lambda: mk.intersect_batch_reference(
+        arrays, meta, cfg, o, d, route.tables, counts), stack=False)
+    k_ms = cuda_ms(lambda: mk.intersect_batch(arrays, meta, cfg, o, d,
+                                              tables=route.tables), 10)
+    b_ms, b_by, ops = k5_bound(meta, cfg, counts, flat_outputs(want), o, d,
+                               route.tables)
+    tri = int((want[7] >= 0).sum())
+    phase(f"phase 12: {scene} K5 on the differentiable step's rays "
+          f"({o[0].numel()} a bounce, {len(seen)} bounces): bit-equal to "
+          f"the plain version, triangle slot included, at bounces "
+          f"{list(AD_CHECKED)} ({tri} triangle winners at bounce 1); "
+          f"bounce 1: kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; {ops:.4g} f32 ops); card {card}")
+    return dict(rays=o[0].numel(), bounces=len(seen), ms=k_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                tri_winners_bounce_1=tri)
+
+
+def ad_live_rays(inp):
+    """The live rays at the start of each bounce of one forward of the
+    differentiable render (the fixed trip: K5 answers every ray at every
+    bounce, live or not; ROADMAP W2)."""
+    arrays, meta, cfg, cam, px, py, route = inp
+    live = []
+    orig = integrator.bounce_step
+
+    def counted(scn, meta_, cfg_, state, key, route=None):
+        live.append(int(state.alive.sum()))
+        return orig(scn, meta_, cfg_, state, key, route)
+    integrator.bounce_step = counted
+    try:
+        with torch.no_grad():
+            render_image_diff(extract_params(arrays), arrays, meta, cfg,
+                              cam, px, py, threefry.prng_key(0),
+                              cfg.samples, route)
+    finally:
+        integrator.bounce_step = orig
+    return live
+
+
+def ad_main_path(scene: str, dev, card):
+    """The wavefront autograd path's main path on `scene` at W x H x
+    AD_SPP: K5 held on a step's rays (ad_checked_step), then, with every
+    launch count set to 0 just before, bench.py's measurement (a warm-up
+    SGD step of diff.train_step and AD_TIMED timed ones, every SceneParams
+    field trainable, a zero target; bench.bench_diff_wavefront): K5 must
+    launch once a bounce of every step and never the megakernel; the peak
+    memory of those steps. Then Adam toward a common-random-number target
+    from perturbed colors (and triangle colors): the loss must fall over
+    AD_FALL steps. Returns the numbers."""
+    tag = f"phase 12: {scene} {W}x{H}x{AD_SPP}"
+    inp = ad_inputs(scene, dev)
+    arrays, meta, cfg, cam, px, py, route = inp
+    if route.fn is not mk.intersect_batch:
+        raise AssertionError(f"{tag}: the route is not the intersect kernel")
+    k5 = ad_checked_step(inp, card, scene)
+    live = ad_live_rays(inp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.intersect_batch.launches = 0
+    mk.trace_tiles.launches = 0
+    reattach_hit.calls = reattach_hit.rays = 0
+    samples, secs = bench.bench_diff_wavefront(cfg, types.SimpleNamespace(
+        camera=get_scene(scene, cfg).camera), arrays, meta, 8 * AD_TIMED,
+        dev)
+    launches, calls = mk.intersect_batch.launches, reattach_hit.calls
+    rays = reattach_hit.rays
+    peak = torch.cuda.max_memory_allocated()
+    steps = AD_TIMED + 1
+    if (launches != steps * cfg.max_bounces or mk.trace_tiles.launches
+            or samples != W * H * AD_TIMED):
+        raise AssertionError(
+            f"{tag}: {launches} K5 launches in {steps} steps of "
+            f"{cfg.max_bounces} bounces, {mk.trace_tiles.launches} "
+            f"megakernel launches")
+    rate = samples / secs / 1e6
+    phase(f"{tag}: fwd+bwd {rate:.3f} Msamples/s ({AD_TIMED} SGD steps in "
+          f"{secs:.4f} s after a warm-up, bench.py's measurement); "
+          f"{launches / steps:.0f} K5 launches a step ({launches} in "
+          f"{steps} steps), 0 megakernel launches; {calls} re-attaches "
+          f"({rays} rays); peak memory {peak / 2**30:.3f} GiB; live rays "
+          f"a bounce {live}; card {card}")
+
+    # the loss toward a target: Adam from perturbed colors
+    true = extract_params(arrays)
+    key = threefry.fold_in(threefry.prng_key(0), 12345)
+    with torch.no_grad():
+        target = Vec3(*(c.detach() for c in render_image_diff(
+            true, arrays, meta, cfg, cam, px, py, key, cfg.samples, route)))
+    rng = np.random.default_rng(3)
+    bad = {"color": true.color.clamp(0.05, 1.0)}
+    if meta.has_groups:
+        bad["tri_color"] = true.tri_color
+    leaves = {k: torch.clamp(v + torch.from_numpy(rng.uniform(
+        -0.3, 0.3, tuple(v.shape)).astype(np.float32)).to(dev), 0.0, 1.0)
+        .requires_grad_(True) for k, v in bad.items()}
+    opt = torch.optim.Adam(list(leaves.values()), lr=AD_LR)
+    losses = []
+    for _ in range(AD_FALL):
+        loss, g = ad_loss_grads(inp, true._replace(**leaves), key, target)
+        opt.zero_grad()
+        for k, v in leaves.items():
+            v.grad = getattr(g, k)
+        opt.step()
+        losses.append(float(loss))
+    check_falls(f"{tag}: Adam on {sorted(leaves)} toward a "
+                "common-random-number target", losses)
+    return dict(msamples_per_s=rate, seconds=secs, launches=launches,
+                launches_a_step=launches / steps, reattach_calls=calls,
+                reattach_rays=rays, peak_bytes=peak, live_rays=live,
+                losses=losses, k5=k5)
+
+
+def ad_route_vs_walk(scene: str, dev, card):
+    """The same key's gradients on the card through the kernel's route and
+    through the torch walk, at AD_SMALL: every SceneParams field within
+    AD_REL x max|g| of the walk's (the textures rule of
+    tests/test_torch_wavefront_grad_tex.py)."""
+    w, h = AD_SMALL
+    inp = ad_inputs(scene, dev, w, h)
+    arrays, meta, cfg, cam, px, py, route = inp
+    p = extract_params(arrays)
+    target = Vec3.zeros((w * h,), torch.float32, dev)
+    key = threefry.prng_key(5)
+    _, g_k = ad_loss_grads(inp, p, key, target)
+    _, g_w = ad_loss_grads(inp, p, key, target, integrator.IntersectRoute())
+    worst = {}
+    for k in ("color", "emission", "tri_color", "tex_planar", "tex_sphere",
+              "tex_cube"):
+        a, b = getattr(g_k, k), getattr(g_w, k)
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"phase 12: {scene}: {k} not finite")
+        top = float(b.abs().max())
+        worst[k] = (float((a - b).abs().max()), top)
+        if worst[k][0] > AD_REL * top:
+            raise AssertionError(f"phase 12: {scene}: the kernel's route "
+                                 f"and the torch walk differ in {k}: "
+                                 f"{worst[k]}")
+    phase(f"phase 12: {scene} {w}x{h}x{AD_SPP} gradients through K5 against "
+          f"the torch walk, the same key: (max |difference|, max |g|) "
+          f"{worst}, within {AD_REL} x max|g|; card {card}")
+    return worst
+
+
+def ad_estimators(dev, card):
+    """Two estimators of the same gradient on `reference` at AD_EST: the
+    wavefront's (image_loss) and the megakernel step's
+    (make_megakernel_step, its update at lr 1 taken back), each over
+    AD_SEEDS seeds, against a black target at the same spp (the squared
+    loss's noise term is then the same for both); color and emission,
+    every entry within AD_SIGMAS standard errors (each the spread of its
+    seeds' gradients over sqrt(AD_SEEDS)). The rule holds the megakernel
+    with per-slot draws (PT_COHERENT=0); its default row-shared roulette
+    and hemisphere draws make one seed's gradient a sum over a few hundred
+    independent directions, skewed (rare paths to the light weigh most),
+    so that a few seeds' mean and spread miss its tail: that comparison is
+    printed beside it, at AD_SEEDS and 4 x AD_SEEDS seeds, without a rule
+    (PERF.md §6, the wavefront autograd path)."""
+    w, h, spp = AD_EST
+    inp = ad_inputs("reference", dev, w, h, spp)
+    arrays, meta, cfg, cam, px, py, route = inp
+    p = extract_params(arrays)
+    n_max = 4 * AD_SEEDS
+    wf = []
+    for s in range(n_max):
+        _, g = ad_loss_grads(inp, p, threefry.prng_key(100 + s),
+                             Vec3.zeros((w * h,), torch.float32, dev))
+        wf.append(torch.cat([g.color, g.emission]).cpu().double().numpy())
+    sc = get_scene("reference", cfg)
+    step, target_of = make_megakernel_step(arrays, meta, cfg, sc.camera,
+                                           spp, lr=1.0)
+    target = target_of(np.zeros((h, w, 3), np.float32))
+
+    def megakernel(coherent, n):
+        out = []
+        with env_var("PT_COHERENT", coherent):
+            for s in range(n):
+                c, e, _ = step(arrays.color, arrays.emission, (200 + s, 0),
+                               target)
+                out.append(torch.cat([arrays.color - c,
+                                      arrays.emission - e])
+                           .cpu().double().numpy())
+        return np.asarray(out)
+
+    def z_of(a, b):
+        n = len(a)
+        se = np.sqrt(a.var(0, ddof=1) / n + b.var(0, ddof=1) / n)
+        live = se > 0
+        z = np.zeros_like(se)
+        z[live] = (a.mean(0) - b.mean(0))[live] / se[live]
+        still = ~live & (np.abs(a.mean(0) - b.mean(0)) > 0)
+        return z, int(live.sum()), int(still.sum())
+
+    wf = np.asarray(wf)
+    z, live, still = z_of(wf[:AD_SEEDS], megakernel("0", AD_SEEDS))
+    shared = megakernel("1", n_max)
+    zs = {n: float(np.abs(z_of(wf[:n], shared[:n])[0]).max())
+          for n in (AD_SEEDS, n_max)}
+    phase(f"phase 12: reference {w}x{h}x{spp} d loss / d (color, emission), "
+          f"the wavefront's and the megakernel's (per-slot draws, "
+          f"PT_COHERENT=0) over {AD_SEEDS} seeds each: {live} entries with "
+          f"noise, |z| max {np.abs(z).max():.3f}, {still} noiseless entries "
+          f"that differ; against the megakernel's row-shared draws (the "
+          f"default; no rule): |z| max {zs} by seeds; card {card}")
+    if np.abs(z).max() > AD_SIGMAS or still:
+        raise AssertionError(f"phase 12: the two estimators disagree: z "
+                             f"{np.round(z, 2).tolist()}")
+    return dict(entries=live, z_max=float(np.abs(z).max()),
+                row_shared_z_max=zs)
+
+
+def ad_demo(dev, card, tmp):
+    """train_demo's default mode at 160x120x8 for AD_DEMO_STEPS steps: the
+    sphere-color MAD must fall. Then the checkpoint: an unbroken 6-step
+    run against one stopped after 3 steps and resumed from its
+    checkpoint, their colors and Adam's moments by the gradient rule of
+    tests/_torch_scenes.py (the gathers' backward adds with atomics)."""
+    args = AD_DEMO + ["--out", os.path.join(tmp, "demo.png")]
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        err0, err1 = train_demo.main_colors(train_demo.build_parser()
+                                            .parse_args(args + [
+                                                "--steps",
+                                                str(AD_DEMO_STEPS)]), dev)
+    line = [ln for ln in buf.getvalue().splitlines() if "MAD" in ln][-1]
+    phase(f"phase 12: train_demo (default mode) {' '.join(AD_DEMO)} "
+          f"--steps {AD_DEMO_STEPS}: {line}; {time.perf_counter() - t0:.1f} "
+          f"s; card {card}")
+    if not err1 < err0:
+        raise AssertionError("phase 12: train_demo's color MAD did not fall")
+    full, part = os.path.join(tmp, "full"), os.path.join(tmp, "part")
+    with contextlib.redirect_stdout(io.StringIO()):
+        for a in (["--steps", "6", "--checkpoint", full],
+                  ["--steps", "3", "--checkpoint", part],
+                  ["--steps", "6", "--checkpoint", part, "--resume"]):
+            if train_demo.main(args + a + ["--device", str(dev)]) != 0:
+                raise AssertionError(f"phase 12: train_demo {a} failed")
+    like = extract_params(get_scene("reference", RenderConfig(
+        width=160, height=120)).pack(device=dev)[0])
+    got, want = (restore_train_state(d, like, {}) for d in (part, full))
+    moments = [[st[m] for st in o["state"].values()
+                for m in ("exp_avg", "exp_avg_sq")] for o in (got[2],
+                                                              want[2])]
+    if (got[0], want[0]) != (6, 6):
+        raise AssertionError(f"phase 12: the checkpoints' steps "
+                             f"{got[0]}, {want[0]} (6 expected)")
+    rule = grad_rule((got[1].color, *moments[0][:1]),
+                     (want[1].color, *moments[1][:1]), mesh=False)
+    rule2 = grad_rule((moments[0][1], got[1].emission),
+                      (moments[1][1], want[1].emission), mesh=False)
+    phase(f"phase 12: train_demo resumed at step 3 of 6 against the "
+          f"unbroken run: colors, Adam's first moments {rule}, second "
+          f"moments {rule2}; card {card}")
+    return dict(mad=[err0, err1], resume=rule, resume_second=rule2)
+
+
+def ptxas_vs_parent(parent: str, ptxas) -> dict:
+    """The ptxas counts (registers, stack, spill stores and loads) of this
+    build against the tree under `parent`: every instantiation but the
+    intersect kernel's must keep its counts; the intersect kernel's are
+    printed before and after."""
+    T = load_tree(parent, "ptxas_tree")
+    T.mk.library()
+    theirs, ours = ptxas_counts(tree_ptxas(T)), ptxas_counts(ptxas)
+    isect = {k: (list(v), list(ours[k]) if k in ours else None)
+             for k, v in theirs.items() if k.startswith("intersect")}
+    moved = {k: (v, ours.get(k)) for k, v in theirs.items()
+             if not k.startswith("intersect") and ours.get(k) != v}
+    phase(f"phase 12: ptxas of the intersect instantiations, {parent} then "
+          f"this: {isect}")
+    phase(f"phase 12: ptxas of the other {len(theirs) - len(isect)} "
+          f"instantiations against {parent}: "
+          f"{'unchanged' if not moved else moved}")
+    if moved:
+        raise AssertionError(f"phase 12: ptxas counts moved: {moved}")
+    return isect
+
+
+def ad_phases(args, dev, card, ptxas):
+    """Phase 12: the wavefront autograd path on K5 (ad_main_path on each of
+    AD_SCENES), the kernel's route against the torch walk, the two
+    estimators, the demo and the checkpoint; with --ab-parent under
+    --ad-only, the ptxas counts against those trees. Returns the
+    numbers."""
+    out = {"main": {s: ad_main_path(s, dev, card) for s in AD_SCENES}}
+    out["route_vs_walk"] = {s: ad_route_vs_walk(s, dev, card)
+                            for s in AD_SCENES}
+    out["estimators"] = ad_estimators(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["demo"] = ad_demo(dev, card, tmp)
+    if args.ad_only:
+        out["ptxas_vs_parent"] = {d: ptxas_vs_parent(d, ptxas)
+                                  for d in args.ab_parent}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab-parent", metavar="DIR", action="append",
@@ -3253,6 +3631,11 @@ def main(argv=None) -> int:
     ap.add_argument("--wavefront-only", action="store_true",
                     help="after the build, run the wavefront's phase 11 "
                          "alone and print no result lines")
+    ap.add_argument("--ad-only", action="store_true",
+                    help="after the build, run the wavefront autograd "
+                         "path's phase 12 alone (with --ab-parent: the "
+                         "ptxas counts against those trees, no A/B) and "
+                         "print no result lines")
     args = ap.parse_args(argv)
     # ---- phase 1: the card ----------------------------------------------
     smi = subprocess.run(
@@ -3299,6 +3682,9 @@ def main(argv=None) -> int:
         return 0
     if args.wavefront_only:
         wavefront_phases(dev, card, ptxas)
+        return 0
+    if args.ad_only:
+        ad_phases(args, dev, card, ptxas)
         return 0
 
     # ---- phase 3: kernel vs plain version on the card -------------------
@@ -3544,6 +3930,8 @@ def main(argv=None) -> int:
 
     # ---- phase 11: the wavefront forward on K5, the bench, the profile ---
     wf = wavefront_phases(dev, card, ptxas)
+    # ---- phase 12: the wavefront autograd path on K5 ---------------------
+    ad = ad_phases(args, dev, card, ptxas)
 
     print(json.dumps({"kernels": [
         {"name": "megakernel", "route": "cuda",
@@ -3700,7 +4088,25 @@ def main(argv=None) -> int:
          "wavefront_bounce_1": wf["bounces"], "ptxas": wf["ptxas"],
          "wavefront_main": wf["main"], "wavefront_f64": wf["f64"],
          "profile_split": wf["split"], "phase9_launches": isect[0],
-         "by_walk": isect_walks, "walk_launches": list(isect_walk_n)},
+         "by_walk": isect_walks, "walk_launches": list(isect_walk_n),
+         "ad_path": {
+             "launches": {s: v["launches"] for s, v in ad["main"].items()},
+             "launches_a_step": {s: v["launches_a_step"]
+                                 for s, v in ad["main"].items()},
+             "ms_bounce_1": {s: v["k5"]["ms"] for s, v in ad["main"].items()},
+             "plain_ms_bounce_1": {s: v["k5"]["plain_ms"]
+                                   for s, v in ad["main"].items()},
+             "bound_ms_bounce_1": {s: v["k5"]["bound_ms"]
+                                   for s, v in ad["main"].items()},
+             "shape": f"{W}x{H}x{AD_SPP}spp, {AD_TIMED} timed steps",
+             "fwd_bwd_msamples_per_s": {s: v["msamples_per_s"]
+                                        for s, v in ad["main"].items()},
+             "peak_bytes": {s: v["peak_bytes"] for s, v in ad["main"].items()},
+             "reattach_calls": {s: v["reattach_calls"]
+                                for s, v in ad["main"].items()},
+             "live_rays": {s: v["live_rays"] for s, v in ad["main"].items()},
+             "route_vs_walk": ad["route_vs_walk"],
+             "estimators": ad["estimators"], "demo": ad["demo"]}},
         {"name": "megakernel-mesh-packet", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
          "replaces": "pathtracer_tpu/render/pallas_kernel.py:1543,1403,1984",

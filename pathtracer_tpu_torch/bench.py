@@ -13,7 +13,10 @@ take the intersect kernel; `diff`: fwd+bwd through the differentiable
 megakernel), BENCH_SPP (default 128 on the megakernel, 32 otherwise),
 BENCH_WIDTH, BENCH_HEIGHT, BENCH_SCENE, BENCH_EXTRA ("1": every extra
 record, "0": none, or a comma-separated list of their keys) and
-BENCH_DIFF_BACKEND (`wavefront` is not ported: its records say so).
+BENCH_DIFF_BACKEND (`wavefront` forces the wavefront autograd path, which
+bench.py's bench_diff_wavefront measures and which is also the path of
+every scene the megakernel steps do not train, such as the normal-mapped
+`textures`: its fwd_bwd record).
 It runs on the CUDA card, or on the CPU (the kernels' plain versions)
 only when BENCH_DEVICE=cpu.
 
@@ -51,12 +54,13 @@ SCENE_BASELINES = {
 # the repository ships no .obj files: teapot and gopher render procedural
 # stand-in meshes, so their ratios are not like for like
 STAND_INS = ("teapot", "gopher")
-DIFF_WAVEFRONT = "not ported: ROADMAP item 12(c)"
-# bench.py's extra records: (scene, kind, spp)
+# bench.py's extra records: (scene, kind, spp); fwd_bwd_textures takes the
+# wavefront autograd path (its normal maps)
 EXTRAS = (("teapot", "fwd", 8), ("gopher", "fwd", 8),
           ("textures", "fwd", 32), ("textures-file", "fwd", 32),
           ("cubemap", "fwd", 8), ("envmap-file", "fwd", 32),
-          ("reference", "fwd_bwd", 32), ("textures-train", "fwd_bwd", 32))
+          ("reference", "fwd_bwd", 32), ("textures-train", "fwd_bwd", 32),
+          ("textures", "fwd_bwd", 32))
 K5_RAYS_SPP = 8   # the intersect kernel's batch: W x H x 8 camera rays
 
 
@@ -152,13 +156,45 @@ def _step_rate(step, params, target, dev, n=3):
     return time.perf_counter() - t0
 
 
+def bench_diff_wavefront(cfg, sc, arrays, meta, spp, dev):
+    """bench.py's bench_diff_wavefront: max(1, spp // 8) SGD steps
+    (diff.train_step) of 1 spp over the whole W x H image, every
+    SceneParams field trainable, a zero target and one key, after a
+    warm-up step; the intersect kernel's tables built once. Returns
+    (samples, seconds)."""
+    from .diff import extract_params, train_step
+    from .render.vec3 import Vec3
+
+    W, H = cfg.width, cfg.height
+    cam = sc.camera.pack(torch.float32, dev)
+    px, py = integrator.pixel_grid(W, 0, H, dev)
+    params = extract_params(arrays)
+    target = Vec3.zeros((px.shape[0],), torch.float32, dev)
+    key = threefry.prng_key(0)
+    route = integrator.intersect_route(arrays, meta,
+                                       cfg.replace(early_exit=False))
+    n = max(1, spp // 8)
+
+    def step(p):
+        return train_step(p, arrays, meta, cfg, cam, px, py, key, 1,
+                          target, route=route)[0]
+
+    p2 = step(params)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        p2 = step(p2)
+    _sync(dev)
+    return W * H * n, time.perf_counter() - t0
+
+
 def bench_diff(cfg, sc, arrays, meta, spp, dev, tri=False):
-    """bench.py's bench_diff on the differentiable megakernel: 3 SGD steps
+    """bench.py's bench_diff: on the differentiable megakernel, 3 SGD steps
     of min(spp, 32) samples (object colors, or texels on scenes with
-    staged textures; per-triangle colors with `tri`) after a warm-up.
-    Returns (samples, seconds), or None where bench.py would take its
-    wavefront autograd (BENCH_DIFF_BACKEND=wavefront, or a scene the
-    megakernel steps do not train)."""
+    staged textures; per-triangle colors with `tri`) after a warm-up;
+    where bench.py takes its wavefront autograd (BENCH_DIFF_BACKEND=
+    wavefront, or a scene the megakernel steps do not train),
+    bench_diff_wavefront. Returns (samples, seconds)."""
     from .diff import (make_megakernel_step, make_megakernel_step_tex,
                        make_megakernel_step_tri)
     from .scene.pack import texel_params
@@ -167,7 +203,7 @@ def bench_diff(cfg, sc, arrays, meta, spp, dev, tri=False):
     untextured = not meta.textured_types and not meta.has_normal_maps
     if (os.environ.get("BENCH_DIFF_BACKEND", "auto") == "wavefront"
             or not mk.supports_scene(meta) or not (untextured or tex)):
-        return None
+        return bench_diff_wavefront(cfg, sc, arrays, meta, spp, dev)
     W, H = cfg.width, cfg.height
     step_spp = max(1, min(spp, 32))
     if tri:
@@ -217,17 +253,15 @@ def bench_k5(width, height, scene, dev):
 
 def _rate_record(scene, fn, spp, width, height, dev, **cfg_kw):
     """One extra record: {"Msamples_per_sec", and vs_baseline for the
-    forward of a baseline scene}, {"skipped": ...} or {"error": ...}."""
+    forward of a baseline scene} or {"error": ...}."""
     try:
         cfg = RenderConfig(width=width, height=height, samples=2048,
                            samples_per_pass=8, **cfg_kw)
         sc = get_scene(scene, cfg)
         arrays, meta = sc.pack(device=dev)
         res = fn(cfg, sc, arrays, meta, spp, dev)
-        if res is None:
-            return {"skipped": DIFF_WAVEFRONT}
         msps = res[0] / res[1] / 1e6
-        rec = {"Msamples_per_sec": round(msps, 3)}
+        rec = {"Msamples_per_sec": msps}
         if scene in SCENE_BASELINES and fn is bench_megakernel:
             rec["vs_baseline"] = round(msps / SCENE_BASELINES[scene], 4)
             if scene in STAND_INS:
@@ -360,12 +394,8 @@ def main() -> int:
         rec["error"] = f"{type(e).__name__}: {e}"[:200]
         print(json.dumps(rec))
         return 1
-    if res is None:
-        rec["skipped"] = DIFF_WAVEFRONT
-        print(json.dumps(rec))
-        return 0
     msps = res[0] / res[1] / 1e6
-    rec["value"] = round(msps, 3)
+    rec["value"] = msps
     rec["vs_baseline"] = round(
         msps / SCENE_BASELINES.get(scene, BASELINE_MSPS), 4)
     if scene in STAND_INS:

@@ -15,8 +15,6 @@ class RenderConfig:
 
     Mirrors the reference CLI flags --width --height --samples --aperture
     --focal-length (cmd/pt/main.go:48-56) plus the JAX package's knobs.
-    Fields that select parts this package has not ported yet
-    (trainable_textures) are kept so configs stay interchangeable.
     """
 
     width: int = 640
@@ -50,8 +48,9 @@ class RenderConfig:
     # "pallas" runs the megakernel; "wavefront" the wavefront integrator;
     # "auto" the megakernel unless dtype is float64 or debug_ray is set.
     backend: str = "auto"
-    # Texture sampling from the float atlases in the wavefront (the JAX
-    # package's differentiable path; its autograd is not ported yet).
+    # Texture sampling from the float atlases in the wavefront, so that
+    # texel gradients flow (the differentiable path, diff.render_image_diff,
+    # sets it; the rgb8 pool is not differentiable).
     trainable_textures: bool = False
     # Next-event estimation in the megakernel: one shadow ray per light at
     # each bounce that hits a surface neither refracting nor a light (the

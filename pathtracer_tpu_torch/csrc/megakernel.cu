@@ -164,8 +164,10 @@
 // intersect_batch :2916): the nearest hit over the whole scene for a flat
 // batch of rays, one thread a ray, with no shading. It writes t (at most
 // t_max), the winner (0 on a miss), the winner's object-space ray (the
-// world ray on a miss), whether a triangle won, and that triangle's smooth
-// normal and color. The TPU's (8, 512) tiling and padding rays are not
+// world ray on a miss), whether a triangle won, that triangle's smooth
+// normal and color, and its slot (-1 unless a triangle won: the wavefront's
+// autograd gathers the triangle's color by it, so that the color carries a
+// gradient). The TPU's (8, 512) tiling and padding rays are not
 // carried over. Its bound: 84 bytes a ray in and out against one
 // transform and test an object (and the walk's nodes and slots), so bytes
 // on primitive scenes and operations on meshes.
@@ -2131,11 +2133,14 @@ struct Rays {
 };
 
 // One thread a ray: nearest_hit, then the outputs of
-// _make_intersect_kernel (pallas_kernel.py:2792-2806). Under a packet walk
-// every thread of the block calls nearest_hit, one past the last ray
-// inactive.
+// _make_intersect_kernel (pallas_kernel.py:2792-2806) and the winning
+// triangle's slot, i32 [n] (-1 unless a triangle won; an argument of its
+// own, so that struct Rays, which the leaf microbenchmark shares, stays
+// as it is). Under a packet walk every thread of the block calls
+// nearest_hit, one past the last ray inactive.
 template <bool kMesh, int kWalk = WALK_THREAD, int kLeaf = LEAF_SIMT>
-__global__ void __launch_bounds__(kThreads) intersect(Params p, Rays r) {
+__global__ void __launch_bounds__(kThreads) intersect(Params p, Rays r,
+                                                      int* slot) {
   constexpr bool kPacket = kWalk != WALK_THREAD;
   extern __shared__ __align__(16) float smem[];
   for (int i = threadIdx.x; i < p.n_obj * kObjCols; i += blockDim.x)
@@ -2176,19 +2181,22 @@ __global__ void __launch_bounds__(kThreads) intersect(Params p, Rays r) {
     o[(11 + k) * n] = col[k];
   }
   r.idx[i] = miss ? 0 : h.w;
+  slot[i] = on_tri ? h.tri : -1;
 }
 
 // The intersect-only kernel on a walk of launch_walk.
 struct IntersectLaunch {
   const Params& p;
   const Rays& r;
+  int* slot;
   size_t smem;
   cudaStream_t stream;
   template <int kWalk, int kLeaf>
   int run() const {
     const int blocks = (r.n + kThreads - 1) / kThreads;
     if (blocks > 0)
-      intersect<true, kWalk, kLeaf><<<blocks, kThreads, smem, stream>>>(p, r);
+      intersect<true, kWalk, kLeaf><<<blocks, kThreads, smem, stream>>>(
+          p, r, slot);
     return (int)cudaGetLastError();
   }
 };
@@ -2594,13 +2602,14 @@ extern "C" int pt_megakernel_nee_launch(
 }
 
 // Launch the intersect-only kernel over n rays (ox..dz, f32 [n] each, on
-// the device): out f32 [14, n] and idx i32 [n] as struct Rays says. obj,
-// the mesh tables, obj_types, group_root and group_end as for
-// pt_megakernel_launch. Returns as pt_megakernel_launch does.
+// the device): out f32 [14, n] and idx i32 [n] as struct Rays says, slot
+// i32 [n] as intersect says. obj, the mesh tables, obj_types, group_root
+// and group_end as for pt_megakernel_launch. Returns as
+// pt_megakernel_launch does.
 extern "C" int pt_intersect_launch(
     const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, float* out, int* idx, int n,
-    const float* obj, const int* obj_types, const float* nodes,
+    const float* dy, const float* dz, float* out, int* idx, int* slot,
+    int n, const float* obj, const int* obj_types, const float* nodes,
     const float* tris, const float* shade, const int* group_root,
     const int* group_end, int n_obj, int leaf_size, int oct_nodes,
     float eps, float t_max,
@@ -2628,9 +2637,11 @@ extern "C" int pt_intersect_launch(
   const int blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0) {
     if (mesh)
-      intersect<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p, r);
+      intersect<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p, r,
+                                                                      slot);
     else
-      intersect<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p, r);
+      intersect<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+          p, r, slot);
   }
   return (int)cudaGetLastError();
 }
@@ -2835,8 +2846,8 @@ extern "C" int pt_megakernel_packet_launch(
 // (null unless leaf is LEAF_MMA) and the walk and leaf codes.
 extern "C" int pt_intersect_packet_launch(
     const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, float* out, int* idx, int n,
-    const float* obj, const int* obj_types, const float* nodes,
+    const float* dy, const float* dz, float* out, int* idx, int* slot,
+    int n, const float* obj, const int* obj_types, const float* nodes,
     const float* tris, const float* shade, const int* group_root,
     const int* group_end, int n_obj, int leaf_size, int oct_nodes,
     float eps, float t_max,
@@ -2858,8 +2869,9 @@ extern "C" int pt_intersect_packet_launch(
     return (int)cudaErrorInvalidValue;
   const Rays r{ox, oy, oz, dx, dy, dz, out, idx, n};
   return launch_walk(walk, leaf,
-                     IntersectLaunch{p, r, sizeof(float) * (size_t)(n_obj *
-                                                                kObjCols),
+                     IntersectLaunch{p, r, slot,
+                                     sizeof(float) * (size_t)(n_obj *
+                                                              kObjCols),
                                      (cudaStream_t)stream});
 }
 

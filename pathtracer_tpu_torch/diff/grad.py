@@ -1,14 +1,24 @@
-"""Training steps through the differentiable megakernel.
+"""Differentiable rendering: gradients of an image loss with respect to
+material parameters, by two estimators.
 
-Counterpart of the megakernel half of pathtracer_tpu.diff.grad: the same
-step factories, tile (8, 512), `default_order(meta)` layout, masked MSE and
-SGD update. They run eagerly on the scene's device: the loss and its
-gradient through the autograd Functions of render/grad.py (forward = the
-megakernel, backward = one gradient-kernel launch), the update under
-torch.no_grad().
+Counterpart of pathtracer_tpu.diff.grad, on the scene's device, eagerly:
 
-Not ported yet: the sharded steps (ROADMAP queue 1, item 13) and the
-wavefront `render_image_diff`/`train_step` (item 12(c)).
+- the wavefront autograd path (`extract_params`, `apply_params`,
+  `render_image_diff`, `image_loss`, `train_step`): the wavefront
+  integrator's fixed-trip bounce loop (render/integrator.py) differentiated
+  by torch autograd, every SceneParams field at once (object colors,
+  emission, triangle colors and the three float texture atlases, which
+  also carry the normal maps). On the card every nearest hit comes from
+  the intersect kernel, K5 (integrator.intersect_route), with the winner
+  re-attached where the rays carry a gradient;
+- the differentiable megakernel's step factories: the same tile (8, 512),
+  `default_order(meta)` layout, masked MSE and SGD update as the JAX
+  package's, the loss and its gradient through the autograd Functions of
+  render/grad.py (forward = the megakernel, backward = one gradient-kernel
+  launch).
+
+Each update runs under torch.no_grad(). Not ported yet: the sharded steps
+(ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -18,20 +28,32 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..config import RenderConfig
+from ..render import integrator
 from ..render import megakernel as mk
+from ..render.camera import CameraArrays
 from ..render.grad import (make_diff_render, make_diff_render_tex,
                            make_diff_render_tri)
-from ..scene.pack import atlas_to_texels, texel_params
+from ..render.vec3 import Vec3
+from ..scene.pack import SceneArrays, SceneMeta, atlas_to_texels, texel_params
+
+_ATLASES = ("tex_planar", "tex_sphere", "tex_cube")
 
 
 class SceneParams(NamedTuple):
-    """The trainable subset of SceneArrays that this package differentiates.
-    The JAX package trains its staged texture atlas; this one trains an f32
-    copy of the texel pool (scene.pack.texel_params), `tex`."""
+    """The trainable subset of SceneArrays. The wavefront path trains the
+    JAX package's six fields (color, emission, tri_color and the float
+    atlases tex_planar, tex_sphere, tex_cube, [3, n, H, W] each); the
+    megakernel's texel steps train `tex`, an f32 copy of the texel pool
+    (scene.pack.texel_params), where the JAX package trains its staged
+    atlas. A field that is None does not train."""
     color: torch.Tensor      # [No, 3]
     emission: torch.Tensor   # [No, 3]
     tri_color: torch.Tensor  # [Nt, 3]
     tex: torch.Tensor = None  # [T, 3]
+    tex_planar: torch.Tensor = None
+    tex_sphere: torch.Tensor = None
+    tex_cube: torch.Tensor = None
 
 
 def from_jax_params(params, device, meta=None) -> SceneParams:
@@ -41,8 +63,10 @@ def from_jax_params(params, device, meta=None) -> SceneParams:
     `params` holds numpy arrays `color`, `emission` and `tri_color` (the
     JAX SceneArrays or SceneParams with each field converted by the
     caller, or a mapping of those names); returns float32 tensors on
-    `device`. When it also holds the texel pool (`tex_pool_u32`, `tex_base`,
-    `tex_w`, `tex_h`: the JAX SceneArrays), `tex` is the decoded pool, and
+    `device`. The float atlases `tex_planar`, `tex_sphere` and `tex_cube`
+    come across where `params` holds them, else they are None. When it
+    also holds the texel pool (`tex_pool_u32`, `tex_base`, `tex_w`,
+    `tex_h`: the JAX SceneArrays), `tex` is the decoded pool, and
     with the scene's `meta` and its staged atlas (`tex_staged`) each texel
     of a texture staged at full size takes the atlas's value
     (scene.pack.atlas_to_texels): the carried-over values, not the bytes
@@ -66,7 +90,95 @@ def from_jax_params(params, device, meta=None) -> SceneParams:
         tex = texel_params(pool)
         if meta is not None and has("tex_staged"):
             tex = atlas_to_texels(get("tex_staged"), pool, meta, tex)
-    return SceneParams(*out, tex)
+    atlases = {k: torch.from_numpy(np.array(get(k), dtype=np.float32)).to(
+        device) for k in _ATLASES if has(k)}
+    return SceneParams(*out, tex, **atlases)
+
+
+# --- the wavefront autograd path ------------------------------------------
+
+def extract_params(scn: SceneArrays) -> SceneParams:
+    """The wavefront path's trainable fields of `scn` (tex None)."""
+    return SceneParams(color=scn.color, emission=scn.emission,
+                       tri_color=scn.tri_color,
+                       **{k: getattr(scn, k) for k in _ATLASES})
+
+
+def apply_params(scn: SceneArrays, p: SceneParams) -> SceneArrays:
+    """`scn` with the wavefront path's fields of `p` that are not None."""
+    return scn._replace(**{k: getattr(p, k) for k in (
+        "color", "emission", "tri_color", *_ATLASES)
+        if getattr(p, k) is not None})
+
+
+def render_image_diff(params: SceneParams, scn: SceneArrays,
+                      meta: SceneMeta, cfg: RenderConfig, cam: CameraArrays,
+                      px: torch.Tensor, py: torch.Tensor, key: torch.Tensor,
+                      n_samples: int,
+                      route: integrator.IntersectRoute = None) -> Vec3:
+    """Differentiable estimate of P pixels (px, py: int32 [P]) at n_samples
+    spp under the threefry key `key` -> Vec3 of [P]. As the JAX package's:
+    the fixed-trip bounce loop (early_exit False) and the float atlases
+    (trainable_textures), through integrator.render_pass. `route` defaults
+    to integrator.intersect_route's (build it once to reuse its tables):
+    on a CUDA device in f32 the intersect kernel answers every nearest
+    hit, and a scene it does not take raises rather than fall back to the
+    torch walk (which a caller may still ask for: route=
+    integrator.IntersectRoute())."""
+    scn = apply_params(scn, params)
+    cfg = cfg.replace(early_exit=False, trainable_textures=True)
+    if route is None:
+        route = integrator.intersect_route(scn, meta, cfg)
+        if (route.fn is None and scn.color.device.type == "cuda"
+                and cfg.dtype == "float32"):
+            raise NotImplementedError(
+                "the wavefront autograd path on the card answers its "
+                "nearest hits with the intersect kernel, which takes scenes "
+                "of planes, spheres, cylinders, boxes and groups only "
+                "(ROADMAP item 12(c))")
+    acc = integrator.render_pass(scn, meta, cfg, cam, px, py, 0, n_samples,
+                                 key, route)
+    return acc * (1.0 / float(n_samples))
+
+
+def image_loss(params, scn, meta, cfg, cam, px, py, key, n_samples,
+               target: Vec3, route=None) -> torch.Tensor:
+    """Mean over pixels and channels of the squared difference between
+    render_image_diff and `target` (Vec3 of [P])."""
+    img = render_image_diff(params, scn, meta, cfg, cam, px, py, key,
+                            n_samples, route)
+    d = img - target
+    return torch.mean(d.x * d.x + d.y * d.y + d.z * d.z) / 3.0
+
+
+def loss_and_grads(params: SceneParams, *args, **kw):
+    """(loss, grads): image_loss(params, *args, **kw) and its gradient with
+    respect to every field of `params` that is not None (None where the
+    field is None)."""
+    names = [k for k in SceneParams._fields if getattr(params, k) is not None]
+    with torch.enable_grad():
+        leaves = {k: getattr(params, k).detach().requires_grad_(True)
+                  for k in names}
+        loss = image_loss(params._replace(**leaves), *args, **kw)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in names],
+                                    allow_unused=True)
+    # a field the render never reads (tri_color without a mesh) gets zeros,
+    # as jax.grad gives them
+    got = {k: torch.zeros_like(leaves[k]) if g is None else g
+           for k, g in zip(names, grads)}
+    return loss.detach(), SceneParams(*(got.get(k)
+                                        for k in SceneParams._fields))
+
+
+def train_step(params, scn, meta, cfg, cam, px, py, key, n_samples,
+               target: Vec3, lr=0.05, route=None):
+    """Single-device SGD step; returns (new_params, loss)."""
+    loss, grads = loss_and_grads(params, scn, meta, cfg, cam, px, py, key,
+                                 n_samples, target, route=route)
+    with torch.no_grad():
+        new = {k: getattr(params, k) - lr * getattr(grads, k)
+               for k in SceneParams._fields if getattr(params, k) is not None}
+    return params._replace(**new), loss
 
 
 def _make_target_of(pid: np.ndarray, tile_shape, device):

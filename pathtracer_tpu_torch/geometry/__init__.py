@@ -1,4 +1,4 @@
-"""Pure math core: 4-tuples, 4x4 matrices and transform builders.
+"""Pure math core: 4-tuples, 4x4 matrices, transform builders and rays.
 
 numpy float64 host code, copied from pathtracer_tpu.geometry so that this
 package never imports the JAX package. Matrix inverses are computed once
@@ -42,6 +42,7 @@ from .transforms import (
     shear,
     view_transform,
 )
+from .ray import Ray, ray_position, transform_ray
 
 __all__ = [
     "point", "vector", "color", "is_point", "is_vector",
@@ -50,5 +51,5 @@ __all__ = [
     "identity", "multiply", "multiply_tuple", "transpose",
     "determinant", "submatrix", "minor", "cofactor", "inverse",
     "translate", "scale", "rotate_x", "rotate_y", "rotate_z", "shear",
-    "view_transform",
+    "view_transform", "Ray", "ray_position", "transform_ray",
 ]

@@ -18,16 +18,23 @@ The random stream is the JAX package's: threefry keys folded per pass,
 bounce and light (render/threefry.py), uniforms drawn in f32 in both
 precisions, so the two packages trace the same paths.
 
-The nearest hit (`IntersectRoute`): on a CUDA device, in f32, with early
-exit, every bounce and every NEE shadow ray goes through the
-intersect-only kernel, megakernel.intersect_batch (csrc/megakernel.cu
-`intersect`, K5), with its tables built once per render. Everywhere else
-(f64, the CPU, the fixed-trip loop) they take the torch walk,
-render/intersect.py, as the JAX package falls back to its XLA walk off
-its chip (its _use_pallas_intersect). Unlike the JAX package, which sends
-only mesh scenes to its kernel, the route takes primitive scenes too.
-K5 returns the triangle's normal and color with tri_slot -1; the walk
-returns slot and barycentrics, and bounce_step shades both.
+The nearest hit (`IntersectRoute`): on a CUDA device, in f32, every
+bounce and every NEE shadow ray goes through the intersect-only kernel,
+megakernel.intersect_batch (csrc/megakernel.cu `intersect`, K5), with its
+tables built once per render, in the early-exit loop and in the
+fixed-trip loop of the differentiable path alike. Everywhere else (f64,
+the CPU) they take the torch walk, render/intersect.py, as the JAX package
+falls back to its XLA walk off its chip (its _use_pallas_intersect).
+Unlike the JAX package, which sends only mesh scenes to its kernel and
+keeps it off its autograd path ("the kernel has no VJP"), the route takes
+primitive scenes and autograd too: a nearest hit is a discrete choice,
+and the pathwise gradient of colors, emission, triangle colors and texels
+runs through the winner's attributes, gathered here by the winner's
+object and triangle slot. Where the rays themselves carry a gradient (a
+normal map sampled from a trainable atlas bends the next direction), the
+winner's t, object-space ray and barycentrics are recomputed by the walk's
+own operations (intersect.reattach_hit), so the gradient is the walk's:
+the derivative of a min is that of its argmin's branch.
 
 Texels: every texture but a trainable one is fetched from the rgb8 pool
 (uv.sample_texture_pool, one quad row per fetch under PT_TEX_FETCH=quad),
@@ -49,7 +56,7 @@ from ..scene.shapes import BOX, CYLINDER, PLANE, SPHERE
 from . import megakernel as mk
 from . import threefry
 from .camera import Camera, CameraArrays, rays_for_pixels
-from .intersect import Hit, intersect_scene
+from .intersect import Hit, intersect_scene, reattach_hit
 from .sampling import (random_point_on_sphere, random_vector_in_hemisphere,
                        refracted_direction, schlick)
 from .uv import cube_uv, sample_texture, sample_texture_pool, spherical_map
@@ -66,11 +73,10 @@ class IntersectRoute(NamedTuple):
 
 
 def kernel_route_applies(meta: SceneMeta, cfg: RenderConfig, device) -> bool:
-    """Whether a render takes K5: a CUDA device, f32, early exit and a
-    scene intersect_batch supports."""
+    """Whether a render takes K5: a CUDA device, f32 and a scene
+    intersect_batch supports (the fixed-trip loop too)."""
     return (torch.device(device).type == "cuda"
-            and cfg.dtype == "float32" and cfg.early_exit
-            and mk.supports_intersect(meta))
+            and cfg.dtype == "float32" and mk.supports_intersect(meta))
 
 
 def intersect_route(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
@@ -90,19 +96,46 @@ def intersect_route(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
     return IntersectRoute(fn, mk.intersect_tables(scn, meta, dev))
 
 
+def _needs_grad(*vs: Vec3) -> bool:
+    return any(c.requires_grad for v in vs for c in v)
+
+
 def _route_hit(route: IntersectRoute, scn, meta, cfg, origin: Vec3,
-               direction: Vec3):
-    """route.fn on contiguous f32 rays: (t, obj_idx, local_origin,
-    local_dir, is_tri, tri_normal, tri_color) in the rays' dtype."""
+               direction: Vec3) -> Tuple[Hit, Vec3]:
+    """route.fn on contiguous f32 rays (detached): (the Hit, the winning
+    triangle's smooth normal), in the rays' dtype. Where origin or
+    direction require a gradient, the winner is re-attached
+    (intersect.reattach_hit) and the smooth normal is the walk's, from the
+    re-attached barycentrics; else both are the kernel's."""
     dt = origin.x.dtype
-    o = tuple(a.to(torch.float32).contiguous() for a in origin)
-    d = tuple(a.to(torch.float32).contiguous() for a in direction)
-    t, oi, lo, ld, is_tri, tn, tc = route.fn(scn, meta, cfg, o, d,
-                                             tables=route.tables)
+    o = tuple(a.detach().to(torch.float32).contiguous() for a in origin)
+    d = tuple(a.detach().to(torch.float32).contiguous() for a in direction)
+    t, oi, lo, ld, is_tri, tn, _, slot = route.fn(scn, meta, cfg, o, d,
+                                                  tables=route.tables)
 
     def v(a):
         return Vec3(*(c.to(dt) for c in a))
-    return t.to(dt), oi, v(lo), v(ld), is_tri, v(tn), v(tc)
+    t = t.to(dt)
+    if not _needs_grad(origin, direction):
+        zero = torch.zeros_like(t)
+        return Hit(t=t, obj_idx=oi, local_origin=v(lo), local_dir=v(ld),
+                   is_tri=is_tri, tri_slot=slot, tri_u=zero,
+                   tri_v=zero), v(tn)
+    hit = reattach_hit(scn, meta, origin, direction, oi, slot, t,
+                       cfg.epsilon, cfg.t_max)
+    return hit, _smooth_normal(scn, meta, hit)
+
+
+def _smooth_normal(scn: SceneArrays, meta: SceneMeta, hit: Hit) -> Vec3:
+    """The winning triangle's smooth normal n2*u + n3*v + n1*(1-u-v)
+    (tracer.cl:669), gathered by its slot (0 where no mesh)."""
+    if not meta.has_groups:
+        return Vec3.zeros(hit.t.shape, hit.t.dtype, hit.t.device)
+    slot = torch.clamp(hit.tri_slot, 0, scn.tri_p1.shape[0] - 1).long()
+    w1 = 1.0 - hit.tri_u - hit.tri_v
+    return (_gather_vec(scn.tri_n2, slot) * hit.tri_u
+            + _gather_vec(scn.tri_n3, slot) * hit.tri_v
+            + _gather_vec(scn.tri_n1, slot) * w1)
 
 
 def _tex_sampler(scn: SceneArrays, kind: str):
@@ -123,8 +156,12 @@ class PathState(NamedTuple):
 
 
 def _gather_vec(table: torch.Tensor, idx: torch.Tensor) -> Vec3:
-    """Column gathers from a small [N, 3] table -> Vec3 of [R]."""
-    return Vec3(table[idx, 0], table[idx, 1], table[idx, 2])
+    """Row gathers from a small [N, 3] table -> Vec3 of [R], by
+    index_select, whose backward adds with index_add_ (advanced indexing's
+    sorts the indices and adds each run of equal ones in turn: a million
+    rays on a few rows serialize)."""
+    rows = torch.index_select(table, 0, idx.long())
+    return Vec3(rows[:, 0], rows[:, 1], rows[:, 2])
 
 
 class ObjAttrs(NamedTuple):
@@ -164,58 +201,63 @@ def _quad_pool(scn: SceneArrays):
 
 
 def _fetch_object_attrs(scn: SceneArrays, oi: torch.Tensor) -> ObjAttrs:
-    """Every per-object attribute of each ray's object, by one gather of
-    the columns of a [C, No] attribute table (the JAX package contracts a
-    one-hot matrix with it on the TPU's matrix unit, at full precision:
-    the same values)."""
+    """Every per-object attribute of each ray's object, by two gathers of
+    the columns of [C, No] attribute tables (the JAX package contracts a
+    one-hot matrix with one table on the TPU's matrix unit, at full
+    precision: the same values): the trainable color and emission apart
+    (an index_select, whose backward adds with index_add_; _gather_vec),
+    so that nothing else gathered carries the autograd graph of a
+    differentiable render (integrator._route_hit re-attaches the winner
+    only where the rays really depend on a parameter)."""
     dt = scn.color.dtype
 
     def f(a):
         return a.to(dt)
+    oi = oi.long()
+    trained = torch.index_select(
+        torch.cat([scn.color.T, scn.emission.T], dim=0), 1, oi)
     table = torch.cat([
-        scn.color.T,                            # 0-2
-        scn.emission.T,                         # 3-5
-        scn.refractive_index[None, :],          # 6
-        scn.reflectivity[None, :],              # 7
-        scn.min_y[None, :],                     # 8
-        scn.max_y[None, :],                     # 9
-        scn.inv_t_affine.T,                     # 10-21
-        f(scn.obj_type)[None, :],               # 22
-        f(scn.is_textured)[None, :],            # 23
-        f(scn.texture_index)[None, :],          # 24
-        scn.texture_scale.T,                    # 25-26
-        f(scn.is_textured_nm)[None, :],         # 27
-        f(scn.texture_index_nm)[None, :],       # 28
-        scn.texture_scale_nm.T,                 # 29-30
-        f(scn.tex_base)[None, :],               # 31
-        f(scn.tex_w)[None, :],                  # 32
-        f(scn.tex_h)[None, :],                  # 33
-        f(scn.tex_nm_base)[None, :],            # 34
-        f(scn.tex_nm_w)[None, :],               # 35
-        f(scn.tex_nm_h)[None, :],               # 36
+        scn.refractive_index[None, :],          # 0
+        scn.reflectivity[None, :],              # 1
+        scn.min_y[None, :],                     # 2
+        scn.max_y[None, :],                     # 3
+        scn.inv_t_affine.T,                     # 4-15
+        f(scn.obj_type)[None, :],               # 16
+        f(scn.is_textured)[None, :],            # 17
+        f(scn.texture_index)[None, :],          # 18
+        scn.texture_scale.T,                    # 19-20
+        f(scn.is_textured_nm)[None, :],         # 21
+        f(scn.texture_index_nm)[None, :],       # 22
+        scn.texture_scale_nm.T,                 # 23-24
+        f(scn.tex_base)[None, :],               # 25
+        f(scn.tex_w)[None, :],                  # 26
+        f(scn.tex_h)[None, :],                  # 27
+        f(scn.tex_nm_base)[None, :],            # 28
+        f(scn.tex_nm_w)[None, :],               # 29
+        f(scn.tex_nm_h)[None, :],               # 30
     ], dim=0)
-    attrs = table[:, oi.long()]                  # [C, R]
+    attrs = table[:, oi]                         # [C, R]
     return ObjAttrs(
-        color=Vec3(attrs[0], attrs[1], attrs[2]),
-        emission=Vec3(attrs[3], attrs[4], attrs[5]),
-        refractive_index=attrs[6],
-        reflectivity=attrs[7],
-        min_y=attrs[8],
-        max_y=attrs[9],
-        inv_t=tuple(attrs[10 + k] for k in range(12)),
-        obj_type=attrs[22],
-        is_textured=attrs[23],
-        texture_index=attrs[24].to(torch.int32),
-        texture_scale=(attrs[25], attrs[26]),
-        is_textured_nm=attrs[27],
-        texture_index_nm=attrs[28].to(torch.int32),
-        texture_scale_nm=(attrs[29], attrs[30]),
-        tex_base=attrs[31],
-        tex_w=attrs[32],
-        tex_h=attrs[33],
-        tex_nm_base=attrs[34],
-        tex_nm_w=attrs[35],
-        tex_nm_h=attrs[36],
+        color=Vec3(trained[0], trained[1], trained[2]),
+        emission=Vec3(trained[3], trained[4], trained[5]),
+        refractive_index=attrs[0],
+        reflectivity=attrs[1],
+        min_y=attrs[2],
+        max_y=attrs[3],
+        inv_t=tuple(attrs[4 + k] for k in range(12)),
+        obj_type=attrs[16],
+        is_textured=attrs[17],
+        texture_index=attrs[18].to(torch.int32),
+        texture_scale=(attrs[19], attrs[20]),
+        is_textured_nm=attrs[21],
+        texture_index_nm=attrs[22].to(torch.int32),
+        texture_scale_nm=(attrs[23], attrs[24]),
+        tex_base=attrs[25],
+        tex_w=attrs[26],
+        tex_h=attrs[27],
+        tex_nm_base=attrs[28],
+        tex_nm_w=attrs[29],
+        tex_nm_h=attrs[30],
     )
 
 
@@ -367,11 +409,10 @@ def _next_event_estimation(scn: SceneArrays, meta: SceneMeta,
         ldn = sdir.dot(normal)
 
         if route.fn is not None:
-            sh_t, sh_idx, *_ = _route_hit(route, scn, meta, cfg, sorigin,
-                                          sdir)
+            hit, _ = _route_hit(route, scn, meta, cfg, sorigin, sdir)
         else:
             hit = intersect_scene(scn, meta, sorigin, sdir, eps, cfg.t_max)
-            sh_t, sh_idx = hit.t, hit.obj_idx
+        sh_t, sh_idx = hit.t, hit.obj_idx
         visible = (cond & (ldn > 0.0) & (sh_idx == l)
                    & (sh_t > eps) & (sh_t < cfg.t_max))
         # the reference's attenuation heuristic (tracer.cl:819)
@@ -393,32 +434,18 @@ def bounce_step(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
     dev = state.origin.x.device
 
     if route.fn is not None:
-        # the intersect kernel returns the winning triangle's normal and
-        # color itself (tri_slot -1)
-        t, oi, lo, ld, is_tri_b, tri_normal, tri_color = _route_hit(
-            route, scn, meta, cfg, state.origin, state.direction)
-        hit = Hit(t=t, obj_idx=oi, local_origin=lo, local_dir=ld,
-                  is_tri=is_tri_b,
-                  tri_slot=torch.full((R,), -1, dtype=torch.int32,
-                                      device=dev),
-                  tri_u=torch.zeros((R,), dtype=dt, device=dev),
-                  tri_v=torch.zeros((R,), dtype=dt, device=dev))
+        hit, tri_normal = _route_hit(route, scn, meta, cfg, state.origin,
+                                     state.direction)
     else:
         hit = intersect_scene(scn, meta, state.origin, state.direction,
                               eps, cfg.t_max)
-        # the triangle's smooth normal n2*u + n3*v + n1*(1-u-v)
-        # (tracer.cl:669) and color, gathered once by the winning slot
-        if meta.has_groups:
-            slot = torch.clamp(hit.tri_slot, 0,
-                               scn.tri_p1.shape[0] - 1).long()
-            w1 = 1.0 - hit.tri_u - hit.tri_v
-            tri_normal = (_gather_vec(scn.tri_n2, slot) * hit.tri_u
-                          + _gather_vec(scn.tri_n3, slot) * hit.tri_v
-                          + _gather_vec(scn.tri_n1, slot) * w1)
-            tri_color = _gather_vec(scn.tri_color, slot)
-        else:
-            tri_normal = Vec3.zeros((R,), dt, dev)
-            tri_color = Vec3.zeros((R,), dt, dev)
+        tri_normal = _smooth_normal(scn, meta, hit)
+    # the triangle's color, gathered by the winning slot (differentiable)
+    if meta.has_groups:
+        tri_color = _gather_vec(scn.tri_color, torch.clamp(
+            hit.tri_slot, 0, scn.tri_p1.shape[0] - 1).long())
+    else:
+        tri_color = Vec3.zeros((R,), dt, dev)
 
     hit_ok = hit.t < cfg.t_max
     at = _fetch_object_attrs(scn, hit.obj_idx)

@@ -124,6 +124,27 @@ def _box_t(o: Vec3, d: Vec3, eps):
 
 # --- BVH traversal ------------------------------------------------------------
 
+def _triangle_test(scn: SceneArrays, slot: torch.Tensor, o: Vec3, d: Vec3,
+                   eps):
+    """Moller-Trumbore (tracer.cl:640-674) of the object-space rays (o, d)
+    against triangle slot `slot` [R] (clamped into the pool, as the JAX
+    gathers clamp): (det_ok, u, v, t), unfiltered."""
+    si = torch.clamp(slot, 0, scn.tri_p1.shape[0] - 1).long()
+    p1 = Vec3(*(scn.tri_p1[si, c] for c in range(3)))
+    e1 = Vec3(*(scn.tri_e1[si, c] for c in range(3)))
+    e2 = Vec3(*(scn.tri_e2[si, c] for c in range(3)))
+    dc2 = d.cross(e2)
+    det = e1.dot(dc2)
+    det_ok = torch.abs(det) >= eps
+    f = 1.0 / torch.where(det_ok, det, torch.ones_like(det))
+    p1o = o - p1
+    u = f * p1o.dot(dc2)
+    oc1 = p1o.cross(e1)
+    v = f * d.dot(oc1)
+    t = f * e2.dot(oc1)
+    return det_ok, u, v, t
+
+
 class _TravState(NamedTuple):
     idx: torch.Tensor        # [R] current node
     best_t: torch.Tensor     # [R]
@@ -139,7 +160,6 @@ def traverse_bvh(scn: SceneArrays, o: Vec3, d: Vec3, root: int, end: int,
     a time with a running minimum. Replaces the reference's per-ray
     explicit stack (tracer.cl:624-718)."""
     n_nodes = scn.node_bb_min.shape[0]
-    n_slots = scn.tri_p1.shape[0]
     R = o.x.shape[0]
     dt = o.x.dtype
     dev = o.x.device
@@ -170,21 +190,7 @@ def traverse_bvh(scn: SceneArrays, o: Vec3, d: Vec3, root: int, end: int,
             slot = start + k
             # an inner node's slots are garbage and masked by do_tri; the
             # gathers clamp them as the JAX gathers do
-            si = torch.clamp(slot, 0, n_slots - 1).long()
-            p1 = Vec3(*(scn.tri_p1[si, c] for c in range(3)))
-            e1 = Vec3(*(scn.tri_e1[si, c] for c in range(3)))
-            e2 = Vec3(*(scn.tri_e2[si, c] for c in range(3)))
-
-            # Moller-Trumbore (tracer.cl:640-674)
-            dc2 = d.cross(e2)
-            det = e1.dot(dc2)
-            det_ok = torch.abs(det) >= eps
-            f = 1.0 / torch.where(det_ok, det, torch.ones_like(det))
-            p1o = o - p1
-            u = f * p1o.dot(dc2)
-            oc1 = p1o.cross(e1)
-            v = f * d.dot(oc1)
-            t = f * e2.dot(oc1)
+            det_ok, u, v, t = _triangle_test(scn, slot, o, d, eps)
             valid = (do_tri & det_ok
                      & (u >= 0.0) & (u <= 1.0)
                      & (v >= 0.0) & (u + v <= 1.0)
@@ -269,3 +275,70 @@ def intersect_scene(scn: SceneArrays, meta: SceneMeta, origin: Vec3,
         tri_u=tri_u,
         tri_v=tri_v,
     )
+
+
+# --- re-attaching a winner found elsewhere ------------------------------------
+
+def reattach_hit(scn: SceneArrays, meta: SceneMeta, origin: Vec3,
+                 direction: Vec3, obj_idx: torch.Tensor,
+                 tri_slot: torch.Tensor, t: torch.Tensor, eps: float,
+                 t_max: float) -> Hit:
+    """The Hit of intersect_scene for world rays whose winner is already
+    known (obj_idx, tri_slot: -1 off a triangle, and t: at least t_max on a
+    miss, as the intersect kernel returns them), recomputed by the walk's
+    own operations for that winner alone: its object-space ray, its test's
+    t and, on a triangle, the barycentrics. So where origin or direction
+    carry a gradient, t, the local ray and (u, v) carry the walk's: the
+    derivative of a nearest hit is that of its winner's branch. A miss
+    keeps `t` (detached: the walk's is the constant t_max) and the world
+    ray; a winner whose recomputed t is not finite keeps `t` (detached) at
+    its object-space ray. Counts its calls and rays in reattach_hit.calls
+    and .rays."""
+    R = origin.x.shape[0]
+    won = t < t_max
+    oi = obj_idx.long()
+    # per-ray 4x4 inverses as [4, 4, R]: m[i, j] is an [R] stream, so
+    # mat_apply_* run the walk's products and sums in the walk's order
+    inv = scn.inverse[oi].permute(1, 2, 0)
+    to = mat_apply_point(inv, origin)
+    td = mat_apply_vector(inv, direction)
+    code = scn.obj_type[oi]
+    inf = torch.full_like(to.x, _INF)
+    t_re = inf
+    is_tri = won & (tri_slot >= 0)
+    tri_u = torch.zeros_like(t_re)
+    tri_v = torch.zeros_like(t_re)
+    for c in sorted(set(meta.obj_types)):
+        if c == PLANE:
+            t_c = _plane_t(to, td, eps)
+        elif c == SPHERE:
+            t_c = _sphere_t(to, td, eps)
+        elif c == CYLINDER:
+            t_c = _cylinder_t(to, td, scn.min_y[oi], scn.max_y[oi], eps)
+        elif c == BOX:
+            t_c = _box_t(to, td, eps)
+        elif c == GROUP:
+            _, u, v, t_c = _triangle_test(scn, tri_slot, to, td, eps)
+            tri_u = torch.where(is_tri, u, tri_u)
+            tri_v = torch.where(is_tri, v, tri_v)
+            t_c = torch.where(is_tri, t_c, inf)
+        else:
+            continue
+        t_re = torch.where(code == c, t_c, t_re)
+    keep = won & torch.isfinite(t_re)
+    reattach_hit.calls += 1
+    reattach_hit.rays += R
+    return Hit(
+        t=torch.where(keep, torch.clamp(t_re, max=t_max), t.detach()),
+        obj_idx=obj_idx,
+        local_origin=Vec3.where(won, to, origin),
+        local_dir=Vec3.where(won, td, direction),
+        is_tri=is_tri,
+        tri_slot=tri_slot,
+        tri_u=tri_u,
+        tri_v=tri_v,
+    )
+
+
+reattach_hit.calls = 0
+reattach_hit.rays = 0

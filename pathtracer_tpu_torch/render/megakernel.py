@@ -2161,11 +2161,12 @@ SIGNATURES = {
         + [_I, _P, _P, _P, _I, _P],
         _I),
     # the intersect-only kernel, launched by intersect_batch: six ray
-    # arrays, the outputs, the ray count, the object and mesh tables, the
-    # type codes and group ranges, then n_obj, leaf size, octant node
-    # count, eps, t_max and the stream
+    # arrays, the outputs (the f32 rows, the winners, the triangle slots),
+    # the ray count, the object and mesh tables, the type codes and group
+    # ranges, then n_obj, leaf size, octant node count, eps, t_max and the
+    # stream
     "pt_intersect_launch": (
-        [_P] * 8 + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P], _I),
+        [_P] * 9 + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P], _I),
     # the packet walks (Kernels A and B): pt_megakernel_launch's arguments,
     # then the texel pool and texture table (null without textures), the
     # NEE flag, the light count and indices, the MXU fragments (null unless
@@ -2177,7 +2178,7 @@ SIGNATURES = {
     # the intersect kernel on the packet walks: pt_intersect_launch's
     # arguments, then the MXU fragments and the walk and leaf codes
     "pt_intersect_packet_launch": (
-        [_P] * 8 + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P, _P, _I, _I],
+        [_P] * 9 + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P, _P, _I, _I],
         _I),
     # the leaf microbenchmark (P3's counterpart), launched by
     # probes/leaf_bench.py: the rays, their outputs, the visit count, the
@@ -2616,7 +2617,7 @@ def intersect_batch_reference(scn: SceneArrays, meta: SceneMeta,
         for k in ("rays", "node_visits", "leaf_slots", "tri_hits"):
             counts.setdefault(k, 0)
         counts["rays"] += ox.numel()
-    t, w, loc, on_tri, _, nrm, col = _nearest_hit(
+    t, w, loc, on_tri, slot, nrm, col = _nearest_hit(
         obj, meta, *tables[1:], cfg.epsilon, cfg.t_max, ox, oy, oz, dx, dy,
         dz, torch.ones_like(ox, dtype=torch.bool), 0, counts, walk,
         walk_groups(ox.numel(), walk, dev))
@@ -2626,7 +2627,8 @@ def intersect_batch_reference(scn: SceneArrays, meta: SceneMeta,
     nrm = tuple(torch.where(on_tri, a, zero) for a in nrm)
     col = tuple(torch.where(on_tri, a, zero) for a in col)
     return (torch.clamp(t, max=cfg.t_max), w.to(torch.int32), tuple(loc[:3]),
-            tuple(loc[3:]), on_tri, nrm, col)
+            tuple(loc[3:]), on_tri, nrm, col,
+            torch.where(on_tri, slot, -1).to(torch.int32))
 
 
 def intersect_batch(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
@@ -2639,8 +2641,10 @@ def intersect_batch(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
     obj_idx, local_origin, local_dir, is_tri, tri_normal, tri_color): t
     f32 [R] (at most cfg.t_max), obj_idx i32 [R] (0 on a miss), the
     winner's object-space ray (the world ray on a miss), is_tri bool [R],
-    and the winning triangle's smooth normal and color (0 unless a
-    triangle won), each Vec3 a 3-tuple of [R] tensors. CUDA tensors launch
+    the winning triangle's smooth normal and color (0 unless a triangle
+    won), each Vec3 a 3-tuple of [R] tensors, and tri_slot i32 [R], the
+    winning triangle's slot of the mesh tables and of SceneArrays' tri_*
+    rows (-1 unless a triangle won). CUDA tensors launch
     csrc/megakernel.cu's intersect kernel on the current stream, one
     thread a ray, and count the launch in intersect_batch.launches (a mesh
     scene under the knobs of mesh_walk: the packet walks, also in
@@ -2665,6 +2669,7 @@ def intersect_batch(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
     lib = library()
     out = torch.empty((14, n), dtype=torch.float32, device=dev)
     idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    slot = torch.empty((n,), dtype=torch.int32, device=dev)
     types = (_I * n_obj)(*meta.obj_types)
     roots = (_I * n_obj)(*([-1] * n_obj))
     ends = (_I * n_obj)(*([-1] * n_obj))
@@ -2672,7 +2677,7 @@ def intersect_batch(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
         roots[g], ends[g] = r, e
     with torch.cuda.device(dev):
         args = (*(t.data_ptr() for t in rays), out.data_ptr(), idx.data_ptr(),
-                n, tables[0].data_ptr(), types, tables[1].data_ptr(),
+                slot.data_ptr(), n, tables[0].data_ptr(), types, tables[1].data_ptr(),
                 tables[2].data_ptr(), tables[3].data_ptr(), roots, ends,
                 n_obj, meta.leaf_size,
                 meta.n_nodes if meta.octant_orders else 0, cfg.epsilon,
@@ -2691,7 +2696,8 @@ def intersect_batch(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
     if walk.leaf == "mma":
         intersect_batch.mma_launches += 1
     return (out[0], idx, (out[1], out[2], out[3]), (out[4], out[5], out[6]),
-            out[7] > 0.5, (out[8], out[9], out[10]), (out[11], out[12], out[13]))
+            out[7] > 0.5, (out[8], out[9], out[10]), (out[11], out[12], out[13]),
+            slot)
 
 
 intersect_batch.launches = 0

@@ -84,6 +84,18 @@ def _pow5(x: torch.Tensor) -> torch.Tensor:
     return x * (x2 * x2)
 
 
+def _sqrt0(x: torch.Tensor) -> torch.Tensor:
+    """sqrt of x >= 0, the same values, with the derivative at 0 taken as 0
+    (not inf). Where the refraction terms below are not used (a ray that
+    reflects, or a surface of index 1 at a grazing angle, where 1 - sin2t
+    rounds to 0), autograd multiplies sqrt's infinite derivative by the
+    unused branch's zero cotangent: NaN, which then reaches the
+    parameters. The JAX package's sqrt has that fault (its texel gradients
+    on `textures` hold NaN; tests/test_torch_wavefront_grad.py)."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
 def schlick(eye_vec: Vec3, normal_vec: Vec3, n1, n2) -> torch.Tensor:
     """Schlick reflectance approximation (tracer.cl:485-505)."""
     n1 = _like(n1, eye_vec.x)
@@ -93,7 +105,7 @@ def schlick(eye_vec: Vec3, normal_vec: Vec3, n1, n2) -> torch.Tensor:
     n = n1 / n2
     sin2t = (n * n) * (1.0 - cos * cos)
     tir = (n1 > n2) & (sin2t > 1.0)
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2t, min=0.0))
+    cos_t = _sqrt0(torch.clamp(1.0 - sin2t, min=0.0))
     cos_eff = torch.where(n1 > n2, cos_t, cos)
 
     temp = (n1 - n2) / (n1 + n2)
@@ -110,7 +122,7 @@ def refracted_direction(eye_vec: Vec3, normal_vec: Vec3, n1, n2) -> Vec3:
     ratio = torch.broadcast_to(
         _like(n1, cos_i) / _like(n2, cos_i), cos_i.shape)
     sin2t = (ratio * ratio) * (1.0 - cos_i * cos_i)
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2t, min=0.0))
+    cos_t = _sqrt0(torch.clamp(1.0 - sin2t, min=0.0))
     k = ratio * cos_i - cos_t
     ok = sin2t <= 1.0
     zero = torch.zeros_like(cos_i)

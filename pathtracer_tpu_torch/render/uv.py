@@ -90,16 +90,22 @@ def _bilinear_coords(w, h, layer, n, u, v):
 def sample_texture(atlas: torch.Tensor, layer: torch.Tensor, u: torch.Tensor,
                    v: torch.Tensor) -> Vec3:
     """Bilinear sample from a channel-leading [3, n, H, W] float atlas;
-    layer/u/v [R]. The JAX package's differentiable path."""
+    layer/u/v [R]. The JAX package's differentiable path. Each tap is one
+    index_select of the [3, n*H*W] view (the same values as indexing the
+    four axes): its backward adds with index_add_, where advanced
+    indexing's sorts the indices and adds each run of equal ones in turn,
+    which serializes the many rays that fetch one texel."""
     _, n, h, w = atlas.shape
     x0i, x1i, y0i, y1i, tx, ty, li = _bilinear_coords(w, h, layer, n, u, v)
     li, x0i, x1i, y0i, y1i = (a.long() for a in (li, x0i, x1i, y0i, y1i))
+    flat = atlas.reshape(3, n * h * w)
+    row0 = (li * h + y0i) * w
+    row1 = (li * h + y1i) * w
+    taps = [torch.index_select(flat, 1, i) for i in (
+        row0 + x0i, row0 + x1i, row1 + x0i, row1 + x1i)]
 
     def chan(c):
-        c00 = atlas[c, li, y0i, x0i]
-        c01 = atlas[c, li, y0i, x1i]
-        c10 = atlas[c, li, y1i, x0i]
-        c11 = atlas[c, li, y1i, x1i]
+        c00, c01, c10, c11 = (t[c] for t in taps)
         top = c00 * (1.0 - tx) + c01 * tx
         bot = c10 * (1.0 - tx) + c11 * tx
         return top * (1.0 - ty) + bot * ty

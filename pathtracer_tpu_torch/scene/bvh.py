@@ -17,8 +17,12 @@ degenerate all-zero triangles that never pass the determinant test.
 This is the JAX package's NumPy builder. The JAX package prefers a native
 builder when it is compiled (native/scenecore.cpp); that builder is not
 bit-identical to this one on every mesh (ROADMAP queue 3), and this
-package always builds with NumPy. The reference-parity group ``divide``
-of the JAX module is not ported (ROADMAP queue 1, item 16).
+package always builds with NumPy.
+
+The reference-parity group ``divide`` (internal/app/shapes/bvh.go:9-119:
+a recursive median split of the longest axis into left, right and
+remaining subgroups) is here too, as the JAX module has it, for scenes and
+tests that call it; ``pack_scene`` does not.
 """
 from __future__ import annotations
 
@@ -28,7 +32,67 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from .shapes import Triangle
+from .bounds import BoundingBox, bounds_of, parent_space_bounds
+from .shapes import Group, Shape, Triangle
+
+
+# --- reference-parity group divide (bvh.go) --------------------------------
+
+def split_bounds(b: BoundingBox) -> Tuple[BoundingBox, BoundingBox]:
+    """Split a box perpendicular to its longest axis (bvh.go:9 SplitBounds)."""
+    d = b.max[:3] - b.min[:3]
+    axis = int(np.argmax(d))
+    mid = b.min[axis] + d[axis] / 2.0
+
+    left_max = b.max.copy()
+    left_max[axis] = mid
+    right_min = b.min.copy()
+    right_min[axis] = mid
+    return BoundingBox(b.min, left_max), BoundingBox(right_min, b.max)
+
+
+def partition_children(g: Group) -> Tuple[Group, Group]:
+    """Partition children into left/right/remain (bvh.go:51)."""
+    left, right = Group(), Group()
+    lb, rb = split_bounds(bounds_of(g))
+
+    remain: List[Shape] = []
+    for c in g.children:
+        cb = parent_space_bounds(c)
+        if lb.contains_box(cb):
+            left.add_child(c)
+        elif rb.contains_box(cb):
+            right.add_child(c)
+        else:
+            remain.append(c)
+    g.children = remain
+    g.bounds()
+    left.bounds()
+    right.bounds()
+    return left, right
+
+
+def make_sub_group(g: Group, shapes: List[Shape]) -> None:
+    """Wrap shapes in a new subgroup of g (bvh.go:81 MakeSubGroup)."""
+    sub = Group()
+    sub.material = g.material
+    for s in shapes:
+        sub.add_child(s)
+    g.add_child(sub)
+
+
+def divide(s: Shape, threshold: int) -> None:
+    """Recursive top-down BVH divide (bvh.go:92-119)."""
+    if not isinstance(s, Group):
+        return
+    if threshold <= len(s.children):
+        left, right = partition_children(s)
+        if left.children:
+            make_sub_group(s, left.children)
+        if right.children:
+            make_sub_group(s, right.children)
+    for c in s.children:
+        divide(c, threshold)
 
 @dataclasses.dataclass
 class FlatBVH:

@@ -1,9 +1,23 @@
-"""Inverse-rendering demo: recover per-triangle mesh colors (--tri) or
-texels (--tex) from a target image by gradient descent through the
-differentiable megakernel.
+"""Inverse-rendering demo: recover scene colors from a target image by
+gradient descent, through the wavefront autograd path (the default mode)
+or the differentiable megakernel (--tri, --tex).
 
-Counterpart of tools/train_demo.py's --tri and --tex modes (main_tri,
-main_tex): the parameters are perturbed, the target is rendered with the
+The default mode is tools/train_demo.py's: the `reference` scene's sphere
+colors perturbed by U(-0.5, 0.5) (numpy default_rng(3)) and clipped to
+[0.05, 1], a target rendered with the true colors under the key
+fold_in(PRNGKey(0), 12345), the same key and spp as every training
+estimate (common random numbers), torch.optim.Adam on the gradient of
+diff.image_loss (the wavefront integrator's autograd; on the card every
+nearest hit comes from the intersect kernel), each step projected back
+onto the sphere rows (every other parameter stays true) and into [0, 1].
+It prints the loss curve, the sphere-color MAD before and after and the
+fwd+bwd Msamples/s, and writes a PNG strip (target | perturbed |
+recovered, each rendered at 64 spp under keys of its own). --checkpoint
+DIR saves the training state (diff.checkpoint: the colors and Adam's
+state) after every step; --resume continues from its latest step.
+
+The --tri and --tex modes are tools/train_demo.py's main_tri and main_tex:
+the parameters are perturbed, the target is rendered with the
 true ones and the same seeds as every training estimate (common random
 numbers, so the Monte-Carlo noise cancels in the loss), and
 torch.optim.Adam recovers them, clipped to [0, 1] after each step. --tri
@@ -16,12 +30,13 @@ the loss curve, the MAD and the fwd+bwd Msamples/s, and writes a PNG strip
 (target | perturbed | recovered).
 
 Usage:
+    python -m pathtracer_tpu_torch.train_demo
+    python -m pathtracer_tpu_torch.train_demo --checkpoint ck --resume
     python -m pathtracer_tpu_torch.train_demo --tri --scene teapot
     python -m pathtracer_tpu_torch.train_demo --tex
 
 Runs on the CUDA card (--device cuda, the default), or on the CPU with the
-plain PyTorch versions at a tiny size (--device cpu). The default
-(wavefront) mode is not ported yet and exits with code 2.
+plain PyTorch versions at a tiny size (--device cpu).
 """
 from __future__ import annotations
 
@@ -40,14 +55,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--spp", type=int, default=8)
     ap.add_argument("--lr", type=float, default=0.02)
     ap.add_argument("--out", default=None,
-                    help="PNG strip (default out-train_demo_tri.png or "
-                         "out-train_demo_tex.png)")
+                    help="PNG strip (default out-train_demo.png, "
+                         "out-train_demo_tri.png or out-train_demo_tex.png)")
     ap.add_argument("--tri", action="store_true",
                     help="mesh mode: recover per-triangle colors")
     ap.add_argument("--tex", action="store_true",
                     help="texture mode: recover the staged textures' texels")
     ap.add_argument("--scene", default=None,
-                    help="default teapot (--tri), textures-train (--tex)")
+                    help="default teapot (--tri), textures-train (--tex); "
+                         "the default mode trains `reference`")
+    ap.add_argument("--checkpoint", metavar="DIR", default=None,
+                    help="default mode: save the training state under DIR "
+                         "after every step (diff.save_train_state)")
+    ap.add_argument("--resume", action="store_true",
+                    help="default mode: continue from the latest step under "
+                         "--checkpoint")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain versions)")
     return ap
@@ -55,27 +77,158 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if not (args.tri or args.tex):
-        print("error: the default (wavefront) mode is not ported yet: "
-              "ROADMAP queue 1, item 12(c) (wavefront autograd "
-              "path); use --tri or --tex", file=sys.stderr)
-        return 2
     if args.tri and args.tex:
         print("error: --tri and --tex are separate modes", file=sys.stderr)
         return 2
-    mode = "tex" if args.tex else "tri"
+    mode = "tex" if args.tex else "tri" if args.tri else None
+    if mode is None and args.scene not in (None, "reference"):
+        print("error: the default mode trains `reference`'s sphere colors",
+              file=sys.stderr)
+        return 2
+    if mode is not None and (args.checkpoint or args.resume):
+        print("error: --checkpoint and --resume are the default mode's",
+              file=sys.stderr)
+        return 2
+    if args.resume and not args.checkpoint:
+        print("error: --resume needs --checkpoint DIR", file=sys.stderr)
+        return 2
     if args.scene is None:
-        args.scene = "textures-train" if args.tex else "teapot"
+        args.scene = {"tex": "textures-train", "tri": "teapot",
+                      None: "reference"}[mode]
     if args.out is None:
-        args.out = f"out-train_demo_{mode}.png"
+        args.out = ("out-train_demo.png" if mode is None
+                    else f"out-train_demo_{mode}.png")
     import torch
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("error: no CUDA device (pass --device cpu for the plain "
               "versions at a small size)", file=sys.stderr)
         return 1
-    (main_tex if args.tex else main_tri)(args, torch.device(args.device))
+    {"tex": main_tex, "tri": main_tri, None: main_colors}[mode](
+        args, torch.device(args.device))
     return 0
+
+
+def main_colors(args, device):
+    """The default mode (tools/train_demo.py main): sphere colors of
+    `reference` recovered through diff.image_loss's gradient with Adam;
+    returns the sphere-color MAD before and after."""
+    import torch
+
+    from .config import RenderConfig
+    from .diff import (extract_params, loss_and_grads, render_image_diff,
+                       restore_train_state, save_train_state)
+    from .io.png import write_png
+    from .render import integrator, threefry
+    from .render.vec3 import Vec3
+    from .scene.shapes import SPHERE
+    from .scenes import get_scene
+
+    W, H = args.width, args.height
+    cfg = RenderConfig(width=W, height=H, samples=args.spp,
+                       samples_per_pass=args.spp)
+    sc = get_scene("reference", cfg)
+    arrays, meta = sc.pack(device=device)
+    cam = sc.camera.pack(torch.float32, device)
+    px, py = integrator.pixel_grid(W, 0, H, device)
+    route = integrator.intersect_route(
+        arrays, meta, cfg.replace(early_exit=False))
+
+    def render(params, key, spp):
+        acc = render_image_diff(params, arrays, meta, cfg, cam, px, py, key,
+                                spp, route)
+        return acc.to_array().detach().cpu().numpy().reshape(H, W, 3)
+
+    true_params = extract_params(arrays)
+    key = threefry.prng_key(0)
+    # common random numbers: the target takes the key and spp of every
+    # training estimate, so the Monte-Carlo noise cancels in the loss
+    train_key = threefry.fold_in(key, 12345)
+    with torch.no_grad():
+        target = render_image_diff(true_params, arrays, meta, cfg, cam, px,
+                                   py, train_key, args.spp, route)
+        target = Vec3(*(c.detach() for c in target))
+
+    # perturb the sphere colors: directly visible, so the problem is
+    # well identified
+    sphere = np.asarray([t == SPHERE for t in meta.obj_types]
+                        + [False] * (meta.max_objects - meta.n_objects))
+    rng = np.random.default_rng(3)
+    true_c = true_params.color.detach().cpu().numpy()
+    bad = true_c.copy()
+    bad[sphere] = np.clip(bad[sphere] + rng.uniform(
+        -0.5, 0.5, bad[sphere].shape), 0.05, 1.0)
+    mask = torch.from_numpy(sphere[:, None].astype(np.float32)).to(device)
+    color = torch.from_numpy(bad.astype(np.float32)).to(device)
+    color.requires_grad_(True)
+    opt = torch.optim.Adam([color], lr=args.lr)
+    start = 0
+    if args.resume:
+        start, restored, opt_state = restore_train_state(
+            args.checkpoint, true_params._replace(color=color.detach()),
+            opt.state_dict())
+        with torch.no_grad():
+            color.copy_(restored.color)
+        opt.load_state_dict(opt_state)
+        print(f"resumed from {args.checkpoint} at step {start}")
+
+    def step():
+        loss, grads = loss_and_grads(true_params._replace(color=color),
+                                     arrays, meta, cfg, cam, px, py,
+                                     train_key, args.spp, target,
+                                     route=route)
+        opt.zero_grad()
+        color.grad = grads.color
+        opt.step()
+        # projected descent: the sphere rows only, in [0, 1]
+        with torch.no_grad():
+            color.copy_(torch.clamp(color, 0.0, 1.0) * mask
+                        + true_params.color * (1.0 - mask))
+        return float(loss)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    losses = []
+    t0 = time.perf_counter()
+    timed_from = t0
+    for i in range(start, args.steps):
+        losses.append(step())
+        if i == start:                # the first step builds the kernels
+            sync()
+            timed_from = time.perf_counter()
+        if args.checkpoint:
+            save_train_state(args.checkpoint, i + 1,
+                             true_params._replace(color=color.detach()),
+                             opt.state_dict())
+        if i % 25 == 0 or i == args.steps - 1:
+            print(f"step {i:4d}  loss {losses[-1]:.6f}", flush=True)
+    sync()
+    n_timed = max(1, len(losses) - 1)
+    dt = time.perf_counter() - timed_from
+    rate = W * H * args.spp * n_timed / max(dt, 1e-9) / 1e6
+    err0 = float(np.abs(true_c[sphere] - bad[sphere]).mean())
+    err1 = float(np.abs(true_c[sphere]
+                        - color.detach().cpu().numpy()[sphere]).mean())
+    dev_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                else "cpu")
+    loss_txt = (f"loss {losses[0]:.6f} -> {losses[-1]:.6f}; " if losses
+                else "")
+    print(f"{args.steps - start} steps ({n_timed} timed, {dt:.3f}s) on "
+          f"{dev_name} ({rate:.2f} Msamples/s fwd+bwd); {loss_txt}"
+          f"color MAD {err0:.4f} -> {err1:.4f}")
+    with torch.no_grad():
+        strip = np.concatenate([
+            render(true_params, threefry.fold_in(key, 999), 64),
+            render(true_params._replace(color=torch.from_numpy(
+                bad.astype(np.float32)).to(device)),
+                threefry.fold_in(key, 998), 64),
+            render(true_params._replace(color=color.detach()),
+                   threefry.fold_in(key, 997), 64)], axis=1)
+    write_png(args.out, strip)
+    print(f"wrote {args.out} (target | perturbed | recovered)")
+    return err0, err1
 
 
 def main_tri(args, device):

@@ -49,12 +49,18 @@ def _jax_intersect(ja, jm, jc, rays):
     return [np.asarray(o).reshape(-1)[:R] for o in outs]
 
 
-def _compare(got, want, ties):
-    """Hold the port's intersect_batch result against the JAX outputs.
-    Returns the share of rays whose winners agree."""
-    t, idx, lo, ld, is_tri, nrm, col = (
+def _compare(got, want, ties, tri_color=None):
+    """Hold the port's intersect_batch result against the JAX outputs (the
+    JAX kernel returns no triangle slot: the slot is -1 off a triangle and,
+    on one, names a slot whose color, from `tri_color` [Ns, 3], is the
+    color returned). Returns the share of rays whose winners agree."""
+    t, idx, lo, ld, is_tri, nrm, col, slot = (
         a.numpy() if isinstance(a, torch.Tensor) else
         np.stack([b.numpy() for b in a]) for a in got)
+    assert slot.dtype == np.int32
+    assert (slot[~is_tri] == -1).all() and (slot[is_tri] >= 0).all()
+    if tri_color is not None:
+        assert np.array_equal(tri_color[slot[is_tri]], col[:, is_tri].T)
     jt, jidx = want[0], want[1]
     jloc = np.stack(want[2:8])
     jtri = want[8] > 0.5
@@ -112,7 +118,7 @@ def intersect_parity(name):
         rays = [a.numpy() for a in (*batch[0], *batch[1])]
         want = _jax_intersect(ja, jm, jc, rays)
         ties = _tie_mask(tm, tc, tables, (*batch[0], *batch[1]))
-        shares.append(_compare(got, want, ties))
+        shares.append(_compare(got, want, ties, ta.tri_color.numpy()))
     # a miss: t_max, winner 0, the world ray
     miss = first[0].numpy() == tc.t_max
     assert miss[-256:].mean() > 0.5 and not miss[:-256].any()

@@ -1,7 +1,8 @@
 """The port's bench (`python -m pathtracer_tpu_torch.bench`) on the CPU
 through the kernels' plain versions (BENCH_DEVICE=cpu) at 16x12 and 1-2
 spp: its one JSON line parses and carries bench.py's keys; the wavefront
-backend measures; what is not ported says so; without a card and without
+backend and the wavefront autograd path (BENCH_DIFF_BACKEND=wavefront,
+`fwd_bwd_textures`) measure; without a card and without
 BENCH_DEVICE=cpu it prints an error line and exits 1, and it runs where
 `import jax` fails."""
 import json
@@ -41,12 +42,15 @@ def test_bench_headline_record(monkeypatch, capsys):
 @pytest.mark.parametrize("extra,key", [
     ("fwd_teapot", "fwd_teapot"),
     ("torch_fwd_reference_nee", "torch_fwd_reference_nee"),
+    ("fwd_bwd_textures", "fwd_bwd_textures"),
 ])
 def test_bench_one_extra(monkeypatch, capsys, extra, key):
     rc, rec = _run(monkeypatch, capsys, BENCH_EXTRA=extra)
     assert rc == 0 and list(rec["extra"]) == [key]
     got = rec["extra"][key]
-    assert got["Msamples_per_sec"] > 0 and "vs_baseline" in got
+    assert got["Msamples_per_sec"] > 0
+    # vs_baseline for the forward records of a baseline scene alone
+    assert ("vs_baseline" in got) == (key != "fwd_bwd_textures")
     assert got.get("stand_in", False) == (key == "fwd_teapot")
 
 
@@ -54,10 +58,11 @@ def test_bench_wavefront_and_unported(monkeypatch, capsys):
     rc, rec = _run(monkeypatch, capsys, BENCH_BACKEND="wavefront",
                    BENCH_SPP="1")
     assert rc == 0 and rec["value"] > 0
+    # bench.py's bench_diff_wavefront: the wavefront autograd path's SGD
+    # steps (was "not ported" before it was)
     rc, rec = _run(monkeypatch, capsys, BENCH_BACKEND="diff",
                    BENCH_DIFF_BACKEND="wavefront")
-    assert rc == 0 and rec["value"] is None
-    assert rec["skipped"] == "not ported: ROADMAP item 12(c)"
+    assert rc == 0 and rec["value"] > 0 and "skipped" not in rec
     assert rec["metric"] == "reference_fwd_bwd_16x12_Msamples_per_sec"
 
 

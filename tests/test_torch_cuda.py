@@ -667,9 +667,8 @@ def test_intersect_kernel_bit_equal_plain(dev, name):
     assert mk.intersect_batch.launches == before + 1
     want = mk.intersect_batch_reference(arrays, meta, cfg, o, d, tables)
     torch.cuda.synchronize()
-    flat = [x for r in (got, want) for x in
-            [y for z in r for y in (z if isinstance(z, tuple) else (z,))]]
-    for a, b in zip(flat[:15], flat[15:]):
+    assert len(_flat(got)) == len(_flat(want)) == 16
+    for a, b in zip(_flat(got), _flat(want)):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert got[1].dtype == torch.int32 and got[4].dtype == torch.bool
     if meta.has_groups:
@@ -736,6 +735,13 @@ def test_packet_intersect_matches_plain(dev, monkeypatch, walk):
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[0], want[0]) or walk == "mxu"
     assert torch.allclose(got[0], want[0], rtol=1e-6)
+    # the winning triangle's slot, -1 off a triangle (under mxu where t is
+    # bit-equal: the tensor-core leaves may round t otherwise)
+    same_t = got[0] == want[0]
+    assert torch.equal(got[7][same_t], want[7][same_t])
+    assert bool(same_t.float().mean() > 0.99)
+    # (the node walk alone tests no triangle)
+    assert bool((got[7] >= 0).any()) == (walk != "ablate2")
 
 
 def test_leaf_bench_and_op_rate_match_plain(dev):
@@ -899,3 +905,40 @@ def test_cli_renders_the_wavefront_on_the_card(dev, tmp_path):
                    "--raw-output", str(raw), "--output",
                    str(tmp_path / "w.png")])
     assert rc == 0 and np.isfinite(read_raw(str(raw))).all()
+
+
+@pytest.mark.parametrize("name", ["reference", "teapot", "textures"])
+def test_wavefront_autograd_through_the_kernel(dev, name):
+    # the differentiable render's fixed-trip loop takes the intersect
+    # kernel on every bounce (re-attaching the winners where the rays carry
+    # a gradient: `textures`' normal maps), and its gradients agree with
+    # the torch walk's on the card by tests/test_torch_wavefront_grad_tex.py's
+    # rule (1e-3 x max|g| a field)
+    from pathtracer_tpu_torch.diff import extract_params, loss_and_grads
+    from pathtracer_tpu_torch.render import integrator, threefry
+    from pathtracer_tpu_torch.render.intersect import reattach_hit
+    from pathtracer_tpu_torch.render.vec3 import Vec3
+
+    cfg = RenderConfig(width=64, height=48, samples=2, samples_per_pass=2)
+    sc = get_scene(name, cfg)
+    arrays, meta = sc.pack(device=dev)
+    cam = sc.camera.pack(torch.float32, dev)
+    px, py = integrator.pixel_grid(64, 0, 48, dev)
+    route = integrator.intersect_route(arrays, meta, cfg)
+    assert route.fn is mk.intersect_batch
+    target = Vec3.zeros((64 * 48,), torch.float32, dev)
+    before = (mk.intersect_batch.launches, reattach_hit.calls)
+    _, got = loss_and_grads(extract_params(arrays), arrays, meta, cfg, cam,
+                            px, py, threefry.prng_key(4), 2, target,
+                            route=route)
+    assert mk.intersect_batch.launches == before[0] + cfg.max_bounces
+    assert (reattach_hit.calls > before[1]) == (name == "textures")
+    _, walk = loss_and_grads(extract_params(arrays), arrays, meta, cfg, cam,
+                             px, py, threefry.prng_key(4), 2, target,
+                             route=integrator.IntersectRoute())
+    for k in ("color", "emission", "tri_color", "tex_planar", "tex_sphere"):
+        a, b = getattr(got, k), getattr(walk, k)
+        assert torch.isfinite(a).all() and torch.isfinite(b).all()
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    if name == "teapot":
+        assert bool((got.tri_color != 0).any())

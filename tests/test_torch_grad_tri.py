@@ -210,7 +210,11 @@ def test_train_demo_tri_on_cpu(tmp_path):
     assert out.exists() and out.stat().st_size > 0
 
 
-@pytest.mark.parametrize("argv,item", [([], "item 12")])
+@pytest.mark.parametrize("argv,item", [
+    # the default (wavefront autograd) mode is ported: what it refuses
+    (["--scene", "teapot"], "trains `reference`"),
+    (["--tri", "--checkpoint", "ck"], "the default mode's"),
+    (["--tri", "--tex"], "separate modes")])
 def test_train_demo_unported_modes_exit_2(capsys, argv, item):
     assert train_demo.main(argv) == 2
     assert item in capsys.readouterr().err

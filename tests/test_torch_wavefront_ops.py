@@ -407,8 +407,8 @@ def test_kernel_route_matches_the_walk(scenes, name):
     to = tv.Vec3(*(torch.from_numpy(c.astype(np.float32)) for c in o))
     td = tv.Vec3(*(torch.from_numpy(c.astype(np.float32)) for c in d))
     route = tit.intersect_route(ta, tm, cfg, fn=mk.intersect_batch_reference)
-    t, oi, lo, ld, is_tri, tn, tc = tit._route_hit(route, ta, tm, cfg, to,
-                                                   td)
+    hit, _ = tit._route_hit(route, ta, tm, cfg, to, td)
+    t, oi, is_tri = hit.t, hit.obj_idx, hit.is_tri
     walk = tint.intersect_scene(ta, tm, to, td, cfg.epsilon, cfg.t_max)
     differ = oi != walk.obj_idx
     ties = differ & (t == walk.t)
@@ -417,5 +417,7 @@ def test_kernel_route_matches_the_walk(scenes, name):
     np.testing.assert_allclose(t[same].numpy(), walk.t[same].numpy(),
                                **TOL["float32"])
     assert torch.equal(is_tri[same], walk.is_tri[same])
+    # the kernel's triangle slot is the walk's winner
+    assert torch.equal(hit.tri_slot[same], walk.tri_slot[same])
     # the route a CPU render takes by default is the walk's
     assert tit.intersect_route(ta, tm, cfg).fn is None

@@ -176,9 +176,10 @@ def test_kernel_route_render_matches_the_walk(name, nee):
     assert calls and set(calls) == {tied.size * tc.samples_per_pass}
     untied = ~tied.reshape(walk.shape[:2])
     pixel_rule(k5[untied], walk[untied])
-    # f64 and the fixed-trip loop keep the walk; a CPU render too
+    # f64 keeps the walk, and a CPU render; the fixed-trip loop (the
+    # differentiable path's) takes the kernel on the card too
     assert integrator.intersect_route(ta, tm, tc).fn is None
-    assert not integrator.kernel_route_applies(
+    assert integrator.kernel_route_applies(
         tm, tc.replace(early_exit=False), torch.device("cuda"))
     assert not integrator.kernel_route_applies(
         tm, tc.replace(dtype="float64"), torch.device("cuda"))
