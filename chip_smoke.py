@@ -128,10 +128,16 @@ a step's own rays; the launch and re-attach counts, peak memory, live
 rays a bounce, the fwd+bwd rate as bench.py measures it, the loss falling
 under Adam), the kernel's route against the torch walk, the wavefront's
 gradient against the megakernel step's over 8 seeds, train_demo's default
-mode and a resumed run of it. It prints one JSON line of kernel
-results, each with its bound (the least time the card could take for the
-same work, from the work the plain version counts in this run), and,
-last, one JSON line naming the device.
+mode and a resumed run of it. Every K5 time is given three ways
+(k5_times): the wrapper's call, the kernel alone (its C entry, arguments
+built once) and the launcher's host time a call; the A/B runs K5 on the
+AD step's 1,228,800-ray batches too. `--k5-only` runs K5's split on the
+main paths' bounce-1 rays (this tree and the trees of `--k5-split DIR`,
+e.g. tools/k5_variants.py's copies), the launcher's host time step by
+step, and the A/B of `--ab-parent` and `--ab-chain` on K5_AB_CASES. It
+prints one JSON line of kernel results, each with its bound (the least
+time the card could take for the same work, from the work the plain
+version counts in this run), and, last, one JSON line naming the device.
 Every failure raises; without a card it exits non-zero before printing any
 result. It imports nothing of JAX.
 
@@ -301,6 +307,7 @@ OPS_SHADOW_LIT = 19
 OPS_ISECT_RAY = 1
 OPS_ISECT_TRI = 12
 ISECT_SCENES = ("reference", "teapot", "size-check mesh")
+K5_REPS = 20             # K5's timings: calls or launches a timing
 # the mesh walks of the JAX package's knobs (render/megakernel.py
 # mesh_walk): Kernel A (the warp-packet walk on the block's or the warp's
 # majority octant), Kernel B (its tensor-core leaves), the node walk alone
@@ -406,6 +413,11 @@ AB_CASES = {
                                         leaf=32),
     f"K5 size-check mesh {W * H * 8} rays": dict(
         kind="isect", scene="size-check mesh", leaf=16),
+    # the AD step's batch size (W x H x 1 rays a bounce), at the port's
+    # leaf size
+    **{f"K5 {name} {W * H} rays": dict(kind="isect", scene=name, spp=1,
+                                       leaf=4)
+       for name in ("reference", "teapot", "textures")},
     f"K6 reference {W}x{H}x{GRAD_SPP} spp": dict(kind="grad",
                                                  scene="reference",
                                                  spp=GRAD_SPP),
@@ -1335,9 +1347,11 @@ def tree_case(T, spec: dict, dev):
     "texel": the f32-texel forward on the decoded pool), the gradient
     kernel ("grad": grad_tiles on the steps' layout, random cotangents;
     "tri": in triangle mode; "texgrad": K6-tex, the texel gradients of the
-    decoded pool) or the intersect-only kernel ("isect": camera rays, 8 a
-    pixel). Returns a function that launches it and returns its outputs,
-    flat."""
+    decoded pool) or the intersect-only kernel ("isect": camera rays,
+    spec's spp a pixel, on intersect_tables; with spec's "bounce", one
+    bounce of random rays from their hits). Returns a function that
+    launches it and returns its outputs, flat; for "isect" its `kernel`
+    launches the kernel alone (k5_prebuilt)."""
     env = dict(spec.get("env", {}))
     if "leaf" in spec:
         env["PT_BVH_LEAF"] = str(spec["leaf"])
@@ -1362,11 +1376,17 @@ def tree_case(T, spec: dict, dev):
         if kind == "isect":
             gen = torch.Generator(device=dev)
             gen.manual_seed(0)
-            o, d = camera_rays(sc.camera, W, H, 8, gen)
+            o, d = camera_rays(sc.camera, W, H, spp, gen)
+            itables = T.mk.intersect_tables(arrays, meta, dev)
+            if spec.get("bounce"):
+                # one bounce of random rays from the camera rays' hits (the
+                # plain version's t, bit-equal on every tree)
+                o, d = bounce_rays(o, d, T.mk.intersect_batch_reference(
+                    arrays, meta, cfg, o, d, itables)[0], cfg.t_max, gen)
 
             def launch():
                 return flat_outputs(T.mk.intersect_batch(
-                    arrays, meta, cfg, o, d, tables=tuple(tables)))
+                    arrays, meta, cfg, o, d, tables=itables))
         elif kind in ("grad", "tri", "texgrad"):
             xs, ys, _ = T.mk.tile_pixel_layout(
                 W, H, *GRAD_TILE, order=T.mk.default_order(meta))
@@ -1411,6 +1431,14 @@ def tree_case(T, spec: dict, dev):
         with walk_env(env):
             return list(launch())
 
+    if kind == "isect":
+        with walk_env(env):
+            kernel = k5_prebuilt(T, meta, cfg, o, d, itables)
+
+        def run_kernel():
+            with walk_env(env):
+                kernel()
+        run.kernel = run_kernel   # the kernel alone (k5_prebuilt)
     return run
 
 
@@ -1553,7 +1581,9 @@ def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas,
     instantiations, the tensor-core pairs probe, which runs Kernel B's
     dots, and the fetch probe, which runs K1-tex's fetch) are printed
     before and after. With `rates`, bench.py's fwd+bwd rates too (rates_ab).
-    Returns ({case: (parent median ms, this median ms)}, {K1-family
+    An "isect" case times the kernel alone in the same turns too.
+    Returns ({case: (parent median ms, this median ms[, the kernel alone's
+    two])}, {K1-family
     instantiation: (parent counts, this build's)}, same_sass's result,
     {step: rates}, [cases whose outputs differ])."""
     T = load_tree(parent, tag)
@@ -1591,10 +1621,13 @@ def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas,
         fns = {"parent": tree_case(T, spec, dev),
                "this": tree_case(this, spec, dev)}
         runs = {"parent": [], "this": []}
+        alone = {"parent": [], "this": []}
         res = {}
         for who in ["parent", "this", "this", "parent"] * 3:
             res[who] = fns[who]()
             runs[who].append(cuda_ms(fns[who], 20))
+            if hasattr(fns[who], "kernel"):
+                alone[who].append(cuda_ms(fns[who].kernel, 20))
         exact = spec["kind"] not in ("grad", "tri", "texgrad")
         if exact and not all(torch.equal(a, b) for a, b in
                              zip(res["parent"], res["this"])):
@@ -1618,6 +1651,14 @@ def ab_parent(parent: str, tag: str, specs: dict, dev, card, ptxas,
               f"{[round(x, 4) for x in runs['parent']]}, this "
               f"{[round(x, 4) for x in runs['this']]}; card {card}")
         out[name] = (pm, tm)
+        if alone["this"]:
+            pk, tk = (float(np.median(alone[w])) for w in ("parent", "this"))
+            phase(f"phase 5 A/B: {name}, the kernel alone: {parent} "
+                  f"{pk:.4f} ms, this {tk:.4f} ms ({(tk - pk) / pk:+.2%}); "
+                  f"timings {parent} {[round(x, 4) for x in alone['parent']]}"
+                  f", this {[round(x, 4) for x in alone['this']]}; card "
+                  f"{card}")
+            out[name] = (pm, tm, pk, tk)
     rates = rates_ab(T, parent, dev, card) if rates else {}
     return out, family, sass, rates, differ
 
@@ -1716,8 +1757,9 @@ def intersect_phase(dev, card):
     their hits (_torch_scenes.bounce_rays), on ISECT_SCENES. Its launch count is set to 0 before the
     six batches' first calls (the wavefront's calls) and read after; then
     each batch is held bit for bit against intersect_batch_reference and
-    timed (10 launches, tables built once), with its bound: 84 bytes a ray
-    against the operations the plain run counts. Returns the numbers."""
+    timed (k5_times: the kernel alone, the call, the launcher's host time;
+    tables built once), with its bound: the bytes in and out against the
+    operations the plain run counts. Returns the numbers."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cfg = RenderConfig(width=W, height=H, samples=8)
@@ -1751,19 +1793,19 @@ def intersect_phase(dev, card):
                    if not torch.equal(a, b)]
             raise AssertionError(f"phase 9: {tag}: the kernel differs from "
                                  f"the plain version in outputs {bad}")
-        k_ms = cuda_ms(lambda: mk.intersect_batch(arrays, meta, cfg, o, d,
-                                                  tables=tables), 10)
+        k = k5_times(THIS_TREE, arrays, meta, cfg, o, d, tables)
         R = counts["rays"]
         misses = int((got[0] == cfg.t_max).sum())
         b_ms, b_by, ops = k5_bound(meta, cfg, counts, got, o, d, tables)
         phase(f"phase 9: {tag}: {R} rays ({misses} misses, "
               f"{counts['tri_hits']} triangle hits, {counts['node_visits']} "
-              f"node visits): kernel {k_ms:.4f} ms ({R / k_ms / 1e6:.2f} "
-              f"Grays/s), bit-equal to the plain version ({p_ms:.1f} ms); "
-              f"bound {b_ms:.4f} ms ({b_by}; {ops:.4g} f32 ops); card "
-              f"{card}")
-        out[tag] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                        rays=R, misses=misses, err=err)
+              f"node visits): {k5_text(k)} "
+              f"({R / k['kernel_ms'] / 1e6:.2f} Grays/s alone), bit-equal "
+              f"to the plain version ({p_ms:.1f} ms); bound {b_ms:.4f} ms "
+              f"({b_by}; {ops:.4g} f32 ops); card {card}")
+        out[tag] = dict(ms=k["call_ms"], kernel_ms=k["kernel_ms"],
+                        host_ms=k["host_ms"], plain_ms=p_ms, bound_ms=b_ms,
+                        bound_by=b_by, rays=R, misses=misses, err=err)
     return launches, out
 
 
@@ -3002,9 +3044,19 @@ def wavefront_main_path(tmp, dev, card, scene: str, nee: bool):
                 mk_mean=[float(x) for x in mk_mean])
 
 
+def delivered_bytes(*tensors) -> int:
+    """The bytes a function must deliver in `tensors`: a stride-0 view
+    (a constant output) counts as one element."""
+    return sum(t.element_size() * (1 if 0 in t.stride() else t.numel())
+               for t in tensors)
+
+
 def k5_bound(meta, cfg, counts, got, o, d, tables):
     """(bound ms, "operations" or "bytes", ops) of one intersect launch
-    whose work the plain version counted in `counts` (phase 9's rule)."""
+    whose work the plain version counted in `counts` (phase 9's rule),
+    the kernel's outputs `got` counted as delivered_bytes (without groups
+    the triangle outputs are constants, stride 0: the bytes the function
+    must deliver, 56 a ray there against 85)."""
     R = counts["rays"]
     misses = int((got[0] == cfg.t_max).sum())
     ops = (R * (sum(OPS_OBJECT_NARROW[t] for t in meta.obj_types)
@@ -3012,7 +3064,73 @@ def k5_bound(meta, cfg, counts, got, o, d, tables):
            + OPS_NODE * counts["node_visits"]
            + OPS_LEAF_SLOT * counts["leaf_slots"]
            + OPS_ISECT_TRI * counts["tri_hits"])
-    return bound_of(ops, nbytes(*o, *d, *got) + nbytes(*tables))
+    return bound_of(ops, nbytes(*o, *d, *tables) + delivered_bytes(*got))
+
+
+def k5_prebuilt(T, meta, cfg, o, d, tables):
+    """A function that launches tree T's intersect kernel once on the rays
+    (o, d): its C entry alone, with the arguments and outputs built once
+    (nothing counted). A tree before the prepared launcher (ee563d0's: out
+    f32 [14, n], the winners and slots apart) gets its entry's arguments
+    built here, on the per-thread walk."""
+    rays = (*o, *d)
+    if hasattr(T.mk, "intersect_launch_args"):
+        bufs = T.mk.intersect_outputs(rays[0].numel(), tables)
+        fn, args = T.mk.intersect_launch_args(
+            tables, rays, bufs, cfg.epsilon, cfg.t_max, T.mk.scene_walk(meta))
+    else:
+        n, dev = rays[0].numel(), rays[0].device
+        bufs = (torch.empty((14, n), dtype=torch.float32, device=dev),
+                torch.empty((2, n), dtype=torch.int32, device=dev))
+        n_obj = len(meta.obj_types)
+        ints = T.mk._I * n_obj
+        roots, ends = ints(*([-1] * n_obj)), ints(*([-1] * n_obj))
+        for g, r, e in meta.group_bvh:
+            roots[g], ends[g] = r, e
+        fn = T.mk.library().pt_intersect_launch
+        args = (*(t.data_ptr() for t in rays), bufs[0].data_ptr(),
+                bufs[1].data_ptr(), bufs[1][1].data_ptr(), n,
+                tables[0].data_ptr(), ints(*meta.obj_types),
+                *(t.data_ptr() for t in tables[1:]), roots, ends, n_obj,
+                meta.leaf_size, meta.n_nodes if meta.octant_orders else 0,
+                cfg.epsilon, cfg.t_max,
+                torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch():
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"intersect launch failed: CUDA error {err}")
+    launch.bufs = bufs       # kept alive with the launch
+    return launch
+
+
+def k5_times(T, arrays, meta, cfg, o, d, tables, reps: int = K5_REPS):
+    """K5's three times on tree T and the rays (o, d), in ms a call: the
+    wrapper's call (CUDA events around `reps` back-to-back
+    intersect_batch calls, as phases 9, 11 and 12 timed it before), the
+    kernel alone (CUDA events around `reps` back-to-back launches of the C
+    entry with its arguments built once, k5_prebuilt) and the launcher's
+    host time (a host clock over `reps` calls, no sync inside the loop)."""
+    def call():
+        return T.mk.intersect_batch(arrays, meta, cfg, o, d, tables=tables)
+
+    out = {"call_ms": cuda_ms(call, reps),
+           "kernel_ms": cuda_ms(k5_prebuilt(T, meta, cfg, o, d, tables),
+                                reps)}
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    out["host_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return out
+
+
+def k5_text(k) -> str:
+    """K5's times of k5_times, for a phase line."""
+    return (f"kernel alone {k['kernel_ms']:.4f} ms, call "
+            f"{k['call_ms']:.4f} ms, launcher host {k['host_ms']:.4f} ms")
 
 
 def k5_on_bounces(dev, card, scene: str):
@@ -3020,7 +3138,8 @@ def k5_on_bounces(dev, card, scene: str):
     against intersect_batch_reference on the wavefront's own rays, and the
     pass again through the plain version alone: the two images must be
     bit-equal. K5 is then timed on the rays of bounce 1 (the wavefront's
-    batch: every ray, live or not), with its bound. Returns the numbers."""
+    batch: every ray, live or not; k5_times), with its bound. Returns the
+    numbers."""
     cfg = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
     sc = get_scene(scene, cfg)
     arrays, meta = sc.pack(device=dev)
@@ -3058,20 +3177,21 @@ def k5_on_bounces(dev, card, scene: str):
                              "intersect")
     o, d = seen[1] if len(seen) > 1 else seen[0]
     counts = {}
-    want, p_ms = timed(lambda: mk.intersect_batch_reference(
+    _, p_ms = timed(lambda: mk.intersect_batch_reference(
         arrays, meta, cfg, o, d, tables, counts), stack=False)
-    k_ms = cuda_ms(lambda: mk.intersect_batch(arrays, meta, cfg, o, d,
-                                              tables=tables), 10)
-    b_ms, b_by, ops = k5_bound(meta, cfg, counts, flat_outputs(want), o, d,
-                               tables)
+    k = k5_times(THIS_TREE, arrays, meta, cfg, o, d, tables)
+    b_ms, b_by, ops = k5_bound(meta, cfg, counts, flat_outputs(
+        mk.intersect_batch(arrays, meta, cfg, o, d, tables=tables)), o, d,
+        tables)
     phase(f"phase 11: {scene} K5 on the wavefront's rays, {len(seen)} "
           f"bounces of one {W}x{H}x8 pass ({o[0].numel()} rays each): "
           f"bit-equal to the plain version at every bounce, the pass's "
-          f"image bit-equal to the plain intersect's; bounce 1: kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.1f} ms, bound {b_ms:.4f} ms "
+          f"image bit-equal to the plain intersect's; bounce 1: "
+          f"{k5_text(k)}, plain {p_ms:.1f} ms, bound {b_ms:.4f} ms "
           f"({b_by}; {ops:.4g} f32 ops); card {card}")
-    return dict(bounces=len(seen), rays=o[0].numel(), ms=k_ms, plain_ms=p_ms,
-                bound_ms=b_ms, bound_by=b_by)
+    return dict(bounces=len(seen), rays=o[0].numel(), ms=k["call_ms"],
+                kernel_ms=k["kernel_ms"], host_ms=k["host_ms"],
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def wavefront_f64(tmp, card):
@@ -3257,7 +3377,7 @@ def ad_checked_step(inp, card, scene):
     """One differentiable step whose K5 launches at AD_CHECKED's bounces
     are held bit for bit against intersect_batch_reference on the step's
     own rays, all eight outputs (the triangle slot too); K5 is then timed
-    on bounce 1's rays, with its bound. Returns the numbers."""
+    on bounce 1's rays (k5_times), with its bound. Returns the numbers."""
     arrays, meta, cfg, cam, px, py, route = inp
     seen = []
 
@@ -3283,18 +3403,21 @@ def ad_checked_step(inp, card, scene):
     counts = {}
     want, p_ms = timed(lambda: mk.intersect_batch_reference(
         arrays, meta, cfg, o, d, route.tables, counts), stack=False)
-    k_ms = cuda_ms(lambda: mk.intersect_batch(arrays, meta, cfg, o, d,
-                                              tables=route.tables), 10)
-    b_ms, b_by, ops = k5_bound(meta, cfg, counts, flat_outputs(want), o, d,
-                               route.tables)
+    k = k5_times(THIS_TREE, arrays, meta, cfg, o, d, route.tables)
+    b_ms, b_by, ops = k5_bound(meta, cfg, counts, flat_outputs(
+        mk.intersect_batch(arrays, meta, cfg, o, d, tables=route.tables)), o,
+        d, route.tables)
     tri = int((want[7] >= 0).sum())
     phase(f"phase 12: {scene} K5 on the differentiable step's rays "
           f"({o[0].numel()} a bounce, {len(seen)} bounces): bit-equal to "
           f"the plain version, triangle slot included, at bounces "
           f"{list(AD_CHECKED)} ({tri} triangle winners at bounce 1); "
-          f"bounce 1: kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}; {ops:.4g} f32 ops); card {card}")
-    return dict(rays=o[0].numel(), bounces=len(seen), ms=k_ms,
+          f"bounce 1: {k5_text(k)}, plain {p_ms:.1f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; {ops:.4g} f32 ops); the launcher's host "
+          f"time below the kernel's: {k['host_ms'] < k['kernel_ms']}; card "
+          f"{card}")
+    return dict(rays=o[0].numel(), bounces=len(seen), ms=k["call_ms"],
+                kernel_ms=k["kernel_ms"], host_ms=k["host_ms"],
                 plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 tri_winners_bounce_1=tri)
 
@@ -3578,6 +3701,232 @@ def ad_phases(args, dev, card, ptxas):
     return out
 
 
+# ---- the intersect kernel's split and A/B (--k5-only, --k5-split) ---------
+
+# the A/B of K5's redesign: the AD step's batches and the wavefront's
+# batch size, the meshes at the port's leaf size, K5 under packet mode 3
+# (the packet launch), and the meshes on bounced rays
+K5_AB_CASES = {
+    **{k: v for k, v in AB_CASES.items()
+       if v["kind"] == "isect" and v.get("spp") == 1},
+    f"K5 reference {W * H * 8} rays": dict(kind="isect", scene="reference"),
+    f"K5 teapot leaf 4 {W * H * 8} rays": dict(kind="isect", scene="teapot",
+                                               leaf=4),
+    f"K5 size-check mesh leaf 4 {W * H * 8} rays": dict(
+        kind="isect", scene="size-check mesh", leaf=4),
+    f"K5 packet mode 3 teapot {W * H * 8} rays": dict(
+        kind="isect", scene="teapot", leaf=4, env=WALKS["packet mode 3"]),
+    # the main paths' rays are bounced ones: on a mesh, fewer walking lanes
+    # a walking warp than camera rays give
+    f"K5 teapot bounce {W * H} rays": dict(kind="isect", scene="teapot",
+                                           spp=1, leaf=4, bounce=True),
+    f"K5 teapot bounce {W * H * 8} rays": dict(kind="isect", scene="teapot",
+                                               leaf=4, bounce=True),
+    f"K5 size-check mesh bounce {W * H * 8} rays": dict(
+        kind="isect", scene="size-check mesh", leaf=4, bounce=True),
+}
+K5_TURNS = 3             # the split's timings a tree, in turns
+
+
+def k5_main_rays(dev):
+    """The rays K5's main paths hand it at bounce 1: a differentiable step
+    of each of AD_SCENES at W x H x 1 (ad_checked_step's batch) and a
+    wavefront pass of each of WF_SCENES at W x H x 8 (k5_on_bounces').
+    Returns {shape: (scene, spp, origin, direction)}."""
+    out = {}
+
+    def grab(seen):
+        def fn(scn, meta_, cfg_, o, d, tables=None):
+            seen.append((o, d))
+            return mk.intersect_batch(scn, meta_, cfg_, o, d, tables=tables)
+        return fn
+
+    for scene in AD_SCENES:
+        inp = ad_inputs(scene, dev)
+        arrays, _, _, _, px, _, route = inp
+        seen = []
+        ad_loss_grads(inp, extract_params(arrays), threefry.prng_key(0),
+                      Vec3.zeros((px.shape[0],), torch.float32, px.device),
+                      integrator.IntersectRoute(grab(seen), route.tables))
+        out[f"AD step {scene}"] = (scene, AD_SPP, *seen[1])
+    for scene in WF_SCENES:
+        cfg = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
+        sc = get_scene(scene, cfg)
+        arrays, meta = sc.pack(device=dev)
+        px, py = integrator.pixel_grid(W, 0, H, dev)
+        seen = []
+        integrator.render_pass(
+            arrays, meta, cfg, sc.camera.pack(torch.float32, dev), px, py, 0,
+            8, threefry.fold_in(threefry.prng_key(cfg.seed), 0),
+            integrator.IntersectRoute(grab(seen), mk.intersect_tables(
+                arrays, meta, dev)))
+        out[f"wavefront {scene}"] = (scene, 8, *seen[1])
+    torch.cuda.synchronize()
+    return out
+
+
+def k5_profiled(kernel, reps: int = K5_REPS):
+    """The device time a launch of `kernel` (a k5_prebuilt launch) by
+    torch.profiler over `reps` launches, in ms, or None where the profiler
+    shows no device time."""
+    prof = torch.profiler
+    kernel()
+    torch.cuda.synchronize()
+    with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            kernel()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) or
+             getattr(e, "cuda_time_total", 0)
+             for e in p.key_averages() if "intersect" in e.key)
+    return us / 1e3 / reps if us else None
+
+
+def k5_split(trees, dev, card):
+    """K5's Step 0 split (--k5-only): on each main-path shape (k5_main_rays)
+    the three times of k5_times on this tree and on each tree of `trees`
+    (--k5-split DIR: another checkout, or a copy made by
+    tools/k5_variants.py), K5_TURNS times in turns, medians; each tree's
+    outputs against this tree's plain version (a copy that changes them is
+    reported, not raised), the bound and the plain time from this tree's
+    plain run, on the mesh scenes the share of warps in which some ray
+    walks the group, and this tree's kernel by torch.profiler. Returns
+    {shape: numbers}."""
+    rays = k5_main_rays(dev)
+    named = [("this", THIS_TREE)] + [(d, load_tree(d, f"k5_split_{i}"))
+                                     for i, d in enumerate(trees)]
+    for _, T in named:
+        T.mk.library()
+    out = {}
+    for shape, (scene, spp, o, d) in rays.items():
+        inputs = {}
+        for tag, T in named:
+            cfg = T.RenderConfig(width=W, height=H, samples=spp,
+                                 samples_per_pass=spp)
+            arrays, meta = T.get_scene(scene, cfg).pack(device=dev)
+            inputs[tag] = (T, arrays, meta, cfg,
+                           T.mk.intersect_tables(arrays, meta, dev))
+        _, arrays, meta, cfg, tables = inputs["this"]
+        counts = {}
+        want, p_ms = timed(lambda: mk.intersect_batch_reference(
+            arrays, meta, cfg, o, d, tables, counts), stack=False)
+        want = flat_outputs(want)
+        b_ms, b_by, ops = k5_bound(meta, cfg, counts, flat_outputs(
+            mk.intersect_batch(arrays, meta, cfg, o, d, tables=tables)), o,
+            d, tables)
+        runs = {tag: [] for tag, _ in named}
+        for _ in range(K5_TURNS):
+            for tag, _ in named:
+                T, arrays_, meta_, cfg_, tables_ = inputs[tag]
+                runs[tag].append(k5_times(T, arrays_, meta_, cfg_, o, d,
+                                          tables_))
+        walk = (f"; the group walked by {counts['walk_rays']} rays, in "
+                f"{counts['walk_warps']} of {counts['warps']} warps "
+                f"({counts['walk_warps'] / counts['warps']:.4f})"
+                if meta.has_groups else "")
+        phase(f"k5 split: {shape} bounce 1, {o[0].numel()} rays: plain "
+              f"{p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}; {ops:.4g} f32 "
+              f"ops){walk}; card {card}")
+        rows = {}
+        for tag, _ in named:
+            T, arrays_, meta_, cfg_, tables_ = inputs[tag]
+            got = flat_outputs(T.mk.intersect_batch(arrays_, meta_, cfg_, o,
+                                                    d, tables=tables_))
+            same = len(got) == len(want) and all(
+                torch.equal(a, b) for a, b in zip(got, want))
+            med = {k: float(np.median([r[k] for r in runs[tag]]))
+                   for k in runs[tag][0]}
+            phase(f"k5 split: {shape}: {tag}: {k5_text(med)} "
+                  f"({b_ms / med['kernel_ms']:.1%} of the bound alone); "
+                  f"outputs {'bit-equal to' if same else 'DIFFER from'} the "
+                  f"plain version's; kernel alone by turn "
+                  f"{[round(r['kernel_ms'], 4) for r in runs[tag]]}, host "
+                  f"{[round(r['host_ms'], 4) for r in runs[tag]]}; card "
+                  f"{card}")
+            rows[tag] = dict(med, bit_equal=same)
+        prof = k5_profiled(k5_prebuilt(THIS_TREE, meta, cfg, o, d, tables))
+        phase(f"k5 split: {shape}: this tree's kernel by torch.profiler: "
+              f"{'no device time' if prof is None else f'{prof:.4f} ms'}")
+        out[shape] = dict(rows=rows, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, rays=o[0].numel(), profiled_ms=prof,
+                          walk_warps=counts["walk_warps"],
+                          warps=counts["warps"])
+    return out
+
+
+def k5_host_split(dev, card, reps: int = 200):
+    """The launcher's host time a call split into its steps, in us (this
+    tree, a host clock over `reps` back-to-back runs of each step, no sync
+    inside), on the AD step's batch size (W x H camera rays) of
+    `reference` and `teapot` (and the Stream object the launcher no longer
+    builds). Returns {scene: {step: us}}."""
+    out = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    for scene in ("reference", "teapot"):
+        cfg = RenderConfig(width=W, height=H, samples=1)
+        sc = get_scene(scene, cfg)
+        arrays, meta = sc.pack(device=dev)
+        tables = mk.intersect_tables(arrays, meta, dev)
+        o, d = camera_rays(sc.camera, W, H, 1, gen)
+        rays, n = (*o, *d), o[0].numel()
+        walk = mk.scene_walk(meta)
+        bufs = mk.intersect_outputs(n, tables)
+        fn, args = mk.intersect_launch_args(tables, rays, bufs, cfg.epsilon,
+                                            cfg.t_max, walk)
+        steps = {
+            "checks": lambda: mk._check_rays(o, d),
+            "walk": lambda: mk.scene_walk(meta),
+            "current_device": torch.cuda.current_device,
+            "Stream object": lambda: torch.cuda.current_stream(dev)
+            .cuda_stream,
+            "raw stream": lambda: mk._raw_stream(dev),
+            "outputs": lambda: mk.intersect_outputs(n, tables),
+            "launch args": lambda: mk.intersect_launch_args(
+                tables, rays, bufs, cfg.epsilon, cfg.t_max, walk),
+            "ctypes call and launch": lambda: fn(*args),
+            "result views": lambda: mk.intersect_result(bufs, tables),
+            "unbind": lambda: bufs[0].unbind(0),
+            "whole call": lambda: mk.intersect_batch(arrays, meta, cfg, o, d,
+                                                     tables=tables),
+        }
+        us = {}
+        for name, step in steps.items():
+            for _ in range(10):
+                step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                step()
+            us[name] = (time.perf_counter() - t0) * 1e6 / reps
+            torch.cuda.synchronize()
+        phase(f"k5 host split: {scene}, {n} rays, us a call: "
+              f"{ {k: round(v, 2) for k, v in us.items()} }; card {card}")
+        out[scene] = us
+    return out
+
+
+def k5_only(args, dev, card, ptxas):
+    """--k5-only: the intersect kernel's ptxas counts, its split (k5_split
+    over --k5-split trees), then the A/B of --ab-parent and of --ab-chain
+    on K5_AB_CASES, without the fwd+bwd rates. Prints no result lines."""
+    phase(f"k5-only: ptxas (registers, stack, spill stores, spill loads) of "
+          f"the intersect instantiations: "
+          f"{ {k: v for k, v in ptxas_counts(ptxas).items() if k.startswith('intersect')} }")
+    k5_host_split(dev, card)
+    k5_split(args.k5_split, dev, card)
+    differ = []
+    for i, d in enumerate(args.ab_parent):
+        phase(f"phase 5 A/B: against {d}")
+        differ += ab_parent(d, f"ab_tree_{i}", K5_AB_CASES, dev, card,
+                            ptxas, strict=False, rates=False)[4]
+    for chain in args.ab_chain:
+        for r in ab_chain(chain.split(","), K5_AB_CASES, dev,
+                          card).values():
+            differ += r[4]
+    phase(f"k5-only: done; A/B cases whose outputs differ: {differ}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab-parent", metavar="DIR", action="append",
@@ -3631,6 +3980,16 @@ def main(argv=None) -> int:
     ap.add_argument("--wavefront-only", action="store_true",
                     help="after the build, run the wavefront's phase 11 "
                          "alone and print no result lines")
+    ap.add_argument("--k5-split", metavar="DIR", action="append",
+                    default=[],
+                    help="time the intersect kernel's main-path shapes "
+                         "(--k5-only's split) on the pathtracer_tpu_torch "
+                         "under DIR too, e.g. a copy made by "
+                         "tools/k5_variants.py; may be given more than once")
+    ap.add_argument("--k5-only", action="store_true",
+                    help="after the build, run the intersect kernel's "
+                         "split and the A/B of --ab-parent and --ab-chain "
+                         "on its cases alone and print no result lines")
     ap.add_argument("--ad-only", action="store_true",
                     help="after the build, run the wavefront autograd "
                          "path's phase 12 alone (with --ab-parent: the "
@@ -3660,7 +4019,7 @@ def main(argv=None) -> int:
         phase(f"phase 2: ptxas: {line}")
     others = list(dict.fromkeys(args.ab_parent + args.tex_split
                                 + args.grad_split + args.k1_split
-                                + args.walk_split
+                                + args.walk_split + args.k5_split
                                 + [d for c in args.ab_chain
                                    for d in c.split(",")]))
     if others:
@@ -3685,6 +4044,9 @@ def main(argv=None) -> int:
         return 0
     if args.ad_only:
         ad_phases(args, dev, card, ptxas)
+        return 0
+    if args.k5_only:
+        k5_only(args, dev, card, ptxas)
         return 0
 
     # ---- phase 3: kernel vs plain version on the card -------------------
@@ -4081,6 +4443,8 @@ def main(argv=None) -> int:
          "bit_equal_frac": 1.0,
          "shape": f"reference primary {W * H * 8} rays",
          "ms": isect[1]["reference primary"]["ms"],
+         "kernel_ms": isect[1]["reference primary"]["kernel_ms"],
+         "host_ms": isect[1]["reference primary"]["host_ms"],
          "plain_ms": isect[1]["reference primary"]["plain_ms"],
          "bound_ms": isect[1]["reference primary"]["bound_ms"],
          "bound_by": isect[1]["reference primary"]["bound_by"],
@@ -4094,6 +4458,10 @@ def main(argv=None) -> int:
              "launches_a_step": {s: v["launches_a_step"]
                                  for s, v in ad["main"].items()},
              "ms_bounce_1": {s: v["k5"]["ms"] for s, v in ad["main"].items()},
+             "kernel_ms_bounce_1": {s: v["k5"]["kernel_ms"]
+                                    for s, v in ad["main"].items()},
+             "host_ms_bounce_1": {s: v["k5"]["host_ms"]
+                                  for s, v in ad["main"].items()},
              "plain_ms_bounce_1": {s: v["k5"]["plain_ms"]
                                    for s, v in ad["main"].items()},
              "bound_ms_bounce_1": {s: v["k5"]["bound_ms"]

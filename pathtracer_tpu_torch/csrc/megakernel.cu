@@ -164,13 +164,18 @@
 // intersect_batch :2916): the nearest hit over the whole scene for a flat
 // batch of rays, one thread a ray, with no shading. It writes t (at most
 // t_max), the winner (0 on a miss), the winner's object-space ray (the
-// world ray on a miss), whether a triangle won, that triangle's smooth
-// normal and color, and its slot (-1 unless a triangle won: the wavefront's
-// autograd gathers the triangle's color by it, so that the color carries a
-// gradient). The TPU's (8, 512) tiling and padding rays are not
-// carried over. Its bound: 84 bytes a ray in and out against one
-// transform and test an object (and the walk's nodes and slots), so bytes
-// on primitive scenes and operations on meshes.
+// world ray on a miss), that triangle's smooth normal and color, its slot
+// (-1 unless a triangle won: the wavefront's autograd gathers the
+// triangle's color by it, so that the color carries a gradient) and
+// whether a triangle won, one byte a ray; a scene without groups stores
+// none of the triangle outputs, which are constants there. The TPU's (8,
+// 512) tiling and padding rays are not carried over. Its bound: 85 bytes a
+// ray in and out (56 without groups) against one transform and test an
+// object (and the walk's nodes and slots), so bytes on primitive scenes and
+// operations on meshes. Its launcher (render/megakernel.py intersect_batch)
+// builds what depends on the scene alone once (IntersectTables, IsectScene
+// here) and hands a call's outputs over as two buffers, so that a call's
+// host time stays near the kernel's at the wavefront's batch sizes.
 //
 // The mesh walks of the JAX package's knobs (template arguments kWalk,
 // kLeaf of the forward mesh and intersect instantiations; the section
@@ -2118,8 +2123,9 @@ struct PacketLaunch {
 };
 
 // The intersect-only kernel's rays: six f32 [n] inputs, the f32 outputs
-// [14, n] (t, object-space origin xyz and direction xyz, the triangle flag,
-// the triangle normal xyz and color rgb) and the winners, i32 [n].
+// [13, n] (t, object-space origin xyz and direction xyz, the triangle
+// normal xyz and color rgb; [7, n] on a scene without groups) and the
+// winners, i32 [n].
 struct Rays {
   const float* ox;
   const float* oy;
@@ -2132,32 +2138,34 @@ struct Rays {
   int n;
 };
 
-// One thread a ray: nearest_hit, then the outputs of
-// _make_intersect_kernel (pallas_kernel.py:2792-2806) and the winning
-// triangle's slot, i32 [n] (-1 unless a triangle won; an argument of its
-// own, so that struct Rays, which the leaf microbenchmark shares, stays
-// as it is). Under a packet walk every thread of the block calls
+// The intersect-only kernel's triangle outputs, beside struct Rays (which
+// the leaf microbenchmark shares): the winning triangle's slot, i32 [n]
+// (-1 unless a triangle won: the wavefront's autograd gathers the
+// triangle's color by it, so that the color carries a gradient), and
+// whether a triangle won, one byte a ray (0 or 1, which the wrapper views
+// as bool).
+struct TriOut {
+  int* slot;
+  uint8_t* is_tri;
+};
+
+// Ray i: nearest_hit, then the outputs of _make_intersect_kernel
+// (pallas_kernel.py:2792-2806) and, on a scene with groups, the triangle
+// outputs (a scene without them has none to store: its triangle normal,
+// color, slot and flag are constants, which the wrapper returns as views
+// of one value). Under a packet walk every thread of the block calls
 // nearest_hit, one past the last ray inactive.
-template <bool kMesh, int kWalk = WALK_THREAD, int kLeaf = LEAF_SIMT>
-__global__ void __launch_bounds__(kThreads) intersect(Params p, Rays r,
-                                                      int* slot) {
+template <bool kMesh, int kWalk, int kLeaf>
+__device__ __forceinline__ void intersect_ray(const Params& p, const Rays& r,
+                                              const TriOut& tri,
+                                              const float* s_obj, int i) {
   constexpr bool kPacket = kWalk != WALK_THREAD;
-  extern __shared__ __align__(16) float smem[];
-  for (int i = threadIdx.x; i < p.n_obj * kObjCols; i += blockDim.x)
-    smem[i] = p.obj[i];
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if constexpr (!kPacket) {
-    if (i >= r.n) return;
-  }
   const int si = kPacket ? min(i, r.n - 1) : i;
   const float ray[6] = {r.ox[si], r.oy[si], r.oz[si],
                         r.dx[si], r.dy[si], r.dz[si]};
   const Hit h = nearest_hit<kMesh, kWalk, kLeaf, kObjCols>(
-      p, smem, ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], i < r.n);
-  if constexpr (kPacket) {
-    if (i >= r.n) return;
-  }
+      p, s_obj, ray[0], ray[1], ray[2], ray[3], ray[4], ray[5], i < r.n);
+  if (i >= r.n) return;
   const bool miss = h.w < 0;
   float nrm[3] = {0.f, 0.f, 0.f}, col[3] = {0.f, 0.f, 0.f};
   const bool on_tri = kMesh && h.tri >= 0;
@@ -2174,21 +2182,37 @@ __global__ void __launch_bounds__(kThreads) intersect(Params p, Rays r,
   o[4 * n] = miss ? ray[3] : h.ldx;
   o[5 * n] = miss ? ray[4] : h.ldy;
   o[6 * n] = miss ? ray[5] : h.ldz;
-  o[7 * n] = on_tri ? 1.0f : 0.0f;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    o[(8 + k) * n] = nrm[k];
-    o[(11 + k) * n] = col[k];
-  }
   r.idx[i] = miss ? 0 : h.w;
-  slot[i] = on_tri ? h.tri : -1;
+  if constexpr (kMesh) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      o[(7 + k) * n] = nrm[k];
+      o[(10 + k) * n] = col[k];
+    }
+    tri.slot[i] = on_tri ? h.tri : -1;
+    tri.is_tri[i] = on_tri ? 1 : 0;
+  }
+}
+
+// One thread a ray, the object rows staged in shared memory as they are
+// (45 floats a row) by each block.
+template <bool kMesh, int kWalk = WALK_THREAD, int kLeaf = LEAF_SIMT>
+__global__ void __launch_bounds__(kThreads) intersect(Params p, Rays r,
+                                                      TriOut tri) {
+  extern __shared__ __align__(16) float smem[];
+  for (int i = threadIdx.x; i < p.n_obj * kObjCols; i += blockDim.x)
+    smem[i] = p.obj[i];
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (kWalk == WALK_THREAD && i >= r.n) return;
+  intersect_ray<kMesh, kWalk, kLeaf>(p, r, tri, smem, i);
 }
 
 // The intersect-only kernel on a walk of launch_walk.
 struct IntersectLaunch {
   const Params& p;
   const Rays& r;
-  int* slot;
+  const TriOut& tri;
   size_t smem;
   cudaStream_t stream;
   template <int kWalk, int kLeaf>
@@ -2196,7 +2220,7 @@ struct IntersectLaunch {
     const int blocks = (r.n + kThreads - 1) / kThreads;
     if (blocks > 0)
       intersect<true, kWalk, kLeaf><<<blocks, kThreads, smem, stream>>>(
-          p, r, slot);
+          p, r, tri);
     return (int)cudaGetLastError();
   }
 };
@@ -2601,47 +2625,76 @@ extern "C" int pt_megakernel_nee_launch(
                                            group_end, stream);
 }
 
-// Launch the intersect-only kernel over n rays (ox..dz, f32 [n] each, on
-// the device): out f32 [14, n] and idx i32 [n] as struct Rays says, slot
-// i32 [n] as intersect says. obj, the mesh tables, obj_types, group_root
-// and group_end as for pt_megakernel_launch. Returns as
-// pt_megakernel_launch does.
-extern "C" int pt_intersect_launch(
-    const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, float* out, int* idx, int* slot,
-    int n, const float* obj, const int* obj_types, const float* nodes,
-    const float* tris, const float* shade, const int* group_root,
-    const int* group_end, int n_obj, int leaf_size, int oct_nodes,
-    float eps, float t_max,
-    void* stream) {
-  if (n_obj < 1 || n_obj > kMaxObjects || leaf_size < 1 || n < 0)
-    return (int)cudaErrorInvalidValue;
-  Params p{};
-  p.obj = obj;
-  if (!set_tables(p, nodes, tris, shade))
-    return (int)cudaErrorInvalidValue;
-  p.n_obj = n_obj;
-  p.leaf_size = leaf_size;
-  p.oct_nodes = oct_nodes;
+// What a launch of the intersect-only kernel needs of the scene alone,
+// built once by its launcher (render/megakernel.py IntersectTables, whose
+// ctypes Structure mirrors this one): the object table and the mesh tables
+// (16-byte aligned), the object count, the BVH leaf size, the octant
+// copies' node count, and the type codes and group ranges of
+// pt_megakernel_launch.
+struct IsectScene {
+  const float* obj;
+  const float* nodes;
+  const float* tris;
+  const float* shade;
+  int n_obj;
+  int leaf_size;
+  int oct_nodes;
+  int obj_types[kMaxObjects];
+  int group_root[kMaxObjects];
+  int group_end[kMaxObjects];
+};
+
+// The launch parameters and the outputs of the intersect-only kernel over
+// n rays into the wrapper's two buffers (intersect_outputs): `out`, the
+// f32 rows of struct Rays ([13, n], or [7, n] on a scene without groups),
+// and `ints`, i32 [3, n] holding the winners, the triangle slots and the
+// triangle flags, u8 [n] (the first n bytes of the third row), or the
+// winners alone, [1, n], on a scene without groups. Sets `mesh`; false
+// for arguments it does not take.
+bool intersect_params(Params& p, Rays& r, TriOut& tri, bool& mesh,
+                      const IsectScene* sc, const float* ox,
+                      const float* oy, const float* oz, const float* dx,
+                      const float* dy, const float* dz, float* out, int* ints,
+                      int n, float eps, float t_max) {
+  if (sc == nullptr || n < 0 || sc->n_obj < 1 || sc->n_obj > kMaxObjects ||
+      sc->leaf_size < 1 || out == nullptr || ints == nullptr)
+    return false;
+  p.obj = sc->obj;
+  if (!set_tables(p, sc->nodes, sc->tris, sc->shade)) return false;
+  p.n_obj = sc->n_obj;
+  p.leaf_size = sc->leaf_size;
+  p.oct_nodes = sc->oct_nodes;
   p.eps = eps;
   p.t_max = t_max;
+  mesh = copy_objects(p, sc->obj_types, sc->group_root, sc->group_end);
+  r = Rays{ox, oy, oz, dx, dy, dz, out, ints, n};
+  tri = mesh ? TriOut{ints + n, reinterpret_cast<uint8_t*>(ints + 2 * n)}
+             : TriOut{nullptr, nullptr};
+  return true;
+}
+
+// Launch the intersect-only kernel over n rays (ox..dz, f32 [n] each, on
+// the device) of the scene `sc` into `out` and `ints` (intersect_params'
+// layout), on `stream`. Returns as pt_megakernel_launch does.
+extern "C" int pt_intersect_launch(
+    const IsectScene* sc, const float* ox, const float* oy, const float* oz,
+    const float* dx, const float* dy, const float* dz, float* out, int* ints,
+    int n, float eps, float t_max, void* stream) {
+  Params p{};
+  Rays r{};
+  TriOut tri{};
   bool mesh = false;
-  for (int i = 0; i < n_obj; ++i) {
-    p.obj_types[i] = obj_types[i];
-    p.group_root[i] = group_root[i];
-    p.group_end[i] = group_end[i];
-    mesh = mesh || obj_types[i] == GROUP;
-  }
-  const Rays r{ox, oy, oz, dx, dy, dz, out, idx, n};
-  const size_t smem = sizeof(float) * (size_t)(n_obj * kObjCols);
+  if (!intersect_params(p, r, tri, mesh, sc, ox, oy, oz, dx, dy, dz, out,
+                        ints, n, eps, t_max))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)(p.n_obj * kObjCols);
   const int blocks = (n + kThreads - 1) / kThreads;
+  const cudaStream_t s = (cudaStream_t)stream;
   if (blocks > 0) {
     if (mesh)
-      intersect<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p, r,
-                                                                      slot);
+      intersect<true><<<blocks, kThreads, smem, s>>>(p, r, tri);
     else
-      intersect<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-          p, r, slot);
+      intersect<false><<<blocks, kThreads, smem, s>>>(p, r, tri);
   }
   return (int)cudaGetLastError();
 }
@@ -2845,32 +2898,23 @@ extern "C" int pt_megakernel_packet_launch(
 // launch_walk: pt_intersect_launch's arguments, then the MXU fragments
 // (null unless leaf is LEAF_MMA) and the walk and leaf codes.
 extern "C" int pt_intersect_packet_launch(
-    const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, float* out, int* idx, int* slot,
-    int n, const float* obj, const int* obj_types, const float* nodes,
-    const float* tris, const float* shade, const int* group_root,
-    const int* group_end, int n_obj, int leaf_size, int oct_nodes,
-    float eps, float t_max,
-    void* stream, const float* mxu, int walk, int leaf) {
-  if (n_obj < 1 || n_obj > kMaxObjects || leaf_size < 1 || n < 0 ||
-      (leaf == LEAF_MMA) != (mxu != nullptr))
-    return (int)cudaErrorInvalidValue;
+    const IsectScene* sc, const float* ox, const float* oy, const float* oz,
+    const float* dx, const float* dy, const float* dz, float* out, int* ints,
+    int n, float eps, float t_max, void* stream, const float* mxu, int walk,
+    int leaf) {
   Params p{};
-  p.obj = obj;
-  if (!set_tables(p, nodes, tris, shade))
+  Rays r{};
+  TriOut tri{};
+  bool mesh = false;
+  if ((leaf == LEAF_MMA) != (mxu != nullptr) ||
+      !intersect_params(p, r, tri, mesh, sc, ox, oy, oz, dx, dy, dz, out,
+                        ints, n, eps, t_max) ||
+      !mesh)  // the walks are for meshes
     return (int)cudaErrorInvalidValue;
-  p.n_obj = n_obj;
-  p.leaf_size = leaf_size;
-  p.oct_nodes = oct_nodes;
-  p.eps = eps;
-  p.t_max = t_max;
   p.mxu = mxu;
-  if (!copy_objects(p, obj_types, group_root, group_end))
-    return (int)cudaErrorInvalidValue;
-  const Rays r{ox, oy, oz, dx, dy, dz, out, idx, n};
   return launch_walk(walk, leaf,
-                     IntersectLaunch{p, r, slot,
-                                     sizeof(float) * (size_t)(n_obj *
+                     IntersectLaunch{p, r, tri,
+                                     sizeof(float) * (size_t)(p.n_obj *
                                                               kObjCols),
                                      (cudaStream_t)stream});
 }

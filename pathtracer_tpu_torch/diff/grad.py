@@ -135,7 +135,7 @@ def render_image_diff(params: SceneParams, scn: SceneArrays,
                 "the wavefront autograd path on the card answers its "
                 "nearest hits with the intersect kernel, which takes scenes "
                 "of planes, spheres, cylinders, boxes and groups only "
-                "(ROADMAP item 12(c))")
+                "(megakernel.supports_intersect)")
     acc = integrator.render_pass(scn, meta, cfg, cam, px, py, 0, n_samples,
                                  key, route)
     return acc * (1.0 / float(n_samples))

@@ -106,7 +106,7 @@ def _check_diff_scene(meta: SceneMeta, cfg: RenderConfig,
             "the JAX package stages, e.g. textures-train); procedural "
             "textures are programs, not parameters")
     if meta.has_groups:
-        mk._check_mesh_knobs()   # the per-thread walk only
+        mk._check_mesh_knobs()   # the per-thread walk only (and mode 3)
 
 
 def _check_grad_args(seed, cam_vec, obj_table, node_table, tri_table,
@@ -170,7 +170,7 @@ def grad_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                          tex=None, tex_table=None):
     """Plain PyTorch version of the gradient kernel: the same arguments and
     results as grad_tiles. The forward replay is trace_tiles_reference
-    itself (spp_pack 1, row axis), which hands over each sample's tape
+    itself (spp_pack 1, row axis, the per-thread walk), which hands over each sample's tape
     ([bounces] of [T*S*L] tensors); the reverse recurrence runs over it
     vectorised in f32 and index_add_ sums the per-object, per-slot and
     per-texel gradients in f64 (millions of terms go into one object's
@@ -250,7 +250,7 @@ def grad_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
         meta=meta,
         cfg=cfg, spp=spp, total_samples=total_samples, tile=tile,
         spp_pack=1, pack_axis="row", sample_tape=backward, counts=counts,
-        tex_table=tex_table, tex_texels=tex)
+        tex_table=tex_table, tex_texels=tex, walk=mk.Walk())
     gcol, gemi = _split(gobj.to(torch.float32))
     if tri_grads:
         return gcol, gemi, gtri.to(torch.float32)

@@ -201,11 +201,14 @@ def mesh_walk() -> Walk:
     return Walk(walk, leaf)
 
 
+_PER_THREAD = Walk()
+
+
 def scene_walk(meta: SceneMeta) -> Walk:
     """The walk a launch on the scene takes: mesh_walk() for a scene with
     meshes, the per-thread walk (the primitives' kernel) otherwise. Read
     once a call, and handed to the table check and the launch."""
-    return mesh_walk() if meta.has_groups else Walk()
+    return mesh_walk() if meta.has_groups else _PER_THREAD
 
 
 _WARP = 32       # lanes of a warp: the packet of the "block"/"warp" walks
@@ -224,15 +227,19 @@ def walk_groups(n: int, walk: Walk, device=None):
 
 
 def _check_mesh_knobs() -> None:
-    """The gradient kernel's check: it replays the per-thread walk only, so
-    the knobs of the other walks raise there rather than being ignored
-    (MXU leaves as the JAX package's differentiable kernel refuses them,
+    """The gradient kernel's check: it replays the per-thread walk only.
+    PT_SUBPACKET=3 passes and runs that walk, as the JAX package's
+    gradient kernel runs its default walk under it (its _packet_traverse
+    reads modes 1 and 2 alone, pallas_kernel.py:1395-1406; mode 3's
+    per-chunk walks are the forward kernel's, :1984-2008). The knobs of
+    the walks it does honour raise rather than being ignored (MXU leaves
+    as the JAX package's differentiable kernel refuses them,
     pallas_grad.py:1151)."""
     if os.environ.get("PT_TRAVERSAL") == "mxu":
         raise NotImplementedError(
             "differentiable megakernel replay is classic-traversal only "
             "(tables are classic layout); unset PT_TRAVERSAL")
-    for var, bad in (("PT_SUBPACKET", ("1", "2", "3")),
+    for var, bad in (("PT_SUBPACKET", ("1", "2")),
                      ("PT_ABLATE_LEAF", ("1",))):
         v = os.environ.get(var, "")
         if v in bad:
@@ -1480,6 +1487,7 @@ def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, shade_table,
     best_t = torch.full_like(ox, _BIG)
     w = torch.full(ox.shape, w0, dtype=torch.int64, device=ox.device)
     on_tri = torch.zeros_like(ox, dtype=torch.bool)
+    walked = torch.zeros_like(on_tri)
     tri_slot = torch.full_like(w, -1)
     tri_nrm = [torch.zeros_like(ox) for _ in range(3)]
     tri_col = [torch.zeros_like(ox) for _ in range(3)]
@@ -1492,6 +1500,7 @@ def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, shade_table,
             # GROUP: object-space bbox pretest, then the walk
             loc = (*_mat12_point(m, ox, oy, oz), *_mat12_vec(m, dx, dy, dz))
             pre = active & _group_pretest(m, eps, *loc, best_t)
+            walked = walked | pre
             root, end = group_bvh[j]
             t_j, *g_tri, g_slot = traverse_reference(
                 node_table, tri_table, shade_table, meta.leaf_size, eps,
@@ -1508,6 +1517,16 @@ def _nearest_hit(obj, meta: SceneMeta, node_table, tri_table, shade_table,
                        for a, b in zip(g_tri[:3], tri_nrm)]
             tri_col = [torch.where(closer, a, b)
                        for a, b in zip(g_tri[3:], tri_col)]
+    if counts is not None and "walk_warps" in counts:
+        # the rays that walk a group, and the warps (32 rays in flat order)
+        # in which some ray does
+        flat = walked.reshape(-1)
+        pad = torch.zeros((-flat.numel()) % 32, dtype=torch.bool,
+                          device=flat.device)
+        warps = torch.cat([flat, pad]).reshape(-1, 32)
+        counts["walk_rays"] += int(flat.sum())
+        counts["walk_warps"] += int(warps.any(dim=1).sum())
+        counts["warps"] += warps.shape[0]
     # the winner's object-space ray: its row's f32 values, by tensor
     won = best_t < _BIG
     rows = torch.tensor(obj, dtype=torch.float32, device=ox.device)[
@@ -1746,7 +1765,8 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                           tile: Tuple[int, int] = (64, 256),
                           spp_pack: int = 1, pack_axis: str = "row",
                           tex_pool=None, tex_table=None, sample_tape=None,
-                          counts: dict = None, tex_texels=None):
+                          counts: dict = None, tex_texels=None,
+                          walk: Walk = None):
     """Plain PyTorch version of the megakernel: the same arguments and
     result as trace_tiles, vectorised over all T*S*L slots, with a Python
     loop over samples and bounces that stops once every ray is dead (dead
@@ -1775,9 +1795,10 @@ def trace_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
     counts (its "shadow_light_missed", "shadow_occluded", "query_*"); a
     ray where it differs from the nearest-hit rule raises RuntimeError.
 
-    A mesh scene walks as mesh_walk() says, each slot in the octant group
-    and packet of the kernel (walk_groups over the T*S*L slots)."""
-    walk = scene_walk(meta)
+    A mesh scene walks as `walk` says (default: scene_walk, the knobs of
+    mesh_walk), each slot in the octant group and packet of the kernel
+    (walk_groups over the T*S*L slots)."""
+    walk = scene_walk(meta) if walk is None else walk
     seed0, sample_base = _check_args(
         seed, cam_vec, obj_table, node_table, tri_table, shade_table, px, py,
         meta, cfg, spp, tile, spp_pack, pack_axis, tex_pool, tex_table,
@@ -2160,13 +2181,11 @@ SIGNATURES = {
         [_P] * 13 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P, _P, _P, _I, _P],
         _I),
-    # the intersect-only kernel, launched by intersect_batch: six ray
-    # arrays, the outputs (the f32 rows, the winners, the triangle slots),
-    # the ray count, the object and mesh tables, the type codes and group
-    # ranges, then n_obj, leaf size, octant node count, eps, t_max and the
-    # stream
-    "pt_intersect_launch": (
-        [_P] * 9 + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P], _I),
+    # the intersect-only kernel, launched by intersect_batch: the scene's
+    # IsectScene (built once, IntersectTables), six ray arrays, the two
+    # output buffers (intersect_outputs), the ray count, eps, t_max and
+    # the stream
+    "pt_intersect_launch": ([_P] * 9 + [_I, _F, _F, _P], _I),
     # the packet walks (Kernels A and B): pt_megakernel_launch's arguments,
     # then the texel pool and texture table (null without textures), the
     # NEE flag, the light count and indices, the MXU fragments (null unless
@@ -2178,8 +2197,7 @@ SIGNATURES = {
     # the intersect kernel on the packet walks: pt_intersect_launch's
     # arguments, then the MXU fragments and the walk and leaf codes
     "pt_intersect_packet_launch": (
-        [_P] * 9 + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P, _P, _I, _I],
-        _I),
+        [_P] * 9 + [_I, _F, _F, _P, _P, _I, _I], _I),
     # the leaf microbenchmark (P3's counterpart), launched by
     # probes/leaf_bench.py: the rays, their outputs, the visit count, the
     # triangle test and shading tables, MXU fragments, leaf size, leaf
@@ -2214,6 +2232,18 @@ SIGNATURES = {
         _I),
 }
 _MAX_OBJECTS = 64   # kMaxObjects of csrc/megakernel.cu
+
+
+class IsectScene(ctypes.Structure):
+    """csrc/megakernel.cu's IsectScene: what a launch of the
+    intersect-only kernel needs of the scene alone (the tables' device
+    addresses, the object count, leaf size and octant node count, the type
+    codes and group ranges)."""
+    _fields_ = [("obj", _P), ("nodes", _P), ("tris", _P), ("shade", _P),
+                ("n_obj", _I), ("leaf_size", _I), ("oct_nodes", _I),
+                ("obj_types", _I * _MAX_OBJECTS),
+                ("group_root", _I * _MAX_OBJECTS),
+                ("group_end", _I * _MAX_OBJECTS)]
 
 
 def library():
@@ -2565,13 +2595,102 @@ def supports_intersect(meta: SceneMeta) -> bool:
     return supports_scene(meta)
 
 
-def intersect_tables(scn: SceneArrays, meta: SceneMeta, device):
+_TABLE_NAMES = ("obj_table", "node_table", "tri_table", "shade_table")
+
+
+class IntersectTables(tuple):
+    """intersect_tables' result: the object table and the mesh tables
+    (nodes, triangle test and shading records), a 4-tuple indexed and
+    unpacked as the tables always were, and beside them what a launch
+    needs of the scene alone, checked and built once: `meta` (the scene
+    they were checked for), `device`, `mesh` (the scene has groups: the
+    kernel's mesh instantiation), `scene` (the kernel's IsectScene: the
+    tables' addresses, the object count, leaf size and octant node count,
+    the type codes and group ranges; `scene_addr` its address) and
+    `walks`, the walks whose table shapes were checked (scene_walk is read
+    at every call: the knobs may change between calls). Raises as
+    intersect_batch's checks do on tables the kernel does not take."""
+
+    def __new__(cls, tables, meta: SceneMeta):
+        self = super().__new__(cls, tables)
+        if not supports_intersect(meta):
+            raise ValueError("intersect_batch takes primitives and groups")
+        self.meta = meta
+        self.device = getattr(self[0], "device", None) if self else None
+        self.mesh = meta.has_groups
+        self.walks = set()
+        self.check(scene_walk(meta), self.device)
+        n_obj = len(meta.obj_types)
+        if not 0 < n_obj <= _MAX_OBJECTS:
+            raise ValueError(f"{n_obj} objects; the kernel takes "
+                             f"1..{_MAX_OBJECTS}")
+        sc = IsectScene(*(t.data_ptr() for t in self), n_obj,
+                        meta.leaf_size,
+                        meta.n_nodes if meta.octant_orders else 0)
+        sc.obj_types[:n_obj] = meta.obj_types
+        sc.group_root[:n_obj] = sc.group_end[:n_obj] = [-1] * n_obj
+        for g, r, e in meta.group_bvh:
+            sc.group_root[g], sc.group_end[g] = r, e
+        self.scene, self.scene_addr = sc, ctypes.addressof(sc)
+        # a scene without groups: its constant triangle outputs, as views
+        # of one value for each ray count (intersect_result)
+        self.constants = {}
+        return self
+
+    def check(self, walk: Walk, device) -> None:
+        """_check_tables for a launch on `walk` on `device`, the tables on
+        the card 16-byte aligned too; then remember the walk."""
+        _check_tables(self, self.meta, walk, device)
+        if device.type == "cuda":
+            _check_aligned(**dict(zip(_TABLE_NAMES[1:], self[1:])))
+        self.walks.add(walk)
+
+
+def _check_tables(tables, meta: SceneMeta, walk: Walk, device) -> None:
+    """Raise unless `tables` are the four contiguous f32 tensors on
+    `device` of the shapes a launch on `walk` reads (_table_shapes)."""
+    if len(tables) != len(_TABLE_NAMES):
+        raise ValueError(f"tables must be {_TABLE_NAMES} (intersect_tables)")
+    for name, t, shape in zip(_TABLE_NAMES, tables,
+                              _table_shapes(meta, walk)):
+        if (not isinstance(t, torch.Tensor) or t.device != device
+                or t.dtype != torch.float32 or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError(f"{name} must be a contiguous f32 {shape} "
+                             f"tensor on {device}")
+
+
+def intersect_tables(scn: SceneArrays, meta: SceneMeta, device
+                     ) -> IntersectTables:
     """The object table and the mesh tables (build_scene_table,
     build_mesh_tables: nodes, triangle test and shading records) as
-    tensors on `device`: build them once and hand them to every
+    tensors on `device`, with the launch constants of the scene
+    (IntersectTables): build them once and hand them to every
     intersect_batch call of a render."""
-    return tuple(torch.from_numpy(t).to(device) for t in (
-        build_scene_table(scn, meta), *build_mesh_tables(scn, meta)))
+    return IntersectTables((torch.from_numpy(t).to(device) for t in (
+        build_scene_table(scn, meta), *build_mesh_tables(scn, meta))), meta)
+
+
+def _check_rays(origin, direction):
+    """The six ray tensors of origin and direction (3-tuples of contiguous
+    f32 [R] tensors of one length on one device); raise on anything
+    else."""
+    if len(origin) != 3 or len(direction) != 3:
+        raise ValueError("origin and direction must be 3-tuples")
+    rays = (*origin, *direction)
+    try:
+        dev, shape = rays[0].device, rays[0].shape
+        ok = len(shape) == 1
+        for t in rays:
+            if (t.dtype is not torch.float32 or t.shape != shape
+                    or not t.is_contiguous() or t.device != dev):
+                ok = False
+    except AttributeError:   # not a tensor
+        ok = False
+    if not ok:
+        raise ValueError("the rays must be contiguous f32 [R] tensors "
+                         "of one length on one device")
+    return rays
 
 
 def _intersect_args(meta: SceneMeta, origin, direction, tables, walk: Walk):
@@ -2579,24 +2698,8 @@ def _intersect_args(meta: SceneMeta, origin, direction, tables, walk: Walk):
     the six ray tensors."""
     if not supports_intersect(meta):
         raise ValueError("intersect_batch takes primitives and groups")
-    if len(origin) != 3 or len(direction) != 3:
-        raise ValueError("origin and direction must be 3-tuples")
-    rays = [*origin, *direction]
-    dev = rays[0].device
-    for t in rays:
-        if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
-                or t.dim() != 1 or not t.is_contiguous() or t.device != dev
-                or t.shape != rays[0].shape):
-            raise ValueError("the rays must be contiguous f32 [R] tensors "
-                             "of one length on one device")
-    names = ("obj_table", "node_table", "tri_table", "shade_table")
-    if len(tables) != len(names):
-        raise ValueError(f"tables must be {names} (intersect_tables)")
-    for name, t, shape in zip(names, tables, _table_shapes(meta, walk)):
-        if (t.device != dev or t.dtype != torch.float32
-                or not t.is_contiguous() or tuple(t.shape) != shape):
-            raise ValueError(f"{name} must be a contiguous f32 {shape} "
-                             f"tensor on {dev}")
+    rays = _check_rays(origin, direction)
+    _check_tables(tables, meta, walk, rays[0].device)
     return rays
 
 
@@ -2605,7 +2708,10 @@ def intersect_batch_reference(scn: SceneArrays, meta: SceneMeta,
                               tables=None, counts: dict = None):
     """Plain PyTorch version of intersect_batch: the same arguments and
     result, through _nearest_hit. `counts`, when given, gains "rays",
-    "node_visits", "leaf_slots" and "tri_hits" (rays a triangle won)."""
+    "node_visits", "leaf_slots", "tri_hits" (rays a triangle won),
+    "walk_rays" (rays whose pretest of some group passes, so that they walk
+    it), "warps" and "walk_warps" (the warps, 32 rays in flat order, in
+    which some ray walks)."""
     dev = origin[0].device
     if tables is None:
         tables = intersect_tables(scn, meta, dev)
@@ -2614,7 +2720,8 @@ def intersect_batch_reference(scn: SceneArrays, meta: SceneMeta,
                                              walk)
     obj = tables[0].detach().cpu().tolist()
     if counts is not None:
-        for k in ("rays", "node_visits", "leaf_slots", "tri_hits"):
+        for k in ("rays", "node_visits", "leaf_slots", "tri_hits",
+                  "walk_rays", "warps", "walk_warps"):
             counts.setdefault(k, 0)
         counts["rays"] += ox.numel()
     t, w, loc, on_tri, slot, nrm, col = _nearest_hit(
@@ -2629,6 +2736,74 @@ def intersect_batch_reference(scn: SceneArrays, meta: SceneMeta,
     return (torch.clamp(t, max=cfg.t_max), w.to(torch.int32), tuple(loc[:3]),
             tuple(loc[3:]), on_tri, nrm, col,
             torch.where(on_tri, slot, -1).to(torch.int32))
+
+
+def intersect_outputs(n: int, tables: IntersectTables):
+    """The kernel's outputs for n rays, two buffers (csrc/megakernel.cu
+    intersect_params): f32 [13, n], the rows t, the object-space origin and
+    direction, the triangle normal and color, and i32 [3, n], the winners,
+    the triangle slots and the triangle flags (u8, the third row's first n
+    bytes); on a scene without groups, whose kernel stores no triangle
+    output, f32 [7, n] and i32 [1, n]. The integers have a buffer of their
+    own because autograd keeps the winners (an index) and the flags (a
+    condition) of every bounce of a differentiable pass, and a view keeps
+    its whole buffer alive."""
+    mesh, dev = tables.mesh, tables.device
+    return (torch.empty((13 if mesh else 7, n), dtype=torch.float32,
+                        device=dev),
+            torch.empty((3 if mesh else 1, n), dtype=torch.int32,
+                        device=dev))
+
+
+def intersect_result(bufs, tables: IntersectTables):
+    """intersect_batch's result from the buffers of intersect_outputs:
+    views of them; on a scene without groups the triangle normal and
+    color, flag and slot are stride-0 views of one zero, False and -1,
+    made once for each ray count (an in-place write on them raises)."""
+    f, i = bufs
+    t, ox, oy, oz, dx, dy, dz, *tri = f.unbind(0)
+    if tables.mesh:
+        nx, ny, nz, cr, cg, cb = tri
+        idx, slot, flag = i.unbind(0)
+        flag = flag.view(torch.uint8)[:f.shape[1]].view(torch.bool)
+        return (t, idx, (ox, oy, oz), (dx, dy, dz), flag, (nx, ny, nz),
+                (cr, cg, cb), slot)
+    n = f.shape[1]
+    const = tables.constants.get(n)
+    if const is None:
+        dev = tables.device
+        zero = torch.zeros((), dtype=torch.float32, device=dev).expand(n)
+        const = tables.constants[n] = (
+            torch.zeros((), dtype=torch.bool, device=dev).expand(n),
+            (zero, zero, zero),
+            torch.full((), -1, dtype=torch.int32, device=dev).expand(n))
+    no_tri, zeros, no_slot = const
+    return (t, i[0], (ox, oy, oz), (dx, dy, dz), no_tri, zeros, zeros,
+            no_slot)
+
+
+def _raw_stream(device) -> int:
+    """The current CUDA stream of `device`, as the address that
+    torch.cuda.current_stream(device).cuda_stream gives, without building
+    the Stream object (a twentieth of its host time on the H100's host)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def intersect_launch_args(tables: IntersectTables, rays, bufs, eps: float,
+                          t_max: float, walk: Walk):
+    """(C entry, its arguments) of one launch of the intersect kernel on
+    the six ray tensors `rays` into `bufs` (intersect_outputs) on `walk`,
+    on the current stream of the tables' device: fn(*args) launches it
+    and returns the CUDA error code. Built once, the call launches again
+    with nothing rebuilt (chip_smoke.py times the kernel alone so)."""
+    f, i = bufs
+    args = (tables.scene_addr, *(t.data_ptr() for t in rays), f.data_ptr(),
+            i.data_ptr(), f.shape[1], eps, t_max, _raw_stream(tables.device))
+    if walk == _PER_THREAD:
+        return library().pt_intersect_launch, args
+    return library().pt_intersect_packet_launch, (
+        *args, mxu_ptr(tables[2], tables.meta, walk), WALK_CODES[walk.walk],
+        LEAF_CODES[walk.leaf])
 
 
 def intersect_batch(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
@@ -2649,45 +2824,41 @@ def intersect_batch(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
     thread a ray, and count the launch in intersect_batch.launches (a mesh
     scene under the knobs of mesh_walk: the packet walks, also in
     .packet_launches and, with MXU leaves, .mma_launches); CPU tensors run
-    intersect_batch_reference."""
+    intersect_batch_reference.
+
+    On the card a call checks the rays, allocates the outputs (two
+    buffers) and makes one ctypes call: what depends on the scene alone is
+    built and checked once, by intersect_tables (tables given as a plain
+    4-tuple are checked and built on each call). The walk knobs are read
+    at every call. On a scene without groups the kernel stores no
+    triangle output: is_tri, tri_normal, tri_color and tri_slot are
+    stride-0 views of False, 0 and -1 there."""
     dev = origin[0].device
     if tables is None:
         tables = intersect_tables(scn, meta, dev)
     if dev.type != "cuda":
         return intersect_batch_reference(scn, meta, cfg, origin, direction,
                                          tables)
-    walk = scene_walk(meta)
-    rays = _intersect_args(meta, origin, direction, tables, walk)
-    _check_aligned(node_table=tables[1], tri_table=tables[2],
-                   shade_table=tables[3])
-    n_obj = len(meta.obj_types)
-    if not 0 < n_obj <= _MAX_OBJECTS:
-        raise ValueError(f"{n_obj} objects; the kernel takes 1..{_MAX_OBJECTS}")
-    n = rays[0].numel()
+    if type(tables) is not IntersectTables or (tables.meta is not meta
+                                               and tables.meta != meta):
+        tables = IntersectTables(tables, meta)
+    walk = scene_walk(meta) if tables.mesh else _PER_THREAD
+    if walk not in tables.walks:
+        tables.check(walk, tables.device)
+    rays = _check_rays(origin, direction)
+    if rays[0].device != tables.device:
+        _check_tables(tables, meta, walk, rays[0].device)
+    n = rays[0].shape[0]
     if n > 2 ** 31 - 128:
         raise ValueError(f"{n} rays; the kernel takes at most 2^31 - 128")
-    lib = library()
-    out = torch.empty((14, n), dtype=torch.float32, device=dev)
-    idx = torch.empty((n,), dtype=torch.int32, device=dev)
-    slot = torch.empty((n,), dtype=torch.int32, device=dev)
-    types = (_I * n_obj)(*meta.obj_types)
-    roots = (_I * n_obj)(*([-1] * n_obj))
-    ends = (_I * n_obj)(*([-1] * n_obj))
-    for g, r, e in meta.group_bvh:
-        roots[g], ends[g] = r, e
-    with torch.cuda.device(dev):
-        args = (*(t.data_ptr() for t in rays), out.data_ptr(), idx.data_ptr(),
-                slot.data_ptr(), n, tables[0].data_ptr(), types, tables[1].data_ptr(),
-                tables[2].data_ptr(), tables[3].data_ptr(), roots, ends,
-                n_obj, meta.leaf_size,
-                meta.n_nodes if meta.octant_orders else 0, cfg.epsilon,
-                cfg.t_max, torch.cuda.current_stream(dev).cuda_stream)
-        if walk != Walk():
-            err = lib.pt_intersect_packet_launch(
-                *args, mxu_ptr(tables[2], meta, walk), WALK_CODES[walk.walk],
-                LEAF_CODES[walk.leaf])
-        else:
-            err = lib.pt_intersect_launch(*args)
+    bufs = intersect_outputs(n, tables)
+    fn, args = intersect_launch_args(tables, rays, bufs, cfg.epsilon,
+                                     cfg.t_max, walk)
+    if torch.cuda.current_device() == tables.device.index:
+        err = fn(*args)
+    else:
+        with torch.cuda.device(tables.device):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"intersect launch failed: CUDA error {err}")
     intersect_batch.launches += 1
@@ -2695,9 +2866,7 @@ def intersect_batch(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
         intersect_batch.packet_launches += 1
     if walk.leaf == "mma":
         intersect_batch.mma_launches += 1
-    return (out[0], idx, (out[1], out[2], out[3]), (out[4], out[5], out[6]),
-            out[7] > 0.5, (out[8], out[9], out[10]), (out[11], out[12], out[13]),
-            slot)
+    return intersect_result(bufs, tables)
 
 
 intersect_batch.launches = 0

@@ -342,6 +342,32 @@ def test_grad_kernel_matches_plain(dev, name, aperture, base, tri):
     grad_rule(got, want, meta.has_groups)
 
 
+def test_grad_kernel_under_mode_3(dev, monkeypatch):
+    # PT_SUBPACKET=3 passes the gradient path's check and runs the
+    # per-thread walk, as the JAX gradient kernel runs its default walk
+    # under it: the plain version's gradients are bit-equal to those with
+    # the variable unset; the kernel's, whose atomic adds land in another
+    # order from launch to launch, are held to the gradient rule against
+    # the unset launch and against the plain version
+    tabs, meta, _, _, cfg, cots = _grad_case("teapot", dev, width=160,
+                                             height=120, samples=4)
+    kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4, tile=(8, 512),
+              tri_grads=True)
+    monkeypatch.delenv("PT_SUBPACKET", raising=False)
+    want = tg.grad_tiles((5, 0), *tabs, *cots, **kw)
+    want_plain = tg.grad_tiles_reference((5, 0), *tabs, *cots, **kw)
+    monkeypatch.setenv("PT_SUBPACKET", "3")
+    before = tg.grad_tiles.tri_launches
+    got = tg.grad_tiles((5, 0), *tabs, *cots, **kw)
+    assert tg.grad_tiles.tri_launches == before + 1
+    got_plain = tg.grad_tiles_reference((5, 0), *tabs, *cots, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got_plain, want_plain):
+        assert torch.equal(a, b)
+    grad_rule(got, want, True)
+    grad_rule(got, got_plain, True)
+
+
 @pytest.mark.parametrize("name,mode", [
     ("reference", "object"), ("teapot", "triangle"),
     ("size-check", "triangle"), ("textures-train", "texel")])

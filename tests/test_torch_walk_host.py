@@ -128,14 +128,47 @@ def test_knobs_select_the_walks(monkeypatch, env, walk):
 
 
 @pytest.mark.parametrize("env,match", [
-    ({"PT_SUBPACKET": "2"}, "item 17"), ({"PT_SUBPACKET": "3"}, "item 17"),
+    ({"PT_SUBPACKET": "2"}, "item 17"), ({"PT_SUBPACKET": "1"}, "item 17"),
     ({"PT_ABLATE_LEAF": "1"}, "item 17"),
-    ({"PT_TRAVERSAL": "mxu"}, "classic-traversal only")])
+    ({"PT_TRAVERSAL": "mxu"}, "classic-traversal only"),
+    # mode 3 passes: the JAX gradient kernel runs its default walk under it
+    # (its _packet_traverse reads modes 1 and 2 alone)
+    ({"PT_SUBPACKET": "3"}, None)])
 def test_gradient_kernel_refuses_the_walk_knobs(monkeypatch, env, match):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
+    if match is None:
+        mk._check_mesh_knobs()
+        return
     with pytest.raises(NotImplementedError, match=match):
         mk._check_mesh_knobs()
+
+
+def test_gradient_under_mode_3_is_the_per_thread_walks(monkeypatch):
+    """The gradient's plain version on a small `teapot` under
+    PT_SUBPACKET=3 equals the gradient with the variable unset, bit for
+    bit: object and triangle colors, through make_diff_render_tri's
+    checks (which mode 3 passes) and grad_tiles."""
+    from _torch_scenes import grad_inputs
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.render import grad as tg
+    from pathtracer_tpu_torch.scenes import get_scene
+    cfg = RenderConfig(width=64, height=48, samples=2, samples_per_pass=2)
+    tabs, meta, _, _ = grad_inputs(get_scene("teapot", cfg), cfg, (8, 128),
+                                   CPU)
+    rng = np.random.default_rng(5)
+    cots = [torch.from_numpy(rng.random(tabs[-2].shape, dtype=np.float32))
+            for _ in range(3)]
+    kw = dict(meta=meta, cfg=cfg, spp=2, total_samples=2, tile=(8, 128),
+              tri_grads=True)
+    monkeypatch.delenv("PT_SUBPACKET", raising=False)
+    want = tg.grad_tiles((7, 0), *tabs, *cots, **kw)
+    monkeypatch.setenv("PT_SUBPACKET", "3")
+    tg.make_diff_render_tri(meta, cfg, 2, (8, 128))
+    got = tg.grad_tiles((7, 0), *tabs, *cots, **kw)
+    assert len(got) == 3 and float(got[2].abs().max()) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_group_octant_is_the_majority_of_the_active_rays():

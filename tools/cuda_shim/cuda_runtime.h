@@ -37,7 +37,7 @@
 struct float4 { float x, y, z, w; };
 struct int4 { int x, y, z, w; };
 struct dim3 { unsigned x = 1, y = 1, z = 1; };
-inline thread_local dim3 threadIdx, blockIdx, blockDim;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline int4 make_int4(int a, int b, int c, int d) { return {a, b, c, d}; }
 template <class T> T __ldg(const T* p) { return *p; }
@@ -97,6 +97,7 @@ inline int __syncthreads_count(int p) {
 }
 inline int __syncthreads_or(int p) { return __syncthreads_count(p) != 0; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline float __int_as_float(int i) { return from_bits<float>((uint32_t)i); }
 inline int __float_as_int(float f) { return (int)(uint32_t)to_bits(f); }
 inline float __uint_as_float(unsigned i) { return from_bits<float>(i); }
@@ -153,12 +154,27 @@ inline void shim_dmma16(double (&d)[4], double a0, double a1, double b) {
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// a card of 2 SMs that each hold 2 blocks, so that a grid sized to the
+// resident blocks loops over many blocks' rays
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2; return cudaSuccess;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int,
+                                                          size_t) {
+  *n = 2; return cudaSuccess;
+}
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n); return cudaSuccess;
+}
 inline void shim_launch(int g, int b, std::function<void()> f) {
   for (int bx = 0; bx < g; ++bx) {
     Block blk(b);
     std::vector<std::thread> ts;
     for (int t = 0; t < b; ++t)
-      ts.emplace_back([&, t] { threadIdx.x = t; blockIdx.x = bx; blockDim.x = b; tl_block = &blk; f(); });
+      ts.emplace_back([&, t] { threadIdx.x = t; blockIdx.x = bx; blockDim.x = b; gridDim.x = g; tl_block = &blk; f(); });
     for (auto& th : ts) th.join();
   }
 }

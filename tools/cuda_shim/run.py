@@ -6,7 +6,10 @@ own wrappers on CPU tensors, against the plain versions, bit for bit.
 
 TREE holds a pathtracer_tpu_torch (`.` for this checkout). Cases: `thread`,
 `mode2`, `mode3`, `mxu` render a scene through trace_tiles (the walk's
-knobs set) and through trace_tiles_reference; `pairs` holds Kernel B's
+knobs set) and through trace_tiles_reference; `isect` runs the
+intersect-only kernel through intersect_batch on camera rays and one
+bounce from their hits against intersect_batch_reference (all 16
+outputs); `pairs` holds Kernel B's
 leaf (leaf_bench `pairs` and `mma`) to its plain version on teapot's
 leaves of 4, 8, 16 and 32. Environment: SCENE (teapot; `size` for the
 size-check mesh, or any scene name), W, H (32, 16), NEE=1, LEAF (the
@@ -32,7 +35,8 @@ from pathtracer_tpu_torch.config import RenderConfig  # noqa: E402
 from pathtracer_tpu_torch.probes import leaf_bench  # noqa: E402
 from pathtracer_tpu_torch.render import megakernel as mk  # noqa: E402
 from pathtracer_tpu_torch.scenes import get_scene  # noqa: E402
-from _torch_scenes import port_inputs, size_check_scene  # noqa: E402
+from _torch_scenes import (bounce_rays, camera_rays,  # noqa: E402
+                           port_inputs, size_check_scene)
 
 _f = {n: getattr(torch, n) for n in ("sin", "cos", "sqrt")}
 
@@ -60,6 +64,8 @@ class _Stream:
 
 torch.cuda.device = lambda d: contextlib.nullcontext()
 torch.cuda.current_stream = lambda d=None: _Stream()
+torch.cuda.current_device = lambda: None   # a CPU device's index
+mk._raw_stream = lambda device: None
 
 
 def _on_cpu(fn, var):
@@ -72,6 +78,7 @@ def _on_cpu(fn, var):
 
 
 trace = _on_cpu(mk.trace_tiles, "px")
+isect = _on_cpu(mk.intersect_batch, "dev")
 ENV = {"mode2": {"PT_SUBPACKET": "2"}, "mode3": {"PT_SUBPACKET": "3"},
        "mxu": {"PT_TRAVERSAL": "mxu"}, "thread": {}}
 W, H = int(os.environ.get("W", 32)), int(os.environ.get("H", 16))
@@ -96,6 +103,31 @@ for case in cases:
                                                           ps.long()))
             print(f"pairs and mma, leaf {K}: bit-equal {ok}", flush=True)
             fails += not ok
+        continue
+    if case == "isect":
+        # K5 on camera rays and one bounce from their hits: all 16 outputs
+        if os.environ.get("LEAF"):
+            os.environ["PT_BVH_LEAF"] = os.environ["LEAF"]
+        cfg = RenderConfig(width=W, height=H, samples=2)
+        sc = (size_check_scene(cfg, get_scene) if scene == "size"
+              else get_scene(scene, cfg))
+        arrays, meta = sc.pack(device="cpu")
+        tables = mk.intersect_tables(arrays, meta, "cpu")
+        gen = torch.Generator().manual_seed(0)
+        o, d = camera_rays(sc.camera, W, H, 2, gen)
+        for batch in range(2):
+            got = isect(arrays, meta, cfg, o, d, tables=tables)
+            want = mk.intersect_batch_reference(arrays, meta, cfg, o, d,
+                                                tables)
+            flat = [[x for r in res for x in (r if isinstance(r, tuple)
+                                              else (r,))]
+                    for res in (got, want)]
+            bad = [i for i, (a, b) in enumerate(zip(*flat))
+                   if not torch.equal(a, b)]
+            print(f"isect {scene} batch {batch} ({o[0].numel()} rays): "
+                  f"{len(flat[0])} outputs, differing {bad}", flush=True)
+            fails += bool(bad) or len(flat[0]) != 16
+            o, d = bounce_rays(o, d, want[0], cfg.t_max, gen)
         continue
     os.environ.update(ENV[case])
     if os.environ.get("LEAF"):
