@@ -134,7 +134,23 @@ built once) and the launcher's host time a call; the A/B runs K5 on the
 AD step's 1,228,800-ray batches too. `--k5-only` runs K5's split on the
 main paths' bounce-1 rays (this tree and the trees of `--k5-split DIR`,
 e.g. tools/k5_variants.py's copies), the launcher's host time step by
-step, and the A/B of `--ab-parent` and `--ab-chain` on K5_AB_CASES. It
+step, and the A/B of `--ab-parent` and `--ab-chain` on K5_AB_CASES.
+Phase 13 (`--dist-only` alone) runs the multi-GPU paths (parallel/) at
+W x H: (a) one rank over NCCL through the CLI's --distributed on
+`reference` at 2048 spp, bit-equal to the single-device driver; then two
+ranks that share the one card over gloo (NCCL takes one rank a device),
+this script started twice (`--dist-rank`) through PT_COORDINATOR,
+PT_NUM_PROCESSES and PT_PROCESS_ID: (b) the CLI under --mesh 2x1 and 1x2
+on `reference`, 1x2 on `teapot`, 2x1 on `textures` at 2048 spp, both
+ranks' frames identical and bit-equal to one process playing both ranks
+(parallel.mesh.LogicalMesh) on the card, with walls, all-reduce and
+all-gather times and Msamples/s; (c) make_sharded_megakernel_step on
+`reference` at 32 spp a step over 1x2 (ranks identical, the gradient
+within the rule of one process, the loss falling over 5 steps); (d)
+make_sharded_train_step at 1280x960x1 over 2x1 (ranks identical, the
+rule, peak memory a rank); (e) the driver under --mesh 1x2 with a
+checkpoint, stopped halfway and resumed bit-equal, a resume under 2x1
+refused. One card measures no multi-card speed-up. It
 prints one JSON line of kernel results, each with its bound (the least
 time the card could take for the same work, from the work the plain
 version counts in this run), and, last, one JSON line naming the device.
@@ -158,6 +174,8 @@ import io
 import json
 import os
 import re
+import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -170,13 +188,18 @@ import torch
 
 from pathtracer_tpu_torch import bench, cli, train_demo
 from pathtracer_tpu_torch.config import RenderConfig
+from pathtracer_tpu_torch.driver import render_driver
 from pathtracer_tpu_torch.diff import (extract_params, loss_and_grads,
                                        make_megakernel_step,
                                        make_megakernel_step_tri,
+                                       make_sharded_megakernel_step,
+                                       make_sharded_train_step,
                                        render_image_diff,
                                        restore_train_state)
 from pathtracer_tpu_torch.geometry import transforms as gx
 from pathtracer_tpu_torch.io.raw import read_raw
+from pathtracer_tpu_torch.parallel import mesh as dist_mesh
+from pathtracer_tpu_torch.parallel.mesh import LogicalMesh
 from pathtracer_tpu_torch.probes import leaf_bench, op_rate
 from pathtracer_tpu_torch.render import _build
 from pathtracer_tpu_torch.render import grad as tg
@@ -193,7 +216,8 @@ from pathtracer_tpu_torch.scenes import cornell, get_scene
 # the test suite's synthetic scenes and per-slot rule (jax-free helpers)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
-from _torch_scenes import (ATOL, MEAN_REL, RTOL, SLOT_FRAC,  # noqa: E402
+from _torch_scenes import (ATOL, GRAD_REL, MEAN_REL, RTOL,  # noqa: E402
+                           SLOT_FRAC,
                            bounce_rays, camera_rays, cylinder_scene,
                            filter_cases, grad_inputs, grad_rule,
                            one_warp_live, port_inputs,
@@ -3927,6 +3951,505 @@ def k5_only(args, dev, card, ptxas):
     phase(f"k5-only: done; A/B cases whose outputs differ: {differ}")
 
 
+# ---- phase 13: multi-GPU rendering and training (parallel/) ---------------
+# Ranks of a torch.distributed group: 13a one rank over NCCL through the
+# CLI's --distributed; 13b-e two ranks sharing the one card over gloo
+# (NCCL takes one rank a device), started by this script through
+# PT_COORDINATOR, PT_NUM_PROCESSES and PT_PROCESS_ID, each running
+# dist_phase's list of jobs through the entry points a user calls
+# (`--dist-rank SPEC`).
+# Every rank's result is held against one process playing every rank on
+# the card (parallel.mesh.LogicalMesh). The card machine has one H100: the
+# walls time the sharded path's work and its collectives, not a speed-up
+# from more cards.
+DIST_RENDERS = (("2x1", "reference"), ("1x2", "reference"),
+                ("1x2", "teapot"), ("2x1", "textures"))   # 13b, at W x H x SPP
+DIST_STEP_MESH = "1x2"       # 13c: make_sharded_megakernel_step, STEP_SPP
+DIST_STEPS = 5
+DIST_STEP_SEEDS = (1, 2, 3, 4)   # 13c: one descent from each seed pair (k, 0)
+DIST_STEP_LR = 1.0
+DIST_TARGET_SPP = 256        # 13c's target: the true colors under another seed
+DIST_TRAIN_MESH = "2x1"      # 13d: make_sharded_train_step at W x H x 1
+DIST_TRAIN_LR = 0.05
+DIST_TRAIN_REPEATS = 3       # 13d: one-process steps, their own spread
+DIST_CK = ("1x2", "2x1", 256, 4, 16)   # 13e: mesh, other mesh, spp, every,
+                                       # the chunk the run stops at
+DIST_TIMEOUT = 600.0
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def reset_launches() -> None:
+    for k in ("launches", "mesh_launches", "tex_launches", "nee_launches",
+              "packet_launches", "mma_launches", "ablate_launches"):
+        setattr(mk.trace_tiles, k, 0)
+    tg.grad_tiles.launches = 0
+    mk.intersect_batch.launches = 0
+
+
+def launches() -> dict:
+    return dict(k1=mk.trace_tiles.launches,
+                k1_mesh=mk.trace_tiles.mesh_launches,
+                k1_tex=mk.trace_tiles.tex_launches,
+                k6=tg.grad_tiles.launches, k5=mk.intersect_batch.launches)
+
+
+def dist_cli(job: dict):
+    """cli.main(job["args"]) under job["env"], the launch counts and the
+    collectives' times set to 0 just before; the image the driver returned
+    is kept (every rank's, though rank 0 alone writes it). An exception
+    is returned as its text."""
+    from pathtracer_tpu_torch import driver
+
+    box, orig = {}, driver.render_driver
+
+    def keep(*a, **kw):
+        box["img"], box["stats"] = orig(*a, **kw)
+        return box["img"], box["stats"]
+
+    reset_launches()
+    dist_mesh.reset_collective_time()
+    res = dict(error=None, rc=None)
+    t0 = time.perf_counter()
+    driver.render_driver = keep
+    try:
+        with env_vars(job.get("env", {})):
+            res["rc"] = cli.main(job["args"])
+    except Exception as e:      # noqa: BLE001 - returned to the caller
+        res["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        driver.render_driver = orig
+    res.update(wall_s=time.perf_counter() - t0, launches=launches(),
+               collective_s=dict(dist_mesh.COLLECTIVE_S))
+    if "stats" in box:
+        s = box["stats"]
+        res.update(render_wall_s=s.wall_s, msamples_per_s=s.msamples_per_sec,
+                   backend=s.backend, segments=s.segments)
+    return res, ({"img": box["img"]} if "img" in box else {})
+
+
+def dist_step(dev, mesh, seeds=DIST_STEP_SEEDS):
+    """13c: DIST_STEPS steps of make_sharded_megakernel_step on `reference`
+    at W x H, STEP_SPP samples a step, from the diffuse colors halved
+    toward the true-color image at DIST_TARGET_SPP under another seed (no
+    common random numbers: the spp ranks draw apart, and each rank's loss
+    keeps its estimate's variance, which the emission's gradient pulls
+    down; phase 7's small perturbation at its step size would not show
+    through it), once from each seed pair (k, 0) of `seeds`, each from the
+    same start. Returns ({each run's losses and step times},
+    {colors, emissions} [seed, step, ...], the start first)."""
+    cfg = RenderConfig(width=W, height=H, samples=SPP)
+    sc = get_scene("reference", cfg)
+    tabs, meta, arr, pid = grad_inputs(sc, cfg, GRAD_TILE, dev)
+    step, target_of = make_sharded_megakernel_step(
+        arr, meta, cfg, sc.camera, mesh, spp=STEP_SPP, lr=DIST_STEP_LR)
+    target = target_of(crn_target(tabs, meta, cfg, pid, (11, 0),
+                                  DIST_TARGET_SPP))
+    c0 = arr.color.clone()
+    c0[~arr.emission.any(dim=1)] *= 0.5
+    runs, cols, emis = [], [], []
+    reset_launches()
+    for k in seeds:
+        c, e = c0, arr.emission
+        cs, es, losses, times = [c], [e], [], []
+        for _ in range(DIST_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c, e, loss = step(c, e, (k, 0), target)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+            cs.append(c)
+            es.append(e)
+        runs.append(dict(seed=k, losses=losses, step_s=times))
+        cols.append(torch.stack(cs))
+        emis.append(torch.stack(es))
+    return (dict(runs=runs, launches=launches()),
+            dict(colors=torch.stack(cols).cpu().numpy(),
+                 emissions=torch.stack(emis).cpu().numpy()))
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic kernels (no atomic adds in the backward), the
+    warnings of ops that have none kept in the returned list."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield caught
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def dist_train(dev, mesh, repeats=1):
+    """13d: one step of make_sharded_train_step (the wavefront autograd
+    path, K5 on every bounce) on `reference` at W x H x 1 toward a gray
+    target: timed with its peak memory, then `repeats` - 1 times more, then
+    once under torch's deterministic kernels. Returns ({loss, wall, peak,
+    launches of the first, the deterministic mode's warnings}, {the new
+    color and emission of each default-mode step [repeats, ...], and of
+    the deterministic one})."""
+    cfg = RenderConfig(width=W, height=H, samples=1, samples_per_pass=1)
+    sc = get_scene("reference", cfg)
+    arr, meta = sc.pack(device=dev)
+    cam = sc.camera.pack(torch.float32, dev)
+    px, py = integrator.pixel_grid(W, 0, H, dev)
+    target = Vec3(*(torch.full((W * H,), 0.5, device=dev)
+                    for _ in range(3)))
+    p = extract_params(arr)._replace(tri_color=None, tex_planar=None,
+                                     tex_sphere=None, tex_cube=None)
+    step = make_sharded_train_step(
+        mesh, meta, cfg, n_samples=1, lr=DIST_TRAIN_LR,
+        route=integrator.intersect_route(arr, meta, cfg))
+    news = []
+    for i in range(repeats):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if i == 0:
+            reset_launches()
+        t0 = time.perf_counter()
+        new, loss = step(p, arr, cam, px, py, target, threefry.prng_key(3))
+        loss = float(loss)
+        news.append(new)
+        if i == 0:
+            res = dict(loss=loss, wall_s=time.perf_counter() - t0,
+                       launches=launches(),
+                       peak_bytes=torch.cuda.max_memory_allocated(dev))
+    with deterministic() as caught:
+        det, _ = step(p, arr, cam, px, py, target, threefry.prng_key(3))
+        torch.cuda.synchronize()
+    res["det_warnings"] = sorted({str(w.message)[:160] for w in caught})
+    return res, dict(
+        color=torch.stack([n.color for n in news]).cpu().numpy(),
+        emission=torch.stack([n.emission for n in news]).cpu().numpy(),
+        det_color=det.color.cpu().numpy(),
+        det_emission=det.emission.cpu().numpy())
+
+
+def dist_rank(spec_path: str) -> int:
+    """One rank of phase 13 (`--dist-rank SPEC`): SPEC's jobs in order, each
+    joining its own group (a CLI job through PT_COORDINATOR, a step
+    through parallel.initialize_multihost); writes their results to
+    SPEC's out (.json and .npz)."""
+    from pathtracer_tpu_torch.parallel import (global_render_mesh,
+                                               initialize_multihost)
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, world = spec["rank"], spec["world"]
+    results, arrays = [], {}
+    for i, job in enumerate(spec["jobs"]):
+        coord = f"127.0.0.1:{job['port']}"
+        if job["kind"] == "cli":
+            with env_vars({"PT_COORDINATOR": coord,
+                           "PT_NUM_PROCESSES": str(world),
+                           "PT_PROCESS_ID": str(rank)}):
+                res, arrs = dist_cli(job)
+        else:
+            dev = initialize_multihost(coord, world, rank)
+            try:
+                mesh = global_render_mesh(dist_mesh.parse_mesh(job["mesh"]))
+                res, arrs = (dist_step if job["kind"] == "step"
+                             else dist_train)(dev, mesh)
+            finally:
+                torch.distributed.destroy_process_group()
+        results.append(res)
+        arrays.update({f"{i}_{k}": v for k, v in arrs.items()})
+        print(f"rank {rank}: job {i} ({job['kind']}) done", flush=True)
+    with open(spec["out"] + ".json", "w") as f:
+        json.dump(results, f)
+    np.savez(spec["out"] + ".npz", **arrays)
+    return 0
+
+
+def dist_run_ranks(jobs: list, tmp: str) -> list:
+    """Start this script as ranks 0 and 1 of a gloo group on the card
+    (PT_DIST_BACKEND=gloo), running `jobs`; wait for both, within
+    DIST_TIMEOUT or both are killed. Returns each rank's (results,
+    arrays)."""
+    procs, outs = [], []
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PT_")}
+    env["PT_DIST_BACKEND"] = "gloo"
+    for rank in range(2):
+        out = os.path.join(tmp, f"rank{rank}")
+        spec = dict(rank=rank, world=2, jobs=jobs, out=out)
+        path = out + ".spec.json"
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank", path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env))
+        outs.append(out)
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 13: rank {rank} failed:\n"
+                                 f"{log[-4000:]}")
+    got = []
+    for out in outs:
+        with open(out + ".json") as f:
+            res = json.load(f)
+        with np.load(out + ".npz") as z:
+            got.append((res, {k: z[k] for k in z.files}))
+    return got
+
+
+def dist_cli_args(tmp: str, tag: str, scene: str, mesh: str, spp: int,
+                  extra=()):
+    return ["--scene", scene, "--width", str(W), "--height", str(H),
+            "--samples", str(spp), "--mesh", mesh,
+            "--raw-output", os.path.join(tmp, f"{tag}.raw"),
+            "--output", os.path.join(tmp, f"{tag}.png"), *extra]
+
+
+def logical_render(scene: str, shape: str, spp: int, dev, **driver_kw):
+    """The driver's render of `scene` at W x H x spp (the CLI's config) on
+    one process playing every rank of the mesh, on the card."""
+    cfg = RenderConfig(width=W, height=H, samples=spp)
+    sc = get_scene(scene, cfg)
+    arr, meta = sc.pack(device=dev)
+    mesh = None if shape is None else LogicalMesh(dist_mesh.parse_mesh(shape))
+    return render_driver(arr, meta, sc.camera, cfg, mesh=mesh, **driver_kw)
+
+
+def same(tag: str, a, b) -> None:
+    if a.shape != b.shape or not np.array_equal(a, b):
+        raise AssertionError(f"{tag}: not bit-equal")
+
+
+def dist_phase(dev, card) -> dict:
+    """Phase 13 (`--dist-only` alone): the multi-GPU paths at W x H, each
+    launch count set to 0 just before its run. Returns the results by
+    part (a-e) and the sharded launches by kernel."""
+    out, tmp = {}, tempfile.mkdtemp(prefix="pt_dist_")
+    try:
+        # 13a: one rank over NCCL, --distributed (the 1x1 mesh), which on
+        # `reference` is the single-device render bit for bit (same seeds,
+        # same layout without packing)
+        with env_vars({"PT_COORDINATOR": f"127.0.0.1:{free_port()}",
+                       "PT_NUM_PROCESSES": "1", "PT_PROCESS_ID": "0"},
+                      unset=("PT_DIST_BACKEND",)):
+            res, arrs = dist_cli({"args": [
+                "--scene", "reference", "--width", str(W), "--height", str(H),
+                "--samples", str(SPP), "--distributed",
+                "--raw-output", os.path.join(tmp, "a.raw"),
+                "--output", os.path.join(tmp, "a.png")]})
+        if res["error"] or res["rc"] != 0:
+            raise AssertionError(f"phase 13a: {res}")
+        if res["backend"] != "megakernel@1x1":
+            raise AssertionError(f"phase 13a: backend {res['backend']}")
+        check_image("phase 13a", arrs["img"])
+        same("phase 13a: --distributed against the single-device driver",
+             arrs["img"], logical_render("reference", None, SPP, dev)[0])
+        phase(f"phase 13a: reference {W}x{H}x{SPP} --distributed, one rank "
+              f"over nccl: {res['backend']}, {res['msamples_per_s']:.1f} "
+              f"Msamples/s (driver wall {res['render_wall_s']:.3f} s, CLI "
+              f"{res['wall_s']:.3f} s), {res['launches']['k1']} K1 launches;"
+              f" bit-equal to the single-device driver; card {card}")
+        out["a"] = res
+
+        # 13b-e: two ranks on the card over gloo, one job list
+        k_mesh, k_other, k_spp, k_every, k_stop = DIST_CK
+        ck = os.path.join(tmp, "ck.npz")
+        ck_args = ["--checkpoint", ck, "--checkpoint-every", str(k_every)]
+        jobs = [dict(kind="cli", args=dist_cli_args(tmp, f"b{i}", s, m, SPP))
+                for i, (m, s) in enumerate(DIST_RENDERS)]
+        jobs += [dict(kind="step", mesh=DIST_STEP_MESH),
+                 dict(kind="train", mesh=DIST_TRAIN_MESH)]
+        jobs += [
+            dict(kind="cli", args=dist_cli_args(
+                tmp, "e_full", "reference", k_mesh, k_spp,
+                ["--checkpoint", os.path.join(tmp, "full.npz"),
+                 "--checkpoint-every", str(k_every)])),
+            dict(kind="cli", args=dist_cli_args(
+                tmp, "e_stop", "reference", k_mesh, k_spp, ck_args),
+                env={"PT_FAULT_INJECT": str(k_stop), "PT_FAULT_COUNT": "9"}),
+            dict(kind="cli", args=dist_cli_args(
+                tmp, "e_other", "reference", k_other, k_spp,
+                ck_args + ["--resume"])),
+            dict(kind="cli", args=dist_cli_args(
+                tmp, "e_resume", "reference", k_mesh, k_spp,
+                ck_args + ["--resume"]))]
+        ports = set()
+        while len(ports) < len(jobs):
+            ports.add(free_port())
+        for j, port in zip(jobs, sorted(ports)):
+            j["port"] = port
+        reset_launches()
+        t0 = time.perf_counter()
+        (r0, a0), (r1, a1) = dist_run_ranks(jobs, tmp)
+        phase(f"phase 13: two ranks over gloo on the card ran {len(jobs)} "
+              f"jobs in {time.perf_counter() - t0:.1f} s (their start "
+              f"included); card {card}")
+
+        out["b"] = {}
+        for i, (m, s) in enumerate(DIST_RENDERS):
+            tag = f"phase 13b: {s} {W}x{H}x{SPP} --mesh {m}"
+            for r in (r0[i], r1[i]):
+                if r["error"] or r["rc"] != 0 \
+                        or r["backend"] != f"megakernel@{m}":
+                    raise AssertionError(f"{tag}: {r}")
+            img = a0[f"{i}_img"]
+            same(f"{tag}: rank 1 against rank 0", a1[f"{i}_img"], img)
+            if img.shape != (H, W, 3) or not np.isfinite(img).all():
+                raise AssertionError(f"{tag}: image is not finite [H, W, 3]")
+            same(f"{tag}: against one process playing both ranks", img,
+                 logical_render(s, m, SPP, dev)[0])
+            walls = [r["render_wall_s"] for r in (r0[i], r1[i])]
+            coll = [r["collective_s"] for r in (r0[i], r1[i])]
+            phase(f"{tag}: both ranks' frames identical and bit-equal to "
+                  f"one process playing both; driver walls "
+                  f"{walls[0]:.3f} / {walls[1]:.3f} s, "
+                  f"{r0[i]['msamples_per_s']:.1f} Msamples/s, "
+                  f"{r0[i]['segments']} segments; all_reduce "
+                  f"{coll[0]['all_reduce']:.4f} / {coll[1]['all_reduce']:.4f}"
+                  f" s, all_gather {coll[0]['all_gather']:.4f} / "
+                  f"{coll[1]['all_gather']:.4f} s, host votes "
+                  f"{coll[0]['host']:.4f} / {coll[1]['host']:.4f} s; "
+                  f"launches a rank {r0[i]['launches']} / "
+                  f"{r1[i]['launches']}; card {card}")
+            out["b"][f"{s} {m}"] = dict(
+                walls=walls, msamples_per_s=r0[i]["msamples_per_s"],
+                collective_s=coll,
+                launches=[r0[i]["launches"], r1[i]["launches"]])
+
+        i = len(DIST_RENDERS)
+        tag = (f"phase 13c: make_sharded_megakernel_step, reference {W}x{H}, "
+               f"{STEP_SPP} spp a step, mesh {DIST_STEP_MESH}")
+        for k in ("colors", "emissions"):
+            same(f"{tag}: rank 1's {k}", a1[f"{i}_{k}"], a0[f"{i}_{k}"])
+        runs = r0[i]["runs"]
+        if [r["losses"] for r in runs] != [r["losses"] for r in r1[i]["runs"]]:
+            raise AssertionError(f"{tag}: the ranks' losses differ")
+        for r in runs:
+            phase(f"{tag}: seed ({r['seed']}, 0): losses "
+                  f"{[float(f'{x:.6g}') for x in r['losses']]}")
+        check_falls(f"{tag}, the mean over {len(runs)} seeds",
+                    np.mean([r["losses"] for r in runs], axis=0).tolist())
+        want, wcol = dist_step(dev, LogicalMesh(
+            dist_mesh.parse_mesh(DIST_STEP_MESH)), seeds=DIST_STEP_SEEDS[:1])
+        got = [torch.from_numpy((a0[f"{i}_{k}"][0, 0] - a0[f"{i}_{k}"][0, 1])
+                                / DIST_STEP_LR) for k in ("colors",
+                                                          "emissions")]
+        ref = [torch.from_numpy((wcol[k][0, 0] - wcol[k][0, 1]) / DIST_STEP_LR)
+               for k in ("colors", "emissions")]
+        rule = grad_rule(got, ref, mesh=False)
+        dt = float(np.median([t for r in runs for t in r["step_s"][1:]]))
+        rate = W * H * STEP_SPP / dt / 1e6
+        phase(f"{tag}: ranks identical; the first step's gradient against "
+              f"one process playing both: gcol {rule['gcol']:.2e}, gemi "
+              f"{rule['gemi']:.2e} of max (rule {GRAD_REL}); fwd+bwd "
+              f"{rate:.1f} Msamples/s (median step {dt * 1e3:.2f} ms, both "
+              f"ranks on the card); K6 launches a rank "
+              f"{r0[i]['launches']['k6']}; card {card}")
+        out["c"] = dict(losses=[r["losses"] for r in runs], rule=rule,
+                        step_ms=dt * 1e3, msamples_per_s=rate, launches=[
+                            r0[i]["launches"], r1[i]["launches"]])
+
+        i += 1
+        tag = (f"phase 13d: make_sharded_train_step, reference {W}x{H}x1, "
+               f"mesh {DIST_TRAIN_MESH}")
+        for k in ("color", "emission", "det_color", "det_emission"):
+            same(f"{tag}: rank 1's {k}", a1[f"{i}_{k}"], a0[f"{i}_{k}"])
+        want, wnew = dist_train(dev, LogicalMesh(
+            dist_mesh.parse_mesh(DIST_TRAIN_MESH)), DIST_TRAIN_REPEATS)
+        # torch's deterministic kernels: the same sums in the same order
+        for k in ("det_color", "det_emission"):
+            same(f"{tag}: deterministic kernels, {k} against one process "
+                 f"playing both", a0[f"{i}_{k}"], wnew[k])
+        arr = get_scene("reference", RenderConfig(width=W, height=H)).pack(
+            device=torch.device("cpu"))[0]
+
+        def grads(new, j):
+            return [torch.from_numpy((getattr(arr, k).numpy() - new[k][j])
+                                     / DIST_TRAIN_LR)
+                    for k in ("color", "emission")]
+        rank0 = {k: a0[f"{i}_{k}"] for k in ("color", "emission")}
+        rule = grad_rule(grads(rank0, 0), grads(wnew, 0), mesh=False)
+        # the default kernels add in no fixed order: one process against
+        # itself, step by step
+        spread = [grad_rule(grads(wnew, j), grads(wnew, 0), mesh=False)
+                  for j in range(1, DIST_TRAIN_REPEATS)]
+        spread = {k: max(x[k] for x in spread) for k in ("gcol", "gemi")}
+        phase(f"{tag}: ranks identical; under torch's deterministic kernels "
+              f"bit-equal to one process playing both (their warnings: "
+              f"{r0[i]['det_warnings'] or 'none'}); default kernels: the "
+              f"gradient against one process gcol {rule['gcol']:.2e}, gemi "
+              f"{rule['gemi']:.2e} of max (rule {GRAD_REL}), one process "
+              f"against itself over {DIST_TRAIN_REPEATS} steps up to "
+              f"{spread['gcol']:.2e} / {spread['gemi']:.2e}; loss "
+              f"{r0[i]['loss']:.6g} (one process {want['loss']:.6g}); step "
+              f"{r0[i]['wall_s']:.3f} s; peak memory a rank "
+              f"{r0[i]['peak_bytes'] / 2**30:.3f} / "
+              f"{r1[i]['peak_bytes'] / 2**30:.3f} GiB (one process "
+              f"{want['peak_bytes'] / 2**30:.3f}); K5 launches a rank "
+              f"{r0[i]['launches']['k5']}; card {card}")
+        out["d"] = dict(rule=rule, spread=spread, loss=r0[i]["loss"],
+                        wall_s=r0[i]["wall_s"],
+                        peak_bytes=[r0[i]["peak_bytes"], r1[i]["peak_bytes"]],
+                        launches=[r0[i]["launches"], r1[i]["launches"]])
+
+        i += 1
+        tag = (f"phase 13e: the driver under --mesh {k_mesh} with a "
+               f"checkpoint, reference {W}x{H}x{k_spp}")
+        full, stop, other, resume = (
+            (r0[i + j], r1[i + j]) for j in range(4))
+        for r in (*full, *resume):
+            if r["error"] or r["rc"] != 0:
+                raise AssertionError(f"{tag}: {r}")
+        for r in stop:
+            if not (r["error"] or "").startswith("DeviceFailure"):
+                raise AssertionError(f"{tag}: the stop did not fail: {r}")
+        for r in other:
+            if "backend" not in (r["error"] or ""):
+                raise AssertionError(f"{tag}: a resume under --mesh "
+                                     f"{k_other} was not refused: {r}")
+        same(f"{tag}: resumed against uninterrupted", a0[f"{i + 3}_img"],
+             a0[f"{i}_img"])
+        same(f"{tag}: rank 1's resumed image", a1[f"{i + 3}_img"],
+             a0[f"{i}_img"])
+        same(f"{tag}: the image rank 0 wrote", read_raw(os.path.join(
+            tmp, "e_resume.raw")), a0[f"{i}_img"])
+        phase(f"{tag}: stopped at chunk {k_stop} of {k_spp // 8}, resumed "
+              f"bit-equal to the uninterrupted run ({resume[0]['segments']} "
+              f"of {full[0]['segments']} segments); a resume under --mesh "
+              f"{k_other} refused ({other[0]['error'][:90]}); card {card}")
+        out["e"] = dict(segments=[full[0]["segments"],
+                                  resume[0]["segments"]])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    renders = [(s, r) for i, (m, s) in enumerate(DIST_RENDERS)
+               for r in (r0[i], r1[i])]
+    out["launches"] = dict(
+        k1=out["a"]["launches"]["k1"] + sum(
+            r["launches"]["k1"] for s, r in renders if s == "reference"),
+        k1_mesh=sum(r["launches"]["k1_mesh"] for s, r in renders),
+        k1_tex=sum(r["launches"]["k1_tex"] for s, r in renders),
+        k6=sum(x["k6"] for x in out["c"]["launches"]),
+        k5=sum(x["k5"] for x in out["d"]["launches"]))
+    phase(f"phase 13: sharded launches {out['launches']}; card {card}")
+    if not all(out["launches"].values()):
+        raise AssertionError("phase 13: a kernel of the sharded paths was "
+                             "not launched")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab-parent", metavar="DIR", action="append",
@@ -3995,7 +4518,14 @@ def main(argv=None) -> int:
                          "path's phase 12 alone (with --ab-parent: the "
                          "ptxas counts against those trees, no A/B) and "
                          "print no result lines")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="after the build, run the multi-GPU phase 13 alone "
+                         "and print no result lines")
+    ap.add_argument("--dist-rank", metavar="SPEC", default=None,
+                    help=argparse.SUPPRESS)   # one rank of phase 13
     args = ap.parse_args(argv)
+    if args.dist_rank:
+        return dist_rank(args.dist_rank)
     # ---- phase 1: the card ----------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4047,6 +4577,9 @@ def main(argv=None) -> int:
         return 0
     if args.k5_only:
         k5_only(args, dev, card, ptxas)
+        return 0
+    if args.dist_only:
+        dist_phase(dev, card)
         return 0
 
     # ---- phase 3: kernel vs plain version on the card -------------------
@@ -4294,6 +4827,9 @@ def main(argv=None) -> int:
     wf = wavefront_phases(dev, card, ptxas)
     # ---- phase 12: the wavefront autograd path on K5 ---------------------
     ad = ad_phases(args, dev, card, ptxas)
+    # ---- phase 13: multi-GPU rendering and training (parallel/) ----------
+    dist = dist_phase(dev, card)
+    dl = dist["launches"]
 
     print(json.dumps({"kernels": [
         {"name": "megakernel", "route": "cuda",
@@ -4306,7 +4842,9 @@ def main(argv=None) -> int:
          "library_ms": None,
          "ms_8spp": k8_ms, "plain_ms_8spp": p8_ms,
          "k1_split": {"ms": k1split[0], "ptxas": k1split[1]},
-         "filter_check": filt},
+         "filter_check": filt,
+         "sharded": {"launches": dl["k1"], "a": dist["a"],
+                     "b": dist["b"], "e": dist["e"]}},
         {"name": "megakernel-mesh", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
          "replaces": "pathtracer_tpu/render/pallas_kernel.py:1334,1256,1231",
@@ -4325,6 +4863,7 @@ def main(argv=None) -> int:
                                     else "first 64 tiles x8spp"),
          "size_check_bit_equal_frac": s_bit_eq,
          "triangles": mesh_tris, "ptxas": ptxas, "split": split,
+         "sharded_launches": dl["k1_mesh"],
          "leaf_sweep": sweep, "leaf": mkw["meta"].leaf_size,
          "slots_differing_at_jax_leaf": leaf_diff,
          "ab_parent": {d: {"ms": {k: list(v) for k, v in a[0].items()},
@@ -4346,6 +4885,7 @@ def main(argv=None) -> int:
          "at_step_spp": main_size(grads, 0), "spp_curve": curve["K6 reference"],
          "split": gsplit,
          "fwd_bwd_msamples_per_s": rate,
+         "sharded": {"launches": dl["k6"], "step": dist["c"]},
          "fwd_bwd_shape": f"reference {W}x{H}x{STEP_SPP}spp x 3 steps"},
         {"name": "grad-megakernel-tri", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
@@ -4377,6 +4917,7 @@ def main(argv=None) -> int:
          "bound_by": tex_times["textures"]["bound_by"], "library_ms": None,
          "jax_work_bound_ms": tex_times["textures"]["jax_work_bound_ms"],
          "by_scene": tex_times, "fetch_probe": probe, "split": tsplit,
+         "sharded_launches": dl["k1_tex"],
          "wrap_check": wrap},
         {"name": "megakernel-tex-f32", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
@@ -4453,6 +4994,7 @@ def main(argv=None) -> int:
          "wavefront_main": wf["main"], "wavefront_f64": wf["f64"],
          "profile_split": wf["split"], "phase9_launches": isect[0],
          "by_walk": isect_walks, "walk_launches": list(isect_walk_n),
+         "sharded": {"launches": dl["k5"], "train_step": dist["d"]},
          "ad_path": {
              "launches": {s: v["launches"] for s, v in ad["main"].items()},
              "launches_a_step": {s: v["launches_a_step"]

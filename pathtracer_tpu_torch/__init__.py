@@ -13,6 +13,10 @@ primitives and of triangle meshes (the BVH walk).
                 version; the wavefront integrator (torch ops, its nearest
                 hits from the intersect kernel on the card)
 - ``driver``    segmented rendering, checkpoint/resume, metrics, profiling
+- ``parallel``  multi-GPU rendering over torch.distributed: a (pixels,
+                spp) mesh of ranks, the sharded renders and the driver's
+                sharded segments
+- ``diff``      the differentiable renders' training steps (sharded too)
 - ``bench``     the benchmark record (``python -m pathtracer_tpu_torch.bench``)
 - ``io``        PNG (standard library) and big-endian .raw writers
 - ``scenes``    the registered scenes this package can render

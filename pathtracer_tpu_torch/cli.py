@@ -4,9 +4,15 @@ The flags of pathtracer_tpu.cli (reference CLI, cmd/pt/main.go:45-112, with
 PT_<FLAG> environment overrides). It renders on the CUDA device
 --device-index and exits with an error when there is no card; it never
 falls back to the CPU, which only `--device cpu` selects (the plain
-PyTorch versions of the kernels, at small sizes). Flags that need parts
-not ported yet (--distributed/--mesh) exit with code 2 and name the
-ROADMAP item.
+PyTorch versions of the kernels, at small sizes).
+
+Several ranks (parallel/): PT_COORDINATOR=host:port with
+PT_NUM_PROCESSES and PT_PROCESS_ID, or torchrun's environment, joins a
+torch.distributed group before any use of the card (PT_DIST_BACKEND, else
+nccl on the card and gloo with --device cpu); each rank renders on
+cuda:(local rank % device count). --mesh PxS shards the render over a
+(pixels, spp) mesh of P*S ranks, --distributed over mesh_shape_for(world
+size); rank 0 alone writes the image and the metrics.
 
 Outputs match the reference render driver: `experiment.raw` (big-endian
 float32 RGB dump) and `out-<spp>-<W>x<H>.png`.
@@ -70,9 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print per-bounce state for this ray index "
                         "(the wavefront backend)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-device rendering (not ported yet)")
+                   help="shard the render over every rank of the process "
+                        "group (mesh_shape_for(world size))")
     p.add_argument("--mesh", type=str, default=None,
-                   help="device mesh PIXELSxSPP (not ported yet)")
+                   help="rank mesh PIXELSxSPP; its product must be the "
+                        "world size")
     p.add_argument("--checkpoint", type=str, default=None,
                    help="checkpoint file (.npz) for save/resume")
     p.add_argument("--checkpoint-every", type=int, default=0,
@@ -100,12 +108,22 @@ def list_devices() -> None:
         print(f"Name: {torch.cuda.get_device_name(i)}")
 
 
-def _unported(args) -> str:
-    """The message for the first flag that needs an unported part."""
-    if args.distributed or args.mesh:
-        return ("--distributed/--mesh is not ported yet: ROADMAP queue 1, "
-                "item 13 (multi-GPU)")
-    return ""
+def _join_group(device_type: str):
+    """Join the process group named by PT_COORDINATOR (with
+    PT_NUM_PROCESSES and PT_PROCESS_ID) or by torchrun's RANK and
+    WORLD_SIZE; returns this rank's device, or None when neither is set."""
+    from .parallel.multihost import initialize_multihost
+
+    if os.environ.get("PT_COORDINATOR"):
+        return initialize_multihost(
+            os.environ["PT_COORDINATOR"],
+            int(os.environ.get("PT_NUM_PROCESSES", "1")),
+            int(os.environ.get("PT_PROCESS_ID", "0")),
+            device_type=device_type)
+    if os.environ.get("RANK") is not None \
+            and os.environ.get("WORLD_SIZE") is not None:
+        return initialize_multihost(device_type=device_type)
+    return None
 
 
 def main(argv=None) -> int:
@@ -127,14 +145,50 @@ def main(argv=None) -> int:
         list_devices()
         return 0
 
-    msg = _unported(args)
-    if msg:
-        print(f"error: {msg}", file=sys.stderr)
-        return 2
+    import torch.distributed as dist
 
+    from .parallel.mesh import parse_mesh
+
+    shape = None
+    if args.mesh:
+        try:
+            shape = parse_mesh(args.mesh)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+    # the group is joined before any other use of the card
+    try:
+        rank_device = _join_group(args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    try:
+        return _run(args, log, shape, rank_device)
+    finally:
+        if rank_device is not None and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, log, shape, rank_device) -> int:
+    """main() after the group is joined: the mesh, the device, the render
+    and (rank 0 alone) its files."""
     import torch
+    import torch.distributed as dist
 
-    if args.device == "cpu":
+    from .parallel.mesh import make_mesh
+
+    mesh = None
+    if args.mesh or args.distributed:
+        try:
+            mesh = make_mesh(shape)
+        except ValueError as e:
+            print(f"error: --mesh: {e}", file=sys.stderr)
+            return 2
+    writer = not dist.is_initialized() or dist.get_rank() == 0
+
+    if rank_device is not None:
+        device = rank_device
+    elif args.device == "cpu":
         device = torch.device("cpu")
     elif not torch.cuda.is_available():
         print("error: no CUDA device; this renderer runs on the card "
@@ -156,7 +210,7 @@ def main(argv=None) -> int:
     from .io.raw import write_raw
     from .scenes import get_scene
 
-    if args.output:
+    if args.output and writer:
         if os.path.isdir(args.output) or args.output.endswith(os.sep):
             print(f"error: --output {args.output!r} is a directory; "
                   "pass a .png file path", file=sys.stderr)
@@ -184,6 +238,13 @@ def main(argv=None) -> int:
     arrays, meta = sc.pack(device=device, dtype=getattr(torch, args.dtype))
     log.info("scene %s: %d objects on %s (%s)", args.scene, meta.n_objects,
              device, device_name)
+    extra = {}
+    if mesh is not None:
+        from .parallel.mesh import COLLECTIVE_S, reset_collective_time
+
+        log.info("mesh %s: rank %d at (pixels %d, spp %d)", mesh.shape_tag,
+                 mesh.rank, mesh.pix_rank, mesh.spp_rank)
+        reset_collective_time()
 
     img, stats = render_driver(
         arrays, meta, sc.camera, cfg,
@@ -191,17 +252,28 @@ def main(argv=None) -> int:
         checkpoint_every=args.checkpoint_every,
         resume=args.resume,
         profile_dir=args.profile,
+        mesh=mesh,
     )
 
     dt = time.perf_counter() - t0
     log.info("render took %.2fs (%.2f Msamples/s)", dt,
              stats.msamples_per_sec)
+    if mesh is not None:
+        extra = dict(mesh=mesh.shape_tag, world_size=mesh.size,
+                     all_reduce_s=round(COLLECTIVE_S["all_reduce"], 6),
+                     all_gather_s=round(COLLECTIVE_S["all_gather"], 6),
+                     host_vote_s=round(COLLECTIVE_S["host"], 6))
+        log.info("collectives: all_reduce %.4fs, all_gather %.4fs, host "
+                 "votes %.4fs", extra["all_reduce_s"], extra["all_gather_s"],
+                 extra["host_vote_s"])
+    if not writer:
+        return 0
     if args.metrics_json:
         with open(args.metrics_json, "w") as f:
             f.write(stats.to_json(
                 scene=args.scene, width=cfg.width, height=cfg.height,
                 spp=cfg.samples, total_wall_s=round(dt, 3),
-                device=device_name,
+                device=device_name, **extra,
             ) + "\n")
 
     write_raw(args.raw_output, img)

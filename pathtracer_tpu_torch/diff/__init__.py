@@ -7,10 +7,12 @@ from .checkpoint import restore_train_state, save_train_state
 from .grad import (SceneParams, apply_params, extract_params,
                    from_jax_params, image_loss, loss_and_grads,
                    make_megakernel_step, make_megakernel_step_tex,
-                   make_megakernel_step_tri, render_image_diff, train_step)
+                   make_megakernel_step_tri, make_sharded_megakernel_step,
+                   make_sharded_train_step, render_image_diff, train_step)
 
 __all__ = ["SceneParams", "apply_params", "extract_params",
            "from_jax_params", "image_loss", "loss_and_grads",
            "make_megakernel_step", "make_megakernel_step_tex",
-           "make_megakernel_step_tri", "render_image_diff", "train_step",
+           "make_megakernel_step_tri", "make_sharded_megakernel_step",
+           "make_sharded_train_step", "render_image_diff", "train_step",
            "save_train_state", "restore_train_state"]

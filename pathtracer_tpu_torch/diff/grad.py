@@ -17,8 +17,15 @@ Counterpart of pathtracer_tpu.diff.grad, on the scene's device, eagerly:
   render/grad.py (forward = the megakernel, backward = one gradient-kernel
   launch).
 
-Each update runs under torch.no_grad(). Not ported yet: the sharded steps
-(ROADMAP queue 1, item 13).
+Each update runs under torch.no_grad(). The sharded steps split both
+estimators over a (pixels, spp) mesh of ranks (parallel/mesh.py):
+`make_sharded_megakernel_step` (whole tile rows a pixel shard, the sample
+budget over the spp axis, one K6 launch a rank's backward) and
+`make_sharded_train_step` (the wavefront autograd path on contiguous
+pixel slices). Loss and gradients are summed over the ranks with
+all_reduce(SUM) and divided (gloo has no AVG), so every rank takes the same
+update. Each rank's work is a plain function of its coordinate; a
+parallel.mesh.LogicalMesh runs every coordinate in one process.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..render import integrator
+from ..parallel.mesh import shard_rows
+from ..render import integrator, threefry
 from ..render import megakernel as mk
 from ..render.camera import CameraArrays
 from ..render.grad import (make_diff_render, make_diff_render_tex,
@@ -197,11 +205,13 @@ def _make_target_of(pid: np.ndarray, tile_shape, device):
     return target_of
 
 
-def _step_inputs(scn, meta, camera, tile):
-    """The tiled layout (no sample packing), camera vector and tables of
-    the scene on its device, as the JAX steps build them."""
+def _step_inputs(scn, meta, camera, tile, shard_granule=1):
+    """The tiled layout (no sample packing; whole tiles a pixel shard of
+    `shard_granule`), camera vector and tables of the scene on its device,
+    as the JAX steps build them."""
     dev = scn.color.device
     xs, ys, pid = mk.tile_pixel_layout(camera.width, camera.height, *tile,
+                                       shard_granule=shard_granule,
                                        order=mk.default_order(meta))
     px = torch.from_numpy(xs).to(dev)
     py = torch.from_numpy(ys).to(dev)
@@ -339,3 +349,114 @@ def make_megakernel_step_tri(scn, meta, cfg, camera, n_passes=2,
                     loss.detach())
 
     return step, target_of
+
+
+# --- the sharded steps ----------------------------------------------------
+
+def make_sharded_megakernel_step(scn, meta, cfg, camera, mesh, spp,
+                                 tile=(8, 512), lr=0.05):
+    """Distributed SGD step on (color, emission) through the differentiable
+    megakernel, over `mesh` (make_sharded_megakernel_step of the JAX
+    package, diff/grad.py:303-393 there).
+
+    The tile rows are split over the pixels axis (tile_pixel_layout's
+    shard_granule keeps whole tiles a shard) and the sample budget over
+    the spp axis: each rank renders ceil(spp / S) samples under the seed
+    (seed[0] * 7919 + pix_rank * S + spp_rank + 1, seed[1] + spp_rank *
+    local_spp). A rank's loss is the masked MSE of its rows normalised by
+    the whole image's valid slots, its gradient one K6 launch; both are
+    summed over the pixels axis and averaged over the spp axis, and the
+    update is the same on every rank.
+
+    Returns (step, target_of): step(color, emission, seed (prng seed,
+    sample base), target) -> (new_color, new_emission, loss), and
+    target_of(img [H, W, 3]) -> the step's whole tiled (r, g, b) target,
+    of which each rank reads its rows."""
+    P, S_axis = mesh.shape["pixels"], mesh.shape["spp"]
+    local_spp = max(1, -(-spp // S_axis))
+    inp = _step_inputs(scn, meta, camera, tile, shard_granule=P)
+    tabs = [inp[k] for k in ("cam_vec", "obj", "nodes", "tris", "shade")]
+    render = make_diff_render(meta, cfg, local_spp, cfg.samples, tuple(tile))
+    inv_spp = 1.0 / float(local_spp)
+    target_of = _make_target_of(inp["pid"], inp["px"].shape,
+                                scn.color.device)
+
+    def step(color, emission, seed, target):
+        s0, s1 = (int(v) for v in (seed.tolist()
+                                   if isinstance(seed, torch.Tensor)
+                                   else seed))
+
+        def shard(p, s):
+            sd = (s0 * 7919 + p * S_axis + s + 1, s1 + s * local_spp)
+            rows = [shard_rows(t, p, P) for t in (
+                inp["px"], inp["py"], inp["valid"], *target)]
+            with torch.enable_grad():
+                c = color.detach().requires_grad_(True)
+                e = emission.detach().requires_grad_(True)
+                rgb = render.apply(c, e, sd, *tabs, rows[0], rows[1])
+                loss = _masked_mse(rgb, rows[3:], rows[2], inv_spp,
+                                   inp["n_valid"])
+                gc, ge = torch.autograd.grad(loss, (c, e))
+            return loss.detach().reshape(1), gc, ge
+
+        loss, gc, ge = (t / S_axis for t in mesh.sum_all(shard))
+        with torch.no_grad():
+            return color - lr * gc, emission - lr * ge, loss[0]
+
+    return step, target_of
+
+
+def make_sharded_train_step(mesh, meta, cfg, n_samples, lr=0.05,
+                            optimizer=None, route=None):
+    """Distributed training step of the wavefront autograd path over
+    `mesh` (make_sharded_train_step of the JAX package, diff/grad.py:
+    396-462 there).
+
+    step(params, scn, cam, px, py, target, key) -> (new_params, loss):
+    px, py (int32 [N]) and target (Vec3 of [N]) are the whole batch, N a
+    multiple of the pixels axis, of which the rank at (pix_rank, spp_rank)
+    takes the pix_rank-th contiguous slice under the threefry key
+    fold_in(fold_in(key, pix_rank), spp_rank); its image_loss and
+    gradients are averaged over both axes, so every rank holds the same
+    loss and update. Without `optimizer` the update is SGD at `lr`. With a
+    torch.optim optimizer over the tensors of params' trainable fields
+    (the fields that are not None), the averaged gradients are set as
+    their .grad and optimizer.step() updates them in place, the same on
+    every rank; the step then returns params itself. `route` is
+    render_image_diff's (built each call by default)."""
+    P, S_axis = mesh.shape["pixels"], mesh.shape["spp"]
+
+    def step(params, scn, cam, px, py, target, key):
+        names = [k for k in SceneParams._fields
+                 if getattr(params, k) is not None]
+        if px.shape[0] % P:
+            raise ValueError(f"{px.shape[0]} pixels do not split over "
+                             f"{P} pixel shards")
+
+        def shard(p, s):
+            k = threefry.fold_in(threefry.fold_in(key, p), s)
+            tgt = Vec3(*(shard_rows(c, p, P) for c in target))
+            loss, grads = loss_and_grads(
+                params, scn, meta, cfg, cam, shard_rows(px, p, P),
+                shard_rows(py, p, P), k, n_samples, tgt, route=route)
+            return [loss.reshape(1)] + [getattr(grads, n) for n in names]
+
+        out = [t / (P * S_axis) for t in mesh.sum_all(shard)]
+        loss, grads = out[0][0], dict(zip(names, out[1:]))
+        if optimizer is None:
+            with torch.no_grad():
+                return params._replace(**{n: getattr(params, n) - lr * g
+                                          for n, g in grads.items()}), loss
+        owned = {id(t) for grp in optimizer.param_groups
+                 for t in grp["params"]}
+        for n, g in grads.items():
+            t = getattr(params, n)
+            if id(t) not in owned:
+                raise ValueError(f"params.{n} is not a tensor of the "
+                                 "optimizer")
+            t.grad = g.to(t.dtype)
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return params, loss
+
+    return step

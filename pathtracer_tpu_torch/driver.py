@@ -12,6 +12,17 @@ segments:
   driver's segment_wavefront.
 
 Either way a resumed render continues the same random stream bit for bit.
+Under a mesh (`mesh=`, parallel/mesh.py) the segments are
+parallel.render_dist.make_driver_segments': each rank renders its pixel
+shard for its slice of each segment, and a flush adds the ranks' partial
+sums and gathers the whole frame on every rank. The chunk schedule is
+rounded to the spp axis; the backend tag gains "@PxS", so that a
+checkpoint of one mesh shape does not resume on another; after each
+segment the ranks vote on the host (a gloo group, no wait for the card)
+whether any failed, so that all rewind together, and whether any is due a
+time-based flush (a collective every rank must join). Rank 0 alone reads
+the checkpoint to resume from (every rank takes what it read), writes the
+checkpoint (the others wait at a barrier) and writes the profile.
 Partial sums stay on the device between flushes and are accumulated on
 the host in float64. `profile_dir` wraps the segment loop in
 torch.profiler (CPU and CUDA activities) and writes a Chrome trace there,
@@ -148,19 +159,34 @@ def render_driver(
     mesh=None,
 ) -> tuple[np.ndarray, RenderStats]:
     """Render the full image on the scene's device, returning
-    ([H, W, 3] float32, stats). The scene's dtype is cfg.dtype's."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device rendering is not ported yet: ROADMAP queue 1, "
-            "item 13 (multi-GPU)")
-
+    ([H, W, 3] float32, stats). The scene's dtype is cfg.dtype's. `mesh`
+    (a parallel.mesh.RenderMesh) shards each segment over its ranks; every
+    rank returns the whole image."""
     W, H = camera.width, camera.height
     dev = scn.color.device
     spp_chunk = min(cfg.samples_per_pass, cfg.samples)
     cfg = cfg.replace(samples_per_pass=spp_chunk)
     n_chunks = max(1, (cfg.samples + spp_chunk - 1) // spp_chunk)
+    spp_axis = 1
 
-    if use_megakernel(meta, cfg):
+    def fetch(acc):
+        return acc.cpu().numpy()
+
+    if mesh is not None:
+        from .parallel.render_dist import make_driver_segments
+
+        # the chunk schedule is rounded to the spp axis, so that every rank
+        # renders an equal share of each segment; the mesh shape is part of
+        # the random stream's layout, so the checkpoint's backend tag has it
+        spp_axis = mesh.shape["spp"]
+        n_chunks = -(-n_chunks // spp_axis) * spp_axis
+        backend_name = ("megakernel" if use_megakernel(meta, cfg)
+                        else "wavefront") + "@" + mesh.shape_tag
+        segs = make_driver_segments(scn, meta, camera, cfg, mesh,
+                                    use_megakernel(meta, cfg))
+        segment, fetch, finalize = segs.segment, segs.fetch, segs.finalize
+        layout_tag, n_slots = segs.layout_tag, segs.n_slots
+    elif use_megakernel(meta, cfg):
         backend_name = "megakernel"
         segment, layout_tag, pid = _megakernel_segments(scn, meta, camera,
                                                         cfg)
@@ -180,14 +206,28 @@ def render_driver(
 
     ck_meta = _checkpoint_meta(cfg, backend_name, checkpoint_every,
                                layout_tag)
+    writer = mesh is None or mesh.is_writer
     accum = np.zeros((n_slots, 3), dtype=np.float64)
     start_chunk = 0
-    if resume and checkpoint_path and os.path.exists(checkpoint_path):
-        accum, start_chunk = _checkpoint_load(checkpoint_path, ck_meta)
-        if accum.shape[0] != n_slots:
-            raise ValueError(
-                f"checkpoint {checkpoint_path} has {accum.shape[0]} pixel "
-                f"slots, current layout has {n_slots}")
+    # rank 0 alone reads the checkpoint, and every rank takes its answer
+    # (another host may not see the file), an error included
+    loaded = None
+    if resume and checkpoint_path and writer \
+            and os.path.exists(checkpoint_path):
+        try:
+            loaded = _checkpoint_load(checkpoint_path, ck_meta)
+            if loaded[0].shape[0] != n_slots:
+                raise ValueError(
+                    f"checkpoint {checkpoint_path} has {loaded[0].shape[0]} "
+                    f"pixel slots, current layout has {n_slots}")
+        except ValueError as e:
+            loaded = e
+    if mesh is not None and resume and checkpoint_path:
+        loaded = mesh.share(loaded)
+    if isinstance(loaded, ValueError):
+        raise loaded
+    if loaded is not None:
+        accum, start_chunk = loaded
         log.info("resumed from %s at chunk %d/%d",
                  checkpoint_path, start_chunk, n_chunks)
 
@@ -201,6 +241,8 @@ def render_driver(
         default_spp = "128" if not meta.has_groups else "8"
         seg_spp = int(os.environ.get("PT_SEG_SPP", default_spp))
         seg_len = max(1, min(n_chunks, max(1, seg_spp // spp_chunk)))
+    # whole segments spread evenly over the spp axis
+    seg_len = -(-seg_len // spp_axis) * spp_axis
     stats = RenderStats(backend=backend_name)
     t_total = time.perf_counter()
 
@@ -224,17 +266,26 @@ def render_driver(
     def flush(save_ck: bool):
         nonlocal accum, dev_acc, host_base, t_flush
         if dev_acc is not None:
-            accum += dev_acc.cpu().numpy().astype(np.float64)
+            accum += fetch(dev_acc).astype(np.float64)
             dev_acc = None
         host_base = c
         t_flush = time.perf_counter()
         if save_ck and checkpoint_path:
-            _checkpoint_save(checkpoint_path, accum, c, ck_meta)
+            # two ranks writing one path would race on its temporary file
+            if writer:
+                _checkpoint_save(checkpoint_path, accum, c, ck_meta)
+            if mesh is not None:
+                mesh.barrier()
 
-    with _profiler(profile_dir):
+    # under a mesh the ranks vote, on the host, after each segment: a
+    # failure on any rank rewinds every rank, and a flush (a collective)
+    # is taken by all when any rank is due
+    agree = (lambda *flags: flags) if mesh is None else mesh.any
+    with _profiler(profile_dir if writer else None):
         while c < n_chunks:
             n = min(seg_len, n_chunks - c)
             t0 = time.perf_counter()
+            failure = None
             try:
                 if c <= fault_at < c + n and fault_count > 0:
                     fault_count -= 1
@@ -244,26 +295,33 @@ def render_driver(
                 with record_function("pt.segment"):
                     out = segment(c, n)
             except DeviceFailure as exc:
+                failure = exc
+            if failure is None:
+                with record_function("pt.accumulate"):
+                    dev_acc = out if dev_acc is None else dev_acc + out
+                if dev.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(dev))
+                    if prev_done is not None:
+                        prev_done.synchronize()
+                    prev_done = done
+            failed, late = agree(failure is not None,
+                                 time.perf_counter() - t_flush > flush_s)
+            if failed:
+                failure = failure or DeviceFailure(
+                    f"another rank failed at chunk {c}")
                 if failures >= max_retries:
-                    raise
+                    raise failure
                 failures += 1
                 stats.recoveries += 1
                 log.warning(
                     "device failure at chunk %d (%s); re-rendering %d chunk(s) "
-                    "from %d (retry %d/%d)", c, exc, c + n - host_base,
+                    "from %d (retry %d/%d)", c, failure, c + n - host_base,
                     host_base, failures, max_retries)
                 # the device-resident partial is dropped with the failure
                 dev_acc = None
                 c = host_base
                 continue
-            with record_function("pt.accumulate"):
-                dev_acc = out if dev_acc is None else dev_acc + out
-            if dev.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(dev))
-                if prev_done is not None:
-                    prev_done.synchronize()
-                prev_done = done
             failures = 0
             c += n
             stats.samples += W * H * n * spp_chunk
@@ -272,7 +330,7 @@ def render_driver(
                      c, n_chunks, time.perf_counter() - t0)
             if checkpoint_path and checkpoint_every > 0:
                 flush(save_ck=True)
-            elif time.perf_counter() - t_flush > flush_s:
+            elif late:
                 flush(save_ck=False)
         flush(save_ck=checkpoint_path is not None)
 

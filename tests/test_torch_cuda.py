@@ -968,3 +968,57 @@ def test_wavefront_autograd_through_the_kernel(dev, name):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
     if name == "teapot":
         assert bool((got.tri_color != 0).any())
+
+
+def test_two_gloo_ranks_on_the_card(dev, tmp_path):
+    # two ranks sharing the card over gloo (NCCL takes one rank a device):
+    # both gather the same frame, bit for bit the frame of one process
+    # playing both ranks on the card (K1 and K5 add no atomics), and the
+    # CLI's image (rank 0's) is the driver's on that one-process mesh
+    from _torch_dist import run_two_ranks
+    from pathtracer_tpu_torch.driver import render_driver
+    from pathtracer_tpu_torch.parallel import (render_sharded,
+                                               render_sharded_megakernel)
+    from pathtracer_tpu_torch.parallel.mesh import LogicalMesh
+
+    outs = run_two_ranks(tmp_path, "1x2", "cuda")
+    r0, r1 = (np.load(o) for o in outs)
+    cfg = RenderConfig(width=32, height=24, samples=4, samples_per_pass=2)
+    sc = get_scene("reference", cfg)
+    arrays, meta = sc.pack(device=dev)
+    mesh = LogicalMesh((1, 2))
+    for k, fn in (("mega", render_sharded_megakernel),
+                  ("wave", render_sharded)):
+        assert np.array_equal(r0[k], r1[k])
+        assert np.array_equal(r0[k], fn(arrays, meta, sc.camera, cfg, mesh))
+    want, stats = render_driver(
+        arrays, meta, sc.camera, cfg.replace(samples=8), checkpoint_every=2,
+        checkpoint_path=str(tmp_path / "logical.ck.npz"), mesh=mesh)
+    assert stats.backend == "megakernel@1x2"
+    assert np.array_equal(read_raw(outs[0][:-4] + ".raw"), want)
+
+
+def test_sharded_megakernel_step_on_the_card(dev):
+    # make_sharded_megakernel_step over a one-process (1, 2) mesh: K6 a
+    # rank on the card against the plain versions on the CPU, by the
+    # gradient rule
+    from pathtracer_tpu_torch.diff import make_sharded_megakernel_step
+    from pathtracer_tpu_torch.parallel.mesh import LogicalMesh
+
+    cfg = RenderConfig(width=64, height=48, samples=8, samples_per_pass=8)
+    sc = get_scene("reference", cfg)
+    img = np.random.default_rng(3).random((48, 64, 3)).astype(np.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        arrays, meta = sc.pack(device=d)
+        step, target_of = make_sharded_megakernel_step(
+            arrays, meta, cfg, sc.camera, LogicalMesh((1, 2)), spp=8,
+            tile=(8, 128), lr=1.0)
+        before = tg.grad_tiles.launches
+        c, e, loss = step(arrays.color, arrays.emission, (5, 0),
+                          target_of(img))
+        assert tg.grad_tiles.launches - before == (2 if d == dev else 0)
+        out[d.type] = (arrays.color - c, arrays.emission - e, loss)
+    grad_rule(out["cuda"][:2], out["cpu"][:2], mesh=False)
+    assert abs(float(out["cuda"][2]) - float(out["cpu"][2])) <= \
+        1e-5 * float(out["cpu"][2])

@@ -244,14 +244,21 @@ def test_torch_fault_recovery_identical_output(monkeypatch):
 ])
 def test_driver_refuses_unported_configs(bad, item):
     # the wavefront backend and f64 render (tests/test_torch_wavefront_
-    # render.py); a device mesh (item 13) is still refused, for any config
+    # render.py); a device mesh, once refused as `item` (ROADMAP queue 1),
+    # now takes them too: the driver under a one-rank mesh is the sharded
+    # wavefront's estimator bit for bit (tests/test_torch_dist_*.py hold
+    # larger meshes)
+    from pathtracer_tpu_torch.parallel import render_sharded
+    from pathtracer_tpu_torch.parallel.mesh import LogicalMesh
+
     _, _, ts, tc = scene_pair("reference", **CFG)
-    arrays, meta = ts.pack(device=CPU)
-    with pytest.raises(NotImplementedError, match=item):
-        render_driver(arrays, meta, ts.camera, tc.replace(**bad),
-                      mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        render_driver(arrays, meta, ts.camera, tc, mesh=object())
+    cfg = tc.replace(**bad)
+    arrays, meta = ts.pack(device=CPU, dtype=getattr(torch, cfg.dtype))
+    img, stats = render_driver(arrays, meta, ts.camera, cfg,
+                               mesh=LogicalMesh((1, 1)))
+    assert stats.backend == "wavefront@1x1" and item not in stats.backend
+    assert np.array_equal(img, render_sharded(arrays, meta, ts.camera, cfg,
+                                              LogicalMesh((1, 1))))
 
 
 def test_raw_and_png_match_jax_writers(tmp_path):
@@ -274,9 +281,21 @@ def test_raw_and_png_match_jax_writers(tmp_path):
     (["--distributed"], "item 13"),
     (["--mesh", "1x1"], "item 13"),
 ])
-def test_cli_refuses_unported_flags(flags, item, capsys):
-    assert cli.main(flags) == 2
-    assert item in capsys.readouterr().err
+def test_cli_refuses_unported_flags(flags, item, capsys, monkeypatch,
+                                    tmp_path):
+    # the mesh flags, once refused as `item`, are taken: without a card and
+    # without --device cpu the CLI stops at the device check (1), and with
+    # --device cpu it renders a world of one rank (tests/test_torch_dist_
+    # driver.py holds the mesh itself)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    raw = tmp_path / "x.raw"
+    out = ["--width", "8", "--height", "6", "--raw-output", str(raw),
+           "--output", str(tmp_path / "x.png")]
+    assert cli.main(flags + out) == 1
+    err = capsys.readouterr().err
+    assert "no CUDA device" in err and item not in err and not raw.exists()
+    assert cli.main(flags + out + ["--device", "cpu"]) == 0
+    assert read_raw(str(raw)).shape == (6, 8, 3)
 
 
 @pytest.mark.parametrize("flags", [

@@ -41,7 +41,10 @@ def test_package_imports_without_jax():
         "vec3", "sampling", "uv", "camera", "intersect", "threefry",
         "integrator")} | {"pathtracer_tpu_torch.bench"} <= set(
             res["modules"])
-    assert len(res["modules"]) >= 31
+    # the multi-GPU modules
+    assert {f"pathtracer_tpu_torch.parallel.{m}" for m in (
+        "mesh", "multihost", "render_dist")} <= set(res["modules"])
+    assert len(res["modules"]) >= 35
     assert res["foreign"] == []
 
 
