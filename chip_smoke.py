@@ -147,10 +147,29 @@ ranks' frames identical and bit-equal to one process playing both ranks
 all-gather times and Msamples/s; (c) make_sharded_megakernel_step on
 `reference` at 32 spp a step over 1x2 (ranks identical, the gradient
 within the rule of one process, the loss falling over 5 steps); (d)
-make_sharded_train_step at 1280x960x1 over 2x1 (ranks identical, the
-rule, peak memory a rank); (e) the driver under --mesh 1x2 with a
+make_sharded_train_step at 1280x960x1 over 2x1 (ranks identical,
+bit-equal to one process under torch's deterministic kernels, the
+averaged gradients the step hands its optimizer within the rule of one
+process's, peak memory a rank); (e) the driver under --mesh 1x2 with a
 checkpoint, stopped halfway and resumed bit-equal, a resume under 2x1
-refused. One card measures no multi-card speed-up. It
+refused. One card measures no multi-card speed-up. The JAX walk knobs
+in the gradient path (render/megakernel.py grad_walk): phase 6 holds K6
+on the block-packet walk (PT_SUBPACKET=2; =1 once), without leaf tests
+(PT_ABLATE_LEAF=1) and on both, against its plain version at W x H at 4
+and 32 spp on `teapot` and the size-check mesh in triangle mode and on
+the textured teapot (tests/_torch_scenes.textured_teapot) in texel mode,
+each beside the per-thread walk's time, and prints the gradient
+instantiations' ptxas counts (at most 64 registers); it also holds the
+megakernel step's default row-shared draws against the wavefront's
+gradient at 32 seeds (printed, not raised). Phase 7 drives training
+under the knobs (the triangle step, `train_demo --tri` at W x H and the
+texel recovery on the textured teapot under PT_SUBPACKET=2; one step
+under the ablation, alone and with mode 2, whose triangle gradient is
+exactly zero; a texel step under PT_SUBPACKET=3), each run's launch
+counts set to 0 just before it; phase 8 holds the f32-texel forward on
+each walk bit for bit against its plain version. With `--ab-parent` the
+forward instantiations that the parent has must keep their ptxas
+counts. It
 prints one JSON line of kernel results, each with its bound (the least
 time the card could take for the same work, from the work the plain
 version counts in this run), and, last, one JSON line naming the device.
@@ -168,6 +187,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import importlib
 import importlib.util
 import io
@@ -203,7 +223,7 @@ from pathtracer_tpu_torch.parallel.mesh import LogicalMesh
 from pathtracer_tpu_torch.probes import leaf_bench, op_rate
 from pathtracer_tpu_torch.render import _build
 from pathtracer_tpu_torch.render import grad as tg
-from pathtracer_tpu_torch.render import integrator, threefry
+from pathtracer_tpu_torch.render import integrator, proctex, threefry
 from pathtracer_tpu_torch.render import megakernel as mk
 from pathtracer_tpu_torch.render.intersect import reattach_hit
 from pathtracer_tpu_torch.render.vec3 import Vec3
@@ -217,12 +237,12 @@ from pathtracer_tpu_torch.scenes import cornell, get_scene
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 from _torch_scenes import (ATOL, GRAD_REL, MEAN_REL, RTOL,  # noqa: E402
-                           SLOT_FRAC,
+                           SLOT_FRAC, ablated_grad_rule,
                            bounce_rays, camera_rays, cylinder_scene,
                            filter_cases, grad_inputs, grad_rule,
                            one_warp_live, port_inputs,
                            sincos_mismatches, size_check_scene,
-                           tex_grad_rule, tie_scene)
+                           tex_grad_rule, textured_teapot, tie_scene)
 
 MAIN_MEAN_REL = 0.02         # 2048-spp image vs an 8-spp plain render
 TILE = (64, 256)             # the driver's tile for primitive scenes
@@ -255,6 +275,36 @@ GRAD_ROWS = {
     "K6-tex textures-train": dict(kind="texgrad", scene=TEX_TRAIN),
 }
 GRAD_MAIN_SPP = {"grad": STEP_SPP, "tri": TRI_STEP_SPP, "texgrad": STEP_SPP}
+# phase 6: the gradient kernel's walks (render/megakernel.py grad_walk):
+# each walk's knobs, the walk whose plain version's counts bound it (the
+# per-thread walk of the same function; None: its own) and whether it is
+# held at its training step's launch size (WALK_SPP) besides GRAD_SPP
+# (PT_SUBPACKET=1 takes mode 2's instantiation and is held once, at
+# GRAD_SPP on `teapot`)
+GRAD_WALKS = {
+    "packet mode 2": ({"PT_SUBPACKET": "2"}, "per-thread", True),
+    "ablated": ({"PT_ABLATE_LEAF": "1"}, None, True),
+    "packet ablated": ({"PT_SUBPACKET": "2", "PT_ABLATE_LEAF": "1"},
+                       "ablated", False),
+}
+# a gradient launch's samples in phase 7's training steps (walk_training):
+# the triangle step's and the textured teapot's
+WALK_SPP = {"triangle": TRI_STEP_SPP, "texel": STEP_SPP}
+# phase 8: the f32-texel forward's walks (mesh_walk's but the tensor-core
+# leaves, which the differentiable render refuses)
+F32_WALKS = {
+    "per-thread": {},
+    "packet mode 2": {"PT_SUBPACKET": "2"},
+    "packet mode 3": {"PT_SUBPACKET": "3"},
+    "ablated": {"PT_ABLATE_LEAF": "1"},
+    "packet ablated": {"PT_SUBPACKET": "2", "PT_ABLATE_LEAF": "1"},
+    "warp ablated": {"PT_SUBPACKET": "3", "PT_ABLATE_LEAF": "1"},
+}
+# the per-thread walk of the same function, whose work bounds each walk
+F32_BOUND_BY = {"per-thread": "per-thread", "packet mode 2": "per-thread",
+                "packet mode 3": "per-thread", "ablated": "ablated",
+                "packet ablated": "ablated", "warp ablated": "ablated"}
+ROW_SHARED_SEEDS = 32        # phase 6: the row-shared draws' seeds
 GRAD_CURVE = (4, 8, 16, 32)
 SEG_SPP = 128                # the render driver's samples a `reference` launch
 # the forward kernel's rows (tree_case specs) of its split (--k1-split): K1
@@ -691,8 +741,9 @@ def kernel_name(mangled: str) -> str:
     kWalk, kLeaf> (fewer arguments in older builds), of
     packet_megakernel<kTex, kNee, kWalk, kLeaf> (named as the megakernel
     instantiation it runs), of
-    grad_megakernel<kMesh, kTex, kF32> (named as the kGrad megakernel of
-    older builds), of intersect<kMesh, kWalk, kLeaf>, or the probe, by
+    grad_megakernel<kMesh, kTex, kF32, kWalk, kLeaf> (named as the kGrad
+    megakernel of older builds), of intersect<kMesh, kWalk, kLeaf>, or
+    the probe, by
     name."""
     m = re.search(r"tex_fetchILb([01])E", mangled)
     if m:
@@ -722,12 +773,13 @@ def kernel_name(mangled: str) -> str:
         tex, nee = re.findall(r"Lb([01])E", m.group(1))
         return " ".join(["textured"] * (tex == "1") + ["nee"] * (nee == "1")
                         + [_walk_words(m.group(2)) + "mesh"])
-    m = re.search(r"grad_megakernelI((?:Lb[01]E)+)E", mangled)
-    if m:     # grad_megakernel<kMesh, kTex, kF32>
+    m = re.search(r"grad_megakernelI((?:Lb[01]E)+)((?:Li\d+E)*)E", mangled)
+    if m:     # grad_megakernel<kMesh, kTex, kF32[, kWalk, kLeaf]>
         mesh, tex, f32 = re.findall(r"Lb([01])E", m.group(1))
         return " ".join(["grad"] + ["textured"] * (tex == "1")
                         + ["f32-texel"] * (f32 == "1")
-                        + ["mesh" if mesh == "1" else "primitive"])
+                        + [_walk_words(m.group(2))
+                           + ("mesh" if mesh == "1" else "primitive")])
     m = re.search(r"megakernelI((?:Lb[01]E)+)((?:Li\d+E)*)E", mangled)
     if not m:
         return mangled
@@ -2311,12 +2363,17 @@ def grad_setup(sc, cfg, dev):
     return tabs, meta, arrays, cots
 
 
-def grad_case(tag, sc, cfg, mode, dev, card):
+def grad_case(tag, sc, cfg, mode, dev, card, work=None):
     """K6 in `mode` ("object", "triangle" or "texel": K6-tex, the texels the
     decoded pool) against its plain version on the card, the same inputs
-    and per-slot cotangents: the gradient rule (the texel rule in texel
-    mode), both times by CUDA events, and whether two launches give the
-    same bits. Returns the numbers."""
+    and per-slot cotangents, on the walk of the knobs (grad_walk): the
+    gradient rule (the texel rule in texel mode; without leaf tests the
+    triangle gradients exactly zero, ablated_grad_rule), both times by
+    CUDA events, and whether two launches give the same bits. The bound
+    counts the work of `work` (the plain version's counts of another walk
+    of the same function on the same inputs: a packet walk is bounded by
+    the per-thread walk's work, not by the lanes that ride along), else
+    this walk's own. Returns the numbers, with this walk's counts."""
     tabs, meta, arrays, cots = grad_setup(sc, cfg, dev)
     kw = dict(meta=meta, cfg=cfg, spp=cfg.samples,
               total_samples=cfg.samples, tile=GRAD_TILE,
@@ -2337,15 +2394,23 @@ def grad_case(tag, sc, cfg, mode, dev, card):
     counts = {}
     p, p_ms = timed(lambda: tg.grad_tiles_reference(
         (3, 0), *tabs, *cots, counts=counts, **kw), stack=False)
-    err = (tex_grad_rule(k, p) if mode == "texel"
-           else grad_rule(k, p, meta.has_groups))
+    if mode == "texel":
+        err = tex_grad_rule(k, p)
+    elif mode == "triangle" and mk.grad_scene_walk(meta).leaf == "none":
+        err = ablated_grad_rule(k, p)
+    else:
+        err = grad_rule(k, p, meta.has_groups)
     k_ms = cuda_ms(run, 5)
     # in: the tables, pixel maps, cotangents (and texels, texture table);
     # out: the gradient sums
-    bound = work_bound(counts, meta, nbytes(*tabs, *cots) + tex_bytes,
-                       nbytes(*k), grad=True, f32=mode == "texel")
+    io_bytes = (nbytes(*tabs, *cots) + tex_bytes, nbytes(*k))
+    bound = work_bound(work or counts, meta, *io_bytes, grad=True,
+                       f32=mode == "texel")
+    own = work_bound(counts, meta, *io_bytes, grad=True, f32=mode == "texel")
     extra = ""
-    if mode == "triangle":
+    if mode == "triangle" and "gtri_frac" not in err:
+        extra = "; gtri exactly zero on both sides (no leaf tests)"
+    elif mode == "triangle":
         extra = (f"; gtri {err['gtri_frac']:.6f} of {meta.n_tri_slots} slots "
                  f"within the rule ({err['gtri_slots_hit']} hit)")
     elif mode == "texel":
@@ -2353,15 +2418,18 @@ def grad_case(tag, sc, cfg, mode, dev, card):
                  f"touched texels within the rule, channel sums within "
                  f"{err['gtex_sum_rel']:.2e}; {counts['texel_scatters']} "
                  f"texel scatters")
+    whose = ("" if work is None else f", the per-thread walk's work; this "
+             f"walk's plain version counts {own[2]:.4g}, {own[0]:.4f} ms")
     phase(f"phase {8 if mode == 'texel' else 6}: {tag}, {mode} mode, "
           f"{cfg.width}x{cfg.height}x{cfg.samples} spp: kernel {k_ms:.4f} "
           f"ms, plain {p_ms:.1f} ms; max rel err gcol {err['gcol']:.2e} "
           f"gemi {err['gemi']:.2e}{extra}; two launches bit-identical: "
           f"{same_bits}; bound {bound[0]:.4f} ms ({bound[1]}; "
-          f"{bound[2]:.4g} f32 ops); card {card}")
+          f"{bound[2]:.4g} f32 ops{whose}); card {card}")
     return dict(err, ms=k_ms, plain_ms=p_ms, same_bits=same_bits,
                 bound_ms=bound[0], bound_by=bound[1],
-                scatters=counts.get("texel_scatters", 0))
+                own_work_bound_ms=own[0],
+                scatters=counts.get("texel_scatters", 0), counts=counts)
 
 
 def crn_target(tabs, meta, cfg, pid, seed, spp):
@@ -2418,6 +2486,147 @@ def grad_phase(dev, card, mesh_tris):
                       "triangle", dev, card),
             grad_case(TEX_TRAIN, get_scene(TEX_TRAIN, gcfg), gcfg, "texel",
                       dev, card))
+    return out
+
+
+def grad_walk_phase(dev, card, mesh_tris, per_thread, ptxas):
+    """Phase 6 (the walks): K6 and K6-tex on each walk of GRAD_WALKS
+    against its plain version on the whole W x H image, at GRAD_SPP and
+    (as GRAD_WALKS says) at its training step's launch size (WALK_SPP), on
+    `teapot` and the size-check mesh in triangle mode and on the textured
+    teapot (textured_teapot) in texel mode, beside the per-thread walk's
+    rows at the same sizes (`per_thread`: grad_phase's, which give the
+    triangle meshes' at GRAD_SPP), whose counts bound the packet walks;
+    PT_SUBPACKET=1 once, at GRAD_SPP on `teapot`; the ptxas counts of the
+    walks' gradient instantiations, each at most 64 registers. Returns
+    ({walk: {case: {spp: row}}}, the per-thread walk's under "per-thread",
+    mode 1's row, {instantiation: ptxas counts})."""
+    scenes = {
+        "teapot": (f"teapot ({mesh_tris['teapot']} triangles)", "triangle",
+                   lambda c: get_scene("teapot", c)),
+        "size-check": (f"size-check mesh ({mesh_tris['size-check mesh']} "
+                       "triangles)", "triangle",
+                       lambda c: size_check_scene(c, get_scene)),
+        "textured teapot": ("textured teapot", "texel",
+                            lambda c: textured_teapot(get_scene("teapot", c),
+                                                      proctex.make)),
+    }
+
+    def row(walk, case, spp, base=None):
+        tag, mode, make = scenes[case]
+        cfg = RenderConfig(width=W, height=H, samples=spp,
+                           samples_per_pass=spp)
+        work = out[base][case][spp]["counts"] if base else None
+        return grad_case(f"{tag}, {walk}", make(cfg), cfg, mode, dev, card,
+                         work)
+
+    def sizes(case, training=True):
+        return (GRAD_SPP,) + ((WALK_SPP[scenes[case][1]],) if training
+                              else ())
+
+    out = {"per-thread": {"teapot": {GRAD_SPP: per_thread[GRAD_SPP][1]},
+                          "size-check": {GRAD_SPP: per_thread[GRAD_SPP][2]},
+                          "textured teapot": {}}}
+    with walk_env({}):
+        for case in scenes:
+            for spp in sizes(case):
+                if spp not in out["per-thread"][case]:
+                    out["per-thread"][case][spp] = row("per-thread", case, spp)
+    for walk, (env, base, training) in GRAD_WALKS.items():
+        with walk_env(env):
+            out[walk] = {case: {spp: row(walk, case, spp, base)
+                                for spp in sizes(case, training)}
+                         for case in scenes}
+        phase(f"phase 6 walks: {walk} against the per-thread walk: "
+              + ", ".join(f"{case} {scenes[case][1]}s {W}x{H}x{spp} "
+                          f"{r['ms']:.4f} ms / {b['ms']:.4f} ms "
+                          f"({r['ms'] / b['ms']:.3f}x)"
+                          for case, rows in out[walk].items()
+                          for spp, r in rows.items()
+                          for b in [out["per-thread"][case][spp]])
+              + f"; card {card}")
+    with walk_env({"PT_SUBPACKET": "1"}):
+        if mk.grad_walk() != mk.Walk("block", "simt"):
+            raise AssertionError("phase 6 walks: PT_SUBPACKET=1 does not "
+                                 "take mode 2's walk")
+        mode1 = row("packet mode 1", "teapot", GRAD_SPP, "per-thread")
+    counts = {k: v for k, v in ptxas_counts(ptxas).items()
+              if k.startswith("grad") and "mesh" in k.split()}
+    phase(f"phase 6 walks: ptxas (registers, stack, spill stores, spill "
+          f"loads) of the mesh gradient instantiations: {counts}")
+    over = {k: v for k, v in counts.items() if v[0] is None or v[0] > 64}
+    if len(counts) != 8 or over:
+        raise AssertionError(f"phase 6 walks: {len(counts)} mesh gradient "
+                             f"instantiations (need 8), over 64 registers: "
+                             f"{over}")
+    return out, mode1, counts
+
+
+def row_shared_check(dev, card):
+    """Phase 6 (the megakernel step's default draws): the gradient of
+    make_megakernel_step with its default row-shared roulette and
+    hemisphere draws against the wavefront's (image_loss) on `reference`
+    at AD_EST over ROW_SHARED_SEEDS seeds each, by the rule that phase 12
+    applies to per-slot draws (every entry within AD_SIGMAS standard
+    errors; a noiseless entry equal). The result is printed and returned,
+    not raised: the row sharing skews one seed's gradient (a sum over a
+    few hundred directions), and whether ROW_SHARED_SEEDS seeds take its
+    tail in is what this records."""
+    z, live, still = estimator_z(dev, "1", ROW_SHARED_SEEDS)
+    zmax = float(np.abs(z).max())
+    ok = zmax <= AD_SIGMAS and not still
+    phase(f"phase 6: the megakernel step's default row-shared draws against "
+          f"the wavefront, reference {AD_EST[0]}x{AD_EST[1]}x{AD_EST[2]}, "
+          f"{ROW_SHARED_SEEDS} seeds each: {live} entries with noise, |z| "
+          f"max {zmax:.3f} (rule {AD_SIGMAS}), {still} noiseless entries "
+          f"that differ: {'within' if ok else 'OUTSIDE'} the rule; card "
+          f"{card}")
+    return dict(seeds=ROW_SHARED_SEEDS, entries=live, z_max=zmax,
+                noiseless_differ=still, within_rule=ok)
+
+
+def tex_forward_walks(dev, card):
+    """Phase 8 (the f32-texel forward's walks): the textured teapot at
+    W x H x 8 spp on the training steps' layout through the f32-texel
+    forward on each walk of F32_WALKS, bit-equal to its plain version,
+    timed, with its bound: the per-thread walk's work on the same inputs
+    (F32_BOUND_BY: a packet walk's plain version counts the lanes that
+    ride along), this walk's own beside it. Returns {walk: numbers}."""
+    cfg = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
+    sc = textured_teapot(get_scene("teapot", cfg), proctex.make)
+    tabs, meta, arrays, _ = grad_inputs(sc, cfg, GRAD_TILE, dev)
+    kw = dict(meta=meta, cfg=cfg, spp=8, total_samples=8, tile=GRAD_TILE,
+              tex_table=torch.from_numpy(mk.build_tex_table(arrays, meta))
+              .to(dev), tex_texels=texel_params(arrays))
+    out, work = {}, {}
+    for walk, env in F32_WALKS.items():
+        with walk_env(env):
+            def run():
+                return mk.trace_tiles((1, 0), *tabs, **kw)
+            k = torch.stack(run())
+            counts = {}
+            p, p_ms = timed(lambda: mk.trace_tiles_reference(
+                (1, 0), *tabs, counts=counts, **kw))
+            if not torch.equal(k, p):
+                raise AssertionError(f"phase 8 walks: the f32-texel forward "
+                                     f"on the {walk} walk differs from its "
+                                     f"plain version")
+            ms = cuda_ms(run, 10)
+            work[walk] = counts
+            b_ms, b_by, ops = fwd_bound(work[F32_BOUND_BY[walk]], tabs, kw)
+            own = fwd_bound(counts, tabs, kw)
+            name = mk.scene_walk(meta)
+        out[walk] = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                         own_work_bound_ms=own[0],
+                         err=float((k - p).abs().max()),
+                         walk=list(name))
+        phase(f"phase 8 walks: textured teapot {W}x{H}x8 spp, f32-texel "
+              f"forward on the {walk} walk {tuple(name)}: kernel {ms:.4f} ms "
+              f"({ms / out['per-thread']['ms']:.3f}x the per-thread walk), "
+              f"bit-equal to the plain version ({p_ms:.1f} ms); bound "
+              f"{b_ms:.4f} ms ({b_by}; {ops:.4g} f32 ops, the "
+              f"{F32_BOUND_BY[walk]} walk's work; this walk's plain version "
+              f"counts {own[2]:.4g}, {own[0]:.4f} ms); card {card}")
     return out
 
 
@@ -2722,6 +2931,138 @@ def training_phase(dev, card, mesh_tris):
     return rate, trate, k6_obj, k6_tri
 
 
+# the launch counters of the training path's kernels (phase 7 walks)
+K6_COUNTS = ("launches", "tri_launches", "tex_launches", "packet_launches",
+             "ablate_launches")
+K1_COUNTS = ("launches", "mesh_launches", "texel_launches",
+             "packet_launches", "ablate_launches")
+# phase 7 walks: the knobs of each run; the runs with a texel step on the
+# textured teapot, a triangle step on `teapot`, and with 5 of each
+TRAIN_WALKS = {k: v for k, v in F32_WALKS.items() if v}
+TRAIN_WALKS_TRI = ("packet mode 2", "ablated", "packet ablated")
+
+
+def zero_counts():
+    for c in K6_COUNTS:
+        setattr(tg.grad_tiles, c, 0)
+    for c in K1_COUNTS:
+        setattr(mk.trace_tiles, c, 0)
+
+
+def read_counts() -> dict:
+    return {**{f"K6 {c}": getattr(tg.grad_tiles, c) for c in K6_COUNTS},
+            **{f"K1 {c}": getattr(mk.trace_tiles, c) for c in K1_COUNTS}}
+
+
+def walk_training(dev, card, mesh_tris):
+    """Phase 7 (the walks), the main path of training under the JAX walk
+    knobs, each run of TRAIN_WALKS with every launch count set to 0 just
+    before it and read just after. PT_SUBPACKET=2: make_megakernel_step_tri
+    on `teapot` at W x H x TRI_STEP_SPP (5 steps: the loss must fall),
+    `train_demo --tri` at W x H x 8 spp (5 steps: the loss must fall) and
+    the texel recovery on the textured teapot (texel_recovery, 5 steps:
+    the loss must fall). PT_ABLATE_LEAF=1, alone and with PT_SUBPACKET=2:
+    one triangle step at the same size, which leaves the triangle colors
+    as they were, and whose Function's triangle gradient at the step's
+    seed (of the sums themselves) is exactly zero; and one texel step.
+    PT_SUBPACKET=3, with and without the ablation: one texel step (the
+    forward on the warp walk, the gradient per thread). Fails unless each
+    run launched the instantiations of its walk. Returns {run: counts}."""
+    crn = (1, 0)
+    tcfg = RenderConfig(width=W, height=H, samples=TRI_STEP_SPP,
+                        samples_per_pass=TRI_STEP_SPP)
+    tsc = get_scene("teapot", tcfg)
+    ttabs, tmeta, tarr, tpid = grad_inputs(tsc, tcfg, GRAD_TILE, dev)
+    xcfg = RenderConfig(width=W, height=H, samples=SPP)
+    xsc = textured_teapot(get_scene("teapot", xcfg), proctex.make)
+    out = {}
+    for run, env in TRAIN_WALKS.items():
+        with walk_env(env):
+            zero_counts()
+            tag = f"phase 7 walks: {run}"
+            if run in TRAIN_WALKS_TRI:
+                n = 5 if run == "packet mode 2" else 1
+                tstep, ttarget_of = make_megakernel_step_tri(
+                    tarr, tmeta, tcfg, tsc.camera, n_passes=1,
+                    tile=GRAD_TILE, lr=1000.0, spp=TRI_STEP_SPP)
+                ttarget = ttarget_of(crn_target(ttabs, tmeta, tcfg, tpid,
+                                                crn, TRI_STEP_SPP))
+                tri = tarr.tri_color.clone()
+                tri[:, 0] -= 0.3
+                tri0, losses = tri.clone(), []
+                for _ in range(n):
+                    _, _, tri, loss = tstep(tarr.color, tarr.emission, tri,
+                                            crn, ttarget)
+                    losses.append(float(loss))
+                if n > 1:
+                    check_falls(f"{tag}: teapot ({mesh_tris['teapot']} "
+                                f"triangles) {W}x{H}, {TRI_STEP_SPP} spp a "
+                                f"step, triangle colors", losses)
+                else:
+                    render = tg.make_diff_render_tri(
+                        tmeta, tcfg, TRI_STEP_SPP, GRAD_TILE,
+                        spp=TRI_STEP_SPP)
+                    p = tri0.clone().requires_grad_(True)
+                    rgb = render.apply(tarr.color, tarr.emission, p, crn,
+                                       *ttabs)
+                    (g,) = torch.autograd.grad(
+                        sum(x.sum() for x in rgb), (p,))
+                    zero = not g.any() and torch.equal(tri, tri0)
+                    phase(f"{tag}: one triangle step at {W}x{H}x"
+                          f"{TRI_STEP_SPP} spp, loss {losses[0]:.6g}; its "
+                          f"triangle gradient exactly zero and the colors "
+                          f"unchanged: {zero}")
+                    if not (zero and np.isfinite(losses[0])):
+                        raise AssertionError(f"{tag}: the triangle gradient "
+                                             f"is not zero without leaf "
+                                             f"tests")
+            if run == "packet mode 2":
+                with tempfile.TemporaryDirectory() as tmp:
+                    strip = os.path.join(tmp, "demo.png")
+                    buf = io.StringIO()
+                    with contextlib.redirect_stdout(buf):
+                        rc = train_demo.main([
+                            "--tri", "--scene", "teapot", "--width", str(W),
+                            "--height", str(H), "--spp", "8", "--steps",
+                            "5", "--out", strip])
+                    text = buf.getvalue()
+                    m = re.search(r"loss ([0-9.]+) -> ([0-9.]+); tri-color "
+                                  r"MAD ([0-9.]+) -> ([0-9.]+)", text)
+                    if rc != 0 or m is None or not os.path.getsize(strip):
+                        raise AssertionError(f"{tag}: train_demo --tri "
+                                             f"failed (rc {rc}):\n"
+                                             f"{text[-2000:]}")
+                    phase(f"{tag}: train_demo --tri {W}x{H}x8 spp: "
+                          f"{text.strip().splitlines()[-2]}")
+                    if not float(m.group(2)) < float(m.group(1)):
+                        raise AssertionError(f"{tag}: train_demo --tri's "
+                                             f"loss did not fall")
+            n = 5 if run == "packet mode 2" else 1
+            losses, mad0, mad1, n_train = texel_recovery(xsc, xcfg, dev, n)
+            if n > 1:
+                check_falls(f"{tag}: textured teapot {W}x{H}, {STEP_SPP} "
+                            f"spp a step, {n_train} texels x 3 perturbed "
+                            f"(texel MAD {mad0:.5f} -> {mad1:.5f})", losses)
+            elif not np.isfinite(losses).all():
+                raise AssertionError(f"{tag}: the texel step's loss is not "
+                                     f"finite")
+            counts = read_counts()
+            gw, fw = mk.grad_walk(), mk.mesh_walk()
+        need = {"K6 tex_launches": 1, "K1 texel_launches": 1,
+                "K6 packet_launches": gw.walk != "thread",
+                "K6 ablate_launches": gw.leaf == "none",
+                "K1 packet_launches": fw.walk != "thread",
+                "K1 ablate_launches": fw.leaf == "none",
+                "K6 tri_launches": run in TRAIN_WALKS_TRI}
+        phase(f"{tag}: launches {counts}; the gradient walk {tuple(gw)}, "
+              f"the forward's {tuple(fw)}")
+        missing = [k for k, v in need.items() if v and not counts[k]]
+        if missing:
+            raise AssertionError(f"{tag}: the run launched none of {missing}")
+        out[run] = counts
+    return out
+
+
 def tex_forward(dev, card):
     """Phase 8 (f32 texels): `textures-train` at W x H x 8 spp on its own
     tile through the f32-texel instantiation fetching the decoded pool,
@@ -2759,21 +3100,12 @@ def tex_forward(dev, card):
                 err=float((f32 - p).abs().max()))
 
 
-def tex_training(dev, card):
-    """Phase 8, the main path of texel training, with its launch counts set
-    to 0 just before: `textures-train` at W x H, the staged textures'
-    texels perturbed by U(-0.3, 0.3) and recovered toward a
-    common-random-number target through make_diff_render_tex (STEP_SPP a
-    step, Adam, clipped to [0, 1]; the loss must fall over 5 steps); the
-    fwd+bwd rate of make_megakernel_step_tex as bench.py measures
-    `fwd_bwd_textures-train`; a short `train_demo --tex`. Returns the
-    numbers."""
-    tg.grad_tiles.launches = 0
-    tg.grad_tiles.tex_launches = 0
-    mk.trace_tiles.launches = 0
-    mk.trace_tiles.texel_launches = 0
-    cfg = RenderConfig(width=W, height=H, samples=SPP)
-    sc = get_scene(TEX_TRAIN, cfg)
+def texel_recovery(sc, cfg, dev, steps):
+    """The staged textures' texels of scene `sc` perturbed by U(-0.3, 0.3)
+    and recovered toward a common-random-number target through
+    make_diff_render_tex at W x H (STEP_SPP a step, Adam at TEX_LR, clipped
+    to [0, 1]) for `steps` steps. Returns (losses, texel MAD before, after,
+    trainable texels)."""
     tabs, meta, arrays, pid = grad_inputs(sc, cfg, GRAD_TILE, dev)
     table = torch.from_numpy(mk.build_tex_table(arrays, meta)).to(dev)
     render = tg.make_diff_render_tex(meta, cfg, STEP_SPP, cfg.samples,
@@ -2799,7 +3131,7 @@ def tex_training(dev, card):
     tex = tex0.clone().requires_grad_(True)
     opt = torch.optim.Adam([tex], lr=TEX_LR)
     losses = []
-    for _ in range(5):
+    for _ in range(steps):
         opt.zero_grad()
         loss = sum(torch.sum(((x - t) * valid) ** 2) for x, t in
                    zip(forward(tex), target)) / (3.0 * n_valid * STEP_SPP ** 2)
@@ -2810,8 +3142,27 @@ def tex_training(dev, card):
         losses.append(float(loss.detach()))
     mad0 = float((tex0[train] - tex_true[train]).abs().mean())
     mad1 = float((tex.detach()[train] - tex_true[train]).abs().mean())
+    return losses, mad0, mad1, int(train.sum())
+
+
+def tex_training(dev, card):
+    """Phase 8, the main path of texel training, with its launch counts set
+    to 0 just before: `textures-train` at W x H, the staged textures'
+    texels perturbed by U(-0.3, 0.3) and recovered toward a
+    common-random-number target through make_diff_render_tex (STEP_SPP a
+    step, Adam, clipped to [0, 1]; the loss must fall over 5 steps); the
+    fwd+bwd rate of make_megakernel_step_tex as bench.py measures
+    `fwd_bwd_textures-train`; a short `train_demo --tex`. Returns the
+    numbers."""
+    tg.grad_tiles.launches = 0
+    tg.grad_tiles.tex_launches = 0
+    mk.trace_tiles.launches = 0
+    mk.trace_tiles.texel_launches = 0
+    cfg = RenderConfig(width=W, height=H, samples=SPP)
+    losses, mad0, mad1, n_train = texel_recovery(get_scene(TEX_TRAIN, cfg),
+                                                 cfg, dev, 5)
     check_falls(f"phase 8: {TEX_TRAIN} {W}x{H}, {STEP_SPP} spp a step, "
-                f"{int(train.sum())} texels x 3 perturbed (texel MAD {mad0:.5f}"
+                f"{n_train} texels x 3 perturbed (texel MAD {mad0:.5f}"
                 f" -> {mad1:.5f})", losses)
     rate, dt = step_rate(*step_cases(THIS_TREE, dev, [TEX_TRAIN])[TEX_TRAIN])
     phase(f"phase 8: {TEX_TRAIN} fwd+bwd {rate:.1f} Msamples/s ({W}x{H}x"
@@ -2860,9 +3211,12 @@ def main_size(grads, i):
 
 def grad_phases(args, dev, card, mesh_tris, ptxas):
     """Phase 6: the split of `--grad-split`'s trees (none: this tree
-    alone), the spp-per-launch curve and the gradient kernel against its
-    plain version at both launch sizes. Returns (grad_phase's results, the
-    curve, the split)."""
+    alone), the spp-per-launch curve, the gradient kernel against its
+    plain version at both launch sizes, on the per-thread walk and on the
+    walks of the JAX knobs (grad_walk_phase), and the megakernel step's
+    row-shared draws against the wavefront (row_shared_check). Returns
+    (grad_phase's results, the curve, the split, grad_walk_phase's
+    results, row_shared_check's)."""
     trees, ptxas_of = [("this", THIS_TREE)], {"this": ptxas_counts(ptxas)}
     for i, d in enumerate(args.grad_split):
         T = load_tree(d, f"grad_tree_{i}")
@@ -2872,20 +3226,37 @@ def grad_phases(args, dev, card, mesh_tris, ptxas):
             T.build._target("megakernel").with_suffix(".log").read_text()))
     split = grad_split(trees, ptxas_of, dev, card)
     curve = grad_curve(dev, card)
-    return grad_phase(dev, card, mesh_tris), curve, split
+    grads = grad_phase(dev, card, mesh_tris)
+    walks = grad_walk_phase(dev, card, mesh_tris, grads, ptxas)
+    return grads, curve, split, walks, row_shared_check(dev, card)
+
+
+def check_forward_ptxas(parent: str, family: dict) -> None:
+    """Raise if a forward instantiation of the K1 family that the tree
+    `parent` has (ab_parent's {name: (parent counts, this build's)}) moved
+    its ptxas counts in this build."""
+    moved = {k: v for k, v in family.items()
+             if not k.startswith("grad") and v[0] != v[1]}
+    if moved:
+        raise AssertionError(f"phase 5 A/B: the forward instantiations of "
+                             f"{parent} moved their ptxas counts: {moved}")
 
 
 def grad_only(args, dev, card, ptxas):
-    """--grad-only: phase 6 (grad_phases) and the A/B of --ab-parent, the
-    forward instantiations' ptxas counts beside each tree's."""
+    """--grad-only: phase 6 (grad_phases), the walks of phases 7 and 8
+    (walk_training, tex_forward_walks) and the A/B of --ab-parent, whose
+    forward instantiations must keep their ptxas counts."""
     small = RenderConfig(width=160, height=120, samples=8)
     mesh_tris = {"teapot": n_triangles(get_scene("teapot", small)),
                  "size-check mesh": n_triangles(size_check_scene(
                      small, get_scene))}
     grad_phases(args, dev, card, mesh_tris, ptxas)
+    walk_training(dev, card, mesh_tris)
+    tex_forward_walks(dev, card)
     for i, d in enumerate(args.ab_parent):
         phase(f"phase 5 A/B: against {d}")
-        ab_parent(d, f"ab_tree_{i}", AB_CASES, dev, card, ptxas)
+        check_forward_ptxas(d, ab_parent(d, f"ab_tree_{i}", AB_CASES, dev,
+                                         card, ptxas)[1])
     phase("grad-only: done")
 
 
@@ -3572,71 +3943,72 @@ def ad_route_vs_walk(scene: str, dev, card):
     return worst
 
 
-def ad_estimators(dev, card):
-    """Two estimators of the same gradient on `reference` at AD_EST: the
-    wavefront's (image_loss) and the megakernel step's
-    (make_megakernel_step, its update at lr 1 taken back), each over
-    AD_SEEDS seeds, against a black target at the same spp (the squared
-    loss's noise term is then the same for both); color and emission,
-    every entry within AD_SIGMAS standard errors (each the spread of its
-    seeds' gradients over sqrt(AD_SEEDS)). The rule holds the megakernel
-    with per-slot draws (PT_COHERENT=0); its default row-shared roulette
-    and hemisphere draws make one seed's gradient a sum over a few hundred
-    independent directions, skewed (rare paths to the light weigh most),
-    so that a few seeds' mean and spread miss its tail: that comparison is
-    printed beside it, at AD_SEEDS and 4 x AD_SEEDS seeds, without a rule
-    (PERF.md §6, the wavefront autograd path)."""
+@functools.lru_cache(maxsize=None)
+def estimator_samples(dev, coherent: str, n: int):
+    """The gradient d loss / d (color, emission) on `reference` at AD_EST
+    against a black target at the same spp (the squared loss's noise term
+    is then the same for both estimators), over seeds 0 .. n - 1: the
+    wavefront's (image_loss) with coherent None, else the megakernel
+    step's (make_megakernel_step, its update at lr 1 taken back) under
+    PT_COHERENT=coherent. [n, entries] float64, computed once."""
     w, h, spp = AD_EST
     inp = ad_inputs("reference", dev, w, h, spp)
     arrays, meta, cfg, cam, px, py, route = inp
-    p = extract_params(arrays)
-    n_max = 4 * AD_SEEDS
-    wf = []
-    for s in range(n_max):
-        _, g = ad_loss_grads(inp, p, threefry.prng_key(100 + s),
-                             Vec3.zeros((w * h,), torch.float32, dev))
-        wf.append(torch.cat([g.color, g.emission]).cpu().double().numpy())
+    out = []
+    if coherent is None:
+        p = extract_params(arrays)
+        for s in range(n):
+            _, g = ad_loss_grads(inp, p, threefry.prng_key(100 + s),
+                                 Vec3.zeros((w * h,), torch.float32, dev))
+            out.append(torch.cat([g.color, g.emission]).cpu().double()
+                       .numpy())
+        return np.asarray(out)
     sc = get_scene("reference", cfg)
     step, target_of = make_megakernel_step(arrays, meta, cfg, sc.camera,
                                            spp, lr=1.0)
     target = target_of(np.zeros((h, w, 3), np.float32))
+    with env_var("PT_COHERENT", coherent):
+        for s in range(n):
+            c, e, _ = step(arrays.color, arrays.emission, (200 + s, 0),
+                           target)
+            out.append(torch.cat([arrays.color - c, arrays.emission - e])
+                       .cpu().double().numpy())
+    return np.asarray(out)
 
-    def megakernel(coherent, n):
-        out = []
-        with env_var("PT_COHERENT", coherent):
-            for s in range(n):
-                c, e, _ = step(arrays.color, arrays.emission, (200 + s, 0),
-                               target)
-                out.append(torch.cat([arrays.color - c,
-                                      arrays.emission - e])
-                           .cpu().double().numpy())
-        return np.asarray(out)
 
-    def z_of(a, b):
-        n = len(a)
-        se = np.sqrt(a.var(0, ddof=1) / n + b.var(0, ddof=1) / n)
-        live = se > 0
-        z = np.zeros_like(se)
-        z[live] = (a.mean(0) - b.mean(0))[live] / se[live]
-        still = ~live & (np.abs(a.mean(0) - b.mean(0)) > 0)
-        return z, int(live.sum()), int(still.sum())
+def estimator_z(dev, coherent: str, n: int):
+    """(z [entries], entries with noise, noiseless entries that differ) of
+    the megakernel step's gradient under PT_COHERENT=coherent against the
+    wavefront's, over n seeds each: each entry's difference of means over
+    its standard error (each estimator's spread over sqrt(n))."""
+    a = estimator_samples(dev, None, max(n, ROW_SHARED_SEEDS))[:n]
+    b = estimator_samples(dev, coherent, n)
+    se = np.sqrt(a.var(0, ddof=1) / n + b.var(0, ddof=1) / n)
+    live = se > 0
+    z = np.zeros_like(se)
+    z[live] = (a.mean(0) - b.mean(0))[live] / se[live]
+    still = ~live & (np.abs(a.mean(0) - b.mean(0)) > 0)
+    return z, int(live.sum()), int(still.sum())
 
-    wf = np.asarray(wf)
-    z, live, still = z_of(wf[:AD_SEEDS], megakernel("0", AD_SEEDS))
-    shared = megakernel("1", n_max)
-    zs = {n: float(np.abs(z_of(wf[:n], shared[:n])[0]).max())
-          for n in (AD_SEEDS, n_max)}
+
+def ad_estimators(dev, card):
+    """Two estimators of the same gradient on `reference` at AD_EST
+    (estimator_samples): the wavefront's and the megakernel step's with
+    per-slot draws (PT_COHERENT=0), each over AD_SEEDS seeds, every entry
+    within AD_SIGMAS standard errors. The megakernel's default row-shared
+    draws are held by the same rule at ROW_SHARED_SEEDS seeds in phase 6
+    (row_shared_check)."""
+    w, h, spp = AD_EST
+    z, live, still = estimator_z(dev, "0", AD_SEEDS)
     phase(f"phase 12: reference {w}x{h}x{spp} d loss / d (color, emission), "
           f"the wavefront's and the megakernel's (per-slot draws, "
           f"PT_COHERENT=0) over {AD_SEEDS} seeds each: {live} entries with "
           f"noise, |z| max {np.abs(z).max():.3f}, {still} noiseless entries "
-          f"that differ; against the megakernel's row-shared draws (the "
-          f"default; no rule): |z| max {zs} by seeds; card {card}")
+          f"that differ; card {card}")
     if np.abs(z).max() > AD_SIGMAS or still:
         raise AssertionError(f"phase 12: the two estimators disagree: z "
                              f"{np.round(z, 2).tolist()}")
-    return dict(entries=live, z_max=float(np.abs(z).max()),
-                row_shared_z_max=zs)
+    return dict(entries=live, z_max=float(np.abs(z).max()))
 
 
 def ad_demo(dev, card, tmp):
@@ -3971,7 +4343,7 @@ DIST_STEP_LR = 1.0
 DIST_TARGET_SPP = 256        # 13c's target: the true colors under another seed
 DIST_TRAIN_MESH = "2x1"      # 13d: make_sharded_train_step at W x H x 1
 DIST_TRAIN_LR = 0.05
-DIST_TRAIN_REPEATS = 3       # 13d: one-process steps, their own spread
+DIST_TRAIN_REPEATS = 8       # 13d: one-process steps, their own spread
 DIST_CK = ("1x2", "2x1", 256, 4, 16)   # 13e: mesh, other mesh, spp, every,
                                        # the chunk the run stops at
 DIST_TIMEOUT = 600.0
@@ -4087,14 +4459,25 @@ def deterministic():
             torch.use_deterministic_algorithms(False)
 
 
+class GradTap(torch.optim.SGD):
+    """SGD that keeps a copy of the gradients it is handed (`grads`, in the
+    order of its tensors) before it applies them."""
+
+    def step(self, closure=None):
+        self.grads = [t.grad.detach().clone() for g in self.param_groups
+                      for t in g["params"]]
+        return super().step(closure)
+
+
 def dist_train(dev, mesh, repeats=1):
     """13d: one step of make_sharded_train_step (the wavefront autograd
     path, K5 on every bounce) on `reference` at W x H x 1 toward a gray
-    target: timed with its peak memory, then `repeats` - 1 times more, then
-    once under torch's deterministic kernels. Returns ({loss, wall, peak,
+    target: timed with its peak memory, then once under torch's
+    deterministic kernels, then `repeats` times more through GradTap for
+    the averaged gradients themselves. Returns ({loss, wall, peak,
     launches of the first, the deterministic mode's warnings}, {the new
-    color and emission of each default-mode step [repeats, ...], and of
-    the deterministic one})."""
+    color and emission of the first step and of the deterministic one,
+    and the gradients of each tapped step [repeats, ...]})."""
     cfg = RenderConfig(width=W, height=H, samples=1, samples_per_pass=1)
     sc = get_scene("reference", cfg)
     arr, meta = sc.pack(device=dev)
@@ -4104,32 +4487,38 @@ def dist_train(dev, mesh, repeats=1):
                     for _ in range(3)))
     p = extract_params(arr)._replace(tri_color=None, tex_planar=None,
                                      tex_sphere=None, tex_cube=None)
-    step = make_sharded_train_step(
-        mesh, meta, cfg, n_samples=1, lr=DIST_TRAIN_LR,
-        route=integrator.intersect_route(arr, meta, cfg))
-    news = []
-    for i in range(repeats):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        if i == 0:
-            reset_launches()
-        t0 = time.perf_counter()
-        new, loss = step(p, arr, cam, px, py, target, threefry.prng_key(3))
-        loss = float(loss)
-        news.append(new)
-        if i == 0:
-            res = dict(loss=loss, wall_s=time.perf_counter() - t0,
-                       launches=launches(),
-                       peak_bytes=torch.cuda.max_memory_allocated(dev))
+    route = integrator.intersect_route(arr, meta, cfg)
+    step = make_sharded_train_step(mesh, meta, cfg, n_samples=1,
+                                   lr=DIST_TRAIN_LR, route=route)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    new, loss = step(p, arr, cam, px, py, target, threefry.prng_key(3))
+    res = dict(loss=float(loss), wall_s=time.perf_counter() - t0,
+               launches=launches(),
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
     with deterministic() as caught:
         det, _ = step(p, arr, cam, px, py, target, threefry.prng_key(3))
         torch.cuda.synchronize()
     res["det_warnings"] = sorted({str(w.message)[:160] for w in caught})
+    # the gradients as the step hands them over, not (old - new) / lr: the
+    # light's emission of 9.0 rounds its update to a float32 ulp of
+    # 9.5e-7, which is 1.8e-4 of the largest emission gradient over lr
+    grads = []
+    for _ in range(repeats):
+        q = p._replace(color=p.color.clone(), emission=p.emission.clone())
+        tap = GradTap([q.color, q.emission], lr=DIST_TRAIN_LR)
+        make_sharded_train_step(mesh, meta, cfg, n_samples=1,
+                                optimizer=tap, route=route)(
+            q, arr, cam, px, py, target, threefry.prng_key(3))
+        grads.append(tap.grads)
     return res, dict(
-        color=torch.stack([n.color for n in news]).cpu().numpy(),
-        emission=torch.stack([n.emission for n in news]).cpu().numpy(),
+        color=new.color.cpu().numpy(), emission=new.emission.cpu().numpy(),
         det_color=det.color.cpu().numpy(),
-        det_emission=det.emission.cpu().numpy())
+        det_emission=det.emission.cpu().numpy(),
+        **{f"grad_{k}": torch.stack([g[j] for g in grads]).cpu().numpy()
+           for j, k in enumerate(("color", "emission"))})
 
 
 def dist_rank(spec_path: str) -> int:
@@ -4364,7 +4753,8 @@ def dist_phase(dev, card) -> dict:
         i += 1
         tag = (f"phase 13d: make_sharded_train_step, reference {W}x{H}x1, "
                f"mesh {DIST_TRAIN_MESH}")
-        for k in ("color", "emission", "det_color", "det_emission"):
+        for k in ("color", "emission", "det_color", "det_emission",
+                  "grad_color", "grad_emission"):
             same(f"{tag}: rank 1's {k}", a1[f"{i}_{k}"], a0[f"{i}_{k}"])
         want, wnew = dist_train(dev, LogicalMesh(
             dist_mesh.parse_mesh(DIST_TRAIN_MESH)), DIST_TRAIN_REPEATS)
@@ -4372,14 +4762,11 @@ def dist_phase(dev, card) -> dict:
         for k in ("det_color", "det_emission"):
             same(f"{tag}: deterministic kernels, {k} against one process "
                  f"playing both", a0[f"{i}_{k}"], wnew[k])
-        arr = get_scene("reference", RenderConfig(width=W, height=H)).pack(
-            device=torch.device("cpu"))[0]
 
-        def grads(new, j):
-            return [torch.from_numpy((getattr(arr, k).numpy() - new[k][j])
-                                     / DIST_TRAIN_LR)
+        def grads(got, j):
+            return [torch.from_numpy(got[f"grad_{k}"][j])
                     for k in ("color", "emission")]
-        rank0 = {k: a0[f"{i}_{k}"] for k in ("color", "emission")}
+        rank0 = {k: a0[f"{i}_{k}"] for k in ("grad_color", "grad_emission")}
         rule = grad_rule(grads(rank0, 0), grads(wnew, 0), mesh=False)
         # the default kernels add in no fixed order: one process against
         # itself, step by step
@@ -4450,6 +4837,80 @@ def dist_phase(dev, card) -> dict:
     return out
 
 
+def walk_rows(gwalks, wtrain, f32_walks, ptxas):
+    """The kernels line's rows of the gradient kernel's walk instantiations
+    (K6 in triangle mode on `teapot`, K6-tex on the textured teapot, each
+    at its training step's launch size where it was held there, else at
+    GRAD_SPP; its other size and, in triangle mode, the size-check mesh
+    beside it) and of the f32-texel forward's walks (the textured teapot at
+    8 spp), each with its launches in phase 7's run of its walk and its
+    ptxas counts."""
+    walks, mode1, _ = gwalks
+    counts = ptxas_counts(ptxas)
+    kinds = {"packet mode 2": "block-packet ", "ablated": "ablated ",
+             "packet ablated": "block-packet ablated ",
+             "packet mode 3": "warp-packet ",
+             "warp ablated": "warp-packet ablated "}
+    replaces = {"packet mode 2": "1543", "ablated": "1487",
+                "packet ablated": "1487", "packet mode 3": "1984",
+                "warp ablated": "1487"}
+    words = {"packet mode 2": "packet", "ablated": "ablated",
+             "packet ablated": "packet-ablated", "packet mode 3": "warp",
+             "warp ablated": "warp-ablated"}
+    keys = ("ms", "plain_ms", "bound_ms", "own_work_bound_ms", "max_abs_err")
+    rows = []
+    for walk in GRAD_WALKS:
+        for mode, case, jax in (("tri", "teapot", "267,361"),
+                                ("tex", "textured teapot", "267,65,361")):
+            by_spp = walks[walk][case]
+            spp = max(by_spp)
+            r = by_spp[spp]
+            row = {"name": f"grad-megakernel-{mode}-{words[walk]}",
+                   "route": "cuda",
+                   "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+                   "replaces": f"pathtracer_tpu/render/pallas_grad.py:{jax}",
+                   "walk_replaces": "pathtracer_tpu/render/pallas_kernel.py:"
+                                    + replaces[walk],
+                   "launches": wtrain[walk][f"K6 {mode}_launches"],
+                   "max_abs_err": r["max_abs_err"],
+                   "shape": f"{case} {W}x{H}x{spp}spp",
+                   "ms": r["ms"], "plain_ms": r["plain_ms"],
+                   "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                   "library_ms": None,
+                   "own_work_bound_ms": r["own_work_bound_ms"],
+                   "per_thread_ms": walks["per-thread"][case][spp]["ms"],
+                   "ptxas": counts.get(
+                       f"grad {'textured f32-texel ' * (mode == 'tex')}"
+                       f"{kinds[walk]}mesh"),
+                   "by_spp": {n: {k: x[k] for k in keys}
+                              for n, x in by_spp.items()}}
+            if mode == "tri":
+                row["size_check"] = {n: {k: x[k] for k in keys} for n, x
+                                     in walks[walk]["size-check"].items()}
+                if walk == "packet mode 2":
+                    row["mode_1"] = {k: mode1[k] for k in keys}
+            rows.append(row)
+    for walk, r in f32_walks.items():
+        if walk == "per-thread":
+            continue
+        rows.append({"name": f"megakernel-tex-f32-{words[walk]}",
+                     "route": "cuda",
+                     "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+                     "replaces": "pathtracer_tpu/render/pallas_kernel.py:999,"
+                                 + replaces[walk],
+                     "launches": wtrain[walk]["K1 texel_launches"],
+                     "max_abs_err": r["err"], "bit_equal": True,
+                     "shape": f"textured teapot {W}x{H}x8spp",
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": None,
+                     "own_work_bound_ms": r["own_work_bound_ms"],
+                     "ptxas": counts.get(
+                         f"textured f32-texel {kinds[walk]}mesh"),
+                     "per_thread_ms": f32_walks["per-thread"]["ms"]})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab-parent", metavar="DIR", action="append",
@@ -4498,8 +4959,9 @@ def main(argv=None) -> int:
     ap.add_argument("--grad-only", action="store_true",
                     help="after the build, run the gradient kernel's phases "
                          "alone (the split, the curve, phase 6 against the "
-                         "plain version, the A/B of --ab-parent) and print "
-                         "no result lines")
+                         "plain version on every walk, the walks' training "
+                         "and f32-texel forward, the A/B of --ab-parent) "
+                         "and print no result lines")
     ap.add_argument("--wavefront-only", action="store_true",
                     help="after the build, run the wavefront's phase 11 "
                          "alone and print no result lines")
@@ -4784,6 +5246,7 @@ def main(argv=None) -> int:
         phase(f"phase 5 A/B: against {d}")
         ab[d] = ab_parent(d, f"ab_tree_{i}", {**AB_CASES, **WALK_AB_CASES},
                           dev, card, ptxas)
+        check_forward_ptxas(d, ab[d][1])
         for name in ("reference", "teapot"):
             pm, tm = ab[d][0][f"K1-nee {name} {W}x{H}x8 spp"]
             phase(f"phase 5 nee: {name}: K1-nee {tm:.4f} ms against "
@@ -4800,12 +5263,16 @@ def main(argv=None) -> int:
                                             "teapot": mkw["meta"]}, card)
     sweep = leaf_sweep(dev, card)
 
-    grads, curve, gsplit = grad_phases(args, dev, card, mesh_tris, ptxas)
+    grads, curve, gsplit, gwalks, shared = grad_phases(args, dev, card,
+                                                      mesh_tris, ptxas)
     g_ref, g_tea, g_big, g_tex = grads[GRAD_SPP]
     rate, trate, k6_obj, k6_tri = training_phase(dev, card, mesh_tris)
+    # ---- phase 7 (the walks): training under the JAX walk knobs ---------
+    wtrain = walk_training(dev, card, mesh_tris)
 
     # ---- phase 8: the texel path (K6-tex, f32 texels) -------------------
     f32_fwd = tex_forward(dev, card)
+    f32_walks = tex_forward_walks(dev, card)
     phase(f"phase 8: K6-tex {g_tex['ms']:.4f} ms vs K6 on reference "
           f"{g_ref['ms']:.4f} ms for the same {W}x{H}x{GRAD_SPP} samples "
           f"({g_tex['ms'] / g_ref['ms']:.2f}x); card {card}")
@@ -4886,7 +5353,8 @@ def main(argv=None) -> int:
          "split": gsplit,
          "fwd_bwd_msamples_per_s": rate,
          "sharded": {"launches": dl["k6"], "step": dist["c"]},
-         "fwd_bwd_shape": f"reference {W}x{H}x{STEP_SPP}spp x 3 steps"},
+         "fwd_bwd_shape": f"reference {W}x{H}x{STEP_SPP}spp x 3 steps",
+         "row_shared_draws": shared},
         {"name": "grad-megakernel-tri", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
          "replaces": "pathtracer_tpu/render/pallas_grad.py:267,221",
@@ -4948,6 +5416,7 @@ def main(argv=None) -> int:
          "fwd_bwd_shape": f"{TEX_TRAIN} {W}x{H}x{STEP_SPP}spp x 3 steps",
          "train_losses": tex_train["losses"],
          "train_texel_mad": tex_train["mad"]},
+        *walk_rows(gwalks, wtrain, f32_walks, ptxas),
         {"name": "megakernel-nee", "route": "cuda",
          "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
          "replaces": "pathtracer_tpu/render/pallas_kernel.py:2421",

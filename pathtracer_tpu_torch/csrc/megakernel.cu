@@ -1483,12 +1483,13 @@ __device__ __forceinline__ float acos_poly(float x) {
 
 // kF32 (with kTex): fetch from the f32 texels, not the rgb8 pool.
 // kNee (forward only, not kF32): next-event estimation toward p.light_idx.
-// kWalk, kLeaf (forward and kMesh only): the mesh walk. Under a packet walk
+// kWalk, kLeaf (kMesh only): the mesh walk. Under a packet walk
 // (WALK_BLOCK, WALK_WARP) the group's lanes call nearest_hit together, so
 // the bounce loop runs until the group's last path ends (the TPU tile's
 // per-tile exit), a lane whose path ended riding along inactive (`live`
-// false: its sums no longer change), and every light's shadow walk is
-// called by every lane, active where the lane casts that shadow ray.
+// false: its sums and, under kGrad, its tape no longer change), and every
+// light's shadow walk is called by every lane, active where the lane casts
+// that shadow ray.
 // The forward kernels (megakernel) and the gradient kernels
 // (grad_megakernel) run this body.
 template <bool kMesh, bool kGrad, bool kTex, bool kF32 = false,
@@ -1777,7 +1778,7 @@ __device__ __forceinline__ void megakernel_body(const Params& p) {
       const float emi_r = on_tri ? 0.0f : wm[27];
       const bool is_light = emi_r > 0.0f;
       if constexpr (kGrad) {
-        if (!do_refract) {
+        if (!do_refract && (!kPacket || live)) {
           // tape entry (pallas_grad.py:755-778): the winner, cos, the mask
           // before this bounce's update and the color that updates it
           t_id[nb] = on_tri ? -1 - tri : w;
@@ -2009,16 +2010,17 @@ __global__ void __launch_bounds__(kThreads) megakernel(Params p) {
 }
 
 // The gradient kernels: at least kGradBlocks blocks an SM, so at most 64
-// registers a thread. The replay's tape and atomics want the warps more
-// than the registers: with the 16-byte records ptxas chose 80 and K6 in
-// triangle mode ran 13% slower. (A minimum of 1 for the forward kernels
-// is not the default: ptxas then takes 90-110 registers and they run
-// 5-10% slower.)
+// registers a thread, on every walk. The replay's tape and atomics want the
+// warps more than the registers: with the 16-byte records ptxas chose 80
+// and K6 in triangle mode ran 13% slower. (A minimum of 1 for the forward
+// kernels is not the default: ptxas then takes 90-110 registers and they
+// run 5-10% slower.) kWalk, kLeaf: the mesh walks of WalkLaunch.
 constexpr int kGradBlocks = 8;
-template <bool kMesh, bool kTex, bool kF32>
+template <bool kMesh, bool kTex, bool kF32, int kWalk = WALK_THREAD,
+          int kLeaf = LEAF_SIMT>
 __global__ void __launch_bounds__(kGradThreads, kGradBlocks)
     grad_megakernel(Params p) {
-  megakernel_body<kMesh, true, kTex, kF32>(p);
+  megakernel_body<kMesh, true, kTex, kF32, false, kWalk, kLeaf>(p);
 }
 
 // Point the launch parameters at the mesh tables (node, triangle test and
@@ -2053,36 +2055,6 @@ bool copy_objects(Params& p, const int* obj_types, const int* group_root,
   return mesh;
 }
 
-template <bool kGrad, bool kTex, bool kF32 = false, bool kNee = false>
-int launch(Params& p, const int* obj_types, const int* group_root,
-           const int* group_end, void* stream) {
-  const bool mesh = copy_objects(p, obj_types, group_root, group_end);
-  const size_t smem =
-      sizeof(float) * (size_t)(p.n_obj * (kObjStride +
-                                          (kGrad ? kGradCols : 0) +
-                                          (kTex ? kTexRow : 0)) +
-                               kCamCols);
-  const int threads = kGrad ? kGradThreads : kThreads;
-  const int blocks = (p.n_slots + threads - 1) / threads;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (blocks > 0) {
-    if constexpr (kGrad) {
-      if (mesh)
-        grad_megakernel<true, kTex, kF32><<<blocks, threads, smem, s>>>(p);
-      else
-        grad_megakernel<false, kTex, kF32><<<blocks, threads, smem, s>>>(p);
-    } else {
-      if (mesh)
-        megakernel<true, false, kTex, kF32, kNee>
-            <<<blocks, kThreads, smem, s>>>(p);
-      else
-        megakernel<false, false, kTex, kF32, kNee>
-            <<<blocks, kThreads, smem, s>>>(p);
-    }
-  }
-  return (int)cudaGetLastError();
-}
-
 // Run f.run<kWalk, kLeaf>() for a mesh walk other than the per-thread walk
 // with SIMT leaves, by (walk, leaf) code: the ones the JAX package's knobs
 // select (render/megakernel.py mesh_walk).
@@ -2106,21 +2078,78 @@ int launch_walk(int walk, int leaf, const F& f) {
   }
 }
 
-// The forward megakernel of a mesh scene on a walk of launch_walk.
-template <bool kTex, bool kNee>
-struct PacketLaunch {
+// The megakernel (kGrad: the gradient kernel) of a mesh scene on a walk of
+// launch_walk. The gradient kernel takes the walks the JAX gradient
+// kernel's knobs select (render/megakernel.py grad_walk: the block walk
+// with SIMT leaves or none, the per-thread walk without leaf tests): the
+// warp walk and the tensor-core leaves are the forward's alone. The
+// f32-texel forward (the texel gradients' primal) takes every walk but
+// the tensor-core leaves, which the differentiable render refuses.
+template <bool kGrad, bool kTex, bool kF32, bool kNee>
+struct WalkLaunch {
   const Params& p;
   size_t smem;
+  int blocks;
   cudaStream_t stream;
   template <int kWalk, int kLeaf>
   int run() const {
-    const int blocks = (p.n_slots + kThreads - 1) / kThreads;
-    if (blocks > 0)
-      megakernel<true, false, kTex, false, kNee, kWalk, kLeaf>
-          <<<blocks, kThreads, smem, stream>>>(p);
-    return (int)cudaGetLastError();
+    if constexpr ((kLeaf == LEAF_MMA && (kGrad || kF32)) ||
+                  (kGrad && kWalk == WALK_WARP)) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      if (blocks > 0) {
+        if constexpr (kGrad)
+          grad_megakernel<true, kTex, kF32, kWalk, kLeaf>
+              <<<blocks, kGradThreads, smem, stream>>>(p);
+        else
+          megakernel<true, false, kTex, kF32, kNee, kWalk, kLeaf>
+              <<<blocks, kThreads, smem, stream>>>(p);
+      }
+      return (int)cudaGetLastError();
+    }
   }
 };
+
+// Launch the instantiation p's scene needs on the mesh walk (walk, leaf):
+// the per-thread walk with SIMT leaves (the only one of a scene without a
+// GROUP) here, any other through launch_walk (WalkLaunch).
+template <bool kGrad, bool kTex, bool kF32 = false, bool kNee = false>
+int launch(Params& p, const int* obj_types, const int* group_root,
+           const int* group_end, void* stream, int walk = WALK_THREAD,
+           int leaf = LEAF_SIMT) {
+  const bool mesh = copy_objects(p, obj_types, group_root, group_end);
+  const size_t smem =
+      sizeof(float) * (size_t)(p.n_obj * (kObjStride +
+                                          (kGrad ? kGradCols : 0) +
+                                          (kTex ? kTexRow : 0)) +
+                               kCamCols);
+  const int threads = kGrad ? kGradThreads : kThreads;
+  const int blocks = (p.n_slots + threads - 1) / threads;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (walk != WALK_THREAD || leaf != LEAF_SIMT) {
+    if (!mesh)
+      return (int)cudaErrorInvalidValue;  // the walks are for meshes
+    return launch_walk(walk, leaf,
+                       WalkLaunch<kGrad, kTex, kF32, kNee>{p, smem, blocks,
+                                                           s});
+  }
+  if (blocks > 0) {
+    if constexpr (kGrad) {
+      if (mesh)
+        grad_megakernel<true, kTex, kF32><<<blocks, threads, smem, s>>>(p);
+      else
+        grad_megakernel<false, kTex, kF32><<<blocks, threads, smem, s>>>(p);
+    } else {
+      if (mesh)
+        megakernel<true, false, kTex, kF32, kNee>
+            <<<blocks, kThreads, smem, s>>>(p);
+      else
+        megakernel<false, false, kTex, kF32, kNee>
+            <<<blocks, kThreads, smem, s>>>(p);
+    }
+  }
+  return (int)cudaGetLastError();
+}
 
 // The intersect-only kernel's rays: six f32 [n] inputs, the f32 outputs
 // [13, n] (t, object-space origin xyz and direction xyz, the triangle
@@ -2552,8 +2581,12 @@ extern "C" int pt_megakernel_tex_launch(
 
 // Launch the f32-texel instantiations: pt_megakernel_tex_launch with the
 // n_texels f32 texels [n_texels, 4] (rgb and a pad float, 16-byte aligned)
-// in place of the rgb8 pool. With texels q * f32(1/255) of the pool's bytes
-// the result is pt_megakernel_tex_launch's bit for bit.
+// in place of the rgb8 pool, then the mesh walk's codes (launch_walk's,
+// LEAF_MMA refused, or the per-thread walk with SIMT leaves, the only one
+// of a scene without a GROUP).
+// With texels q * f32(1/255) of the pool's bytes the result is
+// pt_megakernel_tex_launch's (or, on a walk, the packet launch's) bit for
+// bit.
 extern "C" int pt_megakernel_texels_launch(
     float* out_r, float* out_g, float* out_b, const int* px, const int* py,
     const float* obj, const int* obj_types, const float* cam,
@@ -2564,7 +2597,7 @@ extern "C" int pt_megakernel_texels_launch(
     int max_bounces, int max_eff, int leaf_size, int oct_nodes, float eps,
     float t_max, float sun_cut, float sun_den, float golden2, int coherent,
     void* stream, const float* texels, int n_texels,
-    const float* tex_table) {
+    const float* tex_table, int walk, int leaf) {
   if (n_obj < 1 || n_obj > kMaxObjects || spp_pack < 1 || leaf_size < 1 ||
       spp % spp_pack != 0 || (chunk_axis ? L % spp_pack : S % spp_pack) != 0 ||
       texels == nullptr || n_texels < 1 || tex_table == nullptr ||
@@ -2580,7 +2613,7 @@ extern "C" int pt_megakernel_texels_launch(
   if (!set_tables(p, nodes, tris, shade))
     return (int)cudaErrorInvalidValue;
   return launch<false, true, true>(p, obj_types, group_root, group_end,
-                                   stream);
+                                   stream, walk, leaf);
 }
 
 // Launch the next-event-estimation instantiations (kNee):
@@ -2777,8 +2810,10 @@ extern "C" int pt_filter_check_launch(int type, const float* ray,
 // emission rgb) and gtri [n_tri_slots, 4] (rgb and a pad column; 16-byte
 // aligned; null for object gradients only) must be zeroed by the caller;
 // the kernel adds into them. n_slots must be a multiple of the block size
-// (kGradThreads, 128) and max_bounces at most kMaxTape (16). Returns as
-// pt_megakernel_launch does.
+// (kGradThreads, 128) and max_bounces at most kMaxTape (16). walk, leaf:
+// the mesh walk (launch_walk's codes; WalkLaunch's walks, or the
+// per-thread walk with SIMT leaves, the only one of a scene without a
+// GROUP). Returns as pt_megakernel_launch does.
 extern "C" int pt_grad_launch(
     const float* cot_r, const float* cot_g, const float* cot_b, float* gobj,
     float* gtri, const int* px, const int* py, const float* obj,
@@ -2788,7 +2823,7 @@ extern "C" int pt_grad_launch(
     uint32_t seed,
     int sample_base, int max_bounces, int max_eff, int leaf_size,
     int oct_nodes, float eps, float t_max, float sun_cut, float sun_den,
-    float golden2, int coherent, void* stream) {
+    float golden2, int coherent, void* stream, int walk, int leaf) {
   if (n_obj < 1 || n_obj > kMaxObjects || leaf_size < 1 ||
       n_slots % kGradThreads != 0 || max_bounces > kMaxTape ||
       reinterpret_cast<uintptr_t>(gtri) % 16 != 0)
@@ -2800,7 +2835,8 @@ extern "C" int pt_grad_launch(
            cot_r, cot_g, cot_b, gobj, gtri, nullptr, nullptr};
   if (!set_tables(p, nodes, tris, shade))
     return (int)cudaErrorInvalidValue;
-  return launch<true, false>(p, obj_types, group_root, group_end, stream);
+  return launch<true, false>(p, obj_types, group_root, group_end, stream,
+                             walk, leaf);
 }
 
 // Launch the texel-gradient instantiation (K6-tex): pt_grad_launch's
@@ -2809,7 +2845,8 @@ extern "C" int pt_grad_launch(
 // [n_texels, 4] (rgb and a pad column; 16-byte aligned; zeroed by the
 // caller; the kernel adds into them) and
 // tex_train, whose bit j says that object j's texture takes texel
-// gradients. Returns as pt_megakernel_launch does.
+// gradients, and the walk and leaf codes (pt_grad_launch's). Returns as
+// pt_megakernel_launch does.
 extern "C" int pt_grad_tex_launch(
     const float* cot_r, const float* cot_g, const float* cot_b, float* gobj,
     const int* px, const int* py, const float* obj, const int* obj_types,
@@ -2820,7 +2857,7 @@ extern "C" int pt_grad_tex_launch(
     int max_eff, int leaf_size, int oct_nodes, float eps, float t_max,
     float sun_cut, float sun_den, float golden2, int coherent, void* stream,
     const float* texels, int n_texels, const float* tex_table, float* gtex,
-    unsigned long long tex_train) {
+    unsigned long long tex_train, int walk, int leaf) {
   if (n_obj < 1 || n_obj > kMaxObjects || leaf_size < 1 ||
       n_slots % kGradThreads != 0 || max_bounces > kMaxTape ||
       texels == nullptr || n_texels < 1 || tex_table == nullptr ||
@@ -2837,7 +2874,7 @@ extern "C" int pt_grad_tex_launch(
   if (!set_tables(p, nodes, tris, shade))
     return (int)cudaErrorInvalidValue;
   return launch<true, true, true>(p, obj_types, group_root, group_end,
-                                  stream);
+                                  stream, walk, leaf);
 }
 
 // Launch the megakernel of a mesh scene on a packet walk, or on the
@@ -2864,7 +2901,8 @@ extern "C" int pt_megakernel_packet_launch(
       (tex_pool == nullptr) != (tex_table == nullptr) || n_lights < 0 ||
       n_lights > kMaxObjects || (n_lights > 0 && light_idx == nullptr) ||
       (nee != 0 && nee != 1) || (nee == 0 && n_lights != 0) ||
-      (leaf == LEAF_MMA) != (mxu != nullptr))
+      (leaf == LEAF_MMA) != (mxu != nullptr) ||
+      (walk == WALK_THREAD && leaf == LEAF_SIMT))
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < n_lights; ++i)
     if (light_idx[i] < 0 || light_idx[i] >= n_obj)
@@ -2879,19 +2917,17 @@ extern "C" int pt_megakernel_packet_launch(
   p.n_lights = n_lights;
   for (int i = 0; i < n_lights; ++i) p.light_idx[i] = light_idx[i];
   p.mxu = mxu;
-  if (!copy_objects(p, obj_types, group_root, group_end))
-    return (int)cudaErrorInvalidValue;  // the walks are for meshes
-  const bool tex = tex_pool != nullptr;
-  const size_t smem = sizeof(float) *
-      (size_t)(n_obj * (kObjStride + (tex ? kTexRow : 0)) + kCamCols);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (tex && nee)
-    return launch_walk(walk, leaf, PacketLaunch<true, true>{p, smem, s});
-  if (tex)
-    return launch_walk(walk, leaf, PacketLaunch<true, false>{p, smem, s});
+  if (tex_pool != nullptr && nee)
+    return launch<false, true, false, true>(p, obj_types, group_root,
+                                            group_end, stream, walk, leaf);
+  if (tex_pool != nullptr)
+    return launch<false, true>(p, obj_types, group_root, group_end, stream,
+                               walk, leaf);
   if (nee)
-    return launch_walk(walk, leaf, PacketLaunch<false, true>{p, smem, s});
-  return launch_walk(walk, leaf, PacketLaunch<false, false>{p, smem, s});
+    return launch<false, false, false, true>(p, obj_types, group_root,
+                                             group_end, stream, walk, leaf);
+  return launch<false, false>(p, obj_types, group_root, group_end, stream,
+                              walk, leaf);
 }
 
 // Launch the intersect-only kernel of a mesh scene on a walk of

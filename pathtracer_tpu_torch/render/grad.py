@@ -106,7 +106,7 @@ def _check_diff_scene(meta: SceneMeta, cfg: RenderConfig,
             "the JAX package stages, e.g. textures-train); procedural "
             "textures are programs, not parameters")
     if meta.has_groups:
-        mk._check_mesh_knobs()   # the per-thread walk only (and mode 3)
+        mk.grad_walk()   # raises under PT_TRAVERSAL=mxu
 
 
 def _check_grad_args(seed, cam_vec, obj_table, node_table, tri_table,
@@ -170,7 +170,8 @@ def grad_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
                          tex=None, tex_table=None):
     """Plain PyTorch version of the gradient kernel: the same arguments and
     results as grad_tiles. The forward replay is trace_tiles_reference
-    itself (spp_pack 1, row axis, the per-thread walk), which hands over each sample's tape
+    itself (spp_pack 1, row axis, the walk of mk.grad_scene_walk), which
+    hands over each sample's tape
     ([bounces] of [T*S*L] tensors); the reverse recurrence runs over it
     vectorised in f32 and index_add_ sums the per-object, per-slot and
     per-texel gradients in f64 (millions of terms go into one object's
@@ -250,7 +251,7 @@ def grad_tiles_reference(seed, cam_vec, obj_table, node_table, tri_table,
         meta=meta,
         cfg=cfg, spp=spp, total_samples=total_samples, tile=tile,
         spp_pack=1, pack_axis="row", sample_tape=backward, counts=counts,
-        tex_table=tex_table, tex_texels=tex, walk=mk.Walk())
+        tex_table=tex_table, tex_texels=tex, walk=mk.grad_scene_walk(meta))
     gcol, gemi = _split(gobj.to(torch.float32))
     if tri_grads:
         return gcol, gemi, gtri.to(torch.float32)
@@ -291,14 +292,20 @@ def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
     table `tex_table`, mk.build_tex_table) also gtex [T, 3], the texel
     gradients, nonzero only on the textures of staged_objects.
 
+    A mesh scene replays the walk of the JAX gradient kernel's knobs
+    (mk.grad_walk: the per-thread walk, the block-packet walk under
+    PT_SUBPACKET=1 or 2, no leaf tests under PT_ABLATE_LEAF=1).
+
     CUDA tensors launch the gradient instantiation of csrc/megakernel.cu on
     the current stream (counted in grad_tiles.launches, and in
-    .tri_launches with tri_grads or .tex_launches with tex_grads); CPU
-    tensors run grad_tiles_reference. The kernel takes whole blocks of 128
-    slots and at most 16 bounces (check_tape); its triangle and texel sums
-    are [n, 4] rows (padded_sums), returned as [n, 3]. Raises for NEE, for
-    textures without tex_grads, for normal maps or no staged texture with
-    it, for tri_grads with tex_grads and for the unported mesh walks."""
+    .tri_launches with tri_grads or .tex_launches with tex_grads, and in
+    .packet_launches on the block-packet walk or .ablate_launches without
+    leaf tests); CPU tensors run grad_tiles_reference. The kernel takes
+    whole blocks of 128 slots and at most 16 bounces (check_tape); its
+    triangle and texel sums are [n, 4] rows (padded_sums), returned as
+    [n, 3]. Raises for NEE, for textures without tex_grads, for normal
+    maps or no staged texture with it, for tri_grads with tex_grads and
+    for PT_TRAVERSAL=mxu."""
     if px.device.type != "cuda":
         return grad_tiles_reference(
             seed, cam_vec, obj_table, node_table, tri_table, shade_table, px,
@@ -312,6 +319,8 @@ def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
         tri_mode, tex, tex_table)
     mk._check_aligned(node_table=node_table, tri_table=tri_table,
                       shade_table=shade_table)
+    walk = mk.grad_scene_walk(meta)
+    codes = (mk.WALK_CODES[walk.walk], mk.LEAF_CODES[walk.leaf])
     n_obj = len(meta.obj_types)
     if not 0 < n_obj <= mk._MAX_OBJECTS:
         raise ValueError(
@@ -349,14 +358,18 @@ def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
             train = sum(1 << j for j in staged_objects(meta))
             err = lib.pt_grad_tex_launch(
                 *cots, *scene, stream, texels4.data_ptr(), texels4.shape[0],
-                tex_table.data_ptr(), gtex.data_ptr(), train)
+                tex_table.data_ptr(), gtex.data_ptr(), train, *codes)
         else:
             err = lib.pt_grad_launch(
                 *cots, gtri.data_ptr() if tri_grads else None, *scene,
-                stream)
+                stream, *codes)
     if err != 0:
         raise RuntimeError(f"gradient kernel launch failed: CUDA error {err}")
     grad_tiles.launches += 1
+    if walk.walk != "thread":
+        grad_tiles.packet_launches += 1   # the block-packet walk
+    if walk.leaf == "none":
+        grad_tiles.ablate_launches += 1   # the node walk alone
     gcol, gemi = _split(gobj)
     if tri_grads:
         grad_tiles.tri_launches += 1
@@ -370,6 +383,8 @@ def grad_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
 grad_tiles.launches = 0
 grad_tiles.tri_launches = 0
 grad_tiles.tex_launches = 0
+grad_tiles.packet_launches = 0
+grad_tiles.ablate_launches = 0
 
 
 def _cotangents(grads, px: torch.Tensor):

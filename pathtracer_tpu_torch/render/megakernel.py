@@ -116,10 +116,6 @@ TYPE_NAMES = {PLANE: "plane", SPHERE: "sphere", CYLINDER: "cylinder",
 QUERY_COUNTS = ("shadow_light_missed", "shadow_occluded", "query_nodes",
                 "query_slots", *(f"query_{n}" for n in TYPE_NAMES.values()))
 
-_MESH_VARIANT_ITEM = ("ROADMAP queue 1, item 17 (the packet walks in the "
-                      "gradient kernel)")
-
-
 # Texture-table column layout (per object row), [No, _TEX_COLS] f32:
 #   0     color texture flag (1 = textured; the object's type picks the UV
 #         map: plane (lx*sx, lz*sy), sphere spherical, box cube cross)
@@ -174,8 +170,9 @@ LEAF_CODES = {"simt": 0, "mma": 1, "none": 2}
 
 
 def mesh_walk() -> Walk:
-    """The walk the JAX package's knobs select (its _packet_traverse
-    :1395-1406, the per-chunk walks :1992-2008 and traversal_mode :227):
+    """The walk the JAX package's knobs select in the forward kernels (its
+    _packet_traverse :1395-1406, the per-chunk walks :1992-2008 and
+    traversal_mode :227; the gradient kernel's is grad_walk's):
     PT_SUBPACKET=1 or 2 (one gated walk over the tile there) -> "block";
     =3 (an independent walk per 128-lane chunk) -> "warp";
     PT_TRAVERSAL=mxu -> "block" with "mma" leaves, whatever PT_SUBPACKET
@@ -191,8 +188,7 @@ def mesh_walk() -> Walk:
     80GB HBM3 at 700 W, the per-thread walk 1.49 ms, packet mode 2 1.70
     ms, mode 3 1.65 ms, the tensor-core leaves 1.93 ms after their
     redesign (2.44 ms before it). They are kept as the ported
-    counterparts of the JAX package's walks and as measurement tools
-    (ROADMAP queue 1)."""
+    counterparts of the JAX package's walks and as measurement tools."""
     if os.environ.get("PT_TRAVERSAL") == "mxu":
         return Walk("block", "mma")
     sp = os.environ.get("PT_SUBPACKET", "")
@@ -226,26 +222,32 @@ def walk_groups(n: int, walk: Walk, device=None):
     return i // (_BLOCK if walk.walk == "block" else _WARP), i // _WARP
 
 
-def _check_mesh_knobs() -> None:
-    """The gradient kernel's check: it replays the per-thread walk only.
-    PT_SUBPACKET=3 passes and runs that walk, as the JAX package's
-    gradient kernel runs its default walk under it (its _packet_traverse
-    reads modes 1 and 2 alone, pallas_kernel.py:1395-1406; mode 3's
-    per-chunk walks are the forward kernel's, :1984-2008). The knobs of
-    the walks it does honour raise rather than being ignored (MXU leaves
-    as the JAX package's differentiable kernel refuses them,
-    pallas_grad.py:1151)."""
+def grad_walk() -> Walk:
+    """The walk the JAX package's knobs select in the gradient kernel,
+    whose replay takes its walk from _packet_traverse alone (pallas_grad.py
+    :361-376): PT_SUBPACKET=1 or 2 (its gated walks over the tile's
+    128-lane chunks, pallas_kernel.py:1395-1406) -> "block", as mesh_walk
+    gives; =3 -> the per-thread walk (mode 3's per-chunk walks are the
+    forward kernel's, :1984-2008, so the JAX gradient kernel runs its
+    default walk under it); PT_ABLATE_LEAF=1 -> "none" leaves on the walk
+    the other selects (pallas_kernel.py:1487-1493). PT_TRAVERSAL=mxu
+    raises, as the JAX package's differentiable kernel refuses it
+    (pallas_grad.py:1151). grad_tiles, its plain version and the
+    differentiable renders' checks read the knobs here."""
     if os.environ.get("PT_TRAVERSAL") == "mxu":
         raise NotImplementedError(
             "differentiable megakernel replay is classic-traversal only "
             "(tables are classic layout); unset PT_TRAVERSAL")
-    for var, bad in (("PT_SUBPACKET", ("1", "2")),
-                     ("PT_ABLATE_LEAF", ("1",))):
-        v = os.environ.get(var, "")
-        if v in bad:
-            raise NotImplementedError(
-                f"{var}={v} in the gradient kernel is not ported yet: "
-                f"{_MESH_VARIANT_ITEM}")
+    sp = os.environ.get("PT_SUBPACKET", "")
+    walk = "block" if sp in ("1", "2") else "thread"
+    leaf = "none" if os.environ.get("PT_ABLATE_LEAF") == "1" else "simt"
+    return Walk(walk, leaf)
+
+
+def grad_scene_walk(meta: SceneMeta) -> Walk:
+    """scene_walk's counterpart for the gradient kernel: grad_walk() for a
+    scene with meshes, the per-thread walk otherwise."""
+    return grad_walk() if meta.has_groups else _PER_THREAD
 
 
 def mxu_plane_arrays(scn: SceneArrays, meta: SceneMeta
@@ -1670,6 +1672,13 @@ def _check_args(seed, cam_vec, obj_table, node_table, tri_table,
             "NEE with f32 texels (tex_texels): the differentiable "
             "megakernel does not replay NEE shadow draws; render with "
             "tex_pool")
+    if walk.leaf == "mma" and tex_texels is not None:
+        # nor MXU leaves, as the JAX package's refuses them
+        # (pallas_grad.py:1151)
+        raise NotImplementedError(
+            "f32 texels (tex_texels) under PT_TRAVERSAL=mxu: the "
+            "differentiable megakernel replay is classic-traversal only; "
+            "render with tex_pool")
     bad = [t for t in meta.obj_types
            if t not in (PLANE, SPHERE, CYLINDER, BOX, GROUP)]
     if bad:
@@ -2169,11 +2178,11 @@ SIGNATURES = {
         [_P] * 13 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
         + [_I, _P, _P, _P],
         _I),
-    # the same arguments, then the f32 texels [T, 4], T and the texture
-    # table
+    # the same arguments, then the f32 texels [T, 4], T, the texture
+    # table and the walk and leaf codes
     "pt_megakernel_texels_launch": (
         [_P] * 13 + [_I] * 7 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
-        + [_I, _P, _P, _I, _P],
+        + [_I, _P, _P, _I, _P, _I, _I],
         _I),
     # NEE: the same arguments, then the texel pool and texture table (null
     # without textures) and the light count and indices
@@ -2221,14 +2230,15 @@ SIGNATURES = {
     # the gradient kernel's entries, launched by render/grad.py: object and
     # triangle mode, and texel mode (the texels [T, 4], T, the texture
     # table, gtex [T, 4] and the trainable objects' bit mask; gtri and
-    # gtex are [n, 4] rows, rgb and a pad column)
+    # gtex are [n, 4] rows, rgb and a pad column), each ending in the walk
+    # and leaf codes (grad_walk)
     "pt_grad_launch": (
         [_P] * 15 + [_I] * 5 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
-        + [_I, _P],
+        + [_I, _P, _I, _I],
         _I),
     "pt_grad_tex_launch": (
         [_P] * 14 + [_I] * 5 + [ctypes.c_uint32] + [_I] * 5 + [_F] * 5
-        + [_I, _P, _P, _I, _P, _P, ctypes.c_uint64],
+        + [_I, _P, _P, _I, _P, _P, ctypes.c_uint64, _I, _I],
         _I),
 }
 _MAX_OBJECTS = 64   # kMaxObjects of csrc/megakernel.cu
@@ -2273,8 +2283,10 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
     cfg.nee (the shadow-ray instantiation) in .nee_launches; a mesh scene
     under the knobs of mesh_walk also in .packet_launches (the warp-packet
     walk), .mma_launches (its tensor-core leaves) or .ablate_launches (no
-    leaf tests). CPU tensors run trace_tiles_reference. Raises for NEE
-    with f32 texels, and for f32 texels on a packet walk. The kernel keeps every texel index below T
+    leaf tests), f32 texels on every walk but the tensor-core leaves. CPU
+    tensors run trace_tiles_reference. Raises for NEE or MXU leaves with
+    f32 texels. The kernel
+    keeps every texel index below T
     (the plain version raises IndexError instead), so a table that reaches
     past the texels cannot touch other memory."""
     if px.device.type != "cuda":
@@ -2297,10 +2309,6 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
     S, L = tile
     dev = px.device
     rows = px.shape[0]
-    if tex_texels is not None and walk != Walk():
-        raise NotImplementedError(
-            "the f32-texel forward serves the differentiable render, which "
-            f"walks per thread: {_MESH_VARIANT_ITEM}")
     out = torch.empty((3, rows, L), dtype=torch.float32, device=dev)
     # host arrays, copied by value into the launch parameters
     types = (_I * n_obj)(*meta.obj_types)
@@ -2323,7 +2331,14 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
                 meta.n_nodes if meta.octant_orders else 0,
                 cfg.epsilon, cfg.t_max, sun_cut, sun_den, golden2,
                 int(_coherent_sampling()), stream)
-        if walk != Walk():
+        if textured and tex_texels is not None:
+            # the texel gradients' primal, on every walk
+            texels4 = texels_padded(tex_texels)
+            err = lib.pt_megakernel_texels_launch(
+                *args, texels4.data_ptr(), texels4.shape[0],
+                tex_table.data_ptr(), WALK_CODES[walk.walk],
+                LEAF_CODES[walk.leaf])
+        elif walk != Walk():
             # the packet walks (Kernel A; Kernel B with MXU leaves), with
             # or without textures and NEE
             err = lib.pt_megakernel_packet_launch(
@@ -2339,11 +2354,6 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
                 *args, tex_pool.data_ptr() if textured else None,
                 tex_table.data_ptr() if textured else None, len(lights),
                 (_I * len(lights))(*lights))
-        elif textured and tex_texels is not None:
-            texels4 = texels_padded(tex_texels)
-            err = lib.pt_megakernel_texels_launch(
-                *args, texels4.data_ptr(), texels4.shape[0],
-                tex_table.data_ptr())
         elif textured:
             err = lib.pt_megakernel_tex_launch(
                 *args, tex_pool.data_ptr(), tex_table.data_ptr())

@@ -433,6 +433,18 @@ def grad_rule(got, want, mesh: bool) -> dict:
     return out
 
 
+def ablated_grad_rule(got, want) -> dict:
+    """grad_rule for a replay without leaf tests (PT_ABLATE_LEAF=1: no
+    triangle is ever hit): the triangle gradients (got[2], want[2]) exactly
+    zero on both sides, gcol and gemi by the mesh rule; raises
+    AssertionError. Returns grad_rule's numbers of gcol and gemi."""
+    for what, g in (("got", got[2]), ("want", want[2])):
+        if torch.as_tensor(g).any():
+            raise AssertionError(f"gtri of {what}: nonzero without leaf "
+                                 "tests")
+    return grad_rule(got[:2], want[:2], mesh=True)
+
+
 # texel gradient rule: >= SLOT_FRAC of the texels that either side touches
 # within GRAD_REL_MESH * max|gtex|, each channel's sum within TEX_SUM_REL
 TEX_SUM_REL = 0.01

@@ -53,7 +53,7 @@ import pytest
 import torch
 
 from _torch_scenes import (MESH_SCENES, SLICE_SCENES, TEX_SCENES,
-                           assert_slot_rule,
+                           ablated_grad_rule, assert_slot_rule,
                            cylinder_scene, filter_cases, grad_inputs,
                            grad_rule, one_warp_live,
                            port_inputs, sincos_mismatches, size_check_scene,
@@ -737,6 +737,83 @@ def test_packet_walks_match_plain(dev, monkeypatch, walk, name, nee, leaf):
         assert_slot_rule(got.cpu().numpy(), want.cpu().numpy())
     else:
         assert torch.equal(got, want)
+
+
+# the gradient kernel's walks (grad_walk): modes 1 and 2 take the block
+# packet walk, PT_ABLATE_LEAF=1 the node walk alone on either walk
+@pytest.mark.parametrize("walk", ["mode1", "mode2", "ablate", "ablate2"])
+@pytest.mark.parametrize("name,mode", [
+    ("teapot", "object"), ("teapot", "triangle"),
+    ("size-check", "triangle"), ("textured teapot", "texel")])
+def test_grad_kernel_on_the_walks_matches_plain(dev, monkeypatch, walk, name,
+                                               mode):
+    # each walk's gradient instantiation against the plain version on the
+    # same walk: the gradient rule (the texel rule in texel mode; without
+    # leaf tests every triangle gradient is exactly zero), and its launch
+    # in the walk's counter
+    for k, v in WALK_ENVS[walk].items():
+        monkeypatch.setenv(k, v)
+    cfg = RenderConfig(width=160, height=120, samples=4)
+    if name == "textured teapot":
+        sc = textured_teapot(get_scene("teapot", cfg), proctex.make)
+    else:
+        sc = (size_check_scene(cfg, get_scene) if name == "size-check"
+              else get_scene(name, cfg))
+    tabs, meta, arrays, _ = grad_inputs(sc, cfg, (8, 512), dev)
+    rng = np.random.default_rng(0)
+    cots = [torch.from_numpy(rng.random(tuple(tabs[-2].shape),
+                                        dtype=np.float32)).to(dev)
+            for _ in range(3)]
+    kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4, tile=(8, 512),
+              tri_grads=mode == "triangle")
+    if mode == "texel":
+        kw.update(tex_grads=True, tex=texel_params(arrays),
+                  tex_table=torch.from_numpy(mk.build_tex_table(
+                      arrays, meta)).to(dev))
+    w = mk.grad_walk()
+    counters = ("launches", "packet_launches", "ablate_launches",
+                "tri_launches", "tex_launches")
+    before = [getattr(tg.grad_tiles, c) for c in counters]
+    got = tg.grad_tiles((5, 0), *tabs, *cots, **kw)
+    assert [getattr(tg.grad_tiles, c) - b for c, b in
+            zip(counters, before)] == [
+        1, w.walk == "block", w.leaf == "none", mode == "triangle",
+        mode == "texel"]
+    want = tg.grad_tiles_reference((5, 0), *tabs, *cots, **kw)
+    torch.cuda.synchronize()
+    if mode == "texel":
+        tex_grad_rule(got, want)
+    elif mode == "triangle" and w.leaf == "none":
+        ablated_grad_rule(got, want)
+    else:
+        grad_rule(got, want, True)
+
+
+@pytest.mark.parametrize("walk", list(WALK_ENVS))
+def test_f32_texel_forward_on_the_walks(dev, monkeypatch, walk):
+    # the texel gradients' primal on a mesh scene under each walk of the
+    # knobs against its plain version, bit for bit; the tensor-core leaves
+    # are refused, as the differentiable render refuses them
+    for k, v in WALK_ENVS[walk].items():
+        monkeypatch.setenv(k, v)
+    cfg = RenderConfig(width=160, height=120, samples=4)
+    sc = textured_teapot(get_scene("teapot", cfg), proctex.make)
+    tabs, meta, arrays, _ = grad_inputs(sc, cfg, (8, 512), dev)
+    kw = dict(meta=meta, cfg=cfg, spp=4, total_samples=4, tile=(8, 512),
+              tex_table=torch.from_numpy(mk.build_tex_table(arrays, meta))
+              .to(dev), tex_texels=texel_params(arrays))
+    if walk == "mxu":
+        with pytest.raises(NotImplementedError, match="classic-traversal"):
+            mk.trace_tiles((5, 0), *tabs, **kw)
+        return
+    before = (mk.trace_tiles.texel_launches, mk.trace_tiles.packet_launches)
+    got = torch.stack(mk.trace_tiles((5, 0), *tabs, **kw))
+    assert (mk.trace_tiles.texel_launches, mk.trace_tiles.packet_launches
+            ) == (before[0] + 1,
+                  before[1] + (mk.mesh_walk().walk != "thread"))
+    want = torch.stack(mk.trace_tiles_reference((5, 0), *tabs, **kw))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("walk", ["mode2", "mode3", "mxu", "ablate2"])

@@ -11,10 +11,9 @@ import pytest
 import torch
 from PIL import Image
 
-from _torch_parity import jax_fields_np, jax_pack, scene_pair
+from _torch_parity import jax_pack, jax_twin, port_scene, scene_pair
 from _torch_scenes import (ATOL, MEAN_REL, RTOL, SLOT_FRAC,
                            assert_slot_rule)
-import pathtracer_tpu.native as jnative
 from pathtracer_tpu.io.png import write_png as jax_write_png
 from pathtracer_tpu.io.raw import write_raw as jax_write_raw
 from pathtracer_tpu.render import pallas_kernel as pk
@@ -33,7 +32,7 @@ MESH_CFG = dict(width=32, height=24, samples=16, samples_per_pass=8)
 
 def _render(monkeypatch, name="reference", nee=False, **driver_kw):
     monkeypatch.setenv("PT_SEG_SPP", "4")     # 2 segments of 2 chunks
-    _, _, ts, tc = scene_pair(name, nee=nee, **CFG)
+    ts, tc = port_scene(name, nee=nee, **CFG)
     arrays, meta = ts.pack(device=CPU)
     return render_driver(arrays, meta, ts.camera, tc, **driver_kw)
 
@@ -138,22 +137,16 @@ def test_torch_checkpoint_resume_bit_identical(monkeypatch, tmp_path):
                 checkpoint_every=2, resume=True)
 
 
-def _teapot_segments(monkeypatch, nee: bool):
+def _teapot_segments(nee: bool):
     """`teapot` at MESH_CFG through render_driver and as the same segments
     of the JAX megakernel (interpret mode): the mesh layout of both
     drivers, tile (8, 512), block order, 4 sample replicas on the lane
     chunks, segments of 8 spp. Returns (port image, its stats, JAX
     image)."""
-    monkeypatch.setattr(jnative, "available", lambda: False)
-    js, jc, ts, tc = scene_pair("teapot", nee=nee, **MESH_CFG)
+    # the JAX half on its NumPy path with the port's group bounds
+    js, jc, ja, jm, ts, tc = jax_twin("teapot", nee=nee, **MESH_CFG)
     arrays, meta = ts.pack(device=CPU)
     img, stats = render_driver(arrays, meta, ts.camera, tc)
-    ja, jm = jax_pack(js, ts)
-    # the JAX NumPy path packs NaN group bounds for a parsed model (ROADMAP
-    # queue 3): hand its kernel the port's, the model's vertex bounds
-    fields = dict(jax_fields_np(ja), bb_min=arrays.bb_min.numpy(),
-                  bb_max=arrays.bb_max.numpy())
-    ja = ja._replace(**{k: jnp.asarray(v) for k, v in fields.items()})
     S, L = pk.default_tile(jm)
     axis = pk.default_pack_axis(jm)
     pack = pk.clamp_pack(pk.default_pack(jm, 8), S, L, axis)
@@ -178,18 +171,18 @@ def _teapot_segments(monkeypatch, nee: bool):
     return img, stats, want.reshape(24, 32, 3)
 
 
-def test_driver_teapot_matches_jax_segments(monkeypatch):
-    img, stats, want = _teapot_segments(monkeypatch, nee=False)
+def test_driver_teapot_matches_jax_segments():
+    img, stats, want = _teapot_segments(nee=False)
     assert stats.segments == 2 and stats.samples == 32 * 24 * 16
     assert_slot_rule(np.moveaxis(img, -1, 0), np.moveaxis(want, -1, 0))
     left, right = img[:, :3].mean((0, 1)), img[:, -3:].mean((0, 1))
     assert left[0] > left[2] and right[2] > right[0]
 
 
-def test_driver_teapot_nee_matches_jax_segments(monkeypatch):
+def test_driver_teapot_nee_matches_jax_segments():
     # `teapot --nee`: the driver hands cfg.nee to every segment, whose
     # shadow rays walk the mesh
-    img, stats, want = _teapot_segments(monkeypatch, nee=True)
+    img, stats, want = _teapot_segments(nee=True)
     assert stats.segments == 2 and stats.samples == 32 * 24 * 16
     assert_slot_rule(np.moveaxis(img, -1, 0), np.moveaxis(want, -1, 0))
     left, right = img[:, :3].mean((0, 1)), img[:, -3:].mean((0, 1))
@@ -207,7 +200,7 @@ def test_driver_renders_nee(monkeypatch):
 
 def test_torch_checkpoint_resume_teapot_bit_identical(monkeypatch,
                                                       tmp_path):
-    _, _, ts, tc = scene_pair("teapot", **MESH_CFG)
+    ts, tc = port_scene("teapot", **MESH_CFG)
     arrays, meta = ts.pack(device=CPU)
 
     def render(**kw):

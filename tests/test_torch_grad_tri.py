@@ -20,15 +20,13 @@ import os
 import re
 import subprocess
 import sys
-from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import pathtracer_tpu.native as jnative
-from _torch_parity import assert_inputs_match, jax_pack, scene_pair
+from _torch_parity import assert_inputs_match, jax_twin
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu.render.pallas_grad import grad_tiles as jax_grad_tiles
 from pathtracer_tpu_torch import train_demo
@@ -47,21 +45,12 @@ def _mesh_pair(W, H, spp):
     """(JAX tables, port tables, JAX meta, port meta, port arrays, cfgs,
     pid, port scene) for `teapot`, the JAX scene carrying the port's group
     bounds."""
-    with mock.patch.object(jnative, "available", lambda: False):
-        js, jc, ts, tc = scene_pair("teapot", width=W, height=H,
-                                    samples=spp, samples_per_pass=spp)
-        ja, jm = jax_pack(js, ts)
+    js, jc, ja, jm, ts, tc = jax_twin("teapot", width=W, height=H,
+                                      samples=spp, samples_per_pass=spp)
     ta, tm = ts.pack(device="cpu")
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
     assert tm.has_groups
     tobj = mk.build_scene_table(ta, tm)
-    fixed_min = np.asarray(ja.bb_min).copy()
-    fixed_max = np.asarray(ja.bb_max).copy()
-    for j in tm.group_indices:
-        fixed_min[j] = tobj[j, 34:37]
-        fixed_max[j] = tobj[j, 37:40]
-    ja = ja._replace(bb_min=jnp.asarray(fixed_min),
-                     bb_max=jnp.asarray(fixed_max))
     xs, ys, pid = mk.tile_pixel_layout(W, H, *TILE,
                                        order=mk.default_order(tm))
     jt = [pk.build_camera_vec(js.camera), pk.build_scene_table(ja, jm),

@@ -19,23 +19,19 @@ The CUDA kernel is held against the plain version by
 tests/test_torch_cuda.py, on a card.
 """
 import dataclasses
-from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
 import torch
 
-import pathtracer_tpu.native as jnative
-from _torch_parity import (assert_inputs_match, jax_fields_np, jax_pack,
-                           scene_pair)
-from _torch_scenes import tex_grad_rule, textured_teapot
+from _torch_parity import (assert_inputs_match, jax_fields_np, jax_twin,
+                           textured_teapot_twin)
+from _torch_scenes import tex_grad_rule
 from pathtracer_tpu.render import pallas_kernel as pk
-from pathtracer_tpu.render import proctex as jproctex
 from pathtracer_tpu.render.pallas_grad import grad_tiles as jax_grad_tiles
 from pathtracer_tpu_torch.diff import from_jax_params
 from pathtracer_tpu_torch.render import grad as tg
 from pathtracer_tpu_torch.render import megakernel as mk
-from pathtracer_tpu_torch.render import proctex
 from pathtracer_tpu_torch.scene import pack
 
 torch.set_num_threads(2)
@@ -45,17 +41,12 @@ TILE = (8, 128)
 
 def test_tex_grad_mesh_matches_jax_interpret(record_property):
     W, H, spp = 24, 16, 2
-    with mock.patch.object(jnative, "available", lambda: False):
-        js, jc, ts, tc = scene_pair("teapot", width=W, height=H,
-                                    samples=spp, samples_per_pass=spp)
-        js, ts = textured_teapot(js, jproctex.make), textured_teapot(
-            ts, proctex.make)
-        ja, jm = jax_pack(js, ts)
+    js, jc, ja, jm, ts, tc = jax_twin(
+        "teapot", edit=textured_teapot_twin, width=W, height=H, samples=spp,
+        samples_per_pass=spp)
     ta, tm = ts.pack(device="cpu")
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)
     assert tm.has_groups and pack.staged_objects(tm)
-    ja = ja._replace(bb_min=jnp.asarray(ta.bb_min.numpy()),
-                     bb_max=jnp.asarray(ta.bb_max.numpy()))
     xs, ys, _ = mk.tile_pixel_layout(W, H, *TILE, order=mk.default_order(tm))
     jt = [pk.build_camera_vec(js.camera), pk.build_scene_table(ja, jm),
           *pk.build_mesh_tables(ja, jm), xs, ys]

@@ -10,7 +10,7 @@ import pytest
 import torch
 from PIL import Image
 
-from _torch_parity import jax_fields_np, jax_pack, scene_pair
+from _torch_parity import jax_fields_np, jax_twin, scene_pair
 from _torch_scenes import TEX_SCENES
 from pathtracer_tpu import assets as jassets
 from pathtracer_tpu.render import pallas_kernel as pk
@@ -85,8 +85,10 @@ def test_load_texture_reads_a_real_file(monkeypatch, tmp_path):
 
 
 def _check_pack(name):
-    js, _, ts, _ = scene_pair(name, width=32, height=24, samples=4)
-    ja, jm = jax_pack(js, ts)
+    # jax_twin: the JAX half on its NumPy path whether or not the JAX
+    # native scene core loaded here, its group rows held to the port's
+    # (a NaN row there only where the port's leaves an empty child empty)
+    _, _, ja, jm, ts, _ = jax_twin(name, width=32, height=24, samples=4)
     ta, tm = ts.pack(device=CPU)
     jf = jax_fields_np(ja)
     for k, v in ta._asdict().items():

@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_inputs_match, jax_pack, scene_pair
+from _torch_parity import assert_inputs_match, jax_twin
 from _torch_scenes import assert_tex_slot_rule, port_inputs
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu_torch.render import megakernel as mk
@@ -47,8 +47,7 @@ def tex_kernel_parity(name, aperture=0.0, base=0):
     (port, JAX) slot sums [3, T*S, L]."""
     kw = dict(width=W, height=H, samples=SPP, samples_per_pass=SPP,
               aperture=aperture, focal_length=1.6 if aperture else 0.0)
-    js, jc, ts, tc = scene_pair(name, **kw)
-    ja, jm = jax_pack(js, ts)
+    js, jc, ja, jm, ts, tc = jax_twin(name, **kw)
     tile = pk.default_tile(jm)
     ttabs, tm, _, layout = port_inputs(ts, tc, tile, torch.device("cpu"))
     assert dataclasses.asdict(tm) == dataclasses.asdict(jm)

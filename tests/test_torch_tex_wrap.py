@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import scene_pair
+from _torch_parity import port_scene
 from _torch_scenes import TEX_SCENES
 from pathtracer_tpu.render import pallas_kernel as pk
 from pathtracer_tpu_torch.render import megakernel as mk
@@ -30,7 +30,7 @@ EDGES = [0, 2 ** 22, 2 ** 23, 2 ** 24, 2 ** 25]
 
 def _sides(name):
     """The widths and heights of the textures scene `name` samples."""
-    _, _, ts, _ = scene_pair(name, width=8, height=6)
+    ts, _ = port_scene(name, width=8, height=6)
     table = mk.build_tex_table(*ts.pack(device=CPU))
     return sorted({int(x) for col in (0, 6) for x in
                    table[table[:, col] > 0.5][:, col + 2:col + 4].ravel()})

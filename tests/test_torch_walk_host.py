@@ -127,21 +127,24 @@ def test_knobs_select_the_walks(monkeypatch, env, walk):
         assert torch.equal(octant, torch.arange(300) // size)
 
 
-@pytest.mark.parametrize("env,match", [
-    ({"PT_SUBPACKET": "2"}, "item 17"), ({"PT_SUBPACKET": "1"}, "item 17"),
-    ({"PT_ABLATE_LEAF": "1"}, "item 17"),
-    ({"PT_TRAVERSAL": "mxu"}, "classic-traversal only"),
-    # mode 3 passes: the JAX gradient kernel runs its default walk under it
-    # (its _packet_traverse reads modes 1 and 2 alone)
-    ({"PT_SUBPACKET": "3"}, None)])
-def test_gradient_kernel_refuses_the_walk_knobs(monkeypatch, env, match):
+@pytest.mark.parametrize("env,walk", [
+    ({"PT_SUBPACKET": "2"}, ("block", "simt")),
+    ({"PT_SUBPACKET": "1"}, ("block", "simt")),
+    ({"PT_ABLATE_LEAF": "1"}, ("thread", "none")),
+    ({"PT_TRAVERSAL": "mxu"}, None),
+    # mode 3: the JAX gradient kernel runs its default walk under it (its
+    # _packet_traverse reads modes 1 and 2 alone)
+    ({"PT_SUBPACKET": "3"}, ("thread", "simt"))])
+def test_gradient_kernel_refuses_the_walk_knobs(monkeypatch, env, walk):
+    # the gradient kernel's walks (grad_walk): modes 1, 2 and 3 and the
+    # ablation pass, MXU leaves raise as pallas_grad.py:1151 refuses them
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if match is None:
-        mk._check_mesh_knobs()
+    if walk is not None:
+        assert mk.grad_walk() == mk.Walk(*walk)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        mk._check_mesh_knobs()
+    with pytest.raises(NotImplementedError, match="classic-traversal only"):
+        mk.grad_walk()
 
 
 def test_gradient_under_mode_3_is_the_per_thread_walks(monkeypatch):
@@ -167,6 +170,38 @@ def test_gradient_under_mode_3_is_the_per_thread_walks(monkeypatch):
     tg.make_diff_render_tri(meta, cfg, 2, (8, 128))
     got = tg.grad_tiles((7, 0), *tabs, *cots, **kw)
     assert len(got) == 3 and float(got[2].abs().max()) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("env", [{"PT_SUBPACKET": "2"},
+                                 {"PT_SUBPACKET": "3"},
+                                 {"PT_ABLATE_LEAF": "1"},
+                                 {"PT_TRAVERSAL": "mxu"}])
+def test_f32_texel_forward_on_the_walks(monkeypatch, env):
+    """The f32-texel forward (the texel gradients' primal) on the textured
+    `teapot` under each walk of the knobs: its plain version, fetching the
+    decoded pool, renders the rgb8 forward's sums on the same walk bit for
+    bit; under MXU leaves it raises, as the differentiable render does."""
+    from _torch_scenes import grad_inputs, textured_teapot
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.render import proctex
+    from pathtracer_tpu_torch.scene.pack import texel_params
+    from pathtracer_tpu_torch.scenes import get_scene
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = RenderConfig(width=32, height=16, samples=2, samples_per_pass=2)
+    sc = textured_teapot(get_scene("teapot", cfg), proctex.make)
+    tabs, meta, arrays, _ = grad_inputs(sc, cfg, (8, 512), CPU)
+    kw = dict(meta=meta, cfg=cfg, spp=2, total_samples=2, tile=(8, 512),
+              **mk.texture_inputs(arrays, meta, CPU))
+    f32 = dict(kw, tex_pool=None, tex_texels=texel_params(arrays))
+    if mk.mesh_walk().leaf == "mma":
+        with pytest.raises(NotImplementedError, match="classic-traversal"):
+            mk.trace_tiles((3, 0), *tabs, **f32)
+        return
+    want = mk.trace_tiles((3, 0), *tabs, **kw)
+    got = mk.trace_tiles((3, 0), *tabs, **f32)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 

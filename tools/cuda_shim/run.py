@@ -11,9 +11,15 @@ intersect-only kernel through intersect_batch on camera rays and one
 bounce from their hits against intersect_batch_reference (all 16
 outputs); `pairs` holds Kernel B's
 leaf (leaf_bench `pairs` and `mma`) to its plain version on teapot's
-leaves of 4, 8, 16 and 32. Environment: SCENE (teapot; `size` for the
-size-check mesh, or any scene name), W, H (32, 16), NEE=1, LEAF (the
-BVH leaf size). torch.sin, cos and sqrt are made correctly rounded for
+leaves of 4, 8, 16 and 32; `grad` runs the gradient kernel in triangle
+mode through grad_tiles against grad_tiles_reference (by the gradient
+rule, or without leaf tests by ablated_grad_rule: its atomic adds land
+in thread order), `gradtex` in texel mode and
+`texels` the f32-texel forward (bit for bit), both on the textured teapot
+(tests/_torch_scenes.textured_teapot), each on the walk the knobs in the
+environment select (PT_SUBPACKET, PT_ABLATE_LEAF). Environment: SCENE
+(teapot; `size` for the size-check mesh, or any scene name), W, H (32,
+16), NEE=1, LEAF (the BVH leaf size). torch.sin, cos and sqrt are made correctly rounded for
 f32 here, as the shim's are, so both sides round alike. Exits 1 if a
 case (Kernel B's renders aside, held by the per-slot rule on the card)
 is not bit-equal."""
@@ -33,10 +39,14 @@ import torch  # noqa: E402
 
 from pathtracer_tpu_torch.config import RenderConfig  # noqa: E402
 from pathtracer_tpu_torch.probes import leaf_bench  # noqa: E402
+from pathtracer_tpu_torch.render import grad as tg  # noqa: E402
 from pathtracer_tpu_torch.render import megakernel as mk  # noqa: E402
+from pathtracer_tpu_torch.render import proctex  # noqa: E402
+from pathtracer_tpu_torch.scene.pack import texel_params  # noqa: E402
 from pathtracer_tpu_torch.scenes import get_scene  # noqa: E402
-from _torch_scenes import (bounce_rays, camera_rays,  # noqa: E402
-                           port_inputs, size_check_scene)
+from _torch_scenes import (ablated_grad_rule, bounce_rays,  # noqa: E402
+                           camera_rays, grad_inputs, grad_rule, port_inputs,
+                           size_check_scene, tex_grad_rule, textured_teapot)
 
 _f = {n: getattr(torch, n) for n in ("sin", "cos", "sqrt")}
 
@@ -78,6 +88,7 @@ def _on_cpu(fn, var):
 
 
 trace = _on_cpu(mk.trace_tiles, "px")
+grad = _on_cpu(tg.grad_tiles, "px")
 isect = _on_cpu(mk.intersect_batch, "dev")
 ENV = {"mode2": {"PT_SUBPACKET": "2"}, "mode3": {"PT_SUBPACKET": "3"},
        "mxu": {"PT_TRAVERSAL": "mxu"}, "thread": {}}
@@ -128,6 +139,44 @@ for case in cases:
                   f"{len(flat[0])} outputs, differing {bad}", flush=True)
             fails += bool(bad) or len(flat[0]) != 16
             o, d = bounce_rays(o, d, want[0], cfg.t_max, gen)
+        continue
+    if case in ("grad", "gradtex", "texels"):
+        cfg = RenderConfig(width=W, height=H, samples=2, samples_per_pass=2)
+        sc = (size_check_scene(cfg, get_scene) if scene == "size"
+              else get_scene(scene, cfg))
+        if case != "grad":
+            sc = textured_teapot(sc, proctex.make)
+        tabs, meta, arrays, _ = grad_inputs(sc, cfg, (8, 512), "cpu")
+        kw = dict(meta=meta, cfg=cfg, spp=2, total_samples=2, tile=(8, 512))
+        walk = mk.grad_scene_walk(meta)
+        if case == "texels":
+            kw.update(tex_table=torch.from_numpy(mk.build_tex_table(
+                arrays, meta)), tex_texels=texel_params(arrays))
+            k = torch.stack(trace((3, 0), *tabs, **kw))
+            p = torch.stack(mk.trace_tiles_reference((3, 0), *tabs, **kw))
+            ok = torch.equal(k, p)
+            print(f"texels {mk.scene_walk(meta)}: bit-equal {ok}",
+                  flush=True)
+            fails += not ok
+            continue
+        gen = torch.Generator().manual_seed(0)
+        cots = [torch.rand(tabs[-2].shape, generator=gen) for _ in range(3)]
+        if case == "gradtex":
+            kw.update(tex_grads=True, tex=texel_params(arrays),
+                      tex_table=torch.from_numpy(mk.build_tex_table(
+                          arrays, meta)))
+        else:
+            kw.update(tri_grads=True)
+        k = grad((3, 0), *tabs, *cots, **kw)
+        p = tg.grad_tiles_reference((3, 0), *tabs, *cots, **kw)
+        try:
+            err = (tex_grad_rule(k, p) if case == "gradtex"
+                   else ablated_grad_rule(k, p) if walk.leaf == "none"
+                   else grad_rule(k, p, mesh=True))
+        except AssertionError as e:
+            err = f"OFF THE RULE: {e}"
+            fails += 1
+        print(f"{case} {scene} {walk}: {err}", flush=True)
         continue
     os.environ.update(ENV[case])
     if os.environ.get("LEAF"):

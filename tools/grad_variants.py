@@ -56,8 +56,7 @@ CU = "csrc/megakernel.cu"
 
 # ---- the split of the per-thread-array tape --------------------------------
 
-TAPE_WRITE = ("      if constexpr (kGrad) {\n        if (!do_refract) {\n"
-              "          // tape entry",
+TAPE_WRITE = ("      if constexpr (kGrad) {\n        if (!do_refract",
               "      // kPacket: every lane enters")
 BACKWARD = ("    if constexpr (kGrad) {\n      // ---- this sample's backward "
             "pass", "    acc_r = acc_r + sr;\n")
