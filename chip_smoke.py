@@ -126,11 +126,21 @@ the A/B alone. Phase 11 runs the wavefront forward on K5; phase 12
 fixed trip (K5 bit-equal to its plain version, triangle slot included, on
 a step's own rays; the launch and re-attach counts, peak memory, live
 rays a bounce, the fwd+bwd rate as bench.py measures it, the loss falling
-under Adam), the kernel's route against the torch walk, the wavefront's
-gradient against the megakernel step's over 8 seeds, train_demo's default
-mode and a resumed run of it. Every K5 time is given three ways
-(k5_times): the wrapper's call, the kernel alone (its C entry, arguments
-built once) and the launcher's host time a call; the A/B runs K5 on the
+under Adam; no bounce rematerialized, as the batch fits), the bounces of
+`textures` rematerialized (every bounce: K5 once a bounce in the forward
+and once in the backward's recompute, each recomputed launch bit-equal to
+the forward's, the gradients within the rule of the loop without it at a
+third of its peak memory or less; the SGD step at 8 spp, which the plain
+loop cannot hold, with the bounces the memory asks for rematerialized, its
+peak memory and rate; with `--ad-only` the steps at 1, 2 and 4 spp and the
+1-spp step's traced split too, and with `--ad-only --ab-parent DIR` the AD
+step of `reference`, `teapot` and `textures` at 1 and 4 spp on DIR's tree
+and this one in turns), the kernel's route against the torch
+walk, the wavefront's gradient against the megakernel step's over 8
+seeds, train_demo's default mode and a resumed run of it. Every K5 time
+is given three ways (k5_times): the wrapper's call, the kernel alone (its
+C entry, arguments built once) and the launcher's host time a call; the
+A/B runs K5 on the
 AD step's 1,228,800-ray batches too. `--k5-only` runs K5's split on the
 main paths' bounce-1 rays (this tree and the trees of `--k5-split DIR`,
 e.g. tools/k5_variants.py's copies), the launcher's host time step by
@@ -214,7 +224,7 @@ from pathtracer_tpu_torch.diff import (extract_params, loss_and_grads,
                                        make_megakernel_step_tri,
                                        make_sharded_megakernel_step,
                                        make_sharded_train_step,
-                                       render_image_diff,
+                                       image_loss, render_image_diff,
                                        restore_train_state)
 from pathtracer_tpu_torch.geometry import transforms as gx
 from pathtracer_tpu_torch.io.raw import read_raw
@@ -1380,7 +1390,8 @@ def load_tree(root: str, tag: str):
         mk=sub("render.megakernel"), tg=sub("render.grad"),
         build=sub("render._build"), get_scene=sub("scenes").get_scene,
         RenderConfig=sub("config").RenderConfig, pack=sub("scene.pack"),
-        diff=sub("diff"), root=root)
+        diff=sub("diff"), integrator=sub("render.integrator"),
+        threefry=sub("render.threefry"), vec3=sub("render.vec3"), root=root)
     return _TREES[pkg]
 
 
@@ -1407,6 +1418,9 @@ THIS_TREE = types.SimpleNamespace(mk=mk, tg=tg, build=_build,
                                   get_scene=get_scene,
                                   RenderConfig=RenderConfig, pack=pack,
                                   diff=sys.modules["pathtracer_tpu_torch.diff"],
+                                  integrator=integrator, threefry=threefry,
+                                  vec3=sys.modules[
+                                      "pathtracer_tpu_torch.render.vec3"],
                                   root=".")
 
 
@@ -3744,6 +3758,15 @@ AD_SEEDS = 8
 AD_SIGMAS = 4.0
 AD_DEMO = ["--width", "160", "--height", "120", "--spp", "8"]
 AD_DEMO_STEPS = 50
+AD_FIELDS = ("color", "emission", "tri_color", "tex_planar", "tex_sphere",
+             "tex_cube")           # diff.extract_params' fields
+AD_REMAT = "textures"        # the rematerialized scene's checks (ad_remat)
+AD_REMAT_BIG = 8             # its SGD step at W x H x 8, train_demo's spp
+AD_REMAT_SPP = (1, 2, 4)     # --ad-only: its steps at the smaller spp too
+AD_REMAT_TIMED = 2           # timed steps a size after a warm-up
+AD_REMAT_SHARE = 1 / 3       # its 1-spp peak against the plain loop's, at most
+AD_AB_SPP = (1, 4)           # --ad-only --ab-parent: the AD step in turns
+NO_ROOM, ROOM = 0, 1 << 62   # free_memory: every bounce recomputed, none
 
 
 def ad_inputs(scene: str, dev, w=None, h=None, spp=AD_SPP):
@@ -3768,16 +3791,82 @@ def ad_loss_grads(inp, params, key, target, route=None):
                           else route)
 
 
+@contextlib.contextmanager
+def backward_counts():
+    """Counts what runs inside torch.autograd.grad, the backward pass of
+    loss_and_grads (where the rematerialized bounces are recomputed),
+    apart from the rest: yields a dict whose "launches" (K5) and
+    "reattach" (reattach_hit calls) add up the backward's, "calls" the
+    backward passes, "checkpointed" the bounces the forward ran under
+    torch.utils.checkpoint, and "inside" is True while a backward runs."""
+    got = dict(launches=0, reattach=0, calls=0, checkpointed=0,
+               inside=False)
+    real = torch.autograd.grad
+    real_checkpoint = integrator.checkpoint
+
+    def checkpoint(*a, **kw):
+        got["checkpointed"] += 1
+        return real_checkpoint(*a, **kw)
+
+    def grad(*a, **kw):
+        l0, r0 = mk.intersect_batch.launches, reattach_hit.calls
+        got["inside"] = True
+        try:
+            return real(*a, **kw)
+        finally:
+            got["inside"] = False
+            got["launches"] += mk.intersect_batch.launches - l0
+            got["reattach"] += reattach_hit.calls - r0
+            got["calls"] += 1
+    torch.autograd.grad, integrator.checkpoint = grad, checkpoint
+    try:
+        yield got
+    finally:
+        torch.autograd.grad, integrator.checkpoint = real, real_checkpoint
+
+
+@contextlib.contextmanager
+def free_memory(n: int):
+    """integrator._free_bytes patched to n: NO_ROOM rematerializes every
+    bounce of a textured scene's differentiated fixed trip
+    (integrator._plain_bounces), ROOM none, as the loop ran before it."""
+    real = integrator._free_bytes
+    integrator._free_bytes = lambda dev: n
+    try:
+        yield
+    finally:
+        integrator._free_bytes = real
+
+
 def ad_checked_step(inp, card, scene):
     """One differentiable step whose K5 launches at AD_CHECKED's bounces
     are held bit for bit against intersect_batch_reference on the step's
-    own rays, all eight outputs (the triangle slot too); K5 is then timed
-    on bounce 1's rays (k5_times), with its bound. Returns the numbers."""
+    own rays, all eight outputs (the triangle slot too); on a scene whose
+    bounces may be rematerialized (integrator._remat_bounces) the step
+    recomputes every bounce (free_memory(NO_ROOM)), and every launch of
+    the backward's recompute is held bit for bit against the forward's
+    launch on the same rays. K5 is then timed on bounce 1's rays
+    (k5_times), with its bound. Returns the numbers."""
     arrays, meta, cfg, cam, px, py, route = inp
-    seen = []
+    remat = integrator._remat_bounces(meta)
+    seen, fwd_out, replayed = [], [], []
 
     def checked(scn, meta_, cfg_, o, d, tables=None):
         got = mk.intersect_batch(scn, meta_, cfg_, o, d, tables=tables)
+        if bwd["inside"]:
+            # the recompute of a bounce: the forward's rays, its outputs
+            same = [f for r, f in fwd_out if all(
+                torch.equal(a, b) for a, b in zip((*o, *d), r))]
+            if not same or any(not torch.equal(a, b) for a, b in zip(
+                    flat_outputs(got), flat_outputs(same[0]))):
+                raise AssertionError(
+                    f"phase 12: {scene}: a recomputed bounce's K5 "
+                    f"{'outputs differ from' if same else 'rays are not'} "
+                    f"the forward's")
+            replayed.append(len(same))
+            return got
+        if remat:
+            fwd_out.append(((*o, *d), got))
         if len(seen) in AD_CHECKED:
             want = mk.intersect_batch_reference(scn, meta_, cfg_, o, d,
                                                 tables)
@@ -3792,8 +3881,15 @@ def ad_checked_step(inp, card, scene):
         return got
 
     target = Vec3.zeros((px.shape[0],), torch.float32, px.device)
-    ad_loss_grads(inp, extract_params(arrays), threefry.prng_key(0), target,
-                  integrator.IntersectRoute(checked, route.tables))
+    with backward_counts() as bwd, free_memory(NO_ROOM):
+        ad_loss_grads(inp, extract_params(arrays), threefry.prng_key(0),
+                      target, integrator.IntersectRoute(checked,
+                                                        route.tables))
+    if (len(seen), len(replayed)) != (cfg.max_bounces, cfg.max_bounces
+                                      if remat else 0):
+        raise AssertionError(f"phase 12: {scene}: {len(seen)} forward and "
+                             f"{len(replayed)} recomputed K5 calls")
+    del fwd_out
     o, d = seen[1]
     counts = {}
     want, p_ms = timed(lambda: mk.intersect_batch_reference(
@@ -3807,11 +3903,14 @@ def ad_checked_step(inp, card, scene):
           f"({o[0].numel()} a bounce, {len(seen)} bounces): bit-equal to "
           f"the plain version, triangle slot included, at bounces "
           f"{list(AD_CHECKED)} ({tri} triangle winners at bounce 1); "
+          f"{len(replayed)} bounces recomputed in the backward, each "
+          f"launch bit-equal to the forward's on the same rays; "
           f"bounce 1: {k5_text(k)}, plain {p_ms:.1f} ms, bound "
           f"{b_ms:.4f} ms ({b_by}; {ops:.4g} f32 ops); the launcher's host "
           f"time below the kernel's: {k['host_ms'] < k['kernel_ms']}; card "
           f"{card}")
-    return dict(rays=o[0].numel(), bounces=len(seen), ms=k["call_ms"],
+    return dict(rays=o[0].numel(), bounces=len(seen),
+                recomputed=len(replayed), ms=k["call_ms"],
                 kernel_ms=k["kernel_ms"], host_ms=k["host_ms"],
                 plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 tri_winners_bounce_1=tri)
@@ -3856,31 +3955,44 @@ def ad_main_path(scene: str, dev, card):
         raise AssertionError(f"{tag}: the route is not the intersect kernel")
     k5 = ad_checked_step(inp, card, scene)
     live = ad_live_rays(inp)
+    remat = integrator._remat_bounces(meta)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mk.intersect_batch.launches = 0
     mk.trace_tiles.launches = 0
     reattach_hit.calls = reattach_hit.rays = 0
-    samples, secs = bench.bench_diff_wavefront(cfg, types.SimpleNamespace(
-        camera=get_scene(scene, cfg).camera), arrays, meta, 8 * AD_TIMED,
-        dev)
+    with backward_counts() as bwd:
+        samples, secs = bench.bench_diff_wavefront(
+            cfg, types.SimpleNamespace(camera=get_scene(scene, cfg).camera),
+            arrays, meta, 8 * AD_TIMED, dev)
     launches, calls = mk.intersect_batch.launches, reattach_hit.calls
     rays = reattach_hit.rays
     peak = torch.cuda.max_memory_allocated()
     steps = AD_TIMED + 1
-    if (launches != steps * cfg.max_bounces or mk.trace_tiles.launches
-            or samples != W * H * AD_TIMED):
+    # the forward launches K5 once a bounce, the backward once more a
+    # rematerialized bounce (its recompute); a 1-spp step fits in the
+    # card's memory, so integrator._plain_bounces rematerializes none
+    fwd, rec = launches - bwd["launches"], bwd["launches"]
+    ckpt = bwd["checkpointed"]
+    if (fwd != steps * cfg.max_bounces or bwd["calls"] != steps
+            or rec != ckpt or ckpt or bwd["reattach"]
+            or mk.trace_tiles.launches or samples != W * H * AD_TIMED):
         raise AssertionError(
-            f"{tag}: {launches} K5 launches in {steps} steps of "
-            f"{cfg.max_bounces} bounces, {mk.trace_tiles.launches} "
-            f"megakernel launches")
+            f"{tag}: {fwd} K5 launches in the forward and {rec} in the "
+            f"backward of {bwd['calls']} steps ({steps} expected) of "
+            f"{cfg.max_bounces} bounces, {ckpt} bounces rematerialized "
+            f"(none expected: the batch fits), {bwd['reattach']} of "
+            f"{calls} re-attaches in the backward, "
+            f"{mk.trace_tiles.launches} megakernel launches")
     rate = samples / secs / 1e6
     phase(f"{tag}: fwd+bwd {rate:.3f} Msamples/s ({AD_TIMED} SGD steps in "
           f"{secs:.4f} s after a warm-up, bench.py's measurement); "
-          f"{launches / steps:.0f} K5 launches a step ({launches} in "
-          f"{steps} steps), 0 megakernel launches; {calls} re-attaches "
-          f"({rays} rays); peak memory {peak / 2**30:.3f} GiB; live rays "
-          f"a bounce {live}; card {card}")
+          f"{fwd / steps:.0f} + {rec / steps:.0f} K5 launches a step, "
+          f"forward + the backward's recompute ({launches} in {steps} "
+          f"steps; rematerializable scene: {remat}, bounces "
+          f"rematerialized: {ckpt}), 0 megakernel launches; {calls} "
+          f"re-attaches ({rays} rays); peak memory {peak / 2**30:.3f} GiB; "
+          f"live rays a bounce {live}; card {card}")
 
     # the loss toward a target: Adam from perturbed colors
     true = extract_params(arrays)
@@ -3907,7 +4019,10 @@ def ad_main_path(scene: str, dev, card):
     check_falls(f"{tag}: Adam on {sorted(leaves)} toward a "
                 "common-random-number target", losses)
     return dict(msamples_per_s=rate, seconds=secs, launches=launches,
-                launches_a_step=launches / steps, reattach_calls=calls,
+                launches_a_step=launches / steps, rematerializable=remat,
+                rematerialized=ckpt,
+                forward_launches=fwd, recompute_launches=rec,
+                reattach_calls=calls,
                 reattach_rays=rays, peak_bytes=peak, live_rays=live,
                 losses=losses, k5=k5)
 
@@ -3926,8 +4041,7 @@ def ad_route_vs_walk(scene: str, dev, card):
     _, g_k = ad_loss_grads(inp, p, key, target)
     _, g_w = ad_loss_grads(inp, p, key, target, integrator.IntersectRoute())
     worst = {}
-    for k in ("color", "emission", "tri_color", "tex_planar", "tex_sphere",
-              "tex_cube"):
+    for k in AD_FIELDS:
         a, b = getattr(g_k, k), getattr(g_w, k)
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
             raise AssertionError(f"phase 12: {scene}: {k} not finite")
@@ -3941,6 +4055,258 @@ def ad_route_vs_walk(scene: str, dev, card):
           f"the torch walk, the same key: (max |difference|, max |g|) "
           f"{worst}, within {AD_REL} x max|g|; card {card}")
     return worst
+
+
+def fresh_peak():
+    """Free the cached blocks and start the peak from what is allocated."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def pass_split(path: str) -> dict:
+    """Of a torch.profiler trace of one AD step: for its forward and its
+    backward ("pt.ad_forward", "pt.ad_backward" spans) the wall, the
+    kernels launched in it (by the time of their launch call), their
+    device time and its share of the wall (the rest: the device idle)."""
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    launch_ts = {e["args"].get("correlation"): e["ts"] for e in ev
+                 if e.get("cat") == "cuda_runtime"}
+    kernels = [(launch_ts.get(e["args"].get("correlation"), -1), e["dur"])
+               for e in ev if e.get("cat") == "kernel"]
+    out = {}
+    for name in ("pt.ad_forward", "pt.ad_backward"):
+        span = [e for e in ev if e.get("cat") == "user_annotation"
+                and e.get("name") == name]
+        if not span or not kernels:
+            out[name[3:]] = {"note": "no span or no device events"}
+            continue
+        a, b = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+        ks = [d for t, d in kernels if a <= t <= b]
+        out[name[3:]] = dict(wall_ms=(b - a) / 1e3, kernels=len(ks),
+                             kernel_ms=sum(ks) / 1e3,
+                             kernel_share=sum(ks) / (b - a))
+    return out
+
+
+def ad_step_split(inp, card, tmp):
+    """The AD step (image_loss and its torch.autograd.grad, every
+    SceneParams field trainable, a zero target) of the loop without the
+    rematerialization (free_memory(ROOM)) and with it on every bounce
+    (free_memory(NO_ROOM)): its forward and backward
+    walls by host clock over AD_REMAT_TIMED steps after a warm-up (a
+    synchronize ends each pass), then one step traced by torch.profiler
+    (pass_split; the profiler's own cost is in that step's walls).
+    Returns {"plain"|"remat": {"forward_s", "backward_s", "trace"}}."""
+    arrays, meta, cfg, cam, px, py, route = inp
+    target = Vec3.zeros((px.shape[0],), torch.float32, px.device)
+    key = threefry.prng_key(0)
+    prof = torch.profiler
+    out = {}
+
+    def one():
+        p = extract_params(arrays)
+        leaves = {k: getattr(p, k).detach().requires_grad_(True)
+                  for k in AD_FIELDS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with prof.record_function("pt.ad_forward"):
+            loss = image_loss(p._replace(**leaves), arrays, meta, cfg, cam,
+                              px, py, key, cfg.samples, target, route=route)
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with prof.record_function("pt.ad_backward"):
+            torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+            torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+    for who, room in (("plain", ROOM), ("remat", NO_ROOM)):
+        with free_memory(room):
+            one()
+            walls = [one() for _ in range(AD_REMAT_TIMED)]
+            with prof.profile(activities=[prof.ProfilerActivity.CPU,
+                                          prof.ProfilerActivity.CUDA]) as p:
+                one()
+        path = os.path.join(tmp, f"ad_{who}.json")
+        p.export_chrome_trace(path)
+        out[who] = dict(forward_s=float(np.median([f for f, _ in walls])),
+                        backward_s=float(np.median([b for _, b in walls])),
+                        trace=pass_split(path))
+        fresh_peak()
+    phase(f"phase 12: {AD_REMAT} {W}x{H}x{cfg.samples} AD step split, "
+          f"forward / backward (s, host clock, median of "
+          f"{AD_REMAT_TIMED}): without the rematerialization "
+          f"{out['plain']['forward_s']:.4f} / "
+          f"{out['plain']['backward_s']:.4f}, with it "
+          f"{out['remat']['forward_s']:.4f} / "
+          f"{out['remat']['backward_s']:.4f}; one traced step: "
+          f"{json.dumps({w: o['trace'] for w, o in out.items()})}; card "
+          f"{card}")
+    return out
+
+
+def ad_remat(args, dev, card):
+    """The rematerialized bounces on AD_REMAT at W x H: the gradients of a
+    1-spp step with every bounce recomputed (free_memory(NO_ROOM))
+    against the same step with none (ROOM), every SceneParams field
+    within AD_REL x max|g| (the card's index_add_ adds in another order
+    each launch), and its peak memory at most AD_REMAT_SHARE of theirs;
+    then the SGD step at AD_REMAT_BIG spp, which the plain loop cannot
+    hold, under the memory it finds (ad_rate): K5 exactly once a bounce
+    in the forward and once a rematerialized bounce in the backward, some
+    bounces rematerialized, the new parameters and the loss finite, its
+    peak memory and fwd+bwd Msamples/s. With --ad-only, the step at each
+    spp of AD_REMAT_SPP too, and the 1-spp step's forward and backward
+    split (ad_step_split). Returns the numbers."""
+    scene, tag = AD_REMAT, f"phase 12: {AD_REMAT} rematerialized"
+    fresh_peak()
+    inp = ad_inputs(scene, dev)
+    arrays, meta, cfg, cam, px, py, route = inp
+    if not integrator._remat_bounces(meta):
+        raise AssertionError(f"{tag}: the scene is not rematerialized")
+    p = extract_params(arrays)
+    target = Vec3.zeros((W * H,), torch.float32, dev)
+    key = threefry.prng_key(7)
+    peaks, grads = {}, {}
+    for who, room in (("plain", ROOM), ("remat", NO_ROOM)):
+        fresh_peak()
+        base = torch.cuda.memory_allocated()
+        with free_memory(room):
+            grads[who] = ad_loss_grads(inp, p, key, target)[1]
+        torch.cuda.synchronize()
+        peaks[who] = torch.cuda.max_memory_allocated()
+        peaks[f"{who}_above_start"] = peaks[who] - base
+    worst = {}
+    for k in AD_FIELDS:
+        a, b = getattr(grads["remat"], k), getattr(grads["plain"], k)
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{tag}: {k} not finite")
+        top = float(b.abs().max())
+        worst[k] = (float((a - b).abs().max()), top)
+        if worst[k][0] > AD_REL * top:
+            raise AssertionError(f"{tag}: {k} differs from the plain "
+                                 f"loop's: {worst[k]}")
+    del grads
+    share = peaks["remat"] / peaks["plain"]
+    phase(f"{tag} {W}x{H}x1, every bounce, against the loop without it, "
+          f"the same key: (max |difference|, max |g|) {worst}, within "
+          f"{AD_REL} x max|g|; peak memory {peaks['remat'] / 2**30:.3f} GiB "
+          f"against {peaks['plain'] / 2**30:.3f} ({share:.4f} of it; above "
+          f"the step's start {peaks['remat_above_start'] / 2**30:.3f} "
+          f"against {peaks['plain_above_start'] / 2**30:.3f}); card {card}")
+    if share > AD_REMAT_SHARE:
+        raise AssertionError(f"{tag}: the peak is {share:.4f} of the plain "
+                             f"loop's (at most {AD_REMAT_SHARE:.4f})")
+    out = dict(vs_plain=worst, peak_bytes=peaks["remat"],
+               plain_peak_bytes=peaks["plain"], by_spp={})
+    if args.ad_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            out["split"] = ad_step_split(inp, card, tmp)
+    del inp, arrays, route
+    steps = AD_REMAT_TIMED + 1
+    mk.intersect_batch.launches = 0
+    with backward_counts() as bwd:
+        big = ad_rate(THIS_TREE, scene, AD_REMAT_BIG, dev)
+    fwd, rec = mk.intersect_batch.launches - bwd["launches"], bwd["launches"]
+    ckpt = bwd["checkpointed"]
+    size = f"{W}x{H}x{AD_REMAT_BIG}"
+    if (fwd != steps * cfg.max_bounces or rec != ckpt or not ckpt
+            or bwd["calls"] != steps or not big["finite"]):
+        raise AssertionError(
+            f"{tag} {size}: {fwd} K5 launches in the forward and {rec} in "
+            f"the backward's recompute of {ckpt} rematerialized bounces in "
+            f"{bwd['calls']} steps ({steps} expected; some bounces "
+            f"rematerialized expected); parameters and loss finite: "
+            f"{big['finite']}")
+    phase(f"{tag} {size} SGD (diff.train_step): fwd+bwd "
+          f"{big['msamples_per_s']:.3f} Msamples/s ({AD_REMAT_TIMED} steps "
+          f"in {big['seconds']:.4f} s after a warm-up); peak memory "
+          f"{big['peak_bytes'] / 2**30:.3f} GiB; {fwd // steps} + "
+          f"{rec // steps} K5 launches a step, forward + the recompute of "
+          f"the {ckpt // steps} rematerialized bounces; parameters and "
+          f"loss finite; card {card}")
+    out["big"] = dict(big, forward_launches=fwd, recompute_launches=rec)
+    for spp in AD_REMAT_SPP if args.ad_only else ():
+        with backward_counts() as bwd:
+            r = ad_rate(THIS_TREE, scene, spp, dev)
+        phase(f"{tag} {W}x{H}x{spp} SGD: fwd+bwd "
+              f"{r['msamples_per_s']:.3f} Msamples/s; peak memory "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB; "
+              f"{bwd['checkpointed'] // steps} bounces rematerialized a "
+              f"step; parameters and loss finite: {r['finite']}; card "
+              f"{card}")
+        out["by_spp"][spp] = dict(r, rematerialized=bwd["checkpointed"])
+    fresh_peak()
+    return out
+
+
+def ad_rate(T, scene: str, spp: int, dev) -> dict:
+    """Tree T's diff.train_step at W x H x spp on `scene` (every
+    SceneParams field trainable, a zero target, the route built once),
+    one warm-up step and AD_REMAT_TIMED timed ones, on T's own code:
+    {"msamples_per_s", "seconds", "peak_bytes", "finite" (the last
+    step's parameters and loss)}. bench.bench_diff_wavefront, which
+    phase 12's main path times, takes 1-spp steps only."""
+    fresh_peak()
+    cfg = T.RenderConfig(width=W, height=H, samples=spp,
+                         samples_per_pass=spp)
+    sc = T.get_scene(scene, cfg)
+    arrays, meta = sc.pack(device=dev)
+    cam = sc.camera.pack(torch.float32, dev)
+    px, py = T.integrator.pixel_grid(W, 0, H, dev)
+    route = T.integrator.intersect_route(arrays, meta,
+                                         cfg.replace(early_exit=False))
+    target = T.vec3.Vec3.zeros((W * H,), torch.float32, dev)
+    key = T.threefry.prng_key(0)
+    params = T.diff.extract_params(arrays)
+
+    def step(params):
+        return T.diff.train_step(params, arrays, meta, cfg, cam, px, py, key,
+                                 spp, target, route=route)
+    params, loss = step(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(AD_REMAT_TIMED):
+        params, loss = step(params)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(v).all()) for v in params if v is not None)
+    del params, arrays, route
+    fresh_peak()
+    return dict(msamples_per_s=W * H * spp * AD_REMAT_TIMED / secs / 1e6,
+                seconds=secs, peak_bytes=peak, finite=finite)
+
+
+def ad_ab(parent: str, dev, card) -> dict:
+    """The AD step (ad_rate) on the tree under `parent` and on this one,
+    in the order parent, this, this, parent, on AD_SCENES at each spp of
+    AD_AB_SPP: {"scene spp": {"parent": [(rate, peak), ...], "this":
+    [...]}}."""
+    T = load_tree(parent, "ad_tree")
+    trees = {"parent": T, "this": THIS_TREE}
+    out = {}
+    for scene in AD_SCENES:
+        for spp in AD_AB_SPP:
+            runs = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                r = ad_rate(trees[who], scene, spp, dev)
+                runs[who].append((r["msamples_per_s"], r["peak_bytes"]))
+            rate = {w: float(np.median([r for r, _ in v]))
+                    for w, v in runs.items()}
+            peak = {w: max(b for _, b in v) for w, v in runs.items()}
+            phase(f"phase 12 A/B: {scene} {W}x{H}x{spp} AD step: {parent} "
+                  f"{rate['parent']:.3f} Msamples/s, peak "
+                  f"{peak['parent'] / 2**30:.3f} GiB; this "
+                  f"{rate['this']:.3f} ({(rate['this'] - rate['parent']) / rate['parent']:+.2%}), "
+                  f"peak {peak['this'] / 2**30:.3f} GiB; rates "
+                  f"{parent} {[round(r, 3) for r, _ in runs['parent']]}, "
+                  f"this {[round(r, 3) for r, _ in runs['this']]}; card "
+                  f"{card}")
+            out[f"{scene} {spp}"] = runs
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -4086,6 +4452,7 @@ def ad_phases(args, dev, card, ptxas):
     --ad-only, the ptxas counts against those trees. Returns the
     numbers."""
     out = {"main": {s: ad_main_path(s, dev, card) for s in AD_SCENES}}
+    out["remat"] = ad_remat(args, dev, card)
     out["route_vs_walk"] = {s: ad_route_vs_walk(s, dev, card)
                             for s in AD_SCENES}
     out["estimators"] = ad_estimators(dev, card)
@@ -4094,6 +4461,7 @@ def ad_phases(args, dev, card, ptxas):
     if args.ad_only:
         out["ptxas_vs_parent"] = {d: ptxas_vs_parent(d, ptxas)
                                   for d in args.ab_parent}
+        out["ab"] = {d: ad_ab(d, dev, card) for d in args.ab_parent}
     return out
 
 
@@ -5468,6 +5836,13 @@ def main(argv=None) -> int:
              "launches": {s: v["launches"] for s, v in ad["main"].items()},
              "launches_a_step": {s: v["launches_a_step"]
                                  for s, v in ad["main"].items()},
+             "forward_launches": {s: v["forward_launches"]
+                                  for s, v in ad["main"].items()},
+             "recompute_launches": {s: v["recompute_launches"]
+                                    for s, v in ad["main"].items()},
+             "rematerialized": {s: v["rematerialized"]
+                                for s, v in ad["main"].items()},
+             "remat": ad["remat"],
              "ms_bounce_1": {s: v["k5"]["ms"] for s, v in ad["main"].items()},
              "kernel_ms_bounce_1": {s: v["k5"]["kernel_ms"]
                                     for s, v in ad["main"].items()},

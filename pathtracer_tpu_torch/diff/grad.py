@@ -127,7 +127,15 @@ def render_image_diff(params: SceneParams, scn: SceneArrays,
     """Differentiable estimate of P pixels (px, py: int32 [P]) at n_samples
     spp under the threefry key `key` -> Vec3 of [P]. As the JAX package's:
     the fixed-trip bounce loop (early_exit False) and the float atlases
-    (trainable_textures), through integrator.render_pass. `route` defaults
+    (trainable_textures), through integrator.render_pass. The JAX package
+    rematerializes every bounce of that loop (jax.checkpoint); the port
+    does so where a bounce samples a texture or a normal map, which keeps
+    about 1 KB a ray for its backward against the 58 B of the state the
+    checkpoint keeps (integrator._remat_bounces), and only for the
+    bounces whose intermediates would not fit in the memory free on the
+    device (integrator._plain_bounces): a batch that fits keeps the plain
+    loop's rate. An untextured bounce keeps less than that state, so it
+    always runs without. `route` defaults
     to integrator.intersect_route's (build it once to reuse its tables):
     on a CUDA device in f32 the intersect kernel answers every nearest
     hit, and a scene it does not take raises rather than fall back to the

@@ -49,6 +49,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import RenderConfig
 from ..scene.pack import SceneArrays, SceneMeta
@@ -556,11 +557,71 @@ def probe_line(b: int, i: int, s: PathState) -> str:
     """One bounce of ray i of the batch, in the JAX package's debug_ray
     format (the reference's per-pixel printf probes, tracer.cl:1015,
     1065-1067)."""
-    v = [float(a[i]) for a in (*s.origin, *s.direction, *s.mask, *s.accum)]
+    v = [float(a[i].detach())
+         for a in (*s.origin, *s.direction, *s.mask, *s.accum)]
     return (f"bounce {b} ray {i}: o=({v[0]:.5f},{v[1]:.5f},{v[2]:.5f}) "
             f"d=({v[3]:.5f},{v[4]:.5f},{v[5]:.5f}) mask=({v[6]:.4f},"
             f"{v[7]:.4f},{v[8]:.4f}) accum=({v[9]:.4f},{v[10]:.4f},"
             f"{v[11]:.4f}) alive={bool(s.alive[i])}")
+
+
+def _remat_bounces(meta: SceneMeta) -> bool:
+    """Whether the fixed-trip loop of a differentiable render may recompute
+    a bounce in the backward pass instead of keeping its intermediates
+    (torch.utils.checkpoint; the JAX package's jax.checkpoint of every
+    bounce, render/integrator.py:661-678 there): where a bounce samples a
+    texture or a normal map (the tables _surface_color and _surface_normal
+    read: meta.textured_types, meta.has_normal_maps). A bounce of such a
+    scene keeps about 1 KB a ray for its backward (on `textures`, about
+    10 KB a ray over the 10 bounces, the texture and normal-map fetches
+    and the re-attached hit most of it; tests/test_torch_wavefront_remat.py
+    counts it); the checkpoint keeps the bounce's input
+    state, 58 B a ray (origin, direction, mask, accum in f32; alive,
+    inside, n_hits, eff), and one bounce's intermediates at a time. An
+    untextured bounce keeps 43-51 B a ray, less than that state, so there
+    the recompute would cost a forward a step and save nothing. The
+    gradient is the same either way."""
+    return bool(meta.textured_types) or meta.has_normal_maps
+
+
+# Bytes a ray that one bounce of a scene _remat_bounces selects keeps for
+# its backward, at most: 1,090-1,130 on `textures`, the largest, by the
+# rays' paths (tests/test_torch_wavefront_remat.py holds every such scene
+# under it).
+_BOUNCE_BYTES = 1216
+
+
+def _free_bytes(dev: torch.device) -> int:
+    """Bytes that tensors on `dev` could still take: on a card its free
+    memory and the blocks the caching allocator holds unused, on the CPU
+    the host's available memory."""
+    if dev.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(dev)
+        return (free + torch.cuda.memory_reserved(dev)
+                - torch.cuda.memory_allocated(dev))
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _plain_bounces(meta: SceneMeta, cfg: RenderConfig, n_rays: int,
+                   dev: torch.device) -> int:
+    """How many bounces of render_rays' loop, from the first, keep their
+    intermediates for the backward; the others run under
+    torch.utils.checkpoint. All of them, unless the loop is the
+    differentiated fixed trip (no early exit, grad mode on) on a scene
+    _remat_bounces selects and its bounces' intermediates (_BOUNCE_BYTES a
+    ray each) would take more than three quarters of what is free on the
+    rays' device; then as many as leave room in those three quarters for
+    one recomputed bounce, the last quarter left to the backward's
+    gradients and the checkpoints' states. So a batch that fits keeps the
+    plain loop's rate (a recomputed bounce costs the step a forward of it
+    and the checkpoint's hooks), and a larger one still runs."""
+    n = cfg.max_bounces
+    if (cfg.early_exit or not torch.is_grad_enabled()
+            or not _remat_bounces(meta)):
+        return n
+    per = n_rays * _BOUNCE_BYTES
+    room = _free_bytes(dev) * 3 // 4
+    return n if n * per <= room else max(0, room // per - 1)
 
 
 def render_rays(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
@@ -570,8 +631,15 @@ def render_rays(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
     of each as a Vec3 of [R]. With cfg.early_exit the bounce loop stops
     once every ray has ended (the batch's analogue of the reference's
     per-ray break, tracer.cl:1107; one host check a bounce), else it runs
-    cfg.max_bounces bounces with the dead rays masked (the same result).
-    cfg.debug_ray >= 0 prints probe_line for that ray after each bounce."""
+    cfg.max_bounces bounces with the dead rays masked (the same result):
+    the loop reverse mode differentiates. There, with grad mode on, a
+    scene whose bounces sample a texture or a normal map runs the bounces
+    after the first _plain_bounces under torch.utils.checkpoint, as the
+    JAX package's fixed-trip loop runs each under jax.checkpoint, where
+    the batch's intermediates would not fit in memory: the backward pass
+    recomputes such a bounce (K5 relaunches, the draws repeat bit for bit)
+    from the state it kept. cfg.debug_ray >= 0 prints probe_line for that
+    ray after each bounce (once: the recompute does not print)."""
     R = origin.x.shape[0]
     dt = origin.x.dtype
     dev = origin.x.device
@@ -585,11 +653,19 @@ def render_rays(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
         n_hits=torch.zeros((R,), dtype=torch.int32, device=dev),
         eff=torch.zeros((R,), dtype=torch.int32, device=dev),
     )
+    n_plain = _plain_bounces(meta, cfg, R, dev)
     for b in range(cfg.max_bounces):
         if cfg.early_exit and not bool(state.alive.any()):
             break
-        state = bounce_step(scn, meta, cfg, state,
-                            threefry.fold_in(key, b), route)
+        k = threefry.fold_in(key, b)
+        if b >= n_plain:
+            # the non-reentrant form: the trainable tensors sit inside
+            # scn, which the reentrant form would leave without gradients
+            state = checkpoint(bounce_step, scn, meta, cfg, state, k, route,
+                               use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            state = bounce_step(scn, meta, cfg, state, k, route)
         if cfg.debug_ray >= 0:
             print(probe_line(b, cfg.debug_ray, state), flush=True)
     return state.accum

@@ -2,14 +2,17 @@
 no jax, so the tests that need a CUDA card can run where jax is absent."""
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import tempfile
+from unittest import mock
 
 import numpy as np
 import torch
 
 from pathtracer_tpu_torch.assets import uv_sphere_obj
+from pathtracer_tpu_torch.render import integrator
 from pathtracer_tpu_torch.render import megakernel as mk
 
 # the primitive, untextured scenes of the port
@@ -506,3 +509,32 @@ def one_warp_live(tabs, kw, block: int = 128, warp: int = 32):
     qx, qy = px.clone(), py.clone()
     qx[late], qy[late] = pixel
     return [*tabs[:-2], qx, qy], pixel
+
+
+@contextlib.contextmanager
+def at_backward(read):
+    """Yields a list that gets read() each time torch.autograd.grad (the
+    backward of diff.loss_and_grads) starts: what a counter had reached
+    by the end of the forward, the rest being the backward's."""
+    seen = []
+    real = torch.autograd.grad
+
+    def grad(*a, **kw):
+        seen.append(read())
+        return real(*a, **kw)
+    with mock.patch.object(torch.autograd, "grad", grad):
+        yield seen
+
+
+def free_for(n_plain: int, n_rays: int) -> int:
+    """Free bytes under which integrator._plain_bounces keeps the first
+    n_plain bounces of n_rays rays plain (fewer than max_bounces) on a
+    scene it may rematerialize."""
+    return (n_plain + 1) * n_rays * integrator._BOUNCE_BYTES * 4 // 3 + 3
+
+
+def free_bytes(n: int):
+    """integrator._free_bytes patched to n on every device: 0
+    rematerializes every bounce of a textured scene's differentiated
+    fixed trip, a huge n none."""
+    return mock.patch.object(integrator, "_free_bytes", lambda dev: n)

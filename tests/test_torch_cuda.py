@@ -53,8 +53,9 @@ import pytest
 import torch
 
 from _torch_scenes import (MESH_SCENES, SLICE_SCENES, TEX_SCENES,
-                           ablated_grad_rule, assert_slot_rule,
-                           cylinder_scene, filter_cases, grad_inputs,
+                           ablated_grad_rule, assert_slot_rule, at_backward,
+                           cylinder_scene, filter_cases, free_bytes,
+                           free_for, grad_inputs,
                            grad_rule, one_warp_live,
                            port_inputs, sincos_mismatches, size_check_scene,
                            tex_grad_rule, textured_teapot, tie_scene)
@@ -1045,6 +1046,51 @@ def test_wavefront_autograd_through_the_kernel(dev, name):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
     if name == "teapot":
         assert bool((got.tri_color != 0).any())
+
+
+@pytest.mark.parametrize("n_plain", [0, 4])
+def test_wavefront_autograd_rematerialized_on_the_card(dev, n_plain):
+    # `textures` with too little memory free for its bounces' intermediates
+    # (integrator._free_bytes patched): the bounces past the first n_plain
+    # run under torch.utils.checkpoint, so the backward relaunches K5 and
+    # re-attaches once for each; the gradients agree with the plain loop's
+    # on the card by the rule above (index_add_ adds in another order)
+    from pathtracer_tpu_torch.diff import extract_params, loss_and_grads
+    from pathtracer_tpu_torch.render import integrator, threefry
+    from pathtracer_tpu_torch.render.intersect import reattach_hit
+    from pathtracer_tpu_torch.render.vec3 import Vec3
+
+    W, H, S = 64, 48, 2
+    cfg = RenderConfig(width=W, height=H, samples=S, samples_per_pass=S)
+    sc = get_scene("textures", cfg)
+    arrays, meta = sc.pack(device=dev)
+    cam = sc.camera.pack(torch.float32, dev)
+    px, py = integrator.pixel_grid(W, 0, H, dev)
+    route = integrator.intersect_route(arrays, meta, cfg)
+    target = Vec3.zeros((W * H,), torch.float32, dev)
+
+    def grads():
+        return loss_and_grads(extract_params(arrays), arrays, meta, cfg,
+                              cam, px, py, threefry.prng_key(4), S, target,
+                              route=route)[1]
+    before = (mk.intersect_batch.launches, reattach_hit.calls)
+    with free_bytes(free_for(n_plain, W * H * S) if n_plain else 0), \
+            at_backward(lambda: (mk.intersect_batch.launches,
+                                 reattach_hit.calls)) as seen:
+        got = grads()
+    (fwd_launches, fwd_calls), = seen
+    n = cfg.max_bounces
+    assert fwd_launches - before[0] == n
+    assert mk.intersect_batch.launches - fwd_launches == n - n_plain
+    # camera rays carry no gradient: bounce 0 re-attaches nothing
+    assert fwd_calls - before[1] == n - 1
+    assert reattach_hit.calls - fwd_calls == n - max(n_plain, 1)
+    with free_bytes(1 << 62):
+        plain = grads()
+    for k in ("color", "emission", "tex_planar", "tex_sphere"):
+        a, b = getattr(got, k), getattr(plain, k)
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
 
 
 def test_two_gloo_ranks_on_the_card(dev, tmp_path):
