@@ -179,7 +179,16 @@ exactly zero; a texel step under PT_SUBPACKET=3), each run's launch
 counts set to 0 just before it; phase 8 holds the f32-texel forward on
 each walk bit for bit against its plain version. With `--ab-parent` the
 forward instantiations that the parent has must keep their ptxas
-counts. It
+counts. Phase 14 runs first after the build and P2: every mesh scene
+loads through the host scene core (native.py, csrc/scenecore.cpp, built
+with the host's C++ compiler); it packs `teapot`, `gopher`, `glass` and
+the size-check mesh once through the core and once under PT_NATIVE=0 and
+requires every SceneArrays tensor and SceneMeta field equal, holds one
+K1-mesh launch on the natively built size-check mesh bit for bit against
+its plain version on its first 64 tiles, and prints the set-up split
+(parse, normals, BVH build, octant copies, tables, first launch) of the
+size-check mesh (natively and in Python) and of a 66,040-triangle UV
+sphere (natively); `--scene-core-only` runs it alone. It
 prints one JSON line of kernel results, each with its bound (the least
 time the card could take for the same work, from the work the plain
 version counts in this run), and, last, one JSON line naming the device.
@@ -216,7 +225,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pathtracer_tpu_torch import bench, cli, train_demo
+from pathtracer_tpu_torch import bench, cli, native, train_demo
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.driver import render_driver
 from pathtracer_tpu_torch.diff import (extract_params, loss_and_grads,
@@ -237,11 +246,12 @@ from pathtracer_tpu_torch.render import integrator, proctex, threefry
 from pathtracer_tpu_torch.render import megakernel as mk
 from pathtracer_tpu_torch.render.intersect import reattach_hit
 from pathtracer_tpu_torch.render.vec3 import Vec3
-from pathtracer_tpu_torch.scene import material, pack, shapes
+from pathtracer_tpu_torch.assets import uv_sphere_obj
+from pathtracer_tpu_torch.scene import bvh, material, objfile, pack, shapes
 from pathtracer_tpu_torch.scene.pack import texel_params, trainable_texels
 from pathtracer_tpu_torch.scene.shapes import (BOX, CYLINDER, GROUP, PLANE,
                                                SPHERE)
-from pathtracer_tpu_torch.scenes import cornell, get_scene
+from pathtracer_tpu_torch.scenes import _models, cornell, get_scene
 
 # the test suite's synthetic scenes and per-slot rule (jax-free helpers)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -251,7 +261,8 @@ from _torch_scenes import (ATOL, GRAD_REL, MEAN_REL, RTOL,  # noqa: E402
                            bounce_rays, camera_rays, cylinder_scene,
                            filter_cases, grad_inputs, grad_rule,
                            one_warp_live, port_inputs,
-                           sincos_mismatches, size_check_scene,
+                           SIZE_CHECK_LAT_LON, sincos_mismatches,
+                           size_check_scene,
                            tex_grad_rule, textured_teapot, tie_scene)
 
 MAIN_MEAN_REL = 0.02         # 2048-spp image vs an 8-spp plain render
@@ -553,7 +564,7 @@ def walk_env(env: dict):
 
 
 def n_triangles(sc) -> int:
-    return sum(len(o.all_triangles()) for o in sc.objects
+    return sum(o.n_triangles() for o in sc.objects
                if isinstance(o, shapes.Group))
 
 
@@ -5205,6 +5216,212 @@ def dist_phase(dev, card) -> dict:
     return out
 
 
+# ---- phase 14: the host scene core (native.py, csrc/scenecore.cpp) --------
+
+CORE_SCENES = ("teapot", "gopher", "glass", "size-check mesh")
+CORE_BIG = (128, 260)        # a 66,040-triangle UV sphere, timed natively
+CORE_TILES = 64              # K1-mesh's plain version: phase 5's 64 tiles
+
+
+def core_scene(name: str, cfg, lat_lon=None):
+    """A scene of phase 14: one of CORE_SCENES, or `teapot` with the UV
+    sphere of lat_lon as its model."""
+    if lat_lon is not None:
+        return size_check_scene(cfg, get_scene, lat_lon)
+    if name == "size-check mesh":
+        return size_check_scene(cfg, get_scene)
+    return get_scene(name, cfg)
+
+
+@contextlib.contextmanager
+def clocked(*targets):
+    """Sum the host seconds of every call of each (module, function name)
+    in `targets` while in the block, into the dict it yields (keyed by
+    "module.name")."""
+    spans, saved = {}, []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+        key = f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
+        saved.append((mod, name, fn))
+
+        def wrapped(*a, _fn=fn, _key=key, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                spans[_key] = spans.get(_key, 0.0) + time.perf_counter() - t0
+        setattr(mod, name, wrapped)
+    try:
+        yield spans
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def core_equality(dev, card, given):
+    """Each CORE_SCENES scene packed on the card natively and under
+    PT_NATIVE=0 (`given`: {scene: those two (scene, arrays, meta, s)}
+    already made): every SceneArrays tensor and SceneMeta field must be
+    equal. Returns {scene: (native s, Python s)}, host seconds to load and
+    pack."""
+    cfg = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
+    out = {}
+    for name in CORE_SCENES:
+        packed = given.get(name, [])
+        for env in ({}, {"PT_NATIVE": "0"})[len(packed):]:
+            with env_vars(env, unset=("PT_NATIVE",)):
+                t0 = time.perf_counter()
+                sc = core_scene(name, cfg)
+                arrays, meta = sc.pack(device=dev)
+                torch.cuda.synchronize()
+                packed.append((sc, arrays, meta, time.perf_counter() - t0))
+        (nat, a, m, t_nat), (py, b, mb, t_py) = packed
+        groups = [[o for o in sc.objects if isinstance(o, shapes.Group)
+                   and o.n_triangles()] for sc in (nat, py)]
+        if not (all(isinstance(g.soup, native.ObjData) for g in groups[0])
+                and all(g.soup is None for g in groups[1])):
+            raise AssertionError(f"phase 14: {name}: the two paths did not "
+                                 "both run (scene core, then Python)")
+        differ = [f for f in a._fields
+                  if not torch.equal(getattr(a, f), getattr(b, f))]
+        if differ or m != mb:
+            raise AssertionError(f"phase 14: {name}: the scene core's pack "
+                                 f"differs from PT_NATIVE=0's: fields "
+                                 f"{differ}, meta equal {m == mb}")
+        phase(f"phase 14: {name} ({n_triangles(nat)} triangles, leaf "
+              f"{m.leaf_size}, {m.n_nodes} nodes): the {len(a._fields)} "
+              f"SceneArrays tensors and {len(dataclasses.fields(m))} "
+              f"SceneMeta fields equal with and without PT_NATIVE=0; load "
+              f"and pack {t_nat:.4f} s natively, {t_py:.4f} s in Python "
+              f"(host clock); card {card}")
+        out[name] = (t_nat, t_py)
+    return out
+
+
+def setup_split(lat_lon, dev, python=False):
+    """`teapot` with the UV sphere of lat_lon as its model, set up for a
+    W x H x 8 spp launch on the mesh layout, split by host clock (s):
+    parse, normals (the scene's: normals_groups=1), BVH build (the builder
+    within it as `builder`), octant copies, tables (the rest of pack_scene
+    and the kernel's tables and pixel layout on the card), the first
+    launch (synchronized) and `other` (writing and reading the .obj, the
+    scene's shapes, bounds). Under `python`, PT_NATIVE=0. Returns (split,
+    the launch's inputs, its output, (scene, arrays, meta, seconds to load
+    and pack))."""
+    cfg = RenderConfig(width=W, height=H, samples=8, samples_per_pass=8)
+    if python:
+        keys = ("_models.parse_obj", "_models.compute_vertex_normals",
+                "pack.build_bvh", "bvh._emit_python")
+        targets = [(_models, "parse_obj"), (_models, "compute_vertex_normals"),
+                   (pack, "build_bvh"), (bvh, "_emit_python")]
+    else:
+        keys = ("native.parse_obj", "native.vertex_normals",
+                "pack.build_bvh_arrays", "native.build_bvh")
+        targets = [(native, "parse_obj"), (native, "vertex_normals"),
+                   (pack, "build_bvh_arrays"), (native, "build_bvh")]
+    targets.append((pack, "octant_node_orders"))
+    with env_vars({"PT_NATIVE": "0"} if python else {},
+                  unset=("PT_NATIVE",)), clocked(*targets) as sp:
+        t0 = time.perf_counter()
+        sc = core_scene("teapot", cfg, lat_lon)
+        t1 = time.perf_counter()
+        arrays, meta = sc.pack(device=dev)
+        torch.cuda.synchronize()
+        t_pack = time.perf_counter()
+        tabs, meta, _, layout = port_inputs(sc, cfg, MESH_TILE, dev,
+                                            (arrays, meta))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    kw = dict(meta=meta, cfg=cfg, spp=8, total_samples=8, tile=MESH_TILE,
+              **layout)
+    t3 = time.perf_counter()
+    out = torch.stack(mk.trace_tiles((1, 0), *tabs, **kw))
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    parse, normals, bvh_s, builder = (sp.get(k, 0.0) for k in keys)
+    octants = sp.get("pack.octant_node_orders", 0.0)
+    # native.parse_obj runs the normals' pass itself; the Python loader
+    # calls compute_vertex_normals after its parse
+    model = parse + normals if python else parse
+    split = dict(triangles=n_triangles(sc), nodes=meta.n_nodes,
+                 parse=model - normals, normals=normals, bvh=bvh_s,
+                 builder=builder, octants=octants,
+                 tables=(t2 - t1) - bvh_s - octants, first_launch=t4 - t3,
+                 other=(t1 - t0) - model, total=t4 - t0)
+    return split, (tabs, kw), out, (sc, arrays, meta, t_pack - t0)
+
+
+def split_text(sp: dict) -> str:
+    return (f"parse {sp['parse']:.6f}, normals {sp['normals']:.6f}, BVH "
+            f"build {sp['bvh']:.6f} (builder {sp['builder']:.6f}), octant "
+            f"copies {sp['octants']:.6f}, tables {sp['tables']:.6f}, first "
+            f"launch {sp['first_launch']:.6f}, other {sp['other']:.6f}; "
+            f"total {sp['total']:.6f} s")
+
+
+def scene_core_phase(dev, card):
+    """Phase 14: the scene core's packs equal PT_NATIVE=0's on CORE_SCENES
+    (core_equality); K1-mesh on the natively built size-check mesh, one
+    W x H x 8 spp launch, bit-equal to its plain version on the first
+    CORE_TILES tiles; the set-up split (setup_split) of the size-check
+    mesh natively and in Python (whose packs core_equality compares), and
+    of the CORE_BIG sphere natively, with the vertex normals of every
+    group timed apart (the scenes' own pass covers the model's first
+    group, empty in a UV sphere). Returns the numbers for the kernels
+    line."""
+    native.library()
+    torch.zeros(1, device=dev)          # the device's context, made
+    torch.cuda.synchronize()
+    splits, size_check = {}, []
+    for tag, lat_lon, python in (
+            ("size-check native", SIZE_CHECK_LAT_LON, False),
+            ("size-check python", SIZE_CHECK_LAT_LON, True),
+            ("uv-sphere-66040 native", CORE_BIG, False)):
+        sp, (tabs, kw), k, packed = setup_split(lat_lon, dev, python)
+        splits[tag] = sp
+        if tag.startswith("size-check"):
+            size_check.append(packed)
+        phase(f"phase 14: set-up of {tag} ({sp['triangles']} triangles, "
+              f"{sp['nodes']} nodes at leaf 4) on the card's host: "
+              f"{split_text(sp)}; card {card}")
+        if tag == "size-check native":
+            sub = first_tiles(tabs, MESH_TILE, CORE_TILES)
+            p = torch.stack(mk.trace_tiles_reference((1, 0), *sub, **kw))
+            k = k[:, :CORE_TILES * MESH_TILE[0]]
+            torch.cuda.synchronize()
+            bit_eq = float((k == p).float().mean())
+            err = float((k - p).abs().max())
+            phase(f"phase 14: K1-mesh on the natively built size-check "
+                  f"mesh, {W}x{H}x8 spp: bit-equal to its plain version on "
+                  f"{bit_eq:.6f} of the first {CORE_TILES} tiles' slot "
+                  f"values, max abs err {err:.3e}; card {card}")
+            if bit_eq != 1.0:
+                raise AssertionError("phase 14: K1-mesh differs from its "
+                                     "plain version on the natively built "
+                                     "size-check mesh")
+    normals = {}
+    for tag, lat_lon in (("size-check", SIZE_CHECK_LAT_LON),
+                         ("uv-sphere-66040", CORE_BIG)):
+        soup = native.parse_obj(uv_sphere_obj(*lat_lon, name="teapot"))
+        t0 = time.perf_counter()
+        native.vertex_normals(soup, -1)
+        normals[tag] = time.perf_counter() - t0
+    tris = objfile.parse_obj(uv_sphere_obj(*SIZE_CHECK_LAT_LON,
+                                           name="teapot")).all_triangles()
+    t0 = time.perf_counter()
+    objfile.compute_vertex_normals(tris)
+    normals["size-check python"] = time.perf_counter() - t0
+    equal = core_equality(dev, card, {"size-check mesh": size_check})
+    phase(f"phase 14: vertex normals of every group: size-check natively "
+          f"{normals['size-check']:.6f} s, in Python "
+          f"{normals['size-check python']:.6f} s; the 66040-triangle "
+          f"sphere natively {normals['uv-sphere-66040']:.6f} s (host "
+          f"clock); card {card}")
+    return dict(equal_packs=list(equal), load_pack_s=equal, split_s=splits,
+                normals_every_group_s=normals, k1_mesh_bit_equal=bit_eq,
+                k1_mesh_max_abs_err=err)
+
+
 def walk_rows(gwalks, wtrain, f32_walks, ptxas):
     """The kernels line's rows of the gradient kernel's walk instantiations
     (K6 in triangle mode on `teapot`, K6-tex on the textured teapot, each
@@ -5351,6 +5568,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dist-only", action="store_true",
                     help="after the build, run the multi-GPU phase 13 alone "
                          "and print no result lines")
+    ap.add_argument("--scene-core-only", action="store_true",
+                    help="after the build, run the host scene core's "
+                         "phase 14 alone and print no result lines")
     ap.add_argument("--dist-rank", metavar="SPEC", default=None,
                     help=argparse.SUPPRESS)   # one rank of phase 13
     args = ap.parse_args(argv)
@@ -5370,8 +5590,13 @@ def main(argv=None) -> int:
 
     # ---- phase 2: build the kernel library ------------------------------
     t0 = time.perf_counter()
-    lib, plib = _build.build_all(["megakernel", "probes"])
-    phase(f"phase 2: built {lib.name} and {plib.name} (two nvcc at once) in "
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # the host scene core (csrc/scenecore.cpp) builds beside the nvccs
+        core_build = pool.submit(_build.build_host, "scenecore")
+        lib, plib = _build.build_all(["megakernel", "probes"])
+        core_lib = core_build.result()
+    phase(f"phase 2: built {lib.name} and {plib.name} (two nvcc at once) "
+          f"and {core_lib.name} (the host's C++ compiler, beside them) in "
           f"{time.perf_counter() - t0:.1f} s")
     log = lib.with_suffix(".log")
     ptxas = ptxas_lines(log.read_text() if log.exists() else "")
@@ -5388,6 +5613,9 @@ def main(argv=None) -> int:
         phase(f"phase 2: built the kernels of {len(others)} other trees "
               f"({len(others)} nvcc at once) in "
               f"{time.perf_counter() - t0:.1f} s")
+    if args.scene_core_only:
+        scene_core_phase(dev, card)
+        return 0
     # P2 first: the bounds of every later phase divide by its rate
     p2_rates, p2_row = op_rate_phase(dev, card)
     if args.grad_only:
@@ -5411,6 +5639,9 @@ def main(argv=None) -> int:
     if args.dist_only:
         dist_phase(dev, card)
         return 0
+
+    # ---- phase 14: the host scene core (every mesh scene below uses it) --
+    core = scene_core_phase(dev, card)
 
     # ---- phase 3: kernel vs plain version on the card -------------------
     small = RenderConfig(width=160, height=120, samples=16,
@@ -5700,7 +5931,7 @@ def main(argv=None) -> int:
          "triangles": mesh_tris, "ptxas": ptxas, "split": split,
          "sharded_launches": dl["k1_mesh"],
          "leaf_sweep": sweep, "leaf": mkw["meta"].leaf_size,
-         "slots_differing_at_jax_leaf": leaf_diff,
+         "slots_differing_at_jax_leaf": leaf_diff, "scene_core": core,
          "ab_parent": {d: {"ms": {k: list(v) for k, v in a[0].items()},
                            "ptxas": {k: [list(x) if x else None for x in v]
                                      for k, v in a[1].items()},

@@ -76,6 +76,14 @@ def bounds_of(shape: "Shape") -> BoundingBox:
 
     if isinstance(shape, Group):
         box = BoundingBox.empty()
+        if shape.soup is not None:
+            # a parsed model: the box the Python parser's group of groups
+            # gets, each group's vertex box through its identity transform
+            for pts in shape.soup.group_points():
+                sub = BoundingBox.empty()
+                sub.add_point(pts.min(axis=0))
+                sub.add_point(pts.max(axis=0))
+                box.merge_with(transform_bounding_box(sub, np.eye(4)))
         # untransformed triangles bound their vertices: one vectorised
         # min/max over all of them instead of eight corner transforms each
         eye = np.eye(4)

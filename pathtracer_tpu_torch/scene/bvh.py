@@ -14,10 +14,10 @@ walk is a stackless loop with one integer of state per ray:
 Every leaf owns exactly LEAF_SIZE contiguous triangle slots, padded with
 degenerate all-zero triangles that never pass the determinant test.
 
-This is the JAX package's NumPy builder. The JAX package prefers a native
-builder when it is compiled (native/scenecore.cpp); that builder is not
-bit-identical to this one on every mesh (ROADMAP queue 3), and this
-package always builds with NumPy.
+The build takes the host scene core (native.py, csrc/scenecore.cpp),
+whose splits and emit equal, bit for bit, the NumPy builder's here
+(`_emit_python`, the JAX package's NumPy path), which stays as the plain
+version and runs under PT_NATIVE=0.
 
 The reference-parity group ``divide`` (internal/app/shapes/bvh.go:9-119:
 a recursive median split of the longest axis into left, right and
@@ -201,6 +201,13 @@ def _build_tree(bb_min, bb_max, centroids, ids, leaf_size) -> _Node:
     return node
 
 
+def triangle_boxes(p1, p2, p3):
+    """Each triangle's box and centroid ([N, 3] each): the builder's
+    inputs."""
+    return (np.minimum(np.minimum(p1, p2), p3),
+            np.maximum(np.maximum(p1, p2), p3), (p1 + p2 + p3) / 3.0)
+
+
 def _emit_python(bb_min, bb_max, centroids, n_tris: int, leaf_size: int):
     """Pure-Python DFS emit. Returns local-indexed arrays + slot tri ids
     (-1 padding)."""
@@ -248,16 +255,20 @@ def build_bvh_arrays(
     into: Optional[FlatBVH] = None,
 ) -> Tuple[FlatBVH, int, int]:
     """Build a skip-link BVH over triangle-soup arrays ([N,3] each),
-    appending to the global pool ``into``. Returns (pool, root_index,
+    appending to the global pool ``into``, with the scene core unless
+    PT_NATIVE=0 (the same pool either way). Returns (pool, root_index,
     end_index)."""
+    from .. import native
+
     node_base = into.n_nodes if into is not None else 0
     slot_base = into.n_tri_slots if into is not None else 0
 
-    tb_min = np.minimum(np.minimum(p1, p2), p3)
-    tb_max = np.maximum(np.maximum(p1, p2), p3)
-    centroids = (p1 + p2 + p3) / 3.0
-    bmin, bmax, start, leaf, exit_, slots = _emit_python(
-        tb_min, tb_max, centroids, p1.shape[0], leaf_size)
+    if native.available():
+        bmin, bmax, start, leaf, exit_, slots = native.build_bvh(
+            p1, p2, p3, leaf_size)
+    else:
+        bmin, bmax, start, leaf, exit_, slots = _emit_python(
+            *triangle_boxes(p1, p2, p3), p1.shape[0], leaf_size)
 
     # Inflate node boxes slightly: axis-flat geometry (e.g. a wall of
     # coplanar triangles) yields zero-extent boxes that fail the strict

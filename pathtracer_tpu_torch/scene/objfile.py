@@ -1,5 +1,7 @@
-"""Wavefront .OBJ / .MTL parsing (counterpart of pathtracer_tpu.scene.objfile;
-this package has no native parser, so this is its only path).
+"""Wavefront .OBJ / .MTL parsing (counterpart of pathtracer_tpu.scene.objfile).
+The scene core (native.py) parses .obj files with the same result bit for
+bit; this is the plain version it is held to, and the path under
+PT_NATIVE=0.
 
 Behavioral equivalent of the reference parser (internal/app/obj/objparser.go):
 - v/vn/f/g/o/mtllib/usemtl handling, fan triangulation of polygons

@@ -21,7 +21,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .bvh import FlatBVH, build_bvh, empty_bvh, octant_node_orders
+from .bvh import (FlatBVH, build_bvh, build_bvh_arrays, empty_bvh,
+                  octant_node_orders)
 from .shapes import BOX, PLANE, SPHERE, Cylinder, Group, Shape, Triangle
 
 NONE_TYPE = -1
@@ -270,7 +271,7 @@ def leaf_size_for(objects: Sequence[Shape]) -> int:
     between."""
     if os.environ.get("PT_BVH_LEAF"):
         return int(os.environ["PT_BVH_LEAF"])
-    has_mesh = any(isinstance(s, Group) and s.all_triangles()
+    has_mesh = any(isinstance(s, Group) and s.n_triangles()
                    for s in objects)
     return 4 if has_mesh else 16
 
@@ -347,8 +348,7 @@ def pack_scene(
             min_y[i] = s.min_y
             max_y[i] = s.max_y
         elif isinstance(s, Group):
-            tris = s.all_triangles()
-            if not tris:
+            if not s.n_triangles():
                 # a group with no triangles contributes nothing (the
                 # reference skips childCount==0 groups, tracer.cl:617)
                 obj_type[i] = NONE_TYPE
@@ -356,7 +356,15 @@ def pack_scene(
             s.bounds()
             bb_min[i] = s.bounding_box.min[:3]
             bb_max[i] = s.bounding_box.max[:3]
-            pool, root, end = build_bvh(tris, leaf_size=leaf_size, into=pool)
+            soup = s.soup
+            if soup is not None:
+                # a parsed model's arrays, with no Triangle objects
+                pool, root, end = build_bvh_arrays(
+                    soup.p1, soup.p2, soup.p3, soup.n1, soup.n2, soup.n3,
+                    soup.color, leaf_size=leaf_size, into=pool)
+            else:
+                pool, root, end = build_bvh(s.all_triangles(),
+                                            leaf_size=leaf_size, into=pool)
             bvh_root[i] = root
             bvh_end[i] = end
             group_indices.append(i)

@@ -10,9 +10,10 @@ Type codes match the reference's CL layout (internal/ocl/scene.go:45-76):
 0 plane, 1 sphere, 2 cylinder, 3 box, 4 group.
 
 Groups of triangles (meshes) carry their cached bounds as in the JAX
-package. The JAX Group's native triangle-soup backing (`Group.soup`) is not
-carried over: this package parses .obj files in Python, so a Group always
-holds Triangle children.
+package. A model parsed by the scene core (native.py) is a Group whose
+triangles are arrays, `Group.soup` (a native.ObjData), with no children;
+`all_triangles()` builds Triangle objects from it for a reader that needs
+them, and its bounds are those of the Python parser's group of groups.
 """
 from __future__ import annotations
 
@@ -118,6 +119,8 @@ class Group(Shape):
     def __init__(self, **kw):
         super().__init__(**kw)
         self.children: List[Shape] = []
+        # a parsed model's triangles as arrays (native.ObjData), or None
+        self.soup = None
         from .bounds import BoundingBox
         self.bounding_box = BoundingBox.empty()
 
@@ -137,8 +140,9 @@ class Group(Shape):
         self.bounding_box = bounds_of(self)
 
     def all_triangles(self) -> List[Triangle]:
-        """All descendant triangles in depth-first order."""
-        out: List[Triangle] = []
+        """All descendant triangles in depth-first order, a soup's first."""
+        out: List[Triangle] = (self.soup.triangles()
+                               if self.soup is not None else [])
         for c in self.children:
             if isinstance(c, Triangle):
                 out.append(c)
@@ -146,11 +150,22 @@ class Group(Shape):
                 out.extend(c.all_triangles())
         return out
 
+    def n_triangles(self) -> int:
+        """len(all_triangles()), without building a soup's triangles."""
+        n = self.soup.n_tris if self.soup is not None else 0
+        for c in self.children:
+            if isinstance(c, Triangle):
+                n += 1
+            elif isinstance(c, Group):
+                n += c.n_triangles()
+        return n
+
 
 def flatten(group: Group) -> List[Shape]:
     """Flatten a group hierarchy into a list of non-group shapes
     (shapes/flatten.go — vestigial in the reference, kept for parity)."""
-    out: List[Shape] = []
+    out: List[Shape] = (group.soup.triangles()
+                        if group.soup is not None else [])
     for c in group.children:
         if isinstance(c, Group):
             out.extend(flatten(c))

@@ -286,15 +286,16 @@ def textured_teapot(sc, make):
     return sc
 
 
-def size_check_scene(cfg, get_scene):
+def size_check_scene(cfg, get_scene, lat_lon=SIZE_CHECK_LAT_LON):
     """The `teapot` scene with its model replaced by the 16640-triangle
-    size-check UV sphere, loaded through the scene's own model loader
-    (`get_scene` is either package's): the .obj is written to a temporary
-    asset directory named by PT_ASSETS for the duration of the call."""
+    size-check UV sphere (or the UV sphere of `lat_lon`), loaded through
+    the scene's own model loader (`get_scene` is either package's): the
+    .obj is written to a temporary asset directory named by PT_ASSETS for
+    the duration of the call."""
     old = os.environ.get("PT_ASSETS")
     with tempfile.TemporaryDirectory() as d:
         with open(os.path.join(d, "teapot.obj"), "w") as f:
-            f.write(uv_sphere_obj(*SIZE_CHECK_LAT_LON, name="teapot"))
+            f.write(uv_sphere_obj(*lat_lon, name="teapot"))
         os.environ["PT_ASSETS"] = d
         try:
             return get_scene("teapot", cfg)
@@ -366,14 +367,15 @@ def assert_tex_slot_rule(port: np.ndarray, ref: np.ndarray) -> None:
     np.testing.assert_array_less(np.abs(pm - rm) / np.abs(rm), MEAN_REL)
 
 
-def port_inputs(sc, cfg, tile, device):
+def port_inputs(sc, cfg, tile, device, packed=None):
     """The megakernel's inputs for scene `sc` on `device`, built as the
     driver builds them: the scene's default tile order and sample packing
-    for cfg.samples, on `tile` (None: the scene's default tile). Returns
+    for cfg.samples, on `tile` (None: the scene's default tile), from
+    `packed` (sc.pack's (arrays, meta) on `device`) when given. Returns
     ([cam, obj, nodes, tris, px, py], meta, pid, {"spp_pack": ...,
     "pack_axis": ...}), the dict with the texel pool and texture table too
     (tex_pool, tex_table) for a textured scene."""
-    arrays, meta = sc.pack(device=device)
+    arrays, meta = packed or sc.pack(device=device)
     tile = tile or mk.default_tile(meta)
     axis = mk.default_pack_axis(meta)
     pack = mk.clamp_pack(mk.default_pack(meta, cfg.samples), *tile, axis)

@@ -5,9 +5,10 @@ exactly.
 
 The JAX package builds BVHs and parses .obj files natively when its
 scene-core library is built. That builder is not bit-identical to its own
-NumPy one on large meshes (ROADMAP queue 3), and this package always takes
-the NumPy path, so the JAX side is packed here with the native library
-switched off (`native.available` patched to False).
+NumPy one on large meshes (ROADMAP §3), and this package's own scene core
+equals its NumPy path (tests/test_torch_native.py), so the JAX side is
+packed here with the native library switched off (`native.available`
+patched to False).
 
 One reference fault is not inherited: on that NumPy path the group bounds
 of every parsed model are NaN (the empty "DefaultGroup" of the .obj is
