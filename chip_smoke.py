@@ -3661,12 +3661,13 @@ def bench_phase(card):
 
 
 def trace_split(path: str) -> dict:
-    """The device time of a --profile trace of the driver's segment loop:
-    its window (first to last event), the share of it some kernel ran
-    (the rest idle), each a segment ("pt.segment" spans), and the shares
-    of kernel time that the render's own kernel (the megakernel or K5)
-    and the driver's stack-and-add ("pt.accumulate" spans, a kernel
-    attributed by the time its launch call ran) took."""
+    """The device time of a --profile trace of the driver's frame, from
+    its layout to its untile: its window (first to last event), the share
+    of it some kernel ran (the rest idle), each a segment ("pt.segment"
+    spans), and the shares of kernel time that the render's own kernel
+    (the megakernel or K5) and the driver's stack-and-add ("pt.stack" and
+    "pt.accumulate" spans, a kernel attributed by the time its launch call
+    ran) took."""
     with open(path) as f:
         ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     kernels = [e for e in ev if e.get("cat") == "kernel"]
@@ -3678,7 +3679,7 @@ def trace_split(path: str) -> dict:
                  if e.get("cat") == "cuda_runtime"}
     acc = [(e["ts"], e["ts"] + e["dur"]) for e in ev
            if e.get("cat") == "user_annotation"
-           and e.get("name") == "pt.accumulate"]
+           and e.get("name") in ("pt.stack", "pt.accumulate")]
     t0 = min(e["ts"] for e in ev)
     t1 = max(e["ts"] + e["dur"] for e in ev)
     busy, end = 0.0, t0

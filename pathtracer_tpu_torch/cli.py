@@ -87,8 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint every N sample chunks")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--profile", type=str, default=None,
-                   help="write a torch.profiler Chrome trace of the render "
-                        "loop to this directory")
+                   help="write a torch.profiler Chrome trace of the frame, "
+                        "from its layout to its untile, to this directory")
     p.add_argument("--metrics-json", type=str, default=None,
                    help="write render metrics as one JSON line to this file")
     p.add_argument("--output", type=str, default=None,

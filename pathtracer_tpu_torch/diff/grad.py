@@ -44,6 +44,7 @@ from ..render.grad import (make_diff_render, make_diff_render_tex,
                            make_diff_render_tri)
 from ..render.vec3 import Vec3
 from ..scene.pack import SceneArrays, SceneMeta, atlas_to_texels, texel_params
+from ..spans import span
 
 _ATLASES = ("tex_planar", "tex_sphere", "tex_cube")
 
@@ -170,14 +171,17 @@ def image_loss(params, scn, meta, cfg, cam, px, py, key, n_samples,
 def loss_and_grads(params: SceneParams, *args, **kw):
     """(loss, grads): image_loss(params, *args, **kw) and its gradient with
     respect to every field of `params` that is not None (None where the
-    field is None)."""
+    field is None). The forward runs in the span "pt.ad.forward", the
+    backward in "pt.ad.backward" (spans.py)."""
     names = [k for k in SceneParams._fields if getattr(params, k) is not None]
     with torch.enable_grad():
         leaves = {k: getattr(params, k).detach().requires_grad_(True)
                   for k in names}
-        loss = image_loss(params._replace(**leaves), *args, **kw)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in names],
-                                    allow_unused=True)
+        with span("pt.ad.forward"):
+            loss = image_loss(params._replace(**leaves), *args, **kw)
+        with span("pt.ad.backward"):
+            grads = torch.autograd.grad(loss, [leaves[k] for k in names],
+                                        allow_unused=True)
     # a field the render never reads (tri_color without a mesh) gets zeros,
     # as jax.grad gives them
     got = {k: torch.zeros_like(leaves[k]) if g is None else g

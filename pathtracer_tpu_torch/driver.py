@@ -24,10 +24,14 @@ time-based flush (a collective every rank must join). Rank 0 alone reads
 the checkpoint to resume from (every rank takes what it read), writes the
 checkpoint (the others wait at a barrier) and writes the profile.
 Partial sums stay on the device between flushes and are accumulated on
-the host in float64. `profile_dir` wraps the segment loop in
-torch.profiler (CPU and CUDA activities) and writes a Chrome trace there,
-in which "pt.segment" spans each segment's work and "pt.accumulate" the
-stacking of its sums and their add to the running sum.
+the host in float64. `profile_dir` wraps the frame, from its layout to
+its untile, in torch.profiler (CPU and CUDA activities) and writes a
+Chrome trace there, in which the frame's parts are spans (spans.py):
+"pt.layout" the segments' set-up, "pt.segment" each launch's enqueue and
+"pt.stack" the stack of its sums inside it, "pt.accumulate" their add to
+the device partial, "pt.wait" the host blocked on a segment's event,
+"pt.fetch" the partial's copy and add on the host, "pt.untile" the slots
+back to pixels.
 
 A real CUDA error is not retried: it poisons the CUDA context, so no
 in-process retry can recover from it. PT_FAULT_INJECT=<chunk> raises a
@@ -45,12 +49,12 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .config import RenderConfig
 from .render import megakernel as mk
 from .render.camera import Camera
 from .scene.pack import SceneArrays, SceneMeta
+from .spans import span
 
 log = logging.getLogger("pathtracer_tpu_torch")
 
@@ -162,6 +166,17 @@ def render_driver(
     ([H, W, 3] float32, stats). The scene's dtype is cfg.dtype's. `mesh`
     (a parallel.mesh.RenderMesh) shards each segment over its ranks; every
     rank returns the whole image."""
+    writer = mesh is None or mesh.is_writer
+    with _profiler(profile_dir if writer else None):
+        return _render_frame(scn, meta, camera, cfg, checkpoint_path,
+                             checkpoint_every, resume, mesh)
+
+
+def _render_frame(scn: SceneArrays, meta: SceneMeta, camera: Camera,
+                  cfg: RenderConfig, checkpoint_path: Optional[str],
+                  checkpoint_every: int, resume: bool, mesh
+                  ) -> tuple[np.ndarray, RenderStats]:
+    """render_driver's frame, from its layout to its untile."""
     W, H = camera.width, camera.height
     dev = scn.color.device
     spp_chunk = min(cfg.samples_per_pass, cfg.samples)
@@ -172,36 +187,38 @@ def render_driver(
     def fetch(acc):
         return acc.cpu().numpy()
 
-    if mesh is not None:
-        from .parallel.render_dist import make_driver_segments
+    with span("pt.layout"):
+        if mesh is not None:
+            from .parallel.render_dist import make_driver_segments
 
-        # the chunk schedule is rounded to the spp axis, so that every rank
-        # renders an equal share of each segment; the mesh shape is part of
-        # the random stream's layout, so the checkpoint's backend tag has it
-        spp_axis = mesh.shape["spp"]
-        n_chunks = -(-n_chunks // spp_axis) * spp_axis
-        backend_name = ("megakernel" if use_megakernel(meta, cfg)
-                        else "wavefront") + "@" + mesh.shape_tag
-        segs = make_driver_segments(scn, meta, camera, cfg, mesh,
-                                    use_megakernel(meta, cfg))
-        segment, fetch, finalize = segs.segment, segs.fetch, segs.finalize
-        layout_tag, n_slots = segs.layout_tag, segs.n_slots
-    elif use_megakernel(meta, cfg):
-        backend_name = "megakernel"
-        segment, layout_tag, pid = _megakernel_segments(scn, meta, camera,
-                                                        cfg)
-        n_slots = pid.shape[0]
+            # the chunk schedule is rounded to the spp axis, so that every
+            # rank renders an equal share of each segment; the mesh shape is
+            # part of the random stream's layout, so the checkpoint's
+            # backend tag has it
+            spp_axis = mesh.shape["spp"]
+            n_chunks = -(-n_chunks // spp_axis) * spp_axis
+            backend_name = ("megakernel" if use_megakernel(meta, cfg)
+                            else "wavefront") + "@" + mesh.shape_tag
+            segs = make_driver_segments(scn, meta, camera, cfg, mesh,
+                                        use_megakernel(meta, cfg))
+            segment, fetch, finalize = segs.segment, segs.fetch, segs.finalize
+            layout_tag, n_slots = segs.layout_tag, segs.n_slots
+        elif use_megakernel(meta, cfg):
+            backend_name = "megakernel"
+            segment, layout_tag, pid = _megakernel_segments(scn, meta, camera,
+                                                            cfg)
+            n_slots = pid.shape[0]
 
-        def finalize(acc):
-            return mk.untile_image(acc, pid, W, H)
-    else:
-        backend_name = "wavefront"
-        segment = _wavefront_segments(scn, meta, camera, cfg)
-        layout_tag = "linear"
-        n_slots = H * W
+            def finalize(acc):
+                return mk.untile_image(acc, pid, W, H)
+        else:
+            backend_name = "wavefront"
+            segment = _wavefront_segments(scn, meta, camera, cfg)
+            layout_tag = "linear"
+            n_slots = H * W
 
-        def finalize(acc):
-            return acc
+            def finalize(acc):
+                return acc
     log.info("backend: %s on %s", backend_name, dev)
 
     ck_meta = _checkpoint_meta(cfg, backend_name, checkpoint_every,
@@ -266,7 +283,12 @@ def render_driver(
     def flush(save_ck: bool):
         nonlocal accum, dev_acc, host_base, t_flush
         if dev_acc is not None:
-            accum += fetch(dev_acc).astype(np.float64)
+            if prev_done is not None:
+                # blocked on the last segment here, not in the copy below
+                with span("pt.wait"):
+                    prev_done.synchronize()
+            with span("pt.fetch"):
+                accum += fetch(dev_acc).astype(np.float64)
             dev_acc = None
         host_base = c
         t_flush = time.perf_counter()
@@ -281,63 +303,64 @@ def render_driver(
     # failure on any rank rewinds every rank, and a flush (a collective)
     # is taken by all when any rank is due
     agree = (lambda *flags: flags) if mesh is None else mesh.any
-    with _profiler(profile_dir if writer else None):
-        while c < n_chunks:
-            n = min(seg_len, n_chunks - c)
-            t0 = time.perf_counter()
-            failure = None
-            try:
-                if c <= fault_at < c + n and fault_count > 0:
-                    fault_count -= 1
-                    if fault_count == 0:
-                        fault_at = -1
-                    raise DeviceFailure(f"PT_FAULT_INJECT at chunk {c}")
-                with record_function("pt.segment"):
-                    out = segment(c, n)
-            except DeviceFailure as exc:
-                failure = exc
-            if failure is None:
-                with record_function("pt.accumulate"):
-                    dev_acc = out if dev_acc is None else dev_acc + out
-                if dev.type == "cuda":
-                    done = torch.cuda.Event()
-                    done.record(torch.cuda.current_stream(dev))
-                    if prev_done is not None:
+    while c < n_chunks:
+        n = min(seg_len, n_chunks - c)
+        t0 = time.perf_counter()
+        failure = None
+        try:
+            if c <= fault_at < c + n and fault_count > 0:
+                fault_count -= 1
+                if fault_count == 0:
+                    fault_at = -1
+                raise DeviceFailure(f"PT_FAULT_INJECT at chunk {c}")
+            with span("pt.segment"):
+                out = segment(c, n)
+        except DeviceFailure as exc:
+            failure = exc
+        if failure is None:
+            with span("pt.accumulate"):
+                dev_acc = out if dev_acc is None else dev_acc + out
+            if dev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+                if prev_done is not None:
+                    with span("pt.wait"):
                         prev_done.synchronize()
-                    prev_done = done
-            failed, late = agree(failure is not None,
-                                 time.perf_counter() - t_flush > flush_s)
-            if failed:
-                failure = failure or DeviceFailure(
-                    f"another rank failed at chunk {c}")
-                if failures >= max_retries:
-                    raise failure
-                failures += 1
-                stats.recoveries += 1
-                log.warning(
-                    "device failure at chunk %d (%s); re-rendering %d chunk(s) "
-                    "from %d (retry %d/%d)", c, failure, c + n - host_base,
-                    host_base, failures, max_retries)
-                # the device-resident partial is dropped with the failure
-                dev_acc = None
-                c = host_base
-                continue
-            failures = 0
-            c += n
-            stats.samples += W * H * n * spp_chunk
-            stats.segments += 1
-            log.info("%d/%d chunks queued, previous segment done, in %.3fs",
-                     c, n_chunks, time.perf_counter() - t0)
-            if checkpoint_path and checkpoint_every > 0:
-                flush(save_ck=True)
-            elif late:
-                flush(save_ck=False)
-        flush(save_ck=checkpoint_path is not None)
+                prev_done = done
+        failed, late = agree(failure is not None,
+                             time.perf_counter() - t_flush > flush_s)
+        if failed:
+            failure = failure or DeviceFailure(
+                f"another rank failed at chunk {c}")
+            if failures >= max_retries:
+                raise failure
+            failures += 1
+            stats.recoveries += 1
+            log.warning(
+                "device failure at chunk %d (%s); re-rendering %d chunk(s) "
+                "from %d (retry %d/%d)", c, failure, c + n - host_base,
+                host_base, failures, max_retries)
+            # the device-resident partial is dropped with the failure
+            dev_acc = None
+            c = host_base
+            continue
+        failures = 0
+        c += n
+        stats.samples += W * H * n * spp_chunk
+        stats.segments += 1
+        log.info("%d/%d chunks queued, previous segment done, in %.3fs",
+                 c, n_chunks, time.perf_counter() - t0)
+        if checkpoint_path and checkpoint_every > 0:
+            flush(save_ck=True)
+        elif late:
+            flush(save_ck=False)
+    flush(save_ck=checkpoint_path is not None)
 
     stats.wall_s = time.perf_counter() - t_total
     total_spp = n_chunks * spp_chunk
-    accum = finalize(accum)
-    img = (accum / float(total_spp)).astype(np.float32).reshape(H, W, 3)
+    with span("pt.untile"):
+        accum = finalize(accum)
+        img = (accum / float(total_spp)).astype(np.float32).reshape(H, W, 3)
     return img, stats
 
 
@@ -356,7 +379,7 @@ def _megakernel_segments(scn: SceneArrays, meta: SceneMeta, camera: Camera,
         r, g, b = mk.trace_tiles(
             seed, *run.tables, meta=meta, cfg=cfg, spp=int(n) * spp_chunk,
             total_samples=cfg.samples, **run.kwargs)
-        with record_function("pt.accumulate"):
+        with span("pt.stack"):
             return torch.stack([r.reshape(-1), g.reshape(-1),
                                 b.reshape(-1)], dim=-1)
     return segment, run.layout_tag, run.pid
@@ -392,6 +415,6 @@ def _wavefront_segments(scn: SceneArrays, meta: SceneMeta, camera: Camera,
                     scn, meta, cfg, cam, pxb[b], pyb[b], c0, n,
                     threefry.fold_in(key, 1000003 + b), route)
                 for b in range(pxb.shape[0])]
-        with record_function("pt.accumulate"):
+        with span("pt.stack"):
             return torch.cat([o.to_array() for o in outs])[:H * W]
     return segment

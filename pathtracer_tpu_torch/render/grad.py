@@ -46,6 +46,7 @@ import torch
 
 from ..config import RenderConfig
 from ..scene.pack import SceneMeta, staged_objects
+from ..spans import span
 from . import megakernel as mk
 
 _TRI_MODES = ("onehot", "tape")
@@ -421,28 +422,30 @@ def make_diff_render(meta: SceneMeta, cfg: RenderConfig, spp: int,
         @staticmethod
         def forward(ctx, color, emission, seed, cam_vec, obj_table, nodes,
                     tris, shade, px, py):
-            obj = _assemble_obj(obj_table, color, emission, n)
-            ctx.save_for_backward(color, emission, cam_vec, obj_table,
-                                  nodes, tris, shade, px, py)
-            ctx.seed = seed
-            return mk.trace_tiles(
-                seed, cam_vec, obj, nodes, tris, shade, px, py, meta=meta,
-                cfg=cfg,
-                spp=spp, total_samples=total_samples, tile=tile, spp_pack=1,
-                pack_axis="row")
+            with span("pt.grad.forward"):
+                obj = _assemble_obj(obj_table, color, emission, n)
+                ctx.save_for_backward(color, emission, cam_vec, obj_table,
+                                      nodes, tris, shade, px, py)
+                ctx.seed = seed
+                return mk.trace_tiles(
+                    seed, cam_vec, obj, nodes, tris, shade, px, py,
+                    meta=meta, cfg=cfg, spp=spp,
+                    total_samples=total_samples, tile=tile, spp_pack=1,
+                    pack_axis="row")
 
         @staticmethod
         def backward(ctx, g_r, g_g, g_b):
-            (color, emission, cam_vec, obj_table, nodes, tris, shade, px,
-             py) = ctx.saved_tensors
-            obj = _assemble_obj(obj_table, color, emission, n)
-            gcol, gemi = grad_tiles(
-                ctx.seed, cam_vec, obj, nodes, tris, shade, px, py,
-                *_cotangents((g_r, g_g, g_b), px),
-                meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
-                tile=tile)
-            return (_pad_to(gcol, color), _pad_to(gemi, emission),
-                    *([None] * 8))
+            with span("pt.grad.backward"):
+                (color, emission, cam_vec, obj_table, nodes, tris, shade,
+                 px, py) = ctx.saved_tensors
+                obj = _assemble_obj(obj_table, color, emission, n)
+                gcol, gemi = grad_tiles(
+                    ctx.seed, cam_vec, obj, nodes, tris, shade, px, py,
+                    *_cotangents((g_r, g_g, g_b), px),
+                    meta=meta, cfg=cfg, spp=spp,
+                    total_samples=total_samples, tile=tile)
+                return (_pad_to(gcol, color), _pad_to(gemi, emission),
+                        *([None] * 8))
 
     return DiffRender
 
@@ -468,32 +471,33 @@ def make_diff_render_tri(meta: SceneMeta, cfg: RenderConfig,
         @staticmethod
         def forward(ctx, color, emission, tri_color, seed, cam_vec,
                     obj_table, nodes, tris, shade, px, py):
-            obj = _assemble_obj(obj_table, color, emission, n)
-            shd = _assemble_tri(shade, tri_color)
-            ctx.save_for_backward(color, emission, tri_color, cam_vec,
-                                  obj_table, nodes, tris, shade, px, py)
-            ctx.seed = seed
-            return mk.trace_tiles(
-                seed, cam_vec, obj, nodes, tris, shd, px, py, meta=meta,
-                cfg=cfg,
-                spp=spp, total_samples=total_samples, tile=tile, spp_pack=1,
-                pack_axis="row")
+            with span("pt.grad.forward"):
+                obj = _assemble_obj(obj_table, color, emission, n)
+                shd = _assemble_tri(shade, tri_color)
+                ctx.save_for_backward(color, emission, tri_color, cam_vec,
+                                      obj_table, nodes, tris, shade, px, py)
+                ctx.seed = seed
+                return mk.trace_tiles(
+                    seed, cam_vec, obj, nodes, tris, shd, px, py, meta=meta,
+                    cfg=cfg, spp=spp, total_samples=total_samples,
+                    tile=tile, spp_pack=1, pack_axis="row")
 
         @staticmethod
         def backward(ctx, g_r, g_g, g_b):
-            (color, emission, tri_color, cam_vec, obj_table, nodes, tris,
-             shade, px, py) = ctx.saved_tensors
-            obj = _assemble_obj(obj_table, color, emission, n)
-            shd = _assemble_tri(shade, tri_color)
-            gcol, gemi, gtri = grad_tiles(
-                ctx.seed, cam_vec, obj, nodes, tris, shd, px, py,
-                *_cotangents((g_r, g_g, g_b), px),
-                meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
-                tile=tile, tri_grads=True,
-                tri_mode=os.environ.get("PT_TRI_GRAD", "onehot"))
-            return (_pad_to(gcol, color), _pad_to(gemi, emission),
-                    _pad_to(gtri[:tri_color.shape[0]], tri_color),
-                    *([None] * 8))
+            with span("pt.grad.backward"):
+                (color, emission, tri_color, cam_vec, obj_table, nodes, tris,
+                 shade, px, py) = ctx.saved_tensors
+                obj = _assemble_obj(obj_table, color, emission, n)
+                shd = _assemble_tri(shade, tri_color)
+                gcol, gemi, gtri = grad_tiles(
+                    ctx.seed, cam_vec, obj, nodes, tris, shd, px, py,
+                    *_cotangents((g_r, g_g, g_b), px),
+                    meta=meta, cfg=cfg, spp=spp,
+                    total_samples=total_samples, tile=tile, tri_grads=True,
+                    tri_mode=os.environ.get("PT_TRI_GRAD", "onehot"))
+                return (_pad_to(gcol, color), _pad_to(gemi, emission),
+                        _pad_to(gtri[:tri_color.shape[0]], tri_color),
+                        *([None] * 8))
 
     return DiffRenderTri
 
@@ -525,30 +529,33 @@ def make_diff_render_tex(meta: SceneMeta, cfg: RenderConfig, spp: int,
         @staticmethod
         def forward(ctx, color, emission, tex, seed, cam_vec, obj_table,
                     nodes, tris, shade, px, py, tex_table):
-            obj = _assemble_obj(obj_table, color, emission, n)
-            ctx.save_for_backward(color, emission, tex, cam_vec, obj_table,
-                                  nodes, tris, shade, px, py, tex_table)
-            ctx.seed = seed
-            return mk.trace_tiles(
-                seed, cam_vec, obj, nodes, tris, shade, px, py, meta=meta,
-                cfg=cfg,
-                spp=spp, total_samples=total_samples, tile=tile, spp_pack=1,
-                pack_axis="row", tex_table=tex_table,
-                tex_texels=_texels(tex))
+            with span("pt.grad.forward"):
+                obj = _assemble_obj(obj_table, color, emission, n)
+                ctx.save_for_backward(color, emission, tex, cam_vec,
+                                      obj_table, nodes, tris, shade, px, py,
+                                      tex_table)
+                ctx.seed = seed
+                return mk.trace_tiles(
+                    seed, cam_vec, obj, nodes, tris, shade, px, py,
+                    meta=meta, cfg=cfg, spp=spp,
+                    total_samples=total_samples, tile=tile, spp_pack=1,
+                    pack_axis="row", tex_table=tex_table,
+                    tex_texels=_texels(tex))
 
         @staticmethod
         def backward(ctx, g_r, g_g, g_b):
-            (color, emission, tex, cam_vec, obj_table, nodes, tris, shade,
-             px, py, tex_table) = ctx.saved_tensors
-            obj = _assemble_obj(obj_table, color, emission, n)
-            gcol, gemi, gtex = grad_tiles(
-                ctx.seed, cam_vec, obj, nodes, tris, shade, px, py,
-                *_cotangents((g_r, g_g, g_b), px),
-                meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
-                tile=tile, tex_grads=True, tex=_texels(tex),
-                tex_table=tex_table)
-            return (_pad_to(gcol, color), _pad_to(gemi, emission),
-                    gtex.to(tex.dtype), *([None] * 9))
+            with span("pt.grad.backward"):
+                (color, emission, tex, cam_vec, obj_table, nodes, tris,
+                 shade, px, py, tex_table) = ctx.saved_tensors
+                obj = _assemble_obj(obj_table, color, emission, n)
+                gcol, gemi, gtex = grad_tiles(
+                    ctx.seed, cam_vec, obj, nodes, tris, shade, px, py,
+                    *_cotangents((g_r, g_g, g_b), px),
+                    meta=meta, cfg=cfg, spp=spp,
+                    total_samples=total_samples, tile=tile, tex_grads=True,
+                    tex=_texels(tex), tex_table=tex_table)
+                return (_pad_to(gcol, color), _pad_to(gemi, emission),
+                        gtex.to(tex.dtype), *([None] * 9))
 
     return DiffRenderTex
 

@@ -54,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import RenderConfig
 from ..scene.pack import SceneArrays, SceneMeta
 from ..scene.shapes import BOX, CYLINDER, PLANE, SPHERE
+from ..spans import span
 from . import megakernel as mk
 from . import threefry
 from .camera import Camera, CameraArrays, rays_for_pixels
@@ -409,10 +410,12 @@ def _next_event_estimation(scn: SceneArrays, meta: SceneMeta,
         sorigin = position + sdir * eps
         ldn = sdir.dot(normal)
 
-        if route.fn is not None:
-            hit, _ = _route_hit(route, scn, meta, cfg, sorigin, sdir)
-        else:
-            hit = intersect_scene(scn, meta, sorigin, sdir, eps, cfg.t_max)
+        with span("pt.bounce.intersect"):
+            if route.fn is not None:
+                hit, _ = _route_hit(route, scn, meta, cfg, sorigin, sdir)
+            else:
+                hit = intersect_scene(scn, meta, sorigin, sdir, eps,
+                                      cfg.t_max)
         sh_t, sh_idx = hit.t, hit.obj_idx
         visible = (cond & (ldn > 0.0) & (sh_idx == l)
                    & (sh_t > eps) & (sh_t < cfg.t_max))
@@ -428,28 +431,46 @@ def _next_event_estimation(scn: SceneArrays, meta: SceneMeta,
 def bounce_step(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
                 state: PathState, key: torch.Tensor,
                 route: IntersectRoute = IntersectRoute()) -> PathState:
-    """One bounce of every ray of the batch."""
+    """One bounce of every ray of the batch, in the span "pt.bounce" and
+    its parts "pt.bounce.intersect", "pt.bounce.attrs" and
+    "pt.bounce.shade" (spans.py)."""
+    o = state.origin.x
+    with span("pt.bounce"):
+        with span("pt.bounce.intersect"):
+            if route.fn is not None:
+                hit, tri_normal = _route_hit(route, scn, meta, cfg,
+                                             state.origin, state.direction)
+            else:
+                hit = intersect_scene(scn, meta, state.origin,
+                                      state.direction, cfg.epsilon,
+                                      cfg.t_max)
+                tri_normal = _smooth_normal(scn, meta, hit)
+        with span("pt.bounce.attrs"):
+            # the triangle's color, gathered by the winning slot
+            # (differentiable)
+            if meta.has_groups:
+                tri_color = _gather_vec(scn.tri_color, torch.clamp(
+                    hit.tri_slot, 0, scn.tri_p1.shape[0] - 1).long())
+            else:
+                tri_color = Vec3.zeros(o.shape, o.dtype, o.device)
+            at = _fetch_object_attrs(scn, hit.obj_idx)
+        with span("pt.bounce.shade"):
+            return _shade(scn, meta, cfg, state, key, route, hit, tri_normal,
+                          tri_color, at)
+
+
+def _shade(scn: SceneArrays, meta: SceneMeta, cfg: RenderConfig,
+           state: PathState, key: torch.Tensor, route: IntersectRoute,
+           hit: Hit, tri_normal: Vec3, tri_color: Vec3,
+           at: ObjAttrs) -> PathState:
+    """The rest of bounce_step, from the hit and its attributes: the
+    normal, the material roulette, the surface color, NEE and the resolve
+    pass folded forward."""
     eps = cfg.epsilon
     R = state.origin.x.shape[0]
     dt = state.origin.x.dtype
     dev = state.origin.x.device
-
-    if route.fn is not None:
-        hit, tri_normal = _route_hit(route, scn, meta, cfg, state.origin,
-                                     state.direction)
-    else:
-        hit = intersect_scene(scn, meta, state.origin, state.direction,
-                              eps, cfg.t_max)
-        tri_normal = _smooth_normal(scn, meta, hit)
-    # the triangle's color, gathered by the winning slot (differentiable)
-    if meta.has_groups:
-        tri_color = _gather_vec(scn.tri_color, torch.clamp(
-            hit.tri_slot, 0, scn.tri_p1.shape[0] - 1).long())
-    else:
-        tri_color = Vec3.zeros((R,), dt, dev)
-
     hit_ok = hit.t < cfg.t_max
-    at = _fetch_object_attrs(scn, hit.obj_idx)
 
     position = state.origin + state.direction * hit.t
     eye = -state.direction

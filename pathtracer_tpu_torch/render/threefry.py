@@ -16,13 +16,16 @@ the same paths as the JAX package pixel by pixel:
   turns its top 23 bits into a float in [0, 1).
 
 uint32 arithmetic is int64 arithmetic masked to 32 bits: torch has no
-right shift for uint32 on the CPU.
+right shift for uint32 on the CPU. Each fold_in and uniform runs in the
+span "pt.rng" (spans.py).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..spans import span
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -63,10 +66,11 @@ def _words(key: torch.Tensor):
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """jax.random.fold_in(key, data) for a data word in [0, 2^32)."""
-    x0 = torch.zeros(1, dtype=torch.int64)
-    x1 = torch.tensor([int(data) & _M32], dtype=torch.int64)
-    y0, y1 = threefry2x32(*_words(key), x0, x1)
-    return torch.cat([y0, y1])
+    with span("pt.rng"):
+        x0 = torch.zeros(1, dtype=torch.int64)
+        x1 = torch.tensor([int(data) & _M32], dtype=torch.int64)
+        y0, y1 = threefry2x32(*_words(key), x0, x1)
+        return torch.cat([y0, y1])
 
 
 def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
@@ -81,7 +85,8 @@ def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     """jax.random.uniform(key, shape, float32): floats in [0, 1) on
     `device`, bit for bit."""
-    bits = random_bits(key, shape, device)
-    one = 0x3F800000  # the bits of 1.0f
-    f = ((bits >> 9) | one).to(torch.int32).view(torch.float32)
-    return f - 1.0
+    with span("pt.rng"):
+        bits = random_bits(key, shape, device)
+        one = 0x3F800000  # the bits of 1.0f
+        f = ((bits >> 9) | one).to(torch.int32).view(torch.float32)
+        return f - 1.0

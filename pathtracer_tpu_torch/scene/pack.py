@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -293,7 +294,16 @@ def pack_scene(
     node copies are built unless PT_OCTANT=0. A textured object's
     primitive type selects its image list (plane: `textures`, sphere:
     `sphere_textures`, box: `cube_textures`; tracer.cl:1077-1093); normal
-    maps are planar only (tracer.cl:907-911)."""
+    maps are planar only (tracer.cl:907-911).
+
+    pack_scene.seconds holds the last pack's host seconds by part, on
+    time.perf_counter: "bvh" (the BVH builds), "octant" (the octant node
+    copies), "textures" (the texel pools, the texture records and the
+    atlases), "device" (the copies to `device`, the process's first touch
+    of a card among them) and "tables" (the rest of the host arrays)."""
+    t_start = time.perf_counter()
+    seconds = dict.fromkeys(("bvh", "octant", "textures", "tables",
+                             "device"), 0.0)
     n = len(objects)
     no = max_objects or max(16, n)
     if n > no:
@@ -357,6 +367,7 @@ def pack_scene(
             bb_min[i] = s.bounding_box.min[:3]
             bb_max[i] = s.bounding_box.max[:3]
             soup = s.soup
+            t = time.perf_counter()
             if soup is not None:
                 # a parsed model's arrays, with no Triangle objects
                 pool, root, end = build_bvh_arrays(
@@ -365,6 +376,7 @@ def pack_scene(
             else:
                 pool, root, end = build_bvh(s.all_triangles(),
                                             leaf_size=leaf_size, into=pool)
+            seconds["bvh"] += time.perf_counter() - t
             bvh_root[i] = root
             bvh_end[i] = end
             group_indices.append(i)
@@ -374,9 +386,11 @@ def pack_scene(
     # degenerate triangle, so every table has at least one row
     dummy = pool.n_nodes == 0
     if dummy:
+        t = time.perf_counter()
         pool, _, _ = build_bvh(
             [Triangle(np.zeros(4), np.zeros(4), np.zeros(4))],
             leaf_size=leaf_size, into=pool)
+        seconds["bvh"] += time.perf_counter() - t
 
     # octant-ordered node copies for the walk's front-to-back pruning
     # (PT_OCTANT=0 disables; copy 0 stays the original order)
@@ -384,11 +398,14 @@ def pack_scene(
     octant = (not dummy and bool(group_bvh)
               and os.environ.get("PT_OCTANT", "1") != "0")
     if octant:
+        t = time.perf_counter()
         pool = octant_node_orders(pool, [(r, e) for (_, r, e) in group_bvh])
+        seconds["octant"] = time.perf_counter() - t
 
     # the texel pool and each textured object's (base, w, h) in it, and the
     # per-object texture records of SceneMeta (the JAX package's obj_tex:
     # (slot, procedural descriptor or None, w, h, sx, sy))
+    t = time.perf_counter()
     kind_images = {"planar": list(textures), "sphere": list(sphere_textures),
                    "cube": list(cube_textures)}
     tex_pool, pool_tables = _build_texel_pool(kind_images)
@@ -429,22 +446,22 @@ def pack_scene(
             obj_tex_nm_im.append(im)
     obj_tex, obj_tex_nm = _stage_file_textures(
         obj_tex, obj_tex_nm, obj_tex_im, obj_tex_nm_im)
+    atlases = [_pack_texture_atlas(ims) for ims in (
+        textures, sphere_textures, cube_textures)]
+    seconds["textures"] = time.perf_counter() - t
 
     np_dtype = torch.empty((), dtype=dtype).numpy().dtype
 
     def f(a):
-        return torch.from_numpy(
-            np.ascontiguousarray(a, dtype=np_dtype)).to(device)
+        return np.ascontiguousarray(a, dtype=np_dtype)
 
     def i32(a):
-        return torch.from_numpy(
-            np.ascontiguousarray(a, dtype=np.int32)).to(device)
+        return np.ascontiguousarray(a, dtype=np.int32)
 
     def u32(a):
-        return torch.from_numpy(
-            np.ascontiguousarray(a, dtype=np.uint32)).to(device)
+        return np.ascontiguousarray(a, dtype=np.uint32)
 
-    arrays = SceneArrays(
+    host = dict(
         obj_type=i32(obj_type),
         inverse=f(inverse),
         inverse_transpose=f(inverse_t),
@@ -479,9 +496,9 @@ def pack_scene(
         tri_n2=f(pool.tri_n2),
         tri_n3=f(pool.tri_n3),
         tri_color=f(pool.tri_color),
-        tex_planar=f(_pack_texture_atlas(textures)),
-        tex_sphere=f(_pack_texture_atlas(sphere_textures)),
-        tex_cube=f(_pack_texture_atlas(cube_textures)),
+        tex_planar=f(atlases[0]),
+        tex_sphere=f(atlases[1]),
+        tex_cube=f(atlases[2]),
         tex_pool_u32=u32(tex_pool),
         tex_pool_quad_u32=u32(tex_pool_quad),
         tex_base=f(pool_base),
@@ -492,6 +509,10 @@ def pack_scene(
         tex_nm_h=f(pool_nm_h),
         tex_staged=f(np.zeros((8, 128))),
     )
+    t = time.perf_counter()
+    arrays = SceneArrays(**{k: torch.from_numpy(a).to(device)
+                            for k, a in host.items()})
+    seconds["device"] = time.perf_counter() - t
     textured_types = sorted(
         {int(obj_type[i]) for i, s in enumerate(objects)
          if s.material.textured and obj_type[i] != NONE_TYPE})
@@ -525,7 +546,13 @@ def pack_scene(
         obj_tex=tuple(obj_tex),
         obj_tex_nm=tuple(obj_tex_nm),
     )
+    seconds["tables"] = (time.perf_counter() - t_start
+                         - sum(seconds.values()))
+    pack_scene.seconds = seconds
     return arrays, meta
+
+
+pack_scene.seconds = {}
 
 
 def from_jax_scene(arrays, meta, device) -> Tuple[SceneArrays, SceneMeta]:

@@ -1,0 +1,10 @@
+"""ad_attrs_ms: the device ms a traced step of the wavefront autograd path
+puts down to the "pt.bounce.attrs" spans: the triangle-colour and
+object-attribute gathers of each bounce, and their backward
+(ptbench/spans.py: by the launch's enclosing span, a backward op by its
+forward op's). Read on the card only."""
+from ptbench import spans
+
+
+def read(ctx, job):
+    return spans.group_ms(ctx, job, "attrs")

@@ -1,0 +1,9 @@
+"""ad_intersect_ms: the device ms a traced step of the wavefront autograd
+path puts down to the "pt.bounce.intersect" spans: each bounce's nearest
+hit (K5) and smooth normal (ptbench/spans.py: by the launch's enclosing
+span, a backward op by its forward op's). Read on the card only."""
+from ptbench import spans
+
+
+def read(ctx, job):
+    return spans.group_ms(ctx, job, "intersect")

@@ -1,0 +1,9 @@
+"""ad_rng_ms: the device ms a traced step of the wavefront autograd path
+puts down to the "pt.rng" spans: every threefry draw (fold_in, uniform)
+(ptbench/spans.py: by the launch's enclosing span, a backward op by its
+forward op's). Read on the card only."""
+from ptbench import spans
+
+
+def read(ctx, job):
+    return spans.group_ms(ctx, job, "rng")
