@@ -259,8 +259,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from _torch_scenes import (ATOL, GRAD_REL, MEAN_REL, RTOL,  # noqa: E402
                            SLOT_FRAC, ablated_grad_rule,
                            bounce_rays, camera_rays, cylinder_scene,
-                           filter_cases, grad_inputs, grad_rule,
-                           one_warp_live, port_inputs,
+                           filter_cases, finish_launch, grad_inputs,
+                           grad_rule, host_finish, one_warp_live,
+                           port_inputs,
                            SIZE_CHECK_LAT_LON, sincos_mismatches,
                            size_check_scene,
                            tex_grad_rule, textured_teapot, tie_scene)
@@ -845,8 +846,9 @@ def ptxas_counts(lines):
 def cli_render(scene: str, tmp: str, nee: bool = False):
     """Render `scene` at W x H x SPP through cli.main (with --nee when
     `nee`) with the launch counts set to 0 just before. Returns (image,
-    metrics, {"launches", "mesh", "tex", "nee"}: the launches of the kernel
-    and of its mesh, textured and NEE instantiations)."""
+    metrics, {"launches", "mesh", "tex", "nee", "finish"}: the launches of
+    the kernel and of its mesh, textured and NEE instantiations, and of
+    the frame's finish)."""
     raw = os.path.join(tmp, f"{scene}.raw")
     metrics = os.path.join(tmp, f"{scene}.json")
     mk.trace_tiles.launches = 0
@@ -856,6 +858,7 @@ def cli_render(scene: str, tmp: str, nee: bool = False):
     mk.trace_tiles.packet_launches = 0
     mk.trace_tiles.mma_launches = 0
     mk.trace_tiles.ablate_launches = 0
+    mk.finish_frame.launches = 0
     rc = cli.main([
         "--scene", scene, "--width", str(W), "--height", str(H),
         "--samples", str(SPP), "--raw-output", raw,
@@ -865,7 +868,8 @@ def cli_render(scene: str, tmp: str, nee: bool = False):
              mesh=mk.trace_tiles.mesh_launches,
              tex=mk.trace_tiles.tex_launches, nee=mk.trace_tiles.nee_launches,
              packet=mk.trace_tiles.packet_launches,
-             mma=mk.trace_tiles.mma_launches)
+             mma=mk.trace_tiles.mma_launches,
+             finish=mk.finish_frame.launches)
     if rc != 0:
         raise AssertionError(f"cli.main --scene {scene} returned {rc}")
     with open(metrics) as f:
@@ -895,6 +899,54 @@ def last_segment(scene: str, metrics: dict, tile, dev, nee: bool = False):
     kw = dict(meta=meta, cfg=cfg, spp=seg_spp, total_samples=SPP, tile=tile,
               **layout)
     return tabs, kw, seed, pid
+
+
+FINISH_REPS = 20
+
+
+def finish_check(tag, m, n, k, pid, kw, dev, card):
+    """The main path's frame finish: cli_render's render took the device
+    finish (metrics m) with one launch (counts n); then megakernel.
+    finish_frame on the driver's last segment's planes `k` [3, rows, L]
+    (on the card) at the main path's layout, against the host's finish
+    (untile_image in float64, the divide, the f32 cast), bit for bit, and
+    its time by CUDA events against its byte bound (12 bytes a slot in, 4 a
+    base slot, 12 a pixel out) and the host finish's time."""
+    if m.get("finish") != "device" or n["finish"] != 1:
+        raise AssertionError(f"{tag}: the main path did not finish the frame "
+                             f"on the card once (finish {m.get('finish')!r}, "
+                             f"{n['finish']} launches)")
+    S, L = kw["tile"]
+    pack, axis = kw["spp_pack"], kw["pack_axis"]
+    run = finish_launch(W, H, (S, L), mk.default_order(kw["meta"]), pack,
+                        axis, dev)
+    if not np.array_equal(run.pid, pid):
+        raise AssertionError(f"{tag}: the finish's layout is not the main "
+                             "path's")
+    acc = k.reshape(3, -1).contiguous()
+    host = acc.cpu().numpy()
+    got = mk.finish_frame(acc, run, SPP).cpu().numpy()
+    t0 = time.perf_counter()
+    want = host_finish(host, pid, W, H, SPP)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    bit_eq = float((got == want).mean())
+    err = float(np.abs(got - want).max())
+    ms = cuda_ms(lambda: mk.finish_frame(acc, run, SPP), FINISH_REPS)
+    n_slots = pid.shape[0]
+    n_bytes = 12 * n_slots + 4 * (n_slots // pack) + 12 * W * H
+    bound = bound_of(0, n_bytes)
+    phase(f"{tag}: frame finish ({n['finish']} launch in the render) on the "
+          f"last segment's {n_slots} slots ({axis} pack {pack}): bit-equal "
+          f"to the host's finish on {bit_eq:.6f} of {got.size} pixel values, "
+          f"max abs err {err:.3e}; kernel {ms:.4f} ms (byte bound "
+          f"{bound[0]:.4f} ms, {n_bytes} bytes), host {host_ms:.1f} ms; "
+          f"card {card}")
+    if bit_eq != 1.0:
+        raise AssertionError(f"{tag}: the frame finish differs from the "
+                             "host's on the main path's layout")
+    return dict(launches=n["finish"], bit_eq=bit_eq, err=err, ms=ms,
+                host_ms=host_ms, bound_ms=bound[0], bound_by=bound[1],
+                n_bytes=n_bytes, shape=f"{W}x{H} {axis} pack {pack}")
 
 
 def plain_affordable(tag, seed, tabs, kw, n_tiles: int, probe_tiles: int,
@@ -952,8 +1004,10 @@ def reference_main_path(tmp, dev, card, nee=False):
 
     # the driver's last segment again, kernel vs plain version slot by
     # slot: the shapes, seed vector and sample base the main path used
-    tabs, kw, seed, _ = last_segment("reference", m, TILE, dev, nee)
-    k = torch.stack(mk.trace_tiles(seed, *tabs, **kw)).cpu().numpy()
+    tabs, kw, seed, pid = last_segment("reference", m, TILE, dev, nee)
+    k = torch.stack(mk.trace_tiles(seed, *tabs, **kw))
+    fin = finish_check(tag, m, n, k, pid, kw, dev, card)
+    k = k.cpu().numpy()
     counts = {}
     p, p_ms = timed(lambda: mk.trace_tiles_reference(seed, *tabs, **kw,
                                                      counts=counts))
@@ -974,7 +1028,7 @@ def reference_main_path(tmp, dev, card, nee=False):
     return dict(launches=n["launches"], nee=n["nee"], seed=seed, tabs=tabs,
                 kw=kw, p_ms=p_ms, counts=counts, bit_eq=bit_eq, frac=frac,
                 err=err, tabs8=tabs8, kw8=kw8, p8_ms=p8_ms, c8=c8,
-                metrics=m)
+                metrics=m, finish=fin)
 
 
 def teapot_main_path(tmp, dev, card, mesh_tris, nee=False):
@@ -999,9 +1053,11 @@ def teapot_main_path(tmp, dev, card, mesh_tris, nee=False):
                              f"kernel once per segment ({SPP // 8} expected)")
     check_image(tag, timg)
 
-    mtabs, mkw, mseed, _ = last_segment("teapot", tm, MESH_TILE, dev, nee)
+    mtabs, mkw, mseed, mpid = last_segment("teapot", tm, MESH_TILE, dev,
+                                           nee)
     n_tiles = mtabs[-2].shape[0] // MESH_TILE[0]
     k = torch.stack(mk.trace_tiles(mseed, *mtabs, **mkw))
+    fin = finish_check(tag, tm, n, k, mpid, mkw, dev, card)
     torch.cuda.synchronize()
     c64 = {}
     p64, p64_ms, full = plain_affordable(tag, mseed, mtabs, mkw, n_tiles, 64,
@@ -1078,7 +1134,8 @@ def teapot_main_path(tmp, dev, card, mesh_tris, nee=False):
     return dict(launches=n["launches"], mesh=n["mesh"], nee=n["nee"],
                 seed=mseed, tabs=mtabs, kw=mkw, full=full, p_ms=tp_ms,
                 p64_ms=p64_ms, counts=counts, bit_eq=bit_eq, err=err,
-                checked=checked, metrics=tm, img=timg, leaf_diff=leaf_diff)
+                checked=checked, metrics=tm, img=timg, leaf_diff=leaf_diff,
+                finish=fin)
 
 
 def tex_main_path(tmp, dev, card):
@@ -5741,6 +5798,8 @@ def main(argv=None) -> int:
     # the other meshes at the JAX package's leaf size, with and without NEE
     leaf_diff = {"teapot": tea["leaf_diff"],
                  "teapot --nee": tea_nee["leaf_diff"], **leaf_counts(dev, card)}
+    fins = [ref["finish"], tea["finish"], ref_nee["finish"],
+            tea_nee["finish"]]
     errs.append(ref["err"])
     mesh_errs.append(tea["err"])
     tex_errs.append(tex_main["err"])
@@ -6144,7 +6203,22 @@ def main(argv=None) -> int:
          "ns_per_visit": {v: r["ns_per_visit"] for v, r in leaf_rates.items()},
          "cross_check_msamples": {"k1_mesh": p3_row["k1_msamples"],
                                   "leaf_rate_over_tests":
-                                      p3_row["predicted_msamples"]}}]}))
+                                      p3_row["predicted_msamples"]}},
+        {"name": "finish-frame", "route": "cuda",
+         "source": "pathtracer_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pathtracer_tpu/driver.py:247",
+         "launches": sum(f["launches"] for f in fins),
+         "max_abs_err": max(f["err"] for f in fins),
+         "bit_equal_frac": min(f["bit_eq"] for f in fins),
+         "shape": fins[1]["shape"], "ms": fins[1]["ms"],
+         "plain_ms": fins[1]["host_ms"], "bound_ms": fins[1]["bound_ms"],
+         "bound_by": fins[1]["bound_by"], "library_ms": None,
+         "bound_bytes": "12 a slot in, 4 a base slot, 12 a pixel out",
+         "by_path": {t: {k: f[k] for k in ("launches", "shape", "ms",
+                                           "host_ms", "bound_ms")}
+                     for t, f in zip(("reference", "teapot",
+                                      "reference --nee", "teapot --nee"),
+                                     fins)}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

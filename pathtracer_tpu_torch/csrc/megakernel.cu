@@ -186,6 +186,21 @@
 // and the node walk alone (PT_ABLATE_LEAF=1). Each gives the per-thread
 // walk's hits. The leaf microbenchmark (leaf_bench, the counterpart of
 // tools/leaf_microbench.py) times the leaf bodies alone.
+//
+// The frame's finish (finish_frame, launched by render/megakernel.py
+// finish_frame from the render driver after a frame's last segment). It
+// replaces no TPU kernel: the JAX package, like the host path of the
+// port's driver, copies the slot sums to the host and scatters them into
+// pixels there in float64 (untile_image's np.add.at), and on the card the
+// device idled through that. One thread a base slot (replica 0 of its
+// pixel; a valid pixel has exactly one): it adds the pixel's spp_pack
+// replicas, which the layout puts at a fixed stride after it, in float64
+// from 0.0 in slot order (np.add.at's order), divides by the frame's
+// samples in float64 and rounds to f32, each operation rounded
+// explicitly, and writes the pixel's three channels. Every pixel is
+// written by one thread, so there are no atomics and the image is the host
+// path's bit for bit. Bytes bound it: 12 bytes a slot in, 4 a base slot
+// (the map) and 12 a pixel out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -2517,6 +2532,29 @@ __global__ void __launch_bounds__(kThreads)
   light_sincos(x[i], s[i], c[i]);
 }
 
+// The frame's finish: acc [3, n_slots] f32 slot sums (planar, as the
+// megakernel writes them), base_pid [n_base] the pixel of each base slot
+// (-1 for padding), img [n_pixels, 3] f32. Base slot i is slot
+// (i / g) * g * pack + i % g, and its replica r lies r * g slots after it.
+__global__ void __launch_bounds__(kThreads)
+    finish_frame(const float* __restrict__ acc,
+                 const int* __restrict__ base_pid, float* __restrict__ img,
+                 int n_base, int n_slots, int g, int pack,
+                 double total_spp) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_base) return;
+  const int p = base_pid[i];
+  if (p < 0) return;
+  const size_t slot = (size_t)(i / g) * g * pack + i % g;
+  for (int c = 0; c < 3; ++c) {
+    const float* a = acc + (size_t)c * n_slots + slot;
+    double s = 0.0;
+    for (int r = 0; r < pack; ++r)
+      s = __dadd_rn(s, (double)a[(size_t)r * g]);
+    img[(size_t)p * 3 + c] = __double2float_rn(__ddiv_rn(s, total_spp));
+  }
+}
+
 }  // namespace
 
 // Launch the megakernel over n_slots = T*S*L slots on `stream`. obj_types,
@@ -2780,6 +2818,26 @@ extern "C" int pt_sincos_launch(const float* x, float* s, float* c, int n,
   const int blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 0)
     sincos_check<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(x, s, c, n);
+  return (int)cudaGetLastError();
+}
+
+// Launch finish_frame over the n_slots / pack base slots of a layout whose
+// sample replicas lie g slots apart (render/megakernel.py replica_stride
+// works g out of the tile and the packing); acc [3, n_slots], base_pid
+// [n_slots / pack] and img [n_pixels, 3] on the device. Returns as
+// pt_megakernel_launch does.
+extern "C" int pt_finish_frame_launch(const float* acc, const int* base_pid,
+                                      float* img, int n_slots, int g,
+                                      int pack, double total_spp,
+                                      void* stream) {
+  if (n_slots < 0 || g < 1 || pack < 1 || !(total_spp > 0.0) ||
+      n_slots % ((long long)g * pack))
+    return (int)cudaErrorInvalidValue;
+  const int n_base = n_slots / pack;
+  const int blocks = (n_base + kThreads - 1) / kThreads;
+  if (blocks > 0)
+    finish_frame<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        acc, base_pid, img, n_base, n_slots, g, pack, total_spp);
   return (int)cudaGetLastError();
 }
 

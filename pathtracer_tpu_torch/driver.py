@@ -23,15 +23,30 @@ whether any failed, so that all rewind together, and whether any is due a
 time-based flush (a collective every rank must join). Rank 0 alone reads
 the checkpoint to resume from (every rank takes what it read), writes the
 checkpoint (the others wait at a barrier) and writes the profile.
-Partial sums stay on the device between flushes and are accumulated on
-the host in float64. `profile_dir` wraps the frame, from its layout to
-its untile, in torch.profiler (CPU and CUDA activities) and writes a
-Chrome trace there, in which the frame's parts are spans (spans.py):
-"pt.layout" the segments' set-up, "pt.segment" each launch's enqueue and
-"pt.stack" the stack of its sums inside it, "pt.accumulate" their add to
-the device partial, "pt.wait" the host blocked on a segment's event,
-"pt.fetch" the partial's copy and add on the host, "pt.untile" the slots
-back to pixels.
+Partial sums stay on the device between flushes. A frame ends in one of
+two finishes (RenderStats.finish):
+
+- "device": the megakernel on a CUDA device, with no checkpoint path and
+  no PT_FLUSH_S flush during the frame, so that the frame's sums never
+  left the card: after the last segment one kernel
+  (megakernel.finish_frame) adds each pixel's sample replicas in float64,
+  divides and casts to f32, and the host copies the image alone;
+- "host": every other render (a checkpoint, a resume, a flush, a CPU
+  device, the wavefront, a mesh): the partials are accumulated on the
+  host in float64 at each flush, and the slots go back to pixels there
+  (untile_image).
+
+Both give the same image bit for bit. `profile_dir` wraps the frame, from
+its layout to its untile, in torch.profiler (CPU and CUDA activities) and
+writes a Chrome trace there, in which the frame's parts are spans
+(spans.py): "pt.layout" the segments' set-up, "pt.segment" each launch's
+enqueue and "pt.stack" inside it the hand-over of its sums (the
+megakernel's [3, slots] buffer as it is), "pt.accumulate" their add to
+the device partial, "pt.wait" the host blocked on a segment's event. On
+the host finish "pt.fetch" is the partial's copy and add on the host at
+each flush and "pt.untile" the slots back to pixels and the divide; on
+the device finish "pt.untile" is the finish kernel and its sync and
+"pt.fetch" the image's copy to the host.
 
 A real CUDA error is not retried: it poisons the CUDA context, so no
 in-process retry can recover from it. PT_FAULT_INJECT=<chunk> raises a
@@ -64,12 +79,15 @@ class DeviceFailure(RuntimeError):
 
 @dataclasses.dataclass
 class RenderStats:
-    """Throughput metrics of one render."""
+    """Throughput metrics of one render. `wall_s` runs from the first
+    segment to the frame's image on the host, on either finish; `finish`
+    is "device" or "host" (the module's docstring)."""
     wall_s: float = 0.0
     samples: int = 0
     backend: str = ""
     segments: int = 0
     recoveries: int = 0
+    finish: str = ""
 
     @property
     def msamples_per_sec(self) -> float:
@@ -83,6 +101,7 @@ class RenderStats:
             "backend": self.backend,
             "segments": self.segments,
             "recoveries": self.recoveries,
+            "finish": self.finish,
             **extra,
         })
 
@@ -183,6 +202,7 @@ def _render_frame(scn: SceneArrays, meta: SceneMeta, camera: Camera,
     cfg = cfg.replace(samples_per_pass=spp_chunk)
     n_chunks = max(1, (cfg.samples + spp_chunk - 1) // spp_chunk)
     spp_axis = 1
+    finish = None            # the device finish, where the frame can take it
 
     def fetch(acc):
         return acc.cpu().numpy()
@@ -205,12 +225,17 @@ def _render_frame(scn: SceneArrays, meta: SceneMeta, camera: Camera,
             layout_tag, n_slots = segs.layout_tag, segs.n_slots
         elif use_megakernel(meta, cfg):
             backend_name = "megakernel"
-            segment, layout_tag, pid = _megakernel_segments(scn, meta, camera,
-                                                            cfg)
-            n_slots = pid.shape[0]
+            segment, run = _megakernel_segments(scn, meta, camera, cfg)
+            layout_tag, n_slots = run.layout_tag, run.pid.shape[0]
+
+            def fetch(acc):  # [slots, 3], interleaved on the device
+                return acc.T.contiguous().cpu().numpy()
 
             def finalize(acc):
-                return mk.untile_image(acc, pid, W, H)
+                return mk.untile_image(acc, run.pid, W, H)
+            if dev.type == "cuda" and not checkpoint_path:
+                def finish(acc, total_spp):
+                    return mk.finish_frame(acc, run, total_spp)
         else:
             backend_name = "wavefront"
             segment = _wavefront_segments(scn, meta, camera, cfg)
@@ -277,19 +302,24 @@ def _render_frame(scn: SceneArrays, meta: SceneMeta, camera: Camera,
     host_base = start_chunk  # chunks reflected in the host accum
     dev_acc = None           # device-resident partial sum since last flush
     prev_done = None         # CUDA event: the previous segment finished
+    on_host = loaded is not None  # the host accum holds a partial
     failures = 0
     t_flush = time.perf_counter()
 
+    def wait_last():
+        if prev_done is not None:
+            # blocked on the last segment here, not in what follows
+            with span("pt.wait"):
+                prev_done.synchronize()
+
     def flush(save_ck: bool):
-        nonlocal accum, dev_acc, host_base, t_flush
+        nonlocal accum, dev_acc, host_base, t_flush, on_host
         if dev_acc is not None:
-            if prev_done is not None:
-                # blocked on the last segment here, not in the copy below
-                with span("pt.wait"):
-                    prev_done.synchronize()
+            wait_last()
             with span("pt.fetch"):
                 accum += fetch(dev_acc).astype(np.float64)
             dev_acc = None
+            on_host = True
         host_base = c
         t_flush = time.perf_counter()
         if save_ck and checkpoint_path:
@@ -354,35 +384,49 @@ def _render_frame(scn: SceneArrays, meta: SceneMeta, camera: Camera,
             flush(save_ck=True)
         elif late:
             flush(save_ck=False)
+    total_spp = n_chunks * spp_chunk
+    if finish is not None and dev_acc is not None and not on_host:
+        # the frame's sums never left the card: finish the frame there
+        wait_last()
+        with span("pt.untile"):
+            img = finish(dev_acc, total_spp)
+            torch.cuda.current_stream(dev).synchronize()
+        with span("pt.fetch"):
+            img = img.cpu().numpy().reshape(H, W, 3)
+        stats.wall_s = time.perf_counter() - t_total
+        stats.finish = "device"
+        return img, stats
     flush(save_ck=checkpoint_path is not None)
 
-    stats.wall_s = time.perf_counter() - t_total
-    total_spp = n_chunks * spp_chunk
     with span("pt.untile"):
         accum = finalize(accum)
         img = (accum / float(total_spp)).astype(np.float32).reshape(H, W, 3)
+    stats.wall_s = time.perf_counter() - t_total
+    stats.finish = "host"
     return img, stats
 
 
 def _megakernel_segments(scn: SceneArrays, meta: SceneMeta, camera: Camera,
                          cfg: RenderConfig):
-    """(segment(c0, n) -> [slots, 3] radiance sums on the device, the
-    checkpoint layout tag, the slot -> pixel map) of the megakernel."""
+    """(segment(c0, n) -> [3, slots] radiance sums on the device, the
+    image's launch inputs, mk.ImageLaunch) of the megakernel."""
     spp_chunk = cfg.samples_per_pass
     run = mk.image_launch(scn, meta, camera, spp_chunk, scn.color.device)
+    L = run.kwargs["tile"][1]
 
     def segment(c0: int, n: int) -> torch.Tensor:
         # independent random stream per segment, derived from (seed, c0);
         # the second slot is the global sample base, so segmented DoF
         # covers the whole sunflower spiral
         seed = (cfg.seed * 7919 + int(c0) + 1, int(c0) * spp_chunk)
-        r, g, b = mk.trace_tiles(
+        out = torch.empty((3, run.pid.shape[0]), dtype=torch.float32,
+                          device=scn.color.device)
+        mk.trace_tiles(
             seed, *run.tables, meta=meta, cfg=cfg, spp=int(n) * spp_chunk,
-            total_samples=cfg.samples, **run.kwargs)
-        with span("pt.stack"):
-            return torch.stack([r.reshape(-1), g.reshape(-1),
-                                b.reshape(-1)], dim=-1)
-    return segment, run.layout_tag, run.pid
+            total_samples=cfg.samples, out=out.view(3, -1, L), **run.kwargs)
+        with span("pt.stack"):  # the launch's planes, as they are
+            return out
+    return segment, run
 
 
 def _wavefront_segments(scn: SceneArrays, meta: SceneMeta, camera: Camera,

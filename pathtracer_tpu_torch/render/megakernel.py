@@ -46,6 +46,11 @@ Both draw from the murmur3 counter hash that the JAX kernel uses in
 interpret mode (`pallas_kernel._prng_seed/_uniform`), keyed on (seed,
 tile, draw id, sample, bounce, slot), so with the same seed vector, tile
 and layout all three trace the same paths.
+
+`finish_frame` turns a frame's slot sums into its image on the card: the
+float64 sum of each pixel's sample replicas, the divide and the f32 cast,
+bit for bit what `untile_image` and the host's divide give (which it runs
+itself off the card).
 """
 from __future__ import annotations
 
@@ -676,6 +681,28 @@ def untile_image(flat: np.ndarray, pid: np.ndarray, W: int, H: int
     valid = pid >= 0
     np.add.at(out, pid[valid], flat[valid])
     return out
+
+
+def replica_stride(S: int, L: int, spp_pack: int, pack_axis: str) -> int:
+    """The slots between a sample replica and the next in a layout of
+    tile_pixel_layout: L / spp_pack on the lane chunks, (S / spp_pack) * L
+    on the tile rows (L without packing). Base slot i (replica 0) is slot
+    (i // g) * g * spp_pack + i % g for this stride g."""
+    if spp_pack == 1:
+        return L
+    if pack_axis == "chunk":
+        return L // spp_pack
+    return (S // spp_pack) * L
+
+
+def base_slot_pixels(pid: np.ndarray, S: int, L: int, spp_pack: int,
+                     pack_axis: str) -> np.ndarray:
+    """The pixel of each base slot of a layout of tile_pixel_layout (pid
+    [rows*L], -1 padding), in base-slot order: int32 [rows*L / spp_pack].
+    Each valid pixel has exactly one base slot."""
+    g = replica_stride(S, L, spp_pack, pack_axis)
+    return np.ascontiguousarray(
+        pid.reshape(-1, spp_pack, g)[:, 0], dtype=np.int32).reshape(-1)
 
 
 def build_camera_vec(cam) -> np.ndarray:
@@ -2227,6 +2254,11 @@ SIGNATURES = {
     # filter_check: the type code, the rays [6, n], thresholds, n, eps, the
     # cylinder's y range, the two uint64 counts and the stream
     "pt_filter_check_launch": ([_I, _P, _P, _I, _F, _F, _F, _P, _P], _I),
+    # the frame's finish, launched by finish_frame: the slot sums [3, n],
+    # the base slots' pixels, the image, n, the replica stride, the
+    # packing, the frame's samples and the stream
+    "pt_finish_frame_launch": (
+        [_P, _P, _P, _I, _I, _I, ctypes.c_double, _P], _I),
     # the gradient kernel's entries, launched by render/grad.py: object and
     # triangle mode, and texel mode (the texels [T, 4], T, the texture
     # table, gtex [T, 4] and the trainable objects' bit mask; gtri and
@@ -2267,9 +2299,11 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
                 spp: int = 1, total_samples: int = 1,
                 tile: Tuple[int, int] = (64, 256), spp_pack: int = 1,
                 pack_axis: str = "row", tex_pool=None, tex_table=None,
-                tex_texels=None):
+                tex_texels=None, out=None):
     """Run the megakernel over all tiles; returns (r, g, b) float32
-    radiance sums [T*S, L] on px's device.
+    radiance sums [T*S, L] on px's device, the planes of one [3, T*S, L]
+    buffer: `out` when given (contiguous float32 on px's device), else a
+    new one.
 
     seed = (prng seed, global sample base). spp_pack/pack_axis must match
     the layout (tile_pixel_layout); each slot then sums spp/spp_pack
@@ -2289,12 +2323,23 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
     keeps every texel index below T
     (the plain version raises IndexError instead), so a table that reaches
     past the texels cannot touch other memory."""
+    S, L = tile
+    rows = px.shape[0]
+    if out is not None and (
+            out.dtype != torch.float32 or tuple(out.shape) != (3, rows, L)
+            or not out.is_contiguous() or out.device != px.device):
+        raise ValueError(f"out must be a contiguous float32 [3, {rows}, "
+                         f"{L}] tensor on {px.device}")
     if px.device.type != "cuda":
-        return trace_tiles_reference(
+        rgb = trace_tiles_reference(
             seed, cam_vec, obj_table, node_table, tri_table, shade_table, px,
             py, meta=meta, cfg=cfg, spp=spp, total_samples=total_samples,
             tile=tile, spp_pack=spp_pack, pack_axis=pack_axis,
             tex_pool=tex_pool, tex_table=tex_table, tex_texels=tex_texels)
+        if out is None:
+            return rgb
+        out.copy_(torch.stack(rgb))
+        return out[0], out[1], out[2]
     walk = scene_walk(meta)
     seed0, sample_base = _check_args(
         seed, cam_vec, obj_table, node_table, tri_table, shade_table, px, py,
@@ -2306,10 +2351,9 @@ def trace_tiles(seed, cam_vec, obj_table, node_table, tri_table, shade_table,
     _check_aligned(node_table=node_table, tri_table=tri_table,
                    shade_table=shade_table)
     lib = library()
-    S, L = tile
     dev = px.device
-    rows = px.shape[0]
-    out = torch.empty((3, rows, L), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((3, rows, L), dtype=torch.float32, device=dev)
     # host arrays, copied by value into the launch parameters
     types = (_I * n_obj)(*meta.obj_types)
     roots = (_I * n_obj)(*([-1] * n_obj))
@@ -2550,11 +2594,15 @@ class ImageLaunch(NamedTuple):
     triangle and shading tables, slot pixels x and y) go first, `kwargs`
     (tile, spp_pack, pack_axis and the texture inputs) by name; `pid` maps
     the slots back to pixels (untile_image) and `layout_tag` names the
-    layout for a checkpoint."""
+    layout for a checkpoint; `base_pid` (int32 on the launch's device,
+    base_slot_pixels) maps each base slot to its pixel for finish_frame,
+    and `n_pixels` is the image's W * H."""
     tables: tuple
     kwargs: dict
     pid: np.ndarray
     layout_tag: str
+    base_pid: torch.Tensor
+    n_pixels: int
 
 
 def image_launch(scn: SceneArrays, meta: SceneMeta, camera, spp: int,
@@ -2574,8 +2622,58 @@ def image_launch(scn: SceneArrays, meta: SceneMeta, camera, spp: int,
         *build_mesh_tables(scn, meta), xs, ys))
     kwargs = dict(tile=(S, L), spp_pack=pack, pack_axis=axis,
                   **texture_inputs(scn, meta, device))
+    base_pid = torch.from_numpy(
+        base_slot_pixels(pid, S, L, pack, axis)).to(device)
     return ImageLaunch(tables, kwargs, pid,
-                       "tile%dx%d:%s:pack%d%s" % (S, L, order, pack, axis))
+                       "tile%dx%d:%s:pack%d%s" % (S, L, order, pack, axis),
+                       base_pid, W * H)
+
+
+def _check_finish(acc, launch: ImageLaunch, total_spp: int) -> None:
+    n_slots = launch.pid.shape[0]
+    if (acc.dtype != torch.float32 or tuple(acc.shape) != (3, n_slots)
+            or not acc.is_contiguous()
+            or acc.device != launch.base_pid.device):
+        raise ValueError(f"acc must be a contiguous float32 [3, {n_slots}] "
+                         f"tensor on {launch.base_pid.device}")
+    if total_spp < 1:
+        raise ValueError(f"total_spp {total_spp} must be positive")
+
+
+def finish_frame(acc, launch: ImageLaunch, total_spp: int):
+    """A frame's image from its slot sums: acc [3, slots] f32 (the
+    planar sums of launch's layout, summed over the frame's segments)
+    -> [n_pixels, 3] f32, each pixel's replicas added in float64 from 0.0
+    in slot order, divided by total_spp in float64 and rounded to f32:
+    (untile_image(acc.T in float64, pid) / total_spp) cast to f32, bit for
+    bit. The tile, packing and axis are launch's. CUDA tensors launch
+    csrc/megakernel.cu's finish_frame on the current stream (one thread a
+    base slot, so no atomics) and count the launch in
+    finish_frame.launches; CPU tensors take the host's finish itself."""
+    _check_finish(acc, launch, total_spp)
+    if acc.device.type != "cuda":
+        # untile_image scatters into W * H pixels: the image as one row
+        flat = acc.T.to(torch.float64).numpy()
+        img = untile_image(flat, launch.pid, launch.n_pixels, 1)
+        return torch.from_numpy((img / float(total_spp)).astype(np.float32))
+    S, L = launch.kwargs["tile"]
+    pack = launch.kwargs["spp_pack"]
+    img = torch.empty((launch.n_pixels, 3), dtype=torch.float32,
+                      device=acc.device)
+    with torch.cuda.device(acc.device):
+        err = library().pt_finish_frame_launch(
+            acc.data_ptr(), launch.base_pid.data_ptr(), img.data_ptr(),
+            acc.shape[1], replica_stride(S, L, pack,
+                                         launch.kwargs["pack_axis"]),
+            pack, float(total_spp),
+            torch.cuda.current_stream(acc.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"frame finish launch failed: CUDA error {err}")
+    finish_frame.launches += 1
+    return img
+
+
+finish_frame.launches = 0
 
 
 def render_megakernel(scn: SceneArrays, meta: SceneMeta, camera,

@@ -11,11 +11,13 @@ The spans, by layer:
 
 - render driver (driver.py), each frame: "pt.layout" (the segments'
   set-up: the slot layout, the tables and their copies to the device),
-  "pt.segment" (a launch's enqueue) with "pt.stack" inside it (the stack
-  of its sums), "pt.accumulate" (the add onto the device partial),
-  "pt.wait" (the host blocked on a segment's event), "pt.fetch" (the
-  partial's copy to the host and its float64 add), "pt.untile" (the
-  slots back to pixels and the scale to the image);
+  "pt.segment" (a launch's enqueue) with "pt.stack" inside it (the
+  hand-over of its sums), "pt.accumulate" (the add onto the device
+  partial), "pt.wait" (the host blocked on a segment's event); on the host
+  finish "pt.fetch" (the partial's copy to the host and its float64 add)
+  and "pt.untile" (the slots back to pixels and the scale to the image),
+  on the device finish "pt.untile" (the finish kernel and its sync) and
+  "pt.fetch" (the image's copy to the host);
 - wavefront autograd (diff/grad.py, render/integrator.py): "pt.ad.forward"
   (image_loss) and "pt.ad.backward" (torch.autograd.grad); "pt.bounce" a
   bounce, in it "pt.bounce.intersect" (the nearest hit and the smooth

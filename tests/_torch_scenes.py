@@ -389,6 +389,63 @@ def port_inputs(sc, cfg, tile, device, packed=None):
                              **mk.texture_inputs(arrays, meta, device)}
 
 
+# the layouts the frame's finish is held to: (W, H, tile, order, pack,
+# axis), tile_pixel_layout's orders on both pack axes, with and without
+# padding slots (100 x 75)
+FINISH_LAYOUTS = (
+    (160, 120, (64, 256), "linear", 1, "row"),   # reference's layout
+    (160, 120, (8, 512), "block", 4, "chunk"),   # the mesh scenes'
+    (160, 120, (64, 256), "linear", 2, "row"),
+    (160, 120, (64, 256), "block", 4, "row"),
+    (160, 120, (8, 512), "subblock", 4, "chunk"),
+    (160, 120, (8, 512), "rowblock", 2, "row"),
+    (100, 75, (64, 256), "linear", 1, "row"),
+    (100, 75, (8, 512), "block", 4, "chunk"),
+    (100, 75, (8, 512), "rowblock", 4, "row"),
+)
+
+
+def finish_launch(W, H, tile, order, pack, axis, device="cpu"):
+    """An ImageLaunch of the layout alone (no tables): what
+    megakernel.finish_frame reads of it."""
+    _, _, pid = mk.tile_pixel_layout(W, H, *tile, order=order,
+                                     spp_pack=pack, pack_axis=axis)
+    base = torch.from_numpy(mk.base_slot_pixels(pid, *tile, pack, axis))
+    return mk.ImageLaunch((), dict(tile=tuple(tile), spp_pack=pack,
+                                   pack_axis=axis), pid, "", base.to(device),
+                          W * H)
+
+
+def finish_partial(run, seed: int) -> np.ndarray:
+    """f32 slot sums [3, slots] of run's layout whose magnitudes span 2^-20
+    to 2^46, of either sign; with 3 replicas or more, every 7th base slot's
+    first three are (B, -B, s) with B / s above 2^60, so that the f32 image
+    depends on the order of the float64 adds ((B - B) + s = s, but
+    (s - B) + B = 0)."""
+    rng = np.random.default_rng(seed)
+    n_slots = run.pid.shape[0]
+    v = rng.uniform(1.0, 2.0, (3, n_slots)) * np.exp2(
+        rng.integers(-20, 46, (3, n_slots)))
+    v = (v * rng.choice([-1.0, 1.0], (3, n_slots))).astype(np.float32)
+    pack = run.kwargs["spp_pack"]
+    if pack >= 3:
+        g = mk.replica_stride(*run.kwargs["tile"], pack,
+                              run.kwargs["pack_axis"])
+        reps = v.reshape(3, -1, pack, g)
+        big = np.exp2(44) * rng.uniform(1.0, 2.0, reps[:, ::7, 0].shape)
+        reps[:, ::7, 0] = big
+        reps[:, ::7, 1] = -big
+        reps[:, ::7, 2] = np.exp2(-20)
+    return v
+
+
+def host_finish(acc: np.ndarray, pid, W: int, H: int, total_spp: int):
+    """The render driver's host finish of a [3, slots] partial: untile_image
+    in float64, the divide, the f32 cast. [W*H, 3]."""
+    return (mk.untile_image(acc.T.astype(np.float64), pid, W, H)
+            / float(total_spp)).astype(np.float32)
+
+
 def grad_inputs(sc, cfg, tile, device):
     """The gradient kernel's inputs for scene `sc` on `device`, laid out as
     the training steps lay them out: the scene's default tile order, no

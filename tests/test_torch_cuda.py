@@ -52,11 +52,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_scenes import (MESH_SCENES, SLICE_SCENES, TEX_SCENES,
-                           ablated_grad_rule, assert_slot_rule, at_backward,
-                           cylinder_scene, filter_cases, free_bytes,
-                           free_for, grad_inputs,
-                           grad_rule, one_warp_live,
+from _torch_scenes import (FINISH_LAYOUTS, MESH_SCENES, SLICE_SCENES,
+                           TEX_SCENES, ablated_grad_rule, assert_slot_rule,
+                           at_backward, cylinder_scene, filter_cases,
+                           finish_launch, finish_partial, free_bytes,
+                           free_for, grad_inputs, grad_rule, host_finish,
+                           one_warp_live,
                            port_inputs, sincos_mismatches, size_check_scene,
                            tex_grad_rule, textured_teapot, tie_scene)
 from pathtracer_tpu_torch import cli
@@ -1145,3 +1146,60 @@ def test_sharded_megakernel_step_on_the_card(dev):
     grad_rule(out["cuda"][:2], out["cpu"][:2], mesh=False)
     assert abs(float(out["cuda"][2]) - float(out["cpu"][2])) <= \
         1e-5 * float(out["cpu"][2])
+
+
+@pytest.mark.parametrize("W,H,tile,order,pack,axis", (
+    (1280, 960, (64, 256), "linear", 1, "row"),   # reference-render's
+    (1280, 960, (8, 512), "block", 4, "chunk"),   # gopher16k-render's
+    *FINISH_LAYOUTS))
+def test_finish_kernel_bit_equal_untile(dev, W, H, tile, order, pack, axis):
+    # the frame's finish: the kernel is the host's float64 untile, divide
+    # and f32 cast bit for bit, on partials whose image the order of the
+    # float64 adds changes (_torch_scenes.finish_partial)
+    run = finish_launch(W, H, tile, order, pack, axis, dev)
+    acc = finish_partial(run, seed=W * pack + 11)
+    before = mk.finish_frame.launches
+    got = mk.finish_frame(torch.from_numpy(acc).to(dev), run, 2048)
+    assert mk.finish_frame.launches == before + 1
+    assert np.array_equal(got.cpu().numpy(),
+                          host_finish(acc, run.pid, W, H, 2048))
+
+
+@pytest.mark.parametrize("name,samples", [("reference", 8), ("teapot", 16)])
+def test_driver_finishes_the_frame_on_the_card(dev, monkeypatch, tmp_path,
+                                               name, samples):
+    # render_driver's device finish against its host finish (forced by a
+    # checkpoint path) on the same segments: the same image bit for bit,
+    # one finish launch a frame, and the device finish's spans end the
+    # frame as pt.wait, pt.untile, pt.fetch, one wait a segment
+    import contextlib
+
+    from pathtracer_tpu_torch import driver
+
+    names = []
+
+    @contextlib.contextmanager
+    def record(span_name):
+        names.append(span_name)
+        yield
+
+    monkeypatch.setattr(driver, "span", record)
+    cfg = RenderConfig(width=160, height=120, samples=samples,
+                       samples_per_pass=samples // 2)
+    sc = get_scene(name, cfg)
+    arrays, meta = sc.pack(device=dev)
+    before = mk.finish_frame.launches
+    img, stats = driver.render_driver(arrays, meta, sc.camera, cfg)
+    assert stats.finish == "device"
+    assert mk.finish_frame.launches == before + 1
+    assert names[-3:] == ["pt.wait", "pt.untile", "pt.fetch"]
+    assert names.count("pt.untile") == names.count("pt.fetch") == 1
+    assert names.count("pt.wait") == stats.segments
+    assert stats.segments == (1 if name == "reference" else 2)
+    host, stats = driver.render_driver(
+        arrays, meta, sc.camera, cfg,
+        checkpoint_path=str(tmp_path / "ck.npz"))
+    assert stats.finish == "host"
+    assert mk.finish_frame.launches == before + 1
+    assert img.dtype == np.float32 and img.shape == (120, 160, 3)
+    assert np.array_equal(img, host)

@@ -100,6 +100,10 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 inline float __int_as_float(int i) { return from_bits<float>((uint32_t)i); }
 inline int __float_as_int(float f) { return (int)(uint32_t)to_bits(f); }
+// the explicitly rounded double ops (round to nearest, as IEEE's own)
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline float __double2float_rn(double a) { return (float)a; }
 inline float __uint_as_float(unsigned i) { return from_bits<float>(i); }
 inline unsigned __float_as_uint(float f) { return (uint32_t)to_bits(f); }
 inline unsigned __byte_perm(unsigned x, unsigned y, unsigned sel) {

@@ -11,8 +11,11 @@ intersect-only kernel through intersect_batch on camera rays and one
 bounce from their hits against intersect_batch_reference (all 16
 outputs); `pairs` holds Kernel B's
 leaf (leaf_bench `pairs` and `mma`) to its plain version on teapot's
-leaves of 4, 8, 16 and 32; `grad` runs the gradient kernel in triangle
-mode through grad_tiles against grad_tiles_reference (by the gradient
+leaves of 4, 8, 16 and 32; `finish` runs the frame's finish
+(finish_frame) on a partial of each of _torch_scenes.FINISH_LAYOUTS
+against untile_image's float64 finish; `grad` runs the gradient
+kernel in triangle mode through grad_tiles against grad_tiles_reference
+(by the gradient
 rule, or without leaf tests by ablated_grad_rule: its atomic adds land
 in thread order), `gradtex` in texel mode and
 `texels` the f32-texel forward (bit for bit), both on the textured teapot
@@ -44,9 +47,11 @@ from pathtracer_tpu_torch.render import megakernel as mk  # noqa: E402
 from pathtracer_tpu_torch.render import proctex  # noqa: E402
 from pathtracer_tpu_torch.scene.pack import texel_params  # noqa: E402
 from pathtracer_tpu_torch.scenes import get_scene  # noqa: E402
-from _torch_scenes import (ablated_grad_rule, bounce_rays,  # noqa: E402
-                           camera_rays, grad_inputs, grad_rule, port_inputs,
-                           size_check_scene, tex_grad_rule, textured_teapot)
+from _torch_scenes import (FINISH_LAYOUTS, ablated_grad_rule,  # noqa: E402
+                           bounce_rays, camera_rays, finish_launch,
+                           finish_partial, grad_inputs, grad_rule,
+                           host_finish, port_inputs, size_check_scene,
+                           tex_grad_rule, textured_teapot)
 
 _f = {n: getattr(torch, n) for n in ("sin", "cos", "sqrt")}
 
@@ -90,6 +95,7 @@ def _on_cpu(fn, var):
 trace = _on_cpu(mk.trace_tiles, "px")
 grad = _on_cpu(tg.grad_tiles, "px")
 isect = _on_cpu(mk.intersect_batch, "dev")
+finish = _on_cpu(mk.finish_frame, "acc")
 ENV = {"mode2": {"PT_SUBPACKET": "2"}, "mode3": {"PT_SUBPACKET": "3"},
        "mxu": {"PT_TRAVERSAL": "mxu"}, "thread": {}}
 W, H = int(os.environ.get("W", 32)), int(os.environ.get("H", 16))
@@ -113,6 +119,18 @@ for case in cases:
                   and torch.equal(kt, pt) and torch.equal(ks.long(),
                                                           ps.long()))
             print(f"pairs and mma, leaf {K}: bit-equal {ok}", flush=True)
+            fails += not ok
+        continue
+    if case == "finish":
+        # the frame's finish against the host's float64 untile, divide
+        # and cast, on partials whose image the order of the adds changes
+        for W_, H_, tile, order, pack, axis in FINISH_LAYOUTS:
+            run = finish_launch(W_, H_, tile, order, pack, axis)
+            acc = finish_partial(run, seed=W_ * pack)
+            ok = bool((finish(torch.from_numpy(acc), run, 2048).numpy()
+                       == host_finish(acc, run.pid, W_, H_, 2048)).all())
+            print(f"finish {W_}x{H_} {order} pack {pack} {axis}: bit-equal "
+                  f"{ok}", flush=True)
             fails += not ok
         continue
     if case == "isect":
