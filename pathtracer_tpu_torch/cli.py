@@ -175,12 +175,12 @@ def _run(args, log, shape, rank_device) -> int:
     import torch
     import torch.distributed as dist
 
-    from .parallel.mesh import make_mesh
+    from .parallel.multihost import global_render_mesh
 
     mesh = None
     if args.mesh or args.distributed:
         try:
-            mesh = make_mesh(shape)
+            mesh = global_render_mesh(shape)
         except ValueError as e:
             print(f"error: --mesh: {e}", file=sys.stderr)
             return 2

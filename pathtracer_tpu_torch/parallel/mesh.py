@@ -15,16 +15,27 @@ standing in for every rank, applies it at each coordinate and joins in
 rank order. For two ranks on an axis the sums are the same floats either
 way (a + b == b + a), so a one-process run reproduces a run of many ranks
 bit for bit.
+
+Each collective of a RenderMesh runs inside a span (spans.py):
+"pt.collective.all_reduce" and "pt.collective.all_gather" around a join
+of tensors with the syncs before and after it, "pt.collective.host"
+around a vote, a broadcast of a host value or a barrier; and it adds to
+the counters COLLECTIVE_S, COLLECTIVE_CALLS and COLLECTIVE_BYTES of its
+kind.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
+import pickle
 import time
 from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from ..spans import span
 
 # seconds this process spent in collectives, by kind: the joins of
 # tensors (the device synchronised before each, so the time is the
@@ -32,11 +43,28 @@ import torch.distributed as dist
 # votes and broadcasts of host values (no sync; their wait for the slowest
 # rank included)
 COLLECTIVE_S = {"all_reduce": 0.0, "all_gather": 0.0, "host": 0.0}
+# calls of torch.distributed's collectives this process made, by kind, and
+# the bytes it handed them: this rank's tensors (a gather's input, not its
+# output), a vote's flags, a broadcast value's pickle; none for a barrier
+COLLECTIVE_CALLS = dict.fromkeys(COLLECTIVE_S, 0)
+COLLECTIVE_BYTES = dict.fromkeys(COLLECTIVE_S, 0)
 
 
 def reset_collective_time() -> None:
+    """Zero COLLECTIVE_S, COLLECTIVE_CALLS and COLLECTIVE_BYTES."""
     for k in COLLECTIVE_S:
         COLLECTIVE_S[k] = 0.0
+        COLLECTIVE_CALLS[k] = 0
+        COLLECTIVE_BYTES[k] = 0
+
+
+def _count(kind: str, nbytes: int) -> None:
+    COLLECTIVE_CALLS[kind] += 1
+    COLLECTIVE_BYTES[kind] += int(nbytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def mesh_shape_for(n_devices: int, spp_parallel: bool = True
@@ -65,17 +93,21 @@ def parse_mesh(text: str) -> Tuple[int, int]:
 
 
 @contextlib.contextmanager
-def _timed(kind: str, tensors: Sequence[torch.Tensor]):
-    """Add the block's seconds to COLLECTIVE_S[kind], the card synchronised
-    before and after it."""
+def _timed(kind: str, tensors: Sequence[torch.Tensor] = ()):
+    """Add the block's seconds to COLLECTIVE_S[kind], all of it in the
+    span "pt.collective.<kind>"; the card synchronised before and after it
+    where `tensors` lie on one."""
+    cards = [t.device for t in tensors[:1] if t.device.type == "cuda"]
+
     def sync():
-        if tensors[0].device.type == "cuda":
-            torch.cuda.synchronize(tensors[0].device)
-    sync()
-    t0 = time.perf_counter()
-    yield
-    sync()
-    COLLECTIVE_S[kind] += time.perf_counter() - t0
+        for d in cards:
+            torch.cuda.synchronize(d)
+    with span("pt.collective." + kind):
+        sync()
+        t0 = time.perf_counter()
+        yield
+        sync()
+        COLLECTIVE_S[kind] += time.perf_counter() - t0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,11 +165,13 @@ class RenderMesh:
             with _timed("all_reduce", [t]):
                 dist.all_reduce(t, op=dist.ReduceOp.SUM,
                                 group=self.spp_group)
+            _count("all_reduce", _nbytes(t))
         if self.pixels_group is None:
             return t
         parts = [torch.empty_like(t) for _ in range(self.shape["pixels"])]
         with _timed("all_gather", [t]):
             dist.all_gather(parts, t, group=self.pixels_group)
+        _count("all_gather", _nbytes(t))
         return torch.cat(parts)
 
     def sum_all(self, shard: Callable[[int, int], Sequence[torch.Tensor]]
@@ -151,6 +185,8 @@ class RenderMesh:
                 with _timed("all_reduce", ts):
                     for t in ts:
                         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
+                for t in ts:
+                    _count("all_reduce", _nbytes(t))
         return ts
 
     def any(self, *flags: bool) -> Tuple[bool, ...]:
@@ -159,9 +195,9 @@ class RenderMesh:
         if self.size == 1:
             return tuple(bool(f) for f in flags)
         t = torch.tensor([int(bool(f)) for f in flags])
-        t0 = time.perf_counter()
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.host_group)
-        COLLECTIVE_S["host"] += time.perf_counter() - t0
+        with _timed("host"):
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.host_group)
+        _count("host", _nbytes(t))
         return tuple(bool(v) for v in t.tolist())
 
     def share(self, obj):
@@ -169,15 +205,17 @@ class RenderMesh:
         if self.size == 1:
             return obj
         box = [obj]
-        t0 = time.perf_counter()
-        dist.broadcast_object_list(box, src=0, group=self.host_group)
-        COLLECTIVE_S["host"] += time.perf_counter() - t0
+        with _timed("host"):
+            dist.broadcast_object_list(box, src=0, group=self.host_group)
+        _count("host", len(pickle.dumps(box[0])))
         return box[0]
 
     def barrier(self) -> None:
         """Wait for every rank of the mesh (nothing for a world of one)."""
         if self.size > 1:
-            dist.barrier(group=self.host_group)
+            with _timed("host"):
+                dist.barrier(group=self.host_group)
+            _count("host", 0)
 
 
 class LogicalMesh(RenderMesh):
@@ -224,12 +262,15 @@ class LogicalMesh(RenderMesh):
         pass
 
 
-def make_mesh(shape: Optional[Tuple[int, int]] = None) -> RenderMesh:
+def make_mesh(shape: Optional[Tuple[int, int]] = None,
+              timeout: Optional[datetime.timedelta] = None) -> RenderMesh:
     """This rank's mesh over the default process group (a world of one
     without one). `shape` defaults to mesh_shape_for(world size); raises
     ValueError unless its product is the world size. With more than one
     rank every rank must call it, in the same order: it creates the axes'
-    process groups (torch.distributed.new_group)."""
+    process groups (torch.distributed.new_group), each with `timeout`
+    (None: torch.distributed's default for its backend, 10 minutes for
+    NCCL and 30 for gloo, whatever the default group's own)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     shape = tuple(shape) if shape is not None else mesh_shape_for(world)
@@ -244,14 +285,16 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None) -> RenderMesh:
         # new_group is collective over the world: every rank creates every
         # group, in one order
         for p in range(P):
-            g = dist.new_group([p * S + s for s in range(S)])
+            g = dist.new_group([p * S + s for s in range(S)],
+                               timeout=timeout)
             if p == pix_rank and S > 1:
                 spp_group = g
         for s in range(S):
-            g = dist.new_group([p * S + s for p in range(P)])
+            g = dist.new_group([p * S + s for p in range(P)],
+                               timeout=timeout)
             if s == spp_rank and P > 1:
                 pixels_group = g
         if dist.get_backend() != "gloo":
-            host_group = dist.new_group(backend="gloo")
+            host_group = dist.new_group(backend="gloo", timeout=timeout)
     return RenderMesh({"pixels": P, "spp": S}, pix_rank, spp_rank,
                       spp_group, pixels_group, host_group)

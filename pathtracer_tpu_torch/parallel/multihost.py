@@ -25,6 +25,10 @@ from .mesh import RenderMesh, make_mesh
 
 log = logging.getLogger("pathtracer_tpu_torch")
 
+# the timeout initialize_multihost gave the group, which the mesh's groups
+# take too (global_render_mesh)
+_timeout: Optional[datetime.timedelta] = None
+
 
 def dist_backend(device_type: str) -> str:
     """PT_DIST_BACKEND, else nccl for "cuda" and gloo for "cpu"."""
@@ -84,7 +88,10 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     coordinator_address "host:port" (the JAX package's argument) is the
     TCP rendezvous, tcp://host:port, of num_processes ranks, this one
     process_id; without it the group comes from torchrun's environment
-    (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE; env://)."""
+    (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE; env://). `timeout_s`
+    bounds the rendezvous and every wait of the group and of the mesh's
+    groups (global_render_mesh)."""
+    global _timeout
     if coordinator_address is not None:
         if num_processes is None or process_id is None:
             raise ValueError("a coordinator address needs num_processes "
@@ -105,6 +112,7 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
         torch.cuda.set_device(device)
     dist.init_process_group(backend, store=store, world_size=n, rank=pid,
                             timeout=timeout)
+    _timeout = timeout
     log.info("distributed: rank %d/%d on %s over %s", pid, n, device,
              backend)
     return device
@@ -113,5 +121,5 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
 def global_render_mesh(shape: Optional[Tuple[int, int]] = None
                        ) -> RenderMesh:
     """The mesh over every rank of the group (initialize_multihost first):
-    axes (pixels, spp)."""
-    return make_mesh(shape)
+    axes (pixels, spp), its groups under the group's timeout."""
+    return make_mesh(shape, timeout=_timeout)

@@ -28,7 +28,13 @@ The spans, by layer:
   "pt.ad.backward";
 - gradient megakernel (render/grad.py): "pt.grad.forward" (the forward
   launch) and "pt.grad.backward" (the cotangents, the gradient launch and
-  the scatter into the parameters).
+  the scatter into the parameters);
+- mesh collectives (parallel/mesh.py), on a RenderMesh of several ranks:
+  "pt.collective.all_reduce" (the spp axis's sum) and
+  "pt.collective.all_gather" (the pixels axis's gather), each with the
+  card's syncs before and after it, so the wait for the slowest rank of
+  the group is inside; "pt.collective.host" (a vote, a broadcast of a
+  host value or a barrier over the gloo group).
 """
 from __future__ import annotations
 

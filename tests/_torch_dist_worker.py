@@ -1,7 +1,8 @@
-"""One rank of tests/test_torch_dist_procs.py's two-process group.
+"""One rank of tests/test_torch_dist_procs.py's groups.
 
 Usage: python tests/_torch_dist_worker.py RANK WORLD PORT CLI_PORT FLUSH_PORT
 STOP_PORT RESUME_PORT OUT PxS [DEVICE]
+or:    python tests/_torch_dist_worker.py driver RANK WORLD PORT OUT PxS
 
 Joins a gloo group of WORLD ranks at tcp://127.0.0.1:PORT on DEVICE (cpu,
 the default, or cuda: every rank on the one card, gloo carrying CUDA
@@ -16,9 +17,58 @@ of OUT.stop.ck.npz and rank 0 failing at chunk 2 until it gives up
 resume from. Writes the two frames, the collectives' times and what each
 stopped run raised to OUT (.npz); rank 0's CLI writes OUT.raw,
 OUT.flush.raw, OUT.resume.raw and OUT.resume.json. Imports no JAX.
+
+The "driver" form joins a gloo group of WORLD ranks on the CPU with a 60 s
+timeout (parallel.initialize_multihost), takes its mesh from
+parallel.global_render_mesh(PxS) and renders `reference` at 32x24 and 8
+spp through driver.render_driver(mesh=) in segments of 4 spp (2 a rank),
+under a profiler. Writes to OUT (.npz) the frame, the collectives' counters
+(COLLECTIVE_CALLS, COLLECTIVE_BYTES), the timeouts of the mesh's groups,
+and the profiler's "pt.collective." spans and c10d:: collectives.
 """
 import os
 import sys
+
+if sys.argv[1] == "driver":
+    (rank, world, port, out, mesh_arg) = sys.argv[2:7]
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.set_num_threads(1)
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.driver import render_driver
+    from pathtracer_tpu_torch.parallel import (global_render_mesh,
+                                               initialize_multihost)
+    from pathtracer_tpu_torch.parallel import mesh as pmesh
+    from pathtracer_tpu_torch.scenes import get_scene
+
+    dev = initialize_multihost(f"127.0.0.1:{port}", int(world), int(rank),
+                               device_type="cpu", timeout_s=60)
+    mesh = global_render_mesh(pmesh.parse_mesh(mesh_arg))
+    timeouts = [g._get_backend(dev).options._timeout.total_seconds()
+                for g in (mesh.spp_group, mesh.pixels_group)
+                if g is not None]
+    os.environ["PT_SEG_SPP"] = "2"
+    cfg = RenderConfig(width=32, height=24, samples=8, samples_per_pass=2)
+    sc = get_scene("reference", cfg)
+    arrays, meta = sc.pack(device=dev)
+    pmesh.reset_collective_time()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        img, stats = render_driver(arrays, meta, sc.camera, cfg, mesh=mesh)
+    events = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events()
+              if e.name.startswith(("pt.collective.", "c10d::"))]
+    np.savez(out, img=img, segments=stats.segments, timeouts=timeouts,
+             calls=[pmesh.COLLECTIVE_CALLS[k] for k in pmesh.COLLECTIVE_S],
+             nbytes=[pmesh.COLLECTIVE_BYTES[k] for k in pmesh.COLLECTIVE_S],
+             seconds=[pmesh.COLLECTIVE_S[k] for k in pmesh.COLLECTIVE_S],
+             events=np.array(events, dtype=object))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    print(f"rank {rank}: ok")
+    sys.exit(0)
 
 (rank, world, port, cli_port, flush_port, stop_port, resume_port, out,
  mesh_arg) = sys.argv[1:10]

@@ -10,6 +10,12 @@ written by rank 0 alone, equals the driver's on the LogicalMesh. A
 failure on one rank stops or rewinds both, and a resume from the
 checkpoint that rank 0 alone holds is bit-equal. No JAX runs in the
 ranks.
+
+Four processes over gloo (the "driver" form of the worker): the render
+driver over the (2, 2) mesh of global_render_mesh, bit for bit the
+LogicalMesh's frame; the collectives' counters of the frame's one flush
+and its votes; every collective inside its "pt.collective." span under a
+profiler; the mesh's groups under the timeout the group was joined with.
 """
 import json
 import os
@@ -18,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist import run_two_ranks
+from _torch_dist import run_driver_ranks, run_two_ranks
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.driver import render_driver
 from pathtracer_tpu_torch.io.raw import read_raw
@@ -85,3 +91,74 @@ def test_two_gloo_ranks_gather_the_logical_mesh_frame(tmp_path, shape,
     assert rec["recoveries"] == 1 and rec["segments"] == 1
     assert np.array_equal(read_raw(outs[0][:-4] + ".resume.raw"),
                           read_raw(outs[0][:-4] + ".raw"))
+
+
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    """The four ranks' outputs of one 2x2 render (the worker's "driver"
+    form), loaded."""
+    outs = run_driver_ranks(tmp_path_factory.mktemp("four"), "2x2")
+    return [np.load(o, allow_pickle=True) for o in outs]
+
+
+def _logical_frame():
+    cfg = RenderConfig(width=32, height=24, samples=8, samples_per_pass=2)
+    sc = get_scene("reference", cfg)
+    arrays, meta = sc.pack(device=torch.device("cpu"))
+    return render_driver(arrays, meta, sc.camera, cfg,
+                         mesh=LogicalMesh((2, 2)))
+
+
+def test_four_gloo_ranks_gather_the_logical_mesh_frame(four_ranks,
+                                                       monkeypatch):
+    for r in four_ranks[1:]:
+        assert np.array_equal(r["img"], four_ranks[0]["img"])
+    monkeypatch.setenv("PT_SEG_SPP", "2")
+    want, stats = _logical_frame()
+    assert stats.backend == "megakernel@2x2" and stats.segments == 2
+    assert int(four_ranks[0]["segments"]) == 2
+    assert want.shape == (24, 32, 3) and want.mean() > 0.01
+    assert np.array_equal(four_ranks[0]["img"], want)
+
+
+def test_mesh_counters_read_the_frames_flush_and_votes(four_ranks):
+    """One flush (the frame's end): one all_reduce over the spp axis and
+    one all_gather over the pixels axis, each of this rank's shard (64 of
+    the 128 padded tile rows of 256 slots, 3 f32 sums a slot); one vote of
+    two int64 flags a segment."""
+    shard = 64 * 256 * 3 * 4
+    for r in four_ranks:
+        assert r["calls"].tolist() == [1, 1, 2]
+        assert r["nbytes"].tolist() == [shard, shard, 2 * 2 * 8]
+        assert (r["seconds"] > 0).all()
+
+
+def test_every_collective_lies_inside_its_span(four_ranks):
+    want = {"c10d::allreduce_": ("pt.collective.all_reduce",
+                                 "pt.collective.host"),
+            "c10d::allgather_": ("pt.collective.all_gather",)}
+    for r in four_ranks:
+        events = [tuple(e) for e in r["events"]]
+        spans = [e for e in events if e[0].startswith("pt.collective.")]
+        ops = [e for e in events if e[0].startswith("c10d::")]
+        assert sorted(n for n, _, _ in spans) == (
+            ["pt.collective.all_gather", "pt.collective.all_reduce"]
+            + ["pt.collective.host"] * 2)
+        assert sorted(n for n, _, _ in ops) == (
+            ["c10d::allgather_"] + ["c10d::allreduce_"] * 3)
+        for name, a, b in ops:
+            inside = [s for s in spans if s[1] <= a and b <= s[2]]
+            assert len(inside) == 1 and inside[0][0] in want[name], (
+                name, inside)
+        # one collective a span
+        for s in spans:
+            assert sum(s[1] <= a and b <= s[2] for _, a, b in ops) == 1
+
+
+def test_mesh_groups_take_the_groups_timeout(four_ranks):
+    """The axes' groups of global_render_mesh time out with the group
+    initialize_multihost joined (60 s here), not after
+    torch.distributed's default for their backend (30 minutes for gloo,
+    10 for NCCL)."""
+    for r in four_ranks:
+        assert r["timeouts"].tolist() == [60.0, 60.0]
